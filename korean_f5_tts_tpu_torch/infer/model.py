@@ -18,6 +18,7 @@ from korean_f5_tts_tpu.text.vocab import load_vocab_file
 from korean_f5_tts_tpu_torch.config import DiTConfig, ModelConfig
 from korean_f5_tts_tpu_torch.models.dit import init_dit
 from korean_f5_tts_tpu_torch.models.modules import cast_params
+from korean_f5_tts_tpu_torch.models.quant import quantize_params
 from korean_f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded
 from korean_f5_tts_tpu_torch.train.checkpoint import load_npz_params, params_from_jax
 
@@ -71,10 +72,15 @@ def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
                tokenizer: str | None = None, use_skip_tc: bool = False,
                use_n2gk_plus: bool = True, tokenizer_version: str = "new",
                dtype: torch.dtype | None = None, seed: int = 0,
-               device="cpu") -> TTSModel:
+               device="cpu", quantize: bool = False) -> TTSModel:
     """Ready-to-infer TTSModel on `device`: DiT from a JAX .npz checkpoint
     (ckpt_path) or seeded random init. A vocab file sets
-    text_num_embeds = vocab size + 1, as in the JAX package."""
+    text_num_embeds = vocab size + 1, as in the JAX package.
+
+    quantize=True rewrites the block linears to int8 weights
+    (models/quant.py: DEFAULT_QUANT_PATTERNS) after the dtype cast, as
+    infer/model.py:170-184 does; the sampler then takes the int8 kernels.
+    Only this argument picks the int8 path (no environment variable)."""
     device = torch.device(device)
     vocab_char_map = None
     arch = model_cfg.arch
@@ -90,6 +96,8 @@ def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
         params = init_dit(arch, seed=seed, device=device)
     if dtype is not None:
         params = cast_params(params, dtype)
+    if quantize:
+        params = quantize_params(params)
     return TTSModel(params=params, arch=arch, mel=model_cfg.mel,
                     vocab_char_map=vocab_char_map, device=device,
                     tokenizer_type=tokenizer or model_cfg.tokenizer,

@@ -2,11 +2,13 @@
 
 Ported: init_dit, text_embedding, precompute_step_modulations,
 precompute_input_static, input_embedding_premix, dit_backbone_premod and
-dit_forward_cfg_premod: the functions the sampler's CFG loop runs. The FF
-half-block always takes the fused kernel B (the JAX package's bf16 TPU
-default); the attention-side linears stay plain matmuls, as the bf16 TPU
-default leaves them (dit.py:373-379). The training forward, long skip and
-average upsampling wait for later slices.
+dit_forward_cfg_premod: the functions the sampler's CFG loop runs, for bf16
+and for int8 weights (models/quant.py). bf16: the FF half-block takes kernel
+B; the attention-side linears stay plain matmuls, as the bf16 TPU default
+leaves them (dit.py:373-379). int8: the dispatch of dit.py:394-509 without
+tensor parallelism (kernels 5, A, 6 and 4, or kernel 9 per projection under
+a duration mask). The training forward, long skip and average upsampling
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +22,10 @@ import torch.nn.functional as F
 
 from korean_f5_tts_tpu_torch.config import DiTConfig
 from korean_f5_tts_tpu_torch.models.modules import (
+    _merge_heads,
+    _split_heads,
     _uniform,
+    apply_rope,
     attention,
     cast_params,
     conv1d_init,
@@ -36,7 +41,19 @@ from korean_f5_tts_tpu_torch.models.modules import (
     rope_cos_sin,
     timestep_embedding,
 )
-from korean_f5_tts_tpu_torch.ops.ff_block import ff_block_fused, ff_block_reference
+from korean_f5_tts_tpu_torch.ops.attention import sdpa
+from korean_f5_tts_tpu_torch.ops.ff_block import (
+    ff_block_fused,
+    ff_block_fused_int8,
+    ff_block_int8_reference,
+    ff_block_reference,
+)
+from korean_f5_tts_tpu_torch.ops.fused_linears import (
+    ln_mod_matmul_int8,
+    ln_mod_matmul_int8_reference,
+    proj_gated_residual_int8,
+    proj_gated_residual_int8_reference,
+)
 
 PRECOMPUTE_MAX_POS = 8192  # ~87 s of 24 kHz audio at hop 256 (dit.py:44)
 
@@ -211,30 +228,63 @@ def precompute_step_modulations(p: dict, cfg: DiTConfig, ts: torch.Tensor):
     return mods, mod_final, t_embs
 
 
+def _attention_half_int8(ap: dict, cfg: DiTConfig, h: torch.Tensor, scale, shift, gate,
+                         rope, prefix_lens, kernels: bool) -> torch.Tensor:
+    """h + gate * attention(LN(h) * (1 + scale) + shift) with int8 projections,
+    fused as dit.py:424-463: kernel 5 (LN, modulation, quantization and the
+    q/k/v products in one launch), rope, kernel A, kernel 6 (out-projection
+    folded into the gated residual)."""
+    lmm = ln_mod_matmul_int8 if kernels else ln_mod_matmul_int8_reference
+    pgr = proj_gated_residual_int8 if kernels else proj_gated_residual_int8_reference
+    qkv = lmm(h, scale, shift, [ap["to_q"], ap["to_k"], ap["to_v"]])
+    inner = ap["to_q"]["w_int8"].shape[0]
+    q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], cfg.heads) for i in range(3))
+    q = apply_rope(q, *rope, cfg.pe_attn_head)
+    k = apply_rope(k, *rope, cfg.pe_attn_head)
+    a = _merge_heads(sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels))
+    return pgr(a, h, gate, ap["to_out"])
+
+
 def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
                         mods: torch.Tensor, mod_final: torch.Tensor,
                         mask: torch.Tensor | None = None,
                         pad_mask: torch.Tensor | None = None,
                         kernels: bool = True) -> torch.Tensor:
     """One sampling step of the backbone with precomputed modulations
-    (dit.py:323-528, bf16 branches). mods: [depth, 6*dim] shared across the
-    batch, mod_final: [2*dim]. Attention runs kernel A, the FF half-block
-    kernel B; kernels=False runs their plain versions."""
+    (dit.py:323-528). mods: [depth, 6*dim] shared across the batch,
+    mod_final: [2*dim]. kernels=False runs every kernel's plain version
+    through the same dispatch.
+
+    Per block, as the JAX dispatch (dit.py:394-520) decides it:
+      - attention: int8 projections and no duration mask -> kernels 5, A, 6;
+        otherwise norm + attention() (kernel A; kernel 9 per int8 projection);
+      - FF half-block: int8 ff/in -> kernel 4; otherwise kernel B.
+    """
     rope = _rope_table(h.shape[1], cfg.dim_head, h.device)
+    prefix_lens = pad_mask.sum(dim=-1, dtype=torch.int32) if pad_mask is not None else None
     ff = ff_block_fused if kernels else ff_block_reference
+    ff_int8 = ff_block_fused_int8 if kernels else ff_block_int8_reference
     for i, blk in enumerate(p["blocks"]):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
             mods[i].to(h.dtype).chunk(6))
-        norm = layernorm({}, h, eps=1e-6) * (1 + scale_msa) + shift_msa
-        attn_out = attention(blk["attn"], norm, cfg.heads, mask=mask, rope=rope,
-                             pe_attn_head=cfg.pe_attn_head,
-                             attn_mask_enabled=cfg.attn_mask_enabled,
-                             pad_mask=pad_mask, kernels=kernels)
-        h = h + gate_msa * attn_out
+        ap = blk["attn"]
+        if mask is None and all("w_int8" in ap[n] for n in ("to_q", "to_k", "to_v", "to_out")):
+            h = _attention_half_int8(ap, cfg, h, scale_msa, shift_msa, gate_msa, rope,
+                                     prefix_lens, kernels)
+        else:
+            norm = layernorm({}, h, eps=1e-6) * (1 + scale_msa) + shift_msa
+            attn_out = attention(ap, norm, cfg.heads, mask=mask, rope=rope,
+                                 pe_attn_head=cfg.pe_attn_head,
+                                 attn_mask_enabled=cfg.attn_mask_enabled,
+                                 pad_mask=pad_mask, kernels=kernels)
+            h = h + gate_msa * attn_out
         fp = blk["ff"]
-        h = ff(h, scale_mlp, shift_mlp, gate_mlp, fp["in"]["w"].to(h.dtype),
-               fp["in"]["b"].to(h.dtype), fp["out"]["w"].to(h.dtype),
-               fp["out"]["b"].to(h.dtype))
+        if "w_int8" in fp["in"]:
+            h = ff_int8(h, scale_mlp, shift_mlp, gate_mlp, fp["in"], fp["out"])
+        else:
+            h = ff(h, scale_mlp, shift_mlp, gate_mlp, fp["in"]["w"].to(h.dtype),
+                   fp["in"]["b"].to(h.dtype), fp["out"]["w"].to(h.dtype),
+                   fp["out"]["b"].to(h.dtype))
     scale, shift = mod_final.to(h.dtype).chunk(2)
     h = layernorm({}, h, eps=1e-6) * (1 + scale) + shift
     return linear(p["proj_out"], h)

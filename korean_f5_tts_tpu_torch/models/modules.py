@@ -3,7 +3,8 @@
 Counterpart of korean_f5_tts_tpu/models/modules.py (the pieces the serving
 path uses). Parameter trees keep the JAX package's keys; layouts:
   - Linear {"w": [out, in], "b": [out]} (torch layout; the converter in
-    train/checkpoint.py transposes the JAX [in, out]).
+    train/checkpoint.py transposes the JAX [in, out]); the int8 form of
+    models/quant.py is {"w_int8": [out, in], "w_scale": [out] fp32, "b"}.
   - Conv1d {"w": [k, in/groups, out], "b": [out]}: the JAX layout, kept so
     the grouped-conv kernel reads it as is; plain convs permute a view.
   - Rotary embedding is half-split (NeoX form), as in the JAX package.
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from korean_f5_tts_tpu_torch.models.quant import qlinear
 from korean_f5_tts_tpu_torch.ops import grouped_conv as _gconv
 from korean_f5_tts_tpu_torch.ops.attention import sdpa
 
@@ -57,9 +59,10 @@ def conv1d_init(gen, c_in: int, c_out: int, kernel: int, device, groups: int = 1
 
 
 def cast_params(tree, dtype: torch.dtype):
-    """Cast every floating leaf of a parameter tree to `dtype`."""
+    """Cast every floating leaf of a parameter tree to `dtype`, except the
+    int8 linears' w_scale, which stays fp32 (models/quant.py)."""
     if isinstance(tree, dict):
-        return {k: cast_params(v, dtype) for k, v in tree.items()}
+        return {k: v if k == "w_scale" else cast_params(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [cast_params(v, dtype) for v in tree]
     return tree.to(dtype) if tree.is_floating_point() else tree
@@ -70,7 +73,11 @@ def cast_params(tree, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+def linear(p: dict, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    """y = x @ w^T + b; an int8 linear ({"w_int8", ...}) goes to qlinear
+    (kernel 9, or its plain version with kernels=False), as modules.py:47-51."""
+    if "w_int8" in p:
+        return qlinear(p, x, kernels=kernels)
     return F.linear(x, p["w"].to(x.dtype), p["b"].to(x.dtype) if "b" in p else None)
 
 
@@ -268,22 +275,27 @@ def attention(p: dict, x: torch.Tensor, heads: int,
     item describes it and the prefix-attention kernel runs.
     Bucket-tail rows are not zeroed (nothing downstream mixes positions and
     callers slice them off), as in the JAX package.
+    bf16/fp32 projections run as one fused qkv product; int8 ones
+    (models/quant.py) take the per-projection path through linear, as
+    modules.py:536-539 does, each a kernel-9 launch.
     """
     attn_mask = mask if (attn_mask_enabled and mask is not None) else pad_mask
     prefix_lens = attn_mask.sum(dim=-1, dtype=torch.int32) if attn_mask is not None else None
-    wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]], dim=0).to(x.dtype)
-    bqkv = torch.cat([p["to_q"]["b"], p["to_k"]["b"], p["to_v"]["b"]]).to(x.dtype)
-    qkv = F.linear(x, wqkv, bqkv)
-    inner = p["to_q"]["w"].shape[0]
-    q = _split_heads(qkv[..., :inner], heads)
-    k = _split_heads(qkv[..., inner:2 * inner], heads)
-    v = _split_heads(qkv[..., 2 * inner:], heads)
+    if all("w" in p[n] and "b" in p[n] for n in ("to_q", "to_k", "to_v")):
+        wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]], dim=0).to(x.dtype)
+        bqkv = torch.cat([p["to_q"]["b"], p["to_k"]["b"], p["to_v"]["b"]]).to(x.dtype)
+        qkv = F.linear(x, wqkv, bqkv)
+        inner = p["to_q"]["w"].shape[0]
+        q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], heads) for i in range(3))
+    else:
+        q, k, v = (_split_heads(linear(p[n], x, kernels=kernels), heads)
+                   for n in ("to_q", "to_k", "to_v"))
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin, pe_attn_head)
         k = apply_rope(k, cos, sin, pe_attn_head)
     out = _merge_heads(sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels))
-    out = linear(p["to_out"], out)
+    out = linear(p["to_out"], out, kernels=kernels)
     if mask is not None:
         out = out.masked_fill(~mask[..., None], 0.0)
     return out

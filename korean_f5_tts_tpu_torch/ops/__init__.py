@@ -1,25 +1,37 @@
 """Kernels of the port and the plain tensor code around them.
 
-Each kernel module keeps a plain integer `launches` that its wrapper raises
-by one per kernel launch (plain calls do not count), so a run can show that
-the main path went through the kernels.
+Each kernel keeps a plain integer counter in its wrapper's module that the
+wrapper raises by one per kernel launch (plain calls do not count), so a run
+can show that the main path went through the kernels. A module that holds
+two kernels keeps one counter for each.
 """
 
 from __future__ import annotations
 
-from korean_f5_tts_tpu_torch.ops import ff_block, flash_prefix, grouped_conv
+from korean_f5_tts_tpu_torch.ops import (
+    ff_block,
+    flash_prefix,
+    fused_linears,
+    grouped_conv,
+    qmatmul,
+)
 
-KERNEL_MODULES = {
-    "flash_prefix": flash_prefix,
-    "ff_block": ff_block,
-    "grouped_conv": grouped_conv,
+# kernel name -> (wrapper module, name of its launch counter)
+KERNELS = {
+    "flash_prefix": (flash_prefix, "launches"),
+    "ff_block": (ff_block, "launches"),
+    "grouped_conv": (grouped_conv, "launches"),
+    "ff_block_int8": (ff_block, "launches_int8"),
+    "ln_mod_matmul_int8": (fused_linears, "launches_ln_mod_int8"),
+    "proj_gated_residual_int8": (fused_linears, "launches_proj_gated_int8"),
+    "qmatmul": (qmatmul, "launches"),
 }
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)

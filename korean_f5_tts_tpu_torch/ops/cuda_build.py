@@ -2,10 +2,12 @@
 
 The sources compile with nvcc into one shared library with a plain C
 interface, loaded with ctypes: a build takes seconds, where a PyTorch C++
-extension takes minutes. The build runs on first use, from the package's own
-sources, into ``korean_f5_tts_tpu_torch/_build/`` (listed in .gitignore); the
-library name carries a hash of the sources and flags, so an edited kernel is
-rebuilt and a stale one is never loaded.
+extension takes minutes. Each source compiles in its own nvcc process, all
+started together, and one more nvcc links the objects. The build runs on
+first use, from the package's own sources, into
+``korean_f5_tts_tpu_torch/_build/`` (listed in .gitignore); the library name
+carries a hash of the sources and flags, so an edited kernel is rebuilt and
+a stale one is never loaded.
 
 Nothing here runs at import time, and nothing falls back: a missing nvcc, a
 compile error or a refused launch raises.
@@ -25,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -42,6 +44,16 @@ _SIGNATURES = {
     "f5_ff_block_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w, b, out, B, N, C, groups, taps, fuse_mish, device, stream
     "f5_grouped_conv_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, w_scale, b, xq, xs, out, M, K, N, gelu, device, stream
+    "f5_qmatmul_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # h, sc, sh, w0..w2, ws0..ws2, b0..b2, yq, ys, out, M, d, seg_n, nseg, eps,
+    # device, stream
+    "f5_ln_mod_matmul_int8_fwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _P),
+    # a, h, gate, w, ws, b, aq, as, out, M, din, d, device, stream
+    "f5_proj_gated_int8_fwd": (_P,) * 9 + (_I, _I, _I, _I, _P),
+    # h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq, zs, out, M, d,
+    # dff, eps, device, stream
+    "f5_ff_block_int8_fwd": (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
 }
 
 
@@ -68,21 +80,42 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the build directory (once per source hash)."""
+    """Compile csrc/*.cu into the build directory (once per source hash):
+    one nvcc per source, all at once, then one link."""
     global build_seconds, build_log
     out = BUILD_DIR / f"libf5kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((src.name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=CSRC)))
+    logs, failed = [], []
+    for name, _, proc in jobs:  # wait for every compiler before anything else
+        logs.append(f"== {name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(name)
+    objs = [obj for _, obj, _ in jobs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, cwd=CSRC)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "\n".join(logs)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)
     out.with_suffix(".log").write_text(build_log)
     return out

@@ -1,11 +1,14 @@
-"""Fused DiT FF half-block: Hopper kernel B and its plain version.
+"""Fused DiT FF half-block: Hopper kernels B (bf16) and 4 (int8) and their
+plain versions.
 
-Counterpart of korean_f5_tts_tpu/ops/ff_block.py (bf16 only):
+Counterpart of korean_f5_tts_tpu/ops/ff_block.py:
     out = h + gate * FF(LN(h) * (1 + sc) + sh)
 with FF = Linear(d -> dff) -> GELU(tanh) -> Linear(dff -> d). Weights are in
-the port's torch layout: w1 [dff, d], w2 [d, dff]. The kernel
-(csrc/ff_block.cu) replaces the TPU's _kernel; its source note records the
-two-kernel design (z written once between the two products).
+the port's torch layout: w1 [dff, d], w2 [d, dff]; the int8 form takes the
+int8 linears of models/quant.py ({w_int8, w_scale, b}, same layout). Kernel
+B (csrc/ff_block.cu) replaces the TPU's _kernel, kernel 4
+(csrc/ff_block_int8.cu) its _kernel_int8; their source notes record the
+designs.
 """
 
 from __future__ import annotations
@@ -14,8 +17,16 @@ import torch
 import torch.nn.functional as F
 
 from korean_f5_tts_tpu_torch.ops import cuda_build
+from korean_f5_tts_tpu_torch.ops.fused_linears import ln_mod_rows
+from korean_f5_tts_tpu_torch.ops.qmatmul import (
+    check_int8_linear,
+    check_tensor,
+    int8_product,
+    quant_rows_reference,
+)
 
-launches = 0  # kernel launches by ff_block_fused (not plain calls)
+launches = 0       # kernel B launches by ff_block_fused (not plain calls)
+launches_int8 = 0  # kernel 4 launches by ff_block_fused_int8
 
 
 def ff_block_reference(h, sc, sh, gate, w1, b1, w2, b2, eps: float = 1e-6):
@@ -69,4 +80,61 @@ def ff_block_fused(h, sc, sh, gate, w1, b1, w2, b2, eps: float = 1e-6):
         m, d, dff, eps, h.device.index, cuda_build.stream_of(h))
     cuda_build.check(err, "ff_block_fwd")
     launches += 1
+    return out
+
+
+def ff_block_int8_reference(h, sc, sh, gate, qp_in: dict, qp_out: dict,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of kernel 4 with the TPU kernel's rounding points
+    (ff_block.py:101-126): y = LN(h)(1+sc)+sh in fp32, quantized per row;
+    z = gelu_tanh(acc * ys * w1s + b1) in fp32, quantized per row from fp32
+    (never rounded to bf16); out = h + gate * (acc * zs * w2s + b2) in fp32,
+    one cast. Integer products exact (int8_product)."""
+    yq, ys = quant_rows_reference(ln_mod_rows(h, sc, sh, eps))
+    z = int8_product(yq, qp_in["w_int8"]) * ys * qp_in["w_scale"].float()
+    z = F.gelu(z + qp_in["b"].float(), approximate="tanh")
+    zq, zs = quant_rows_reference(z)
+    o = int8_product(zq, qp_out["w_int8"]) * zs * qp_out["w_scale"].float()
+    o = o + qp_out["b"].float()
+    return (h.float() + gate.float() * o).to(h.dtype)
+
+
+def ff_block_fused_int8(h, sc, sh, gate, qp_in: dict, qp_out: dict,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """Kernel 4 wrapper: h [B, n, d] bf16, sc/sh/gate [d] bf16, qp_in
+    {w_int8 [dff, d], w_scale [dff], b [dff]}, qp_out {w_int8 [d, dff],
+    w_scale [d], b [d]} -> [B, n, d] bf16.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; nothing falls back. Any number of rows; d, dff multiples of 128.
+    """
+    global launches_int8
+    if h.device.type == "cpu":
+        return ff_block_int8_reference(h, sc, sh, gate, qp_in, qp_out, eps)
+    d = h.shape[-1]
+    dff = qp_in["w_int8"].shape[0]
+    for name, v in (("sc", sc), ("sh", sh), ("gate", gate)):
+        check_tensor("ff_block_int8", name, v, (d,), torch.bfloat16)
+    for qp, n, k in ((qp_in, dff, d), (qp_out, d, dff)):
+        if "b" not in qp:
+            raise ValueError("ff_block_int8: the linears need a bias")
+        check_int8_linear("ff_block_int8", h, qp["w_int8"], qp["w_scale"], qp["b"], n, k)
+    cuda_build.require_cuda("ff_block_int8", h, sc, sh, gate)
+    m = h.numel() // d
+    dev = h.device
+    yq = torch.empty((m, d), dtype=torch.int8, device=dev)
+    ys = torch.empty((m,), dtype=torch.float32, device=dev)
+    z = torch.empty((m, dff), dtype=torch.float32, device=dev)
+    zq = torch.empty((m, dff), dtype=torch.int8, device=dev)
+    zs = torch.empty((m,), dtype=torch.float32, device=dev)
+    out = torch.empty_like(h)
+    lib = cuda_build.library()
+    err = lib.f5_ff_block_int8_fwd(
+        h.data_ptr(), sc.data_ptr(), sh.data_ptr(), gate.data_ptr(),
+        qp_in["w_int8"].data_ptr(), qp_in["w_scale"].data_ptr(), qp_in["b"].data_ptr(),
+        qp_out["w_int8"].data_ptr(), qp_out["w_scale"].data_ptr(), qp_out["b"].data_ptr(),
+        yq.data_ptr(), ys.data_ptr(), z.data_ptr(), zq.data_ptr(), zs.data_ptr(),
+        out.data_ptr(), m, d, dff, eps, dev.index, cuda_build.stream_of(h))
+    cuda_build.check(err, "ff_block_int8_fwd")
+    launches_int8 += 1
     return out

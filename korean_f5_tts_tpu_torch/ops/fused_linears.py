@@ -1,0 +1,138 @@
+"""Fused int8 attention-side linears: Hopper kernels 5 and 6 and their plain versions.
+
+Counterparts of korean_f5_tts_tpu/ops/fused_linears.py (the int8 functions):
+  ln_mod_matmul_int8        out = (q(LN(h) * (1 + sc) + sh) @ W^T) * ys * ws + b
+                            (kernel 5: AdaLN-modulated norm + fused qkv product)
+  proj_gated_residual_int8  out = h + gate * ((q(a) @ W^T) * as * ws + b)
+                            (kernel 6: out-projection folded into the gated residual)
+Weights are int8 linears of models/quant.py in the port's layout: w_int8
+[d_out, d_in], w_scale [d_out] fp32, b [d_out]. The kernels
+(csrc/fused_linears_int8.cu) replace the TPU's _ln_mod_matmul_int8_kernel
+and _proj_gated_int8_kernel; each keeps one launch counter.
+
+ln_mod_matmul_int8 takes a list of linears sharing one input (to_q, to_k,
+to_v) and returns their outputs side by side: every projection quantizes the
+same rows with the same per-row scale, so this is the JAX package's product
+with the concatenated weight (dit.py:429-438), without building that weight.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from korean_f5_tts_tpu_torch.ops import cuda_build
+from korean_f5_tts_tpu_torch.ops.qmatmul import (
+    check_int8_linear,
+    check_tensor,
+    int8_product,
+    quant_rows_reference,
+)
+
+launches_ln_mod_int8 = 0       # kernel 5 launches by ln_mod_matmul_int8
+launches_proj_gated_int8 = 0   # kernel 6 launches by proj_gated_residual_int8
+
+MAX_SEGMENTS = 3  # linears one kernel-5 launch takes (q, k, v)
+
+
+def ln_mod_rows(h: torch.Tensor, sc: torch.Tensor, sh: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """fp32 LN(h) * (1 + sc) + sh, never rounded: the TPU int8 kernels
+    quantize this value straight from fp32 (fused_linears.py:111-117,
+    ff_block.py:108-115)."""
+    xf = h.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return xc * torch.rsqrt(var + eps) * (1.0 + sc.float()) + sh.float()
+
+
+def ln_mod_matmul_int8_reference(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of kernel 5 (fused_linears.py:109-121): y in fp32, one
+    per-row quantization, exact integer product, fp32 acc * ys * ws + b, one
+    cast to h's dtype. qps: a list of int8 linears whose outputs are
+    concatenated."""
+    w = torch.cat([p["w_int8"] for p in qps], dim=0)
+    ws = torch.cat([p["w_scale"] for p in qps]).float()
+    b = torch.cat([p["b"] for p in qps]).float()
+    q, s = quant_rows_reference(ln_mod_rows(h, sc, sh, eps))
+    return (int8_product(q, w) * s * ws + b).to(h.dtype)
+
+
+def proj_gated_residual_int8_reference(a, h, gate, qp) -> torch.Tensor:
+    """Plain version of kernel 6 (fused_linears.py:156-164): q(a) from fp32,
+    exact integer product, fp32 h + gate * (acc * as * ws + b), one cast."""
+    q, s = quant_rows_reference(a)
+    o = int8_product(q, qp["w_int8"]) * s * qp["w_scale"].float() + qp["b"].float()
+    return (h.float() + gate.float() * o).to(h.dtype)
+
+
+def ln_mod_matmul_int8(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:
+    """Kernel 5 wrapper: h [..., d] bf16, sc/sh [d] bf16, qps a list of one
+    to three int8 linears of one shape ({w_int8 [n, d], w_scale [n], b [n]})
+    -> [..., n * len(qps)] bf16.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; nothing falls back. Any number of rows; d % 64 == 0, n % 128 == 0.
+    """
+    global launches_ln_mod_int8
+    if h.device.type == "cpu":
+        return ln_mod_matmul_int8_reference(h, sc, sh, qps, eps)
+    if not 1 <= len(qps) <= MAX_SEGMENTS:
+        raise ValueError(f"ln_mod_matmul_int8: 1 to {MAX_SEGMENTS} linears, got {len(qps)}")
+    d = h.shape[-1]
+    n = qps[0]["w_int8"].shape[0]
+    for name, v in (("sc", sc), ("sh", sh)):
+        check_tensor("ln_mod_matmul_int8", name, v, (d,), torch.bfloat16)
+    for p in qps:
+        if "b" not in p:
+            raise ValueError("ln_mod_matmul_int8: the linears need a bias")
+        check_int8_linear("ln_mod_matmul_int8", h, p["w_int8"], p["w_scale"], p["b"], n, d)
+    cuda_build.require_cuda("ln_mod_matmul_int8", h, sc, sh)
+    m = h.numel() // d
+    yq = torch.empty((m, d), dtype=torch.int8, device=h.device)
+    ys = torch.empty((m,), dtype=torch.float32, device=h.device)
+    out = torch.empty((*h.shape[:-1], n * len(qps)), dtype=h.dtype, device=h.device)
+    seg = [qps[min(i, len(qps) - 1)] for i in range(MAX_SEGMENTS)]
+    lib = cuda_build.library()
+    err = lib.f5_ln_mod_matmul_int8_fwd(
+        h.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+        *(p["w_int8"].data_ptr() for p in seg), *(p["w_scale"].data_ptr() for p in seg),
+        *(p["b"].data_ptr() for p in seg), yq.data_ptr(), ys.data_ptr(), out.data_ptr(),
+        m, d, n, len(qps), eps, h.device.index, cuda_build.stream_of(h))
+    cuda_build.check(err, "ln_mod_matmul_int8_fwd")
+    launches_ln_mod_int8 += 1
+    return out
+
+
+def proj_gated_residual_int8(a, h, gate, qp) -> torch.Tensor:
+    """Kernel 6 wrapper: a [..., din] bf16, h [..., d] bf16, gate [d] bf16,
+    qp {w_int8 [d, din], w_scale [d], b [d]} -> [..., d] bf16.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; nothing falls back. Any number of rows; din % 64 == 0, d % 128 == 0.
+    """
+    global launches_proj_gated_int8
+    if a.device.type == "cpu":
+        return proj_gated_residual_int8_reference(a, h, gate, qp)
+    din, d = a.shape[-1], h.shape[-1]
+    if a.shape[:-1] != h.shape[:-1]:
+        raise ValueError(f"proj_gated_residual_int8: a {tuple(a.shape)} and h "
+                         f"{tuple(h.shape)} must have the same rows")
+    if "b" not in qp:
+        raise ValueError("proj_gated_residual_int8: the linear needs a bias")
+    check_tensor("proj_gated_residual_int8", "gate", gate, (d,), torch.bfloat16)
+    check_int8_linear("proj_gated_residual_int8", a, qp["w_int8"], qp["w_scale"], qp["b"],
+                      d, din)
+    cuda_build.require_cuda("proj_gated_residual_int8", a, h, gate, dtype=torch.bfloat16)
+    m = a.numel() // din
+    aq = torch.empty((m, din), dtype=torch.int8, device=a.device)
+    as_ = torch.empty((m,), dtype=torch.float32, device=a.device)
+    out = torch.empty_like(h)
+    lib = cuda_build.library()
+    err = lib.f5_proj_gated_int8_fwd(
+        a.data_ptr(), h.data_ptr(), gate.data_ptr(), qp["w_int8"].data_ptr(),
+        qp["w_scale"].data_ptr(), qp["b"].data_ptr(), aq.data_ptr(), as_.data_ptr(),
+        out.data_ptr(), m, din, d, a.device.index, cuda_build.stream_of(a))
+    cuda_build.check(err, "proj_gated_int8_fwd")
+    launches_proj_gated_int8 += 1
+    return out

@@ -1,0 +1,129 @@
+"""Dynamic-int8 matmul: Hopper kernel 9 and its plain version.
+
+Counterpart of korean_f5_tts_tpu/ops/qmatmul.py:
+    y = (q(x) @ W_int8^T) * x_scale * w_scale + b   [then tanh-GELU]
+with per-row dynamic quantization of the activations and per-channel int8
+weights in the port's layout w_int8 [N, K] (models/quant.py). The kernel
+(csrc/qmatmul.cu) replaces the TPU's _qmm_kernel; its source note records
+the design (rows quantized once, then an int8 tensor-core product).
+
+quant_rows_reference and int8_product are the shared plain pieces of every
+int8 kernel of the port (qmatmul, fused_linears, ff_block).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from korean_f5_tts_tpu_torch.ops import cuda_build
+
+launches = 0  # kernel launches by qmatmul (not plain calls)
+
+ACT_SCALE_FLOOR = 1e-6  # activation scale floor (weights use 1e-8, quant.py)
+
+
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as an IEEE division on every device. PyTorch's CUDA division
+    by a Python number multiplies by its reciprocal instead, which rounds
+    differently (on an H100 it moved the scale of 160 of 3072 rows by an ulp
+    against the JAX package and the kernels); a tensor divisor divides."""
+    return t / torch.full_like(t, 127.0)
+
+
+def quant_rows_reference(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization of fp32 values, as the TPU kernels'
+    _quant_rows: s = max(max|y|, 1e-6) / 127 in fp32, q = clip(rint(y / s),
+    -127, 127) with IEEE divisions and ties to even (torch.round).
+    Returns (q as fp32 integer values, s [..., 1])."""
+    y = y.float()
+    s = div127(y.abs().amax(dim=-1, keepdim=True).clamp_min(ACT_SCALE_FLOOR))
+    return torch.clamp(torch.round(y / s), -127.0, 127.0), s
+
+
+def int8_product(q: torch.Tensor, w_int8: torch.Tensor) -> torch.Tensor:
+    """Exact integer product q @ w_int8^T, returned as its fp32 rounding.
+
+    Computed as a float64 matmul of the integer values: every product and
+    partial sum is an integer below 2**53, so the sum is exact in any order,
+    and the one rounding to fp32 is the int32 -> fp32 conversion of the TPU
+    kernel and of the card's kernels. (torch.matmul on int8 CPU tensors
+    wraps in int8, PyTorch has no int32 matmul on CUDA, and an fp32 product
+    is exact only while 127**2 * K < 2**24, i.e. K <= 1040.)
+    """
+    return torch.matmul(q.double(), w_int8.double().t()).float()
+
+
+def qmatmul_reference(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
+                      bias: torch.Tensor | None = None,
+                      activation: str | None = None) -> torch.Tensor:
+    """Plain version of kernel 9: x [M, K] -> [M, N] in x's dtype.
+
+    Rounding points of _qmm_kernel (qmatmul.py:24-37) and of the XLA qlinear
+    (quant.py:59-70): quantize x from fp32, exact integer product, then in
+    fp32 acc * x_scale * w_scale + b, optional tanh-GELU, one cast.
+    """
+    q, s = quant_rows_reference(x)
+    y = int8_product(q, w_int8) * s * w_scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    if activation == "gelu_tanh":
+        y = F.gelu(y, approximate="tanh")
+    elif activation is not None:
+        raise ValueError(f"qmatmul: unknown activation {activation!r}")
+    return y.to(x.dtype)
+
+
+def check_tensor(what: str, name: str, t: torch.Tensor, shape: tuple, dtype) -> None:
+    """ValueError on a wrong shape, TypeError on a wrong dtype."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, want {tuple(shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+
+
+def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int) -> None:
+    """Checks before a kernel launch: one int8 linear {w_int8 [n, k] int8,
+    w_scale [n] fp32, b [n] bf16 or None} on the CUDA device of the bf16
+    activations x, everything contiguous and 16-byte aligned."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: activations must be bfloat16, got {x.dtype}")
+    check_tensor(what, "w_int8", w_int8, (n, k), torch.int8)
+    check_tensor(what, "w_scale", w_scale, (n,), torch.float32)
+    if bias is not None:
+        check_tensor(what, "bias", bias, (n,), torch.bfloat16)
+    if k % 64 or n % 128:
+        raise ValueError(f"{what}: K={k} must be a multiple of 64 and N={n} of 128")
+    cuda_build.require_cuda(what, x, w_int8, w_scale, *([] if bias is None else [bias]))
+
+
+def qmatmul(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
+            bias: torch.Tensor | None = None, activation: str | None = None) -> torch.Tensor:
+    """Kernel 9 wrapper: x [M, K] bf16, w_int8 [N, K] int8, w_scale [N] fp32,
+    bias [N] bf16 or None, activation None or "gelu_tanh" -> [M, N] bf16.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; nothing falls back. Any M; K % 64 == 0, N % 128 == 0.
+    """
+    global launches
+    if x.device.type == "cpu":
+        return qmatmul_reference(x, w_int8, w_scale, bias, activation)
+    if activation not in (None, "gelu_tanh"):
+        raise ValueError(f"qmatmul: unknown activation {activation!r}")
+    if x.dim() != 2:
+        raise ValueError(f"qmatmul: x must be [M, K], got {tuple(x.shape)}")
+    m, k = x.shape
+    n = w_int8.shape[0]
+    check_int8_linear("qmatmul", x, w_int8, w_scale, bias, n, k)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = cuda_build.library()
+    err = lib.f5_qmatmul_fwd(
+        x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+        out.data_ptr(), m, k, n, int(activation == "gelu_tanh"), x.device.index,
+        cuda_build.stream_of(x))
+    cuda_build.check(err, "qmatmul_fwd")
+    launches += 1
+    return out

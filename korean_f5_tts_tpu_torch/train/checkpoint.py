@@ -4,7 +4,10 @@ Counterpart of korean_f5_tts_tpu/train/checkpoint.py:23-60 (flatten_tree /
 unflatten_tree) and the .npz prefix logic of infer/model.py:94-109. This is
 the one place where layouts change between the packages:
 
-  - linear weights: JAX [d_in, d_out] -> torch [d_out, d_in] (transposed);
+  - linear weights: JAX [d_in, d_out] -> torch [d_out, d_in] (transposed),
+    the int8 "w_int8" of a quantized linear (models/quant.py) as well;
+  - the int8 linears' "w_scale" stays fp32 whatever `dtype` asks for (the
+    JAX package quantizes after its dtype cast, infer/model.py:170-184);
   - embedding tables ("embed/w", 2-D): kept [num, dim];
   - conv weights (3-D "w"): kept in the JAX layout [k, c_in/groups, c_out],
     which the grouped-conv kernel reads as is;
@@ -64,7 +67,8 @@ def unflatten_tree(flat: dict[str, Any]) -> Any:
 
 def _is_linear_weight(path: str, ndim: int) -> bool:
     parts = path.split("/")
-    return parts[-1] == "w" and ndim == 2 and not (len(parts) > 1 and parts[-2] == "embed")
+    return (parts[-1] in ("w", "w_int8") and ndim == 2
+            and not (len(parts) > 1 and parts[-2] == "embed"))
 
 
 def params_from_jax(flat: dict[str, np.ndarray], device="cpu",
@@ -78,7 +82,7 @@ def params_from_jax(flat: dict[str, np.ndarray], device="cpu",
         if _is_linear_weight(path, arr.ndim):
             arr = arr.T  # [d_in, d_out] -> [d_out, d_in]
         t = torch.tensor(np.ascontiguousarray(arr), device=device)
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() and not path.endswith("/w_scale"):
             t = t.to(dtype)
         out[path] = t
     return unflatten_tree(out)

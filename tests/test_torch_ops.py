@@ -21,6 +21,7 @@ from korean_f5_tts_tpu.ops import flash_prefix as jfp
 from korean_f5_tts_tpu.ops import grouped_conv as jgc
 from korean_f5_tts_tpu.ops.attention import _xla_sdpa
 from korean_f5_tts_tpu_torch.ops import (
+    KERNELS,
     ff_block,
     flash_prefix,
     grouped_conv,
@@ -39,7 +40,7 @@ def _interpret_and_counts():
     reset_launch_counts()
     yield
     # on the CPU every wrapper takes its plain version: nothing launches
-    assert launch_counts() == {"flash_prefix": 0, "ff_block": 0, "grouped_conv": 0}
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
     jfp._INTERPRET, jff._INTERPRET = old
 
 

@@ -19,7 +19,7 @@ from _torch_port_util import rel_err, t, tiny_configs, tiny_dit, tiny_vocos
 from korean_f5_tts_tpu.models import cfm as jcfm
 from korean_f5_tts_tpu.models.vocos import vocos_decode as jax_vocos_decode
 from korean_f5_tts_tpu_torch.models import cfm as pcfm
-from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
 from korean_f5_tts_tpu_torch.utils.timesteps import make_schedule
 
 REL = 1e-4
@@ -61,7 +61,7 @@ def test_sample_core_16_nfe_epss_sway(case):
                             t(case["text"]), t(case["dur_mask"]), t(case["pad_mask"]),
                             t(case["y0"]), 2.0, -1.0, steps=16, use_cfg=True,
                             use_sway=True, use_epss=True)
-    assert launch_counts() == {"flash_prefix": 0, "ff_block": 0, "grouped_conv": 0}
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
     assert rel_err(_valid(got.numpy()), _valid(case["jax_mel"])) < REL
     # the schedule is the JAX package's EPSS table
     from korean_f5_tts_tpu.utils.timesteps import make_schedule as jax_schedule

@@ -2,7 +2,8 @@
 
 Two requests, each answered with int16 audio of (duration - ref_frames) * hop
 samples under the server's byte-ratio duration rule; on the CPU no kernel
-launches (the wrappers take their plain versions).
+launches (the wrappers take their plain versions). A bf16 model with int8
+weights (models/quant.py) goes through the same service unchanged.
 """
 
 import base64
@@ -20,9 +21,12 @@ from scipy.io import wavfile
 from korean_f5_tts_tpu.text.vocab import load_vocab_file
 from korean_f5_tts_tpu_torch.config import DiTConfig
 from korean_f5_tts_tpu_torch.infer.model import TTSModel
+from korean_f5_tts_tpu_torch.models import cfm as pcfm
+from korean_f5_tts_tpu_torch.models.modules import cast_params
+from korean_f5_tts_tpu_torch.models.quant import quantize_params
 from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
 from korean_f5_tts_tpu_torch.models.vocos import Vocos, VocosConfig, init_vocos
-from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
 from korean_f5_tts_tpu_torch.ops.mel import MelConfig
 from korean_f5_tts_tpu_torch.serving.server import TTSService, serve
 
@@ -72,7 +76,7 @@ def test_service_answers_two_requests(tiny_model):
             assert audio.size == _expected_samples(wav.size, tx)
             assert np.sqrt(np.mean(audio.astype(np.float64) ** 2)) > 0
         assert service.stats["requests"] == 2
-        assert launch_counts() == {"flash_prefix": 0, "ff_block": 0, "grouped_conv": 0}
+        assert launch_counts() == dict.fromkeys(KERNELS, 0)
     finally:
         service.shutdown(drain=False, timeout=5.0)
         service.batcher.close()
@@ -112,3 +116,49 @@ def test_http_roundtrip(tiny_model):
 def test_service_requires_a_fused_vocoder(tiny_model):
     with pytest.raises(ValueError):
         TTSService(tiny_model[0], None)
+
+
+def test_service_serves_an_int8_model_in_bf16(tiny_model, monkeypatch):
+    """One request alone (the fused int8 attention path), then two as one
+    batch (duration mask: int8 projections one by one); the compute-dtype
+    probe of _serve_core_vocos still picks bf16 for a tree that holds int8
+    weights and fp32 scales beside its bf16 leaves."""
+    model, vocoder = tiny_model
+    params = quantize_params(cast_params(model.params, torch.bfloat16))
+    assert params["blocks"][0]["attn"]["to_q"]["w_scale"].dtype == torch.float32
+    qmodel = TTSModel(params, model.arch, model.mel, model.vocab_char_map, model.device,
+                      tokenizer_type="pinyin")
+    qvocoder = Vocos(cast_params(vocoder.params, torch.bfloat16), vocoder.vcfg)
+    seen = []
+    core = pcfm._sample_core
+
+    def spy(params, arch, step_cond, text, mask, *args, **kwargs):
+        seen.append((step_cond.dtype, step_cond.shape[0], mask is None))
+        return core(params, arch, step_cond, text, mask, *args, **kwargs)
+
+    monkeypatch.setattr(pcfm, "_sample_core", spy)
+    service = TTSService(qmodel, qvocoder, max_batch=4, max_wait_us=200_000)
+    try:
+        reset_launch_counts()
+        wav = _chirp(2.0)
+        targets = ["Alone first.", "Then a pair, the first.", "And the second of the pair!"]
+
+        def submit(tx):
+            return service.submit({"ref_wav": wav, "sr": SR, "ref_text": REF_TEXT,
+                                   "target_text": tx, "seed": 5})
+
+        first = submit(targets[0])
+        assert first.event.wait(timeout=120)
+        pair = [submit(tx) for tx in targets[1:]]
+        for item, tx in zip([first, *pair], targets):
+            assert item.event.wait(timeout=120)
+            assert item.error is None, item.error
+            audio, sr = item.result
+            assert sr == SR and audio.dtype == np.int16
+            assert audio.size == _expected_samples(wav.size, tx)
+            assert np.sqrt(np.mean(audio.astype(np.float64) ** 2)) > 0
+        assert seen == [(torch.bfloat16, 1, True), (torch.bfloat16, 2, False)]
+        assert launch_counts() == dict.fromkeys(KERNELS, 0)
+    finally:
+        service.shutdown(drain=False, timeout=5.0)
+        service.batcher.close()
