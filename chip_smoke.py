@@ -6,10 +6,11 @@
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the Hopper kernels from
      korean_f5_tts_tpu_torch/csrc and print the build time;
-  2. hold each of the seven kernels (bf16: A, B, C; int8: 9, 5, 6, 4)
-     against its plain PyTorch version at the main-path shapes, plus ragged,
-     zero-row and outlier cases, and time both with CUDA events (20 runs
-     after a warm-up);
+  2. hold each of the eleven kernels (bf16: A, B, C; int8: 9, 5, 6, 4;
+     training: 10, 11, 12, 13) against its plain PyTorch version at the
+     main-path shapes, plus ragged, zero-row and outlier cases, and time both
+     with CUDA events (20 runs after a warm-up); the training attention's
+     autograd Function against autograd of the plain attention;
   3. build F5TTS_v1_Base + Vocos with seeded random weights (AdaLN-zero
      layers re-drawn), in bf16 and again with int8 weights
      (load_model(..., quantize=True)); for each mode serve three HTTP /tts
@@ -20,10 +21,20 @@ Phases (any failure raises and exits non-zero):
      1536, 16 NFE, CFG 2, sway -1, batch 1) through the sampler with kernels
      and with the plain versions, and compare the mels;
   5. for each mode time the port's RTF at that protocol (1 warm-up, 10
-     timed runs).
-Both modes run the full depth of 22 blocks. The line before the last is a
-JSON object with the kernels' numbers (launches: both modes' serving runs);
-the last line is {"ok": true, "device": {...}}.
+     timed runs);
+  6. train F5TTS_v1_Base (full width, depth 22, fp32 masters, bf16 compute,
+     activation checkpointing, AdaLN-zero layers re-drawn): one step's loss
+     and whole gradient with kernels against the plain versions, with the
+     exact launch counts of a step; the attention backward's own entry point
+     (flash_prefix_attention_bwd without a forward lse: kernels A, 12, 13);
+     Trainer.train on an in-memory dataset of seeded mels packed to 8 x 1280
+     frames, 2 updates, a checkpoint, a resume and 2 more (launches counted
+     over all 4); then bench_train's protocol at batch 8 x 1280 (1 warm-up +
+     8 steps) with kernels and plain.
+Serving and training run the full depth of 22 blocks. The line before the
+last is a JSON object with the kernels' numbers (launches: both modes'
+serving runs, the backward entry point and the Trainer's 4 updates); the
+last line is {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository checkout it sits in; it imports
 nothing of JAX.
@@ -48,6 +59,10 @@ REPLACES = {
     "ln_mod_matmul_int8": "korean_f5_tts_tpu/ops/fused_linears.py:109",
     "proj_gated_residual_int8": "korean_f5_tts_tpu/ops/fused_linears.py:156",
     "qmatmul": "korean_f5_tts_tpu/ops/qmatmul.py:24",
+    "flash_prefix_lse": "korean_f5_tts_tpu/ops/flash_prefix.py:612",
+    "flash_prefix_dq_lsein": "korean_f5_tts_tpu/ops/flash_prefix.py:1033",
+    "flash_prefix_dq": "korean_f5_tts_tpu/ops/flash_prefix.py:978",
+    "flash_prefix_dkv": "korean_f5_tts_tpu/ops/flash_prefix.py:1151",
 }
 SOURCES = {
     "flash_prefix": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
@@ -57,6 +72,8 @@ SOURCES = {
     "ln_mod_matmul_int8": "korean_f5_tts_tpu_torch/csrc/fused_linears_int8.cu",
     "proj_gated_residual_int8": "korean_f5_tts_tpu_torch/csrc/fused_linears_int8.cu",
     "qmatmul": "korean_f5_tts_tpu_torch/csrc/qmatmul.cu",
+    **dict.fromkeys(("flash_prefix_lse", "flash_prefix_dq_lsein", "flash_prefix_dq",
+                     "flash_prefix_dkv"), "korean_f5_tts_tpu_torch/csrc/flash_prefix_train.cu"),
 }
 # int8 kernels against their plain versions: both quantize the same values
 # and sum the integer products exactly, but where the quantized value is
@@ -353,6 +370,94 @@ def check_ff_int8(gen, dev) -> dict:
     return {"max_abs_err": max_abs, **times}
 
 
+def _rel(got, want) -> float:
+    g, w = got.float(), want.float()
+    return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+
+
+def check_train_attention(gen, dev) -> dict[str, dict]:
+    """Kernels 10-13 at the training shape (b 8 x 16 heads = H 128, n 1280,
+    d 64) and at a ragged n with mixed kv_lens; the autograd Function
+    against autograd of the plain attention."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    def inputs(H, n, lens):
+        q, k, v, do = (torch.randn((H, n, 64), generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        o, lse = fp.prefix_attention_lse_reference(q, k, v, kv)
+        dvec = (do.float() * o.float()).sum(-1)
+        return q, k, v, do, kv, o, lse, dvec
+
+    def case(label, H, n, lens):
+        q, k, v, do, kv, o, lse, dvec = inputs(H, n, lens)
+        o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
+        err = {"flash_prefix_lse": compare(f"kernel 10 o {label}", o10, o, 1e-2)[0]}
+        compare(f"kernel 10 lse {label}", lse10, lse, 1e-5)
+        dq11 = fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
+        err["flash_prefix_dq_lsein"] = compare(
+            f"kernel 11 dq {label}", dq11,
+            fp.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv), 1e-2)[0]
+        dq12, lse12 = fp.flash_prefix_dq(q, k, v, do, dvec, kv)
+        dq_p, _ = fp.flash_prefix_dq_reference(q, k, v, do, dvec, kv)
+        err["flash_prefix_dq"] = compare(f"kernel 12 dq {label}", dq12, dq_p, 1e-2)[0]
+        compare(f"kernel 12 lse {label}", lse12, lse, 1e-5)
+        dk, dv = fp.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+        dk_p, dv_p = fp.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+        err["flash_prefix_dkv"] = max(compare(f"kernel 13 dk {label}", dk, dk_p, 1e-2)[0],
+                                      compare(f"kernel 13 dv {label}", dv, dv_p, 1e-2)[0])
+        torch.cuda.synchronize()
+        return err, (q, k, v, do, kv, lse, dvec)
+
+    print("kernels 10-13, training attention (bf16 in, rel bound 1e-2 for o and the "
+          "gradients: P and dS round to bf16 before their products in the kernels; lse "
+          "fp32, rel bound 1e-5)")
+    errs, (q, k, v, do, kv, lse, dvec) = case("main H=128 n=1280 d=64 kv=n", 128, 1280,
+                                              [1280] * 128)
+    mixed = torch.randint(1, 1201, (16,), generator=gen, device=dev).tolist()
+    case(f"ragged H=16 n=1200 mixed kv={mixed}", 16, 1200, mixed)
+
+    # the Function against autograd of the plain attention: the plain path
+    # rounds P, dP and dS to bf16 at other points, so relative L2 only
+    b, h, n = 8, 16, 1280
+    qkv = [t.reshape(b, h, n, 64) for t in (q, k, v)]
+    lens = torch.full((b,), n, dtype=torch.int32, device=dev)
+    grads = []
+    for kernels in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        out = fp.flash_prefix_attention(*leaves, lens, kernels=kernels)
+        grads.append(torch.autograd.grad(out, leaves, do.reshape(b, h, n, 64)))
+    for name, got, want in zip(("dq", "dk", "dv"), *grads):
+        err = _rel(got, want)
+        print(f"  Function {name} vs autograd of the plain attention: rel_err {err:.3e} "
+              f"(bound 2e-2)")
+        if not torch.isfinite(got).all() or err > 2e-2:
+            fail(f"the attention Function's {name} disagrees with the plain backward")
+
+    timed = {
+        "flash_prefix_lse": (lambda: fp.flash_prefix_folded_lse(q, k, v, kv),
+                             lambda: fp.prefix_attention_lse_reference(q, k, v, kv), 4),
+        "flash_prefix_dq_lsein": (
+            lambda: fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv),
+            lambda: fp.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv), 6),
+        "flash_prefix_dq": (lambda: fp.flash_prefix_dq(q, k, v, do, dvec, kv),
+                            lambda: fp.flash_prefix_dq_reference(q, k, v, do, dvec, kv), 6),
+        "flash_prefix_dkv": (lambda: fp.flash_prefix_dkv(q, k, v, do, dvec, lse, kv),
+                             lambda: fp.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv),
+                             8),
+    }
+    out = {}
+    for name, (fn, plain, products) in timed.items():
+        ms, plain_ms = cuda_time_ms(fn), cuda_time_ms(plain)
+        flop = products * 128 * 1280 * 1280 * 64
+        print(f"  {name} at the main shape: kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain_ms:.4f} ms")
+        out[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full-width model behind the HTTP server
 # ---------------------------------------------------------------------------
@@ -605,30 +710,30 @@ def phase5_rtf(model, vocoder, dev, card: str, mode: str) -> float:
     return out[True]
 
 
-def profile_once(model, vocoder, dev, path: Path, mode: str) -> None:
-    """One bench-protocol utterance under torch.profiler: device busy time
-    (device-side kernel events only), its share of the un-profiled wall time
-    (mean of 3 runs), and the kernels by device time; the table goes to path."""
+def profile_once(run, path: Path, label: str) -> None:
+    """run() (one bench-protocol utterance, or one training step) under
+    torch.profiler: device busy time (device-side kernel events only), its
+    share of the un-profiled wall time (mean of 3), and the kernels by
+    device time; the table goes to path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    inputs = bench_inputs(dev)
-    synthesize(model, vocoder, inputs)
+    run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
-        synthesize(model, vocoder, inputs)
+        run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        synthesize(model, vocoder, inputs)
+        run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profile ({mode}): wall {wall_ms:.2f} ms (un-profiled, mean of 3), device busy "
+    print(f"profile ({label}): wall {wall_ms:.2f} ms (un-profiled, mean of 3), device busy "
           f"{busy_ms:.2f} ms in {sum(e.count for e in kernels)} kernel launches, "
           f"idle share {1 - busy_ms / wall_ms:.3f}; kernels by device time:")
     for e in kernels[:25]:
@@ -638,13 +743,189 @@ def profile_once(model, vocoder, dev, path: Path, mode: str) -> None:
     print(f"  full table: {path}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_N = 8, 1280  # the JAX package's training A/B shape (flash_prefix.py:1258)
+TRAIN_REL = 5e-2
+
+
+def expected_train_launches(steps: int) -> dict[str, int]:
+    """Launches of `steps` training steps with full remat: per block, kernel
+    10 in the forward and again in the backward's recompute, 11 and 13 once
+    in the backward; nothing else (conv-pos takes its plain version under
+    autograd, the FF half-block is plain products)."""
+    from korean_f5_tts_tpu_torch.ops import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_prefix_lse=2 * DEPTH * steps, flash_prefix_dq_lsein=DEPTH * steps,
+                flash_prefix_dkv=DEPTH * steps)
+    return want
+
+
+def drive_attention_bwd(dev, lens) -> dict[str, int]:
+    """The attention backward's own entry point at the training shape:
+    flash_prefix_attention_bwd without the forward's lse (the JAX contract,
+    flash_prefix.py:1246-1297) runs kernel A for o, kernel 12 for dq and the
+    lse, and kernel 13. Counted on its own; held against autograd of the
+    plain attention (relative L2, the Function's bound)."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, g = (torch.randn((TRAIN_B, 16, TRAIN_N, 64), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    reset_launch_counts()
+    got = fp.flash_prefix_attention_bwd(q, k, v, lens, g)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fp.flash_prefix_attention(*leaves, lens, kernels=False),
+                               leaves, g)
+    errs = [_rel(a, b) for a, b in zip(got, want)]
+    print(f"  flash_prefix_attention_bwd(lse=None), b {TRAIN_B} x 16 heads, n {TRAIN_N}, kv "
+          f"{lens.tolist()}: dq/dk/dv rel_err {', '.join(f'{e:.3e}' for e in errs)} (bound "
+          f"2e-2)")
+    if not all(torch.isfinite(t).all() for t in got) or max(errs) > 2e-2:
+        fail("flash_prefix_attention_bwd disagrees with the plain backward")
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(flash_prefix=1, flash_prefix_dq=1, flash_prefix_dkv=1)
+    print(f"  its launches: {counts} (expected {expected})")
+    if counts != expected:
+        fail("flash_prefix_attention_bwd did not run kernels A, 12 and 13 once each")
+    return counts
+
+
+def train_arch():
+    from korean_f5_tts_tpu_torch.config import PRESETS, DiTConfig
+
+    return DiTConfig(**PRESETS["F5TTS_v1_Base"], text_num_embeds=2545,
+                     checkpoint_activations=True)
+
+
+def train_batch(dev) -> dict:
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lens = torch.randint(TRAIN_N * 3 // 4, TRAIN_N + 1, (TRAIN_B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0] = TRAIN_N
+    text = torch.randint(1, 2545, (TRAIN_B, 256), generator=gen, device=dev, dtype=torch.int32)
+    text[:, 200:] = -1
+    mel = torch.randn((TRAIN_B, TRAIN_N, 100), generator=gen, device=dev)
+    mel = mel.masked_fill(~(torch.arange(TRAIN_N, device=dev)[None, :, None] < lens[:, None, None]),
+                          0.0)
+    return {"mel": mel, "text": text, "lens": lens}
+
+
+def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, int]:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from korean_f5_tts_tpu_torch.data.dataset import CustomDataset
+    from korean_f5_tts_tpu_torch.models.dit import count_params, init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.scripts import bench_train
+    from korean_f5_tts_tpu_torch.train.step import (
+        init_train_state,
+        loss_and_grads,
+        make_optimizer,
+        train_step,
+    )
+    from korean_f5_tts_tpu_torch.train.trainer import Trainer
+
+    arch = train_arch()
+    params = redraw_zero_init(init_dit(arch, seed=0, device=dev), seed=1)
+    print(f"phase 6: training F5TTS_v1_Base ({count_params(params) / 1e6:.1f} M params, depth "
+          f"{arch.depth}, fp32 masters, bf16 compute, full remat, dropout {arch.dropout}), "
+          f"batch {TRAIN_B} x {TRAIN_N}")
+    batch = train_batch(dev)
+    reset_launch_counts()
+    loss_k, grads_k = loss_and_grads(params, batch, 5, arch, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = expected_train_launches(1)
+    print(f"  launches of one step with kernels: {counts} (expected {want})")
+    if counts != want:
+        fail("a training kernel did not run as often as the step requires")
+    loss_p, grads_p = loss_and_grads(params, batch, 5, arch, compute_dtype=torch.bfloat16,
+                                     kernels=False)
+    flat_k = torch.cat([g.flatten() for g in grads_k])
+    flat_p = torch.cat([g.flatten() for g in grads_p])
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_err = _rel(flat_k, flat_p)
+    print(f"  loss kernels {loss_k.item():.6f} plain {loss_p.item():.6f} (rel {loss_err:.3e}); "
+          f"gradient rel L2 {grad_err:.3e} over {flat_p.numel()} values, |g| "
+          f"{flat_p.norm().item():.4f} (bound {TRAIN_REL:.0e} each)")
+    if not torch.isfinite(flat_k).all() or loss_err > TRAIN_REL or grad_err > TRAIN_REL:
+        fail("the training step with kernels disagrees with the plain versions")
+    del grads_k, grads_p, flat_k, flat_p
+    bwd_counts = drive_attention_bwd(dev, batch["lens"])
+
+    # Trainer: 2 updates, checkpoint, resume, 2 more, on seeded mels
+    rng = np.random.default_rng(4)
+    frames = [int(f) for f in rng.integers(TRAIN_N - 120, TRAIN_N + 1, 2 * TRAIN_B)]
+    rows = [{"mel_spec": rng.standard_normal((100, f)).astype(np.float32),
+             "text": "this is a training row", "duration": f * HOP / SR} for f in frames]
+    dataset = CustomDataset(rows, preprocessed_mel=True)
+    vocab = {c: i + 1 for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz")}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        def trainer():
+            return Trainer(params, arch, epochs=10, learning_rate=1e-4, num_warmup_updates=2,
+                           checkpoint_path=ckpt_dir, batch_size_per_gpu=TRAIN_B * TRAIN_N,
+                           max_samples=TRAIN_B, last_per_updates=2, save_per_updates=10**9,
+                           logger=None, vocab_char_map=vocab, compute_dtype=torch.bfloat16)
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        first = trainer().train(dataset, resumable_with_seed=666, max_updates=2)
+        t1 = time.perf_counter()
+        second = trainer().train(dataset, resumable_with_seed=666, max_updates=2)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        train_counts = launch_counts()
+        size = sum(f.stat().st_size for f in Path(ckpt_dir).iterdir()) / 2**30
+    losses = first["losses"] + second["losses"]
+    print(f"  Trainer: updates {first['updates']} then resumed to {second['updates']}, losses "
+          f"{[round(x, 5) for x in losses]}; {t1 - t0:.1f} s and {t2 - t1:.1f} s with the "
+          f"checkpoint ({size:.2f} GiB) written, read and written again")
+    if second["updates"] != 4 or len(losses) != 4 or not np.isfinite(losses).all():
+        fail("the Trainer did not take 2 + 2 finite updates across a resume")
+    want = expected_train_launches(4)
+    print(f"  kernel launches during the 4 updates: {train_counts} (expected {want})")
+    if train_counts != want:
+        fail("a training kernel did not run as often as the Trainer's steps require")
+    if profile_path is not None:
+        opt = make_optimizer()
+        state = init_train_state(params, opt)
+        profile_once(lambda: train_step(state, batch, 5, arch, opt,
+                                        compute_dtype=torch.bfloat16), profile_path,
+                     f"training step, batch {TRAIN_B} x {TRAIN_N}, kernels")
+        del state
+    del params
+    torch.cuda.empty_cache()
+
+    for kernels in (True, False):
+        r = bench_train.run(frames=TRAIN_B * TRAIN_N, seq_len=TRAIN_N, kernels=kernels)
+        print(f"  bench_train {'kernels' if kernels else 'plain  '}: step_ms {r['step_ms']}, "
+              f"train_frames_per_s {r['value']} ({r['unit']}) [{card}]")
+        torch.cuda.empty_cache()
+    return {name: n + bwd_counts[name] for name, n in train_counts.items()}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5",
+    parser.add_argument("--phases", default="1,2,3,4,5,6",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
-                        help="also profile one bench-protocol utterance per mode; tables to "
-                             "this file (int8) and to its .bf16 sibling")
+                        help="also profile one bench-protocol utterance per mode and one "
+                             "training step; tables to this file (int8) and to its .bf16 and "
+                             ".train siblings")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -690,6 +971,7 @@ def main(argv=None) -> int:
         results["ln_mod_matmul_int8"] = check_ln_mod_int8(gen, dev)
         results["proj_gated_residual_int8"] = check_proj_gated_int8(gen, dev)
         results["ff_block_int8"] = check_ff_int8(gen, dev)
+        results.update(check_train_attention(gen, dev))
 
     counts = dict.fromkeys(KERNELS, 0)
     if phases & {3, 4, 5} or args.profile is not None:
@@ -705,9 +987,14 @@ def main(argv=None) -> int:
                 phase5_rtf(model, vocoder, dev, card, mode)
             if args.profile is not None:
                 path = args.profile if mode == "int8" else args.profile.with_suffix(".bf16.txt")
-                profile_once(model, vocoder, dev, path, mode)
+                inputs = bench_inputs(dev)
+                profile_once(lambda: synthesize(model, vocoder, inputs), path, mode)
             del model, vocoder
             torch.cuda.empty_cache()
+    if 6 in phases:
+        train_profile = None if args.profile is None else args.profile.with_suffix(".train.txt")
+        for name, n in phase6_train(dev, card, train_profile).items():
+            counts[name] += n
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
                 "max_abs_err": results[name].get("max_abs_err"),

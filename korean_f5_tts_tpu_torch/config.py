@@ -1,8 +1,8 @@
 """Model configuration dataclasses (counterpart of korean_f5_tts_tpu/config.py).
 
 The JAX package's config module imports its mel ops and so jax; the port
-keeps its own copies of DiTConfig and the DiT presets. Field names and
-defaults match the JAX package's inference fields.
+keeps its own copies of DiTConfig, CFMConfig and the DiT presets. Field
+names and defaults match the JAX package's.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ class DiTConfig:
     depth: int = 22
     heads: int = 16
     dim_head: int = 64
+    dropout: float = 0.1
     ff_mult: int = 2
     mel_dim: int = 100
     text_num_embeds: int = 256
@@ -30,10 +31,22 @@ class DiTConfig:
     pe_attn_head: int | None = None
     attn_mask_enabled: bool = False
     long_skip_connection: bool = False
+    checkpoint_activations: bool = False
+    # remat under checkpoint_activations: "full" recomputes each block in the
+    # backward pass ("dots" is ROADMAP.md queue 1 item 10, not ported)
+    remat_policy: str = "full"
 
     @property
     def text_dim_(self) -> int:
         return self.text_dim if self.text_dim is not None else self.mel_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class CFMConfig:
+    sigma: float = 0.0
+    audio_drop_prob: float = 0.3
+    cond_drop_prob: float = 0.2
+    frac_lengths_mask: tuple[float, float] = (0.7, 1.0)
 
 
 @dataclasses.dataclass(frozen=True)

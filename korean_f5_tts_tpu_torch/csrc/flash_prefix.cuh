@@ -1,0 +1,233 @@
+// Tiles, warp-level products and the forward loop shared by the prefix
+// attention kernels: kernel A (flash_prefix.cu) and the training kernels
+// 10-13 (flash_prefix_train.cu).
+//
+// A block is 128 threads over a 64-row tile; each warp owns 16 of the rows.
+// Shared tiles are [64][D + 8] bf16 (mma.cuh's padded stride); rows at or
+// past n are zero-filled on load and never stored, so n needs no multiple.
+#pragma once
+
+#include "mma.cuh"
+
+namespace f5 {
+namespace {
+
+constexpr int kBQ = 64;   // rows of a block's own tile (queries, or keys in dk/dv)
+constexpr int kBKV = 64;  // rows of a streamed tile
+constexpr int kThreads = 128;
+constexpr int kNS = kBKV / 8;  // n-tiles of a 16 x 64 score tile
+
+// rows [row0, row0 + 64) of a [n, D] head into a [64][D + 8] shared tile;
+// rows at or past n are zero-filled
+template <int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int n, int tid) {
+  constexpr int LD = D + 8;
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int i = tid; i < 64 * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    int4 val = make_int4(0, 0, 0, 0);
+    if (row0 + r < n) val = *reinterpret_cast<const int4*>(src + (size_t)(row0 + r) * D + c);
+    *reinterpret_cast<int4*>(dst + r * LD + c) = val;
+  }
+}
+
+// A fragments of this warp's 16 rows of a shared [64][D + 8] tile
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf16* tile,
+                                             int warp, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(a[kk], a_frag_addr(tile + (warp * 16) * LD + kk * 16, LD, lane));
+}
+
+// s (16 x 64, fp32) = A (16 x D, fragments) . B^T for a shared [64][D + 8]
+// tile B: q.k^T, dO.v^T, k.q^T and v.dO^T are all this product
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&s)[kNS][4], const uint32_t (&a)[D / 16][4],
+                                        const bf16* tile, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int nt = 0; nt < kNS; nt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_nk_addr(tile + (nt * 8) * LD + kk * 16, LD, lane));
+      mma_bf16_16816(s[nt], a[kk], b[0], b[1]);
+      mma_bf16_16816(s[nt + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x D, fp32) += P . B, where P is a 16 x 64 accumulator-layout tile
+// rounded to bf16 here (score n-tiles 2kt, 2kt + 1 are the A fragment of key
+// step kt, so P never leaves registers) and B a shared [64][D + 8] tile:
+// P.V, dS.K, P^T.dO and dS^T.Q are all this product
+template <int D>
+__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&p)[kNS][4],
+                                       const bf16* tile, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int kt = 0; kt < kBKV / 16; ++kt) {
+    uint32_t a[4];
+    a[0] = pack_bf16x2(p[2 * kt][0], p[2 * kt][1]);
+    a[1] = pack_bf16x2(p[2 * kt][2], p[2 * kt][3]);
+    a[2] = pack_bf16x2(p[2 * kt + 1][0], p[2 * kt + 1][1]);
+    a[3] = pack_bf16x2(p[2 * kt + 1][2], p[2 * kt + 1][3]);
+#pragma unroll
+    for (int dt = 0; dt < D / 8; dt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, b_kn_addr(tile + (kt * 16) * LD + dt * 8, LD, lane));
+      mma_bf16_16816(acc[dt], a, b[0], b[1]);
+      mma_bf16_16816(acc[dt + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// sum over the four lanes of a quad (the lanes that share a row)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Forward: one block per (folded head, 64-row query tile). kWriteLse also
+// stores the base-2 logsumexp of each row's scaled scores (kernel 10); a
+// row with no valid key gets output 0 and lse 0.
+template <int D, bool kWriteLse>
+__global__ void __launch_bounds__(kThreads)
+flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const int* __restrict__ kv_lens,
+                        bf16* __restrict__ out, float* __restrict__ lse, int n,
+                        float scale_log2) {
+  constexpr int LD = D + 8;
+  constexpr int ND = D / 8;  // n-tiles of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + kBQ * LD;
+  bf16* sV = sK + kBKV * LD;
+
+  const int head = blockIdx.y;
+  const int q0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const size_t off = (size_t)head * n * D;
+  const int kv_len = min(kv_lens[head], n);
+
+  load_rows<D>(sQ, q + off, q0, n, tid);
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_a_frags<D>(qf, sQ, warp, lane);
+
+  float o[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of this warp
+  float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
+
+  const int n_tiles = kv_len > 0 ? (kv_len + kBKV - 1) / kBKV : 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBKV;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<D>(sK, k + off, k0, n, tid);
+    load_rows<D>(sV, v + off, k0, n, tid);
+    __syncthreads();
+
+    float s[kNS][4];
+    mma_abt<D>(s, qf, sK, lane);
+
+    // scale into the base-2 domain, mask keys at or past kv_len, row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kNS; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + nt * 8 + 2 * t + (e & 1);
+        const float x = col < kv_len ? s[nt][e] * scale_log2 : -INFINITY;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // tile 0 always holds key 0 < kv_len, so m_new is finite from then on
+      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kNS; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nt][e] - m_run[e >> 1]);
+        s[nt][e] = p;
+        rs[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
+    }
+    mma_pb<D>(o, s, sV, lane);
+  }
+
+  float inv[2], l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l_run[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;  // kv_len == 0: zeros, as the TPU kernel
+  }
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int dt = 0; dt < ND; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (row0 < n)
+      *reinterpret_cast<uint32_t*>(out + off + (size_t)row0 * D + col) =
+          pack_bf16x2(o[dt][0] * inv[0], o[dt][1] * inv[0]);
+    if (row0 + 8 < n)
+      *reinterpret_cast<uint32_t*>(out + off + (size_t)(row0 + 8) * D + col) =
+          pack_bf16x2(o[dt][2] * inv[1], o[dt][3] * inv[1]);
+  }
+  if (kWriteLse && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < n) lse[(size_t)head * n + row] = l[r] > 0.f ? m_run[r] + log2f(l[r]) : 0.f;
+    }
+  }
+}
+
+template <int D, bool kWriteLse>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
+                       void* out, void* lse, int H, int n, float scale_log2,
+                       cudaStream_t stream) {
+  const int smem = 3 * 64 * (D + 8) * (int)sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(flash_prefix_fwd_kernel<D, kWriteLse>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + kBQ - 1) / kBQ, H);
+  flash_prefix_fwd_kernel<D, kWriteLse><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(kv_lens), static_cast<bf16*>(out), static_cast<float*>(lse), n,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace f5

@@ -1,6 +1,11 @@
-"""Flow-matching sampler for serving (counterpart of korean_f5_tts_tpu/models/cfm.py).
+"""Conditional flow matching: the training loss and the serving sampler
+(counterpart of korean_f5_tts_tpu/models/cfm.py).
 
-Ported: _sample_core (text embedding once, then the Euler loop over the
+Training: cfm_loss (cfm.py:83-129), split into draw_cfm (the random draws,
+from one torch.Generator) and cfm_loss_from_draws (the loss given them), so
+that a test can hand the port the JAX package's draws.
+
+Serving: _sample_core (text embedding once, then the Euler loop over the
 EPSS/sway schedule with CFG packed as batch 2), _serve_core_vocos (masks,
 cond padding, seeded noise, sampling, cond splice, Vocos decode, RMS
 restore, int16) and its host wrapper serve_sample. The JAX scan becomes a
@@ -17,9 +22,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from korean_f5_tts_tpu_torch.config import DiTConfig
+from korean_f5_tts_tpu_torch.config import CFMConfig, DiTConfig
 from korean_f5_tts_tpu_torch.models import dit as dit_mod
 from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
+from korean_f5_tts_tpu_torch.utils.misc import (
+    fold_in,
+    lens_to_mask,
+    mask_from_start_end_indices,
+    span_start_end,
+)
 from korean_f5_tts_tpu_torch.utils.timesteps import make_schedule
 
 DEFAULT_DURATION_BUCKET = 128  # frames; the kernels take any n, so no TPU 512
@@ -35,6 +46,70 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+
+def draw_cfm(shape: tuple[int, int, int], lens: torch.Tensor, gen: torch.Generator,
+             cfm: CFMConfig = CFMConfig(), dtype: torch.dtype = torch.float32) -> dict:
+    """The loss's random draws for a [b, n, d] batch (cfm.py:96-117): span
+    fraction and its start, noise x0, time, and the CFG drop bits as 0/1
+    tensors (drop_audio already set where drop_text is)."""
+    b, n, d = shape
+    dev = lens.device
+    lo, hi = cfm.frac_lengths_mask
+    frac = torch.rand((b,), generator=gen, device=dev) * (hi - lo) + lo
+    start, end = span_start_end(lens, frac, torch.rand((b,), generator=gen, device=dev))
+    x0 = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    time = torch.rand((b,), generator=gen, device=dev).to(dtype)
+    drop_audio = torch.rand((), generator=gen, device=dev) < cfm.audio_drop_prob
+    drop_both = torch.rand((), generator=gen, device=dev) < cfm.cond_drop_prob
+    return {"frac_lengths": frac, "span_start": start, "span_end": end, "x0": x0,
+            "time": time, "drop_audio": (drop_audio | drop_both).to(dtype),
+            "drop_text": drop_both.to(dtype)}
+
+
+def cfm_loss_from_draws(params: dict, arch: DiTConfig, mel: torch.Tensor, text: torch.Tensor,
+                        lens: torch.Tensor, draws: dict, dropout_seed: int | None = None,
+                        kernels: bool = True):
+    """Masked flow-matching MSE over the random span (cfm.py:98-129) given
+    draw_cfm's draws; returns (loss, cond, pred)."""
+    b, n, _ = mel.shape
+    mask = lens_to_mask(lens, n)
+    span = mask_from_start_end_indices(draws["span_start"], draws["span_end"], n) & mask
+    x1, x0, time = mel, draws["x0"], draws["time"]
+    t = time[:, None, None]
+    phi = (1.0 - t) * x0 + t * x1
+    flow = x1 - x0
+    cond = torch.where(span[..., None], torch.zeros_like(x1), x1)
+    pred = dit_mod.dit_forward(params, arch, phi, cond, text, time, mask=mask,
+                               drop_audio_cond=draws["drop_audio"],
+                               drop_text=draws["drop_text"], dropout_seed=dropout_seed,
+                               kernels=kernels)
+    se = (pred - flow) ** 2
+    denom = span.sum().clamp(min=1) * mel.shape[-1]
+    loss = torch.where(span[..., None], se, torch.zeros_like(se)).sum() / denom
+    return loss, cond, pred
+
+
+def cfm_loss(params: dict, arch: DiTConfig, mel: torch.Tensor, text: torch.Tensor,
+             lens: torch.Tensor, seed: int, cfm: CFMConfig = CFMConfig(),
+             kernels: bool = True):
+    """Flow-matching loss (cfm.py:83-129); returns (loss, cond, pred). The
+    draws come from a generator seeded with `seed` on mel's device, the
+    dropout masks from fold_in(seed, 1)."""
+    gen = torch.Generator(device=mel.device).manual_seed(seed)
+    draws = draw_cfm(tuple(mel.shape), lens, gen, cfm, dtype=mel.dtype)
+    return cfm_loss_from_draws(params, arch, mel, text, lens, draws,
+                               dropout_seed=fold_in(seed, 1), kernels=kernels)
+
+
+# ---------------------------------------------------------------------------
+# serving sampler
+# ---------------------------------------------------------------------------
 
 
 @torch.inference_mode()

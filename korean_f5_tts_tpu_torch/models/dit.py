@@ -1,14 +1,18 @@
-"""DiT backbone, inference path (counterpart of korean_f5_tts_tpu/models/dit.py).
+"""DiT backbone (counterpart of korean_f5_tts_tpu/models/dit.py).
 
-Ported: init_dit, text_embedding, precompute_step_modulations,
+Serving: init_dit, text_embedding, precompute_step_modulations,
 precompute_input_static, input_embedding_premix, dit_backbone_premod and
-dit_forward_cfg_premod: the functions the sampler's CFG loop runs, for bf16
+dit_forward_cfg_premod, the functions the sampler's CFG loop runs, for bf16
 and for int8 weights (models/quant.py). bf16: the FF half-block takes kernel
 B; the attention-side linears stay plain matmuls, as the bf16 TPU default
 leaves them (dit.py:373-379). int8: the dispatch of dit.py:394-509 without
 tensor parallelism (kernels 5, A, 6 and 4, or kernel 9 per projection under
-a duration mask). The training forward, long skip and average upsampling
-wait for later slices.
+a duration mask).
+
+Training: input_embedding, dit_backbone and dit_forward (dit.py:181-301),
+with the long skip, average upsampling, per-block activation checkpointing
+and dropout. Attention there runs kernels 10, 11 and 13 (ops/flash_prefix.py)
+and the FF half-block plain products, as the JAX training block does.
 """
 
 from __future__ import annotations
@@ -19,18 +23,21 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from korean_f5_tts_tpu_torch.config import DiTConfig
 from korean_f5_tts_tpu_torch.models.modules import (
     _merge_heads,
     _split_heads,
     _uniform,
+    ada_layernorm_final,
     apply_rope,
     attention,
     cast_params,
     conv1d_init,
     conv_position_embedding,
     convnext_v2_block,
+    dit_block,
     embedding,
     embedding_init,
     layernorm,
@@ -54,6 +61,7 @@ from korean_f5_tts_tpu_torch.ops.fused_linears import (
     proj_gated_residual_int8,
     proj_gated_residual_int8_reference,
 )
+from korean_f5_tts_tpu_torch.utils.misc import fold_in
 
 PRECOMPUTE_MAX_POS = 8192  # ~87 s of 24 kHz audio at hop 256 (dit.py:44)
 
@@ -93,8 +101,8 @@ def init_dit(cfg: DiTConfig, seed: int = 0, device="cpu",
     """Random DiT parameters with the JAX package's tree, shapes and init
     distributions (torch layouts), drawn from a torch.Generator on `device`.
     Floating leaves are cast to `dtype`."""
-    if cfg.long_skip_connection or cfg.qk_norm is not None:
-        raise NotImplementedError("long skip and qk-norm DiTs are not ported yet")
+    if cfg.qk_norm is not None:
+        raise NotImplementedError("qk-norm DiTs are not ported yet")
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     td = cfg.text_dim_
@@ -116,6 +124,8 @@ def init_dit(cfg: DiTConfig, seed: int = 0, device="cpu",
         "proj_out": {"w": torch.zeros((cfg.mel_dim, cfg.dim), device=device),
                      "b": torch.zeros(cfg.mel_dim, device=device)},
     }
+    if cfg.long_skip_connection:
+        p["long_skip"] = linear_init(gen, cfg.dim * 2, cfg.dim, device, bias=False)
     return cast_params(p, dtype)
 
 
@@ -148,23 +158,45 @@ def _freqs_cis_table(dim: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(precompute_freqs_cis(dim, PRECOMPUTE_MAX_POS)).to(device)
 
 
+def _average_upsample(text: torch.Tensor, text_mask: torch.Tensor) -> torch.Tensor:
+    """Zipvoice-style late average upsampling (dit.py:99-129): each of a row's
+    text_len valid tokens repeats to fill the n slots, the last
+    n % text_len tokens once more; rows without a valid token are zero."""
+    b, n, _ = text.shape
+    text_lens = text_mask.sum(dim=1)                       # [b]
+    tl = text_lens.clamp(min=1)[:, None]
+    base = n // tl
+    pivot = tl - n % tl  # tokens < pivot repeat `base` times, the rest base + 1
+    o = torch.arange(n, device=text.device)[None, :]
+    tok = torch.where(o < pivot * base, o // base.clamp(min=1),
+                      pivot + (o - pivot * base) // (base + 1))
+    tok = torch.minimum(tok.clamp(min=0), tl - 1)
+    # index of the tok-th valid position of each row
+    valid_pos = torch.cumsum(text_mask.long(), dim=1) - 1
+    order = torch.where(text_mask, valid_pos, n + torch.arange(n, device=text.device))
+    src = torch.gather(torch.argsort(order, dim=1), 1, tok)
+    out = torch.gather(text, 1, src[..., None].expand(-1, -1, text.shape[-1]))
+    return torch.where((text_lens > 0)[:, None, None], out, torch.zeros_like(out))
+
+
 def text_embedding(p: dict, cfg: DiTConfig, text: torch.Tensor, seq_len: int,
-                   drop_text: bool = False, pad_mask: torch.Tensor | None = None) -> torch.Tensor:
+                   drop_text=False, pad_mask: torch.Tensor | None = None) -> torch.Tensor:
     """[b, nt] token ids (pad = -1) -> [b, seq_len, text_dim] (dit.py:132-173).
 
     Ids shift by +1 (0 = filler) and are cut or padded to the mel length;
     pad_mask ([1, seq_len]) hides bucket-tail rows from the ConvNeXt stack's
-    sequence statistics.
+    sequence statistics. drop_text is a bool or a 0/1 tensor (the training
+    CFG drop); the padding mask comes from the ids before the drop.
     """
-    if cfg.text_embedding_average_upsampling:
-        raise NotImplementedError("average upsampling is not ported yet")
     text = text + 1
     if text.shape[1] >= seq_len:
         text = text[:, :seq_len]
     else:
         text = F.pad(text, (0, seq_len - text.shape[1]))
     text_mask = (text != 0)[..., None]
-    if drop_text:
+    if isinstance(drop_text, torch.Tensor):
+        text = torch.where(drop_text.bool(), torch.zeros_like(text), text)
+    elif drop_text:
         text = torch.zeros_like(text)
     h = embedding(p["embed"], text)
     if cfg.conv_layers > 0:
@@ -176,6 +208,8 @@ def text_embedding(p: dict, cfg: DiTConfig, text: torch.Tensor, seq_len: int,
             h = convnext_v2_block(blk, h, valid_mask=valid)
             if cfg.text_mask_padding:
                 h = h.masked_fill(~text_mask, 0.0)
+    if cfg.text_embedding_average_upsampling:
+        h = _average_upsample(h, text_mask[..., 0])
     return h
 
 
@@ -211,10 +245,81 @@ def input_embedding_premix(p: dict, cfg: DiTConfig, x2: torch.Tensor,
                                    kernels=kernels) + h
 
 
+def input_embedding(p: dict, x: torch.Tensor, cond: torch.Tensor, text_embed: torch.Tensor,
+                    drop_audio_cond=False, audio_mask: torch.Tensor | None = None,
+                    kernels: bool = True) -> torch.Tensor:
+    """concat(noise, cond, text) -> proj -> + conv position embedding
+    (dit.py:181-193). drop_audio_cond is a bool or a 0/1 tensor."""
+    if isinstance(drop_audio_cond, torch.Tensor):
+        cond = cond * (1.0 - drop_audio_cond).to(cond.dtype)
+    elif drop_audio_cond:
+        cond = torch.zeros_like(cond)
+    h = linear(p["input_proj"], torch.cat([x, cond, text_embed], dim=-1))
+    return conv_position_embedding(p["conv_pos_embed"], h, mask=audio_mask,
+                                   kernels=kernels) + h
+
+
 @functools.lru_cache(maxsize=32)
 def _rope_table(seq_len: int, dim_head: int, device: torch.device):
     cos, sin = rope_cos_sin(seq_len, dim_head)
     return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+
+
+def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
+                 mask: torch.Tensor | None = None, dropout_seed: int | None = None,
+                 pad_mask: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
+    """Embedded input [b, n, dim] + time embedding [b, dim] -> flow [b, n, mel]
+    (dit.py:233-283).
+
+    dropout_seed None turns dropout off. Otherwise block i draws its FF
+    dropout mask from a generator seeded with fold_in(dropout_seed, i) and
+    made inside the block's function: torch.utils.checkpoint restores only
+    the default generators, not an explicit one, so a generator made outside
+    would give the recompute another mask than the forward.
+    checkpoint_activations recomputes each block in the backward pass
+    (remat_policy "full"); "dots" is ROADMAP.md queue 1 item 10 and raises.
+    """
+    if cfg.checkpoint_activations and cfg.remat_policy != "full":
+        raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is not ported "
+                                  "(ROADMAP.md queue 1 item 10); use 'full'")
+    rope = _rope_table(h.shape[1], cfg.dim_head, h.device)
+    residual = h if cfg.long_skip_connection else None
+    rate = cfg.dropout if dropout_seed is not None else 0.0
+
+    def block(blk: dict, x: torch.Tensor, seed: int | None) -> torch.Tensor:
+        gen = (torch.Generator(device=x.device).manual_seed(seed)
+               if seed is not None and rate > 0.0 else None)
+        return dit_block(blk, x, t_emb, cfg.heads, mask=mask, rope=rope,
+                         pe_attn_head=cfg.pe_attn_head, attn_mask_enabled=cfg.attn_mask_enabled,
+                         pad_mask=pad_mask, dropout_rate=rate, gen=gen, kernels=kernels)
+
+    for i, blk in enumerate(p["blocks"]):
+        seed = fold_in(dropout_seed, i) if dropout_seed is not None else None
+        if cfg.checkpoint_activations:
+            h = torch.utils.checkpoint.checkpoint(block, blk, h, seed, use_reentrant=False)
+        else:
+            h = block(blk, h, seed)
+    if residual is not None:
+        h = linear(p["long_skip"], torch.cat([h, residual], dim=-1))
+    h = ada_layernorm_final(p["norm_out"], h, t_emb)
+    return linear(p["proj_out"], h)
+
+
+def dit_forward(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch.Tensor,
+                text: torch.Tensor, time: torch.Tensor, mask: torch.Tensor | None = None,
+                drop_audio_cond=False, drop_text=False, dropout_seed: int | None = None,
+                pad_mask: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
+    """Training-path forward (dit.py:286-301): x, cond [b, n, mel], text ids
+    [b, nt], time [b] (or a scalar); the drops are bools or 0/1 tensors."""
+    if time.dim() == 0:
+        time = time.repeat(x.shape[0])
+    t_emb = timestep_embedding(p["time_embed"], time)
+    text_emb = text_embedding(p["text_embed"], cfg, text, x.shape[1], drop_text=drop_text,
+                              pad_mask=pad_mask)
+    h = input_embedding(p, x, cond, text_emb, drop_audio_cond=drop_audio_cond,
+                        audio_mask=mask if mask is not None else pad_mask, kernels=kernels)
+    return dit_backbone(p, cfg, h, t_emb, mask=mask, dropout_seed=dropout_seed,
+                        pad_mask=pad_mask, kernels=kernels)
 
 
 def precompute_step_modulations(p: dict, cfg: DiTConfig, ts: torch.Tensor):

@@ -1,7 +1,7 @@
 """Building blocks as plain functions over nested dicts of tensors.
 
 Counterpart of korean_f5_tts_tpu/models/modules.py (the pieces the serving
-path uses). Parameter trees keep the JAX package's keys; layouts:
+and training paths use). Parameter trees keep the JAX package's keys; layouts:
   - Linear {"w": [out, in], "b": [out]} (torch layout; the converter in
     train/checkpoint.py transposes the JAX [in, out]); the int8 form of
     models/quant.py is {"w_int8": [out, in], "w_scale": [out] fp32, "b"}.
@@ -139,6 +139,15 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
 
 
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (modules.py:160-164): keep with probability 1 - rate,
+    scaled by 1 / (1 - rate); the mask comes from `gen`."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 # ---------------------------------------------------------------------------
 # positional embeddings
 # ---------------------------------------------------------------------------
@@ -240,8 +249,26 @@ def convnext_v2_block(p: dict, x: torch.Tensor, dilation: int = 1,
     return residual + linear(p["pw2"], h)
 
 
-def feedforward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["out"], gelu_tanh(linear(p["in"], x)))
+def ada_layernorm(p: dict, x: torch.Tensor, emb: torch.Tensor):
+    """AdaLN-zero (modules.py:374-380): the modulated x and (gate_msa,
+    shift_mlp, scale_mlp, gate_mlp), each [b, dim]."""
+    e = linear(p["linear"], F.silu(emb))
+    shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = e.chunk(6, dim=-1)
+    xn = layernorm({}, x, eps=1e-6) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+    return xn, gate_msa, shift_mlp, scale_mlp, gate_mlp
+
+
+def ada_layernorm_final(p: dict, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Final AdaLN (modules.py:387-390)."""
+    scale, shift = linear(p["linear"], F.silu(emb)).chunk(2, dim=-1)
+    return layernorm({}, x, eps=1e-6) * (1 + scale)[:, None, :] + shift[:, None, :]
+
+
+def feedforward(p: dict, x: torch.Tensor, dropout_rate: float = 0.0,
+                gen: torch.Generator | None = None) -> torch.Tensor:
+    """linear -> gelu_tanh -> dropout -> linear (modules.py:399-404)."""
+    h = dropout(gelu_tanh(linear(p["in"], x)), dropout_rate, gen)
+    return linear(p["out"], h)
 
 
 # ---------------------------------------------------------------------------
@@ -299,3 +326,25 @@ def attention(p: dict, x: torch.Tensor, heads: int,
     if mask is not None:
         out = out.masked_fill(~mask[..., None], 0.0)
     return out
+
+
+def dit_block(p: dict, x: torch.Tensor, t: torch.Tensor, heads: int,
+              mask: torch.Tensor | None = None,
+              rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+              pe_attn_head: int | None = None,
+              attn_mask_enabled: bool = True,
+              pad_mask: torch.Tensor | None = None,
+              dropout_rate: float = 0.0,
+              gen: torch.Generator | None = None,
+              kernels: bool = True) -> torch.Tensor:
+    """AdaLN-zero DiT block of the training forward (modules.py:632-650). The
+    FF half-block is plain products here, as in the JAX block: kernel B is
+    the serving path's."""
+    norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = ada_layernorm(p["attn_norm"], x, t)
+    attn_out = attention(p["attn"], norm, heads, mask=mask, rope=rope,
+                         pe_attn_head=pe_attn_head, attn_mask_enabled=attn_mask_enabled,
+                         pad_mask=pad_mask, kernels=kernels)
+    x = x + gate_msa[:, None] * attn_out
+    norm = layernorm({}, x, eps=1e-6) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+    ff_out = feedforward(p["ff"], norm, dropout_rate=dropout_rate, gen=gen)
+    return x + gate_mlp[:, None] * ff_out

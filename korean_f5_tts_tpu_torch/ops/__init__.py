@@ -3,7 +3,7 @@
 Each kernel keeps a plain integer counter in its wrapper's module that the
 wrapper raises by one per kernel launch (plain calls do not count), so a run
 can show that the main path went through the kernels. A module that holds
-two kernels keeps one counter for each.
+several kernels keeps one counter for each.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ KERNELS = {
     "ln_mod_matmul_int8": (fused_linears, "launches_ln_mod_int8"),
     "proj_gated_residual_int8": (fused_linears, "launches_proj_gated_int8"),
     "qmatmul": (qmatmul, "launches"),
+    "flash_prefix_lse": (flash_prefix, "launches_lse"),
+    "flash_prefix_dq_lsein": (flash_prefix, "launches_dq_lsein"),
+    "flash_prefix_dq": (flash_prefix, "launches_dq"),
+    "flash_prefix_dkv": (flash_prefix, "launches_dkv"),
 }
 
 

@@ -40,6 +40,16 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, kv_lens, out, H, n, d, scale_log2, device, stream
     "f5_flash_prefix_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, k, v, kv_lens, out, lse, H, n, d, scale_log2, device, stream
+    "f5_flash_prefix_fwd_lse": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
+    # q, k, v, dO, dvec, lse, kv_lens, dq, H, n, d, scale_log2, sm_scale, device, stream
+    "f5_flash_prefix_dq_lsein": (_P,) * 8 + (_I, _I, _I, _F, _F, _I, _P),
+    # q, k, v, dO, dvec, kv_lens, dq, lse_out, H, n, d, scale_log2, sm_scale, device,
+    # stream
+    "f5_flash_prefix_dq": (_P,) * 8 + (_I, _I, _I, _F, _F, _I, _P),
+    # q, k, v, dO, dvec, lse, kv_lens, dk, dv, H, n, d, scale_log2, sm_scale, device,
+    # stream
+    "f5_flash_prefix_dkv": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
     # h, sc, sh, gate, w1, b1, w2, b2, z, out, M, d, dff, eps, device, stream
     "f5_ff_block_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w, b, out, B, N, C, groups, taps, fuse_mish, device, stream

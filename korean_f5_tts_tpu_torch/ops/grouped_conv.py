@@ -35,9 +35,19 @@ def grouped_conv1d_mish_reference(x, w, b, groups: int, fuse_mish: bool = True):
 
 def grouped_conv1d_mish(x, w, b, groups: int = 16, fuse_mish: bool = True):
     """Kernel C wrapper. CPU tensors take the plain version. CUDA tensors
-    launch the kernel or raise; nothing falls back."""
+    launch the kernel or raise; nothing falls back.
+
+    When a gradient is being taken (grad mode on and an input that requires
+    one) the plain version runs on any device, and autograd differentiates
+    it: the JAX package's custom_vjp does the same, running the XLA conv in
+    its forward rule and differentiating it in its backward rule
+    (korean_f5_tts_tpu/ops/grouped_conv.py:145-163), since under remat the
+    kernel's forward would only be run again for the backward.
+    """
     global launches
-    if x.device.type == "cpu":
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, b))
+    if x.device.type == "cpu" or grad:
         return grouped_conv1d_mish_reference(x, w, b, groups, fuse_mish)
     B, N, C = x.shape
     k = w.shape[0]

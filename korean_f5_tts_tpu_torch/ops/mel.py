@@ -132,6 +132,28 @@ def stft_spectrogram(x: torch.Tensor, n_fft: int, hop_length: int, win_length: i
     return mag.transpose(-1, -2)
 
 
+def log_mel_spectrogram(wav: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """[b, nw] (or [b, 1, nw]) waveform -> [b, n_mels, n_frames] log-mel
+    (JAX log_mel_spectrogram, ops/mel.py:181-202): vocos reflect-pads
+    n_fft / 2 (torch.stft's center=True), bigvgan (n_fft - hop) / 2 and adds
+    1e-9 under the magnitude's root."""
+    if wav.dim() == 3:
+        wav = wav[:, 0, :]
+    if wav.dim() != 2:
+        raise ValueError(f"expected [b, nw], got {tuple(wav.shape)}")
+    if cfg.mel_spec_type == "vocos":
+        pad, eps = cfg.n_fft // 2, 0.0
+    elif cfg.mel_spec_type == "bigvgan":
+        pad, eps = (cfg.n_fft - cfg.hop_length) // 2, 1e-9
+    else:
+        raise ValueError(f"unknown mel_spec_type: {cfg.mel_spec_type}")
+    x = torch.nn.functional.pad(wav.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+    spec = stft_spectrogram(x, cfg.n_fft, cfg.hop_length, cfg.win_length, magnitude_eps=eps)
+    fb = torch.from_numpy(mel_filterbank(cfg)).to(wav.device)
+    mel = torch.einsum("bft,fm->bmt", spec, fb)
+    return torch.log(torch.clamp(mel, min=1e-5))
+
+
 def log_mel_prepadded(wav_padded: torch.Tensor, cfg: MelConfig, out_frames: int) -> torch.Tensor:
     """[b, L] pre-padded waveform -> [b, out_frames, n_mels] log-mel.
 

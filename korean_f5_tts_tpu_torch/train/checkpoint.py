@@ -1,8 +1,9 @@
-"""Weight converter: JAX parameter trees and .npz checkpoints -> the port.
+"""Weight converter and training checkpoints, in the JAX package's .npz format.
 
-Counterpart of korean_f5_tts_tpu/train/checkpoint.py:23-60 (flatten_tree /
-unflatten_tree) and the .npz prefix logic of infer/model.py:94-109. This is
-the one place where layouts change between the packages:
+Counterpart of korean_f5_tts_tpu/train/checkpoint.py (flatten_tree,
+unflatten_tree, save/load, rotation, resume precedence) and the .npz prefix
+logic of infer/model.py:94-109. This is the one place where layouts change
+between the packages:
 
   - linear weights: JAX [d_in, d_out] -> torch [d_out, d_in] (transposed),
     the int8 "w_int8" of a quantized linear (models/quant.py) as well;
@@ -15,10 +16,19 @@ the one place where layouts change between the packages:
 
 The inverse, params_to_jax, undoes the transposes, so a checkpoint
 round-trips exactly.
+
+A training checkpoint holds "params/..." and "ema_params/..." (JAX
+layouts), "update", and "opt_leaves/NNNNN": the optax state's leaves in its
+own order (checkpoint.py:63-79), which for the optimizer of train/step.py is
+the adam count, every mu leaf, every nu leaf, the schedule count. Within mu
+and nu the leaves follow jax.tree_util's order: dict keys sorted, lists by
+index (so blocks/10 comes after blocks/9), in the JAX layout like the
+weights they belong to. Either package's Trainer resumes from the other's.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any
 
@@ -107,3 +117,103 @@ def load_npz_params(path: str, use_ema: bool = True) -> dict[str, np.ndarray]:
               else "params/")
     sub = {k[len(prefix):]: v for k, v in data.items() if k.startswith(prefix)}
     return sub if sub else data
+
+
+# ---------------------------------------------------------------------------
+# training checkpoints
+# ---------------------------------------------------------------------------
+
+
+def jax_leaf_order(paths) -> list[str]:
+    """Flat paths in jax.tree_util's leaf order: keys sorted at every level,
+    list indices numerically."""
+    def key(path: str):
+        return tuple((0, int(p), "") if p.isdigit() else (1, 0, p) for p in path.split("/"))
+
+    return sorted(paths, key=key)
+
+
+def opt_state_to_leaves(opt_state: dict) -> list[np.ndarray]:
+    """train/step.py's optimizer state -> optax's leaf list (JAX layouts)."""
+    mu, nu = params_to_jax(opt_state["mu"]), params_to_jax(opt_state["nu"])
+    order = jax_leaf_order(mu)
+    return ([np.asarray(opt_state["count"], np.int32)] + [mu[k] for k in order]
+            + [nu[k] for k in order] + [np.asarray(opt_state["sched_count"], np.int32)])
+
+
+def opt_state_from_leaves(leaves: list, params, device="cpu") -> dict:
+    """optax's leaf list -> train/step.py's optimizer state for `params`'s tree."""
+    order = jax_leaf_order(flatten_tree(params))
+    n = len(order)
+    if len(leaves) != 2 * n + 2:
+        raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters: want {2 * n + 2}")
+    return {"count": int(leaves[0]),
+            "mu": params_from_jax(dict(zip(order, leaves[1:n + 1])), device=device),
+            "nu": params_from_jax(dict(zip(order, leaves[n + 1:2 * n + 1])), device=device),
+            "sched_count": int(leaves[-1])}
+
+
+def save_checkpoint(path: str, params, opt_state: dict | None = None, ema_params=None,
+                    update: int = 0) -> None:
+    """One .npz holding the bundle, written to a temporary file first."""
+    flat = {f"params/{k}": v for k, v in params_to_jax(params).items()}
+    if ema_params is not None:
+        flat.update({f"ema_params/{k}": v for k, v in params_to_jax(ema_params).items()})
+    if opt_state is not None:
+        for i, leaf in enumerate(opt_state_to_leaves(opt_state)):
+            flat[f"opt_leaves/{i:05d}"] = leaf
+    flat["update"] = np.asarray(update)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str, device="cpu") -> dict:
+    """{"update", "params", "ema_params" (when present), "opt_leaves" (numpy,
+    when present)}: the trees are the port's, on `device`."""
+    data = dict(np.load(path, allow_pickle=False))
+    out: dict[str, Any] = {"update": int(data.pop("update", 0))}
+    groups: dict[str, dict] = {}
+    for k, v in data.items():
+        head, _, rest = k.partition("/")
+        groups.setdefault(head, {})[rest] = v
+    opt_leaves = groups.pop("opt_leaves", None)
+    if opt_leaves is not None:
+        out["opt_leaves"] = [opt_leaves[k] for k in sorted(opt_leaves)]
+    for head in ("params", "ema_params"):
+        if head in groups:
+            out[head] = params_from_jax(groups[head], device=device)
+    return out
+
+
+_CKPT_RE = re.compile(r"model_(\d+)\.npz$")
+
+
+def rotate_checkpoints(ckpt_dir: str, keep_last_n: int) -> None:
+    """Delete the oldest numbered checkpoints beyond keep_last_n
+    (checkpoint.py:100-115): < 0 keeps all, 0 keeps none; pretrained_*
+    files are never rotated."""
+    if keep_last_n < 0:
+        return
+    numbered = sorted((int(m.group(1)), f) for f in os.listdir(ckpt_dir)
+                      if (m := _CKPT_RE.search(f)) and not f.startswith("pretrained_"))
+    for _, f in (numbered if keep_last_n == 0 else numbered[:-keep_last_n]):
+        os.remove(os.path.join(ckpt_dir, f))
+
+
+def resolve_resume_checkpoint(ckpt_dir: str, explicit: str | None = None) -> str | None:
+    """Load precedence (checkpoint.py:142-162): explicit -> model_last ->
+    highest numbered -> pretrained."""
+    if explicit:
+        return explicit
+    if not os.path.isdir(ckpt_dir):
+        return None
+    files = os.listdir(ckpt_dir)
+    if "model_last.npz" in files:
+        return os.path.join(ckpt_dir, "model_last.npz")
+    numbered = sorted((int(m.group(1)), f) for f in files
+                      if (m := _CKPT_RE.search(f)) and not f.startswith("pretrained_"))
+    if numbered:
+        return os.path.join(ckpt_dir, numbered[-1][1])
+    pretrained = sorted(f for f in files if f.startswith("pretrained_"))
+    return os.path.join(ckpt_dir, pretrained[0]) if pretrained else None

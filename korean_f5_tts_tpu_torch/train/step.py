@@ -1,0 +1,179 @@
+"""Training step: CFM loss, gradients, global-norm clip, AdamW, EMA
+(counterpart of korean_f5_tts_tpu/train/step.py).
+
+The optimizer is plain tensor code that mirrors the JAX package's optax
+chain (make_optimizer, step.py:29-46) term for term, so that its state is
+optax's and checkpoints cross between the packages (train/checkpoint.py):
+
+  - clip_by_global_norm: g stays as it is when its global norm is below
+    max_grad_norm, else becomes (g / norm) * max_grad_norm. (Not
+    torch.nn.utils.clip_grad_norm_, which always scales by
+    max_norm / (norm + 1e-6).)
+  - scale_by_adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, both
+    bias-corrected with the incremented count; u = mu_hat / (sqrt(nu_hat) + eps).
+  - add_decayed_weights: u += weight_decay * params.
+  - scale_by_learning_rate: u *= -schedule(count), the count taken before it
+    increments, so the first update uses schedule(0) = 1e-8.
+
+The state is {"count", "mu", "nu", "sched_count"}: optax's leaves
+[1][0].count, mu, nu and [1][2].count. Unlike the JAX step, which donates
+its input state, train_step updates the state's tensors in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from korean_f5_tts_tpu_torch.config import CFMConfig, DiTConfig
+from korean_f5_tts_tpu_torch.models.cfm import cfm_loss, cfm_loss_from_draws
+from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, unflatten_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """The optax chain of make_optimizer: clip, AdamW, warmup/decay schedule."""
+    learning_rate: float = 7.5e-5
+    warmup_updates: int = 20_000
+    total_updates: int = 1_200_000
+    max_grad_norm: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+
+    def schedule(self, count: int) -> float:
+        """optax.join_schedules of linear 1e-8 -> lr over warmup_updates and
+        lr -> 1e-8 over the rest, in float32 as optax computes it."""
+        def linear(init: float, end: float, steps: int, c: int) -> np.float32:
+            frac = np.float32(1) - np.float32(min(max(c, 0), steps)) / np.float32(steps)
+            return np.float32(init - end) * frac + np.float32(end)
+
+        lr = self.learning_rate
+        if count < self.warmup_updates:
+            return float(linear(1e-8, lr, self.warmup_updates, count))
+        decay = max(self.total_updates - self.warmup_updates, 1)
+        return float(linear(lr, 1e-8, decay, count - self.warmup_updates))
+
+
+def make_optimizer(learning_rate: float = 7.5e-5, warmup_updates: int = 20_000,
+                   total_updates: int = 1_200_000, max_grad_norm: float = 1.0) -> AdamW:
+    """AdamW + linear warmup/decay + global-norm clip (step.py:29-46)."""
+    return AdamW(learning_rate=learning_rate, warmup_updates=warmup_updates,
+                 total_updates=total_updates, max_grad_norm=max_grad_norm)
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any          # fp32 master weights (the port's tree)
+    opt_state: dict      # {"count": int, "mu": tree, "nu": tree, "sched_count": int}
+    ema_params: Any | None
+    step: int
+
+
+def _zeros_like(tree):
+    return unflatten_tree({k: torch.zeros_like(v) for k, v in flatten_tree(tree).items()})
+
+
+def init_train_state(params, optimizer: AdamW, use_ema: bool = True,
+                     ema_decay: float = 0.999) -> TrainState:
+    """A fresh state over a copy of `params` (the caller's tree is never
+    updated in place); ema_decay is train_step's, as in the JAX signature."""
+    del optimizer, ema_decay
+    params = unflatten_tree({k: v.detach().clone() for k, v in flatten_tree(params).items()})
+    ema = (unflatten_tree({k: v.clone() for k, v in flatten_tree(params).items()})
+           if use_ema else None)
+    opt_state = {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params),
+                 "sched_count": 0}
+    return TrainState(params=params, opt_state=opt_state, ema_params=ema, step=0)
+
+
+def loss_and_grads(params, batch: dict, seed: int, arch: DiTConfig,
+                   cfm: CFMConfig = CFMConfig(), compute_dtype: torch.dtype | None = None,
+                   kernels: bool = True,
+                   draws: dict | None = None) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """fp32 loss and the gradient of every leaf of `params` (flatten_tree
+    order) on a batch {mel [b, n, d], text [b, nt], lens [b]}.
+
+    compute_dtype=torch.bfloat16 casts the fp32 leaves and the mel for the
+    forward and backward (step.py:90-100); the gradients land on the fp32
+    masters in fp32. `draws` (models/cfm.py:draw_cfm's dict), when given,
+    replace the loss's draws from `seed`, and dropout is off.
+    """
+    flat = flatten_tree(params)
+    leaves = [t.detach().requires_grad_(True) for t in flat.values()]
+    mel = batch["mel"]
+    run = leaves
+    if compute_dtype is not None:
+        run = [t.to(compute_dtype) if t.dtype == torch.float32 else t for t in leaves]
+        mel = mel.to(compute_dtype)
+    tree = unflatten_tree(dict(zip(flat, run)))
+    if draws is None:
+        loss, _, _ = cfm_loss(tree, arch, mel, batch["text"], batch["lens"], seed, cfm=cfm,
+                              kernels=kernels)
+    else:
+        loss, _, _ = cfm_loss_from_draws(tree, arch, mel, batch["text"], batch["lens"], draws,
+                                         kernels=kernels)
+    loss = loss.float()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), grads
+
+
+@torch.no_grad()
+def apply_updates(state: TrainState, grads: list[torch.Tensor], optimizer: AdamW,
+                  ema_decay: float = 0.999) -> TrainState:
+    """The optax chain and the EMA, in place on the state's tensors."""
+    opt = optimizer
+    flat = flatten_tree(state.params)
+    params = list(flat.values())
+
+    def aligned(tree):  # the leaves of a tree of the same paths, in params' order
+        leaves = flatten_tree(tree)
+        return [leaves[k] for k in flat]
+
+    mu, nu = aligned(state.opt_state["mu"]), aligned(state.opt_state["nu"])
+    # clip_by_global_norm
+    g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+    trigger = g_norm < opt.max_grad_norm
+    grads = [torch.where(trigger, g, (g / g_norm) * opt.max_grad_norm) for g in grads]
+    # scale_by_adam
+    count = state.opt_state["count"] + 1
+    torch._foreach_mul_(mu, opt.b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - opt.b1)
+    torch._foreach_mul_(nu, opt.b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - opt.b2)
+    bc1 = float(np.float32(1) - np.float32(opt.b1) ** np.float32(count))
+    bc2 = float(np.float32(1) - np.float32(opt.b2) ** np.float32(count))
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, opt.eps)
+    updates = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(updates, denom)
+    # add_decayed_weights, scale_by_learning_rate, apply_updates
+    torch._foreach_add_(updates, params, alpha=opt.weight_decay)
+    torch._foreach_mul_(updates, -opt.schedule(state.opt_state["sched_count"]))
+    torch._foreach_add_(params, updates)
+    if state.ema_params is not None:
+        ema = aligned(state.ema_params)
+        torch._foreach_mul_(ema, ema_decay)
+        torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
+    state.opt_state["count"] = count
+    state.opt_state["sched_count"] += 1
+    state.step += 1
+    return state
+
+
+def train_step(state: TrainState, batch: dict, seed: int, arch: DiTConfig,
+               optimizer: AdamW, cfm: CFMConfig = CFMConfig(), ema_decay: float = 0.999,
+               compute_dtype: torch.dtype | None = None, kernels: bool = True,
+               draws: dict | None = None):
+    """One update on a batch {mel [b, n, d], text [b, nt], lens [b]}; the
+    loss's draws come from `seed` (or are `draws`, see loss_and_grads).
+    Returns (state, loss), the state updated in place."""
+    loss, grads = loss_and_grads(state.params, batch, seed, arch, cfm, compute_dtype, kernels,
+                                 draws)
+    return apply_updates(state, grads, optimizer, ema_decay), loss

@@ -1,0 +1,231 @@
+"""Trainer: epochs over frame-budgeted batches, checkpoints, logging, resume
+(counterpart of korean_f5_tts_tpu/train/trainer.py, on one device).
+
+Each update runs train/step.py:train_step with a seed of
+fold_in(resumable_with_seed, update), as the JAX Trainer folds the update
+into its key (trainer.py:357), so a resumed run draws what an uninterrupted
+one does. Checkpoints are the JAX package's .npz (train/checkpoint.py) and
+cross between the packages both ways.
+
+Not ported (ROADMAP.md queue 1 item 10): a device mesh (data or tensor
+parallelism), orbax checkpoints, gradient accumulation (optax.MultiSteps) and
+the wandb logger, each of which raises NotImplementedError, and the periodic
+sample logging of the train CLI (log_samples, sample_fn).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from korean_f5_tts_tpu_torch.config import CFMConfig
+from korean_f5_tts_tpu_torch.data.dataset import DynamicBatchSampler, collate_batch
+from korean_f5_tts_tpu_torch.train import checkpoint as ckpt_lib
+from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree
+from korean_f5_tts_tpu_torch.train.step import (
+    TrainState,
+    init_train_state,
+    make_optimizer,
+    train_step,
+)
+from korean_f5_tts_tpu_torch.utils.misc import fold_in
+
+_TODO = "not ported (ROADMAP.md queue 1 item 10)"
+
+
+class _Prefetcher:
+    """Bounded background iterator: overlaps host-side batch preparation
+    (audio IO, wav -> mel, collate) with the device step (trainer.py:38-74)."""
+
+    _SENTINEL = object()
+
+    def __init__(self, gen, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._exc: BaseException | None = None
+
+        def run():
+            try:
+                for item in gen:
+                    self._q.put(item)
+            except BaseException as e:  # raised again on the consumer side
+                self._exc = e
+            finally:
+                self._q.put(self._SENTINEL)
+
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._SENTINEL:
+            if self._exc is not None:
+                raise self._exc
+            raise StopIteration
+        return item
+
+
+class _StaticBatches:
+    """Fixed-size index chunks (batch_size_type "sample")."""
+
+    def __init__(self, n: int, size: int):
+        self.batches = [list(range(i, min(i + size, n))) for i in range(0, n, size)]
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+
+class Trainer:
+    def __init__(self, params: Any, arch: Any, epochs: int = 1, learning_rate: float = 7.5e-5,
+                 num_warmup_updates: int = 20_000, total_updates: int = 1_200_000,
+                 save_per_updates: int = 50_000, keep_last_n_checkpoints: int = -1,
+                 checkpoint_path: str = "ckpts/run", batch_size_per_gpu: int = 38_400,
+                 batch_size_type: str = "frame", max_samples: int = 64,
+                 grad_accumulation_steps: int = 1, max_grad_norm: float = 1.0,
+                 cfm: CFMConfig = CFMConfig(), ema_decay: float = 0.999,
+                 last_per_updates: int = 5_000, log_dir: str | None = None,
+                 logger: str | None = "tensorboard", mesh=None,
+                 vocab_char_map: dict[str, int] | None = None, tokenize_fn=None,
+                 compute_dtype: torch.dtype | None = None, ckpt_format: str = "npz"):
+        if mesh is not None:
+            raise NotImplementedError(f"training on a device mesh is {_TODO}")
+        if ckpt_format != "npz":
+            raise NotImplementedError(f"ckpt_format={ckpt_format!r} is {_TODO}")
+        if grad_accumulation_steps > 1:
+            raise NotImplementedError(f"gradient accumulation is {_TODO}")
+        if logger == "wandb":
+            raise NotImplementedError(f"the wandb logger is {_TODO}")
+        self.arch = arch
+        self.epochs = epochs
+        self.save_per_updates = save_per_updates
+        self.last_per_updates = last_per_updates
+        self.keep_last_n_checkpoints = keep_last_n_checkpoints
+        self.checkpoint_path = checkpoint_path
+        self.batch_size_per_gpu = batch_size_per_gpu
+        self.batch_size_type = batch_size_type
+        self.max_samples = max_samples
+        self.cfm = cfm
+        self.ema_decay = ema_decay
+        self.vocab_char_map = vocab_char_map
+        self.tokenize_fn = tokenize_fn
+        self.compute_dtype = compute_dtype
+        self.device = next(iter(flatten_tree(params).values())).device
+        self.optimizer = make_optimizer(learning_rate=learning_rate,
+                                        warmup_updates=num_warmup_updates,
+                                        total_updates=total_updates,
+                                        max_grad_norm=max_grad_norm)
+        self.state = init_train_state(params, self.optimizer, ema_decay=ema_decay)
+        self.writer = None
+        if logger == "tensorboard":
+            try:  # tensorboard is optional, as in the JAX Trainer
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self.writer = SummaryWriter(log_dir or os.path.join(checkpoint_path, "tb"))
+
+    # -- checkpointing ------------------------------------------------------
+
+    def save_checkpoint(self, update: int, last: bool = False) -> str:
+        os.makedirs(self.checkpoint_path, exist_ok=True)
+        path = os.path.join(self.checkpoint_path,
+                            "model_last.npz" if last else f"model_{update}.npz")
+        ckpt_lib.save_checkpoint(path, self.state.params, opt_state=self.state.opt_state,
+                                 ema_params=self.state.ema_params, update=update)
+        if not last:
+            ckpt_lib.rotate_checkpoints(self.checkpoint_path, self.keep_last_n_checkpoints)
+        return path
+
+    def load_checkpoint(self, explicit: str | None = None) -> int:
+        path = ckpt_lib.resolve_resume_checkpoint(self.checkpoint_path, explicit)
+        if path is None:
+            return 0
+        data = ckpt_lib.load_checkpoint(path, device=self.device)
+        opt_state = self.state.opt_state
+        if "opt_leaves" in data:
+            opt_state = ckpt_lib.opt_state_from_leaves(data["opt_leaves"], data["params"],
+                                                       device=self.device)
+        self.state = TrainState(data["params"], opt_state, data.get("ema_params"),
+                                data["update"])
+        print(f"resumed from {path} at update {data['update']}")
+        return data["update"]
+
+    # -- training loop ------------------------------------------------------
+
+    def _make_batches(self, dataset, seed: int | None):
+        if self.batch_size_type == "frame":
+            return DynamicBatchSampler(dataset, self.batch_size_per_gpu,
+                                       max_samples=self.max_samples, random_seed=seed,
+                                       drop_residual=False)
+        return _StaticBatches(len(dataset), self.batch_size_per_gpu)
+
+    def _load_batch(self, dataset, batch_idx) -> dict[str, np.ndarray]:
+        """Host-side IO, mel and collate of one packed batch (prefetchable)."""
+        batch = collate_batch([dataset[i] for i in batch_idx], self.vocab_char_map,
+                              self.tokenize_fn)
+        return {"mel": batch["mel"], "text": batch["text"], "lens": batch["mel_lengths"]}
+
+    def _place_batch(self, local: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                for k, v in local.items()}
+
+    def train(self, dataset, num_workers: int = 0, resumable_with_seed: int | None = None,
+              resume_from: str | None = None, log_every: int = 10,
+              max_updates: int | None = None) -> dict:
+        start_update = self.load_checkpoint(resume_from)
+        update = start_update
+        sampler = self._make_batches(dataset, resumable_with_seed)
+        batches_per_epoch = max(len(sampler), 1)
+        start_epoch = start_update // batches_per_epoch
+        skip_batches = start_update % batches_per_epoch
+        base_seed = resumable_with_seed or 0
+        losses: list[float] = []
+        t0 = time.time()
+        for epoch in range(start_epoch, self.epochs):
+            sampler.set_epoch(epoch)
+
+            def epoch_stream(epoch=epoch):
+                for bi, batch_idx in enumerate(sampler):
+                    if epoch == start_epoch and bi < skip_batches:
+                        continue  # deterministic resume (trainer.py:340-347)
+                    yield self._load_batch(dataset, batch_idx)
+
+            stream = (_Prefetcher(epoch_stream(), depth=max(2, num_workers))
+                      if num_workers > 0 else epoch_stream())
+            for local in stream:
+                self.state, loss = train_step(
+                    self.state, self._place_batch(local), fold_in(base_seed, update),
+                    self.arch, self.optimizer, self.cfm, ema_decay=self.ema_decay,
+                    compute_dtype=self.compute_dtype)
+                update += 1
+                losses.append(float(loss))
+                if update % log_every == 0:
+                    dt = time.time() - t0
+                    print(f"update {update} loss {np.mean(losses[-log_every:]):.4f} "
+                          f"({log_every / max(dt, 1e-9):.2f} it/s)")
+                    t0 = time.time()
+                    if self.writer is not None:
+                        self.writer.add_scalar("loss", losses[-1], update)
+                if update % self.save_per_updates == 0:
+                    self.save_checkpoint(update)
+                if update % self.last_per_updates == 0:
+                    self.save_checkpoint(update, last=True)
+                if max_updates is not None and update - start_update >= max_updates:
+                    self.save_checkpoint(update, last=True)
+                    return {"updates": update, "losses": losses}
+        self.save_checkpoint(update, last=True)
+        return {"updates": update, "losses": losses}

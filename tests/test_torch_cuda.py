@@ -206,3 +206,69 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     qp_in = _qp(dev, gen, 200, 256)  # dff = 200 is not a multiple of 128
     with pytest.raises(ValueError):
         ff_block.ff_block_fused_int8(h, vec, vec, vec, qp_in, _qp(dev, gen, 256, 200))
+
+
+# --- training kernels 10, 11, 12, 13 --------------------------------------------
+
+
+def _train_inputs(dev, gen, n, lens):
+    q, k, v, do = (_bf16((4, n, 64), dev, gen) for _ in range(4))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    o, lse = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+    dvec = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, kv, dvec, lse
+
+
+@pytest.mark.parametrize("n,lens", [(200, [1, 64, 65, 200]), (256, [256, 131, 64, 2])])
+def test_flash_training_kernels(dev, n, lens):
+    # lse is fp32 from the same exact bf16 products (sums in another order)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, do, kv, dvec, lse = _train_inputs(dev, gen, n, lens)
+    before = {name: getattr(flash_prefix, name) for name in
+              ("launches_lse", "launches_dq_lsein", "launches_dq", "launches_dkv")}
+    o_k, lse_k = flash_prefix.flash_prefix_folded_lse(q, k, v, kv)
+    _close(o_k, flash_prefix.prefix_attention_reference(q, k, v, kv))
+    torch.testing.assert_close(lse_k, lse, rtol=0, atol=1e-3)
+    _close(flash_prefix.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv),
+           flash_prefix.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv))
+    dq_k, lse12 = flash_prefix.flash_prefix_dq(q, k, v, do, dvec, kv)
+    dq_p, _ = flash_prefix.flash_prefix_dq_reference(q, k, v, do, dvec, kv)
+    _close(dq_k, dq_p)
+    torch.testing.assert_close(lse12, lse, rtol=0, atol=1e-3)
+    dk_k, dv_k = flash_prefix.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+    dk_p, dv_p = flash_prefix.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+    _close(dk_k, dk_p)
+    _close(dv_k, dv_p)
+    for name, n0 in before.items():
+        assert getattr(flash_prefix, name) == n0 + 1, name
+
+
+def test_flash_function_matches_autograd_of_the_plain_attention(dev):
+    # the plain path rounds P and dP to bf16 in its own places: relative L2
+    # within 2e-2 (chip_smoke's bound for the same comparison)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, g = (_bf16((2, 4, 300, 64), dev, gen) for _ in range(4))
+    lens = torch.tensor([300, 123], dtype=torch.int32, device=dev)
+    grads = []
+    for kernels in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = flash_prefix.flash_prefix_attention(*leaves, lens, kernels=kernels)
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all()
+        assert ((got.float() - want.float()).norm() / want.float().norm()).item() < 2e-2
+
+
+def test_training_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, k, v, do, kv, dvec, lse = _train_inputs(dev, gen, 128, [128, 1, 2, 3])
+    f32 = q.float()
+    with pytest.raises(TypeError, match="ROADMAP"):  # fp32 operands are a later item
+        flash_prefix.flash_prefix_folded_lse(f32, f32, f32, kv)
+    with pytest.raises(ValueError):  # kv_lens must be int32
+        flash_prefix.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv.long())
+    with pytest.raises(ValueError):  # lse must be fp32 [H, n]
+        flash_prefix.flash_prefix_dkv(q, k, v, do, dvec, lse[:, :64], kv)
+    q128 = _bf16((4, 128, 128), dev, gen)
+    with pytest.raises(ValueError):  # the training kernels take d = 64 only
+        flash_prefix.flash_prefix_dq(q128, q128, q128, q128, dvec, kv)
