@@ -6,11 +6,18 @@
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the Hopper kernels from
      korean_f5_tts_tpu_torch/csrc and print the build time;
-  2. hold each of the eleven kernels (bf16: A, B, C; int8: 9, 5, 6, 4;
-     training: 10, 11, 12, 13) against its plain PyTorch version at the
-     main-path shapes, plus ragged, zero-row and outlier cases, and time both
-     with CUDA events (20 runs after a warm-up); the training attention's
-     autograd Function against autograd of the plain attention;
+  2. hold each of the fifteen kernels (bf16: A, B, C; int8: 9, 5, 6, 4;
+     training: 10, 11, 12, 13; the opt-in attention paths: 7, 8, 18, 19)
+     against its plain PyTorch version at the main-path shapes, plus ragged,
+     zero-row and outlier cases, and time both with CUDA events (20 runs
+     after a warm-up), beside the least time the card could take for the
+     same work (bytes over 3.35 TB/s or operations over the published peak,
+     whichever is larger) and, for kernel A, the one PyTorch call that
+     computes the same function (scaled_dot_product_attention, which no path
+     of the port uses); kernels 7, 8, 18, 19 also beside the calls of the
+     default path that they replace, 18 and 19 also against kernel A on
+     torch-roped inputs; the training attention's autograd Function against
+     autograd of the plain attention; scripts/probe_hopper.py;
   3. build F5TTS_v1_Base + Vocos with seeded random weights (AdaLN-zero
      layers re-drawn), in bf16 and again with int8 weights
      (load_model(..., quantize=True)); for each mode serve three HTTP /tts
@@ -29,12 +36,29 @@ Phases (any failure raises and exits non-zero):
      (flash_prefix_attention_bwd without a forward lse: kernels A, 12, 13);
      Trainer.train on an in-memory dataset of seeded mels packed to 8 x 1280
      frames, 2 updates, a checkpoint, a resume and 2 more (launches counted
-     over all 4); then bench_train's protocol at batch 8 x 1280 (1 warm-up +
-     8 steps) with kernels and plain.
-Serving and training run the full depth of 22 blocks. The line before the
-last is a JSON object with the kernels' numbers (launches: both modes'
-serving runs, the backward entry point and the Trainer's 4 updates); the
-last line is {"ok": true, "device": {...}}.
+     over all 4), at full width and a depth of 4 blocks (at depth 22 the
+     5 GiB checkpoint, written twice and read once, took 98 of the script's
+     262 s on an H100); then bench_train's protocol at batch 8 x 1280 (1 warm-up + 8
+     steps) with kernels and plain, at depth 22;
+  7. bf16, for each opt-in attention path (attn_path "linear_fused":
+     kernels 7, A, 8; "rope_in_kernel": kernel 18; "qkv_kernel": kernel 19):
+     serve one HTTP request alone and two as a batch with exact launch
+     counts, compare the bench-protocol mel with the same path's plain
+     versions (and print its distance to the default path's), and time the
+     RTF beside the default path's;
+  8. the offline entry point at full width: api.F5TTS(device="cuda").infer
+     on a chirp reference and a text of three or more unequal chunks, under
+     "default" and "qkv_kernel" and once without CFG (cfg_strength 0), with
+     the wav's length, finiteness, loudness and the exact launch counts
+     checked; then cfm_sample on a batch of 3 whose durations fall into two
+     buckets, under "rope_in_kernel" and "qkv_kernel": two groups run, the
+     group of 2 under a duration mask, each item equals the same item
+     sampled alone, and the counts are exact.
+Serving, the training step, bench_train and offline inference run the full
+depth of 22 blocks; only the Trainer run of phase 6 is cut to 4. The
+line before the last is a JSON object with the kernels' numbers (launches:
+the serving runs of phases 3 and 7, the backward entry point, the Trainer's
+4 updates and phase 8); the last line is {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository checkout it sits in; it imports
 nothing of JAX.
@@ -63,6 +87,10 @@ REPLACES = {
     "flash_prefix_dq_lsein": "korean_f5_tts_tpu/ops/flash_prefix.py:1033",
     "flash_prefix_dq": "korean_f5_tts_tpu/ops/flash_prefix.py:978",
     "flash_prefix_dkv": "korean_f5_tts_tpu/ops/flash_prefix.py:1151",
+    "ln_mod_matmul": "korean_f5_tts_tpu/ops/fused_linears.py:34",
+    "proj_gated_residual": "korean_f5_tts_tpu/ops/fused_linears.py:198",
+    "flash_prefix_rope": "korean_f5_tts_tpu/ops/flash_prefix.py:1424",
+    "flash_prefix_qkv": "korean_f5_tts_tpu/ops/flash_prefix.py:1550",
 }
 SOURCES = {
     "flash_prefix": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
@@ -74,7 +102,14 @@ SOURCES = {
     "qmatmul": "korean_f5_tts_tpu_torch/csrc/qmatmul.cu",
     **dict.fromkeys(("flash_prefix_lse", "flash_prefix_dq_lsein", "flash_prefix_dq",
                      "flash_prefix_dkv"), "korean_f5_tts_tpu_torch/csrc/flash_prefix_train.cu"),
+    **dict.fromkeys(("ln_mod_matmul", "proj_gated_residual"),
+                    "korean_f5_tts_tpu_torch/csrc/fused_linears.cu"),
+    **dict.fromkeys(("flash_prefix_rope", "flash_prefix_qkv"),
+                    "korean_f5_tts_tpu_torch/csrc/flash_prefix_rope.cu"),
 }
+# published peaks of the H100 SXM (dense): the roofline a kernel's time is held against
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_BYTES = 3.35e12
 # int8 kernels against their plain versions: both quantize the same values
 # and sum the integer products exactly, but where the quantized value is
 # computed first (LN statistics, GELU) fp32 sums in another order can flip a
@@ -110,6 +145,31 @@ def cuda_time_ms(fn, runs: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / runs
+
+
+def _tensors(*objs):
+    for o in objs:
+        if isinstance(o, dict):
+            yield from _tensors(*o.values())
+        elif isinstance(o, (list, tuple)):
+            yield from _tensors(*o)
+        elif o is not None:
+            yield o
+
+
+def bound(ops: float, io, kind: str = "bf16") -> dict:
+    """The least time the card could take: the larger of the operations over
+    the published peak for their type and the bytes of `io` (each input read
+    once, each output written once; tensors, or dicts and lists of them)
+    over the memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(io))
+    t_ops, t_bytes = ops / PEAK_OPS[kind] * 1e3, nbytes / PEAK_BYTES * 1e3
+    out = {"bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+    print(f"  bound: {ops / 1e9:.2f} G{'OP' if kind == 'int8' else 'FLOP'} -> {t_ops:.4f} ms, "
+          f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms: {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']}")
+    return out
 
 
 def compare(name: str, got, want, rel_bound: float,
@@ -158,12 +218,12 @@ def check_attention(gen, dev) -> dict:
         got = fp.flash_prefix_folded(q, k, v, kv)
         want = fp.prefix_attention_reference(q, k, v, kv)
         torch.cuda.synchronize()
-        return compare(f"flash_prefix {label}", got, want, 1e-2), (q, k, v, kv)
+        return compare(f"flash_prefix {label}", got, want, 1e-2), (q, k, v, kv, got)
 
     print("kernel A, prefix attention (bf16, rel bound 1e-2: p rounds to bf16 "
           "before P.V in the kernel, after normalisation in the plain version)")
-    (max_abs, _), (q, k, v, kv) = case("main H=32 n=1536 d=64 kv=1376", 32, 1536, 64,
-                                      [1376] * 32)
+    (max_abs, _), (q, k, v, kv, got_main) = case("main H=32 n=1536 d=64 kv=1376", 32, 1536, 64,
+                                                [1376] * 32)
     case("n=1000 kv=1", 4, 1000, 64, [1] * 4)
     case("n=1000 kv=700", 4, 1000, 64, [700] * 4)
     case("n=1000 kv=n", 4, 1000, 64, [1000] * 4)
@@ -172,8 +232,20 @@ def check_attention(gen, dev) -> dict:
     case("n=300 d=128 mixed", 4, 300, 128, [300, 1, 77, 129])
     ms = cuda_time_ms(lambda: fp.flash_prefix_folded(q, k, v, kv))
     plain_ms = cuda_time_ms(lambda: fp.prefix_attention_reference(q, k, v, kv))
-    print(f"  time at main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    # the one PyTorch call for the same function: SDPA with the prefix mask
+    # as a boolean mask; timed here, used nowhere in the port
+    valid = (torch.arange(1536, device=dev)[None, :] < kv[:, None])[:, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(q, k, v, attn_mask=valid)
+    lib_rel = _rel(lib_out, fp.prefix_attention_reference(q, k, v, kv))
+    library_ms = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=valid))
+    print(f"  time at main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"(F.scaled_dot_product_attention, boolean mask; rel {lib_rel:.1e} to plain) "
+          f"{library_ms:.4f} ms")
+    # the work this run's kv_lens need: every query row against 1376 keys
+    b = bound(4.0 * 32 * 1536 * 1376 * 64, (q, k, v, kv, got_main))
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms}
 
 
 def check_ff(gen, dev) -> dict:
@@ -203,7 +275,8 @@ def check_ff(gen, dev) -> dict:
     ms = cuda_time_ms(lambda: fb.ff_block_fused(*args))
     plain_ms = cuda_time_ms(lambda: fb.ff_block_reference(*args))
     print(f"  time at main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    b = bound(4.0 * 3072 * 1024 * 2048, (args, args[0]))  # inputs and an output like h
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def check_conv(gen, dev) -> dict:
@@ -233,7 +306,8 @@ def check_conv(gen, dev) -> dict:
     ms = cuda_time_ms(lambda: gc.grouped_conv1d_mish(x, w, b, 16))
     plain_ms = cuda_time_ms(lambda: gc.grouped_conv1d_mish_reference(x, w, b, 16))
     print(f"  time at main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    bd = bound(2.0 * 2 * 1536 * 1024 * (1024 // 16) * 31, (x, w, b, x))
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bd}
 
 
 def _uni(gen, dev, shape, bound):
@@ -262,12 +336,14 @@ def _edge_rows(gen, dev, m: int, k: int):
     return x
 
 
-def _timed(fn, plain, ops: float) -> dict:
+def _timed(fn, plain, ops: float, io, kind: str = "int8") -> dict:
+    """Times of the kernel and its plain version, and the bound for `ops`
+    operations of `kind` over the inputs and outputs `io`."""
     ms = cuda_time_ms(fn)
     plain_ms = cuda_time_ms(plain)
-    print(f"  time at main shape: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), "
-          f"plain {plain_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms}
+    print(f"  time at main shape: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} T"
+          f"{'OP' if kind == 'int8' else 'FLOP'}/s), plain {plain_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, **bound(ops, io, kind)}
 
 
 def check_qmatmul(gen, dev) -> dict:
@@ -289,7 +365,8 @@ def check_qmatmul(gen, dev) -> dict:
                 qm.qmatmul(xr, w, ws, bias, act), qm.qmatmul_reference(xr, w, ws, bias, act),
                 INT8_REL, exact=act is None)
     times = _timed(lambda: qm.qmatmul(x, w, ws, b),
-                   lambda: qm.qmatmul_reference(x, w, ws, b), 2.0 * 3072 * 1024 * 1024)
+                   lambda: qm.qmatmul_reference(x, w, ws, b), 2.0 * 3072 * 1024 * 1024,
+                   (x, w, ws, b, x))
     return {"max_abs_err": max_abs, **times}
 
 
@@ -314,7 +391,7 @@ def check_ln_mod_int8(gen, dev) -> dict:
                 fl.ln_mod_matmul_int8_reference(hr, sc, shift, qps), INT8_REL)
     times = _timed(lambda: fl.ln_mod_matmul_int8(h, sc, sh, qps),
                    lambda: fl.ln_mod_matmul_int8_reference(h, sc, sh, qps),
-                   2.0 * 3072 * 1024 * 3072)
+                   2.0 * 3072 * 1024 * 3072, (h, sc, sh, qps, h, h, h))
     return {"max_abs_err": max_abs, **times}
 
 
@@ -340,7 +417,7 @@ def check_proj_gated_int8(gen, dev) -> dict:
             exact=True)
     times = _timed(lambda: fl.proj_gated_residual_int8(a, h, gate, qp),
                    lambda: fl.proj_gated_residual_int8_reference(a, h, gate, qp),
-                   2.0 * 3072 * 1024 * 1024)
+                   2.0 * 3072 * 1024 * 1024, (a, h, gate, qp, h))
     return {"max_abs_err": max_abs, **times}
 
 
@@ -366,7 +443,8 @@ def check_ff_int8(gen, dev) -> dict:
                 fb.ff_block_fused_int8(hr, *rargs), fb.ff_block_int8_reference(hr, *rargs),
                 INT8_REL)
     times = _timed(lambda: fb.ff_block_fused_int8(h, *args),
-                   lambda: fb.ff_block_int8_reference(h, *args), 4.0 * 3072 * 1024 * 2048)
+                   lambda: fb.ff_block_int8_reference(h, *args), 4.0 * 3072 * 1024 * 2048,
+                   (h, args, h))
     return {"max_abs_err": max_abs, **times}
 
 
@@ -448,13 +526,168 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
                              lambda: fp.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv),
                              8),
     }
+    # inputs read once, outputs written once (o, dq, dk, dv are shaped like q;
+    # lse and D like dvec)
+    io = {"flash_prefix_lse": (q, k, v, kv, q, lse),
+          "flash_prefix_dq_lsein": (q, k, v, do, dvec, lse, kv, q),
+          "flash_prefix_dq": (q, k, v, do, dvec, kv, q, lse),
+          "flash_prefix_dkv": (q, k, v, do, dvec, lse, kv, k, v)}
     out = {}
     for name, (fn, plain, products) in timed.items():
         ms, plain_ms = cuda_time_ms(fn), cuda_time_ms(plain)
         flop = products * 128 * 1280 * 1280 * 64
         print(f"  {name} at the main shape: kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} "
               f"TFLOP/s), plain {plain_ms:.4f} ms")
-        out[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms}
+        out[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                     **bound(flop, io[name])}
+    return out
+
+
+def _linear(gen, dev, n: int, k: int) -> dict:
+    """A bf16 linear {w [n, k], b [n]}, uniform +-1/sqrt(k)."""
+    return {"w": _uni(gen, dev, (n, k), k ** -0.5), "b": _uni(gen, dev, (n,), k ** -0.5)}
+
+
+def _context(label: str, fn) -> None:
+    print(f"  for context, not a yardstick: {label} {cuda_time_ms(fn):.4f} ms")
+
+
+def check_ln_mod(gen, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from korean_f5_tts_tpu_torch.models.modules import layernorm
+    from korean_f5_tts_tpu_torch.ops import fused_linears as fl
+
+    print("kernel 7, LN + modulate + qkv product (bf16, rel bound 5e-3: same rounding "
+          "points, fp32 sums in another order)")
+    h = torch.randn((2, 1536, 1024), generator=gen, device=dev).to(torch.bfloat16)
+    sc, sh = _uni(gen, dev, (1024,), 0.3), _uni(gen, dev, (1024,), 0.3)
+    ps = [_linear(gen, dev, 1024, 1024) for _ in range(3)]
+    got = fl.ln_mod_matmul(h, sc, sh, ps)
+    max_abs, _ = compare("ln_mod_matmul main m=3072 d=1024 n=3x1024", got,
+                         fl.ln_mod_matmul_reference(h, sc, sh, ps), 5e-3)
+    hr = torch.randn((1, 1000, 1024), generator=gen, device=dev).to(torch.bfloat16)
+    for label, seg in (("3 linears", ps), ("1 linear", ps[:1])):
+        compare(f"ln_mod_matmul ragged m=1000, {label}", fl.ln_mod_matmul(hr, sc, sh, seg),
+                fl.ln_mod_matmul_reference(hr, sc, sh, seg), 5e-3)
+    times = _timed(lambda: fl.ln_mod_matmul(h, sc, sh, ps),
+                   lambda: fl.ln_mod_matmul_reference(h, sc, sh, ps), 2.0 * 3072 * 1024 * 3072,
+                   (h, sc, sh, ps, got), kind="bf16")
+
+    def default_path():  # what attention() runs per block on the "default" path
+        w = torch.cat([p["w"] for p in ps], dim=0)
+        b = torch.cat([p["b"] for p in ps])
+        return F.linear(layernorm({}, h) * (1 + sc) + sh, w, b)
+
+    w_cat, b_cat = torch.cat([p["w"] for p in ps], dim=0), torch.cat([p["b"] for p in ps])
+    _context("the default path's layernorm + modulate + weight concat + F.linear", default_path)
+    _context("F.linear alone, [3072, 1024] x [3072, 1024]^T", lambda: F.linear(h, w_cat, b_cat))
+    return {"max_abs_err": max_abs, **times}
+
+
+def check_proj_gated(gen, dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from korean_f5_tts_tpu_torch.ops import fused_linears as fl
+
+    print("kernel 8, out-projection + gated residual (bf16, rel bound 5e-3: same rounding "
+          "points, fp32 sums in another order)")
+    a, h = (torch.randn((2, 1536, 1024), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    gate = _uni(gen, dev, (1024,), 1.0)
+    p = _linear(gen, dev, 1024, 1024)
+    got = fl.proj_gated_residual(a, h, gate, p)
+    max_abs, _ = compare("proj_gated_residual main m=3072 d=1024", got,
+                         fl.proj_gated_residual_reference(a, h, gate, p), 5e-3)
+    compare("proj_gated_residual ragged m=1000",
+            fl.proj_gated_residual(a[:1, :1000].contiguous(), h[:1, :1000].contiguous(), gate, p),
+            fl.proj_gated_residual_reference(a[:1, :1000], h[:1, :1000], gate, p), 5e-3)
+    times = _timed(lambda: fl.proj_gated_residual(a, h, gate, p),
+                   lambda: fl.proj_gated_residual_reference(a, h, gate, p),
+                   2.0 * 3072 * 1024 * 1024, (a, h, gate, p, got), kind="bf16")
+    _context("the default path's F.linear + gated add",
+             lambda: h + gate * F.linear(a, p["w"], p["b"]))
+    _context("F.linear alone, [3072, 1024] x [1024, 1024]^T",
+             lambda: F.linear(a, p["w"], p["b"]))
+    return {"max_abs_err": max_abs, **times}
+
+
+def check_rope_attention(gen, dev) -> dict[str, dict]:
+    """Kernels 18 and 19 at the main shape (B 2 x 16 heads = H 32, n 1536,
+    d 64, 1376 valid keys) and at ragged shapes, against their plain
+    versions and against kernel A fed with torch-roped q, k."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.modules import apply_rope, rope_cos_sin
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    def tables(n):
+        return tuple(torch.from_numpy(t).to(dev).to(torch.bfloat16) for t in rope_cos_sin(n, 64))
+
+    def merge(o):
+        B, H, n, d = o.shape
+        return o.transpose(1, 2).reshape(B, n, H * d)
+
+    def case(label, B, H, n, lens, pe):
+        """Both kernels on the same values; returns their max abs errors."""
+        qkv = torch.randn((B, n, 3 * H * 64), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (t.contiguous() for t in fp.qkv_unpack(qkv, H))
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        cos, sin = tables(n)
+        got18 = fp.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe)
+        got19 = fp.flash_prefix_qkv_attention(qkv, kv, H, cos, sin, pe)
+        torch.cuda.synchronize()
+        live = [i for i, length in enumerate(lens) if length > 0]
+        for i, length in enumerate(lens):
+            # no valid key: the kernels give zeros (as the TPU kernel does), the
+            # plain softmax a mean of v, so those items are held to zero instead
+            if length == 0 and (got18[i].abs().max().item() or got19[i].abs().max().item()):
+                fail(f"kernels 18/19 {label}: item {i} with no valid key is not zero")
+        want = fp.flash_prefix_rope_reference(q[live], k[live], v[live], kv[live], cos, sin, pe)
+        e18 = compare(f"kernel 18 {label}", got18[live], want, 1e-2)[0]
+        e19 = compare(f"kernel 19 {label}", got19[live], merge(want), 1e-2)[0]
+        # the same attention through kernel A on q, k roped by torch with the
+        # kernels' rounding: the loops are one, so only rope rounding ties differ
+        via_a = fp.flash_prefix_attention(fp.rope_reference(q[live], cos, sin, pe),
+                                          fp.rope_reference(k[live], cos, sin, pe), v[live],
+                                          kv[live])
+        compare(f"kernel 18 vs kernel A on torch-roped q, k, {label}", got18[live], via_a, 5e-3)
+        compare(f"kernel 19 vs kernel A on torch-roped q, k, {label}", got19[live], merge(via_a),
+                5e-3)
+        return (e18, e19), (qkv, q, k, v, kv, cos, sin, got18, got19)
+
+    print("kernels 18 and 19, prefix attention with rope in the kernel (bf16, rel bound 1e-2 "
+          "to the plain version as for kernel A; 5e-3 to kernel A on torch-roped inputs: the "
+          "kernel's fused multiply-adds can flip a bf16 rounding tie of a roped value). Rope in "
+          "fp32 from bf16 tables, rounded once; the TPU kernel multiplies in bf16")
+    (e18, e19), (qkv, q, k, v, kv, cos, sin, got18, got19) = case(
+        "main B=2 heads=16 n=1536 kv=1376", 2, 16, 1536, [1376, 1376], None)
+    case("n=1000 kv=[10, 1000] all heads", 2, 4, 1000, [10, 1000], None)
+    case("n=1000 kv=[0, 700] pe_attn_head=1", 2, 4, 1000, [0, 700], 1)
+    case("n=300 kv=[300, 1, 129] pe_attn_head=1", 3, 2, 300, [300, 1, 129], 1)
+    flop = 4.0 * 32 * 1536 * 1376 * 64  # every query row against this run's 1376 keys
+    out = {}
+    t18 = _timed(lambda: fp.flash_prefix_rope_attention(q, k, v, kv, cos, sin),
+                 lambda: fp.flash_prefix_rope_reference(q, k, v, kv, cos, sin), flop,
+                 (q, k, v, kv, cos, sin, got18), kind="bf16")
+    _context("the default path's apply_rope x 2 + kernel A",
+             lambda: fp.flash_prefix_attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin),
+                                               v, kv))
+    out["flash_prefix_rope"] = {"max_abs_err": e18, **t18}
+    t19 = _timed(lambda: fp.flash_prefix_qkv_attention(qkv, kv, 16, cos, sin),
+                 lambda: fp.flash_prefix_qkv_reference(qkv, kv, 16, cos, sin), flop,
+                 (qkv, kv, cos, sin, got19), kind="bf16")
+
+    def default_qkv():
+        qs, ks, vs = fp.qkv_unpack(qkv, 16)
+        return merge(fp.flash_prefix_attention(apply_rope(qs, cos, sin), apply_rope(ks, cos, sin),
+                                               vs, kv))
+
+    _context("the default path's head split + apply_rope x 2 + kernel A + head merge",
+             default_qkv)
+    out["flash_prefix_qkv"] = {"max_abs_err": e19, **t19}
     return out
 
 
@@ -517,25 +750,32 @@ def expected_samples(ref_samples: int, target: str) -> int:
     return (dur - ref_frames) * HOP
 
 
-def expected_launches(mode: str, batches: int) -> dict[str, int]:
+def expected_launches(mode: str, batches: int, attn_path: str = "default") -> dict[str, int]:
     """Launches of each kernel while serving one batch of 1 and one of 2 (22
-    blocks x 16 steps each). bf16: A and B per block, C twice per step.
+    blocks x 16 steps each). bf16: the attention kernel and B per block, C
+    twice per step; the attention kernel is A, or 18 under "rope_in_kernel",
+    or 19 under "qkv_kernel"; "linear_fused" adds 7 and 8 per block at batch
+    1 only (a batch of 2 carries a duration mask and takes attention()).
     int8: A and 4 per block; 5 and 6 per block at batch 1 (no duration
     mask); kernel 9 for each of q, k, v and out per block at batch 2."""
     from korean_f5_tts_tpu_torch.ops import KERNELS
 
     per = DEPTH * STEPS
     want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_prefix=per * batches, grouped_conv=2 * STEPS * batches)
+    attn = {"rope_in_kernel": "flash_prefix_rope", "qkv_kernel": "flash_prefix_qkv"}
+    want[attn.get(attn_path, "flash_prefix")] = per * batches
+    want["grouped_conv"] = 2 * STEPS * batches
     if mode == "bf16":
         want["ff_block"] = per * batches
+        if attn_path == "linear_fused":
+            want.update(ln_mod_matmul=per, proj_gated_residual=per)
     else:
         want.update(ff_block_int8=per * batches, ln_mod_matmul_int8=per,
                     proj_gated_residual_int8=per, qmatmul=4 * per)
     return want
 
 
-def phase3_serve(model, vocoder, mode: str) -> dict[str, int]:
+def phase3_serve(model, vocoder, mode: str, attn_path: str = "default") -> dict[str, int]:
     import io
     import threading
     import urllib.request
@@ -546,10 +786,10 @@ def phase3_serve(model, vocoder, mode: str) -> dict[str, int]:
     from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
     from korean_f5_tts_tpu_torch.serving.server import serve
 
-    print(f"phase 3 ({mode}): serve() on localhost, 3 POST /tts requests (1 alone, then 2 "
-          "at once)")
+    print(f"phase {3 if attn_path == 'default' else 7} ({mode}, attn_path {attn_path}): serve() "
+          "on localhost, 3 POST /tts requests (1 alone, then 2 at once)")
     httpd, service = serve(model, vocoder, host="127.0.0.1", port=0, max_batch=8,
-                           max_wait_us=300_000)
+                           max_wait_us=300_000, attn_path=attn_path)
     port = httpd.server_address[1]
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     server_thread.start()
@@ -600,7 +840,7 @@ def phase3_serve(model, vocoder, mode: str) -> dict[str, int]:
         service.shutdown(drain=False, timeout=5.0)
         service.batcher.close()
         server_thread.join(timeout=10)
-    want = expected_launches(mode, len(sizes))
+    want = expected_launches(mode, len(sizes), attn_path)
     print(f"  kernel launches during serving: {counts} (expected {want})")
     if counts != want:
         fail("a kernel of the main path did not run as often as the path requires")
@@ -627,7 +867,8 @@ def bench_inputs(dev, cond_len=432, total_len=1376, n_bucket=1536):
     return step_cond, cond_mask, text, y0, pad_mask, total_len - cond_len
 
 
-def synthesize(model, vocoder, inputs, kernels: bool = True, params=None):
+def synthesize(model, vocoder, inputs, kernels: bool = True, params=None,
+               attn_path: str = "default"):
     """One bench-protocol utterance: sampler, cond splice, Vocos -> (mel, wav)."""
     from korean_f5_tts_tpu_torch.models.cfm import _sample_core
     from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
@@ -635,7 +876,7 @@ def synthesize(model, vocoder, inputs, kernels: bool = True, params=None):
     step_cond, cond_mask, text, y0, pad_mask, _ = inputs
     mel = _sample_core(params or model.params, model.arch, step_cond, text, None, pad_mask,
                        y0, 2.0, -1.0, steps=STEPS, use_cfg=True, use_sway=True,
-                       use_epss=True, kernels=kernels)
+                       use_epss=True, kernels=kernels, attn_path=attn_path)
     out = mel.where(~cond_mask, step_cond)
     wav = vocos_decode(vocoder.params, out.transpose(1, 2).to(step_cond.dtype), vocoder.vcfg)
     return mel, wav
@@ -684,30 +925,207 @@ def phase4_parity(model, vocoder, dev, mode: str, bf16_plain=None):
     return mel_p
 
 
-def phase5_rtf(model, vocoder, dev, card: str, mode: str) -> float:
+def phase5_rtf(model, vocoder, dev, card: str, mode: str, attn_path: str = "default",
+               plain: bool = True) -> float:
     import torch
 
     inputs = bench_inputs(dev)
     gen_seconds = inputs[5] * HOP / SR
-    print(f"phase 5 ({mode}): RTF at the bench protocol ({gen_seconds:.4f} s generated), "
-          f"1 warm-up + 10 timed runs each")
+    print(f"phase {5 if attn_path == 'default' else 7} ({mode}, attn_path {attn_path}): RTF at "
+          f"the bench protocol ({gen_seconds:.4f} s generated), 1 warm-up + 10 timed runs each")
     out = {}
-    for kernels in (True, False):
-        synthesize(model, vocoder, inputs, kernels=kernels)
+    for kernels in (True, False) if plain else (True,):
+        synthesize(model, vocoder, inputs, kernels=kernels, attn_path=attn_path)
         torch.cuda.synchronize()
         times = []
         for _ in range(10):
             t0 = time.perf_counter()
-            synthesize(model, vocoder, inputs, kernels=kernels)
+            synthesize(model, vocoder, inputs, kernels=kernels, attn_path=attn_path)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         mean = sum(times) / len(times)
         out[kernels] = mean / gen_seconds
         label = "kernels" if kernels else "plain  "
-        print(f"  {mode} {label}: {mean * 1e3:.2f} ms per utterance (min "
+        print(f"  {mode} {attn_path} {label}: {mean * 1e3:.2f} ms per utterance (min "
               f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), RTF {out[kernels]:.5f} "
               f"[{card}]")
     return out[True]
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the opt-in attention paths; phase 8: the offline entry point
+# ---------------------------------------------------------------------------
+
+OPT_IN_PATHS = ("linear_fused", "rope_in_kernel", "qkv_kernel")
+
+
+def phase7_attn_paths(model, vocoder, dev, card: str, default_rtf: float | None,
+                      profile: Path | None = None) -> dict[str, int]:
+    """Each opt-in attention path through serve() with exact launch counts,
+    its bench-protocol mel against its own plain versions and the default
+    path's mel, and its RTF beside the default path's."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import KERNELS
+
+    inputs = bench_inputs(dev)
+    total = 1376
+
+    def rel(a, b):
+        a, b = a[:, :total].float(), b[:, :total].float()
+        return ((a - b).norm() / b.norm()).item()
+
+    mel_default, _ = synthesize(model, vocoder, inputs)
+    if default_rtf is None:
+        default_rtf = phase5_rtf(model, vocoder, dev, card, "bf16", plain=False)
+    counts = dict.fromkeys(KERNELS, 0)
+    rtfs = {"default": default_rtf}
+    for path in OPT_IN_PATHS:
+        for name, n in phase3_serve(model, vocoder, "bf16", path).items():
+            counts[name] += n
+        mel_k, wav_k = synthesize(model, vocoder, inputs, attn_path=path)
+        mel_p, _ = synthesize(model, vocoder, inputs, kernels=False, attn_path=path)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(mel_k).all() and torch.isfinite(wav_k).all()):
+            fail(f"{path}: non-finite mel or waveform")
+        err = rel(mel_k, mel_p)
+        print(f"phase 7 ({path}): bench-protocol mel rel err, kernels vs plain {err:.3e} (bound "
+              f"5e-2); vs the default path's kernels {rel(mel_k, mel_default):.3e} (printed, "
+              "not gated: other rounding points)")
+        if err > 5e-2:
+            fail(f"{path}: the sampler with kernels disagrees with the plain versions")
+        rtfs[path] = phase5_rtf(model, vocoder, dev, card, "bf16", path, plain=False)
+        if profile is not None:
+            profile_once(lambda: synthesize(model, vocoder, inputs, attn_path=path),
+                         profile.with_suffix(f".{path}.txt"), f"bf16 {path}")
+    print("phase 7: RTF by attn_path (bf16, bench protocol, kernels): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in rtfs.items()) + f" [{card}]")
+    return counts
+
+
+GEN_TEXT = ("The quick brown fox jumps over the lazy dog near the quiet river bank, and then it "
+            "rests for a while under the old oak tree. A short one follows. Every morning the "
+            "baker opens the small shop on the corner, lights the oven, kneads the dough, and "
+            "greets the first customers of the day with a smile! Does the evening train still "
+            "stop at the little station by the lake, or has the timetable changed again this "
+            "year? Nobody in the village seems to know for sure.")
+
+
+def phase8_offline(dev, card: str) -> dict[str, int]:
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch.api import F5TTS
+    from korean_f5_tts_tpu_torch.infer import utils_infer
+    from korean_f5_tts_tpu_torch.models.cfm import cfm_sample
+    from korean_f5_tts_tpu_torch.models.dit import redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+
+    print("phase 8: the offline entry point, F5TTS(F5TTS_v1_Base, device='cuda', bf16).infer")
+    total = dict.fromkeys(KERNELS, 0)
+    nfe = STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        t = np.arange(int(3.0 * SR)) / SR
+        ref_path = str(Path(tmp) / "ref.wav")
+        wavfile.write(ref_path, SR, (0.3 * np.sin(2 * np.pi * (150.0 + 400.0 * t) * t)
+                                     * 32767).astype(np.int16))
+        # what infer() will do with this reference and text, worked out beforehand
+        (ref_wav, sr), ref_text = utils_infer.preprocess_ref_audio_text(ref_path, REF_TEXT,
+                                                                       show_info=lambda m: None)
+        ref_frames = len(ref_wav) // HOP + 1
+        max_chars = int(len(ref_text.encode()) / (len(ref_wav) / sr) * (22 - len(ref_wav) / sr))
+        chunks = utils_infer.chunk_text(GEN_TEXT, max_chars=max_chars)
+        sizes = [len(c.encode()) for c in chunks]
+        print(f"  reference {len(ref_wav) / sr:.2f} s, {ref_frames} frames; {len(chunks)} chunks "
+              f"of {sizes} bytes (max_chars {max_chars})")
+        if len(chunks) < 3 or len(set(sizes)) < 2:
+            fail("the text did not split into three or more unequal chunks")
+        ref_bytes = len(ref_text.encode()) + 1  # infer_batch_process appends a space
+        gen_frames = [int(ref_frames / ref_bytes * n) for n in sizes]
+        fade = int(0.15 * SR)
+        # the vocoder's ISTFT gives (frames - 1) * hop samples per chunk; the
+        # chunks are joined with a 0.15 s cross-fade
+        want_samples = sum((g - 1) * HOP for g in gen_frames) - fade * (len(chunks) - 1)
+
+        for path in ("default", "qkv_kernel"):
+            tts = F5TTS("F5TTS_v1_Base", device="cuda", compute_dtype=torch.bfloat16,
+                        vocab_file=str(ROOT / "data/Emilia_ZH_EN_pinyin/vocab.txt"),
+                        attn_path=path)
+            redraw_zero_init(tts.ema_model.params, seed=1)
+            runs = [("CFG 2", 2.0)] + ([("no CFG", 0.0)] if path == "default" else [])
+            for label, cfg_strength in runs:
+                out_path = str(Path(tmp) / f"out_{path}_{cfg_strength}.wav")
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                wav, sr_out, spec = tts.infer(ref_path, REF_TEXT, GEN_TEXT, nfe_step=nfe,
+                                              cfg_strength=cfg_strength, seed=3,
+                                              file_wave=out_path, show_info=lambda m: None)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = launch_counts()
+                per = len(chunks) * nfe * DEPTH
+                attn = "flash_prefix_qkv" if path == "qkv_kernel" else "flash_prefix"
+                want = dict.fromkeys(KERNELS, 0)
+                # without CFG a step is dit_forward, whose FF half-block is plain
+                # products (as in the JAX package): kernel B does not run
+                want.update({attn: per, "grouped_conv": 2 * nfe * len(chunks),
+                             "ff_block": per if cfg_strength > 0 else 0})
+                sr_file, wav_file = wavfile.read(out_path)
+                rms = float(np.sqrt(np.mean(np.square(wav))))
+                print(f"  {path}, {label}: {secs:.2f} s, {wav.size} samples (expected "
+                      f"{want_samples}) at {sr_out} Hz = {wav.size / sr_out:.2f} s of audio, rms "
+                      f"{rms:.4f}, spectrogram {spec.shape}; launches {counts} [{card}]")
+                if (wav.size != want_samples or sr_out != SR or sr_file != SR
+                        or wav_file.size != wav.size or not np.isfinite(wav).all() or rms <= 0
+                        or spec.shape != (100, sum(gen_frames))):
+                    fail(f"offline inference ({path}, {label}): wrong length, rate or silent audio")
+                if counts != want:
+                    fail(f"offline inference ({path}, {label}): expected launches {want}")
+                for name, n in counts.items():
+                    total[name] += n
+            model = tts.ema_model
+            del tts
+        # cfm_sample on a batch of 3 in two duration buckets (768 and 1024 frames)
+        gen = torch.Generator(device=dev).manual_seed(8)
+        cond = torch.randn((3, 300, 100), generator=gen, device=dev)
+        text = torch.randint(0, 2000, (3, 50), generator=gen, device=dev).cpu().numpy()
+        durations = np.asarray([720, 720, 1000])
+        for path in ("rope_in_kernel", "qkv_kernel"):
+            reset_launch_counts()
+            out, _ = cfm_sample(model.params, model.arch, cond, text, durations, steps=nfe,
+                                cfg_strength=2.0, sway_sampling_coef=-1.0, seed=5,
+                                attn_path=path)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            attn = "flash_prefix_rope" if path == "rope_in_kernel" else "flash_prefix_qkv"
+            want = dict.fromkeys(KERNELS, 0)  # two groups, each nfe steps of 22 blocks
+            want.update({attn: 2 * nfe * DEPTH, "ff_block": 2 * nfe * DEPTH,
+                         "grouped_conv": 2 * 2 * nfe})
+            errs = []
+            for i, dur in enumerate(durations):
+                alone, _ = cfm_sample(model.params, model.arch, cond[i:i + 1], text[i:i + 1],
+                                      int(dur), steps=nfe, cfg_strength=2.0,
+                                      sway_sampling_coef=-1.0, seed=5, attn_path=path)
+                errs.append(_rel(out[i, :dur], alone[0, :dur]))
+            print(f"  cfm_sample batch of 3, durations {durations.tolist()} ({path}): out "
+                  f"{tuple(out.shape)}, each item vs the same item alone rel err "
+                  f"{', '.join(f'{e:.3e}' for e in errs)} (bound 5e-2); launches {counts}")
+            if tuple(out.shape) != (3, 1024, 100) or not torch.isfinite(out).all():
+                fail("cfm_sample: wrong shape or non-finite mel")
+            if out[:2, 768:].abs().max().item() != 0:
+                fail("cfm_sample: the group of 2 did not run at its own 768-frame bucket")
+            if max(errs) > 5e-2:
+                fail("cfm_sample: a batched item disagrees with the same item sampled alone")
+            if counts != want:
+                fail(f"cfm_sample ({path}): expected launches {want}")
+            for name, n in counts.items():
+                total[name] += n
+    del model
+    torch.cuda.empty_cache()
+    return total
 
 
 def profile_once(run, path: Path, label: str) -> None:
@@ -748,10 +1166,11 @@ def profile_once(run, path: Path, label: str) -> None:
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_N = 8, 1280  # the JAX package's training A/B shape (flash_prefix.py:1258)
+TRAINER_DEPTH = 4  # the Trainer run's depth: its checkpoint is 1/5 of depth 22's 5 GiB
 TRAIN_REL = 5e-2
 
 
-def expected_train_launches(steps: int) -> dict[str, int]:
+def expected_train_launches(steps: int, depth: int = DEPTH) -> dict[str, int]:
     """Launches of `steps` training steps with full remat: per block, kernel
     10 in the forward and again in the backward's recompute, 11 and 13 once
     in the backward; nothing else (conv-pos takes its plain version under
@@ -759,8 +1178,8 @@ def expected_train_launches(steps: int) -> dict[str, int]:
     from korean_f5_tts_tpu_torch.ops import KERNELS
 
     want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_prefix_lse=2 * DEPTH * steps, flash_prefix_dq_lsein=DEPTH * steps,
-                flash_prefix_dkv=DEPTH * steps)
+    want.update(flash_prefix_lse=2 * depth * steps, flash_prefix_dq_lsein=depth * steps,
+                flash_prefix_dkv=depth * steps)
     return want
 
 
@@ -822,6 +1241,7 @@ def train_batch(dev) -> dict:
 
 
 def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, int]:
+    import dataclasses
     import tempfile
 
     import numpy as np
@@ -867,7 +1287,9 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
     del grads_k, grads_p, flat_k, flat_p
     bwd_counts = drive_attention_bwd(dev, batch["lens"])
 
-    # Trainer: 2 updates, checkpoint, resume, 2 more, on seeded mels
+    # Trainer: 2 updates, checkpoint, resume, 2 more, on seeded mels, at depth 4
+    small = dataclasses.replace(arch, depth=TRAINER_DEPTH)
+    small_params = redraw_zero_init(init_dit(small, seed=0, device=dev), seed=1)
     rng = np.random.default_rng(4)
     frames = [int(f) for f in rng.integers(TRAIN_N - 120, TRAIN_N + 1, 2 * TRAIN_B)]
     rows = [{"mel_spec": rng.standard_normal((100, f)).astype(np.float32),
@@ -876,7 +1298,7 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
     vocab = {c: i + 1 for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz")}
     with tempfile.TemporaryDirectory() as ckpt_dir:
         def trainer():
-            return Trainer(params, arch, epochs=10, learning_rate=1e-4, num_warmup_updates=2,
+            return Trainer(small_params, small, epochs=10, learning_rate=1e-4, num_warmup_updates=2,
                            checkpoint_path=ckpt_dir, batch_size_per_gpu=TRAIN_B * TRAIN_N,
                            max_samples=TRAIN_B, last_per_updates=2, save_per_updates=10**9,
                            logger=None, vocab_char_map=vocab, compute_dtype=torch.bfloat16)
@@ -891,12 +1313,13 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
         train_counts = launch_counts()
         size = sum(f.stat().st_size for f in Path(ckpt_dir).iterdir()) / 2**30
     losses = first["losses"] + second["losses"]
-    print(f"  Trainer: updates {first['updates']} then resumed to {second['updates']}, losses "
+    print(f"  Trainer (depth {TRAINER_DEPTH}): updates {first['updates']} then resumed to "
+          f"{second['updates']}, losses "
           f"{[round(x, 5) for x in losses]}; {t1 - t0:.1f} s and {t2 - t1:.1f} s with the "
           f"checkpoint ({size:.2f} GiB) written, read and written again")
     if second["updates"] != 4 or len(losses) != 4 or not np.isfinite(losses).all():
         fail("the Trainer did not take 2 + 2 finite updates across a resume")
-    want = expected_train_launches(4)
+    want = expected_train_launches(4, TRAINER_DEPTH)
     print(f"  kernel launches during the 4 updates: {train_counts} (expected {want})")
     if train_counts != want:
         fail("a training kernel did not run as often as the Trainer's steps require")
@@ -907,7 +1330,7 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
                                         compute_dtype=torch.bfloat16), profile_path,
                      f"training step, batch {TRAIN_B} x {TRAIN_N}, kernels")
         del state
-    del params
+    del params, small_params
     torch.cuda.empty_cache()
 
     for kernels in (True, False):
@@ -920,12 +1343,13 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
-                        help="also profile one bench-protocol utterance per mode and one "
-                             "training step; tables to this file (int8) and to its .bf16 and "
-                             ".train siblings")
+                        help="also profile one bench-protocol utterance per mode, one per "
+                             "opt-in attn_path (with phase 7) and one training step; tables to "
+                             "this file (int8) and to its .bf16, .<attn_path> and .train "
+                             "siblings")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -972,33 +1396,48 @@ def main(argv=None) -> int:
         results["proj_gated_residual_int8"] = check_proj_gated_int8(gen, dev)
         results["ff_block_int8"] = check_ff_int8(gen, dev)
         results.update(check_train_attention(gen, dev))
+        results["ln_mod_matmul"] = check_ln_mod(gen, dev)
+        results["proj_gated_residual"] = check_proj_gated(gen, dev)
+        results.update(check_rope_attention(gen, dev))
+        from korean_f5_tts_tpu_torch.scripts import probe_hopper
+
+        probe_hopper.run(dev)
 
     counts = dict.fromkeys(KERNELS, 0)
-    if phases & {3, 4, 5} or args.profile is not None:
+    if phases & {3, 4, 5, 7} or args.profile is not None:
         bf16_plain = None
-        for mode in ("bf16", "int8"):
+        for mode in ("bf16", "int8") if phases & {3, 4, 5} or args.profile else ("bf16",):
             model, vocoder = build_model(dev, quantize=mode == "int8")
             if 3 in phases:
                 for name, n in phase3_serve(model, vocoder, mode).items():
                     counts[name] += n
             if 4 in phases:
                 bf16_plain = phase4_parity(model, vocoder, dev, mode, bf16_plain)
-            if 5 in phases:
-                phase5_rtf(model, vocoder, dev, card, mode)
+            rtf = phase5_rtf(model, vocoder, dev, card, mode) if 5 in phases else None
             if args.profile is not None:
                 path = args.profile if mode == "int8" else args.profile.with_suffix(".bf16.txt")
                 inputs = bench_inputs(dev)
                 profile_once(lambda: synthesize(model, vocoder, inputs), path, mode)
+            if mode == "bf16" and 7 in phases:
+                for name, n in phase7_attn_paths(model, vocoder, dev, card, rtf,
+                                                 args.profile).items():
+                    counts[name] += n
             del model, vocoder
             torch.cuda.empty_cache()
     if 6 in phases:
         train_profile = None if args.profile is None else args.profile.with_suffix(".train.txt")
         for name, n in phase6_train(dev, card, train_profile).items():
             counts[name] += n
+    if 8 in phases:
+        for name, n in phase8_offline(dev, card).items():
+            counts[name] += n
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
                 "max_abs_err": results[name].get("max_abs_err"),
-                "ms": results[name].get("ms"), "plain_ms": results[name].get("plain_ms")}
+                "ms": results[name].get("ms"), "plain_ms": results[name].get("plain_ms"),
+                "bound_ms": results[name].get("bound_ms"),
+                "bound_by": results[name].get("bound_by"),
+                "library_ms": results[name].get("library_ms")}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -66,5 +66,36 @@ PRESETS: dict[str, dict] = {
 }
 
 
-def preset_model_config(name: str) -> ModelConfig:
-    return ModelConfig(name=name, arch=DiTConfig(**PRESETS[name]))
+def _filter_kwargs(cls, d: dict) -> dict:
+    """The keys of d that are fields of cls: the arch yamls carry
+    runtime-only keys (attn_backend etc.)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+def preset_model_config(name: str, **overrides) -> ModelConfig:
+    """A preset's ModelConfig; overrides["arch"] updates its DiT fields."""
+    arch_kwargs = dict(PRESETS[name])
+    arch_kwargs.update(overrides.pop("arch", {}))
+    return ModelConfig(name=name, arch=DiTConfig(**_filter_kwargs(DiTConfig, arch_kwargs)),
+                       **overrides)
+
+
+def model_config_from_dict(cfg: dict) -> ModelConfig:
+    """A ModelConfig from a config dict of the yaml schema (its model:
+    section), config.py:116-130. Only the DiT backbone is ported."""
+    m = cfg.get("model", cfg)
+    backbone = m.get("backbone", "DiT")
+    if backbone != "DiT":
+        raise NotImplementedError(f"backbone {backbone!r} is not ported (DiT only)")
+    return ModelConfig(name=m.get("name", "F5TTS_v1_Base"),
+                       arch=DiTConfig(**_filter_kwargs(DiTConfig, m.get("arch", {}))),
+                       mel=MelConfig(**_filter_kwargs(MelConfig, m.get("mel_spec", {}))),
+                       tokenizer=m.get("tokenizer", "pinyin"))
+
+
+def load_model_config(path: str) -> ModelConfig:
+    import yaml
+
+    with open(path, "r", encoding="utf-8") as f:
+        return model_config_from_dict(yaml.safe_load(f))

@@ -1,6 +1,7 @@
-// Tiles, warp-level products and the forward loop shared by the prefix
-// attention kernels: kernel A (flash_prefix.cu) and the training kernels
-// 10-13 (flash_prefix_train.cu).
+// Tiles, warp-level products, the online-softmax step and the forward loop
+// shared by the prefix attention kernels: kernel A (flash_prefix.cu), the
+// training kernels 10-13 (flash_prefix_train.cu) and the rope-in-kernel and
+// qkv-layout kernels 18 and 19 (flash_prefix_rope.cu).
 //
 // A block is 128 threads over a 64-row tile; each warp owns 16 of the rows.
 // Shared tiles are [64][D + 8] bf16 (mma.cuh's padded stride); rows at or
@@ -29,6 +30,64 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
     int4 val = make_int4(0, 0, 0, 0);
     if (row0 + r < n) val = *reinterpret_cast<const int4*>(src + (size_t)(row0 + r) * D + c);
     *reinterpret_cast<int4*>(dst + r * LD + c) = val;
+  }
+}
+
+// head dim of the strided loaders below (kernels 18 and 19)
+constexpr int kD = 64;
+constexpr int kLD = kD + 8;
+
+// rows [row0, row0 + 64) of one head (row stride ld) into a [64][72] shared
+// tile; rows at or past n are zero-filled
+__device__ __forceinline__ void load_rows_strided(bf16* dst, const bf16* src, size_t ld, int row0,
+                                                  int n, int tid) {
+  for (int i = tid; i < 64 * (kD / 8); i += kThreads) {
+    const int r = i / (kD / 8);
+    const int c = (i % (kD / 8)) * 8;
+    int4 val = make_int4(0, 0, 0, 0);
+    if (row0 + r < n) val = *reinterpret_cast<const int4*>(src + (size_t)(row0 + r) * ld + c);
+    *reinterpret_cast<int4*>(dst + r * kLD + c) = val;
+  }
+}
+
+// the same, with the half-split rotation applied on the way: cos, sin are
+// [n, 32] bf16 tables
+__device__ __forceinline__ void load_rows_rope(bf16* dst, const bf16* src, size_t ld, int row0,
+                                               int n, const bf16* __restrict__ cos,
+                                               const bf16* __restrict__ sin, int tid) {
+  for (int i = tid; i < 64 * (kD / 16); i += kThreads) {
+    const int r = i / (kD / 16);
+    const int c = (i % (kD / 16)) * 8;  // 0, 8, 16, 24: the partner is at c + 32
+    int4 lo = make_int4(0, 0, 0, 0), hi = make_int4(0, 0, 0, 0);
+    const int row = row0 + r;
+    if (row < n) {
+      const bf16* p = src + (size_t)row * ld + c;
+      const int4 xlo = *reinterpret_cast<const int4*>(p);
+      const int4 xhi = *reinterpret_cast<const int4*>(p + kD / 2);
+      const int4 cr = *reinterpret_cast<const int4*>(cos + (size_t)row * (kD / 2) + c);
+      const int4 sr = *reinterpret_cast<const int4*>(sin + (size_t)row * (kD / 2) + c);
+      const bf16* a = reinterpret_cast<const bf16*>(&xlo);
+      const bf16* b = reinterpret_cast<const bf16*>(&xhi);
+      const bf16* ce = reinterpret_cast<const bf16*>(&cr);
+      const bf16* se = reinterpret_cast<const bf16*>(&sr);
+      uint32_t* plo = reinterpret_cast<uint32_t*>(&lo);
+      uint32_t* phi = reinterpret_cast<uint32_t*>(&hi);
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        float x1[2], x2[2], cc[2], ss[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          x1[u] = __bfloat162float(a[e + u]);
+          x2[u] = __bfloat162float(b[e + u]);
+          cc[u] = __bfloat162float(ce[e + u]);
+          ss[u] = __bfloat162float(se[e + u]);
+        }
+        plo[e / 2] = pack_bf16x2(x1[0] * cc[0] - x2[0] * ss[0], x1[1] * cc[1] - x2[1] * ss[1]);
+        phi[e / 2] = pack_bf16x2(x2[0] * cc[0] + x1[0] * ss[0], x2[1] * cc[1] + x1[1] * ss[1]);
+      }
+    }
+    *reinterpret_cast<int4*>(dst + r * kLD + c) = lo;
+    *reinterpret_cast<int4*>(dst + r * kLD + c + kD / 2) = hi;
   }
 }
 
@@ -98,6 +157,72 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
+// One 64-key tile of the online softmax, on this warp's 16 x 64 raw scores s
+// (keys k0 .. k0 + 63): scale into the base-2 domain, mask keys at or past
+// kv_len, update the running max and denominator, rescale the output
+// accumulator o, and leave the un-normalised probabilities in s.
+template <int ND>
+__device__ __forceinline__ void online_softmax_tile(float (&s)[kNS][4], float (&o)[ND][4],
+                                                    float (&m_run)[2], float (&l_run)[2],
+                                                    int k0, int kv_len, float scale_log2, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < kNS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + nt * 8 + 2 * t + (e & 1);
+      const float x = col < kv_len ? s[nt][e] * scale_log2 : -INFINITY;
+      s[nt][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // tile 0 always holds key 0 < kv_len, so m_new is finite from then on
+    const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+    alpha[r] = exp2f(m_run[r] - m_new);
+    m_run[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < kNS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[nt][e] - m_run[e >> 1]);
+      s[nt][e] = p;
+      rs[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    o[i][0] *= alpha[0];
+    o[i][1] *= alpha[0];
+    o[i][2] *= alpha[1];
+    o[i][3] *= alpha[1];
+  }
+}
+
+// Store this warp's normalised 16 x (8 * ND) output rows (row0 and row0 + 8
+// for this lane) into a row-major array of row stride ld; rows at or past n
+// are not stored.
+template <int ND>
+__device__ __forceinline__ void store_output_rows(bf16* out, int ld, const float (&o)[ND][4],
+                                                  const float (&inv)[2], int row0, int n, int t) {
+#pragma unroll
+  for (int dt = 0; dt < ND; ++dt) {
+    const int col = dt * 8 + 2 * t;
+    if (row0 < n)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row0 * ld + col) =
+          pack_bf16x2(o[dt][0] * inv[0], o[dt][1] * inv[0]);
+    if (row0 + 8 < n)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(row0 + 8) * ld + col) =
+          pack_bf16x2(o[dt][2] * inv[1], o[dt][3] * inv[1]);
+  }
+}
+
 // Forward: one block per (folded head, 64-row query tile). kWriteLse also
 // stores the base-2 logsumexp of each row's scaled scores (kernel 10); a
 // row with no valid key gets output 0 and lse 0.
@@ -145,45 +270,7 @@ flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[kNS][4];
     mma_abt<D>(s, qf, sK, lane);
 
-    // scale into the base-2 domain, mask keys at or past kv_len, row max
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kNS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const float x = col < kv_len ? s[nt][e] * scale_log2 : -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // tile 0 always holds key 0 < kv_len, so m_new is finite from then on
-      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
-      alpha[r] = exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kNS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
-    }
+    online_softmax_tile<ND>(s, o, m_run, l_run, k0, kv_len, scale_log2, t);
     mma_pb<D>(o, s, sV, lane);
   }
 
@@ -194,16 +281,7 @@ flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;  // kv_len == 0: zeros, as the TPU kernel
   }
   const int row0 = q0 + warp * 16 + (lane >> 2);
-#pragma unroll
-  for (int dt = 0; dt < ND; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row0 < n)
-      *reinterpret_cast<uint32_t*>(out + off + (size_t)row0 * D + col) =
-          pack_bf16x2(o[dt][0] * inv[0], o[dt][1] * inv[0]);
-    if (row0 + 8 < n)
-      *reinterpret_cast<uint32_t*>(out + off + (size_t)(row0 + 8) * D + col) =
-          pack_bf16x2(o[dt][2] * inv[1], o[dt][3] * inv[1]);
-  }
+  store_output_rows<ND>(out + off, D, o, inv, row0, n, t);
   if (kWriteLse && t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {

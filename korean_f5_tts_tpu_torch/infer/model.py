@@ -14,13 +14,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from korean_f5_tts_tpu.text.vocab import load_vocab_file
 from korean_f5_tts_tpu_torch.config import DiTConfig, ModelConfig
 from korean_f5_tts_tpu_torch.models.dit import init_dit
 from korean_f5_tts_tpu_torch.models.modules import cast_params
 from korean_f5_tts_tpu_torch.models.quant import quantize_params
-from korean_f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded
+from korean_f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded, log_mel_spectrogram
+from korean_f5_tts_tpu_torch.text.vocab import load_vocab_file
 from korean_f5_tts_tpu_torch.train.checkpoint import load_npz_params, params_from_jax
+from korean_f5_tts_tpu_torch.utils.misc import require_device
 
 
 @dataclasses.dataclass
@@ -39,6 +40,13 @@ class TTSModel:
     # frames at 24 kHz / hop 256), so three wav-length buckets bound the
     # upload padding at ~2x
     REF_FRAME_BUCKETS = (384, 768, 1152)
+
+    def mel_of_wav(self, wav: np.ndarray) -> np.ndarray:
+        """[n] waveform -> [n_frames, n_mels] fp32 log-mel on the host,
+        computed on the model's device."""
+        wav_t = torch.as_tensor(np.asarray(wav, np.float32), device=self.device)[None]
+        with torch.inference_mode():
+            return log_mel_spectrogram(wav_t, self.mel)[0].T.cpu().numpy()
 
     def mel_of_wav_device(self, wav: np.ndarray) -> tuple[torch.Tensor, int]:
         """[n] waveform -> ([1, REF_FRAME_BUCKETS[-1], n_mels] fp32 mel on the
@@ -72,8 +80,9 @@ def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
                tokenizer: str | None = None, use_skip_tc: bool = False,
                use_n2gk_plus: bool = True, tokenizer_version: str = "new",
                dtype: torch.dtype | None = None, seed: int = 0,
-               device="cpu", quantize: bool = False) -> TTSModel:
-    """Ready-to-infer TTSModel on `device`: DiT from a JAX .npz checkpoint
+               device="cuda", quantize: bool = False) -> TTSModel:
+    """Ready-to-infer TTSModel on `device` (the card unless the caller names
+    the CPU; no card raises): DiT from a JAX .npz checkpoint
     (ckpt_path) or seeded random init. A vocab file sets
     text_num_embeds = vocab size + 1, as in the JAX package.
 
@@ -81,7 +90,7 @@ def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
     (models/quant.py: DEFAULT_QUANT_PATTERNS) after the dtype cast, as
     infer/model.py:170-184 does; the sampler then takes the int8 kernels.
     Only this argument picks the int8 path (no environment variable)."""
-    device = torch.device(device)
+    device = require_device(device)
     vocab_char_map = None
     arch = model_cfg.arch
     if vocab_file is not None and os.path.exists(vocab_file):

@@ -5,12 +5,17 @@ Training: cfm_loss (cfm.py:83-129), split into draw_cfm (the random draws,
 from one torch.Generator) and cfm_loss_from_draws (the loss given them), so
 that a test can hand the port the JAX package's draws.
 
-Serving: _sample_core (text embedding once, then the Euler loop over the
-EPSS/sway schedule with CFG packed as batch 2), _serve_core_vocos (masks,
-cond padding, seeded noise, sampling, cond splice, Vocos decode, RMS
-restore, int16) and its host wrapper serve_sample. The JAX scan becomes a
-Python loop over the steps. The no-CFG branch and cfm_sample wait for a
-later slice.
+Sampling: _sample_core (text embedding once, then the Euler loop over the
+EPSS/sway schedule, with CFG packed as batch 2 or, at cfg_strength 0,
+without CFG through dit_forward), _sample_core_vocos (the sampler, the cond
+splice and the Vocos decode as one call), _serve_core_vocos (masks, cond
+padding, seeded noise, _sample_core_vocos, RMS restore, int16) with its host
+wrapper serve_sample for the server, and cfm_sample for offline inference
+(duration floor and clamp, duration and text buckets, regrouping a mixed
+batch by bucket, edit_mask, no_ref_audio, duplicate_test, seeded noise at
+the canonical length). The JAX scan becomes a Python loop over the steps.
+The buckets are arguments here, not environment variables; `attn_path`
+(ops/attention.py:ATTN_PATHS) picks the attention half's kernels.
 """
 
 from __future__ import annotations
@@ -121,11 +126,12 @@ def _sample_core(params: dict, arch: DiTConfig,
                  y0: torch.Tensor,             # [b, N, d] noise, zero past duration
                  cfg_strength: float, sway_coef: float,
                  steps: int, use_cfg: bool, use_sway: bool, use_epss: bool,
-                 t_start: float = 0.0, kernels: bool = True) -> torch.Tensor:
+                 t_start: float = 0.0, kernels: bool = True,
+                 attn_path: str = "default") -> torch.Tensor:
     """Text embedding (once) + Euler integration over the schedule
-    (cfm.py:366-422). Returns the final mel [b, N, d]."""
-    if not use_cfg:
-        raise NotImplementedError("sampling without CFG is not ported yet")
+    (cfm.py:366-439). Returns the final mel [b, N, d]. With CFG every step is
+    one packed forward of 2b items with precomputed modulations; without it
+    (cfg_strength <= 1e-5) every step is dit_forward on the b items."""
     N = step_cond.shape[1]
     dt_ = step_cond.dtype
     base = make_schedule(steps, use_epss=use_epss, sway_sampling_coef=None, t_start=t_start)
@@ -133,23 +139,66 @@ def _sample_core(params: dict, arch: DiTConfig,
     if use_sway:
         c = torch.as_tensor(sway_coef, dtype=dt_, device=ts.device)
         ts = ts + c * (torch.cos(math.pi / 2.0 * ts) - 1.0 + ts)
+    dts = ts[1:] - ts[:-1]
+    x = y0
+    if not use_cfg:
+        for s in range(steps):
+            pred = dit_mod.dit_forward(params, arch, x, step_cond, text, ts[s].expand(x.shape[0]),
+                                       mask=mask, pad_mask=pad_mask, kernels=kernels,
+                                       attn_path=attn_path)
+            x = (x + dts[s] * pred).to(y0.dtype)
+        return x
     te_cond = dit_mod.text_embedding(params["text_embed"], arch, text, N,
                                      drop_text=False, pad_mask=pad_mask)
     te_uncond = dit_mod.text_embedding(params["text_embed"], arch, text, N,
                                        drop_text=True, pad_mask=pad_mask)
-    dts = ts[1:] - ts[:-1]
     # every time-dependent modulation and the cond/text half of the input
     # projection are loop-invariant: computed once, outside the loop
     mods, mod_final, _ = dit_mod.precompute_step_modulations(params, arch, ts[:-1])
     static_inp = dit_mod.precompute_input_static(params, arch, step_cond, te_cond, te_uncond)
-    x = y0
     for s in range(steps):
         pred = dit_mod.dit_forward_cfg_premod(
             params, arch, x, step_cond, te_cond, te_uncond, mods[s], mod_final[s],
             cfg_strength, mask=mask, pad_mask=pad_mask, static_inp=static_inp,
-            kernels=kernels)
+            kernels=kernels, attn_path=attn_path)
         x = (x + dts[s] * pred).to(y0.dtype)
     return x
+
+
+@torch.inference_mode()
+def _sample_core_vocos(params: dict, voc_params: dict, arch: DiTConfig, step_cond, text, mask,
+                       pad_mask, y0, cond_mask: torch.Tensor, cfg_strength: float,
+                       sway_coef: float, *, vcfg, steps: int, use_cfg: bool, use_sway: bool,
+                       use_epss: bool, t_start: float = 0.0, kernels: bool = True,
+                       attn_path: str = "default"):
+    """The sampler, the cond splice and the Vocos decode as one call
+    (cfm.py:153-193); returns (mel [b, N, d], wav [b, N * hop] fp32)."""
+    mel = _sample_core(params, arch, step_cond, text, mask, pad_mask, y0, cfg_strength,
+                       sway_coef, steps=steps, use_cfg=use_cfg, use_sway=use_sway,
+                       use_epss=use_epss, t_start=t_start, kernels=kernels, attn_path=attn_path)
+    out = torch.where(cond_mask[..., None], step_cond, mel)
+    # replicate one frame so duration * hop samples exist even at full-bucket
+    # durations (an ISTFT over N frames yields only (N - 1) * hop)
+    out_v = torch.cat([out, out[:, -1:]], dim=1)
+    return out, vocos_decode(voc_params, out_v.transpose(1, 2), vcfg)
+
+
+def _compute_dtype(params: dict, default: torch.dtype) -> torch.dtype:
+    """The sampler runs at the model's compute dtype: bf16 weights -> bf16
+    everything (the kernels take bf16 activations only)."""
+    return (torch.bfloat16 if any(t.dtype == torch.bfloat16 for t in _leaves(params))
+            else default)
+
+
+def bucket_text(text: np.ndarray, text_bucket: int) -> np.ndarray:
+    """Pad [b, nt] ids with -1 to a multiple of text_bucket tokens (0: as is).
+    Exact for the DiT: text_embedding shifts ids by +1 and pads with the same
+    filler 0 itself."""
+    nt = text.shape[1]
+    if text_bucket <= 0:
+        return text
+    ntb = max(text_bucket, int(np.ceil(nt / text_bucket)) * text_bucket)
+    return text if ntb == nt else np.pad(text, ((0, 0), (0, ntb - nt)), constant_values=-1)
 
 
 def draw_noise(seeds, canon: int, d: int, device, dtype) -> torch.Tensor:
@@ -173,15 +222,15 @@ def _serve_core_vocos(params: dict, voc_params: dict, arch: DiTConfig,
                       wav_scale: np.ndarray,  # [b] output gain (RMS restore)
                       *, vcfg, N: int, steps: int, use_cfg: bool, use_sway: bool,
                       use_epss: bool, canon: int, single: bool,
-                      y0: torch.Tensor | None = None) -> torch.Tensor:
+                      y0: torch.Tensor | None = None, kernels: bool = True,
+                      attn_path: str = "default") -> torch.Tensor:
     """All request-side device work of a batch (cfm.py:203-285); returns the
     int16 waveform [b, N * hop] on the device. y0 ([b, N, d]), when
     given, replaces the seeded noise."""
     dev = cond_b.device
     b, Bc, d = cond_b.shape
     # run at the model's compute dtype: bf16 weights -> bf16 everything
-    cdt = (torch.bfloat16 if any(t.dtype == torch.bfloat16 for t in _leaves(params))
-           else cond_b.dtype)
+    cdt = _compute_dtype(params, cond_b.dtype)
     cond_b = cond_b.to(cdt)
     ar = torch.arange(N, device=dev)
     lens_t = torch.as_tensor(np.asarray(lens), device=dev)
@@ -197,14 +246,10 @@ def _serve_core_vocos(params: dict, voc_params: dict, arch: DiTConfig,
     if y0 is None:
         y0 = draw_noise(seeds, canon, d, dev, cdt)[:, :N]
     y0 = y0.to(device=dev, dtype=cdt).masked_fill(~dur_mask[..., None], 0.0)
-    mel = _sample_core(params, arch, step_cond, torch.as_tensor(text, device=dev), mask,
-                       pad_mask, y0, cfg_strength, sway_coef, steps=steps, use_cfg=use_cfg,
-                       use_sway=use_sway, use_epss=use_epss)
-    out = torch.where(cond_mask[..., None], step_cond, mel)
-    # replicate one frame so duration * hop samples exist even at full-bucket
-    # durations (an ISTFT over N frames yields only (N - 1) * hop)
-    out_v = torch.cat([out, out[:, -1:]], dim=1)
-    wav = vocos_decode(voc_params, out_v.transpose(1, 2), vcfg)
+    _, wav = _sample_core_vocos(
+        params, voc_params, arch, step_cond, torch.as_tensor(text, device=dev), mask, pad_mask,
+        y0, cond_mask, cfg_strength, sway_coef, vcfg=vcfg, steps=steps, use_cfg=use_cfg,
+        use_sway=use_sway, use_epss=use_epss, kernels=kernels, attn_path=attn_path)
     wav = wav.float() * torch.as_tensor(np.asarray(wav_scale, np.float32), device=dev)[:, None]
     return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
 
@@ -213,12 +258,15 @@ def serve_sample(params: dict, arch: DiTConfig, cond_b: torch.Tensor, text, dura
                  *, vocoder_fused: tuple, steps: int = 16, cfg_strength: float = 2.0,
                  sway_sampling_coef: float | None = -1.0, seed: int | None = None,
                  wav_scale=None, max_duration: int = 4096, duration_bucket: int | None = None,
-                 use_epss: bool = True, y0: torch.Tensor | None = None):
+                 use_epss: bool = True, y0: torch.Tensor | None = None,
+                 text_bucket: int = TEXT_BUCKET, kernels: bool = True,
+                 attn_path: str = "default"):
     """Host wrapper of the serving path (cfm.py:288-357). Returns (int16
     waveform [b, N * hop] on the device, duration [b] host ints).
 
     Host side: duration floor and clamp, duration bucket N, text padded to a
-    multiple of 64 tokens, noise seeds (a seed of None draws one per item).
+    multiple of text_bucket tokens, noise seeds (a seed of None draws one per
+    item).
     """
     text_host = np.asarray(text)
     lens = np.asarray(lens)
@@ -230,10 +278,7 @@ def serve_sample(params: dict, arch: DiTConfig, cond_b: torch.Tensor, text, dura
     bucket = duration_bucket or DEFAULT_DURATION_BUCKET
     N = max(min(int(np.ceil(max_dur / bucket)) * bucket, max_duration), max_dur)
     b = text_host.shape[0]
-    nt = text_host.shape[1]
-    ntb = max(TEXT_BUCKET, int(np.ceil(nt / TEXT_BUCKET)) * TEXT_BUCKET)
-    if ntb != nt:
-        text_host = np.pad(text_host, ((0, 0), (0, ntb - nt)), constant_values=-1)
+    text_host = bucket_text(text_host, text_bucket)
     if seed is None:
         seeds = np.asarray([secrets.randbits(31) for _ in range(b)], np.int64)
     else:
@@ -246,5 +291,141 @@ def serve_sample(params: dict, arch: DiTConfig, cond_b: torch.Tensor, text, dura
         seeds, float(cfg_strength), float(sway_sampling_coef or 0.0), wav_scale,
         vcfg=vcfg, N=int(N), steps=int(steps), use_cfg=float(cfg_strength) > 1e-5,
         use_sway=sway_sampling_coef is not None, use_epss=bool(use_epss),
-        canon=max(int(max_duration), int(N)), single=b == 1, y0=y0)
+        canon=max(int(max_duration), int(N)), single=b == 1, y0=y0, kernels=kernels,
+        attn_path=attn_path)
     return wav, duration
+
+
+def _param_device(params: dict) -> torch.device:
+    return next(_leaves(params)).device
+
+
+def cfm_sample(params: dict, arch: DiTConfig,
+               cond,                       # [b, n_cond, d] reference mel (numpy or tensor)
+               text,                       # [b, nt] ids, pad -1
+               duration,                   # int or [b] total frames
+               *, lens=None, steps: int = 32, cfg_strength: float = 1.0,
+               sway_sampling_coef: float | None = None, seed: int | None = None,
+               y0: torch.Tensor | None = None, max_duration: int = 4096,
+               duration_bucket: int | None = None, text_bucket: int = TEXT_BUCKET,
+               use_epss: bool = True, no_ref_audio: bool = False,
+               duplicate_test: bool = False, t_inter: float = 0.1, edit_mask=None,
+               vocoder=None, vocoder_fused: tuple | None = None,
+               split_by_bucket: bool = True, kernels: bool = True,
+               attn_path: str = "default"):
+    """Zero-shot sampling (cfm.py:442-652): the host wrapper of offline
+    inference. Returns (out, wav): out [b, N, d] is the mel with the
+    conditioning region spliced back, at the padded bucket length N (or the
+    vocoder's waveform when `vocoder` is given); wav is the fused vocoder's
+    fp32 waveform [b, N * hop] when vocoder_fused = (voc_params, VocosConfig)
+    is given, else None. Tensors on the parameters' device.
+
+    The work runs on the parameters' device and at their compute dtype (bf16
+    weights -> bf16 activations, which the kernels need; the JAX function
+    keeps cond's dtype). split_by_bucket regroups a mixed-duration batch so
+    that each item runs at its own duration bucket: masked rows are invisible
+    to attention either way, but the dense products pay for every padded row.
+    The regrouped result is fp32, zero-padded to the longest group.
+    duration_bucket None means DEFAULT_DURATION_BUCKET; text_bucket 0 keeps
+    the text length as it is. Noise: y0 when given; else one N(0, 1) tensor
+    drawn at the canonical length max(max_duration, N) from a generator
+    seeded with `seed` and shared by the batch, so a batched item equals the
+    same item run alone, or one fresh draw per item when seed is None.
+    """
+    dev = _param_device(params)
+    text_host = np.asarray(text.cpu() if isinstance(text, torch.Tensor) else text)
+    cond = torch.as_tensor(cond, device=dev)
+    cond = cond.to(_compute_dtype(params, cond.dtype))
+    b, cond_seq_len, d = cond.shape
+    lens = np.full((b,), cond_seq_len, np.int64) if lens is None else np.asarray(lens)
+    if isinstance(duration, int):
+        duration = np.full((b,), duration, np.int64)
+    duration = np.asarray(duration)
+    text_lens = (text_host != -1).sum(axis=-1)
+    # at least prompt length + 1 so something is generated (cfm.py:135-139)
+    duration = np.maximum(np.maximum(text_lens, lens) + 1, duration)
+    duration = np.clip(duration, None, max_duration)
+    max_dur = int(duration.max())
+    bucket = duration_bucket or DEFAULT_DURATION_BUCKET
+    N = max(min(int(np.ceil(max_dur / bucket)) * bucket, max_duration), max_dur)
+
+    if split_by_bucket and b > 1 and edit_mask is None and not duplicate_test:
+        Ns = np.minimum(np.maximum(np.ceil(duration / bucket).astype(np.int64), 1) * bucket,
+                        max_duration)
+        Ns = np.maximum(Ns, duration)
+        if len(np.unique(Ns)) > 1:
+            subs = []
+            for N_g in np.unique(Ns):
+                idx = np.where(Ns == N_g)[0]
+                sub_out, sub_wav = cfm_sample(
+                    params, arch, cond[idx], text_host[idx], duration[idx], lens=lens[idx],
+                    steps=steps, cfg_strength=cfg_strength,
+                    sway_sampling_coef=sway_sampling_coef, seed=seed,
+                    y0=None if y0 is None else y0[idx, :int(N_g)], max_duration=max_duration,
+                    duration_bucket=bucket, text_bucket=text_bucket, use_epss=use_epss,
+                    no_ref_audio=no_ref_audio, vocoder=vocoder, vocoder_fused=vocoder_fused,
+                    split_by_bucket=False, kernels=kernels, attn_path=attn_path)
+                subs.append((idx, sub_out, sub_wav))
+            n1 = max(so.shape[1] for _, so, _ in subs)
+            out = torch.zeros((b, n1, *subs[0][1].shape[2:]), dtype=torch.float32, device=dev)
+            wav = None
+            if subs[0][2] is not None:
+                wav = torch.zeros((b, max(sw.shape[1] for _, _, sw in subs)),
+                                  dtype=torch.float32, device=dev)
+            for idx, so, sw in subs:
+                out[idx, :so.shape[1]] = so.float()
+                if wav is not None:
+                    wav[idx, :sw.shape[1]] = sw.float()
+            return out, wav
+
+    ar = np.arange(N)
+    cond_mask_h = ar[None, :] < lens[:, None]
+    if edit_mask is not None:
+        em = np.asarray(edit_mask)
+        cond_mask_h = cond_mask_h & np.pad(em, ((0, 0), (0, N - em.shape[1])),
+                                           constant_values=False)
+    cond_mask = torch.as_tensor(cond_mask_h, device=dev)
+    cond_p = F.pad(cond, (0, 0, 0, N - cond_seq_len))
+    if no_ref_audio:
+        cond_p = torch.zeros_like(cond_p)
+    step_cond = cond_p.masked_fill(~cond_mask[..., None], 0.0)
+    dur_mask = torch.as_tensor(ar[None, :] < duration[:, None], device=dev)
+    # the reference-semantics duration mask only for b > 1; the bucket-tail
+    # pad mask whenever the bucket adds rows (cfm.py:556-570)
+    mask = dur_mask if b > 1 else None
+    pad_mask = torch.as_tensor(ar[None, :] < max_dur, device=dev) if N > max_dur else None
+    text_t = torch.as_tensor(bucket_text(text_host, text_bucket), device=dev)
+
+    if y0 is None:
+        canon = max(int(max_duration), N)
+        seeds = ([secrets.randbits(31) for _ in range(b)] if seed is None
+                 else [int(seed) & 0xFFFFFFFF])
+        y0 = draw_noise(seeds, canon, d, dev, step_cond.dtype)[:, :N].expand(b, N, d)
+    y0 = torch.as_tensor(y0, device=dev).to(step_cond.dtype)
+    y0 = y0.masked_fill(~dur_mask[..., None], 0.0)
+
+    t_start = 0.0
+    if duplicate_test:
+        # inner-timestep observation mode (cfm.py:611-620): start the ODE at
+        # t_inter from a cond-shifted state instead of pure noise
+        test_cond = torch.zeros((b, N, d), dtype=y0.dtype, device=dev)
+        span = min(cond_seq_len, max(N - cond_seq_len, 0))
+        test_cond[:, cond_seq_len:cond_seq_len + span] = cond[:, :span]
+        t_start = t_inter
+        y0 = (1.0 - t_start) * y0 + t_start * test_cond
+        steps = int(steps * (1.0 - t_start))
+
+    sampler = dict(steps=int(steps), use_cfg=float(cfg_strength) > 1e-5,
+                   use_sway=sway_sampling_coef is not None, use_epss=bool(use_epss),
+                   t_start=float(t_start), kernels=kernels, attn_path=attn_path)
+    sway = float(sway_sampling_coef or 0.0)
+    if vocoder_fused is not None:
+        voc_params, vcfg = vocoder_fused
+        return _sample_core_vocos(params, voc_params, arch, step_cond, text_t, mask, pad_mask, y0,
+                                  cond_mask, float(cfg_strength), sway, vcfg=vcfg, **sampler)
+    sampled = _sample_core(params, arch, step_cond, text_t, mask, pad_mask, y0,
+                           float(cfg_strength), sway, **sampler)
+    out = torch.where(cond_mask[..., None], cond_p, sampled)
+    if vocoder is not None:
+        out = vocoder(out.transpose(1, 2))
+    return out, None

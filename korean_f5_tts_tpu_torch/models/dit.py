@@ -4,10 +4,12 @@ Serving: init_dit, text_embedding, precompute_step_modulations,
 precompute_input_static, input_embedding_premix, dit_backbone_premod and
 dit_forward_cfg_premod, the functions the sampler's CFG loop runs, for bf16
 and for int8 weights (models/quant.py). bf16: the FF half-block takes kernel
-B; the attention-side linears stay plain matmuls, as the bf16 TPU default
-leaves them (dit.py:373-379). int8: the dispatch of dit.py:394-509 without
-tensor parallelism (kernels 5, A, 6 and 4, or kernel 9 per projection under
-a duration mask).
+B; the attention half is chosen by `attn_path` (ops/attention.py:ATTN_PATHS):
+plain products around kernel A by default, as the bf16 TPU default leaves
+them (dit.py:373-379), kernels 7, A, 8 under "linear_fused", kernel 18 or 19
+under "rope_in_kernel" or "qkv_kernel". int8: the dispatch of dit.py:394-509
+without tensor parallelism (kernels 5, A, 6 and 4, or kernel 9 per
+projection under a duration mask).
 
 Training: input_embedding, dit_backbone and dit_forward (dit.py:181-301),
 with the long skip, average upsampling, per-block activation checkpointing
@@ -48,7 +50,7 @@ from korean_f5_tts_tpu_torch.models.modules import (
     rope_cos_sin,
     timestep_embedding,
 )
-from korean_f5_tts_tpu_torch.ops.attention import sdpa
+from korean_f5_tts_tpu_torch.ops.attention import check_attn_path, sdpa
 from korean_f5_tts_tpu_torch.ops.ff_block import (
     ff_block_fused,
     ff_block_fused_int8,
@@ -56,12 +58,16 @@ from korean_f5_tts_tpu_torch.ops.ff_block import (
     ff_block_reference,
 )
 from korean_f5_tts_tpu_torch.ops.fused_linears import (
+    ln_mod_matmul,
     ln_mod_matmul_int8,
     ln_mod_matmul_int8_reference,
+    ln_mod_matmul_reference,
+    proj_gated_residual,
     proj_gated_residual_int8,
     proj_gated_residual_int8_reference,
+    proj_gated_residual_reference,
 )
-from korean_f5_tts_tpu_torch.utils.misc import fold_in
+from korean_f5_tts_tpu_torch.utils.misc import fold_in, require_device
 
 PRECOMPUTE_MAX_POS = 8192  # ~87 s of 24 kHz audio at hop 256 (dit.py:44)
 
@@ -96,14 +102,15 @@ def _dit_block_init(gen, cfg: DiTConfig, device) -> dict:
     }
 
 
-def init_dit(cfg: DiTConfig, seed: int = 0, device="cpu",
+def init_dit(cfg: DiTConfig, seed: int = 0, device="cuda",
              dtype: torch.dtype = torch.float32) -> dict:
     """Random DiT parameters with the JAX package's tree, shapes and init
-    distributions (torch layouts), drawn from a torch.Generator on `device`.
-    Floating leaves are cast to `dtype`."""
+    distributions (torch layouts), drawn from a torch.Generator on `device`
+    (the card unless the caller names the CPU). Floating leaves are cast to
+    `dtype`."""
     if cfg.qk_norm is not None:
         raise NotImplementedError("qk-norm DiTs are not ported yet")
-    device = torch.device(device)
+    device = require_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     td = cfg.text_dim_
     text = {"embed": embedding_init(gen, cfg.text_num_embeds + 1, td, device)}
@@ -260,14 +267,24 @@ def input_embedding(p: dict, x: torch.Tensor, cond: torch.Tensor, text_embed: to
 
 
 @functools.lru_cache(maxsize=32)
-def _rope_table(seq_len: int, dim_head: int, device: torch.device):
+def _rope_table(seq_len: int, dim_head: int, device: torch.device,
+                dtype: torch.dtype = torch.float32):
     cos, sin = rope_cos_sin(seq_len, dim_head)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    return (torch.from_numpy(cos).to(device=device, dtype=dtype),
+            torch.from_numpy(sin).to(device=device, dtype=dtype))
+
+
+def _rope_for(attn_path: str, h: torch.Tensor, dim_head: int):
+    """The rope tables for h's length: fp32 for rope in torch; kernels 18 and
+    19 read them in the activations' dtype, cast once here."""
+    in_kernel = check_attn_path(attn_path) in ("rope_in_kernel", "qkv_kernel")
+    return _rope_table(h.shape[1], dim_head, h.device, h.dtype if in_kernel else torch.float32)
 
 
 def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
                  mask: torch.Tensor | None = None, dropout_seed: int | None = None,
-                 pad_mask: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
+                 pad_mask: torch.Tensor | None = None, kernels: bool = True,
+                 attn_path: str = "default") -> torch.Tensor:
     """Embedded input [b, n, dim] + time embedding [b, dim] -> flow [b, n, mel]
     (dit.py:233-283).
 
@@ -282,7 +299,7 @@ def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
     if cfg.checkpoint_activations and cfg.remat_policy != "full":
         raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is not ported "
                                   "(ROADMAP.md queue 1 item 10); use 'full'")
-    rope = _rope_table(h.shape[1], cfg.dim_head, h.device)
+    rope = _rope_for(attn_path, h, cfg.dim_head)
     residual = h if cfg.long_skip_connection else None
     rate = cfg.dropout if dropout_seed is not None else 0.0
 
@@ -291,7 +308,8 @@ def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
                if seed is not None and rate > 0.0 else None)
         return dit_block(blk, x, t_emb, cfg.heads, mask=mask, rope=rope,
                          pe_attn_head=cfg.pe_attn_head, attn_mask_enabled=cfg.attn_mask_enabled,
-                         pad_mask=pad_mask, dropout_rate=rate, gen=gen, kernels=kernels)
+                         pad_mask=pad_mask, dropout_rate=rate, gen=gen, kernels=kernels,
+                         attn_path=attn_path)
 
     for i, blk in enumerate(p["blocks"]):
         seed = fold_in(dropout_seed, i) if dropout_seed is not None else None
@@ -308,9 +326,11 @@ def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
 def dit_forward(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch.Tensor,
                 text: torch.Tensor, time: torch.Tensor, mask: torch.Tensor | None = None,
                 drop_audio_cond=False, drop_text=False, dropout_seed: int | None = None,
-                pad_mask: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
-    """Training-path forward (dit.py:286-301): x, cond [b, n, mel], text ids
-    [b, nt], time [b] (or a scalar); the drops are bools or 0/1 tensors."""
+                pad_mask: torch.Tensor | None = None, kernels: bool = True,
+                attn_path: str = "default") -> torch.Tensor:
+    """Training-path forward (dit.py:286-301), also one step of the sampler
+    without CFG: x, cond [b, n, mel], text ids [b, nt], time [b] (or a
+    scalar); the drops are bools or 0/1 tensors."""
     if time.dim() == 0:
         time = time.repeat(x.shape[0])
     t_emb = timestep_embedding(p["time_embed"], time)
@@ -319,7 +339,7 @@ def dit_forward(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch.Tensor,
     h = input_embedding(p, x, cond, text_emb, drop_audio_cond=drop_audio_cond,
                         audio_mask=mask if mask is not None else pad_mask, kernels=kernels)
     return dit_backbone(p, cfg, h, t_emb, mask=mask, dropout_seed=dropout_seed,
-                        pad_mask=pad_mask, kernels=kernels)
+                        pad_mask=pad_mask, kernels=kernels, attn_path=attn_path)
 
 
 def precompute_step_modulations(p: dict, cfg: DiTConfig, ts: torch.Tensor):
@@ -333,16 +353,22 @@ def precompute_step_modulations(p: dict, cfg: DiTConfig, ts: torch.Tensor):
     return mods, mod_final, t_embs
 
 
-def _attention_half_int8(ap: dict, cfg: DiTConfig, h: torch.Tensor, scale, shift, gate,
-                         rope, prefix_lens, kernels: bool) -> torch.Tensor:
-    """h + gate * attention(LN(h) * (1 + scale) + shift) with int8 projections,
-    fused as dit.py:424-463: kernel 5 (LN, modulation, quantization and the
-    q/k/v products in one launch), rope, kernel A, kernel 6 (out-projection
-    folded into the gated residual)."""
-    lmm = ln_mod_matmul_int8 if kernels else ln_mod_matmul_int8_reference
-    pgr = proj_gated_residual_int8 if kernels else proj_gated_residual_int8_reference
+def _attention_half_fused(ap: dict, cfg: DiTConfig, h: torch.Tensor, scale, shift, gate,
+                          rope, prefix_lens, kernels: bool) -> torch.Tensor:
+    """h + gate * attention(LN(h) * (1 + scale) + shift) with the linears
+    fused into their neighbours, as dit.py:424-467: LN, modulation and the
+    q/k/v products in one launch, rope, kernel A, the out-projection folded
+    into the gated residual. int8 projections: kernels 5 and 6 (the
+    quantization in the kernels as well); bf16 ones: kernels 7 and 8."""
+    if "w_int8" in ap["to_q"]:
+        lmm = ln_mod_matmul_int8 if kernels else ln_mod_matmul_int8_reference
+        pgr = proj_gated_residual_int8 if kernels else proj_gated_residual_int8_reference
+        inner = ap["to_q"]["w_int8"].shape[0]
+    else:
+        lmm = ln_mod_matmul if kernels else ln_mod_matmul_reference
+        pgr = proj_gated_residual if kernels else proj_gated_residual_reference
+        inner = ap["to_q"]["w"].shape[0]
     qkv = lmm(h, scale, shift, [ap["to_q"], ap["to_k"], ap["to_v"]])
-    inner = ap["to_q"]["w_int8"].shape[0]
     q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], cfg.heads) for i in range(3))
     q = apply_rope(q, *rope, cfg.pe_attn_head)
     k = apply_rope(k, *rope, cfg.pe_attn_head)
@@ -354,34 +380,41 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
                         mods: torch.Tensor, mod_final: torch.Tensor,
                         mask: torch.Tensor | None = None,
                         pad_mask: torch.Tensor | None = None,
-                        kernels: bool = True) -> torch.Tensor:
+                        kernels: bool = True, attn_path: str = "default") -> torch.Tensor:
     """One sampling step of the backbone with precomputed modulations
     (dit.py:323-528). mods: [depth, 6*dim] shared across the batch,
     mod_final: [2*dim]. kernels=False runs every kernel's plain version
     through the same dispatch.
 
     Per block, as the JAX dispatch (dit.py:394-520) decides it:
-      - attention: int8 projections and no duration mask -> kernels 5, A, 6;
-        otherwise norm + attention() (kernel A; kernel 9 per int8 projection);
+      - attention: no duration mask and int8 projections -> kernels 5, A, 6,
+        whatever attn_path says; no duration mask, attn_path "linear_fused"
+        and bf16 projections with biases -> kernels 7, A, 8; otherwise norm +
+        attention(), which runs kernel 18 under "rope_in_kernel", kernel 19
+        under "qkv_kernel" and kernel A else (kernel 9 per int8 projection);
       - FF half-block: int8 ff/in -> kernel 4; otherwise kernel B.
     """
-    rope = _rope_table(h.shape[1], cfg.dim_head, h.device)
+    rope = _rope_for(attn_path, h, cfg.dim_head)
     prefix_lens = pad_mask.sum(dim=-1, dtype=torch.int32) if pad_mask is not None else None
     ff = ff_block_fused if kernels else ff_block_reference
     ff_int8 = ff_block_fused_int8 if kernels else ff_block_int8_reference
+    names = ("to_q", "to_k", "to_v", "to_out")
     for i, blk in enumerate(p["blocks"]):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
             mods[i].to(h.dtype).chunk(6))
         ap = blk["attn"]
-        if mask is None and all("w_int8" in ap[n] for n in ("to_q", "to_k", "to_v", "to_out")):
-            h = _attention_half_int8(ap, cfg, h, scale_msa, shift_msa, gate_msa, rope,
-                                     prefix_lens, kernels)
+        fusable = mask is None and (
+            all("w_int8" in ap[n] for n in names)
+            or (attn_path == "linear_fused" and all("w" in ap[n] and "b" in ap[n] for n in names)))
+        if fusable:
+            h = _attention_half_fused(ap, cfg, h, scale_msa, shift_msa, gate_msa, rope,
+                                      prefix_lens, kernels)
         else:
             norm = layernorm({}, h, eps=1e-6) * (1 + scale_msa) + shift_msa
             attn_out = attention(ap, norm, cfg.heads, mask=mask, rope=rope,
                                  pe_attn_head=cfg.pe_attn_head,
                                  attn_mask_enabled=cfg.attn_mask_enabled,
-                                 pad_mask=pad_mask, kernels=kernels)
+                                 pad_mask=pad_mask, kernels=kernels, attn_path=attn_path)
             h = h + gate_msa * attn_out
         fp = blk["ff"]
         if "w_int8" in fp["in"]:
@@ -410,7 +443,7 @@ def dit_forward_cfg_premod(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch
                            mask: torch.Tensor | None = None,
                            pad_mask: torch.Tensor | None = None,
                            static_inp: torch.Tensor | None = None,
-                           kernels: bool = True) -> torch.Tensor:
+                           kernels: bool = True, attn_path: str = "default") -> torch.Tensor:
     """CFG step with precomputed modulations (dit.py:539-565): the cond and
     uncond halves run packed as one batch of 2b, then
     pred + (pred - null_pred) * cfg_strength."""
@@ -422,7 +455,7 @@ def dit_forward_cfg_premod(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch
     h = input_embedding_premix(p, cfg, x2, static_inp, audio_mask=audio_mask,
                                kernels=kernels)
     out = dit_backbone_premod(p, cfg, h, mods, mod_final, mask=mask2,
-                              pad_mask=pad_mask, kernels=kernels)
+                              pad_mask=pad_mask, kernels=kernels, attn_path=attn_path)
     pred, null_pred = out.chunk(2, dim=0)
     return pred + (pred - null_pred) * cfg_strength
 

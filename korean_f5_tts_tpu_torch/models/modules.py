@@ -12,7 +12,11 @@ Activations are channels-last [b, n, c] throughout.
 
 `kernels` arguments choose between a Hopper kernel's wrapper (CPU tensors
 then take its plain version) and the plain version on any device; it is an
-explicit argument, never an environment knob.
+explicit argument, never an environment knob. So is `attn_path`, which
+picks the attention half's kernels (ops/attention.py:ATTN_PATHS):
+"default" (rope in torch, kernel A), "linear_fused" (kernels 7, A, 8; the
+dispatch is in models/dit.py), "rope_in_kernel" (kernel 18) and
+"qkv_kernel" (kernel 19).
 """
 
 from __future__ import annotations
@@ -25,7 +29,12 @@ import torch.nn.functional as F
 
 from korean_f5_tts_tpu_torch.models.quant import qlinear
 from korean_f5_tts_tpu_torch.ops import grouped_conv as _gconv
-from korean_f5_tts_tpu_torch.ops.attention import sdpa
+from korean_f5_tts_tpu_torch.ops.attention import (
+    check_attn_path,
+    qkv_fused_sdpa,
+    rope_prefix_sdpa,
+    sdpa,
+)
 
 # ---------------------------------------------------------------------------
 # initialisers (torch defaults, as the JAX package mirrors them)
@@ -292,36 +301,55 @@ def attention(p: dict, x: torch.Tensor, heads: int,
               pe_attn_head: int | None = None,
               attn_mask_enabled: bool = True,
               pad_mask: torch.Tensor | None = None,
-              kernels: bool = True) -> torch.Tensor:
+              kernels: bool = True, attn_path: str = "default") -> torch.Tensor:
     """Self-attention of the DiT block (modules.py:464-571).
 
     mask ([b, n]): the duration mask; it masks the logits only when
     attn_mask_enabled, and always zeroes the output rows where it is False.
     pad_mask ([1, n]): bucket-tail padding, used for the logits whenever the
     duration mask is not. Every mask here is a prefix mask, so one length per
-    item describes it and the prefix-attention kernel runs.
+    item describes it and a prefix-attention kernel runs.
     Bucket-tail rows are not zeroed (nothing downstream mixes positions and
     callers slice them off), as in the JAX package.
     bf16/fp32 projections run as one fused qkv product; int8 ones
     (models/quant.py) take the per-projection path through linear, as
     modules.py:536-539 does, each a kernel-9 launch.
+    attn_path (the JAX package's F5_TTS_QKV_KERNEL and F5_TTS_ROPE_IN_KERNEL
+    switches as one argument): with rope tables, "qkv_kernel" runs kernel 19
+    straight on the fused qkv product (bf16/fp32 projections only, as
+    modules.py:519-531) and "rope_in_kernel" kernel 18 on the pre-rope split
+    heads (modules.py:543-551); every other case applies rope in torch and
+    runs kernel A.
     """
+    check_attn_path(attn_path)
     attn_mask = mask if (attn_mask_enabled and mask is not None) else pad_mask
     prefix_lens = attn_mask.sum(dim=-1, dtype=torch.int32) if attn_mask is not None else None
+    out = None
     if all("w" in p[n] and "b" in p[n] for n in ("to_q", "to_k", "to_v")):
         wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]], dim=0).to(x.dtype)
         bqkv = torch.cat([p["to_q"]["b"], p["to_k"]["b"], p["to_v"]["b"]]).to(x.dtype)
         qkv = F.linear(x, wqkv, bqkv)
-        inner = p["to_q"]["w"].shape[0]
-        q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], heads) for i in range(3))
+        if attn_path == "qkv_kernel" and rope is not None:
+            out = qkv_fused_sdpa(qkv, heads, rope, pe_attn_head, prefix_lens, kernels=kernels)
+        else:
+            inner = p["to_q"]["w"].shape[0]
+            q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], heads)
+                       for i in range(3))
     else:
         q, k, v = (_split_heads(linear(p[n], x, kernels=kernels), heads)
                    for n in ("to_q", "to_k", "to_v"))
-    if rope is not None:
-        cos, sin = rope
-        q = apply_rope(q, cos, sin, pe_attn_head)
-        k = apply_rope(k, cos, sin, pe_attn_head)
-    out = _merge_heads(sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels))
+    if out is None:
+        if attn_path == "rope_in_kernel" and rope is not None:
+            # the kernel takes contiguous [b, h, n, d]: the head split is one copy
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            core = rope_prefix_sdpa(q, k, v, prefix_lens, rope, pe_attn_head, kernels=kernels)
+        else:
+            if rope is not None:
+                cos, sin = rope
+                q = apply_rope(q, cos, sin, pe_attn_head)
+                k = apply_rope(k, cos, sin, pe_attn_head)
+            core = sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels)
+        out = _merge_heads(core)
     out = linear(p["to_out"], out, kernels=kernels)
     if mask is not None:
         out = out.masked_fill(~mask[..., None], 0.0)
@@ -336,14 +364,14 @@ def dit_block(p: dict, x: torch.Tensor, t: torch.Tensor, heads: int,
               pad_mask: torch.Tensor | None = None,
               dropout_rate: float = 0.0,
               gen: torch.Generator | None = None,
-              kernels: bool = True) -> torch.Tensor:
+              kernels: bool = True, attn_path: str = "default") -> torch.Tensor:
     """AdaLN-zero DiT block of the training forward (modules.py:632-650). The
     FF half-block is plain products here, as in the JAX block: kernel B is
     the serving path's."""
     norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = ada_layernorm(p["attn_norm"], x, t)
     attn_out = attention(p["attn"], norm, heads, mask=mask, rope=rope,
                          pe_attn_head=pe_attn_head, attn_mask_enabled=attn_mask_enabled,
-                         pad_mask=pad_mask, kernels=kernels)
+                         pad_mask=pad_mask, kernels=kernels, attn_path=attn_path)
     x = x + gate_msa[:, None] * attn_out
     norm = layernorm({}, x, eps=1e-6) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
     ff_out = feedforward(p["ff"], norm, dropout_rate=dropout_rate, gen=gen)

@@ -23,6 +23,7 @@ from korean_f5_tts_tpu_torch.models.modules import (
     linear_init,
 )
 from korean_f5_tts_tpu_torch.ops.mel import istft
+from korean_f5_tts_tpu_torch.utils.misc import require_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,16 +39,22 @@ class VocosConfig:
 
 @dataclasses.dataclass
 class Vocos:
-    """A vocoder the server fuses into its sampling call: params + config."""
+    """A vocoder: params + config. The server and the fused offline path
+    read both and decode inside the sampling call; called, it decodes
+    mel [b, n_mels, T] -> waveform [b, nw] on its own."""
     params: dict
     vcfg: VocosConfig
 
+    def __call__(self, mel: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return vocos_decode(self.params, mel, self.vcfg)
 
-def init_vocos(cfg: VocosConfig = VocosConfig(), seed: int = 1, device="cpu",
+
+def init_vocos(cfg: VocosConfig = VocosConfig(), seed: int = 1, device="cuda",
                dtype: torch.dtype = torch.float32) -> dict:
     """Random Vocos parameters with the JAX package's tree and init
     distributions (torch layouts), cast to `dtype`."""
-    device = torch.device(device)
+    device = require_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     blocks = []
     for _ in range(cfg.num_layers):

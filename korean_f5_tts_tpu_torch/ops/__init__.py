@@ -29,6 +29,10 @@ KERNELS = {
     "flash_prefix_dq_lsein": (flash_prefix, "launches_dq_lsein"),
     "flash_prefix_dq": (flash_prefix, "launches_dq"),
     "flash_prefix_dkv": (flash_prefix, "launches_dkv"),
+    "ln_mod_matmul": (fused_linears, "launches_ln_mod"),
+    "proj_gated_residual": (fused_linears, "launches_proj_gated"),
+    "flash_prefix_rope": (flash_prefix, "launches_rope"),
+    "flash_prefix_qkv": (flash_prefix, "launches_qkv"),
 }
 
 

@@ -1,4 +1,5 @@
-"""Build and load the hand-written Hopper kernels (csrc/*.cu).
+"""Build and load the hand-written Hopper kernels (csrc/*.cu) and the host
+C++ serving runtime (csrc/f5_runtime.cpp, build_host_library).
 
 The sources compile with nvcc into one shared library with a plain C
 interface, loaded with ctypes: a build takes seconds, where a PyTorch C++
@@ -64,6 +65,20 @@ _SIGNATURES = {
     # h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq, zs, out, M, d,
     # dff, eps, device, stream
     "f5_ff_block_int8_fwd": (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
+    # h, sc, sh, w0..w2, b0..b2, out, M, d, seg_n, nseg, eps, device, stream
+    "f5_ln_mod_matmul_fwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _P),
+    # a, h, gate, w, b, out, M, din, d, device, stream
+    "f5_proj_gated_fwd": (_P,) * 6 + (_I, _I, _I, _I, _P),
+    # q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
+    "f5_flash_prefix_rope_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
+    # qkv, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
+    "f5_flash_prefix_qkv_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),
+    # scripts/probe_hopper.py: x, y, out, ld, cx, cy, device, stream
+    "f5_probe_slice_mma": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, out, device, stream
+    "f5_probe_pair_store": (_P, _P, _P, _I, _P),
+    # x, cos, sin, out, ld, device, stream
+    "f5_probe_half_swap": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -131,6 +146,30 @@ def build() -> Path:
     return out
 
 
+def build_host_library(source: str, stem: str) -> Path:
+    """Compile one host C++ source of csrc/ (no CUDA in it) into a shared
+    library in the build directory with the host compiler, once per source
+    hash; raises when there is no compiler or the build fails."""
+    src = CSRC / source
+    flags = ("-O3", "-fPIC", "-std=c++17", "-shared")
+    digest = hashlib.sha256(" ".join(flags).encode() + src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"{stem}_{digest}.so"
+    if out.exists():
+        return out
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError(f"no host C++ compiler (g++) to build {source}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *flags, "-o", str(tmp), str(src), "-lpthread"],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed on {source}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _lib
@@ -174,3 +213,13 @@ def require_cuda(what: str, *tensors, dtype=None) -> None:
             raise ValueError(f"{what}: tensors must be contiguous")
         if t.data_ptr() % 16 != 0:
             raise ValueError(f"{what}: tensors must be 16-byte aligned")
+
+
+def require_no_grad(what: str, *tensors) -> None:
+    """Raise when a gradient would be taken through a forward-only kernel."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} is forward-only: an input requires a gradient (ROADMAP.md queue 1 "
+            "item 10, 'training through kernels 7, 8, 18, 19')")

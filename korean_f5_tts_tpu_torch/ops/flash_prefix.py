@@ -1,5 +1,7 @@
 """Prefix-masked attention: Hopper kernel A (serving forward), kernels 10-13
-(training forward with logsumexp, the two dq sweeps, dk/dv) and their plain
+(training forward with logsumexp, the two dq sweeps, dk/dv), kernels 18 and
+19 (the forward with the rotary embedding applied inside the kernel, on
+split heads and straight from the fused qkv projection) and their plain
 versions.
 
 Counterpart of korean_f5_tts_tpu/ops/flash_prefix.py. Every attention mask of
@@ -7,8 +9,12 @@ the model is a prefix mask, so one length per folded head describes it: head
 i attends keys [0, kv_lens[i]). Kernel A (csrc/flash_prefix.cu) replaces the
 TPU's _flash_prefix_folded; kernels 10-13 (csrc/flash_prefix_train.cu)
 replace _flash_prefix_folded_lse, _flash_prefix_dq_lsein, _flash_prefix_dq
-and _flash_prefix_dkv. The sources' notes say what bounds each kernel on the
-card and how its design answers that.
+and _flash_prefix_dkv; kernels 18 and 19 (csrc/flash_prefix_rope.cu) replace
+_flash_prefix_rope_call and _flash_prefix_qkv_call. The sources' notes say
+what bounds each kernel on the card and how its design answers that.
+Kernels 18 and 19 serve only: the JAX package differentiates their XLA
+formulation, which is not ported yet, so the wrappers raise on an input that
+requires a gradient.
 
 Layouts: q/k/v/o and their gradients are folded [H, n, d]; lse (base 2, of
 the scores pre-scaled by log2(e)/sqrt(d), the JAX convention) and
@@ -39,6 +45,8 @@ launches_lse = 0       # kernel 10, flash_prefix_folded_lse
 launches_dq_lsein = 0  # kernel 11, flash_prefix_dq_lsein
 launches_dq = 0        # kernel 12, flash_prefix_dq
 launches_dkv = 0       # kernel 13, flash_prefix_dkv
+launches_rope = 0      # kernel 18, flash_prefix_rope_attention
+launches_qkv = 0       # kernel 19, flash_prefix_qkv_attention
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +118,50 @@ def flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv_lens):
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) / math.sqrt(q.shape[-1])
     dv = torch.matmul(p.transpose(-1, -2), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rope_reference(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                   pe_attn_head: int | None = None) -> torch.Tensor:
+    """Half-split rotary embedding on [b, h, n, d] with kernel 18's rounding
+    points: the tables rounded to x's dtype, the arithmetic in fp32, one
+    rounding of the result. Heads at or past pe_attn_head keep x."""
+    n, d2 = x.shape[2], x.shape[-1] // 2
+    c = cos[:n].to(x.dtype).float()[None, None]
+    s = sin[:n].to(x.dtype).float()[None, None]
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    rx = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    if pe_attn_head is None:
+        return rx
+    sel = (torch.arange(x.shape[1], device=x.device) < pe_attn_head)[None, :, None, None]
+    return torch.where(sel, rx, x)
+
+
+def flash_prefix_rope_reference(q, k, v, kv_lens, cos, sin, pe_attn_head=None):
+    """Plain version of kernel 18 (_xla_rope_prefix_reference,
+    flash_prefix.py:1484-1493): rope on the pre-rope q, k, then the plain
+    prefix attention. [b, h, n, d] in and out."""
+    (qf, kf, vf), lens_h = _fold(rope_reference(q, cos, sin, pe_attn_head),
+                                 rope_reference(k, cos, sin, pe_attn_head), v, kv_lens)
+    return prefix_attention_reference(qf, kf, vf, lens_h).reshape(q.shape)
+
+
+def qkv_unpack(qkv: torch.Tensor, heads: int):
+    """[B, n, 3 * heads * dh] (q | k | v, heads-major inside each) -> three
+    [B, heads, n, dh] views."""
+    B, n, three_inner = qkv.shape
+    inner = three_inner // 3
+    return tuple(qkv[..., i * inner:(i + 1) * inner].reshape(B, n, heads, -1).transpose(1, 2)
+                 for i in range(3))
+
+
+def flash_prefix_qkv_reference(qkv, kv_lens, heads, cos, sin, pe_attn_head=None):
+    """Plain version of kernel 19 (_xla_qkv_reference, flash_prefix.py:
+    1680-1693): split heads, rope, plain prefix attention, merge heads.
+    [B, n, 3 * heads * dh] -> [B, n, heads * dh]."""
+    q, k, v = qkv_unpack(qkv, heads)
+    out = flash_prefix_rope_reference(q, k, v, kv_lens, cos, sin, pe_attn_head)
+    B, h, n, d = out.shape
+    return out.transpose(1, 2).reshape(B, n, h * d)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +280,90 @@ def flash_prefix_dkv(q, k, v, do, dvec, lse, kv_lens):
     cuda_build.check(err, "flash_prefix_dkv")
     launches_dkv += 1
     return dk, dv
+
+
+def _rope_launch_args(what: str, x: torch.Tensor, B: int, n: int, dh: int, kv_lens, cos, sin,
+                      heads: int, pe_attn_head):
+    """Checks shared by kernels 18 and 19; returns (lens [B] int32, cos, sin
+    as [n, 32] bf16 tables, the number of leading heads that rotate)."""
+    if dh != 64:
+        raise ValueError(f"{what}: head dim {dh} not supported (64)")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: the kernel takes bf16 operands, got {x.dtype}")
+    if cos.shape != sin.shape or cos.dim() != 2 or cos.shape[0] < n or cos.shape[1] != dh // 2:
+        raise ValueError(f"{what}: cos and sin must be [>= {n}, {dh // 2}] tables, got "
+                         f"{tuple(cos.shape)} and {tuple(sin.shape)}")
+    if kv_lens.dim() != 1 or kv_lens.shape[0] not in (1, B):
+        raise ValueError(f"{what}: kv_lens must be [{B}] or [1], got {tuple(kv_lens.shape)}")
+    lens = kv_lens.to(device=x.device, dtype=torch.int32).expand(B).contiguous()
+    cos, sin = (t[:n].to(device=x.device, dtype=x.dtype).contiguous() for t in (cos, sin))
+    cuda_build.require_cuda(what, x, cos, sin, dtype=torch.bfloat16)
+    cuda_build.require_cuda(what, x, lens)
+    n_rope = heads if pe_attn_head is None else max(0, min(int(pe_attn_head), heads))
+    return lens, cos, sin, n_rope
+
+
+def flash_prefix_rope_attention(q, k, v, kv_lens, cos, sin,
+                                pe_attn_head: int | None = None) -> torch.Tensor:
+    """Kernel 18 wrapper: prefix attention with the half-split rotary
+    embedding applied inside the kernel. q, k (PRE-rope), v: [b, h, n, 64]
+    bf16; kv_lens: [b] or [1] int; cos, sin: [>= n, 32] tables (rounded to
+    bf16 for the kernel); pe_attn_head: only the first N heads rotate.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; nothing falls back. Forward-only: raises on an input that requires
+    a gradient.
+    """
+    global launches_rope
+    cuda_build.require_no_grad("flash_prefix_rope_attention", q, k, v)
+    if q.device.type == "cpu":
+        return flash_prefix_rope_reference(q, k, v, kv_lens, cos, sin, pe_attn_head)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("flash_prefix_rope_attention: q/k/v must share one [b, h, n, d] "
+                         f"shape, got {[tuple(t.shape) for t in (q, k, v)]}")
+    b, h, n, d = q.shape
+    lens, cos, sin, n_rope = _rope_launch_args("flash_prefix_rope_attention", q, b, n, d,
+                                               kv_lens, cos, sin, h, pe_attn_head)
+    cuda_build.require_cuda("flash_prefix_rope_attention", q, k, v, dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    err = cuda_build.library().f5_flash_prefix_rope_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), out.data_ptr(), b, h, n, n_rope, LOG2E / math.sqrt(d), q.device.index,
+        cuda_build.stream_of(q))
+    cuda_build.check(err, "flash_prefix_rope_fwd")
+    launches_rope += 1
+    return out
+
+
+def flash_prefix_qkv_attention(qkv, kv_lens, heads: int, cos, sin,
+                               pe_attn_head: int | None = None) -> torch.Tensor:
+    """Kernel 19 wrapper: attention straight from the fused qkv projection
+    output. qkv: [B, n, 3 * heads * 64] bf16 (q | k | v along the features,
+    heads-major inside each, q and k PRE-rope); returns [B, n, heads * 64],
+    already merged for the output projection. Other arguments as kernel 18.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; nothing falls back. Forward-only: raises on an input that requires
+    a gradient.
+    """
+    global launches_qkv
+    cuda_build.require_no_grad("flash_prefix_qkv_attention", qkv)
+    if qkv.device.type == "cpu":
+        return flash_prefix_qkv_reference(qkv, kv_lens, heads, cos, sin, pe_attn_head)
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError("flash_prefix_qkv_attention: qkv must be [B, n, 3 * heads * dh], got "
+                         f"{tuple(qkv.shape)} for {heads} heads")
+    B, n, three_inner = qkv.shape
+    dh = three_inner // (3 * heads)
+    lens, cos, sin, n_rope = _rope_launch_args("flash_prefix_qkv_attention", qkv, B, n, dh,
+                                               kv_lens, cos, sin, heads, pe_attn_head)
+    out = torch.empty((B, n, heads * dh), dtype=qkv.dtype, device=qkv.device)
+    err = cuda_build.library().f5_flash_prefix_qkv_fwd(
+        qkv.data_ptr(), lens.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), B,
+        heads, n, n_rope, LOG2E / math.sqrt(dh), qkv.device.index, cuda_build.stream_of(qkv))
+    cuda_build.check(err, "flash_prefix_qkv_fwd")
+    launches_qkv += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

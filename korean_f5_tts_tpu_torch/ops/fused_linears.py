@@ -1,6 +1,18 @@
-"""Fused int8 attention-side linears: Hopper kernels 5 and 6 and their plain versions.
+"""Fused attention-side linears: Hopper kernels 7 and 8 (bf16), 5 and 6 (int8)
+and their plain versions.
 
-Counterparts of korean_f5_tts_tpu/ops/fused_linears.py (the int8 functions):
+Counterparts of korean_f5_tts_tpu/ops/fused_linears.py:
+  ln_mod_matmul             out = bf16(LN(h) * (1 + sc) + sh) @ W^T + b
+                            (kernel 7: AdaLN-modulated norm + fused qkv product)
+  proj_gated_residual       out = h + gate * (a @ W^T + b)
+                            (kernel 8: out-projection folded into the gated residual)
+Their weights are linears of the port's layout ({"w": [d_out, d_in], "b"});
+the kernels (csrc/fused_linears.cu) replace the TPU's _ln_mod_matmul_kernel
+and _proj_gated_kernel. They serve only: in the JAX package their gradients
+differentiate the XLA formulation, which is not ported yet, so the wrappers
+raise on an input that requires a gradient.
+
+The int8 functions:
   ln_mod_matmul_int8        out = (q(LN(h) * (1 + sc) + sh) @ W^T) * ys * ws + b
                             (kernel 5: AdaLN-modulated norm + fused qkv product)
   proj_gated_residual_int8  out = h + gate * ((q(a) @ W^T) * as * ws + b)
@@ -10,10 +22,10 @@ Weights are int8 linears of models/quant.py in the port's layout: w_int8
 (csrc/fused_linears_int8.cu) replace the TPU's _ln_mod_matmul_int8_kernel
 and _proj_gated_int8_kernel; each keeps one launch counter.
 
-ln_mod_matmul_int8 takes a list of linears sharing one input (to_q, to_k,
-to_v) and returns their outputs side by side: every projection quantizes the
-same rows with the same per-row scale, so this is the JAX package's product
-with the concatenated weight (dit.py:429-438), without building that weight.
+ln_mod_matmul and ln_mod_matmul_int8 take a list of linears sharing one
+input (to_q, to_k, to_v) and return their outputs side by side: this is the
+JAX package's product with the concatenated weight (dit.py:429-447),
+without building that weight.
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ from korean_f5_tts_tpu_torch.ops.qmatmul import (
     quant_rows_reference,
 )
 
+launches_ln_mod = 0            # kernel 7 launches by ln_mod_matmul
+launches_proj_gated = 0        # kernel 8 launches by proj_gated_residual
 launches_ln_mod_int8 = 0       # kernel 5 launches by ln_mod_matmul_int8
 launches_proj_gated_int8 = 0   # kernel 6 launches by proj_gated_residual_int8
 
@@ -44,6 +58,98 @@ def ln_mod_rows(h: torch.Tensor, sc: torch.Tensor, sh: torch.Tensor,
     xc = xf - mu
     var = (xc * xc).mean(dim=-1, keepdim=True)
     return xc * torch.rsqrt(var + eps) * (1.0 + sc.float()) + sh.float()
+
+
+def ln_mod_matmul_reference(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of kernel 7 with the TPU kernel's rounding points
+    (fused_linears.py:34-43): LN and modulation in fp32, y rounded to h's
+    dtype before the product, the product as an fp32 sum, + b in fp32, one
+    cast. ps: a list of linears whose outputs are concatenated."""
+    dt = h.dtype
+    w = torch.cat([p["w"] for p in ps], dim=0).to(dt)
+    b = torch.cat([p["b"] for p in ps]).to(dt)
+    y = ln_mod_rows(h, sc, sh, eps).to(dt)
+    return (torch.matmul(y.float(), w.float().t()) + b.float()).to(dt)
+
+
+def proj_gated_residual_reference(a, h, gate, p) -> torch.Tensor:
+    """Plain version of kernel 8 (fused_linears.py:198-203): the product as
+    an fp32 sum, + b and h + gate * (.) in fp32, one cast."""
+    dt = h.dtype
+    o = torch.matmul(a.float(), p["w"].to(dt).float().t()) + p["b"].to(dt).float()
+    return (h.float() + gate.float() * o).to(dt)
+
+
+def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
+    """Kernel 7 wrapper: h [..., d] bf16, sc/sh [d] bf16, ps a list of one to
+    three bf16 linears of one shape ({w [n, d], b [n]}) -> [..., n * len(ps)].
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; nothing falls back. Any number of rows; d % 32 == 0, n % 128 == 0.
+    """
+    global launches_ln_mod
+    cuda_build.require_no_grad("ln_mod_matmul", h, sc, sh, *(t for p in ps for t in p.values()))
+    if h.device.type == "cpu":
+        return ln_mod_matmul_reference(h, sc, sh, ps, eps)
+    if not 1 <= len(ps) <= MAX_SEGMENTS:
+        raise ValueError(f"ln_mod_matmul: 1 to {MAX_SEGMENTS} linears, got {len(ps)}")
+    d = h.shape[-1]
+    n = ps[0]["w"].shape[0]
+    if d % 32 or n % 128:
+        raise ValueError(f"ln_mod_matmul: d={d} must be a multiple of 32 and n={n} of 128")
+    for name, v in (("sc", sc), ("sh", sh)):
+        check_tensor("ln_mod_matmul", name, v, (d,), torch.bfloat16)
+    for p in ps:
+        if "b" not in p:
+            raise ValueError("ln_mod_matmul: the linears need a bias")
+        check_tensor("ln_mod_matmul", "w", p["w"], (n, d), torch.bfloat16)
+        check_tensor("ln_mod_matmul", "b", p["b"], (n,), torch.bfloat16)
+    cuda_build.require_cuda("ln_mod_matmul", h, sc, sh, *(t for p in ps for t in (p["w"], p["b"])),
+                            dtype=torch.bfloat16)
+    m = h.numel() // d
+    out = torch.empty((*h.shape[:-1], n * len(ps)), dtype=h.dtype, device=h.device)
+    seg = [ps[min(i, len(ps) - 1)] for i in range(MAX_SEGMENTS)]
+    err = cuda_build.library().f5_ln_mod_matmul_fwd(
+        h.data_ptr(), sc.data_ptr(), sh.data_ptr(), *(p["w"].data_ptr() for p in seg),
+        *(p["b"].data_ptr() for p in seg), out.data_ptr(), m, d, n, len(ps), eps,
+        h.device.index, cuda_build.stream_of(h))
+    cuda_build.check(err, "ln_mod_matmul_fwd")
+    launches_ln_mod += 1
+    return out
+
+
+def proj_gated_residual(a, h, gate, p) -> torch.Tensor:
+    """Kernel 8 wrapper: a [..., din] bf16, h [..., d] bf16, gate [d] bf16,
+    p {w [d, din], b [d]} bf16 -> [..., d] bf16.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise; nothing falls back. Any number of rows; din % 32 == 0, d % 128 == 0.
+    """
+    global launches_proj_gated
+    cuda_build.require_no_grad("proj_gated_residual", a, h, gate, *p.values())
+    if a.device.type == "cpu":
+        return proj_gated_residual_reference(a, h, gate, p)
+    din, d = a.shape[-1], h.shape[-1]
+    if a.shape[:-1] != h.shape[:-1]:
+        raise ValueError(f"proj_gated_residual: a {tuple(a.shape)} and h {tuple(h.shape)} "
+                         "must have the same rows")
+    if "b" not in p:
+        raise ValueError("proj_gated_residual: the linear needs a bias")
+    if din % 32 or d % 128:
+        raise ValueError(f"proj_gated_residual: din={din} must be a multiple of 32 and "
+                         f"d={d} of 128")
+    check_tensor("proj_gated_residual", "gate", gate, (d,), torch.bfloat16)
+    check_tensor("proj_gated_residual", "w", p["w"], (d, din), torch.bfloat16)
+    check_tensor("proj_gated_residual", "b", p["b"], (d,), torch.bfloat16)
+    cuda_build.require_cuda("proj_gated_residual", a, h, gate, p["w"], p["b"],
+                            dtype=torch.bfloat16)
+    out = torch.empty_like(h)
+    err = cuda_build.library().f5_proj_gated_fwd(
+        a.data_ptr(), h.data_ptr(), gate.data_ptr(), p["w"].data_ptr(), p["b"].data_ptr(),
+        out.data_ptr(), a.numel() // din, din, d, a.device.index, cuda_build.stream_of(a))
+    cuda_build.check(err, "proj_gated_fwd")
+    launches_proj_gated += 1
+    return out
 
 
 def ln_mod_matmul_int8_reference(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:

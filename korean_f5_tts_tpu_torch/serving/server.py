@@ -1,7 +1,7 @@
 """Batching TTS HTTP server (counterpart of korean_f5_tts_tpu/serving/server.py).
 
-Requests flow submit() -> the C++ dynamic batcher (reused from
-korean_f5_tts_tpu.serving.native) -> one worker thread -> serve_sample, which
+Requests flow submit() -> the C++ dynamic batcher (serving/native.py, built
+from csrc/f5_runtime.cpp at first use) -> one worker thread -> serve_sample, which
 runs a whole batch (sampler + Vocos, fused) on the device and returns int16
 audio. Batches share a duration bucket and one sampling-parameter signature.
 
@@ -10,8 +10,8 @@ target_text, nfe_step?, cfg_strength?, sway_sampling_coef?, seed?} ->
 audio/wav; GET /health -> {"status": "ok"}; GET /stats -> counters.
 
 Ported here: the fused serving path (_synthesize_fast). The non-fused paths
-(_synthesize, _synthesize_batch), warm_start and the CLI wait for later
-slices.
+(_synthesize, _synthesize_batch), warm_start, gRPC and the server's own
+command line wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,9 +27,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from korean_f5_tts_tpu.serving.native import NativeBatcher, f32_to_i16
-from korean_f5_tts_tpu.text.vocab import list_str_to_idx, tokenize_text
 from korean_f5_tts_tpu_torch.models.cfm import serve_sample
+from korean_f5_tts_tpu_torch.ops.attention import check_attn_path
+from korean_f5_tts_tpu_torch.serving.native import NativeBatcher, f32_to_i16
+from korean_f5_tts_tpu_torch.text.vocab import list_str_to_idx, tokenize_text
 from korean_f5_tts_tpu_torch.utils import audio as au
 
 TARGET_SAMPLE_RATE = 24_000
@@ -71,12 +72,16 @@ class TTSService:
     """Model + vocoder + batch worker.
 
     vocoder: an object with .params and .vcfg (models.vocos.Vocos); its
-    decode runs inside the sampling call.
+    decode runs inside the sampling call. attn_path picks the attention
+    half's kernels (ops/attention.py:ATTN_PATHS). native_batcher=True queues
+    requests in the C++ batcher (built at first use, or raises); False in
+    the Python batcher of the same semantics.
     """
 
     def __init__(self, model_obj, vocoder, max_batch: int = 8, max_wait_us: int = 5_000,
                  nfe_step: int = 16, max_duration: int = 4096, max_queue: int = 64,
-                 strict_max_duration: bool = False):
+                 strict_max_duration: bool = False, attn_path: str = "default",
+                 native_batcher: bool = True):
         if vocoder is None or not hasattr(vocoder, "params") or not hasattr(vocoder, "vcfg"):
             raise ValueError("TTSService needs a vocoder with .params and .vcfg (models.vocos.Vocos)")
         self.model = model_obj
@@ -87,7 +92,9 @@ class TTSService:
         self.max_queue = max_queue
         self.strict_max_duration = strict_max_duration
         self.accepting = True
-        self.batcher = NativeBatcher(max_batch=max_batch, max_wait_us=max_wait_us)
+        self.attn_path = check_attn_path(attn_path)
+        self.batcher = NativeBatcher(max_batch=max_batch, max_wait_us=max_wait_us,
+                                     native=native_batcher)
         # device-resident reference-mel cache, keyed by content hash (LRU)
         self._mel_cache: dict[tuple, tuple] = {}
         self._mel_cache_cap = 64
@@ -243,7 +250,7 @@ class TTSService:
             cfg_strength=float(p0.get("cfg_strength", 2.0)),
             sway_sampling_coef=float(p0.get("sway_sampling_coef", -1.0)),
             seed=p0.get("seed"), wav_scale=np.asarray(scales, np.float32),
-            max_duration=self.max_duration)
+            max_duration=self.max_duration, attn_path=self.attn_path)
         wav_np = wav_i16.cpu().numpy()
         for i, it in enumerate(items):
             w = wav_np[i, int(lens[i]) * HOP_LENGTH: int(durs[i]) * HOP_LENGTH]
@@ -253,12 +260,12 @@ class TTSService:
             self.stats["requests"] += 1
 
 
-def _wav_bytes(wav: np.ndarray, sr: int) -> bytes:
+def _wav_bytes(wav: np.ndarray, sr: int, native: bool = True) -> bytes:
     from scipy.io import wavfile
 
     wav = np.asarray(wav)
     buf = io.BytesIO()
-    wavfile.write(buf, sr, wav if wav.dtype == np.int16 else f32_to_i16(wav))
+    wavfile.write(buf, sr, wav if wav.dtype == np.int16 else f32_to_i16(wav, native=native))
     return buf.getvalue()
 
 
@@ -331,7 +338,8 @@ def make_handler(service: TTSService):
                         raise ServiceShuttingDown(item.error)
                     raise RuntimeError(item.error)
                 wav, sr_out = item.result
-                self._send(200, _wav_bytes(wav, sr_out), "audio/wav")
+                self._send(200, _wav_bytes(wav, sr_out, native=service.batcher.is_native),
+                           "audio/wav")
             except Exception as e:  # the HTTP boundary reports every failure
                 status = (429 if isinstance(e, ServiceOverloaded) else
                           400 if isinstance(e, RequestTooLong) else
@@ -346,12 +354,14 @@ def make_handler(service: TTSService):
 
 def serve(model_obj, vocoder, host: str = "0.0.0.0", port: int = 8000, max_batch: int = 8,
           max_wait_us: int = 5_000, nfe_step: int = 16, max_queue: int = 64,
-          strict_max_duration: bool = False):
+          strict_max_duration: bool = False, attn_path: str = "default",
+          native_batcher: bool = True):
     """Build the service and its HTTP server; the caller runs
     httpd.serve_forever() (in a thread or the main loop) and shuts both down."""
     service = TTSService(model_obj, vocoder, max_batch=max_batch, max_wait_us=max_wait_us,
                          nfe_step=nfe_step, max_queue=max_queue,
-                         strict_max_duration=strict_max_duration)
+                         strict_max_duration=strict_max_duration, attn_path=attn_path,
+                         native_batcher=native_batcher)
     httpd = ThreadingHTTPServer((host, port), make_handler(service))
     print(f"serving on {host}:{port} (native batcher: {service.batcher.is_native})")
     return httpd, service

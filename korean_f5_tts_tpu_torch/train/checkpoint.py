@@ -35,6 +35,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from korean_f5_tts_tpu_torch.utils.misc import require_device
+
 
 def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     """Nested dicts/lists -> {"a/0/b": leaf} ('/'-joined paths, as the JAX .npz)."""
@@ -81,11 +83,13 @@ def _is_linear_weight(path: str, ndim: int) -> bool:
             and not (len(parts) > 1 and parts[-2] == "embed"))
 
 
-def params_from_jax(flat: dict[str, np.ndarray], device="cpu",
+def params_from_jax(flat: dict[str, np.ndarray], device="cuda",
                     dtype: torch.dtype | None = None) -> Any:
     """Flat JAX params ({"a/0/w": array}, as in the .npz; flatten_tree makes
-    one from a tree) -> the port's tree of tensors on `device`; floating
-    leaves cast to `dtype` when given."""
+    one from a tree) -> the port's tree of tensors on `device` (the card
+    unless the caller names the CPU); floating leaves cast to `dtype` when
+    given."""
+    device = require_device(device)
     out = {}
     for path, leaf in flat.items():
         arr = np.asarray(leaf)
@@ -141,7 +145,7 @@ def opt_state_to_leaves(opt_state: dict) -> list[np.ndarray]:
             + [nu[k] for k in order] + [np.asarray(opt_state["sched_count"], np.int32)])
 
 
-def opt_state_from_leaves(leaves: list, params, device="cpu") -> dict:
+def opt_state_from_leaves(leaves: list, params, device="cuda") -> dict:
     """optax's leaf list -> train/step.py's optimizer state for `params`'s tree."""
     order = jax_leaf_order(flatten_tree(params))
     n = len(order)
@@ -168,7 +172,7 @@ def save_checkpoint(path: str, params, opt_state: dict | None = None, ema_params
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, device="cpu") -> dict:
+def load_checkpoint(path: str, device="cuda") -> dict:
     """{"update", "params", "ema_params" (when present), "opt_leaves" (numpy,
     when present)}: the trees are the port's, on `device`."""
     data = dict(np.load(path, allow_pickle=False))

@@ -14,6 +14,19 @@ import hashlib
 import torch
 
 
+def require_device(device="cuda") -> torch.device:
+    """The torch.device an entry point was asked for. The port's entry points
+    default to the card; nothing picks the CPU on finding no GPU: a CUDA
+    device without a usable card raises, and the CPU runs only when the
+    caller names it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was asked for but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run on the CPU")
+    return device
+
+
 def fold_in(seed: int, data: int) -> int:
     """A new 63-bit seed from (seed, data), as jax.random.fold_in derives a
     key: distinct data give unrelated streams, the same pair the same one."""

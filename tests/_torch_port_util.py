@@ -55,7 +55,7 @@ def tiny_dit(seed: int = 0):
     flat = flatten_tree(jax_init_dit(jax.random.PRNGKey(seed), jcfg))
     flat = redraw_zero_layers({k: np.asarray(v) for k, v in flat.items()}, seed + 100)
     jparams = jax.tree_util.tree_map(jax.numpy.asarray, unflatten_tree(flat))
-    return jparams, params_from_jax(flat), flat
+    return jparams, params_from_jax(flat, device="cpu"), flat
 
 
 @functools.lru_cache(maxsize=2)
@@ -65,7 +65,7 @@ def tiny_vocos(seed: int = 1):
     flat = {k: np.asarray(v) for k, v in
             flatten_tree(jax_init_vocos(jax.random.PRNGKey(seed), jcfg)).items()}
     jparams = jax.tree_util.tree_map(jax.numpy.asarray, unflatten_tree(flat))
-    return jcfg, jparams, VocosConfig(**TINY_VOCOS), params_from_jax(flat)
+    return jcfg, jparams, VocosConfig(**TINY_VOCOS), params_from_jax(flat, device="cpu")
 
 
 def rel_err(got, want) -> float:

@@ -272,3 +272,114 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q128 = _bf16((4, 128, 128), dev, gen)
     with pytest.raises(ValueError):  # the training kernels take d = 64 only
         flash_prefix.flash_prefix_dq(q128, q128, q128, q128, dvec, kv)
+
+
+# --- the opt-in attention paths: kernels 7, 8, 18, 19 ---------------------------------
+
+
+def _linear(dev, gen, n, k):
+    return {"w": _bf16((n, k), dev, gen, k ** -0.5), "b": _bf16((n,), dev, gen, k ** -0.5)}
+
+
+@pytest.mark.parametrize("rows,segments", [((2, 100, 256), 3), ((1, 64, 256), 1), ((3, 7, 256), 2)])
+def test_ln_mod_matmul_kernel(dev, rows, segments):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h = _bf16(rows, dev, gen)
+    sc, sh = _bf16((256,), dev, gen, 0.3), _bf16((256,), dev, gen, 0.3)
+    ps = [_linear(dev, gen, 128, 256) for _ in range(segments)]
+    before = fused_linears.launches_ln_mod
+    got = fused_linears.ln_mod_matmul(h, sc, sh, ps)
+    assert fused_linears.launches_ln_mod == before + 1
+    assert got.shape == (*rows[:2], 128 * segments)
+    _close(got, fused_linears.ln_mod_matmul_reference(h, sc, sh, ps))
+
+
+@pytest.mark.parametrize("rows", [(2, 100), (1, 64), (3, 7)])
+def test_proj_gated_residual_kernel(dev, rows):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    a, h = _bf16((*rows, 512), dev, gen), _bf16((*rows, 256), dev, gen)
+    gate = _bf16((256,), dev, gen)
+    p = _linear(dev, gen, 256, 512)
+    before = fused_linears.launches_proj_gated
+    got = fused_linears.proj_gated_residual(a, h, gate, p)
+    assert fused_linears.launches_proj_gated == before + 1
+    _close(got, fused_linears.proj_gated_residual_reference(a, h, gate, p))
+
+
+def _rope_tables(dev, n):
+    from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
+
+    return tuple(torch.from_numpy(t).to(dev) for t in rope_cos_sin(n, 64))
+
+
+@pytest.mark.parametrize("n,lens,pe", [(200, [1, 200, 65], None), (130, [130, 64, 7], 1),
+                                       (64, [64, 63, 33], 0)])
+def test_rope_and_qkv_attention_kernels(dev, n, lens, pe):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    heads = 3
+    qkv = _bf16((len(lens), n, 3 * heads * 64), dev, gen)
+    q, k, v = (t.contiguous() for t in flash_prefix.qkv_unpack(qkv, heads))
+    kv = torch.tensor(lens, device=dev)
+    cos, sin = _rope_tables(dev, n + 5)  # longer tables are cut to n
+    before = flash_prefix.launches_rope, flash_prefix.launches_qkv
+    got18 = flash_prefix.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe)
+    got19 = flash_prefix.flash_prefix_qkv_attention(qkv, kv, heads, cos, sin, pe)
+    assert (flash_prefix.launches_rope, flash_prefix.launches_qkv) == (before[0] + 1, before[1] + 1)
+    want = flash_prefix.flash_prefix_rope_reference(q, k, v, kv, cos, sin, pe)
+    _close(got18, want)
+    _close(got19, flash_prefix.flash_prefix_qkv_reference(qkv, kv, heads, cos, sin, pe))
+    # one loop, two layouts: the same values
+    torch.testing.assert_close(got19, got18.transpose(1, 2).reshape(len(lens), n, heads * 64),
+                               rtol=0, atol=0)
+
+
+def test_items_without_a_valid_key_are_zero_and_lens_broadcast(dev):
+    gen = torch.Generator(device=dev).manual_seed(14)
+    qkv = _bf16((2, 100, 3 * 2 * 64), dev, gen)
+    cos, sin = _rope_tables(dev, 100)
+    out = flash_prefix.flash_prefix_qkv_attention(qkv, torch.tensor([0, 100]), 2, cos, sin)
+    assert out[0].abs().max().item() == 0 and out[1].abs().max().item() > 0
+    one = flash_prefix.flash_prefix_qkv_attention(qkv, torch.tensor([100]), 2, cos, sin)
+    torch.testing.assert_close(one[1], out[1], rtol=0, atol=0)
+
+
+def test_opt_in_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(15)
+    h = _bf16((1, 64, 256), dev, gen)
+    vec = _bf16((256,), dev, gen)
+    p = _linear(dev, gen, 128, 256)
+    with pytest.raises(TypeError):  # bf16 operands only
+        fused_linears.ln_mod_matmul(h.float(), vec.float(), vec.float(),
+                                    [{k: t.float() for k, t in p.items()}])
+    with pytest.raises(ValueError):  # output width a multiple of 128
+        fused_linears.ln_mod_matmul(h, vec, vec, [_linear(dev, gen, 64, 256)])
+    with pytest.raises(ValueError):  # at most three linears
+        fused_linears.ln_mod_matmul(h, vec, vec, [p] * 4)
+    with pytest.raises(ValueError):  # the linear needs a bias
+        fused_linears.proj_gated_residual(h, h, vec, {"w": _bf16((256, 256), dev, gen)})
+    with pytest.raises(ValueError):  # rows of a and h differ
+        fused_linears.proj_gated_residual(h[:, :32], h, vec, _linear(dev, gen, 256, 256))
+    q32 = _bf16((1, 2, 64, 32), dev, gen)
+    cos, sin = _rope_tables(dev, 64)
+    with pytest.raises(ValueError):  # head dim 64 only
+        flash_prefix.flash_prefix_rope_attention(q32, q32, q32, torch.tensor([64]), cos[:, :16],
+                                                 sin[:, :16])
+    q = _bf16((1, 2, 64, 64), dev, gen)
+    with pytest.raises(TypeError):  # bf16 operands only
+        flash_prefix.flash_prefix_rope_attention(q.float(), q.float(), q.float(),
+                                                 torch.tensor([64]), cos, sin)
+    with pytest.raises(ValueError):  # tables shorter than n
+        flash_prefix.flash_prefix_rope_attention(q, q, q, torch.tensor([64]), cos[:32], sin[:32])
+    with pytest.raises(ValueError):  # kv_lens [B] or [1]
+        flash_prefix.flash_prefix_qkv_attention(_bf16((2, 64, 384), dev, gen),
+                                                torch.tensor([64, 64, 64]), 2, cos, sin)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        flash_prefix.flash_prefix_rope_attention(q.requires_grad_(True), q, q,
+                                                 torch.tensor([64]), cos, sin)
+
+
+def test_probe_hopper_idioms(dev):
+    from korean_f5_tts_tpu_torch.scripts import probe_hopper
+
+    errs = probe_hopper.run(dev)
+    assert set(errs) == {"slice_mma", "pair_store", "half_swap"}

@@ -91,7 +91,7 @@ def test_converter_round_trip_and_init_layout(tmp_path):
     jcfg, pcfg = tiny_configs()
     flat = {k: np.asarray(v) for k, v in
             flatten_tree(jdit.init_dit(jax.random.PRNGKey(3), jcfg)).items()}
-    port = params_from_jax(flat)
+    port = params_from_jax(flat, device="cpu")
     # linear weights transpose to torch [out, in]; conv and embedding stay
     np.testing.assert_array_equal(port["input_proj"]["w"].numpy(), flat["input_proj/w"].T)
     np.testing.assert_array_equal(port["conv_pos_embed"]["conv1"]["w"].numpy(),
@@ -103,13 +103,13 @@ def test_converter_round_trip_and_init_layout(tmp_path):
     for k in flat:
         np.testing.assert_array_equal(back[k], flat[k])
     # the port's own init builds the same tree with the same shapes
-    init = params_to_jax(pdit.init_dit(pcfg, seed=0))
+    init = params_to_jax(pdit.init_dit(pcfg, seed=0, device="cpu"))
     assert {k: v.shape for k, v in init.items()} == {k: v.shape for k, v in flat.items()}
     assert not init["blocks/0/attn_norm/linear/w"].any()  # AdaLN-zero
     # and load_model reads a JAX .npz checkpoint (EMA subtree preferred)
     path = os.path.join(tmp_path, "ckpt.npz")
     np.savez(path, **{f"ema_params/{k}": v for k, v in flat.items()},
              **{f"params/{k}": np.zeros_like(v) for k, v in flat.items()})
-    model = load_model(ModelConfig(arch=pcfg, mel=MelConfig()), ckpt_path=path)
+    model = load_model(ModelConfig(arch=pcfg, mel=MelConfig()), ckpt_path=path, device="cpu")
     np.testing.assert_array_equal(
         model.params["blocks"][1]["ff"]["out"]["w"].numpy(), flat["blocks/1/ff/out/w"].T)

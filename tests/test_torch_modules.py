@@ -116,7 +116,7 @@ def test_conv_position_embedding_and_convnext():
     rng = np.random.default_rng(8)
     blk_j = {**blk_j, "grn": {k: jnp.asarray(rng.uniform(-1, 1, (1, 1, 64)).astype(np.float32))
                               for k in ("gamma", "beta")}}
-    blk_p = params_from_jax(flatten_tree(jax.tree_util.tree_map(np.asarray, blk_j)))
+    blk_p = params_from_jax(flatten_tree(jax.tree_util.tree_map(np.asarray, blk_j)), device="cpu")
     xt = _randn((2, 40, 32), 9)
     valid = (np.arange(40) < 33)[None, :, None]
     want = jm.convnext_v2_block(blk_j, jnp.asarray(xt), valid_mask=jnp.asarray(valid))

@@ -1,11 +1,17 @@
-"""The port imports torch and never jax: the machine with the GPU has no jax.
+"""The port imports torch and never jax, and nothing of the JAX package: the
+machine with the GPU has no jax, and the port keeps its own copy of whatever
+it needs from a framework-free module of korean_f5_tts_tpu.
 
 Every module of korean_f5_tts_tpu_torch is imported in a fresh interpreter
 that first drops every jax* entry from sys.modules and then sets
-sys.modules["jax"] = None, so any `import jax` on the way raises.
+sys.modules["jax"] = None, so any `import jax` on the way raises. Afterwards
+no key of sys.modules may be korean_f5_tts_tpu or start with
+"korean_f5_tts_tpu.": that package's __init__ is lazy, so importing a
+jax-free module of it raises nothing and only this check sees it.
 """
 
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -28,19 +34,27 @@ leaked = [m for m in sys.modules if m.startswith(("jax.", "jaxlib"))]
 assert not leaked, leaked
 print(len(names))
 """
+# after the imports: nothing of the JAX package was loaded on the way
+NO_JAX_PACKAGE = r"""
+loaded = [m for m in sys.modules
+          if m == "korean_f5_tts_tpu" or m.startswith("korean_f5_tts_tpu.")]
+assert not loaded, loaded
+"""
+IMPORTS_JAX_PACKAGE = re.compile(r"^\s*(from|import)\s+korean_f5_tts_tpu(\.|\s|$)")
 
 
 def test_port_imports_without_jax():
     expected = 1 + sum(1 for _ in pkgutil.walk_packages(
         korean_f5_tts_tpu_torch.__path__, "korean_f5_tts_tpu_torch."))
-    proc = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, capture_output=True,
-                          text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", GUARD + NO_JAX_PACKAGE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) == expected >= 20
 
 
 def test_chip_smoke_imports_without_jax():
     code = GUARD.replace("print(len(names))", "import chip_smoke\nprint(len(names))")
+    code += NO_JAX_PACKAGE
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -51,3 +65,26 @@ def test_no_jax_import_in_the_sources():
         for line in path.read_text().splitlines():
             stripped = line.strip()
             assert not stripped.startswith(("import jax", "from jax")), (path, line)
+
+
+def _sources():
+    yield from (ROOT / "korean_f5_tts_tpu_torch").rglob("*.py")
+    yield ROOT / "chip_smoke.py"
+
+
+def test_no_import_of_the_jax_package_in_the_sources():
+    for path in _sources():
+        for line in path.read_text().splitlines():
+            assert not IMPORTS_JAX_PACKAGE.match(line), (path, line)
+
+
+def test_the_check_sees_an_import_of_a_jax_free_module():
+    """The fault this file once missed: a jax-free module of the JAX package
+    imports without error, and only the sys.modules check notices."""
+    code = GUARD + "import korean_f5_tts_tpu.text.vocab\n" + NO_JAX_PACKAGE
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0 and "korean_f5_tts_tpu.text.vocab" in proc.stderr
+    assert IMPORTS_JAX_PACKAGE.match("from korean_f5_tts_tpu.text.vocab import x")
+    assert IMPORTS_JAX_PACKAGE.match("    import korean_f5_tts_tpu")
+    assert not IMPORTS_JAX_PACKAGE.match("from korean_f5_tts_tpu_torch.text.vocab import x")

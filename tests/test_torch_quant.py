@@ -92,7 +92,7 @@ def _jax_linear(rng, d_in, d_out):
 
 def _port_qp(jqp):
     """JAX int8 linear -> the port's, through the converter."""
-    return params_from_jax({k: np.asarray(v) for k, v in jqp.items()})
+    return params_from_jax({k: np.asarray(v) for k, v in jqp.items()}, device="cpu")
 
 
 def _rows(rng, m, d, zero_row=None, outlier_row=None):
@@ -119,7 +119,7 @@ def test_quantize_params_equals_jax_exactly(dtype):
     flat = _tiny_flat()
     jtree = unflatten_tree({k: jnp.asarray(v).astype(dtype) for k, v in flat.items()})
     want = {k: np.asarray(v) for k, v in flatten_tree(jquant.quantize_params(jtree)).items()}
-    port = pquant.quantize_params(cast_params(params_from_jax(flat), getattr(torch, dtype)))
+    port = pquant.quantize_params(cast_params(params_from_jax(flat, device="cpu"), getattr(torch, dtype)))
     got = port_flatten(port)
     assert got.keys() == want.keys()
     n_int8 = 0
@@ -142,7 +142,7 @@ def test_converter_transposes_int8_and_keeps_scales_fp32():
     flat = _tiny_flat()
     jq = jquant.quantize_params(unflatten_tree({k: jnp.asarray(v) for k, v in flat.items()}))
     qflat = {k: np.asarray(v) for k, v in flatten_tree(jq).items()}
-    port = params_from_jax(qflat, dtype=torch.bfloat16)
+    port = params_from_jax(qflat, device="cpu", dtype=torch.bfloat16)
     ff_in = port["blocks"][1]["ff"]["in"]
     d, dff = INT8_TINY["dim"], INT8_TINY["dim"] * INT8_TINY["ff_mult"]
     assert ff_in["w_int8"].shape == (dff, d) and ff_in["w_int8"].dtype == torch.int8
@@ -150,7 +150,7 @@ def test_converter_transposes_int8_and_keeps_scales_fp32():
     assert ff_in["w_scale"].dtype == torch.float32
     np.testing.assert_array_equal(ff_in["w_scale"].numpy(), qflat["blocks/1/ff/in/w_scale"])
     assert ff_in["b"].dtype == torch.bfloat16
-    back = params_to_jax(params_from_jax(qflat))
+    back = params_to_jax(params_from_jax(qflat, device="cpu"))
     assert back.keys() == qflat.keys()
     for k in qflat:
         assert back[k].dtype == qflat[k].dtype, k
@@ -159,13 +159,13 @@ def test_converter_transposes_int8_and_keeps_scales_fp32():
 
 def test_load_model_quantizes_after_the_dtype_cast():
     model = load_model(ModelConfig(arch=DiTConfig(**INT8_TINY), mel=MelConfig()),
-                       dtype=torch.bfloat16, quantize=True)
+                       dtype=torch.bfloat16, quantize=True, device="cpu")
     blk = model.params["blocks"][0]
     assert set(blk["attn"]["to_q"]) == {"w_int8", "w_scale", "b"}
     assert blk["attn"]["to_q"]["w_scale"].dtype == torch.float32
     assert blk["ff"]["out"]["b"].dtype == torch.bfloat16
     plain = load_model(ModelConfig(arch=DiTConfig(**INT8_TINY), mel=MelConfig()),
-                       dtype=torch.bfloat16)
+                       dtype=torch.bfloat16, device="cpu")
     want = pquant.quantize_linear(plain.params["blocks"][0]["ff"]["in"])
     torch.testing.assert_close(blk["ff"]["in"]["w_int8"], want["w_int8"], rtol=0, atol=0)
 
@@ -292,7 +292,7 @@ def _int8_dit():
     jcfg, pcfg = JaxDiTConfig(**INT8_TINY), DiTConfig(**INT8_TINY)
     flat = _tiny_flat()
     jparams = jquant.quantize_params(jax.tree_util.tree_map(jnp.asarray, unflatten_tree(flat)))
-    return jcfg, pcfg, jparams, pquant.quantize_params(params_from_jax(flat))
+    return jcfg, pcfg, jparams, pquant.quantize_params(params_from_jax(flat, device="cpu"))
 
 
 @pytest.mark.parametrize("batch", [1, 2])

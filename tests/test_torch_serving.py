@@ -40,11 +40,11 @@ def tiny_model():
     vocab = load_vocab_file(str(VOCAB))
     arch = DiTConfig(dim=64, depth=2, heads=4, dim_head=16, text_dim=32, conv_layers=1,
                      text_num_embeds=len(vocab) + 1)
-    params = redraw_zero_init(init_dit(arch, seed=0), seed=1)
+    params = redraw_zero_init(init_dit(arch, seed=0, device="cpu"), seed=1)
     model = TTSModel(params, arch, MelConfig(), vocab, torch.device("cpu"),
                      tokenizer_type="pinyin")
     vcfg = VocosConfig(dim=32, intermediate_dim=64, num_layers=2)
-    return model, Vocos(init_vocos(vcfg, seed=2), vcfg)
+    return model, Vocos(init_vocos(vcfg, seed=2, device="cpu"), vcfg)
 
 
 def _chirp(seconds: float) -> np.ndarray:

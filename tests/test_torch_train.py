@@ -72,7 +72,7 @@ def _pair(**flags):
     flat = jckpt.flatten_tree(jdit.init_dit(jax.random.PRNGKey(0), jcfg))
     flat = redraw_zero_layers({k: np.asarray(v) for k, v in flat.items()}, 100)
     jparams = jax.tree_util.tree_map(jnp.asarray, jckpt.unflatten_tree(flat))
-    return jcfg, pcfg, jparams, pckpt.params_from_jax(flat)
+    return jcfg, pcfg, jparams, pckpt.params_from_jax(flat, device="cpu")
 
 
 def _batch(seed=0):
@@ -290,7 +290,7 @@ def _trainer_kw(ckpt_dir):
 def _tiny_t_params():
     jparams = jdit.init_dit(jax.random.PRNGKey(0), JaxDiTConfig(**TINY_T))
     flat = {k: np.asarray(v) for k, v in jckpt.flatten_tree(jparams).items()}
-    return jparams, pckpt.params_from_jax(flat)
+    return jparams, pckpt.params_from_jax(flat, device="cpu")
 
 
 def test_port_resumes_a_jax_trainer_checkpoint(tmp_path):
