@@ -6,8 +6,10 @@
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the Hopper kernels from
      korean_f5_tts_tpu_torch/csrc and print the build time;
-  2. hold each of the fifteen kernels (bf16: A, B, C; int8: 9, 5, 6, 4;
-     training: 10, 11, 12, 13; the opt-in attention paths: 7, 8, 18, 19)
+  2. hold each of the sixteen kernels (bf16: A, B, C; int8: 9, 5, 6, 4;
+     training: 10, 11, 12, 13; the opt-in attention paths: 7, 8, 18, 19;
+     int8 attention: 14, in both modes, with its quantization pass timed on
+     its own and its error against kernel A on the same inputs)
      against its plain PyTorch version at the main-path shapes, plus ragged,
      zero-row and outlier cases, and time both with CUDA events (20 runs
      after a warm-up), beside the least time the card could take for the
@@ -53,12 +55,29 @@ Phases (any failure raises and exits non-zero):
      checked; then cfm_sample on a batch of 3 whose durations fall into two
      buckets, under "rope_in_kernel" and "qkv_kernel": two groups run, the
      group of 2 under a duration mask, each item equals the same item
-     sampled alone, and the counts are exact.
+     sampled alone, and the counts are exact;
+  9. int8 attention (attn_int8) and the rest of serving and inference, at
+     full width with int8 weights: (a) warm_start, then serve() with
+     attn_int8 "qkpv": three HTTP requests with exact launch counts (kernel
+     14 in kernel A's place); (b) the bench-protocol mel with kernels against
+     the plain versions, the RTF and the mel MAE against the bf16 sampler for
+     "qk" and "qkpv" over bf16 and over int8 weights, beside the int8
+     default; (c) a TTSService with a plain callable vocoder: one request
+     through _synthesize, two through _synthesize_batch, each against the
+     fused path's audio for the same request; (d) the gRPC handler bodies on
+     proto3 bytes (no grpc import) and one socket-server round trip on
+     localhost; (e) run_latency_benchmark and run_offline_benchmark at 3
+     items, with and without int8 attention, their JSON on a line each (a
+     check that they run: percentiles of 3 requests are no distribution, the
+     module's own command line measures 26); (f)
+     edit_speech with one edit span (the kept frames are the input mel) and
+     batch_generate of two rows.
 Serving, the training step, bench_train and offline inference run the full
-depth of 22 blocks; only the Trainer run of phase 6 is cut to 4. The
-line before the last is a JSON object with the kernels' numbers (launches:
-the serving runs of phases 3 and 7, the backward entry point, the Trainer's
-4 updates and phase 8); the last line is {"ok": true, "device": {...}}.
+depth of 22 blocks; only the Trainer run of phase 6 is cut to 4 (nothing
+else was cut when phase 9 was added). The line before the last is a JSON
+object with the kernels' numbers (launches: the serving runs of phases 3, 7
+and 9(a), the backward entry point, the Trainer's 4 updates and phase 8); the
+last line is {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository checkout it sits in; it imports
 nothing of JAX.
@@ -91,6 +110,7 @@ REPLACES = {
     "proj_gated_residual": "korean_f5_tts_tpu/ops/fused_linears.py:198",
     "flash_prefix_rope": "korean_f5_tts_tpu/ops/flash_prefix.py:1424",
     "flash_prefix_qkv": "korean_f5_tts_tpu/ops/flash_prefix.py:1550",
+    "flash_prefix_i8": "korean_f5_tts_tpu/ops/flash_prefix.py:889",
 }
 SOURCES = {
     "flash_prefix": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
@@ -106,6 +126,7 @@ SOURCES = {
                     "korean_f5_tts_tpu_torch/csrc/fused_linears.cu"),
     **dict.fromkeys(("flash_prefix_rope", "flash_prefix_qkv"),
                     "korean_f5_tts_tpu_torch/csrc/flash_prefix_rope.cu"),
+    "flash_prefix_i8": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8.cu",
 }
 # published peaks of the H100 SXM (dense): the roofline a kernel's time is held against
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
@@ -543,6 +564,80 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
     return out
 
 
+def check_attention_int8(gen, dev) -> dict:
+    """Kernel 14 in both modes ("qkpv": int8 q.k^T and p.v; "qk": int8 q.k^T,
+    bf16 p.v) against its plain version repeated at the kernel's key tile,
+    and against kernel A on the same bf16 inputs (the quantization error
+    itself); the quantization pass is timed on its own."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    # "qkpv": the products are exact integers on both sides; what can differ
+    # is a p8 = rint(127 p) at a rounding tie (exp2f against torch.exp2, the
+    # row sum in another order) and the last bf16 rounding. "qk": the kernel
+    # sums bf16(p).v inside the tensor core across the tile, the plain
+    # version in one fp32 matmul.
+    rel_bounds = {"qkpv": 2e-3, "qk": 5e-3}
+
+    def run(q, k, v, kv, pv_i8):  # folded heads as a batch of one-head items
+        return fp.flash_prefix_attention_i8(q[:, None], k[:, None], v[:, None], kv,
+                                            pv_i8=pv_i8)[:, 0]
+
+    def case(label, H, n, lens):
+        q, k, v = (torch.randn((H, n, 64), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        via_a = fp.flash_prefix_folded(q, k, v, kv)
+        errs = {}
+        for mode, pv_i8 in (("qkpv", True), ("qk", False)):
+            got = run(q, k, v, kv, pv_i8)
+            want = fp.flash_prefix_i8_reference(q, k, v, kv, pv_i8=pv_i8)
+            torch.cuda.synchronize()
+            errs[mode] = compare(f"flash_prefix_i8 {mode} {label}", got, want,
+                                 rel_bounds[mode])[0]
+            # the quantization error, over the valid query rows (the bounds of
+            # the JAX package's own test of its kernel: max 0.03, mean 0.005)
+            rows = torch.arange(n, device=dev)[None, :, None] < kv[:, None, None]
+            err = ((got.float() - via_a.float()).abs() * rows)
+            e_max, e_mean = err.max().item(), (err.sum() / (rows.sum() * 64)).item()
+            print(f"    {mode} vs kernel A on the same bf16 inputs: max {e_max:.3e} (bound 3e-2), "
+                  f"mean {e_mean:.3e} (bound 5e-3)")
+            if e_max > 3e-2 or e_mean > 5e-3:
+                fail(f"flash_prefix_i8 {mode} {label}: quantization error out of bounds")
+        return errs, (q, k, v, kv)
+
+    print("kernel 14, int8 prefix attention (rel bound 2e-3 for qkpv: exact integer products, "
+          "p8 ties and the last bf16 rounding; 5e-3 for qk: bf16 p.v summed in the tensor core)")
+    errs, (q, k, v, kv) = case("main H=32 n=1536 d=64 kv=1376", 32, 1536, [1376] * 32)
+    case("ragged n=1000 kv=[1, 1000, 700, 64, 65, 999, 333, 128]", 8, 1000,
+         [1, 1000, 700, 64, 65, 999, 333, 128])
+    case("n=300 kv=[300, 1, 77, 129]", 4, 300, [300, 1, 77, 129])
+    zero = run(q[:2], k[:2], v[:2], torch.zeros((2,), dtype=torch.int32, device=dev), True)
+    if zero.abs().max().item() != 0:
+        fail("flash_prefix_i8: a head with no valid key is not zero")
+
+    ops = 4.0 * 32 * 1536 * 1376 * 64  # every query row against this run's 1376 keys
+    q8, k8, v8, c, sv = fp._quantize_qkv(q, k, v, True)
+    vk = fp._v8_kernel_layout(v8)
+    out = fp.flash_prefix_folded_i8(q8, k8, vk, c, sv, kv)
+    ms = cuda_time_ms(lambda: fp.flash_prefix_folded_i8(q8, k8, vk, c, sv, kv))
+    ms_qk = cuda_time_ms(lambda: fp.flash_prefix_folded_i8(q8, k8, v, c, sv, kv, pv_i8=False))
+    plain_ms = cuda_time_ms(lambda: fp._i8_attention_plain(q8, k8, v8, c, sv, kv, True,
+                                                           fp.I8_KEY_TILE))
+    quant_ms = cuda_time_ms(lambda: fp._v8_kernel_layout(fp._quantize_qkv(q, k, v, True)[2]))
+    quant_qk_ms = cuda_time_ms(lambda: fp._quantize_qkv(q, k, v, False))
+    whole_ms = cuda_time_ms(lambda: run(q, k, v, kv, True))
+    a_ms = cuda_time_ms(lambda: fp.flash_prefix_folded(q, k, v, kv))
+    print(f"  time at main shape: kernel qkpv {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), kernel qk "
+          f"{ms_qk:.4f} ms, plain (on quantized operands) {plain_ms:.4f} ms; the quantization "
+          f"pass (plain torch ops, outside the kernel as in the JAX package) qkpv "
+          f"{quant_ms:.4f} ms, qk {quant_qk_ms:.4f} ms; wrapper as sdpa calls it "
+          f"{whole_ms:.4f} ms; kernel A on the bf16 inputs {a_ms:.4f} ms; library: none")
+    b = bound(ops, (q8, k8, vk, c, sv, kv, out), kind="int8")
+    return {"max_abs_err": errs["qkpv"], "ms": ms, "plain_ms": plain_ms, **b}
+
+
 def _linear(gen, dev, n: int, k: int) -> dict:
     """A bf16 linear {w [n, k], b [n]}, uniform +-1/sqrt(k)."""
     return {"w": _uni(gen, dev, (n, k), k ** -0.5), "b": _uni(gen, dev, (n,), k ** -0.5)}
@@ -750,20 +845,22 @@ def expected_samples(ref_samples: int, target: str) -> int:
     return (dur - ref_frames) * HOP
 
 
-def expected_launches(mode: str, batches: int, attn_path: str = "default") -> dict[str, int]:
+def expected_launches(mode: str, batches: int, attn_path: str = "default",
+                      attn_int8: str | None = None) -> dict[str, int]:
     """Launches of each kernel while serving one batch of 1 and one of 2 (22
     blocks x 16 steps each). bf16: the attention kernel and B per block, C
     twice per step; the attention kernel is A, or 18 under "rope_in_kernel",
     or 19 under "qkv_kernel"; "linear_fused" adds 7 and 8 per block at batch
     1 only (a batch of 2 carries a duration mask and takes attention()).
     int8: A and 4 per block; 5 and 6 per block at batch 1 (no duration
-    mask); kernel 9 for each of q, k, v and out per block at batch 2."""
+    mask); kernel 9 for each of q, k, v and out per block at batch 2.
+    attn_int8 puts kernel 14 in kernel A's place, every launch of it."""
     from korean_f5_tts_tpu_torch.ops import KERNELS
 
     per = DEPTH * STEPS
     want = dict.fromkeys(KERNELS, 0)
     attn = {"rope_in_kernel": "flash_prefix_rope", "qkv_kernel": "flash_prefix_qkv"}
-    want[attn.get(attn_path, "flash_prefix")] = per * batches
+    want[attn.get(attn_path, "flash_prefix_i8" if attn_int8 else "flash_prefix")] = per * batches
     want["grouped_conv"] = 2 * STEPS * batches
     if mode == "bf16":
         want["ff_block"] = per * batches
@@ -775,7 +872,8 @@ def expected_launches(mode: str, batches: int, attn_path: str = "default") -> di
     return want
 
 
-def phase3_serve(model, vocoder, mode: str, attn_path: str = "default") -> dict[str, int]:
+def phase3_serve(model, vocoder, mode: str, attn_path: str = "default",
+                 attn_int8: str | None = None, warm: bool = False) -> dict[str, int]:
     import io
     import threading
     import urllib.request
@@ -784,12 +882,19 @@ def phase3_serve(model, vocoder, mode: str, attn_path: str = "default") -> dict[
     from scipy.io import wavfile
 
     from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
-    from korean_f5_tts_tpu_torch.serving.server import serve
+    from korean_f5_tts_tpu_torch.serving.server import serve, warm_start
 
-    print(f"phase {3 if attn_path == 'default' else 7} ({mode}, attn_path {attn_path}): serve() "
-          "on localhost, 3 POST /tts requests (1 alone, then 2 at once)")
+    phase = 9 if attn_int8 else 3 if attn_path == "default" else 7
+    print(f"phase {phase} ({mode}, attn_path {attn_path}, attn_int8 {attn_int8}): "
+          f"{'warm_start(), then ' if warm else ''}serve() on localhost, 3 POST /tts requests "
+          "(1 alone, then 2 at once)")
+    if warm:  # the buckets and batch sizes the three requests will hit
+        t0 = time.perf_counter()
+        warm_start(model, vocoder, [640, 768], STEPS, batch_sizes=(1, 2), text_tokens=64,
+                   attn_path=attn_path, attn_int8=attn_int8)
+        print(f"  warm_start: {time.perf_counter() - t0:.2f} s")
     httpd, service = serve(model, vocoder, host="127.0.0.1", port=0, max_batch=8,
-                           max_wait_us=300_000, attn_path=attn_path)
+                           max_wait_us=300_000, attn_path=attn_path, attn_int8=attn_int8)
     port = httpd.server_address[1]
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     server_thread.start()
@@ -840,7 +945,7 @@ def phase3_serve(model, vocoder, mode: str, attn_path: str = "default") -> dict[
         service.shutdown(drain=False, timeout=5.0)
         service.batcher.close()
         server_thread.join(timeout=10)
-    want = expected_launches(mode, len(sizes), attn_path)
+    want = expected_launches(mode, len(sizes), attn_path, attn_int8)
     print(f"  kernel launches during serving: {counts} (expected {want})")
     if counts != want:
         fail("a kernel of the main path did not run as often as the path requires")
@@ -868,7 +973,7 @@ def bench_inputs(dev, cond_len=432, total_len=1376, n_bucket=1536):
 
 
 def synthesize(model, vocoder, inputs, kernels: bool = True, params=None,
-               attn_path: str = "default"):
+               attn_path: str = "default", attn_int8: str | None = None):
     """One bench-protocol utterance: sampler, cond splice, Vocos -> (mel, wav)."""
     from korean_f5_tts_tpu_torch.models.cfm import _sample_core
     from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
@@ -876,7 +981,7 @@ def synthesize(model, vocoder, inputs, kernels: bool = True, params=None,
     step_cond, cond_mask, text, y0, pad_mask, _ = inputs
     mel = _sample_core(params or model.params, model.arch, step_cond, text, None, pad_mask,
                        y0, 2.0, -1.0, steps=STEPS, use_cfg=True, use_sway=True,
-                       use_epss=True, kernels=kernels, attn_path=attn_path)
+                       use_epss=True, kernels=kernels, attn_path=attn_path, attn_int8=attn_int8)
     out = mel.where(~cond_mask, step_cond)
     wav = vocos_decode(vocoder.params, out.transpose(1, 2).to(step_cond.dtype), vocoder.vcfg)
     return mel, wav
@@ -926,27 +1031,31 @@ def phase4_parity(model, vocoder, dev, mode: str, bf16_plain=None):
 
 
 def phase5_rtf(model, vocoder, dev, card: str, mode: str, attn_path: str = "default",
-               plain: bool = True) -> float:
+               plain: bool = True, attn_int8: str | None = None) -> float:
     import torch
 
     inputs = bench_inputs(dev)
     gen_seconds = inputs[5] * HOP / SR
-    print(f"phase {5 if attn_path == 'default' else 7} ({mode}, attn_path {attn_path}): RTF at "
+    phase = 9 if attn_int8 else 5 if attn_path == "default" else 7
+    print(f"phase {phase} ({mode}, attn_path {attn_path}, attn_int8 {attn_int8}): RTF at "
           f"the bench protocol ({gen_seconds:.4f} s generated), 1 warm-up + 10 timed runs each")
     out = {}
     for kernels in (True, False) if plain else (True,):
-        synthesize(model, vocoder, inputs, kernels=kernels, attn_path=attn_path)
+        synthesize(model, vocoder, inputs, kernels=kernels, attn_path=attn_path,
+                   attn_int8=attn_int8)
         torch.cuda.synchronize()
         times = []
         for _ in range(10):
             t0 = time.perf_counter()
-            synthesize(model, vocoder, inputs, kernels=kernels, attn_path=attn_path)
+            synthesize(model, vocoder, inputs, kernels=kernels, attn_path=attn_path,
+                       attn_int8=attn_int8)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         mean = sum(times) / len(times)
         out[kernels] = mean / gen_seconds
         label = "kernels" if kernels else "plain  "
-        print(f"  {mode} {attn_path} {label}: {mean * 1e3:.2f} ms per utterance (min "
+        print(f"  {mode} {attn_path} attn_int8={attn_int8} {label}: {mean * 1e3:.2f} ms per "
+              f"utterance (min "
               f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), RTF {out[kernels]:.5f} "
               f"[{card}]")
     return out[True]
@@ -1126,6 +1235,267 @@ def phase8_offline(dev, card: str) -> dict[str, int]:
     del model
     torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: int8 attention and the rest of serving and inference
+# ---------------------------------------------------------------------------
+
+INT8_ATTN_MODES = ("qk", "qkpv")
+# A two-call path against the fused one on the same request, over the
+# samples more than 32 frames from either end of the generated audio: the
+# same bf16 sampler on the same seeded noise, but the reference mel is
+# computed unpadded on one side and in a padded bucket on the other, the
+# second vocoder call sees only the generated frames (the fused decode the
+# whole utterance), and the fused path rounds to int16.
+TWO_CALL_REL = 5e-2
+
+
+def phase9_int8_attention(dev, card: str, profile: Path | None = None) -> dict[str, int]:
+    """int8 attention and the rest of serving and inference at full width
+    (F5TTS_v1_Base, depth 22, Vocos): the server through warm_start + serve
+    with int8 weights and int8 attention;
+    the bench-protocol mel, RTF and mel MAE of the four int8-attention modes;
+    the two-call serving paths; the gRPC handler bodies and the socket
+    server; both serving benchmarks; speech edit and batch generation.
+    Returns the launch counts of the served requests."""
+    import base64
+    import io
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch import socket_server
+    from korean_f5_tts_tpu_torch.infer import batch_infer, speech_edit
+    from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.serving import benchmark, grpc_server
+    from korean_f5_tts_tpu_torch.serving import proto as pb
+    from korean_f5_tts_tpu_torch.serving import server as srv
+
+    models = {"bf16": build_model(dev), "int8": build_model(dev, quantize=True)}
+    model, vocoder = models["int8"]
+
+    # (a) the server, warmed, with int8 weights and int8 attention
+    counts = phase3_serve(model, vocoder, "int8", attn_int8="qkpv", warm=True)
+
+    # (b) the four int8-attention modes at the bench protocol
+    inputs = bench_inputs(dev)
+    total = 1376
+
+    def rel(a, b):
+        a, b = a[:, :total].float(), b[:, :total].float()
+        return ((a - b).norm() / b.norm()).item()
+
+    def mae(a, b):
+        return (a[:, :total].float() - b[:, :total].float()).abs().mean().item()
+
+    mel_bf16, _ = synthesize(*models["bf16"], inputs)
+    scale = mel_bf16[:, :total].float().abs().mean().item()
+    rtfs = {"int8 weights, bf16 attention": phase5_rtf(model, vocoder, dev, card, "int8",
+                                                       plain=False)}
+    mel_int8, _ = synthesize(model, vocoder, inputs)
+    print(f"phase 9: mel MAE against the bf16 sampler (mean |mel| {scale:.4f}): int8 weights, "
+          f"bf16 attention {mae(mel_int8, mel_bf16):.5f} ({mae(mel_int8, mel_bf16) / scale:.5f} "
+          "relative)")
+    for weights in ("bf16", "int8"):
+        m, v = models[weights]
+        for attn in INT8_ATTN_MODES:
+            mel_k, wav_k = synthesize(m, v, inputs, attn_int8=attn)
+            mel_p, _ = synthesize(m, v, inputs, kernels=False, attn_int8=attn)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(mel_k).all() and torch.isfinite(wav_k).all()):
+                fail(f"{weights} weights, attn_int8 {attn}: non-finite mel or waveform")
+            err = rel(mel_k, mel_p)
+            print(f"phase 9 ({weights} weights, attn_int8 {attn}): bench-protocol mel rel err, "
+                  f"kernels vs plain {err:.3e} (bound 5e-2); mel MAE against the bf16 sampler "
+                  f"{mae(mel_k, mel_bf16):.5f} ({mae(mel_k, mel_bf16) / scale:.5f} relative)")
+            if err > 5e-2:
+                fail(f"{weights} weights, attn_int8 {attn}: the sampler with kernels disagrees "
+                     "with the plain versions")
+            rtfs[f"{weights} weights, attn_int8 {attn}"] = phase5_rtf(
+                m, v, dev, card, weights, plain=False, attn_int8=attn)
+    print("phase 9: RTF (bench protocol, kernels): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in rtfs.items()) + f" [{card}]")
+    if profile is not None:
+        profile_once(lambda: synthesize(model, vocoder, inputs, attn_int8="qkpv"),
+                     profile.with_suffix(".attn_int8.txt"), "int8 weights, attn_int8 qkpv")
+    del models["bf16"]
+
+    # (c) a callable vocoder: _synthesize for one request, _synthesize_batch for two
+    ref_b64, ref_samples = chirp_wav_b64(3.0)
+    sr, data = wavfile.read(io.BytesIO(base64.b64decode(ref_b64)))
+    ref_wav = data.astype(np.float32) / 32768.0
+    targets = ["One request served by the two-call path.",
+               "The first of a pair in one batch.", "The second of that pair, in a batch."]
+
+    def payload(target):
+        return {"ref_wav": ref_wav.copy(), "sr": int(sr), "ref_text": REF_TEXT,
+                "target_text": target, "seed": 13}
+
+    def plain_vocoder(mel):  # a callable without .params: fp32 mel on the model's device in
+        return vocos_decode(vocoder.params, mel.to(torch.bfloat16), vocoder.vcfg)
+
+    fast = srv.TTSService(model, vocoder, max_batch=8, max_wait_us=300_000, attn_int8="qkpv")
+    two_call = srv.TTSService(model, plain_vocoder, max_batch=8, max_wait_us=300_000,
+                              attn_int8="qkpv")
+    try:
+        if two_call.vocoder_fused is not None:
+            fail("a plain callable vocoder was taken for a fused one")
+        want = []
+        for group in (targets[:1], targets[1:]):
+            items = [srv._Pending(payload(t)) for t in group]
+            fast._synthesize_fast(items)
+            want += [it.result[0].astype(np.float32) / 32768.0 for it in items]
+        reset_launch_counts()
+        first = two_call.submit(payload(targets[0]))
+        if not first.event.wait(timeout=600):
+            fail("the two-call service did not answer")
+        pair = [two_call.submit(payload(t)) for t in targets[1:]]
+        for it in pair:
+            if not it.event.wait(timeout=600):
+                fail("the two-call service did not answer a batched request")
+        c_counts = launch_counts()
+        sizes = two_call.stats["batch_sizes"]
+        if sorted(sizes) != [1, 2]:
+            fail(f"two-call service: expected one batch of 1 and one of 2, got {sizes}")
+        per = DEPTH * STEPS
+        # _synthesize: cfm_sample at batch 1 (kernels 5, 14, 6, 4); the batch of
+        # 2 carries a duration mask (kernel 9 per projection, 14, 4)
+        c_want = expected_launches("int8", 2, attn_int8="qkpv")
+        print(f"phase 9 (callable vocoder): batches {sizes}; launches {c_counts} (expected "
+              f"{c_want})")
+        if c_counts != c_want:
+            fail("the two-call paths did not run the kernels their batches require")
+        edge = 32 * HOP
+        for name, item, ref in zip(("_synthesize", "_synthesize_batch[0]", "_synthesize_batch[1]"),
+                                   [first, *pair], want):
+            if item.error:
+                fail(f"{name}: {item.error}")
+            got = np.asarray(item.result[0], np.float32)
+            # one request alone decodes its generated frames by themselves: the
+            # ISTFT of n frames gives (n - 1) * hop samples
+            size = ref.size - HOP if name == "_synthesize" else ref.size
+            if got.shape != (size,) or not np.isfinite(got).all() or size <= 4 * edge:
+                fail(f"{name}: {got.shape} samples, the fused path gave {ref.shape}")
+            g, w = got[edge:-edge], ref[edge:size - edge]
+            err = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+            print(f"  {name}: {got.size} samples, rel err to the fused path's audio for the same "
+                  f"request {err:.3e} over the interior (bound {TWO_CALL_REL:.0e})")
+            if err > TWO_CALL_REL:
+                fail(f"{name} disagrees with the fused path")
+
+        # (d) the gRPC handler bodies on proto bytes, and the socket server
+        if pb.decode_ready_response(grpc_server.server_ready(fast, b"")) is not True:
+            fail("server_ready did not answer ready")
+        if json.loads(grpc_server.health(fast, b"{}")) != {"status": "ok"}:
+            fail("health did not answer ok")
+        req = grpc_server.encode_infer_request("f5_tts", ref_wav, REF_TEXT, targets[0], "7")
+        t0 = time.perf_counter()
+        resp = pb.decode_model_infer_response(grpc_server.model_infer(fast, req))
+        wave = np.asarray(resp["outputs"]["waveform"], np.float32).reshape(-1)
+        want_n = expected_samples(ref_samples, targets[0])
+        body = json.dumps({"reference_audio": ref_b64, "reference_text": REF_TEXT,
+                           "target_text": targets[1], "seed": 13}).encode()
+        out = json.loads(grpc_server.synthesize(fast, body))
+        _, audio = wavfile.read(io.BytesIO(base64.b64decode(out["audio"])))
+        print(f"phase 9 (gRPC handler bodies, no grpc import): ModelInfer id {resp['id']} -> "
+              f"{wave.size} FP32 samples (expected {want_n}), peak {np.abs(wave).max():.3f}; "
+              f"Synthesize -> {audio.size} int16 samples (expected "
+              f"{expected_samples(ref_samples, targets[1])}); {time.perf_counter() - t0:.2f} s")
+        if (resp["id"] != "7" or wave.size != want_n or not np.isfinite(wave).all()
+                or not 0 < np.abs(wave).max() <= 1.0 or audio.dtype != np.int16
+                or audio.size != expected_samples(ref_samples, targets[1])):
+            fail("a gRPC handler body gave a wrong waveform")
+    finally:
+        for service in (fast, two_call):
+            service.shutdown(drain=False, timeout=5.0)
+            service.batcher.close()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = str(Path(tmp) / "ref.wav")
+        wavfile.write(ref_path, SR, data)
+        processor = socket_server.TTSStreamingProcessor(model, vocoder, ref_path, REF_TEXT,
+                                                        nfe_step=STEPS, attn_int8="qkpv")
+        ready, stop, port = threading.Event(), threading.Event(), []
+        thread = threading.Thread(target=socket_server.start_server, daemon=True, kwargs=dict(
+            processor=processor, host="127.0.0.1", port=0, stop=stop,
+            ready=lambda p: (port.append(p), ready.set())))
+        thread.start()
+        try:
+            if not ready.wait(timeout=60):
+                fail("the socket server did not come up")
+            t0 = time.perf_counter()
+            with socket.create_connection(("127.0.0.1", port[0]), timeout=600) as conn:
+                conn.sendall(targets[0].encode())
+                stream = b""
+                while not stream.endswith(b"END"):
+                    chunk = conn.recv(1 << 16)
+                    if not chunk:
+                        fail("the socket server closed before the END sentinel")
+                    stream += chunk
+            pcm = np.frombuffer(stream[:-3], np.float32)
+            print(f"phase 9 (socket server): {pcm.size} float32 samples streamed in "
+                  f"{time.perf_counter() - t0:.2f} s, rms {np.sqrt(np.mean(pcm ** 2)):.4f}")
+            if pcm.size < 100 * HOP or not np.isfinite(pcm).all() or np.abs(pcm).max() == 0:
+                fail("the socket server streamed no audio")
+        finally:
+            stop.set()
+            thread.join(timeout=10)
+
+        # (e) the serving benchmarks run and measure something; 3 items are no
+        # latency distribution (python -m ...serving.benchmark measures 26)
+        for name, run in (("latency", benchmark.run_latency_benchmark),
+                          ("offline", benchmark.run_offline_benchmark)):
+            for attn in (None, "qkpv"):
+                result = run(model, vocoder, n_items=3, nfe_step=STEPS, warmup=1, attn_int8=attn)
+                print(f"phase 9 (serving benchmark, {name}, 3 items, int8 weights, "
+                      f"attn_int8 {attn}) [{card}]:")
+                print(json.dumps(result))
+                timed = result["latency_avg_ms"] if name == "latency" else result["rtf"]
+                if not (np.isfinite(timed) and timed > 0):
+                    fail(f"the {name} benchmark measured nothing")
+
+        # (f) speech edit and batch generation
+        wav = ref_wav
+        span = (1.0, 1.8)
+        mel_in = model.mel_of_wav(wav)
+        edited = speech_edit.edit_speech(model, wav, REF_TEXT, "This is the edited speech.",
+                                         [span], nfe_step=STEPS, seed=2, attn_int8="qkpv")
+        lo, hi = int(span[0] * SR / HOP), int(span[1] * SR / HOP)
+        kept = np.concatenate([edited[:lo], edited[hi:]])
+        kept_in = np.concatenate([mel_in[:lo], mel_in[hi:]])
+        # the kept frames come back through the model's bf16 activations
+        kept_err = float(np.abs(kept - kept_in).max())
+        moved = float(np.abs(edited[lo:hi] - mel_in[lo:hi]).mean())
+        print(f"phase 9 (edit_speech): mel {edited.shape} from {mel_in.shape}, span frames "
+              f"[{lo}, {hi}); kept frames differ from the input mel by at most {kept_err:.3e} "
+              f"(bound 6.25e-2, one bf16 ulp at |mel| < 16), edited frames by {moved:.3f} on "
+              "average")
+        if (edited.shape != mel_in.shape or not np.isfinite(edited).all() or kept_err > 6.25e-2
+                or moved < 0.1):
+            fail("edit_speech: wrong shape, or the kept span is not the input mel")
+        rows = [{"utt": "row_a", "text": "The first row of the batch."},
+                {"utt": "row_b", "text": "And the second row, a little longer than the first!"}]
+        written = batch_infer.batch_generate(model, vocoder, rows, str(Path(tmp) / "out"),
+                                             ref_audio=ref_path, ref_text=REF_TEXT,
+                                             nfe_step=STEPS, seed=4, attn_int8="qkpv")
+        sizes = []
+        for path in written:
+            sr_out, audio = wavfile.read(path)
+            sizes.append(audio.size)
+            if sr_out != SR or audio.size < 50 * HOP or not np.abs(audio).max() > 0:
+                fail(f"batch_generate: {path} holds no audio")
+        print(f"phase 9 (batch_generate): {[Path(p).name for p in written]} with {sizes} samples")
+        if [Path(p).name for p in written] != ["row_a.wav", "row_b.wav"] or sizes[0] >= sizes[1]:
+            fail("batch_generate did not write one wav per row")
+    del models, model, vocoder
+    torch.cuda.empty_cache()
+    return counts
 
 
 def profile_once(run, path: Path, label: str) -> None:
@@ -1343,13 +1713,13 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, one per "
-                             "opt-in attn_path (with phase 7) and one training step; tables to "
-                             "this file (int8) and to its .bf16, .<attn_path> and .train "
-                             "siblings")
+                             "opt-in attn_path (with phase 7), one with int8 attention (with "
+                             "phase 9) and one training step; tables to this file (int8) and "
+                             "to its .bf16, .<attn_path>, .attn_int8 and .train siblings")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1399,6 +1769,7 @@ def main(argv=None) -> int:
         results["ln_mod_matmul"] = check_ln_mod(gen, dev)
         results["proj_gated_residual"] = check_proj_gated(gen, dev)
         results.update(check_rope_attention(gen, dev))
+        results["flash_prefix_i8"] = check_attention_int8(gen, dev)
         from korean_f5_tts_tpu_torch.scripts import probe_hopper
 
         probe_hopper.run(dev)
@@ -1430,6 +1801,9 @@ def main(argv=None) -> int:
             counts[name] += n
     if 8 in phases:
         for name, n in phase8_offline(dev, card).items():
+            counts[name] += n
+    if 9 in phases:
+        for name, n in phase9_int8_attention(dev, card, args.profile).items():
             counts[name] += n
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],

@@ -5,8 +5,9 @@ Config lookup by model name, vocoder attach, checkpoint load, `infer()` with
 seed management and wav/spectrogram export. The model and the vocoder live
 on `device`: the card by default, and a missing card raises; the CPU runs
 only when the caller names it. `attn_path` (ops/attention.py:ATTN_PATHS)
-picks the attention half's kernels, `compute_dtype` the dtype the weights are
-cast to (the kernels take bf16).
+picks the attention half's kernels, `attn_int8` (ATTN_INT8: None, "qk",
+"qkpv") the int8 attention kernel in kernel A's place, `compute_dtype` the
+dtype the weights are cast to (the kernels take bf16).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from korean_f5_tts_tpu_torch.infer.utils_infer import (
 )
 from korean_f5_tts_tpu_torch.models.modules import cast_params
 from korean_f5_tts_tpu_torch.models.vocos import Vocos, VocosConfig, init_vocos
-from korean_f5_tts_tpu_torch.ops.attention import check_attn_path
+from korean_f5_tts_tpu_torch.ops.attention import check_attn_int8, check_attn_path
 from korean_f5_tts_tpu_torch.train.checkpoint import params_from_jax
 from korean_f5_tts_tpu_torch.utils.audio import save_wav
 
@@ -72,6 +73,7 @@ class F5TTS:
         tokenizer_version: str = "new",
         compute_dtype: torch.dtype | None = None,
         attn_path: str = "default",
+        attn_int8: str | None = None,
         seed: int = 0,
     ):
         if model in PRESETS:
@@ -86,6 +88,7 @@ class F5TTS:
         self.target_sample_rate = model_cfg.mel.target_sample_rate
         self.device = device
         self.attn_path = check_attn_path(attn_path)
+        self.attn_int8 = check_attn_int8(attn_int8, attn_path)
         self.seed = None
 
         self.vocoder = load_vocoder(self.mel_spec_type, vocoder_local_path is not None,
@@ -147,6 +150,7 @@ class F5TTS:
             nfe_step=nfe_step, cfg_strength=cfg_strength,
             sway_sampling_coef=sway_sampling_coef, speed=speed,
             fix_duration=fix_duration, seed=seed, attn_path=self.attn_path,
+            attn_int8=self.attn_int8,
         )
         if file_wave is not None:
             self.export_wav(wav, file_wave, remove_silence)

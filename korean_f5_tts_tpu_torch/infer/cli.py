@@ -3,7 +3,8 @@ korean_f5_tts_tpu/infer/cli.py): python -m korean_f5_tts_tpu_torch.infer.cli.
 
 Runs on the card unless --device cpu is given (no card raises);
 --compute_dtype casts the weights (bfloat16 is what the kernels take),
---attn_path picks the attention half's kernels.
+--attn_path picks the attention half's kernels, --attn_int8 the int8
+attention kernel.
 
 Parity with reference `src/f5_tts/infer/infer_cli.py`: argparse + TOML config
 overlay (`:211-252`), multi-voice `[voice]` tag splitting (`:363-382`),
@@ -31,7 +32,7 @@ from korean_f5_tts_tpu_torch.infer.utils_infer import (
     preprocess_ref_audio_text,
     remove_silence_for_generated_wav,
 )
-from korean_f5_tts_tpu_torch.ops.attention import ATTN_PATHS
+from korean_f5_tts_tpu_torch.ops.attention import ATTN_PATHS, check_attn_int8
 from korean_f5_tts_tpu_torch.utils.audio import save_wav
 
 
@@ -80,6 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cast the weights to this dtype (the kernels take bfloat16)")
     p.add_argument("--attn_path", default="default", choices=list(ATTN_PATHS),
                    help="kernels of the attention half (ops/attention.py)")
+    p.add_argument("--attn_int8", default=None, choices=["qk", "qkpv"],
+                   help="int8 attention (kernel 14) in kernel A's place: int8 q.k^T only, or "
+                        "p.v as well; with --attn_path default or linear_fused")
     # Korean tokenizer flags (infer_cli.py:177-205)
     p.add_argument("--skip_tc", action="store_true",
                    help="use SkipTC syllable-boundary tokens")
@@ -95,6 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    check_attn_int8(args.attn_int8, args.attn_path)
     dtype = getattr(torch, args.compute_dtype) if args.compute_dtype else None
     cfg = _load_toml(args.config) if args.config else {}
 
@@ -189,7 +194,7 @@ def main(argv=None):
             cfg_strength=cfg_strength, sway_sampling_coef=sway,
             speed=v.get("speed", speed),
             fix_duration=float(fix_duration) if fix_duration else None,
-            seed=args.seed, attn_path=args.attn_path,
+            seed=args.seed, attn_path=args.attn_path, attn_int8=args.attn_int8,
         )
         segments.append(wav_seg)
         if args.save_chunk:

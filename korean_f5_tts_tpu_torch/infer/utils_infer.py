@@ -15,7 +15,7 @@ The port's counterpart of korean_f5_tts_tpu/infer/utils_infer.py.
 Host-side orchestration only; the device work happens inside `cfm_sample`
 and the vocoder, on the model's device. Chunks are synthesized one after
 another at batch 1, each at its own duration bucket. The vocoder's frame
-bucket, the duration and text buckets and `attn_path` are arguments, not
+bucket, the duration and text buckets, `attn_path` and `attn_int8` are arguments, not
 environment variables.
 """
 
@@ -77,7 +77,19 @@ def transcribe(ref_audio: str, language: str | None = None) -> str:
 VOCODER_BUCKET = 256  # frames; _vocode_bucketed pads the mel to a multiple
 
 
-def _vocode_bucketed(vocoder, mel_out: np.ndarray, bucket: int = VOCODER_BUCKET) -> np.ndarray:
+def vocoder_input(vocoder, mel: np.ndarray, device=None) -> torch.Tensor:
+    """The [b, d, n] mel as the vocoder takes it: on its parameters' device
+    in their dtype when it exposes .params (models.vocos.Vocos), else fp32 on
+    `device` (a plain callable; the model's device, or the CPU when None)."""
+    params = getattr(vocoder, "params", None)
+    if params is not None:
+        ref = params["head"]["w"]
+        return torch.as_tensor(mel, device=ref.device).to(ref.dtype)
+    return torch.as_tensor(mel, dtype=torch.float32, device=device)
+
+
+def _vocode_bucketed(vocoder, mel_out: np.ndarray, bucket: int = VOCODER_BUCKET,
+                     device=None) -> np.ndarray:
     """Decode [b, d, n] mel with the frame count padded to a `bucket`-frame
     multiple (utils_infer.py:76-107), so the vocoder sees a small set of
     shapes. The wav is sliced back to the exact-length output size.
@@ -85,8 +97,8 @@ def _vocode_bucketed(vocoder, mel_out: np.ndarray, bucket: int = VOCODER_BUCKET)
     last ~50 frames' samples deviate slightly from an exact-length decode;
     with trained models the tail is trailing silence and the replicate pad
     is inaudible. bucket=0 decodes at exact lengths. `vocoder` is a callable
-    mel tensor [b, d, n] -> waveform tensor (models.vocos.Vocos); the mel
-    goes to the vocoder's device in its parameters' dtype.
+    mel tensor [b, d, n] -> waveform tensor (models.vocos.Vocos, or any
+    callable); vocoder_input says where the mel goes.
     """
     b, d, n = mel_out.shape
     nb = max(bucket, -(-n // bucket) * bucket) if bucket > 0 else n
@@ -97,9 +109,7 @@ def _vocode_bucketed(vocoder, mel_out: np.ndarray, bucket: int = VOCODER_BUCKET)
             [mel_out, np.repeat(mel_out[:, :, -1:], nb - n, axis=2)], axis=2)
     else:
         mel_in = mel_out
-    ref = vocoder.params["head"]["w"]
-    mel_t = torch.as_tensor(mel_in, device=ref.device).to(ref.dtype)
-    wav = vocoder(mel_t).float().cpu().numpy().reshape(b, -1)
+    wav = vocoder(vocoder_input(vocoder, mel_in, device)).float().cpu().numpy().reshape(b, -1)
     if nb == n:
         return wav
     # both vocoder families upsample by exactly hop_length samples/frame
@@ -218,6 +228,7 @@ def infer_process(
     vocoder_bucket: int = VOCODER_BUCKET,
     kernels: bool = True,
     attn_path: str = "default",
+    attn_int8: str | None = None,
 ):
     """Chunk long text and synthesize (utils_infer.py:453-498)."""
     if isinstance(ref_audio, str):
@@ -241,6 +252,7 @@ def infer_process(
             speed=speed, fix_duration=fix_duration, seed=seed,
             vocoder_fused=vocoder_fused, duration_bucket=duration_bucket,
             vocoder_bucket=vocoder_bucket, kernels=kernels, attn_path=attn_path,
+            attn_int8=attn_int8,
         )
     )
 
@@ -268,6 +280,7 @@ def infer_batch_process(
     vocoder_bucket: int = VOCODER_BUCKET,
     kernels: bool = True,
     attn_path: str = "default",
+    attn_int8: str | None = None,
 ):
     """Per-chunk synthesis + cross-fade stitch (utils_infer.py:504-778).
 
@@ -322,7 +335,7 @@ def infer_batch_process(
             steps=nfe_step, cfg_strength=cfg_strength,
             sway_sampling_coef=sway_sampling_coef, seed=seed,
             vocoder_fused=vocoder_fused, duration_bucket=duration_bucket,
-            kernels=kernels, attn_path=attn_path,
+            kernels=kernels, attn_path=attn_path, attn_int8=attn_int8,
         )
         generated = generated[:, ref_audio_len:duration, :].float().cpu().numpy()
         mel_out = np.swapaxes(generated, 1, 2)  # [1, d, n]
@@ -332,7 +345,8 @@ def infer_batch_process(
             generated_wave = wav_full[
                 0, ref_audio_len * hop_length: duration * hop_length].float().cpu().numpy()
         elif vocoder is not None:
-            generated_wave = _vocode_bucketed(vocoder, mel_out, vocoder_bucket).reshape(-1)
+            generated_wave = _vocode_bucketed(vocoder, mel_out, vocoder_bucket,
+                                              model_obj.device).reshape(-1)
         else:
             generated_wave = np.zeros(mel_out.shape[-1] * hop_length, np.float32)
         if rms_val < target_rms and rms_val > 0:

@@ -15,7 +15,8 @@ wrapper serve_sample for the server, and cfm_sample for offline inference
 batch by bucket, edit_mask, no_ref_audio, duplicate_test, seeded noise at
 the canonical length). The JAX scan becomes a Python loop over the steps.
 The buckets are arguments here, not environment variables; `attn_path`
-(ops/attention.py:ATTN_PATHS) picks the attention half's kernels.
+(ops/attention.py:ATTN_PATHS) picks the attention half's kernels and
+`attn_int8` (ATTN_INT8) the int8 attention kernel, for sampling only.
 """
 
 from __future__ import annotations
@@ -79,9 +80,13 @@ def draw_cfm(shape: tuple[int, int, int], lens: torch.Tensor, gen: torch.Generat
 
 def cfm_loss_from_draws(params: dict, arch: DiTConfig, mel: torch.Tensor, text: torch.Tensor,
                         lens: torch.Tensor, draws: dict, dropout_seed: int | None = None,
-                        kernels: bool = True):
+                        kernels: bool = True, attn_int8: str | None = None):
     """Masked flow-matching MSE over the random span (cfm.py:98-129) given
-    draw_cfm's draws; returns (loss, cond, pred)."""
+    draw_cfm's draws; returns (loss, cond, pred). attn_int8 raises: the int8
+    attention kernel has no gradient, training keeps the bf16 kernels."""
+    if attn_int8 is not None:
+        raise ValueError(f"attn_int8={attn_int8!r} is inference only: the loss keeps the "
+                         "differentiable attention kernels")
     b, n, _ = mel.shape
     mask = lens_to_mask(lens, n)
     span = mask_from_start_end_indices(draws["span_start"], draws["span_end"], n) & mask
@@ -102,14 +107,15 @@ def cfm_loss_from_draws(params: dict, arch: DiTConfig, mel: torch.Tensor, text: 
 
 def cfm_loss(params: dict, arch: DiTConfig, mel: torch.Tensor, text: torch.Tensor,
              lens: torch.Tensor, seed: int, cfm: CFMConfig = CFMConfig(),
-             kernels: bool = True):
+             kernels: bool = True, attn_int8: str | None = None):
     """Flow-matching loss (cfm.py:83-129); returns (loss, cond, pred). The
     draws come from a generator seeded with `seed` on mel's device, the
-    dropout masks from fold_in(seed, 1)."""
+    dropout masks from fold_in(seed, 1). attn_int8 raises (inference only)."""
     gen = torch.Generator(device=mel.device).manual_seed(seed)
     draws = draw_cfm(tuple(mel.shape), lens, gen, cfm, dtype=mel.dtype)
     return cfm_loss_from_draws(params, arch, mel, text, lens, draws,
-                               dropout_seed=fold_in(seed, 1), kernels=kernels)
+                               dropout_seed=fold_in(seed, 1), kernels=kernels,
+                               attn_int8=attn_int8)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +133,7 @@ def _sample_core(params: dict, arch: DiTConfig,
                  cfg_strength: float, sway_coef: float,
                  steps: int, use_cfg: bool, use_sway: bool, use_epss: bool,
                  t_start: float = 0.0, kernels: bool = True,
-                 attn_path: str = "default") -> torch.Tensor:
+                 attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
     """Text embedding (once) + Euler integration over the schedule
     (cfm.py:366-439). Returns the final mel [b, N, d]. With CFG every step is
     one packed forward of 2b items with precomputed modulations; without it
@@ -145,7 +151,7 @@ def _sample_core(params: dict, arch: DiTConfig,
         for s in range(steps):
             pred = dit_mod.dit_forward(params, arch, x, step_cond, text, ts[s].expand(x.shape[0]),
                                        mask=mask, pad_mask=pad_mask, kernels=kernels,
-                                       attn_path=attn_path)
+                                       attn_path=attn_path, attn_int8=attn_int8)
             x = (x + dts[s] * pred).to(y0.dtype)
         return x
     te_cond = dit_mod.text_embedding(params["text_embed"], arch, text, N,
@@ -160,7 +166,7 @@ def _sample_core(params: dict, arch: DiTConfig,
         pred = dit_mod.dit_forward_cfg_premod(
             params, arch, x, step_cond, te_cond, te_uncond, mods[s], mod_final[s],
             cfg_strength, mask=mask, pad_mask=pad_mask, static_inp=static_inp,
-            kernels=kernels, attn_path=attn_path)
+            kernels=kernels, attn_path=attn_path, attn_int8=attn_int8)
         x = (x + dts[s] * pred).to(y0.dtype)
     return x
 
@@ -170,12 +176,13 @@ def _sample_core_vocos(params: dict, voc_params: dict, arch: DiTConfig, step_con
                        pad_mask, y0, cond_mask: torch.Tensor, cfg_strength: float,
                        sway_coef: float, *, vcfg, steps: int, use_cfg: bool, use_sway: bool,
                        use_epss: bool, t_start: float = 0.0, kernels: bool = True,
-                       attn_path: str = "default"):
+                       attn_path: str = "default", attn_int8: str | None = None):
     """The sampler, the cond splice and the Vocos decode as one call
     (cfm.py:153-193); returns (mel [b, N, d], wav [b, N * hop] fp32)."""
     mel = _sample_core(params, arch, step_cond, text, mask, pad_mask, y0, cfg_strength,
                        sway_coef, steps=steps, use_cfg=use_cfg, use_sway=use_sway,
-                       use_epss=use_epss, t_start=t_start, kernels=kernels, attn_path=attn_path)
+                       use_epss=use_epss, t_start=t_start, kernels=kernels, attn_path=attn_path,
+                       attn_int8=attn_int8)
     out = torch.where(cond_mask[..., None], step_cond, mel)
     # replicate one frame so duration * hop samples exist even at full-bucket
     # durations (an ISTFT over N frames yields only (N - 1) * hop)
@@ -223,7 +230,7 @@ def _serve_core_vocos(params: dict, voc_params: dict, arch: DiTConfig,
                       *, vcfg, N: int, steps: int, use_cfg: bool, use_sway: bool,
                       use_epss: bool, canon: int, single: bool,
                       y0: torch.Tensor | None = None, kernels: bool = True,
-                      attn_path: str = "default") -> torch.Tensor:
+                      attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
     """All request-side device work of a batch (cfm.py:203-285); returns the
     int16 waveform [b, N * hop] on the device. y0 ([b, N, d]), when
     given, replaces the seeded noise."""
@@ -249,7 +256,8 @@ def _serve_core_vocos(params: dict, voc_params: dict, arch: DiTConfig,
     _, wav = _sample_core_vocos(
         params, voc_params, arch, step_cond, torch.as_tensor(text, device=dev), mask, pad_mask,
         y0, cond_mask, cfg_strength, sway_coef, vcfg=vcfg, steps=steps, use_cfg=use_cfg,
-        use_sway=use_sway, use_epss=use_epss, kernels=kernels, attn_path=attn_path)
+        use_sway=use_sway, use_epss=use_epss, kernels=kernels, attn_path=attn_path,
+        attn_int8=attn_int8)
     wav = wav.float() * torch.as_tensor(np.asarray(wav_scale, np.float32), device=dev)[:, None]
     return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
 
@@ -260,7 +268,7 @@ def serve_sample(params: dict, arch: DiTConfig, cond_b: torch.Tensor, text, dura
                  wav_scale=None, max_duration: int = 4096, duration_bucket: int | None = None,
                  use_epss: bool = True, y0: torch.Tensor | None = None,
                  text_bucket: int = TEXT_BUCKET, kernels: bool = True,
-                 attn_path: str = "default"):
+                 attn_path: str = "default", attn_int8: str | None = None):
     """Host wrapper of the serving path (cfm.py:288-357). Returns (int16
     waveform [b, N * hop] on the device, duration [b] host ints).
 
@@ -292,7 +300,7 @@ def serve_sample(params: dict, arch: DiTConfig, cond_b: torch.Tensor, text, dura
         vcfg=vcfg, N=int(N), steps=int(steps), use_cfg=float(cfg_strength) > 1e-5,
         use_sway=sway_sampling_coef is not None, use_epss=bool(use_epss),
         canon=max(int(max_duration), int(N)), single=b == 1, y0=y0, kernels=kernels,
-        attn_path=attn_path)
+        attn_path=attn_path, attn_int8=attn_int8)
     return wav, duration
 
 
@@ -312,7 +320,7 @@ def cfm_sample(params: dict, arch: DiTConfig,
                duplicate_test: bool = False, t_inter: float = 0.1, edit_mask=None,
                vocoder=None, vocoder_fused: tuple | None = None,
                split_by_bucket: bool = True, kernels: bool = True,
-               attn_path: str = "default"):
+               attn_path: str = "default", attn_int8: str | None = None):
     """Zero-shot sampling (cfm.py:442-652): the host wrapper of offline
     inference. Returns (out, wav): out [b, N, d] is the mel with the
     conditioning region spliced back, at the padded bucket length N (or the
@@ -364,7 +372,8 @@ def cfm_sample(params: dict, arch: DiTConfig,
                     y0=None if y0 is None else y0[idx, :int(N_g)], max_duration=max_duration,
                     duration_bucket=bucket, text_bucket=text_bucket, use_epss=use_epss,
                     no_ref_audio=no_ref_audio, vocoder=vocoder, vocoder_fused=vocoder_fused,
-                    split_by_bucket=False, kernels=kernels, attn_path=attn_path)
+                    split_by_bucket=False, kernels=kernels, attn_path=attn_path,
+                    attn_int8=attn_int8)
                 subs.append((idx, sub_out, sub_wav))
             n1 = max(so.shape[1] for _, so, _ in subs)
             out = torch.zeros((b, n1, *subs[0][1].shape[2:]), dtype=torch.float32, device=dev)
@@ -417,7 +426,8 @@ def cfm_sample(params: dict, arch: DiTConfig,
 
     sampler = dict(steps=int(steps), use_cfg=float(cfg_strength) > 1e-5,
                    use_sway=sway_sampling_coef is not None, use_epss=bool(use_epss),
-                   t_start=float(t_start), kernels=kernels, attn_path=attn_path)
+                   t_start=float(t_start), kernels=kernels, attn_path=attn_path,
+                   attn_int8=attn_int8)
     sway = float(sway_sampling_coef or 0.0)
     if vocoder_fused is not None:
         voc_params, vcfg = vocoder_fused

@@ -9,7 +9,8 @@ plain products around kernel A by default, as the bf16 TPU default leaves
 them (dit.py:373-379), kernels 7, A, 8 under "linear_fused", kernel 18 or 19
 under "rope_in_kernel" or "qkv_kernel". int8: the dispatch of dit.py:394-509
 without tensor parallelism (kernels 5, A, 6 and 4, or kernel 9 per
-projection under a duration mask).
+projection under a duration mask). `attn_int8` (ATTN_INT8) puts kernel 14,
+the int8 attention, in kernel A's place, over either kind of weights.
 
 Training: input_embedding, dit_backbone and dit_forward (dit.py:181-301),
 with the long skip, average upsampling, per-block activation checkpointing
@@ -50,7 +51,7 @@ from korean_f5_tts_tpu_torch.models.modules import (
     rope_cos_sin,
     timestep_embedding,
 )
-from korean_f5_tts_tpu_torch.ops.attention import check_attn_path, sdpa
+from korean_f5_tts_tpu_torch.ops.attention import check_attn_int8, check_attn_path, sdpa
 from korean_f5_tts_tpu_torch.ops.ff_block import (
     ff_block_fused,
     ff_block_fused_int8,
@@ -284,7 +285,7 @@ def _rope_for(attn_path: str, h: torch.Tensor, dim_head: int):
 def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
                  mask: torch.Tensor | None = None, dropout_seed: int | None = None,
                  pad_mask: torch.Tensor | None = None, kernels: bool = True,
-                 attn_path: str = "default") -> torch.Tensor:
+                 attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
     """Embedded input [b, n, dim] + time embedding [b, dim] -> flow [b, n, mel]
     (dit.py:233-283).
 
@@ -309,7 +310,7 @@ def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
         return dit_block(blk, x, t_emb, cfg.heads, mask=mask, rope=rope,
                          pe_attn_head=cfg.pe_attn_head, attn_mask_enabled=cfg.attn_mask_enabled,
                          pad_mask=pad_mask, dropout_rate=rate, gen=gen, kernels=kernels,
-                         attn_path=attn_path)
+                         attn_path=attn_path, attn_int8=attn_int8)
 
     for i, blk in enumerate(p["blocks"]):
         seed = fold_in(dropout_seed, i) if dropout_seed is not None else None
@@ -327,7 +328,7 @@ def dit_forward(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch.Tensor,
                 text: torch.Tensor, time: torch.Tensor, mask: torch.Tensor | None = None,
                 drop_audio_cond=False, drop_text=False, dropout_seed: int | None = None,
                 pad_mask: torch.Tensor | None = None, kernels: bool = True,
-                attn_path: str = "default") -> torch.Tensor:
+                attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
     """Training-path forward (dit.py:286-301), also one step of the sampler
     without CFG: x, cond [b, n, mel], text ids [b, nt], time [b] (or a
     scalar); the drops are bools or 0/1 tensors."""
@@ -339,7 +340,8 @@ def dit_forward(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch.Tensor,
     h = input_embedding(p, x, cond, text_emb, drop_audio_cond=drop_audio_cond,
                         audio_mask=mask if mask is not None else pad_mask, kernels=kernels)
     return dit_backbone(p, cfg, h, t_emb, mask=mask, dropout_seed=dropout_seed,
-                        pad_mask=pad_mask, kernels=kernels, attn_path=attn_path)
+                        pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
+                        attn_int8=attn_int8)
 
 
 def precompute_step_modulations(p: dict, cfg: DiTConfig, ts: torch.Tensor):
@@ -354,12 +356,14 @@ def precompute_step_modulations(p: dict, cfg: DiTConfig, ts: torch.Tensor):
 
 
 def _attention_half_fused(ap: dict, cfg: DiTConfig, h: torch.Tensor, scale, shift, gate,
-                          rope, prefix_lens, kernels: bool) -> torch.Tensor:
+                          rope, prefix_lens, kernels: bool,
+                          attn_int8: str | None = None) -> torch.Tensor:
     """h + gate * attention(LN(h) * (1 + scale) + shift) with the linears
     fused into their neighbours, as dit.py:424-467: LN, modulation and the
     q/k/v products in one launch, rope, kernel A, the out-projection folded
     into the gated residual. int8 projections: kernels 5 and 6 (the
-    quantization in the kernels as well); bf16 ones: kernels 7 and 8."""
+    quantization in the kernels as well); bf16 ones: kernels 7 and 8.
+    attn_int8 puts kernel 14 in kernel A's place, whatever the weights."""
     if "w_int8" in ap["to_q"]:
         lmm = ln_mod_matmul_int8 if kernels else ln_mod_matmul_int8_reference
         pgr = proj_gated_residual_int8 if kernels else proj_gated_residual_int8_reference
@@ -372,7 +376,8 @@ def _attention_half_fused(ap: dict, cfg: DiTConfig, h: torch.Tensor, scale, shif
     q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], cfg.heads) for i in range(3))
     q = apply_rope(q, *rope, cfg.pe_attn_head)
     k = apply_rope(k, *rope, cfg.pe_attn_head)
-    a = _merge_heads(sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels))
+    a = _merge_heads(sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels,
+                          attn_int8=attn_int8))
     return pgr(a, h, gate, ap["to_out"])
 
 
@@ -380,7 +385,8 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
                         mods: torch.Tensor, mod_final: torch.Tensor,
                         mask: torch.Tensor | None = None,
                         pad_mask: torch.Tensor | None = None,
-                        kernels: bool = True, attn_path: str = "default") -> torch.Tensor:
+                        kernels: bool = True, attn_path: str = "default",
+                        attn_int8: str | None = None) -> torch.Tensor:
     """One sampling step of the backbone with precomputed modulations
     (dit.py:323-528). mods: [depth, 6*dim] shared across the batch,
     mod_final: [2*dim]. kernels=False runs every kernel's plain version
@@ -393,7 +399,10 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
         attention(), which runs kernel 18 under "rope_in_kernel", kernel 19
         under "qkv_kernel" and kernel A else (kernel 9 per int8 projection);
       - FF half-block: int8 ff/in -> kernel 4; otherwise kernel B.
+    attn_int8 ("qk" or "qkpv") replaces kernel A by kernel 14 in every case
+    above that runs kernel A; it raises with "rope_in_kernel" and "qkv_kernel".
     """
+    check_attn_int8(attn_int8, attn_path)
     rope = _rope_for(attn_path, h, cfg.dim_head)
     prefix_lens = pad_mask.sum(dim=-1, dtype=torch.int32) if pad_mask is not None else None
     ff = ff_block_fused if kernels else ff_block_reference
@@ -408,13 +417,14 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
             or (attn_path == "linear_fused" and all("w" in ap[n] and "b" in ap[n] for n in names)))
         if fusable:
             h = _attention_half_fused(ap, cfg, h, scale_msa, shift_msa, gate_msa, rope,
-                                      prefix_lens, kernels)
+                                      prefix_lens, kernels, attn_int8)
         else:
             norm = layernorm({}, h, eps=1e-6) * (1 + scale_msa) + shift_msa
             attn_out = attention(ap, norm, cfg.heads, mask=mask, rope=rope,
                                  pe_attn_head=cfg.pe_attn_head,
                                  attn_mask_enabled=cfg.attn_mask_enabled,
-                                 pad_mask=pad_mask, kernels=kernels, attn_path=attn_path)
+                                 pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
+                                 attn_int8=attn_int8)
             h = h + gate_msa * attn_out
         fp = blk["ff"]
         if "w_int8" in fp["in"]:
@@ -443,7 +453,8 @@ def dit_forward_cfg_premod(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch
                            mask: torch.Tensor | None = None,
                            pad_mask: torch.Tensor | None = None,
                            static_inp: torch.Tensor | None = None,
-                           kernels: bool = True, attn_path: str = "default") -> torch.Tensor:
+                           kernels: bool = True, attn_path: str = "default",
+                           attn_int8: str | None = None) -> torch.Tensor:
     """CFG step with precomputed modulations (dit.py:539-565): the cond and
     uncond halves run packed as one batch of 2b, then
     pred + (pred - null_pred) * cfg_strength."""
@@ -455,7 +466,8 @@ def dit_forward_cfg_premod(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch
     h = input_embedding_premix(p, cfg, x2, static_inp, audio_mask=audio_mask,
                                kernels=kernels)
     out = dit_backbone_premod(p, cfg, h, mods, mod_final, mask=mask2,
-                              pad_mask=pad_mask, kernels=kernels, attn_path=attn_path)
+                              pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
+                              attn_int8=attn_int8)
     pred, null_pred = out.chunk(2, dim=0)
     return pred + (pred - null_pred) * cfg_strength
 

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from korean_f5_tts_tpu_torch.models.quant import qlinear
 from korean_f5_tts_tpu_torch.ops import grouped_conv as _gconv
 from korean_f5_tts_tpu_torch.ops.attention import (
-    check_attn_path,
+    check_attn_int8,
     qkv_fused_sdpa,
     rope_prefix_sdpa,
     sdpa,
@@ -301,7 +301,8 @@ def attention(p: dict, x: torch.Tensor, heads: int,
               pe_attn_head: int | None = None,
               attn_mask_enabled: bool = True,
               pad_mask: torch.Tensor | None = None,
-              kernels: bool = True, attn_path: str = "default") -> torch.Tensor:
+              kernels: bool = True, attn_path: str = "default",
+              attn_int8: str | None = None) -> torch.Tensor:
     """Self-attention of the DiT block (modules.py:464-571).
 
     mask ([b, n]): the duration mask; it masks the logits only when
@@ -319,9 +320,10 @@ def attention(p: dict, x: torch.Tensor, heads: int,
     straight on the fused qkv product (bf16/fp32 projections only, as
     modules.py:519-531) and "rope_in_kernel" kernel 18 on the pre-rope split
     heads (modules.py:543-551); every other case applies rope in torch and
-    runs kernel A.
+    runs kernel A, or kernel 14 under attn_int8 (ops/attention.py:ATTN_INT8;
+    it raises together with the two in-kernel-rope paths).
     """
-    check_attn_path(attn_path)
+    check_attn_int8(attn_int8, attn_path)
     attn_mask = mask if (attn_mask_enabled and mask is not None) else pad_mask
     prefix_lens = attn_mask.sum(dim=-1, dtype=torch.int32) if attn_mask is not None else None
     out = None
@@ -348,7 +350,8 @@ def attention(p: dict, x: torch.Tensor, heads: int,
                 cos, sin = rope
                 q = apply_rope(q, cos, sin, pe_attn_head)
                 k = apply_rope(k, cos, sin, pe_attn_head)
-            core = sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels)
+            core = sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels,
+                        attn_int8=attn_int8)
         out = _merge_heads(core)
     out = linear(p["to_out"], out, kernels=kernels)
     if mask is not None:
@@ -364,14 +367,16 @@ def dit_block(p: dict, x: torch.Tensor, t: torch.Tensor, heads: int,
               pad_mask: torch.Tensor | None = None,
               dropout_rate: float = 0.0,
               gen: torch.Generator | None = None,
-              kernels: bool = True, attn_path: str = "default") -> torch.Tensor:
+              kernels: bool = True, attn_path: str = "default",
+              attn_int8: str | None = None) -> torch.Tensor:
     """AdaLN-zero DiT block of the training forward (modules.py:632-650). The
     FF half-block is plain products here, as in the JAX block: kernel B is
     the serving path's."""
     norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = ada_layernorm(p["attn_norm"], x, t)
     attn_out = attention(p["attn"], norm, heads, mask=mask, rope=rope,
                          pe_attn_head=pe_attn_head, attn_mask_enabled=attn_mask_enabled,
-                         pad_mask=pad_mask, kernels=kernels, attn_path=attn_path)
+                         pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
+                         attn_int8=attn_int8)
     x = x + gate_msa[:, None] * attn_out
     norm = layernorm({}, x, eps=1e-6) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
     ff_out = feedforward(p["ff"], norm, dropout_rate=dropout_rate, gen=gen)

@@ -33,6 +33,7 @@ KERNELS = {
     "proj_gated_residual": (fused_linears, "launches_proj_gated"),
     "flash_prefix_rope": (flash_prefix, "launches_rope"),
     "flash_prefix_qkv": (flash_prefix, "launches_qkv"),
+    "flash_prefix_i8": (flash_prefix, "launches_i8"),
 }
 
 

@@ -8,8 +8,13 @@ kv_lens = n. sdpa takes q, k after the rotary embedding (kernel A);
 rope_prefix_sdpa takes them before it (kernel 18); qkv_fused_sdpa takes the
 fused qkv projection output as it is (kernel 19). Which one a block runs is
 the caller's `attn_path` argument (models/modules.py), not an environment
-variable. There is no splash, legacy-flash, int8 or tensor-parallel branch,
-and no fallback on error: a kernel that cannot run raises.
+variable. `attn_int8` ("qk" or "qkpv"; the JAX package's F5_TTS_INT8_ATTN as
+an argument) makes sdpa run kernel 14 (csrc/flash_prefix_int8.cu) in place
+of kernel A: int8 q.k^T, and with "qkpv" an int8 p.v as well. As in the JAX
+package only sdpa has that branch, so attn_int8 raises together with the two
+attn_paths that bypass sdpa; it serves only. There is no splash,
+legacy-flash or tensor-parallel branch, and no fallback on error: a kernel
+that cannot run raises.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 
 from korean_f5_tts_tpu_torch.ops.flash_prefix import (
     flash_prefix_attention,
+    flash_prefix_attention_i8,
     flash_prefix_qkv_attention,
     flash_prefix_qkv_reference,
     flash_prefix_rope_attention,
@@ -33,6 +39,21 @@ def check_attn_path(attn_path: str) -> str:
     return attn_path
 
 
+ATTN_INT8 = (None, "qk", "qkpv")
+
+
+def check_attn_int8(attn_int8: str | None, attn_path: str = "default") -> str | None:
+    """Validate attn_int8 (None, "qk": int8 q.k^T only, "qkpv": both products)
+    against the attention path: "rope_in_kernel" and "qkv_kernel" never reach
+    sdpa, the only place with an int8 branch."""
+    if attn_int8 not in ATTN_INT8:
+        raise ValueError(f"attn_int8 must be one of {ATTN_INT8}, got {attn_int8!r}")
+    if attn_int8 is not None and check_attn_path(attn_path) in ("rope_in_kernel", "qkv_kernel"):
+        raise ValueError(f"attn_int8={attn_int8!r} needs attn_path 'default' or 'linear_fused': "
+                         f"{attn_path!r} applies rope inside a bf16 kernel that has no int8 form")
+    return attn_int8
+
+
 def _full_lens(prefix_lens: torch.Tensor | None, n: int, device) -> torch.Tensor:
     if prefix_lens is None:
         return torch.full((1,), n, dtype=torch.int32, device=device)
@@ -40,11 +61,17 @@ def _full_lens(prefix_lens: torch.Tensor | None, n: int, device) -> torch.Tensor
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         prefix_lens: torch.Tensor | None = None, kernels: bool = True) -> torch.Tensor:
+         prefix_lens: torch.Tensor | None = None, kernels: bool = True,
+         attn_int8: str | None = None) -> torch.Tensor:
     """[b, h, n, d] attention; prefix_lens ([b] or [1] int) marks item i's
-    valid keys [0, prefix_lens[i]); None means every key is valid."""
-    return flash_prefix_attention(q, k, v, _full_lens(prefix_lens, q.shape[2], q.device),
-                                  kernels=kernels)
+    valid keys [0, prefix_lens[i]); None means every key is valid. attn_int8
+    runs kernel 14 instead of kernel A (inference only; it raises on an input
+    that requires a gradient and on shapes the kernel does not take)."""
+    lens = _full_lens(prefix_lens, q.shape[2], q.device)
+    if check_attn_int8(attn_int8) is not None:
+        return flash_prefix_attention_i8(q, k, v, lens, pv_i8=attn_int8 == "qkpv",
+                                         kernels=kernels)
+    return flash_prefix_attention(q, k, v, lens, kernels=kernels)
 
 
 def rope_prefix_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -51,6 +51,8 @@ _SIGNATURES = {
     # q, k, v, dO, dvec, lse, kv_lens, dk, dv, H, n, d, scale_log2, sm_scale, device,
     # stream
     "f5_flash_prefix_dkv": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
+    # q8, k8, v, c, sv, kv_lens, out, H, n, n_pad, pv_i8, device, stream
+    "f5_flash_prefix_i8_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _P),
     # h, sc, sh, gate, w1, b1, w2, b2, z, out, M, d, dff, eps, device, stream
     "f5_ff_block_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w, b, out, B, N, C, groups, taps, fuse_mish, device, stream

@@ -1,20 +1,24 @@
 """Prefix-masked attention: Hopper kernel A (serving forward), kernels 10-13
-(training forward with logsumexp, the two dq sweeps, dk/dv), kernels 18 and
-19 (the forward with the rotary embedding applied inside the kernel, on
-split heads and straight from the fused qkv projection) and their plain
-versions.
+(training forward with logsumexp, the two dq sweeps, dk/dv), kernel 14 (the
+serving forward with int8 products), kernels 18 and 19 (the forward with the
+rotary embedding applied inside the kernel, on split heads and straight from
+the fused qkv projection) and their plain versions.
 
 Counterpart of korean_f5_tts_tpu/ops/flash_prefix.py. Every attention mask of
 the model is a prefix mask, so one length per folded head describes it: head
 i attends keys [0, kv_lens[i]). Kernel A (csrc/flash_prefix.cu) replaces the
 TPU's _flash_prefix_folded; kernels 10-13 (csrc/flash_prefix_train.cu)
 replace _flash_prefix_folded_lse, _flash_prefix_dq_lsein, _flash_prefix_dq
-and _flash_prefix_dkv; kernels 18 and 19 (csrc/flash_prefix_rope.cu) replace
+and _flash_prefix_dkv; kernel 14 (csrc/flash_prefix_int8.cu) replaces
+_flash_prefix_folded_i8; kernels 18 and 19 (csrc/flash_prefix_rope.cu) replace
 _flash_prefix_rope_call and _flash_prefix_qkv_call. The sources' notes say
 what bounds each kernel on the card and how its design answers that.
 Kernels 18 and 19 serve only: the JAX package differentiates their XLA
 formulation, which is not ported yet, so the wrappers raise on an input that
-requires a gradient.
+requires a gradient. Kernel 14 serves only as well (the JAX kernel has no
+vjp): flash_prefix_attention_i8 quantizes q, k (and v) per folded head in
+plain torch ops, as the JAX package leaves that pass to XLA, and launches the
+kernel on the int8 operands.
 
 Layouts: q/k/v/o and their gradients are folded [H, n, d]; lse (base 2, of
 the scores pre-scaled by log2(e)/sqrt(d), the JAX convention) and
@@ -38,6 +42,7 @@ from korean_f5_tts_tpu_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634
 MASK_VALUE = -1e37  # the JAX reference's finite mask logit
+I8_KEY_TILE = 64    # keys per tile of kernel 14: part of its arithmetic (p8 sees the running max)
 
 # kernel launches by the wrappers (not plain calls)
 launches = 0           # kernel A, flash_prefix_folded
@@ -45,6 +50,7 @@ launches_lse = 0       # kernel 10, flash_prefix_folded_lse
 launches_dq_lsein = 0  # kernel 11, flash_prefix_dq_lsein
 launches_dq = 0        # kernel 12, flash_prefix_dq
 launches_dkv = 0       # kernel 13, flash_prefix_dkv
+launches_i8 = 0        # kernel 14, flash_prefix_folded_i8
 launches_rope = 0      # kernel 18, flash_prefix_rope_attention
 launches_qkv = 0       # kernel 19, flash_prefix_qkv_attention
 
@@ -162,6 +168,118 @@ def flash_prefix_qkv_reference(qkv, kv_lens, heads, cos, sin, pe_attn_head=None)
     out = flash_prefix_rope_reference(q, k, v, kv_lens, cos, sin, pe_attn_head)
     B, h, n, d = out.shape
     return out.transpose(1, 2).reshape(B, n, h * d)
+
+
+def _quant_head(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch*head) symmetric int8: [H, n, d] -> (int8 [H, n, d], amax [H]
+    fp32), the JAX _quant_head (flash_prefix.py:901-907): amax floored at
+    1e-8, x * (127 / amax) rounded half to even, clipped to +-127.
+
+    127 / amax divides tensor by tensor: `127.0 / a` is Tensor.__rtruediv__,
+    a reciprocal times 127, which is not the correctly rounded quotient and
+    moves int8 values with it.
+    """
+    a = x.abs().amax(dim=(1, 2)).float().clamp_min(1e-8)
+    scale = torch.full_like(a, 127.0) / a
+    # bf16 * fp32 promotes inside the one multiply: no fp32 copy of x first
+    x8 = (x * scale[:, None, None]).round_().clamp_(-127.0, 127.0)
+    return x8.to(torch.int8), a
+
+
+def _quantize_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: bool):
+    """The quantization pass of int8 attention: q, k, v of one [..., n, d]
+    shape (folded [H, n, d], or [b, h, n, d] views of any strides) ->
+    (q8, k8, v8 or v, c, sv) on folded heads, with
+    c = aq*ak/127^2 * log2(e)/sqrt(d) and sv = av/127^2, multiplied in the
+    order of the JAX wrapper (:933, :936). The tensors to quantize are
+    gathered into one [2H or 3H, n, d] tensor (the one copy that folds the
+    heads), so _quant_head's few launches run once, not per tensor."""
+    n, d = q.shape[-2:]
+    H = q.numel() // (n * d)
+    x8, a = _quant_head(torch.cat((q, k, v) if pv_i8 else (q, k), dim=0).reshape(-1, n, d))
+    q8, k8 = x8[:H], x8[H:2 * H]
+    c = a[:H] * a[H:2 * H] * torch.full_like(a[:H], (1.0 / 127.0 ** 2) * LOG2E / math.sqrt(d))
+    if not pv_i8:
+        return q8, k8, v.reshape(H, n, d).contiguous(), c, torch.zeros_like(c)
+    return q8, k8, x8[2 * H:], c, a[2 * H:] * torch.full_like(c, 1.0 / (127.0 * 127.0))
+
+
+def _v8_kernel_layout(v8: torch.Tensor) -> torch.Tensor:
+    """[H, n, d] int8 -> kernel 14's v operand [H, d, n_pad]: keys contiguous
+    (the B operand of p8.v8), n padded with zeros to a multiple of 64, and
+    inside every group of 32 keys, key 16h + 8j + 2t + e at slot
+    16h + 4t + 2j + e: the order in which a thread's score accumulator holds
+    the keys, so that p8 is packed into the A fragment without a shuffle."""
+    H, n, d = v8.shape
+    n_pad = -(-n // I8_KEY_TILE) * I8_KEY_TILE
+    if n_pad != n:
+        v8 = torch.nn.functional.pad(v8, (0, 0, 0, n_pad - n))
+    g = v8.reshape(H, n_pad // 32, 2, 2, 4, 2, d)  # [H, group, h, j, t, e, d]
+    return g.permute(0, 6, 1, 2, 4, 3, 5).reshape(H, d, n_pad).contiguous()
+
+
+def _v8_natural_layout(vk: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of _v8_kernel_layout: [H, d, n_pad] -> [H, n, d]."""
+    H, d, n_pad = vk.shape
+    g = vk.reshape(H, d, n_pad // 32, 2, 4, 2, 2)  # [H, d, group, h, t, j, e]
+    return g.permute(0, 2, 3, 5, 4, 6, 1).reshape(H, n_pad, d)[:, :n]
+
+
+def _i8_attention_plain(q8, k8, v, c, sv, kv_lens, pv_i8: bool, ck: int) -> torch.Tensor:
+    """Kernel 14's arithmetic on quantized folded heads, key chunk by key
+    chunk of ck. v: int8 [H, n, d] (pv_i8) or the unquantized [H, n, d].
+    Integer products run in fp32 (fp64 where a chunk's sum could pass 2^24),
+    where sums of integers are exact."""
+    H, n, d = q8.shape
+    dev = q8.device
+    lens = kv_lens.to(dev).clamp(max=n)[:, None, None]
+    pv_t = torch.float32 if 127 * 127 * ck < 2 ** 24 else torch.float64
+    q8f = q8.float()
+    m = torch.full((H, n, 1), -math.inf, device=dev)
+    l = torch.zeros((H, n, 1), device=dev)
+    acc = torch.zeros((H, n, d), device=dev)
+    for start in range(0, n, ck):
+        stop = min(start + ck, n)
+        s = torch.matmul(q8f, k8[:, start:stop].float().transpose(1, 2)) * c[:, None, None]
+        col = torch.arange(start, stop, device=dev)[None, None, :]
+        s = s.masked_fill(col >= lens, -math.inf)
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(torch.isinf(m_next), torch.zeros_like(m_next), m_next)
+        p = torch.exp2(s - m_safe)
+        alpha = torch.exp2(m - m_safe)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        m = m_next
+        if pv_i8:
+            p8 = torch.round(p * 127.0)  # p in [0, 1]: no clip
+            pv = torch.matmul(p8.to(pv_t), v[:, start:stop].to(pv_t)).float()
+            acc = acc * alpha + pv * sv[:, None, None]
+        else:
+            # Hopper has no fp32 tensor-core product: p is rounded to bf16 here
+            pb = p.to(torch.bfloat16).float()
+            acc = acc * alpha + torch.matmul(pb, v[:, start:stop].float())
+    inv = torch.where(l == 0.0, torch.ones_like(l), torch.ones_like(l) / l)
+    return acc * inv
+
+
+def flash_prefix_i8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              kv_lens: torch.Tensor, pv_i8: bool = True,
+                              ck: int | None = None) -> torch.Tensor:
+    """Plain version of kernel 14 on q/k/v of one [..., n, d] shape with H
+    heads in all (folded [H, n, d], or [b, h, n, d]) and [H] int kv_lens; the
+    result is folded [H, n, d]. The quantization pass, then the kernel's
+    online softmax repeated chunk by chunk of ck keys (default: the kernel's
+    tile, I8_KEY_TILE).
+
+    The chunk is part of the arithmetic: p8 = rint(127 * exp2(s - m)) sees
+    the running max m when its chunk is visited. With ck = the JAX call's bkv
+    this is the JAX kernel; with ck = 64 it is the CUDA kernel. pv_i8=False:
+    only q.k^T is int8, and p is rounded to bf16 for the product with the
+    unquantized v (the JAX kernel multiplies fp32 p by fp32 v there). A head
+    with kv_lens 0 gives zeros.
+    """
+    q8, k8, vq, c, sv = _quantize_qkv(q, k, v, pv_i8)
+    out = _i8_attention_plain(q8, k8, vq, c, sv, kv_lens, pv_i8, ck or I8_KEY_TILE)
+    return out.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +484,96 @@ def flash_prefix_qkv_attention(qkv, kv_lens, heads: int, cos, sin,
     return out
 
 
+def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
+                           c: torch.Tensor, sv: torch.Tensor, kv_lens: torch.Tensor,
+                           pv_i8: bool = True) -> torch.Tensor:
+    """Kernel 14 wrapper on quantized folded heads. q8, k8: [H, n, 64] int8
+    (k8 as it is: q8.k8^T wants k with d contiguous); v: with pv_i8 the int8
+    [H, 64, n_pad] of _v8_kernel_layout (keys contiguous and slot-permuted),
+    else the unquantized bf16 [H, n, 64]; c, sv: [H] fp32; kv_lens: [H]
+    int32. Returns [H, n, 64] bf16. The JAX counterpart takes k8 transposed
+    instead, a Mosaic workaround.
+
+    CPU tensors take the plain version at the kernel's key tile. CUDA
+    tensors launch the kernel or raise. A head with kv_lens 0 gives zeros
+    (the JAX kernel without prune gives the mean of v there; serving never
+    sends 0).
+    """
+    global launches_i8
+    H, n, d = q8.shape
+    if q8.device.type == "cpu":
+        vn = _v8_natural_layout(v, n) if pv_i8 else v
+        return _i8_attention_plain(q8, k8, vn, c, sv, kv_lens, pv_i8,
+                                   I8_KEY_TILE).to(torch.bfloat16)
+    what = "flash_prefix_i8"
+    if d != 64:
+        raise ValueError(f"{what}: head dim {d} not supported (64)")
+    if k8.shape != q8.shape or q8.dtype != torch.int8 or k8.dtype != torch.int8:
+        raise ValueError(f"{what}: q8 and k8 must be int8 of one [H, n, d] shape, got "
+                         f"{q8.dtype} {tuple(q8.shape)} and {k8.dtype} {tuple(k8.shape)}")
+    if pv_i8:
+        n_pad = -(-n // I8_KEY_TILE) * I8_KEY_TILE
+        if v.shape != (H, d, n_pad) or v.dtype != torch.int8:
+            raise ValueError(f"{what}: v must be int8 [{H}, {d}, {n_pad}] (keys contiguous, "
+                             f"_v8_kernel_layout), got {v.dtype} {tuple(v.shape)}")
+    else:
+        n_pad = n
+        if v.shape != q8.shape or v.dtype != torch.bfloat16:
+            raise TypeError(f"{what}: with pv_i8=False v must be bf16 {tuple(q8.shape)}, got "
+                            f"{v.dtype} {tuple(v.shape)}")
+    if kv_lens.shape != (H,) or kv_lens.dtype != torch.int32:
+        raise ValueError(f"{what}: kv_lens must be int32 [{H}], got "
+                         f"{kv_lens.dtype} {tuple(kv_lens.shape)}")
+    if c.shape != (H,) or sv.shape != (H,):
+        raise ValueError(f"{what}: c and sv must be [{H}], got {tuple(c.shape)}, "
+                         f"{tuple(sv.shape)}")
+    cuda_build.require_cuda(what, q8, k8, v, kv_lens)
+    cuda_build.require_cuda(what, q8, c, sv, dtype=None)
+    if c.dtype != torch.float32 or sv.dtype != torch.float32:
+        raise TypeError(f"{what}: c and sv must be fp32, got {c.dtype}, {sv.dtype}")
+    out = torch.empty((H, n, d), dtype=torch.bfloat16, device=q8.device)
+    err = cuda_build.library().f5_flash_prefix_i8_fwd(
+        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), c.data_ptr(), sv.data_ptr(),
+        kv_lens.data_ptr(), out.data_ptr(), H, n, n_pad, int(pv_i8), q8.device.index,
+        cuda_build.stream_of(q8))
+    cuda_build.check(err, "flash_prefix_i8_fwd")
+    launches_i8 += 1
+    return out
+
+
+def flash_prefix_attention_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              kv_lens: torch.Tensor, pv_i8: bool = True,
+                              kernels: bool = True) -> torch.Tensor:
+    """[b, h, n, d] prefix attention with int8 q.k^T (and, with pv_i8, p.v)
+    products: kernel 14 (JAX flash_prefix_attention_i8, :910-945).
+
+    Inference only: per-head dynamic symmetric quantization of q, k (and v)
+    in plain torch ops, then the kernel. Accuracy is bounded by the 127-level
+    per-head quantization (about 1e-2 relative on the attention output):
+    measure the end-to-end mel deviation before enabling it, by the protocol
+    of scripts/int8_quality.py. kv_lens: [b] or [1] int.
+
+    CPU tensors and kernels=False take the plain version at the kernel's key
+    tile (I8_KEY_TILE). CUDA tensors launch the kernel or raise:
+    bf16 operands, d = 64, any n (the ragged last tile is masked); nothing
+    falls back to kernel A. Raises on an input that requires a gradient.
+    """
+    cuda_build.require_no_grad("flash_prefix_attention_i8", q, k, v)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("flash_prefix_attention_i8: q/k/v must share one [b, h, n, d] shape, "
+                         f"got {[tuple(t.shape) for t in (q, k, v)]}")
+    lens_h = _fold_lens(kv_lens, q.shape[0], q.shape[1], q.device)
+    if not kernels or q.device.type == "cpu":
+        return flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=pv_i8).reshape(q.shape)
+    if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
+        raise TypeError("flash_prefix_attention_i8: the kernel takes bf16 operands with head "
+                        f"dim 64, got {q.dtype} with head dim {q.shape[-1]}")
+    q8, k8, vq, c, sv = _quantize_qkv(q, k, v, pv_i8)
+    if pv_i8:
+        vq = _v8_kernel_layout(vq)
+    return flash_prefix_folded_i8(q8, k8, vq, c, sv, lens_h, pv_i8=pv_i8).reshape(q.shape)
+
+
 # ---------------------------------------------------------------------------
 # backward and autograd
 # ---------------------------------------------------------------------------
@@ -384,13 +592,19 @@ def _folded_bwd(q, k, v, kv_lens, g, o, lse):
     return dq, dk, dv
 
 
-def _fold(q, k, v, kv_lens):
-    b, h, n, d = q.shape
-    lens = kv_lens.to(device=q.device, dtype=torch.int32)
+def _fold_lens(kv_lens: torch.Tensor, b: int, h: int, device) -> torch.Tensor:
+    """[b] or [1] valid lengths -> int32 [b * h], one per folded head."""
+    lens = kv_lens.to(device=device, dtype=torch.int32)
     if lens.shape[0] == 1 and b > 1:
         lens = lens.expand(b)
+    return lens.repeat_interleave(h)
+
+
+def _fold(q, k, v, kv_lens):
+    b, h, n, d = q.shape
     fold = (b * h, n, d)
-    return [t.reshape(fold).contiguous() for t in (q, k, v)], lens.repeat_interleave(h)
+    return ([t.reshape(fold).contiguous() for t in (q, k, v)],
+            _fold_lens(kv_lens, b, h, q.device))
 
 
 def flash_prefix_attention_bwd(q, k, v, kv_lens, g, o=None, lse=None):

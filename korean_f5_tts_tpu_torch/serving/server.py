@@ -9,13 +9,19 @@ Protocol: POST /tts JSON {reference_audio: b64 wav, reference_text,
 target_text, nfe_step?, cfg_strength?, sway_sampling_coef?, seed?} ->
 audio/wav; GET /health -> {"status": "ok"}; GET /stats -> counters.
 
-Ported here: the fused serving path (_synthesize_fast). The non-fused paths
-(_synthesize, _synthesize_batch), warm_start, gRPC and the server's own
-command line wait for later slices.
+A vocoder that exposes .params and .vcfg (models.vocos.Vocos) takes the fused
+path (_synthesize_fast: sampler, Vocos and int16 in one call); any other
+callable, or None, takes the two-call paths (_synthesize_batch for a batch,
+_synthesize through infer_batch_process for one request). warm_start runs
+every (bucket, batch) shape once before traffic: on a GPU that builds the
+kernels, fills cuBLAS and allocator state and warms the mel front-end; there
+is no compile to wait for. main is the command line: python -m
+korean_f5_tts_tpu_torch.serving.server, on the card unless --device cpu.
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import hashlib
 import io
@@ -27,8 +33,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from korean_f5_tts_tpu_torch.models.cfm import serve_sample
-from korean_f5_tts_tpu_torch.ops.attention import check_attn_path
+from korean_f5_tts_tpu_torch.infer.utils_infer import infer_batch_process, vocoder_input
+from korean_f5_tts_tpu_torch.models.cfm import cfm_sample, serve_sample
+from korean_f5_tts_tpu_torch.ops.attention import ATTN_PATHS, check_attn_int8, check_attn_path
 from korean_f5_tts_tpu_torch.serving.native import NativeBatcher, f32_to_i16
 from korean_f5_tts_tpu_torch.text.vocab import list_str_to_idx, tokenize_text
 from korean_f5_tts_tpu_torch.utils import audio as au
@@ -68,31 +75,42 @@ def _param_signature(payload: dict, nfe_default: int) -> tuple:
             payload.get("seed"))
 
 
+def _fused_of(vocoder) -> tuple | None:
+    """(params, config) of a vocoder that exposes them, for the fused
+    sampler + vocoder call; None for a plain callable or no vocoder."""
+    if vocoder is not None and hasattr(vocoder, "params") and hasattr(vocoder, "vcfg"):
+        return vocoder.params, vocoder.vcfg
+    return None
+
+
 class TTSService:
     """Model + vocoder + batch worker.
 
-    vocoder: an object with .params and .vcfg (models.vocos.Vocos); its
-    decode runs inside the sampling call. attn_path picks the attention
-    half's kernels (ops/attention.py:ATTN_PATHS). native_batcher=True queues
-    requests in the C++ batcher (built at first use, or raises); False in
-    the Python batcher of the same semantics.
+    vocoder: an object with .params and .vcfg (models.vocos.Vocos), whose
+    decode then runs inside the sampling call (vocoder_fused); or any
+    callable mel [b, d, n] tensor -> waveform tensor (fp32 on the model's
+    device in, see infer/utils_infer.py:vocoder_input), decoded in a second
+    call; or None (silence of the right length). attn_path picks the
+    attention half's kernels (ops/attention.py:ATTN_PATHS), attn_int8 the
+    int8 attention kernel in kernel A's place (ATTN_INT8). native_batcher=True
+    queues requests in the C++ batcher (built at first use, or raises); False
+    in the Python batcher of the same semantics.
     """
 
     def __init__(self, model_obj, vocoder, max_batch: int = 8, max_wait_us: int = 5_000,
                  nfe_step: int = 16, max_duration: int = 4096, max_queue: int = 64,
                  strict_max_duration: bool = False, attn_path: str = "default",
-                 native_batcher: bool = True):
-        if vocoder is None or not hasattr(vocoder, "params") or not hasattr(vocoder, "vcfg"):
-            raise ValueError("TTSService needs a vocoder with .params and .vcfg (models.vocos.Vocos)")
+                 native_batcher: bool = True, attn_int8: str | None = None):
         self.model = model_obj
         self.vocoder = vocoder
-        self.vocoder_fused = (vocoder.params, vocoder.vcfg)
+        self.vocoder_fused = _fused_of(vocoder)
         self.nfe_step = nfe_step
         self.max_duration = max_duration
         self.max_queue = max_queue
         self.strict_max_duration = strict_max_duration
         self.accepting = True
         self.attn_path = check_attn_path(attn_path)
+        self.attn_int8 = check_attn_int8(attn_int8, attn_path)
         self.batcher = NativeBatcher(max_batch=max_batch, max_wait_us=max_wait_us,
                                      native=native_batcher)
         # device-resident reference-mel cache, keyed by content hash (LRU)
@@ -164,7 +182,7 @@ class TTSService:
 
     def _run(self):
         while self.running:
-            _, ids = self.batcher.next_batch(timeout_us=200_000)
+            bucket, ids = self.batcher.next_batch(timeout_us=200_000)
             if not ids:
                 continue
             with self.lock:
@@ -178,7 +196,12 @@ class TTSService:
                 for it in items:
                     groups.setdefault(_param_signature(it.payload, self.nfe_step), []).append(it)
                 for group in groups.values():
-                    self._synthesize_fast(group)
+                    if self.vocoder_fused is not None:
+                        self._synthesize_fast(group)  # single requests and batches
+                    elif len(group) > 1:
+                        self._synthesize_batch(group, bucket)
+                    else:
+                        group[0].result = self._synthesize(group[0].payload)
             except Exception as e:  # a batch-level failure is reported to all its requests
                 for item in items:
                     if item.result is None and item.error is None:
@@ -250,7 +273,8 @@ class TTSService:
             cfg_strength=float(p0.get("cfg_strength", 2.0)),
             sway_sampling_coef=float(p0.get("sway_sampling_coef", -1.0)),
             seed=p0.get("seed"), wav_scale=np.asarray(scales, np.float32),
-            max_duration=self.max_duration, attn_path=self.attn_path)
+            max_duration=self.max_duration, attn_path=self.attn_path,
+            attn_int8=self.attn_int8)
         wav_np = wav_i16.cpu().numpy()
         for i, it in enumerate(items):
             w = wav_np[i, int(lens[i]) * HOP_LENGTH: int(durs[i]) * HOP_LENGTH]
@@ -258,6 +282,94 @@ class TTSService:
                 w = np.zeros(HOP_LENGTH, np.int16)
             it.result = (w, TARGET_SAMPLE_RATE)
             self.stats["requests"] += 1
+
+    def _synthesize_batch(self, items: list[_Pending], bucket: int) -> None:
+        """Batched synthesis with a callable vocoder (_run sends a fused one to
+        _synthesize_fast): one cfm_sample over the whole batch with per-item
+        lens and durations, then one vocoder call on the generated mels padded
+        to a 256-frame multiple. Single-chunk texts only."""
+        mels, texts, durations, rms_vals = [], [], [], []
+        for it in items:
+            p = it.payload
+            wav = au.to_mono(np.asarray(p["ref_wav"], np.float32))
+            r = au.rms(wav)
+            rms_vals.append(r)
+            if 0 < r < TARGET_RMS:
+                wav = wav * (TARGET_RMS / r)
+            if p["sr"] != TARGET_SAMPLE_RATE:
+                wav = au.resample(wav, p["sr"], TARGET_SAMPLE_RATE)
+            wav = wav[: 12 * TARGET_SAMPLE_RATE]  # the reference preprocessing's clip
+            mel = self.model.mel_of_wav(wav)
+            mels.append(mel)
+            ref_text = p["ref_text"]
+            if ref_text and len(ref_text[-1].encode()) == 1:
+                ref_text += " "
+            texts.append(ref_text + p["target_text"])
+            ref_len = mel.shape[0]
+            ratio = len(p["target_text"].encode()) / max(len(ref_text.encode()), 1)
+            durations.append(ref_len + int(ref_len * ratio))
+
+        d = self.model.mel.n_mel_channels
+        cond = np.zeros((len(items), max(m.shape[0] for m in mels), d), np.float32)
+        for i, m in enumerate(mels):
+            cond[i, : m.shape[0]] = m
+        lens = np.array([m.shape[0] for m in mels])
+        token_lists = tokenize_text(
+            texts, tokenizer_type=self.model.tokenizer_type, vocab=self.model.vocab_char_map,
+            use_n2gk_plus=self.model.use_n2gk_plus, use_skip_tc=self.model.use_skip_tc)
+        text_ids = list_str_to_idx(token_lists, self.model.vocab_char_map or {" ": 0})
+        # cfm_sample's own duration floor and clamp, mirrored so that the
+        # slices below agree with what was generated
+        text_lens = np.asarray((np.asarray(text_ids) != -1).sum(axis=-1))
+        durations = np.maximum(np.maximum(text_lens, lens) + 1, np.asarray(durations))
+        durations = np.clip(durations, None, self.max_duration)
+        p0 = items[0].payload  # the batch key guarantees uniform sampling parameters
+        out, _ = cfm_sample(
+            self.model.params, self.model.arch, cond, text_ids, np.array(durations), lens=lens,
+            steps=int(p0.get("nfe_step", self.nfe_step)),
+            cfg_strength=float(p0.get("cfg_strength", 2.0)),
+            sway_sampling_coef=float(p0.get("sway_sampling_coef", -1.0)),
+            seed=p0.get("seed"), max_duration=self.max_duration,
+            attn_path=self.attn_path, attn_int8=self.attn_int8)
+        out = out.float().cpu().numpy()
+        gen_lens = np.array([durations[i] - lens[i] for i in range(len(items))])
+        wavs: list[np.ndarray | None] = [None] * len(items)
+        if self.vocoder is not None and gen_lens.max(initial=0) > 1:
+            # a second call: every item's generated mel padded to one 256-frame
+            # multiple; pad frames replicate the final frame (zeros are loud in
+            # log-mel space and would bleed into the sliced tail)
+            voc_len = max(256, int(-(-int(gen_lens.max()) // 256)) * 256)
+            genb = np.zeros((len(items), out.shape[-1], voc_len), np.float32)
+            for i in range(len(items)):
+                if gen_lens[i] > 0:
+                    g = out[i, lens[i]: durations[i], :].T
+                    genb[i, :, : gen_lens[i]] = g
+                    genb[i, :, gen_lens[i]:] = g[:, -1:]
+            wavb = self.vocoder(vocoder_input(self.vocoder, genb, self.model.device))
+            wavb = wavb.float().cpu().numpy().reshape(len(items), -1)
+            for i in range(len(items)):
+                wavs[i] = wavb[i, : int(gen_lens[i]) * HOP_LENGTH]
+        for i, it in enumerate(items):
+            wav = wavs[i]
+            if wav is None or wav.size == 0:
+                wav = np.zeros(max(int(gen_lens[i]), 1) * HOP_LENGTH, np.float32)
+            if 0 < rms_vals[i] < TARGET_RMS:
+                wav = wav * (rms_vals[i] / TARGET_RMS)
+            it.result = (wav, TARGET_SAMPLE_RATE)
+            self.stats["requests"] += 1
+
+    def _synthesize(self, p: dict) -> tuple[np.ndarray, int]:
+        """One request through infer_batch_process (the offline path's
+        per-chunk synthesis) with the service's vocoder."""
+        gen = next(infer_batch_process(
+            (p["ref_wav"], p["sr"]), p["ref_text"], [p["target_text"]], self.model,
+            self.vocoder,
+            nfe_step=int(p.get("nfe_step", self.nfe_step)),
+            cfg_strength=float(p.get("cfg_strength", 2.0)),
+            sway_sampling_coef=float(p.get("sway_sampling_coef", -1.0)),
+            seed=p.get("seed"), attn_path=self.attn_path, attn_int8=self.attn_int8))
+        self.stats["requests"] += 1
+        return gen[0], TARGET_SAMPLE_RATE
 
 
 def _wav_bytes(wav: np.ndarray, sr: int, native: bool = True) -> bytes:
@@ -352,16 +464,177 @@ def make_handler(service: TTSService):
     return Handler
 
 
+def warm_start(model_obj, vocoder, buckets: list[int] = (512, 1024, 1536),
+               nfe_step: int = 16, batch_sizes: tuple = (1,), text_tokens: int = 16,
+               attn_path: str = "default", attn_int8: str | None = None) -> None:
+    """Run the sampler and the vocoder once per serving (duration bucket,
+    batch size) before traffic, through the same calls the service makes.
+
+    Nothing compiles per shape here: the first call builds and loads the
+    kernels, and each shape's run fills cuBLAS's workspaces and the
+    allocator's pools and warms the mel front-end's buckets, so the first
+    real request pays none of it. batch_sizes: the batcher forms batches of
+    1..max_batch; text_tokens: the request token count to warm with.
+    """
+    fused = _fused_of(vocoder)
+    d = model_obj.mel.n_mel_channels
+    dev = model_obj.device
+
+    def fence(t: torch.Tensor) -> None:
+        float(t.float().abs().sum())  # a readback: the work has finished
+
+    if fused is not None:
+        hop = model_obj.mel.hop_length
+        for f_b in model_obj.REF_FRAME_BUCKETS:
+            mel_dev, _ = model_obj.mel_of_wav_device(np.zeros((f_b - 1) * hop, np.float32))
+        fence(mel_dev)
+        print(f"warmed mel front-end buckets {model_obj.REF_FRAME_BUCKETS}")
+        bc = model_obj.REF_FRAME_BUCKETS[-1]
+        for n in buckets:
+            for b in batch_sizes:
+                cond = torch.zeros((b, bc, d), dtype=torch.float32, device=dev)
+                text = np.zeros((b, max(1, text_tokens)), np.int32)
+                lens = np.full((b,), min(256, n // 2), np.int64)
+                dur = np.full((b,), max(n - 64, int(lens[0]) + 2, text_tokens + 2), np.int64)
+                wav, _ = serve_sample(
+                    model_obj.params, model_obj.arch, cond, text, dur, lens,
+                    vocoder_fused=fused, steps=nfe_step, cfg_strength=2.0,
+                    sway_sampling_coef=-1.0, seed=0, duration_bucket=n, attn_path=attn_path,
+                    attn_int8=attn_int8)
+                fence(wav)
+                print(f"warmed serve bucket {n} batch {b}")
+        return
+    for n in buckets:
+        for b in batch_sizes:
+            cond = np.zeros((b, min(256, n // 2), d), np.float32)
+            text = np.zeros((b, max(1, text_tokens)), np.int32)
+            lens = np.full((b,), cond.shape[1], np.int64)
+            # a duration below the bucket, as real requests have: that is what
+            # makes the bucket-tail pad mask
+            dur = max(n - 64, cond.shape[1] + 2, text_tokens + 2)
+            out, _ = cfm_sample(
+                model_obj.params, model_obj.arch, cond, text,
+                duration=np.full((b,), dur, np.int64), lens=lens, steps=nfe_step,
+                cfg_strength=2.0, sway_sampling_coef=-1.0, seed=0, duration_bucket=n,
+                attn_path=attn_path, attn_int8=attn_int8)
+            if vocoder is not None:
+                mel = out.float().cpu().numpy().swapaxes(1, 2)
+                fence(vocoder(vocoder_input(vocoder, mel, dev)))
+            else:
+                fence(out)
+            print(f"warmed bucket {n} batch {b}")
+    if vocoder is not None:
+        # the batch path decodes generated mels at 256-frame multiples
+        for vn in range(256, max(buckets) + 1, 256):
+            fence(vocoder(vocoder_input(vocoder, np.zeros((1, d, vn), np.float32), dev)))
+        print(f"warmed vocoder lengths 256..{max(buckets)}")
+
+
 def serve(model_obj, vocoder, host: str = "0.0.0.0", port: int = 8000, max_batch: int = 8,
           max_wait_us: int = 5_000, nfe_step: int = 16, max_queue: int = 64,
           strict_max_duration: bool = False, attn_path: str = "default",
-          native_batcher: bool = True):
+          native_batcher: bool = True, attn_int8: str | None = None):
     """Build the service and its HTTP server; the caller runs
     httpd.serve_forever() (in a thread or the main loop) and shuts both down."""
     service = TTSService(model_obj, vocoder, max_batch=max_batch, max_wait_us=max_wait_us,
                          nfe_step=nfe_step, max_queue=max_queue,
                          strict_max_duration=strict_max_duration, attn_path=attn_path,
-                         native_batcher=native_batcher)
+                         native_batcher=native_batcher, attn_int8=attn_int8)
     httpd = ThreadingHTTPServer((host, port), make_handler(service))
     print(f"serving on {host}:{port} (native batcher: {service.batcher.is_native})")
     return httpd, service
+
+
+def add_model_arguments(parser: argparse.ArgumentParser) -> None:
+    """The model, device and kernel-path arguments the serving entry points
+    share (HTTP, gRPC, benchmark, socket server)."""
+    parser.add_argument("--model", default="F5TTS_v1_Base")
+    parser.add_argument("--model_cfg", default=None)
+    parser.add_argument("--ckpt_file", default=None)
+    parser.add_argument("--vocab_file", default=None)
+    parser.add_argument("--tokenizer", default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default; raises without a card) or cpu")
+    parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
+                        help="cast the weights to this dtype (the kernels take bfloat16; "
+                             "default: bfloat16 on cuda, float32 on cpu)")
+    parser.add_argument("--quantize", action="store_true",
+                        help="int8 block linears (load_model(..., quantize=True))")
+    parser.add_argument("--attn_path", default="default", choices=list(ATTN_PATHS),
+                        help="kernels of the attention half (ops/attention.py)")
+    parser.add_argument("--attn_int8", default=None, choices=["qk", "qkpv"],
+                        help="int8 attention (kernel 14) in kernel A's place")
+
+
+def load_from_arguments(args):
+    """(model, vocoder) for add_model_arguments' arguments, on args.device
+    (utils/misc.py:require_device: a missing card raises)."""
+    from korean_f5_tts_tpu_torch.api import load_vocoder
+    from korean_f5_tts_tpu_torch.config import load_model_config, preset_model_config
+    from korean_f5_tts_tpu_torch.infer.model import load_model
+    from korean_f5_tts_tpu_torch.utils.misc import require_device
+
+    device = require_device(args.device)
+    check_attn_int8(args.attn_int8, args.attn_path)
+    name = args.compute_dtype or ("bfloat16" if device.type == "cuda" else "float32")
+    dtype = getattr(torch, name)
+    model_cfg = (load_model_config(args.model_cfg) if args.model_cfg
+                 else preset_model_config(args.model))
+    model_obj = load_model(model_cfg, ckpt_path=args.ckpt_file, vocab_file=args.vocab_file,
+                           tokenizer=args.tokenizer, dtype=dtype, device=device,
+                           quantize=args.quantize)
+    return model_obj, load_vocoder("vocos", device=device, dtype=dtype)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="f5-tts_server")
+    add_model_arguments(parser)
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--max_batch", type=int, default=8)
+    parser.add_argument("--max_wait_us", type=int, default=5000)
+    parser.add_argument("--nfe_step", type=int, default=16)
+    parser.add_argument("--warm_buckets", type=int, nargs="*", default=[1024],
+                        help="run these duration buckets once before serving")
+    parser.add_argument("--warm_batch_sizes", type=int, nargs="*", default=[1],
+                        help="run these batch sizes per bucket before serving")
+    parser.add_argument("--warm_text_tokens", type=int, default=16,
+                        help="token count of the warm-up requests")
+    parser.add_argument("--max_queue", type=int, default=64,
+                        help="in-flight request cap; beyond it /tts returns 429")
+    parser.add_argument("--strict_max_duration", action="store_true",
+                        help="reject (400) requests whose duration estimate exceeds "
+                             "max_duration instead of clamping")
+    return parser
+
+
+def main(argv=None):
+    import signal
+
+    args = build_parser().parse_args(argv)
+    model_obj, vocoder = load_from_arguments(args)
+    if args.warm_buckets:
+        warm_start(model_obj, vocoder, args.warm_buckets, args.nfe_step,
+                   batch_sizes=tuple(args.warm_batch_sizes), text_tokens=args.warm_text_tokens,
+                   attn_path=args.attn_path, attn_int8=args.attn_int8)
+    httpd, service = serve(model_obj, vocoder, port=args.port,
+                           max_batch=args.max_batch, max_wait_us=args.max_wait_us,
+                           nfe_step=args.nfe_step, max_queue=args.max_queue,
+                           strict_max_duration=args.strict_max_duration,
+                           attn_path=args.attn_path, attn_int8=args.attn_int8)
+
+    # SIGTERM/SIGINT: stop accepting, drain in-flight requests, then exit
+    def _graceful(signum, frame):
+        print(f"signal {signum}: draining in-flight requests ...")
+        threading.Thread(target=httpd.shutdown, daemon=True).start()
+        service.shutdown(drain=True, timeout=60.0)
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+    httpd.serve_forever()
+    httpd.server_close()
+    service.shutdown(drain=True, timeout=60.0)
+    print("server stopped")
+
+
+if __name__ == "__main__":
+    main()

@@ -383,3 +383,79 @@ def test_probe_hopper_idioms(dev):
 
     errs = probe_hopper.run(dev)
     assert set(errs) == {"slice_mma", "pair_store", "half_swap"}
+
+
+# --- kernel 14: int8 prefix attention --------------------------------------------
+
+
+@pytest.mark.parametrize("pv_i8", [True, False])
+@pytest.mark.parametrize("n,lens", [(200, [1, 64, 65, 200]), (256, [256, 131, 64, 2])])
+def test_int8_attention_kernel(dev, n, lens, pv_i8):
+    """Against the plain version at the kernel's key tile: the integer
+    products are exact, so only p8 ties and the last bf16 rounding differ."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, k, v = (_bf16((4, 1, n, 64), dev, gen, s) for s in (1.5, 1.2, 0.8))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = flash_prefix.launches_i8
+    got = flash_prefix.flash_prefix_attention_i8(q, k, v, kv, pv_i8=pv_i8)
+    assert flash_prefix.launches_i8 == before + 1
+    want = flash_prefix.flash_prefix_attention_i8(q, k, v, kv, pv_i8=pv_i8, kernels=False)
+    assert flash_prefix.launches_i8 == before + 1  # the plain version launches nothing
+    _close(got, want)
+    rel = (got.float() - want.float()).norm() / want.float().norm()
+    assert rel.item() < (2e-3 if pv_i8 else 5e-3)
+
+
+@pytest.mark.parametrize("pv_i8", [True, False])
+def test_int8_attention_quantization_error(dev, pv_i8):
+    """The quantization error itself, kernel 14 against kernel A on the same
+    inputs, at the inputs and absolute bounds of the JAX package's test of its
+    kernel: unit-normal q, k, v, heads of 150 and 256 keys, max 0.03, mean
+    0.005 over the valid rows. (The inputs of the test above are scaled to 1.5
+    and 1.2 and include heads of one and two keys; scores that sharp average
+    little of the error away, there a 256-key head reads 0.039, so the bound
+    is held here, where it was stated.)"""
+    gen = torch.Generator(device=dev).manual_seed(110)
+    q, k, v = (_bf16((2, 2, 256, 64), dev, gen) for _ in range(3))
+    lens = [150, 256]
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = flash_prefix.flash_prefix_attention_i8(q, k, v, kv, pv_i8=pv_i8).float()
+    via_a = flash_prefix.flash_prefix_attention(q, k, v, kv).float()
+    for i, n_keys in enumerate(lens):
+        err = (got[i, :, :n_keys] - via_a[i, :, :n_keys]).abs()
+        assert err.max().item() < 0.03, (pv_i8, n_keys, err.max().item())
+        assert err.mean().item() < 0.005, (pv_i8, n_keys, err.mean().item())
+
+
+def test_quant_head_on_the_card_matches_the_cpu(dev):
+    """127 / amax is a tensor-by-tensor division: `127.0 / a` would be a
+    reciprocal multiply on the card and move int8 values by one."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn((32, 512, 64), generator=gen, device=dev)
+         * torch.rand((32, 1, 1), generator=gen, device=dev) * 20).to(torch.bfloat16)
+    x8, a = flash_prefix._quant_head(x)
+    c8, ca = flash_prefix._quant_head(x.cpu())
+    assert torch.equal(a.cpu(), ca) and torch.equal(x8.cpu(), c8)
+    q8, k8, v8, c, sv = flash_prefix._quantize_qkv(x, x, x, True)
+    _, _, _, cc, csv = flash_prefix._quantize_qkv(x.cpu(), x.cpu(), x.cpu(), True)
+    assert torch.equal(c.cpu(), cc) and torch.equal(sv.cpu(), csv)
+
+
+def test_int8_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q = _bf16((1, 2, 64, 64), dev, gen)
+    lens = torch.tensor([64], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_prefix.flash_prefix_attention_i8(q.float(), q.float(), q.float(), lens)
+    q128 = _bf16((1, 2, 64, 128), dev, gen)
+    with pytest.raises(TypeError, match="head dim 64"):
+        flash_prefix.flash_prefix_attention_i8(q128, q128, q128, lens)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        flash_prefix.flash_prefix_attention_i8(q.clone().requires_grad_(True), q, q, lens)
+    q2 = _bf16((2, 128, 64), dev, gen)
+    q8, k8, v8, c, sv = flash_prefix._quantize_qkv(q2, q2, q2, True)
+    kv = torch.tensor([128, 128], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="keys contiguous"):  # v8 not in the kernel's layout
+        flash_prefix.flash_prefix_folded_i8(q8, k8, v8, c, sv, kv)
+    zeros = flash_prefix.flash_prefix_attention_i8(q, q, q, torch.zeros_like(lens))
+    assert zeros.abs().max().item() == 0  # no valid key: zeros, as kernels A, 18, 19

@@ -88,3 +88,38 @@ def test_the_check_sees_an_import_of_a_jax_free_module():
     assert IMPORTS_JAX_PACKAGE.match("from korean_f5_tts_tpu.text.vocab import x")
     assert IMPORTS_JAX_PACKAGE.match("    import korean_f5_tts_tpu")
     assert not IMPORTS_JAX_PACKAGE.match("from korean_f5_tts_tpu_torch.text.vocab import x")
+
+
+SERVING_AND_INFERENCE_MODULES = (
+    "serving.proto", "serving.client", "serving.grpc_server", "serving.benchmark",
+    "socket_server", "infer.speech_edit", "infer.batch_infer", "scripts.int8_quality",
+)
+ENTRY_POINTS = ("serving.server", "serving.grpc_server", "serving.benchmark", "socket_server",
+                "infer.speech_edit", "infer.batch_infer", "scripts.int8_quality")
+
+
+def test_the_walk_covers_the_serving_and_inference_modules():
+    """test_port_imports_without_jax imports whatever pkgutil finds: the
+    modules of the serving and inference entry points are among them, and
+    grpc is imported by none of them at import time."""
+    found = {m.name for m in pkgutil.walk_packages(korean_f5_tts_tpu_torch.__path__,
+                                                   "korean_f5_tts_tpu_torch.")}
+    for name in SERVING_AND_INFERENCE_MODULES:
+        assert f"korean_f5_tts_tpu_torch.{name}" in found, name
+    code = GUARD.replace("import korean_f5_tts_tpu_torch as pkg",
+                         'sys.modules["grpc"] = None\nimport korean_f5_tts_tpu_torch as pkg')
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_every_entry_point_takes_a_device_that_defaults_to_the_card():
+    """Each command line has --device with default "cuda" and goes through
+    utils/misc.py:require_device (directly or through
+    serving/server.py:load_from_arguments), so it raises without a card."""
+    for name in ENTRY_POINTS:
+        text = (ROOT / "korean_f5_tts_tpu_torch" / (name.replace(".", "/") + ".py")).read_text()
+        assert "add_model_arguments(" in text or '"--device", default="cuda"' in text, name
+        assert "load_from_arguments(" in text or "require_device(" in text, name
+    server = (ROOT / "korean_f5_tts_tpu_torch/serving/server.py").read_text()
+    assert '"--device", default="cuda"' in server and "require_device(args.device)" in server

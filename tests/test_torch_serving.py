@@ -114,8 +114,22 @@ def test_http_roundtrip(tiny_model):
 
 
 def test_service_requires_a_fused_vocoder(tiny_model):
-    with pytest.raises(ValueError):
-        TTSService(tiny_model[0], None)
+    """Only a vocoder that exposes .params and .vcfg takes the fused path; a
+    plain callable or None is accepted and served by the two-call paths
+    (tests/test_torch_serving_paths.py), and the latency benchmark, which
+    times the fused call, refuses them."""
+    from korean_f5_tts_tpu_torch.serving.benchmark import run_latency_benchmark
+
+    model, vocoder = tiny_model
+    for voc, fused in ((vocoder, True), (lambda mel: vocoder(mel), False), (None, False)):
+        service = TTSService(model, voc, native_batcher=False)
+        try:
+            assert (service.vocoder_fused is not None) == fused
+        finally:
+            service.shutdown(drain=False, timeout=5.0)
+            service.batcher.close()
+    with pytest.raises(ValueError, match="params"):
+        run_latency_benchmark(model, None, n_items=1)
 
 
 def test_service_serves_an_int8_model_in_bf16(tiny_model, monkeypatch):
