@@ -6,8 +6,14 @@
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the Hopper kernels from
      korean_f5_tts_tpu_torch/csrc and print the build time;
-  2. hold each of the sixteen kernels (bf16: A, B, C; int8: 9, 5, 6, 4;
+  2. hold each of the sixteen kernels and the fp32 forms of A, B, C (what
+     the offline entry points run by default; bound: 67 TFLOP/s, fp32
+     outside the tensor cores, since their products are FFMA) (bf16: A, B,
+     C; int8: 9, 5, 6, 4;
      training: 10, 11, 12, 13; the opt-in attention paths: 7, 8, 18, 19;
+     B, 7 and 8 on the TMA + wgmma core with their achieved TFLOP/s and
+     share of the bound, 7 held to be no slower than the library composition
+     it replaces;
      int8 attention: 14, in both modes, with its quantization pass timed on
      its own and its error against kernel A on the same inputs)
      against its plain PyTorch version at the main-path shapes, plus ragged,
@@ -19,7 +25,8 @@ Phases (any failure raises and exits non-zero):
      of the port uses); kernels 7, 8, 18, 19 also beside the calls of the
      default path that they replace, 18 and 19 also against kernel A on
      torch-roped inputs; the training attention's autograd Function against
-     autograd of the plain attention; scripts/probe_hopper.py;
+     autograd of the plain attention; scripts/probe_hopper.py (the rope
+     idioms and the TMA, mbarrier and wgmma idioms of the product core);
   3. build F5TTS_v1_Base + Vocos with seeded random weights (AdaLN-zero
      layers re-drawn), in bf16 and again with int8 weights
      (load_model(..., quantize=True)); for each mode serve three HTTP /tts
@@ -32,6 +39,7 @@ Phases (any failure raises and exits non-zero):
   5. for each mode time the port's RTF at that protocol (1 warm-up, 10
      timed runs);
   6. train F5TTS_v1_Base (full width, depth 22, fp32 masters, bf16 compute,
+     conv-pos convolving in bf16 under autograd,
      activation checkpointing, AdaLN-zero layers re-drawn): one step's loss
      and whole gradient with kernels against the plain versions, with the
      exact launch counts of a step; the attention backward's own entry point
@@ -41,7 +49,8 @@ Phases (any failure raises and exits non-zero):
      over all 4), at full width and a depth of 4 blocks (at depth 22 the
      5 GiB checkpoint, written twice and read once, took 98 of the script's
      262 s on an H100); then bench_train's protocol at batch 8 x 1280 (1 warm-up + 8
-     steps) with kernels and plain, at depth 22;
+     steps) with kernels and plain, at depth 22; one step's device busy
+     time under the profiler;
   7. bf16, for each opt-in attention path (attn_path "linear_fused":
      kernels 7, A, 8; "rope_in_kernel": kernel 18; "qkv_kernel": kernel 19):
      serve one HTTP request alone and two as a batch with exact launch
@@ -52,7 +61,12 @@ Phases (any failure raises and exits non-zero):
      on a chirp reference and a text of three or more unequal chunks, under
      "default" and "qkv_kernel" and once without CFG (cfg_strength 0), with
      the wav's length, finiteness, loudness and the exact launch counts
-     checked; then cfm_sample on a batch of 3 whose durations fall into two
+     checked; F5TTS(device="cuda") with its own defaults (fp32 weights): the
+     fp32 forms of A, B, C with exact launch counts and the bf16 counters
+     unmoved, its mel against the same path's plain versions, against the
+     bf16 path, with cuDNN's TF32 convolutions on (PyTorch's default) and
+     off, and against an fp32 run on the CPU at depth 2; then cfm_sample on a
+     batch of 3 whose durations fall into two
      buckets, under "rope_in_kernel" and "qkv_kernel": two groups run, the
      group of 2 under a duration mask, each item equals the same item
      sampled alone, and the counts are exact;
@@ -111,6 +125,9 @@ REPLACES = {
     "flash_prefix_rope": "korean_f5_tts_tpu/ops/flash_prefix.py:1424",
     "flash_prefix_qkv": "korean_f5_tts_tpu/ops/flash_prefix.py:1550",
     "flash_prefix_i8": "korean_f5_tts_tpu/ops/flash_prefix.py:889",
+    "flash_prefix_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:558",
+    "ff_block_f32": "korean_f5_tts_tpu/ops/ff_block.py:40",
+    "grouped_conv_f32": "korean_f5_tts_tpu/ops/grouped_conv.py:69",
 }
 SOURCES = {
     "flash_prefix": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
@@ -127,9 +144,14 @@ SOURCES = {
     **dict.fromkeys(("flash_prefix_rope", "flash_prefix_qkv"),
                     "korean_f5_tts_tpu_torch/csrc/flash_prefix_rope.cu"),
     "flash_prefix_i8": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8.cu",
+    "flash_prefix_f32": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
+    "ff_block_f32": "korean_f5_tts_tpu_torch/csrc/ff_block.cu",
+    "grouped_conv_f32": "korean_f5_tts_tpu_torch/csrc/grouped_conv.cu",
 }
 # published peaks of the H100 SXM (dense): the roofline a kernel's time is held against
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# ("fp32": outside the tensor cores; the fp32 forms of A, B, C multiply with FFMA)
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+F32_REL = 1e-4  # fp32 forms against their plain versions: fp32 sums in another order
 PEAK_BYTES = 3.35e12
 # int8 kernels against their plain versions: both quantize the same values
 # and sum the integer products exactly, but where the quantized value is
@@ -152,14 +174,24 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+_BLOCKER = []
+
+
 def cuda_time_ms(fn, runs: int = 20) -> float:
-    """Mean device time of fn() over `runs` launches, after one warm-up."""
+    """Mean device time of fn() over `runs` launches, after one warm-up. A
+    ~2 ms product is enqueued first, so that the host queues all the launches
+    while the device is still busy with it: a wrapper costs the host 10-35
+    microseconds a call, more than the shortest kernels take, and without the
+    head start the events would time the host."""
     import torch
 
+    if not _BLOCKER:
+        _BLOCKER.append(torch.zeros((8192, 8192), dtype=torch.bfloat16, device="cuda"))
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.mm(_BLOCKER[0], _BLOCKER[0])
     start.record()
     for _ in range(runs):
         fn()
@@ -269,6 +301,11 @@ def check_attention(gen, dev) -> dict:
             "library_ms": library_ms}
 
 
+# kernel B on the mma.sync core it had before, timed by this file's cuda_time_ms in one
+# call with the core that replaced it (NVIDIA H100 80GB HBM3, 700.00 W; 0.2728 and 0.2733)
+PARENT_FF_MS = 0.2728
+
+
 def check_ff(gen, dev) -> dict:
     import torch
 
@@ -290,14 +327,17 @@ def check_ff(gen, dev) -> dict:
     args = inputs(2, 1536)
     max_abs, _ = compare("ff_block main m=3072 d=1024 dff=2048",
                          fb.ff_block_fused(*args), fb.ff_block_reference(*args), 5e-3)
-    ragged = inputs(1, 1000)
-    compare("ff_block ragged m=1000", fb.ff_block_fused(*ragged),
-            fb.ff_block_reference(*ragged), 5e-3)
-    ms = cuda_time_ms(lambda: fb.ff_block_fused(*args))
-    plain_ms = cuda_time_ms(lambda: fb.ff_block_reference(*args))
-    print(f"  time at main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    b = bound(4.0 * 3072 * 1024 * 2048, (args, args[0]))  # inputs and an output like h
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b}
+    for m in (1000, 65, 1):
+        ragged = inputs(1, m)
+        compare(f"ff_block ragged m={m}", fb.ff_block_fused(*ragged),
+                fb.ff_block_reference(*ragged), 5e-3)
+    times = _timed(lambda: fb.ff_block_fused(*args), lambda: fb.ff_block_reference(*args),
+                   4.0 * 3072 * 1024 * 2048, (args, args[0]),  # inputs and an output like h
+                   kind="bf16")
+    if times["ms"] > 0.5 * PARENT_FF_MS:
+        fail(f"kernel B takes {times['ms']:.4f} ms, more than half of the mma.sync core's "
+             f"{PARENT_FF_MS} ms")
+    return {"max_abs_err": max_abs, **times}
 
 
 def check_conv(gen, dev) -> dict:
@@ -329,6 +369,99 @@ def check_conv(gen, dev) -> dict:
     print(f"  time at main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     bd = bound(2.0 * 2 * 1536 * 1024 * (1024 // 16) * 31, (x, w, b, x))
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bd}
+
+
+def check_fp32_forms(gen, dev) -> dict[str, dict]:
+    """The fp32 forms of kernels A, B and C at the main shapes and at ragged
+    ones against their plain versions (which compute in fp32 whatever the
+    input; the plain conv with cuDNN's TF32 off, as everywhere in this
+    script). Their products are FFMA, so the bound takes the card's fp32 rate
+    outside the tensor cores."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import ff_block as fb
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+    from korean_f5_tts_tpu_torch.ops import grouped_conv as gc
+
+    def uni(shape, bound):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    out = {}
+    print(f"kernel A on fp32 operands (rel bound {F32_REL:.0e}: nothing is rounded below fp32)")
+
+    def attn_case(label, H, n, d, lens):
+        q, k, v = (torch.randn((H, n, d), generator=gen, device=dev) for _ in range(3))
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        got = fp.flash_prefix_folded(q, k, v, kv)
+        live = [i for i, length in enumerate(lens) if length > 0]
+        for i, length in enumerate(lens):  # no valid key: zeros, as the bf16 form
+            if length == 0 and got[i].abs().max().item():
+                fail(f"flash_prefix fp32 {label}: head {i} with no valid key is not zero")
+        want = fp.prefix_attention_reference(q[live], k[live], v[live], kv[live])
+        return compare(f"flash_prefix fp32 {label}", got[live], want, F32_REL), (q, k, v, kv, got)
+
+    (max_abs, _), (q, k, v, kv, got) = attn_case("main H=32 n=1536 d=64 kv=1376", 32, 1536, 64,
+                                                [1376] * 32)
+    attn_case("n=1000 kv=[0, 1, 700, 1000]", 4, 1000, 64, [0, 1, 700, 1000])
+    attn_case("n=300 d=128 mixed", 4, 300, 128, [300, 1, 77, 129])
+    out["flash_prefix_f32"] = {
+        "max_abs_err": max_abs,
+        **_timed(lambda: fp.flash_prefix_folded(q, k, v, kv),
+                 lambda: fp.prefix_attention_reference(q, k, v, kv),
+                 4.0 * 32 * 1536 * 1376 * 64, (q, k, v, kv, got), kind="fp32")}
+    # the one PyTorch call for the same function on the same fp32 operands, as
+    # check_attention times it for the bf16 form; used nowhere in the port
+    valid = (torch.arange(1536, device=dev)[None, :] < kv[:, None])[:, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_rel = _rel(sdpa(q, k, v, attn_mask=valid), fp.prefix_attention_reference(q, k, v, kv))
+    if lib_rel > 1e-2:  # the same function, whatever precision the library's product takes
+        fail(f"fp32 scaled_dot_product_attention is {lib_rel:.3e} from the plain version: it "
+             "does not compute the same function")
+    out["flash_prefix_f32"]["library_ms"] = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=valid))
+    print(f"  library (F.scaled_dot_product_attention, fp32, boolean mask; rel {lib_rel:.1e} to "
+          f"plain) {out['flash_prefix_f32']['library_ms']:.4f} ms")
+
+    print(f"kernel B on fp32 operands (rel bound {F32_REL:.0e})")
+
+    def ff_inputs(m, d=1024, dff=2048):
+        return (torch.randn((1, m, d), generator=gen, device=dev), uni((d,), 0.3), uni((d,), 0.3),
+                uni((d,), 1.0), uni((dff, d), d ** -0.5), uni((dff,), d ** -0.5),
+                uni((d, dff), dff ** -0.5), uni((d,), dff ** -0.5))
+
+    args = ff_inputs(3072)
+    max_abs, _ = compare("ff_block fp32 main m=3072 d=1024 dff=2048", fb.ff_block_fused(*args),
+                         fb.ff_block_reference(*args), F32_REL)
+    for m in (1000, 1):
+        ragged = ff_inputs(m)
+        compare(f"ff_block fp32 ragged m={m}", fb.ff_block_fused(*ragged),
+                fb.ff_block_reference(*ragged), F32_REL)
+    out["ff_block_f32"] = {
+        "max_abs_err": max_abs,
+        **_timed(lambda: fb.ff_block_fused(*args), lambda: fb.ff_block_reference(*args),
+                 4.0 * 3072 * 1024 * 2048, (args, args[0]), kind="fp32")}
+
+    print(f"kernel C on fp32 operands (rel bound {F32_REL:.0e})")
+
+    def conv_inputs(B, N, C=1024, k=31):
+        bound = (C // 16 * k) ** -0.5
+        return (torch.randn((B, N, C), generator=gen, device=dev), uni((k, C // 16, C), bound),
+                uni((C,), bound))
+
+    x, w, b = conv_inputs(2, 1536)
+    max_abs, _ = compare("grouped_conv fp32 main B=2 N=1536 C=1024 k=31",
+                         gc.grouped_conv1d_mish(x, w, b, 16),
+                         gc.grouped_conv1d_mish_reference(x, w, b, 16), F32_REL)
+    xr, wr, br = conv_inputs(1, 1000)
+    compare("grouped_conv fp32 ragged N=1000", gc.grouped_conv1d_mish(xr, wr, br, 16),
+            gc.grouped_conv1d_mish_reference(xr, wr, br, 16), F32_REL)
+    compare("grouped_conv fp32 no bias, no mish", gc.grouped_conv1d_mish(xr, wr, None, 16, False),
+            gc.grouped_conv1d_mish_reference(xr, wr, None, 16, False), F32_REL)
+    out["grouped_conv_f32"] = {
+        "max_abs_err": max_abs,
+        **_timed(lambda: gc.grouped_conv1d_mish(x, w, b, 16),
+                 lambda: gc.grouped_conv1d_mish_reference(x, w, b, 16),
+                 2.0 * 2 * 1536 * 1024 * (1024 // 16) * 31, (x, w, b, x), kind="fp32")}
+    return out
 
 
 def _uni(gen, dev, shape, bound):
@@ -364,7 +497,9 @@ def _timed(fn, plain, ops: float, io, kind: str = "int8") -> dict:
     plain_ms = cuda_time_ms(plain)
     print(f"  time at main shape: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} T"
           f"{'OP' if kind == 'int8' else 'FLOP'}/s), plain {plain_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, **bound(ops, io, kind)}
+    b = bound(ops, io, kind)
+    print(f"  the bound is {b['bound_ms'] / ms:.3f} of the kernel's time")
+    return {"ms": ms, "plain_ms": plain_ms, **b}
 
 
 def check_qmatmul(gen, dev) -> dict:
@@ -643,8 +778,10 @@ def _linear(gen, dev, n: int, k: int) -> dict:
     return {"w": _uni(gen, dev, (n, k), k ** -0.5), "b": _uni(gen, dev, (n,), k ** -0.5)}
 
 
-def _context(label: str, fn) -> None:
-    print(f"  for context, not a yardstick: {label} {cuda_time_ms(fn):.4f} ms")
+def _context(label: str, fn) -> float:
+    ms = cuda_time_ms(fn)
+    print(f"  for context, not a yardstick: {label} {ms:.4f} ms")
+    return ms
 
 
 def check_ln_mod(gen, dev) -> dict:
@@ -662,10 +799,11 @@ def check_ln_mod(gen, dev) -> dict:
     got = fl.ln_mod_matmul(h, sc, sh, ps)
     max_abs, _ = compare("ln_mod_matmul main m=3072 d=1024 n=3x1024", got,
                          fl.ln_mod_matmul_reference(h, sc, sh, ps), 5e-3)
-    hr = torch.randn((1, 1000, 1024), generator=gen, device=dev).to(torch.bfloat16)
-    for label, seg in (("3 linears", ps), ("1 linear", ps[:1])):
-        compare(f"ln_mod_matmul ragged m=1000, {label}", fl.ln_mod_matmul(hr, sc, sh, seg),
-                fl.ln_mod_matmul_reference(hr, sc, sh, seg), 5e-3)
+    for m, seg in ((1000, ps), (1000, ps[:1]), (65, ps[:2]), (1, ps)):
+        hr = torch.randn((1, m, 1024), generator=gen, device=dev).to(torch.bfloat16)
+        compare(f"ln_mod_matmul ragged m={m}, {len(seg)} linear(s)",
+                fl.ln_mod_matmul(hr, sc, sh, seg), fl.ln_mod_matmul_reference(hr, sc, sh, seg),
+                5e-3)
     times = _timed(lambda: fl.ln_mod_matmul(h, sc, sh, ps),
                    lambda: fl.ln_mod_matmul_reference(h, sc, sh, ps), 2.0 * 3072 * 1024 * 3072,
                    (h, sc, sh, ps, got), kind="bf16")
@@ -676,8 +814,12 @@ def check_ln_mod(gen, dev) -> dict:
         return F.linear(layernorm({}, h) * (1 + sc) + sh, w, b)
 
     w_cat, b_cat = torch.cat([p["w"] for p in ps], dim=0), torch.cat([p["b"] for p in ps])
-    _context("the default path's layernorm + modulate + weight concat + F.linear", default_path)
+    composed = _context("the default path's layernorm + modulate + weight concat + F.linear",
+                        default_path)
     _context("F.linear alone, [3072, 1024] x [3072, 1024]^T", lambda: F.linear(h, w_cat, b_cat))
+    if times["ms"] > composed:
+        fail(f"kernel 7 ({times['ms']:.4f} ms) is slower than the composition it replaces "
+             f"({composed:.4f} ms)")
     return {"max_abs_err": max_abs, **times}
 
 
@@ -685,6 +827,7 @@ def check_proj_gated(gen, dev) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from korean_f5_tts_tpu_torch.ops import cuda_build
     from korean_f5_tts_tpu_torch.ops import fused_linears as fl
 
     print("kernel 8, out-projection + gated residual (bf16, rel bound 5e-3: same rounding "
@@ -696,9 +839,10 @@ def check_proj_gated(gen, dev) -> dict:
     got = fl.proj_gated_residual(a, h, gate, p)
     max_abs, _ = compare("proj_gated_residual main m=3072 d=1024", got,
                          fl.proj_gated_residual_reference(a, h, gate, p), 5e-3)
-    compare("proj_gated_residual ragged m=1000",
-            fl.proj_gated_residual(a[:1, :1000].contiguous(), h[:1, :1000].contiguous(), gate, p),
-            fl.proj_gated_residual_reference(a[:1, :1000], h[:1, :1000], gate, p), 5e-3)
+    for m in (1000, 65, 1):
+        compare(f"proj_gated_residual ragged m={m}",
+                fl.proj_gated_residual(a[:1, :m].contiguous(), h[:1, :m].contiguous(), gate, p),
+                fl.proj_gated_residual_reference(a[:1, :m], h[:1, :m], gate, p), 5e-3)
     times = _timed(lambda: fl.proj_gated_residual(a, h, gate, p),
                    lambda: fl.proj_gated_residual_reference(a, h, gate, p),
                    2.0 * 3072 * 1024 * 1024, (a, h, gate, p, got), kind="bf16")
@@ -706,6 +850,26 @@ def check_proj_gated(gen, dev) -> dict:
              lambda: h + gate * F.linear(a, p["w"], p["b"]))
     _context("F.linear alone, [3072, 1024] x [1024, 1024]^T",
              lambda: F.linear(a, p["w"], p["b"]))
+    # Both output tile widths of the product core, forced through the probe's
+    # entry point: at m = 1000 either width is a single wave (64 or 32 tiles
+    # on the card's SMs), so the ratio of the two times is the tile cost that
+    # csrc/gemm_bf16.cuh:gemm_tile_n weighs waves with.
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
+    for m in (3072, 1000):
+        am, hm = a.reshape(-1, 1024)[:m].contiguous(), h.reshape(-1, 1024)[:m].contiguous()
+        want, out, ms = fl.proj_gated_residual_reference(am, hm, gate, p), torch.empty_like(hm), {}
+        for bn in (128, 256):
+            def forced(bn=bn):
+                cuda_build.check(lib.f5_probe_tile_width(
+                    am.data_ptr(), hm.data_ptr(), gate.data_ptr(), p["w"].data_ptr(),
+                    p["b"].data_ptr(), out.data_ptr(), m, 1024, 1024, bn, dev.index, stream),
+                    "probe_tile_width")
+            out.zero_()
+            forced()
+            compare(f"kernel 8's product at tile width {bn}, m={m}", out, want, 5e-3)
+            ms[bn] = cuda_time_ms(forced)
+        print(f"  tile widths at m={m}: 128 -> {ms[128]:.4f} ms, 256 -> {ms[256]:.4f} ms, "
+              f"ratio {ms[128] / ms[256]:.3f}")
     return {"max_abs_err": max_abs, **times}
 
 
@@ -1120,6 +1284,114 @@ GEN_TEXT = ("The quick brown fox jumps over the lazy dog near the quiet river ba
             "year? Nobody in the village seems to know for sure.")
 
 
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def offline_fp32(dev, card: str, ref_path: str, chunks, want_samples: int, frames: int,
+                 spec_bf16) -> dict[str, int]:
+    """The offline entry point with its own defaults: F5TTS(device="cuda") keeps
+    fp32 weights, so the default path runs the fp32 forms of kernels A, B and
+    C. Run once as a user gets it (cuDNN convolutions in TF32, PyTorch's
+    default) and once with them in fp32; the mel of the second against the
+    same path's plain versions and the bf16 path, mel and waveform of the two
+    against each other; then the same sampler on the card against the CPU,
+    fp32, depth 2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from korean_f5_tts_tpu_torch.api import F5TTS
+    from korean_f5_tts_tpu_torch.infer import utils_infer
+    from korean_f5_tts_tpu_torch.models.cfm import cfm_sample
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+
+    def rel(a, b):
+        a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    quiet = {"show_info": lambda m: None}
+    print("phase 8: F5TTS(device='cuda') with its own defaults (fp32 weights)")
+    tts = F5TTS(vocab_file=str(ROOT / "data/Emilia_ZH_EN_pinyin/vocab.txt"))
+    redraw_zero_init(tts.ema_model.params, seed=1)
+    leaves = {t.dtype for t in _tensors(tts.ema_model.params) if t.is_floating_point()}
+    if leaves != {torch.float32}:
+        fail(f"F5TTS() without compute_dtype holds {leaves}, expected fp32 weights")
+    per = len(chunks) * STEPS * DEPTH
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_prefix_f32=per, ff_block_f32=per,
+                grouped_conv_f32=2 * STEPS * len(chunks))
+    specs, wavs, counts = {}, {}, None
+    tf32_was = torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            wav, sr_out, spec = tts.infer(ref_path, REF_TEXT, GEN_TEXT, nfe_step=STEPS, seed=3,
+                                          **quiet)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            rms = float(np.sqrt(np.mean(np.square(wav))))
+            print(f"  cuDNN TF32 convolutions {'on (the default)' if tf32 else 'off'}: {secs:.2f} "
+                  f"s, {wav.size} samples (expected {want_samples}) = {wav.size / sr_out:.2f} s "
+                  f"of audio, rms {rms:.4f}; launches "
+                  f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+            if (wav.size != want_samples or sr_out != SR or not np.isfinite(wav).all()
+                    or rms <= 0 or spec.shape != (100, frames)):
+                fail("fp32 offline inference: wrong length, rate or silent audio")
+            if counts != want:
+                fail(f"fp32 offline inference: expected launches {want}")
+            specs[tf32], wavs[tf32] = spec, wav
+        ref_audio, ref_text = utils_infer.preprocess_ref_audio_text(ref_path, REF_TEXT, **quiet)
+        _, _, spec_plain = utils_infer.infer_process(
+            ref_audio, ref_text, GEN_TEXT, tts.ema_model, tts.vocoder, tts.mel_spec_type,
+            nfe_step=STEPS, seed=3, kernels=False, **quiet)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_was
+    err = rel(specs[False], spec_plain)
+    print(f"  fp32 mel, kernels vs the same path's plain versions (cuDNN TF32 off): rel "
+          f"{err:.3e} (bound {F32_REL:.0e}: fp32 sums in another order, nothing rounded below "
+          f"fp32); fp32 vs the bf16 path's mel: "
+          f"{rel(specs[False], spec_bf16):.3e} (printed, not gated)")
+    # the one cuDNN convolution of this path is Vocos's input convolution (conv-pos is
+    # kernel C, the depthwise convolutions are shifted multiply-adds): the mel cannot move
+    print(f"  cuDNN's TF32 convolutions on (PyTorch's default) vs off: mel rel "
+          f"{rel(specs[True], specs[False]):.3e}, waveform rel {rel(wavs[True], wavs[False]):.3e} "
+          "(printed, not gated)")
+    if err > F32_REL:  # a single-pass TF32 product or a bf16-rounded p would show as ~1e-3
+        fail("fp32 offline inference disagrees with the plain versions")
+    del tts
+
+    # the card against the CPU in fp32 at a small size: full width, depth 2, 256 frames
+    arch = dataclasses.replace(train_arch(), depth=2, checkpoint_activations=False)
+    params_cpu = redraw_zero_init(init_dit(arch, seed=0, device="cpu"), seed=1)
+    rng = np.random.default_rng(12)
+    cond = torch.from_numpy(rng.standard_normal((1, 100, 100)).astype(np.float32))
+    text = rng.integers(0, 2000, (1, 40))
+    # the noise is handed over: a CPU generator and a CUDA one draw other numbers
+    y0 = torch.from_numpy(rng.standard_normal((1, 256, 100)).astype(np.float32))
+    kw = dict(steps=4, cfg_strength=2.0, sway_sampling_coef=-1.0, y0=y0)
+    mel_cpu, _ = cfm_sample(params_cpu, arch, cond, text, 250, **kw)
+    reset_launch_counts()
+    mel_gpu, _ = cfm_sample(_to_device(params_cpu, dev), arch, cond.to(dev), text, 250, **kw)
+    torch.cuda.synchronize()
+    small = launch_counts()
+    err = rel(mel_gpu.cpu().numpy(), mel_cpu.numpy())
+    print(f"  fp32 sampler, card (fp32 kernels) vs CPU (plain), depth 2, 250 frames, 4 steps: mel "
+          f"rel {err:.3e} (bound 1e-5); launches { {k: v for k, v in small.items() if v} }")
+    if err > 1e-5 or small["flash_prefix_f32"] != 8 or small["ff_block_f32"] != 8:
+        fail("the fp32 sampler on the card disagrees with the CPU")
+    return {name: counts[name] + small[name] for name in counts}
+
+
 def phase8_offline(dev, card: str) -> dict[str, int]:
     import tempfile
 
@@ -1195,8 +1467,13 @@ def phase8_offline(dev, card: str) -> dict[str, int]:
                     fail(f"offline inference ({path}, {label}): expected launches {want}")
                 for name, n in counts.items():
                     total[name] += n
+                if path == "default" and cfg_strength > 0:
+                    spec_bf16 = spec
             model = tts.ema_model
             del tts
+        for name, n in offline_fp32(dev, card, ref_path, chunks, want_samples,
+                                    sum(gen_frames), spec_bf16).items():
+            total[name] += n
         # cfm_sample on a batch of 3 in two duration buckets (768 and 1024 frames)
         gen = torch.Generator(device=dev).manual_seed(8)
         cond = torch.randn((3, 300, 100), generator=gen, device=dev)
@@ -1498,11 +1775,12 @@ def phase9_int8_attention(dev, card: str, profile: Path | None = None) -> dict[s
     return counts
 
 
-def profile_once(run, path: Path, label: str) -> None:
+def profile_once(run, path: Path | None, label: str, top: int = 25) -> float:
     """run() (one bench-protocol utterance, or one training step) under
     torch.profiler: device busy time (device-side kernel events only), its
-    share of the un-profiled wall time (mean of 3), and the kernels by
-    device time; the table goes to path."""
+    share of the un-profiled wall time (mean of 3), and the `top` kernels by
+    device time; the whole table goes to path when one is given. Returns the
+    device busy time in ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1524,11 +1802,14 @@ def profile_once(run, path: Path, label: str) -> None:
     print(f"profile ({label}): wall {wall_ms:.2f} ms (un-profiled, mean of 3), device busy "
           f"{busy_ms:.2f} ms in {sum(e.count for e in kernels)} kernel launches, "
           f"idle share {1 - busy_ms / wall_ms:.3f}; kernels by device time:")
-    for e in kernels[:25]:
+    for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
-    print(f"  full table: {path}")
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(prof.key_averages().table(sort_by="self_device_time_total",
+                                                  row_limit=80))
+        print(f"  full table: {path}")
+    return busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1538,12 +1819,14 @@ def profile_once(run, path: Path, label: str) -> None:
 TRAIN_B, TRAIN_N = 8, 1280  # the JAX package's training A/B shape (flash_prefix.py:1258)
 TRAINER_DEPTH = 4  # the Trainer run's depth: its checkpoint is 1/5 of depth 22's 5 GiB
 TRAIN_REL = 5e-2
+# device busy time of one step, and of its conv-pos convolutions, while those ran in fp32
+PARENT_TRAIN_STEP_MS, PARENT_TRAIN_CONV_MS = 251.13, 43.7
 
 
 def expected_train_launches(steps: int, depth: int = DEPTH) -> dict[str, int]:
     """Launches of `steps` training steps with full remat: per block, kernel
     10 in the forward and again in the backward's recompute, 11 and 13 once
-    in the backward; nothing else (conv-pos takes its plain version under
+    in the backward; nothing else (conv-pos is plain tensor code under
     autograd, the FF half-block is plain products)."""
     from korean_f5_tts_tpu_torch.ops import KERNELS
 
@@ -1693,21 +1976,27 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
     print(f"  kernel launches during the 4 updates: {train_counts} (expected {want})")
     if train_counts != want:
         fail("a training kernel did not run as often as the Trainer's steps require")
-    if profile_path is not None:
-        opt = make_optimizer()
-        state = init_train_state(params, opt)
-        profile_once(lambda: train_step(state, batch, 5, arch, opt,
-                                        compute_dtype=torch.bfloat16), profile_path,
-                     f"training step, batch {TRAIN_B} x {TRAIN_N}, kernels")
-        del state
-    del params, small_params
+    del small_params
     torch.cuda.empty_cache()
-
+    # timed before anything is profiled: once the profiler has run in a process, every
+    # later launch costs the host more, and the step's wall time is the host's
     for kernels in (True, False):
         r = bench_train.run(frames=TRAIN_B * TRAIN_N, seq_len=TRAIN_N, kernels=kernels)
         print(f"  bench_train {'kernels' if kernels else 'plain  '}: step_ms {r['step_ms']}, "
               f"train_frames_per_s {r['value']} ({r['unit']}) [{card}]")
         torch.cuda.empty_cache()
+    opt = make_optimizer()
+    state = init_train_state(params, opt)
+    busy = profile_once(lambda: train_step(state, batch, 5, arch, opt,
+                                           compute_dtype=torch.bfloat16), profile_path,
+                        f"training step, batch {TRAIN_B} x {TRAIN_N}, kernels",
+                        top=25 if profile_path is not None else 6)
+    print(f"  the step's device time with conv-pos convolving in bf16 under autograd: {busy:.2f} "
+          f"ms; with the fp32 convolution it had before: {PARENT_TRAIN_STEP_MS} ms (of which "
+          f"the convolution {PARENT_TRAIN_CONV_MS}), same protocol, H100 80GB HBM3, 700 W "
+          f"[{card}]")
+    del state, params
+    torch.cuda.empty_cache()
     return {name: n + bwd_counts[name] for name, n in train_counts.items()}
 
 
@@ -1770,6 +2059,7 @@ def main(argv=None) -> int:
         results["proj_gated_residual"] = check_proj_gated(gen, dev)
         results.update(check_rope_attention(gen, dev))
         results["flash_prefix_i8"] = check_attention_int8(gen, dev)
+        results.update(check_fp32_forms(gen, dev))
         from korean_f5_tts_tpu_torch.scripts import probe_hopper
 
         probe_hopper.run(dev)
@@ -1795,15 +2085,15 @@ def main(argv=None) -> int:
                     counts[name] += n
             del model, vocoder
             torch.cuda.empty_cache()
-    if 6 in phases:
-        train_profile = None if args.profile is None else args.profile.with_suffix(".train.txt")
-        for name, n in phase6_train(dev, card, train_profile).items():
-            counts[name] += n
     if 8 in phases:
         for name, n in phase8_offline(dev, card).items():
             counts[name] += n
     if 9 in phases:
         for name, n in phase9_int8_attention(dev, card, args.profile).items():
+            counts[name] += n
+    if 6 in phases:  # last: it profiles a step, and the profiler slows every launch after it
+        train_profile = None if args.profile is None else args.profile.with_suffix(".train.txt")
+        for name, n in phase6_train(dev, card, train_profile).items():
             counts[name] += n
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],

@@ -7,7 +7,9 @@ on `device`: the card by default, and a missing card raises; the CPU runs
 only when the caller names it. `attn_path` (ops/attention.py:ATTN_PATHS)
 picks the attention half's kernels, `attn_int8` (ATTN_INT8: None, "qk",
 "qkpv") the int8 attention kernel in kernel A's place, `compute_dtype` the
-dtype the weights are cast to (the kernels take bf16).
+dtype the weights are cast to (None keeps fp32, as the JAX class does: the
+default path's kernels A, B and C then run their fp32 forms; bf16 runs the
+tensor-core kernels and is what every opt-in path takes).
 """
 
 from __future__ import annotations

@@ -2,46 +2,81 @@
 //   out = h + gate * (gelu_tanh((LN(h) * (1 + sc) + sh) @ W1^T + b1) @ W2^T + b2)
 //
 // Replaces the TPU kernel korean_f5_tts_tpu/ops/ff_block.py:_kernel (via
-// ff_block_fused). h, out: [M, d] bf16; sc, sh, gate: [d]; W1: [dff, d] and
-// W2: [d, dff] (torch Linear layout, k contiguous); b1: [dff]; b2: [d].
+// ff_block_fused). h, out: [M, d]; sc, sh, gate: [d]; W1: [dff, d] and
+// W2: [d, dff] (torch Linear layout, k contiguous); b1: [dff]; b2: [d]; all
+// bf16 (f5_ff_block_fwd) or all fp32 (f5_ff_block_f32_fwd): like the TPU
+// kernel, the result has the operands' dtype.
 // Rounding points follow the TPU kernel: LN and modulation in fp32, y cast to
-// bf16 before GEMM1, +b1 and GELU-tanh in fp32, z cast to bf16, +b2 and the
-// gated residual in fp32, one cast at the end.
+// the operands' dtype before the first product, fp32 accumulation, +b1 and
+// GELU-tanh in fp32, z cast, +b2 and the gated residual in fp32, one cast at
+// the end. With fp32 operands no cast rounds anything.
 //
 // What bounds it on the card: at the main-path shape (M = 3072, d = 1024,
-// dff = 2048) a call is 25.8 GFLOP against ~22 MB of h/W/out, so the two
-// products bound it. The TPU kernel keeps the whole [rows, dff] GELU tile in
-// VMEM; here a 64-row tile of z is 64 * 2048 * 2 B = 256 KB, more than the
-// 227 KB of shared memory a block can have.
+// dff = 2048) a call is 25.8 GFLOP against ~22 MB of h/W/out in bf16, so the
+// two products bound it: 0.026 ms at the bf16 tensor-core peak, 0.385 ms at
+// the 67 TFLOP/s of fp32 outside the tensor cores. The TPU kernel keeps the
+// whole [rows, dff] GELU tile in VMEM; here a 64-row tile of z is
+// 64 * 2048 * 2 B = 256 KB, more than the 227 KB of shared memory a block
+// can have.
 //
-// Design: two kernels (gemm_bf16.cuh) with z written once to device memory
-// between them (12.6 MB at the main-path shape, read back from L2 in part):
-//   ln_mod_gemm_kernel<gelu>: z = bf16(gelu_tanh(bf16(LN(h)*(1+sc)+sh) @ W1^T + b1)),
-//          y formed straight into shared memory, never in device memory;
-//   gated_residual_gemm_kernel: out = bf16(h + gate * (z @ W2^T + b2)).
-#include "gemm_bf16.cuh"
+// Design: row statistics, then two product kernels with z written once to
+// device memory between them (12.6 MB in bf16 at the main-path shape; the
+// second product is launched right behind the first on the same stream and
+// reads z while most of it is still in the 50 MB L2):
+//   ln_stats: mean and 1/std of each row, [2, M] fp32;
+//   ln_mod_gemm<gelu>: z = gelu_tanh((LN(h)*(1+sc)+sh) @ W1^T + b1), y formed
+//          in registers (bf16) or on the way into shared memory (fp32), never
+//          in device memory;
+//   gated_residual_gemm: out = h + gate * (z @ W2^T + b2).
+// bf16: the TMA + wgmma core of gemm_bf16.cuh, whose note has the tile
+// shapes, stages and tile counts per wave. fp32: the FFMA tiles of
+// gemm_f32.cuh (its note says why not TF32).
+#include "gemm_f32.cuh"
 
-// z: [M, dff] bf16 scratch the caller allocates; d and dff multiples of 128.
+// z: [M, dff] bf16 and stats: [2, M] fp32, scratch the caller allocates; d, dff
+// multiples of 128, d <= 4096. Each product's tile width is gemm_tile_n()'s.
 extern "C" int f5_ff_block_fwd(const void* h, const void* sc, const void* sh, const void* gate,
                                const void* w1, const void* b1, const void* w2, const void* b2,
-                               void* z, void* out, int M, int d, int dff, float eps, int device,
-                               void* stream) {
+                               void* z, void* stats, void* out, int M, int d, int dff, float eps,
+                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (M <= 0 || d % f5::kBN != 0 || dff % f5::kBN != 0) return (int)cudaErrorInvalidValue;
-  const int m_tiles = (M + f5::kBM - 1) / f5::kBM;
-  if (m_tiles > 65535) return (int)cudaErrorInvalidValue;
+  if (!f5::gemm_dims_ok(M, dff, d) || !f5::gemm_dims_ok(M, d, dff) || d > f5::kMaxLnDim)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  typedef f5::bf16 T;
-  const T* w1t = static_cast<const T*>(w1);
-  const T* b1t = static_cast<const T*>(b1);
-  f5::ln_mod_gemm_kernel<true><<<dim3(dff / f5::kBN, m_tiles), f5::kThreads, 0, s>>>(
-      static_cast<const T*>(h), static_cast<const T*>(sc), static_cast<const T*>(sh), w1t, w1t,
-      w1t, b1t, b1t, b1t, static_cast<T*>(z), M, d, dff, eps);
+  const void* const ws[3] = {w1, w1, w1};
+  const void* const bs[3] = {b1, b1, b1};
+  err = f5::gemm_tile_n(M, dff, dff) == 256
+            ? f5::launch_ln_mod_gemm<256, true>(h, sc, sh, ws, bs, stats, z, M, d, dff, 1, eps, s)
+            : f5::launch_ln_mod_gemm<128, true>(h, sc, sh, ws, bs, stats, z, M, d, dff, 1, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  err = f5::gemm_tile_n(M, d, d) == 256
+            ? f5::launch_gated_residual_gemm<256>(z, w2, b2, h, gate, out, M, d, dff, s)
+            : f5::launch_gated_residual_gemm<128>(z, w2, b2, h, gate, out, M, d, dff, s);
+  return (int)err;
+}
+
+// the same on fp32 operands; z: [M, dff] fp32; d, dff multiples of 128
+extern "C" int f5_ff_block_f32_fwd(const void* h, const void* sc, const void* sh,
+                                   const void* gate, const void* w1, const void* b1,
+                                   const void* w2, const void* b2, void* z, void* stats, void* out,
+                                   int M, int d, int dff, float eps, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int m_tiles = (M + f5::kFT - 1) / f5::kFT;
+  if (M <= 0 || d % f5::kFT != 0 || dff % f5::kFT != 0 || m_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef const float* P;
+  err = f5::launch_ln_stats<float>(h, stats, M, d, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  f5::ln_mod_gemm_f32_kernel<true><<<dim3(dff / f5::kFT, m_tiles), f5::kFThreads, 0, s>>>(
+      static_cast<P>(h), static_cast<P>(stats), static_cast<P>(sc), static_cast<P>(sh),
+      static_cast<P>(w1), static_cast<P>(b1), static_cast<float*>(z), M, dff, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  f5::gated_residual_gemm_kernel<<<dim3(d / f5::kBN, m_tiles), f5::kThreads, 0, s>>>(
-      static_cast<const T*>(z), static_cast<const T*>(w2), static_cast<const T*>(b2),
-      static_cast<const T*>(h), static_cast<const T*>(gate), static_cast<T*>(out), M, d, dff);
+  f5::gated_residual_gemm_f32_kernel<<<dim3(d / f5::kFT, m_tiles), f5::kFThreads, 0, s>>>(
+      static_cast<P>(z), static_cast<P>(w2), static_cast<P>(b2), static_cast<P>(h),
+      static_cast<P>(gate), static_cast<float*>(out), M, d, dff);
   return (int)cudaGetLastError();
 }

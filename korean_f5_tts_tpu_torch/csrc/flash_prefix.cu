@@ -29,7 +29,192 @@
 //
 // The loop is flash_prefix_fwd_kernel in flash_prefix.cuh, which kernel 10
 // (flash_prefix_train.cu) instantiates with its logsumexp output.
+//
+// fp32 operands (f5_flash_prefix_f32_fwd; the offline entry points keep fp32
+// weights unless told otherwise): flash_prefix_f32_kernel below. Like the
+// TPU kernel on fp32 inputs it keeps "the exact f32 dot": scores, softmax,
+// p.v and the output are fp32 and p is not rounded. Products are plain FFMA
+// on shared-memory tiles: the tensor cores have no fp32 product, a single
+// TF32 mma keeps 10 mantissa bits and does not hold fp32 parity, and a split
+// 3xTF32 design is more machinery than this form is worth; its bound is the
+// 67 TFLOP/s of fp32 outside the tensor cores (0.26 ms at the main shape).
+// One 256-thread block per (head, 64-row query tile), 4 x 4 scores a thread;
+// q and k tiles sit transposed ([c][row]) so the inner loop reads float4; p
+// goes through shared memory between the two products; the same online
+// softmax, pruning and masking as the bf16 loop.
 #include "flash_prefix.cuh"
+
+namespace f5 {
+namespace {
+
+constexpr int kF32Threads = 256;
+constexpr int kF32LD = 64 + 4;  // row stride of the [c][row] and [row][key] tiles
+
+// rows [row0, row0 + 64) of a [n, D] fp32 head, transposed into dst[c][row];
+// rows at or past n give zeros. Consecutive threads take consecutive rows:
+// the shared-memory stores are conflict-free.
+template <int D>
+__device__ __forceinline__ void load_rows_t_f32(float* dst, const float* src, int row0, int n,
+                                                int tid) {
+  for (int i = tid; i < 64 * (D / 4); i += kF32Threads) {
+    const int r = i & 63;
+    const int c = (i >> 6) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
+    dst[(c + 0) * kF32LD + r] = v.x;
+    dst[(c + 1) * kF32LD + r] = v.y;
+    dst[(c + 2) * kF32LD + r] = v.z;
+    dst[(c + 3) * kF32LD + r] = v.w;
+  }
+}
+
+// sum / max over the 16 lanes that share a query row
+__device__ __forceinline__ float row16_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float row16_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Thread (ty, tx) of the 16 x 16 block owns query rows ty * 4 + i, score
+// columns tx * 4 + j and output columns tx * 4 + j (+ 64 for D = 128).
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ kv_lens,
+                        float* __restrict__ out, int n, float scale_log2) {
+  constexpr int NO = D / 64;  // 4-wide output column groups of a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQt = reinterpret_cast<float*>(smem_raw);  // [D][68]
+  float* sKt = sQt + D * kF32LD;                    // [D][68]
+  float* sV = sKt + D * kF32LD;                     // [64][D]
+  float* sP = sV + 64 * D;                          // [64][68]
+  const int head = blockIdx.y;
+  const int q0 = blockIdx.x * 64;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const size_t off = (size_t)head * n * D;
+  const int kv_len = min(kv_lens[head], n);
+
+  load_rows_t_f32<D>(sQt, q + off, q0, n, tid);
+
+  float o[4][NO * 4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NO * 4; ++c) o[i][c] = 0.f;
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+  }
+
+  const int n_tiles = kv_len > 0 ? (kv_len + 63) / 64 : 0;
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int k0 = jt * 64;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows_t_f32<D>(sKt, k + off, k0, n, tid);
+    for (int i = tid; i < 64 * (D / 4); i += kF32Threads) {
+      const int r = i / (D / 4);
+      const int c = (i % (D / 4)) * 4;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < n) val = *reinterpret_cast<const float4*>(v + off + (size_t)(k0 + r) * D + c);
+      *reinterpret_cast<float4*>(sV + r * D + c) = val;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < D; ++c) {
+      const float4 a = *reinterpret_cast<const float4*>(sQt + c * kF32LD + ty * 4);
+      const float4 b = *reinterpret_cast<const float4*>(sKt + c * kF32LD + tx * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+    }
+
+    // online softmax of this tile; tile 0 holds key 0 < kv_len, so the
+    // running max is finite from then on
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = k0 + tx * 4 + j < kv_len ? s[i][j] * scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m_run[i], row16_max(mx));
+      const float alpha = exp2f(m_run[i] - m_new);
+      m_run[i] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = exp2f(s[i][j] - m_new);
+        rs += s[i][j];
+      }
+      l_run[i] = l_run[i] * alpha + row16_sum(rs);
+#pragma unroll
+      for (int c = 0; c < NO * 4; ++c) o[i][c] *= alpha;
+      *reinterpret_cast<float4*>(sP + (ty * 4 + i) * kF32LD + tx * 4) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int key = 0; key < 64; ++key) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * kF32LD + key];
+#pragma unroll
+      for (int g = 0; g < NO; ++g) {
+        const float4 b = *reinterpret_cast<const float4*>(sV + key * D + g * 64 + tx * 4);
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) o[i][g * 4 + j] = fmaf(p[i], bv[j], o[i][g * 4 + j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= n) continue;
+    const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;  // kv_len == 0: zeros
+#pragma unroll
+    for (int g = 0; g < NO; ++g)
+      *reinterpret_cast<float4*>(out + off + (size_t)row * D + g * 64 + tx * 4) =
+          make_float4(o[i][g * 4] * inv, o[i][g * 4 + 1] * inv, o[i][g * 4 + 2] * inv,
+                      o[i][g * 4 + 3] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, const void* kv_lens,
+                           void* out, int H, int n, float scale_log2, cudaStream_t stream) {
+  const int smem = (2 * D * kF32LD + 64 * D + 64 * kF32LD) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_prefix_f32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_prefix_f32_kernel<D><<<dim3((n + 63) / 64, H), kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(kv_lens), static_cast<float*>(out), n, scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace f5
 
 extern "C" int f5_flash_prefix_fwd(const void* q, const void* k, const void* v,
                                    const void* kv_lens, void* out, int H, int n, int d,
@@ -42,6 +227,19 @@ extern "C" int f5_flash_prefix_fwd(const void* q, const void* k, const void* v,
     return (int)f5::launch_fwd<64, false>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
   if (d == 128)
     return (int)f5::launch_fwd<128, false>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the same on fp32 q, k, v, out
+extern "C" int f5_flash_prefix_f32_fwd(const void* q, const void* k, const void* v,
+                                       const void* kv_lens, void* out, int H, int n, int d,
+                                       float scale_log2, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (H <= 0 || n <= 0 || H > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return (int)f5::launch_fwd_f32<64>(q, k, v, kv_lens, out, H, n, scale_log2, s);
+  if (d == 128) return (int)f5::launch_fwd_f32<128>(q, k, v, kv_lens, out, H, n, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 

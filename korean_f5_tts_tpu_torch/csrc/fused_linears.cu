@@ -25,48 +25,44 @@
 // LN, the modulation and the cast before the product (kernel 7), the
 // product's own output and the gated add after it (kernel 8).
 //
-// Design: the two kernels of gemm_bf16.cuh that the FF half-block also runs
-// (64x128 tiles, four warps, mma.sync m16n8k16): kernel 7 is its first
-// product without the GELU, over three weight segments; kernel 8 its second
-// at K = din. Rows past M are zero-filled and never stored, so M needs no
-// multiple.
+// Design: the two product kernels of gemm_bf16.cuh that the FF half-block
+// also runs (TMA-fed ring, wgmma, 128 x 128 or 128 x 256 tiles; its note has
+// the stages and the tile counts per wave): kernel 7 is its first product
+// without the GELU, over three weight segments, each with its own tensor
+// map picked by the column tile; kernel 8 its second at K = din. Rows past M
+// read as zeros and are never stored, so M needs no multiple.
 #include "gemm_bf16.cuh"
 
-// d % 32 == 0, seg_n % 128 == 0, 1 <= nseg <= 3
+// stats: [2, M] fp32 scratch; d % 8 == 0, d <= 4096, seg_n % 128 == 0,
+// 1 <= nseg <= 3. The tile width is gemm_tile_n()'s.
 extern "C" int f5_ln_mod_matmul_fwd(const void* h, const void* sc, const void* sh,
                                     const void* w0, const void* w1, const void* w2,
-                                    const void* b0, const void* b1, const void* b2, void* out,
-                                    int M, int d, int seg_n, int nseg, float eps, int device,
-                                    void* stream) {
+                                    const void* b0, const void* b1, const void* b2, void* stats,
+                                    void* out, int M, int d, int seg_n, int nseg, float eps,
+                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (M <= 0 || d % f5::kBK != 0 || seg_n % f5::kBN != 0 || nseg < 1 || nseg > 3)
+  if (!f5::gemm_dims_ok(M, seg_n, d) || d > f5::kMaxLnDim || nseg < 1 || nseg > 3)
     return (int)cudaErrorInvalidValue;
-  const int m_tiles = (M + f5::kBM - 1) / f5::kBM;
-  if (m_tiles > 65535) return (int)cudaErrorInvalidValue;
-  typedef f5::bf16 T;
-  f5::ln_mod_gemm_kernel<false>
-      <<<dim3(nseg * seg_n / f5::kBN, m_tiles), f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(h), static_cast<const T*>(sc), static_cast<const T*>(sh),
-          static_cast<const T*>(w0), static_cast<const T*>(w1), static_cast<const T*>(w2),
-          static_cast<const T*>(b0), static_cast<const T*>(b1), static_cast<const T*>(b2),
-          static_cast<T*>(out), M, d, seg_n, eps);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* const ws[3] = {w0, w1, w2};
+  const void* const bs[3] = {b0, b1, b2};
+  return (int)(f5::gemm_tile_n(M, nseg * seg_n, seg_n) == 256
+                   ? f5::launch_ln_mod_gemm<256, false>(h, sc, sh, ws, bs, stats, out, M, d,
+                                                        seg_n, nseg, eps, s)
+                   : f5::launch_ln_mod_gemm<128, false>(h, sc, sh, ws, bs, stats, out, M, d,
+                                                        seg_n, nseg, eps, s));
 }
 
-// din % 32 == 0, d % 128 == 0
+// din % 8 == 0, d % 128 == 0
 extern "C" int f5_proj_gated_fwd(const void* a, const void* h, const void* gate, const void* w,
                                  const void* b, void* out, int M, int din, int d, int device,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (M <= 0 || din % f5::kBK != 0 || d % f5::kBN != 0) return (int)cudaErrorInvalidValue;
-  const int m_tiles = (M + f5::kBM - 1) / f5::kBM;
-  if (m_tiles > 65535) return (int)cudaErrorInvalidValue;
-  typedef f5::bf16 T;
-  f5::gated_residual_gemm_kernel
-      <<<dim3(d / f5::kBN, m_tiles), f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(a), static_cast<const T*>(w), static_cast<const T*>(b),
-          static_cast<const T*>(h), static_cast<const T*>(gate), static_cast<T*>(out), M, d, din);
-  return (int)cudaGetLastError();
+  if (!f5::gemm_dims_ok(M, d, din)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(f5::gemm_tile_n(M, d, d) == 256
+                   ? f5::launch_gated_residual_gemm<256>(a, w, b, h, gate, out, M, d, din, s)
+                   : f5::launch_gated_residual_gemm<128>(a, w, b, h, gate, out, M, d, din, s));
 }

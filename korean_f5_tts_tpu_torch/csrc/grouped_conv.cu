@@ -22,6 +22,19 @@
 // tiles of 32 x 32, mma.sync m16n8k16, fp32 accumulation. The TPU kernel's
 // 128-lane block-diagonal group packing (grouped_conv.py:53-63) is a lane
 // trade for the TPU's MXU and is not carried over.
+//
+// fp32 operands (f5_grouped_conv_f32_fwd; the offline entry points keep fp32
+// weights unless told otherwise): grouped_conv_f32_kernel, the same implicit
+// GEMM with plain FFMA products in place of the tensor cores. A single TF32
+// mma keeps 10 mantissa bits and does not hold fp32 parity (cuDNN's own fp32
+// convolution runs in TF32 by default, which is why the plain PyTorch conv is
+// the less exact of the two on the card), and the kernel runs twice a step
+// against 22 launches of the attention and FF kernels, so the simple exact
+// form was taken over a split 3xTF32 one. Bound: 12.5 GFLOP at the 67 TFLOP/s
+// of fp32 outside the tensor cores, 0.19 ms. One 256-thread block per (64
+// output rows, group, batch item), 4 x 4 outputs a thread; the window
+// (64 + k - 1 rows) stays in shared memory for all taps and one tap's
+// [64 x 64] weights are staged at a time.
 #include "mma.cuh"
 
 namespace f5 {
@@ -126,8 +139,97 @@ grouped_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+constexpr int kFM = 64;         // output rows per block of the fp32 kernel
+constexpr int kFLDX = kCG + 1;  // window row stride: rows 4 apart fall into distinct banks
+
+// Thread (ty, tx) of the 16 x 16 block owns rows ty * 4 + i and output
+// channels tx * 4 + j of the group.
+__global__ void __launch_bounds__(kThreads)
+grouped_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                        const float* __restrict__ bias, float* __restrict__ out, int N, int C,
+                        int taps, int fuse_mish) {
+  __shared__ float sX[(kFM + kMaxTaps - 1) * kFLDX];
+  __shared__ __align__(16) float sW[kCG * kCG];
+  const int n0 = blockIdx.x * kFM;
+  const int c0 = blockIdx.y * kCG;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int pad = taps / 2;
+  const float* xb = x + (size_t)blockIdx.z * N * C;
+
+  // input window: positions [n0 - pad, n0 + kFM + pad), zero outside [0, N)
+  const int rows = kFM + taps - 1;
+  for (int i = tid; i < rows * kCG; i += kThreads) {
+    const int r = i / kCG, c = i % kCG;
+    const int pos = n0 - pad + r;
+    sX[r * kFLDX + c] = (pos >= 0 && pos < N) ? xb[(size_t)pos * C + c0 + c] : 0.f;
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int t = 0; t < taps; ++t) {
+    __syncthreads();  // the window is in place; the previous tap's readers are done
+    for (int i = tid; i < kCG * (kCG / 4); i += kThreads) {
+      const int r = i / (kCG / 4);
+      const int c = (i % (kCG / 4)) * 4;
+      *reinterpret_cast<float4*>(sW + r * kCG + c) =
+          *reinterpret_cast<const float4*>(w + ((size_t)t * kCG + r) * C + c0 + c);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int ci = 0; ci < kCG; ++ci) {
+      const float4 b = *reinterpret_cast<const float4*>(sW + ci * kCG + tx * 4);
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = sX[(t + ty * 4 + i) * kFLDX + ci];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+      }
+    }
+  }
+
+  float* ob = out + (size_t)blockIdx.z * N * C;
+  const int col = c0 + tx * 4;
+  float4 bb = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (bias) bb = *reinterpret_cast<const float4*>(bias + col);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = n0 + ty * 4 + i;
+    if (row >= N) continue;
+    float4 o = make_float4(acc[i][0] + bb.x, acc[i][1] + bb.y, acc[i][2] + bb.z, acc[i][3] + bb.w);
+    if (fuse_mish) {
+      o.x = mish(o.x);
+      o.y = mish(o.y);
+      o.z = mish(o.z);
+      o.w = mish(o.w);
+    }
+    *reinterpret_cast<float4*>(ob + (size_t)row * C + col) = o;
+  }
+}
+
 }  // namespace
 }  // namespace f5
+
+static bool conv_dims_ok(int B, int N, int C, int groups, int taps) {
+  return B > 0 && N > 0 && groups > 0 && C == groups * f5::kCG && taps % 2 == 1 &&
+         taps <= f5::kMaxTaps && B <= 65535 && groups <= 65535;
+}
+
+// the same on fp32 x, w, b, out
+extern "C" int f5_grouped_conv_f32_fwd(const void* x, const void* w, const void* b, void* out,
+                                       int B, int N, int C, int groups, int taps, int fuse_mish,
+                                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!conv_dims_ok(B, N, C, groups, taps)) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + f5::kFM - 1) / f5::kFM, groups, B);
+  f5::grouped_conv_f32_kernel<<<grid, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<float*>(out), N, C, taps, fuse_mish);
+  return (int)cudaGetLastError();
+}
 
 // C / groups must be 64; taps odd and at most 33.
 extern "C" int f5_grouped_conv_fwd(const void* x, const void* w, const void* b, void* out, int B,
@@ -135,9 +237,7 @@ extern "C" int f5_grouped_conv_fwd(const void* x, const void* w, const void* b, 
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || N <= 0 || groups <= 0 || C != groups * f5::kCG || taps % 2 == 0 ||
-      taps > f5::kMaxTaps || B > 65535 || groups > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!conv_dims_ok(B, N, C, groups, taps)) return (int)cudaErrorInvalidValue;
   dim3 grid((N + f5::kBM - 1) / f5::kBM, groups, B);
   typedef f5::bf16 T;
   f5::grouped_conv_kernel<<<grid, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

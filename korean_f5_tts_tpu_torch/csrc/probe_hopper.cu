@@ -4,7 +4,16 @@
 // probes the Mosaic lowering of the same three idioms (a half-slice product,
 // two halves written side by side, the half swap) for _kernel_qkv.
 // Each launch is one 128-thread block on 64 rows.
+//
+// Three more probes hold the idioms of the TMA + wgmma product core
+// (gemm_bf16.cuh) before the whole kernel is trusted: a TMA tile load into
+// 128-byte-swizzled shared memory signalled on an mbarrier, wgmma with both
+// operands from swizzled shared-memory descriptors, and wgmma with the A
+// operand computed in registers from an ldmatrix read of a swizzled tile.
+// A seventh entry point runs kernel 8's product at a forced output tile
+// width, so that the tile cost gemm_tile_n() weighs waves with can be timed.
 #include "flash_prefix.cuh"
+#include "gemm_bf16.cuh"
 
 namespace f5 {
 namespace {
@@ -70,8 +79,127 @@ probe_half_swap_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cos,
   for (int i = tid; i < 64 * kD; i += kThreads) out[i] = sX[(i / kD) * kLD + i % kD];
 }
 
+// one thread arms the barrier and asks for the tiles; every thread waits
+__device__ __forceinline__ void probe_load(unsigned char* tile_a, const CUtensorMap* map_a,
+                                           unsigned char* tile_b, const CUtensorMap* map_b,
+                                           uint64_t* bar, int col, int row_a, int row_b) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, (64 + (tile_b ? 128 : 0)) * kRowBytes);
+    tma_load_2d(tile_a, map_a, bar, col, row_a);
+    if (tile_b) tma_load_2d(tile_b, map_b, bar, col, row_b);
+  }
+  mbar_wait(bar, 0);
+}
+
+// (4) a 64 x 64 box at (row, col) of x, by TMA; raw: the 8 KB of shared
+// memory as they lie (row r, 16-byte chunk c at chunk c ^ (r & 7))
+__global__ void __launch_bounds__(kThreads)
+probe_tma_kernel(const __grid_constant__ CUtensorMap map, bf16* __restrict__ raw, int row,
+                 int col) {
+  __shared__ __align__(1024) unsigned char tile[64 * kRowBytes];
+  __shared__ uint64_t bar;
+  probe_load(tile, &map, nullptr, nullptr, &bar, col, row, 0);
+  const bf16* src = reinterpret_cast<const bf16*>(tile);
+  for (int i = threadIdx.x; i < 64 * kTileK; i += kThreads) raw[i] = src[i];
+}
+
+// (5), (6) out[64, 128] fp32 = A . B^T over k = 64 for A = x[0:64, 0:64] (5)
+// or A = bf16(2 x + 1) formed in registers (6), B = y[0:128, 0:64]
+template <bool kRegisterA>
+__global__ void __launch_bounds__(kThreads)
+probe_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_y, float* __restrict__ out) {
+  __shared__ __align__(1024) unsigned char tile_a[64 * kRowBytes];
+  __shared__ __align__(1024) unsigned char tile_b[128 * kRowBytes];
+  __shared__ uint64_t bar;
+  probe_load(tile_a, &map_x, tile_b, &map_y, &bar, 0, 0, 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  uint32_t a[kTileK / 16][4];
+  if (kRegisterA) {
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk) {
+      uint32_t x[4];
+      ldmatrix_x4(x, swz_chunk_addr(tile_a, warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[kk][r] = pack_bf16x2(2.f * __uint_as_float(x[r] << 16) + 1.f,
+                               2.f * __uint_as_float(x[r] & 0xffff0000u) + 1.f);
+    }
+  }
+  const uint64_t da = wgmma_desc(tile_a), db = wgmma_desc(tile_b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTileK / 16; ++kk) {
+    if (kRegisterA) wgmma_rs_n128(acc, a[kk], db + 2 * kk, kk != 0);
+    else wgmma_ss_n128(acc, da + 2 * kk, db + 2 * kk, kk != 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_regs(acc);
+  const int row = warp * 16 + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    out[row * 128 + col] = acc[4 * j];
+    out[row * 128 + col + 1] = acc[4 * j + 1];
+    out[(row + 8) * 128 + col] = acc[4 * j + 2];
+    out[(row + 8) * 128 + col + 1] = acc[4 * j + 3];
+  }
+}
+
 }  // namespace
 }  // namespace f5
+
+// x: [rows, cols] bf16 (cols % 8 == 0); raw: [64, 64] bf16; the box starts at
+// (row, col) and may hang over either edge
+extern "C" int f5_probe_tma(const void* x, void* raw, int rows, int cols, int row, int col,
+                            int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map;
+  if (cols % 8 || !f5::tensor_map_bf16(&map, x, rows, cols, 64)) return (int)cudaErrorInvalidValue;
+  f5::probe_tma_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<f5::bf16*>(raw), row, col);
+  return (int)cudaGetLastError();
+}
+
+// x: [64, 64], y: [128, 64] bf16; out: [64, 128] fp32; register_a picks probe (6)
+extern "C" int f5_probe_wgmma(const void* x, const void* y, void* out, int register_a, int device,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_x, map_y;
+  if (!f5::tensor_map_bf16(&map_x, x, 64, 64, 64) || !f5::tensor_map_bf16(&map_y, y, 128, 64, 128))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (register_a)
+    f5::probe_wgmma_kernel<true><<<1, f5::kThreads, 0, s>>>(map_x, map_y, static_cast<float*>(out));
+  else
+    f5::probe_wgmma_kernel<false><<<1, f5::kThreads, 0, s>>>(map_x, map_y, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// f5_proj_gated_fwd (fused_linears.cu) at the output tile width bn (128 or
+// 256, d % bn == 0) instead of the one gemm_tile_n() picks
+extern "C" int f5_probe_tile_width(const void* a, const void* h, const void* gate, const void* w,
+                                   const void* b, void* out, int M, int din, int d, int bn,
+                                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!f5::gemm_dims_ok(M, d, din) || (bn != 128 && bn != 256) || d % bn != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(bn == 256 ? f5::launch_gated_residual_gemm<256>(a, w, b, h, gate, out, M, d, din, s)
+                         : f5::launch_gated_residual_gemm<128>(a, w, b, h, gate, out, M, d, din, s));
+}
 
 // x, y: [64, ld] bf16; out: [64, 64] fp32; cx, cy: first columns, multiples of 8
 extern "C" int f5_probe_slice_mma(const void* x, const void* y, void* out, int ld, int cx, int cy,

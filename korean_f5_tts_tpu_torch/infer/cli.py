@@ -2,7 +2,9 @@
 korean_f5_tts_tpu/infer/cli.py): python -m korean_f5_tts_tpu_torch.infer.cli.
 
 Runs on the card unless --device cpu is given (no card raises);
---compute_dtype casts the weights (bfloat16 is what the kernels take),
+--compute_dtype casts the weights (default: fp32, which the default path's
+kernels serve in their fp32 forms; bfloat16 runs the tensor-core kernels and
+is what --attn_path other than default and --attn_int8 take),
 --attn_path picks the attention half's kernels, --attn_int8 the int8
 attention kernel.
 
@@ -78,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                   help="cast the weights to this dtype (the kernels take bfloat16)")
+                   help="cast the weights to this dtype (default: float32 as loaded; the "
+                        "opt-in attention kernels take bfloat16 only)")
     p.add_argument("--attn_path", default="default", choices=list(ATTN_PATHS),
                    help="kernels of the attention half (ops/attention.py)")
     p.add_argument("--attn_int8", default=None, choices=["qk", "qkpv"],

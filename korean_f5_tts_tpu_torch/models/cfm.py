@@ -192,7 +192,8 @@ def _sample_core_vocos(params: dict, voc_params: dict, arch: DiTConfig, step_con
 
 def _compute_dtype(params: dict, default: torch.dtype) -> torch.dtype:
     """The sampler runs at the model's compute dtype: bf16 weights -> bf16
-    everything (the kernels take bf16 activations only)."""
+    everything (a kernel's operands are all of one dtype); fp32 weights keep
+    `default`."""
     return (torch.bfloat16 if any(t.dtype == torch.bfloat16 for t in _leaves(params))
             else default)
 

@@ -163,7 +163,10 @@ def redraw_zero_init(p: dict, seed: int = 0) -> dict:
 
 @functools.lru_cache(maxsize=8)
 def _freqs_cis_table(dim: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(precompute_freqs_cis(dim, PRECOMPUTE_MAX_POS)).to(device)
+    # made outside inference mode: the sampler may fill this cache and a training
+    # step read it, and autograd cannot save an inference tensor for its backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(precompute_freqs_cis(dim, PRECOMPUTE_MAX_POS)).to(device)
 
 
 def _average_upsample(text: torch.Tensor, text_mask: torch.Tensor) -> torch.Tensor:
@@ -271,8 +274,9 @@ def input_embedding(p: dict, x: torch.Tensor, cond: torch.Tensor, text_embed: to
 def _rope_table(seq_len: int, dim_head: int, device: torch.device,
                 dtype: torch.dtype = torch.float32):
     cos, sin = rope_cos_sin(seq_len, dim_head)
-    return (torch.from_numpy(cos).to(device=device, dtype=dtype),
-            torch.from_numpy(sin).to(device=device, dtype=dtype))
+    with torch.inference_mode(False):  # as _freqs_cis_table: training reads the cache too
+        return (torch.from_numpy(cos).to(device=device, dtype=dtype),
+                torch.from_numpy(sin).to(device=device, dtype=dtype))
 
 
 def _rope_for(attn_path: str, h: torch.Tensor, dim_head: int):

@@ -34,6 +34,10 @@ KERNELS = {
     "flash_prefix_rope": (flash_prefix, "launches_rope"),
     "flash_prefix_qkv": (flash_prefix, "launches_qkv"),
     "flash_prefix_i8": (flash_prefix, "launches_i8"),
+    # the fp32 forms of kernels A, B, C (what the offline entry points run by default)
+    "flash_prefix_f32": (flash_prefix, "launches_f32"),
+    "ff_block_f32": (ff_block, "launches_f32"),
+    "grouped_conv_f32": (grouped_conv, "launches_f32"),
 }
 
 

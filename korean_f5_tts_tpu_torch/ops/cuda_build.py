@@ -41,6 +41,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, kv_lens, out, H, n, d, scale_log2, device, stream
     "f5_flash_prefix_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "f5_flash_prefix_f32_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, kv_lens, out, lse, H, n, d, scale_log2, device, stream
     "f5_flash_prefix_fwd_lse": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
     # q, k, v, dO, dvec, lse, kv_lens, dq, H, n, d, scale_log2, sm_scale, device, stream
@@ -53,10 +54,12 @@ _SIGNATURES = {
     "f5_flash_prefix_dkv": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
     # q8, k8, v, c, sv, kv_lens, out, H, n, n_pad, pv_i8, device, stream
     "f5_flash_prefix_i8_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _P),
-    # h, sc, sh, gate, w1, b1, w2, b2, z, out, M, d, dff, eps, device, stream
-    "f5_ff_block_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # h, sc, sh, gate, w1, b1, w2, b2, z, stats, out, M, d, dff, eps, device, stream
+    "f5_ff_block_fwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
+    "f5_ff_block_f32_fwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
     # x, w, b, out, B, N, C, groups, taps, fuse_mish, device, stream
     "f5_grouped_conv_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "f5_grouped_conv_f32_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, w_scale, b, xq, xs, out, M, K, N, gelu, device, stream
     "f5_qmatmul_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # h, sc, sh, w0..w2, ws0..ws2, b0..b2, yq, ys, out, M, d, seg_n, nseg, eps,
@@ -67,8 +70,8 @@ _SIGNATURES = {
     # h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq, zs, out, M, d,
     # dff, eps, device, stream
     "f5_ff_block_int8_fwd": (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
-    # h, sc, sh, w0..w2, b0..b2, out, M, d, seg_n, nseg, eps, device, stream
-    "f5_ln_mod_matmul_fwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _P),
+    # h, sc, sh, w0..w2, b0..b2, stats, out, M, d, seg_n, nseg, eps, device, stream
+    "f5_ln_mod_matmul_fwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _P),
     # a, h, gate, w, b, out, M, din, d, device, stream
     "f5_proj_gated_fwd": (_P,) * 6 + (_I, _I, _I, _I, _P),
     # q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
@@ -81,6 +84,12 @@ _SIGNATURES = {
     "f5_probe_pair_store": (_P, _P, _P, _I, _P),
     # x, cos, sin, out, ld, device, stream
     "f5_probe_half_swap": (_P, _P, _P, _P, _I, _I, _P),
+    # x, raw, rows, cols, row, col, device, stream
+    "f5_probe_tma": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, out, register_a, device, stream
+    "f5_probe_wgmma": (_P, _P, _P, _I, _I, _P),
+    # a, h, gate, w, b, out, M, din, d, bn, device, stream
+    "f5_probe_tile_width": (_P,) * 6 + (_I, _I, _I, _I, _I, _P),
 }
 
 

@@ -17,7 +17,11 @@ import torch
 import torch.nn.functional as F
 
 from korean_f5_tts_tpu_torch.ops import cuda_build
-from korean_f5_tts_tpu_torch.ops.fused_linears import ln_mod_rows
+from korean_f5_tts_tpu_torch.ops.fused_linears import (
+    GEMM_MAX_LN_DIM,
+    ln_mod_rows,
+    ln_stats_scratch,
+)
 from korean_f5_tts_tpu_torch.ops.qmatmul import (
     check_int8_linear,
     check_tensor,
@@ -25,7 +29,8 @@ from korean_f5_tts_tpu_torch.ops.qmatmul import (
     quant_rows_reference,
 )
 
-launches = 0       # kernel B launches by ff_block_fused (not plain calls)
+launches = 0       # kernel B launches by ff_block_fused on bf16 operands (not plain calls)
+launches_f32 = 0   # kernel B's fp32 form, launches by ff_block_fused on fp32 operands
 launches_int8 = 0  # kernel 4 launches by ff_block_fused_int8
 
 
@@ -49,13 +54,18 @@ def ff_block_reference(h, sc, sh, gate, w1, b1, w2, b2, eps: float = 1e-6):
 
 
 def ff_block_fused(h, sc, sh, gate, w1, b1, w2, b2, eps: float = 1e-6):
-    """Kernel B wrapper: h [B, n, d] bf16, sc/sh/gate [d], w1 [dff, d],
-    b1 [dff], w2 [d, dff], b2 [d].
+    """Kernel B wrapper: h [B, n, d], sc/sh/gate [d], w1 [dff, d], b1 [dff],
+    w2 [d, dff], b2 [d], all bf16 or all fp32 (a mix raises TypeError); the
+    result has their dtype.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; nothing falls back.
+    CPU tensors take the plain version. CUDA tensors launch the kernel (the
+    wgmma core on bf16, the FFMA form on fp32) or raise; nothing falls back.
     """
-    global launches
+    global launches, launches_f32
+    operands = (h, sc, sh, gate, w1, b1, w2, b2)
+    if h.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != h.dtype for t in operands):
+        raise TypeError("ff_block: operands must be all bfloat16 or all float32, got "
+                        f"{[str(t.dtype) for t in operands]}")
     if h.device.type == "cpu":
         return ff_block_reference(h, sc, sh, gate, w1, b1, w2, b2, eps)
     d = h.shape[-1]
@@ -66,18 +76,23 @@ def ff_block_fused(h, sc, sh, gate, w1, b1, w2, b2, eps: float = 1e-6):
     for name, (t, want) in shapes.items():
         if tuple(t.shape) != want:
             raise ValueError(f"ff_block: {name} has shape {tuple(t.shape)}, want {want}")
-    if d % 128 or dff % 128:
-        raise ValueError(f"ff_block: d={d} and dff={dff} must be multiples of 128")
-    cuda_build.require_cuda("ff_block", h, sc, sh, gate, w1, b1, w2, b2,
-                            dtype=torch.bfloat16)
+    if d % 128 or dff % 128 or d > GEMM_MAX_LN_DIM:
+        raise ValueError(f"ff_block: d={d} and dff={dff} must be multiples of 128 and d at "
+                         f"most {GEMM_MAX_LN_DIM}")
+    cuda_build.require_cuda("ff_block", *operands, dtype=h.dtype)
     m = h.numel() // d
     z = torch.empty((m, dff), dtype=h.dtype, device=h.device)
+    stats = ln_stats_scratch(h)
     out = torch.empty_like(h)
     lib = cuda_build.library()
-    err = lib.f5_ff_block_fwd(
-        h.data_ptr(), sc.data_ptr(), sh.data_ptr(), gate.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), z.data_ptr(), out.data_ptr(),
-        m, d, dff, eps, h.device.index, cuda_build.stream_of(h))
+    ptrs = [t.data_ptr() for t in (*operands, z, stats, out)]
+    if h.dtype == torch.float32:
+        err = lib.f5_ff_block_f32_fwd(*ptrs, m, d, dff, eps, h.device.index,
+                                      cuda_build.stream_of(h))
+        cuda_build.check(err, "ff_block_f32_fwd")
+        launches_f32 += 1
+        return out
+    err = lib.f5_ff_block_fwd(*ptrs, m, d, dff, eps, h.device.index, cuda_build.stream_of(h))
     cuda_build.check(err, "ff_block_fwd")
     launches += 1
     return out

@@ -26,7 +26,8 @@ D = rowsum(dO * o) are fp32 [H, n] (the JAX arrays are [H, n, 1]). A row
 with no valid key has lse 0.
 
 Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
-kernel or raise (bf16 operands only; the training kernels d = 64 only).
+kernel or raise (kernel A on bf16 or fp32 operands, each form with its own
+launch counter; the others on bf16 only; the training kernels d = 64 only).
 flash_prefix_attention takes the autograd Function (kernel 10 forward,
 kernels 11 and 13 backward, as the JAX custom_vjp _fp_fwd/_fp_bwd does at
 :1353-1402) when a gradient is being taken, and kernel A otherwise.
@@ -45,7 +46,8 @@ MASK_VALUE = -1e37  # the JAX reference's finite mask logit
 I8_KEY_TILE = 64    # keys per tile of kernel 14: part of its arithmetic (p8 sees the running max)
 
 # kernel launches by the wrappers (not plain calls)
-launches = 0           # kernel A, flash_prefix_folded
+launches = 0           # kernel A, flash_prefix_folded on bf16 operands
+launches_f32 = 0       # kernel A's fp32 form, flash_prefix_folded on fp32 operands
 launches_lse = 0       # kernel 10, flash_prefix_folded_lse
 launches_dq_lsein = 0  # kernel 11, flash_prefix_dq_lsein
 launches_dq = 0        # kernel 12, flash_prefix_dq
@@ -287,7 +289,8 @@ def flash_prefix_i8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check(what: str, q, kv_lens, others, head_dims=(64,)) -> tuple[int, int, int]:
+def _check(what: str, q, kv_lens, others, head_dims=(64,),
+           dtypes=(torch.bfloat16,)) -> tuple[int, int, int]:
     """Shape, dtype and device checks of a launch; returns (H, n, d)."""
     if q.dim() != 3 or any(t.shape != q.shape for t in others):
         raise ValueError(f"{what}: q/k/v(/dO) must share one [H, n, d] shape, got "
@@ -298,11 +301,11 @@ def _check(what: str, q, kv_lens, others, head_dims=(64,)) -> tuple[int, int, in
     if kv_lens.shape != (H,) or kv_lens.dtype != torch.int32:
         raise ValueError(f"{what}: kv_lens must be int32 [{H}], got "
                          f"{kv_lens.dtype} {tuple(kv_lens.shape)}")
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in dtypes:
         raise TypeError(f"{what}: the kernel takes bf16 operands, got {q.dtype}; fp32 "
                         "operands are ROADMAP.md queue 2, 'fp32 operands for kernels A and "
                         "10-13'")
-    cuda_build.require_cuda(what, q, *others, dtype=torch.bfloat16)
+    cuda_build.require_cuda(what, q, *others, dtype=q.dtype)
     cuda_build.require_cuda(what, q, kv_lens)
     return H, n, d
 
@@ -317,17 +320,28 @@ def _rows(what: str, H: int, n: int, *rows) -> None:
 
 def flash_prefix_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_lens: torch.Tensor) -> torch.Tensor:
-    """Kernel A wrapper: [H, n, d] bf16 q/k/v (d 64 or 128), [H] int32 kv_lens."""
-    global launches
+    """Kernel A wrapper: [H, n, d] q/k/v (d 64 or 128), all bf16 or all fp32
+    (a mix raises TypeError), [H] int32 kv_lens; the result has their dtype.
+    On fp32 operands nothing is rounded below fp32 (the FFMA form)."""
+    global launches, launches_f32
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_prefix: q, k, v must be all bfloat16 or all float32, got "
+                        f"{[str(t.dtype) for t in (q, k, v)]}")
     if q.device.type == "cpu":
         return prefix_attention_reference(q, k, v, kv_lens)
-    H, n, d = _check("flash_prefix", q, kv_lens, (k, v), head_dims=(64, 128))
+    H, n, d = _check("flash_prefix", q, kv_lens, (k, v), head_dims=(64, 128),
+                     dtypes=(torch.bfloat16, torch.float32))
     out = torch.empty_like(q)
-    err = cuda_build.library().f5_flash_prefix_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        H, n, d, LOG2E / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
+    lib = cuda_build.library()
+    f32 = q.dtype == torch.float32
+    fwd = lib.f5_flash_prefix_f32_fwd if f32 else lib.f5_flash_prefix_fwd
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+              H, n, d, LOG2E / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_fwd")
-    launches += 1
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out
 
 

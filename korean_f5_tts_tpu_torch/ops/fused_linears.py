@@ -47,6 +47,13 @@ launches_proj_gated_int8 = 0   # kernel 6 launches by proj_gated_residual_int8
 
 MAX_SEGMENTS = 3  # linears one kernel-5 launch takes (q, k, v)
 
+GEMM_MAX_LN_DIM = 4096  # kernels B and 7 hold (1 + sc) and sh in shared memory as fp32
+
+
+def ln_stats_scratch(h: torch.Tensor) -> torch.Tensor:
+    """[2, rows] fp32 scratch for the row statistics of kernels B and 7."""
+    return torch.empty((2, h.numel() // h.shape[-1]), dtype=torch.float32, device=h.device)
+
 
 def ln_mod_rows(h: torch.Tensor, sc: torch.Tensor, sh: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
@@ -85,7 +92,8 @@ def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
     three bf16 linears of one shape ({w [n, d], b [n]}) -> [..., n * len(ps)].
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; nothing falls back. Any number of rows; d % 32 == 0, n % 128 == 0.
+    raise; nothing falls back. Any number of rows; d % 32 == 0, d <= 4096,
+    n % 128 == 0.
     """
     global launches_ln_mod
     cuda_build.require_no_grad("ln_mod_matmul", h, sc, sh, *(t for p in ps for t in p.values()))
@@ -95,8 +103,9 @@ def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
         raise ValueError(f"ln_mod_matmul: 1 to {MAX_SEGMENTS} linears, got {len(ps)}")
     d = h.shape[-1]
     n = ps[0]["w"].shape[0]
-    if d % 32 or n % 128:
-        raise ValueError(f"ln_mod_matmul: d={d} must be a multiple of 32 and n={n} of 128")
+    if d % 32 or n % 128 or d > GEMM_MAX_LN_DIM:
+        raise ValueError(f"ln_mod_matmul: d={d} must be a multiple of 32, at most "
+                         f"{GEMM_MAX_LN_DIM}, and n={n} a multiple of 128")
     for name, v in (("sc", sc), ("sh", sh)):
         check_tensor("ln_mod_matmul", name, v, (d,), torch.bfloat16)
     for p in ps:
@@ -109,10 +118,11 @@ def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
     m = h.numel() // d
     out = torch.empty((*h.shape[:-1], n * len(ps)), dtype=h.dtype, device=h.device)
     seg = [ps[min(i, len(ps) - 1)] for i in range(MAX_SEGMENTS)]
+    stats = ln_stats_scratch(h)
     err = cuda_build.library().f5_ln_mod_matmul_fwd(
         h.data_ptr(), sc.data_ptr(), sh.data_ptr(), *(p["w"].data_ptr() for p in seg),
-        *(p["b"].data_ptr() for p in seg), out.data_ptr(), m, d, n, len(ps), eps,
-        h.device.index, cuda_build.stream_of(h))
+        *(p["b"].data_ptr() for p in seg), stats.data_ptr(), out.data_ptr(), m, d, n, len(ps),
+        eps, h.device.index, cuda_build.stream_of(h))
     cuda_build.check(err, "ln_mod_matmul_fwd")
     launches_ln_mod += 1
     return out

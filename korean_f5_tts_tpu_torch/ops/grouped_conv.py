@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 from korean_f5_tts_tpu_torch.ops import cuda_build
 
-launches = 0  # kernel launches by grouped_conv1d_mish (not plain calls)
+launches = 0      # kernel C launches by grouped_conv1d_mish on bf16 operands (not plain calls)
+launches_f32 = 0  # kernel C's fp32 form, launches by grouped_conv1d_mish on fp32 operands
 KERNEL_GROUP_WIDTH = 64  # the only C / groups the kernel takes
 KERNEL_MAX_TAPS = 33
 
@@ -33,21 +34,43 @@ def grouped_conv1d_mish_reference(x, w, b, groups: int, fuse_mish: bool = True):
     return y.to(x.dtype)
 
 
+def grouped_conv1d_mish_train(x, w, b, groups: int, fuse_mish: bool = True):
+    """The training path's conv: the plain convolution in x's dtype, the bias
+    added and Mish taken in that dtype, for autograd to differentiate. This is
+    the JAX package's _xla_ref (korean_f5_tts_tpu/ops/grouped_conv.py:126-137),
+    which its custom_vjp runs in the forward rule and differentiates in the
+    backward rule. On bf16 it rounds after the conv, after the bias and inside
+    Mish, where kernel C's plain version rounds once."""
+    k = w.shape[0]
+    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype).permute(2, 1, 0), None, padding=k // 2,
+                 groups=groups).transpose(1, 2)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    if fuse_mish:
+        y = y * torch.tanh(F.softplus(y))
+    return y
+
+
 def grouped_conv1d_mish(x, w, b, groups: int = 16, fuse_mish: bool = True):
-    """Kernel C wrapper. CPU tensors take the plain version. CUDA tensors
-    launch the kernel or raise; nothing falls back.
+    """Kernel C wrapper: x, w and b (if any) all bf16 or all fp32 (a mix
+    raises TypeError). CPU tensors take the plain version. CUDA tensors
+    launch the kernel (tensor cores on bf16, the FFMA form on fp32) or raise;
+    nothing falls back.
 
     When a gradient is being taken (grad mode on and an input that requires
-    one) the plain version runs on any device, and autograd differentiates
-    it: the JAX package's custom_vjp does the same, running the XLA conv in
-    its forward rule and differentiating it in its backward rule
-    (korean_f5_tts_tpu/ops/grouped_conv.py:145-163), since under remat the
-    kernel's forward would only be run again for the backward.
+    one) the convolution runs as plain tensor code in x's dtype on any device
+    (grouped_conv1d_mish_train) and autograd differentiates it, as the JAX
+    package's custom_vjp does, since under remat the kernel's forward would
+    only be run again for the backward.
     """
-    global launches
-    grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, w, b))
-    if x.device.type == "cpu" or grad:
+    global launches, launches_f32
+    tensors = (x, w) if b is None else (x, w, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return grouped_conv1d_mish_train(x, w, b, groups, fuse_mish)
+    if x.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != x.dtype for t in tensors):
+        raise TypeError("grouped_conv: operands must be all bfloat16 or all float32, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if x.device.type == "cpu":
         return grouped_conv1d_mish_reference(x, w, b, groups, fuse_mish)
     B, N, C = x.shape
     k = w.shape[0]
@@ -58,15 +81,18 @@ def grouped_conv1d_mish(x, w, b, groups: int = 16, fuse_mish: bool = True):
         raise ValueError(f"grouped_conv: kernel size {k} must be odd and <= {KERNEL_MAX_TAPS}")
     if tuple(w.shape) != (k, C // groups, C):
         raise ValueError(f"grouped_conv: w has shape {tuple(w.shape)}, want {(k, C // groups, C)}")
-    tensors = (x, w) if b is None else (x, w, b)
     if b is not None and tuple(b.shape) != (C,):
         raise ValueError(f"grouped_conv: b has shape {tuple(b.shape)}, want {(C,)}")
-    cuda_build.require_cuda("grouped_conv", *tensors, dtype=torch.bfloat16)
+    cuda_build.require_cuda("grouped_conv", *tensors, dtype=x.dtype)
     out = torch.empty_like(x)
     lib = cuda_build.library()
-    err = lib.f5_grouped_conv_fwd(
-        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        B, N, C, groups, k, int(fuse_mish), x.device.index, cuda_build.stream_of(x))
+    f32 = x.dtype == torch.float32
+    fwd = lib.f5_grouped_conv_f32_fwd if f32 else lib.f5_grouped_conv_fwd
+    err = fwd(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
+              B, N, C, groups, k, int(fuse_mish), x.device.index, cuda_build.stream_of(x))
     cuda_build.check(err, "grouped_conv_fwd")
-    launches += 1
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out

@@ -4,14 +4,26 @@ the same idioms for the TPU kernel).
 
     python -m korean_f5_tts_tpu_torch.scripts.probe_hopper
 
-Three tiny hand-written kernels (csrc/probe_hopper.cu), each held against
-two lines of torch and printed OK or FAIL by name:
+Tiny hand-written kernels (csrc/probe_hopper.cu), each held against two
+lines of torch and printed OK or FAIL by name:
   slice_mma   a 64-column slice of a wider row-major array fed to an mma
               product (a head read in place from the fused qkv rows);
   pair_store  two heads' results stored side by side into one merged row
               (the [B, n, heads * 64] output written without a merge pass);
   half_swap   the half swap of the rotary embedding inside a 64-wide head
               (the loader that ropes rows as it stages them).
+and the idioms of the TMA + wgmma product core (csrc/gemm_bf16.cuh):
+  tma_swizzle a TMA tile load into 128-byte-swizzled shared memory, signalled
+              on an mbarrier, inside the array and hanging over its edge
+              (zero fill): the bytes must lie where hopper.cuh says they do;
+  wgmma_ss    wgmma m64n128k16 with both operands read through
+              shared-memory descriptors of that layout, against a product;
+  wgmma_rs    the same with the A operand read by ldmatrix from the
+              swizzled tile, changed in registers (2x + 1) and fed to wgmma
+              from registers: the form kernels B and 7 compute LN in;
+  tile_width  kernel 8's product (out = h + gate * (a @ W^T + b)) at each of
+              the core's two output tile widths, forced (the kernels' entry
+              points pick one by the card's SM count).
 Unlike the Mosaic script it raises on a failure. It needs a CUDA card.
 """
 
@@ -21,6 +33,7 @@ import torch
 
 from korean_f5_tts_tpu_torch.ops import cuda_build
 from korean_f5_tts_tpu_torch.ops.flash_prefix import rope_reference
+from korean_f5_tts_tpu_torch.ops.fused_linears import proj_gated_residual_reference
 from korean_f5_tts_tpu_torch.utils.misc import require_device
 
 
@@ -57,12 +70,51 @@ def _probes(dev: torch.device) -> dict:
                      "probe_half_swap")
     want = rope_reference(x[None, None, :, :64], cos, sin)[0, 0]
     out["half_swap"] = (roped, want, 0.0625)  # <= 1 bf16 ulp at |x| < 8
+
+    # a 64 x 64 box of a [100, 200] array: inside it, and over its lower right edge
+    x = rnd(100, 200)
+    for label, row, col in (("tma_swizzle", 8, 64), ("tma_swizzle_edge", 72, 176)):
+        raw = torch.empty((64, 64), dtype=torch.bfloat16, device=dev)
+        cuda_build.check(lib.f5_probe_tma(x.data_ptr(), raw.data_ptr(), 100, 200, row, col,
+                                          dev.index, stream), "probe_tma")
+        out[label] = (raw, swizzled_box(x, row, col), 0.0)
+
+    a, b = rnd(64, 64), rnd(128, 64)
+    for label, register_a in (("wgmma_ss", 0), ("wgmma_rs", 1)):
+        prod = torch.empty((64, 128), dtype=torch.float32, device=dev)
+        cuda_build.check(lib.f5_probe_wgmma(a.data_ptr(), b.data_ptr(), prod.data_ptr(),
+                                            register_a, dev.index, stream), "probe_wgmma")
+        lhs = (2.0 * a.float() + 1.0).to(torch.bfloat16) if register_a else a
+        out[label] = (prod, lhs.float() @ b.float().t(), 1e-3)
+
+    a, h, gate = rnd(200, 128), rnd(200, 256), rnd(256) * 0.25
+    p = {"w": rnd(256, 128) * 128 ** -0.5, "b": rnd(256)}
+    want = proj_gated_residual_reference(a, h, gate, p)
+    for bn in (128, 256):
+        res = torch.empty_like(h)
+        cuda_build.check(lib.f5_probe_tile_width(
+            a.data_ptr(), h.data_ptr(), gate.data_ptr(), p["w"].data_ptr(), p["b"].data_ptr(),
+            res.data_ptr(), 200, 128, 256, bn, dev.index, stream), "probe_tile_width")
+        out[f"tile_width_{bn}"] = (res, want, 0.0625)  # <= 1 bf16 ulp at |out| < 16
     torch.cuda.synchronize(dev)
     return out
 
 
+def swizzled_box(x: torch.Tensor, row: int, col: int) -> torch.Tensor:
+    """What a 64 x 64 box of x at (row, col) looks like in 128-byte-swizzled
+    shared memory: zeros past x's edges, and the 8-element chunk c of box row
+    r at chunk c ^ (r % 8)."""
+    box = torch.zeros((64, 64), dtype=x.dtype, device=x.device)
+    part = x[row:row + 64, col:col + 64]
+    box[:part.shape[0], :part.shape[1]] = part
+    r = torch.arange(64, device=x.device)[:, None]
+    c = torch.arange(8, device=x.device)[None, :]
+    src = (c ^ (r % 8))  # the physical chunk c holds logical chunk c ^ (r % 8)
+    return box.reshape(64, 8, 8).gather(1, src[:, :, None].expand(64, 8, 8)).reshape(64, 64)
+
+
 def run(device="cuda") -> dict[str, float]:
-    """Run the three probes; returns name -> max abs error, raises on a FAIL."""
+    """Run the probes; returns name -> max abs error, raises on a FAIL."""
     dev = require_device(device)
     if dev.type != "cuda":
         raise RuntimeError("probe_hopper runs CUDA kernels: it needs a card")

@@ -556,7 +556,7 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                        help="cast the weights to this dtype (the kernels take bfloat16; "
+                        help="cast the weights to this dtype (the int8 and opt-in kernels take bfloat16; "
                              "default: bfloat16 on cuda, float32 on cpu)")
     parser.add_argument("--quantize", action="store_true",
                         help="int8 block linears (load_model(..., quantize=True))")

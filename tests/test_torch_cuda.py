@@ -87,9 +87,116 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((2, 16, 32), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         flash_prefix.flash_prefix_folded(q, q, q, torch.ones(2, dtype=torch.int32, device=dev))
-    f32 = torch.zeros((2, 16, 64), device=dev)
-    with pytest.raises(TypeError):  # the kernel takes bf16 only
-        flash_prefix.flash_prefix_folded(f32, f32, f32, torch.ones(2, dtype=torch.int32, device=dev))
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    f16 = torch.zeros((2, 16, 64), dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError):  # bf16 or fp32 only
+        flash_prefix.flash_prefix_folded(f16, f16, f16, lens)
+    f32, b16 = f16.float(), f16.to(torch.bfloat16)
+    with pytest.raises(TypeError):  # all operands of one dtype
+        flash_prefix.flash_prefix_folded(f32, b16, f32, lens)
+    with pytest.raises(TypeError):
+        grouped_conv.grouped_conv1d_mish(torch.zeros((1, 16, 1024), device=dev),
+                                         torch.zeros((31, 64, 1024), dtype=torch.bfloat16,
+                                                     device=dev), None, groups=16)
+    with pytest.raises(TypeError, match="fp32 operands for kernels A and 10-13"):
+        flash_prefix.flash_prefix_folded_lse(f32, f32, f32, lens)  # the training kernels: bf16
+
+
+# --- the fp32 forms of kernels A, B, C -------------------------------------------
+
+
+def _close_f32(got, want):
+    """fp32 against fp32: sums in another order, 1e-4 relative (L2) and 1e-4
+    of the output's scale per element."""
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm().clamp_min(1e-30)).item() <= 1e-4
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("n,d,lens", [(200, 64, [0, 1, 64, 65, 200]), (130, 128, [130, 7, 128, 0]),
+                                      (1, 64, [1])])
+def test_fp32_prefix_attention_kernel(dev, n, d, lens):
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q, k, v = (torch.randn((len(lens), n, d), generator=gen, device=dev) for _ in range(3))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = flash_prefix.launches_f32, flash_prefix.launches
+    got = flash_prefix.flash_prefix_folded(q, k, v, kv)
+    assert (flash_prefix.launches_f32, flash_prefix.launches) == (before[0] + 1, before[1])
+    live = [i for i, length in enumerate(lens) if length > 0]
+    for i, length in enumerate(lens):
+        if length == 0:  # no valid key: zeros, as the bf16 form
+            assert got[i].abs().max().item() == 0
+    _close_f32(got[live], flash_prefix.prefix_attention_reference(q[live], k[live], v[live],
+                                                                  kv[live]))
+
+
+@pytest.mark.parametrize("m", [1, 127, 200, 3073])
+def test_fp32_ff_block_kernel(dev, m):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    d, dff = 256, 512
+
+    def r(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    args = (r((1, m, d)), r((d,), 0.2), r((d,), 0.2), r((d,)), r((dff, d), d ** -0.5),
+            r((dff,), 0.1), r((d, dff), dff ** -0.5), r((d,), 0.1))
+    before = ff_block.launches_f32, ff_block.launches
+    got = ff_block.ff_block_fused(*args)
+    assert (ff_block.launches_f32, ff_block.launches) == (before[0] + 1, before[1])
+    _close_f32(got, ff_block.ff_block_reference(*args))
+
+
+@pytest.mark.parametrize("bias,fuse_mish", [(True, True), (False, True), (True, False),
+                                            (False, False)])
+def test_fp32_grouped_conv_kernel(dev, bias, fuse_mish):
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((2, 100, 128), generator=gen, device=dev)
+    w = torch.randn((31, 64, 128), generator=gen, device=dev) * (64 * 31) ** -0.5
+    b = torch.randn((128,), generator=gen, device=dev) * 0.1 if bias else None
+    before = grouped_conv.launches_f32, grouped_conv.launches
+    got = grouped_conv.grouped_conv1d_mish(x, w, b, groups=2, fuse_mish=fuse_mish)
+    assert (grouped_conv.launches_f32, grouped_conv.launches) == (before[0] + 1, before[1])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain conv is cuDNN's: hold it to fp32
+    try:
+        want = grouped_conv.grouped_conv1d_mish_reference(x, w, b, groups=2, fuse_mish=fuse_mish)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    _close_f32(got, want)
+
+
+def test_offline_entry_points_run_in_fp32_by_default(dev, tmp_path):
+    """F5TTS() bare and the CLI without --compute_dtype (full width, seeded
+    random weights) synthesize through the fp32 forms of A, B and C."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch import api
+    from korean_f5_tts_tpu_torch.infer import cli
+    from korean_f5_tts_tpu_torch.models.dit import redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    ref = str(tmp_path / "ref.wav")
+    ts = np.arange(2 * 24_000) / 24_000
+    wavfile.write(ref, 24_000, (0.3 * np.sin(2 * np.pi * (150 + 400 * ts) * ts) * 32767)
+                  .astype(np.int16))
+    tts = api.F5TTS()
+    redraw_zero_init(tts.ema_model.params, seed=1)
+    reset_launch_counts()
+    wav, sr, spec = tts.infer(ref, "A reference.", "Say this, please.", nfe_step=2, seed=1,
+                              show_info=lambda m: None)
+    counts = launch_counts()
+    assert sr == 24_000 and np.isfinite(wav).all() and np.abs(wav).max() > 0
+    assert counts["flash_prefix_f32"] == counts["ff_block_f32"] == 2 * 22
+    assert counts["grouped_conv_f32"] == 2 * 2
+    assert counts["flash_prefix"] == counts["ff_block"] == counts["grouped_conv"] == 0
+    reset_launch_counts()
+    cli.main(["-r", ref, "-s", "A reference.", "-t", "Say this, please.", "-o", str(tmp_path),
+              "-w", "cli.wav", "--nfe_step", "2", "--seed", "1"])
+    counts = launch_counts()
+    assert counts["flash_prefix_f32"] == counts["ff_block_f32"] == 2 * 22
+    assert counts["flash_prefix"] == counts["ff_block"] == 0
+    assert wavfile.read(tmp_path / "cli.wav")[1].size > 0
 
 
 # --- int8 kernels 9, 5, 6, 4 ---------------------------------------------------
@@ -281,7 +388,10 @@ def _linear(dev, gen, n, k):
     return {"w": _bf16((n, k), dev, gen, k ** -0.5), "b": _bf16((n,), dev, gen, k ** -0.5)}
 
 
-@pytest.mark.parametrize("rows,segments", [((2, 100, 256), 3), ((1, 64, 256), 1), ((3, 7, 256), 2)])
+@pytest.mark.parametrize("rows,segments", [((2, 100, 256), 3), ((1, 64, 256), 1), ((3, 7, 256), 2),
+                                           ((1, 1, 256), 3), ((1, 63, 256), 2),
+                                           ((1, 65, 256), 1), ((1, 3072, 256), 3),
+                                           ((1, 3073, 256), 2)])
 def test_ln_mod_matmul_kernel(dev, rows, segments):
     gen = torch.Generator(device=dev).manual_seed(11)
     h = _bf16(rows, dev, gen)
@@ -294,7 +404,8 @@ def test_ln_mod_matmul_kernel(dev, rows, segments):
     _close(got, fused_linears.ln_mod_matmul_reference(h, sc, sh, ps))
 
 
-@pytest.mark.parametrize("rows", [(2, 100), (1, 64), (3, 7)])
+@pytest.mark.parametrize("rows", [(2, 100), (1, 64), (3, 7), (1, 1), (1, 63), (1, 65), (1, 3072),
+                                  (1, 3073)])
 def test_proj_gated_residual_kernel(dev, rows):
     gen = torch.Generator(device=dev).manual_seed(12)
     a, h = _bf16((*rows, 512), dev, gen), _bf16((*rows, 256), dev, gen)
@@ -304,6 +415,41 @@ def test_proj_gated_residual_kernel(dev, rows):
     got = fused_linears.proj_gated_residual(a, h, gate, p)
     assert fused_linears.launches_proj_gated == before + 1
     _close(got, fused_linears.proj_gated_residual_reference(a, h, gate, p))
+    # an all-zero gate gives h back, whatever the product
+    torch.testing.assert_close(fused_linears.proj_gated_residual(a, h, torch.zeros_like(gate), p),
+                               h, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 3072, 3073])
+@pytest.mark.parametrize("d,dff", [(256, 512), (1024, 2048), (128, 384)])
+def test_ff_block_kernel_on_ragged_rows_and_both_tile_widths(dev, m, d, dff):
+    """d, dff multiples of 256 take 128- or 256-wide tiles by the waves; 384
+    only takes 128."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    args = [_bf16((1, m, d), dev, gen), _bf16((d,), dev, gen, 0.2), _bf16((d,), dev, gen, 0.2),
+            _bf16((d,), dev, gen), _bf16((dff, d), dev, gen, d ** -0.5),
+            _bf16((dff,), dev, gen, 0.1), _bf16((d, dff), dev, gen, dff ** -0.5),
+            _bf16((d,), dev, gen, 0.1)]
+    before = ff_block.launches
+    got = ff_block.ff_block_fused(*args)
+    assert ff_block.launches == before + 1
+    _close(got, ff_block.ff_block_reference(*args))
+    args[3] = torch.zeros_like(args[3])  # all-zero gate: the block is the identity
+    torch.testing.assert_close(ff_block.ff_block_fused(*args), args[0], rtol=0, atol=0)
+
+
+def test_product_core_takes_a_k_that_is_no_multiple_of_its_step(dev):
+    """d = 96: one full 64-wide k step and half of one, zero-filled by TMA."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    h = _bf16((1, 70, 96), dev, gen)
+    sc, sh = _bf16((96,), dev, gen, 0.3), _bf16((96,), dev, gen, 0.3)
+    ps = [_linear(dev, gen, 128, 96)]
+    _close(fused_linears.ln_mod_matmul(h, sc, sh, ps),
+           fused_linears.ln_mod_matmul_reference(h, sc, sh, ps))
+    a, res, gate = _bf16((1, 70, 96), dev, gen), _bf16((1, 70, 128), dev, gen), _bf16((128,), dev, gen)
+    p = _linear(dev, gen, 128, 96)
+    _close(fused_linears.proj_gated_residual(a, res, gate, p),
+           fused_linears.proj_gated_residual_reference(a, res, gate, p))
 
 
 def _rope_tables(dev, n):
@@ -382,7 +528,9 @@ def test_probe_hopper_idioms(dev):
     from korean_f5_tts_tpu_torch.scripts import probe_hopper
 
     errs = probe_hopper.run(dev)
-    assert set(errs) == {"slice_mma", "pair_store", "half_swap"}
+    assert set(errs) == {"slice_mma", "pair_store", "half_swap", "tma_swizzle",
+                         "tma_swizzle_edge", "wgmma_ss", "wgmma_rs", "tile_width_128",
+                         "tile_width_256"}
 
 
 # --- kernel 14: int8 prefix attention --------------------------------------------

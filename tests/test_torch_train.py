@@ -421,6 +421,22 @@ def test_remat_recompute_draws_the_same_dropout_masks():
     assert rel_err(flat[0].numpy(), flat[1].numpy()) > 1e-2
 
 
+def test_a_training_step_after_sampling_in_the_same_process():
+    """The sampler runs in inference mode and fills the caches of rope and
+    text-position tables; a gradient taken afterwards at the same length reads
+    those caches, so their tensors must not be inference tensors."""
+    _, pcfg, _, pp = _pair()
+    batch = _batch(9)
+    pdit._rope_table.cache_clear()
+    pdit._freqs_cis_table.cache_clear()
+    mel, _ = pcfm.cfm_sample(pp, pcfg, batch["mel"][:1, :40], batch["text"][:1], N, steps=2,
+                             seed=0, duration_bucket=None)
+    assert mel.shape == (1, N, 100) and pdit._rope_table.cache_info().currsize > 0
+    loss, grads = pstep.loss_and_grads(pp, {k: t(v) for k, v in batch.items()}, 3, pcfg)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+    assert pdit._rope_table.cache_info().hits > 0  # the step read what the sampler cached
+
+
 def test_bench_train_runs_on_the_cpu():
     out = bench_train.run(frames=256, seq_len=128, iters=1, device="cpu", dim=64, depth=1)
     assert out["metric"] == "train_frames_per_s" and out["value"] > 0 and out["step_ms"] > 0
