@@ -13,7 +13,10 @@ Phases (any failure raises and exits non-zero):
      training: 10, 11, 12, 13; the opt-in attention paths: 7, 8, 18, 19;
      B, 7 and 8 on the TMA + wgmma core with their achieved TFLOP/s and
      share of the bound, 7 held to be no slower than the library composition
-     it replaces;
+     it replaces; 4 and 5 on the int8 TMA + wgmma core with their TOP/s,
+     share of the bound and the mma.sync core's time, at ragged rows, 1 and 3
+     segments, a d that is no multiple of the 128-deep k step, and each tile
+     width forced;
      int8 attention: 14, in both modes, with its quantization pass timed on
      its own and its error against kernel A on the same inputs)
      against its plain PyTorch version at the main-path shapes, plus ragged,
@@ -93,6 +96,13 @@ object with the kernels' numbers (launches: the serving runs of phases 3, 7
 and 9(a), the backward entry point, the Trainer's 4 updates and phase 8); the
 last line is {"ok": true, "device": {...}}.
 
+    python3 chip_smoke.py --ab PARENT
+
+instead times kernels B, 7, 8, 4, 5, 6 and 9 of the checkout at PARENT (for
+example the parent commit unpacked by `git archive`) and of this one under
+one timer, in turns parent, change, change, parent, and fails if B, 7 or 8
+moved by more than 5%.
+
 It needs a CUDA card and the repository checkout it sits in; it imports
 nothing of JAX.
 """
@@ -107,7 +117,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PORT_PKG = ROOT / "korean_f5_tts_tpu_torch"
 REPLACES = {
     "flash_prefix": "korean_f5_tts_tpu/ops/flash_prefix.py:558",
     "ff_block": "korean_f5_tts_tpu/ops/ff_block.py:40",
@@ -178,26 +187,38 @@ _BLOCKER = []
 
 
 def cuda_time_ms(fn, runs: int = 20) -> float:
-    """Mean device time of fn() over `runs` launches, after one warm-up. A
-    ~2 ms product is enqueued first, so that the host queues all the launches
-    while the device is still busy with it: a wrapper costs the host 10-35
-    microseconds a call, more than the shortest kernels take, and without the
-    head start the events would time the host."""
+    """Mean device time of fn() over `runs` launches, after one warm-up. ~2 ms
+    products are enqueued first, so that the host queues all the launches
+    while the device is still busy with them: a wrapper costs the host 10-35
+    microseconds a call (more for one that checks three weights), more than
+    the shortest kernels take, and without the head start the events would
+    time the host. If the device had already reached the timed launches when
+    the host had queued the last of them, and they took it less than 1.5x the
+    host's time to queue them, the head start was too short: the measurement
+    is repeated behind twice as many products."""
     import torch
 
     if not _BLOCKER:
         _BLOCKER.append(torch.zeros((8192, 8192), dtype=torch.bfloat16, device="cuda"))
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.mm(_BLOCKER[0], _BLOCKER[0])
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / runs
+    for head in (1, 2, 4, 8, 16):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(head):
+            torch.mm(_BLOCKER[0], _BLOCKER[0])
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / runs
+        caught_up = start.query()  # the device is already past the head start
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / runs
+        if not caught_up or ms > 1.5 * host_ms:
+            break
+    return ms
 
 
 def _tensors(*objs):
@@ -526,9 +547,29 @@ def check_qmatmul(gen, dev) -> dict:
     return {"max_abs_err": max_abs, **times}
 
 
+# kernels 4 and 5 on the mma.sync core they had before, timed by this file's
+# cuda_time_ms (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6, kernel table)
+PARENT_FF_INT8_MS = 0.1777
+PARENT_LN_MOD_INT8_MS = 0.1131
+
+
+def tile_width(m: int, n: int, seg_n: int) -> int:
+    """The output tile width the int8 core picks on this card for an [m, n]
+    product of seg_n-column segments (csrc/gemm_bf16.cuh:gemm_tile_n)."""
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+
+    return cuda_build.library().f5_tile_width(m, n, seg_n, 1, 0)
+
+
+def _against_parent(name: str, ms: float, parent_ms: float) -> None:
+    print(f"  {name} on the int8 TMA + wgmma core: {ms:.4f} ms against the mma.sync core's "
+          f"{parent_ms} ms (PERF.md section 6): {parent_ms / ms:.2f}x")
+
+
 def check_ln_mod_int8(gen, dev) -> dict:
     import torch
 
+    from korean_f5_tts_tpu_torch.ops import cuda_build
     from korean_f5_tts_tpu_torch.ops import fused_linears as fl
 
     print(f"kernel 5, int8 LN + modulate + qkv product (rel bound {INT8_REL:.0e}: one "
@@ -536,18 +577,50 @@ def check_ln_mod_int8(gen, dev) -> dict:
     h = torch.randn((2, 1536, 1024), generator=gen, device=dev).to(torch.bfloat16)
     sc, sh = _uni(gen, dev, (1024,), 0.3), _uni(gen, dev, (1024,), 0.3)
     qps = [_int8_linear(gen, dev, 1024, 1024) for _ in range(3)]
-    max_abs, _ = compare("ln_mod_matmul_int8 main m=3072 d=1024 n=3x1024",
+    max_abs, _ = compare(f"ln_mod_matmul_int8 main m=3072 d=1024 n=3x1024 (tile width "
+                         f"{tile_width(3072, 3072, 1024)})",
                          fl.ln_mod_matmul_int8(h, sc, sh, qps),
                          fl.ln_mod_matmul_int8_reference(h, sc, sh, qps), INT8_REL)
-    hr = _edge_rows(gen, dev, 1000, 1024)[None]
-    zero = torch.zeros_like(sh)
-    for label, shift in (("", sh), (", sh = 0 (zero y row)", zero)):
-        compare(f"ln_mod_matmul_int8 ragged m=1000 zero+outlier rows{label}",
-                fl.ln_mod_matmul_int8(hr, sc, shift, qps),
-                fl.ln_mod_matmul_int8_reference(hr, sc, shift, qps), INT8_REL)
+    # ragged rows with a zero and an outlier row; one and three segments; a
+    # 384-wide segment (128-wide tiles only); d = 1040, no multiple of the
+    # core's 128-deep k step (and past the 1024-value row pass)
+    for m, d, n, nseg in ((1000, 1024, 1024, 3), (1000, 1024, 1024, 1), (65, 1024, 1024, 3),
+                          (1000, 1024, 384, 3), (1000, 1040, 1024, 2)):
+        hr = _edge_rows(gen, dev, m, d)[None]
+        scr, shr = (sc, sh) if d == 1024 else (_uni(gen, dev, (d,), 0.3), _uni(gen, dev, (d,), 0.3))
+        seg = qps[:nseg] if (d, n) == (1024, 1024) else [
+            _int8_linear(gen, dev, n, d) for _ in range(nseg)]
+        for label, shift in (("", shr), (", sh = 0 (zero y row)", torch.zeros_like(shr))):
+            compare(f"ln_mod_matmul_int8 m={m} d={d} n={nseg}x{n} zero+outlier rows{label} "
+                    f"(tile width {tile_width(m, nseg * n, n)})",
+                    fl.ln_mod_matmul_int8(hr, scr, shift, seg),
+                    fl.ln_mod_matmul_int8_reference(hr, scr, shift, seg), INT8_REL)
     times = _timed(lambda: fl.ln_mod_matmul_int8(h, sc, sh, qps),
                    lambda: fl.ln_mod_matmul_int8_reference(h, sc, sh, qps),
                    2.0 * 3072 * 1024 * 3072, (h, sc, sh, qps, h, h, h))
+    _against_parent("kernel 5", times["ms"], PARENT_LN_MOD_INT8_MS)
+    # both tile widths, forced, beside gemm_tile_n's pick (at m = 1000 the
+    # 256-wide tiles are one wave, 96 tiles, and the 128-wide two, 192)
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
+    for m in (3072, 1000):
+        hm = h.reshape(-1, 1024)[:m].contiguous()
+        want = fl.ln_mod_matmul_int8_reference(hm, sc, sh, qps)
+        yq, ys = torch.empty((m, 1024), dtype=torch.int8, device=dev), torch.empty(m, device=dev)
+        out, ms = torch.empty_like(want), {}
+        for bn in (128, 256):
+            def forced(bn=bn):
+                cuda_build.check(lib.f5_ln_mod_matmul_int8_width(
+                    hm.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+                    *(p["w_int8"].data_ptr() for p in qps), *(p["w_scale"].data_ptr() for p in qps),
+                    *(p["b"].data_ptr() for p in qps), yq.data_ptr(), ys.data_ptr(),
+                    out.data_ptr(), m, 1024, 1024, 3, 1e-6, bn, dev.index, stream),
+                    "ln_mod_matmul_int8_width")
+            out.zero_()
+            forced()
+            compare(f"kernel 5 at tile width {bn}, m={m}", out, want, INT8_REL)
+            ms[bn] = cuda_time_ms(forced)
+        print(f"  kernel 5 tile widths at m={m} (picked: {tile_width(m, 3072, 1024)}): 128 -> "
+              f"{ms[128]:.4f} ms, 256 -> {ms[256]:.4f} ms, ratio {ms[128] / ms[256]:.3f}")
     return {"max_abs_err": max_abs, **times}
 
 
@@ -580,6 +653,7 @@ def check_proj_gated_int8(gen, dev) -> dict:
 def check_ff_int8(gen, dev) -> dict:
     import torch
 
+    from korean_f5_tts_tpu_torch.ops import cuda_build
     from korean_f5_tts_tpu_torch.ops import ff_block as fb
 
     print(f"kernel 4, int8 FF half-block (rel bound {INT8_REL:.0e}: tie flips of the fp32 "
@@ -588,19 +662,52 @@ def check_ff_int8(gen, dev) -> dict:
     sc, sh, gate = (_uni(gen, dev, (1024,), bound) for bound in (0.3, 0.3, 1.0))
     qp_in, qp_out = _int8_linear(gen, dev, 2048, 1024), _int8_linear(gen, dev, 1024, 2048)
     args = (sc, sh, gate, qp_in, qp_out)
-    max_abs, _ = compare("ff_block_int8 main m=3072 d=1024 dff=2048",
+    max_abs, _ = compare(f"ff_block_int8 main m=3072 d=1024 dff=2048 (tile widths "
+                         f"{tile_width(3072, 2048, 2048)}, {tile_width(3072, 1024, 1024)})",
                          fb.ff_block_fused_int8(h, *args), fb.ff_block_int8_reference(h, *args),
                          INT8_REL)
-    hr = _edge_rows(gen, dev, 1000, 1024)[None]
-    zero = torch.zeros_like(sh)
-    for label, shift in (("", sh), (", sh = 0 (zero y row)", zero)):
-        rargs = (sc, shift, gate, qp_in, qp_out)
-        compare(f"ff_block_int8 ragged m=1000 zero+outlier rows{label}",
-                fb.ff_block_fused_int8(hr, *rargs), fb.ff_block_int8_reference(hr, *rargs),
-                INT8_REL)
+    # ragged rows with a zero and an outlier row at the main widths; 65 rows
+    # (128-wide tiles by the waves); dff = 1152 (128-wide tiles only, and a
+    # z row pass that is no power of two)
+    for m, d, dff in ((1000, 1024, 2048), (65, 1024, 2048), (1000, 1024, 1152)):
+        hr = _edge_rows(gen, dev, m, d)[None]
+        qi, qo = (qp_in, qp_out) if dff == 2048 else (_int8_linear(gen, dev, dff, d),
+                                                      _int8_linear(gen, dev, d, dff))
+        for label, shift in (("", sh), (", sh = 0 (zero y row)", torch.zeros_like(sh))):
+            rargs = (sc, shift, gate, qi, qo)
+            compare(f"ff_block_int8 m={m} d={d} dff={dff} zero+outlier rows{label} (tile widths "
+                    f"{tile_width(m, dff, dff)}, {tile_width(m, d, d)})",
+                    fb.ff_block_fused_int8(hr, *rargs), fb.ff_block_int8_reference(hr, *rargs),
+                    INT8_REL)
     times = _timed(lambda: fb.ff_block_fused_int8(h, *args),
                    lambda: fb.ff_block_int8_reference(h, *args), 4.0 * 3072 * 1024 * 2048,
                    (h, args, h))
+    _against_parent("kernel 4", times["ms"], PARENT_FF_INT8_MS)
+    # each product's tile width, forced: (first, second) product; at m = 1000
+    # every width is one wave, so the ratios are the tile costs
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
+    for m in (3072, 1000):
+        hm = h.reshape(-1, 1024)[:m].contiguous()
+        want = fb.ff_block_int8_reference(hm, *args)
+        yq, zq = (torch.empty((m, k), dtype=torch.int8, device=dev) for k in (1024, 2048))
+        ys, zs = torch.empty(m, device=dev), torch.empty(m, device=dev)
+        z, out, ms = torch.empty((m, 2048), device=dev), torch.empty_like(want), {}
+        for bns in ((128, 128), (128, 256), (256, 128), (256, 256)):
+            def forced(bns=bns):
+                cuda_build.check(lib.f5_ff_block_int8_widths(
+                    hm.data_ptr(), sc.data_ptr(), sh.data_ptr(), gate.data_ptr(),
+                    *(qp_in[k].data_ptr() for k in ("w_int8", "w_scale", "b")),
+                    *(qp_out[k].data_ptr() for k in ("w_int8", "w_scale", "b")),
+                    yq.data_ptr(), ys.data_ptr(), z.data_ptr(), zq.data_ptr(), zs.data_ptr(),
+                    out.data_ptr(), m, 1024, 2048, 1e-6, *bns, dev.index, stream),
+                    "ff_block_int8_widths")
+            out.zero_()
+            forced()
+            compare(f"kernel 4 at tile widths {bns}, m={m}", out, want, INT8_REL)
+            ms[bns] = cuda_time_ms(forced)
+        print(f"  kernel 4 tile widths at m={m} (picked: {tile_width(m, 2048, 2048)}, "
+              f"{tile_width(m, 1024, 1024)}): " + ", ".join(
+                  f"{bns} -> {t:.4f} ms" for bns, t in ms.items()))
     return {"max_abs_err": max_abs, **times}
 
 
@@ -948,6 +1055,101 @@ def check_rope_attention(gen, dev) -> dict[str, dict]:
              default_qkv)
     out["flash_prefix_qkv"] = {"max_abs_err": e19, **t19}
     return out
+
+
+# ---------------------------------------------------------------------------
+# --ab: the product cores' kernels of two checkouts under one timer
+# ---------------------------------------------------------------------------
+
+# the kernels a change to the product cores (csrc/hopper.cuh, gemm_bf16.cuh,
+# gemm_int8.cuh) can move: B, 7, 8 (bf16), 4, 5 (int8), and 6, 9, which stay
+# on int8_gemm.cuh, as the control
+AB_KERNELS = {"ff_block": "B", "ln_mod_matmul": "7", "proj_gated_residual": "8",
+              "ff_block_int8": "4", "ln_mod_matmul_int8": "5",
+              "proj_gated_residual_int8": "6", "qmatmul": "9"}
+AB_UNMOVED = ("ff_block", "ln_mod_matmul", "proj_gated_residual")  # within 5% or fail
+AB_BOUND = 1.05
+# their times when the bf16 core was built (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 6, kernel table)
+BF16_CORE_MS = {"ff_block": 0.0824, "ln_mod_matmul": 0.0566, "proj_gated_residual": 0.0198}
+
+
+def core_timings(dev) -> dict[str, float]:
+    """ms at the main shape (m = 3072, d = 1024, dff = 2048) of the
+    AB_KERNELS, through the public wrappers of whichever
+    korean_f5_tts_tpu_torch is first on sys.path, each held against its
+    plain version before it is timed."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import ff_block as fb
+    from korean_f5_tts_tpu_torch.ops import fused_linears as fl
+    from korean_f5_tts_tpu_torch.ops import qmatmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h, a = (torch.randn((2, 1536, 1024), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    sc, sh, gate = (_uni(gen, dev, (1024,), bound) for bound in (0.3, 0.3, 1.0))
+    w1, w2 = _linear(gen, dev, 2048, 1024), _linear(gen, dev, 1024, 2048)
+    ff = (h, sc, sh, gate, w1["w"], w1["b"], w2["w"], w2["b"])
+    ps = [_linear(gen, dev, 1024, 1024) for _ in range(3)]
+    qp_in, qp_out = _int8_linear(gen, dev, 2048, 1024), _int8_linear(gen, dev, 1024, 2048)
+    qps = [_int8_linear(gen, dev, 1024, 1024) for _ in range(3)]
+    x = a.reshape(3072, 1024)
+    calls = {
+        "ff_block": (lambda: fb.ff_block_fused(*ff), lambda: fb.ff_block_reference(*ff), 5e-3),
+        "ln_mod_matmul": (lambda: fl.ln_mod_matmul(h, sc, sh, ps),
+                          lambda: fl.ln_mod_matmul_reference(h, sc, sh, ps), 5e-3),
+        "proj_gated_residual": (lambda: fl.proj_gated_residual(a, h, gate, ps[0]),
+                                lambda: fl.proj_gated_residual_reference(a, h, gate, ps[0]),
+                                5e-3),
+        "ff_block_int8": (lambda: fb.ff_block_fused_int8(h, sc, sh, gate, qp_in, qp_out),
+                          lambda: fb.ff_block_int8_reference(h, sc, sh, gate, qp_in, qp_out),
+                          INT8_REL),
+        "ln_mod_matmul_int8": (lambda: fl.ln_mod_matmul_int8(h, sc, sh, qps),
+                               lambda: fl.ln_mod_matmul_int8_reference(h, sc, sh, qps),
+                               INT8_REL),
+        "proj_gated_residual_int8": (
+            lambda: fl.proj_gated_residual_int8(a, h, gate, qps[0]),
+            lambda: fl.proj_gated_residual_int8_reference(a, h, gate, qps[0]), INT8_REL),
+        "qmatmul": (lambda: qm.qmatmul(x, qps[1]["w_int8"], qps[1]["w_scale"], qps[1]["b"]),
+                    lambda: qm.qmatmul_reference(x, qps[1]["w_int8"], qps[1]["w_scale"],
+                                                 qps[1]["b"]), INT8_REL),
+    }
+    out = {}
+    for name, (fn, plain, rel) in calls.items():
+        compare(f"kernel {AB_KERNELS[name]} ({name}) main shape", fn(), plain(), rel)
+        out[name] = cuda_time_ms(fn)
+    return out
+
+
+def ab_timings(parent: Path, card: str) -> None:
+    """core_timings of the checkout at `parent` and of this one, each in a
+    process of its own (both packages have one name), in turns parent,
+    change, change, parent; prints the table and fails if B, 7 or 8 of the
+    change is more than 5% slower than of the parent (mean against mean)."""
+    runs = []
+    for tree in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--timings-of",
+                               str(tree.resolve())], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n")
+            fail(f"--timings-of {tree} exited {proc.returncode}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    print(f"ms at the main shape, one timer (cuda_time_ms), {card}; parent {parent}")
+    print("| kernel | parent | change | change | parent | change / parent |")
+    print("|---|---|---|---|---|---|")
+    ratio = {}
+    for name, label in AB_KERNELS.items():
+        t = [r[name] for r in runs]
+        ratio[name] = (t[1] + t[2]) / (t[0] + t[3])
+        print(f"| {label} ({name}) | " + " | ".join(f"{v:.4f}" for v in t)
+              + f" | {ratio[name]:.3f} |")
+    moved = [AB_KERNELS[n] for n in AB_UNMOVED if ratio[n] > AB_BOUND]
+    print(f"B, 7, 8 (bf16 core) change / parent: "
+          + ", ".join(f"{ratio[n]:.3f}" for n in AB_UNMOVED)
+          + f" (bound {AB_BOUND}): {'ok' if not moved else 'FAIL'}")
+    if moved:
+        fail(f"kernels {', '.join(moved)} are slower than in the parent")
 
 
 # ---------------------------------------------------------------------------
@@ -2009,6 +2211,14 @@ def main(argv=None) -> int:
                              "opt-in attn_path (with phase 7), one with int8 attention (with "
                              "phase 9) and one training step; tables to this file (int8) and "
                              "to its .bf16, .<attn_path>, .attn_int8 and .train siblings")
+    parser.add_argument("--ab", type=Path, default=None, metavar="PARENT",
+                        help="instead of the phases: time kernels B, 7, 8, 4, 5, 6 and 9 of "
+                             "the checkout at PARENT and of this one under one timer, in turns "
+                             "parent, change, change, parent (a process each), and fail if B, "
+                             "7 or 8 moved by more than 5%%")
+    parser.add_argument("--timings-of", type=Path, default=None, metavar="TREE",
+                        help="one turn of --ab: the kernels of the checkout at TREE, as a JSON "
+                             "line")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2018,11 +2228,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    if not (PORT_PKG / "csrc").is_dir():
-        print(f"chip_smoke: the port package is missing next to this script "
-              f"({PORT_PKG})", file=sys.stderr)
+    tree = ROOT if args.timings_of is None else args.timings_of.resolve()
+    if not (tree / "korean_f5_tts_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the port package is missing in {tree}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(tree))
     # the plain versions are fp32 references: full fp32 products and convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2032,6 +2242,12 @@ def main(argv=None) -> int:
     card = card_line()
     print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    if args.ab is not None:
+        ab_timings(args.ab, card)
+        return 0
+    if args.timings_of is not None:
+        print(json.dumps(core_timings(dev)))
+        return 0
 
     from korean_f5_tts_tpu_torch.ops import KERNELS, cuda_build
 
@@ -2063,6 +2279,11 @@ def main(argv=None) -> int:
         from korean_f5_tts_tpu_torch.scripts import probe_hopper
 
         probe_hopper.run(dev)
+        # across calls only a hint (another card or host may differ): --ab holds
+        # B, 7, 8 to their parent's times under one timer
+        print("B, 7, 8 (bf16 core) against their times in PERF.md section 6: " + ", ".join(
+            f"{AB_KERNELS[n]} {results[n]['ms']:.4f} / {BF16_CORE_MS[n]} = "
+            f"{results[n]['ms'] / BF16_CORE_MS[n]:.3f}" for n in AB_UNMOVED))
 
     counts = dict.fromkeys(KERNELS, 0)
     if phases & {3, 4, 5, 7} or args.profile is not None:

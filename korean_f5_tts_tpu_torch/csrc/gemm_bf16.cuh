@@ -177,8 +177,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   else wgmma_ss_n128(d, da, db, scale_d);
 }
 
-// the producer's loop: one thread keeps the ring full
-template <int BN>
+// the producer's loop: one thread keeps the ring full; a k step is
+// kStepCols elements (kTileK bf16 or kTileK8 int8: 128 bytes of a row)
+template <int BN, int kStepCols = kTileK>
 __device__ __forceinline__ void produce_tiles(unsigned char* smem, uint64_t* full, uint64_t* empty,
                                               const CUtensorMap* map_a, const CUtensorMap* map_b,
                                               int m0, int n0, int kt_total) {
@@ -187,8 +188,8 @@ __device__ __forceinline__ void produce_tiles(unsigned char* smem, uint64_t* ful
     mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);  // passes at once on the first round
     unsigned char* tile = smem + s * stage_bytes<BN>();
     mbar_arrive_expect_tx(&full[s], stage_bytes<BN>());
-    tma_load_2d(tile, map_a, &full[s], kt * kTileK, m0);
-    tma_load_2d(tile + kATileBytes, map_b, &full[s], kt * kTileK, n0);
+    tma_load_2d(tile, map_a, &full[s], kt * kStepCols, m0);
+    tma_load_2d(tile + kATileBytes, map_b, &full[s], kt * kStepCols, n0);
   }
 }
 
@@ -452,9 +453,9 @@ cudaError_t launch_ln_mod_gemm(const void* h, const void* sc, const void* sh,
   cudaError_t err = launch_ln_stats<bf16>(h, stats, M, d, eps, stream);
   if (err != cudaSuccess) return err;
   CUtensorMap map_h, map_w[3];
-  if (!tensor_map_bf16(&map_h, h, M, d, kBM)) return cudaErrorInvalidValue;
+  if (!tensor_map(&map_h, h, M, d, kBM, kMapBf16)) return cudaErrorInvalidValue;
   for (int i = 0; i < 3; ++i)
-    if (!tensor_map_bf16(&map_w[i], w[i], seg_n, d, BN)) return cudaErrorInvalidValue;
+    if (!tensor_map(&map_w[i], w[i], seg_n, d, BN, kMapBf16)) return cudaErrorInvalidValue;
   const int d_pad = (d + kTileK - 1) / kTileK * kTileK;
   static std::atomic<bool> ready[kMaxDevices];
   err = allow_smem(ln_mod_gemm_kernel<BN, kGelu>, gemm_smem_bytes<BN>(kMaxLnDim), ready);
@@ -474,7 +475,7 @@ cudaError_t launch_gated_residual_gemm(const void* a, const void* w, const void*
                                        const void* gate, void* out, int M, int d, int K,
                                        cudaStream_t stream) {
   CUtensorMap map_a, map_w;
-  if (!tensor_map_bf16(&map_a, a, M, K, kBM) || !tensor_map_bf16(&map_w, w, d, K, BN))
+  if (!tensor_map(&map_a, a, M, K, kBM, kMapBf16) || !tensor_map(&map_w, w, d, K, BN, kMapBf16))
     return cudaErrorInvalidValue;
   const int smem = gemm_smem_bytes<BN>(0);
   static std::atomic<bool> ready[kMaxDevices];
@@ -497,13 +498,14 @@ inline bool gemm_dims_ok(int M, int seg_n, int k) {
 // The output tile width an [M, n] product runs at on the current device: the
 // one whose waves (tiles over the SMs, one block each, rounded up) times its
 // tile cost is least, so that the last wave is not half empty; the wider tile
-// on a tie (it reads each operand tile for twice the products). A 128-wide
-// tile is weighed at 0.7 of a 256-wide one: alone in a wave it measures 0.58
-// (chip_smoke.py's tile-width table at M = 1000, H100), but two waves of it
-// take 1.06 of one wave of the wider tile (the same table at M = 3072), so
-// near-ties go to the wider tile. A tile never straddles two weight
-// segments, so 256 needs seg_n to be a multiple of it.
-inline int gemm_tile_n(int M, int n, int seg_n) {
+// on a tie (it reads each operand tile for twice the products). narrow_cost10
+// is a 128-wide tile's cost in tenths of a 256-wide one's. The bf16 core's 7:
+// alone in a wave a 128-wide tile measures 0.58 (chip_smoke.py's tile-width
+// table at M = 1000, H100), but two waves of it take 1.06 of one wave of the
+// wider tile (the same table at M = 3072), so near-ties go to the wider tile.
+// The int8 core passes its own (gemm_int8.cuh:kI8NarrowCost10). A tile never
+// straddles two weight segments, so 256 needs seg_n to be a multiple of it.
+inline int gemm_tile_n(int M, int n, int seg_n, int narrow_cost10 = 7) {
   if (seg_n % 256 != 0) return 128;
   static std::atomic<int> sm_count[kMaxDevices];
   int dev = 0;
@@ -518,7 +520,7 @@ inline int gemm_tile_n(int M, int n, int seg_n) {
   const int rows = (M + kBM - 1) / kBM;
   const int waves_128 = (rows * (n / 128) + sms - 1) / sms;
   const int waves_256 = (rows * (n / 256) + sms - 1) / sms;
-  return 10 * waves_256 <= 7 * waves_128 ? 256 : 128;
+  return 10 * waves_256 <= narrow_cost10 * waves_128 ? 256 : 128;
 }
 
 }  // namespace

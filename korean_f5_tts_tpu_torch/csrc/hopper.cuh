@@ -1,23 +1,27 @@
-// Hopper (sm_90a) building blocks of the TMA-fed, wgmma product core
-// (gemm_bf16.cuh) and of the probes that hold each idiom against two lines of
-// torch (probe_hopper.cu): mbarriers, TMA tile loads into 128-byte-swizzled
-// shared memory, wgmma with A from registers or from shared memory, and the
-// host side's tensor maps.
+// Hopper (sm_90a) building blocks of the TMA-fed, wgmma product cores
+// (gemm_bf16.cuh, gemm_int8.cuh) and of the probes that hold each idiom
+// against two lines of torch (probe_hopper.cu): mbarriers, TMA tile loads
+// into 128-byte-swizzled shared memory, wgmma with A from registers or from
+// shared memory (bf16 into fp32, s8 into s32), and the host side's tensor
+// maps.
 //
-// Shared-memory tiles are [rows][64] bf16: one row is one 128-byte swizzle
-// span, a tile starts on a 1024-byte boundary, and the 16-byte chunk c of
-// row r sits at chunk c ^ (r & 7). TMA writes that layout
-// (CU_TENSOR_MAP_SWIZZLE_128B), a wgmma descriptor of layout type B128 reads
-// it, and swz_chunk_addr() addresses it for ldmatrix.
+// Shared-memory tiles are [rows][128 bytes]: 64 bf16 or 128 int8 a row. One
+// row is one 128-byte swizzle span, a tile starts on a 1024-byte boundary,
+// and the 16-byte chunk c of row r sits at chunk c ^ (r & 7). TMA writes that
+// layout (CU_TENSOR_MAP_SWIZZLE_128B), a wgmma descriptor of layout type B128
+// reads it, and swz_chunk_addr() addresses it for ldmatrix. The geometry is
+// the same in bytes for both element types, so one ring stage holds a k
+// depth of 64 bf16 (four wgmma k16 steps) or of 128 int8 (four k32 steps),
+// and a k step is 32 bytes along a row either way.
 //
 // Tensor maps: cuTensorMapEncodeTiled lives in libcuda, not in the runtime
 // library the kernels link. The link line stays as it is: encode_tiled_fn()
 // opens libcuda.so.1 by name (a process that has a CUDA context has it mapped
 // already, so this takes a handle to that copy) and looks the symbol up with
-// dlsym. A map is a pure function
-// of (pointer, rows, cols, box rows), so maps are cached under that key and
-// a cached map can never be stale: a weight's map is encoded once, not once
-// per launch.
+// dlsym. A map is a pure function of (pointer, rows, cols, box rows, element
+// type), so maps are cached under that key and a cached map can never be
+// stale: a weight's map is encoded once, not once per launch, and a bf16 and
+// an int8 map of one pointer are two entries.
 #pragma once
 
 #include <cuda.h>
@@ -31,6 +35,7 @@
 namespace f5 {
 
 constexpr int kTileK = 64;                  // bf16 per 128-byte swizzle span
+constexpr int kTileK8 = 128;                // int8 per 128-byte swizzle span
 constexpr int kRowBytes = kTileK * 2;       // one tile row
 constexpr int kSwizzleAtom = 8 * kRowBytes;  // 8 rows: the period of the pattern
 
@@ -55,8 +60,10 @@ struct MapKey {
   const void* ptr;
   uint64_t rows, cols;
   uint32_t box_rows;
+  CUtensorMapDataType type;
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && rows == o.rows && cols == o.cols && box_rows == o.box_rows;
+    return ptr == o.ptr && rows == o.rows && cols == o.cols && box_rows == o.box_rows &&
+           type == o.type;
   }
 };
 
@@ -65,19 +72,24 @@ struct MapKeyHash {
     size_t h = reinterpret_cast<size_t>(k.ptr);
     h = h * 1000003u ^ k.rows;
     h = h * 1000003u ^ k.cols;
-    return h * 1000003u ^ k.box_rows;
+    h = h * 1000003u ^ k.box_rows;
+    return h * 1000003u ^ static_cast<size_t>(k.type);
   }
 };
 
-// Tensor map of a row-major [rows, cols] bf16 array for boxes of box_rows x 64
-// elements in the swizzled layout; reads past either edge give zeros. cols
-// must be a multiple of 8 and ptr 16-byte aligned. Returns false when the
-// libcuda symbol is missing or refuses the arguments.
-inline bool tensor_map_bf16(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t cols,
-                            uint32_t box_rows) {
+constexpr CUtensorMapDataType kMapBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+constexpr CUtensorMapDataType kMapInt8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // TMA copies bytes
+
+// Tensor map of a row-major [rows, cols] array of `type` (kMapBf16 or
+// kMapInt8) for boxes of box_rows x 128 bytes in the swizzled layout; reads
+// past either edge give zeros. A row must be a multiple of 16 bytes and ptr
+// 16-byte aligned. Returns false when the libcuda symbol is missing or
+// refuses the arguments.
+inline bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t cols,
+                       uint32_t box_rows, CUtensorMapDataType type) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{ptr, rows, cols, box_rows};
+  const MapKey key{ptr, rows, cols, box_rows, type};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
@@ -86,13 +98,14 @@ inline bool tensor_map_bf16(CUtensorMap* out, const void* ptr, uint64_t rows, ui
   }
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
+  const uint32_t elem_bytes = type == kMapInt8 ? 1 : 2;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {kTileK, box_rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {kRowBytes / elem_bytes, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   CUtensorMap map;
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (encode(&map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   if (cache.size() >= 4096) cache.clear();  // activations' pointers recur; a bound all the same
@@ -193,11 +206,17 @@ __device__ __forceinline__ void wgmma_fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void wgmma_fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // Fragment layouts (PTX ISA, "wgmma .m64nNk16"), warp w of the warpgroup,
 // g = lane / 4, t = lane % 4: the A registers are those of mma.m16n8k16 for
 // rows 16w .. 16w + 15 (mma.cuh), and d[4j], d[4j + 1] are row 16w + g,
 // columns 8j + 2t, 8j + 2t + 1; d[4j + 2], d[4j + 3] the same columns of row
-// 16w + g + 8.
+// 16w + g + 8. The s32 accumulator of .m64nNk32 .s8 lies the same way.
 
 // d[64] (+)= A (64 x 16, registers) . B^T (B: [128][16] k-major in shared memory)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -370,6 +389,93 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, 
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64] (+)= A (64 x 32 s8, k-major in shared memory) . B^T (B: [128][32] s8,
+// k-major), exact s32 sums. 8-bit wgmma takes no transpose: both operands must
+// be k-major, which they are (activations [M, K], weights [n, K]).
+__device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[128] (+)= A (64 x 32 s8, k-major in shared memory) . B^T (B: [256][32] s8,
+// k-major), exact s32 sums. 8-bit wgmma takes no transpose: both operands must
+// be k-major, which they are (activations [M, K], weights [n, K]).
+__device__ __forceinline__ void wgmma_ss_s8_n256(int (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]),
+        "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]),
+        "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
+        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -1,6 +1,11 @@
-// Dynamic-int8 building blocks of the int8 kernels (qmatmul.cu,
-// fused_linears_int8.cu, ff_block_int8.cu): per-row activation quantization
-// and an int8 tensor-core product with a fused fp32 epilogue.
+// Dynamic-int8 building blocks of kernels 6 (fused_linears_int8.cu:
+// f5_proj_gated_int8_fwd) and 9 (qmatmul.cu): per-row activation
+// quantization and an int8 mma.sync product with a fused fp32 epilogue.
+// Kernels 4 and 5 left this product for the TMA + wgmma core of
+// gemm_int8.cuh, which still takes load8, the warp reductions, i8_gelu_tanh
+// and kMaxSegments from here; 6 and 9 follow it next, and then
+// i8_gemm_kernel and quant_rows_kernel (whose LN and fp32 sources nothing
+// instantiates any more) go.
 //
 // The function is the TPU kernels' (korean_f5_tts_tpu/ops/ff_block.py:94-98,
 // fused_linears.py:103-106, qmatmul.py:25-28). For each row r of fp32 values y:

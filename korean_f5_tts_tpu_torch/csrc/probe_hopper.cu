@@ -12,8 +12,16 @@
 // operand computed in registers from an ldmatrix read of a swizzled tile.
 // A seventh entry point runs kernel 8's product at a forced output tile
 // width, so that the tile cost gemm_tile_n() weighs waves with can be timed.
+//
+// The int8 core (gemm_int8.cuh) rests on the same layout with 8-bit
+// elements: an int8 TMA box (128 int8 a 128-byte row) lands swizzled like a
+// bf16 one (probe (4) with an int8 tensor map), and wgmma m64nNk32
+// .s32.s8.s8 with both operands read through shared-memory descriptors,
+// four k32 steps of one 128-deep stage, the descriptor advancing 32 bytes a
+// step (probe (7), N = 128 and 256). f5_tile_width says which width
+// gemm_tile_n() picks for a product, so that a test can cover both.
 #include "flash_prefix.cuh"
-#include "gemm_bf16.cuh"
+#include "gemm_int8.cuh"
 
 namespace f5 {
 namespace {
@@ -79,33 +87,36 @@ probe_half_swap_kernel(const bf16* __restrict__ x, const bf16* __restrict__ cos,
   for (int i = tid; i < 64 * kD; i += kThreads) out[i] = sX[(i / kD) * kLD + i % kD];
 }
 
-// one thread arms the barrier and asks for the tiles; every thread waits
+// one thread arms the barrier and asks for the tiles (64 rows of A, b_rows
+// of B); every thread waits
 __device__ __forceinline__ void probe_load(unsigned char* tile_a, const CUtensorMap* map_a,
                                            unsigned char* tile_b, const CUtensorMap* map_b,
-                                           uint64_t* bar, int col, int row_a, int row_b) {
+                                           uint64_t* bar, int col, int row_a, int row_b,
+                                           int b_rows) {
   if (threadIdx.x == 0) {
     mbar_init(bar, 1);
     mbar_init_fence();
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_arrive_expect_tx(bar, (64 + (tile_b ? 128 : 0)) * kRowBytes);
+    mbar_arrive_expect_tx(bar, (64 + (tile_b ? b_rows : 0)) * kRowBytes);
     tma_load_2d(tile_a, map_a, bar, col, row_a);
     if (tile_b) tma_load_2d(tile_b, map_b, bar, col, row_b);
   }
   mbar_wait(bar, 0);
 }
 
-// (4) a 64 x 64 box at (row, col) of x, by TMA; raw: the 8 KB of shared
-// memory as they lie (row r, 16-byte chunk c at chunk c ^ (r & 7))
+// (4) a box of 64 rows x 128 bytes (64 bf16 or 128 int8) at (row, col) of x,
+// by TMA; raw: the 8 KB of shared memory as they lie (row r, 16-byte chunk c
+// at chunk c ^ (r & 7))
 __global__ void __launch_bounds__(kThreads)
-probe_tma_kernel(const __grid_constant__ CUtensorMap map, bf16* __restrict__ raw, int row,
-                 int col) {
+probe_tma_kernel(const __grid_constant__ CUtensorMap map, unsigned char* __restrict__ raw,
+                 int row, int col) {
   __shared__ __align__(1024) unsigned char tile[64 * kRowBytes];
   __shared__ uint64_t bar;
-  probe_load(tile, &map, nullptr, nullptr, &bar, col, row, 0);
-  const bf16* src = reinterpret_cast<const bf16*>(tile);
-  for (int i = threadIdx.x; i < 64 * kTileK; i += kThreads) raw[i] = src[i];
+  probe_load(tile, &map, nullptr, nullptr, &bar, col, row, 0, 0);
+  for (int i = threadIdx.x; i < 64 * kRowBytes / 16; i += kThreads)
+    reinterpret_cast<int4*>(raw)[i] = reinterpret_cast<const int4*>(tile)[i];
 }
 
 // (5), (6) out[64, 128] fp32 = A . B^T over k = 64 for A = x[0:64, 0:64] (5)
@@ -117,7 +128,7 @@ probe_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   __shared__ __align__(1024) unsigned char tile_a[64 * kRowBytes];
   __shared__ __align__(1024) unsigned char tile_b[128 * kRowBytes];
   __shared__ uint64_t bar;
-  probe_load(tile_a, &map_x, tile_b, &map_y, &bar, 0, 0, 0);
+  probe_load(tile_a, &map_x, tile_b, &map_y, &bar, 0, 0, 0, 128);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float acc[64];
 #pragma unroll
@@ -155,20 +166,81 @@ probe_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
+// (7) out[64, N] s32 = x[0:64, 0:128] . y[0:N, 0:128]^T, int8 operands, four
+// k32 steps
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+probe_wgmma_i8_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_y, int* __restrict__ out) {
+  __shared__ __align__(1024) unsigned char tile_a[64 * kRowBytes];
+  __shared__ __align__(1024) unsigned char tile_b[N * kRowBytes];
+  __shared__ uint64_t bar;
+  probe_load(tile_a, &map_x, tile_b, &map_y, &bar, 0, 0, 0, N);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+  const uint64_t da = wgmma_desc(tile_a), db = wgmma_desc(tile_b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTileK8 / 32; ++kk) {
+    if constexpr (N == 256) wgmma_ss_s8_n256(acc, da + 2 * kk, db + 2 * kk, kk != 0);
+    else wgmma_ss_s8_n128(acc, da + 2 * kk, db + 2 * kk, kk != 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_regs(acc);
+  const int row = warp * 16 + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    out[row * N + col] = acc[4 * j];
+    out[row * N + col + 1] = acc[4 * j + 1];
+    out[(row + 8) * N + col] = acc[4 * j + 2];
+    out[(row + 8) * N + col + 1] = acc[4 * j + 3];
+  }
+}
+
 }  // namespace
 }  // namespace f5
 
-// x: [rows, cols] bf16 (cols % 8 == 0); raw: [64, 64] bf16; the box starts at
-// (row, col) and may hang over either edge
+// x: [rows, cols] bf16 (int8 == 0, cols % 8 == 0) or int8 (int8 != 0, cols %
+// 16 == 0); raw: the 8 KB box of 64 rows x 128 bytes as shared memory holds
+// it; the box starts at (row, col) and may hang over either edge
 extern "C" int f5_probe_tma(const void* x, void* raw, int rows, int cols, int row, int col,
-                            int device, void* stream) {
+                            int int8, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map;
-  if (cols % 8 || !f5::tensor_map_bf16(&map, x, rows, cols, 64)) return (int)cudaErrorInvalidValue;
+  if ((cols * (int8 ? 1 : 2)) % 16 ||
+      !f5::tensor_map(&map, x, rows, cols, 64, int8 ? f5::kMapInt8 : f5::kMapBf16))
+    return (int)cudaErrorInvalidValue;
   f5::probe_tma_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<f5::bf16*>(raw), row, col);
+      map, static_cast<unsigned char*>(raw), row, col);
   return (int)cudaGetLastError();
+}
+
+// x: [64, 128], y: [n, 128] int8; out: [64, n] int32; n 128 or 256
+extern "C" int f5_probe_wgmma_i8(const void* x, const void* y, void* out, int n, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_x, map_y;
+  if ((n != 128 && n != 256) || !f5::tensor_map(&map_x, x, 64, 128, 64, f5::kMapInt8) ||
+      !f5::tensor_map(&map_y, y, n, 128, n, f5::kMapInt8))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* o = static_cast<int*>(out);
+  if (n == 256) f5::probe_wgmma_i8_kernel<256><<<1, f5::kThreads, 0, s>>>(map_x, map_y, o);
+  else f5::probe_wgmma_i8_kernel<128><<<1, f5::kThreads, 0, s>>>(map_x, map_y, o);
+  return (int)cudaGetLastError();
+}
+
+// the output tile width (128 or 256) the bf16 core (int8 == 0) or the int8
+// core runs an [M, n] product with segments of seg_n columns at on this device
+extern "C" int f5_tile_width(int M, int n, int seg_n, int int8, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return 0;
+  return int8 ? f5::gemm_tile_n(M, n, seg_n, f5::kI8NarrowCost10) : f5::gemm_tile_n(M, n, seg_n);
 }
 
 // x: [64, 64], y: [128, 64] bf16; out: [64, 128] fp32; register_a picks probe (6)
@@ -177,7 +249,8 @@ extern "C" int f5_probe_wgmma(const void* x, const void* y, void* out, int regis
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map_x, map_y;
-  if (!f5::tensor_map_bf16(&map_x, x, 64, 64, 64) || !f5::tensor_map_bf16(&map_y, y, 128, 64, 128))
+  if (!f5::tensor_map(&map_x, x, 64, 64, 64, f5::kMapBf16) ||
+      !f5::tensor_map(&map_y, y, 128, 64, 128, f5::kMapBf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (register_a)

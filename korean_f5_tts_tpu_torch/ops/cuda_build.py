@@ -65,11 +65,15 @@ _SIGNATURES = {
     # h, sc, sh, w0..w2, ws0..ws2, b0..b2, yq, ys, out, M, d, seg_n, nseg, eps,
     # device, stream
     "f5_ln_mod_matmul_int8_fwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _P),
+    # the same, then the product's tile width bn (0: gemm_tile_n's pick), device, stream
+    "f5_ln_mod_matmul_int8_width": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _P),
     # a, h, gate, w, ws, b, aq, as, out, M, din, d, device, stream
     "f5_proj_gated_int8_fwd": (_P,) * 9 + (_I, _I, _I, _I, _P),
     # h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq, zs, out, M, d,
     # dff, eps, device, stream
     "f5_ff_block_int8_fwd": (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
+    # the same, then the two products' tile widths bn1, bn2, device, stream
+    "f5_ff_block_int8_widths": (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _I, _P),
     # h, sc, sh, w0..w2, b0..b2, stats, out, M, d, seg_n, nseg, eps, device, stream
     "f5_ln_mod_matmul_fwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _P),
     # a, h, gate, w, b, out, M, din, d, device, stream
@@ -84,10 +88,14 @@ _SIGNATURES = {
     "f5_probe_pair_store": (_P, _P, _P, _I, _P),
     # x, cos, sin, out, ld, device, stream
     "f5_probe_half_swap": (_P, _P, _P, _P, _I, _I, _P),
-    # x, raw, rows, cols, row, col, device, stream
-    "f5_probe_tma": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, raw, rows, cols, row, col, int8, device, stream
+    "f5_probe_tma": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, y, out, register_a, device, stream
     "f5_probe_wgmma": (_P, _P, _P, _I, _I, _P),
+    # x, y, out, n, device, stream
+    "f5_probe_wgmma_i8": (_P, _P, _P, _I, _I, _P),
+    # M, n, seg_n, int8, device -> 128 or 256
+    "f5_tile_width": (_I, _I, _I, _I, _I),
     # a, h, gate, w, b, out, M, din, d, bn, device, stream
     "f5_probe_tile_width": (_P,) * 6 + (_I, _I, _I, _I, _I, _P),
 }

@@ -23,6 +23,7 @@ from korean_f5_tts_tpu_torch.ops.fused_linears import (
     ln_stats_scratch,
 )
 from korean_f5_tts_tpu_torch.ops.qmatmul import (
+    I8_CORE_MAX_K,
     check_int8_linear,
     check_tensor,
     int8_product,
@@ -121,7 +122,8 @@ def ff_block_fused_int8(h, sc, sh, gate, qp_in: dict, qp_out: dict,
     w_scale [d], b [d]} -> [B, n, d] bf16.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; nothing falls back. Any number of rows; d, dff multiples of 128.
+    raise; nothing falls back. Any number of rows; d, dff multiples of 128
+    and at most 4096 (the row passes hold a row in registers).
     """
     global launches_int8
     if h.device.type == "cpu":
@@ -133,7 +135,8 @@ def ff_block_fused_int8(h, sc, sh, gate, qp_in: dict, qp_out: dict,
     for qp, n, k in ((qp_in, dff, d), (qp_out, d, dff)):
         if "b" not in qp:
             raise ValueError("ff_block_int8: the linears need a bias")
-        check_int8_linear("ff_block_int8", h, qp["w_int8"], qp["w_scale"], qp["b"], n, k)
+        check_int8_linear("ff_block_int8", h, qp["w_int8"], qp["w_scale"], qp["b"], n, k,
+                          k_multiple=128, k_max=I8_CORE_MAX_K)
     cuda_build.require_cuda("ff_block_int8", h, sc, sh, gate)
     m = h.numel() // d
     dev = h.device

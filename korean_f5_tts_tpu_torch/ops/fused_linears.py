@@ -34,6 +34,7 @@ import torch
 
 from korean_f5_tts_tpu_torch.ops import cuda_build
 from korean_f5_tts_tpu_torch.ops.qmatmul import (
+    I8_CORE_MAX_K,
     check_int8_linear,
     check_tensor,
     int8_product,
@@ -188,7 +189,8 @@ def ln_mod_matmul_int8(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:
     -> [..., n * len(qps)] bf16.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; nothing falls back. Any number of rows; d % 64 == 0, n % 128 == 0.
+    raise; nothing falls back. Any number of rows; d % 16 == 0, d <= 4096
+    (the row pass holds a row in registers), n % 128 == 0.
     """
     global launches_ln_mod_int8
     if h.device.type == "cpu":
@@ -202,7 +204,8 @@ def ln_mod_matmul_int8(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:
     for p in qps:
         if "b" not in p:
             raise ValueError("ln_mod_matmul_int8: the linears need a bias")
-        check_int8_linear("ln_mod_matmul_int8", h, p["w_int8"], p["w_scale"], p["b"], n, d)
+        check_int8_linear("ln_mod_matmul_int8", h, p["w_int8"], p["w_scale"], p["b"], n, d,
+                          k_multiple=16, k_max=I8_CORE_MAX_K)
     cuda_build.require_cuda("ln_mod_matmul_int8", h, sc, sh)
     m = h.numel() // d
     yq = torch.empty((m, d), dtype=torch.int8, device=h.device)

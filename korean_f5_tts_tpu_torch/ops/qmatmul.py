@@ -82,18 +82,26 @@ def check_tensor(what: str, name: str, t: torch.Tensor, shape: tuple, dtype) -> 
         raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
 
 
-def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int) -> None:
+I8_CORE_MAX_K = 4096  # kernels 4 and 5 hold a row of K values in registers (gemm_int8.cuh)
+
+
+def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int,
+                      k_multiple: int = 64, k_max: int | None = None) -> None:
     """Checks before a kernel launch: one int8 linear {w_int8 [n, k] int8,
     w_scale [n] fp32, b [n] bf16 or None} on the CUDA device of the bf16
-    activations x, everything contiguous and 16-byte aligned."""
+    activations x, everything contiguous and 16-byte aligned; K a multiple of
+    k_multiple (64 for the mma.sync product of kernels 6 and 9, 16 for the
+    int8 TMA core's rows) and at most k_max, N a multiple of 128."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{what}: activations must be bfloat16, got {x.dtype}")
     check_tensor(what, "w_int8", w_int8, (n, k), torch.int8)
     check_tensor(what, "w_scale", w_scale, (n,), torch.float32)
     if bias is not None:
         check_tensor(what, "bias", bias, (n,), torch.bfloat16)
-    if k % 64 or n % 128:
-        raise ValueError(f"{what}: K={k} must be a multiple of 64 and N={n} of 128")
+    if k % k_multiple or n % 128 or (k_max is not None and k > k_max):
+        raise ValueError(f"{what}: K={k} must be a multiple of {k_multiple}"
+                         f"{'' if k_max is None else f' and at most {k_max}'}, and N={n} a "
+                         "multiple of 128")
     cuda_build.require_cuda(what, x, w_int8, w_scale, *([] if bias is None else [bias]))
 
 

@@ -24,6 +24,13 @@ and the idioms of the TMA + wgmma product core (csrc/gemm_bf16.cuh):
   tile_width  kernel 8's product (out = h + gate * (a @ W^T + b)) at each of
               the core's two output tile widths, forced (the kernels' entry
               points pick one by the card's SM count).
+and the same idioms on 8-bit operands, for the int8 core (csrc/gemm_int8.cuh):
+  tma_swizzle_i8  an int8 TMA box (128 int8 a 128-byte row), inside the array
+              and over its edge, swizzled as the bf16 box is;
+  wgmma_s8_n128, wgmma_s8_n256  wgmma m64nNk32 .s32.s8.s8 over one 128-deep
+              stage (four k32 steps, the descriptor advancing 32 bytes a
+              step), both operands through descriptors, against the product
+              in float64 (exact at these sizes).
 Unlike the Mosaic script it raises on a failure. It needs a CUDA card.
 """
 
@@ -45,6 +52,9 @@ def _probes(dev: torch.device) -> dict:
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def rnd_i8(*shape):  # the full range, -128 and 127 included
+        return torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
     out = {}
     # a head of q (columns 64..127) against a head of k (columns 192..255) of 384-wide rows
@@ -75,9 +85,16 @@ def _probes(dev: torch.device) -> dict:
     x = rnd(100, 200)
     for label, row, col in (("tma_swizzle", 8, 64), ("tma_swizzle_edge", 72, 176)):
         raw = torch.empty((64, 64), dtype=torch.bfloat16, device=dev)
-        cuda_build.check(lib.f5_probe_tma(x.data_ptr(), raw.data_ptr(), 100, 200, row, col,
+        cuda_build.check(lib.f5_probe_tma(x.data_ptr(), raw.data_ptr(), 100, 200, row, col, 0,
                                           dev.index, stream), "probe_tma")
         out[label] = (raw, swizzled_box(x, row, col), 0.0)
+    # a 64 x 128 int8 box of a [100, 320] array, the same two ways
+    x8 = rnd_i8(100, 320)
+    for label, row, col in (("tma_swizzle_i8", 8, 128), ("tma_swizzle_i8_edge", 72, 256)):
+        raw = torch.empty((64, 128), dtype=torch.int8, device=dev)
+        cuda_build.check(lib.f5_probe_tma(x8.data_ptr(), raw.data_ptr(), 100, 320, row, col, 1,
+                                          dev.index, stream), "probe_tma")
+        out[label] = (raw, swizzled_box(x8, row, col), 0.0)
 
     a, b = rnd(64, 64), rnd(128, 64)
     for label, register_a in (("wgmma_ss", 0), ("wgmma_rs", 1)):
@@ -86,6 +103,14 @@ def _probes(dev: torch.device) -> dict:
                                             register_a, dev.index, stream), "probe_wgmma")
         lhs = (2.0 * a.float() + 1.0).to(torch.bfloat16) if register_a else a
         out[label] = (prod, lhs.float() @ b.float().t(), 1e-3)
+
+    a8 = rnd_i8(64, 128)
+    for n in (128, 256):
+        b8 = rnd_i8(n, 128)
+        prod = torch.empty((64, n), dtype=torch.int32, device=dev)
+        cuda_build.check(lib.f5_probe_wgmma_i8(a8.data_ptr(), b8.data_ptr(), prod.data_ptr(), n,
+                                               dev.index, stream), "probe_wgmma_i8")
+        out[f"wgmma_s8_n{n}"] = (prod, a8.double() @ b8.double().t(), 0.0)
 
     a, h, gate = rnd(200, 128), rnd(200, 256), rnd(256) * 0.25
     p = {"w": rnd(256, 128) * 128 ** -0.5, "b": rnd(256)}
@@ -101,16 +126,19 @@ def _probes(dev: torch.device) -> dict:
 
 
 def swizzled_box(x: torch.Tensor, row: int, col: int) -> torch.Tensor:
-    """What a 64 x 64 box of x at (row, col) looks like in 128-byte-swizzled
-    shared memory: zeros past x's edges, and the 8-element chunk c of box row
-    r at chunk c ^ (r % 8)."""
-    box = torch.zeros((64, 64), dtype=x.dtype, device=x.device)
-    part = x[row:row + 64, col:col + 64]
+    """What a box of 64 rows x 128 bytes of x at (row, col) (64 bf16 or 128
+    int8 a row) looks like in 128-byte-swizzled shared memory: zeros past x's
+    edges, and the 16-byte chunk c of box row r at chunk c ^ (r % 8)."""
+    width = 128 // x.element_size()
+    box = torch.zeros((64, width), dtype=x.dtype, device=x.device)
+    part = x[row:row + 64, col:col + width]
     box[:part.shape[0], :part.shape[1]] = part
     r = torch.arange(64, device=x.device)[:, None]
     c = torch.arange(8, device=x.device)[None, :]
     src = (c ^ (r % 8))  # the physical chunk c holds logical chunk c ^ (r % 8)
-    return box.reshape(64, 8, 8).gather(1, src[:, :, None].expand(64, 8, 8)).reshape(64, 64)
+    chunk = width // 8
+    return box.reshape(64, 8, chunk).gather(1, src[:, :, None].expand(64, 8, chunk)).reshape(
+        64, width)
 
 
 def run(device="cuda") -> dict[str, float]:

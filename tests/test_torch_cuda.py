@@ -285,6 +285,70 @@ def test_ff_block_int8_kernel(dev):
         _close(got, ff_block.ff_block_int8_reference(h, sc, sh, gate, qp_in, qp_out))
 
 
+def _tile_width(m, n, seg_n):
+    """The output tile width the int8 core picks on this card
+    (csrc/gemm_bf16.cuh:gemm_tile_n with gemm_int8.cuh's tile cost)."""
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+
+    return cuda_build.library().f5_tile_width(m, n, seg_n, 1, 0)
+
+
+# (rows, d, n, segments): ragged rows; 1 and 3 segments; 65 rows (128-wide
+# tiles by the waves); a 384-wide segment (128-wide tiles only); d = 96 and
+# 1040, no multiple of the core's 128-deep k step (1040 also past the
+# 1024-value row pass); d = 4096, the longest row the row pass holds
+INT8_CORE_LN_MOD = [(1000, 1024, 1024, 3), (1000, 1024, 1024, 1), (65, 1024, 1024, 3),
+                    (3072, 1024, 1024, 3), (1000, 256, 384, 3), (70, 96, 128, 1),
+                    (200, 1040, 256, 2), (64, 4096, 256, 1)]
+
+
+@pytest.mark.parametrize("m,d,n,segments", INT8_CORE_LN_MOD)
+def test_ln_mod_matmul_int8_kernel_on_the_int8_core(dev, m, d, n, segments):
+    """Kernel 5 on the TMA + wgmma core, zero and outlier rows, sh = 0 too."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    h = _rows(m, d, dev, gen).reshape(1, m, d)
+    sc = _bf16((d,), dev, gen, 0.2)
+    qps = [_qp(dev, gen, n, d) for _ in range(segments)]
+    for sh in (_bf16((d,), dev, gen, 0.2), torch.zeros(d, dtype=torch.bfloat16, device=dev)):
+        before = fused_linears.launches_ln_mod_int8
+        got = fused_linears.ln_mod_matmul_int8(h, sc, sh, qps)
+        assert fused_linears.launches_ln_mod_int8 == before + 1
+        assert got.shape == (1, m, n * segments)
+        _close(got, fused_linears.ln_mod_matmul_int8_reference(h, sc, sh, qps))
+
+
+# (rows, d, dff): ragged rows at the main widths; 65 rows (128-wide tiles by
+# the waves); dff = 1152 and d = 384 (128-wide tiles only); d = dff = 4096,
+# the longest rows the row passes hold
+INT8_CORE_FF = [(1000, 1024, 2048), (65, 1024, 2048), (3073, 1024, 2048), (200, 1024, 1152),
+                (100, 384, 768), (64, 4096, 4096)]
+
+
+@pytest.mark.parametrize("m,d,dff", INT8_CORE_FF)
+def test_ff_block_int8_kernel_on_the_int8_core(dev, m, d, dff):
+    """Kernel 4 on the TMA + wgmma core, zero and outlier rows, sh = 0 too;
+    an all-zero gate gives h back."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    h = _rows(m, d, dev, gen).reshape(1, m, d)
+    sc, gate = _bf16((d,), dev, gen, 0.2), _bf16((d,), dev, gen)
+    qp_in, qp_out = _qp(dev, gen, dff, d), _qp(dev, gen, d, dff)
+    for sh in (_bf16((d,), dev, gen, 0.2), torch.zeros(d, dtype=torch.bfloat16, device=dev)):
+        before = ff_block.launches_int8
+        got = ff_block.ff_block_fused_int8(h, sc, sh, gate, qp_in, qp_out)
+        assert ff_block.launches_int8 == before + 1
+        _close(got, ff_block.ff_block_int8_reference(h, sc, sh, gate, qp_in, qp_out))
+    zero = torch.zeros_like(gate)
+    torch.testing.assert_close(ff_block.ff_block_fused_int8(h, sc, sh, zero, qp_in, qp_out), h,
+                               rtol=0, atol=0)
+
+
+def test_int8_core_cases_cover_both_tile_widths(dev):
+    """The cases above run the core at both output tile widths on this card."""
+    ln_mod = {_tile_width(m, n * seg, n) for m, _, n, seg in INT8_CORE_LN_MOD}
+    ff = {_tile_width(m, n, n) for m, d, dff in INT8_CORE_FF for n in (d, dff)}
+    assert ln_mod == {128, 256} and ff == {128, 256}
+
+
 def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     x = _bf16((64, 256), dev, gen)
@@ -313,6 +377,21 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     qp_in = _qp(dev, gen, 200, 256)  # dff = 200 is not a multiple of 128
     with pytest.raises(ValueError):
         ff_block.ff_block_fused_int8(h, vec, vec, vec, qp_in, _qp(dev, gen, 256, 200))
+    # the int8 core's rules: kernel 5 takes d % 16 == 0 up to 4096 (the row
+    # pass holds a row in registers), kernel 4 d and dff multiples of 128 up
+    # to 4096
+    for d in (40, 4112):
+        hd, vd = _bf16((1, 8, d), dev, gen), _bf16((d,), dev, gen)
+        with pytest.raises(ValueError):
+            fused_linears.ln_mod_matmul_int8(hd, vd, vd, [_qp(dev, gen, 128, d)])
+    h_wide, v_wide = _bf16((1, 8, 4224), dev, gen), _bf16((4224,), dev, gen)
+    with pytest.raises(ValueError):  # d = 4224 is past the row pass
+        ff_block.ff_block_fused_int8(h_wide, v_wide, v_wide, v_wide, _qp(dev, gen, 256, 4224),
+                                     _qp(dev, gen, 4224, 256))
+    h192, v192 = _bf16((1, 8, 192), dev, gen), _bf16((192,), dev, gen)
+    with pytest.raises(ValueError):  # d = 192 is no multiple of 128 (the second product's n)
+        ff_block.ff_block_fused_int8(h192, v192, v192, v192, _qp(dev, gen, 256, 192),
+                                     _qp(dev, gen, 192, 256))
 
 
 # --- training kernels 10, 11, 12, 13 --------------------------------------------
@@ -530,7 +609,8 @@ def test_probe_hopper_idioms(dev):
     errs = probe_hopper.run(dev)
     assert set(errs) == {"slice_mma", "pair_store", "half_swap", "tma_swizzle",
                          "tma_swizzle_edge", "wgmma_ss", "wgmma_rs", "tile_width_128",
-                         "tile_width_256"}
+                         "tile_width_256", "tma_swizzle_i8", "tma_swizzle_i8_edge",
+                         "wgmma_s8_n128", "wgmma_s8_n256"}
 
 
 # --- kernel 14: int8 prefix attention --------------------------------------------
