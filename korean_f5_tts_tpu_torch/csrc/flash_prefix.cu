@@ -7,28 +7,35 @@
 // included, gets a well-defined softmax over those keys.
 //
 // What bounds it on the card: at the main-path shape (H = 32, n = 1536,
-// D = 64) one call is 4*n*n*D*H = 19.3 GFLOP against 25 MB of q/k/v/out, so
-// it is tensor-core bound, and the n x n logits must never reach device
-// memory (the plain version writes 302 MB of fp32 logits per call).
+// D = 64, 1376 valid keys) one call is 4 * 32 * 1536 * 1376 * 64 = 17.3
+// GFLOP against 25 MB of q/k/v/out, so it is tensor-core bound, and the
+// n x n logits must never reach device memory (the plain version writes
+// 302 MB of fp32 logits per call).
 //
-// Design: one 128-thread block per (folded head, 64-row query tile); each
-// warp owns 16 query rows and keeps them in registers as mma A fragments.
-// The block walks 64-key K/V tiles through shared memory; S = q.k^T and
-// O += P.V run on mma.sync m16n8k16 with fp32 accumulation, and P never
-// leaves registers (the S accumulator is re-packed in place as the A operand
-// of P.V). The KV loop stops at ceil(kv_len / 64) tiles: that is the TPU
-// kernel's `prune` semantics, and on a GPU it costs no predication. The
-// partial last tile is masked per column, and rows past n are zero-filled on
-// load and never stored, so n needs no tile multiple.
+// bf16 at D = 64 (the DiT's heads, every serving and inference path) runs on
+// the TMA + wgmma attention core of attn_wgmma.cuh: 192 query rows a block
+// on three consumer warpgroups, 128-key K/V tiles through a TMA ring, S and
+// P.V on wgmma with P in registers, the next tile's S product overlapping
+// this tile's softmax, the warpgroups' products in turns.
 //
-// Numerics: online-max softmax (running max and denominator in fp32) with
-// log2(e) folded into the scale, so exp is exp2. The TPU default's static
-// max (flash_prefix.py:147 STATIC_MAX_C) is a VPU trade that only holds for
-// logits in range; it is not carried over. P is rounded to bf16 for the P.V
-// product (the row sums use fp32 P), as in FlashAttention-2.
+// bf16 at D = 128 stays on the first port's mma.sync loop
+// (flash_prefix_fwd_kernel in flash_prefix.cuh, which kernel 10,
+// flash_prefix_train.cu, instantiates with its logsumexp output): one
+// 128-thread block per (folded head, 64-row query tile), each warp 16 query
+// rows held as mma A fragments, 64-key K/V tiles loaded synchronously into
+// shared memory, S = q.k^T and O += P.V on mma.sync m16n8k16 with P
+// re-packed in registers; the KV loop stops at ceil(kv_len / 64) tiles (the
+// TPU kernel's `prune`), the partial last tile is masked per column, rows
+// past n are zero-filled and never stored. f5_flash_prefix_fwd_mma runs that
+// loop at D = 64 too, so that chip_smoke.py can time the two designs in one
+// process; no serving or inference path calls it.
 //
-// The loop is flash_prefix_fwd_kernel in flash_prefix.cuh, which kernel 10
-// (flash_prefix_train.cu) instantiates with its logsumexp output.
+// Numerics (both bf16 designs): online-max softmax (running max and
+// denominator in fp32) with log2(e) folded into the scale, so exp is exp2.
+// The TPU default's static max (flash_prefix.py:147 STATIC_MAX_C) is a VPU
+// trade that only holds for logits in range; it is not carried over. P is
+// rounded to bf16 for the P.V product (the row sums use fp32 P), as in
+// FlashAttention-2.
 //
 // fp32 operands (f5_flash_prefix_f32_fwd; the offline entry points keep fp32
 // weights unless told otherwise): flash_prefix_f32_kernel below. Like the
@@ -42,6 +49,7 @@
 // q and k tiles sit transposed ([c][row]) so the inner loop reads float4; p
 // goes through shared memory between the two products; the same online
 // softmax, pruning and masking as the bf16 loop.
+#include "attn_wgmma.cuh"
 #include "flash_prefix.cuh"
 
 namespace f5 {
@@ -216,18 +224,38 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, const vo
 }  // namespace
 }  // namespace f5
 
+namespace {
+
+bool attn_dims_ok(int H, int n) { return H > 0 && n > 0 && H <= 65535; }
+
+}  // namespace
+
+// kernel A on bf16 q, k, v, out [H, n, d]: d 64 on the attention core, d 128
+// on the mma.sync loop
 extern "C" int f5_flash_prefix_fwd(const void* q, const void* k, const void* v,
                                    const void* kv_lens, void* out, int H, int n, int d,
                                    float scale_log2, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (H <= 0 || n <= 0 || H > 65535) return (int)cudaErrorInvalidValue;
+  if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return (int)f5::launch_fwd<64, false>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
+    return (int)f5::launch_attn_fwd_wgmma(q, k, v, kv_lens, out, H, n, scale_log2, s);
   if (d == 128)
     return (int)f5::launch_fwd<128, false>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// d = 64 on the mma.sync loop that the attention core replaced (chip_smoke.py
+// times the two designs against each other)
+extern "C" int f5_flash_prefix_fwd_mma(const void* q, const void* k, const void* v,
+                                       const void* kv_lens, void* out, int H, int n,
+                                       float scale_log2, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
+  return (int)f5::launch_fwd<64, false>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // the same on fp32 q, k, v, out
@@ -236,7 +264,7 @@ extern "C" int f5_flash_prefix_f32_fwd(const void* q, const void* k, const void*
                                        float scale_log2, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (H <= 0 || n <= 0 || H > 65535) return (int)cudaErrorInvalidValue;
+  if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return (int)f5::launch_fwd_f32<64>(q, k, v, kv_lens, out, H, n, scale_log2, s);
   if (d == 128) return (int)f5::launch_fwd_f32<128>(q, k, v, kv_lens, out, H, n, scale_log2, s);

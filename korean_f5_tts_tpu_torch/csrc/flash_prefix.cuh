@@ -1,7 +1,8 @@
 // Tiles, warp-level products, the online-softmax step and the forward loop
-// shared by the prefix attention kernels: kernel A (flash_prefix.cu), the
-// training kernels 10-13 (flash_prefix_train.cu) and the rope-in-kernel and
-// qkv-layout kernels 18 and 19 (flash_prefix_rope.cu).
+// of the first port's mma.sync attention, shared by kernel A at d = 128
+// (flash_prefix.cu; d = 64 runs on attn_wgmma.cuh), the training kernels
+// 10-13 (flash_prefix_train.cu) and the rope-in-kernel and qkv-layout
+// kernels 18 and 19 (flash_prefix_rope.cu).
 //
 // A block is 128 threads over a 64-row tile; each warp owns 16 of the rows.
 // Shared tiles are [64][D + 8] bf16 (mma.cuh's padded stride); rows at or
@@ -144,17 +145,6 @@ __device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&p)[
       mma_bf16_16816(acc[dt + 1], a, b[2], b[3]);
     }
   }
-}
-
-// sum over the four lanes of a quad (the lanes that share a row)
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // One 64-key tile of the online softmax, on this warp's 16 x 64 raw scores s

@@ -15,23 +15,29 @@
 // What bounds them on the card, at the main-path shape (M = 3072 rows, d =
 // 1024): kernel 5 is 19.3 GOP (n = 3 x 1024; 0.0098 ms at the 1,979 TOP/s
 // dense int8 peak) against ~34 MB moved (0.010 ms at 3.35 TB/s), kernel 6 is
-// 6.4 GOP (0.0032 ms) against ~25 MB (0.0075 ms): by the roofline 5 is
-// balanced and 6 memory-bound.
+// 6.4 GOP (0.0032 ms) against ~20 MB (a, h, W, out: 0.0059 ms): by the
+// roofline 5 is balanced and 6 memory-bound.
 //
-// Kernel 5 (f5_ln_mod_matmul_int8_fwd) runs on the int8 core of
-// gemm_int8.cuh: one row pass holds h's row in registers (one read for the
-// LN statistics, the modulation, the amax and the quantization), then the
-// TMA + wgmma .s32.s8.s8 product with the rescale and bias in its epilogue.
-// It takes the q, k and v weights as three segments of its output columns,
-// each with its own tensor map picked by the column tile, so the fused qkv
-// weight is never concatenated. Measured at M = 3072 on an NVIDIA H100 80GB
-// HBM3, 700.00 W, parent and change under one timer (chip_smoke.py --ab):
-// 0.0380-0.0409 ms (~500 TOP/s, a quarter of the int8 peak; its product
-// alone 0.0301, the LN pass 0.0071), where the mma.sync core this replaces
-// took 0.1126-0.1189.
-//
-// Kernel 6 (f5_proj_gated_int8_fwd) stays on int8_gemm.cuh's quantization
-// pass and mma.sync product until it moves onto the same core.
+// Both run on the int8 core of gemm_int8.cuh: one row pass holds a row in
+// registers and writes its int8 copy and scale, then the TMA + wgmma
+// .s32.s8.s8 product applies the rescale and bias (and, for 6, the gated
+// residual) in its epilogue.
+//   Kernel 5 (f5_ln_mod_matmul_int8_fwd): the row pass reads h once for the
+//   LN statistics, the modulation, the amax and the quantization; the
+//   product takes the q, k and v weights as three segments of its output
+//   columns, each with its own tensor map picked by the column tile, so the
+//   fused qkv weight is never concatenated. Measured at M = 3072 on an
+//   NVIDIA H100 80GB HBM3, 700.00 W, parent and change under one timer
+//   (chip_smoke.py --ab): 0.0380-0.0409 ms (~500 TOP/s, a quarter of the
+//   int8 peak; its product alone 0.0301, the LN pass 0.0071), where the
+//   mma.sync core it left took 0.1126-0.1189.
+//   Kernel 6 (f5_proj_gated_int8_fwd): the row pass quantizes a as it is
+//   (quant_rows_reg_kernel<bf16, 1024 .. 4096, false>: the amax is a max,
+//   exact in any order, and the division IEEE), the product's epilogue is
+//   kWgGatedResidual, the one kernel 4's second product runs. Its output is
+//   the plain version's bit for bit. d = 1024 columns are 96 tiles at 256
+//   wide, 192 at 128 (gemm_tile_n's pick by waves); f5_proj_gated_int8_width
+//   forces either, and chip_smoke.py times both.
 #include "gemm_int8.cuh"
 
 // w*/ws*/b*: segments 0..nseg-1 (q, k, v), each [seg_n, d]; out [M, nseg * seg_n];
@@ -78,21 +84,38 @@ extern "C" int f5_ln_mod_matmul_int8_fwd(const void* h, const void* sc, const vo
                                      out, M, d, seg_n, nseg, eps, 0, device, stream);
 }
 
-// a [M, din], h/out [M, d], w [d, din]
+// a [M, din], h/out [M, d], w [d, din]; aq [M, din] int8 and as [M] fp32
+// scratch. din % 16 == 0, din <= 4096, d % 128 == 0. bn: the product's tile
+// width (128 or 256), or 0 for gemm_tile_n()'s pick: f5_proj_gated_int8_fwd
+// passes 0, chip_smoke.py times each width.
+extern "C" int f5_proj_gated_int8_width(const void* a, const void* h, const void* gate,
+                                        const void* w, const void* ws, const void* b, void* aq,
+                                        void* as, void* out, int M, int din, int d, int bn,
+                                        int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!f5::i8_wgmma_dims_ok(M, d, din)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = f5::launch_quant_rows_reg<f5::bf16, false>(a, nullptr, nullptr, aq, as, M, din, 0.f, s);
+  if (err != cudaSuccess) return (int)err;
+  f5::WgArgs p{};
+  p.a_scale = static_cast<const float*>(as);
+  p.w_scale[0] = p.w_scale[1] = p.w_scale[2] = static_cast<const float*>(ws);
+  p.bias[0] = p.bias[1] = p.bias[2] = static_cast<const f5::bf16*>(b);
+  p.h = static_cast<const f5::bf16*>(h);
+  p.gate = static_cast<const f5::bf16*>(gate);
+  p.out = out;
+  p.M = M;
+  p.K = din;
+  p.seg_n = d;
+  const void* const wseg[3] = {w, w, w};
+  return (int)f5::launch_i8_product<f5::kWgGatedResidual>(aq, wseg, p, 1, bn, s);
+}
+
 extern "C" int f5_proj_gated_int8_fwd(const void* a, const void* h, const void* gate,
                                       const void* w, const void* ws, const void* b, void* aq,
                                       void* as, void* out, int M, int din, int d, int device,
                                       void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!f5::i8_shapes_ok(M, din, d)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int8_t* q = static_cast<int8_t*>(aq);
-  float* qs = static_cast<float*>(as);
-  err = f5::launch_quant_rows<f5::kSrcBf16>(a, nullptr, nullptr, q, qs, M, din, 0.f, s);
-  if (err != cudaSuccess) return (int)err;
-  f5::GemmArgs p = f5::i8_args(q, qs, w, ws, b, out, M, d, din);
-  p.h = static_cast<const f5::bf16*>(h);
-  p.gate = static_cast<const f5::bf16*>(gate);
-  return (int)f5::launch_i8_gemm<f5::kEpiGatedResidual>(p, s);
+  return f5_proj_gated_int8_width(a, h, gate, w, ws, b, aq, as, out, M, din, d, 0, device,
+                                  stream);
 }

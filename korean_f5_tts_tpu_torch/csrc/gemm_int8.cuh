@@ -1,12 +1,14 @@
 // The int8 product core of the int8 FF half-block (ff_block_int8.cu: kernel
-// 4) and of the int8 LN + modulate + qkv product (fused_linears_int8.cu:
-// kernel 5), designed for Hopper: row passes that hold a row in registers,
+// 4), the int8 LN + modulate + qkv product and the int8 out-projection with
+// its gated residual (fused_linears_int8.cu: kernels 5 and 6), designed for
+// Hopper: row passes that hold a row in registers,
 // then a TMA-fed ring of shared-memory stages, wgmma .s32.s8.s8 products and
 // warp specialisation, the structure of the bf16 core (gemm_bf16.cuh) on
 // 8-bit operands.
 //
 // The function is the TPU kernels' (korean_f5_tts_tpu/ops/ff_block.py:
-// _kernel_int8, fused_linears.py:_ln_mod_matmul_int8_kernel). For each row r
+// _kernel_int8, fused_linears.py:_ln_mod_matmul_int8_kernel,
+// _proj_gated_int8_kernel). For each row r
 // of fp32 values y:
 //   s_r = max(max|y_r|, 1e-6) / 127           (fp32, IEEE division)
 //   q   = clip(rint(y / s_r), -127, 127)       (IEEE division, ties to even)
@@ -46,7 +48,7 @@
 //         kWgGeluF32       rescale + bias + tanh-GELU -> fp32 z (kernel 4's
 //                          first product; the TPU kernel never rounds z);
 //         kWgGatedResidual rescale + bias, h + gate * (.) -> bf16 (kernel 4's
-//                          second product).
+//                          second product, kernel 6).
 //
 // Edges: TMA fills reads past M and K with zeros and stores are masked, so M
 // needs no multiple and K only the 16-byte rows TMA asks for (K % 16 == 0);

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the TMA-fed, wgmma product cores
-// (gemm_bf16.cuh, gemm_int8.cuh) and of the probes that hold each idiom
-// against two lines of torch (probe_hopper.cu): mbarriers, TMA tile loads
-// into 128-byte-swizzled shared memory, wgmma with A from registers or from
-// shared memory (bf16 into fp32, s8 into s32), and the host side's tensor
-// maps.
+// (gemm_bf16.cuh, gemm_int8.cuh), of the attention core (attn_wgmma.cuh) and
+// of the probes that hold each idiom against two lines of torch
+// (probe_hopper.cu): mbarriers, TMA tile loads into 128-byte-swizzled shared
+// memory (2-D maps over [rows, cols], 3-D maps over [planes, rows, cols] whose
+// boxes stop at a plane's last row), wgmma with A from registers or from
+// shared memory (bf16 into fp32, s8 into s32; B k-major, or MN-major for
+// P.V), and the host side's tensor maps.
 //
 // Shared-memory tiles are [rows][128 bytes]: 64 bf16 or 128 int8 a row. One
 // row is one 128-byte swizzle span, a tile starts on a 1024-byte boundary,
@@ -18,10 +20,10 @@
 // library the kernels link. The link line stays as it is: encode_tiled_fn()
 // opens libcuda.so.1 by name (a process that has a CUDA context has it mapped
 // already, so this takes a handle to that copy) and looks the symbol up with
-// dlsym. A map is a pure function of (pointer, rows, cols, box rows, element
-// type), so maps are cached under that key and a cached map can never be
-// stale: a weight's map is encoded once, not once per launch, and a bf16 and
-// an int8 map of one pointer are two entries.
+// dlsym. A map is a pure function of (pointer, planes, rows, cols, box rows,
+// element type), so maps are cached under that key and a cached map can never
+// be stale: a weight's map is encoded once, not once per launch, and a bf16
+// and an int8 map of one pointer are two entries.
 #pragma once
 
 #include <cuda.h>
@@ -58,18 +60,19 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 struct MapKey {
   const void* ptr;
-  uint64_t rows, cols;
+  uint64_t planes, rows, cols;  // planes 0: a 2-D map
   uint32_t box_rows;
   CUtensorMapDataType type;
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && rows == o.rows && cols == o.cols && box_rows == o.box_rows &&
-           type == o.type;
+    return ptr == o.ptr && planes == o.planes && rows == o.rows && cols == o.cols &&
+           box_rows == o.box_rows && type == o.type;
   }
 };
 
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     size_t h = reinterpret_cast<size_t>(k.ptr);
+    h = h * 1000003u ^ k.planes;
     h = h * 1000003u ^ k.rows;
     h = h * 1000003u ^ k.cols;
     h = h * 1000003u ^ k.box_rows;
@@ -80,16 +83,15 @@ struct MapKeyHash {
 constexpr CUtensorMapDataType kMapBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 constexpr CUtensorMapDataType kMapInt8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // TMA copies bytes
 
-// Tensor map of a row-major [rows, cols] array of `type` (kMapBf16 or
-// kMapInt8) for boxes of box_rows x 128 bytes in the swizzled layout; reads
-// past either edge give zeros. A row must be a multiple of 16 bytes and ptr
-// 16-byte aligned. Returns false when the libcuda symbol is missing or
-// refuses the arguments.
-inline bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t cols,
-                       uint32_t box_rows, CUtensorMapDataType type) {
+// Tensor map of a row-major [rows, cols] array (planes == 0), or of
+// [planes, rows, cols] (planes > 0), of `type` (kMapBf16 or kMapInt8) for
+// boxes of box_rows x 128 bytes (x 1 plane) in the swizzled layout; reads
+// past any edge give zeros, so a box of a 3-D map never reaches into the next
+// plane. A row must be a multiple of 16 bytes and ptr 16-byte aligned.
+// Returns false when the libcuda symbol is missing or refuses the arguments.
+inline bool encode_map(CUtensorMap* out, const MapKey& key) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{ptr, rows, cols, box_rows, type};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
@@ -98,13 +100,14 @@ inline bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_
   }
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  const uint32_t elem_bytes = type == kMapInt8 ? 1 : 2;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem_bytes};
-  const cuuint32_t box[2] = {kRowBytes / elem_bytes, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
+  const uint32_t elem_bytes = key.type == kMapInt8 ? 1 : 2;
+  const cuuint32_t rank = key.planes > 0 ? 3 : 2;
+  const cuuint64_t dims[3] = {key.cols, key.rows, key.planes};
+  const cuuint64_t strides[2] = {key.cols * elem_bytes, key.rows * key.cols * elem_bytes};
+  const cuuint32_t box[3] = {kRowBytes / elem_bytes, key.box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   CUtensorMap map;
-  if (encode(&map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+  if (encode(&map, key.type, rank, const_cast<void*>(key.ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
@@ -112,6 +115,16 @@ inline bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_
   cache.emplace(key, map);
   *out = map;
   return true;
+}
+
+inline bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t cols,
+                       uint32_t box_rows, CUtensorMapDataType type) {
+  return encode_map(out, MapKey{ptr, 0, rows, cols, box_rows, type});
+}
+
+inline bool tensor_map_3d(CUtensorMap* out, const void* ptr, uint64_t planes, uint64_t rows,
+                          uint64_t cols, uint32_t box_rows, CUtensorMapDataType type) {
+  return planes > 0 && encode_map(out, MapKey{ptr, planes, rows, cols, box_rows, type});
 }
 
 // ---------------------------------------------------------------------------
@@ -166,6 +179,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the same for a 3-D map: the box at (row, col) of plane `plane`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row, int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(plane)
+      : "memory");
+}
+
 // address of 16-byte chunk `chunk` (0..7) of row `row` of a swizzled tile
 __device__ __forceinline__ const unsigned char* swz_chunk_addr(const unsigned char* tile, int row,
                                                                int chunk) {
@@ -182,6 +205,19 @@ __device__ __forceinline__ const unsigned char* swz_chunk_addr(const unsigned ch
 // + 2 in the descriptor's 16-byte address units.
 __device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
   return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(kSwizzleAtom >> 4) << 32) | (1ull << 62);
+}
+
+// descriptor of an MN-major operand in a swizzled tile (the B operand of
+// P.V: V is [keys][64], its 64 columns, the N of the product, contiguous in
+// a 128-byte row, keys the k dimension). A k16 step is 16 rows: two 8-row
+// groups 1024 bytes apart, one swizzle span wide in N. Both byte offsets are
+// 1024: the stride between 8-row groups along k is the one this layout uses,
+// and the other (between swizzle spans along N) is never used at N = 64. One
+// k16 step further is + 16 rows = + 2048 bytes: + 128 in the descriptor.
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kSwizzleAtom >> 4) << 16) |
          (static_cast<uint64_t>(kSwizzleAtom >> 4) << 32) | (1ull << 62);
 }
 
@@ -249,6 +285,30 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[32] (+)= A (64 x 16, registers) . B (B: [16][64] MN-major in shared
+// memory, wgmma_desc_mn; the transpose flag of B set): O += P.V
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 

@@ -1,9 +1,9 @@
-// Dynamic-int8 building blocks of kernels 6 (fused_linears_int8.cu:
-// f5_proj_gated_int8_fwd) and 9 (qmatmul.cu): per-row activation
+// Dynamic-int8 building blocks of kernel 9 (qmatmul.cu) and of kernel 14's
+// fragment addressing (flash_prefix_int8.cu): per-row activation
 // quantization and an int8 mma.sync product with a fused fp32 epilogue.
-// Kernels 4 and 5 left this product for the TMA + wgmma core of
-// gemm_int8.cuh, which still takes load8, the warp reductions, i8_gelu_tanh
-// and kMaxSegments from here; 6 and 9 follow it next, and then
+// Kernels 4, 5 and 6 left this product for the TMA + wgmma core of
+// gemm_int8.cuh, which still takes load8, the warp reductions, i8_gelu_tanh,
+// pick and kMaxSegments from here; 9 follows it next, and then
 // i8_gemm_kernel and quant_rows_kernel (whose LN and fp32 sources nothing
 // instantiates any more) go.
 //
@@ -12,7 +12,7 @@
 //   s_r = max(max|y_r|, 1e-6) / 127           (fp32)
 //   q   = clip(rint(y / s_r), -127, 127)       (IEEE division, ties to even)
 //   out = acc * s_r * w_scale[c] + b[c]        (acc = exact int32 sum of q * w_int8)
-// then any activation, gate or residual in fp32, and one rounding at the end.
+// then any activation in fp32, and one rounding at the end.
 // The divisions and the epilogue use the _rn intrinsics: no reciprocal
 // multiply, and no fused multiply-add that would round differently from the
 // plain versions (nvcc contracts a * b + c by default).
@@ -52,7 +52,6 @@ constexpr int kGThreads = 128;
 constexpr int kMaxSegments = 3;
 
 enum QuantSource { kSrcBf16 = 0, kSrcLnMod = 1, kSrcF32 = 2 };
-enum Epilogue { kEpiOut = 0, kEpiGatedResidual = 1, kEpiGeluF32 = 2 };
 
 __device__ __forceinline__ float i8_gelu_tanh(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
@@ -189,11 +188,9 @@ struct GemmArgs {
   const float* w_scale[kMaxSegments];
   const bf16* bias[kMaxSegments];  // null: no bias
   int seg_n;                       // columns per segment; N = segments * seg_n
-  const bf16* h;                   // [M, N] residual (kEpiGatedResidual)
-  const bf16* gate;                // [N] (kEpiGatedResidual)
-  void* out;                       // [M, N]: fp32 for kEpiGeluF32, else bf16
+  bf16* out;                       // [M, N]
   int M, N, K;
-  int gelu;                        // kEpiOut: tanh-GELU after the bias
+  int gelu;                        // tanh-GELU after the bias
 };
 
 template <typename T>
@@ -201,7 +198,6 @@ __device__ __forceinline__ T pick(const T (&arr)[kMaxSegments], int seg) {
   return seg == 0 ? arr[0] : (seg == 1 ? arr[1] : arr[2]);
 }
 
-template <int EPI>
 __global__ void __launch_bounds__(kGThreads) i8_gemm_kernel(const GemmArgs p) {
   __shared__ __align__(16) int8_t sA[kGBM * kGLDS];
   __shared__ __align__(16) int8_t sB[kGBN * kGLDS];
@@ -280,22 +276,11 @@ __global__ void __launch_bounds__(kGThreads) i8_gemm_kernel(const GemmArgs p) {
           v0 = __fadd_rn(v0, bb0);
           v1 = __fadd_rn(v1, bb1);
         }
-        const size_t o = (size_t)row * N + col;
-        if constexpr (EPI == kEpiGeluF32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
-              make_float2(i8_gelu_tanh(v0), i8_gelu_tanh(v1));
-        } else {
-          if constexpr (EPI == kEpiGatedResidual) {
-            const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(p.h + o);
-            const float g0 = __bfloat162float(p.gate[col]), g1 = __bfloat162float(p.gate[col + 1]);
-            v0 = __fadd_rn(__bfloat162float(hv.x), __fmul_rn(g0, v0));
-            v1 = __fadd_rn(__bfloat162float(hv.y), __fmul_rn(g1, v1));
-          } else if (p.gelu) {
-            v0 = i8_gelu_tanh(v0);
-            v1 = i8_gelu_tanh(v1);
-          }
-          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.out) + o) = pack_bf16x2(v0, v1);
+        if (p.gelu) {
+          v0 = i8_gelu_tanh(v0);
+          v1 = i8_gelu_tanh(v1);
         }
+        *reinterpret_cast<uint32_t*>(p.out + (size_t)row * N + col) = pack_bf16x2(v0, v1);
       }
     }
   }
@@ -310,11 +295,10 @@ cudaError_t launch_quant_rows(const void* x, const bf16* sc, const bf16* sh, int
   return cudaGetLastError();
 }
 
-template <int EPI>
-cudaError_t launch_i8_gemm(const GemmArgs& p, cudaStream_t stream) {
+inline cudaError_t launch_i8_gemm(const GemmArgs& p, cudaStream_t stream) {
   const int m_tiles = (p.M + kGBM - 1) / kGBM;
   if (m_tiles > 65535) return cudaErrorInvalidValue;
-  i8_gemm_kernel<EPI><<<dim3(p.N / kGBN, m_tiles), kGThreads, 0, stream>>>(p);
+  i8_gemm_kernel<<<dim3(p.N / kGBN, m_tiles), kGThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -323,7 +307,7 @@ inline bool i8_shapes_ok(int M, int K, int seg_n) {
   return M > 0 && K > 0 && seg_n > 0 && K % kGBK == 0 && seg_n % kGBN == 0;
 }
 
-// GemmArgs for one weight (one segment) and no residual
+// GemmArgs for one weight (one segment)
 inline GemmArgs i8_args(const int8_t* a, const float* a_scale, const void* w, const void* w_scale,
                         const void* bias, void* out, int M, int N, int K) {
   GemmArgs p{};
@@ -333,7 +317,7 @@ inline GemmArgs i8_args(const int8_t* a, const float* a_scale, const void* w, co
   p.w_scale[0] = static_cast<const float*>(w_scale);
   p.bias[0] = static_cast<const bf16*>(bias);
   p.seg_n = N;
-  p.out = out;
+  p.out = static_cast<bf16*>(out);
   p.M = M;
   p.N = N;
   p.K = K;

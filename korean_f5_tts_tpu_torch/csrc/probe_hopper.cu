@@ -20,6 +20,15 @@
 // four k32 steps of one 128-deep stage, the descriptor advancing 32 bytes a
 // step (probe (7), N = 128 and 256). f5_tile_width says which width
 // gemm_tile_n() picks for a product, so that a test can cover both.
+//
+// The attention core (attn_wgmma.cuh) adds two idioms: a 3-D tensor map over
+// folded heads [H, n, 64], whose box stops at a head's last row with zeros
+// and never reads the next head (probe (8)); and O = P.V with P an m64n128
+// accumulator rounded to bf16 into A fragments in registers and V [128][64]
+// an MN-major operand read through a transposed-B descriptor (probe (9)):
+// the form nothing else of the port used before and the likeliest place for
+// a silent error.
+#include "attn_wgmma.cuh"
 #include "flash_prefix.cuh"
 #include "gemm_int8.cuh"
 
@@ -201,8 +210,97 @@ probe_wgmma_i8_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
+// (8) a box of 64 rows x 64 bf16 at (row, plane) of a 3-D map over [planes,
+// rows, 64]; raw: the 8 KB of shared memory as they lie
+__global__ void __launch_bounds__(kThreads)
+probe_tma_3d_kernel(const __grid_constant__ CUtensorMap map, unsigned char* __restrict__ raw,
+                    int row, int plane) {
+  __shared__ __align__(1024) unsigned char tile[64 * kRowBytes];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 64 * kRowBytes);
+    tma_load_3d(tile, &map, &bar, 0, row, plane);
+  }
+  mbar_wait(&bar, 0);
+  for (int i = threadIdx.x; i < 64 * kRowBytes / 16; i += kThreads)
+    reinterpret_cast<int4*>(raw)[i] = reinterpret_cast<const int4*>(tile)[i];
+}
+
+// (9) out[64, 64] fp32 = P . V for P [64, 128] bf16 (read into the m64n128
+// accumulator layout as the attention core's S would lie, then packed by
+// attn_pack_p) and V [128, 64] bf16 by TMA, through attn_issue_pv
+__global__ void __launch_bounds__(kThreads)
+probe_pv_kernel(const bf16* __restrict__ p_in, const __grid_constant__ CUtensorMap map_v,
+                float* __restrict__ out) {
+  __shared__ __align__(1024) unsigned char tile_v[kAttnKVBytes];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, kAttnKVBytes);
+    tma_load_2d(tile_v, &map_v, &bar, 0, 0);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row = warp * 16 + g;
+  float s[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    s[i] = __bfloat162float(p_in[(row + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + 2 * t + (i & 1)]);
+  uint32_t p[8][4];
+  attn_pack_p(s, p);
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  mbar_wait(&bar, 0);
+  wgmma_fence();
+  attn_issue_pv(o, p, tile_v);
+  wgmma_wait<0>();
+  wgmma_fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    out[row * 64 + col] = o[4 * j];
+    out[row * 64 + col + 1] = o[4 * j + 1];
+    out[(row + 8) * 64 + col] = o[4 * j + 2];
+    out[(row + 8) * 64 + col + 1] = o[4 * j + 3];
+  }
+}
+
 }  // namespace
 }  // namespace f5
+
+// x: [planes, rows, 64] bf16; raw: the 8 KB box of 64 rows at (row, plane)
+// as shared memory holds it; rows past the plane's last are zeros
+extern "C" int f5_probe_tma_3d(const void* x, void* raw, int planes, int rows, int row, int plane,
+                               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map;
+  if (!f5::tensor_map_3d(&map, x, planes, rows, 64, 64, f5::kMapBf16))
+    return (int)cudaErrorInvalidValue;
+  f5::probe_tma_3d_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<unsigned char*>(raw), row, plane);
+  return (int)cudaGetLastError();
+}
+
+// p: [64, 128], v: [128, 64] bf16; out: [64, 64] fp32
+extern "C" int f5_probe_pv(const void* p, const void* v, void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_v;
+  if (!f5::tensor_map(&map_v, v, 128, 64, 128, f5::kMapBf16)) return (int)cudaErrorInvalidValue;
+  f5::probe_pv_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const f5::bf16*>(p), map_v, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
 
 // x: [rows, cols] bf16 (int8 == 0, cols % 8 == 0) or int8 (int8 != 0, cols %
 // 16 == 0); raw: the 8 KB box of 64 rows x 128 bytes as shared memory holds

@@ -31,5 +31,5 @@ extern "C" int f5_qmatmul_fwd(const void* x, const void* w, const void* w_scale,
   if (err != cudaSuccess) return (int)err;
   f5::GemmArgs p = f5::i8_args(q, qs, w, w_scale, b, out, M, N, K);
   p.gelu = gelu;
-  return (int)f5::launch_i8_gemm<f5::kEpiOut>(p, s);
+  return (int)f5::launch_i8_gemm(p, s);
 }

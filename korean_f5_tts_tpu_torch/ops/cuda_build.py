@@ -42,6 +42,8 @@ _SIGNATURES = {
     # q, k, v, kv_lens, out, H, n, d, scale_log2, device, stream
     "f5_flash_prefix_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "f5_flash_prefix_f32_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # d = 64 on the mma.sync loop: q, k, v, kv_lens, out, H, n, scale_log2, device, stream
+    "f5_flash_prefix_fwd_mma": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     # q, k, v, kv_lens, out, lse, H, n, d, scale_log2, device, stream
     "f5_flash_prefix_fwd_lse": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
     # q, k, v, dO, dvec, lse, kv_lens, dq, H, n, d, scale_log2, sm_scale, device, stream
@@ -69,6 +71,8 @@ _SIGNATURES = {
     "f5_ln_mod_matmul_int8_width": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _P),
     # a, h, gate, w, ws, b, aq, as, out, M, din, d, device, stream
     "f5_proj_gated_int8_fwd": (_P,) * 9 + (_I, _I, _I, _I, _P),
+    # the same, then the product's tile width bn (0: gemm_tile_n's pick), device, stream
+    "f5_proj_gated_int8_width": (_P,) * 9 + (_I, _I, _I, _I, _I, _P),
     # h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq, zs, out, M, d,
     # dff, eps, device, stream
     "f5_ff_block_int8_fwd": (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
@@ -94,6 +98,10 @@ _SIGNATURES = {
     "f5_probe_wgmma": (_P, _P, _P, _I, _I, _P),
     # x, y, out, n, device, stream
     "f5_probe_wgmma_i8": (_P, _P, _P, _I, _I, _P),
+    # x, raw, planes, rows, row, plane, device, stream
+    "f5_probe_tma_3d": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # p, v, out, device, stream
+    "f5_probe_pv": (_P, _P, _P, _I, _P),
     # M, n, seg_n, int8, device -> 128 or 256
     "f5_tile_width": (_I, _I, _I, _I, _I),
     # a, h, gate, w, b, out, M, din, d, bn, device, stream

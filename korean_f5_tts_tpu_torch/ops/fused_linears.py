@@ -228,7 +228,8 @@ def proj_gated_residual_int8(a, h, gate, qp) -> torch.Tensor:
     qp {w_int8 [d, din], w_scale [d], b [d]} -> [..., d] bf16.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; nothing falls back. Any number of rows; din % 64 == 0, d % 128 == 0.
+    raise; nothing falls back. Any number of rows; din % 16 == 0, din <= 4096
+    (the int8 core's row pass holds a row in registers), d % 128 == 0.
     """
     global launches_proj_gated_int8
     if a.device.type == "cpu":
@@ -241,7 +242,7 @@ def proj_gated_residual_int8(a, h, gate, qp) -> torch.Tensor:
         raise ValueError("proj_gated_residual_int8: the linear needs a bias")
     check_tensor("proj_gated_residual_int8", "gate", gate, (d,), torch.bfloat16)
     check_int8_linear("proj_gated_residual_int8", a, qp["w_int8"], qp["w_scale"], qp["b"],
-                      d, din)
+                      d, din, k_multiple=16, k_max=I8_CORE_MAX_K)
     cuda_build.require_cuda("proj_gated_residual_int8", a, h, gate, dtype=torch.bfloat16)
     m = a.numel() // din
     aq = torch.empty((m, din), dtype=torch.int8, device=a.device)

@@ -82,7 +82,7 @@ def check_tensor(what: str, name: str, t: torch.Tensor, shape: tuple, dtype) -> 
         raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
 
 
-I8_CORE_MAX_K = 4096  # kernels 4 and 5 hold a row of K values in registers (gemm_int8.cuh)
+I8_CORE_MAX_K = 4096  # kernels 4, 5, 6 hold a row of K values in registers (gemm_int8.cuh)
 
 
 def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int,
@@ -90,8 +90,8 @@ def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int,
     """Checks before a kernel launch: one int8 linear {w_int8 [n, k] int8,
     w_scale [n] fp32, b [n] bf16 or None} on the CUDA device of the bf16
     activations x, everything contiguous and 16-byte aligned; K a multiple of
-    k_multiple (64 for the mma.sync product of kernels 6 and 9, 16 for the
-    int8 TMA core's rows) and at most k_max, N a multiple of 128."""
+    k_multiple (64 for the mma.sync product of kernel 9, 16 for the int8 TMA
+    core's rows) and at most k_max, N a multiple of 128."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{what}: activations must be bfloat16, got {x.dtype}")
     check_tensor(what, "w_int8", w_int8, (n, k), torch.int8)

@@ -31,6 +31,14 @@ and the same idioms on 8-bit operands, for the int8 core (csrc/gemm_int8.cuh):
               stage (four k32 steps, the descriptor advancing 32 bytes a
               step), both operands through descriptors, against the product
               in float64 (exact at these sizes).
+and the idioms of the attention core (csrc/attn_wgmma.cuh):
+  tma_3d, tma_3d_edge  a 64-row box of a 3-D map over folded heads [H, n,
+              64], inside a head and hanging over its last row: past n the
+              box holds zeros, not the next head's rows;
+  wgmma_pv    O = P.V with P laid out as the m64n128 score accumulator,
+              rounded to bf16 into A fragments in registers, and V [128][64]
+              read as an MN-major operand through a transposed-B descriptor
+              (wgmma m64n64k16), against P.float() @ V.float().
 Unlike the Mosaic script it raises on a failure. It needs a CUDA card.
 """
 
@@ -95,6 +103,24 @@ def _probes(dev: torch.device) -> dict:
         cuda_build.check(lib.f5_probe_tma(x8.data_ptr(), raw.data_ptr(), 100, 320, row, col, 1,
                                           dev.index, stream), "probe_tma")
         out[label] = (raw, swizzled_box(x8, row, col), 0.0)
+
+    # 64-row boxes of [3, 100, 64]: inside head 1, and over its last row
+    x3 = rnd(3, 100, 64)
+    for label, row in (("tma_3d", 8), ("tma_3d_edge", 72)):
+        raw = torch.empty((64, 64), dtype=torch.bfloat16, device=dev)
+        cuda_build.check(lib.f5_probe_tma_3d(x3.data_ptr(), raw.data_ptr(), 3, 100, row, 1,
+                                             dev.index, stream), "probe_tma_3d")
+        out[label] = (raw, swizzled_box(x3[1], row, 0), 0.0)
+
+    # probabilities in [0, 1) as the softmax leaves them, with zeros as masked keys give
+    p_in = torch.rand((64, 128), generator=gen, device=dev)
+    p_in[:, 100:] = 0
+    p_in = p_in.to(torch.bfloat16)
+    v = rnd(128, 64)
+    prod = torch.empty((64, 64), dtype=torch.float32, device=dev)
+    cuda_build.check(lib.f5_probe_pv(p_in.data_ptr(), v.data_ptr(), prod.data_ptr(), dev.index,
+                                     stream), "probe_pv")
+    out["wgmma_pv"] = (prod, p_in.float() @ v.float(), 1e-3)
 
     a, b = rnd(64, 64), rnd(128, 64)
     for label, register_a in (("wgmma_ss", 0), ("wgmma_rs", 1)):

@@ -102,6 +102,72 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         flash_prefix.flash_prefix_folded_lse(f32, f32, f32, lens)  # the training kernels: bf16
 
 
+# --- kernel A at d = 64 on the TMA + wgmma attention core -----------------------
+
+
+def _attention_case(dev, seed, H, n, lens, past=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (_bf16((H, n, 64), dev, gen) for _ in range(3))
+    if past is not None:  # keys past kv_len that would win every max unless masked first
+        for h, length in enumerate(lens):
+            k[h, length:] = past * torch.sign(q[h].float().mean(0)).to(torch.bfloat16)
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, kv
+
+
+def _attention_want(q, k, v, kv):
+    want = flash_prefix.prefix_attention_reference(q, k, v, kv)
+    want[kv == 0] = 0  # no valid key: zeros, as the TPU kernel gives
+    return want
+
+
+def _rel(got, want):
+    g, w = got.float(), want.float()
+    return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("H,n,lens,past", [
+    (32, 1536, [1376] * 32, None),                       # the main shape
+    (2, 1, [1, 1], None),
+    (2, 127, [127, 1], None),
+    (2, 128, [128, 127], None),
+    (2, 129, [129, 128], None),
+    (4, 1000, [1000, 700, 129, 1], None),
+    (8, 1000, [0, 1000, 1, 127, 128, 129, 255, 999], None),  # mixed, 0 (zeros) and n
+    (1, 1536, [1376], None),                             # H = 1
+    (6, 300, [1, 127, 128, 129, 255, 300], 1e4),         # keys past kv_len at +-1e4
+])
+def test_prefix_attention_on_the_attention_core(dev, H, n, lens, past):
+    q, k, v, kv = _attention_case(dev, 30 + n, H, n, lens, past)
+    before = flash_prefix.launches
+    got = flash_prefix.flash_prefix_folded(q, k, v, kv)
+    assert flash_prefix.launches == before + 1
+    want = _attention_want(q, k, v, kv)
+    _close(got, want)
+    assert _rel(got, want) <= 1e-2
+    for h, length in enumerate(lens):
+        if length == 0:
+            assert got[h].abs().max().item() == 0
+
+
+def test_attention_core_and_the_mma_loop_agree(dev):
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+
+    q, k, v, kv = _attention_case(dev, 40, 8, 1000, [0, 1000, 1, 127, 128, 129, 255, 999])
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
+    out_core, out_mma = torch.empty_like(q), torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr())
+    cuda_build.check(lib.f5_flash_prefix_fwd(*args, out_core.data_ptr(), 8, 1000, 64,
+                                             flash_prefix.LOG2E / 8, dev.index, stream),
+                     "flash_prefix_fwd")
+    cuda_build.check(lib.f5_flash_prefix_fwd_mma(*args, out_mma.data_ptr(), 8, 1000,
+                                                 flash_prefix.LOG2E / 8, dev.index, stream),
+                     "flash_prefix_fwd_mma")
+    torch.cuda.synchronize(dev)
+    assert _rel(out_core, out_mma) <= 1e-2
+    _close(out_core, _attention_want(q, k, v, kv))
+
+
 # --- the fp32 forms of kernels A, B, C -------------------------------------------
 
 
@@ -270,6 +336,39 @@ def test_proj_gated_residual_int8_kernel(dev):
     want = fused_linears.proj_gated_residual_int8_reference(a, h, gate, qp)
     _close(got, want)
     assert torch.equal(got, want)  # a is quantized as it is: bit for bit
+
+
+@pytest.mark.parametrize("m", [1, 127, 3072])
+@pytest.mark.parametrize("din", [1024, 2048])
+def test_proj_gated_residual_int8_kernel_on_the_int8_core(dev, m, din):
+    gen = torch.Generator(device=dev).manual_seed(m + din)
+    a = _rows(max(m, 8), din, dev, gen)[:m].contiguous()[None]
+    h = _bf16((1, m, 1024), dev, gen)
+    gate = _bf16((1024,), dev, gen)
+    qp = _qp(dev, gen, 1024, din)
+    before = fused_linears.launches_proj_gated_int8
+    got = fused_linears.proj_gated_residual_int8(a, h, gate, qp)
+    assert fused_linears.launches_proj_gated_int8 == before + 1
+    # a is quantized as it is: bit for bit
+    assert torch.equal(got, fused_linears.proj_gated_residual_int8_reference(a, h, gate, qp))
+
+
+def test_proj_gated_residual_int8_raises_on_what_the_int8_core_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    h, gate = _bf16((1, 8, 128), dev, gen), _bf16((128,), dev, gen)
+    for din in (40, 4112):  # din % 16 == 0 up to 4096: the row pass holds a row in registers
+        with pytest.raises(ValueError):
+            fused_linears.proj_gated_residual_int8(_bf16((1, 8, din), dev, gen), h, gate,
+                                                   _qp(dev, gen, 128, din))
+    with pytest.raises(ValueError):  # d = 192 is no multiple of 128
+        fused_linears.proj_gated_residual_int8(_bf16((1, 8, 128), dev, gen),
+                                               _bf16((1, 8, 192), dev, gen),
+                                               _bf16((192,), dev, gen), _qp(dev, gen, 192, 128))
+    # din = 48: a multiple of 16 and of no 64, which the mma.sync product refused
+    a48 = _bf16((1, 8, 48), dev, gen)
+    qp48 = _qp(dev, gen, 128, 48)
+    assert torch.equal(fused_linears.proj_gated_residual_int8(a48, h, gate, qp48),
+                       fused_linears.proj_gated_residual_int8_reference(a48, h, gate, qp48))
 
 
 def test_ff_block_int8_kernel(dev):
@@ -610,7 +709,8 @@ def test_probe_hopper_idioms(dev):
     assert set(errs) == {"slice_mma", "pair_store", "half_swap", "tma_swizzle",
                          "tma_swizzle_edge", "wgmma_ss", "wgmma_rs", "tile_width_128",
                          "tile_width_256", "tma_swizzle_i8", "tma_swizzle_i8_edge",
-                         "wgmma_s8_n128", "wgmma_s8_n256"}
+                         "wgmma_s8_n128", "wgmma_s8_n256", "tma_3d", "tma_3d_edge",
+                         "wgmma_pv"}
 
 
 # --- kernel 14: int8 prefix attention --------------------------------------------
