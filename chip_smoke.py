@@ -11,8 +11,13 @@ Phases (any failure raises and exits non-zero):
      outside the tensor cores, since their products are FFMA) (bf16: A, B,
      C; int8: 9, 5, 6, 4;
      training: 10, 11, 12, 13, with PyTorch's flash attention forward and
-     backward as the library yardsticks of 10 and of 11 + 13; the opt-in
-     attention paths: 7, 8, 18, 19;
+     backward as the library yardsticks of 10 and of 11 + 13, 10 on the
+     attention core and 13 on the attention backward core at the training
+     shape, a ragged case and the new tiles' edges (n 100, 200, 301; kv_len
+     0, 1, 63-65, 127-129, n; keys past kv_len at +-1e4), 10 launched twice
+     on the same inputs (the remat recompute: equal to the bit), a head with
+     kv_len 0 held to zero o, lse 0 and zero dk, dv; the opt-in attention
+     paths: 7, 8, 18, 19;
      A at d = 64 on the TMA + wgmma attention core at n = 1, 127, 128, 129,
      1000, 1536, mixed kv_lens with 0 (zeros) and n, H = 1 and keys past
      kv_len at +-1e4, with its TFLOP/s, share of the bound, the core at 192
@@ -109,11 +114,13 @@ last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab PARENT
 
-instead times kernels A, B, 7, 8, 4, 5, 6 and 9 of the checkout at PARENT
-(for example the parent commit unpacked by `git archive`) and of this one
-under one timer, in turns parent, change, change, parent, with A's library
-yardstick (SDPA on keys sliced to the common kv_len, under each backend) in
-each turn, and fails if B, 7, 8, 4 or 5 moved by more than 5%.
+instead times kernels A, B, 7, 8, 4, 5, 6, 9 and, at the training shape,
+10, 11, 12 and 13 of the checkout at PARENT (for example the parent commit
+unpacked by `git archive`) and of this one under one timer, in turns
+parent, change, change, parent, with the library yardsticks in each turn
+(A's: SDPA on keys sliced to the common kv_len, under each backend; 10's
+and 11 + 13's: PyTorch's flash attention forward and backward), and fails
+if A, B, 7, 8, 4, 5, 11 or 12 moved by more than 5%.
 
 It needs a CUDA card and the repository checkout it sits in; it imports
 nothing of JAX.
@@ -123,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -158,8 +166,10 @@ SOURCES = {
     "ln_mod_matmul_int8": "korean_f5_tts_tpu_torch/csrc/fused_linears_int8.cu",
     "proj_gated_residual_int8": "korean_f5_tts_tpu_torch/csrc/fused_linears_int8.cu",
     "qmatmul": "korean_f5_tts_tpu_torch/csrc/qmatmul.cu",
-    **dict.fromkeys(("flash_prefix_lse", "flash_prefix_dq_lsein", "flash_prefix_dq",
-                     "flash_prefix_dkv"), "korean_f5_tts_tpu_torch/csrc/flash_prefix_train.cu"),
+    "flash_prefix_lse": "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh",
+    **dict.fromkeys(("flash_prefix_dq_lsein", "flash_prefix_dq"),
+                    "korean_f5_tts_tpu_torch/csrc/flash_prefix_train.cu"),
+    "flash_prefix_dkv": "korean_f5_tts_tpu_torch/csrc/attn_bwd_wgmma.cuh",
     **dict.fromkeys(("ln_mod_matmul", "proj_gated_residual"),
                     "korean_f5_tts_tpu_torch/csrc/fused_linears.cu"),
     **dict.fromkeys(("flash_prefix_rope", "flash_prefix_qkv"),
@@ -186,6 +196,26 @@ INT8_REL = 2e-3
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def ptxas_faults(log: str) -> list[str]:
+    """What ptxas reported against the wgmma cores in a build log (empty when
+    the library came from the build cache): spills of a function whose name
+    holds "wgmma" (ptxas prints each function's spills on the line after
+    "Function properties for <name>"), and any wgmma it serialized (info
+    C7513)."""
+    faults, name = [], ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and "wgmma" in name and spills.groups() != ("0", "0"):
+            faults.append(f"{name}: {line.strip()}")
+        if "C7513" in line:
+            faults.append(line.strip())
+        name = "" if spills else name
+    return faults
 
 
 def card_line() -> str:
@@ -817,6 +847,15 @@ def check_ff_int8(gen, dev) -> dict:
     return {"max_abs_err": max_abs, **times}
 
 
+# the tiles' edges of kernels 10 and 13: (n, kv_lens, keys past kv_len at +-past)
+TRAIN_EDGES = (
+    (100, [0, 1, 63, 64, 65, 100], None),
+    (200, [1, 63, 64, 65, 127, 128, 129, 200], None),
+    (301, [0, 1, 63, 64, 65, 127, 128, 129, 301], None),
+    (301, [1, 64, 129, 200, 300, 301], 1e4),
+)
+
+
 def _rel(got, want) -> float:
     g, w = got.float(), want.float()
     return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
@@ -824,25 +863,40 @@ def _rel(got, want) -> float:
 
 def check_train_attention(gen, dev) -> dict[str, dict]:
     """Kernels 10-13 at the training shape (b 8 x 16 heads = H 128, n 1280,
-    d 64) and at a ragged n with mixed kv_lens; the autograd Function
-    against autograd of the plain attention."""
+    d 64), at a ragged n with mixed kv_lens and at the edges of the tiles of
+    kernels 10 (192 query rows, 128-key tiles) and 13 (128 keys a block,
+    64-query tiles): n 100, 200, 301 (301: an [H, n] fp32 row of lse or D
+    starts at no 16-byte boundary), kv_len 0, 1, 63-65, 127-129 and n, keys
+    past kv_len at +-1e4. A head with kv_len 0 is held to the kernels'
+    convention directly (zero o, lse 0, zero dk and dv), not to the plain o,
+    which averages every key there (MASK_VALUE is finite). Kernel 10 runs
+    twice on the same inputs, as the step's remat recompute does, and must
+    give the same bits. Then the autograd Function against autograd of the
+    plain attention."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
 
-    def inputs(H, n, lens):
+    def inputs(H, n, lens, past=None):
         q, k, v, do = (torch.randn((H, n, 64), generator=gen, device=dev).to(torch.bfloat16)
                        for _ in range(4))
+        if past is not None:  # keys past kv_len that win every max unless masked first
+            for h, L in enumerate(lens):
+                k[h, L:] = past * q[h].float().mean(0).sign().to(torch.bfloat16)
         kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
         o, lse = fp.prefix_attention_lse_reference(q, k, v, kv)
+        o[kv == 0] = 0  # no valid key: zeros (the kernels'), not the plain uniform mean
         dvec = (do.float() * o.float()).sum(-1)
         return q, k, v, do, kv, o, lse, dvec
 
-    def case(label, H, n, lens):
-        q, k, v, do, kv, o, lse, dvec = inputs(H, n, lens)
+    def case(label, H, n, lens, past=None):
+        q, k, v, do, kv, o, lse, dvec = inputs(H, n, lens, past)
         o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
+        again = fp.flash_prefix_folded_lse(q, k, v, kv)
         err = {"flash_prefix_lse": compare(f"kernel 10 o {label}", o10, o, 1e-2)[0]}
         compare(f"kernel 10 lse {label}", lse10, lse, 1e-5)
+        if not (torch.equal(again[0], o10) and torch.equal(again[1], lse10)):
+            fail(f"kernel 10 {label}: a second launch on the same inputs gave other bits")
         dq11 = fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
         err["flash_prefix_dq_lsein"] = compare(
             f"kernel 11 dq {label}", dq11,
@@ -856,15 +910,27 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
         err["flash_prefix_dkv"] = max(compare(f"kernel 13 dk {label}", dk, dk_p, 1e-2)[0],
                                       compare(f"kernel 13 dv {label}", dv, dv_p, 1e-2)[0])
         torch.cuda.synchronize()
+        zero = kv == 0
+        if zero.any():
+            worst = max(t[zero].abs().max().item() for t in (o10, lse10, dk, dv))
+            print(f"  kv_len 0 heads {label}: max |o|, |lse|, |dk|, |dv| there {worst:.1e} "
+                  f"(must be 0) {'ok' if worst == 0 else 'FAIL'}")
+            if worst != 0:
+                fail(f"kernels 10/13 {label}: a head with kv_len 0 is not zero o, lse 0 and "
+                     "zero dk, dv")
         return err, (q, k, v, do, kv, lse, dvec)
 
     print("kernels 10-13, training attention (bf16 in, rel bound 1e-2 for o and the "
           "gradients: P and dS round to bf16 before their products in the kernels; lse "
-          "fp32, rel bound 1e-5)")
+          "fp32, rel bound 1e-5); 10 on the attention core, 13 on the attention backward "
+          "core, 11 and 12 on the mma.sync loop")
     errs, (q, k, v, do, kv, lse, dvec) = case("main H=128 n=1280 d=64 kv=n", 128, 1280,
                                               [1280] * 128)
     mixed = torch.randint(1, 1201, (16,), generator=gen, device=dev).tolist()
     case(f"ragged H=16 n=1200 mixed kv={mixed}", 16, 1200, mixed)
+    for n, lens, past in TRAIN_EDGES:
+        case(f"edge n={n} kv={lens}{' keys past kv_len at +-1e4' if past else ''}", len(lens),
+             n, lens, past)
 
     # the Function against autograd of the plain attention: the plain path
     # rounds P, dP and dS to bf16 at other points, so relative L2 only
@@ -1244,10 +1310,14 @@ def check_rope_attention(gen, dev) -> dict[str, dict]:
 # process as the tree's kernels
 AB_KERNELS = {"flash_prefix": "A", "ff_block": "B", "ln_mod_matmul": "7",
               "proj_gated_residual": "8", "ff_block_int8": "4", "ln_mod_matmul_int8": "5",
-              "proj_gated_residual_int8": "6", "qmatmul": "9"}
-AB_LIBRARY = {f"sdpa_{name.split('_')[0].lower()}": f"SDPA {name}" for name in SDPA_BACKENDS}
-AB_UNMOVED = ("ff_block", "ln_mod_matmul", "proj_gated_residual", "ff_block_int8",
-              "ln_mod_matmul_int8")  # within 5% or fail
+              "proj_gated_residual_int8": "6", "qmatmul": "9", "flash_prefix_lse": "10",
+              "flash_prefix_dq_lsein": "11", "flash_prefix_dq": "12", "flash_prefix_dkv": "13"}
+AB_SDPA = {f"sdpa_{name.split('_')[0].lower()}": f"SDPA {name}" for name in SDPA_BACKENDS}
+AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
+              "flash_bwd": "library flash backward (11 + 13's yardstick)"}
+AB_UNMOVED = ("flash_prefix", "ff_block", "ln_mod_matmul", "proj_gated_residual",
+              "ff_block_int8", "ln_mod_matmul_int8", "flash_prefix_dq_lsein",
+              "flash_prefix_dq")  # within 5% or fail
 AB_BOUND = 1.05
 # their times when the bf16 core was built (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md section 6, kernel table)
@@ -1256,9 +1326,10 @@ BF16_CORE_MS = {"ff_block": 0.0824, "ln_mod_matmul": 0.0566, "proj_gated_residua
 
 def core_timings(dev) -> dict[str, float]:
     """ms at the main shape (m = 3072, d = 1024, dff = 2048; attention H 32,
-    n 1536, kv_len 1376) of the AB_KERNELS, through the public wrappers of
-    whichever korean_f5_tts_tpu_torch is first on sys.path, each held against
-    its plain version before it is timed; and the AB_LIBRARY calls."""
+    n 1536, kv_len 1376; training attention H 128, n 1280, every key valid)
+    of the AB_KERNELS, through the public wrappers of whichever
+    korean_f5_tts_tpu_torch is first on sys.path, each held against its
+    plain version before it is timed; and the AB_LIBRARY calls."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import ff_block as fb
@@ -1279,6 +1350,12 @@ def core_timings(dev) -> dict[str, float]:
     aq, ak, av = (torch.randn((32, 1536, 64), generator=gen, device=dev).to(torch.bfloat16)
                   for _ in range(3))
     kv = torch.full((32,), 1376, dtype=torch.int32, device=dev)
+    tq, tk, tv, tdo = (torch.randn((128, 1280, 64), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+    tkv = torch.full((128,), 1280, dtype=torch.int32, device=dev)
+    to, tlse = fp.prefix_attention_lse_reference(tq, tk, tv, tkv)
+    tdvec = (tdo.float() * to.float()).sum(-1)
+    train = (tq, tk, tv, tdo, tdvec, tlse, tkv)
     calls = {
         "flash_prefix": (lambda: fp.flash_prefix_folded(aq, ak, av, kv),
                          lambda: fp.prefix_attention_reference(aq, ak, av, kv), 1e-2),
@@ -1300,6 +1377,15 @@ def core_timings(dev) -> dict[str, float]:
         "qmatmul": (lambda: qm.qmatmul(x, qps[1]["w_int8"], qps[1]["w_scale"], qps[1]["b"]),
                     lambda: qm.qmatmul_reference(x, qps[1]["w_int8"], qps[1]["w_scale"],
                                                  qps[1]["b"]), INT8_REL),
+        "flash_prefix_lse": (lambda: fp.flash_prefix_folded_lse(tq, tk, tv, tkv)[0],
+                             lambda: to, 1e-2),
+        "flash_prefix_dq_lsein": (lambda: fp.flash_prefix_dq_lsein(*train),
+                                  lambda: fp.flash_prefix_dq_lsein_reference(*train), 1e-2),
+        "flash_prefix_dq": (lambda: fp.flash_prefix_dq(tq, tk, tv, tdo, tdvec, tkv)[0],
+                            lambda: fp.flash_prefix_dq_reference(tq, tk, tv, tdo, tdvec,
+                                                                 tkv)[0], 1e-2),
+        "flash_prefix_dkv": (lambda: fp.flash_prefix_dkv(*train)[0],
+                             lambda: fp.flash_prefix_dkv_reference(*train)[0], 1e-2),
     }
     out = {}
     for name, (fn, plain, rel) in calls.items():
@@ -1308,14 +1394,16 @@ def core_timings(dev) -> dict[str, float]:
     want = fp.prefix_attention_reference(aq, ak, av, kv)
     for backend, (ms, _) in sdpa_times(aq, ak, av, kv, want).items():
         out[f"sdpa_{backend.split('_')[0].lower()}"] = ms
+    out["flash_fwd"], out["flash_bwd"] = flash_library_times(tq, tk, tv, tdo, tkv, tlse, tdvec)
     return out
 
 
 def ab_timings(parent: Path, card: str) -> None:
     """core_timings of the checkout at `parent` and of this one, each in a
     process of its own (both packages have one name), in turns parent,
-    change, change, parent; prints the table and fails if B, 7 or 8 of the
-    change is more than 5% slower than of the parent (mean against mean)."""
+    change, change, parent; prints the table and fails if a kernel of
+    AB_UNMOVED of the change is more than 5% slower than of the parent (mean
+    against mean)."""
     runs = []
     for tree in (parent, ROOT, ROOT, parent):
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--timings-of",
@@ -1338,12 +1426,16 @@ def ab_timings(parent: Path, card: str) -> None:
         print(f"| {label if name in AB_LIBRARY else f'{label} ({name})'} | "
               + " | ".join(f"{v:.4f}" for v in t) + f" | {ratio[name]:.3f} |")
     for turn, r in zip(("parent", "change", "change", "parent"), runs):
-        lib = {AB_LIBRARY[n]: r[n] for n in AB_LIBRARY if n in r}
+        lib = {AB_SDPA[n]: r[n] for n in AB_SDPA if n in r}
         best = min(lib, key=lib.get)
+        bwd = r["flash_prefix_dq_lsein"] + r["flash_prefix_dkv"]
         print(f"A ({turn}) {r['flash_prefix']:.4f} ms against the fastest library call, {best} "
-              f"{lib[best]:.4f} ms: {r['flash_prefix'] / lib[best]:.2f}x")
+              f"{lib[best]:.4f} ms: {r['flash_prefix'] / lib[best]:.2f}x; 10 "
+              f"{r['flash_prefix_lse']:.4f} against the flash forward {r['flash_fwd']:.4f}: "
+              f"{r['flash_prefix_lse'] / r['flash_fwd']:.2f}x; 11 + 13 {bwd:.4f} against the "
+              f"flash backward {r['flash_bwd']:.4f}: {bwd / r['flash_bwd']:.2f}x")
     moved = [AB_KERNELS[n] for n in AB_UNMOVED if ratio[n] > AB_BOUND]
-    print(f"B, 7, 8, 4, 5 change / parent: "
+    print(", ".join(AB_KERNELS[n] for n in AB_UNMOVED) + " change / parent: "
           + ", ".join(f"{ratio[n]:.3f}" for n in AB_UNMOVED)
           + f" (bound {AB_BOUND}): {'ok' if not moved else 'FAIL'}")
     if moved:
@@ -2410,11 +2502,11 @@ def main(argv=None) -> int:
                              "phase 9) and one training step; tables to this file (int8) and "
                              "to its .bf16, .<attn_path>, .attn_int8 and .train siblings")
     parser.add_argument("--ab", type=Path, default=None, metavar="PARENT",
-                        help="instead of the phases: time kernels A, B, 7, 8, 4, 5, 6 and 9 "
-                             "and the SDPA yardsticks of A of the checkout at PARENT and of "
-                             "this one under one timer, in turns parent, change, change, "
-                             "parent (a process each), and fail if B, 7, 8, 4 or 5 moved by "
-                             "more than 5%%")
+                        help="instead of the phases: time kernels A, B, 7, 8, 4, 5, 6, 9 and "
+                             "10-13 and the library yardsticks of A, 10 and 11 + 13 of the "
+                             "checkout at PARENT and of this one under one timer, in turns "
+                             "parent, change, change, parent (a process each), and fail if "
+                             "A, B, 7, 8, 4, 5, 11 or 12 moved by more than 5%%")
     parser.add_argument("--timings-of", type=Path, default=None, metavar="TREE",
                         help="one turn of --ab: the kernels of the checkout at TREE, as a JSON "
                              "line")
@@ -2455,8 +2547,11 @@ def main(argv=None) -> int:
     print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {cuda_build.build_seconds if cuda_build.build_seconds is not None else 'cached'} s)")
     for line in cuda_build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "C7513" in line:
             print(f"  ptxas: {line.strip()}")
+    faults = ptxas_faults(cuda_build.build_log)
+    if faults:
+        fail("ptxas: " + "; ".join(faults))
 
     results = {name: {} for name in KERNELS}
     if 2 in phases:

@@ -1,0 +1,376 @@
+// The bf16 attention backward core for Hopper: kernel 13 (dk and dv of
+// prefix attention) at head dim 64, on TMA, mbarriers and wgmma (hopper.cuh).
+//
+// The function is the TPU kernel's (korean_f5_tts_tpu/ops/flash_prefix.py:
+// _flash_prefix_dkv -> _kernel_dkv, with cast=True): folded heads q, k, v, dO,
+// dk, dv [H, n, 64] bf16, lse and D = rowsum(dO * o) [H, n] fp32, kv_lens [H]
+// int32. Key j of head h has gradients only if j < kv_len:
+//   S^T  = K.Q^T                     (fp32)
+//   P^T  = exp2(S^T * scale_log2 - lse[query])
+//   dV  += P^T.dO                    (P^T rounded to bf16)
+//   dP^T = V.dO^T                    (fp32)
+//   dS^T = P^T * (dP^T - D[query])
+//   dK  += dS^T.Q                    (dS^T rounded to bf16); dK *= 1/sqrt(64)
+// summed over every query row, padded ones included (a padded row attends
+// the prefix too, and its dO is not assumed zero). It replaces the mma.sync
+// kernel the TPU kernel was first ported to (flash_prefix_train.cu before
+// this core), which held k and v of 64 keys in registers, loaded each 64-query
+// tile synchronously with two barriers and ran its four products on mma.sync.
+//
+// What bounds it: at the training shape (H = 128, n = 1280, every key valid)
+// a call is 8 * 128 * 1280^2 * 64 = 107 GFLOP (0.109 ms at 989 TFLOP/s)
+// against 84 MB (0.025 ms at 3.35 TB/s), and 210 M exp2 that the SFUs (16 a
+// clock per SM) take ~0.05 ms for: tensor-core bound, with the exponentials
+// to hide under the products.
+//
+// Design. One block per (folded head, tile of 128 keys), 384 threads: two
+// consumer warpgroups of 64 keys each and a producer warpgroup (setmaxnreg
+// moves its registers to the consumers: 128 x 40 + 256 x 232 = 65,536).
+//   K, V        the block's 128 key rows of K and V are loaded once by TMA
+//               (3-D maps over [H, n, 64], boxes stop at n with zeros) and
+//               stay in shared memory: each warpgroup's 64 rows are the A
+//               operands of its S^T and dP^T products.
+//   Q, dO       the producer streams 64-query tiles of Q and dO through a
+//               ring of kBwdStages stages with full/empty mbarriers, and its
+//               first warp copies the tile's 64 lse and D values into the
+//               stage beside them (plain loads: an [H, n] fp32 row of n =
+//               301 starts at no 16-byte boundary, so no TMA map fits it);
+//               a query at or past n gets lse +inf (P = 0 there, not left to
+//               the zero fill of q and dO) and D 0.
+//   S^T, dP^T   wgmma m64n64k16, both operands k-major in shared memory
+//               (wgmma_ss_n64), four k16 steps over d, a group each.
+//   dV, dK      wgmma m64n64k16 with A from registers (P^T or dS^T of the
+//               m64n64 accumulator rounded to bf16: attn_pack_p<64>) and B
+//               the stage's dO or Q tile, MN-major through a transposed-B
+//               descriptor (the P.V form of attn_wgmma.cuh), four k16 steps
+//               over the tile's queries.
+//   tile width  64 queries: registers decide it. A lane holds S^T and dP^T
+//               (2 x 32 fp32), dK and dV (2 x 32) and the packed P^T and dS^T
+//               (2 x 16): 160, so the next tile's scores can be in flight
+//               while this tile's gradients run. At 128 queries the same
+//               overlap needs 256 registers, past the 240 at most that a
+//               consumer of two can get beside a producer.
+//   overlap     a warpgroup issues tile i's S^T and dP^T, then tile i - 1's
+//               dV and dK, as three groups; it computes P^T of tile i when
+//               S^T is done (wait_group 2), dS^T when dP^T is done (1), and
+//               packs both for the next turn once i - 1's products are done
+//               (0), which also frees that stage. No register a group in
+//               flight reads is written meanwhile (ptxas serializes wgmma
+//               otherwise). Across the two warpgroups, ping-pong: each issues
+//               its products only in its turn, so one's exponentials run
+//               under the other's products.
+//   masks       keys at or past kv_len (rows of S^T) get P = 0 in the
+//               warpgroup whose 64 keys straddle kv_len; a block whose first
+//               key is at or past kv_len writes zero dK and dV without
+//               walking the queries (the TPU kernel's keys past kv_len get
+//               zero gradients too).
+//   epilogue    dK * 1/sqrt(64) and dV as bf16 through the warpgroup's own K
+//               and V slices of shared memory (swizzled, conflict-free), then
+//               16-byte stores of whole rows, masked at n. No atomics: a
+//               block owns its key rows, so the result does not depend on
+//               the order blocks run in.
+// Measured on an H100 at the training shape (PERF.md section 6): the
+// turns took 6-7% off, six stages against four ~1%; three consumer
+// warpgroups (192 keys a block, 160 registers each) spilled 320 bytes and
+// took twice the time.
+// Numerics as the TPU kernel with cast=True: fp32 S^T and dP^T, P^T and dS^T
+// rounded to bf16 only for their products, fp32 accumulation. The scale
+// meets S^T in one fmaf with the lse (one rounding where the TPU kernel has
+// two) and exp2 is ex2.approx, as in kernel A.
+//
+// For kernel 11 (dq += dS.K, the same four product forms with keys and
+// queries swapped) the pieces carry over: a block owns 64-row query tiles
+// whose Q and dO stay in shared memory as the A operands of S = Q.K^T and dP
+// = dO.V^T (bwd_issue_scores), the producer streams K and V tiles, dS is
+// packed as above and dq += dS.K reads the K tile MN-major
+// (bwd_issue_grad); lse and D are then rows of the accumulator, fixed per
+// lane, and need no staging.
+#pragma once
+
+#include "attn_wgmma.cuh"  // fast_exp2, attn_pack_p, kAttnD, align_1024, allow_smem
+
+namespace f5 {
+namespace {
+
+constexpr int kBwdWgs = 2;                           // consumer warpgroups, 64 keys each
+constexpr int kBwdKeys = 64 * kBwdWgs;               // key rows a block
+constexpr int kBwdBQ = 64;                           // queries a streamed tile
+constexpr int kBwdStages = 6;                        // Q/dO ring depth
+constexpr int kBwdTileBytes = kBwdBQ * kRowBytes;    // a Q or a dO tile
+constexpr int kBwdKVBytes = kBwdKeys * kRowBytes;    // the block's K or V rows
+constexpr int kBwdRowsOff = 2 * kBwdTileBytes;       // the tile's lse, then its D (fp32)
+constexpr int kBwdStageBytes = kBwdRowsOff + 1024;   // stages stay 1024-byte aligned
+constexpr int kBwdSmemBytes =
+    1024 + 2 * kBwdKVBytes + kBwdStages * kBwdStageBytes + (2 * kBwdStages + 1) * 8;
+
+// ping-pong as in attn_wgmma.cuh: warpgroup wg issues its products only in
+// its turn (named barrier 4 + wg, 256 threads: its own 128 waiting, the other
+// warpgroup's 128 arriving when it has issued)
+__device__ __forceinline__ void bwd_turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(4 + wg) : "memory");
+}
+
+__device__ __forceinline__ void bwd_turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 + (wg + 1) % kBwdWgs) : "memory");
+}
+
+// one 64 x 64 score tile of the backward, S^T = K.Q^T or dP^T = V.dO^T
+// (the A operand at desc_a, the B tile k-major), four k16 steps over d, as
+// one wgmma group
+__device__ __forceinline__ void bwd_issue_scores(float (&d)[32], uint64_t desc_a,
+                                                 const unsigned char* tile_b) {
+  const uint64_t db = wgmma_desc(tile_b);
+#pragma unroll
+  for (int kk = 0; kk < kAttnD / 16; ++kk) wgmma_ss_n64(d, desc_a + 2 * kk, db + 2 * kk, kk != 0);
+  wgmma_commit();
+}
+
+// acc (64 rows x 64) += A (64 rows x 64 bf16, A fragments in registers) . B
+// (the tile's [64][64] rows, MN-major): dV += P^T.dO and dK += dS^T.Q; no
+// commit, so that both products of a tile go as one group
+__device__ __forceinline__ void bwd_issue_grad(float (&acc)[32], const uint32_t (&a)[4][4],
+                                               const unsigned char* tile) {
+  const uint64_t db = wgmma_desc_mn(tile);
+#pragma unroll
+  for (int kk = 0; kk < kBwdBQ / 16; ++kk) wgmma_rs_n64_tb(acc, a[kk], db + 128 * kk, 1);
+}
+
+// P^T in place of S^T for this lane's keys (rows g, g + 8 of its warp's 16)
+// and the tile's queries (s[4j + e] is query 8j + 2t + (e & 1)); mask: the
+// warpgroup's keys straddle kv_len, and a key of this lane at or past it
+// (valid false) gets P = 0
+__device__ __forceinline__ void bwd_probs(float (&s)[32], const float* lse, float scale_log2,
+                                          int t, bool mask, const bool (&valid)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fmaf(s[4 * j + e], scale_log2, -((e & 1) ? l.y : l.x));
+      if (mask && !valid[e >> 1]) x = -INFINITY;
+      s[4 * j + e] = fast_exp2(x);
+    }
+  }
+}
+
+// dS^T = P^T * (dP^T - D) in place of dP^T
+__device__ __forceinline__ void bwd_dscores(float (&dp)[32], const float (&p)[32],
+                                            const float* dvec, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 dd = *reinterpret_cast<const float2*>(dvec + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * j + e] = p[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dd.y : dd.x));
+  }
+}
+
+// this warpgroup's 64 x 64 accumulator, times `scale`, as bf16 rows into its
+// swizzled slice of shared memory (chunk j of row r at chunk j ^ (r & 7))
+__device__ __forceinline__ void bwd_stage_rows(unsigned char* slice, const float (&acc)[32],
+                                               float scale, int row, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int chunk = (j ^ g) << 4;
+    *reinterpret_cast<uint32_t*>(slice + row * kRowBytes + chunk + 4 * t) =
+        pack_bf16x2(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    *reinterpret_cast<uint32_t*>(slice + (row + 8) * kRowBytes + chunk + 4 * t) =
+        pack_bf16x2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+}
+
+__global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
+attn_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+                      const float* __restrict__ dvec, const int* __restrict__ kv_lens,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int n, float scale_log2,
+                      float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* s_k = smem;
+  unsigned char* s_v = smem + kBwdKVBytes;
+  unsigned char* ring = smem + 2 * kBwdKVBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kBwdStages * kBwdStageBytes);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* kv_full = empty + kBwdStages;
+  const int head = blockIdx.y;
+  const int k0 = blockIdx.x * kBwdKeys;
+  const int kv_len = min(kv_lens[head], n);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t off = (size_t)head * n * kAttnD;
+
+  if (k0 >= kv_len) {  // block-uniform: every key masked, zero gradients, no query walked
+    for (int i = tid; i < kBwdKeys * 8; i += 128 * (kBwdWgs + 1)) {
+      const int r = k0 + (i >> 3), c = i & 7;
+      if (r < n) {
+        *reinterpret_cast<int4*>(dk + off + (size_t)r * kAttnD + 8 * c) = make_int4(0, 0, 0, 0);
+        *reinterpret_cast<int4*>(dv + off + (size_t)r * kAttnD + 8 * c) = make_int4(0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+  const int q_tiles = (n + kBwdBQ - 1) / kBwdBQ;
+
+  if (tid == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 32);            // the producer warp's lanes; lane 0's also expects the bytes
+      mbar_init(&empty[s], 4 * kBwdWgs);  // lane 0 of every consumer warp
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kBwdWgs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 4 * kBwdWgs) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * kBwdKVBytes);
+        tma_load_3d(s_k, &map_k, kv_full, 0, k0, head);
+        tma_load_3d(s_v, &map_v, kv_full, 0, k0, head);
+      }
+      const float* lse_h = lse + (size_t)head * n;
+      const float* d_h = dvec + (size_t)head * n;
+      for (int i = 0; i < q_tiles; ++i) {
+        const int s = i % kBwdStages;
+        mbar_wait(&empty[s], ((i / kBwdStages) & 1) ^ 1);  // passes at once on the first round
+        unsigned char* stage = ring + s * kBwdStageBytes;
+        float* rows = reinterpret_cast<float*>(stage + kBwdRowsOff);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 2 * lane + e, qrow = i * kBwdBQ + c;
+          rows[c] = qrow < n ? lse_h[qrow] : INFINITY;
+          rows[kBwdBQ + c] = qrow < n ? d_h[qrow] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 2 * kBwdTileBytes);
+          tma_load_3d(stage, &map_q, &full[s], 0, i * kBwdBQ, head);
+          tma_load_3d(stage + kBwdTileBytes, &map_do, &full[s], 0, i * kBwdBQ, head);
+        } else {
+          mbar_arrive(&full[s]);  // releases this lane's lse and D stores
+        }
+      }
+    }
+  } else {
+    // 128 x 40 + 256 x 232 = 65,536: the registers the block was launched
+    // with (the producer's lse and D copies need more than the 24 of a
+    // TMA-only producer)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const int wk0 = k0 + wg * 64;          // this warpgroup's first key
+    const int row = (warp & 3) * 16 + g;   // this lane's keys: wk0 + row, wk0 + row + 8
+    const bool mask = wk0 + 64 > kv_len;   // warpgroup-uniform
+    const bool valid[2] = {wk0 + row < kv_len, wk0 + row + 8 < kv_len};
+    unsigned char* my_k = s_k + wg * 64 * kRowBytes;
+    unsigned char* my_v = s_v + wg * 64 * kRowBytes;
+    const uint64_t desc_k = wgmma_desc(my_k), desc_v = wgmma_desc(my_v);
+    float dk_acc[32], dv_acc[32], s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    uint32_t p[4][4], ds[4][4];
+    mbar_wait(kv_full, 0);
+
+    // tile 0: its scores and gradients' operands
+    mbar_wait(&full[0], 0);
+    if (wg == kBwdWgs - 1) bwd_turn_pass(wg);  // warpgroup 0 starts
+    bwd_turn_wait(wg);
+    wgmma_fence();
+    bwd_issue_scores(s, desc_k, ring);
+    bwd_issue_scores(dp, desc_v, ring + kBwdTileBytes);
+    bwd_turn_pass(wg);
+    wgmma_wait<1>();
+    wgmma_fence_regs(s);
+    const float* rows = reinterpret_cast<const float*>(ring + kBwdRowsOff);
+    bwd_probs(s, rows, scale_log2, t, mask, valid);
+    wgmma_wait<0>();
+    wgmma_fence_regs(dp);
+    bwd_dscores(dp, s, rows + kBwdBQ, t);
+    attn_pack_p<kBwdBQ>(s, p);
+    attn_pack_p<kBwdBQ>(dp, ds);
+    for (int i = 1; i < q_tiles; ++i) {
+      const int st = i % kBwdStages, prev = (i - 1) % kBwdStages;
+      unsigned char* stage = ring + st * kBwdStageBytes;
+      unsigned char* pstage = ring + prev * kBwdStageBytes;
+      mbar_wait(&full[st], (i / kBwdStages) & 1);
+      bwd_turn_wait(wg);
+      wgmma_fence();
+      bwd_issue_scores(s, desc_k, stage);                  // S^T of tile i
+      bwd_issue_scores(dp, desc_v, stage + kBwdTileBytes);  // dP^T of tile i
+      bwd_issue_grad(dv_acc, p, pstage + kBwdTileBytes);   // dV += P^T.dO of tile i - 1
+      bwd_issue_grad(dk_acc, ds, pstage);                  // dK += dS^T.Q of tile i - 1
+      wgmma_commit();
+      bwd_turn_pass(wg);
+      rows = reinterpret_cast<const float*>(stage + kBwdRowsOff);
+      wgmma_wait<2>();  // S^T of tile i is done; its dP^T and tile i - 1's products may run
+      wgmma_fence_regs(s);
+      bwd_probs(s, rows, scale_log2, t, mask, valid);
+      wgmma_wait<1>();
+      wgmma_fence_regs(dp);
+      bwd_dscores(dp, s, rows + kBwdBQ, t);
+      wgmma_wait<0>();
+      wgmma_fence_regs(dk_acc);
+      wgmma_fence_regs(dv_acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      attn_pack_p<kBwdBQ>(s, p);
+      attn_pack_p<kBwdBQ>(dp, ds);
+    }
+    unsigned char* last = ring + ((q_tiles - 1) % kBwdStages) * kBwdStageBytes;
+    bwd_turn_wait(wg);
+    wgmma_fence();
+    bwd_issue_grad(dv_acc, p, last + kBwdTileBytes);
+    bwd_issue_grad(dk_acc, ds, last);
+    wgmma_commit();
+    if (wg != kBwdWgs - 1) bwd_turn_pass(wg);  // the last turn: nobody waits on warpgroup 0's
+    wgmma_wait<0>();
+    wgmma_fence_regs(dk_acc);
+    wgmma_fence_regs(dv_acc);
+
+    // epilogue: dK and dV through this warpgroup's K and V slices (its last
+    // products are done), then whole rows, masked at n
+    bwd_stage_rows(my_k, dk_acc, sm_scale, row, g, t);
+    bwd_stage_rows(my_v, dv_acc, 1.f, row, g, t);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup alone
+    const int wt = tid & 127;
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int i = wt + 128 * it, r = i >> 3, c = i & 7;
+      const int grow = wk0 + r;
+      if (grow < n) {
+        const int src = r * kRowBytes + ((c ^ (r & 7)) << 4);
+        *reinterpret_cast<int4*>(dk + off + (size_t)grow * kAttnD + 8 * c) =
+            *reinterpret_cast<const int4*>(my_k + src);
+        *reinterpret_cast<int4*>(dv + off + (size_t)grow * kAttnD + 8 * c) =
+            *reinterpret_cast<const int4*>(my_v + src);
+      }
+    }
+  }
+}
+
+// kernel 13 on this core. q, k, v, dout, dk, dv: [H, n, 64] bf16, 16-byte
+// aligned; dvec, lse: [H, n] fp32 (any alignment: they are read by plain
+// loads); kv_lens [H] int32.
+cudaError_t launch_attn_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* dvec, const void* lse, const void* kv_lens,
+                                  void* dk, void* dv, int H, int n, float scale_log2,
+                                  float sm_scale, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!tensor_map_3d(&map_q, q, H, n, kAttnD, kBwdBQ, kMapBf16) ||
+      !tensor_map_3d(&map_k, k, H, n, kAttnD, kBwdKeys, kMapBf16) ||
+      !tensor_map_3d(&map_v, v, H, n, kAttnD, kBwdKeys, kMapBf16) ||
+      !tensor_map_3d(&map_do, dout, H, n, kAttnD, kBwdBQ, kMapBf16))
+    return cudaErrorInvalidValue;
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err = allow_smem(attn_dkv_wgmma_kernel, kBwdSmemBytes, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kBwdKeys - 1) / kBwdKeys, H);
+  attn_dkv_wgmma_kernel<<<grid, 128 * (kBwdWgs + 1), kBwdSmemBytes, stream>>>(
+      map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<const int*>(kv_lens), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), n, scale_log2, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace f5

@@ -1,5 +1,8 @@
 // The bf16 attention core for Hopper: kernel A (prefix attention) at head
-// dim 64, on TMA, mbarriers and wgmma (hopper.cuh).
+// dim 64, on TMA, mbarriers and wgmma (hopper.cuh), and kernel 10 (the
+// training forward, flash_prefix_train.cu), which is kernel A that also
+// writes each row's base-2 logsumexp lse = m + log2(l) (the template flag
+// kLse; kernel A's instantiation has no lse code).
 //
 // The function is kernel A's (flash_prefix.cu): folded heads q, k, v, out
 // [H, n, 64] bf16, kv_lens [H] int32; head h attends keys [0, kv_lens[h])
@@ -126,12 +129,14 @@ __device__ __forceinline__ void attn_softmax_tile(float (&s)[64], float (&m_run)
   for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
 }
 
-// P (the m64n128 accumulator) rounded to bf16 as the A fragments of the
-// eight k16 steps of P.V: columns 16kk .. 16kk + 15 are accumulator column
-// groups 2kk and 2kk + 1, in mma.m16n8k16's A order (mma.cuh)
-__device__ __forceinline__ void attn_pack_p(const float (&s)[64], uint32_t (&p)[8][4]) {
+// P (an m64nN accumulator, N = 128 here, 64 in the backward core) rounded
+// to bf16 as the A fragments of the N / 16 k16 steps of P.V: columns 16kk ..
+// 16kk + 15 are accumulator column groups 2kk and 2kk + 1, in
+// mma.m16n8k16's A order (mma.cuh)
+template <int N>
+__device__ __forceinline__ void attn_pack_p(const float (&s)[N / 2], uint32_t (&p)[N / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < N / 16; ++kk) {
     p[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
     p[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
     p[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
@@ -168,11 +173,14 @@ __device__ __forceinline__ void attn_issue_pv(float (&o)[32], const uint32_t (&p
   wgmma_commit();
 }
 
+// kLse: also write lse [H, n] fp32, the base-2 logsumexp of each row's
+// scaled scores (kernel 10); kernel A instantiates it without
+template <bool kLse>
 __global__ void __launch_bounds__(128 * (kAttnWgs + 1), 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, const int* __restrict__ kv_lens,
-                      bf16* __restrict__ out, int n, float scale_log2) {
+                      bf16* __restrict__ out, float* __restrict__ lse, int n, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* s_q = smem;
@@ -235,7 +243,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       wgmma_fence_regs(s);
       attn_softmax_tile(s, m_run, l_run, alpha, 0, kv_len, scale_log2, t);
-      attn_pack_p(s, p);
+      attn_pack_p<kAttnBK>(s, p);
       for (int j = 1; j < n_tiles; ++j) {
         const int st = j % kAttnStages, prev = (j - 1) % kAttnStages;
         mbar_wait(&full[st], (j / kAttnStages) & 1);
@@ -252,7 +260,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         if (lane == 0) mbar_arrive(&empty[prev]);
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
-        attn_pack_p(s, p);
+        attn_pack_p<kAttnBK>(s, p);
       }
       const int last = (n_tiles - 1) % kAttnStages;
       attn_turn_wait(wg);
@@ -266,13 +274,18 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // epilogue: rows of bf16 through this warpgroup's q slice (its last S
     // product is done), chunk j of row r at chunk j ^ (r & 7)
+    const int row = (warp & 3) * 16 + g;  // and row + 8; (row + 8) & 7 == g too
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float l = quad_sum(l_run[r]);
       inv[r] = l > 0.f ? 1.f / l : 0.f;  // kv_len == 0: zeros, as the TPU kernel
+      const int grow = q0 + wg * 64 + row + 8 * r;
+      // m_run is already in the base-2 domain of the scaled scores; a row
+      // with no valid key gets lse 0
+      if (kLse && t == 0 && grow < n)
+        lse[(size_t)head * n + grow] = l > 0.f ? m_run[r] + log2f(l) : 0.f;
     }
-    const int row = (warp & 3) * 16 + g;  // and row + 8; (row + 8) & 7 == g too
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int chunk = (j ^ g) << 4;
@@ -295,23 +308,25 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// kernel A at head dim 64 on this core. q, k, v, out: [H, n, 64] bf16,
-// 16-byte aligned; kv_lens [H] int32.
+// kernel A (kLse false, lse unused) or kernel 10 (kLse) at head dim 64 on
+// this core. q, k, v, out: [H, n, 64] bf16, 16-byte aligned; kv_lens [H]
+// int32; lse [H, n] fp32.
+template <bool kLse>
 cudaError_t launch_attn_fwd_wgmma(const void* q, const void* k, const void* v,
-                                  const void* kv_lens, void* out, int H, int n, float scale_log2,
-                                  cudaStream_t stream) {
+                                  const void* kv_lens, void* out, void* lse, int H, int n,
+                                  float scale_log2, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
   if (!tensor_map_3d(&map_q, q, H, n, kAttnD, kAttnRows, kMapBf16) ||
       !tensor_map_3d(&map_k, k, H, n, kAttnD, kAttnBK, kMapBf16) ||
       !tensor_map_3d(&map_v, v, H, n, kAttnD, kAttnBK, kMapBf16))
     return cudaErrorInvalidValue;
   static std::atomic<bool> ready[kMaxDevices];
-  const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel, kAttnSmemBytes, ready);
+  const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<kLse>, kAttnSmemBytes, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kAttnRows - 1) / kAttnRows, H);
-  attn_fwd_wgmma_kernel<<<grid, 128 * (kAttnWgs + 1), kAttnSmemBytes, stream>>>(
-      map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out), n,
-      scale_log2);
+  attn_fwd_wgmma_kernel<kLse><<<grid, 128 * (kAttnWgs + 1), kAttnSmemBytes, stream>>>(
+      map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out),
+      static_cast<float*>(lse), n, scale_log2);
   return cudaGetLastError();
 }
 

@@ -19,8 +19,7 @@
 // this tile's softmax, the warpgroups' products in turns.
 //
 // bf16 at D = 128 stays on the first port's mma.sync loop
-// (flash_prefix_fwd_kernel in flash_prefix.cuh, which kernel 10,
-// flash_prefix_train.cu, instantiates with its logsumexp output): one
+// (flash_prefix_fwd_kernel in flash_prefix.cuh): one
 // 128-thread block per (folded head, 64-row query tile), each warp 16 query
 // rows held as mma A fragments, 64-key K/V tiles loaded synchronously into
 // shared memory, S = q.k^T and O += P.V on mma.sync m16n8k16 with P
@@ -240,9 +239,10 @@ extern "C" int f5_flash_prefix_fwd(const void* q, const void* k, const void* v,
   if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return (int)f5::launch_attn_fwd_wgmma(q, k, v, kv_lens, out, H, n, scale_log2, s);
+    return (int)f5::launch_attn_fwd_wgmma<false>(q, k, v, kv_lens, out, nullptr, H, n,
+                                                 scale_log2, s);
   if (d == 128)
-    return (int)f5::launch_fwd<128, false>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
+    return (int)f5::launch_fwd<128>(q, k, v, kv_lens, out, H, n, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -254,8 +254,8 @@ extern "C" int f5_flash_prefix_fwd_mma(const void* q, const void* k, const void*
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
-  return (int)f5::launch_fwd<64, false>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2,
-                                        static_cast<cudaStream_t>(stream));
+  return (int)f5::launch_fwd<64>(q, k, v, kv_lens, out, H, n, scale_log2,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // the same on fp32 q, k, v, out

@@ -1,8 +1,9 @@
 // Tiles, warp-level products, the online-softmax step and the forward loop
 // of the first port's mma.sync attention, shared by kernel A at d = 128
-// (flash_prefix.cu; d = 64 runs on attn_wgmma.cuh), the training kernels
-// 10-13 (flash_prefix_train.cu) and the rope-in-kernel and qkv-layout
-// kernels 18 and 19 (flash_prefix_rope.cu).
+// (flash_prefix.cu; d = 64 runs on attn_wgmma.cuh), the dq kernels 11 and
+// 12 (flash_prefix_train.cu; 10 and 13 run on attn_wgmma.cuh and
+// attn_bwd_wgmma.cuh) and the rope-in-kernel and qkv-layout kernels 18 and
+// 19 (flash_prefix_rope.cu).
 //
 // A block is 128 threads over a 64-row tile; each warp owns 16 of the rows.
 // Shared tiles are [64][D + 8] bf16 (mma.cuh's padded stride); rows at or
@@ -213,15 +214,13 @@ __device__ __forceinline__ void store_output_rows(bf16* out, int ld, const float
   }
 }
 
-// Forward: one block per (folded head, 64-row query tile). kWriteLse also
-// stores the base-2 logsumexp of each row's scaled scores (kernel 10); a
-// row with no valid key gets output 0 and lse 0.
-template <int D, bool kWriteLse>
+// Forward: one block per (folded head, 64-row query tile); a row with no
+// valid key gets output 0.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ kv_lens,
-                        bf16* __restrict__ out, float* __restrict__ lse, int n,
-                        float scale_log2) {
+                        bf16* __restrict__ out, int n, float scale_log2) {
   constexpr int LD = D + 8;
   constexpr int ND = D / 8;  // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -264,36 +263,27 @@ flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_pb<D>(o, s, sV, lane);
   }
 
-  float inv[2], l[2];
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l_run[r]);
-    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;  // kv_len == 0: zeros, as the TPU kernel
+    const float l = quad_sum(l_run[r]);
+    inv[r] = l > 0.f ? 1.f / l : 0.f;  // kv_len == 0: zeros, as the TPU kernel
   }
   const int row0 = q0 + warp * 16 + (lane >> 2);
   store_output_rows<ND>(out + off, D, o, inv, row0, n, t);
-  if (kWriteLse && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row < n) lse[(size_t)head * n + row] = l[r] > 0.f ? m_run[r] + log2f(l[r]) : 0.f;
-    }
-  }
 }
 
-template <int D, bool kWriteLse>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
-                       void* out, void* lse, int H, int n, float scale_log2,
-                       cudaStream_t stream) {
+                       void* out, int H, int n, float scale_log2, cudaStream_t stream) {
   const int smem = 3 * 64 * (D + 8) * (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefix_fwd_kernel<D, kWriteLse>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefix_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((n + kBQ - 1) / kBQ, H);
-  flash_prefix_fwd_kernel<D, kWriteLse><<<grid, kThreads, smem, stream>>>(
+  flash_prefix_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(kv_lens), static_cast<bf16*>(out), static_cast<float*>(lse), n,
-      scale_log2);
+      static_cast<const int*>(kv_lens), static_cast<bf16*>(out), n, scale_log2);
   return cudaGetLastError();
 }
 

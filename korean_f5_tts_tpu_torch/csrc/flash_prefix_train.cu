@@ -18,27 +18,25 @@
 // out of device memory (the plain versions write a 839 MB fp32 [H, n, n]
 // tensor per product).
 //
-// Design: kernel A's tiling (flash_prefix.cuh). 128 threads per block, a
-// 64-row tile per block and 16 rows per warp, held in registers as mma A
-// fragments; the other operand streams through shared memory in 64-row tiles,
-// every product is mma.sync m16n8k16 bf16 with fp32 accumulation, and a
-// score tile goes from the accumulator straight into the next product's A
-// fragment, rounded to bf16 (the TPU default F5_TTS_BWD_CAST=1, :1063).
-//   - 10: kernel A's loop, which also writes lse = m + log2(l) per row.
-//   - 11, 12: one block per (head, 64-query tile); q and dO stay in
-//     registers and the block walks ceil(kv_len / 64) key tiles:
+// Where each runs:
+//   - 10: on the attention core of kernel A (attn_wgmma.cuh, TMA + wgmma,
+//     192 query rows a block), whose lse form also writes lse = m + log2(l)
+//     per row (0 for a row with no valid key, with zero output).
+//   - 13: on the attention backward core (attn_bwd_wgmma.cuh, TMA + wgmma):
+//     one block per (head, 128 keys), K and V resident in shared memory,
+//     64-query tiles of Q, dO, lse and D streamed through an mbarrier ring,
+//     S^T, dP^T, dV += P^T.dO and dK += dS^T.q on wgmma, no atomics.
+//   - 11, 12: the first port's mma.sync design below (kernel A's old tiling,
+//     flash_prefix.cuh): one 128-thread block per (head, 64-query tile); q
+//     and dO stay in registers as mma A fragments and the block walks
+//     ceil(kv_len / 64) key tiles loaded synchronously into shared memory:
 //     S = q.k^T, P = exp2(S * scale_log2 - lse), dP = dO.v^T,
-//     dS = P * (dP - D), dq += dS.k; finally dq *= 1/sqrt(D). 12 carries a
-//     running max and denominator instead of the lse: the accumulator is
-//     rescaled on each max update and divided by l at the end (dS is linear
-//     in P), and the lse it ends with is written out.
-//   - 13: one block per (head, 64-key tile); k and v stay in registers and the
-//     block walks all query tiles, each with its lse and D rows:
-//     S^T = k.q^T, P^T = exp2(S^T * scale_log2 - lse), dv += P^T.dO,
-//     dP^T = v.dO^T, dS^T = P^T * (dP^T - D), dk += dS^T.q; finally
-//     dk *= 1/sqrt(D). Each block owns its dk and dv rows: no atomics, so the
-//     result does not depend on the order blocks run in. A key tile at or
-//     past kv_len has P = 0 and writes zeros without walking the queries.
+//     dS = P * (dP - D), dq += dS.k on mma.sync m16n8k16 with P and dS
+//     rounded to bf16 in registers (the TPU default F5_TTS_BWD_CAST=1,
+//     :1063); finally dq *= 1/sqrt(D). 12 carries a running max and
+//     denominator instead of the lse: the accumulator is rescaled on each
+//     max update and divided by l at the end (dS is linear in P), and the
+//     lse it ends with is written out.
 // Rows past n are zero-filled on load and never stored; a row with no valid
 // key gets lse 0 and zero gradients.
 //
@@ -46,6 +44,7 @@
 // kernels; the TPU dq kernels scale q in its own dtype first (:987, :1047)
 // and its dk/dv kernel the fp32 product (:1173), so the bf16 bounds of the
 // comparisons cover that one rounding.
+#include "attn_bwd_wgmma.cuh"
 #include "flash_prefix.cuh"
 
 namespace f5 {
@@ -176,96 +175,6 @@ flash_prefix_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dk and dv for one (head, 64-key tile), kernel 13
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_prefix_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ dvec, const float* __restrict__ lse,
-                        const int* __restrict__ kv_lens, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int n, float scale_log2, float sm_scale) {
-  constexpr int LD = D + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kBQ * LD;
-  bf16* sQ = sV + kBQ * LD;
-  bf16* sDO = sQ + kBKV * LD;
-  float* sL = reinterpret_cast<float*>(sDO + kBKV * LD);  // lse of the query tile
-  float* sD = sL + kBKV;                                  // D of the query tile
-
-  const int head = blockIdx.y;
-  const int k0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int t = lane & 3;
-  const size_t off = (size_t)head * n * D;
-  const int kv_len = min(kv_lens[head], n);
-  const int key0 = k0 + warp * 16 + (lane >> 2);  // this lane's keys: key0, key0 + 8
-  const bool valid[2] = {key0 < kv_len, key0 + 8 < kv_len};
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) {
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
-    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
-  }
-  if (k0 < kv_len) {  // block-uniform: a tile of masked keys keeps zero gradients
-    load_rows<D>(sK, k + off, k0, n, tid);
-    load_rows<D>(sV, v + off, k0, n, tid);
-    __syncthreads();
-    uint32_t kf[D / 16][4], vf[D / 16][4];
-    load_a_frags<D>(kf, sK, warp, lane);
-    load_a_frags<D>(vf, sV, warp, lane);
-
-    const int q_tiles = (n + kBKV - 1) / kBKV;
-    for (int i = 0; i < q_tiles; ++i) {
-      const int qq0 = i * kBKV;
-      __syncthreads();
-      load_rows<D>(sQ, q + off, qq0, n, tid);
-      load_rows<D>(sDO, dout + off, qq0, n, tid);
-      if (tid < kBKV) {
-        const bool in = qq0 + tid < n;
-        sL[tid] = in ? lse[(size_t)head * n + qq0 + tid] : 0.f;
-        sD[tid] = in ? dvec[(size_t)head * n + qq0 + tid] : 0.f;
-      }
-      __syncthreads();
-
-      float st[kNS][4], dpt[kNS][4];
-      mma_abt<D>(st, kf, sQ, lane);
-      mma_abt<D>(dpt, vf, sDO, lane);
-#pragma unroll
-      for (int nt = 0; nt < kNS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          const float p = (valid[e >> 1] && qq0 + col < n)
-                              ? exp2f(st[nt][e] * scale_log2 - sL[col]) : 0.f;
-          st[nt][e] = p;                             // P^T
-          dpt[nt][e] = p * (dpt[nt][e] - sD[col]);   // dS^T
-        }
-      }
-      mma_pb<D>(dva, st, sDO, lane);
-      mma_pb<D>(dka, dpt, sQ, lane);
-    }
-  }
-#pragma unroll
-  for (int dt = 0; dt < ND; ++dt) {
-    const int col = dt * 8 + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = key0 + 8 * r;
-      if (row < n) {
-        *reinterpret_cast<uint32_t*>(dk + off + (size_t)row * D + col) =
-            pack_bf16x2(dka[dt][2 * r] * sm_scale, dka[dt][2 * r + 1] * sm_scale);
-        *reinterpret_cast<uint32_t*>(dv + off + (size_t)row * D + col) =
-            pack_bf16x2(dva[dt][2 * r], dva[dt][2 * r + 1]);
-      }
-    }
-  }
-}
-
 template <bool kOnline>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* dvec, const void* lse_in, const void* kv_lens, void* dq,
@@ -285,24 +194,6 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* dvec, const void* lse, const void* kv_lens, void* dk,
-                       void* dv, int H, int n, float scale_log2, float sm_scale,
-                       cudaStream_t stream) {
-  constexpr int D = 64;
-  const int smem = 4 * 64 * (D + 8) * (int)sizeof(bf16) + 2 * kBKV * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefix_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((n + kBQ - 1) / kBQ, H);
-  flash_prefix_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(dvec),
-      static_cast<const float*>(lse), static_cast<const int*>(kv_lens),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, scale_log2, sm_scale);
-  return cudaGetLastError();
-}
-
 // the training kernels take D = 64 (the DiT's head dim) only
 int check_args(int device, int H, int n, int d) {
   cudaError_t err = cudaSetDevice(device);
@@ -314,13 +205,13 @@ int check_args(int device, int H, int n, int d) {
 }  // namespace
 }  // namespace f5
 
-// kernel 10
+// kernel 10, on the attention core
 extern "C" int f5_flash_prefix_fwd_lse(const void* q, const void* k, const void* v,
                                        const void* kv_lens, void* out, void* lse, int H, int n,
                                        int d, float scale_log2, int device, void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
-  return (int)f5::launch_fwd<64, true>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
-                                       static_cast<cudaStream_t>(stream));
+  return (int)f5::launch_attn_fwd_wgmma<true>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 // kernel 11
@@ -344,12 +235,12 @@ extern "C" int f5_flash_prefix_dq(const void* q, const void* k, const void* v,
                                   scale_log2, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
-// kernel 13
+// kernel 13, on the attention backward core
 extern "C" int f5_flash_prefix_dkv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* dvec, const void* lse,
                                    const void* kv_lens, void* dk, void* dv, int H, int n, int d,
                                    float scale_log2, float sm_scale, int device, void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
-  return (int)f5::launch_dkv(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n, scale_log2,
-                             sm_scale, static_cast<cudaStream_t>(stream));
+  return (int)f5::launch_attn_dkv_wgmma(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n,
+                                        scale_log2, sm_scale, static_cast<cudaStream_t>(stream));
 }

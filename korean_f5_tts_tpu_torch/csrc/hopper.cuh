@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the TMA-fed, wgmma product cores
-// (gemm_bf16.cuh, gemm_int8.cuh), of the attention core (attn_wgmma.cuh) and
-// of the probes that hold each idiom against two lines of torch
-// (probe_hopper.cu): mbarriers, TMA tile loads into 128-byte-swizzled shared
+// (gemm_bf16.cuh, gemm_int8.cuh), of the attention cores (attn_wgmma.cuh,
+// attn_bwd_wgmma.cuh) and of the probes that hold each idiom against two
+// lines of torch (probe_hopper.cu): mbarriers, TMA tile loads into 128-byte-swizzled shared
 // memory (2-D maps over [rows, cols], 3-D maps over [planes, rows, cols] whose
 // boxes stop at a plane's last row), wgmma with A from registers or from
 // shared memory (bf16 into fp32, s8 into s32; B k-major, or MN-major for
@@ -343,6 +343,31 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[32] (+)= A (64 x 16, k-major in shared memory) . B^T (B: [64][16]
+// k-major): the 64-wide score products of the attention backward (K.Q^T,
+// V.dO^T over a 64-query tile, attn_bwd_wgmma.cuh)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

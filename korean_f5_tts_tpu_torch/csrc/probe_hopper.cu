@@ -28,7 +28,13 @@
 // an MN-major operand read through a transposed-B descriptor (probe (9)):
 // the form nothing else of the port used before and the likeliest place for
 // a silent error.
-#include "attn_wgmma.cuh"
+//
+// The attention backward core (attn_bwd_wgmma.cuh) adds the 64-wide score
+// product: wgmma m64n64k16 with both operands read through k-major
+// shared-memory descriptors (wgmma_ss_n64, as S^T = K.Q^T over a 64-query
+// tile), and that m64n64 accumulator rounded to bf16 into A fragments for a
+// product with an MN-major 64-row tile (dV += P^T.dO) (probe (10)).
+#include "attn_bwd_wgmma.cuh"
 #include "flash_prefix.cuh"
 #include "gemm_int8.cuh"
 
@@ -255,7 +261,7 @@ probe_pv_kernel(const bf16* __restrict__ p_in, const __grid_constant__ CUtensorM
   for (int i = 0; i < 64; ++i)
     s[i] = __bfloat162float(p_in[(row + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + 2 * t + (i & 1)]);
   uint32_t p[8][4];
-  attn_pack_p(s, p);
+  attn_pack_p<kAttnBK>(s, p);
   float o[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
@@ -274,8 +280,76 @@ probe_pv_kernel(const bf16* __restrict__ p_in, const __grid_constant__ CUtensorM
   }
 }
 
+// (10) s[64, 64] fp32 = x . y^T over k = 64 (bwd_issue_scores: wgmma_ss_n64,
+// both operands k-major), then g[64, 64] fp32 = bf16(s) . z with bf16(s) in
+// registers (attn_pack_p<64>) and z [64, 64] an MN-major operand
+// (bwd_issue_grad); x, y, z by TMA
+__global__ void __launch_bounds__(kThreads)
+probe_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_y,
+                 const __grid_constant__ CUtensorMap map_z, float* __restrict__ s_out,
+                 float* __restrict__ g_out) {
+  __shared__ __align__(1024) unsigned char tiles[3 * 64 * kRowBytes];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 3 * 64 * kRowBytes);
+    tma_load_2d(tiles, &map_x, &bar, 0, 0);
+    tma_load_2d(tiles + 64 * kRowBytes, &map_y, &bar, 0, 0);
+    tma_load_2d(tiles + 128 * kRowBytes, &map_z, &bar, 0, 0);
+  }
+  mbar_wait(&bar, 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = warp * 16 + (lane >> 2), t = lane & 3;
+  float s[32], g[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) g[i] = 0.f;
+  wgmma_fence();
+  bwd_issue_scores(s, wgmma_desc(tiles), tiles + 64 * kRowBytes);
+  wgmma_wait<0>();
+  wgmma_fence_regs(s);
+  uint32_t p[4][4];
+  attn_pack_p<64>(s, p);
+  wgmma_fence();
+  bwd_issue_grad(g, p, tiles + 128 * kRowBytes);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_regs(g);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    s_out[row * 64 + col] = s[4 * j];
+    s_out[row * 64 + col + 1] = s[4 * j + 1];
+    s_out[(row + 8) * 64 + col] = s[4 * j + 2];
+    s_out[(row + 8) * 64 + col + 1] = s[4 * j + 3];
+    g_out[row * 64 + col] = g[4 * j];
+    g_out[row * 64 + col + 1] = g[4 * j + 1];
+    g_out[(row + 8) * 64 + col] = g[4 * j + 2];
+    g_out[(row + 8) * 64 + col + 1] = g[4 * j + 3];
+  }
+}
+
 }  // namespace
 }  // namespace f5
+
+// x, y, z: [64, 64] bf16; s, g: [64, 64] fp32 (probe (10))
+extern "C" int f5_probe_bwd(const void* x, const void* y, const void* z, void* s, void* g,
+                            int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_x, map_y, map_z;
+  if (!f5::tensor_map(&map_x, x, 64, 64, 64, f5::kMapBf16) ||
+      !f5::tensor_map(&map_y, y, 64, 64, 64, f5::kMapBf16) ||
+      !f5::tensor_map(&map_z, z, 64, 64, 64, f5::kMapBf16))
+    return (int)cudaErrorInvalidValue;
+  f5::probe_bwd_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_y, map_z, static_cast<float*>(s), static_cast<float*>(g));
+  return (int)cudaGetLastError();
+}
 
 // x: [planes, rows, 64] bf16; raw: the 8 KB box of 64 rows at (row, plane)
 // as shared memory holds it; rows past the plane's last are zeros

@@ -102,6 +102,8 @@ _SIGNATURES = {
     "f5_probe_tma_3d": (_P, _P, _I, _I, _I, _I, _I, _P),
     # p, v, out, device, stream
     "f5_probe_pv": (_P, _P, _P, _I, _P),
+    # x, y, z, s, g, device, stream
+    "f5_probe_bwd": (_P,) * 5 + (_I, _P),
     # M, n, seg_n, int8, device -> 128 or 256
     "f5_tile_width": (_I, _I, _I, _I, _I),
     # a, h, gate, w, b, out, M, din, d, bn, device, stream

@@ -9,7 +9,10 @@ the model is a prefix mask, so one length per folded head describes it: head
 i attends keys [0, kv_lens[i]). Kernel A (csrc/flash_prefix.cu) replaces the
 TPU's _flash_prefix_folded; kernels 10-13 (csrc/flash_prefix_train.cu)
 replace _flash_prefix_folded_lse, _flash_prefix_dq_lsein, _flash_prefix_dq
-and _flash_prefix_dkv; kernel 14 (csrc/flash_prefix_int8.cu) replaces
+and _flash_prefix_dkv (10 runs on kernel A's TMA + wgmma attention core,
+csrc/attn_wgmma.cuh, 13 on the attention backward core,
+csrc/attn_bwd_wgmma.cuh; both need 16-byte-aligned contiguous operands,
+which the wrappers check); kernel 14 (csrc/flash_prefix_int8.cu) replaces
 _flash_prefix_folded_i8; kernels 18 and 19 (csrc/flash_prefix_rope.cu) replace
 _flash_prefix_rope_call and _flash_prefix_qkv_call. The sources' notes say
 what bounds each kernel on the card and how its design answers that.

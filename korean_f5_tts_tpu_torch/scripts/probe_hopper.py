@@ -39,6 +39,14 @@ and the idioms of the attention core (csrc/attn_wgmma.cuh):
               rounded to bf16 into A fragments in registers, and V [128][64]
               read as an MN-major operand through a transposed-B descriptor
               (wgmma m64n64k16), against P.float() @ V.float().
+and the idioms of the attention backward core (csrc/attn_bwd_wgmma.cuh):
+  wgmma_ss_n64  wgmma m64n64k16 with both operands through k-major
+              descriptors (the 64-query score tiles S^T = K.Q^T, dP^T =
+              V.dO^T), against a product;
+  wgmma_bwd_grad  that m64n64 accumulator rounded to bf16 into A fragments
+              in registers, times a 64-row MN-major tile (dV += P^T.dO,
+              dK += dS^T.Q), against the kernel's own scores rounded to bf16
+              times the tile.
 Unlike the Mosaic script it raises on a failure. It needs a CUDA card.
 """
 
@@ -121,6 +129,17 @@ def _probes(dev: torch.device) -> dict:
     cuda_build.check(lib.f5_probe_pv(p_in.data_ptr(), v.data_ptr(), prod.data_ptr(), dev.index,
                                      stream), "probe_pv")
     out["wgmma_pv"] = (prod, p_in.float() @ v.float(), 1e-3)
+
+    # the backward core's score tile (S^T = K.Q^T, 64 queries) and gradient
+    # product (dV += bf16(P^T).dO, the tile MN-major); the second is held to
+    # the kernel's own scores rounded to bf16, so only the product's fp32 sum
+    # order differs
+    x, y, z = rnd(64, 64), rnd(64, 64), rnd(64, 64)
+    s64, g64 = (torch.empty((64, 64), dtype=torch.float32, device=dev) for _ in range(2))
+    cuda_build.check(lib.f5_probe_bwd(x.data_ptr(), y.data_ptr(), z.data_ptr(), s64.data_ptr(),
+                                      g64.data_ptr(), dev.index, stream), "probe_bwd")
+    out["wgmma_ss_n64"] = (s64, x.float() @ y.float().t(), 1e-3)
+    out["wgmma_bwd_grad"] = (g64, s64.to(torch.bfloat16).float() @ z.float(), 1e-3)
 
     a, b = rnd(64, 64), rnd(128, 64)
     for label, register_a in (("wgmma_ss", 0), ("wgmma_rs", 1)):

@@ -559,6 +559,57 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         flash_prefix.flash_prefix_dq(q128, q128, q128, q128, dvec, kv)
 
 
+# kernels 10 and 13 on the attention cores: the edges of their tiles (kernel
+# 10: 192 query rows a block, 128-key tiles; kernel 13: 128 keys a block,
+# 64-query tiles), n = 301 (an lse/D row at no 16-byte boundary), kv_len 0,
+# keys past kv_len at +-1e4, and the training shape
+TRAIN_CORE_CASES = [
+    (100, [0, 1, 63, 64, 65, 100], None),
+    (200, [1, 63, 64, 65, 127, 128, 129, 200], None),
+    (301, [0, 1, 63, 64, 65, 127, 128, 129, 301], None),
+    (301, [1, 64, 129, 200, 300, 301], 1e4),
+    (1280, [1280] * 128, None),
+]
+
+
+def _train_core_case(dev, n, lens, past):
+    q, k, v, kv = _attention_case(dev, 50 + n, len(lens), n, lens, past)
+    do = _bf16(q.shape, dev, torch.Generator(device=dev).manual_seed(60 + n))
+    o, lse = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+    o[kv == 0] = 0  # no valid key: zeros, as the kernels give (the plain o averages v)
+    dvec = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, kv, o, lse, dvec
+
+
+@pytest.mark.parametrize("n,lens,past", TRAIN_CORE_CASES)
+def test_training_forward_on_the_attention_core(dev, n, lens, past):
+    q, k, v, _, kv, o, lse, _ = _train_core_case(dev, n, lens, past)
+    before = flash_prefix.launches_lse
+    o10, lse10 = flash_prefix.flash_prefix_folded_lse(q, k, v, kv)
+    again = flash_prefix.flash_prefix_folded_lse(q, k, v, kv)  # the remat recompute
+    assert flash_prefix.launches_lse == before + 2
+    _close(o10, o)
+    assert _rel(o10, o) <= 1e-2 and _rel(lse10, lse) <= 1e-5
+    assert torch.equal(again[0], o10) and torch.equal(again[1], lse10)
+    for h, length in enumerate(lens):
+        if length == 0:  # zero output and lse 0, as the mma.sync kernel gave
+            assert o10[h].abs().max().item() == 0 and lse10[h].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("n,lens,past", TRAIN_CORE_CASES)
+def test_dkv_on_the_attention_backward_core(dev, n, lens, past):
+    q, k, v, do, kv, _, lse, dvec = _train_core_case(dev, n, lens, past)
+    before = flash_prefix.launches_dkv
+    dk, dv = flash_prefix.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+    assert flash_prefix.launches_dkv == before + 1
+    dk_p, dv_p = flash_prefix.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+    for got, want in ((dk, dk_p), (dv, dv_p)):
+        _close(got, want)
+        assert _rel(got, want) <= 1e-2
+    for h, length in enumerate(lens):  # keys at or past kv_len: zero gradients
+        assert not dk[h, length:].any() and not dv[h, length:].any()
+
+
 # --- the opt-in attention paths: kernels 7, 8, 18, 19 ---------------------------------
 
 
@@ -710,7 +761,7 @@ def test_probe_hopper_idioms(dev):
                          "tma_swizzle_edge", "wgmma_ss", "wgmma_rs", "tile_width_128",
                          "tile_width_256", "tma_swizzle_i8", "tma_swizzle_i8_edge",
                          "wgmma_s8_n128", "wgmma_s8_n256", "tma_3d", "tma_3d_edge",
-                         "wgmma_pv"}
+                         "wgmma_pv", "wgmma_ss_n64", "wgmma_bwd_grad"}
 
 
 # --- kernel 14: int8 prefix attention --------------------------------------------
