@@ -26,10 +26,16 @@ Phases (any failure raises and exits non-zero):
      library yardstick) and with a boolean mask (printed, not the
      yardstick); B, 7 and 8 on the TMA + wgmma core with their achieved
      TFLOP/s and share of the bound, 7 held to be no slower than the library
-     composition it replaces; 4, 5 and 6 on the int8 TMA + wgmma core with
-     their TOP/s, share of the bound and the mma.sync core's time, at ragged
-     rows, 1 and 3 segments, a d that is no multiple of the 128-deep k step,
-     and each tile width forced;
+     composition it replaces; 4, 5, 6 and 9 on the int8 TMA + wgmma core
+     with their TOP/s and share of the bound, at ragged rows, 1 and 3
+     segments, a d that is no multiple of the 128-deep k step, and each tile
+     width forced (9 at M 1, 100, 1000, 3072, 6144, K 1024, 1040, 2048, 4096,
+     N 128, 384, 1024, with and without bias and GELU, exact without GELU,
+     its TOP/s at M 3072 and 6144); 19 on the attention core's rope form at
+     n 1, 127-129, 191-193, 1000, 1536, kv_len 0, 1, 127-129, n, K and V rows
+     past kv_len at +-1e4, heads 2 and 16, B 1-3, against its plain version
+     and against kernel A on torch-roped inputs, the default path's
+     composition timed beside it;
      int8 attention: 14, in both modes, with its quantization pass timed on
      its own and its error against kernel A's mma.sync loop on the same
      inputs, the mean held in every case, the max where the JAX package
@@ -45,7 +51,8 @@ Phases (any failure raises and exits non-zero):
      torch-roped inputs; the training attention's autograd Function against
      autograd of the plain attention; scripts/probe_hopper.py (the rope
      idioms and the TMA, mbarrier and wgmma idioms of the product cores and
-     of the attention core);
+     of the attention cores, among them the strided 4-D map over the fused
+     qkv rows and the rotation in shared memory before a wgmma);
   3. build F5TTS_v1_Base + Vocos with seeded random weights (AdaLN-zero
      layers re-drawn), in bf16 and again with int8 weights
      (load_model(..., quantize=True)); for each mode serve three HTTP /tts
@@ -114,13 +121,13 @@ last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab PARENT
 
-instead times kernels A, B, 7, 8, 4, 5, 6, 9 and, at the training shape,
-10, 11, 12 and 13 of the checkout at PARENT (for example the parent commit
-unpacked by `git archive`) and of this one under one timer, in turns
+instead times kernels A, B, 7, 8, 4, 5, 6, 9, 18, 19 and, at the training
+shape, 10, 11, 12 and 13 of the checkout at PARENT (for example the parent
+commit unpacked by `git archive`) and of this one under one timer, in turns
 parent, change, change, parent, with the library yardsticks in each turn
 (A's: SDPA on keys sliced to the common kv_len, under each backend; 10's
 and 11 + 13's: PyTorch's flash attention forward and backward), and fails
-if A, B, 7, 8, 4, 5, 11 or 12 moved by more than 5%.
+if A, B, 7, 8, 4, 5, 6, 10, 11, 12, 13 or 18 moved by more than 5%.
 
 It needs a CUDA card and the repository checkout it sits in; it imports
 nothing of JAX.
@@ -165,15 +172,15 @@ SOURCES = {
     "ff_block_int8": "korean_f5_tts_tpu_torch/csrc/ff_block_int8.cu",
     "ln_mod_matmul_int8": "korean_f5_tts_tpu_torch/csrc/fused_linears_int8.cu",
     "proj_gated_residual_int8": "korean_f5_tts_tpu_torch/csrc/fused_linears_int8.cu",
-    "qmatmul": "korean_f5_tts_tpu_torch/csrc/qmatmul.cu",
+    "qmatmul": "korean_f5_tts_tpu_torch/csrc/gemm_int8.cuh",
     "flash_prefix_lse": "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh",
     **dict.fromkeys(("flash_prefix_dq_lsein", "flash_prefix_dq"),
                     "korean_f5_tts_tpu_torch/csrc/flash_prefix_train.cu"),
     "flash_prefix_dkv": "korean_f5_tts_tpu_torch/csrc/attn_bwd_wgmma.cuh",
     **dict.fromkeys(("ln_mod_matmul", "proj_gated_residual"),
                     "korean_f5_tts_tpu_torch/csrc/fused_linears.cu"),
-    **dict.fromkeys(("flash_prefix_rope", "flash_prefix_qkv"),
-                    "korean_f5_tts_tpu_torch/csrc/flash_prefix_rope.cu"),
+    "flash_prefix_rope": "korean_f5_tts_tpu_torch/csrc/flash_prefix_rope.cu",
+    "flash_prefix_qkv": "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh",
     "flash_prefix_i8": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8.cu",
     "flash_prefix_f32": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
     "ff_block_f32": "korean_f5_tts_tpu_torch/csrc/ff_block.cu",
@@ -647,24 +654,63 @@ def _timed(fn, plain, ops: float, io, kind: str = "int8") -> dict:
 def check_qmatmul(gen, dev) -> dict:
     import torch
 
+    from korean_f5_tts_tpu_torch.ops import cuda_build
     from korean_f5_tts_tpu_torch.ops import qmatmul as qm
 
-    print("kernel 9, dynamic-int8 matmul (bf16 x int8; exact without GELU: the same "
-          f"int8 values and an exact product; rel bound {INT8_REL:.0e} with GELU)")
-    x = torch.randn((3072, 1024), generator=gen, device=dev).to(torch.bfloat16)
+    print("kernel 9, dynamic-int8 matmul on the int8 core (bf16 x int8; exact without GELU: "
+          f"the same int8 values, an exact product, the same fp32 epilogue; rel bound "
+          f"{INT8_REL:.0e} with GELU)")
+
+    def check(label, x, qp, bias, act):
+        w, ws, n = qp["w_int8"], qp["w_scale"], qp["w_int8"].shape[0]
+        return compare(f"qmatmul {label} (tile width {tile_width(x.shape[0], n, n)})",
+                       qm.qmatmul(x, w, ws, bias, act),
+                       qm.qmatmul_reference(x, w, ws, bias, act), INT8_REL, exact=act is None)
+
+    x = torch.randn((6144, 1024), generator=gen, device=dev).to(torch.bfloat16)
     qp = _int8_linear(gen, dev, 1024, 1024)
-    w, ws, b = qp["w_int8"], qp["w_scale"], qp["b"]
-    max_abs, _ = compare("qmatmul main M=3072 K=N=1024 + bias", qm.qmatmul(x, w, ws, b),
-                         qm.qmatmul_reference(x, w, ws, b), INT8_REL, exact=True)
-    xr = _edge_rows(gen, dev, 1000, 1024)
-    for label, bias, act in (("+ bias", b, None), ("no bias", None, None),
-                             ("+ bias + gelu_tanh", b, "gelu_tanh")):
-        compare(f"qmatmul ragged M=1000 zero+outlier rows {label}",
-                qm.qmatmul(xr, w, ws, bias, act), qm.qmatmul_reference(xr, w, ws, bias, act),
-                INT8_REL, exact=act is None)
-    times = _timed(lambda: qm.qmatmul(x, w, ws, b),
-                   lambda: qm.qmatmul_reference(x, w, ws, b), 2.0 * 3072 * 1024 * 1024,
-                   (x, w, ws, b, x))
+    b = qp["b"]
+    max_abs, _ = check("main M=3072 K=N=1024 + bias", x[:3072], qp, b, None)
+    check("M=6144 K=N=1024 + bias (a batch of 2 with CFG)", x, qp, b, None)
+    # the zero row (the 1e-6 scale floor) and an outlier row; M 1 and 100; K
+    # 1040 (no multiple of the core's 128-deep k step), 2048, 4096 (the row
+    # pass's limit); N 128 and 384 (no multiple of 256: 128-wide tiles only)
+    for m, k, n in ((1000, 1024, 1024), (1, 1024, 1024), (100, 1040, 384), (1000, 2048, 128),
+                    (1000, 4096, 1024), (100, 4096, 384)):
+        xr = _edge_rows(gen, dev, max(m, 8), k)[:m]
+        qpr = qp if (k, n) == (1024, 1024) else _int8_linear(gen, dev, n, k)
+        rows = "zero+outlier rows" if m > 7 else "rows"
+        for label, bias, act in (("+ bias", qpr["b"], None), ("no bias", None, None),
+                                 ("+ bias + gelu_tanh", qpr["b"], "gelu_tanh"),
+                                 ("no bias + gelu_tanh", None, "gelu_tanh")):
+            check(f"M={m} K={k} N={n} {rows} {label}", xr, qpr, bias, act)
+    times = _timed(lambda: qm.qmatmul(x[:3072], qp["w_int8"], qp["w_scale"], b),
+                   lambda: qm.qmatmul_reference(x[:3072], qp["w_int8"], qp["w_scale"], b),
+                   2.0 * 3072 * 1024 * 1024, (x[:3072], qp, x[:3072]))
+    ms6 = cuda_time_ms(lambda: qm.qmatmul(x, qp["w_int8"], qp["w_scale"], b))
+    b6 = bound(2.0 * 6144 * 1024 * 1024, (x, qp, x), "int8")
+    print(f"  at M=6144: kernel {ms6:.4f} ms ({2.0 * 6144 * 1024 * 1024 / ms6 / 1e9:.1f} TOP/s), "
+          f"the bound is {b6['bound_ms'] / ms6:.3f} of the kernel's time")
+    # both tile widths, forced, beside gemm_tile_n's pick (N 1024: at M 3072
+    # 96 tiles at 256 wide, 192 at 128; at M 6144 192 and 384)
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
+    for m in (3072, 6144):
+        xm = x[:m]
+        want = qm.qmatmul_reference(xm, qp["w_int8"], qp["w_scale"], b)
+        xq, xs = torch.empty((m, 1024), dtype=torch.int8, device=dev), torch.empty(m, device=dev)
+        out, ms = torch.empty_like(want), {}
+        for bn in (128, 256):
+            def forced(bn=bn):
+                cuda_build.check(lib.f5_qmatmul_width(
+                    xm.data_ptr(), qp["w_int8"].data_ptr(), qp["w_scale"].data_ptr(),
+                    b.data_ptr(), xq.data_ptr(), xs.data_ptr(), out.data_ptr(), m, 1024, 1024,
+                    0, bn, dev.index, stream), "qmatmul_width")
+            out.zero_()
+            forced()
+            compare(f"kernel 9 at tile width {bn}, M={m}", out, want, INT8_REL, exact=True)
+            ms[bn] = cuda_time_ms(forced)
+        print(f"  kernel 9 tile widths at M={m} (picked: {tile_width(m, 1024, 1024)}): 128 -> "
+              f"{ms[128]:.4f} ms, 256 -> {ms[256]:.4f} ms, ratio {ms[128] / ms[256]:.3f}")
     return {"max_abs_err": max_abs, **times}
 
 
@@ -1221,6 +1267,21 @@ def check_proj_gated(gen, dev) -> dict:
     return {"max_abs_err": max_abs, **times}
 
 
+# kernel 19's edge cases: (B, heads, n, kv_lens, pe_attn_head, K and V rows
+# past kv_len at +-this, 0 for random rows)
+QKV_EDGES = (
+    (1, 2, 1, [1], None, 0.0),
+    (3, 2, 127, [0, 1, 127], 1, 1e4),
+    (3, 16, 128, [127, 128, 1], None, 1e4),
+    (2, 2, 129, [128, 129], 1, 1e4),
+    (3, 2, 191, [129, 191, 0], None, 1e4),
+    (2, 16, 192, [192, 191], 1, 1e4),
+    (3, 2, 193, [193, 1, 129], None, 1e4),
+    (2, 2, 1000, [0, 1000], 1, 1e4),
+    (2, 16, 1536, [1376, 1536], None, 1e4),
+)
+
+
 def check_rope_attention(gen, dev) -> dict[str, dict]:
     """Kernels 18 and 19 at the main shape (B 2 x 16 heads = H 32, n 1536,
     d 64, 1376 valid keys) and at ragged shapes, against their plain
@@ -1265,15 +1326,46 @@ def check_rope_attention(gen, dev) -> dict[str, dict]:
                 5e-3)
         return (e18, e19), (qkv, q, k, v, kv, cos, sin, got18, got19)
 
+    def case19(label, B, H, n, lens, pe, past):
+        """Kernel 19 alone on inputs whose K and V rows past each item's
+        kv_len hold +-past."""
+        qkv = torch.randn((B, n, 3 * H * 64), generator=gen, device=dev)
+        for i, length in enumerate(lens if past else ()):
+            sign = torch.randint(0, 2, (n - length, 2 * H * 64), generator=gen, device=dev)
+            qkv[i, length:, H * 64:] = past * (2.0 * sign - 1)
+        qkv = qkv.to(torch.bfloat16)
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        cos, sin = tables(n)
+        got = fp.flash_prefix_qkv_attention(qkv, kv, H, cos, sin, pe)
+        torch.cuda.synchronize()
+        live = [i for i, length in enumerate(lens) if length > 0]
+        for i, length in enumerate(lens):
+            if length == 0 and got[i].abs().max().item():
+                fail(f"kernel 19 {label}: item {i} with no valid key is not zero")
+        compare(f"kernel 19 {label}", got[live],
+                fp.flash_prefix_qkv_reference(qkv[live], kv[live], H, cos, sin, pe), 1e-2)
+        q, k, v = (t.contiguous() for t in fp.qkv_unpack(qkv[live], H))
+        via_a = fp.flash_prefix_attention(fp.rope_reference(q, cos, sin, pe),
+                                          fp.rope_reference(k, cos, sin, pe), v, kv[live])
+        compare(f"kernel 19 vs kernel A on torch-roped q, k, {label}", got[live], merge(via_a),
+                5e-3)
+
     print("kernels 18 and 19, prefix attention with rope in the kernel (bf16, rel bound 1e-2 "
-          "to the plain version as for kernel A; 5e-3 to kernel A on torch-roped inputs: the "
-          "kernel's fused multiply-adds can flip a bf16 rounding tie of a roped value). Rope in "
-          "fp32 from bf16 tables, rounded once; the TPU kernel multiplies in bf16")
+          "to the plain version as for kernel A; 5e-3 to kernel A on torch-roped inputs: 18's "
+          "fused multiply-adds can flip a bf16 rounding tie of a roped value; 19 rotates with "
+          "the plain version's arithmetic on A's core). Rope in fp32 from bf16 tables, rounded "
+          "once; the TPU kernel multiplies in bf16")
     (e18, e19), (qkv, q, k, v, kv, cos, sin, got18, got19) = case(
         "main B=2 heads=16 n=1536 kv=1376", 2, 16, 1536, [1376, 1376], None)
     case("n=1000 kv=[10, 1000] all heads", 2, 4, 1000, [10, 1000], None)
     case("n=1000 kv=[0, 700] pe_attn_head=1", 2, 4, 1000, [0, 700], 1)
     case("n=300 kv=[300, 1, 129] pe_attn_head=1", 3, 2, 300, [300, 1, 129], 1)
+    # kernel 19 on the attention core at its tiles' edges: n around the
+    # 128-key tiles and the 192-row query blocks, kv_len 0, 1, 127-129 and n,
+    # K and V rows past kv_len at +-1e4, heads 2 and 16, B 1-3
+    for B, H, n, lens, pe, past in QKV_EDGES:
+        case19(f"B={B} heads={H} n={n} kv={lens} pe_attn_head={pe}"
+               f"{f' past=+-{past:g}' if past else ''}", B, H, n, lens, pe, past)
     flop = 4.0 * 32 * 1536 * 1376 * 64  # every query row against this run's 1376 keys
     out = {}
     t18 = _timed(lambda: fp.flash_prefix_rope_attention(q, k, v, kv, cos, sin),
@@ -1292,8 +1384,12 @@ def check_rope_attention(gen, dev) -> dict[str, dict]:
         return merge(fp.flash_prefix_attention(apply_rope(qs, cos, sin), apply_rope(ks, cos, sin),
                                                vs, kv))
 
-    _context("the default path's head split + apply_rope x 2 + kernel A + head merge",
-             default_qkv)
+    _context("kernel 19 without its rotation (pe_attn_head 0, the same core and layout)",
+             lambda: fp.flash_prefix_qkv_attention(qkv, kv, 16, cos, sin, 0))
+    composed = _context("the default path's head split + apply_rope x 2 + kernel A + head "
+                        "merge", default_qkv)
+    print(f"  kernel 19 takes {t19['ms'] / composed:.3f}x the time of the default path's "
+          "composition")
     out["flash_prefix_qkv"] = {"max_abs_err": e19, **t19}
     return out
 
@@ -1303,21 +1399,23 @@ def check_rope_attention(gen, dev) -> dict[str, dict]:
 # ---------------------------------------------------------------------------
 
 # the kernels a change to the product cores (csrc/hopper.cuh, gemm_bf16.cuh,
-# gemm_int8.cuh) or to the attention core (attn_wgmma.cuh) can move: A
-# (attention), B, 7, 8 (bf16), 4, 5, 6 (int8), and 9, which stays on
-# int8_gemm.cuh, as the control; beside A, the library yardstick (SDPA on
-# keys sliced to the common kv_len) under each backend, timed in the same
-# process as the tree's kernels
+# gemm_int8.cuh) or to the attention cores (attn_wgmma.cuh, attn_bwd_wgmma.cuh)
+# can move: A, 10, 19 (the attention core), B, 7, 8 (bf16), 4, 5, 6, 9
+# (int8), 11, 12, 13 (training) and 18 (the rope loop); beside A, the library
+# yardstick (SDPA on keys sliced to the common kv_len) under each backend,
+# timed in the same process as the tree's kernels
 AB_KERNELS = {"flash_prefix": "A", "ff_block": "B", "ln_mod_matmul": "7",
               "proj_gated_residual": "8", "ff_block_int8": "4", "ln_mod_matmul_int8": "5",
               "proj_gated_residual_int8": "6", "qmatmul": "9", "flash_prefix_lse": "10",
-              "flash_prefix_dq_lsein": "11", "flash_prefix_dq": "12", "flash_prefix_dkv": "13"}
+              "flash_prefix_dq_lsein": "11", "flash_prefix_dq": "12", "flash_prefix_dkv": "13",
+              "flash_prefix_rope": "18", "flash_prefix_qkv": "19"}
 AB_SDPA = {f"sdpa_{name.split('_')[0].lower()}": f"SDPA {name}" for name in SDPA_BACKENDS}
 AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
               "flash_bwd": "library flash backward (11 + 13's yardstick)"}
 AB_UNMOVED = ("flash_prefix", "ff_block", "ln_mod_matmul", "proj_gated_residual",
-              "ff_block_int8", "ln_mod_matmul_int8", "flash_prefix_dq_lsein",
-              "flash_prefix_dq")  # within 5% or fail
+              "ff_block_int8", "ln_mod_matmul_int8", "proj_gated_residual_int8",
+              "flash_prefix_lse", "flash_prefix_dq_lsein", "flash_prefix_dq", "flash_prefix_dkv",
+              "flash_prefix_rope")  # within 5% or fail
 AB_BOUND = 1.05
 # their times when the bf16 core was built (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md section 6, kernel table)
@@ -1325,13 +1423,15 @@ BF16_CORE_MS = {"ff_block": 0.0824, "ln_mod_matmul": 0.0566, "proj_gated_residua
 
 
 def core_timings(dev) -> dict[str, float]:
-    """ms at the main shape (m = 3072, d = 1024, dff = 2048; attention H 32,
-    n 1536, kv_len 1376; training attention H 128, n 1280, every key valid)
+    """ms at the main shape (m = 3072, d = 1024, dff = 2048; attention H 32
+    (18, 19: B 2 x 16 heads), n 1536, kv_len 1376; training attention H 128,
+    n 1280, every key valid)
     of the AB_KERNELS, through the public wrappers of whichever
     korean_f5_tts_tpu_torch is first on sys.path, each held against its
     plain version before it is timed; and the AB_LIBRARY calls."""
     import torch
 
+    from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
     from korean_f5_tts_tpu_torch.ops import ff_block as fb
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
     from korean_f5_tts_tpu_torch.ops import fused_linears as fl
@@ -1356,6 +1456,10 @@ def core_timings(dev) -> dict[str, float]:
     to, tlse = fp.prefix_attention_lse_reference(tq, tk, tv, tkv)
     tdvec = (tdo.float() * to.float()).sum(-1)
     train = (tq, tk, tv, tdo, tdvec, tlse, tkv)
+    qkv = torch.randn((2, 1536, 3 * 1024), generator=gen, device=dev).to(torch.bfloat16)
+    rq, rk, rv = (t.contiguous() for t in fp.qkv_unpack(qkv, 16))
+    rkv = torch.full((2,), 1376, dtype=torch.int32, device=dev)
+    cos, sin = (torch.from_numpy(t).to(dev).to(torch.bfloat16) for t in rope_cos_sin(1536, 64))
     calls = {
         "flash_prefix": (lambda: fp.flash_prefix_folded(aq, ak, av, kv),
                          lambda: fp.prefix_attention_reference(aq, ak, av, kv), 1e-2),
@@ -1386,6 +1490,11 @@ def core_timings(dev) -> dict[str, float]:
                                                                  tkv)[0], 1e-2),
         "flash_prefix_dkv": (lambda: fp.flash_prefix_dkv(*train)[0],
                              lambda: fp.flash_prefix_dkv_reference(*train)[0], 1e-2),
+        "flash_prefix_rope": (
+            lambda: fp.flash_prefix_rope_attention(rq, rk, rv, rkv, cos, sin),
+            lambda: fp.flash_prefix_rope_reference(rq, rk, rv, rkv, cos, sin), 1e-2),
+        "flash_prefix_qkv": (lambda: fp.flash_prefix_qkv_attention(qkv, rkv, 16, cos, sin),
+                             lambda: fp.flash_prefix_qkv_reference(qkv, rkv, 16, cos, sin), 1e-2),
     }
     out = {}
     for name, (fn, plain, rel) in calls.items():
@@ -1628,14 +1737,35 @@ def bench_inputs(dev, cond_len=432, total_len=1376, n_bucket=1536):
     return step_cond, cond_mask, text, y0, pad_mask, total_len - cond_len
 
 
+def batch2_inputs(dev, cond_len=432, totals=(1376, 1200), n_bucket=1536):
+    """Two utterances of the bench protocol's bucket as one batch under a
+    duration mask (the path on which int8 weights run kernel 9): seeded
+    inputs, noise zero past each duration; returns bench_inputs' tuple and
+    the mask."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = torch.arange(n_bucket, device=dev)[None]
+    mask = frames < torch.as_tensor(totals, device=dev)[:, None]
+    cond = torch.randn((2, n_bucket, 100), generator=gen, device=dev).to(torch.bfloat16)
+    cond_mask = (frames < cond_len)[..., None].expand(2, n_bucket, 1)
+    step_cond = cond.masked_fill(~cond_mask, 0.0)
+    text = torch.randint(1, 2545, (2, 160), generator=gen, device=dev, dtype=torch.int32)
+    y0 = torch.randn((2, n_bucket, 100), generator=gen, device=dev).to(torch.bfloat16)
+    y0 = y0.masked_fill(~mask[..., None], 0.0)
+    pad_mask = frames < max(totals)
+    return (step_cond, cond_mask, text, y0, pad_mask, max(totals) - cond_len), mask
+
+
 def synthesize(model, vocoder, inputs, kernels: bool = True, params=None,
-               attn_path: str = "default", attn_int8: str | None = None):
-    """One bench-protocol utterance: sampler, cond splice, Vocos -> (mel, wav)."""
+               attn_path: str = "default", attn_int8: str | None = None, mask=None):
+    """One bench-protocol utterance (or a batch under the duration mask
+    `mask`): sampler, cond splice, Vocos -> (mel, wav)."""
     from korean_f5_tts_tpu_torch.models.cfm import _sample_core
     from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
 
     step_cond, cond_mask, text, y0, pad_mask, _ = inputs
-    mel = _sample_core(params or model.params, model.arch, step_cond, text, None, pad_mask,
+    mel = _sample_core(params or model.params, model.arch, step_cond, text, mask, pad_mask,
                        y0, 2.0, -1.0, steps=STEPS, use_cfg=True, use_sway=True,
                        use_epss=True, kernels=kernels, attn_path=attn_path, attn_int8=attn_int8)
     out = mel.where(~cond_mask, step_cond)
@@ -2497,16 +2627,18 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
-                        help="also profile one bench-protocol utterance per mode, one per "
-                             "opt-in attn_path (with phase 7), one with int8 attention (with "
-                             "phase 9) and one training step; tables to this file (int8) and "
-                             "to its .bf16, .<attn_path>, .attn_int8 and .train siblings")
+                        help="also profile one bench-protocol utterance per mode, an int8 "
+                             "batch of 2 under a duration mask (kernel 9's path), one "
+                             "utterance per opt-in attn_path (with phase 7), one with int8 "
+                             "attention (with phase 9) and one training step; tables to this "
+                             "file (int8) and to its .bf16, .batch2, .<attn_path>, .attn_int8 "
+                             "and .train siblings")
     parser.add_argument("--ab", type=Path, default=None, metavar="PARENT",
-                        help="instead of the phases: time kernels A, B, 7, 8, 4, 5, 6, 9 and "
-                             "10-13 and the library yardsticks of A, 10 and 11 + 13 of the "
-                             "checkout at PARENT and of this one under one timer, in turns "
-                             "parent, change, change, parent (a process each), and fail if "
-                             "A, B, 7, 8, 4, 5, 11 or 12 moved by more than 5%%")
+                        help="instead of the phases: time kernels A, B, 7, 8, 4, 5, 6, 9, "
+                             "10-13, 18 and 19 and the library yardsticks of A, 10 and 11 + 13 "
+                             "of the checkout at PARENT and of this one under one timer, in "
+                             "turns parent, change, change, parent (a process each), and fail "
+                             "if A, B, 7, 8, 4, 5, 6, 10-13 or 18 moved by more than 5%%")
     parser.add_argument("--timings-of", type=Path, default=None, metavar="TREE",
                         help="one turn of --ab: the kernels of the checkout at TREE, as a JSON "
                              "line")
@@ -2594,6 +2726,11 @@ def main(argv=None) -> int:
                 path = args.profile if mode == "int8" else args.profile.with_suffix(".bf16.txt")
                 inputs = bench_inputs(dev)
                 profile_once(lambda: synthesize(model, vocoder, inputs), path, mode)
+                if mode == "int8":  # the batch on which kernel 9 runs
+                    inputs2, mask2 = batch2_inputs(dev)
+                    profile_once(lambda: synthesize(model, vocoder, inputs2, mask=mask2),
+                                 path.with_suffix(".batch2.txt"),
+                                 "int8, a batch of 2 under a duration mask")
             if mode == "bf16" and 7 in phases:
                 for name, n in phase7_attn_paths(model, vocoder, dev, card, rtf,
                                                  args.profile).items():

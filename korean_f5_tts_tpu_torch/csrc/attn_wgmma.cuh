@@ -2,7 +2,10 @@
 // dim 64, on TMA, mbarriers and wgmma (hopper.cuh), and kernel 10 (the
 // training forward, flash_prefix_train.cu), which is kernel A that also
 // writes each row's base-2 logsumexp lse = m + log2(l) (the template flag
-// kLse; kernel A's instantiation has no lse code).
+// kLse; kernel A's instantiation has no lse code), and kernel 19
+// (flash_prefix_qkv.cu), which is kernel A read straight from the fused qkv
+// projection output with the rotary embedding applied in the kernel (the
+// template flag kRope; A's and 10's instantiations have none of it).
 //
 // The function is kernel A's (flash_prefix.cu): folded heads q, k, v, out
 // [H, n, 64] bf16, kv_lens [H] int32; head h attends keys [0, kv_lens[h])
@@ -67,6 +70,45 @@
 // section 6) 192 rows a block were faster than 128 (two consumer
 // warpgroups, 384 blocks, 2.9 waves), and ping-pong and ex2.approx each
 // took time off.
+//
+// The rope form (kRope, kernel 19). qkv [B, n, 3 * heads * 64]: a head's q,
+// k or v is a 128-byte column slice of 6 KB rows (at 16 heads), so the maps
+// are 4-D and strided (hopper.cuh:tensor_map_4d: dims 64 columns, 3 * heads
+// head slots, n rows, B items; q of head g at slot g, k at heads + g, v at
+// 2 * heads + g); a box stops at row n of its item with zero fill, as the
+// 3-D maps stop at a head's row n. Block y is (item, head g), kv_lens is
+// per item, and the output rows are stored merged into [B, n, heads * 64].
+// The rotation (heads g < n_rope) is applied in shared memory, on the
+// swizzled tiles TMA left there (attn_rope_tile: the partners c and c + 32
+// of a row sit at chunks p and p ^ 4):
+//   q   each consumer warpgroup rotates its own 64 rows once after they land
+//       (tables read from L2), then fences the async proxy and syncs the
+//       warpgroup before its first wgmma;
+//   K   warps 1-3 of the producer warpgroup (idle in A) rotate every K tile
+//       after its TMA lands, up to kv_len (past it the scores are masked),
+//       and arrive on a second per-stage barrier (roped), on which the
+//       consumers wait besides the TMA's. The tile's 128 rows of cos and
+//       sin land by TMA in the same stage (unswizzled 8 KB boxes,
+//       hopper.cuh:tensor_map_table), so the rotation reads only shared
+//       memory. The register split stays A's (32 and 160): the rotating
+//       warps work on 32-bit shared addresses, in 8-byte halves of an item,
+//       and read kv_len after setmaxnreg (a value live across it is
+//       spilled). A stage is 48 KB, four stages 192 KB. V is read as it is.
+// Measured (chip_smoke.py phase 2, PERF.md section 6): at the main shape the
+// rope form without rotation (pe_attn_head 0) takes A's time; the rotation
+// adds about half as much again. Its instructions compete with the
+// softmax's for the schedulers, and the rotating warps have 32 registers
+// for it. Trial builds that were slower and not kept: the tables read from
+// L2 by the rotating warps, 16-byte items (ptxas spills), a 56 / 152 or 40
+// / 152 register split (the consumers lose more than the rotation gains),
+// all four producer warps rotating with the TMA thread among them, and
+// pairs of blocks in a cluster that rotate half a tile each and store it in
+// both.
+// Cost: a K tile's rotation is 512 pairs of 16-byte chunks, 6 flops a value:
+// ~1.5% of the tile's products in flops, off the tensor cores' path, and 16
+// KB more of TMA traffic a tile from L2. What bounds it is A's bound: at the
+// main shape (B 2, 16 heads, n 1536, 1376 valid keys) 17.3 GFLOP, 0.0175 ms
+// at 989 TFLOP/s.
 #pragma once
 
 #include "gemm_bf16.cuh"  // align_1024, kMaxDevices, allow_smem
@@ -79,11 +121,8 @@ constexpr int kAttnBK = 128;                           // keys a tile
 constexpr int kAttnStages = 3;                         // K/V ring depth
 constexpr int kAttnWgBytes = 64 * kRowBytes;           // one warpgroup's 64 q rows
 constexpr int kAttnKVBytes = kAttnBK * kRowBytes;      // a K or a V tile
-constexpr int kAttnStageBytes = 2 * kAttnKVBytes;
 constexpr int kAttnWgs = 3;                            // consumer warpgroups, 64 q rows each
 constexpr int kAttnRows = 64 * kAttnWgs;               // q rows a block
-constexpr int kAttnSmemBytes =
-    1024 + kAttnWgs * kAttnWgBytes + kAttnStages * kAttnStageBytes + (2 * kAttnStages + 1) * 8;
 
 // 2^x in one SFU instruction (denormal results flushed to zero: far below
 // what a bf16 P or the fp32 row sum can tell from zero)
@@ -173,31 +212,209 @@ __device__ __forceinline__ void attn_issue_pv(float (&o)[32], const uint32_t (&p
   wgmma_commit();
 }
 
+// What the rope form of the core (kRope: kernel 19) needs besides the maps:
+// the half-split rotary tables and where each head's q, k, v and output lie.
+struct AttnRope {
+  CUtensorMap map_cos;    // the tables by TMA, 128 rows a K tile (tensor_map_table)
+  CUtensorMap map_sin;
+  const bf16* cos;        // [n, 32] bf16 (64-byte rows), read directly for q
+  const bf16* sin;
+  int heads;              // gridDim.y = items * heads
+  int n_rope;             // heads g < n_rope rotate q and k
+  int slot_k, slot_v;     // 4-D map slots of head 0's k and v (q: slot g)
+  size_t out_bs, out_hs, out_ld;  // out: item, head and row strides in elements
+};
+
+// Rotary embedding in place on a swizzled [rows][64] bf16 tile in shared
+// memory whose row r is sequence row row0 + r, for column c < 32:
+//   x[c]      <- x[c]      * cos[row, c] - x[c + 32] * sin[row, c]
+//   x[c + 32] <- x[c + 32] * cos[row, c] + x[c]      * sin[row, c]
+// in fp32 from the bf16 tables, rounded once to bf16, with the _rn
+// intrinsics (no contraction into a fused multiply-add): the arithmetic of
+// the plain version (ops/flash_prefix.py:rope_reference) to the bit. Under
+// the 128-byte swizzle the 16-byte chunk j of row r sits at chunk j ^ (r & 7),
+// so the partners c and c + 32 (chunks j and j + 4) sit in one row at chunks
+// p and p ^ 4: a thread reads both halves of 8 columns and writes both back.
+// Item i of rows * 4 is (row r, chunk j < 4) with j = i & 3 and r = 8 (i >>
+// 5) + ((i >> 3) & 3) + 4 ((i >> 2) & 1): the 8 items of a quarter-warp take
+// rows r and r + 4, whose chunks j ^ (r & 7) fill all eight 16-byte bank
+// groups, so the accesses are conflict-free. Thread t of nthreads (a
+// multiple of 32) takes items t, t + nthreads, ...: the same j, rows r0,
+// r0 + nthreads / 4, ... (a multiple of 8 apart), so the same chunk position
+// p in every row, and its rows rise: the loop stops at the first row at or
+// past lim (n, where TMA left zeros and the tables have no row, or, for K,
+// kv_len, past which the scores are masked).
+
+// 8 or 16 bytes of shared memory at a 32-bit shared address
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts64(uint32_t addr, uint2 v) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v.x), "r"(v.y) : "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// the rotation of one bf16 pair word of each half (x1 = lo, x2 = hi) with
+// one word each of cos and sin: bf16 -> fp32 is exact (the bits shifted up)
+__device__ __forceinline__ void rope_word(uint32_t& lo, uint32_t& hi, uint32_t c, uint32_t sn) {
+  float o1[2], o2[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int sh = u ? 0 : 16;
+    const float x1 = __uint_as_float((lo << sh) & 0xffff0000u);
+    const float x2 = __uint_as_float((hi << sh) & 0xffff0000u);
+    const float cc = __uint_as_float((c << sh) & 0xffff0000u);
+    const float ss = __uint_as_float((sn << sh) & 0xffff0000u);
+    o1[u] = __fsub_rn(__fmul_rn(x1, cc), __fmul_rn(x2, ss));
+    o2[u] = __fadd_rn(__fmul_rn(x2, cc), __fmul_rn(x1, ss));
+  }
+  lo = pack_bf16x2(o1[0], o1[1]);
+  hi = pack_bf16x2(o2[0], o2[1]);
+}
+
+// thread tid's chunk j, first row r0 and chunk position p (see above)
+__device__ __forceinline__ int rope_first_row(int tid) {
+  return ((tid >> 5) << 3) + ((tid >> 3) & 3) + (((tid >> 2) & 1) << 2);
+}
+
+// q: the tables [n, 32] in device memory (L2-resident), row row0 + r read
+// with 16-byte non-coherent loads; 16-byte items
+__device__ __forceinline__ void attn_rope_tile(unsigned char* tile, int rows, int row0, int lim,
+                                               const bf16* __restrict__ cos,
+                                               const bf16* __restrict__ sin, int tid,
+                                               int nthreads) {
+  const int j = tid & 3, r0 = rope_first_row(tid), step = nthreads >> 2;
+  const uint32_t x_addr = smem_addr(tile) + r0 * kRowBytes + ((j ^ (r0 & 7)) << 4);
+  for (int r = r0; r < rows && row0 + r < lim; r += step) {
+    const uint32_t lo_a = x_addr + (r - r0) * kRowBytes, hi_a = lo_a ^ 64;  // chunk p ^ 4
+    uint4 xlo = lds128(lo_a), xhi = lds128(hi_a);
+    const size_t tab = (size_t)(row0 + r) * 32 + 8 * j;
+    const uint4 cr = __ldg(reinterpret_cast<const uint4*>(cos + tab));
+    const uint4 sr = __ldg(reinterpret_cast<const uint4*>(sin + tab));
+    rope_word(xlo.x, xhi.x, cr.x, sr.x);
+    rope_word(xlo.y, xhi.y, cr.y, sr.y);
+    rope_word(xlo.z, xhi.z, cr.z, sr.z);
+    rope_word(xlo.w, xhi.w, cr.w, sr.w);
+    sts128(lo_a, xlo);
+    sts128(hi_a, xhi);
+  }
+}
+
+// K: the tile's own rows of the tables, which TMA put beside it in shared
+// memory (64-byte rows, cos at tab_a, sin tab_sin bytes on), row r. All
+// addresses are 32-bit shared ones, and the rotating warps have 32
+// registers, so an item goes in two 8-byte halves (two words of each
+// operand live at a time, not four); the two quarter-warps of a half-warp
+// start on different halves, so each 8-byte access of a half-warp lands in
+// its own bank pair.
+__device__ __forceinline__ void attn_rope_tile_staged(uint32_t tile_a, int rows, int row0,
+                                                      int lim, uint32_t tab_a, uint32_t tab_sin,
+                                                      int tid, int nthreads) {
+  const int j = tid & 3, r0 = rope_first_row(tid), step = nthreads >> 2;
+  const uint32_t x_addr = tile_a + r0 * kRowBytes + ((j ^ (r0 & 7)) << 4);
+  const uint32_t t_addr = tab_a + r0 * 64 + 16 * j;
+  const uint32_t first = ((tid >> 3) & 1) << 3;  // the half this thread starts on
+  for (int r = r0; r < rows && row0 + r < lim; r += step) {
+    const uint32_t lo_a = x_addr + (r - r0) * kRowBytes, t_r = t_addr + (r - r0) * 64;
+#pragma unroll 1
+    for (uint32_t e = 0; e < 16; e += 8) {
+      const uint32_t h = e ^ first;
+      uint2 xlo = lds64(lo_a + h), xhi = lds64((lo_a ^ 64) + h);
+      const uint2 cr = lds64(t_r + h), sr = lds64(t_r + tab_sin + h);
+      rope_word(xlo.x, xhi.x, cr.x, sr.x);
+      rope_word(xlo.y, xhi.y, cr.y, sr.y);
+      sts64(lo_a + h, xlo);
+      sts64((lo_a ^ 64) + h, xhi);
+    }
+  }
+}
+
+// K/V ring depth: the rope form keeps a fourth stage, since a K tile waits
+// for its rotation after it lands
+template <bool kRope>
+__host__ __device__ constexpr int attn_stages() {
+  return kRope ? kAttnStages + 1 : kAttnStages;
+}
+
+constexpr int kAttnTabBytes = kAttnBK * 32 * 2;  // a tile's rows of one rotary table
+
+// a ring stage: the K tile, the V tile and, in the rope form, the tile's rows
+// of cos and sin
+template <bool kRope>
+__host__ __device__ constexpr int attn_stage_bytes() {
+  return 2 * kAttnKVBytes + (kRope ? 2 * kAttnTabBytes : 0);
+}
+
+template <bool kRope>
+__host__ __device__ constexpr int attn_smem_bytes() {
+  return 1024 + kAttnWgs * kAttnWgBytes + attn_stages<kRope>() * attn_stage_bytes<kRope>() +
+         ((kRope ? 3 : 2) * attn_stages<kRope>() + 1) * 8;
+}
+
+// the producer warpgroup's warps 1-3 rotate K tiles in the rope form
+constexpr int kAttnRopeThreads = 96;
+
+// kv_len (clamped to n) of folded head or item i, and its 128-key tiles
+__device__ __forceinline__ void attn_kv_tiles(const int* __restrict__ kv_lens, int i, int n,
+                                              int& kv_len, int& n_tiles) {
+  kv_len = min(kv_lens[i], n);
+  n_tiles = kv_len > 0 ? (kv_len + kAttnBK - 1) / kAttnBK : 0;
+}
+
 // kLse: also write lse [H, n] fp32, the base-2 logsumexp of each row's
-// scaled scores (kernel 10); kernel A instantiates it without
-template <bool kLse>
+// scaled scores (kernel 10); kernel A instantiates it without.
+// kRope (kernel 19): 4-D maps over the fused qkv array (tensor_map_4d), the
+// rotation applied in shared memory, and a strided output; block y is
+// (item, head) = (y / heads, y % heads) and kv_lens is per item.
+template <bool kLse, bool kRope>
 __global__ void __launch_bounds__(128 * (kAttnWgs + 1), 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, const int* __restrict__ kv_lens,
-                      bf16* __restrict__ out, float* __restrict__ lse, int n, float scale_log2) {
+                      bf16* __restrict__ out, float* __restrict__ lse, int n, float scale_log2,
+                      const __grid_constant__ AttnRope rope) {
+  constexpr int kStagesT = attn_stages<kRope>();
+  constexpr int kStageBytes = attn_stage_bytes<kRope>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* s_q = smem;
   unsigned char* ring = smem + kAttnWgs * kAttnWgBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kAttnStages * kAttnStageBytes);
-  uint64_t* empty = full + kAttnStages;
-  uint64_t* q_full = empty + kAttnStages;
-  const int head = blockIdx.y;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStagesT * kStageBytes);
+  uint64_t* empty = full + kStagesT;
+  uint64_t* q_full = empty + kStagesT;
+  uint64_t* roped = q_full + 1;  // kRope: K tile s rotated
+  const int head = blockIdx.y;   // kRope: item * heads + g
+  const int item = kRope ? head / rope.heads : 0;
+  const int g = kRope ? head - item * rope.heads : 0;
+  const bool rope_on = kRope && g < rope.n_rope;
   const int q0 = blockIdx.x * kAttnRows;
-  const int kv_len = min(kv_lens[head], n);
-  const int n_tiles = kv_len > 0 ? (kv_len + kAttnBK - 1) / kAttnBK : 0;
+  // the rope form reads kv_len after each setmaxnreg instead: a value live
+  // across one is spilled
+  int kv_len = 0, n_tiles = 0;
+  if constexpr (!kRope) attn_kv_tiles(kv_lens, head, n, kv_len, n_tiles);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (tid == 0) {
-    for (int s = 0; s < kAttnStages; ++s) {
+    for (int s = 0; s < kStagesT; ++s) {
       mbar_init(&full[s], 1);              // the producer's arrive; TMA counts the bytes
       mbar_init(&empty[s], 4 * kAttnWgs);  // lane 0 of every consumer warp
+      if (kRope) mbar_init(&roped[s], kAttnRopeThreads);
     }
     mbar_init(q_full, 1);
     mbar_init_fence();
@@ -205,30 +422,78 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (warp >= 4 * kAttnWgs) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
+    if constexpr (kRope) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+      attn_kv_tiles(kv_lens, item, n, kv_len, n_tiles);
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
+    }
     if (tid == 128 * kAttnWgs) {
       mbar_arrive_expect_tx(q_full, kAttnWgs * kAttnWgBytes);
-      tma_load_3d(s_q, &map_q, q_full, 0, q0, head);
+      if constexpr (kRope) tma_load_4d(s_q, &map_q, q_full, g, q0, item);
+      else tma_load_3d(s_q, &map_q, q_full, 0, q0, head);
       for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kAttnStages;
-        mbar_wait(&empty[s], ((j / kAttnStages) & 1) ^ 1);  // passes at once on the first round
-        unsigned char* tile = ring + s * kAttnStageBytes;
-        mbar_arrive_expect_tx(&full[s], kAttnStageBytes);
-        tma_load_3d(tile, &map_k, &full[s], 0, j * kAttnBK, head);
-        tma_load_3d(tile + kAttnKVBytes, &map_v, &full[s], 0, j * kAttnBK, head);
+        const int s = j % kStagesT;
+        mbar_wait(&empty[s], ((j / kStagesT) & 1) ^ 1);  // passes at once on the first round
+        unsigned char* tile = ring + s * kStageBytes;
+        if constexpr (kRope) {
+          mbar_arrive_expect_tx(&full[s], rope_on ? kStageBytes : 2 * kAttnKVBytes);
+          tma_load_4d(tile, &map_k, &full[s], rope.slot_k + g, j * kAttnBK, item);
+          tma_load_4d(tile + kAttnKVBytes, &map_v, &full[s], rope.slot_v + g, j * kAttnBK, item);
+          if (rope_on) {
+            tma_load_2d(tile + 2 * kAttnKVBytes, &rope.map_cos, &full[s], 0, j * kAttnBK);
+            tma_load_2d(tile + 2 * kAttnKVBytes + kAttnTabBytes, &rope.map_sin, &full[s], 0,
+                        j * kAttnBK);
+          }
+        } else {
+          mbar_arrive_expect_tx(&full[s], kStageBytes);
+          tma_load_3d(tile, &map_k, &full[s], 0, j * kAttnBK, head);
+          tma_load_3d(tile + kAttnKVBytes, &map_v, &full[s], 0, j * kAttnBK, head);
+        }
+      }
+    } else if (kRope && rope_on && warp > 4 * kAttnWgs) {
+      // warps 1-3: rotate each K tile once it has landed, then hand it to
+      // the consumers on roped[s] (the stage cannot be refilled before the
+      // consumers release it, which they do only after roped[s])
+      // (32 registers: the barriers' addresses follow from the ring's, and
+      // what depends on the thread is worked out anew each tile)
+      const uint32_t ring_a = smem_addr(ring);
+      const uint32_t full_a = ring_a + kStagesT * kStageBytes;
+      const uint32_t roped_a = full_a + (2 * kStagesT + 1) * 8;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStagesT;
+        mbar_wait(full_a + 8 * s, (j / kStagesT) & 1);
+        int rt = tid - 128 * kAttnWgs - 32;
+        asm volatile("" : "+r"(rt));  // keeps the per-thread addresses out of the loop's state
+        const uint32_t tile_a = ring_a + s * kStageBytes;
+        attn_rope_tile_staged(tile_a, kAttnBK, j * kAttnBK, kv_len, tile_a + 2 * kAttnKVBytes,
+                              kAttnTabBytes, rt, kAttnRopeThreads);
+        fence_proxy_async();
+        mbar_arrive(roped_a + 8 * s);
       }
     }
   } else {
     // 128 x 32 + 384 x 160 = 512 x 128: the registers the block was launched with
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
-    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    if constexpr (kRope) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n" ::: "memory");
+      attn_kv_tiles(kv_lens, item, n, kv_len, n_tiles);
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+    }
+    const int wg = warp >> 2, g8 = lane >> 2, t = lane & 3;
     unsigned char* my_q = s_q + wg * kAttnWgBytes;
     float o[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of this warp's 16
+    float m_run[2] = {-INFINITY, -INFINITY};  // rows g8 and g8 + 8 of this warp's 16
     float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
     mbar_wait(q_full, 0);
+    if (kRope && rope_on && n_tiles > 0) {
+      // this warpgroup's 64 q rows, rotated once, visible to its wgmma
+      attn_rope_tile(my_q, 64, q0 + wg * 64, n, rope.cos, rope.sin, tid & 127, 128);
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
     if (n_tiles > 0) {
       const uint64_t desc_q = wgmma_desc(my_q);
       float s[64];
@@ -236,6 +501,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       float alpha[2];
       if (wg == kAttnWgs - 1) attn_turn_pass(wg);  // warpgroup 0 starts
       mbar_wait(&full[0], 0);
+      if (rope_on) mbar_wait(&roped[0], 0);
       attn_turn_wait(wg);
       wgmma_fence();
       attn_issue_qk(s, desc_q, ring);
@@ -245,12 +511,13 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       attn_softmax_tile(s, m_run, l_run, alpha, 0, kv_len, scale_log2, t);
       attn_pack_p<kAttnBK>(s, p);
       for (int j = 1; j < n_tiles; ++j) {
-        const int st = j % kAttnStages, prev = (j - 1) % kAttnStages;
-        mbar_wait(&full[st], (j / kAttnStages) & 1);
+        const int st = j % kStagesT, prev = (j - 1) % kStagesT;
+        mbar_wait(&full[st], (j / kStagesT) & 1);
+        if (rope_on) mbar_wait(&roped[st], (j / kStagesT) & 1);
         attn_turn_wait(wg);
         wgmma_fence();
-        attn_issue_qk(s, desc_q, ring + st * kAttnStageBytes);
-        attn_issue_pv(o, p, ring + prev * kAttnStageBytes + kAttnKVBytes);
+        attn_issue_qk(s, desc_q, ring + st * kStageBytes);
+        attn_issue_pv(o, p, ring + prev * kStageBytes + kAttnKVBytes);
         attn_turn_pass(wg);
         wgmma_wait<1>();  // S of tile j is done; P.V of tile j - 1 may still run
         wgmma_fence_regs(s);
@@ -262,10 +529,10 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
         attn_pack_p<kAttnBK>(s, p);
       }
-      const int last = (n_tiles - 1) % kAttnStages;
+      const int last = (n_tiles - 1) % kStagesT;
       attn_turn_wait(wg);
       wgmma_fence();
-      attn_issue_pv(o, p, ring + last * kAttnStageBytes + kAttnKVBytes);
+      attn_issue_pv(o, p, ring + last * kStageBytes + kAttnKVBytes);
       if (wg != kAttnWgs - 1) attn_turn_pass(wg);  // the last turn: nobody waits on warpgroup 0's barrier
       wgmma_wait<0>();
       wgmma_fence_regs(o);
@@ -274,7 +541,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // epilogue: rows of bf16 through this warpgroup's q slice (its last S
     // product is done), chunk j of row r at chunk j ^ (r & 7)
-    const int row = (warp & 3) * 16 + g;  // and row + 8; (row + 8) & 7 == g too
+    const int row = (warp & 3) * 16 + g8;  // and row + 8; (row + 8) & 7 == g8 too
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -288,7 +555,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int chunk = (j ^ g) << 4;
+      const int chunk = (j ^ g8) << 4;
       *reinterpret_cast<uint32_t*>(my_q + row * kRowBytes + chunk + 4 * t) =
           pack_bf16x2(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
       *reinterpret_cast<uint32_t*>(my_q + (row + 8) * kRowBytes + chunk + 4 * t) =
@@ -296,13 +563,15 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup alone
     const int wt = tid & 127;
-    bf16* out_head = out + (size_t)head * n * kAttnD;
+    bf16* out_head = kRope ? out + item * rope.out_bs + g * rope.out_hs
+                           : out + (size_t)head * n * kAttnD;
+    const size_t ld = kRope ? rope.out_ld : kAttnD;
 #pragma unroll
     for (int it = 0; it < 4; ++it) {
       const int i = wt + 128 * it, r = i >> 3, c = i & 7;
       const int grow = q0 + wg * 64 + r;
       if (grow < n)
-        *reinterpret_cast<int4*>(out_head + (size_t)grow * kAttnD + 8 * c) =
+        *reinterpret_cast<int4*>(out_head + (size_t)grow * ld + 8 * c) =
             *reinterpret_cast<const int4*>(my_q + r * kRowBytes + ((c ^ (r & 7)) << 4));
     }
   }
@@ -320,13 +589,14 @@ cudaError_t launch_attn_fwd_wgmma(const void* q, const void* k, const void* v,
       !tensor_map_3d(&map_k, k, H, n, kAttnD, kAttnBK, kMapBf16) ||
       !tensor_map_3d(&map_v, v, H, n, kAttnD, kAttnBK, kMapBf16))
     return cudaErrorInvalidValue;
+  constexpr int smem = attn_smem_bytes<false>();
   static std::atomic<bool> ready[kMaxDevices];
-  const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<kLse>, kAttnSmemBytes, ready);
+  const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<kLse, false>, smem, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kAttnRows - 1) / kAttnRows, H);
-  attn_fwd_wgmma_kernel<kLse><<<grid, 128 * (kAttnWgs + 1), kAttnSmemBytes, stream>>>(
+  attn_fwd_wgmma_kernel<kLse, false><<<grid, 128 * (kAttnWgs + 1), smem, stream>>>(
       map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out),
-      static_cast<float*>(lse), n, scale_log2);
+      static_cast<float*>(lse), n, scale_log2, AttnRope{});
   return cudaGetLastError();
 }
 

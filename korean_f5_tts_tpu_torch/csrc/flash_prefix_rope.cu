@@ -1,21 +1,13 @@
 // Prefix-masked flash attention with the rotary embedding applied inside the
-// kernel, for Hopper (sm_90a), head dim 64.
+// kernel, for Hopper (sm_90a), head dim 64: kernel 18.
 //
-// Kernel 18, f5_flash_prefix_rope_fwd, replaces the TPU kernel
+// f5_flash_prefix_rope_fwd replaces the TPU kernel
 // korean_f5_tts_tpu/ops/flash_prefix.py:_kernel_rope (via
 // flash_prefix_rope_attention): q, k arrive PRE-rope as [B, heads, n, 64]
 // bf16, and the separate rope passes over q and k never reach device memory.
-//
-// Kernel 19, f5_flash_prefix_qkv_fwd, replaces _kernel_qkv (via
-// flash_prefix_qkv_attention): the same attention read straight from the
-// fused projection output qkv [B, n, 3 * heads * 64] (q | k | v along the
-// columns, heads-major inside each) and written merged as [B, n, heads * 64],
-// so the head split, the rope passes and the head merge never reach device
-// memory either.
-//
-// Both: item b attends keys [0, kv_lens[b]); heads at or past n_rope skip
-// the rotation (pe_attn_head). The rotation is the half-split form on a row
-// x of one head at position r, for column c < 32:
+// Item b attends keys [0, kv_lens[b]); heads at or past n_rope skip the
+// rotation (pe_attn_head). The rotation is the half-split form on a row x of
+// one head at position r, for column c < 32:
 //   out[c]      = x[c]      * cos[r, c] - x[c + 32] * sin[r, c]
 //   out[c + 32] = x[c + 32] * cos[r, c] + x[c]      * sin[r, c]
 // Rounding: the TPU kernel multiplies in bf16 with tables cast to bf16; here
@@ -25,22 +17,23 @@
 // thread loads the two 16-byte halves of a row segment (columns c .. c + 7
 // and c + 32 .. c + 39) and has both partners in registers.
 //
-// What bounds them on the card: at the main-path shape (B = 2, 16 heads,
-// n = 1536) a call is 4 * n * n * 64 * 32 = 19.3 GFLOP against 25 MB of
-// q/k/v/out, so the tensor cores bound it (0.0195 ms at 989 TFLOP/s); the
-// rope costs 6 flops per element of a K tile that each query tile re-ropes,
-// ~1.5 % of the products' work, and no device-memory traffic beyond the
-// tables (n * 32 * 2 B each, L2-resident).
+// What bounds it on the card: at the main-path shape (B = 2, 16 heads,
+// n = 1536, 1376 valid keys) a call is 4 * 32 * 1536 * 1376 * 64 = 17.3
+// GFLOP against 25 MB of q/k/v/out, so the tensor cores bound it (0.0175 ms
+// at 989 TFLOP/s); the rope costs 6 flops per element of a K tile that each
+// query tile re-ropes, ~1.5 % of the products' work, and no device-memory
+// traffic beyond the tables (n * 32 * 2 B each, L2-resident).
 //
 // Design: flash_prefix.cuh's forward loop (one 128-thread block per (item,
 // head, 64-row query tile), 64-key tiles through shared memory, mma.sync
 // m16n8k16, online softmax) with a loader that ropes rows as it stages them,
-// and with strided addressing: row r of head g is at base + (b * bs + g * hs)
-// + r * ld. Kernel 18 passes ld = 64, kernel 19 ld = 3 * inner for qkv and
-// inner for the output: rows are then 6 KB apart and each 128-byte head
-// segment of a row is one coalesced transaction. The TPU kernel's head pairs
-// and whole-region blocks exist for its 128-lane tiles and are not carried
-// over.
+// addressing row r of head g of item b at base + b * bs + g * hs + r * ld.
+// It streams the whole K/V prefix once per 64 query rows. Kernel 19, the same
+// function from the fused qkv layout, runs on the rope form of kernel A's
+// TMA + wgmma core (attn_wgmma.cuh, flash_prefix_qkv.cu), whose 4-D maps take
+// this layout too (tensor_map_4d with slot stride n * 64). The TPU kernel's
+// head pairs and whole-region blocks exist for its 128-lane tiles and are not
+// carried over.
 #include "flash_prefix.cuh"
 
 namespace f5 {
@@ -48,7 +41,7 @@ namespace {
 
 // One block per (64-row query tile, head, item). q, k, v: row r of head g of
 // item b at ptr + b * in_bs + g * in_hs + r * in_ld; out likewise with the
-// out_ strides.
+// out_ strides (f5_flash_prefix_rope_fwd passes those of [B, heads, n, 64]).
 __global__ void __launch_bounds__(kThreads)
 flash_prefix_rope_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const int* __restrict__ kv_lens,
@@ -141,18 +134,4 @@ extern "C" int f5_flash_prefix_rope_fwd(const void* q, const void* k, const void
   const size_t hs = (size_t)n * f5::kD, bs = (size_t)heads * hs;
   return (int)f5::launch_rope(q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope, bs, hs, f5::kD,
                               bs, hs, f5::kD, scale_log2, static_cast<cudaStream_t>(stream));
-}
-
-// qkv: [B, n, 3 * heads * 64] bf16; out: [B, n, heads * 64]; kv_lens: [B] int32
-extern "C" int f5_flash_prefix_qkv_fwd(const void* qkv, const void* kv_lens, const void* cos,
-                                       const void* sin, void* out, int B, int heads, int n,
-                                       int n_rope, float scale_log2, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t inner = (size_t)heads * f5::kD;
-  const f5::bf16* base = static_cast<const f5::bf16*>(qkv);
-  return (int)f5::launch_rope(base, base + inner, base + 2 * inner, kv_lens, cos, sin, out, B,
-                              heads, n, n_rope, (size_t)n * 3 * inner, f5::kD, 3 * inner,
-                              (size_t)n * inner, f5::kD, inner, scale_log2,
-                              static_cast<cudaStream_t>(stream));
 }

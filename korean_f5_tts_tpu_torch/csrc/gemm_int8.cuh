@@ -1,22 +1,23 @@
 // The int8 product core of the int8 FF half-block (ff_block_int8.cu: kernel
 // 4), the int8 LN + modulate + qkv product and the int8 out-projection with
-// its gated residual (fused_linears_int8.cu: kernels 5 and 6), designed for
-// Hopper: row passes that hold a row in registers,
-// then a TMA-fed ring of shared-memory stages, wgmma .s32.s8.s8 products and
-// warp specialisation, the structure of the bf16 core (gemm_bf16.cuh) on
-// 8-bit operands.
+// its gated residual (fused_linears_int8.cu: kernels 5 and 6) and the
+// dynamic-int8 matmul (qmatmul.cu: kernel 9), designed for Hopper: row
+// passes that hold a row in registers, then a TMA-fed ring of shared-memory
+// stages, wgmma .s32.s8.s8 products and warp specialisation, the structure of
+// the bf16 core (gemm_bf16.cuh) on 8-bit operands.
 //
 // The function is the TPU kernels' (korean_f5_tts_tpu/ops/ff_block.py:
 // _kernel_int8, fused_linears.py:_ln_mod_matmul_int8_kernel,
-// _proj_gated_int8_kernel). For each row r
+// _proj_gated_int8_kernel, qmatmul.py:_qmm_kernel). For each row r
 // of fp32 values y:
 //   s_r = max(max|y_r|, 1e-6) / 127           (fp32, IEEE division)
 //   q   = clip(rint(y / s_r), -127, 127)       (IEEE division, ties to even)
-//   out = ((float(acc) * s_r) * w_scale[c]) + b[c]   (acc: exact s32 sum)
+//   out = ((float(acc) * s_r) * w_scale[c]) + b[c]   (acc: exact s32 sum;
+//                                                     no addition without b)
 // then any GELU or gated residual in fp32 and one rounding at the end. The
 // divisions and the epilogue use the _rn intrinsics: no reciprocal multiply
 // and no fused multiply-add (nvcc contracts a * b + c by default), so the
-// rounding is the plain versions' and the mma.sync core's before it.
+// rounding is the plain versions'.
 //
 // Two kernels:
 //   quant_rows_reg_kernel<T, kMaxK, kLnMod>: one warp per row, the whole row
@@ -24,9 +25,8 @@
 //       fp32 of z at dff = 2048), so a row is read from device memory once:
 //       the LN statistics (two passes in fp32 over the registers), the
 //       modulation, the row's amax and the quantization all work on the
-//       registers. Writes q [M, K] int8 and s [M] fp32. The sums run in the
-//       order of the pass this replaced (int8_gemm.cuh:quant_rows_kernel), with
-//       the same expressions, so they round as it did.
+//       registers. Writes q [M, K] int8 and s [M] fp32. The LN sums run
+//       lane by lane over 8-column chunks, then across the warp.
 //   i8_wgmma_kernel<BN, EPI>: out tile 128 x BN (BN 128 or 256) of
 //       q_a [M, K] . W^T, W [n, K] int8 in torch layout; 384 threads: two
 //       consumer warpgroups of 64 rows each and a producer warpgroup whose
@@ -48,7 +48,11 @@
 //         kWgGeluF32       rescale + bias + tanh-GELU -> fp32 z (kernel 4's
 //                          first product; the TPU kernel never rounds z);
 //         kWgGatedResidual rescale + bias, h + gate * (.) -> bf16 (kernel 4's
-//                          second product, kernel 6).
+//                          second product, kernel 6);
+//         kWgGeluOut       rescale + bias + tanh-GELU -> bf16 (kernel 9 with
+//                          its activation; without one it takes kWgOut).
+//       In kWgOut and kWgGeluOut the bias is optional (kernel 9): a null
+//       bias adds nothing.
 //
 // Edges: TMA fills reads past M and K with zeros and stores are masked, so M
 // needs no multiple and K only the 16-byte rows TMA asks for (K % 16 == 0);
@@ -56,7 +60,7 @@
 // multiple of BN; gemm_tile_n() picks BN from the card's SM count by waves.
 // The row passes hold at most kMaxQuantK values a row.
 //
-// Measured: see ff_block_int8.cu and fused_linears_int8.cu.
+// Measured: see ff_block_int8.cu, fused_linears_int8.cu and qmatmul.cu.
 #pragma once
 
 #include "gemm_bf16.cuh"
@@ -75,7 +79,7 @@ constexpr int kMaxQuantK = 4096;  // longest row a row pass holds in registers
 // 1.45 waves at 256, 2.9 at 128) at 256, 0.0809 ms against 0.0772.
 constexpr int kI8NarrowCost10 = 6;
 
-enum WgEpilogue { kWgOut = 0, kWgGeluF32 = 1, kWgGatedResidual = 2 };
+enum WgEpilogue { kWgOut = 0, kWgGeluF32 = 1, kWgGatedResidual = 2, kWgGeluOut = 3 };
 
 // A row pass: q [M, K] int8 and s [M] fp32 from x [M, K] (bf16 h through LN
 // and the modulation when kLnMod, else fp32 z as it is). K % (16 /
@@ -212,8 +216,9 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t 
   else wgmma_ss_s8_n128(d, da, db, scale_d);
 }
 
-__device__ __forceinline__ float rescale(float acc, float as, float ws, float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(acc, as), ws), b);
+// (float(acc) * s_r) * w_scale[c]: the bias, when there is one, is added after
+__device__ __forceinline__ float scaled(float acc, float as, float ws) {
+  return __fmul_rn(__fmul_rn(acc, as), ws);
 }
 
 // out[M, gridDim.x * BN] = epilogue(q_a . W^T); output column block n0
@@ -276,12 +281,15 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     constexpr int LD = BN + 8;
     const float* stage = stage_accumulators<BN>(smem, accf, warp, lane);
     const float* ws = pick(p.w_scale, seg) + nloc;
-    const bf16* bias = pick(p.bias, seg) + nloc;
+    const bf16* bias = pick(p.bias, seg);
+    // only kWgOut and kWgGeluOut (kernels 5 and 9) may be given no bias
+    const bool has_bias = !(EPI == kWgOut || EPI == kWgGeluOut) || bias != nullptr;
 #pragma unroll
     for (int cc = 0; cc < BN; cc += 128) {
       const int cl = cc + 4 * lane;  // column within the block
       const float4 wv = *reinterpret_cast<const float4*>(ws + cl);
-      const float4 bb = load_bf16x4(bias + cl);
+      float4 bb = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (has_bias) bb = load_bf16x4(bias + nloc + cl);
       float4 gg = make_float4(0.f, 0.f, 0.f, 0.f);
       if constexpr (EPI == kWgGatedResidual) gg = load_bf16x4(p.gate + n0 + cl);
 #pragma unroll 4
@@ -290,9 +298,15 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         if (row >= p.M) break;
         const float as = p.a_scale[row];
         const float4 a = *reinterpret_cast<const float4*>(stage + r * LD + cl);
-        float4 o = make_float4(rescale(a.x, as, wv.x, bb.x), rescale(a.y, as, wv.y, bb.y),
-                               rescale(a.z, as, wv.z, bb.z), rescale(a.w, as, wv.w, bb.w));
+        float4 o = make_float4(scaled(a.x, as, wv.x), scaled(a.y, as, wv.y),
+                               scaled(a.z, as, wv.z), scaled(a.w, as, wv.w));
+        if (has_bias)  // without a bias no addition, not even of 0
+          o = make_float4(__fadd_rn(o.x, bb.x), __fadd_rn(o.y, bb.y), __fadd_rn(o.z, bb.z),
+                          __fadd_rn(o.w, bb.w));
         const size_t off = (size_t)row * ldo + n0 + cl;
+        if constexpr (EPI == kWgGeluOut)
+          o = make_float4(i8_gelu_tanh(o.x), i8_gelu_tanh(o.y), i8_gelu_tanh(o.z),
+                          i8_gelu_tanh(o.w));
         if constexpr (EPI == kWgGeluF32) {
           *reinterpret_cast<float4*>(static_cast<float*>(p.out) + off) =
               make_float4(i8_gelu_tanh(o.x), i8_gelu_tanh(o.y), i8_gelu_tanh(o.z),

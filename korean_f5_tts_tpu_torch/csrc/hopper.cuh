@@ -3,7 +3,8 @@
 // attn_bwd_wgmma.cuh) and of the probes that hold each idiom against two
 // lines of torch (probe_hopper.cu): mbarriers, TMA tile loads into 128-byte-swizzled shared
 // memory (2-D maps over [rows, cols], 3-D maps over [planes, rows, cols] whose
-// boxes stop at a plane's last row), wgmma with A from registers or from
+// boxes stop at a plane's last row, strided 4-D maps over one head's columns
+// of a fused qkv array), wgmma with A from registers or from
 // shared memory (bf16 into fp32, s8 into s32; B k-major, or MN-major for
 // P.V), and the host side's tensor maps.
 //
@@ -20,10 +21,10 @@
 // library the kernels link. The link line stays as it is: encode_tiled_fn()
 // opens libcuda.so.1 by name (a process that has a CUDA context has it mapped
 // already, so this takes a handle to that copy) and looks the symbol up with
-// dlsym. A map is a pure function of (pointer, planes, rows, cols, box rows,
-// element type), so maps are cached under that key and a cached map can never
-// be stale: a weight's map is encoded once, not once per launch, and a bf16
-// and an int8 map of one pointer are two entries.
+// dlsym. A map is a pure function of (pointer, rank, dims, strides, box,
+// element type, swizzle), so maps are cached under that key and a cached map
+// can never be stale: a weight's map is encoded once, not once per launch,
+// and a bf16 and an int8 map of one pointer are two entries.
 #pragma once
 
 #include <cuda.h>
@@ -60,34 +61,44 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 struct MapKey {
   const void* ptr;
-  uint64_t planes, rows, cols;  // planes 0: a 2-D map
-  uint32_t box_rows;
+  uint32_t rank;          // 2, 3 or 4
+  cuuint64_t dims[4];     // elements, innermost first
+  cuuint64_t strides[3];  // bytes between steps of dims 1 .. rank - 1
+  cuuint32_t box[4];      // box extent of each dim
   CUtensorMapDataType type;
+  CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B;
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && planes == o.planes && rows == o.rows && cols == o.cols &&
-           box_rows == o.box_rows && type == o.type;
+    if (ptr != o.ptr || rank != o.rank || type != o.type || swizzle != o.swizzle) return false;
+    for (uint32_t i = 0; i < rank; ++i)
+      if (dims[i] != o.dims[i] || box[i] != o.box[i] ||
+          (i > 0 && strides[i - 1] != o.strides[i - 1]))
+        return false;
+    return true;
   }
 };
 
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
-    size_t h = reinterpret_cast<size_t>(k.ptr);
-    h = h * 1000003u ^ k.planes;
-    h = h * 1000003u ^ k.rows;
-    h = h * 1000003u ^ k.cols;
-    h = h * 1000003u ^ k.box_rows;
-    return h * 1000003u ^ static_cast<size_t>(k.type);
+    size_t h = reinterpret_cast<size_t>(k.ptr) * 1000003u ^ k.rank;
+    for (uint32_t i = 0; i < k.rank; ++i) {
+      h = h * 1000003u ^ k.dims[i];
+      h = h * 1000003u ^ k.box[i];
+      if (i > 0) h = h * 1000003u ^ k.strides[i - 1];
+    }
+    return (h * 1000003u ^ static_cast<size_t>(k.type)) * 1000003u ^
+           static_cast<size_t>(k.swizzle);
   }
 };
 
 constexpr CUtensorMapDataType kMapBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 constexpr CUtensorMapDataType kMapInt8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // TMA copies bytes
 
-// Tensor map of a row-major [rows, cols] array (planes == 0), or of
-// [planes, rows, cols] (planes > 0), of `type` (kMapBf16 or kMapInt8) for
-// boxes of box_rows x 128 bytes (x 1 plane) in the swizzled layout; reads
-// past any edge give zeros, so a box of a 3-D map never reaches into the next
-// plane. A row must be a multiple of 16 bytes and ptr 16-byte aligned.
+inline uint32_t map_elem_bytes(CUtensorMapDataType type) { return type == kMapInt8 ? 1 : 2; }
+
+// The tensor map of `key`: boxes whose rows are 128 bytes (box[0] elements)
+// in the swizzled layout, or, unswizzled, rows of any multiple of 16 bytes;
+// reads past any edge give zeros, so a box never reaches into the next plane
+// or item. Strides must be multiples of 16 bytes and ptr 16-byte aligned.
 // Returns false when the libcuda symbol is missing or refuses the arguments.
 inline bool encode_map(CUtensorMap* out, const MapKey& key) {
   static std::mutex mu;
@@ -100,15 +111,10 @@ inline bool encode_map(CUtensorMap* out, const MapKey& key) {
   }
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  const uint32_t elem_bytes = key.type == kMapInt8 ? 1 : 2;
-  const cuuint32_t rank = key.planes > 0 ? 3 : 2;
-  const cuuint64_t dims[3] = {key.cols, key.rows, key.planes};
-  const cuuint64_t strides[2] = {key.cols * elem_bytes, key.rows * key.cols * elem_bytes};
-  const cuuint32_t box[3] = {kRowBytes / elem_bytes, key.box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUtensorMap map;
-  if (encode(&map, key.type, rank, const_cast<void*>(key.ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (encode(&map, key.type, key.rank, const_cast<void*>(key.ptr), key.dims, key.strides,
+             key.box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, key.swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   if (cache.size() >= 4096) cache.clear();  // activations' pointers recur; a bound all the same
@@ -117,14 +123,52 @@ inline bool encode_map(CUtensorMap* out, const MapKey& key) {
   return true;
 }
 
+// a row-major [rows, cols] array of `type` (kMapBf16 or kMapInt8), boxes of
+// box_rows x 128 bytes. A row must be a multiple of 16 bytes.
 inline bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t cols,
                        uint32_t box_rows, CUtensorMapDataType type) {
-  return encode_map(out, MapKey{ptr, 0, rows, cols, box_rows, type});
+  const uint32_t eb = map_elem_bytes(type);
+  return encode_map(out, MapKey{ptr, 2, {cols, rows, 0, 0}, {cols * eb, 0, 0},
+                                {kRowBytes / eb, box_rows, 0, 0}, type});
 }
 
+// [planes, rows, cols], boxes of box_rows x 128 bytes x 1 plane that stop at
+// a plane's last row
 inline bool tensor_map_3d(CUtensorMap* out, const void* ptr, uint64_t planes, uint64_t rows,
                           uint64_t cols, uint32_t box_rows, CUtensorMapDataType type) {
-  return planes > 0 && encode_map(out, MapKey{ptr, planes, rows, cols, box_rows, type});
+  const uint32_t eb = map_elem_bytes(type);
+  return planes > 0 &&
+         encode_map(out, MapKey{ptr, 3, {cols, rows, planes, 0},
+                                {cols * eb, rows * cols * eb, 0},
+                                {kRowBytes / eb, box_rows, 1, 0}, type});
+}
+
+// a row-major [rows, cols] bf16 table, boxes of box_rows whole rows (cols * 2
+// bytes, a multiple of 16, at most 256 columns) laid out as they are, not
+// swizzled: the rotary tables [n, 32] of the attention core's rope form
+inline bool tensor_map_table(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t cols,
+                             uint32_t box_rows) {
+  return encode_map(out, MapKey{ptr, 2, {cols, rows, 0, 0}, {cols * 2, 0, 0},
+                                {static_cast<cuuint32_t>(cols), box_rows, 0, 0}, kMapBf16,
+                                CU_TENSOR_MAP_SWIZZLE_NONE});
+}
+
+// A strided 4-D map of 128-byte column slices: dims (128 bytes of columns,
+// slots, rows, items) with the given strides in elements; a box is one slot's
+// box_rows x 128 bytes of one item and stops at row `rows`. Over the fused qkv
+// projection output [B, n, 3 * heads * 64] bf16 the slots are the 3 * heads
+// head-columns (stride 64), q of head g at slot g, k at heads + g, v at 2 *
+// heads + g; the rows stride 3 * heads * 64, the items n rows. The split-head
+// layout [B, heads, n, 64] is the same form with slot stride n * 64 and row
+// stride 64.
+inline bool tensor_map_4d(CUtensorMap* out, const void* ptr, uint64_t slots, uint64_t rows,
+                          uint64_t items, uint64_t slot_stride, uint64_t row_stride,
+                          uint64_t item_stride, uint32_t box_rows, CUtensorMapDataType type) {
+  const uint32_t eb = map_elem_bytes(type);
+  return slots > 0 && items > 0 &&
+         encode_map(out, MapKey{ptr, 4, {kRowBytes / eb, slots, rows, items},
+                                {slot_stride * eb, row_stride * eb, item_stride * eb},
+                                {kRowBytes / eb, 1, box_rows, 1}, type});
 }
 
 // ---------------------------------------------------------------------------
@@ -141,9 +185,12 @@ __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+// (the barrier by its 32-bit shared address)
+__device__ __forceinline__ void mbar_arrive(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(addr) : "memory");
 }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive(smem_addr(bar)); }
 
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
@@ -152,8 +199,7 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 }
 
 // spins until the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
   uint32_t done;
   do {
     asm volatile(
@@ -166,6 +212,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_addr(bar), parity);
 }
 
 // one thread: the box at (row, col) of the map's array into dst, completion
@@ -187,6 +237,24 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(plane)
       : "memory");
+}
+
+// the same for a 4-D map (tensor_map_4d): the box at (row, slot) of item `item`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int slot, int row, int item) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(slot), "r"(row),
+      "r"(item)
+      : "memory");
+}
+
+// orders this thread's ordinary shared-memory stores before later reads of
+// the async proxy (wgmma operands, TMA): after writing a tile that a wgmma
+// will read, before the barrier that hands it over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // address of 16-byte chunk `chunk` (0..7) of row `row` of a swizzled tile

@@ -1,8 +1,9 @@
-// Probes of the three idioms kernel 19 (flash_prefix_rope.cu) rests on, one
-// tiny kernel each, run by scripts/probe_hopper.py against two lines of
-// torch. Counterpart of the TPU package's scripts/probe_mosaic.py, which
-// probes the Mosaic lowering of the same three idioms (a half-slice product,
-// two halves written side by side, the half swap) for _kernel_qkv.
+// Probes of the three idioms of the mma.sync rope loop (flash_prefix_rope.cu,
+// kernel 18), one tiny kernel each, run by scripts/probe_hopper.py against two
+// lines of torch. Counterpart of
+// the TPU package's scripts/probe_mosaic.py, which probes the Mosaic
+// lowering of the same three idioms (a half-slice product, two halves written
+// side by side, the half swap) for _kernel_qkv.
 // Each launch is one 128-thread block on 64 rows.
 //
 // Three more probes hold the idioms of the TMA + wgmma product core
@@ -28,6 +29,15 @@
 // an MN-major operand read through a transposed-B descriptor (probe (9)):
 // the form nothing else of the port used before and the likeliest place for
 // a silent error.
+//
+// The rope form of the attention core (attn_wgmma.cuh, kernel 19) adds two:
+// a strided 4-D tensor map over one head's 64 columns of a fused qkv array,
+// whose box equals the torch slice and stops at row n with zeros, never
+// reading the next item (probe (11)); and the rotation applied in shared
+// memory to TMA-landed swizzled q and K tiles (partners at chunks p and p ^
+// 4; K's table rows landed by TMA beside it), made visible to wgmma by
+// fence.proxy.async, then S = q.K^T (probe (12)): the rotated tile must be
+// the torch-rotated rows swizzled, to the bit, and S their product.
 //
 // The attention backward core (attn_bwd_wgmma.cuh) adds the 64-wide score
 // product: wgmma m64n64k16 with both operands read through k-major
@@ -333,6 +343,84 @@ probe_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
+// (11) a box of 64 rows x 64 bf16 at (slot, row, item) of a strided 4-D map
+// over a fused qkv array [items, rows, slots * 64]; raw: the 8 KB of shared
+// memory as they lie
+__global__ void __launch_bounds__(kThreads)
+probe_tma_4d_kernel(const __grid_constant__ CUtensorMap map, unsigned char* __restrict__ raw,
+                    int slot, int row, int item) {
+  __shared__ __align__(1024) unsigned char tile[64 * kRowBytes];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 64 * kRowBytes);
+    tma_load_4d(tile, &map, &bar, slot, row, item);
+  }
+  mbar_wait(&bar, 0);
+  for (int i = threadIdx.x; i < 64 * kRowBytes / 16; i += kThreads)
+    reinterpret_cast<int4*>(raw)[i] = reinterpret_cast<const int4*>(tile)[i];
+}
+
+// (12) q rows [q0, q0 + 64) of slot 0 and K rows [k0, k0 + 128) of slot 1 of
+// a fused qkv array [1, n, 3 * 64] by TMA (4-D maps), and the K rows' cos and
+// sin by TMA beside them (unswizzled table maps), both tiles rotated in
+// shared memory by attn_rope_tile as the kernel rotates them (q from the
+// tables in device memory, K from the staged rows; rows past n stay zero),
+// then s[64, 128] fp32 = q . K^T through attn_issue_qk (wgmma m64n128k16,
+// both operands through descriptors); raw_k: the rotated K tile as shared
+// memory holds it
+__global__ void __launch_bounds__(kThreads)
+probe_rope_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_cos,
+                  const __grid_constant__ CUtensorMap map_sin, const bf16* __restrict__ cos,
+                  const bf16* __restrict__ sin, int n, int q0, int k0, float* __restrict__ s_out,
+                  unsigned char* __restrict__ raw_k) {
+  __shared__ __align__(1024) unsigned char tile_q[64 * kRowBytes];
+  __shared__ __align__(1024) unsigned char tile_k[kAttnKVBytes];
+  __shared__ __align__(128) bf16 tab[2 * kAttnBK * 32];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, 64 * kRowBytes + kAttnKVBytes + 2 * kAttnTabBytes);
+    tma_load_4d(tile_q, &map_q, &bar, 0, q0, 0);
+    tma_load_4d(tile_k, &map_k, &bar, 1, k0, 0);
+    tma_load_2d(tab, &map_cos, &bar, 0, k0);
+    tma_load_2d(tab + kAttnBK * 32, &map_sin, &bar, 0, k0);
+  }
+  mbar_wait(&bar, 0);
+  attn_rope_tile(tile_q, 64, q0, n, cos, sin, threadIdx.x, kThreads);
+  attn_rope_tile_staged(smem_addr(tile_k), kAttnBK, k0, n, smem_addr(tab), kAttnTabBytes,
+                        threadIdx.x, kThreads);
+  fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = warp * 16 + (lane >> 2), t = lane & 3;
+  float s[64];
+  wgmma_fence();
+  attn_issue_qk(s, wgmma_desc(tile_q), tile_k);
+  wgmma_wait<0>();
+  wgmma_fence_regs(s);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    s_out[row * 128 + col] = s[4 * j];
+    s_out[row * 128 + col + 1] = s[4 * j + 1];
+    s_out[(row + 8) * 128 + col] = s[4 * j + 2];
+    s_out[(row + 8) * 128 + col + 1] = s[4 * j + 3];
+  }
+  for (int i = threadIdx.x; i < kAttnKVBytes / 16; i += kThreads)
+    reinterpret_cast<int4*>(raw_k)[i] = reinterpret_cast<const int4*>(tile_k)[i];
+}
+
 }  // namespace
 }  // namespace f5
 
@@ -480,5 +568,41 @@ extern "C" int f5_probe_half_swap(const void* x, const void* cos, const void* si
   f5::probe_half_swap_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const f5::bf16*>(x), static_cast<const f5::bf16*>(cos),
       static_cast<const f5::bf16*>(sin), static_cast<f5::bf16*>(out), ld);
+  return (int)cudaGetLastError();
+}
+
+// x: [items, rows, slots * 64] bf16; raw: the 8 KB box of 64 rows of slot
+// `slot` of item `item` from row `row` as shared memory holds it (probe (11))
+extern "C" int f5_probe_tma_4d(const void* x, void* raw, int items, int rows, int slots, int row,
+                               int slot, int item, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map;
+  const uint64_t ld = (uint64_t)slots * 64;
+  if (!f5::tensor_map_4d(&map, x, slots, rows, items, 64, ld, rows * ld, 64, f5::kMapBf16))
+    return (int)cudaErrorInvalidValue;
+  f5::probe_tma_4d_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<unsigned char*>(raw), slot, row, item);
+  return (int)cudaGetLastError();
+}
+
+// qkv: [1, n, 3 * 64] bf16; cos, sin: [n, 32] bf16; s: [64, 128] fp32; raw_k:
+// the 16 KB rotated K tile (probe (12))
+extern "C" int f5_probe_rope(const void* qkv, const void* cos, const void* sin, void* s,
+                             void* raw_k, int n, int q0, int k0, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_q, map_k, map_cos, map_sin;
+  if (!f5::tensor_map_4d(&map_q, qkv, 3, n, 1, 64, 3 * 64, (uint64_t)n * 3 * 64, 64,
+                         f5::kMapBf16) ||
+      !f5::tensor_map_4d(&map_k, qkv, 3, n, 1, 64, 3 * 64, (uint64_t)n * 3 * 64, f5::kAttnBK,
+                         f5::kMapBf16) ||
+      !f5::tensor_map_table(&map_cos, cos, n, 32, f5::kAttnBK) ||
+      !f5::tensor_map_table(&map_sin, sin, n, 32, f5::kAttnBK))
+    return (int)cudaErrorInvalidValue;
+  f5::probe_rope_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_cos, map_sin, static_cast<const f5::bf16*>(cos),
+      static_cast<const f5::bf16*>(sin), n, q0, k0, static_cast<float*>(s),
+      static_cast<unsigned char*>(raw_k));
   return (int)cudaGetLastError();
 }

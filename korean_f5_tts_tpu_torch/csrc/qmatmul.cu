@@ -1,35 +1,67 @@
 // Dynamic-int8 matmul for Hopper (sm_90a), kernel 9:
-//   out = bf16([gelu_tanh](q(x) @ W^T * x_scale * w_scale + b))
+//   out = bf16([gelu_tanh](q(x) @ W^T * x_scale * w_scale [+ b]))
 //
 // Replaces the TPU kernel korean_f5_tts_tpu/ops/qmatmul.py:_qmm_kernel (via
 // qmatmul; on the JAX serving path through models/quant.py:qlinear). x, out:
 // [M, K] / [M, N] bf16; W: [N, K] int8 (torch layout, k contiguous); w_scale:
 // [N] fp32; b: [N] bf16 or null. On the main path it runs the four attention
-// projections of the masked (batch > 1) branch: M = 2 * b * 1536, K = N = 1024.
+// projections of the masked (batch > 1) branch: M = 2 * b * 1536 (6144 for a
+// batch of 2 with CFG), K = N = 1024.
 //
-// What bounds it on the card: at b = 1 a call is 6.4 GOP (0.0032 ms at the
-// 1,979 TOP/s dense int8 peak) against ~19 MB moved (x, its int8 copy written
-// and read, W, out: 0.0057 ms at 3.35 TB/s), so memory by the roofline; this
-// simple product (mma.sync, synchronous loads) is far from both peaks and
-// its tensor-core instruction throughput bounds it in practice. The TPU
-// kernel quantizes a 256-row tile in VMEM with the whole K resident; here the
-// rows are quantized once by their own pass (int8_gemm.cuh:
-// quant_rows_kernel, one warp per row), and the product reads int8 operands
-// only (int8_gemm.cuh: i8_gemm_kernel).
-#include "int8_gemm.cuh"
+// What bounds it on the card: at M = 3072, K = N = 1024 a call is 6.4 GOP
+// (0.0033 ms at the 1,979 TOP/s dense int8 peak) against ~14 MB of x, W,
+// scales and out (0.0041 ms at 3.35 TB/s): memory by the roofline, with
+// the int8 copy of x (3 MB written and read again) on top.
+//
+// Design: two launches on the int8 TMA + wgmma core (gemm_int8.cuh), as
+// kernel 6 runs there without its gated residual:
+//   1. the row pass without LN (quant_rows_reg_kernel<bf16, kMaxK, false>):
+//      one warp per row holds the row in registers, so x is read once for
+//      its amax and its quantization; writes q [M, K] int8 and s [M] fp32.
+//      The TPU kernel keeps the whole K of a 256-row tile in VMEM and
+//      quantizes there; a GEMM block here owns a 128-column slice of the
+//      output and cannot see the whole row, so the row pass writes q to
+//      memory (half the bytes of x) and the product reads int8 operands only.
+//   2. the product over one weight segment: TMA tiles of q and W into a ring
+//      of 128-byte-swizzled stages, wgmma .s32.s8.s8 (exact s32 sums), and
+//      the epilogue kWgOut (rescale + optional bias, one bf16 rounding) or,
+//      with activation "gelu_tanh", kWgGeluOut (rescale + bias + tanh-GELU in
+//      fp32, one bf16 rounding). The _rn arithmetic makes the output without
+//      GELU equal the plain version to the bit.
+// Shapes: any M, K % 16 == 0 (TMA's 16-byte rows) and K <= 4096 (the row
+// pass's registers: the TPU kernel too holds the whole K, "K <= 4096 at
+// these model sizes"), N % 128 == 0. The tile width (128 or 256 columns)
+// comes from gemm_tile_n() by waves on the card's SMs;
+// f5_qmatmul_width forces either for chip_smoke.py. Measured: PERF.md
+// section 6.
+#include "gemm_int8.cuh"
+
+// xq [M, K] int8 and xs [M] fp32: scratch. bn: the product's tile width (128
+// or 256), or 0 for gemm_tile_n()'s pick: f5_qmatmul_fwd passes 0.
+extern "C" int f5_qmatmul_width(const void* x, const void* w, const void* w_scale, const void* b,
+                                void* xq, void* xs, void* out, int M, int K, int N, int gelu,
+                                int bn, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!f5::i8_wgmma_dims_ok(M, N, K)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = f5::launch_quant_rows_reg<f5::bf16, false>(x, nullptr, nullptr, xq, xs, M, K, 0.f, s);
+  if (err != cudaSuccess) return (int)err;
+  f5::WgArgs p{};
+  p.a_scale = static_cast<const float*>(xs);
+  p.w_scale[0] = p.w_scale[1] = p.w_scale[2] = static_cast<const float*>(w_scale);
+  p.bias[0] = p.bias[1] = p.bias[2] = static_cast<const f5::bf16*>(b);
+  p.out = out;
+  p.M = M;
+  p.K = K;
+  p.seg_n = N;
+  const void* const wseg[3] = {w, w, w};
+  if (gelu) return (int)f5::launch_i8_product<f5::kWgGeluOut>(xq, wseg, p, 1, bn, s);
+  return (int)f5::launch_i8_product<f5::kWgOut>(xq, wseg, p, 1, bn, s);
+}
 
 extern "C" int f5_qmatmul_fwd(const void* x, const void* w, const void* w_scale, const void* b,
                               void* xq, void* xs, void* out, int M, int K, int N, int gelu,
                               int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!f5::i8_shapes_ok(M, K, N)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int8_t* q = static_cast<int8_t*>(xq);
-  float* qs = static_cast<float*>(xs);
-  err = f5::launch_quant_rows<f5::kSrcBf16>(x, nullptr, nullptr, q, qs, M, K, 0.f, s);
-  if (err != cudaSuccess) return (int)err;
-  f5::GemmArgs p = f5::i8_args(q, qs, w, w_scale, b, out, M, N, K);
-  p.gelu = gelu;
-  return (int)f5::launch_i8_gemm(p, s);
+  return f5_qmatmul_width(x, w, w_scale, b, xq, xs, out, M, K, N, gelu, 0, device, stream);
 }

@@ -64,6 +64,8 @@ _SIGNATURES = {
     "f5_grouped_conv_f32_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, w, w_scale, b, xq, xs, out, M, K, N, gelu, device, stream
     "f5_qmatmul_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same, then the product's tile width bn (0: gemm_tile_n's pick), device, stream
+    "f5_qmatmul_width": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P),
     # h, sc, sh, w0..w2, ws0..ws2, b0..b2, yq, ys, out, M, d, seg_n, nseg, eps,
     # device, stream
     "f5_ln_mod_matmul_int8_fwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _P),
@@ -104,6 +106,10 @@ _SIGNATURES = {
     "f5_probe_pv": (_P, _P, _P, _I, _P),
     # x, y, z, s, g, device, stream
     "f5_probe_bwd": (_P,) * 5 + (_I, _P),
+    # x, raw, items, rows, slots, row, slot, item, device, stream
+    "f5_probe_tma_4d": (_P, _P) + (_I,) * 7 + (_P,),
+    # qkv, cos, sin, s, raw_k, n, q0, k0, device, stream
+    "f5_probe_rope": (_P,) * 5 + (_I,) * 4 + (_P,),
     # M, n, seg_n, int8, device -> 128 or 256
     "f5_tile_width": (_I, _I, _I, _I, _I),
     # a, h, gate, w, b, out, M, din, d, bn, device, stream

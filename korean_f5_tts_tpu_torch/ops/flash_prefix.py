@@ -13,8 +13,11 @@ and _flash_prefix_dkv (10 runs on kernel A's TMA + wgmma attention core,
 csrc/attn_wgmma.cuh, 13 on the attention backward core,
 csrc/attn_bwd_wgmma.cuh; both need 16-byte-aligned contiguous operands,
 which the wrappers check); kernel 14 (csrc/flash_prefix_int8.cu) replaces
-_flash_prefix_folded_i8; kernels 18 and 19 (csrc/flash_prefix_rope.cu) replace
-_flash_prefix_rope_call and _flash_prefix_qkv_call. The sources' notes say
+_flash_prefix_folded_i8; kernel 18 (csrc/flash_prefix_rope.cu) replaces
+_flash_prefix_rope_call, and kernel 19 (csrc/flash_prefix_qkv.cu, the rope
+form of the attention core of csrc/attn_wgmma.cuh: strided 4-D maps over the
+fused qkv rows, the rotation in shared memory) replaces
+_flash_prefix_qkv_call. The sources' notes say
 what bounds each kernel on the card and how its design answers that.
 Kernels 18 and 19 serve only: the JAX package differentiates their XLA
 formulation, which is not ported yet, so the wrappers raise on an input that
@@ -476,6 +479,7 @@ def flash_prefix_qkv_attention(qkv, kv_lens, heads: int, cos, sin,
     output. qkv: [B, n, 3 * heads * 64] bf16 (q | k | v along the features,
     heads-major inside each, q and k PRE-rope); returns [B, n, heads * 64],
     already merged for the output projection. Other arguments as kernel 18.
+    The kernel takes any B, heads (B * heads <= 65535) and n.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Forward-only: raises on an input that requires

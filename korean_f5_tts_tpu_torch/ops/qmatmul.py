@@ -5,7 +5,8 @@ Counterpart of korean_f5_tts_tpu/ops/qmatmul.py:
 with per-row dynamic quantization of the activations and per-channel int8
 weights in the port's layout w_int8 [N, K] (models/quant.py). The kernel
 (csrc/qmatmul.cu) replaces the TPU's _qmm_kernel; its source note records
-the design (rows quantized once, then an int8 tensor-core product).
+the design (rows quantized once by a row pass, then the int8 TMA + wgmma
+product of csrc/gemm_int8.cuh that kernels 4, 5 and 6 run on).
 
 quant_rows_reference and int8_product are the shared plain pieces of every
 int8 kernel of the port (qmatmul, fused_linears, ff_block).
@@ -82,16 +83,16 @@ def check_tensor(what: str, name: str, t: torch.Tensor, shape: tuple, dtype) -> 
         raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
 
 
-I8_CORE_MAX_K = 4096  # kernels 4, 5, 6 hold a row of K values in registers (gemm_int8.cuh)
+I8_CORE_MAX_K = 4096  # kernels 4, 5, 6, 9 hold a row of K values in registers (gemm_int8.cuh)
 
 
-def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int,
-                      k_multiple: int = 64, k_max: int | None = None) -> None:
+def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int, *,
+                      k_multiple: int, k_max: int | None) -> None:
     """Checks before a kernel launch: one int8 linear {w_int8 [n, k] int8,
     w_scale [n] fp32, b [n] bf16 or None} on the CUDA device of the bf16
     activations x, everything contiguous and 16-byte aligned; K a multiple of
-    k_multiple (64 for the mma.sync product of kernel 9, 16 for the int8 TMA
-    core's rows) and at most k_max, N a multiple of 128."""
+    k_multiple (16 for the int8 TMA core's rows; 128 for kernel 4's d and
+    dff) and at most k_max (None: no bound), N a multiple of 128."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{what}: activations must be bfloat16, got {x.dtype}")
     check_tensor(what, "w_int8", w_int8, (n, k), torch.int8)
@@ -105,24 +106,33 @@ def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int,
     cuda_build.require_cuda(what, x, w_int8, w_scale, *([] if bias is None else [bias]))
 
 
+def check_qmatmul(x, w_int8, w_scale, bias, activation) -> None:
+    """Kernel 9's checks before a launch: the int8 core's shape rule (any M;
+    K % 16 == 0, K <= I8_CORE_MAX_K; N % 128 == 0) and the device checks."""
+    if activation not in (None, "gelu_tanh"):
+        raise ValueError(f"qmatmul: unknown activation {activation!r}")
+    if x.dim() != 2:
+        raise ValueError(f"qmatmul: x must be [M, K], got {tuple(x.shape)}")
+    check_int8_linear("qmatmul", x, w_int8, w_scale, bias, w_int8.shape[0], x.shape[1],
+                      k_multiple=16, k_max=I8_CORE_MAX_K)
+
+
 def qmatmul(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
             bias: torch.Tensor | None = None, activation: str | None = None) -> torch.Tensor:
     """Kernel 9 wrapper: x [M, K] bf16, w_int8 [N, K] int8, w_scale [N] fp32,
     bias [N] bf16 or None, activation None or "gelu_tanh" -> [M, N] bf16.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; nothing falls back. Any M; K % 64 == 0, N % 128 == 0.
+    raise; nothing falls back. Any M; K % 16 == 0 and K <= 4096 (the int8
+    core's rule, the TPU kernel's domain: it keeps the whole K in VMEM),
+    N % 128 == 0.
     """
     global launches
     if x.device.type == "cpu":
         return qmatmul_reference(x, w_int8, w_scale, bias, activation)
-    if activation not in (None, "gelu_tanh"):
-        raise ValueError(f"qmatmul: unknown activation {activation!r}")
-    if x.dim() != 2:
-        raise ValueError(f"qmatmul: x must be [M, K], got {tuple(x.shape)}")
+    check_qmatmul(x, w_int8, w_scale, bias, activation)
     m, k = x.shape
     n = w_int8.shape[0]
-    check_int8_linear("qmatmul", x, w_int8, w_scale, bias, n, k)
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((m,), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)

@@ -39,6 +39,17 @@ and the idioms of the attention core (csrc/attn_wgmma.cuh):
               rounded to bf16 into A fragments in registers, and V [128][64]
               read as an MN-major operand through a transposed-B descriptor
               (wgmma m64n64k16), against P.float() @ V.float().
+and the idioms of the attention core's rope form (kernel 19):
+  tma_4d_qkv, tma_4d_qkv_edge  a 64-row box of one head's 64 columns of a
+              fused qkv array through a strided 4-D map, inside the rows
+              and hanging over an item's last row: the torch slice, then
+              zeros, never the next item's rows;
+  rope_smem, rope_wgmma  q and K tiles landed by TMA (K's rows of the
+              tables beside it), rotated in shared memory on the swizzled
+              layout (the partners at chunks p and p ^ 4), fenced for the
+              async proxy and multiplied by wgmma:
+              the rotated K tile equals rope_reference's rows swizzled to
+              the bit, and S = q.K^T their product.
 and the idioms of the attention backward core (csrc/attn_bwd_wgmma.cuh):
   wgmma_ss_n64  wgmma m64n64k16 with both operands through k-major
               descriptors (the 64-query score tiles S^T = K.Q^T, dP^T =
@@ -120,6 +131,40 @@ def _probes(dev: torch.device) -> dict:
                                              dev.index, stream), "probe_tma_3d")
         out[label] = (raw, swizzled_box(x3[1], row, 0), 0.0)
 
+    # 64-row boxes of one head's columns of a fused qkv array [2, 100, 3 * 2 * 64]
+    # (slots: q of heads 0, 1, then k, then v): k of head 1 of item 1 inside
+    # the rows, and v of head 0 of item 0 over its last row, where the box
+    # must hold zeros and not item 1's rows
+    qkv = rnd(2, 100, 6 * 64)
+    for label, slot, row, item in (("tma_4d_qkv", 3, 8, 1), ("tma_4d_qkv_edge", 4, 72, 0)):
+        raw = torch.empty((64, 64), dtype=torch.bfloat16, device=dev)
+        cuda_build.check(lib.f5_probe_tma_4d(qkv.data_ptr(), raw.data_ptr(), 2, 100, 6, row,
+                                             slot, item, dev.index, stream), "probe_tma_4d")
+        out[label] = (raw, swizzled_box(qkv[item, :, 64 * slot:64 * slot + 64], row, 0), 0.0)
+
+    # the rotation in shared memory on TMA-landed swizzled tiles: q rows
+    # 40..103 and K rows 0..127 of one head of a [1, 100, 3 * 64] qkv (rows past
+    # 100 are TMA's zeros and stay so), then S = q.K^T on wgmma. The rotated K
+    # tile is the torch-rotated rows swizzled, to the bit; S is their product
+    # (fp32 sums in another order)
+    n, q0 = 100, 40
+    qkv = rnd(1, n, 3 * 64)
+    ang = torch.rand((n, 32), generator=gen, device=dev) * 6.28
+    cos, sin = torch.cos(ang).to(torch.bfloat16), torch.sin(ang).to(torch.bfloat16)
+    s_qk = torch.empty((64, 128), dtype=torch.float32, device=dev)
+    raw_k = torch.empty((128, 64), dtype=torch.bfloat16, device=dev)
+    cuda_build.check(lib.f5_probe_rope(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                                       s_qk.data_ptr(), raw_k.data_ptr(), n, q0, 0, dev.index,
+                                       stream), "probe_rope")
+    q_rot = rope_reference(qkv[:, None, :, :64], cos, sin)[0, 0]
+    k_rot = rope_reference(qkv[:, None, :, 64:128], cos, sin)[0, 0]
+    out["rope_smem"] = (raw_k, swizzled_box(k_rot, 0, 0, rows=128), 0.0)
+    q_box = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
+    q_box[:n - q0] = q_rot[q0:]
+    k_box = torch.zeros((128, 64), dtype=torch.bfloat16, device=dev)
+    k_box[:n] = k_rot
+    out["rope_wgmma"] = (s_qk, q_box.float() @ k_box.float().t(), 1e-3)
+
     # probabilities in [0, 1) as the softmax leaves them, with zeros as masked keys give
     p_in = torch.rand((64, 128), generator=gen, device=dev)
     p_in[:, 100:] = 0
@@ -170,20 +215,20 @@ def _probes(dev: torch.device) -> dict:
     return out
 
 
-def swizzled_box(x: torch.Tensor, row: int, col: int) -> torch.Tensor:
-    """What a box of 64 rows x 128 bytes of x at (row, col) (64 bf16 or 128
-    int8 a row) looks like in 128-byte-swizzled shared memory: zeros past x's
-    edges, and the 16-byte chunk c of box row r at chunk c ^ (r % 8)."""
+def swizzled_box(x: torch.Tensor, row: int, col: int, rows: int = 64) -> torch.Tensor:
+    """What a box of `rows` rows x 128 bytes of x at (row, col) (64 bf16 or
+    128 int8 a row) looks like in 128-byte-swizzled shared memory: zeros past
+    x's edges, and the 16-byte chunk c of box row r at chunk c ^ (r % 8)."""
     width = 128 // x.element_size()
-    box = torch.zeros((64, width), dtype=x.dtype, device=x.device)
-    part = x[row:row + 64, col:col + width]
+    box = torch.zeros((rows, width), dtype=x.dtype, device=x.device)
+    part = x[row:row + rows, col:col + width]
     box[:part.shape[0], :part.shape[1]] = part
-    r = torch.arange(64, device=x.device)[:, None]
+    r = torch.arange(rows, device=x.device)[:, None]
     c = torch.arange(8, device=x.device)[None, :]
     src = (c ^ (r % 8))  # the physical chunk c holds logical chunk c ^ (r % 8)
     chunk = width // 8
-    return box.reshape(64, 8, chunk).gather(1, src[:, :, None].expand(64, 8, chunk)).reshape(
-        64, width)
+    return box.reshape(rows, 8, chunk).gather(1, src[:, :, None].expand(rows, 8, chunk)).reshape(
+        rows, width)
 
 
 def run(device="cuda") -> dict[str, float]:

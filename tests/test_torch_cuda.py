@@ -307,6 +307,21 @@ def test_qmatmul_kernel(dev, bias, activation):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("m,k,n", [(1, 1040, 128), (129, 4096, 384), (1000, 96, 256),
+                                   (300, 2048, 1024)])
+def test_qmatmul_kernel_on_the_int8_core(dev, m, k, n):
+    """Kernel 9 on the int8 TMA + wgmma core at K the old product refused
+    (no multiple of 64, up to 4096) and N no multiple of 256."""
+    gen = torch.Generator(device=dev).manual_seed(30 + m)
+    x = _rows(max(m, 8), k, dev, gen)[:m]
+    qp = _qp(dev, gen, n, k)
+    for bias in (qp["b"], None):
+        got = qmatmul.qmatmul(x, qp["w_int8"], qp["w_scale"], bias)
+        assert torch.equal(got, qmatmul.qmatmul_reference(x, qp["w_int8"], qp["w_scale"], bias))
+        got = qmatmul.qmatmul(x, qp["w_int8"], qp["w_scale"], bias, "gelu_tanh")
+        _close(got, qmatmul.qmatmul_reference(x, qp["w_int8"], qp["w_scale"], bias, "gelu_tanh"))
+
+
 def test_ln_mod_matmul_int8_kernel(dev):
     gen = torch.Generator(device=dev).manual_seed(4)
     d = 256
@@ -466,9 +481,10 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         ff_block.ff_block_fused_int8(h, vec, vec, vec, bad_w, qp)
     # wrong shapes
-    x96 = _bf16((64, 96), dev, gen)
-    with pytest.raises(ValueError):  # K = 96 is not a multiple of 64
-        qmatmul.qmatmul(x96, _qp(dev, gen, 256, 96)["w_int8"], qp["w_scale"])
+    for k in (40, 4112):  # K a multiple of 16 (TMA's rows), at most 4096 (the row pass)
+        with pytest.raises(ValueError):
+            qmatmul.qmatmul(_bf16((64, k), dev, gen), _qp(dev, gen, 256, k)["w_int8"],
+                            qp["w_scale"])
     with pytest.raises(ValueError):  # sc must be [d]
         fused_linears.ln_mod_matmul_int8(h, vec[:128], vec, [qp])
     with pytest.raises(ValueError):  # a and h must have the same rows
@@ -703,8 +719,44 @@ def test_rope_and_qkv_attention_kernels(dev, n, lens, pe):
     want = flash_prefix.flash_prefix_rope_reference(q, k, v, kv, cos, sin, pe)
     _close(got18, want)
     _close(got19, flash_prefix.flash_prefix_qkv_reference(qkv, kv, heads, cos, sin, pe))
-    # one loop, two layouts: the same values
-    torch.testing.assert_close(got19, got18.transpose(1, 2).reshape(len(lens), n, heads * 64),
+    # 18's loop and 19's core, two layouts: the same function
+    _close(got19, got18.transpose(1, 2).reshape(len(lens), n, heads * 64))
+
+
+@pytest.mark.parametrize("B,heads,n,lens,pe", [
+    (2, 16, 1536, [1376, 1536], None),  # the main shape
+    (1, 2, 1, [1], 1),
+    (3, 2, 129, [0, 127, 129], 1),
+    (3, 4, 193, [128, 1, 193], None),
+    (2, 3, 1000, [191, 192], 2),
+])
+def test_qkv_attention_on_the_attention_core(dev, B, heads, n, lens, pe):
+    """Kernel 19 on the rope form of the attention core: the plain version,
+    and kernel A on the same q, k rotated by torch (the rotation's arithmetic
+    is the plain version's and the core is A's: the same bits). K and V rows
+    past kv_len hold +-1e4; an item with kv_len 0 gives zeros."""
+    gen = torch.Generator(device=dev).manual_seed(60 + n)
+    qkv = torch.randn((B, n, 3 * heads * 64), generator=gen, device=dev)
+    for i, length in enumerate(lens):
+        qkv[i, length:, heads * 64:] = 1e4 * torch.sign(qkv[i, length:, heads * 64:])
+    qkv = qkv.to(torch.bfloat16)
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cos, sin = (t.to(torch.bfloat16) for t in _rope_tables(dev, n))
+    before = flash_prefix.launches_qkv
+    got = flash_prefix.flash_prefix_qkv_attention(qkv, kv, heads, cos, sin, pe)
+    assert flash_prefix.launches_qkv == before + 1
+    live = [i for i, length in enumerate(lens) if length > 0]
+    for i, length in enumerate(lens):
+        if length == 0:
+            assert got[i].abs().max().item() == 0
+    want = flash_prefix.flash_prefix_qkv_reference(qkv[live], kv[live], heads, cos, sin, pe)
+    _close(got[live], want)
+    assert _rel(got[live], want) <= 1e-2
+    q, k, v = (t.contiguous() for t in flash_prefix.qkv_unpack(qkv[live], heads))
+    via_a = flash_prefix.flash_prefix_attention(flash_prefix.rope_reference(q, cos, sin, pe),
+                                                flash_prefix.rope_reference(k, cos, sin, pe), v,
+                                                kv[live])
+    torch.testing.assert_close(got[live], via_a.transpose(1, 2).reshape(len(live), n, -1),
                                rtol=0, atol=0)
 
 
@@ -761,7 +813,8 @@ def test_probe_hopper_idioms(dev):
                          "tma_swizzle_edge", "wgmma_ss", "wgmma_rs", "tile_width_128",
                          "tile_width_256", "tma_swizzle_i8", "tma_swizzle_i8_edge",
                          "wgmma_s8_n128", "wgmma_s8_n256", "tma_3d", "tma_3d_edge",
-                         "wgmma_pv", "wgmma_ss_n64", "wgmma_bwd_grad"}
+                         "wgmma_pv", "wgmma_ss_n64", "wgmma_bwd_grad", "tma_4d_qkv",
+                         "tma_4d_qkv_edge", "rope_smem", "rope_wgmma"}
 
 
 # --- kernel 14: int8 prefix attention --------------------------------------------

@@ -59,7 +59,7 @@ def _linear(n, k):
     (192, 1024, 16, I8_CORE_MAX_K, False),   # n a multiple of 128
     (256, 4096, 128, I8_CORE_MAX_K, True),   # kernel 4 at its widest
     (256, 1088, 128, I8_CORE_MAX_K, False),  # kernel 4: d, dff multiples of 128
-    (256, 96, 64, None, False),              # kernels 6 and 9 keep K % 64
+    (256, 96, 64, None, False),              # a rule of K % 64 (the old mma.sync product's)
     (256, 8192, 64, None, True),             # ... and no bound on K
 ])
 def test_int8_shape_rules(n, k, k_multiple, k_max, ok):
