@@ -9,7 +9,10 @@ picks the attention half's kernels, `attn_int8` (ATTN_INT8: None, "qk",
 "qkpv") the int8 attention kernel in kernel A's place, `compute_dtype` the
 dtype the weights are cast to (None keeps fp32, as the JAX class does: the
 default path's kernels A, B and C then run their fp32 forms; bf16 runs the
-tensor-core kernels and is what every opt-in path takes).
+tensor-core kernels and is what every opt-in path takes), and `quantize`
+rewrites the block linears to int8 weights after that cast (the JAX class
+reaches the same through its F5_TTS_INT8 environment variable; here only the
+argument does): kernels 4, 5, 6 and 9 then run on rows of the weights' dtype.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ class F5TTS:
         attn_path: str = "default",
         attn_int8: str | None = None,
         seed: int = 0,
+        quantize: bool = False,
     ):
         if model in PRESETS:
             model_cfg = preset_model_config(model)
@@ -108,6 +112,7 @@ class F5TTS:
             dtype=compute_dtype,
             seed=seed,
             device=device,
+            quantize=quantize,
         )
 
     def transcribe(self, ref_audio, language=None):

@@ -5,7 +5,10 @@
 // kLse; kernel A's instantiation has no lse code), and kernel 19
 // (flash_prefix_qkv.cu), which is kernel A read straight from the fused qkv
 // projection output with the rotary embedding applied in the kernel (the
-// template flag kRope; A's and 10's instantiations have none of it).
+// template flag kRope; A's and 10's instantiations have none of it), and
+// kernel 18 (flash_prefix_rope.cu), the same rope form over split heads; and
+// kernel 14 (flash_prefix_int8.cu), kernel A with int8 products (the
+// template flag kI8; the others' instantiations have none of it).
 //
 // The function is kernel A's (flash_prefix.cu): folded heads q, k, v, out
 // [H, n, 64] bf16, kv_lens [H] int32; head h attends keys [0, kv_lens[h])
@@ -108,7 +111,60 @@
 // ~1.5% of the tile's products in flops, off the tensor cores' path, and 16
 // KB more of TMA traffic a tile from L2. What bounds it is A's bound: at the
 // main shape (B 2, 16 heads, n 1536, 1376 valid keys) 17.3 GFLOP, 0.0175 ms
-// at 989 TFLOP/s.
+// at 989 TFLOP/s. Kernel 18 reads the split-head layout [B, heads, n, 64]
+// through three 4-D maps of the same form (slot stride n * 64, row stride
+// 64; slot_k = slot_v = 0) and is 19's instantiation.
+//
+// The int8 form (kI8: kAttnI8Qk or kAttnI8Qkpv, kernel 14). The function is
+// the TPU kernel's (korean_f5_tts_tpu/ops/flash_prefix.py:_kernel_i8) on the
+// operands its quantization pass (quant_heads.cu) writes: q8, k8 [H, n, 64]
+// int8, c[h] = aq ak / 127^2 * log2(e) / sqrt(64), and under "qkpv" v8 [H,
+// 64, n_pad] int8 (keys contiguous, permuted in groups of 32, zero past n)
+// with sv[h] = av / 127^2:
+//   s   = float(q8 . k8^T) * c            exact s32 sums, base-2 domain,
+//                                         keys at or past kv_len masked
+//   online max m and sum l in fp32 over the unquantized p = exp2(s - m)
+//   qkpv  acc = acc * alpha + float(p8 . v8) * sv, p8 = rint(127 p), the
+//         product a per-tile s32 accumulator
+//   qk    acc = acc * alpha + bf16(p) . v (v unquantized bf16, A's P.V)
+//   out   = acc / l, rounded once to bf16
+// p8 sees the running max of its tile, so the key tile (128) is part of the
+// arithmetic: the plain version repeats it (ops/flash_prefix.py:
+// I8_KEY_TILE), and the JAX kernel at bkv = 128 is the same chunking.
+//   S     wgmma m64n128k32 .s32.s8.s8, both operands from shared memory.
+//         Rows of q8 and k8 are 64 bytes; their 3-D maps take A's 128-byte
+//         boxes, which TMA fills past the row's 64 bytes with zeros, so the
+//         tiles are A's swizzled [rows][128 bytes] and S is two k32 steps of
+//         the first half. The s32 accumulator lies as A's fp32 one.
+//   p8    rint(127 p) is 127 p + 1.5 * 2^23 in fp32 (the add rounds to the
+//         nearest integer, ties to even; its low byte is the value), packed
+//         by byte permutes straight into the 8-bit A fragment of a k32 step,
+//         mma.m16n8k32's per warp: a thread's accumulator holds keys 8j + 2t
+//         + {0, 1}, the fragment wants slots 4t .. 4t + 3 and 16 + 4t .., so
+//         v8's keys are stored at slot 16h + 4t + 2j + e for key 16h + 8j + 2t
+//         + e of each group of 32 (ops/flash_prefix.py:_v8_kernel_layout).
+//   P.V   qkpv: wgmma m64n64k32 .s32.s8.s8 with A from registers and the v8
+//         tile [64][128 keys] k-major from shared memory (the int8 GEMM
+//         core's B), four k32 steps; qk: A's bf16 P.V.
+//   s32 -> fp32  one conversion, exact (|s| < 2^24: 64 x 127^2 for S, 128 x
+//         127^2 for P.V); the integer trick of p8 (two instructions) measured
+//         slower here than the conversion instruction.
+// The consumer does a tile at a time (S, softmax, P.V, each waited for),
+// and the three warpgroups overlap one another's products and softmax
+// without turns. At int8 rates the products are a small part of a tile's
+// time: exactness to the plain version costs ~10 instructions an element
+// (the conversion, the scale, the max, the shift, the row sum, p8's multiply,
+// round and pack, P.V's conversion and update) where A's softmax takes ~4,
+// so the int8 form is bound by instruction issue, not by its products. Trial
+// builds at the main shape, not kept: A's schedule (S(j + 1) in flight under
+// P.V(j), with or without ping-pong turns) was faster for "qk" but slower
+// for "qkpv", whose s32 P.V accumulator then lives beside S, O and P; turns
+// alone were slower for both; p8 through the float-to-int conversion instead
+// of the 1.5 * 2^23 add was slower still. The _rn intrinsics keep nvcc
+// from contracting the scale, the rescale and the update into fused
+// multiply-adds, so they round as the plain version does.
+// What bounds it: at the main shape 17.3 GOP of int8 products (0.0087 ms at
+// 1,979 TOP/s) and 67.6 M exp2 (~0.018 ms on the SFUs).
 #pragma once
 
 #include "gemm_bf16.cuh"  // align_1024, kMaxDevices, allow_smem
@@ -123,6 +179,10 @@ constexpr int kAttnWgBytes = 64 * kRowBytes;           // one warpgroup's 64 q r
 constexpr int kAttnKVBytes = kAttnBK * kRowBytes;      // a K or a V tile
 constexpr int kAttnWgs = 3;                            // consumer warpgroups, 64 q rows each
 constexpr int kAttnRows = 64 * kAttnWgs;               // q rows a block
+constexpr int kAttnV8Bytes = kAttnD * kRowBytes;       // a v8 tile: 64 rows of 128 keys
+// the int8 forms (kI8) of the core, kernel 14's two modes
+constexpr int kAttnI8Qk = 1;    // int8 q.k^T, bf16 p.v
+constexpr int kAttnI8Qkpv = 2;  // int8 q.k^T and p.v
 
 // 2^x in one SFU instruction (denormal results flushed to zero: far below
 // what a bf16 P or the fp32 row sum can tell from zero)
@@ -377,18 +437,130 @@ __device__ __forceinline__ void attn_kv_tiles(const int* __restrict__ kv_lens, i
   n_tiles = kv_len > 0 ? (kv_len + kAttnBK - 1) / kAttnBK : 0;
 }
 
+// ---------------------------------------------------------------------------
+// the int8 form (kI8, kernel 14)
+// ---------------------------------------------------------------------------
+
+// rint(127 p) for p in [0, 1] in the low byte: 127 p + 1.5 * 2^23 rounds to
+// an integer (ties to even) in fp32
+__device__ __forceinline__ uint32_t p8_bits(float p) {
+  return __float_as_uint(__fadd_rn(__fmul_rn(p, 127.f), 12582912.f));
+}
+
+__device__ __forceinline__ uint32_t pack_p8x4(float a, float b, float c, float d) {
+  return __byte_perm(__byte_perm(p8_bits(a), p8_bits(b), 0x0040),
+                     __byte_perm(p8_bits(c), p8_bits(d), 0x0040), 0x5410);
+}
+
+// P (the m64n128 accumulator, keys 8j + 2t + e of rows g, g + 8 at s[4j +
+// 2 (row) + e]) as p8 in the 8-bit A fragments of the four k32 steps of
+// P.V: step kk's registers are rows g / g + 8 of slots 4t .. 4t + 3 and 16 +
+// 4t .., which hold keys 8j + 2t + e for j = 4kk, 4kk + 1 and 4kk + 2, 4kk +
+// 3 (the v8 slot order)
+__device__ __forceinline__ void attn_pack_p8(const float (&s)[64], uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* x = s + 16 * kk;
+    p[kk][0] = pack_p8x4(x[0], x[1], x[4], x[5]);
+    p[kk][1] = pack_p8x4(x[2], x[3], x[6], x[7]);
+    p[kk][2] = pack_p8x4(x[8], x[9], x[12], x[13]);
+    p[kk][3] = pack_p8x4(x[10], x[11], x[14], x[15]);
+  }
+}
+
+// d[32] (+)= A (64 x 32 s8, registers) . B^T (B: [64][32] s8 k-major in
+// shared memory), exact s32 sums
+__device__ __forceinline__ void wgmma_rs_s8_n64(int (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// issue S = q8.k8^T for one tile (two k32 steps over the rows' 64 bytes) as
+// one wgmma group
+__device__ __forceinline__ void attn_issue_qk_s8(int (&s)[64], uint64_t desc_q,
+                                                 const unsigned char* tile_k) {
+  const uint64_t dk = wgmma_desc(tile_k);
+#pragma unroll
+  for (int kk = 0; kk < kAttnD / 32; ++kk)
+    wgmma_ss_s8_n128(s, desc_q + 2 * kk, dk + 2 * kk, kk != 0);
+  wgmma_commit();
+}
+
+// issue pv = p8.v8 for one tile (four k32 steps) as one wgmma group
+__device__ __forceinline__ void attn_issue_pv_s8(int (&pv)[32], const uint32_t (&p)[4][4],
+                                                 const unsigned char* tile_v8) {
+  const uint64_t dv = wgmma_desc(tile_v8);
+#pragma unroll
+  for (int kk = 0; kk < kAttnBK / 32; ++kk) wgmma_rs_s8_n64(pv, p[kk], dv + 2 * kk, kk != 0);
+  wgmma_commit();
+}
+
+// One 128-key tile of the int8 form's online softmax: s = float(S) * c,
+// keys at or past kv_len masked, the running max and sum updated, p =
+// exp2(s - m) left in s, the rescale factor in alpha. The plain version's
+// rounding points: one rounding for the scale, one for the subtraction.
+__device__ __forceinline__ void attn_softmax_tile_i8(const int (&si)[64], float (&s)[64],
+                                                     float (&m_run)[2], float (&l_run)[2],
+                                                     float (&alpha)[2], int k0, int kv_len,
+                                                     float c, int t) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = __fmul_rn(__int2float_rn(si[i]), c);
+  if (k0 + kAttnBK > kv_len) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len) s[i] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // every tile holds a key < kv_len, so the max is finite from the first tile on
+    const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+    alpha[r] = exp2f(__fsub_rn(m_run[r], m_new));
+    m_run[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = fast_exp2(__fsub_rn(s[i], m_run[r]));
+    rs[r] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = __fadd_rn(__fmul_rn(l_run[r], alpha[r]), rs[r]);
+}
+
 // kLse: also write lse [H, n] fp32, the base-2 logsumexp of each row's
 // scaled scores (kernel 10); kernel A instantiates it without.
-// kRope (kernel 19): 4-D maps over the fused qkv array (tensor_map_4d), the
-// rotation applied in shared memory, and a strided output; block y is
-// (item, head) = (y / heads, y % heads) and kv_lens is per item.
-template <bool kLse, bool kRope>
+// kRope (kernels 19 and 18): 4-D maps over the fused qkv array or the split
+// heads (tensor_map_4d), the rotation applied in shared memory, and a
+// strided output; block y is (item, head) = (y / heads, y % heads) and
+// kv_lens is per item.
+// kI8 (kernel 14): int8 q8, k8 (and v8) maps, the scales c_scale and
+// sv_scale [H]; scale_log2 is not read (c carries it).
+template <bool kLse, bool kRope, int kI8 = 0>
 __global__ void __launch_bounds__(128 * (kAttnWgs + 1), 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, const int* __restrict__ kv_lens,
                       bf16* __restrict__ out, float* __restrict__ lse, int n, float scale_log2,
-                      const __grid_constant__ AttnRope rope) {
+                      const __grid_constant__ AttnRope rope, const float* __restrict__ c_scale,
+                      const float* __restrict__ sv_scale) {
   constexpr int kStagesT = attn_stages<kRope>();
   constexpr int kStageBytes = attn_stage_bytes<kRope>();
   extern __shared__ unsigned char smem_raw[];
@@ -445,6 +617,11 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             tma_load_2d(tile + 2 * kAttnKVBytes + kAttnTabBytes, &rope.map_sin, &full[s], 0,
                         j * kAttnBK);
           }
+        } else if constexpr (kI8 == kAttnI8Qkpv) {
+          // the v8 tile: keys j * 128 .. + 127 (columns) of the head's 64 rows
+          mbar_arrive_expect_tx(&full[s], kAttnKVBytes + kAttnV8Bytes);
+          tma_load_3d(tile, &map_k, &full[s], 0, j * kAttnBK, head);
+          tma_load_3d(tile + kAttnKVBytes, &map_v, &full[s], j * kAttnBK, 0, head);
         } else {
           mbar_arrive_expect_tx(&full[s], kStageBytes);
           tma_load_3d(tile, &map_k, &full[s], 0, j * kAttnBK, head);
@@ -488,13 +665,53 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     float m_run[2] = {-INFINITY, -INFINITY};  // rows g8 and g8 + 8 of this warp's 16
     float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
     mbar_wait(q_full, 0);
-    if (kRope && rope_on && n_tiles > 0) {
+    if constexpr (kI8 != 0) {
+      // a tile at a time: S, the softmax, P.V, each waited for (header)
+      if (n_tiles > 0) {
+        const uint64_t desc_q = wgmma_desc(my_q);
+        const float c = c_scale[head];
+        const float sv = kI8 == kAttnI8Qkpv ? sv_scale[head] : 0.f;
+        for (int j = 0; j < n_tiles; ++j) {
+          const int st = j % kStagesT;
+          const unsigned char* tile = ring + st * kStageBytes;
+          mbar_wait(&full[st], (j / kStagesT) & 1);
+          int si[64];
+          wgmma_fence();
+          attn_issue_qk_s8(si, desc_q, tile);
+          wgmma_wait<0>();
+          wgmma_fence_regs(si);
+          float s[64], alpha[2];
+          attn_softmax_tile_i8(si, s, m_run, l_run, alpha, j * kAttnBK, kv_len, c, t);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[i] = __fmul_rn(o[i], alpha[(i >> 1) & 1]);
+          if constexpr (kI8 == kAttnI8Qkpv) {
+            uint32_t p8[4][4];
+            attn_pack_p8(s, p8);
+            int pv[32];
+            wgmma_fence();
+            attn_issue_pv_s8(pv, p8, tile + kAttnKVBytes);
+            wgmma_wait<0>();
+            wgmma_fence_regs(pv);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) o[i] = __fadd_rn(o[i], __fmul_rn(__int2float_rn(pv[i]), sv));
+          } else {
+            uint32_t p[8][4];
+            attn_pack_p<kAttnBK>(s, p);
+            wgmma_fence();
+            attn_issue_pv(o, p, tile + kAttnKVBytes);
+            wgmma_wait<0>();
+            wgmma_fence_regs(o);
+          }
+          if (lane == 0) mbar_arrive(&empty[st]);
+        }
+      }
+    } else if (kRope && rope_on && n_tiles > 0) {
       // this warpgroup's 64 q rows, rotated once, visible to its wgmma
       attn_rope_tile(my_q, 64, q0 + wg * 64, n, rope.cos, rope.sin, tid & 127, 128);
       fence_proxy_async();
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     }
-    if (n_tiles > 0) {
+    if (kI8 == 0 && n_tiles > 0) {  // the int8 form ran its own loop above
       const uint64_t desc_q = wgmma_desc(my_q);
       float s[64];
       uint32_t p[8][4];
@@ -596,7 +813,7 @@ cudaError_t launch_attn_fwd_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid((n + kAttnRows - 1) / kAttnRows, H);
   attn_fwd_wgmma_kernel<kLse, false><<<grid, 128 * (kAttnWgs + 1), smem, stream>>>(
       map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out),
-      static_cast<float*>(lse), n, scale_log2, AttnRope{});
+      static_cast<float*>(lse), n, scale_log2, AttnRope{}, nullptr, nullptr);
   return cudaGetLastError();
 }
 

@@ -4,9 +4,10 @@
 //   out = bf16(h + gate * (q(z) @ W2^T * zs * w2s + b2))
 //
 // Replaces the TPU kernel korean_f5_tts_tpu/ops/ff_block.py:_kernel_int8 (via
-// ff_block_fused_int8). h, out: [M, d] bf16; sc, sh, gate: [d] bf16; W1:
-// [dff, d] and W2: [d, dff] int8 (torch layout); w1s [dff], w2s [d] fp32; b1,
-// b2 bf16.
+// ff_block_fused_int8). h, out: [M, d] bf16 or fp32 (the TPU kernel reads its
+// rows as fp32 and writes the input's dtype); sc, sh, gate: [d], b1, b2 of
+// the rows' type; W1: [dff, d] and W2: [d, dff] int8 (torch layout); w1s
+// [dff], w2s [d] fp32. On fp32 rows out = h + gate * (...) is not rounded.
 //
 // What bounds it on the card: at the main-path shape (M = 3072, d = 1024,
 // dff = 2048) a call is 25.8 GOP of int8 products (0.013 ms at the 1,979
@@ -42,57 +43,75 @@
 // epilogue overlap nothing, as in the bf16 core.
 #include "gemm_int8.cuh"
 
-// yq [M, d], zq [M, dff] int8, ys, zs [M] and z [M, dff] fp32: scratch the
-// caller allocates. d, dff multiples of 128, at most 4096. bn1, bn2: the
-// tile widths of the two products (128 or 256), or 0 for gemm_tile_n()'s
-// pick: f5_ff_block_int8_fwd passes 0, chip_smoke.py times each width.
-extern "C" int f5_ff_block_int8_widths(const void* h, const void* sc, const void* sh,
-                                       const void* gate, const void* w1, const void* w1s,
-                                       const void* b1, const void* w2, const void* w2s,
-                                       const void* b2, void* yq, void* ys, void* z, void* zq,
-                                       void* zs, void* out, int M, int d, int dff, float eps,
-                                       int bn1, int bn2, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!f5::i8_wgmma_dims_ok(M, dff, d) || !f5::i8_wgmma_dims_ok(M, d, dff))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  typedef f5::bf16 T;
-  err = f5::launch_quant_rows_reg<T, true>(h, sc, sh, yq, ys, M, d, eps, s);
-  if (err != cudaSuccess) return (int)err;
+namespace {
+
+// the four launches on rows of type T (bf16 or float)
+template <typename T>
+cudaError_t ff_block_int8(const void* h, const void* sc, const void* sh, const void* gate,
+                          const void* w1, const void* w1s, const void* b1, const void* w2,
+                          const void* w2s, const void* b2, void* yq, void* ys, void* z, void* zq,
+                          void* zs, void* out, int M, int d, int dff, float eps, int bn1, int bn2,
+                          cudaStream_t s) {
+  cudaError_t err = f5::launch_quant_rows_reg<T, true>(h, sc, sh, yq, ys, M, d, eps, s);
+  if (err != cudaSuccess) return err;
   f5::WgArgs p1{};
   p1.a_scale = static_cast<const float*>(ys);
   p1.w_scale[0] = p1.w_scale[1] = p1.w_scale[2] = static_cast<const float*>(w1s);
-  p1.bias[0] = p1.bias[1] = p1.bias[2] = static_cast<const T*>(b1);
+  p1.bias[0] = p1.bias[1] = p1.bias[2] = b1;
   p1.out = z;
   p1.M = M;
   p1.K = d;
   p1.seg_n = dff;
   const void* const w1x[3] = {w1, w1, w1};
-  err = f5::launch_i8_product<f5::kWgGeluF32>(yq, w1x, p1, 1, bn1, s);
-  if (err != cudaSuccess) return (int)err;
+  err = f5::launch_i8_product<f5::kWgGeluF32, T>(yq, w1x, p1, 1, bn1, s);
+  if (err != cudaSuccess) return err;
   err = f5::launch_quant_rows_reg<float, false>(z, nullptr, nullptr, zq, zs, M, dff, 0.f, s);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   f5::WgArgs p2{};
   p2.a_scale = static_cast<const float*>(zs);
   p2.w_scale[0] = p2.w_scale[1] = p2.w_scale[2] = static_cast<const float*>(w2s);
-  p2.bias[0] = p2.bias[1] = p2.bias[2] = static_cast<const T*>(b2);
-  p2.h = static_cast<const T*>(h);
-  p2.gate = static_cast<const T*>(gate);
+  p2.bias[0] = p2.bias[1] = p2.bias[2] = b2;
+  p2.h = h;
+  p2.gate = gate;
   p2.out = out;
   p2.M = M;
   p2.K = dff;
   p2.seg_n = d;
   const void* const w2x[3] = {w2, w2, w2};
-  return (int)f5::launch_i8_product<f5::kWgGatedResidual>(zq, w2x, p2, 1, bn2, s);
+  return f5::launch_i8_product<f5::kWgGatedResidual, T>(zq, w2x, p2, 1, bn2, s);
+}
+
+}  // namespace
+
+// yq [M, d], zq [M, dff] int8, ys, zs [M] and z [M, dff] fp32: scratch the
+// caller allocates. d, dff multiples of 128, at most 4096. f32: h, sc, sh,
+// gate, b1, b2 and out are fp32 (else bf16). bn1, bn2: the tile widths of
+// the two products (128 or 256), or 0 for gemm_tile_n()'s pick:
+// f5_ff_block_int8_fwd passes 0, chip_smoke.py times each width.
+extern "C" int f5_ff_block_int8_widths(const void* h, const void* sc, const void* sh,
+                                       const void* gate, const void* w1, const void* w1s,
+                                       const void* b1, const void* w2, const void* w2s,
+                                       const void* b2, void* yq, void* ys, void* z, void* zq,
+                                       void* zs, void* out, int M, int d, int dff, float eps,
+                                       int f32, int bn1, int bn2, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!f5::i8_wgmma_dims_ok(M, dff, d) || !f5::i8_wgmma_dims_ok(M, d, dff))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return (int)ff_block_int8<float>(h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq, zs,
+                                     out, M, d, dff, eps, bn1, bn2, s);
+  return (int)ff_block_int8<f5::bf16>(h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq,
+                                      zs, out, M, d, dff, eps, bn1, bn2, s);
 }
 
 extern "C" int f5_ff_block_int8_fwd(const void* h, const void* sc, const void* sh,
                                     const void* gate, const void* w1, const void* w1s,
                                     const void* b1, const void* w2, const void* w2s,
                                     const void* b2, void* yq, void* ys, void* z, void* zq,
-                                    void* zs, void* out, int M, int d, int dff, float eps,
+                                    void* zs, void* out, int M, int d, int dff, float eps, int f32,
                                     int device, void* stream) {
   return f5_ff_block_int8_widths(h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq, zs,
-                                 out, M, d, dff, eps, 0, 0, device, stream);
+                                 out, M, d, dff, eps, f32, 0, 0, device, stream);
 }

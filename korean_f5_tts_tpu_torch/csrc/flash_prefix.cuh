@@ -2,8 +2,9 @@
 // of the first port's mma.sync attention, shared by kernel A at d = 128
 // (flash_prefix.cu; d = 64 runs on attn_wgmma.cuh), the dq kernels 11 and
 // 12 (flash_prefix_train.cu; 10 and 13 run on attn_wgmma.cuh and
-// attn_bwd_wgmma.cuh) and the rope-in-kernel and qkv-layout kernels 18 and
-// 19 (flash_prefix_rope.cu).
+// attn_bwd_wgmma.cuh), and the probes of the rope loop's idioms
+// (probe_hopper.cu: the strided and rope loaders, which kernels 18 and 19
+// ran on before they moved to attn_wgmma.cuh's rope form).
 //
 // A block is 128 threads over a 64-row tile; each warp owns 16 of the rows.
 // Shared tiles are [64][D + 8] bf16 (mma.cuh's padded stride); rows at or
@@ -35,7 +36,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-// head dim of the strided loaders below (kernels 18 and 19)
+// head dim of the strided loaders below (probe_hopper.cu)
 constexpr int kD = 64;
 constexpr int kLD = kD + 8;
 

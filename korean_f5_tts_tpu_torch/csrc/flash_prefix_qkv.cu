@@ -24,7 +24,8 @@
 // beyond the tables (n * 64 bytes each, L2-resident).
 //
 // Design: the rope form of kernel A's TMA + wgmma core (attn_wgmma.cuh,
-// kRope): strided 4-D tensor maps over qkv, 192 query rows a block on three
+// kRope; kernel 18, flash_prefix_rope.cu, is the same instantiation over
+// split heads): strided 4-D tensor maps over qkv, 192 query rows a block on three
 // consumer warpgroups, 128-key K/V tiles through a four-stage TMA ring, S
 // and P.V on wgmma with P in registers, ping-pong; q rotated in shared memory
 // by its consumer warpgroup from the tables in L2, each K tile by three
@@ -69,7 +70,7 @@ cudaError_t launch_attn_qkv_wgmma(const void* qkv, const void* kv_lens, const vo
   const dim3 grid((n + kAttnRows - 1) / kAttnRows, B * heads);
   attn_fwd_wgmma_kernel<false, true><<<grid, 128 * (kAttnWgs + 1), smem, stream>>>(
       map_q, map_kv, map_kv, static_cast<const int*>(kv_lens), static_cast<bf16*>(out), nullptr,
-      n, scale_log2, rope);
+      n, scale_log2, rope, nullptr, nullptr);
   return cudaGetLastError();
 }
 

@@ -12,112 +12,75 @@
 //   out[c + 32] = x[c + 32] * cos[r, c] + x[c]      * sin[r, c]
 // Rounding: the TPU kernel multiplies in bf16 with tables cast to bf16; here
 // the tables are the same bf16 values, the arithmetic is fp32 and the result
-// rounds to bf16 once. The TPU's permutation product for the half swap is a
-// workaround for a lane roll Mosaic lacks, not part of the function: here a
-// thread loads the two 16-byte halves of a row segment (columns c .. c + 7
-// and c + 32 .. c + 39) and has both partners in registers.
+// rounds to bf16 once (ops/flash_prefix.py:rope_reference to the bit). The
+// TPU's permutation product for the half swap is a workaround for a lane
+// roll Mosaic lacks, and its head pairs and whole-region blocks exist for its
+// 128-lane tiles: none is part of the function.
 //
 // What bounds it on the card: at the main-path shape (B = 2, 16 heads,
 // n = 1536, 1376 valid keys) a call is 4 * 32 * 1536 * 1376 * 64 = 17.3
 // GFLOP against 25 MB of q/k/v/out, so the tensor cores bound it (0.0175 ms
-// at 989 TFLOP/s); the rope costs 6 flops per element of a K tile that each
-// query tile re-ropes, ~1.5 % of the products' work, and no device-memory
-// traffic beyond the tables (n * 32 * 2 B each, L2-resident).
+// at 989 TFLOP/s); the rotation adds ~1.5% of the products' flops and no
+// device-memory traffic beyond the tables (n * 32 * 2 B each, L2-resident).
 //
-// Design: flash_prefix.cuh's forward loop (one 128-thread block per (item,
-// head, 64-row query tile), 64-key tiles through shared memory, mma.sync
-// m16n8k16, online softmax) with a loader that ropes rows as it stages them,
-// addressing row r of head g of item b at base + b * bs + g * hs + r * ld.
-// It streams the whole K/V prefix once per 64 query rows. Kernel 19, the same
-// function from the fused qkv layout, runs on the rope form of kernel A's
-// TMA + wgmma core (attn_wgmma.cuh, flash_prefix_qkv.cu), whose 4-D maps take
-// this layout too (tensor_map_4d with slot stride n * 64). The TPU kernel's
-// head pairs and whole-region blocks exist for its 128-lane tiles and are not
-// carried over.
-#include "flash_prefix.cuh"
+// Design: kernel 19's function from the split-head layout, so it is the rope
+// form of kernel A's TMA + wgmma core (attn_wgmma.cuh, kRope; kernel 19,
+// flash_prefix_qkv.cu, is the same instantiation): three strided 4-D tensor
+// maps (hopper.cuh:tensor_map_4d), one each over q, k and v, whose slots are
+// the heads (slot stride n * 64), rows the positions (row stride 64) and
+// items the batch (item stride heads * n * 64), so that a box is one head's
+// rows of one item and stops at row n with zeros; the output rows are stored
+// back into [B, heads, n, 64]. Each head's rows are contiguous 128-byte rows
+// here, where 19 reads 128-byte slices of 6 KB rows. 192 query rows a block
+// on three consumer warpgroups, 128-key K/V tiles through a four-stage TMA
+// ring, S and P.V on wgmma with P in registers, ping-pong; q rotated in
+// shared memory by its consumer warpgroup, each K tile by three otherwise
+// idle producer warps from the tile's rows of the tables, which TMA lands
+// beside it. On the same values 18 and 19 compute the same thing in the same
+// order: their outputs agree to the bit. It replaces flash_prefix.cuh's
+// mma.sync loop (64-row query tiles streaming the whole K/V prefix each),
+// which 18 ran on until 19's redesign reached it. Measured: PERF.md
+// section 6.
+#include "attn_wgmma.cuh"
 
 namespace f5 {
 namespace {
 
-// One block per (64-row query tile, head, item). q, k, v: row r of head g of
-// item b at ptr + b * in_bs + g * in_hs + r * in_ld; out likewise with the
-// out_ strides (f5_flash_prefix_rope_fwd passes those of [B, heads, n, 64]).
-__global__ void __launch_bounds__(kThreads)
-flash_prefix_rope_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const int* __restrict__ kv_lens,
-                             const bf16* __restrict__ cos, const bf16* __restrict__ sin,
-                             bf16* __restrict__ out, int n, int n_rope, size_t in_bs,
-                             size_t in_hs, size_t in_ld, size_t out_bs, size_t out_hs,
-                             size_t out_ld, float scale_log2) {
-  constexpr int ND = kD / 8;
-  __shared__ __align__(16) bf16 sQ[kBQ * kLD];
-  __shared__ __align__(16) bf16 sK[kBKV * kLD];
-  __shared__ __align__(16) bf16 sV[kBKV * kLD];
-
-  const int q0 = blockIdx.x * kBQ;
-  const int head = blockIdx.y;
-  const int item = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int t = lane & 3;
-  const size_t off = (size_t)item * in_bs + (size_t)head * in_hs;
-  const int kv_len = min(kv_lens[item], n);
-  const bool rope_on = head < n_rope;
-
-  if (rope_on)
-    load_rows_rope(sQ, q + off, in_ld, q0, n, cos, sin, tid);
-  else
-    load_rows_strided(sQ, q + off, in_ld, q0, n, tid);
-  __syncthreads();
-  uint32_t qf[kD / 16][4];
-  load_a_frags<kD>(qf, sQ, warp, lane);
-
-  float o[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  const int n_tiles = kv_len > 0 ? (kv_len + kBKV - 1) / kBKV : 0;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBKV;
-    __syncthreads();  // the previous tile's readers are done
-    if (rope_on)
-      load_rows_rope(sK, k + off, in_ld, k0, n, cos, sin, tid);
-    else
-      load_rows_strided(sK, k + off, in_ld, k0, n, tid);
-    load_rows_strided(sV, v + off, in_ld, k0, n, tid);
-    __syncthreads();
-
-    float s[kNS][4];
-    mma_abt<kD>(s, qf, sK, lane);
-    online_softmax_tile<ND>(s, o, m_run, l_run, k0, kv_len, scale_log2, t);
-    mma_pb<kD>(o, s, sV, lane);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_run[r]);
-    inv[r] = l > 0.f ? 1.f / l : 0.f;  // kv_len == 0: zeros, as the TPU kernel
-  }
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  store_output_rows<ND>(out + (size_t)item * out_bs + (size_t)head * out_hs, (int)out_ld, o, inv,
-                        row0, n, t);
-}
-
-cudaError_t launch_rope(const void* q, const void* k, const void* v, const void* kv_lens,
-                        const void* cos, const void* sin, void* out, int B, int heads, int n,
-                        int n_rope, size_t in_bs, size_t in_hs, size_t in_ld, size_t out_bs,
-                        size_t out_hs, size_t out_ld, float scale_log2, cudaStream_t stream) {
-  if (B <= 0 || heads <= 0 || n <= 0 || heads > 65535 || B > 65535) return cudaErrorInvalidValue;
-  dim3 grid((n + kBQ - 1) / kBQ, heads, B);
-  flash_prefix_rope_fwd_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(kv_lens), static_cast<const bf16*>(cos),
-      static_cast<const bf16*>(sin), static_cast<bf16*>(out), n, n_rope, in_bs, in_hs, in_ld,
-      out_bs, out_hs, out_ld, scale_log2);
+// q, k, v, out: [B, heads, n, 64] bf16 (q and k before the rotation),
+// kv_lens [B] int32, cos and sin [n, 32] bf16; heads g < n_rope rotate. All
+// 16-byte aligned.
+cudaError_t launch_attn_rope_wgmma(const void* q, const void* k, const void* v,
+                                   const void* kv_lens, const void* cos, const void* sin,
+                                   void* out, int B, int heads, int n, int n_rope,
+                                   float scale_log2, cudaStream_t stream) {
+  if (B <= 0 || heads <= 0 || n <= 0 || (long long)B * heads > 65535)
+    return cudaErrorInvalidValue;
+  const uint64_t hs = (uint64_t)n * kAttnD, bs = (uint64_t)heads * hs;
+  CUtensorMap map_q, map_k, map_v;
+  AttnRope rope{};
+  if (!tensor_map_4d(&map_q, q, heads, n, B, hs, kAttnD, bs, kAttnRows, kMapBf16) ||
+      !tensor_map_4d(&map_k, k, heads, n, B, hs, kAttnD, bs, kAttnBK, kMapBf16) ||
+      !tensor_map_4d(&map_v, v, heads, n, B, hs, kAttnD, bs, kAttnBK, kMapBf16) ||
+      !tensor_map_table(&rope.map_cos, cos, n, 32, kAttnBK) ||
+      !tensor_map_table(&rope.map_sin, sin, n, 32, kAttnBK))
+    return cudaErrorInvalidValue;
+  rope.cos = static_cast<const bf16*>(cos);
+  rope.sin = static_cast<const bf16*>(sin);
+  rope.heads = heads;
+  rope.n_rope = n_rope;
+  rope.slot_k = 0;  // each map holds one tensor: head g is slot g of all three
+  rope.slot_v = 0;
+  rope.out_bs = bs;
+  rope.out_hs = hs;
+  rope.out_ld = kAttnD;
+  constexpr int smem = attn_smem_bytes<true>();
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<false, true>, smem, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kAttnRows - 1) / kAttnRows, B * heads);
+  attn_fwd_wgmma_kernel<false, true><<<grid, 128 * (kAttnWgs + 1), smem, stream>>>(
+      map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out), nullptr,
+      n, scale_log2, rope, nullptr, nullptr);
   return cudaGetLastError();
 }
 
@@ -131,7 +94,6 @@ extern "C" int f5_flash_prefix_rope_fwd(const void* q, const void* k, const void
                                         float scale_log2, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t hs = (size_t)n * f5::kD, bs = (size_t)heads * hs;
-  return (int)f5::launch_rope(q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope, bs, hs, f5::kD,
-                              bs, hs, f5::kD, scale_log2, static_cast<cudaStream_t>(stream));
+  return (int)f5::launch_attn_rope_wgmma(q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
+                                         scale_log2, static_cast<cudaStream_t>(stream));
 }

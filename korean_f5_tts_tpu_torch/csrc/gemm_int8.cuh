@@ -27,7 +27,7 @@
 //       modulation, the row's amax and the quantization all work on the
 //       registers. Writes q [M, K] int8 and s [M] fp32. The LN sums run
 //       lane by lane over 8-column chunks, then across the warp.
-//   i8_wgmma_kernel<BN, EPI>: out tile 128 x BN (BN 128 or 256) of
+//   i8_wgmma_kernel<BN, EPI, T>: out tile 128 x BN (BN 128 or 256) of
 //       q_a [M, K] . W^T, W [n, K] int8 in torch layout; 384 threads: two
 //       consumer warpgroups of 64 rows each and a producer warpgroup whose
 //       one thread starts the TMA loads; setmaxnreg moves the producer's
@@ -53,6 +53,15 @@
 //                          its activation; without one it takes kWgOut).
 //       In kWgOut and kWgGeluOut the bias is optional (kernel 9): a null
 //       bias adds nothing.
+//
+// Row type. The TPU kernels read their rows as fp32 whatever the input's
+// dtype and write the input's dtype (ff_block.py:108-109, fused_linears.py:
+// 111, 157, qmatmul.py:25), so an fp32 model with int8 weights runs them on
+// fp32 rows. Here T, the rows' type, is bf16 or float: the row passes read
+// h (and sc, sh) as T, and the epilogues read the bias, h and gate as T and
+// write T, with the one rounding at the end (none for float). The vectors
+// take the rows' type; the products stay .s32.s8.s8 and the weights int8
+// with fp32 w_scale either way.
 //
 // Edges: TMA fills reads past M and K with zeros and stores are masked, so M
 // needs no multiple and K only the 16-byte rows TMA asks for (K % 16 == 0);
@@ -81,19 +90,42 @@ constexpr int kI8NarrowCost10 = 6;
 
 enum WgEpilogue { kWgOut = 0, kWgGeluF32 = 1, kWgGatedResidual = 2, kWgGeluOut = 3 };
 
-// A row pass: q [M, K] int8 and s [M] fp32 from x [M, K] (bf16 h through LN
-// and the modulation when kLnMod, else fp32 z as it is). K % (16 /
+// 16 bytes of T at p (16-byte aligned) as floats: 8 bf16 or 4 fp32
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float (&v)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    load8<kSrcBf16>(p, 0, v);
+  }
+}
+
+// four values of T at p (aligned to four of them) as floats, and back
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  if constexpr (sizeof(T) == 4) return *reinterpret_cast<const float4*>(p);
+  else return load_bf16x4(p);
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v) {
+  if constexpr (sizeof(T) == 4) *reinterpret_cast<float4*>(p) = v;
+  else store_bf16x4(p, v);
+}
+
+// A row pass: q [M, K] int8 and s [M] fp32 from x [M, K] of T (h through LN
+// and the modulation by sc, sh [K] of T when kLnMod, else x as it is). K % (16 /
 // sizeof(T)) == 0 and K <= kMaxK. Lane l holds, for chunk c, the V = 16 /
 // sizeof(T) columns from c * 32 * V + l * V: one 16-byte load each, a warp's
 // loads of a chunk contiguous.
 template <typename T, int kMaxK, bool kLnMod>
 __global__ void __launch_bounds__(kRowWarps * 32)
-quant_rows_reg_kernel(const T* __restrict__ x, const bf16* __restrict__ sc,
-                      const bf16* __restrict__ sh, int8_t* __restrict__ q, float* __restrict__ s,
+quant_rows_reg_kernel(const T* __restrict__ x, const T* __restrict__ sc,
+                      const T* __restrict__ sh, int8_t* __restrict__ q, float* __restrict__ s,
                       int M, int K, float eps) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kChunks = kMaxK / (32 * V);
-  constexpr int kSrc = sizeof(T) == 4 ? kSrcF32 : kSrcBf16;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   if (row >= M) return;
@@ -103,12 +135,7 @@ quant_rows_reg_kernel(const T* __restrict__ x, const bf16* __restrict__ sc,
   for (int c = 0; c < kChunks; ++c) {
     const int col = c * 32 * V + lane * V;
     if (col < K) {
-      if constexpr (V == 8) {
-        load8<kSrc>(x, base + col, v[c]);
-      } else {
-        const float4 a = *reinterpret_cast<const float4*>(x + base + col);
-        v[c][0] = a.x; v[c][1] = a.y; v[c][2] = a.z; v[c][3] = a.w;
-      }
+      load16(x + base + col, v[c]);
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) v[c][i] = 0.f;
@@ -137,9 +164,9 @@ quant_rows_reg_kernel(const T* __restrict__ x, const bf16* __restrict__ sc,
     for (int c = 0; c < kChunks; ++c) {
       const int col = c * 32 * V + lane * V;
       if (col < K) {
-        float mul[8], add[8];
-        load8<kSrcBf16>(sc, col, mul);
-        load8<kSrcBf16>(sh, col, add);
+        float mul[V], add[V];
+        load16(sc + col, mul);
+        load16(sh + col, add);
 #pragma unroll
         for (int i = 0; i < V; ++i)
           v[c][i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[c][i], mu), rstd),
@@ -183,8 +210,8 @@ cudaError_t launch_quant_rows_reg(const void* x, const void* sc, const void* sh,
                                   int M, int K, float eps, cudaStream_t stream) {
   const dim3 grid((M + kRowWarps - 1) / kRowWarps), block(kRowWarps * 32);
   const T* xt = static_cast<const T*>(x);
-  const bf16* sct = static_cast<const bf16*>(sc);
-  const bf16* sht = static_cast<const bf16*>(sh);
+  const T* sct = static_cast<const T*>(sc);
+  const T* sht = static_cast<const T*>(sh);
   int8_t* qt = static_cast<int8_t*>(q);
   float* st = static_cast<float*>(s);
   if (K <= 1024)
@@ -199,14 +226,15 @@ cudaError_t launch_quant_rows_reg(const void* x, const void* sc, const void* sh,
   return cudaGetLastError();
 }
 
-// What a product's epilogue reads besides the accumulators.
+// What a product's epilogue reads besides the accumulators; the vectors and
+// h are of the rows' type T (bf16 or float)
 struct WgArgs {
   const float* a_scale;                // [M]: the row scales of q_a
   const float* w_scale[kMaxSegments];  // per segment [seg_n]
-  const bf16* bias[kMaxSegments];      // per segment [seg_n]
-  const bf16* h;                       // [M, N] residual (kWgGatedResidual)
-  const bf16* gate;                    // [N] (kWgGatedResidual)
-  void* out;                           // [M, N]: fp32 for kWgGeluF32, else bf16
+  const void* bias[kMaxSegments];      // per segment [seg_n] of T
+  const void* h;                       // [M, N] of T: residual (kWgGatedResidual)
+  const void* gate;                    // [N] of T (kWgGatedResidual)
+  void* out;                           // [M, N]: fp32 for kWgGeluF32, else T
   int M, K, seg_n;
 };
 
@@ -222,8 +250,8 @@ __device__ __forceinline__ float scaled(float acc, float as, float ws) {
 }
 
 // out[M, gridDim.x * BN] = epilogue(q_a . W^T); output column block n0
-// belongs to segment n0 / seg_n (maps map_w0..2)
-template <int BN, int EPI>
+// belongs to segment n0 / seg_n (maps map_w0..2); T: the rows' type
+template <int BN, int EPI, typename T>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_w0,
@@ -281,7 +309,7 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     constexpr int LD = BN + 8;
     const float* stage = stage_accumulators<BN>(smem, accf, warp, lane);
     const float* ws = pick(p.w_scale, seg) + nloc;
-    const bf16* bias = pick(p.bias, seg);
+    const T* bias = static_cast<const T*>(pick(p.bias, seg));
     // only kWgOut and kWgGeluOut (kernels 5 and 9) may be given no bias
     const bool has_bias = !(EPI == kWgOut || EPI == kWgGeluOut) || bias != nullptr;
 #pragma unroll
@@ -289,9 +317,9 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       const int cl = cc + 4 * lane;  // column within the block
       const float4 wv = *reinterpret_cast<const float4*>(ws + cl);
       float4 bb = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (has_bias) bb = load_bf16x4(bias + nloc + cl);
+      if (has_bias) bb = load4(bias + nloc + cl);
       float4 gg = make_float4(0.f, 0.f, 0.f, 0.f);
-      if constexpr (EPI == kWgGatedResidual) gg = load_bf16x4(p.gate + n0 + cl);
+      if constexpr (EPI == kWgGatedResidual) gg = load4(static_cast<const T*>(p.gate) + n0 + cl);
 #pragma unroll 4
       for (int r = 0; r < 16; ++r) {
         const int row = m0 + warp * 16 + r;
@@ -313,13 +341,13 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                           i8_gelu_tanh(o.w));
         } else {
           if constexpr (EPI == kWgGatedResidual) {
-            const float4 hv = load_bf16x4(p.h + off);
+            const float4 hv = load4(static_cast<const T*>(p.h) + off);
             o = make_float4(__fadd_rn(hv.x, __fmul_rn(gg.x, o.x)),
                             __fadd_rn(hv.y, __fmul_rn(gg.y, o.y)),
                             __fadd_rn(hv.z, __fmul_rn(gg.z, o.z)),
                             __fadd_rn(hv.w, __fmul_rn(gg.w, o.w)));
           }
-          store_bf16x4(static_cast<bf16*>(p.out) + off, o);
+          store4(static_cast<T*>(p.out) + off, o);
         }
       }
     }
@@ -327,8 +355,8 @@ i8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 }
 
 // q_a [M, K] int8 (row scales p.a_scale) . [w0; w1; w2][:nseg]^T, each
-// w [seg_n, K] int8, through epilogue EPI at tile width BN
-template <int BN, int EPI>
+// w [seg_n, K] int8, through epilogue EPI at tile width BN, rows of type T
+template <int BN, int EPI, typename T>
 cudaError_t launch_i8_wgmma(const void* a, const void* const (&w)[kMaxSegments], const WgArgs& p,
                             int nseg, cudaStream_t stream) {
   CUtensorMap map_a, map_w[kMaxSegments];
@@ -337,22 +365,22 @@ cudaError_t launch_i8_wgmma(const void* a, const void* const (&w)[kMaxSegments],
     if (!tensor_map(&map_w[i], w[i], p.seg_n, p.K, BN, kMapInt8)) return cudaErrorInvalidValue;
   const int smem = gemm_smem_bytes<BN>(0);
   static std::atomic<bool> ready[kMaxDevices];
-  const cudaError_t err = allow_smem(i8_wgmma_kernel<BN, EPI>, smem, ready);
+  const cudaError_t err = allow_smem(i8_wgmma_kernel<BN, EPI, T>, smem, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid(nseg * p.seg_n / BN, (p.M + kBM - 1) / kBM);
-  i8_wgmma_kernel<BN, EPI><<<grid, kGemmThreads, smem, stream>>>(map_a, map_w[0], map_w[1],
-                                                                  map_w[2], p);
+  i8_wgmma_kernel<BN, EPI, T><<<grid, kGemmThreads, smem, stream>>>(map_a, map_w[0], map_w[1],
+                                                                     map_w[2], p);
   return cudaGetLastError();
 }
 
 // the same at tile width bn (128 or 256; 0: the one gemm_tile_n() picks
 // with the int8 core's tile cost)
-template <int EPI>
+template <int EPI, typename T>
 cudaError_t launch_i8_product(const void* a, const void* const (&w)[kMaxSegments],
                               const WgArgs& p, int nseg, int bn, cudaStream_t stream) {
   if (bn == 0) bn = gemm_tile_n(p.M, nseg * p.seg_n, p.seg_n, kI8NarrowCost10);
-  if (bn == 256 && p.seg_n % 256 == 0) return launch_i8_wgmma<256, EPI>(a, w, p, nseg, stream);
-  if (bn == 128) return launch_i8_wgmma<128, EPI>(a, w, p, nseg, stream);
+  if (bn == 256 && p.seg_n % 256 == 0) return launch_i8_wgmma<256, EPI, T>(a, w, p, nseg, stream);
+  if (bn == 128) return launch_i8_wgmma<128, EPI, T>(a, w, p, nseg, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
-// Probes of the three idioms of the mma.sync rope loop (flash_prefix_rope.cu,
-// kernel 18), one tiny kernel each, run by scripts/probe_hopper.py against two
-// lines of torch. Counterpart of
+// Probes of the three idioms of the mma.sync rope loop that kernels 18 and 19
+// first ran on (flash_prefix.cuh's strided and rope loaders; both now run on
+// attn_wgmma.cuh's rope form), one tiny kernel each, run by
+// scripts/probe_hopper.py against two lines of torch. Counterpart of
 // the TPU package's scripts/probe_mosaic.py, which probes the Mosaic
 // lowering of the same three idioms (a half-slice product, two halves written
 // side by side, the half swap) for _kernel_qkv.
@@ -38,6 +39,18 @@
 // 4; K's table rows landed by TMA beside it), made visible to wgmma by
 // fence.proxy.async, then S = q.K^T (probe (12)): the rotated tile must be
 // the torch-rotated rows swizzled, to the bit, and S their product.
+//
+// The split-head rope form (kernel 18) reads [B, heads, n, 64] through the
+// same 4-D map with slot stride n * 64 and row stride 64: the box of head g
+// of item b must equal the torch slice and stop at row n (probe (11) with
+// split_heads). The int8 form of the attention core (kernel 14) adds three
+// (probe (13)): S = q8.k8^T on wgmma .s32.s8.s8 from int8 tiles whose 64-byte
+// rows TMA fills to the core's 128-byte boxes with zeros (and past the
+// head's row n); wgmma m64n64k32 .s32.s8.s8 with the 8-bit A operand from
+// registers in mma.m16n8k32's fragment layout; and p8 = rint(127 p) packed
+// from the m64n128 score accumulator's positions into those fragments
+// against v8 in kernel 14's slot permutation, which must give the product
+// in natural key order.
 //
 // The attention backward core (attn_bwd_wgmma.cuh) adds the 64-wide score
 // product: wgmma m64n64k16 with both operands read through k-major
@@ -421,6 +434,82 @@ probe_rope_kernel(const __grid_constant__ CUtensorMap map_q,
     reinterpret_cast<int4*>(raw_k)[i] = reinterpret_cast<const int4*>(tile_k)[i];
 }
 
+// (13) the int8 attention core's pieces: S = q8[q0 : q0 + 64] . k8[0 : 128]^T
+// (one head [1, n, 64] int8 through 3-D maps with 128-byte boxes: columns
+// 64..127 and rows past n are zeros) into s_out [64, 128] int32; then pv =
+// A . v8^T with v8 [64][128] int8 k-major from a 3-D map over [1, 64, 128]
+// and A [64, 128] s8 either read as it is into mma.m16n8k32's A fragments
+// (mode 0: a8) or packed by attn_pack_p8 from probabilities p [64, 128] at
+// the score accumulator's positions (mode 1), into pv_out [64, 64] int32
+__global__ void __launch_bounds__(kThreads)
+probe_attn_i8_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, const int8_t* __restrict__ a8,
+                     const float* __restrict__ p, int mode, int q0, int* __restrict__ s_out,
+                     int* __restrict__ pv_out) {
+  __shared__ __align__(1024) unsigned char tile_q[64 * kRowBytes];
+  __shared__ __align__(1024) unsigned char tile_k[kAttnBK * kRowBytes];
+  __shared__ __align__(1024) unsigned char tile_v[kAttnV8Bytes];
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(&bar, (64 + kAttnBK) * kRowBytes + kAttnV8Bytes);
+    tma_load_3d(tile_q, &map_q, &bar, 0, q0, 0);
+    tma_load_3d(tile_k, &map_k, &bar, 0, 0, 0);
+    tma_load_3d(tile_v, &map_v, &bar, 0, 0, 0);
+  }
+  mbar_wait(&bar, 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int row = warp * 16 + (lane >> 2);
+  int si[64];
+  wgmma_fence();
+  attn_issue_qk_s8(si, wgmma_desc(tile_q), tile_k);
+  wgmma_wait<0>();
+  wgmma_fence_regs(si);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    s_out[row * 128 + col] = si[4 * j];
+    s_out[row * 128 + col + 1] = si[4 * j + 1];
+    s_out[(row + 8) * 128 + col] = si[4 * j + 2];
+    s_out[(row + 8) * 128 + col + 1] = si[4 * j + 3];
+  }
+  uint32_t frag[4][4];
+  if (mode == 0) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int8_t* r0 = a8 + row * 128 + 32 * kk + 4 * t;
+      frag[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
+      frag[kk][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * 128);
+      frag[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
+      frag[kk][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * 128 + 16);
+    }
+  } else {
+    float s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      s[i] = p[(row + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + 2 * t + (i & 1)];
+    attn_pack_p8(s, frag);
+  }
+  int pv[32];
+  wgmma_fence();
+  attn_issue_pv_s8(pv, frag, tile_v);
+  wgmma_wait<0>();
+  wgmma_fence_regs(pv);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    pv_out[row * 64 + col] = pv[4 * j];
+    pv_out[row * 64 + col + 1] = pv[4 * j + 1];
+    pv_out[(row + 8) * 64 + col] = pv[4 * j + 2];
+    pv_out[(row + 8) * 64 + col + 1] = pv[4 * j + 3];
+  }
+}
+
 }  // namespace
 }  // namespace f5
 
@@ -571,16 +660,22 @@ extern "C" int f5_probe_half_swap(const void* x, const void* cos, const void* si
   return (int)cudaGetLastError();
 }
 
-// x: [items, rows, slots * 64] bf16; raw: the 8 KB box of 64 rows of slot
-// `slot` of item `item` from row `row` as shared memory holds it (probe (11))
+// x: [items, rows, slots * 64] bf16 (the fused qkv layout), or with
+// split_heads [items, slots, rows, 64] (kernel 18's split heads); raw: the 8
+// KB box of 64 rows of slot `slot` of item `item` from row `row` as shared
+// memory holds it (probe (11))
 extern "C" int f5_probe_tma_4d(const void* x, void* raw, int items, int rows, int slots, int row,
-                               int slot, int item, int device, void* stream) {
+                               int slot, int item, int split_heads, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map;
-  const uint64_t ld = (uint64_t)slots * 64;
-  if (!f5::tensor_map_4d(&map, x, slots, rows, items, 64, ld, rows * ld, 64, f5::kMapBf16))
-    return (int)cudaErrorInvalidValue;
+  const uint64_t ld = (uint64_t)slots * 64, hs = (uint64_t)rows * 64;
+  const bool ok = split_heads
+                      ? f5::tensor_map_4d(&map, x, slots, rows, items, hs, 64, slots * hs, 64,
+                                          f5::kMapBf16)
+                      : f5::tensor_map_4d(&map, x, slots, rows, items, 64, ld, rows * ld, 64,
+                                          f5::kMapBf16);
+  if (!ok) return (int)cudaErrorInvalidValue;
   f5::probe_tma_4d_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       map, static_cast<unsigned char*>(raw), slot, row, item);
   return (int)cudaGetLastError();
@@ -604,5 +699,24 @@ extern "C" int f5_probe_rope(const void* qkv, const void* cos, const void* sin, 
       map_q, map_k, map_cos, map_sin, static_cast<const f5::bf16*>(cos),
       static_cast<const f5::bf16*>(sin), n, q0, k0, static_cast<float*>(s),
       static_cast<unsigned char*>(raw_k));
+  return (int)cudaGetLastError();
+}
+
+// q8, k8: [1, n, 64] int8 (n <= 128); v8: [1, 64, 128] int8; a8: [64, 128]
+// int8; p: [64, 128] fp32 in [0, 1]; s_out [64, 128], pv_out [64, 64] int32
+// (probe (13))
+extern "C" int f5_probe_attn_i8(const void* q8, const void* k8, const void* v8, const void* a8,
+                                const void* p, int mode, int n, int q0, void* s_out,
+                                void* pv_out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_q, map_k, map_v;
+  if (!f5::tensor_map_3d(&map_q, q8, 1, n, 64, 64, f5::kMapInt8) ||
+      !f5::tensor_map_3d(&map_k, k8, 1, n, 64, f5::kAttnBK, f5::kMapInt8) ||
+      !f5::tensor_map_3d(&map_v, v8, 1, 64, 128, 64, f5::kMapInt8))
+    return (int)cudaErrorInvalidValue;
+  f5::probe_attn_i8_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_k, map_v, static_cast<const int8_t*>(a8), static_cast<const float*>(p), mode, q0,
+      static_cast<int*>(s_out), static_cast<int*>(pv_out));
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,10 @@ korean_f5_tts_tpu/infer/cli.py): python -m korean_f5_tts_tpu_torch.infer.cli.
 Runs on the card unless --device cpu is given (no card raises);
 --compute_dtype casts the weights (default: fp32, which the default path's
 kernels serve in their fp32 forms; bfloat16 runs the tensor-core kernels and
-is what --attn_path other than default and --attn_int8 take),
---attn_path picks the attention half's kernels, --attn_int8 the int8
-attention kernel.
+is what --attn_path other than default and --attn_int8 take), --quantize
+rewrites the block linears to int8 weights (kernels 4, 5, 6, 9, which take
+fp32 or bf16 rows), --attn_path picks the attention half's kernels,
+--attn_int8 the int8 attention kernel.
 
 Parity with reference `src/f5_tts/infer/infer_cli.py`: argparse + TOML config
 overlay (`:211-252`), multi-voice `[voice]` tag splitting (`:363-382`),
@@ -82,6 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
                    help="cast the weights to this dtype (default: float32 as loaded; the "
                         "opt-in attention kernels take bfloat16 only)")
+    p.add_argument("--quantize", action="store_true",
+                   help="int8 block linears (load_model(..., quantize=True), after the dtype "
+                        "cast): kernels 4, 5, 6, 9 on fp32 or bf16 rows")
     p.add_argument("--attn_path", default="default", choices=list(ATTN_PATHS),
                    help="kernels of the attention half (ops/attention.py)")
     p.add_argument("--attn_int8", default=None, choices=["qk", "qkpv"],
@@ -154,6 +158,7 @@ def main(argv=None):
         tokenizer_version=args.tokenizer_version,
         dtype=dtype,
         device=args.device,
+        quantize=args.quantize,
     )
     vocoder = load_vocoder(
         vocoder_name, args.load_vocoder_from_local, args.vocoder_ckpt or "",

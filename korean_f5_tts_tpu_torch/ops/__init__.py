@@ -34,6 +34,7 @@ KERNELS = {
     "flash_prefix_rope": (flash_prefix, "launches_rope"),
     "flash_prefix_qkv": (flash_prefix, "launches_qkv"),
     "flash_prefix_i8": (flash_prefix, "launches_i8"),
+    "flash_prefix_i8_quant": (flash_prefix, "launches_i8_quant"),  # kernel 14's quantization pass
     # the fp32 forms of kernels A, B, C (what the offline entry points run by default)
     "flash_prefix_f32": (flash_prefix, "launches_f32"),
     "ff_block_f32": (ff_block, "launches_f32"),

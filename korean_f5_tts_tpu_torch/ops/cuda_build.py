@@ -38,6 +38,7 @@ build_log: str = ""                 # nvcc/ptxas output (registers, smem, spills
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, kv_lens, out, H, n, d, scale_log2, device, stream
     "f5_flash_prefix_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
@@ -56,30 +57,34 @@ _SIGNATURES = {
     "f5_flash_prefix_dkv": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
     # q8, k8, v, c, sv, kv_lens, out, H, n, n_pad, pv_i8, device, stream
     "f5_flash_prefix_i8_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _P),
+    # q, k, v, their item/head/row strides (q, k, v), q8, k8, v8, c, sv, b, h, n,
+    # n_pad, pv_i8, c_mul, sv_mul, device, stream
+    "f5_quant_heads": (_P,) * 3 + (_L,) * 9 + (_P,) * 5 + (_I,) * 5 + (_F, _F, _I, _P),
     # h, sc, sh, gate, w1, b1, w2, b2, z, stats, out, M, d, dff, eps, device, stream
     "f5_ff_block_fwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
     "f5_ff_block_f32_fwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
     # x, w, b, out, B, N, C, groups, taps, fuse_mish, device, stream
     "f5_grouped_conv_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "f5_grouped_conv_f32_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, w_scale, b, xq, xs, out, M, K, N, gelu, device, stream
-    "f5_qmatmul_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # kernels 4, 5, 6, 9: f32 says the rows, vectors and output are fp32 (else bf16)
+    # x, w, w_scale, b, xq, xs, out, M, K, N, gelu, f32, device, stream
+    "f5_qmatmul_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P),
     # the same, then the product's tile width bn (0: gemm_tile_n's pick), device, stream
-    "f5_qmatmul_width": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P),
+    "f5_qmatmul_width": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _I, _P),
     # h, sc, sh, w0..w2, ws0..ws2, b0..b2, yq, ys, out, M, d, seg_n, nseg, eps,
-    # device, stream
-    "f5_ln_mod_matmul_int8_fwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _P),
+    # f32, device, stream
+    "f5_ln_mod_matmul_int8_fwd": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _P),
     # the same, then the product's tile width bn (0: gemm_tile_n's pick), device, stream
-    "f5_ln_mod_matmul_int8_width": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _P),
-    # a, h, gate, w, ws, b, aq, as, out, M, din, d, device, stream
-    "f5_proj_gated_int8_fwd": (_P,) * 9 + (_I, _I, _I, _I, _P),
+    "f5_ln_mod_matmul_int8_width": (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # a, h, gate, w, ws, b, aq, as, out, M, din, d, f32, device, stream
+    "f5_proj_gated_int8_fwd": (_P,) * 9 + (_I, _I, _I, _I, _I, _P),
     # the same, then the product's tile width bn (0: gemm_tile_n's pick), device, stream
-    "f5_proj_gated_int8_width": (_P,) * 9 + (_I, _I, _I, _I, _I, _P),
+    "f5_proj_gated_int8_width": (_P,) * 9 + (_I, _I, _I, _I, _I, _I, _P),
     # h, sc, sh, gate, w1, w1s, b1, w2, w2s, b2, yq, ys, z, zq, zs, out, M, d,
-    # dff, eps, device, stream
-    "f5_ff_block_int8_fwd": (_P,) * 16 + (_I, _I, _I, _F, _I, _P),
+    # dff, eps, f32, device, stream
+    "f5_ff_block_int8_fwd": (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _P),
     # the same, then the two products' tile widths bn1, bn2, device, stream
-    "f5_ff_block_int8_widths": (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _I, _P),
+    "f5_ff_block_int8_widths": (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _I, _I, _P),
     # h, sc, sh, w0..w2, b0..b2, stats, out, M, d, seg_n, nseg, eps, device, stream
     "f5_ln_mod_matmul_fwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _P),
     # a, h, gate, w, b, out, M, din, d, device, stream
@@ -106,8 +111,10 @@ _SIGNATURES = {
     "f5_probe_pv": (_P, _P, _P, _I, _P),
     # x, y, z, s, g, device, stream
     "f5_probe_bwd": (_P,) * 5 + (_I, _P),
-    # x, raw, items, rows, slots, row, slot, item, device, stream
-    "f5_probe_tma_4d": (_P, _P) + (_I,) * 7 + (_P,),
+    # x, raw, items, rows, slots, row, slot, item, split_heads, device, stream
+    "f5_probe_tma_4d": (_P, _P) + (_I,) * 8 + (_P,),
+    # q8, k8, v8, a8, p, mode, n, q0, s_out, pv_out, device, stream
+    "f5_probe_attn_i8": (_P,) * 5 + (_I, _I, _I, _P, _P, _I, _P),
     # qkv, cos, sin, s, raw_k, n, q0, k0, device, stream
     "f5_probe_rope": (_P,) * 5 + (_I,) * 4 + (_P,),
     # M, n, seg_n, int8, device -> 128 or 256

@@ -25,6 +25,7 @@ from korean_f5_tts_tpu_torch.ops.fused_linears import (
 from korean_f5_tts_tpu_torch.ops.qmatmul import (
     I8_CORE_MAX_K,
     check_int8_linear,
+    check_int8_rows,
     check_tensor,
     int8_product,
     quant_rows_reference,
@@ -117,9 +118,10 @@ def ff_block_int8_reference(h, sc, sh, gate, qp_in: dict, qp_out: dict,
 
 def ff_block_fused_int8(h, sc, sh, gate, qp_in: dict, qp_out: dict,
                         eps: float = 1e-6) -> torch.Tensor:
-    """Kernel 4 wrapper: h [B, n, d] bf16, sc/sh/gate [d] bf16, qp_in
-    {w_int8 [dff, d], w_scale [dff], b [dff]}, qp_out {w_int8 [d, dff],
-    w_scale [d], b [d]} -> [B, n, d] bf16.
+    """Kernel 4 wrapper: h [B, n, d] bf16 or fp32, sc/sh/gate [d] and the
+    biases of h's dtype (a mix raises TypeError), qp_in {w_int8 [dff, d],
+    w_scale [dff] fp32, b [dff]}, qp_out {w_int8 [d, dff], w_scale [d], b [d]}
+    -> [B, n, d] of h's dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any number of rows; d, dff multiples of 128
@@ -130,11 +132,13 @@ def ff_block_fused_int8(h, sc, sh, gate, qp_in: dict, qp_out: dict,
         return ff_block_int8_reference(h, sc, sh, gate, qp_in, qp_out, eps)
     d = h.shape[-1]
     dff = qp_in["w_int8"].shape[0]
+    if "b" not in qp_in or "b" not in qp_out:
+        raise ValueError("ff_block_int8: the linears need a bias")
+    f32 = check_int8_rows("ff_block_int8", h, sc=sc, sh=sh, gate=gate, b_in=qp_in["b"],
+                          b_out=qp_out["b"])
     for name, v in (("sc", sc), ("sh", sh), ("gate", gate)):
-        check_tensor("ff_block_int8", name, v, (d,), torch.bfloat16)
+        check_tensor("ff_block_int8", name, v, (d,))
     for qp, n, k in ((qp_in, dff, d), (qp_out, d, dff)):
-        if "b" not in qp:
-            raise ValueError("ff_block_int8: the linears need a bias")
         check_int8_linear("ff_block_int8", h, qp["w_int8"], qp["w_scale"], qp["b"], n, k,
                           k_multiple=128, k_max=I8_CORE_MAX_K)
     cuda_build.require_cuda("ff_block_int8", h, sc, sh, gate)
@@ -152,7 +156,7 @@ def ff_block_fused_int8(h, sc, sh, gate, qp_in: dict, qp_out: dict,
         qp_in["w_int8"].data_ptr(), qp_in["w_scale"].data_ptr(), qp_in["b"].data_ptr(),
         qp_out["w_int8"].data_ptr(), qp_out["w_scale"].data_ptr(), qp_out["b"].data_ptr(),
         yq.data_ptr(), ys.data_ptr(), z.data_ptr(), zq.data_ptr(), zs.data_ptr(),
-        out.data_ptr(), m, d, dff, eps, dev.index, cuda_build.stream_of(h))
+        out.data_ptr(), m, d, dff, eps, f32, dev.index, cuda_build.stream_of(h))
     cuda_build.check(err, "ff_block_int8_fwd")
     launches_int8 += 1
     return out

@@ -12,19 +12,20 @@ replace _flash_prefix_folded_lse, _flash_prefix_dq_lsein, _flash_prefix_dq
 and _flash_prefix_dkv (10 runs on kernel A's TMA + wgmma attention core,
 csrc/attn_wgmma.cuh, 13 on the attention backward core,
 csrc/attn_bwd_wgmma.cuh; both need 16-byte-aligned contiguous operands,
-which the wrappers check); kernel 14 (csrc/flash_prefix_int8.cu) replaces
-_flash_prefix_folded_i8; kernel 18 (csrc/flash_prefix_rope.cu) replaces
-_flash_prefix_rope_call, and kernel 19 (csrc/flash_prefix_qkv.cu, the rope
-form of the attention core of csrc/attn_wgmma.cuh: strided 4-D maps over the
-fused qkv rows, the rotation in shared memory) replaces
-_flash_prefix_qkv_call. The sources' notes say
-what bounds each kernel on the card and how its design answers that.
-Kernels 18 and 19 serve only: the JAX package differentiates their XLA
-formulation, which is not ported yet, so the wrappers raise on an input that
-requires a gradient. Kernel 14 serves only as well (the JAX kernel has no
-vjp): flash_prefix_attention_i8 quantizes q, k (and v) per folded head in
-plain torch ops, as the JAX package leaves that pass to XLA, and launches the
-kernel on the int8 operands.
+which the wrappers check); kernel 14 (csrc/flash_prefix_int8.cu, the int8
+form of the attention core) replaces _flash_prefix_folded_i8; kernel 18
+(csrc/flash_prefix_rope.cu) replaces _flash_prefix_rope_call, and kernel 19
+(csrc/flash_prefix_qkv.cu) replaces _flash_prefix_qkv_call: both are the
+rope form of the attention core of csrc/attn_wgmma.cuh (strided 4-D maps
+over the split heads or the fused qkv rows, the rotation in shared memory).
+The sources' notes say what bounds each kernel on the card and how its
+design answers that. Kernels 18 and 19 serve only: the JAX package
+differentiates their XLA formulation, which is not ported yet, so the
+wrappers raise on an input that requires a gradient. Kernel 14 serves only
+as well (the JAX kernel has no vjp): flash_prefix_attention_i8 quantizes q,
+k (and v) per folded head with one kernel of its own (quantize_heads,
+csrc/quant_heads.cu; XLA in the JAX package) and launches kernel 14 on the
+int8 operands.
 
 Layouts: q/k/v/o and their gradients are folded [H, n, d]; lse (base 2, of
 the scores pre-scaled by log2(e)/sqrt(d), the JAX convention) and
@@ -49,7 +50,7 @@ from korean_f5_tts_tpu_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634
 MASK_VALUE = -1e37  # the JAX reference's finite mask logit
-I8_KEY_TILE = 64    # keys per tile of kernel 14: part of its arithmetic (p8 sees the running max)
+I8_KEY_TILE = 128   # keys per tile of kernel 14: part of its arithmetic (p8 sees the running max)
 
 # kernel launches by the wrappers (not plain calls)
 launches = 0           # kernel A, flash_prefix_folded on bf16 operands
@@ -59,6 +60,7 @@ launches_dq_lsein = 0  # kernel 11, flash_prefix_dq_lsein
 launches_dq = 0        # kernel 12, flash_prefix_dq
 launches_dkv = 0       # kernel 13, flash_prefix_dkv
 launches_i8 = 0        # kernel 14, flash_prefix_folded_i8
+launches_i8_quant = 0  # kernel 14's quantization pass, quantize_heads
 launches_rope = 0      # kernel 18, flash_prefix_rope_attention
 launches_qkv = 0       # kernel 19, flash_prefix_qkv_attention
 
@@ -214,7 +216,8 @@ def _quantize_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: bool
 
 def _v8_kernel_layout(v8: torch.Tensor) -> torch.Tensor:
     """[H, n, d] int8 -> kernel 14's v operand [H, d, n_pad]: keys contiguous
-    (the B operand of p8.v8), n padded with zeros to a multiple of 64, and
+    (the B operand of p8.v8), n padded with zeros to a multiple of the key
+    tile (I8_KEY_TILE), and
     inside every group of 32 keys, key 16h + 8j + 2t + e at slot
     16h + 4t + 2j + e: the order in which a thread's score accumulator holds
     the keys, so that p8 is packed into the A fragment without a shuffle."""
@@ -280,7 +283,8 @@ def flash_prefix_i8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The chunk is part of the arithmetic: p8 = rint(127 * exp2(s - m)) sees
     the running max m when its chunk is visited. With ck = the JAX call's bkv
-    this is the JAX kernel; with ck = 64 it is the CUDA kernel. pv_i8=False:
+    this is the JAX kernel; with ck = 128 it is the CUDA kernel (and the JAX
+    kernel at bkv = 128). pv_i8=False:
     only q.k^T is int8, and p is rounded to bf16 for the product with the
     unquantized v (the JAX kernel multiplies fp32 p by fp32 v there). A head
     with kv_lens 0 gives zeros.
@@ -505,6 +509,60 @@ def flash_prefix_qkv_attention(qkv, kv_lens, heads: int, cos, sin,
     return out
 
 
+def quantize_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: bool = True):
+    """Kernel 14's quantization pass: q, k, v [b, h, n, d] (views of any
+    strides) -> (q8, k8 [H, n, d] int8, v8 in _v8_kernel_layout [H, d, n_pad]
+    int8 with pv_i8 else v folded [H, n, d], c [H], sv [H] fp32), H = b * h,
+    with c and sv multiplied in the JAX wrapper's order.
+
+    CPU tensors take the plain version (_quantize_qkv, then
+    _v8_kernel_layout). CUDA tensors launch the pass (csrc/quant_heads.cu) or
+    raise: bf16, d = 64; a view whose rows are not contiguous or whose
+    strides are not 16-byte multiples is made contiguous first (the kernel
+    reads any other view in place). It is equal to the plain version to the
+    bit.
+    """
+    global launches_i8_quant
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("quantize_heads: q/k/v must share one [b, h, n, d] shape, got "
+                         f"{[tuple(t.shape) for t in (q, k, v)]}")
+    b, h, n, d = q.shape
+    if q.device.type == "cpu":
+        q8, k8, vq, c, sv = _quantize_qkv(q, k, v, pv_i8)
+        return q8, k8, (_v8_kernel_layout(vq) if pv_i8 else vq), c, sv
+    if d != 64 or any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise TypeError("quantize_heads: the kernel takes bf16 operands with head dim 64, got "
+                        f"{[str(t.dtype) for t in (q, k, v)]} with head dim {d}")
+
+    def readable(t):  # rows contiguous, 16-byte strides and base
+        ok = t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:3]) and \
+            t.data_ptr() % 16 == 0
+        return t if ok else t.contiguous()
+
+    q, k, v = (readable(t) for t in (q, k, v))
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("quantize_heads: q, k, v must be on one CUDA device, got "
+                         f"{[str(t.device) for t in (q, k, v)]}")
+    H = b * h
+    q8 = torch.empty((H, n, d), dtype=torch.int8, device=dev)
+    k8 = torch.empty_like(q8)
+    n_pad = -(-n // I8_KEY_TILE) * I8_KEY_TILE
+    v8 = torch.empty((H, d, n_pad), dtype=torch.int8, device=dev) if pv_i8 else None
+    c = torch.empty((H,), dtype=torch.float32, device=dev)
+    sv = torch.empty_like(c)
+    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    err = cuda_build.library().f5_quant_heads(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, q8.data_ptr(), k8.data_ptr(),
+        None if v8 is None else v8.data_ptr(), c.data_ptr(), sv.data_ptr(), b, h, n, n_pad,
+        int(pv_i8),
+        (1.0 / 127.0 ** 2) * LOG2E / math.sqrt(d), 1.0 / (127.0 * 127.0), dev.index,
+        cuda_build.stream_of(q))
+    cuda_build.check(err, "quant_heads")
+    launches_i8_quant += 1
+    return q8, k8, (v8 if pv_i8 else v.reshape(H, n, d).contiguous()), c, sv
+
+
 def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
                            c: torch.Tensor, sv: torch.Tensor, kv_lens: torch.Tensor,
                            pv_i8: bool = True) -> torch.Tensor:
@@ -569,15 +627,16 @@ def flash_prefix_attention_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     products: kernel 14 (JAX flash_prefix_attention_i8, :910-945).
 
     Inference only: per-head dynamic symmetric quantization of q, k (and v)
-    in plain torch ops, then the kernel. Accuracy is bounded by the 127-level
-    per-head quantization (about 1e-2 relative on the attention output):
+    by the pass quantize_heads, then the kernel. Accuracy is bounded by the
+    127-level per-head quantization (about 1e-2 relative on the attention output):
     measure the end-to-end mel deviation before enabling it, by the protocol
     of scripts/int8_quality.py. kv_lens: [b] or [1] int.
 
     CPU tensors and kernels=False take the plain version at the kernel's key
-    tile (I8_KEY_TILE). CUDA tensors launch the kernel or raise:
-    bf16 operands, d = 64, any n (the ragged last tile is masked); nothing
-    falls back to kernel A. Raises on an input that requires a gradient.
+    tile (I8_KEY_TILE). CUDA tensors launch the pass and the kernel (two
+    launches) or raise: bf16 operands, d = 64, any n (the ragged last tile is
+    masked); nothing falls back to kernel A. Raises on an input that requires
+    a gradient.
     """
     cuda_build.require_no_grad("flash_prefix_attention_i8", q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -589,9 +648,7 @@ def flash_prefix_attention_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
         raise TypeError("flash_prefix_attention_i8: the kernel takes bf16 operands with head "
                         f"dim 64, got {q.dtype} with head dim {q.shape[-1]}")
-    q8, k8, vq, c, sv = _quantize_qkv(q, k, v, pv_i8)
-    if pv_i8:
-        vq = _v8_kernel_layout(vq)
+    q8, k8, vq, c, sv = quantize_heads(q, k, v, pv_i8)
     return flash_prefix_folded_i8(q8, k8, vq, c, sv, lens_h, pv_i8=pv_i8).reshape(q.shape)
 
 

@@ -36,6 +36,7 @@ from korean_f5_tts_tpu_torch.ops import cuda_build
 from korean_f5_tts_tpu_torch.ops.qmatmul import (
     I8_CORE_MAX_K,
     check_int8_linear,
+    check_int8_rows,
     check_tensor,
     int8_product,
     quant_rows_reference,
@@ -184,9 +185,10 @@ def proj_gated_residual_int8_reference(a, h, gate, qp) -> torch.Tensor:
 
 
 def ln_mod_matmul_int8(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:
-    """Kernel 5 wrapper: h [..., d] bf16, sc/sh [d] bf16, qps a list of one
-    to three int8 linears of one shape ({w_int8 [n, d], w_scale [n], b [n]})
-    -> [..., n * len(qps)] bf16.
+    """Kernel 5 wrapper: h [..., d] bf16 or fp32, sc/sh [d] and the biases of
+    h's dtype (a mix raises TypeError), qps a list of one to three int8
+    linears of one shape ({w_int8 [n, d], w_scale [n] fp32, b [n]}) ->
+    [..., n * len(qps)] of h's dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any number of rows; d % 16 == 0, d <= 4096
@@ -199,11 +201,13 @@ def ln_mod_matmul_int8(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:
         raise ValueError(f"ln_mod_matmul_int8: 1 to {MAX_SEGMENTS} linears, got {len(qps)}")
     d = h.shape[-1]
     n = qps[0]["w_int8"].shape[0]
+    if any("b" not in p for p in qps):
+        raise ValueError("ln_mod_matmul_int8: the linears need a bias")
+    f32 = check_int8_rows("ln_mod_matmul_int8", h, sc=sc, sh=sh,
+                          **{f"b{i}": p["b"] for i, p in enumerate(qps)})
     for name, v in (("sc", sc), ("sh", sh)):
-        check_tensor("ln_mod_matmul_int8", name, v, (d,), torch.bfloat16)
+        check_tensor("ln_mod_matmul_int8", name, v, (d,))
     for p in qps:
-        if "b" not in p:
-            raise ValueError("ln_mod_matmul_int8: the linears need a bias")
         check_int8_linear("ln_mod_matmul_int8", h, p["w_int8"], p["w_scale"], p["b"], n, d,
                           k_multiple=16, k_max=I8_CORE_MAX_K)
     cuda_build.require_cuda("ln_mod_matmul_int8", h, sc, sh)
@@ -217,15 +221,16 @@ def ln_mod_matmul_int8(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:
         h.data_ptr(), sc.data_ptr(), sh.data_ptr(),
         *(p["w_int8"].data_ptr() for p in seg), *(p["w_scale"].data_ptr() for p in seg),
         *(p["b"].data_ptr() for p in seg), yq.data_ptr(), ys.data_ptr(), out.data_ptr(),
-        m, d, n, len(qps), eps, h.device.index, cuda_build.stream_of(h))
+        m, d, n, len(qps), eps, f32, h.device.index, cuda_build.stream_of(h))
     cuda_build.check(err, "ln_mod_matmul_int8_fwd")
     launches_ln_mod_int8 += 1
     return out
 
 
 def proj_gated_residual_int8(a, h, gate, qp) -> torch.Tensor:
-    """Kernel 6 wrapper: a [..., din] bf16, h [..., d] bf16, gate [d] bf16,
-    qp {w_int8 [d, din], w_scale [d], b [d]} -> [..., d] bf16.
+    """Kernel 6 wrapper: a [..., din] and h [..., d] bf16 or fp32, gate [d]
+    and the bias of their dtype (a mix raises TypeError), qp {w_int8 [d, din],
+    w_scale [d] fp32, b [d]} -> [..., d] of their dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any number of rows; din % 16 == 0, din <= 4096
@@ -240,10 +245,11 @@ def proj_gated_residual_int8(a, h, gate, qp) -> torch.Tensor:
                          f"{tuple(h.shape)} must have the same rows")
     if "b" not in qp:
         raise ValueError("proj_gated_residual_int8: the linear needs a bias")
-    check_tensor("proj_gated_residual_int8", "gate", gate, (d,), torch.bfloat16)
+    f32 = check_int8_rows("proj_gated_residual_int8", a, h=h, gate=gate, b=qp["b"])
+    check_tensor("proj_gated_residual_int8", "gate", gate, (d,))
     check_int8_linear("proj_gated_residual_int8", a, qp["w_int8"], qp["w_scale"], qp["b"],
                       d, din, k_multiple=16, k_max=I8_CORE_MAX_K)
-    cuda_build.require_cuda("proj_gated_residual_int8", a, h, gate, dtype=torch.bfloat16)
+    cuda_build.require_cuda("proj_gated_residual_int8", a, h, gate, dtype=a.dtype)
     m = a.numel() // din
     aq = torch.empty((m, din), dtype=torch.int8, device=a.device)
     as_ = torch.empty((m,), dtype=torch.float32, device=a.device)
@@ -252,7 +258,7 @@ def proj_gated_residual_int8(a, h, gate, qp) -> torch.Tensor:
     err = lib.f5_proj_gated_int8_fwd(
         a.data_ptr(), h.data_ptr(), gate.data_ptr(), qp["w_int8"].data_ptr(),
         qp["w_scale"].data_ptr(), qp["b"].data_ptr(), aq.data_ptr(), as_.data_ptr(),
-        out.data_ptr(), m, din, d, a.device.index, cuda_build.stream_of(a))
+        out.data_ptr(), m, din, d, f32, a.device.index, cuda_build.stream_of(a))
     cuda_build.check(err, "proj_gated_int8_fwd")
     launches_proj_gated_int8 += 1
     return out

@@ -75,30 +75,45 @@ def qmatmul_reference(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tens
     return y.to(x.dtype)
 
 
-def check_tensor(what: str, name: str, t: torch.Tensor, shape: tuple, dtype) -> None:
-    """ValueError on a wrong shape, TypeError on a wrong dtype."""
+def check_tensor(what: str, name: str, t: torch.Tensor, shape: tuple, dtype=None) -> None:
+    """ValueError on a wrong shape, TypeError on a wrong dtype (None: the
+    dtype is checked elsewhere)."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, want {tuple(shape)}")
-    if t.dtype != dtype:
+    if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
 
 
 I8_CORE_MAX_K = 4096  # kernels 4, 5, 6, 9 hold a row of K values in registers (gemm_int8.cuh)
+# the rows kernels 4, 5, 6, 9 take (the TPU kernels read theirs as fp32 and
+# write the input's dtype); their vectors (modulation, gate, biases) take the
+# rows' dtype
+INT8_ROW_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_int8_rows(what: str, x: torch.Tensor, **vectors: torch.Tensor) -> int:
+    """TypeError unless the rows x are bf16 or fp32 and every named vector
+    has their dtype (a mix is refused, as kernel B refuses one); returns the
+    kernels' f32 flag."""
+    if x.dtype not in INT8_ROW_DTYPES or any(v.dtype != x.dtype for v in vectors.values()):
+        raise TypeError(f"{what}: the rows and their vectors must be all bfloat16 or all "
+                        f"float32, got rows {x.dtype} and "
+                        + ", ".join(f"{k} {v.dtype}" for k, v in vectors.items()))
+    return int(x.dtype == torch.float32)
 
 
 def check_int8_linear(what: str, x, w_int8, w_scale, bias, n: int, k: int, *,
                       k_multiple: int, k_max: int | None) -> None:
     """Checks before a kernel launch: one int8 linear {w_int8 [n, k] int8,
-    w_scale [n] fp32, b [n] bf16 or None} on the CUDA device of the bf16
-    activations x, everything contiguous and 16-byte aligned; K a multiple of
-    k_multiple (16 for the int8 TMA core's rows; 128 for kernel 4's d and
-    dff) and at most k_max (None: no bound), N a multiple of 128."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what}: activations must be bfloat16, got {x.dtype}")
+    w_scale [n] fp32, b [n] or None} on the CUDA device of the activations x,
+    everything contiguous and 16-byte aligned; K a multiple of k_multiple (16
+    for the int8 TMA core's rows; 128 for kernel 4's d and dff) and at most
+    k_max (None: no bound), N a multiple of 128. The dtypes of x and the bias
+    are check_int8_rows' to check."""
     check_tensor(what, "w_int8", w_int8, (n, k), torch.int8)
     check_tensor(what, "w_scale", w_scale, (n,), torch.float32)
     if bias is not None:
-        check_tensor(what, "bias", bias, (n,), torch.bfloat16)
+        check_tensor(what, "bias", bias, (n,))
     if k % k_multiple or n % 128 or (k_max is not None and k > k_max):
         raise ValueError(f"{what}: K={k} must be a multiple of {k_multiple}"
                          f"{'' if k_max is None else f' and at most {k_max}'}, and N={n} a "
@@ -113,14 +128,16 @@ def check_qmatmul(x, w_int8, w_scale, bias, activation) -> None:
         raise ValueError(f"qmatmul: unknown activation {activation!r}")
     if x.dim() != 2:
         raise ValueError(f"qmatmul: x must be [M, K], got {tuple(x.shape)}")
+    check_int8_rows("qmatmul", x, **({} if bias is None else {"bias": bias}))
     check_int8_linear("qmatmul", x, w_int8, w_scale, bias, w_int8.shape[0], x.shape[1],
                       k_multiple=16, k_max=I8_CORE_MAX_K)
 
 
 def qmatmul(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
             bias: torch.Tensor | None = None, activation: str | None = None) -> torch.Tensor:
-    """Kernel 9 wrapper: x [M, K] bf16, w_int8 [N, K] int8, w_scale [N] fp32,
-    bias [N] bf16 or None, activation None or "gelu_tanh" -> [M, N] bf16.
+    """Kernel 9 wrapper: x [M, K] bf16 or fp32, w_int8 [N, K] int8, w_scale
+    [N] fp32, bias [N] of x's dtype or None, activation None or "gelu_tanh"
+    -> [M, N] of x's dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any M; K % 16 == 0 and K <= 4096 (the int8
@@ -140,8 +157,8 @@ def qmatmul(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
     err = lib.f5_qmatmul_fwd(
         x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
         None if bias is None else bias.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-        out.data_ptr(), m, k, n, int(activation == "gelu_tanh"), x.device.index,
-        cuda_build.stream_of(x))
+        out.data_ptr(), m, k, n, int(activation == "gelu_tanh"), int(x.dtype == torch.float32),
+        x.device.index, cuda_build.stream_of(x))
     cuda_build.check(err, "qmatmul_fwd")
     launches += 1
     return out

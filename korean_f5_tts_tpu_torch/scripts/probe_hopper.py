@@ -44,6 +44,8 @@ and the idioms of the attention core's rope form (kernel 19):
               fused qkv array through a strided 4-D map, inside the rows
               and hanging over an item's last row: the torch slice, then
               zeros, never the next item's rows;
+  tma_4d_heads, tma_4d_heads_edge  the same map over split heads [B, heads,
+              n, 64] (slot stride n * 64, row stride 64; kernel 18);
   rope_smem, rope_wgmma  q and K tiles landed by TMA (K's rows of the
               tables beside it), rotated in shared memory on the swizzled
               layout (the partners at chunks p and p ^ 4), fenced for the
@@ -58,6 +60,16 @@ and the idioms of the attention backward core (csrc/attn_bwd_wgmma.cuh):
               in registers, times a 64-row MN-major tile (dV += P^T.dO,
               dK += dS^T.Q), against the kernel's own scores rounded to bf16
               times the tile.
+and the idioms of the attention core's int8 form (kernel 14):
+  wgmma_qk_s8  S = q8.k8^T on wgmma m64n128k32 .s32.s8.s8 from one head's
+              [n, 64] int8 rows through 3-D maps whose 128-byte boxes TMA
+              fills past the 64-byte row (and past row n) with zeros;
+  wgmma_rs_s8  wgmma m64n64k32 .s32.s8.s8 with the 8-bit A operand from
+              registers in mma.m16n8k32's fragment layout, B k-major;
+  wgmma_pv_s8  p8 = rint(127 p) packed from the score accumulator's
+              positions into those fragments, times v8 in kernel 14's slot
+              permutation (_v8_kernel_layout): the product in natural key
+              order, exact.
 Unlike the Mosaic script it raises on a failure. It needs a CUDA card.
 """
 
@@ -66,7 +78,11 @@ from __future__ import annotations
 import torch
 
 from korean_f5_tts_tpu_torch.ops import cuda_build
-from korean_f5_tts_tpu_torch.ops.flash_prefix import rope_reference
+from korean_f5_tts_tpu_torch.ops.flash_prefix import (
+    _v8_kernel_layout,
+    _v8_natural_layout,
+    rope_reference,
+)
 from korean_f5_tts_tpu_torch.ops.fused_linears import proj_gated_residual_reference
 from korean_f5_tts_tpu_torch.utils.misc import require_device
 
@@ -139,8 +155,46 @@ def _probes(dev: torch.device) -> dict:
     for label, slot, row, item in (("tma_4d_qkv", 3, 8, 1), ("tma_4d_qkv_edge", 4, 72, 0)):
         raw = torch.empty((64, 64), dtype=torch.bfloat16, device=dev)
         cuda_build.check(lib.f5_probe_tma_4d(qkv.data_ptr(), raw.data_ptr(), 2, 100, 6, row,
-                                             slot, item, dev.index, stream), "probe_tma_4d")
+                                             slot, item, 0, dev.index, stream), "probe_tma_4d")
         out[label] = (raw, swizzled_box(qkv[item, :, 64 * slot:64 * slot + 64], row, 0), 0.0)
+    # the same over split heads [2, 3, 100, 64]: head 2 of item 1 inside its
+    # rows, head 0 of item 0 over its last row (zeros, not head 1's rows)
+    heads = rnd(2, 3, 100, 64)
+    for label, slot, row, item in (("tma_4d_heads", 2, 8, 1), ("tma_4d_heads_edge", 0, 72, 0)):
+        raw = torch.empty((64, 64), dtype=torch.bfloat16, device=dev)
+        cuda_build.check(lib.f5_probe_tma_4d(heads.data_ptr(), raw.data_ptr(), 2, 100, 3, row,
+                                             slot, item, 1, dev.index, stream), "probe_tma_4d")
+        out[label] = (raw, swizzled_box(heads[item, slot], row, 0), 0.0)
+
+    # the int8 attention core: one head of n = 100 rows, q rows 40..103 (past
+    # 100 zeros), K rows 0..127 (past 100 zeros); A read as it is, and p8
+    # packed from probabilities (zeros as masked keys give) against v8 in the
+    # kernel's slot order
+    n, q0 = 100, 40
+    q8, k8 = rnd_i8(1, n, 64).clamp_(-127, 127), rnd_i8(1, n, 64).clamp_(-127, 127)
+    v_nat = rnd_i8(1, 128, 64).clamp_(-127, 127)
+    v8k = _v8_kernel_layout(v_nat).contiguous()
+    a8 = rnd_i8(64, 128)
+    p_in = torch.rand((64, 128), generator=gen, device=dev)
+    p_in[:, 100:] = 0
+    p_in[:, 7] = 1.0  # the row max's own p
+    s_qk = torch.empty((64, 128), dtype=torch.int32, device=dev)
+    q_box = torch.zeros((64, 64), dtype=torch.float64, device=dev)
+    q_box[:n - q0] = q8[0, q0:].double()
+    k_box = torch.zeros((128, 64), dtype=torch.float64, device=dev)
+    k_box[:n] = k8[0].double()
+    v_back = _v8_natural_layout(v8k, 128)[0].double()
+    # mode 0 multiplies the slots as they lie (A's k index is v8's slot), mode 1
+    # must undo the permutation: p8 in natural key order times v
+    for label, mode, want in (("wgmma_rs_s8", 0, a8.double() @ v8k[0].double().t()),
+                              ("wgmma_pv_s8", 1, torch.round(p_in * 127.0).double() @ v_back)):
+        pv = torch.empty((64, 64), dtype=torch.int32, device=dev)
+        cuda_build.check(lib.f5_probe_attn_i8(q8.data_ptr(), k8.data_ptr(), v8k.data_ptr(),
+                                              a8.data_ptr(), p_in.data_ptr(), mode, n, q0,
+                                              s_qk.data_ptr(), pv.data_ptr(), dev.index, stream),
+                         "probe_attn_i8")
+        out[label] = (pv, want, 0.0)
+    out["wgmma_qk_s8"] = (s_qk, q_box @ k_box.t(), 0.0)
 
     # the rotation in shared memory on TMA-landed swizzled tiles: q rows
     # 40..103 and K rows 0..127 of one head of a [1, 100, 3 * 64] qkv (rows past

@@ -556,10 +556,12 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                        help="cast the weights to this dtype (the int8 and opt-in kernels take bfloat16; "
-                             "default: bfloat16 on cuda, float32 on cpu)")
+                        help="cast the weights to this dtype (the opt-in attn_path kernels take "
+                             "bfloat16, the int8 ones either; default: bfloat16 on cuda, float32 "
+                             "on cpu)")
     parser.add_argument("--quantize", action="store_true",
-                        help="int8 block linears (load_model(..., quantize=True))")
+                        help="int8 block linears (load_model(..., quantize=True)): kernels 4, 5, "
+                             "6, 9 on rows of the compute dtype")
     parser.add_argument("--attn_path", default="default", choices=list(ATTN_PATHS),
                         help="kernels of the attention half (ops/attention.py)")
     parser.add_argument("--attn_int8", default=None, choices=["qk", "qkpv"],

@@ -119,7 +119,8 @@ def test_v8_kernel_layout_is_the_documented_permutation(n):
     rng = _rng(2)
     v8 = t(rng.integers(-127, 128, (3, n, 64)).astype(np.int8))
     vk = flash_prefix._v8_kernel_layout(v8)
-    n_pad = -(-n // 64) * 64
+    tile = flash_prefix.I8_KEY_TILE  # n is padded to the kernel's key tile
+    n_pad = -(-n // tile) * tile
     assert vk.shape == (3, 64, n_pad) and vk.is_contiguous()
     torch.testing.assert_close(flash_prefix._v8_natural_layout(vk, n), v8, rtol=0, atol=0)
     assert flash_prefix._v8_natural_layout(vk, n_pad)[:, n:].abs().sum().item() == 0  # zero pad
@@ -181,12 +182,13 @@ def test_the_key_chunk_is_part_of_the_arithmetic():
     q, k, v = (t(rng.standard_normal((2, 256, 64)).astype(np.float32) * 1.5).to(torch.bfloat16)
                for _ in range(3))
     lens = torch.tensor([256, 200])
-    a = flash_prefix.flash_prefix_i8_reference(q, k, v, lens, ck=64).float()
-    b = flash_prefix.flash_prefix_i8_reference(q, k, v, lens, ck=256).float()
-    assert not torch.equal(a, b)
-    assert rel_err(a.numpy(), b.numpy()) < 5e-2
+    a = flash_prefix.flash_prefix_i8_reference(q, k, v, lens, ck=128).float()
+    for other in (64, 256):
+        b = flash_prefix.flash_prefix_i8_reference(q, k, v, lens, ck=other).float()
+        assert not torch.equal(a, b)
+        assert rel_err(a.numpy(), b.numpy()) < 5e-2
     default = flash_prefix.flash_prefix_i8_reference(q, k, v, lens).float()
-    assert flash_prefix.I8_KEY_TILE == 64 and torch.equal(default, a)
+    assert flash_prefix.I8_KEY_TILE == 128 and torch.equal(default, a)
 
 
 @pytest.mark.parametrize("mode", ["qkpv", "qk"])

@@ -719,8 +719,10 @@ def test_rope_and_qkv_attention_kernels(dev, n, lens, pe):
     want = flash_prefix.flash_prefix_rope_reference(q, k, v, kv, cos, sin, pe)
     _close(got18, want)
     _close(got19, flash_prefix.flash_prefix_qkv_reference(qkv, kv, heads, cos, sin, pe))
-    # 18's loop and 19's core, two layouts: the same function
-    _close(got19, got18.transpose(1, 2).reshape(len(lens), n, heads * 64))
+    # one instantiation of the attention core's rope form over two layouts:
+    # the same values give the same bits
+    torch.testing.assert_close(got19, got18.transpose(1, 2).reshape(len(lens), n, heads * 64),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("B,heads,n,lens,pe", [
@@ -758,6 +760,46 @@ def test_qkv_attention_on_the_attention_core(dev, B, heads, n, lens, pe):
                                                 kv[live])
     torch.testing.assert_close(got[live], via_a.transpose(1, 2).reshape(len(live), n, -1),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,heads,n,lens,pe", [
+    (2, 16, 1536, [1376, 1536], None),  # the main shape
+    (1, 2, 1, [1], 1),
+    (3, 2, 129, [0, 127, 129], 1),
+    (3, 16, 193, [128, 1, 193], None),
+    (2, 3, 1000, [191, 192], 2),
+])
+def test_rope_attention_on_the_attention_core(dev, B, heads, n, lens, pe):
+    """Kernel 18 on the rope form of the attention core over split heads: the
+    plain version, kernel A on the same q, k rotated by torch, and kernel 19
+    on the fused rows the heads were split from (both to the bit). K and V
+    rows past kv_len hold +-1e4; an item with kv_len 0 gives zeros."""
+    gen = torch.Generator(device=dev).manual_seed(70 + n)
+    qkv = torch.randn((B, n, 3 * heads * 64), generator=gen, device=dev)
+    for i, length in enumerate(lens):
+        qkv[i, length:, heads * 64:] = 1e4 * torch.sign(qkv[i, length:, heads * 64:])
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = (t.contiguous() for t in flash_prefix.qkv_unpack(qkv, heads))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cos, sin = (t.to(torch.bfloat16) for t in _rope_tables(dev, n))
+    before = flash_prefix.launches_rope
+    got = flash_prefix.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe)
+    assert flash_prefix.launches_rope == before + 1
+    live = [i for i, length in enumerate(lens) if length > 0]
+    for i, length in enumerate(lens):
+        if length == 0:
+            assert got[i].abs().max().item() == 0
+    want = flash_prefix.flash_prefix_rope_reference(q[live], k[live], v[live], kv[live], cos,
+                                                    sin, pe)
+    _close(got[live], want)
+    assert _rel(got[live], want) <= 1e-2
+    via_a = flash_prefix.flash_prefix_attention(flash_prefix.rope_reference(q[live], cos, sin, pe),
+                                                flash_prefix.rope_reference(k[live], cos, sin, pe),
+                                                v[live], kv[live])
+    torch.testing.assert_close(got[live], via_a, rtol=0, atol=0)
+    got19 = flash_prefix.flash_prefix_qkv_attention(qkv, kv, heads, cos, sin, pe)
+    torch.testing.assert_close(got.transpose(1, 2).reshape(B, n, heads * 64), got19, rtol=0,
+                               atol=0)
 
 
 def test_items_without_a_valid_key_are_zero_and_lens_broadcast(dev):
@@ -814,7 +856,8 @@ def test_probe_hopper_idioms(dev):
                          "tile_width_256", "tma_swizzle_i8", "tma_swizzle_i8_edge",
                          "wgmma_s8_n128", "wgmma_s8_n256", "tma_3d", "tma_3d_edge",
                          "wgmma_pv", "wgmma_ss_n64", "wgmma_bwd_grad", "tma_4d_qkv",
-                         "tma_4d_qkv_edge", "rope_smem", "rope_wgmma"}
+                         "tma_4d_qkv_edge", "rope_smem", "rope_wgmma", "tma_4d_heads",
+                         "tma_4d_heads_edge", "wgmma_qk_s8", "wgmma_rs_s8", "wgmma_pv_s8"}
 
 
 # --- kernel 14: int8 prefix attention --------------------------------------------
@@ -891,3 +934,171 @@ def test_int8_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         flash_prefix.flash_prefix_folded_i8(q8, k8, v8, c, sv, kv)
     zeros = flash_prefix.flash_prefix_attention_i8(q, q, q, torch.zeros_like(lens))
     assert zeros.abs().max().item() == 0  # no valid key: zeros, as kernels A, 18, 19
+
+
+@pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1000, 1536])
+def test_quantization_pass_equals_its_plain_version(dev, n, views):
+    """Kernel 14's quantization pass (csrc/quant_heads.cu) against
+    _quantize_qkv + _v8_kernel_layout to the bit: q8, k8, v8 in the kernel's
+    layout (zero past n), c and sv; read from head views of the fused qkv
+    rows or from contiguous heads. One launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(80 + n)
+    B, heads = 2, 3
+    qkv = torch.randn((B, n, 3 * heads * 64), generator=gen, device=dev)
+    qkv[0, :, 64:128] *= 9.0  # a head of another scale
+    qkv = qkv.to(torch.bfloat16)
+    parts = flash_prefix.qkv_unpack(qkv, heads)
+    if not views:
+        parts = tuple(p.contiguous() for p in parts)
+    for pv_i8 in (True, False):
+        before = flash_prefix.launches_i8_quant
+        got = flash_prefix.quantize_heads(*parts, pv_i8)
+        assert flash_prefix.launches_i8_quant == before + 1
+        q8, k8, vq, c, sv = flash_prefix._quantize_qkv(*parts, pv_i8)
+        want = (q8, k8, flash_prefix._v8_kernel_layout(vq) if pv_i8 else vq, c, sv)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,heads,n,lens,past", [
+    (2, 16, 1536, [1376, 1376], False),  # the main shape
+    (1, 2, 1, [1], False),
+    (3, 2, 127, [0, 1, 127], True),
+    (3, 16, 128, [127, 128, 1], False),
+    (2, 2, 129, [128, 129], True),
+    (3, 2, 193, [193, 1, 129], True),
+    (2, 2, 1000, [0, 1000], False),
+])
+def test_int8_attention_on_the_attention_core(dev, B, heads, n, lens, past):
+    """Kernel 14 on the attention core's int8 form, both modes, after its
+    quantization pass (one launch each a call), against the plain version at
+    the kernel's key tile: the integer products are exact, so only p8 ties
+    and the last bf16 rounding differ ("qkpv"), or the tensor core's sum of
+    bf16(p).v ("qk"). K and V rows past kv_len at +-1e4 where `past` says;
+    an item with kv_len 0 gives zeros."""
+    gen = torch.Generator(device=dev).manual_seed(90 + n)
+    q, k, v = (torch.randn((B, heads, n, 64), generator=gen, device=dev) for _ in range(3))
+    for i, length in enumerate(lens if past else ()):
+        for x in (k, v):
+            x[i, :, length:] = 1e4 * torch.sign(x[i, :, length:])
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    lens_h = kv.repeat_interleave(heads)
+    live = lens_h > 0
+    for pv_i8 in (True, False):
+        before = flash_prefix.launches_i8, flash_prefix.launches_i8_quant
+        got = flash_prefix.flash_prefix_attention_i8(q, k, v, kv, pv_i8=pv_i8)
+        assert (flash_prefix.launches_i8, flash_prefix.launches_i8_quant) == (
+            before[0] + 1, before[1] + 1)
+        got = got.reshape(B * heads, n, 64)
+        if (~live).any():
+            assert got[~live].abs().max().item() == 0
+        want = flash_prefix.flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=pv_i8)
+        _close(got[live], want[live])
+        assert _rel(got[live], want[live]) < (2e-3 if pv_i8 else 5e-3)
+
+
+def test_int8_kernels_on_fp32_rows(dev):
+    """Kernels 4, 5, 6, 9 on fp32 rows with fp32 vectors (an fp32 model with
+    int8 weights, as the JAX kernels run it): fp32 out, one launch each, 6
+    and 9 equal to their plain versions (the same int8 values, an exact
+    product, the same fp32 epilogue, no rounding after it), 4 and 5 within
+    2e-4 (tie flips of the fp32 LN and GELU outputs, one rounding of the
+    output), a bound that the plain output rounded through bf16 (an epilogue
+    with a bf16 step) fails."""
+    gen = torch.Generator(device=dev).manual_seed(100)
+
+    def qp32(n, k):
+        qp = _qp(dev, gen, n, k)
+        return {**qp, "b": qp["b"].float()}
+
+    from korean_f5_tts_tpu_torch.ops import launch_counts
+
+    h = torch.randn((1, 300, 256), generator=gen, device=dev)
+    h[0, 3] = 0.0
+    h[0, 7, 5] = 300.0
+    sc, sh, gate = (torch.rand((256,), generator=gen, device=dev) - 0.5 for _ in range(3))
+    qin, qout, qp6 = qp32(512, 256), qp32(256, 512), qp32(256, 256)
+    qps = [qp32(128, 256) for _ in range(3)]
+    q9 = (qps[0]["w_int8"], qps[0]["w_scale"], qps[0]["b"])
+    cases = {  # name: (kernel, plain version, exact)
+        "ff_block_int8": (lambda: ff_block.ff_block_fused_int8(h, sc, sh, gate, qin, qout),
+                          lambda: ff_block.ff_block_int8_reference(h, sc, sh, gate, qin, qout),
+                          False),
+        "ln_mod_matmul_int8": (lambda: fused_linears.ln_mod_matmul_int8(h, sc, sh, qps),
+                               lambda: fused_linears.ln_mod_matmul_int8_reference(h, sc, sh, qps),
+                               False),
+        "proj_gated_residual_int8": (
+            lambda: fused_linears.proj_gated_residual_int8(h, h, gate, qp6),
+            lambda: fused_linears.proj_gated_residual_int8_reference(h, h, gate, qp6), True),
+        "qmatmul": (lambda: qmatmul.qmatmul(h[0], *q9),
+                    lambda: qmatmul.qmatmul_reference(h[0], *q9), True),
+    }
+    for name, (fn, plain, exact) in cases.items():
+        before = launch_counts()[name]
+        got = fn()
+        assert launch_counts()[name] == before + 1
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        want = plain()
+        if exact:
+            assert torch.equal(got, want), name
+        else:
+            assert _rel(got, want) < 2e-4, name
+            assert _rel(want.bfloat16(), want) > 2e-4, name  # the bound sees a bf16 step
+
+
+def test_int8_wrappers_refuse_a_mix_of_fp32_and_bf16(dev):
+    """The rows and their vectors are all bf16 or all fp32, as kernel B asks."""
+    gen = torch.Generator(device=dev).manual_seed(101)
+    h = torch.randn((1, 64, 256), generator=gen, device=dev)
+    vec = _bf16((256,), dev, gen)
+    qp = _qp(dev, gen, 256, 256)  # a bf16 bias
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        fused_linears.ln_mod_matmul_int8(h, vec, vec, [qp])
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        fused_linears.proj_gated_residual_int8(h, h, vec.float(), qp)
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        ff_block.ff_block_fused_int8(h, vec, vec, vec, _qp(dev, gen, 512, 256),
+                                     _qp(dev, gen, 256, 512))
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        qmatmul.qmatmul(h[0], qp["w_int8"], qp["w_scale"], qp["b"])
+    with pytest.raises(TypeError):
+        qmatmul.qmatmul(h[0].half(), qp["w_int8"], qp["w_scale"])
+
+
+def test_offline_entry_points_take_int8_weights_on_fp32_rows(dev, tmp_path):
+    """F5TTS(quantize=True) and the CLI's --quantize with their default fp32
+    weights (full width, seeded random weights): kernels 5, 6, 4 and the fp32
+    forms of A and C, the bf16 forms unmoved."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch import api
+    from korean_f5_tts_tpu_torch.infer import cli
+    from korean_f5_tts_tpu_torch.models.dit import redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    ref = str(tmp_path / "ref.wav")
+    ts = np.arange(2 * 24_000) / 24_000
+    wavfile.write(ref, 24_000, (0.3 * np.sin(2 * np.pi * (150 + 400 * ts) * ts) * 32767)
+                  .astype(np.int16))
+    tts = api.F5TTS(quantize=True)
+    redraw_zero_init(tts.ema_model.params, seed=1)
+    reset_launch_counts()
+    wav, sr, spec = tts.infer(ref, "A reference.", "Say this, please.", nfe_step=2, seed=1,
+                              show_info=lambda m: None)
+    counts = launch_counts()
+    assert sr == 24_000 and np.isfinite(wav).all() and np.abs(wav).max() > 0
+    per = 2 * 22
+    assert counts["ln_mod_matmul_int8"] == counts["proj_gated_residual_int8"] == per
+    assert counts["ff_block_int8"] == counts["flash_prefix_f32"] == per
+    assert counts["grouped_conv_f32"] == 2 * 2
+    assert counts["flash_prefix"] == counts["ff_block"] == counts["ff_block_f32"] == 0
+    reset_launch_counts()
+    cli.main(["-r", ref, "-s", "A reference.", "-t", "Say this, please.", "-o", str(tmp_path),
+              "-w", "cli_int8.wav", "--nfe_step", "2", "--seed", "1", "--quantize"])
+    counts = launch_counts()
+    assert counts["ff_block_int8"] == counts["flash_prefix_f32"] == per
+    assert counts["ff_block_f32"] == counts["flash_prefix"] == 0
+    assert wavfile.read(tmp_path / "cli_int8.wav")[1].size > 0
