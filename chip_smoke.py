@@ -8,17 +8,25 @@ Phases (any failure raises and exits non-zero):
      korean_f5_tts_tpu_torch/csrc and print the build time;
   2. hold each of the sixteen kernels, kernel 14's quantization pass and
      the fp32 forms of A, B, C (what
-     the offline entry points run by default; bound: 67 TFLOP/s, fp32
+     the offline entry points run by default) and of 10-13 (what fp32
+     training runs; bound: 67 TFLOP/s, fp32
      outside the tensor cores, since their products are FFMA) (bf16: A, B,
      C; int8: 9, 5, 6, 4;
      training: 10, 11, 12, 13, with PyTorch's flash attention forward and
      backward as the library yardsticks of 10 and of 11 + 13, 10 on the
-     attention core and 13 on the attention backward core at the training
-     shape, a ragged case and the new tiles' edges (n 100, 200, 301; kv_len
-     0, 1, 63-65, 127-129, n; keys past kv_len at +-1e4), 10 launched twice
+     attention core and 11 and 13 on the attention backward core at the
+     training shape, a ragged case and the tiles' edges (n 1, 63-65, 100,
+     127-129, 200, 301; kv_len 0, 1, 63-65, 127-129, n; keys past kv_len at +-1e4),
+     10 launched twice
      on the same inputs (the remat recompute: equal to the bit), a head with
-     kv_len 0 held to zero o, lse 0 and zero dk, dv; the opt-in attention
-     paths: 7, 8, 18, 19;
+     kv_len 0 held to zero o, lse 0 and zero dk, dv; the fp32 forms of 10-13 at the same edges within 1e-5 (o,
+     lse) and 1e-4 (dq, dk, dv) with TF32 off, a control with TF32 on that
+     must fail those bounds, and PyTorch's memory-efficient attention on fp32
+     (forward with its logsumexp, backward) as their yardstick, its error
+     printed beside its time; C on TMA + wgmma at N 1, 15-17, 31, 127-129,
+     1376, 1536, B 1-3, without bias, without Mish, for two weight draws,
+     F.conv1d(groups=16) with bias (and + Mish) in bf16 timed beside it;
+     the opt-in attention paths: 7, 8, 18, 19;
      A at d = 64 on the TMA + wgmma attention core at n = 1, 127, 128, 129,
      1000, 1536, mixed kv_lens with 0 (zeros) and n, H = 1 and keys past
      kv_len at +-1e4, with its TFLOP/s, share of the bound, the core at 192
@@ -73,14 +81,23 @@ Phases (any failure raises and exits non-zero):
      activation checkpointing, AdaLN-zero layers re-drawn): one step's loss
      and whole gradient with kernels against the plain versions, with the
      exact launch counts of a step; the attention backward's own entry point
-     (flash_prefix_attention_bwd without a forward lse: kernels A, 12, 13);
+     (flash_prefix_attention_bwd without a forward lse: kernels A, 12, 13)
+     on bf16 and on fp32 operands; the fp32 step (compute_dtype None, the
+     default of train_step and the Trainer): its loss and whole gradient with
+     the fp32 forms against the plain versions at depth 22 (exact launch
+     counts, bound 1e-4), and at depth 2 against the same step on the CPU
+     with the same draws, for three weight and draw seeds (bound 1e-4; the
+     card with PyTorch's own TF32 defaults, conv-pos convolving in TF32,
+     and with cuDNN's TF32 off printed beside it);
      Trainer.train on an in-memory dataset of seeded mels packed to 8 x 1280
      frames, 2 updates, a checkpoint, a resume and 2 more (launches counted
-     over all 4), at full width and a depth of 4 blocks (at depth 22 the
+     over all 4), in bf16 compute and again with the Trainer's own default
+     (fp32), at full width and a depth of 4 blocks (at depth 22 the
      5 GiB checkpoint, written twice and read once, took 98 of the script's
      262 s on an H100); then bench_train's protocol at batch 8 x 1280 (1 warm-up + 8
-     steps) with kernels and plain, at depth 22; one step's device busy
-     time under the profiler;
+     steps) with kernels and plain in bf16 and with kernels in fp32, at
+     depth 22; one bf16 and one fp32 step's device busy time under the
+     profiler;
   7. bf16, for each opt-in attention path (attn_path "linear_fused":
      kernels 7, A, 8; "rope_in_kernel": kernel 18; "qkv_kernel": kernel 19):
      serve one HTTP request alone and two as a batch with exact launch
@@ -123,9 +140,10 @@ Phases (any failure raises and exits non-zero):
      module's own command line measures 26); (f)
      edit_speech with one edit span (the kept frames are the input mel) and
      batch_generate of two rows.
-Serving, the training step, bench_train and offline inference run the full
-depth of 22 blocks; only the Trainer run of phase 6 is cut to 4 (nothing
-else was cut when phase 9 was added). The line before the last is a JSON
+Serving, the training steps, bench_train and offline inference run the full
+depth of 22 blocks; only the Trainer runs of phase 6 are cut to 4 and the
+fp32 step against the CPU to 2 (nothing else was cut when phases 9 and 6's
+fp32 path were added). The line before the last is a JSON
 object with the kernels' numbers (launches: the serving runs of phases 3, 7
 and 9(a), the backward entry point, the Trainer's 4 updates and phase 8); the
 last line is {"ok": true, "device": {...}}.
@@ -150,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -180,6 +199,10 @@ REPLACES = {
     "flash_prefix_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:558",
     "ff_block_f32": "korean_f5_tts_tpu/ops/ff_block.py:40",
     "grouped_conv_f32": "korean_f5_tts_tpu/ops/grouped_conv.py:69",
+    "flash_prefix_lse_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:612",
+    "flash_prefix_dq_lsein_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:1033",
+    "flash_prefix_dq_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:978",
+    "flash_prefix_dkv_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:1151",
 }
 SOURCES = {
     "flash_prefix": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
@@ -190,8 +213,8 @@ SOURCES = {
     "proj_gated_residual_int8": "korean_f5_tts_tpu_torch/csrc/fused_linears_int8.cu",
     "qmatmul": "korean_f5_tts_tpu_torch/csrc/gemm_int8.cuh",
     "flash_prefix_lse": "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh",
-    **dict.fromkeys(("flash_prefix_dq_lsein", "flash_prefix_dq"),
-                    "korean_f5_tts_tpu_torch/csrc/flash_prefix_train.cu"),
+    "flash_prefix_dq_lsein": "korean_f5_tts_tpu_torch/csrc/attn_bwd_wgmma.cuh",
+    "flash_prefix_dq": "korean_f5_tts_tpu_torch/csrc/flash_prefix_train.cu",
     "flash_prefix_dkv": "korean_f5_tts_tpu_torch/csrc/attn_bwd_wgmma.cuh",
     **dict.fromkeys(("ln_mod_matmul", "proj_gated_residual"),
                     "korean_f5_tts_tpu_torch/csrc/fused_linears.cu"),
@@ -202,11 +225,19 @@ SOURCES = {
     "flash_prefix_f32": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
     "ff_block_f32": "korean_f5_tts_tpu_torch/csrc/ff_block.cu",
     "grouped_conv_f32": "korean_f5_tts_tpu_torch/csrc/grouped_conv.cu",
+    "flash_prefix_lse_f32": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
+    **dict.fromkeys(("flash_prefix_dq_lsein_f32", "flash_prefix_dq_f32", "flash_prefix_dkv_f32"),
+                    "korean_f5_tts_tpu_torch/csrc/flash_prefix_train_f32.cu"),
 }
 # published peaks of the H100 SXM (dense): the roofline a kernel's time is held against
 # ("fp32": outside the tensor cores; the fp32 forms of A, B, C multiply with FFMA)
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 F32_REL = 1e-4  # fp32 forms against their plain versions: fp32 sums in another order
+# the fp32 forms of 10-13: o and lse within 1e-5, the gradients within 1e-4
+# (relative L2); a single-pass TF32 product (10 mantissa bits) would read
+# ~1e-3 and fails both, which check_train_attention_f32 shows on the plain
+# version with TF32 on
+F32_ATTN_REL, F32_GRAD_REL = 1e-5, 1e-4
 PEAK_BYTES = 3.35e12
 # int8 kernels against their plain versions: both quantize the same values
 # and sum the integer products exactly, but where the quantized value is
@@ -318,11 +349,14 @@ def bound(ops: float, io, kind: str = "bf16") -> dict:
 
 
 def compare(name: str, got, want, rel_bound: float,
-            exact: bool = False) -> tuple[float, float]:
+            exact: bool = False, zero: bool = False) -> tuple[float, float]:
     """max-abs and relative-L2 error of got vs want (fp32), checked against
     max_abs <= 2**-6 * max(1, max|want|) (4 bf16 ulps at the output's scale)
     and rel <= rel_bound, or against max_abs == 0 when exact; also prints how
-    many elements differ by more than 4 bf16 ulps of their own value."""
+    many elements differ by more than 4 bf16 ulps of their own value. zero:
+    the function is identically zero on these inputs (dq and dk at n = 1,
+    where the one key gives dS = P (dP - D) = 0), so both sides hold rounding
+    noise and only |got| <= 1e-5 is held."""
     import torch
 
     g, w = got.float(), want.float()
@@ -338,6 +372,10 @@ def compare(name: str, got, want, rel_bound: float,
     if exact:
         abs_bound = 0.0
     ok = max_abs <= abs_bound and rel <= rel_bound
+    if zero:
+        rel_bound, abs_bound = math.inf, 1e-5
+        max_abs = g.abs().max().item()
+        ok = max_abs <= abs_bound
     print(f"  {name}: max_abs_err {max_abs:.3e} (bound {abs_bound:.3e}) "
           f"rel_err {rel:.3e} (bound {rel_bound:.1e}), {past} of {w.numel()} elements "
           f"past 4 bf16 ulps {'ok' if ok else 'FAIL'}")
@@ -511,35 +549,57 @@ def check_ff(gen, dev) -> dict:
     return {"max_abs_err": max_abs, **times}
 
 
+# kernel C's edges: the 128-row block and its window (N, items), and the
+# conv-pos layers' two weight draws
+CONV_EDGES = ((1, 1), (1, 15), (2, 16), (3, 17), (1, 31), (2, 127), (1, 128), (3, 129),
+              (2, 1376), (1, 1536))
+
+
 def check_conv(gen, dev) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from korean_f5_tts_tpu_torch.ops import grouped_conv as gc
 
-    def inputs(B, N, C=1024, k=31, groups=16):
+    def weights(C=1024, k=31, groups=16):
         bound = (C // groups * k) ** -0.5
-        x = torch.randn((B, N, C), generator=gen, device=dev).to(torch.bfloat16)
         w = ((torch.rand((k, C // groups, C), generator=gen, device=dev) * 2 - 1)
              * bound).to(torch.bfloat16)
         b = ((torch.rand((C,), generator=gen, device=dev) * 2 - 1) * bound).to(torch.bfloat16)
-        return x, w, b
+        return w, b
 
-    print("kernel C, grouped conv1d + Mish (bf16, rel bound 5e-3: fp32 sums in "
-          "another order)")
-    x, w, b = inputs(2, 1536)
+    def act(B, N, C=1024):
+        return torch.randn((B, N, C), generator=gen, device=dev).to(torch.bfloat16)
+
+    print("kernel C, grouped conv1d + Mish on TMA + wgmma (bf16, rel bound 5e-3: fp32 sums "
+          "in another order)")
+    layers = [weights(), weights()]  # ConvPositionEmbedding's two convolutions
+    x = act(2, 1536)
+    w, b = layers[0]
     max_abs, _ = compare("grouped_conv main B=2 N=1536 C=1024 k=31",
                          gc.grouped_conv1d_mish(x, w, b, 16),
                          gc.grouped_conv1d_mish_reference(x, w, b, 16), 5e-3)
-    xr, wr, br = inputs(1, 1000)
-    compare("grouped_conv ragged N=1000", gc.grouped_conv1d_mish(xr, wr, br, 16),
-            gc.grouped_conv1d_mish_reference(xr, wr, br, 16), 5e-3)
-    compare("grouped_conv no bias, no mish", gc.grouped_conv1d_mish(xr, wr, None, 16, False),
-            gc.grouped_conv1d_mish_reference(xr, wr, None, 16, False), 5e-3)
-    ms = cuda_time_ms(lambda: gc.grouped_conv1d_mish(x, w, b, 16))
-    plain_ms = cuda_time_ms(lambda: gc.grouped_conv1d_mish_reference(x, w, b, 16))
-    print(f"  time at main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    bd = bound(2.0 * 2 * 1536 * 1024 * (1024 // 16) * 31, (x, w, b, x))
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bd}
+    for i, (wl, bl) in enumerate(layers):
+        for B, N in CONV_EDGES:
+            xe = act(B, N)
+            for bias, mish in ((True, True), (False, True), (True, False)):
+                be = bl if bias else None
+                compare(f"grouped_conv layer {i} B={B} N={N} bias={bias} mish={mish}",
+                        gc.grouped_conv1d_mish(xe, wl, be, 16, mish),
+                        gc.grouped_conv1d_mish_reference(xe, wl, be, 16, mish), 5e-3)
+    out = {"max_abs_err": max_abs,
+           **_timed(lambda: gc.grouped_conv1d_mish(x, w, b, 16),
+                    lambda: gc.grouped_conv1d_mish_reference(x, w, b, 16),
+                    2.0 * 2 * 1536 * 1024 * (1024 // 16) * 31, (x, w, b, x), kind="bf16")}
+    # no one PyTorch call computes conv + bias + Mish; printed beside the kernel:
+    # cuDNN's grouped conv with its bias in bf16, then Mish
+    wt = w.permute(2, 1, 0).contiguous()
+    xt = x.transpose(1, 2)
+    conv = lambda: F.conv1d(xt, wt, b, padding=15, groups=16)
+    composition = lambda: F.mish(conv())
+    print(f"  F.conv1d(groups=16) with bias, bf16: {cuda_time_ms(conv):.4f} ms; + Mish: "
+          f"{cuda_time_ms(composition):.4f} ms (kernel {out['ms']:.4f} ms)")
+    return out
 
 
 def check_fp32_forms(gen, dev) -> dict[str, dict]:
@@ -986,9 +1046,18 @@ def check_int8_fp32_rows(gen, dev) -> None:
         print(f"  kernel {name} on fp32 rows at the main shape: {ms:.4f} ms")
 
 
-# the tiles' edges of kernels 10 and 13: (n, kv_lens, keys past kv_len at +-past)
+# the tiles' edges of kernels 10, 11 and 13 (10: 192 query rows, 128-key
+# tiles; 11: 128 query rows, 128-key tiles; 13: 128 keys, 64-query tiles; the
+# fp32 forms: 64 x 64): (n, kv_lens, keys past kv_len at +-past)
 TRAIN_EDGES = (
+    (1, [1], None),
+    (63, [0, 1, 63], None),
+    (64, [0, 1, 63, 64], None),
+    (65, [1, 64, 65], None),
     (100, [0, 1, 63, 64, 65, 100], None),
+    (127, [1, 127], None),
+    (128, [0, 1, 127, 128], None),
+    (129, [1, 63, 64, 65, 127, 128, 129], None),
     (200, [1, 63, 64, 65, 127, 128, 129, 200], None),
     (301, [0, 1, 63, 64, 65, 127, 128, 129, 301], None),
     (301, [1, 64, 129, 200, 300, 301], 1e4),
@@ -1036,17 +1105,20 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
         compare(f"kernel 10 lse {label}", lse10, lse, 1e-5)
         if not (torch.equal(again[0], o10) and torch.equal(again[1], lse10)):
             fail(f"kernel 10 {label}: a second launch on the same inputs gave other bits")
+        zero = n == 1  # dq and dk are identically zero there (compare's note)
         dq11 = fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
         err["flash_prefix_dq_lsein"] = compare(
             f"kernel 11 dq {label}", dq11,
-            fp.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv), 1e-2)[0]
+            fp.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv), 1e-2, zero=zero)[0]
         dq12, lse12 = fp.flash_prefix_dq(q, k, v, do, dvec, kv)
         dq_p, _ = fp.flash_prefix_dq_reference(q, k, v, do, dvec, kv)
-        err["flash_prefix_dq"] = compare(f"kernel 12 dq {label}", dq12, dq_p, 1e-2)[0]
+        err["flash_prefix_dq"] = compare(f"kernel 12 dq {label}", dq12, dq_p, 1e-2,
+                                         zero=zero)[0]
         compare(f"kernel 12 lse {label}", lse12, lse, 1e-5)
         dk, dv = fp.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
         dk_p, dv_p = fp.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
-        err["flash_prefix_dkv"] = max(compare(f"kernel 13 dk {label}", dk, dk_p, 1e-2)[0],
+        err["flash_prefix_dkv"] = max(compare(f"kernel 13 dk {label}", dk, dk_p, 1e-2,
+                                              zero=zero)[0],
                                       compare(f"kernel 13 dv {label}", dv, dv_p, 1e-2)[0])
         torch.cuda.synchronize()
         zero = kv == 0
@@ -1061,8 +1133,8 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
 
     print("kernels 10-13, training attention (bf16 in, rel bound 1e-2 for o and the "
           "gradients: P and dS round to bf16 before their products in the kernels; lse "
-          "fp32, rel bound 1e-5); 10 on the attention core, 13 on the attention backward "
-          "core, 11 and 12 on the mma.sync loop")
+          "fp32, rel bound 1e-5); 10 on the attention core, 11 and 13 on the attention "
+          "backward core, 12 on the mma.sync loop")
     errs, (q, k, v, do, kv, lse, dvec) = case("main H=128 n=1280 d=64 kv=n", 128, 1280,
                                               [1280] * 128)
     mixed = torch.randint(1, 1201, (16,), generator=gen, device=dev).tolist()
@@ -1117,6 +1189,144 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
     lib_fwd, lib_bwd = flash_library_times(q, k, v, do, kv, lse, dvec)
     out["flash_prefix_lse"]["library_ms"] = lib_fwd
     out["flash_prefix_dkv"]["library_ms"] = lib_bwd  # 11 + 13 together
+    both = out["flash_prefix_dq_lsein"]["ms"] + out["flash_prefix_dkv"]["ms"]
+    print(f"  11 + 13 {both:.4f} ms against the library backward {lib_bwd:.4f} ms: "
+          f"{both / lib_bwd:.2f}x")
+    return out
+
+
+def check_train_attention_f32(gen, dev) -> dict[str, dict]:
+    """The fp32 forms of kernels 10-13 at the training shape and at the
+    cores' edges (TRAIN_EDGES) against their plain versions, with both of
+    PyTorch's TF32 switches off wherever a plain version runs: o and lse
+    within F32_ATTN_REL, dq, dk, dv within F32_GRAD_REL (relative L2). A
+    control: the plain versions with TF32 on must fail those bounds. A head
+    with kv_len 0 is held to zero o, lse 0 and zero gradients. Times with
+    the bound at the 67 TFLOP/s of fp32 outside the tensor cores, and the
+    library yardstick: PyTorch's memory-efficient attention on fp32 (forward
+    with its logsumexp, and its backward), its error against the fp32 plain
+    version printed beside its time."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    def tf32_off():
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            fail("a plain fp32 version would run with TF32 on")
+
+    def inputs(H, n, lens, past=None):
+        q, k, v, do = (torch.randn((H, n, 64), generator=gen, device=dev) for _ in range(4))
+        if past is not None:
+            for h, L in enumerate(lens):
+                k[h, L:] = past * q[h].mean(0).sign()
+        return q, k, v, do, torch.as_tensor(lens, dtype=torch.int32, device=dev)
+
+    def plain(q, k, v, do, kv):
+        o, lse = fp.prefix_attention_lse_reference(q, k, v, kv)
+        o[kv == 0] = 0  # no valid key: zeros (the kernels'), not the plain uniform mean
+        dvec = (do * o).sum(-1)
+        dq = fp.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv)
+        dk, dv = fp.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+        return o, lse, dvec, dq, dk, dv
+
+    def case(label, H, n, lens, past=None):
+        q, k, v, do, kv = inputs(H, n, lens, past)
+        tf32_off()
+        o, lse, dvec, dq_p, dk_p, dv_p = plain(q, k, v, do, kv)
+        o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
+        err = {"flash_prefix_lse_f32": compare(f"kernel 10 fp32 o {label}", o10, o,
+                                               F32_ATTN_REL)[0]}
+        compare(f"kernel 10 fp32 lse {label}", lse10, lse, F32_ATTN_REL)
+        zero = n == 1  # dq and dk are identically zero there (compare's note)
+        dq11 = fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
+        err["flash_prefix_dq_lsein_f32"] = compare(f"kernel 11 fp32 dq {label}", dq11, dq_p,
+                                                   F32_GRAD_REL, zero=zero)[0]
+        dq12, lse12 = fp.flash_prefix_dq(q, k, v, do, dvec, kv)
+        err["flash_prefix_dq_f32"] = compare(f"kernel 12 fp32 dq {label}", dq12, dq_p,
+                                             F32_GRAD_REL, zero=zero)[0]
+        compare(f"kernel 12 fp32 lse {label}", lse12, lse, F32_ATTN_REL)
+        dk, dv = fp.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+        err["flash_prefix_dkv_f32"] = max(
+            compare(f"kernel 13 fp32 dk {label}", dk, dk_p, F32_GRAD_REL, zero=zero)[0],
+            compare(f"kernel 13 fp32 dv {label}", dv, dv_p, F32_GRAD_REL)[0])
+        torch.cuda.synchronize()
+        zero = kv == 0
+        if zero.any():
+            worst = max(t[zero].abs().max().item() for t in (o10, lse10, dq11, dq12, dk, dv))
+            if worst != 0:
+                fail(f"the fp32 forms of 10-13 {label}: a head with kv_len 0 is not zero")
+        return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
+
+    print(f"the fp32 forms of kernels 10-13 (FFMA; rel bound {F32_ATTN_REL:.0e} for o and lse, "
+          f"{F32_GRAD_REL:.0e} for dq, dk, dv: nothing is rounded below fp32)")
+    errs, main = case("main H=128 n=1280 d=64 kv=n", 128, 1280, [1280] * 128)
+    q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p = main
+    mixed = torch.randint(1, 1201, (16,), generator=gen, device=dev).tolist()
+    case(f"ragged H=16 n=1200 mixed kv={mixed}", 16, 1200, mixed)
+    for n, lens, past in TRAIN_EDGES:
+        case(f"edge n={n} kv={lens}{' keys past kv_len at +-1e4' if past else ''}", len(lens),
+             n, lens, past)
+
+    # the control: the same plain versions with TF32 on fail the bounds
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        o_t, lse_t, _, dq_t, dk_t, dv_t = plain(q, k, v, do, kv)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    ctl = {"o": (_rel(o_t, o), F32_ATTN_REL), "dq": (_rel(dq_t, dq_p), F32_GRAD_REL),
+           "dk": (_rel(dk_t, dk_p), F32_GRAD_REL), "dv": (_rel(dv_t, dv_p), F32_GRAD_REL)}
+    print("  control, the plain versions with TF32 on against TF32 off at the main shape: "
+          + ", ".join(f"{nm} {r:.3e} (bound {bd:.0e})" for nm, (r, bd) in ctl.items())
+          + f", lse {_rel(lse_t, lse):.3e}")
+    if any(r <= bd for r, bd in ctl.values()):
+        fail("the TF32 control passes the fp32 bounds: they would not tell TF32 from fp32")
+
+    train = (q, k, v, do, dvec, lse, kv)
+    timed = {
+        "flash_prefix_lse_f32": (lambda: fp.flash_prefix_folded_lse(q, k, v, kv),
+                                 lambda: fp.prefix_attention_lse_reference(q, k, v, kv), 4,
+                                 (q, k, v, kv, q, lse)),
+        "flash_prefix_dq_lsein_f32": (
+            lambda: fp.flash_prefix_dq_lsein(*train),
+            lambda: fp.flash_prefix_dq_lsein_reference(*train), 6, (*train, q)),
+        "flash_prefix_dq_f32": (lambda: fp.flash_prefix_dq(q, k, v, do, dvec, kv),
+                                lambda: fp.flash_prefix_dq_reference(q, k, v, do, dvec, kv), 6,
+                                (q, k, v, do, dvec, kv, q, lse)),
+        "flash_prefix_dkv_f32": (lambda: fp.flash_prefix_dkv(*train),
+                                 lambda: fp.flash_prefix_dkv_reference(*train), 8,
+                                 (*train, k, v)),
+    }
+    out = {}
+    for name, (fn, plain_fn, products, io) in timed.items():
+        print(f"  {name}:")
+        out[name] = {"max_abs_err": errs[name],
+                     **_timed(fn, plain_fn, products * 128 * 1280 * 1280 * 64, io, kind="fp32")}
+
+    # the library yardstick on the same fp32 operands (every kv_len = n: no mask)
+    aten = torch.ops.aten
+    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    fwd = lambda: aten._scaled_dot_product_efficient_attention(q4, k4, v4, None, True, 0.0,
+                                                               False, scale=0.125)
+    lo, llse = fwd()[:2]
+    print(f"  library: aten._scaled_dot_product_efficient_attention (fp32, with its "
+          f"logsumexp): o rel {_rel(lo[0], o):.3e}, lse * log2(e) rel "
+          f"{_rel(llse[0, :, :1280] * fp.LOG2E, lse):.3e} to the fp32 plain version")
+    out["flash_prefix_lse_f32"]["library_ms"] = cuda_time_ms(fwd)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=0.125)
+    bwd = lambda: torch.autograd.grad(lib_out, leaves, do4, retain_graph=True)
+    ldq, ldk, ldv = bwd()
+    print(f"  library backward (its autograd): dq rel {_rel(ldq[0], dq_p):.3e}, dk rel "
+          f"{_rel(ldk[0], dk_p):.3e}, dv rel {_rel(ldv[0], dv_p):.3e} to the fp32 plain version")
+    out["flash_prefix_dkv_f32"]["library_ms"] = cuda_time_ms(bwd)  # 11 + 13 together
+    print(f"  library: forward {out['flash_prefix_lse_f32']['library_ms']:.4f} ms (10 fp32 "
+          f"{out['flash_prefix_lse_f32']['ms']:.4f}), backward "
+          f"{out['flash_prefix_dkv_f32']['library_ms']:.4f} ms (11 + 13 fp32 "
+          f"{out['flash_prefix_dq_lsein_f32']['ms'] + out['flash_prefix_dkv_f32']['ms']:.4f})")
+    del leaves, lib_out
     return out
 
 
@@ -2805,25 +3015,29 @@ TRAIN_REL = 5e-2
 PARENT_TRAIN_STEP_MS, PARENT_TRAIN_CONV_MS = 251.13, 43.7
 
 
-def expected_train_launches(steps: int, depth: int = DEPTH) -> dict[str, int]:
+def expected_train_launches(steps: int, depth: int = DEPTH, f32: bool = False) -> dict[str, int]:
     """Launches of `steps` training steps with full remat: per block, kernel
     10 in the forward and again in the backward's recompute, 11 and 13 once
-    in the backward; nothing else (conv-pos is plain tensor code under
-    autograd, the FF half-block is plain products)."""
+    in the backward, in the bf16 forms or (f32) the fp32 ones; nothing else
+    (conv-pos is plain tensor code under autograd, the FF half-block is plain
+    products)."""
     from korean_f5_tts_tpu_torch.ops import KERNELS
 
     want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_prefix_lse=2 * depth * steps, flash_prefix_dq_lsein=depth * steps,
-                flash_prefix_dkv=depth * steps)
+    tag = "_f32" if f32 else ""
+    want.update({f"flash_prefix_lse{tag}": 2 * depth * steps,
+                 f"flash_prefix_dq_lsein{tag}": depth * steps,
+                 f"flash_prefix_dkv{tag}": depth * steps})
     return want
 
 
-def drive_attention_bwd(dev, lens) -> dict[str, int]:
+def drive_attention_bwd(dev, lens, dtype) -> dict[str, int]:
     """The attention backward's own entry point at the training shape:
     flash_prefix_attention_bwd without the forward's lse (the JAX contract,
     flash_prefix.py:1246-1297) runs kernel A for o, kernel 12 for dq and the
-    lse, and kernel 13. Counted on its own; held against autograd of the
-    plain attention (relative L2, the Function's bound)."""
+    lse, and kernel 13, in the forms of `dtype` (bf16 or fp32). Counted on
+    its own; held against autograd of the plain attention (relative L2: the
+    Function's bound 2e-2 in bf16, F32_GRAD_REL in fp32)."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
@@ -2831,7 +3045,7 @@ def drive_attention_bwd(dev, lens) -> dict[str, int]:
 
     gen = torch.Generator(device=dev).manual_seed(6)
     q, k, v, g = (torch.randn((TRAIN_B, 16, TRAIN_N, 64), generator=gen, device=dev)
-                  .to(torch.bfloat16) for _ in range(4))
+                  .to(dtype) for _ in range(4))
     reset_launch_counts()
     got = fp.flash_prefix_attention_bwd(q, k, v, lens, g)
     torch.cuda.synchronize()
@@ -2840,17 +3054,110 @@ def drive_attention_bwd(dev, lens) -> dict[str, int]:
     want = torch.autograd.grad(fp.flash_prefix_attention(*leaves, lens, kernels=False),
                                leaves, g)
     errs = [_rel(a, b) for a, b in zip(got, want)]
-    print(f"  flash_prefix_attention_bwd(lse=None), b {TRAIN_B} x 16 heads, n {TRAIN_N}, kv "
-          f"{lens.tolist()}: dq/dk/dv rel_err {', '.join(f'{e:.3e}' for e in errs)} (bound "
-          f"2e-2)")
-    if not all(torch.isfinite(t).all() for t in got) or max(errs) > 2e-2:
-        fail("flash_prefix_attention_bwd disagrees with the plain backward")
+    f32 = dtype == torch.float32
+    rel_bound = F32_GRAD_REL if f32 else 2e-2
+    print(f"  flash_prefix_attention_bwd(lse=None) on {dtype}, b {TRAIN_B} x 16 heads, n "
+          f"{TRAIN_N}, kv {lens.tolist()}: dq/dk/dv rel_err "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (bound {rel_bound:.0e})")
+    if not all(torch.isfinite(t).all() and t.dtype == dtype for t in got) or \
+            max(errs) > rel_bound:
+        fail(f"flash_prefix_attention_bwd on {dtype} disagrees with the plain backward")
     expected = dict.fromkeys(KERNELS, 0)
-    expected.update(flash_prefix=1, flash_prefix_dq=1, flash_prefix_dkv=1)
+    tag = "_f32" if f32 else ""
+    expected.update({f"flash_prefix{tag}": 1, f"flash_prefix_dq{tag}": 1,
+                     f"flash_prefix_dkv{tag}": 1})
     print(f"  its launches: {counts} (expected {expected})")
     if counts != expected:
-        fail("flash_prefix_attention_bwd did not run kernels A, 12 and 13 once each")
+        fail(f"flash_prefix_attention_bwd on {dtype} did not run kernels A, 12 and 13 once each")
     return counts
+
+
+TRAIN_F32_DEPTH = DEPTH  # the fp32 step against the plain versions: full width and depth
+CPU_STEP_SEEDS = (7, 17, 27)  # the fp32 step at depth 2 against the CPU, one draw a seed
+
+
+def phase6_fp32_step(dev, arch, params, batch) -> None:
+    """The fp32 training step (compute_dtype None, the Trainer's and
+    train_step's default): one step's loss and whole gradient with kernels
+    (the fp32 forms of 10, 11, 13, exact launch counts) against the plain
+    versions at full width and depth TRAIN_F32_DEPTH, then the same step at
+    depth 2 on the card against the CPU with the same draws (dropout off),
+    once for each of CPU_STEP_SEEDS, all at F32_GRAD_REL. The card step runs with PyTorch's own TF32
+    defaults, as a user's process has them: cuDNN's switch on, so conv-pos's
+    convolution under autograd runs in TF32; the same step with that switch
+    off is printed beside it, which shows what TF32 costs there."""
+    import dataclasses
+
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.cfm import draw_cfm
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.train.step import loss_and_grads
+
+    def rel_pair(a, b):
+        (la, ga), (lb, gb) = a, b
+        flat_a = torch.cat([g.flatten().float().cpu() for g in ga])
+        flat_b = torch.cat([g.flatten().float().cpu() for g in gb])
+        ok = bool(torch.isfinite(flat_a).all())
+        return abs(la.item() - lb.item()) / abs(lb.item()), _rel(flat_a, flat_b), ok
+
+    reset_launch_counts()
+    got = loss_and_grads(params, batch, 5, arch)  # compute_dtype None: fp32
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = expected_train_launches(1, arch.depth, f32=True)
+    print(f"  fp32 step (compute_dtype None), depth {arch.depth}: launches {counts} (expected "
+          f"{want})")
+    if counts != want:
+        fail("the fp32 training step did not run the fp32 forms of 10, 11, 13 as often as it "
+             "requires")
+    plain = loss_and_grads(params, batch, 5, arch, kernels=False)
+    loss_err, grad_err, ok = rel_pair(got, plain)
+    print(f"  fp32 step, kernels against plain: loss {got[0].item():.7f} / "
+          f"{plain[0].item():.7f} (rel {loss_err:.3e}), gradient rel L2 {grad_err:.3e} (bound "
+          f"{F32_GRAD_REL:.0e} each)")
+    if not ok or loss_err > F32_GRAD_REL or grad_err > F32_GRAD_REL:
+        fail("the fp32 training step with kernels disagrees with the plain versions")
+    del got, plain
+
+    small = dataclasses.replace(arch, depth=2)
+    t0 = time.perf_counter()
+    worst = []
+    for seed in CPU_STEP_SEEDS:  # weights from seed, their zero layers from seed + 1,
+        # draws from seed + 2; one draw alone left little room under the bound
+        p2 = redraw_zero_init(init_dit(small, seed=seed, device=dev), seed=seed + 1)
+        gen = torch.Generator(device=dev).manual_seed(seed + 2)
+        draws = draw_cfm(tuple(batch["mel"].shape), batch["lens"], gen)
+
+        def on(device):
+            to = lambda tree: {k: to(v) for k, v in tree.items()} if isinstance(tree, dict) \
+                else ([to(v) for v in tree] if isinstance(tree, list) else tree.to(device))
+            return to(p2), {k: v.to(device) for k, v in batch.items()}, \
+                {k: v.to(device) for k, v in draws.items()}
+
+        p_cpu, batch_cpu, draws_cpu = on("cpu")
+        cpu = loss_and_grads(p_cpu, batch_cpu, 5, small, draws=draws_cpu)
+        exact = loss_and_grads(p2, batch, 5, small, draws=draws)  # cuDNN's TF32 off
+        torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as a user's process has it
+        try:
+            card = loss_and_grads(p2, batch, 5, small, draws=draws)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        loss_err, grad_err, ok = rel_pair(card, cpu)
+        e_loss, e_grad, _ = rel_pair(exact, cpu)
+        worst.append((grad_err, e_grad))
+        print(f"  fp32 step at depth 2, seed {seed}, card (cuDNN's TF32 switch on, PyTorch's "
+              f"default: conv-pos convolves in TF32) against the CPU: loss rel {loss_err:.3e}, "
+              f"gradient rel L2 {grad_err:.3e} (bound {F32_GRAD_REL:.0e} each); with cuDNN's "
+              f"TF32 off: loss rel {e_loss:.3e}, gradient rel L2 {e_grad:.3e}")
+        if not ok or loss_err > F32_GRAD_REL or grad_err > F32_GRAD_REL:
+            fail(f"the fp32 training step on the card disagrees with the CPU (seed {seed})")
+    on_tf32, off_tf32 = zip(*worst)
+    print(f"  fp32 step at depth 2 against the CPU over seeds {list(CPU_STEP_SEEDS)}: gradient "
+          f"rel L2 {min(on_tf32):.3e}-{max(on_tf32):.3e} with cuDNN's TF32 on, "
+          f"{min(off_tf32):.3e}-{max(off_tf32):.3e} off (bound {F32_GRAD_REL:.0e}); "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def train_arch():
@@ -2920,7 +3227,9 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
     if not torch.isfinite(flat_k).all() or loss_err > TRAIN_REL or grad_err > TRAIN_REL:
         fail("the training step with kernels disagrees with the plain versions")
     del grads_k, grads_p, flat_k, flat_p
-    bwd_counts = drive_attention_bwd(dev, batch["lens"])
+    bwd_counts = drive_attention_bwd(dev, batch["lens"], torch.bfloat16)
+    f32_bwd_counts = drive_attention_bwd(dev, batch["lens"], torch.float32)
+    phase6_fp32_step(dev, dataclasses.replace(arch, depth=TRAIN_F32_DEPTH), params, batch)
 
     # Trainer: 2 updates, checkpoint, resume, 2 more, on seeded mels, at depth 4
     small = dataclasses.replace(arch, depth=TRAINER_DEPTH)
@@ -2931,41 +3240,52 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
              "text": "this is a training row", "duration": f * HOP / SR} for f in frames]
     dataset = CustomDataset(rows, preprocessed_mel=True)
     vocab = {c: i + 1 for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz")}
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        def trainer():
-            return Trainer(small_params, small, epochs=10, learning_rate=1e-4, num_warmup_updates=2,
-                           checkpoint_path=ckpt_dir, batch_size_per_gpu=TRAIN_B * TRAIN_N,
-                           max_samples=TRAIN_B, last_per_updates=2, save_per_updates=10**9,
-                           logger=None, vocab_char_map=vocab, compute_dtype=torch.bfloat16)
+    train_counts = {}
+    # bf16 compute (the bf16 forms), then the Trainer's own default (fp32: the fp32 forms)
+    for compute_dtype in (torch.bfloat16, None):
+        extra = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            def trainer():
+                return Trainer(small_params, small, epochs=10, learning_rate=1e-4,
+                               num_warmup_updates=2, checkpoint_path=ckpt_dir,
+                               batch_size_per_gpu=TRAIN_B * TRAIN_N, max_samples=TRAIN_B,
+                               last_per_updates=2, save_per_updates=10**9, logger=None,
+                               vocab_char_map=vocab, **extra)
 
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        first = trainer().train(dataset, resumable_with_seed=666, max_updates=2)
-        t1 = time.perf_counter()
-        second = trainer().train(dataset, resumable_with_seed=666, max_updates=2)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        train_counts = launch_counts()
-        size = sum(f.stat().st_size for f in Path(ckpt_dir).iterdir()) / 2**30
-    losses = first["losses"] + second["losses"]
-    print(f"  Trainer (depth {TRAINER_DEPTH}): updates {first['updates']} then resumed to "
-          f"{second['updates']}, losses "
-          f"{[round(x, 5) for x in losses]}; {t1 - t0:.1f} s and {t2 - t1:.1f} s with the "
-          f"checkpoint ({size:.2f} GiB) written, read and written again")
-    if second["updates"] != 4 or len(losses) != 4 or not np.isfinite(losses).all():
-        fail("the Trainer did not take 2 + 2 finite updates across a resume")
-    want = expected_train_launches(4, TRAINER_DEPTH)
-    print(f"  kernel launches during the 4 updates: {train_counts} (expected {want})")
-    if train_counts != want:
-        fail("a training kernel did not run as often as the Trainer's steps require")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            first = trainer().train(dataset, resumable_with_seed=666, max_updates=2)
+            t1 = time.perf_counter()
+            second = trainer().train(dataset, resumable_with_seed=666, max_updates=2)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            counts = launch_counts()
+            size = sum(f.stat().st_size for f in Path(ckpt_dir).iterdir()) / 2**30
+        losses = first["losses"] + second["losses"]
+        label = "bf16 compute" if compute_dtype else "its default dtype (fp32)"
+        print(f"  Trainer (depth {TRAINER_DEPTH}, {label}): updates {first['updates']} then "
+              f"resumed to {second['updates']}, losses "
+              f"{[round(x, 5) for x in losses]}; {t1 - t0:.1f} s and {t2 - t1:.1f} s with the "
+              f"checkpoint ({size:.2f} GiB) written, read and written again")
+        if second["updates"] != 4 or len(losses) != 4 or not np.isfinite(losses).all():
+            fail(f"the Trainer ({label}) did not take 2 + 2 finite updates across a resume")
+        want = expected_train_launches(4, TRAINER_DEPTH, f32=compute_dtype is None)
+        print(f"  kernel launches during the 4 updates: {counts} (expected {want})")
+        if counts != want:
+            fail(f"a training kernel did not run as often as the Trainer's steps ({label}) "
+                 "require")
+        for name, n in counts.items():
+            train_counts[name] = train_counts.get(name, 0) + n
     del small_params
     torch.cuda.empty_cache()
     # timed before anything is profiled: once the profiler has run in a process, every
     # later launch costs the host more, and the step's wall time is the host's
-    for kernels in (True, False):
-        r = bench_train.run(frames=TRAIN_B * TRAIN_N, seq_len=TRAIN_N, kernels=kernels)
-        print(f"  bench_train {'kernels' if kernels else 'plain  '}: step_ms {r['step_ms']}, "
-              f"train_frames_per_s {r['value']} ({r['unit']}) [{card}]")
+    for bf16, kernels in ((True, True), (True, False), (False, True)):
+        r = bench_train.run(frames=TRAIN_B * TRAIN_N, seq_len=TRAIN_N, bf16=bf16,
+                            kernels=kernels)
+        print(f"  bench_train {'bf16' if bf16 else 'fp32'} {'kernels' if kernels else 'plain  '}"
+              f": step_ms {r['step_ms']}, train_frames_per_s {r['value']} ({r['unit']}) "
+              f"[{card}]")
         torch.cuda.empty_cache()
     opt = make_optimizer()
     state = init_train_state(params, opt)
@@ -2973,13 +3293,19 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
                                            compute_dtype=torch.bfloat16), profile_path,
                         f"training step, batch {TRAIN_B} x {TRAIN_N}, kernels",
                         top=25 if profile_path is not None else 6)
-    print(f"  the step's device time with conv-pos convolving in bf16 under autograd: {busy:.2f} "
-          f"ms; with the fp32 convolution it had before: {PARENT_TRAIN_STEP_MS} ms (of which "
-          f"the convolution {PARENT_TRAIN_CONV_MS}), same protocol, H100 80GB HBM3, 700 W "
-          f"[{card}]")
+    print(f"  the bf16 step's device time with conv-pos convolving in bf16 under autograd: "
+          f"{busy:.2f} ms; with the fp32 convolution it had before: {PARENT_TRAIN_STEP_MS} ms "
+          f"(of which the convolution {PARENT_TRAIN_CONV_MS}), same protocol, H100 80GB HBM3, "
+          f"700 W [{card}]")
+    busy32 = profile_once(lambda: train_step(state, batch, 5, arch, opt), None if profile_path
+                          is None else profile_path.with_suffix(".fp32.txt"),
+                          f"fp32 training step, batch {TRAIN_B} x {TRAIN_N}, kernels",
+                          top=25 if profile_path is not None else 6)
+    print(f"  the fp32 step's device time: {busy32:.2f} ms [{card}]")
     del state, params
     torch.cuda.empty_cache()
-    return {name: n + bwd_counts[name] for name, n in train_counts.items()}
+    return {name: n + bwd_counts[name] + f32_bwd_counts[name]
+            for name, n in train_counts.items()}
 
 
 def main(argv=None) -> int:
@@ -3059,6 +3385,7 @@ def main(argv=None) -> int:
         results["ff_block_int8"] = check_ff_int8(gen, dev)
         check_int8_fp32_rows(gen, dev)
         results.update(check_train_attention(gen, dev))
+        results.update(check_train_attention_f32(gen, dev))
         results["ln_mod_matmul"] = check_ln_mod(gen, dev)
         results["proj_gated_residual"] = check_proj_gated(gen, dev)
         results.update(check_rope_attention(gen, dev))

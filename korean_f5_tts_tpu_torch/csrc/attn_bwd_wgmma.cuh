@@ -78,13 +78,61 @@
 // meets S^T in one fmaf with the lse (one rounding where the TPU kernel has
 // two) and exp2 is ex2.approx, as in kernel A.
 //
-// For kernel 11 (dq += dS.K, the same four product forms with keys and
-// queries swapped) the pieces carry over: a block owns 64-row query tiles
-// whose Q and dO stay in shared memory as the A operands of S = Q.K^T and dP
-// = dO.V^T (bwd_issue_scores), the producer streams K and V tiles, dS is
-// packed as above and dq += dS.K reads the K tile MN-major
-// (bwd_issue_grad); lse and D are then rows of the accumulator, fixed per
-// lane, and need no staging.
+// Kernel 11 (dq from the forward's lse, the TPU kernel's _flash_prefix_dq_lsein
+// -> _kernel_dq_lsein with cast=True) runs on the same pieces with keys and
+// queries swapped (attn_dq_wgmma_kernel below):
+//   S   = Q.K^T, P = exp2(S * scale_log2 - lse), dP = dO.V^T,
+//   dS  = P * (dP - D), dq += dS.K (dS rounded to bf16), dq *= 1/sqrt(64).
+// It replaces the first port's mma.sync loop (flash_prefix_train.cu: one
+// 128-thread block per 64 queries, q and dO as mma fragments, K and V tiles
+// loaded synchronously with two barriers a tile), which reached a quarter of
+// its bound. What bounds it: 6 * n^2 * 64 * H = 80.5 GFLOP at the training
+// shape (0.0814 ms at 989 TFLOP/s) against 84 MB, and 210 M exp2 (~0.05 ms on
+// the SFUs): tensor-core bound, the exponentials to hide under the products.
+// Design. One block per (folded head, 128 queries), 384 threads: two
+// consumer warpgroups of 64 queries each and a producer warpgroup
+// (setmaxnreg 40 / 232, as above).
+//   Q, dO       loaded once by TMA (3-D maps, boxes of 128 rows that stop at
+//               n with zeros); each warpgroup's 64 rows are the A operands of
+//               its S and dP products and stay in shared memory.
+//   lse, D      rows of the accumulator, so fixed per lane: two plain loads
+//               each (an [H, n] fp32 row starts at no 16-byte boundary at n =
+//               301); a query at or past n gets lse +inf (P = 0) and D 0.
+//   K, V        the producer streams kDqKeys-key tiles of K and V through a
+//               ring of kDqStages stages with full/empty mbarriers, only the
+//               ceil(kv_len / kDqKeys) tiles that hold valid keys (the TPU
+//               kernel walks every chunk, but keys past kv_len get
+//               MASK_VALUE, so P is exactly 0 there: the same function).
+//   S, dP       wgmma with both operands k-major in shared memory (the
+//               forward core's S product, attn_issue_qk).
+//   dq          wgmma m64n64k16 with dS from registers (attn_pack_p) and the
+//               K tile MN-major through a transposed-B descriptor: the
+//               forward's P.V form with K in V's place.
+//   overlap     tile i's S and dP, then tile i - 1's dq product, as three
+//               groups; P of tile i when S is done (wait_group 2), dS when dP
+//               is done (1), and its packing only when i - 1's product is
+//               done (0), which also frees that stage: one fragment buffer,
+//               and no register that a group in flight reads is written
+//               meanwhile (ptxas serializes wgmma otherwise). Ping-pong
+//               between the two warpgroups, as above.
+//   masks       keys at or past kv_len in the last tile get P = 0; a head
+//               with kv_len 0 walks no tile and writes zero dq.
+//   epilogue    dq * 1/sqrt(64) as bf16 through the warpgroup's own Q slice
+//               (its products are done), then 16-byte stores of whole rows,
+//               masked at n. No atomics.
+//   key tile    128 keys (kDqKeys) through 4 stages (kDqStages): a lane
+//               then holds S and dP (2 x 64 fp32), dq (32) and the packed dS
+//               (32), 192 of the 232 registers, with no spill. A trial on an
+//               H100 80GB HBM3 (700 W) at the training shape, with the width
+//               and depth then template parameters (PERF.md section 6):
+//               128 keys with 3 or 4 stages and 64 keys (kernel 13's product
+//               forms) with 4 stages took the same time within noise
+//               (0.1557-0.1574 ms); 64 keys with 6 stages 2% more, 128 keys
+//               with 2 stages 31% more. Only the chosen form is built.
+// Numerics as the TPU kernel with cast=True: fp32 S and dP, dS rounded to
+// bf16 for its product, fp32 accumulation; the scale meets S in one fmaf
+// with the lse (the TPU kernel scales q in bf16 first: one rounding the bf16
+// bounds cover) and exp2 is ex2.approx, as in kernel 13.
 #pragma once
 
 #include "attn_wgmma.cuh"  // fast_exp2, attn_pack_p, kAttnD, align_1024, allow_smem
@@ -369,6 +417,206 @@ cudaError_t launch_attn_dkv_wgmma(const void* q, const void* k, const void* v, c
       map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<const int*>(kv_lens), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), n, scale_log2, sm_scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// kernel 11: dq from the forward's lse
+// ---------------------------------------------------------------------------
+
+constexpr int kDqWgs = 2;                 // consumer warpgroups, 64 queries each
+constexpr int kDqRows = 64 * kDqWgs;      // query rows a block
+constexpr int kDqKeys = 128;              // keys a K/V tile (the trial's choice)
+constexpr int kDqStages = 4;              // K/V ring depth at 128 keys (the trial's choice)
+
+constexpr int kDqSmemBytes = 1024 + 2 * kDqRows * kRowBytes +
+                             kDqStages * 2 * kDqKeys * kRowBytes + (2 * kDqStages + 1) * 8;
+
+// dq (64 rows x 64) += dS (A fragments in registers) . K (the tile's rows,
+// MN-major); no commit
+__device__ __forceinline__ void dq_issue_grad(float (&acc)[32],
+                                              const uint32_t (&a)[kDqKeys / 16][4],
+                                              const unsigned char* tile_k) {
+  const uint64_t db = wgmma_desc_mn(tile_k);
+#pragma unroll
+  for (int kk = 0; kk < kDqKeys / 16; ++kk) wgmma_rs_n64_tb(acc, a[kk], db + 128 * kk, 1);
+}
+
+// P in place of S (s[4j + e] is row g + 8 (e >> 1), key k0 + 8j + 2t + (e &
+// 1)), keys at or past kv_len masked
+__device__ __forceinline__ void dq_probs(float (&s)[kDqKeys / 2], const float (&neg_lse)[2],
+                                         float scale_log2, int k0, int kv_len, int t) {
+  const bool mask = k0 + kDqKeys > kv_len;
+#pragma unroll
+  for (int i = 0; i < kDqKeys / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float x = fmaf(s[i], scale_log2, neg_lse[r]);
+    if (mask && k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len) x = -INFINITY;
+    s[i] = fast_exp2(x);
+  }
+}
+
+// dS = P * (dP - D) in place of dP
+__device__ __forceinline__ void dq_ds(float (&dp)[kDqKeys / 2], const float (&p)[kDqKeys / 2],
+                                      const float (&dd)[2]) {
+#pragma unroll
+  for (int i = 0; i < kDqKeys / 2; ++i) dp[i] = p[i] * (dp[i] - dd[(i >> 1) & 1]);
+}
+
+__global__ void __launch_bounds__(128 * (kDqWgs + 1), 1)
+attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+                     const float* __restrict__ dvec, const int* __restrict__ kv_lens,
+                     bf16* __restrict__ dq, int n, float scale_log2, float sm_scale) {
+  constexpr int kTileBytes = kDqKeys * kRowBytes;  // a K or a V tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* s_q = smem;
+  unsigned char* s_do = smem + kDqRows * kRowBytes;
+  unsigned char* ring = s_do + kDqRows * kRowBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDqStages * 2 * kTileBytes);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* qd_full = empty + kDqStages;
+  const int head = blockIdx.y;
+  const int q0 = blockIdx.x * kDqRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t off = (size_t)head * n * kAttnD;
+
+  if (tid == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);            // the producer's arrive; TMA counts the bytes
+      mbar_init(&empty[s], 4 * kDqWgs);  // lane 0 of every consumer warp
+    }
+    mbar_init(qd_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kDqWgs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // read after setmaxnreg: a value live across it is spilled
+    const int kv_len = min(kv_lens[head], n);
+    const int n_tiles = kv_len > 0 ? (kv_len + kDqKeys - 1) / kDqKeys : 0;
+    if (tid == 128 * kDqWgs) {
+      mbar_arrive_expect_tx(qd_full, 2 * kDqRows * kRowBytes);
+      tma_load_3d(s_q, &map_q, qd_full, 0, q0, head);
+      tma_load_3d(s_do, &map_do, qd_full, 0, q0, head);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kDqStages;
+        mbar_wait(&empty[s], ((j / kDqStages) & 1) ^ 1);  // passes at once on the first round
+        unsigned char* stage = ring + s * 2 * kTileBytes;
+        mbar_arrive_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_3d(stage, &map_k, &full[s], 0, j * kDqKeys, head);
+        tma_load_3d(stage + kTileBytes, &map_v, &full[s], 0, j * kDqKeys, head);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int kv_len = min(kv_lens[head], n);
+    const int n_tiles = kv_len > 0 ? (kv_len + kDqKeys - 1) / kDqKeys : 0;
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const int row = (warp & 3) * 16 + g;  // this lane's queries: row, row + 8 of the warpgroup's
+    unsigned char* my_q = s_q + wg * 64 * kRowBytes;
+    const uint64_t desc_q = wgmma_desc(my_q);
+    const uint64_t desc_do = wgmma_desc(s_do + wg * 64 * kRowBytes);
+    float neg_lse[2], dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int grow = q0 + wg * 64 + row + 8 * r;
+      neg_lse[r] = grow < n ? -lse[(size_t)head * n + grow] : -INFINITY;
+      dd[r] = grow < n ? dvec[(size_t)head * n + grow] : 0.f;
+    }
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    mbar_wait(qd_full, 0);
+    if (n_tiles > 0) {
+      float s[kDqKeys / 2], dp[kDqKeys / 2];
+      uint32_t ds[kDqKeys / 16][4];
+      mbar_wait(&full[0], 0);
+      if (wg == kDqWgs - 1) bwd_turn_pass(wg);  // warpgroup 0 starts
+      bwd_turn_wait(wg);
+      wgmma_fence();
+      attn_issue_qk(s, desc_q, ring);
+      attn_issue_qk(dp, desc_do, ring + kTileBytes);
+      bwd_turn_pass(wg);
+      wgmma_wait<1>();
+      wgmma_fence_regs(s);
+      dq_probs(s, neg_lse, scale_log2, 0, kv_len, t);
+      wgmma_wait<0>();
+      wgmma_fence_regs(dp);
+      dq_ds(dp, s, dd);
+      attn_pack_p<kDqKeys>(dp, ds);
+      for (int i = 1; i < n_tiles; ++i) {
+        const int st = i % kDqStages, prev = (i - 1) % kDqStages;
+        unsigned char* stage = ring + st * 2 * kTileBytes;
+        mbar_wait(&full[st], (i / kDqStages) & 1);
+        bwd_turn_wait(wg);
+        wgmma_fence();
+        attn_issue_qk(s, desc_q, stage);                // S of tile i
+        attn_issue_qk(dp, desc_do, stage + kTileBytes);  // dP of tile i
+        dq_issue_grad(acc, ds, ring + prev * 2 * kTileBytes);  // dq += dS.K of tile i - 1
+        wgmma_commit();
+        bwd_turn_pass(wg);
+        wgmma_wait<2>();  // S of tile i is done; its dP and tile i - 1's product may run
+        wgmma_fence_regs(s);
+        dq_probs(s, neg_lse, scale_log2, i * kDqKeys, kv_len, t);
+        wgmma_wait<1>();
+        wgmma_fence_regs(dp);
+        dq_ds(dp, s, dd);
+        wgmma_wait<0>();
+        wgmma_fence_regs(acc);
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        attn_pack_p<kDqKeys>(dp, ds);
+      }
+      bwd_turn_wait(wg);
+      wgmma_fence();
+      dq_issue_grad(acc, ds, ring + ((n_tiles - 1) % kDqStages) * 2 * kTileBytes);
+      wgmma_commit();
+      if (wg != kDqWgs - 1) bwd_turn_pass(wg);  // the last turn: nobody waits on warpgroup 0's
+      wgmma_wait<0>();
+      wgmma_fence_regs(acc);
+    }
+
+    // epilogue: dq through this warpgroup's Q slice (its products are done),
+    // then whole rows, masked at n
+    bwd_stage_rows(my_q, acc, sm_scale, row, g, t);
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup alone
+    const int wt = tid & 127;
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int i = wt + 128 * it, r = i >> 3, c = i & 7;
+      const int grow = q0 + wg * 64 + r;
+      if (grow < n)
+        *reinterpret_cast<int4*>(dq + off + (size_t)grow * kAttnD + 8 * c) =
+            *reinterpret_cast<const int4*>(my_q + r * kRowBytes + ((c ^ (r & 7)) << 4));
+    }
+  }
+}
+
+// kernel 11 on this core. q,
+// k, v, dout, dq: [H, n, 64] bf16, 16-byte aligned; dvec, lse: [H, n] fp32
+// (any alignment); kv_lens [H] int32.
+cudaError_t launch_attn_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* dvec, const void* lse, const void* kv_lens,
+                                 void* dq, int H, int n, float scale_log2, float sm_scale,
+                                 cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!tensor_map_3d(&map_q, q, H, n, kAttnD, kDqRows, kMapBf16) ||
+      !tensor_map_3d(&map_k, k, H, n, kAttnD, kDqKeys, kMapBf16) ||
+      !tensor_map_3d(&map_v, v, H, n, kAttnD, kDqKeys, kMapBf16) ||
+      !tensor_map_3d(&map_do, dout, H, n, kAttnD, kDqRows, kMapBf16))
+    return cudaErrorInvalidValue;
+  static std::atomic<bool> ready[kMaxDevices];
+    const cudaError_t err = allow_smem(attn_dq_wgmma_kernel, kDqSmemBytes, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kDqRows - 1) / kDqRows, H);
+  attn_dq_wgmma_kernel<<<grid, 128 * (kDqWgs + 1), kDqSmemBytes, stream>>>(
+      map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<const int*>(kv_lens), static_cast<bf16*>(dq),
+      n, scale_log2, sm_scale);
   return cudaGetLastError();
 }
 

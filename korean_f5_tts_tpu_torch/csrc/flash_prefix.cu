@@ -47,7 +47,12 @@
 // One 256-thread block per (head, 64-row query tile), 4 x 4 scores a thread;
 // q and k tiles sit transposed ([c][row]) so the inner loop reads float4; p
 // goes through shared memory between the two products; the same online
-// softmax, pruning and masking as the bf16 loop.
+// softmax, pruning and masking as the bf16 loop. Kernel 10's fp32 form (the
+// training forward, f5_flash_prefix_f32_fwd_lse) is this kernel's kLse
+// instantiation: it also writes each row's base-2 logsumexp lse = m +
+// log2(l) of the scaled scores (0 for a row with no valid key, whose output
+// is zero); kernel A's instantiation has no lse code. Its bound at the
+// training shape (H 128, n 1280, d 64): 53.7 GFLOP at 67 TFLOP/s, 0.80 ms.
 #include "attn_wgmma.cuh"
 #include "flash_prefix.cuh"
 
@@ -90,11 +95,13 @@ __device__ __forceinline__ float row16_max(float x) {
 
 // Thread (ty, tx) of the 16 x 16 block owns query rows ty * 4 + i, score
 // columns tx * 4 + j and output columns tx * 4 + j (+ 64 for D = 128).
-template <int D>
+// kLse: also write lse [H, n] (kernel 10's fp32 form).
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kF32Threads)
 flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ kv_lens,
-                        float* __restrict__ out, int n, float scale_log2) {
+                        float* __restrict__ out, float* __restrict__ lse, int n,
+                        float scale_log2) {
   constexpr int NO = D / 64;  // 4-wide output column groups of a thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQt = reinterpret_cast<float*>(smem_raw);  // [D][68]
@@ -199,6 +206,9 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     const int row = q0 + ty * 4 + i;
     if (row >= n) continue;
     const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;  // kv_len == 0: zeros
+    // m_run is in the base-2 domain of the scaled scores, l_run the whole row's sum
+    if (kLse && tx == 0)
+      lse[(size_t)head * n + row] = l_run[i] > 0.f ? m_run[i] + log2f(l_run[i]) : 0.f;
 #pragma unroll
     for (int g = 0; g < NO; ++g)
       *reinterpret_cast<float4*>(out + off + (size_t)row * D + g * 64 + tx * 4) =
@@ -207,16 +217,18 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int D>
+template <int D, bool kLse = false>
 cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, const void* kv_lens,
-                           void* out, int H, int n, float scale_log2, cudaStream_t stream) {
+                           void* out, void* lse, int H, int n, float scale_log2,
+                           cudaStream_t stream) {
   const int smem = (2 * D * kF32LD + 64 * D + 64 * kF32LD) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefix_f32_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefix_f32_kernel<D, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_prefix_f32_kernel<D><<<dim3((n + 63) / 64, H), kF32Threads, smem, stream>>>(
+  flash_prefix_f32_kernel<D, kLse><<<dim3((n + 63) / 64, H), kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(kv_lens), static_cast<float*>(out), n, scale_log2);
+      static_cast<const int*>(kv_lens), static_cast<float*>(out), static_cast<float*>(lse), n,
+      scale_log2);
   return cudaGetLastError();
 }
 
@@ -266,9 +278,24 @@ extern "C" int f5_flash_prefix_f32_fwd(const void* q, const void* k, const void*
   if (err != cudaSuccess) return (int)err;
   if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return (int)f5::launch_fwd_f32<64>(q, k, v, kv_lens, out, H, n, scale_log2, s);
-  if (d == 128) return (int)f5::launch_fwd_f32<128>(q, k, v, kv_lens, out, H, n, scale_log2, s);
+  if (d == 64)
+    return (int)f5::launch_fwd_f32<64>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
+  if (d == 128)
+    return (int)f5::launch_fwd_f32<128>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// kernel 10's fp32 form: the same with lse [H, n] fp32 (d = 64, as the
+// other training kernels)
+extern "C" int f5_flash_prefix_f32_fwd_lse(const void* q, const void* k, const void* v,
+                                           const void* kv_lens, void* out, void* lse, int H,
+                                           int n, int d, float scale_log2, int device,
+                                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!attn_dims_ok(H, n) || d != 64) return (int)cudaErrorInvalidValue;
+  return (int)f5::launch_fwd_f32<64, true>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* f5_error_string(int code) {

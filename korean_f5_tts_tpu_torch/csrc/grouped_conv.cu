@@ -8,20 +8,52 @@
 // b: [C] bf16 or null. Accumulation, bias and Mish in fp32, one cast.
 //
 // What bounds it on the card: at the main-path shape (B = 2, N = 1536,
-// C = 1024, k = 31) a call is 12.5 GFLOP against 6 MB of activations and
-// 2 MB of weights: the tensor cores bound it, provided the 31-fold reuse of
-// each input row stays on chip instead of being unfolded in device memory.
+// C = 1024, k = 31) a call is 12.5 GFLOP (0.0126 ms at 989 TFLOP/s) against
+// 6 MB of activations and 2 MB of weights: the tensor cores bound it,
+// provided the 31-fold reuse of each input row stays on chip instead of
+// being unfolded in device memory.
 //
-// Design: implicit GEMM, one 256-thread block per (128 output rows, group,
-// batch item). The block loads its input window (128 + k - 1 rows x 64
-// channels) into shared memory once; each tap t is then an [128 x 64] x
-// [64 x 64] product whose A operand is the window shifted by t rows (just an
-// ldmatrix address offset). One group's weights, 31 x 64 x 64 x 2 B = 254 KB,
-// exceed the 227 KB of shared memory, so they are split by taps: the block
-// streams one tap's [64 x 64] weight tile at a time. Eight warps as 4 x 2
-// tiles of 32 x 32, mma.sync m16n8k16, fp32 accumulation. The TPU kernel's
-// 128-lane block-diagonal group packing (grouped_conv.py:53-63) is a lane
-// trade for the TPU's MXU and is not carried over.
+// Design (bf16): implicit GEMM on TMA and wgmma (hopper.cuh), one block per
+// (128 output rows, group, batch item), 288 threads: two consumer
+// warpgroups of 64 output rows each and one producer warp.
+//   window   TMA loads the block's input window (rows n0 - k/2 .. n0 + 127 +
+//            k/2 of the group's 64 channels) once, through a 3-D map over
+//            [B, N, C] whose box TMA fills with zeros outside [0, N), the
+//            negative rows included: exactly the SAME padding. The window
+//            lies in the 128-byte swizzled layout.
+//   weights  one group's 31 taps are 254 KB, past the 227 KB of shared
+//            memory, so the producer streams the per-tap tiles w[t, 0:64,
+//            c0:c0+64] by TMA through a ring of kConvStages stages with
+//            full/empty mbarriers. A tile is [64 in][64 out], out-channels
+//            contiguous: the MN-major B operand (wgmma_desc_mn), the P.V form
+//            of the attention core.
+//   A        tap t is the window shifted by t rows. wgmma's shared-memory
+//            descriptors address 8-row core matrices, so a one-row shift is
+//            no descriptor offset: each warp reads its 16 rows at the shift
+//            with ldmatrix (any row of the swizzled layout, conflict-free)
+//            into the register-A fragments, as kernel 7's core reads its A
+//            operand. Two fragment buffers: tap t + 1's are read while tap
+//            t's wgmma group runs, and a buffer is written only after the
+//            group that read it is done (wait_group 1), so ptxas has no
+//            wgmma to serialize. (The other way, the TPU kernel's phase
+//            trick, kept eight copies of the window shifted by 0-7 rows,
+//            160 KB, so that tap 8a + r is copy r at a whole-atom offset of
+//            8a rows, both operands from shared memory, one block an SM.
+//            It was built and timed against this design at the main shape
+//            and lost, 0.0441-0.0443 ms against 0.0278-0.0281 ms (H100 80GB
+//            HBM3, 700 W; PERF.md section 6), so it was taken out.)
+//   products wgmma m64n64k16 with A from registers, four k16 steps a tap,
+//            one group a tap, fp32 accumulation over the 31 taps.
+//   epilogue bias and Mish in fp32 (softplus in the logaddexp form), one
+//            bf16 cast, 4-byte stores masked at N.
+// 54 KB of shared memory and at most 112 registers a thread: two blocks an
+// SM, so one block's epilogue overlaps the other's products. Grid at the
+// main shape: 12 x 16 x 2 = 384 blocks on 132 SMs (2.9 blocks an SM). The
+// TPU kernel's 128-lane block-diagonal group packing (grouped_conv.py:53-63)
+// is a lane trade for the TPU's MXU and is not carried over. Before this
+// design kernel C was an mma.sync implicit GEMM (eight warps, one tap's
+// weights loaded synchronously between two barriers, 0.0547 ms at the main
+// shape).
 //
 // fp32 operands (f5_grouped_conv_f32_fwd; the offline entry points keep fp32
 // weights unless told otherwise): grouped_conv_f32_kernel, the same implicit
@@ -35,16 +67,14 @@
 // output rows, group, batch item), 4 x 4 outputs a thread; the window
 // (64 + k - 1 rows) stays in shared memory for all taps and one tap's
 // [64 x 64] weights are staged at a time.
-#include "mma.cuh"
+#include "gemm_bf16.cuh"  // hopper.cuh, align_1024, allow_smem
 
 namespace f5 {
 namespace {
 
 constexpr int kCG = 64;        // channels per group (the only width taken)
-constexpr int kBM = 128;       // output rows per block
-constexpr int kMaxTaps = 33;   // window rows = kBM + k - 1
-constexpr int kLD = kCG + 8;
-constexpr int kThreads = 256;
+constexpr int kMaxTaps = 33;   // window rows = kConvRows + k - 1
+constexpr int kThreads = 256;  // the fp32 form's block
 
 __device__ __forceinline__ float mish(float x) {
   // softplus as logaddexp(x, 0), the form jax.nn.softplus computes
@@ -52,91 +82,140 @@ __device__ __forceinline__ float mish(float x) {
   return x * tanhf(sp);
 }
 
-__global__ void __launch_bounds__(kThreads)
-grouped_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const bf16* __restrict__ bias, bf16* __restrict__ out, int N, int C,
-                    int taps, int fuse_mish) {
-  __shared__ __align__(16) bf16 sX[(kBM + kMaxTaps - 1) * kLD];
-  __shared__ __align__(16) bf16 sW[kCG * kLD];
-  const int n0 = blockIdx.x * kBM;
-  const int grp = blockIdx.y;
+constexpr int kConvWgs = 2;                      // consumer warpgroups, 64 rows each
+constexpr int kConvRows = 64 * kConvWgs;         // output rows a block
+constexpr int kConvThreads = 128 * kConvWgs + 32;
+constexpr int kConvStages = 4;                   // weight ring depth
+constexpr int kConvWinBytes = (kConvRows + kMaxTaps - 1) * kRowBytes;  // 20 KB, 1024-aligned
+constexpr int kConvTapBytes = kCG * kRowBytes;   // one tap's [64][64] weights
+constexpr int kConvSmemBytes =
+    1024 + kConvWinBytes + kConvStages * kConvTapBytes + (2 * kConvStages + 1) * 8;
+
+// mish(x) = x tanh(softplus(x)) = x n / (n + 2) with n = e^x (e^x + 2): one
+// exponential and one division in place of mish()'s exp, log1p and tanh (the
+// bf16 form's epilogue was a third of its time). x > 20 gives x (tanh is 1 in
+// fp32 there); rounded once to bf16, it agrees with mish() to fp32 rounding.
+__device__ __forceinline__ float mish_fast(float x) {
+  const float e = __expf(fminf(x, 20.f));
+  const float n = e * (e + 2.f);
+  return x * __fdividef(n, n + 2.f);
+}
+
+// a warp's 16 output rows of the m64n64 accumulator (acc[4j + e] is row
+// row0 + g + 8 (e >> 1), channel 8j + 2t + (e & 1)) plus the bias, Mish in
+// fp32 and one bf16 cast, into out (the item's [N, C] rows at column c0),
+// rows masked at N
+__device__ __forceinline__ void conv_epilogue(const float (&acc)[32], const bf16* __restrict__ bias,
+                                              bf16* __restrict__ out, int N, int C, int c0,
+                                              int row0, int lane, int fuse_mish) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    const float bb0 = bias ? __bfloat162float(bias[c0 + col]) : 0.f;
+    const float bb1 = bias ? __bfloat162float(bias[c0 + col + 1]) : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      if (row < N) {
+        float v0 = acc[4 * j + 2 * half] + bb0;
+        float v1 = acc[4 * j + 2 * half + 1] + bb1;
+        if (fuse_mish) {
+          v0 = mish_fast(v0);
+          v1 = mish_fast(v1);
+        }
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * C + col) = pack_bf16x2(v0, v1);
+      }
+    }
+  }
+}
+
+// the register-A fragments of tap t for this warp's 16 output rows: window
+// rows row0 + t .. + 15, four k16 steps over the 64 input channels
+__device__ __forceinline__ void conv_frags(uint32_t (&a)[4][4], const unsigned char* win,
+                                           int row0, int t, int lane) {
+  const int r = row0 + t + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(a[kk], swz_chunk_addr(win, r, 2 * kk + (lane >> 4)));
+}
+
+// one tap's product, acc += A . W_t, as one wgmma group
+__device__ __forceinline__ void conv_issue(float (&acc)[32], const uint32_t (&a)[4][4],
+                                           const unsigned char* tile_w) {
+  const uint64_t db = wgmma_desc_mn(tile_w);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64_tb(acc, a[kk], db + 128 * kk, 1);
+  wgmma_commit();
+}
+
+__global__ void __launch_bounds__(kConvThreads, 2)
+grouped_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w,
+                          const bf16* __restrict__ bias, bf16* __restrict__ out, int N, int C,
+                          int taps, int fuse_mish) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* win = smem;
+  unsigned char* ring = smem + kConvWinBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kConvStages * kConvTapBytes);
+  uint64_t* empty = full + kConvStages;
+  uint64_t* win_full = empty + kConvStages;
+  const int n0 = blockIdx.x * kConvRows;
+  const int c0 = blockIdx.y * kCG;
   const int item = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp & 3, warp_n = warp >> 2;
-  const int pad = taps / 2;
-  const int c0 = grp * kCG;
-  const bf16* xb = x + (size_t)item * N * C;
 
-  // input window: positions [n0 - pad, n0 + kBM + pad), zero outside [0, N)
-  const int rows = kBM + taps - 1;
-  for (int i = tid; i < rows * (kCG / 8); i += kThreads) {
-    const int r = i / (kCG / 8);
-    const int c = (i % (kCG / 8)) * 8;
-    const int pos = n0 - pad + r;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (pos >= 0 && pos < N) val = *reinterpret_cast<const int4*>(xb + (size_t)pos * C + c0 + c);
-    *reinterpret_cast<int4*>(sX + r * kLD + c) = val;
-  }
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-  for (int t = 0; t < taps; ++t) {
-    // this tap's weights w[t, :, c0:c0+64] as a [k = in][n = out] tile
-    for (int i = tid; i < kCG * (kCG / 8); i += kThreads) {
-      const int r = i / (kCG / 8);
-      const int c = (i % (kCG / 8)) * 8;
-      *reinterpret_cast<int4*>(sW + r * kLD + c) =
-          *reinterpret_cast<const int4*>(w + ((size_t)t * kCG + r) * C + c0 + c);
+  if (tid == 0) {
+    for (int s = 0; s < kConvStages; ++s) {
+      mbar_init(&full[s], 1);              // the producer's arrive; TMA counts the bytes
+      mbar_init(&empty[s], 4 * kConvWgs);  // lane 0 of every consumer warp
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kCG; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(a[mi], a_frag_addr(sX + (t + warp_m * 32 + mi * 16) * kLD + kk, kLD, lane));
-#pragma unroll
-      for (int ni = 0; ni < 4; ni += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, b_kn_addr(sW + kk * kLD + warp_n * 32 + ni * 8, kLD, lane));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16_16816(acc[mi][ni], a[mi], b[0], b[1]);
-          mma_bf16_16816(acc[mi][ni + 1], a[mi], b[2], b[3]);
-        }
+    mbar_init(win_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConvWgs) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(win_full, (kConvRows + taps - 1) * kRowBytes);
+      tma_load_3d(win, &map_x, win_full, c0, n0 - taps / 2, item);
+      for (int t = 0; t < taps; ++t) {
+        const int s = t % kConvStages;
+        mbar_wait(&empty[s], ((t / kConvStages) & 1) ^ 1);  // passes at once on the first round
+        mbar_arrive_expect_tx(&full[s], kConvTapBytes);
+        tma_load_2d(ring + s * kConvTapBytes, &map_w, &full[s], c0, t * kCG);
       }
     }
-    __syncthreads();  // sW is rewritten by the next tap
+    return;
   }
 
-  const int g = lane >> 2, tq = lane & 3;
-  bf16* ob = out + (size_t)item * N * C;
+  const int wg = warp >> 2;
+  const int row0 = wg * 64 + (warp & 3) * 16;  // this warp's first output row in the block
+  float acc[32];
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = c0 + warp_n * 32 + ni * 8 + 2 * tq;
-    const float bb0 = bias ? __bfloat162float(bias[col]) : 0.f;
-    const float bb1 = bias ? __bfloat162float(bias[col + 1]) : 0.f;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = n0 + warp_m * 32 + mi * 16 + g + half * 8;
-        if (row < N) {
-          float v0 = acc[mi][ni][2 * half] + bb0;
-          float v1 = acc[mi][ni][2 * half + 1] + bb1;
-          if (fuse_mish) {
-            v0 = mish(v0);
-            v1 = mish(v1);
-          }
-          *reinterpret_cast<uint32_t*>(ob + (size_t)row * C + col) = pack_bf16x2(v0, v1);
-        }
-      }
-    }
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  uint32_t a0[4][4], a1[4][4];
+  mbar_wait(win_full, 0);
+  conv_frags(a0, win, row0, 0, lane);
+  // tap t on `cur`; then, once tap t - 1's group is done, its stage is freed
+  // and tap t + 1's fragments go into `next`, the buffer that group read
+  auto step = [&](int t, const uint32_t (&cur)[4][4], uint32_t (&next)[4][4]) {
+    const int s = t % kConvStages;
+    mbar_wait(&full[s], (t / kConvStages) & 1);
+    conv_issue(acc, cur, ring + s * kConvTapBytes);
+    wgmma_wait<1>();
+    if (t > 0 && lane == 0) mbar_arrive(&empty[(t - 1) % kConvStages]);
+    if (t + 1 < taps) conv_frags(next, win, row0, t + 1, lane);
+  };
+  for (int t = 0; t < taps; t += 2) {
+    step(t, a0, a1);
+    if (t + 1 < taps) step(t + 1, a1, a0);
   }
+  wgmma_wait<0>();
+  wgmma_fence_regs(acc);
+  conv_epilogue(acc, bias, out + (size_t)item * N * C + c0, N, C, c0, n0 + row0, lane,
+                fuse_mish);
 }
 
 constexpr int kFM = 64;         // output rows per block of the fp32 kernel
@@ -231,17 +310,24 @@ extern "C" int f5_grouped_conv_f32_fwd(const void* x, const void* w, const void*
   return (int)cudaGetLastError();
 }
 
-// C / groups must be 64; taps odd and at most 33.
+// C / groups must be 64; taps odd and at most 33. x, w, out 16-byte aligned.
 extern "C" int f5_grouped_conv_fwd(const void* x, const void* w, const void* b, void* out, int B,
                                    int N, int C, int groups, int taps, int fuse_mish, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!conv_dims_ok(B, N, C, groups, taps)) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + f5::kBM - 1) / f5::kBM, groups, B);
-  typedef f5::bf16 T;
-  f5::grouped_conv_kernel<<<grid, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(out), N, C, taps, fuse_mish);
+  CUtensorMap map_x, map_w;
+  if (!f5::tensor_map_3d(&map_x, x, B, N, C, f5::kConvRows + taps - 1, f5::kMapBf16) ||
+      !f5::tensor_map(&map_w, w, (uint64_t)taps * f5::kCG, C, f5::kCG, f5::kMapBf16))
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<bool> ready[f5::kMaxDevices];
+  err = f5::allow_smem(f5::grouped_conv_wgmma_kernel, f5::kConvSmemBytes, ready);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + f5::kConvRows - 1) / f5::kConvRows, groups, B);
+  f5::grouped_conv_wgmma_kernel<<<grid, f5::kConvThreads, f5::kConvSmemBytes,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_w, static_cast<const f5::bf16*>(b), static_cast<f5::bf16*>(out), N, C, taps,
+      fuse_mish);
   return (int)cudaGetLastError();
 }

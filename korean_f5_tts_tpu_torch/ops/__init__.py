@@ -39,6 +39,11 @@ KERNELS = {
     "flash_prefix_f32": (flash_prefix, "launches_f32"),
     "ff_block_f32": (ff_block, "launches_f32"),
     "grouped_conv_f32": (grouped_conv, "launches_f32"),
+    # the fp32 forms of kernels 10-13 (what fp32 training runs: Trainer's default)
+    "flash_prefix_lse_f32": (flash_prefix, "launches_lse_f32"),
+    "flash_prefix_dq_lsein_f32": (flash_prefix, "launches_dq_lsein_f32"),
+    "flash_prefix_dq_f32": (flash_prefix, "launches_dq_f32"),
+    "flash_prefix_dkv_f32": (flash_prefix, "launches_dkv_f32"),
 }
 
 

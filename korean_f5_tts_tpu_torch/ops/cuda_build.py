@@ -47,14 +47,18 @@ _SIGNATURES = {
     "f5_flash_prefix_fwd_mma": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     # q, k, v, kv_lens, out, lse, H, n, d, scale_log2, device, stream
     "f5_flash_prefix_fwd_lse": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
+    "f5_flash_prefix_f32_fwd_lse": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
     # q, k, v, dO, dvec, lse, kv_lens, dq, H, n, d, scale_log2, sm_scale, device, stream
     "f5_flash_prefix_dq_lsein": (_P,) * 8 + (_I, _I, _I, _F, _F, _I, _P),
+    "f5_flash_prefix_f32_dq_lsein": (_P,) * 8 + (_I, _I, _I, _F, _F, _I, _P),
     # q, k, v, dO, dvec, kv_lens, dq, lse_out, H, n, d, scale_log2, sm_scale, device,
     # stream
     "f5_flash_prefix_dq": (_P,) * 8 + (_I, _I, _I, _F, _F, _I, _P),
+    "f5_flash_prefix_f32_dq": (_P,) * 8 + (_I, _I, _I, _F, _F, _I, _P),
     # q, k, v, dO, dvec, lse, kv_lens, dk, dv, H, n, d, scale_log2, sm_scale, device,
     # stream
     "f5_flash_prefix_dkv": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
+    "f5_flash_prefix_f32_dkv": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
     # q8, k8, v, c, sv, kv_lens, out, H, n, n_pad, pv_i8, device, stream
     "f5_flash_prefix_i8_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _P),
     # q, k, v, their item/head/row strides (q, k, v), q8, k8, v8, c, sv, b, h, n,

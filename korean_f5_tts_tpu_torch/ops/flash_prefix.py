@@ -10,11 +10,13 @@ i attends keys [0, kv_lens[i]). Kernel A (csrc/flash_prefix.cu) replaces the
 TPU's _flash_prefix_folded; kernels 10-13 (csrc/flash_prefix_train.cu)
 replace _flash_prefix_folded_lse, _flash_prefix_dq_lsein, _flash_prefix_dq
 and _flash_prefix_dkv (10 runs on kernel A's TMA + wgmma attention core,
-csrc/attn_wgmma.cuh, 13 on the attention backward core,
+csrc/attn_wgmma.cuh, 11 and 13 on the attention backward core,
 csrc/attn_bwd_wgmma.cuh; both need 16-byte-aligned contiguous operands,
-which the wrappers check); kernel 14 (csrc/flash_prefix_int8.cu, the int8
-form of the attention core) replaces _flash_prefix_folded_i8; kernel 18
-(csrc/flash_prefix_rope.cu) replaces _flash_prefix_rope_call, and kernel 19
+which the wrappers check; their fp32 forms are FFMA kernels,
+csrc/flash_prefix_train_f32.cu and kernel A's fp32 kernel); kernel 14
+(csrc/flash_prefix_int8.cu, the int8 form of the attention core) replaces
+_flash_prefix_folded_i8; kernel 18 (csrc/flash_prefix_rope.cu) replaces
+_flash_prefix_rope_call, and kernel 19
 (csrc/flash_prefix_qkv.cu) replaces _flash_prefix_qkv_call: both are the
 rope form of the attention core of csrc/attn_wgmma.cuh (strided 4-D maps
 over the split heads or the fused qkv rows, the rotation in shared memory).
@@ -33,8 +35,9 @@ D = rowsum(dO * o) are fp32 [H, n] (the JAX arrays are [H, n, 1]). A row
 with no valid key has lse 0.
 
 Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
-kernel or raise (kernel A on bf16 or fp32 operands, each form with its own
-launch counter; the others on bf16 only; the training kernels d = 64 only).
+kernel or raise (kernels A and 10-13 on bf16 or fp32 operands, all of one
+dtype, each form with its own launch counter; the others on bf16 only; the
+training kernels d = 64 only).
 flash_prefix_attention takes the autograd Function (kernel 10 forward,
 kernels 11 and 13 backward, as the JAX custom_vjp _fp_fwd/_fp_bwd does at
 :1353-1402) when a gradient is being taken, and kernel A otherwise.
@@ -55,10 +58,14 @@ I8_KEY_TILE = 128   # keys per tile of kernel 14: part of its arithmetic (p8 see
 # kernel launches by the wrappers (not plain calls)
 launches = 0           # kernel A, flash_prefix_folded on bf16 operands
 launches_f32 = 0       # kernel A's fp32 form, flash_prefix_folded on fp32 operands
-launches_lse = 0       # kernel 10, flash_prefix_folded_lse
-launches_dq_lsein = 0  # kernel 11, flash_prefix_dq_lsein
-launches_dq = 0        # kernel 12, flash_prefix_dq
-launches_dkv = 0       # kernel 13, flash_prefix_dkv
+launches_lse = 0       # kernel 10, flash_prefix_folded_lse on bf16 operands
+launches_dq_lsein = 0  # kernel 11, flash_prefix_dq_lsein on bf16 operands
+launches_dq = 0        # kernel 12, flash_prefix_dq on bf16 operands
+launches_dkv = 0       # kernel 13, flash_prefix_dkv on bf16 operands
+launches_lse_f32 = 0       # the fp32 forms of kernels 10-13 (fp32 operands)
+launches_dq_lsein_f32 = 0
+launches_dq_f32 = 0
+launches_dkv_f32 = 0
 launches_i8 = 0        # kernel 14, flash_prefix_folded_i8
 launches_i8_quant = 0  # kernel 14's quantization pass, quantize_heads
 launches_rope = 0      # kernel 18, flash_prefix_rope_attention
@@ -299,9 +306,9 @@ def flash_prefix_i8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check(what: str, q, kv_lens, others, head_dims=(64,),
-           dtypes=(torch.bfloat16,)) -> tuple[int, int, int]:
-    """Shape, dtype and device checks of a launch; returns (H, n, d)."""
+def _check(what: str, q, kv_lens, others, head_dims=(64,)) -> tuple[int, int, int]:
+    """Shape and device checks of a launch (the callers check q's dtype;
+    the others must have it); returns (H, n, d)."""
     if q.dim() != 3 or any(t.shape != q.shape for t in others):
         raise ValueError(f"{what}: q/k/v(/dO) must share one [H, n, d] shape, got "
                          f"{[tuple(t.shape) for t in (q, *others)]}")
@@ -311,10 +318,6 @@ def _check(what: str, q, kv_lens, others, head_dims=(64,),
     if kv_lens.shape != (H,) or kv_lens.dtype != torch.int32:
         raise ValueError(f"{what}: kv_lens must be int32 [{H}], got "
                          f"{kv_lens.dtype} {tuple(kv_lens.shape)}")
-    if q.dtype not in dtypes:
-        raise TypeError(f"{what}: the kernel takes bf16 operands, got {q.dtype}; fp32 "
-                        "operands are ROADMAP.md queue 2, 'fp32 operands for kernels A and "
-                        "10-13'")
     cuda_build.require_cuda(what, q, *others, dtype=q.dtype)
     cuda_build.require_cuda(what, q, kv_lens)
     return H, n, d
@@ -339,8 +342,7 @@ def flash_prefix_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{[str(t.dtype) for t in (q, k, v)]}")
     if q.device.type == "cpu":
         return prefix_attention_reference(q, k, v, kv_lens)
-    H, n, d = _check("flash_prefix", q, kv_lens, (k, v), head_dims=(64, 128),
-                     dtypes=(torch.bfloat16, torch.float32))
+    H, n, d = _check("flash_prefix", q, kv_lens, (k, v), head_dims=(64, 128))
     out = torch.empty_like(q)
     lib = cuda_build.library()
     f32 = q.dtype == torch.float32
@@ -355,72 +357,105 @@ def flash_prefix_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _train_dtype(what: str, q, *others) -> bool:
+    """The dtype rule of kernels 10-13: q, k, v (and dO) all bf16 or all
+    fp32, else TypeError; True for the fp32 form."""
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != q.dtype for t in others):
+        raise TypeError(f"{what}: q, k, v and dO must be all bfloat16 or all float32, got "
+                        f"{[str(t.dtype) for t in (q, *others)]}")
+    return q.dtype == torch.float32
+
+
 def flash_prefix_folded_lse(q, k, v, kv_lens):
-    """Kernel 10 wrapper: (o [H, n, d], lse [H, n] fp32)."""
-    global launches_lse
+    """Kernel 10 wrapper: (o [H, n, d] of q's dtype, lse [H, n] fp32); bf16
+    operands on the attention core, fp32 ones on the FFMA form."""
+    global launches_lse, launches_lse_f32
     if q.device.type == "cpu":
         return prefix_attention_lse_reference(q, k, v, kv_lens)
+    f32 = _train_dtype("flash_prefix_lse", q, k, v)
     H, n, d = _check("flash_prefix_lse", q, kv_lens, (k, v))
     out = torch.empty_like(q)
     lse = torch.empty((H, n), dtype=torch.float32, device=q.device)
-    err = cuda_build.library().f5_flash_prefix_fwd_lse(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), H, n, d, LOG2E / math.sqrt(d), q.device.index,
-        cuda_build.stream_of(q))
+    lib = cuda_build.library()
+    fwd = lib.f5_flash_prefix_f32_fwd_lse if f32 else lib.f5_flash_prefix_fwd_lse
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+              lse.data_ptr(), H, n, d, LOG2E / math.sqrt(d), q.device.index,
+              cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_fwd_lse")
-    launches_lse += 1
+    if f32:
+        launches_lse_f32 += 1
+    else:
+        launches_lse += 1
     return out, lse
 
 
 def flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv_lens):
     """Kernel 11 wrapper: dq [H, n, d] from the forward's lse."""
-    global launches_dq_lsein
+    global launches_dq_lsein, launches_dq_lsein_f32
     if q.device.type == "cpu":
         return flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv_lens)
+    f32 = _train_dtype("flash_prefix_dq_lsein", q, k, v, do)
     H, n, d = _check("flash_prefix_dq_lsein", q, kv_lens, (k, v, do))
     _rows("flash_prefix_dq_lsein", H, n, dvec, lse)
     dq = torch.empty_like(q)
-    err = cuda_build.library().f5_flash_prefix_dq_lsein(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
-        lse.data_ptr(), kv_lens.data_ptr(), dq.data_ptr(), H, n, d, LOG2E / math.sqrt(d),
-        1.0 / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
+    lib = cuda_build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
+            lse.data_ptr(), kv_lens.data_ptr(), dq.data_ptr(), H, n, d, LOG2E / math.sqrt(d),
+            1.0 / math.sqrt(d))
+    if f32:
+        err = lib.f5_flash_prefix_f32_dq_lsein(*args, q.device.index, cuda_build.stream_of(q))
+    else:
+        err = lib.f5_flash_prefix_dq_lsein(*args, q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_dq_lsein")
-    launches_dq_lsein += 1
+    if f32:
+        launches_dq_lsein_f32 += 1
+    else:
+        launches_dq_lsein += 1
     return dq
 
 
 def flash_prefix_dq(q, k, v, do, dvec, kv_lens):
     """Kernel 12 wrapper: (dq [H, n, d], lse [H, n]), the lse recomputed."""
-    global launches_dq
+    global launches_dq, launches_dq_f32
     if q.device.type == "cpu":
         return flash_prefix_dq_reference(q, k, v, do, dvec, kv_lens)
+    f32 = _train_dtype("flash_prefix_dq", q, k, v, do)
     H, n, d = _check("flash_prefix_dq", q, kv_lens, (k, v, do))
     _rows("flash_prefix_dq", H, n, dvec)
     dq = torch.empty_like(q)
     lse = torch.empty((H, n), dtype=torch.float32, device=q.device)
-    err = cuda_build.library().f5_flash_prefix_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
-        kv_lens.data_ptr(), dq.data_ptr(), lse.data_ptr(), H, n, d, LOG2E / math.sqrt(d),
-        1.0 / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
+    lib = cuda_build.library()
+    fn = lib.f5_flash_prefix_f32_dq if f32 else lib.f5_flash_prefix_dq
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
+             kv_lens.data_ptr(), dq.data_ptr(), lse.data_ptr(), H, n, d, LOG2E / math.sqrt(d),
+             1.0 / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_dq")
-    launches_dq += 1
+    if f32:
+        launches_dq_f32 += 1
+    else:
+        launches_dq += 1
     return dq, lse
 
 
 def flash_prefix_dkv(q, k, v, do, dvec, lse, kv_lens):
     """Kernel 13 wrapper: (dk, dv) [H, n, d]."""
-    global launches_dkv
+    global launches_dkv, launches_dkv_f32
     if q.device.type == "cpu":
         return flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv_lens)
+    f32 = _train_dtype("flash_prefix_dkv", q, k, v, do)
     H, n, d = _check("flash_prefix_dkv", q, kv_lens, (k, v, do))
     _rows("flash_prefix_dkv", H, n, dvec, lse)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = cuda_build.library().f5_flash_prefix_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
-        lse.data_ptr(), kv_lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), H, n, d,
-        LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
+    lib = cuda_build.library()
+    fn = lib.f5_flash_prefix_f32_dkv if f32 else lib.f5_flash_prefix_dkv
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
+             lse.data_ptr(), kv_lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), H, n, d,
+             LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_dkv")
-    launches_dkv += 1
+    if f32:
+        launches_dkv_f32 += 1
+    else:
+        launches_dkv += 1
     return dk, dv
 
 
@@ -698,7 +733,8 @@ def flash_prefix_attention_bwd(q, k, v, kv_lens, g, o=None, lse=None):
 
 class FlashPrefixAttention(torch.autograd.Function):
     """Folded prefix attention with a kernel backward: the forward is kernel
-    10 and keeps o and lse; the backward is D, kernel 11, kernel 13."""
+    10 and keeps o and lse; the backward is D, kernel 11, kernel 13 (each in
+    the operands' form: bf16 or fp32)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens):

@@ -98,8 +98,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         grouped_conv.grouped_conv1d_mish(torch.zeros((1, 16, 1024), device=dev),
                                          torch.zeros((31, 64, 1024), dtype=torch.bfloat16,
                                                      device=dev), None, groups=16)
-    with pytest.raises(TypeError, match="fp32 operands for kernels A and 10-13"):
-        flash_prefix.flash_prefix_folded_lse(f32, f32, f32, lens)  # the training kernels: bf16
+    # the training kernels take bf16 or fp32 operands, all of one dtype
+    o, lse = flash_prefix.flash_prefix_folded_lse(f32, f32, f32, lens)
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    with pytest.raises(TypeError):
+        flash_prefix.flash_prefix_folded_lse(f32, b16, f32, lens)
+    with pytest.raises(TypeError):
+        flash_prefix.flash_prefix_folded_lse(f16, f16, f16, lens)
 
 
 # --- kernel A at d = 64 on the TMA + wgmma attention core -----------------------
@@ -563,9 +568,15 @@ def test_flash_function_matches_autograd_of_the_plain_attention(dev):
 def test_training_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(10)
     q, k, v, do, kv, dvec, lse = _train_inputs(dev, gen, 128, [128, 1, 2, 3])
-    f32 = q.float()
-    with pytest.raises(TypeError, match="ROADMAP"):  # fp32 operands are a later item
-        flash_prefix.flash_prefix_folded_lse(f32, f32, f32, kv)
+    f32, f16 = q.float(), q.half()
+    with pytest.raises(TypeError):  # q, k, v, dO all bf16 or all fp32
+        flash_prefix.flash_prefix_folded_lse(f32, k, v, kv)
+    with pytest.raises(TypeError):
+        flash_prefix.flash_prefix_dq_lsein(q, k, v, do.float(), dvec, lse, kv)
+    with pytest.raises(TypeError):
+        flash_prefix.flash_prefix_dq(f16, f16, f16, f16, dvec, kv)
+    with pytest.raises(TypeError):
+        flash_prefix.flash_prefix_dkv(f32, f32, v, f32, dvec, lse, kv)
     with pytest.raises(ValueError):  # kv_lens must be int32
         flash_prefix.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv.long())
     with pytest.raises(ValueError):  # lse must be fp32 [H, n]
@@ -624,6 +635,136 @@ def test_dkv_on_the_attention_backward_core(dev, n, lens, past):
         assert _rel(got, want) <= 1e-2
     for h, length in enumerate(lens):  # keys at or past kv_len: zero gradients
         assert not dk[h, length:].any() and not dv[h, length:].any()
+
+
+# kernel 11 on the attention backward core (128 queries a block, 128-key
+# tiles): the edges of both tiles besides the cases above
+DQ_CORE_CASES = TRAIN_CORE_CASES + [
+    (1, [1], None),
+    (63, [0, 1, 63], None),
+    (64, [0, 1, 63, 64], None),
+    (65, [1, 64, 65], None),
+    (127, [1, 126, 127], None),
+    (129, [1, 63, 64, 65, 127, 128, 129], None),
+]
+
+
+@pytest.mark.parametrize("n,lens,past", DQ_CORE_CASES)
+def test_dq_on_the_attention_backward_core(dev, n, lens, past):
+    q, k, v, do, kv, _, lse, dvec = _train_core_case(dev, n, lens, past)
+    before = flash_prefix.launches_dq_lsein
+    dq = flash_prefix.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
+    assert flash_prefix.launches_dq_lsein == before + 1
+    want = flash_prefix.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv)
+    live = [h for h, length in enumerate(lens) if length > 0]
+    _close(dq, want)
+    if n == 1:  # the one key gives dS = P (dP - D) = 0: dq is zero, `want` rounding noise
+        assert dq.float().abs().max().item() <= 1e-5
+    else:
+        assert _rel(dq[live], want[live]) <= 1e-2
+    for h, length in enumerate(lens):  # no valid key: zero dq
+        if length == 0:
+            assert not dq[h].any()
+
+
+class _NoTF32:
+    """The plain fp32 versions run with both of PyTorch's TF32 switches off."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+
+
+@pytest.mark.parametrize("n,lens,past", DQ_CORE_CASES)
+def test_fp32_training_kernels(dev, n, lens, past):
+    """The fp32 forms of 10-13: nothing is rounded below fp32, so o and lse
+    within 1e-5 and the gradients within 1e-4 (relative L2) of the plain
+    versions; each form counts on its own counter."""
+    q, k, v, do, kv, _, _, _ = (t.float() if t.dtype == torch.bfloat16 else t
+                                for t in _train_core_case(dev, n, lens, past))
+    names = ("launches_lse", "launches_dq_lsein", "launches_dq", "launches_dkv")
+    before = {nm: getattr(flash_prefix, nm) for nm in names + tuple(f"{nm}_f32" for nm in names)}
+    o10, lse10 = flash_prefix.flash_prefix_folded_lse(q, k, v, kv)
+    dvec = (do * o10).sum(-1)
+    dq11 = flash_prefix.flash_prefix_dq_lsein(q, k, v, do, dvec, lse10, kv)
+    dq12, lse12 = flash_prefix.flash_prefix_dq(q, k, v, do, dvec, kv)
+    dk, dv = flash_prefix.flash_prefix_dkv(q, k, v, do, dvec, lse10, kv)
+    for nm in names:
+        assert getattr(flash_prefix, nm) == before[nm]
+        assert getattr(flash_prefix, f"{nm}_f32") == before[f"{nm}_f32"] + 1
+    with _NoTF32():
+        o, lse = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+        dq_p = flash_prefix.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse10, kv)
+        dk_p, dv_p = flash_prefix.flash_prefix_dkv_reference(q, k, v, do, dvec, lse10, kv)
+    live = [h for h, length in enumerate(lens) if length > 0]
+    assert o10.dtype == dq11.dtype == dk.dtype == dv.dtype == torch.float32
+    assert _rel(o10[live], o[live]) <= 1e-5 and _rel(lse10, lse) <= 1e-5
+    assert _rel(lse12, lse) <= 1e-5
+    for got, want in ((dq11, dq_p), (dq12, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert torch.isfinite(got).all()
+        if n == 1 and want is not dv_p:  # dq and dk are zero at n = 1: rounding noise
+            assert got.abs().max().item() <= 1e-5
+        else:
+            assert _rel(got[live], want[live]) <= 1e-4
+    for h, length in enumerate(lens):
+        if length == 0:
+            assert not o10[h].any() and not lse10[h].any() and not dq11[h].any()
+        assert not dk[h, length:].any() and not dv[h, length:].any()
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (2, 15), (1, 16), (3, 17), (1, 31), (2, 127), (1, 128),
+                                 (1, 129), (2, 1376), (2, 1536)])
+@pytest.mark.parametrize("bias,fuse_mish", [(True, True), (False, False)])
+def test_grouped_conv_on_wgmma(dev, B, N, bias, fuse_mish):
+    gen = torch.Generator(device=dev).manual_seed(23 + N)
+    x = _bf16((B, N, 1024), dev, gen)
+    w = _bf16((31, 64, 1024), dev, gen, (64 * 31) ** -0.5)
+    b = _bf16((1024,), dev, gen, 0.1) if bias else None
+    before = grouped_conv.launches
+    got = grouped_conv.grouped_conv1d_mish(x, w, b, groups=16, fuse_mish=fuse_mish)
+    assert grouped_conv.launches == before + 1
+    with _NoTF32():
+        want = grouped_conv.grouped_conv1d_mish_reference(x, w, b, groups=16, fuse_mish=fuse_mish)
+    _close(got, want)
+    assert _rel(got, want) <= 5e-3
+
+
+def test_trainer_runs_fp32_by_default(dev, tmp_path):
+    """Trainer with no compute_dtype (fp32, as the JAX Trainer) takes two
+    finite updates through the fp32 forms of 10, 11 and 13 alone."""
+    import numpy as np
+
+    from korean_f5_tts_tpu_torch.config import DiTConfig
+    from korean_f5_tts_tpu_torch.data.dataset import CustomDataset
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.train.trainer import Trainer
+
+    arch = DiTConfig(dim=128, depth=2, heads=2, ff_mult=2, text_dim=64, conv_layers=1,
+                     text_num_embeds=30, checkpoint_activations=True)
+    params = redraw_zero_init(init_dit(arch, seed=0, device=dev), seed=1)
+    rng = np.random.default_rng(0)
+    rows = [{"mel_spec": rng.standard_normal((100, f)).astype(np.float32), "text": "a row",
+             "duration": f * 256 / 24_000} for f in (200, 180, 150, 199)]
+    vocab = {c: i + 1 for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz")}
+    trainer = Trainer(params, arch, epochs=10, learning_rate=1e-4, num_warmup_updates=2,
+                      checkpoint_path=str(tmp_path), batch_size_per_gpu=4 * 200, max_samples=4,
+                      last_per_updates=10**9, save_per_updates=10**9, logger=None,
+                      vocab_char_map=vocab)
+    reset_launch_counts()
+    out = trainer.train(CustomDataset(rows, preprocessed_mel=True), resumable_with_seed=1,
+                        max_updates=2)
+    counts = launch_counts()
+    assert out["updates"] == 2 and np.isfinite(out["losses"]).all()
+    want = dict.fromkeys(KERNELS, 0)
+    steps = 2
+    want.update(flash_prefix_lse_f32=2 * arch.depth * steps,
+                flash_prefix_dq_lsein_f32=arch.depth * steps,
+                flash_prefix_dkv_f32=arch.depth * steps)
+    assert counts == want
 
 
 # --- the opt-in attention paths: kernels 7, 8, 18, 19 ---------------------------------

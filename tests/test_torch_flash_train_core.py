@@ -1,11 +1,13 @@
-"""The references that kernels 10 (forward + lse, on the attention core) and
-13 (dk and dv, on the attention backward core) are held to on the card,
-against the JAX package's Pallas kernels in interpret mode on the CPU.
+"""The references that kernels 10 (forward + lse, on the attention core), 11
+(dq from the lse) and 13 (dk and dv, both on the attention backward core)
+are held to on the card, against the JAX package's Pallas kernels in
+interpret mode on the CPU.
 
 The plain versions (flash_prefix_folded_lse and flash_prefix_dkv on CPU
 tensors) meet the JAX kernels at the edges the Hopper tiles introduce:
-kernel 10 takes 192 query rows a block and 128-key tiles, kernel 13 128 keys
-a block and 64-query tiles. So n is 100, 200 or 301 and kv_len 1, 63, 64, 65,
+kernel 10 takes 192 query rows a block and 128-key tiles, kernel 11 128
+query rows a block and 128-key tiles, kernel 13 128 keys a block and 64-query
+tiles. So n is 100, 200 or 301 (for 11 also 64 and 129) and kv_len 1, 63, 64, 65,
 127, 128, 129 or n (those <= n), 2-4 folded heads a case and one head of
 each case at kv_len n. At n = 301 a row of the [H, n] fp32 lse and D starts
 at no 16-byte boundary (1,204 bytes a head): the backward core stages those
@@ -16,7 +18,9 @@ inputs are zero-padded to the next multiple. For kernel 10 the padded keys
 lie past every kv_len and are masked, so its first n rows are the function at
 n. For kernel 13, q, dO, lse and D are padded with zeros: a padded query then
 has P = 1 on the valid keys but dO = 0 and D = 0, so it adds nothing to dk or
-dv, and the first n rows are the function at n.
+dv, and the first n rows are the function at n. For kernel 11 the padded
+queries get lse 0 and D 0 and their rows are dropped; the padded keys lie
+past every kv_len.
 
 Tolerances, as tests/test_torch_flash_bwd.py: fp32 1e-5 for o and lse, 1e-4
 absolute and relative for the gradients (summation order; the scale meets
@@ -132,3 +136,27 @@ def test_kernel_13_reference_at_the_backward_core_tile_edges(n, lens, dtype):
     for h, length in enumerate(lens):
         assert not dk_p[h, length:].any() and not dv_p[h, length:].any()
         assert not dk_j[h, length:n].any() and not dv_j[h, length:n].any()
+
+
+# kernel 11's core besides CASES: a single query block that ends at its 64th
+# row, and one whose last key tile holds a single key
+DQ_CASES = CASES + [pytest.param(n, lens, dtype, id=f"n{n}-kv{'_'.join(map(str, lens))}-{dtype}")
+                    for n, lens in ((64, [1, 63, 64]), (129, [1, 128, 129]))
+                    for dtype in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("n,lens,dtype", DQ_CASES)
+def test_kernel_11_reference_at_the_dq_core_tile_edges(n, lens, dtype):
+    (tq, tk, tv, tdo), jx, lens_np = _inputs(n, lens, dtype)
+    q, k, v, do = jx
+    o_j, lse_j = _jax_forward(jx, lens_np)
+    rows = np.arange(q.shape[1]) < n
+    dvec = np.asarray(jnp.sum(do.astype(jnp.float32) * o_j.astype(jnp.float32), axis=-1))
+    lse = np.asarray(lse_j)[..., 0]
+    dvec, lse = (np.where(rows, a, 0.0).astype(np.float32) for a in (dvec, lse))
+    dq_j = jfp._flash_prefix_dq_lsein(q, k, v, do, jnp.asarray(dvec[..., None]),
+                                      jnp.asarray(lse[..., None]), jnp.asarray(lens_np), SCALE,
+                                      bq=128, ck=128, cast=True)
+    dq_p = fp.flash_prefix_dq_lsein(tq, tk, tv, tdo, t(dvec[:, :n]), t(lse[:, :n]), t(lens_np))
+    assert dq_p.dtype == tq.dtype
+    _close(dq_p.float().numpy(), np.asarray(dq_j.astype(jnp.float32))[:, :n], dtype, 1e-4)
