@@ -7,10 +7,12 @@ Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the Hopper kernels from
      korean_f5_tts_tpu_torch/csrc and print the build time;
   2. hold each of the sixteen kernels, kernel 14's quantization pass and
-     the fp32 forms of A, B, C (what
-     the offline entry points run by default) and of 10-13 (what fp32
-     training runs; bound: 67 TFLOP/s, fp32
-     outside the tensor cores, since their products are FFMA) (bf16: A, B,
+     the fp32 forms of A, B, C, 7, 8, 14 and its pass, 18, 19 (what the
+     offline entry points run by default, under each attn_path and
+     attn_int8) and of 10-13 (what fp32 training runs; 11-13 split 3xTF32
+     products on the tensor cores; bound of every fp32 form: its
+     fp32-accurate products at the 3xTF32 rate, 494.7 / 3 TFLOP/s, with the
+     FFMA rate's 67 TFLOP/s printed beside) (bf16: A, B,
      C; int8: 9, 5, 6, 4;
      training: 10, 11, 12, 13, with PyTorch's flash attention forward and
      backward as the library yardsticks of 10 and of 11 + 13, 10 on the
@@ -118,7 +120,13 @@ Phases (any failure raises and exits non-zero):
      exact launch counts), its mel against the same path's plain versions
      (bound 5e-2), cfm_sample on a batch of 2 under a duration mask (kernel
      9 for the projections), and the server's --compute_dtype float32
-     --quantize arguments serving one request; then cfm_sample on a
+     --quantize arguments serving one request; F5TTS(device="cuda") with its
+     default fp32 weights under linear_fused, rope_in_kernel, qkv_kernel,
+     attn_int8 "qk" and "qkpv", and quantize=True with "qk" (the fp32 forms
+     of 7, 8, 18, 19, 14 and its pass, exact launch counts, the mel against
+     the same path's plain versions: 1e-4, int8 attention 5e-2) and the
+     server's --compute_dtype float32 --attn_path qkv_kernel serving one
+     request; then cfm_sample on a
      batch of 3 whose durations fall into two
      buckets, under "rope_in_kernel" and "qkv_kernel": two groups run, the
      group of 2 under a duration mask, each item equals the same item
@@ -151,14 +159,17 @@ last line is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --ab PARENT
 
 instead times kernels A, B, C, 7, 8, 4, 5, 6, 9, 14 (both modes, each with
-its quantization pass, through flash_prefix_attention_i8), 18, 19 and, at
-the training shape, 10, 11, 12 and 13 of the
+its quantization pass, through flash_prefix_attention_i8), 18, 19, the fp32
+forms of A, B, 7, 8, 14 (both modes), 18, 19 and, at the training shape,
+10, 11, 12 and 13 in bf16 and fp32 of the
 checkout at PARENT (for example the parent commit unpacked by `git archive`)
 and of this one under one timer, in turns parent, change, change, parent,
 with the library yardsticks in each turn (A's: SDPA on keys sliced to the
 common kv_len, under each backend; 10's and 11 + 13's: PyTorch's flash
-attention forward and backward), and fails if A, B, C, 7, 8, 4, 5, 6, 9,
-10, 11, 12, 13 or 19 moved by more than 5%.
+attention forward and backward; 11 + 13 fp32's: its efficient attention's
+backward on fp32; a form the parent lacks is printed as refused), and fails
+if A, B, C, 7, 8, 4, 5, 6, 9, 10, 11, 12, 13, 19 or the fp32 forms of A, B,
+10, 12 moved by more than 5%.
 
 It needs a CUDA card and the repository checkout it sits in; it imports
 nothing of JAX.
@@ -203,6 +214,13 @@ REPLACES = {
     "flash_prefix_dq_lsein_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:1033",
     "flash_prefix_dq_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:978",
     "flash_prefix_dkv_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:1151",
+    "ln_mod_matmul_f32": "korean_f5_tts_tpu/ops/fused_linears.py:34",
+    "proj_gated_residual_f32": "korean_f5_tts_tpu/ops/fused_linears.py:198",
+    "flash_prefix_rope_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:1424",
+    "flash_prefix_qkv_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:1550",
+    "flash_prefix_i8_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:889",
+    "flash_prefix_i8_qk_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:889",
+    "flash_prefix_i8_quant_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:901",
 }
 SOURCES = {
     "flash_prefix": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
@@ -228,10 +246,19 @@ SOURCES = {
     "flash_prefix_lse_f32": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
     **dict.fromkeys(("flash_prefix_dq_lsein_f32", "flash_prefix_dq_f32", "flash_prefix_dkv_f32"),
                     "korean_f5_tts_tpu_torch/csrc/flash_prefix_train_f32.cu"),
+    **dict.fromkeys(("ln_mod_matmul_f32", "proj_gated_residual_f32"),
+                    "korean_f5_tts_tpu_torch/csrc/gemm_f32.cuh"),
+    **dict.fromkeys(("flash_prefix_rope_f32", "flash_prefix_qkv_f32"),
+                    "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu"),
+    "flash_prefix_i8_f32": "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh",
+    "flash_prefix_i8_qk_f32": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8_f32.cu",
+    "flash_prefix_i8_quant_f32": "korean_f5_tts_tpu_torch/csrc/quant_heads.cu",
 }
 # published peaks of the H100 SXM (dense): the roofline a kernel's time is held against
-# ("fp32": outside the tensor cores; the fp32 forms of A, B, C multiply with FFMA)
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# ("fp32": FFMA outside the tensor cores; "fp32_3xtf32": an fp32-accurate product on
+# the tensor cores as three TF32 products, 494.7 TFLOP/s / 3, the least time for the
+# fp32 forms' products, which bound() takes for kind "fp32" and prints the FFMA one beside)
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "fp32_3xtf32": 494.7e12 / 3}
 F32_REL = 1e-4  # fp32 forms against their plain versions: fp32 sums in another order
 # the fp32 forms of 10-13: o and lse within 1e-5, the gradients within 1e-4
 # (relative L2); a single-pass TF32 product (10 mantissa bits) would read
@@ -250,7 +277,10 @@ INT8_REL = 2e-3
 # kernels 4 and 5 on fp32 rows: the same tie flips, with one rounding of the
 # fp32 output and no bf16 step (2.2e-5 and 2.7e-5 at the main shape, PERF.md
 # section 6); a bf16 step alone would read ~1e-3, so this bound tells the two
-# apart, and check_int8_fp32_rows shows that on a bf16-rounded control
+# apart, and check_int8_fp32_rows shows that on a bf16-rounded control.
+# Kernel 14's fp32 form in "qkpv" is held to it too (exact integer products,
+# p8 flips at a rint tie only, one fp32 rounding of the output; the control
+# in check_fp32_attn_paths)
 INT8_F32_REL = 2e-4
 
 
@@ -258,19 +288,26 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+# kernels whose spills fail phase 1: the wgmma cores, the 3xTF32 forms of 11-13
+# and the fp32 forms of 7, 8, 14 (and its pass), 18, 19 (kernel A's fp32 kernel
+# with kRope), by a substring of their names
+SPILL_CHECKED = ("wgmma", "tf32", "gemm_f32_kernel", "flash_prefix_f32_kernel",
+                 "flash_prefix_i8_f32_kernel", "quant_heads_kernel")
+
+
 def ptxas_faults(log: str) -> list[str]:
-    """What ptxas reported against the wgmma cores in a build log (empty when
-    the library came from the build cache): spills of a function whose name
-    holds "wgmma" (ptxas prints each function's spills on the line after
-    "Function properties for <name>"), and any wgmma it serialized (info
-    C7513)."""
+    """What ptxas reported against the checked kernels in a build log (empty
+    when the library came from the build cache): spills of a function whose
+    name holds one of SPILL_CHECKED (ptxas prints each function's spills on
+    the line after "Function properties for <name>"), and any wgmma it
+    serialized (info C7513)."""
     faults, name = [], ""
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for", 1)[1].strip()
             continue
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if spills and "wgmma" in name and spills.groups() != ("0", "0"):
+        if spills and any(k in name for k in SPILL_CHECKED) and spills.groups() != ("0", "0"):
             faults.append(f"{name}: {line.strip()}")
         if "C7513" in line:
             faults.append(line.strip())
@@ -333,18 +370,26 @@ def _tensors(*objs):
             yield o
 
 
-def bound(ops: float, io, kind: str = "bf16") -> dict:
+def bound(ops: float, io, kind: str = "bf16", ffma: bool = True) -> dict:
     """The least time the card could take: the larger of the operations over
     the published peak for their type and the bytes of `io` (each input read
     once, each output written once; tensors, or dicts and lists of them)
-    over the memory rate."""
+    over the memory rate. kind "fp32" (fp32-accurate products) takes the
+    3xTF32 rate, and with ffma the bound at the FFMA rate is printed and kept
+    beside it as "ffma_bound_ms"."""
     nbytes = sum(t.numel() * t.element_size() for t in _tensors(io))
-    t_ops, t_bytes = ops / PEAK_OPS[kind] * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS["fp32_3xtf32" if kind == "fp32" else kind] * 1e3
     out = {"bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
-    print(f"  bound: {ops / 1e9:.2f} G{'OP' if kind == 'int8' else 'FLOP'} -> {t_ops:.4f} ms, "
-          f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms: {out['bound_ms']:.4f} ms by "
+    rate = " at the 3xTF32 rate" if kind == "fp32" else ""
+    print(f"  bound: {ops / 1e9:.2f} G{'OP' if kind == 'int8' else 'FLOP'} -> {t_ops:.4f} ms"
+          f"{rate}, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms: {out['bound_ms']:.4f} ms by "
           f"{out['bound_by']}")
+    if kind == "fp32" and ffma:
+        out["ffma_bound_ms"] = max(ops / PEAK_OPS["fp32"] * 1e3, t_bytes)
+        print(f"  at the FFMA rate (67 TFLOP/s, fp32 outside the tensor cores): "
+              f"{out['ffma_bound_ms']:.4f} ms")
     return out
 
 
@@ -695,6 +740,241 @@ def check_fp32_forms(gen, dev) -> dict[str, dict]:
     return out
 
 
+def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
+    """The fp32 forms of kernels 7, 8, 18, 19, 14 and its quantization pass
+    (what the offline entry points' default fp32 weights run under attn_path
+    and attn_int8) at the main shapes and at ragged and edge cases, against
+    their plain versions (which compute in fp32; TF32 off): 7, 8, 18, 19 and
+    14 "qk" within F32_REL (nothing is rounded below fp32), 18 against 19 and
+    against kernel A's fp32 form on torch-roped inputs to the bit (one kernel
+    over three layouts), 14 "qkpv" (the attention core's int8 form with an
+    fp32 output) within INT8_F32_REL (p8 ties; the plain output rounded
+    through bf16 must fail that bound), both modes' quantization error
+    against kernel A's fp32 form held by QUANT_TAIL's count rule, the pass to
+    the bit. Times with the bound of their products at the 3xTF32 rate (the
+    FFMA one printed beside; 14's at the int8 rate, "qkpv"'s products' type,
+    and "qk"'s at the 3xTF32 rate of its fp32 p.v), no library call for any
+    of them (as their bf16 rows)."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+    from korean_f5_tts_tpu_torch.ops import fused_linears as fl
+
+    def uni(shape, bound):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    def linear(n, k):
+        return {"w": uni((n, k), k ** -0.5), "b": uni((n,), k ** -0.5)}
+
+    out = {}
+    print(f"kernels 7 and 8 on fp32 operands (FFMA; rel bound {F32_REL:.0e})")
+    h = torch.randn((2, 1536, 1024), generator=gen, device=dev)
+    sc, sh, gate = uni((1024,), 0.3), uni((1024,), 0.3), uni((1024,), 1.0)
+    ps = [linear(1024, 1024) for _ in range(3)]
+    got = fl.ln_mod_matmul(h, sc, sh, ps)
+    if got.dtype != torch.float32:
+        fail(f"ln_mod_matmul fp32 wrote {got.dtype}")
+    max_abs, _ = compare("ln_mod_matmul fp32 main m=3072 d=1024 n=3x1024", got,
+                         fl.ln_mod_matmul_reference(h, sc, sh, ps), F32_REL)
+    for m, seg in ((1000, ps), (1000, ps[:1]), (65, ps[:2]), (1, ps)):
+        hr = torch.randn((1, m, 1024), generator=gen, device=dev)
+        compare(f"ln_mod_matmul fp32 ragged m={m}, {len(seg)} linear(s)",
+                fl.ln_mod_matmul(hr, sc, sh, seg), fl.ln_mod_matmul_reference(hr, sc, sh, seg),
+                F32_REL)
+    out["ln_mod_matmul_f32"] = {"max_abs_err": max_abs, **_timed(
+        lambda: fl.ln_mod_matmul(h, sc, sh, ps), lambda: fl.ln_mod_matmul_reference(h, sc, sh, ps),
+        2.0 * 3072 * 1024 * 3072, (h, sc, sh, ps, got), kind="fp32")}
+    print("  library: none (as for the bf16 form)")
+    a = torch.randn((2, 1536, 1024), generator=gen, device=dev)
+    p = linear(1024, 1024)
+    got = fl.proj_gated_residual(a, h, gate, p)
+    max_abs, _ = compare("proj_gated_residual fp32 main m=3072 d=1024", got,
+                         fl.proj_gated_residual_reference(a, h, gate, p), F32_REL)
+    for m in (1000, 65, 1):
+        compare(f"proj_gated_residual fp32 ragged m={m}",
+                fl.proj_gated_residual(a[:1, :m].contiguous(), h[:1, :m].contiguous(), gate, p),
+                fl.proj_gated_residual_reference(a[:1, :m], h[:1, :m], gate, p), F32_REL)
+    out["proj_gated_residual_f32"] = {"max_abs_err": max_abs, **_timed(
+        lambda: fl.proj_gated_residual(a, h, gate, p),
+        lambda: fl.proj_gated_residual_reference(a, h, gate, p), 2.0 * 3072 * 1024 * 1024,
+        (a, h, gate, p, got), kind="fp32")}
+    print("  library: none (as for the bf16 form)")
+    del h, a, got
+
+    print(f"kernels 18 and 19 on fp32 operands (kernel A's fp32 kernel with strided heads and "
+          f"the rotation in fp32; rel bound {F32_REL:.0e}; 18, 19 and A's fp32 form on "
+          "torch-roped inputs equal to the bit)")
+
+    def tables(n):
+        return tuple(torch.from_numpy(t).to(dev) for t in rope_cos_sin(n, 64))
+
+    def merge(o):
+        B, H, n, d = o.shape
+        return o.transpose(1, 2).reshape(B, n, H * d)
+
+    def rope_case(label, B, H, n, lens, pe, past=0.0):
+        qkv = torch.randn((B, n, 3 * H * 64), generator=gen, device=dev)
+        for i, length in enumerate(lens if past else ()):
+            sign = torch.randint(0, 2, (n - length, 2 * H * 64), generator=gen, device=dev)
+            qkv[i, length:, H * 64:] = past * (2.0 * sign - 1)
+        q, k, v = (t.contiguous() for t in fp.qkv_unpack(qkv, H))
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        cos, sin = tables(n)
+        got18 = fp.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe)
+        got19 = fp.flash_prefix_qkv_attention(qkv, kv, H, cos, sin, pe)
+        torch.cuda.synchronize()
+        if got18.dtype != torch.float32 or got19.dtype != torch.float32:
+            fail(f"kernels 18/19 fp32 {label}: wrote {got18.dtype}, {got19.dtype}")
+        live = [i for i, length in enumerate(lens) if length > 0]
+        for i, length in enumerate(lens):
+            if length == 0 and (got18[i].abs().max().item() or got19[i].abs().max().item()):
+                fail(f"kernels 18/19 fp32 {label}: item {i} with no valid key is not zero")
+        want = fp.flash_prefix_rope_reference(q[live], k[live], v[live], kv[live], cos, sin, pe)
+        e18 = compare(f"kernel 18 fp32 {label}", got18[live], want, F32_REL)[0]
+        e19 = compare(f"kernel 19 fp32 {label}", got19[live], merge(want), F32_REL)[0]
+        compare(f"kernel 18 vs 19 fp32 on the same values, {label}", merge(got18), got19,
+                F32_REL, exact=True)
+        via_a = fp.flash_prefix_attention(fp.rope_reference(q[live], cos, sin, pe),
+                                          fp.rope_reference(k[live], cos, sin, pe), v[live],
+                                          kv[live])
+        compare(f"kernel 18 fp32 vs A's fp32 form on torch-roped q, k, {label}", got18[live],
+                via_a, F32_REL, exact=True)
+        return (e18, e19), (qkv, q, k, v, kv, cos, sin, got18, got19)
+
+    (e18, e19), (qkv, q, k, v, kv, cos, sin, got18, got19) = rope_case(
+        "main B=2 heads=16 n=1536 kv=1376", 2, 16, 1536, [1376, 1376], None)
+    rope_case("n=300 kv=[300, 1, 129] pe_attn_head=1", 3, 2, 300, [300, 1, 129], 1)
+    for B, H, n, lens, pe, past in QKV_EDGES:
+        rope_case(f"B={B} heads={H} n={n} kv={lens} pe_attn_head={pe}"
+                  f"{f' past=+-{past:g}' if past else ''}", B, H, n, lens, pe, past)
+    flop = 4.0 * 32 * 1536 * 1376 * 64  # every query row against this run's 1376 keys
+    out["flash_prefix_rope_f32"] = {"max_abs_err": e18, **_timed(
+        lambda: fp.flash_prefix_rope_attention(q, k, v, kv, cos, sin),
+        lambda: fp.flash_prefix_rope_reference(q, k, v, kv, cos, sin), flop,
+        (q, k, v, kv, cos, sin, got18), kind="fp32")}
+    out["flash_prefix_qkv_f32"] = {"max_abs_err": e19, **_timed(
+        lambda: fp.flash_prefix_qkv_attention(qkv, kv, 16, cos, sin),
+        lambda: fp.flash_prefix_qkv_reference(qkv, kv, 16, cos, sin), flop,
+        (qkv, kv, cos, sin, got19), kind="fp32")}
+    print("  library: none (as for the bf16 forms)")
+    del qkv, q, k, v, got18, got19
+
+    print("kernel 14 and its quantization pass on fp32 operands (the pass to the bit; 14 'qk' "
+          f"(FFMA) within {F32_REL:.0e}: exact integer scores, fp32 p.v; 'qkpv' (the attention "
+          f"core's int8 form, fp32 out) within {INT8_F32_REL:.0e}: p8 ties, no bf16 step; the "
+          "quantization error against kernel A's fp32 form by QUANT_TAIL's count rule)")
+    pass_err = []  # the pass's largest difference from its plain version, per case
+
+    def i8_case(label, B, H, n, lens, past=0.0, held=False):
+        q, k, v = (torch.randn((B, H, n, 64), generator=gen, device=dev) for _ in range(3))
+        for i, length in enumerate(lens if past else ()):
+            for t in (k, v):
+                sign = torch.randint(0, 2, (H, n - length, 64), generator=gen, device=dev)
+                t[i, :, length:] = past * (2.0 * sign - 1)
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        err = 0.0
+        for pv_i8 in (True, False):
+            got = fp.quantize_heads(q, k, v, pv_i8)
+            q8, k8, vq, c, sv = fp._quantize_qkv(q, k, v, pv_i8)
+            want = (q8, k8, fp._v8_kernel_layout(vq) if pv_i8 else vq, c, sv)
+            for name, g, w in zip(("q8", "k8", "v8" if pv_i8 else "v", "c", "sv"), got, want):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    fail(f"quantization pass fp32 {label}: {name} is {tuple(g.shape)} {g.dtype}, "
+                         f"the plain version's {tuple(w.shape)} {w.dtype}")
+                diff = (g.float() - w.float()).abs()
+                err = max(err, diff.max().item() if diff.numel() else 0.0)
+                if not torch.equal(g, w):
+                    fail(f"quantization pass fp32 {label}: {name} differs from the plain version")
+        print(f"  quantization pass fp32 {label}: equal to the plain version to the bit, both "
+              f"modes (max abs difference {err:.3e})")
+        pass_err.append(err)
+        lens_h = kv.repeat_interleave(H)
+        live = lens_h > 0
+        fold = [t.reshape(B * H, n, 64) for t in (q, k, v)]
+        via_a = fp.flash_prefix_folded(*fold, lens_h)
+        rows = (torch.arange(n, device=dev)[None, :, None] < lens_h[:, None, None])[live]
+        valid = int(rows.sum().item()) * 64
+        errs = {}
+        for mode, pv_i8, rel_bound in (("qkpv", True, INT8_F32_REL), ("qk", False, F32_REL)):
+            got = fp.flash_prefix_attention_i8(q, k, v, kv, pv_i8=pv_i8).reshape(B * H, n, 64)
+            want = fp.flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=pv_i8)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32:
+                fail(f"flash_prefix_i8 fp32 {mode} {label}: wrote {got.dtype}")
+            if (~live).any() and got[~live].abs().max().item() != 0:
+                fail(f"flash_prefix_i8 fp32 {mode} {label}: a head with no valid key is not zero")
+            if not live.any():
+                continue
+            errs[mode] = compare(f"flash_prefix_i8 fp32 {mode} {label}", got[live], want[live],
+                                 rel_bound)[0]
+            if held:
+                control = _rel(want[live].bfloat16(), want[live])
+                print(f"    control: the plain output through bf16 reads rel {control:.3e} "
+                      f"(must fail {rel_bound:.0e})")
+                if control <= rel_bound:
+                    fail(f"flash_prefix_i8 fp32 {mode} {label}: the bound does not catch a bf16 "
+                         "step")
+            if past:
+                continue
+            err = (got - via_a).abs()[live] * rows
+            base = (want - fp.prefix_attention_reference(*fold, lens_h)).abs()[live] * rows
+            e_max, e_mean = err.max().item(), (err.sum() / valid).item()
+            e_past, p_past = int((err > 3e-2).sum().item()), int((base > 3e-2).sum().item())
+            tail = max(int(QUANT_TAIL * valid), p_past)
+            print(f"    {mode} vs kernel A's fp32 form: max {e_max:.3e} (bound {QUANT_MAX}), "
+                  f"{e_past} of {valid} past 3e-2 (bound {tail}), mean {e_mean:.3e} (bound "
+                  f"5e-3){'' if held else ' (printed, not held: too few elements)'}")
+            if held and (e_max > QUANT_MAX or e_past > tail or e_mean > 5e-3):
+                fail(f"flash_prefix_i8 fp32 {mode} {label}: quantization error out of bounds")
+        return errs.get("qkpv", 0.0), errs.get("qk", 0.0), (q, k, v, kv)
+
+    max_abs, max_abs_qk, (q, k, v, kv) = i8_case("main B=2 heads=16 n=1536 kv=1376", 2, 16, 1536,
+                                     [1376, 1376], held=True)
+    i8_case("ragged B=8 heads=1 n=1000", 8, 1, 1000, [1, 1000, 700, 64, 65, 999, 333, 128],
+            held=True)
+    for B, H, n, lens, _, past in QKV_EDGES:
+        for pst in ((past, 0.0) if past else (0.0,)):
+            i8_case(f"B={B} heads={H} n={n} kv={lens}{f' past=+-{pst:g}' if pst else ''}", B, H,
+                    n, lens, past=pst, held=not pst and int(QUANT_TAIL * H * 64 * sum(lens)) > 0)
+    ops = 4.0 * 32 * 1536 * 1376 * 64
+    q8, k8, v8k, c, sv = fp.quantize_heads(q, k, v, True)
+    lens_h = kv.repeat_interleave(16)
+    got = fp.flash_prefix_folded_i8(q8, k8, v8k, c, sv, lens_h, out_dtype=torch.float32)
+    v8 = fp._v8_natural_layout(v8k, 1536)
+    print("  kernel 14 fp32 qkpv on quantized operands (the attention core's int8 form):")
+    t14 = _timed(lambda: fp.flash_prefix_folded_i8(q8, k8, v8k, c, sv, lens_h,
+                                                   out_dtype=torch.float32),
+                 lambda: fp._i8_attention_plain(q8, k8, v8, c, sv, lens_h, True, fp.I8_KEY_TILE),
+                 ops, (q8, k8, v8k, c, sv, lens_h, got), kind="int8")
+    out["flash_prefix_i8_f32"] = {"max_abs_err": max_abs, **t14}
+    vf = v.reshape(32, 1536, 64)
+    got = fp.flash_prefix_folded_i8(q8, k8, vf, c, sv, lens_h, pv_i8=False)
+    # "qk": S is an int8 product, P.V an fp32-accurate one; the bound takes
+    # S's half at the int8 rate, counted here in 3xTF32-rate equivalents
+    ops_qk = ops / 2 * (1 + PEAK_OPS["fp32_3xtf32"] / PEAK_OPS["int8"])
+    print("  kernel 14 fp32 qk on quantized operands (FFMA; S exact, fp32 p.v; the bound's "
+          f"{ops / 2e9:.2f} GOP of S at the int8 rate, as {ops_qk / 1e9 - ops / 2e9:.2f} GFLOP of "
+          "3xTF32):")
+    t14qk = _timed(lambda: fp.flash_prefix_folded_i8(q8, k8, vf, c, sv, lens_h, pv_i8=False),
+                   lambda: fp._i8_attention_plain(q8, k8, vf, c, sv, lens_h, False,
+                                                  fp.I8_KEY_TILE),
+                   ops_qk, (q8, k8, vf, c, lens_h, got), kind="fp32",
+                   ffma=False)  # the equivalents above mean nothing at the FFMA rate
+    out["flash_prefix_i8_qk_f32"] = {"max_abs_err": max_abs_qk, **t14qk}
+    whole = cuda_time_ms(lambda: fp.flash_prefix_attention_i8(q, k, v, kv))
+    fold = [t.reshape(32, 1536, 64) for t in (q, k, v)]
+    a_ms = cuda_time_ms(lambda: fp.flash_prefix_folded(*fold, lens_h))
+    print(f"  pass + 14 fp32 qkpv as sdpa calls them {whole:.4f} ms against kernel A's fp32 form "
+          f"{a_ms:.4f} ms; library: none")
+    print("  the quantization pass on fp32 (each input read once, each output written once):")
+    tq = _timed(lambda: fp.quantize_heads(q, k, v, True),
+                lambda: fp._v8_kernel_layout(fp._quantize_qkv(q, k, v, True)[2]), 0.0,
+                (q, k, v, q8, k8, v8k, c, sv), kind="int8")
+    out["flash_prefix_i8_quant_f32"] = {"max_abs_err": max(pass_err), **tq}
+    return out
+
+
 def _uni(gen, dev, shape, bound):
     import torch
 
@@ -721,15 +1001,16 @@ def _edge_rows(gen, dev, m: int, k: int):
     return x
 
 
-def _timed(fn, plain, ops: float, io, kind: str = "int8") -> dict:
+def _timed(fn, plain, ops: float, io, kind: str = "int8", ffma: bool = True) -> dict:
     """Times of the kernel and its plain version, and the bound for `ops`
-    operations of `kind` over the inputs and outputs `io`."""
+    operations of `kind` over the inputs and outputs `io` (bound's ffma)."""
     ms = cuda_time_ms(fn)
     plain_ms = cuda_time_ms(plain)
     print(f"  time at main shape: kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} T"
           f"{'OP' if kind == 'int8' else 'FLOP'}/s), plain {plain_ms:.4f} ms")
-    b = bound(ops, io, kind)
-    print(f"  the bound is {b['bound_ms'] / ms:.3f} of the kernel's time")
+    b = bound(ops, io, kind, ffma)
+    print(f"  the bound is {b['bound_ms'] / ms:.3f} of the kernel's time"
+          + (f" ({b['ffma_bound_ms'] / ms:.3f} at the FFMA rate)" if "ffma_bound_ms" in b else ""))
     return {"ms": ms, "plain_ms": plain_ms, **b}
 
 
@@ -1196,16 +1477,17 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
 
 
 def check_train_attention_f32(gen, dev) -> dict[str, dict]:
-    """The fp32 forms of kernels 10-13 at the training shape and at the
-    cores' edges (TRAIN_EDGES) against their plain versions, with both of
-    PyTorch's TF32 switches off wherever a plain version runs: o and lse
-    within F32_ATTN_REL, dq, dk, dv within F32_GRAD_REL (relative L2). A
-    control: the plain versions with TF32 on must fail those bounds. A head
-    with kv_len 0 is held to zero o, lse 0 and zero gradients. Times with
-    the bound at the 67 TFLOP/s of fp32 outside the tensor cores, and the
-    library yardstick: PyTorch's memory-efficient attention on fp32 (forward
-    with its logsumexp, and its backward), its error against the fp32 plain
-    version printed beside its time."""
+    """The fp32 forms of kernels 10-13 (10 FFMA; 11-13 split 3xTF32 products
+    on the tensor cores) at the training shape and at the cores' edges
+    (TRAIN_EDGES) against their plain versions, with both of PyTorch's TF32
+    switches off wherever a plain version runs: o and lse within
+    F32_ATTN_REL, dq, dk, dv within F32_GRAD_REL (relative L2). A control:
+    the plain versions with TF32 on (a single TF32 product) must fail those
+    bounds. A head with kv_len 0 is held to zero o, lse 0 and zero
+    gradients. Times with the bound at the 3xTF32 rate and at the FFMA rate,
+    and the library yardstick: PyTorch's memory-efficient attention on fp32
+    (forward with its logsumexp, and its backward), its error against the
+    fp32 plain version printed beside its time."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
@@ -1257,8 +1539,8 @@ def check_train_attention_f32(gen, dev) -> dict[str, dict]:
                 fail(f"the fp32 forms of 10-13 {label}: a head with kv_len 0 is not zero")
         return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
 
-    print(f"the fp32 forms of kernels 10-13 (FFMA; rel bound {F32_ATTN_REL:.0e} for o and lse, "
-          f"{F32_GRAD_REL:.0e} for dq, dk, dv: nothing is rounded below fp32)")
+    print(f"the fp32 forms of kernels 10-13 (10 FFMA, 11-13 3xTF32 on the tensor cores; rel bound "
+          f"{F32_ATTN_REL:.0e} for o and lse, {F32_GRAD_REL:.0e} for dq, dk, dv: fp32 accuracy)")
     errs, main = case("main H=128 n=1280 d=64 kv=n", 128, 1280, [1280] * 128)
     q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p = main
     mixed = torch.randint(1, 1201, (16,), generator=gen, device=dev).tolist()
@@ -1322,10 +1604,16 @@ def check_train_attention_f32(gen, dev) -> dict[str, dict]:
     print(f"  library backward (its autograd): dq rel {_rel(ldq[0], dq_p):.3e}, dk rel "
           f"{_rel(ldk[0], dk_p):.3e}, dv rel {_rel(ldv[0], dv_p):.3e} to the fp32 plain version")
     out["flash_prefix_dkv_f32"]["library_ms"] = cuda_time_ms(bwd)  # 11 + 13 together
+    both = out["flash_prefix_dq_lsein_f32"]["ms"] + out["flash_prefix_dkv_f32"]["ms"]
+    lib_bwd = out["flash_prefix_dkv_f32"]["library_ms"]
     print(f"  library: forward {out['flash_prefix_lse_f32']['library_ms']:.4f} ms (10 fp32 "
-          f"{out['flash_prefix_lse_f32']['ms']:.4f}), backward "
-          f"{out['flash_prefix_dkv_f32']['library_ms']:.4f} ms (11 + 13 fp32 "
-          f"{out['flash_prefix_dq_lsein_f32']['ms'] + out['flash_prefix_dkv_f32']['ms']:.4f})")
+          f"{out['flash_prefix_lse_f32']['ms']:.4f}), backward {lib_bwd:.4f} ms (11 + 13 fp32 "
+          f"{both:.4f}: {both / lib_bwd:.2f}x the library's time)")
+    for name in ("flash_prefix_dq_lsein_f32", "flash_prefix_dkv_f32"):
+        r = out[name]
+        print(f"  {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms at the 3xTF32 rate "
+              f"({r['bound_ms'] / r['ms']:.3f} of the time), {r['ffma_bound_ms']:.4f} ms at the "
+              f"FFMA rate ({r['ffma_bound_ms'] / r['ms']:.3f})")
     del leaves, lib_out
     return out
 
@@ -1815,27 +2103,38 @@ AB_KERNELS = {"flash_prefix": "A", "ff_block": "B", "grouped_conv": "C",
               "ln_mod_matmul_int8": "5", "proj_gated_residual_int8": "6", "qmatmul": "9",
               "flash_prefix_lse": "10", "flash_prefix_dq_lsein": "11", "flash_prefix_dq": "12",
               "flash_prefix_dkv": "13", "flash_prefix_rope": "18", "flash_prefix_qkv": "19",
-              "flash_prefix_i8": "14 qkpv + its pass", "flash_prefix_i8_qk": "14 qk + its pass"}
+              "flash_prefix_i8": "14 qkpv + its pass", "flash_prefix_i8_qk": "14 qk + its pass",
+              "flash_prefix_f32": "A fp32", "ff_block_f32": "B fp32",
+              "flash_prefix_lse_f32": "10 fp32", "flash_prefix_dq_lsein_f32": "11 fp32",
+              "flash_prefix_dq_f32": "12 fp32", "flash_prefix_dkv_f32": "13 fp32",
+              "ln_mod_matmul_f32": "7 fp32", "proj_gated_residual_f32": "8 fp32",
+              "flash_prefix_rope_f32": "18 fp32", "flash_prefix_qkv_f32": "19 fp32",
+              "flash_prefix_i8_f32": "14 fp32 qkpv + its pass",
+              "flash_prefix_i8_qk_f32": "14 fp32 qk + its pass"}
 AB_SDPA = {f"sdpa_{name.split('_')[0].lower()}": f"SDPA {name}" for name in SDPA_BACKENDS}
 AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
-              "flash_bwd": "library flash backward (11 + 13's yardstick)"}
+              "flash_bwd": "library flash backward (11 + 13's yardstick)",
+              "efficient_bwd_f32": "library efficient backward, fp32 (11 + 13 fp32's yardstick)"}
 AB_UNMOVED = ("flash_prefix", "ff_block", "grouped_conv", "ln_mod_matmul",
               "proj_gated_residual", "ff_block_int8", "ln_mod_matmul_int8",
               "proj_gated_residual_int8", "qmatmul", "flash_prefix_lse", "flash_prefix_dq_lsein",
-              "flash_prefix_dq", "flash_prefix_dkv", "flash_prefix_qkv")  # within 5% or fail
+              "flash_prefix_dq", "flash_prefix_dkv", "flash_prefix_qkv", "flash_prefix_i8",
+              "flash_prefix_i8_qk", "flash_prefix_f32", "ff_block_f32", "flash_prefix_lse_f32",
+              "flash_prefix_dq_f32")  # within 5% or fail
 AB_BOUND = 1.05
 # their times when the bf16 core was built (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md section 6, kernel table)
 BF16_CORE_MS = {"ff_block": 0.0824, "ln_mod_matmul": 0.0566, "proj_gated_residual": 0.0198}
 
 
-def core_timings(dev) -> dict[str, float]:
+def core_timings(dev, absent=()) -> dict[str, float]:
     """ms at the main shape (m = 3072, d = 1024, dff = 2048; attention H 32
     (18, 19: B 2 x 16 heads), n 1536, kv_len 1376; training attention H 128,
     n 1280, every key valid)
-    of the AB_KERNELS, through the public wrappers of whichever
-    korean_f5_tts_tpu_torch is first on sys.path, each held against its
-    plain version before it is timed; and the AB_LIBRARY calls."""
+    of the AB_KERNELS but those named in `absent` (forms the tree lacks),
+    through the public wrappers of whichever korean_f5_tts_tpu_torch is
+    first on sys.path, each held against its plain version before it is
+    timed; and the AB_LIBRARY calls."""
     import torch
 
     from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
@@ -1920,10 +2219,75 @@ def core_timings(dev) -> dict[str, float]:
                                lambda: fp.flash_prefix_i8_reference(aq, ak, av, kv, pv_i8=False),
                                5e-3),
     }
+    # the fp32 forms on fp32 operands of the same shapes
+    f = {name: t.float() for name, t in (("h", h), ("a", a), ("sc", sc), ("sh", sh),
+                                        ("gate", gate), ("aq", aq), ("ak", ak), ("av", av),
+                                        ("qkv", qkv), ("cos", cos), ("sin", sin))}
+    f_ff = tuple(t.float() for t in ff)
+    f_ps = [{k: t.float() for k, t in p.items()} for p in ps]
+    fq, fk, fv = (t.contiguous() for t in fp.qkv_unpack(f["qkv"], 16))
+    f4 = [t.reshape(2, 16, 1536, 64) for t in (f["aq"], f["ak"], f["av"])]
+    ftrain = tuple(t.float() for t in (tq, tk, tv, tdo))
+    fto, ftlse = fp.prefix_attention_lse_reference(*ftrain[:3], tkv)
+    fdvec = (ftrain[3] * fto).sum(-1)
+    ft = (*ftrain, fdvec, ftlse, tkv)
+
+    def i8_f32(pv_i8):
+        return fp.flash_prefix_attention_i8(*f4, rkv, pv_i8=pv_i8).reshape(32, 1536, 64)
+
+    calls.update({
+        "flash_prefix_f32": (lambda: fp.flash_prefix_folded(f["aq"], f["ak"], f["av"], kv),
+                             lambda: fp.prefix_attention_reference(f["aq"], f["ak"], f["av"], kv),
+                             F32_REL),
+        "ff_block_f32": (lambda: fb.ff_block_fused(*f_ff), lambda: fb.ff_block_reference(*f_ff),
+                         F32_REL),
+        "flash_prefix_lse_f32": (lambda: fp.flash_prefix_folded_lse(*ft[:3], tkv)[0],
+                                 lambda: fto, F32_ATTN_REL),
+        "flash_prefix_dq_lsein_f32": (lambda: fp.flash_prefix_dq_lsein(*ft),
+                                      lambda: fp.flash_prefix_dq_lsein_reference(*ft),
+                                      F32_GRAD_REL),
+        "flash_prefix_dq_f32": (lambda: fp.flash_prefix_dq(*ft[:5], tkv)[0],
+                                lambda: fp.flash_prefix_dq_reference(*ft[:5], tkv)[0],
+                                F32_GRAD_REL),
+        "flash_prefix_dkv_f32": (lambda: fp.flash_prefix_dkv(*ft)[0],
+                                 lambda: fp.flash_prefix_dkv_reference(*ft)[0], F32_GRAD_REL),
+        "ln_mod_matmul_f32": (lambda: fl.ln_mod_matmul(f["h"], f["sc"], f["sh"], f_ps),
+                              lambda: fl.ln_mod_matmul_reference(f["h"], f["sc"], f["sh"], f_ps),
+                              F32_REL),
+        "proj_gated_residual_f32": (
+            lambda: fl.proj_gated_residual(f["a"], f["h"], f["gate"], f_ps[0]),
+            lambda: fl.proj_gated_residual_reference(f["a"], f["h"], f["gate"], f_ps[0]),
+            F32_REL),
+        "flash_prefix_rope_f32": (
+            lambda: fp.flash_prefix_rope_attention(fq, fk, fv, rkv, f["cos"], f["sin"]),
+            lambda: fp.flash_prefix_rope_reference(fq, fk, fv, rkv, f["cos"], f["sin"]), F32_REL),
+        "flash_prefix_qkv_f32": (
+            lambda: fp.flash_prefix_qkv_attention(f["qkv"], rkv, 16, f["cos"], f["sin"]),
+            lambda: fp.flash_prefix_qkv_reference(f["qkv"], rkv, 16, f["cos"], f["sin"]),
+            F32_REL),
+        "flash_prefix_i8_f32": (lambda: i8_f32(True),
+                                lambda: fp.flash_prefix_i8_reference(f["aq"], f["ak"], f["av"],
+                                                                     kv), INT8_F32_REL),
+        "flash_prefix_i8_qk_f32": (lambda: i8_f32(False),
+                                   lambda: fp.flash_prefix_i8_reference(
+                                       f["aq"], f["ak"], f["av"], kv, pv_i8=False), F32_REL),
+    })
     out = {}
     for name, (fn, plain, rel) in calls.items():
+        if name in absent:
+            continue
         compare(f"kernel {AB_KERNELS[name]} ({name}) main shape", fn(), plain(), rel)
         out[name] = cuda_time_ms(fn)
+    # the library backward on fp32 (11 + 13 fp32's yardstick), as
+    # check_train_attention_f32 times it
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t[None].clone().requires_grad_(True) for t in ftrain[:3]]
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=0.125)
+    out["efficient_bwd_f32"] = cuda_time_ms(
+        lambda: torch.autograd.grad(lib_out, leaves, ftrain[3][None], retain_graph=True))
+    del leaves, lib_out
     want = fp.prefix_attention_reference(aq, ak, av, kv)
     for backend, (ms, _) in sdpa_times(aq, ak, av, kv, want).items():
         out[f"sdpa_{backend.split('_')[0].lower()}"] = ms
@@ -1931,16 +2295,21 @@ def core_timings(dev) -> dict[str, float]:
     return out
 
 
-def ab_timings(parent: Path, card: str) -> None:
+def ab_timings(parent: Path, card: str, absent: tuple[str, ...] = ()) -> None:
     """core_timings of the checkout at `parent` and of this one, each in a
     process of its own (both packages have one name), in turns parent,
     change, change, parent; prints the table and fails if a kernel of
     AB_UNMOVED of the change is more than 5% slower than of the parent (mean
-    against mean)."""
+    against mean). `absent`: kernels the parent lacks, not run in its turns."""
+    unknown = [name for name in absent if name not in AB_KERNELS or name in AB_UNMOVED]
+    if unknown:
+        fail(f"--ab-absent: {unknown} are not kernels of AB_KERNELS outside AB_UNMOVED")
     runs = []
     for tree in (parent, ROOT, ROOT, parent):
+        skip = ["--ab-absent", ",".join(absent)] if tree is parent and absent else []
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--timings-of",
-                               str(tree.resolve())], capture_output=True, text=True, timeout=900)
+                               str(tree.resolve()), *skip], capture_output=True, text=True,
+                              timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-3000:], proc.stderr[-3000:], sep="\n")
             fail(f"--timings-of {tree} exited {proc.returncode}")
@@ -1951,9 +2320,10 @@ def ab_timings(parent: Path, card: str) -> None:
     ratio = {}
     for name, label in {**AB_KERNELS, **AB_LIBRARY}.items():
         t = [r.get(name) for r in runs]
-        if None in t:  # a backend that refused the call in some turn
-            print(f"| {label} | " + " | ".join("refused" if v is None else f"{v:.4f}"
-                                                for v in t) + " | - |")
+        if None in t:  # a backend that refused the call, or a form the parent lacks
+            print(f"| {label} | " + " | ".join(
+                ("absent" if name in absent else "refused") if v is None else f"{v:.4f}"
+                for v in t) + " | - |")
             continue
         ratio[name] = (t[1] + t[2]) / (t[0] + t[3])
         print(f"| {label if name in AB_LIBRARY else f'{label} ({name})'} | "
@@ -1970,6 +2340,9 @@ def ab_timings(parent: Path, card: str) -> None:
               f"{r['flash_prefix_lse']:.4f} against the flash forward {r['flash_fwd']:.4f}: "
               f"{r['flash_prefix_lse'] / r['flash_fwd']:.2f}x; 11 + 13 {bwd:.4f} against the "
               f"flash backward {r['flash_bwd']:.4f}: {bwd / r['flash_bwd']:.2f}x")
+        bwd32 = r["flash_prefix_dq_lsein_f32"] + r["flash_prefix_dkv_f32"]
+        print(f"11 + 13 fp32 ({turn}) {bwd32:.4f} ms against the library efficient backward "
+              f"on fp32 {r['efficient_bwd_f32']:.4f}: {bwd32 / r['efficient_bwd_f32']:.2f}x")
     moved = [AB_KERNELS[n] for n in AB_UNMOVED if ratio[n] > AB_BOUND]
     print(", ".join(AB_KERNELS[n] for n in AB_UNMOVED) + " change / parent: "
           + ", ".join(f"{ratio[n]:.3f}" for n in AB_UNMOVED)
@@ -2581,6 +2954,144 @@ def offline_fp32_int8(dev, card: str, ref_path: str, chunks, want_samples: int,
     return total
 
 
+# the fp32 entry point under each opt-in path: (label, attn_path, attn_int8,
+# quantize), each run's kernels per block beyond C's fp32 form twice a step
+FP32_PATHS = (
+    ("linear_fused", "linear_fused", None, False),
+    ("rope_in_kernel", "rope_in_kernel", None, False),
+    ("qkv_kernel", "qkv_kernel", None, False),
+    ("attn_int8 qk", "default", "qk", False),
+    ("attn_int8 qkpv", "default", "qkpv", False),
+    ("quantize, attn_int8 qk", "default", "qk", True),
+)
+FP32_PATH_TEXT = "One sentence for every attention path of an fp32 model."
+
+
+def fp32_path_launches(attn_path: str, attn_int8: str | None, quantize: bool,
+                       per: int, steps: int) -> dict[str, int]:
+    """The exact launches of one utterance of an fp32 model (per: chunks x
+    steps x blocks; steps: chunks x steps): the fp32 forms of the attention
+    path's kernels per block, kernel B's fp32 form (or, with int8 weights,
+    kernels 5, 6 and 4 on fp32 rows) per block, C's fp32 form twice a step."""
+    from korean_f5_tts_tpu_torch.ops import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    attn = {"rope_in_kernel": "flash_prefix_rope_f32", "qkv_kernel": "flash_prefix_qkv_f32"}
+    i8 = {"qkpv": "flash_prefix_i8_f32", "qk": "flash_prefix_i8_qk_f32"}
+    want[attn.get(attn_path, i8.get(attn_int8, "flash_prefix_f32"))] = per
+    if attn_int8:
+        want["flash_prefix_i8_quant_f32"] = per
+    if quantize:
+        want.update(ln_mod_matmul_int8=per, proj_gated_residual_int8=per, ff_block_int8=per)
+    else:
+        want["ff_block_f32"] = per
+        if attn_path == "linear_fused":
+            want.update(ln_mod_matmul_f32=per, proj_gated_residual_f32=per)
+    want["grouped_conv_f32"] = 2 * steps
+    return want
+
+
+def offline_fp32_paths(dev, card: str, ref_path: str) -> dict[str, int]:
+    """F5TTS(device="cuda") with its default fp32 weights under each opt-in
+    path (FP32_PATHS): one utterance each with its exact launch counts (the
+    fp32 forms of 7 and 8, 18, 19, 14 with its pass; the bf16 counters
+    unmoved), its mel against the same path's plain versions (fp32: F32_REL,
+    nothing rounded below fp32; int8 attention: 5e-2, the int8 bound of
+    phases 4 and 9), and the server's --compute_dtype float32 --attn_path
+    qkv_kernel serving one request."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch.api import F5TTS
+    from korean_f5_tts_tpu_torch.infer import utils_infer
+    from korean_f5_tts_tpu_torch.models.dit import redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.serving import server as srv
+
+    def rel(a, b):
+        a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    quiet = {"show_info": lambda m: None}
+    vocab = str(ROOT / "data/Emilia_ZH_EN_pinyin/vocab.txt")
+    ref_audio, ref_text = utils_infer.preprocess_ref_audio_text(ref_path, REF_TEXT, **quiet)
+    total = dict.fromkeys(KERNELS, 0)
+    print("phase 8: F5TTS(device='cuda') with its default fp32 weights under each opt-in "
+          "attention path")
+    for label, attn_path, attn_int8, quantize in FP32_PATHS:
+        tts = F5TTS(vocab_file=vocab, attn_path=attn_path, attn_int8=attn_int8,
+                    quantize=quantize)
+        redraw_zero_init(tts.ema_model.params, seed=1)
+        floats = {t.dtype for t in _tensors(tts.ema_model.params) if t.is_floating_point()}
+        if floats != {torch.float32}:
+            fail(f"F5TTS() ({label}) holds {floats}, expected fp32 weights")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        wav, sr_out, spec = tts.infer(ref_path, REF_TEXT, FP32_PATH_TEXT, nfe_step=STEPS, seed=3,
+                                      **quiet)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        want = fp32_path_launches(attn_path, attn_int8, quantize, STEPS * DEPTH, STEPS)
+        rms = float(np.sqrt(np.mean(np.square(wav))))
+        _, _, spec_plain = utils_infer.infer_process(
+            ref_audio, ref_text, FP32_PATH_TEXT, tts.ema_model, tts.vocoder, tts.mel_spec_type,
+            nfe_step=STEPS, seed=3, kernels=False, attn_path=attn_path, attn_int8=attn_int8,
+            **quiet)
+        err = rel(spec, spec_plain)
+        bound_ = 5e-2 if attn_int8 else F32_REL
+        print(f"  {label}: {secs:.2f} s, {wav.size} samples = {wav.size / sr_out:.2f} s of audio, "
+              f"rms {rms:.4f}; mel vs the same path's plain versions rel {err:.3e} (bound "
+              f"{bound_:.0e}); launches { {k: v for k, v in counts.items() if v} } [{card}]")
+        if (sr_out != SR or wav.size < 50 * HOP or not np.isfinite(wav).all() or rms <= 0
+                or spec.shape[0] != 100 or not np.isfinite(spec).all()):
+            fail(f"fp32 offline inference ({label}): wrong rate, silent or non-finite audio")
+        if counts != want:
+            fail(f"fp32 offline inference ({label}): expected launches "
+                 f"{ {k: v for k, v in want.items() if v} }")
+        if err > bound_:
+            fail(f"fp32 offline inference ({label}) disagrees with the same path's plain versions")
+        for name, n in counts.items():
+            total[name] += n
+        del tts
+        torch.cuda.empty_cache()
+
+    args = srv.build_parser().parse_args(["--compute_dtype", "float32", "--attn_path",
+                                          "qkv_kernel", "--vocab_file", vocab])
+    model, vocoder = srv.load_from_arguments(args)
+    redraw_zero_init(model.params, seed=1)
+    sr, data = wavfile.read(ref_path)
+    service = srv.TTSService(model, vocoder, max_batch=8, max_wait_us=1000,
+                             attn_path=args.attn_path)
+    try:
+        reset_launch_counts()
+        item = service.submit({"ref_wav": data.astype(np.float32) / 32768.0, "sr": int(sr),
+                               "ref_text": REF_TEXT, "target_text": FP32_PATH_TEXT, "seed": 13})
+        if not item.event.wait(timeout=600):
+            fail("the fp32 qkv_kernel service did not answer")
+        counts = launch_counts()
+    finally:
+        service.shutdown(drain=False, timeout=5.0)
+        service.batcher.close()
+    if item.error:
+        fail(f"the fp32 qkv_kernel service: {item.error}")
+    audio = np.asarray(item.result[0])
+    want = fp32_path_launches("qkv_kernel", None, False, STEPS * DEPTH, STEPS)
+    print(f"  the server's --compute_dtype float32 --attn_path qkv_kernel: one request, "
+          f"{audio.size} samples, peak {np.abs(audio).max()}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if audio.size < 50 * HOP or not np.abs(audio).max() > 0:
+        fail("the fp32 qkv_kernel service returned no audio")
+    if counts != want:
+        fail(f"the fp32 qkv_kernel service: expected launches {want}")
+    for name, n in counts.items():
+        total[name] += n
+    del model, vocoder, service
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase8_offline(dev, card: str) -> dict[str, int]:
     import tempfile
 
@@ -2665,6 +3176,8 @@ def phase8_offline(dev, card: str) -> dict[str, int]:
             total[name] += n
         for name, n in offline_fp32_int8(dev, card, ref_path, chunks, want_samples,
                                          sum(gen_frames)).items():
+            total[name] += n
+        for name, n in offline_fp32_paths(dev, card, ref_path).items():
             total[name] += n
         # cfm_sample on a batch of 3 in two duration buckets (768 and 1024 frames)
         gen = torch.Generator(device=dev).manual_seed(8)
@@ -3321,11 +3834,16 @@ def main(argv=None) -> int:
                              "and .train siblings")
     parser.add_argument("--ab", type=Path, default=None, metavar="PARENT",
                         help="instead of the phases: time kernels A, B, C, 7, 8, 4, 5, 6, 9, "
-                             "10-13, 14 (and its quantization pass), 18 and 19 and the library "
-                             "yardsticks of A, 10 and 11 + 13 of the checkout at PARENT and of "
-                             "this one under one timer, in turns parent, change, change, parent "
-                             "(a process each), and fail if A, B, C, 7, 8, 4, 5, 6, 9, 10-13 or "
-                             "19 moved by more than 5%%")
+                             "10-13, 14 (and its quantization pass), 18 and 19, their fp32 "
+                             "forms, and the library yardsticks of A, 10 and 11 + 13 of the "
+                             "checkout at PARENT and of this one under one timer, in turns "
+                             "parent, change, change, parent (a process each), and fail if A, B, "
+                             "C, 7, 8, 4, 5, 6, 9, 10-13, 14 (both modes), 19 or the fp32 "
+                             "forms of A, B, 10, 12 moved by more than 5%%")
+    parser.add_argument("--ab-absent", default="", metavar="NAMES",
+                        help="with --ab or --timings-of: kernels of the --ab table (by counter "
+                             "name, comma-separated) that the parent tree lacks; its turns skip "
+                             "them")
     parser.add_argument("--timings-of", type=Path, default=None, metavar="TREE",
                         help="one turn of --ab: the kernels of the checkout at TREE, as a JSON "
                              "line")
@@ -3353,10 +3871,10 @@ def main(argv=None) -> int:
     print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     if args.ab is not None:
-        ab_timings(args.ab, card)
+        ab_timings(args.ab, card, tuple(n for n in args.ab_absent.split(",") if n))
         return 0
     if args.timings_of is not None:
-        print(json.dumps(core_timings(dev)))
+        print(json.dumps(core_timings(dev, tuple(n for n in args.ab_absent.split(",") if n))))
         return 0
 
     from korean_f5_tts_tpu_torch.ops import KERNELS, cuda_build
@@ -3391,6 +3909,7 @@ def main(argv=None) -> int:
         results.update(check_rope_attention(gen, dev))
         results.update(check_attention_int8(gen, dev))
         results.update(check_fp32_forms(gen, dev))
+        results.update(check_fp32_attn_paths(gen, dev))
         from korean_f5_tts_tpu_torch.scripts import probe_hopper
 
         probe_hopper.run(dev)

@@ -8,8 +8,8 @@ only when the caller names it. `attn_path` (ops/attention.py:ATTN_PATHS)
 picks the attention half's kernels, `attn_int8` (ATTN_INT8: None, "qk",
 "qkpv") the int8 attention kernel in kernel A's place, `compute_dtype` the
 dtype the weights are cast to (None keeps fp32, as the JAX class does: the
-default path's kernels A, B and C then run their fp32 forms; bf16 runs the
-tensor-core kernels and is what every opt-in path takes), and `quantize`
+kernels of every attn_path and attn_int8 then run their fp32 forms; bf16
+runs the tensor-core kernels, much faster), and `quantize`
 rewrites the block linears to int8 weights after that cast (the JAX class
 reaches the same through its F5_TTS_INT8 environment variable; here only the
 argument does): kernels 4, 5, 6 and 9 then run on rows of the weights' dtype.

@@ -115,7 +115,9 @@
 // through three 4-D maps of the same form (slot stride n * 64, row stride
 // 64; slot_k = slot_v = 0) and is 19's instantiation.
 //
-// The int8 form (kI8: kAttnI8Qk or kAttnI8Qkpv, kernel 14). The function is
+// The int8 form (kI8: kAttnI8Qk, kAttnI8Qkpv or kAttnI8QkpvF32, kernel 14;
+// kAttnI8QkpvF32 is "qkpv" with the output stored as fp32, kernel 14's fp32
+// form, whose quantized operands are those of fp32 inputs). The function is
 // the TPU kernel's (korean_f5_tts_tpu/ops/flash_prefix.py:_kernel_i8) on the
 // operands its quantization pass (quant_heads.cu) writes: q8, k8 [H, n, 64]
 // int8, c[h] = aq ak / 127^2 * log2(e) / sqrt(64), and under "qkpv" v8 [H,
@@ -127,7 +129,8 @@
 //   qkpv  acc = acc * alpha + float(p8 . v8) * sv, p8 = rint(127 p), the
 //         product a per-tile s32 accumulator
 //   qk    acc = acc * alpha + bf16(p) . v (v unquantized bf16, A's P.V)
-//   out   = acc / l, rounded once to bf16
+//   out   = acc / l, rounded once to bf16 (fp32 under kAttnI8QkpvF32:
+//         nothing else in "qkpv" is below fp32)
 // p8 sees the running max of its tile, so the key tile (128) is part of the
 // arithmetic: the plain version repeats it (ops/flash_prefix.py:
 // I8_KEY_TILE), and the JAX kernel at bkv = 128 is the same chunking.
@@ -183,6 +186,9 @@ constexpr int kAttnV8Bytes = kAttnD * kRowBytes;       // a v8 tile: 64 rows of 
 // the int8 forms (kI8) of the core, kernel 14's two modes
 constexpr int kAttnI8Qk = 1;    // int8 q.k^T, bf16 p.v
 constexpr int kAttnI8Qkpv = 2;  // int8 q.k^T and p.v
+constexpr int kAttnI8QkpvF32 = 3;  // as kAttnI8Qkpv, the output fp32 (kernel 14's fp32 form)
+// the forms whose P.V is int8 (a v8 tile a stage)
+__host__ __device__ constexpr bool attn_i8_pv8(int i8) { return i8 >= kAttnI8Qkpv; }
 
 // 2^x in one SFU instruction (denormal results flushed to zero: far below
 // what a bf16 P or the fp32 row sum can tell from zero)
@@ -617,7 +623,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             tma_load_2d(tile + 2 * kAttnKVBytes + kAttnTabBytes, &rope.map_sin, &full[s], 0,
                         j * kAttnBK);
           }
-        } else if constexpr (kI8 == kAttnI8Qkpv) {
+        } else if constexpr (attn_i8_pv8(kI8)) {
           // the v8 tile: keys j * 128 .. + 127 (columns) of the head's 64 rows
           mbar_arrive_expect_tx(&full[s], kAttnKVBytes + kAttnV8Bytes);
           tma_load_3d(tile, &map_k, &full[s], 0, j * kAttnBK, head);
@@ -670,7 +676,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (n_tiles > 0) {
         const uint64_t desc_q = wgmma_desc(my_q);
         const float c = c_scale[head];
-        const float sv = kI8 == kAttnI8Qkpv ? sv_scale[head] : 0.f;
+        const float sv = attn_i8_pv8(kI8) ? sv_scale[head] : 0.f;
         for (int j = 0; j < n_tiles; ++j) {
           const int st = j % kStagesT;
           const unsigned char* tile = ring + st * kStageBytes;
@@ -684,7 +690,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           attn_softmax_tile_i8(si, s, m_run, l_run, alpha, j * kAttnBK, kv_len, c, t);
 #pragma unroll
           for (int i = 0; i < 32; ++i) o[i] = __fmul_rn(o[i], alpha[(i >> 1) & 1]);
-          if constexpr (kI8 == kAttnI8Qkpv) {
+          if constexpr (attn_i8_pv8(kI8)) {
             uint32_t p8[4][4];
             attn_pack_p8(s, p8);
             int pv[32];
@@ -757,7 +763,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
 
     // epilogue: rows of bf16 through this warpgroup's q slice (its last S
-    // product is done), chunk j of row r at chunk j ^ (r & 7)
+    // product is done), chunk j of row r at chunk j ^ (r & 7); fp32 rows
+    // (kAttnI8QkpvF32) straight from the accumulator
     const int row = (warp & 3) * 16 + g8;  // and row + 8; (row + 8) & 7 == g8 too
     float inv[2];
 #pragma unroll
@@ -770,26 +777,43 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (kLse && t == 0 && grow < n)
         lse[(size_t)head * n + grow] = l > 0.f ? m_run[r] + log2f(l) : 0.f;
     }
+    if constexpr (kI8 == kAttnI8QkpvF32) {
+      // out is fp32 [H, n, 64]: o[4j + 2r + e] is row row + 8r, column 8j + 2t
+      // + e, so a quad writes 32 contiguous bytes of a row
+      float* out_head = reinterpret_cast<float*>(out) + (size_t)head * n * kAttnD;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int chunk = (j ^ g8) << 4;
-      *reinterpret_cast<uint32_t*>(my_q + row * kRowBytes + chunk + 4 * t) =
-          pack_bf16x2(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
-      *reinterpret_cast<uint32_t*>(my_q + (row + 8) * kRowBytes + chunk + 4 * t) =
-          pack_bf16x2(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
-    }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup alone
-    const int wt = tid & 127;
-    bf16* out_head = kRope ? out + item * rope.out_bs + g * rope.out_hs
-                           : out + (size_t)head * n * kAttnD;
-    const size_t ld = kRope ? rope.out_ld : kAttnD;
+      for (int r = 0; r < 2; ++r) {
+        const int grow = q0 + wg * 64 + row + 8 * r;
+        if (grow < n) {
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int i = wt + 128 * it, r = i >> 3, c = i & 7;
-      const int grow = q0 + wg * 64 + r;
-      if (grow < n)
-        *reinterpret_cast<int4*>(out_head + (size_t)grow * ld + 8 * c) =
-            *reinterpret_cast<const int4*>(my_q + r * kRowBytes + ((c ^ (r & 7)) << 4));
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float2*>(out_head + (size_t)grow * kAttnD + 8 * j + 2 * t) =
+                make_float2(__fmul_rn(o[4 * j + 2 * r], inv[r]),
+                            __fmul_rn(o[4 * j + 2 * r + 1], inv[r]));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int chunk = (j ^ g8) << 4;
+        *reinterpret_cast<uint32_t*>(my_q + row * kRowBytes + chunk + 4 * t) =
+            pack_bf16x2(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(my_q + (row + 8) * kRowBytes + chunk + 4 * t) =
+            pack_bf16x2(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup alone
+      const int wt = tid & 127;
+      bf16* out_head = kRope ? out + item * rope.out_bs + g * rope.out_hs
+                             : out + (size_t)head * n * kAttnD;
+      const size_t ld = kRope ? rope.out_ld : kAttnD;
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int i = wt + 128 * it, r = i >> 3, c = i & 7;
+        const int grow = q0 + wg * 64 + r;
+        if (grow < n)
+          *reinterpret_cast<int4*>(out_head + (size_t)grow * ld + 8 * c) =
+              *reinterpret_cast<const int4*>(my_q + r * kRowBytes + ((c ^ (r & 7)) << 4));
+      }
     }
   }
 }

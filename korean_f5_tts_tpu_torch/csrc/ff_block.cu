@@ -63,20 +63,11 @@ extern "C" int f5_ff_block_f32_fwd(const void* h, const void* sc, const void* sh
                                    int M, int d, int dff, float eps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int m_tiles = (M + f5::kFT - 1) / f5::kFT;
-  if (M <= 0 || d % f5::kFT != 0 || dff % f5::kFT != 0 || m_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (d % f5::kFT != 0 || dff % f5::kFT != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  typedef const float* P;
-  err = f5::launch_ln_stats<float>(h, stats, M, d, eps, s);
+  const void* const ws[3] = {w1, w1, w1};
+  const void* const bs[3] = {b1, b1, b1};
+  err = f5::launch_ln_mod_gemm_f32<true>(h, sc, sh, ws, bs, stats, z, M, d, dff, 1, eps, s);
   if (err != cudaSuccess) return (int)err;
-  f5::ln_mod_gemm_f32_kernel<true><<<dim3(dff / f5::kFT, m_tiles), f5::kFThreads, 0, s>>>(
-      static_cast<P>(h), static_cast<P>(stats), static_cast<P>(sc), static_cast<P>(sh),
-      static_cast<P>(w1), static_cast<P>(b1), static_cast<float*>(z), M, dff, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  f5::gated_residual_gemm_f32_kernel<<<dim3(d / f5::kFT, m_tiles), f5::kFThreads, 0, s>>>(
-      static_cast<P>(z), static_cast<P>(w2), static_cast<P>(b2), static_cast<P>(h),
-      static_cast<P>(gate), static_cast<float*>(out), M, d, dff);
-  return (int)cudaGetLastError();
+  return (int)f5::launch_gated_residual_gemm_f32(z, w2, b2, h, gate, out, M, d, dff, s);
 }

@@ -53,6 +53,15 @@
 // log2(l) of the scaled scores (0 for a row with no valid key, whose output
 // is zero); kernel A's instantiation has no lse code. Its bound at the
 // training shape (H 128, n 1280, d 64): 53.7 GFLOP at 67 TFLOP/s, 0.80 ms.
+// The fp32 forms of kernels 18 and 19 (f5_flash_prefix_rope_f32_fwd,
+// f5_flash_prefix_qkv_f32_fwd; the JAX kernels rotate and attend in x's
+// dtype, flash_prefix.py:1413-1424 and :1550) are its kRope instantiation:
+// the block's head is read at strides (the split-head [B, heads, n, 64]
+// tensors, or the fused qkv rows [B, n, 3 * heads * 64] with the output
+// merged as [B, n, heads * 64]), and q and k of the heads g < n_rope are
+// rotated in fp32 by the fp32 tables as their rows land in shared memory
+// (each product and the sum rounded once, ops/flash_prefix.py:rope_reference
+// on fp32 to the bit). Same bound as A's fp32 form at the same shape.
 #include "attn_wgmma.cuh"
 #include "flash_prefix.cuh"
 
@@ -62,21 +71,67 @@ namespace {
 constexpr int kF32Threads = 256;
 constexpr int kF32LD = 64 + 4;  // row stride of the [c][row] and [row][key] tiles
 
-// rows [row0, row0 + 64) of a [n, D] fp32 head, transposed into dst[c][row];
-// rows at or past n give zeros. Consecutive threads take consecutive rows:
-// the shared-memory stores are conflict-free.
-template <int D>
-__device__ __forceinline__ void load_rows_t_f32(float* dst, const float* src, int row0, int n,
-                                                int tid) {
-  for (int i = tid; i < 64 * (D / 4); i += kF32Threads) {
+// Where a block's head lies: folded head blockIdx.y = item * heads + g reads
+// q, k, v at item * s_item + g * s_head + row * s_row (elements; k and v as
+// their own pointers, with q's strides) and writes out with the out_ strides;
+// item b attends keys [0, kv_lens[b]). Kernels A and 10 do not read it
+// (their heads are contiguous [H, n, D] blocks); kernels 18 and 19 pass the
+// strides of the split-head [B, heads, n, 64] tensors or of the fused qkv
+// rows [B, n, 3 * heads * 64] (out [B, n, heads * 64]). Heads g < n_rope
+// rotate q and k by the fp32 tables cos, sin [n, 32] as their rows land in
+// shared memory.
+struct F32Heads {
+  long long s_item, s_head, s_row;
+  long long out_item, out_head, out_row;
+  int heads, n_rope;
+  const float* cos;
+  const float* sin;
+};
+
+// rows [row0, row0 + 64) of a head whose rows are ld elements apart,
+// transposed into dst[c][row]; rows at or past n give zeros. Consecutive
+// threads take consecutive rows: the shared-memory stores are conflict-free.
+// kRot (D = 64): the half-split rotation of the row at its position r,
+//   out[c] = x[c] cos[r, c] - x[c + 32] sin[r, c],
+//   out[c + 32] = x[c + 32] cos[r, c] + x[c] sin[r, c],
+// each product and the sum rounded once, as the plain version's torch ops.
+template <int D, bool kRot>
+__device__ __forceinline__ void load_rows_t_f32(float* dst, const float* src, long long ld,
+                                                int row0, int n, int tid, const float* cos,
+                                                const float* sin) {
+  constexpr int kCols = kRot ? 32 : D;  // columns a thread's float4 starts at
+  for (int i = tid; i < 64 * (kCols / 4); i += kF32Threads) {
     const int r = i & 63;
     const int c = (i >> 6) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
+    if (row0 + r < n) {
+      const float* p = src + (long long)(row0 + r) * ld + c;
+      v = *reinterpret_cast<const float4*>(p);
+      if (kRot) {
+        w = *reinterpret_cast<const float4*>(p + 32);
+        const float4 cs = *reinterpret_cast<const float4*>(cos + (size_t)(row0 + r) * 32 + c);
+        const float4 sn = *reinterpret_cast<const float4*>(sin + (size_t)(row0 + r) * 32 + c);
+        const float4 x1 = v, x2 = w;
+        v = make_float4(__fsub_rn(__fmul_rn(x1.x, cs.x), __fmul_rn(x2.x, sn.x)),
+                        __fsub_rn(__fmul_rn(x1.y, cs.y), __fmul_rn(x2.y, sn.y)),
+                        __fsub_rn(__fmul_rn(x1.z, cs.z), __fmul_rn(x2.z, sn.z)),
+                        __fsub_rn(__fmul_rn(x1.w, cs.w), __fmul_rn(x2.w, sn.w)));
+        w = make_float4(__fadd_rn(__fmul_rn(x2.x, cs.x), __fmul_rn(x1.x, sn.x)),
+                        __fadd_rn(__fmul_rn(x2.y, cs.y), __fmul_rn(x1.y, sn.y)),
+                        __fadd_rn(__fmul_rn(x2.z, cs.z), __fmul_rn(x1.z, sn.z)),
+                        __fadd_rn(__fmul_rn(x2.w, cs.w), __fmul_rn(x1.w, sn.w)));
+      }
+    }
     dst[(c + 0) * kF32LD + r] = v.x;
     dst[(c + 1) * kF32LD + r] = v.y;
     dst[(c + 2) * kF32LD + r] = v.z;
     dst[(c + 3) * kF32LD + r] = v.w;
+    if (kRot) {
+      dst[(c + 32) * kF32LD + r] = w.x;
+      dst[(c + 33) * kF32LD + r] = w.y;
+      dst[(c + 34) * kF32LD + r] = w.z;
+      dst[(c + 35) * kF32LD + r] = w.w;
+    }
   }
 }
 
@@ -95,26 +150,36 @@ __device__ __forceinline__ float row16_max(float x) {
 
 // Thread (ty, tx) of the 16 x 16 block owns query rows ty * 4 + i, score
 // columns tx * 4 + j and output columns tx * 4 + j (+ 64 for D = 128).
-// kLse: also write lse [H, n] (kernel 10's fp32 form).
-template <int D, bool kLse>
+// kLse: also write lse [H, n] (kernel 10's fp32 form). kRope: the fp32 forms
+// of kernels 18 and 19 (D = 64), heads at the strides of hd, q and k rotated.
+template <int D, bool kLse, bool kRope = false>
 __global__ void __launch_bounds__(kF32Threads)
 flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ kv_lens,
                         float* __restrict__ out, float* __restrict__ lse, int n,
-                        float scale_log2) {
+                        float scale_log2, F32Heads hd) {
+  static_assert(!kRope || D == 64, "the rotation is written for 64-wide heads");
   constexpr int NO = D / 64;  // 4-wide output column groups of a thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQt = reinterpret_cast<float*>(smem_raw);  // [D][68]
   float* sKt = sQt + D * kF32LD;                    // [D][68]
   float* sV = sKt + D * kF32LD;                     // [64][D]
   float* sP = sV + 64 * D;                          // [64][68]
-  const int head = blockIdx.y;
+  // kernel A's and 10's heads are contiguous [n, D] blocks: their offsets are
+  // compile-time (the strided form cost them 2-3% of their time)
+  const int item = kRope ? blockIdx.y / hd.heads : blockIdx.y;
+  const int g = kRope ? blockIdx.y - item * hd.heads : 0;
   const int q0 = blockIdx.x * 64;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const size_t off = (size_t)head * n * D;
-  const int kv_len = min(kv_lens[head], n);
+  const long long off = kRope ? item * hd.s_item + g * hd.s_head : (long long)blockIdx.y * n * D;
+  const long long ld = kRope ? hd.s_row : D;
+  const int kv_len = min(kv_lens[item], n);
+  const bool rot = kRope && g < hd.n_rope;  // block-uniform
 
-  load_rows_t_f32<D>(sQt, q + off, q0, n, tid);
+  if (rot)
+    load_rows_t_f32<D, kRope>(sQt, q + off, ld, q0, n, tid, hd.cos, hd.sin);
+  else
+    load_rows_t_f32<D, false>(sQt, q + off, ld, q0, n, tid, nullptr, nullptr);
 
   float o[4][NO * 4];
 #pragma unroll
@@ -132,12 +197,16 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int k0 = jt * 64;
     __syncthreads();  // the previous tile's readers are done
-    load_rows_t_f32<D>(sKt, k + off, k0, n, tid);
+    if (rot)
+      load_rows_t_f32<D, kRope>(sKt, k + off, ld, k0, n, tid, hd.cos, hd.sin);
+    else
+      load_rows_t_f32<D, false>(sKt, k + off, ld, k0, n, tid, nullptr, nullptr);
     for (int i = tid; i < 64 * (D / 4); i += kF32Threads) {
       const int r = i / (D / 4);
       const int c = (i % (D / 4)) * 4;
       float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < n) val = *reinterpret_cast<const float4*>(v + off + (size_t)(k0 + r) * D + c);
+      if (k0 + r < n)
+        val = *reinterpret_cast<const float4*>(v + off + (long long)(k0 + r) * ld + c);
       *reinterpret_cast<float4*>(sV + r * D + c) = val;
     }
     __syncthreads();
@@ -190,17 +259,19 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * kF32LD + key];
 #pragma unroll
-      for (int g = 0; g < NO; ++g) {
-        const float4 b = *reinterpret_cast<const float4*>(sV + key * D + g * 64 + tx * 4);
+      for (int gg = 0; gg < NO; ++gg) {
+        const float4 b = *reinterpret_cast<const float4*>(sV + key * D + gg * 64 + tx * 4);
         const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) o[i][g * 4 + j] = fmaf(p[i], bv[j], o[i][g * 4 + j]);
+          for (int j = 0; j < 4; ++j) o[i][gg * 4 + j] = fmaf(p[i], bv[j], o[i][gg * 4 + j]);
       }
     }
   }
 
+  float* dst = out + (kRope ? item * hd.out_item + g * hd.out_head : off);
+  const long long out_ld = kRope ? hd.out_row : D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -208,28 +279,38 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;  // kv_len == 0: zeros
     // m_run is in the base-2 domain of the scaled scores, l_run the whole row's sum
     if (kLse && tx == 0)
-      lse[(size_t)head * n + row] = l_run[i] > 0.f ? m_run[i] + log2f(l_run[i]) : 0.f;
+      lse[(size_t)blockIdx.y * n + row] = l_run[i] > 0.f ? m_run[i] + log2f(l_run[i]) : 0.f;
 #pragma unroll
-    for (int g = 0; g < NO; ++g)
-      *reinterpret_cast<float4*>(out + off + (size_t)row * D + g * 64 + tx * 4) =
-          make_float4(o[i][g * 4] * inv, o[i][g * 4 + 1] * inv, o[i][g * 4 + 2] * inv,
-                      o[i][g * 4 + 3] * inv);
+    for (int gg = 0; gg < NO; ++gg)
+      *reinterpret_cast<float4*>(dst + (long long)row * out_ld + gg * 64 + tx * 4) =
+          make_float4(o[i][gg * 4] * inv, o[i][gg * 4 + 1] * inv, o[i][gg * 4 + 2] * inv,
+                      o[i][gg * 4 + 3] * inv);
   }
 }
 
+template <int D, bool kLse, bool kRope>
+cudaError_t launch_f32_heads(const void* q, const void* k, const void* v, const void* kv_lens,
+                             void* out, void* lse, int blocks_y, int n, float scale_log2,
+                             const F32Heads& hd, cudaStream_t stream) {
+  const int smem = (2 * D * kF32LD + 64 * D + 64 * kF32LD) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_prefix_f32_kernel<D, kLse, kRope>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_prefix_f32_kernel<D, kLse, kRope>
+      <<<dim3((n + 63) / 64, blocks_y), kF32Threads, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const int*>(kv_lens),
+          static_cast<float*>(out), static_cast<float*>(lse), n, scale_log2, hd);
+  return cudaGetLastError();
+}
+
+// kernels A and 10: folded [H, n, D] heads, one length each
 template <int D, bool kLse = false>
 cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, const void* kv_lens,
                            void* out, void* lse, int H, int n, float scale_log2,
                            cudaStream_t stream) {
-  const int smem = (2 * D * kF32LD + 64 * D + 64 * kF32LD) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefix_f32_kernel<D, kLse>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_prefix_f32_kernel<D, kLse><<<dim3((n + 63) / 64, H), kF32Threads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(kv_lens), static_cast<float*>(out), static_cast<float*>(lse), n,
-      scale_log2);
-  return cudaGetLastError();
+  return launch_f32_heads<D, kLse, false>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
+                                          F32Heads{}, stream);
 }
 
 }  // namespace
@@ -296,6 +377,46 @@ extern "C" int f5_flash_prefix_f32_fwd_lse(const void* q, const void* k, const v
   if (!attn_dims_ok(H, n) || d != 64) return (int)cudaErrorInvalidValue;
   return (int)f5::launch_fwd_f32<64, true>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
                                            static_cast<cudaStream_t>(stream));
+}
+
+// kernel 18's fp32 form: q, k, v, out [B, heads, n, 64] fp32 (q and k before
+// the rotation), kv_lens [B] int32, cos, sin [n, 32] fp32; heads g < n_rope
+// rotate
+extern "C" int f5_flash_prefix_rope_f32_fwd(const void* q, const void* k, const void* v,
+                                            const void* kv_lens, const void* cos,
+                                            const void* sin, void* out, int B, int heads, int n,
+                                            int n_rope, float scale_log2, int device,
+                                            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || heads <= 0 || n <= 0 || (long long)B * heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long hs = (long long)n * 64, bs = heads * hs;
+  const f5::F32Heads hd{bs, hs, 64, bs, hs, 64, heads, n_rope,
+                        static_cast<const float*>(cos), static_cast<const float*>(sin)};
+  return (int)f5::launch_f32_heads<64, false, true>(q, k, v, kv_lens, out, nullptr, B * heads,
+                                                    n, scale_log2, hd,
+                                                    static_cast<cudaStream_t>(stream));
+}
+
+// kernel 19's fp32 form: qkv [B, n, 3 * heads * 64] fp32 (q | k | v, heads-major
+// inside each, q and k before the rotation), out [B, n, heads * 64], kv_lens
+// [B] int32, cos, sin [n, 32] fp32
+extern "C" int f5_flash_prefix_qkv_f32_fwd(const void* qkv, const void* kv_lens, const void* cos,
+                                           const void* sin, void* out, int B, int heads, int n,
+                                           int n_rope, float scale_log2, int device,
+                                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || heads <= 0 || n <= 0 || (long long)B * heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long inner = (long long)heads * 64;
+  const f5::F32Heads hd{n * 3 * inner, 64, 3 * inner, n * inner, 64, inner, heads, n_rope,
+                        static_cast<const float*>(cos), static_cast<const float*>(sin)};
+  const float* x = static_cast<const float*>(qkv);
+  return (int)f5::launch_f32_heads<64, false, true>(x, x + inner, x + 2 * inner, kv_lens, out,
+                                                    nullptr, B * heads, n, scale_log2, hd,
+                                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* f5_error_string(int code) {

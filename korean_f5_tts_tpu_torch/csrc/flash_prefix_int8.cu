@@ -10,7 +10,8 @@
 //   l adds the unquantized p = exp2(s - m)
 //   "qkpv": p8 = rint(127 * p) (ties to even), acc = acc*alpha + float(p8 . v8) * sv[h]
 //   "qk":   acc = acc*alpha + bf16(p) . v     (v unquantized bf16)
-//   out = acc / l, rounded once to bf16
+//   out = acc / l, rounded once to bf16; in "qkpv" on the quantized operands
+//   of fp32 inputs (kernel 14's fp32 form), stored as fp32 (kAttnI8QkpvF32)
 // p8 depends on the running max at the time a key tile is visited, so the key
 // tile (128) is part of the arithmetic: the plain version
 // (ops/flash_prefix.py:flash_prefix_i8_reference) repeats it with ck = 128,
@@ -47,7 +48,7 @@ cudaError_t launch_attn_i8_wgmma(const void* q8, const void* k8, const void* v, 
                                  const void* sv, const void* kv_lens, void* out, int H, int n,
                                  int n_pad, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
-  const bool v_ok = kI8 == kAttnI8Qkpv
+  const bool v_ok = attn_i8_pv8(kI8)
                         ? tensor_map_3d(&map_v, v, H, kAttnD, n_pad, kAttnD, kMapInt8)
                         : tensor_map_3d(&map_v, v, H, n, kAttnD, kAttnBK, kMapBf16);
   if (!tensor_map_3d(&map_q, q8, H, n, kAttnD, kAttnRows, kMapInt8) ||
@@ -59,6 +60,7 @@ cudaError_t launch_attn_i8_wgmma(const void* q8, const void* k8, const void* v, 
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kAttnRows - 1) / kAttnRows, H);
   attn_fwd_wgmma_kernel<false, false, kI8><<<grid, 128 * (kAttnWgs + 1), smem, stream>>>(
+      // out is fp32 under kAttnI8QkpvF32, whose epilogue casts it back
       map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out), nullptr, n,
       0.f, AttnRope{}, static_cast<const float*>(c), static_cast<const float*>(sv));
   return cudaGetLastError();
@@ -70,17 +72,21 @@ cudaError_t launch_attn_i8_wgmma(const void* q8, const void* k8, const void* v, 
 // q8, k8: [H, n, 64] int8. pv_i8 != 0: v is int8 [H, 64, n_pad] with the key
 // slots of every group of 32 in the order above (n_pad % 128 == 0, zero past
 // n); else v is bf16 [H, n, 64] and sv is not read. c, sv: [H] fp32; kv_lens:
-// [H] int32; out: [H, n, 64] bf16. All 16-byte aligned.
+// [H] int32; out: [H, n, 64] bf16, or fp32 with out_f32 (pv_i8 only: an fp32
+// "qk" is flash_prefix_int8_f32.cu's). All 16-byte aligned.
 extern "C" int f5_flash_prefix_i8_fwd(const void* q8, const void* k8, const void* v,
                                       const void* c, const void* sv, const void* kv_lens,
-                                      void* out, int H, int n, int n_pad, int pv_i8, int device,
-                                      void* stream) {
+                                      void* out, int H, int n, int n_pad, int pv_i8, int out_f32,
+                                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (H <= 0 || n <= 0 || H > 65535) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || n <= 0 || H > 65535 || (out_f32 && !pv_i8)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pv_i8) {
     if (n_pad < n || n_pad % f5::kAttnBK != 0) return (int)cudaErrorInvalidValue;
+    if (out_f32)
+      return (int)f5::launch_attn_i8_wgmma<f5::kAttnI8QkpvF32>(q8, k8, v, c, sv, kv_lens, out, H,
+                                                               n, n_pad, s);
     return (int)f5::launch_attn_i8_wgmma<f5::kAttnI8Qkpv>(q8, k8, v, c, sv, kv_lens, out, H, n,
                                                           n_pad, s);
   }

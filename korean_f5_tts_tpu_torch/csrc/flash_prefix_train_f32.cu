@@ -12,248 +12,323 @@
 // heads q, k, v, dO, dq, dk, dv [H, n, 64] fp32, kv_lens [H] int32, lse and
 // D = rowsum(dO * o) [H, n] fp32, lse in base 2 of the scores pre-scaled by
 // scale_log2 = log2(e) / sqrt(64). On fp32 inputs the TPU kernels keep "the
-// exact f32 dot": cast=True rounds to k's dtype, which is fp32, so S, P, dP,
-// dS, the accumulators and the outputs stay fp32 and nothing is rounded
-// below it. So do these kernels: plain FFMA products on shared-memory tiles.
-// The tensor cores have no fp32 product, and a single TF32 mma keeps 10
-// mantissa bits, which does not hold fp32 parity (the fp32 forms of A, B and
-// C made the same choice).
+// exact f32 dot": S, P, dP, dS, the accumulators and the outputs stay fp32.
+//
+// Products: on the tensor cores as split "3xTF32" products (mma.cuh): each
+// operand x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a.b ~
+// hi.hi + hi.lo + lo.hi in mma.sync m16n8k8 .tf32 with fp32 accumulation,
+// which keeps fp32 accuracy (the dropped lo.lo is ~2^-22 relative; a single
+// TF32 product keeps 10 mantissa bits, ~1e-3, and fails the 1e-4 bound of
+// the fp32 forms). Each tile is split once, as it lands in shared memory
+// (hi and lo tiles side by side); dS and P are split once in registers.
+// P = exp2(S * scale_log2 - lse) and dS = P * (dP - D) stay fp32 registers.
 //
 // What bounds them: at the training shape (H 128, n 1280, every key valid)
-// 11 and 12 are 6 * n^2 * 64 * H = 80.5 GFLOP (1.20 ms at the 67 TFLOP/s of
-// fp32 outside the tensor cores) and 13 is 8 * n^2 * 64 * H = 107 GFLOP
-// (1.60 ms), against 168-252 MB of operands (0.05-0.08 ms): FFMA bound. The
-// n x n scores stay out of device memory.
+// 11 and 12 are 6 * n^2 * 64 * H = 80.5 GFLOP and 13 is 8 * n^2 * 64 * H =
+// 107 GFLOP of fp32-accurate products. In 3xTF32 at the card's dense TF32
+// rate (494.7 TFLOP/s, three products each: 164.9 TFLOP/s) that is 0.488 ms
+// and 0.651 ms, against 168-252 MB of operands (0.05-0.08 ms); in FFMA, at
+// the 67 TFLOP/s of fp32 outside the tensor cores, 1.20 and 1.60 ms, the
+// bound of the FFMA loops these kernels replace. The n x n scores stay out
+// of device memory.
 //
-// Design, as kernel A's fp32 form: 256 threads a block as a 16 x 16 grid;
-// every product is a 64 x 64 tile of which thread (ty, tx) owns rows ty * 4 +
-// i and columns tx * 4 + j, its operands read as float4 from shared-memory
-// tiles stored transposed ([c][row], row stride 68) where the product
-// contracts over d, and as rows ([row][c]) where it contracts over the tile.
-//   dq (11, 12)  one block per (head, 64 queries): q and dO sit transposed
-//                for the whole sweep; each 64-key tile of K (transposed and
-//                as rows) and V (transposed) is loaded, S = q.K^T and dP =
-//                dO.V^T are 4 x 4 a thread, P = exp2(S * scale_log2 - lse),
-//                dS = P * (dP - D) goes through shared memory, and dq += dS.K.
-//                The sweep stops at ceil(kv_len / 64) tiles; keys past
-//                kv_len in the last one get P = 0. kOnline (12) keeps the
-//                running max and denominator instead of the lse: dq is
-//                rescaled on each max update and divided by l at the end
-//                (dS is linear in P), and the lse it ends with is written.
-//   dk, dv (13)  one block per (head, 64 keys): K and V sit transposed; each
-//                64-query tile of q and dO (transposed and as rows), lse and
-//                D is loaded, S^T = K.q^T and dP^T = V.dO^T are 4 x 4 a
-//                thread, P^T and dS^T go through shared memory (over the
-//                transposed q and dO tiles, whose readers are done), then
-//                dV += P^T.dO and dK += dS^T.q. Every query row is walked,
-//                padded ones included (as the bf16 core); a query at or past
-//                n gets lse +inf (P = 0). A block whose first key is at or
-//                past kv_len writes zero dk and dv. A block owns its key
-//                rows: no atomics, and the result does not depend on block
-//                order.
-// 103-104 KB of shared memory a block: two blocks an SM.
+// Design: 256 threads a block, eight warps of 16 rows each; every product
+// is mma.sync m16n8k8 on fragments from padded row-major tiles (row stride
+// 68 words: ldmatrix and the scalar B reads are conflict-free). The first
+// product of a pair (S, dP) contracts over d with A and B by ldmatrix; its
+// accumulator becomes the A fragment of the second (dq, dK, dV), which
+// contracts over the tile's 64 columns, taking them in the order 2t, 2t + 1
+// (mma.cuh), so the second product's B rows are read in that order by
+// scalar loads. In 11 and 12 the next K/V tile's fp32 rows are loaded into
+// registers while this tile's products run; 13 loads each q/dO tile at the
+// top of its turn, with no prefetch (a prefetched tile, held in registers
+// across the products beside 13's four accumulators, spilled).
+//   dq (11, 12)  one block per (head, 128 queries): q and dO split into
+//                shared memory for the whole sweep; each 64-key tile of K
+//                and V is split in; warp w computes S and dP of its 16
+//                queries over the 64 keys, P = exp2(S * scale_log2 - lse),
+//                dS = P * (dP - D), then dq += dS.K over the tile. The sweep
+//                stops at ceil(kv_len / 64) tiles; keys past kv_len in the
+//                last one get P = 0. kOnline (12) keeps the running max and
+//                denominator instead of the lse: dq is rescaled on each max
+//                update and divided by l at the end (dS is linear in P), and
+//                the lse it ends with is written.
+//   dk, dv (13)  one block per (head, 128 keys): K and V split into shared
+//                memory; each 64-query tile of q and dO is split in with its
+//                lse and D; warp w computes S^T and dP^T of its 16 keys over
+//                the 64 queries, P^T and dS^T, then dV += P^T.dO and dK +=
+//                dS^T.q. Every query row is walked, padded ones included; a
+//                query at or past n gets lse +inf (P = 0). A block whose
+//                first key is at or past kv_len writes zero dk and dv. A
+//                block owns its key rows: no atomics, and the result does not
+//                depend on block order.
+// 204-205 KB of shared memory a block: one block an SM.
 // A row with no valid key gets lse 0 and zero gradients.
 #include "mma.cuh"
 
 namespace f5 {
 namespace {
 
-constexpr int kT32 = 256;   // threads a block
-constexpr int kLD32 = 68;   // row stride of every tile (floats)
-constexpr int kTile32 = 64 * kLD32;
-constexpr int kD32 = 64;    // head dim
+constexpr int kT32 = 256;       // threads a block: eight warps
+constexpr int kLD32 = 68;       // row stride of every tile (words)
+constexpr int kD32 = 64;        // head dim
+constexpr int kDqRows = 128;    // queries a dq block
+constexpr int kDqTile = 64;     // keys a dq tile
+constexpr int kDkvRows = 128;   // keys a dkv block
+constexpr int kDkvTile = 64;    // queries a dkv tile
 
-// rows [row0, row0 + 64) of a [n, 64] fp32 head: transposed into t[c][row]
-// and, when rows is not null, as they are into rows[row][c]; rows at or past
-// n give zeros. Consecutive threads take consecutive rows: the transposed
-// stores are conflict-free, and so are the row stores at stride 68.
-__device__ __forceinline__ void load_tile_f32(float* t, float* rows, const float* src, int row0,
-                                              int n, int tid) {
-  for (int i = tid; i < 64 * (kD32 / 4); i += kT32) {
-    const int r = i & 63;
-    const int c = (i >> 6) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kD32 + c);
-    t[(c + 0) * kLD32 + r] = v.x;
-    t[(c + 1) * kLD32 + r] = v.y;
-    t[(c + 2) * kLD32 + r] = v.z;
-    t[(c + 3) * kLD32 + r] = v.w;
-    if (rows != nullptr) *reinterpret_cast<float4*>(rows + r * kLD32 + c) = v;
+// rows [row0, row0 + ROWS) of a [n, 64] fp32 head into registers (rows at or
+// past n give zeros); thread tid holds float4 it at row (tid + it * 256) / 16,
+// column ((tid + it * 256) % 16) * 4
+template <int ROWS>
+__device__ __forceinline__ void tile_load(float4 (&r)[ROWS / 16], const float* src, int row0,
+                                          int n, int tid) {
+#pragma unroll
+  for (int it = 0; it < ROWS / 16; ++it) {
+    const int i = tid + it * kT32;
+    const int row = row0 + (i >> 4);
+    r[it] = row < n ? *reinterpret_cast<const float4*>(src + (size_t)row * kD32 + (i & 15) * 4)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// acc[i][j] += sum over c of a[c][ty * 4 + i] * b[c][tx * 4 + j]: a 64 x 64
-// product contracting over the 64 rows of two transposed tiles
-__device__ __forceinline__ void mm_tt(float (&acc)[4][4], const float* a, const float* b, int ty,
-                                      int tx) {
-#pragma unroll 8
-  for (int c = 0; c < kD32; ++c) {
-    const float4 x = *reinterpret_cast<const float4*>(a + c * kLD32 + ty * 4);
-    const float4 y = *reinterpret_cast<const float4*>(b + c * kLD32 + tx * 4);
-    const float xv[4] = {x.x, x.y, x.z, x.w};
-    const float yv[4] = {y.x, y.y, y.z, y.w};
+// the registers of tile_load, split into hi and lo tf32 tiles [ROWS][68]
+template <int ROWS>
+__device__ __forceinline__ void tile_split(uint32_t* hi, uint32_t* lo,
+                                           const float4 (&r)[ROWS / 16], int tid) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
+  for (int it = 0; it < ROWS / 16; ++it) {
+    const int i = tid + it * kT32;
+    const int at = (i >> 4) * kLD32 + (i & 15) * 4;
+    uint4 h, l;
+    split_tf32(r[it].x, h.x, l.x);
+    split_tf32(r[it].y, h.y, l.y);
+    split_tf32(r[it].z, h.z, l.z);
+    split_tf32(r[it].w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + at) = h;
+    *reinterpret_cast<uint4*>(lo + at) = l;
   }
 }
 
-// acc[i][j] += sum over m of s[ty * 4 + i][m] * rows[m][tx * 4 + j]: a 64 x 64
-// product contracting over the tile's 64 columns of s ([row][m]) and rows of
-// `rows` ([m][c])
-__device__ __forceinline__ void mm_sr(float (&acc)[4][4], const float* s, const float* rows,
-                                      int ty, int tx) {
-#pragma unroll 8
-  for (int m = 0; m < 64; ++m) {
-    float a[4];
+// A fragment of rows [row0, row0 + 16) x columns [k0, k0 + 8) of a tile
+__device__ __forceinline__ void lda_tf32(uint32_t (&a)[4], const uint32_t* t, int row0, int k0,
+                                         int lane) {
+  const int mi = lane >> 3;
+  ldmatrix_x4(a, t + (row0 + (mi & 1) * 8 + (lane & 7)) * kLD32 + k0 + (mi >> 1) * 4);
+}
+
+// B fragments of rows [n0, n0 + 16) (two 8-row n-tiles) x columns [k0, k0 +
+// 8) of a tile stored [n][k]: {b0, b1} of n-tile 0 in b[0], b[1], of n-tile
+// 1 in b[2], b[3]
+__device__ __forceinline__ void ldb2_tf32(uint32_t (&b)[4], const uint32_t* t, int n0, int k0,
+                                          int lane) {
+  const int mi = lane >> 3;
+  ldmatrix_x4(b, t + (n0 + (mi >> 1) * 8 + (lane & 7)) * kLD32 + k0 + (mi & 1) * 4);
+}
+
+// acc[j] (16 x 64: eight n-tiles) += rows [row0, row0 + 16) of a . the 64
+// rows of b^T, contracting over the 64 columns of both (d)
+__device__ __forceinline__ void mm_rows(float (&acc)[8][4], const uint32_t* ah_t,
+                                        const uint32_t* al_t, const uint32_t* bh_t,
+                                        const uint32_t* bl_t, int row0, int lane) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = s[(ty * 4 + i) * kLD32 + m];
-    const float4 y = *reinterpret_cast<const float4*>(rows + m * kLD32 + tx * 4);
-    const float yv[4] = {y.x, y.y, y.z, y.w};
+  for (int ks = 0; ks < kD32 / 8; ++ks) {
+    uint32_t ah[4], al[4];
+    lda_tf32(ah, ah_t, row0, ks * 8, lane);
+    lda_tf32(al, al_t, row0, ks * 8, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], yv[j], acc[i][j]);
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bh[4], bl[4];
+      ldb2_tf32(bh, bh_t, np * 16, ks * 8, lane);
+      ldb2_tf32(bl, bl_t, np * 16, ks * 8, lane);
+      mma_3xtf32(acc[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma_3xtf32(acc[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
   }
 }
 
-// sum / max over the 16 lanes (tx) that share a row
-__device__ __forceinline__ float row16_sum32(float x) {
+// acc[j] (16 x 64 of d) += x (16 x 64, accumulator layout) . rows of the
+// [64][68] tile b, contracting over x's columns = b's rows, taken in the
+// order 2t, 2t + 1 (mma.cuh); x is split here, once
+__device__ __forceinline__ void mm_acc(float (&acc)[8][4], const float (&x)[8][4],
+                                       const uint32_t* bh_t, const uint32_t* bl_t, int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t ah[4], al[4];
+    split_tf32(x[ks][0], ah[0], al[0]);
+    split_tf32(x[ks][2], ah[1], al[1]);
+    split_tf32(x[ks][1], ah[2], al[2]);
+    split_tf32(x[ks][3], ah[3], al[3]);
+    const int r0 = (ks * 8 + 2 * t) * kLD32 + g;
+#pragma unroll
+    for (int nd = 0; nd < kD32 / 8; ++nd) {
+      const int at = r0 + nd * 8;
+      mma_3xtf32(acc[nd], ah, al, bh_t[at], bh_t[at + kLD32], bl_t[at], bl_t[at + kLD32]);
+    }
+  }
 }
 
-__device__ __forceinline__ float row16_max32(float x) {
+__device__ __forceinline__ void zero84(float (&a)[8][4]) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int j = 0; j < 8; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.f;
 }
 
-__device__ __forceinline__ void zero44(float (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
-}
+constexpr int kDqTfSmem = 4 * (kDqRows + kDqTile) * kLD32 * (int)sizeof(uint32_t);
+constexpr int kDkvTfSmem =
+    (4 * (kDkvRows + kDkvTile) * kLD32 + 2 * kDkvTile) * (int)sizeof(uint32_t);
 
-// dq for one (head, 64-query tile); kOnline: kernel 12 (lse recomputed and
+// dq for one (head, 128-query block); kOnline: kernel 12 (lse recomputed and
 // written to lse_out), otherwise kernel 11 (lse_in given)
 template <bool kOnline>
-__global__ void __launch_bounds__(kT32, 2)
-flash_prefix_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ dout,
-                           const float* __restrict__ dvec, const float* __restrict__ lse_in,
-                           const int* __restrict__ kv_lens, float* __restrict__ dq,
-                           float* __restrict__ lse_out, int n, float scale_log2,
-                           float sm_scale) {
+__global__ void __launch_bounds__(kT32, 1)
+flash_prefix_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ dvec, const float* __restrict__ lse_in,
+                            const int* __restrict__ kv_lens, float* __restrict__ dq,
+                            float* __restrict__ lse_out, int n, float scale_log2,
+                            float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQt = reinterpret_cast<float*>(smem_raw);  // [c][query]
-  float* sDOt = sQt + kTile32;                      // [c][query]
-  float* sKt = sDOt + kTile32;                      // [c][key]
-  float* sVt = sKt + kTile32;                       // [c][key]
-  float* sK = sVt + kTile32;                        // [key][c]
-  float* sDS = sK + kTile32;                        // [query][key]
+  uint32_t* sQh = reinterpret_cast<uint32_t*>(smem_raw);  // [128][68] each
+  uint32_t* sQl = sQh + kDqRows * kLD32;
+  uint32_t* sOh = sQl + kDqRows * kLD32;
+  uint32_t* sOl = sOh + kDqRows * kLD32;
+  uint32_t* sKh = sOl + kDqRows * kLD32;  // [64][68] each
+  uint32_t* sKl = sKh + kDqTile * kLD32;
+  uint32_t* sVh = sKl + kDqTile * kLD32;
+  uint32_t* sVl = sVh + kDqTile * kLD32;
   const int head = blockIdx.y;
-  const int q0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * kDqRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
   const size_t off = (size_t)head * n * kD32;
   const int kv_len = min(kv_lens[head], n);
-
-  load_tile_f32(sQt, nullptr, q + off, q0, n, tid);
-  load_tile_f32(sDOt, nullptr, dout + off, q0, n, tid);
-  float dr[4], lse[4], m_run[4], l_run[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    dr[i] = row < n ? dvec[(size_t)head * n + row] : 0.f;
-    lse[i] = (!kOnline && row < n) ? lse_in[(size_t)head * n + row] : 0.f;
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
+  {
+    float4 r[kDqRows / 16];
+    tile_load<kDqRows>(r, q + off, q0, n, tid);
+    tile_split<kDqRows>(sQh, sQl, r, tid);
+    tile_load<kDqRows>(r, dout + off, q0, n, tid);
+    tile_split<kDqRows>(sOh, sOl, r, tid);
   }
-  zero44(acc);
+  // this thread's rows: wr + g and wr + g + 8 of the block
+  float dr[2], lse[2], m_run[2], l_run[2], acc[8][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    dr[h] = row < n ? dvec[(size_t)head * n + row] : 0.f;
+    lse[h] = (!kOnline && row < n) ? lse_in[(size_t)head * n + row] : 0.f;
+    m_run[h] = -INFINITY;
+    l_run[h] = 0.f;
+  }
+  zero84(acc);
 
-  const int n_tiles = kv_len > 0 ? (kv_len + 63) / 64 : 0;
+  const int n_tiles = kv_len > 0 ? (kv_len + kDqTile - 1) / kDqTile : 0;
+  float4 kr[kDqTile / 16], vr[kDqTile / 16];
+  if (n_tiles > 0) {
+    tile_load<kDqTile>(kr, k + off, 0, n, tid);
+    tile_load<kDqTile>(vr, v + off, 0, n, tid);
+  }
   for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * 64;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_f32(sKt, sK, k + off, k0, n, tid);
-    load_tile_f32(sVt, nullptr, v + off, k0, n, tid);
+    const int k0 = jt * kDqTile;
+    __syncthreads();  // the previous tile's readers (and the q, dO stores) are done
+    tile_split<kDqTile>(sKh, sKl, kr, tid);
+    tile_split<kDqTile>(sVh, sVl, vr, tid);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    zero44(s);
-    zero44(dp);
-    mm_tt(s, sQt, sKt, ty, tx);
-    mm_tt(dp, sDOt, sVt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[i][j] = k0 + tx * 4 + j < kv_len ? s[i][j] * scale_log2 : -INFINITY;
-      if (kOnline) {
-        // tile 0 holds key 0 < kv_len: the running max is finite from then on
-        const float m_new =
-            fmaxf(m_run[i], row16_max32(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]))));
-        const float alpha = exp2f(m_run[i] - m_new);
-        m_run[i] = m_new;
-        lse[i] = m_new;  // P below is relative to the running max
-        l_run[i] *= alpha;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-      }
-      float ps = 0.f;
-      float ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - lse[i]);
-        ps += p;
-        ds[j] = p * (dp[i][j] - dr[i]);
-      }
-      if (kOnline) l_run[i] += row16_sum32(ps);
-      *reinterpret_cast<float4*>(sDS + (ty * 4 + i) * kLD32 + tx * 4) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    if (jt + 1 < n_tiles) {  // the next tile's rows load while this one's products run
+      tile_load<kDqTile>(kr, k + off, k0 + kDqTile, n, tid);
+      tile_load<kDqTile>(vr, v + off, k0 + kDqTile, n, tid);
     }
-    __syncthreads();
-    mm_sr(acc, sDS, sK, ty, tx);
+    float s[8][4], dp[8][4];
+    zero84(s);
+    zero84(dp);
+    mm_rows(s, sQh, sQl, sKh, sKl, wr, lane);
+    mm_rows(dp, sOh, sOl, sVh, sVl, wr, lane);
+    // s[j][e]: row wr + g + 8 * (e >> 1), key k0 + 8j + 2t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = k0 + 8 * j + 2 * t + (e & 1) < kv_len ? s[j][e] * scale_log2 : -INFINITY;
+    if (kOnline) {
+      // tile 0 holds key 0 < kv_len: the running max is finite from then on
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        const float m_new = fmaxf(m_run[h], quad_max(mx));
+        const float alpha = exp2f(m_run[h] - m_new);
+        m_run[h] = m_new;
+        lse[h] = m_new;  // P below is relative to the running max
+        l_run[h] *= alpha;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[j][2 * h] *= alpha;
+          acc[j][2 * h + 1] *= alpha;
+        }
+      }
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - lse[e >> 1]);
+        ps[e >> 1] += p;
+        s[j][e] = p * (dp[j][e] - dr[e >> 1]);  // dS
+      }
+    if (kOnline) {
+      l_run[0] += quad_sum(ps[0]);
+      l_run[1] += quad_sum(ps[1]);
+    }
+    mm_acc(acc, s, sKh, sKl, lane);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
     if (row >= n) continue;
     float scale = sm_scale;
     if (kOnline) {
-      scale = l_run[i] > 0.f ? sm_scale / l_run[i] : 0.f;
-      if (tx == 0)
-        lse_out[(size_t)head * n + row] = l_run[i] > 0.f ? m_run[i] + log2f(l_run[i]) : 0.f;
+      scale = l_run[h] > 0.f ? sm_scale / l_run[h] : 0.f;
+      if (t == 0)
+        lse_out[(size_t)head * n + row] = l_run[h] > 0.f ? m_run[h] + log2f(l_run[h]) : 0.f;
     }
-    *reinterpret_cast<float4*>(dq + off + (size_t)row * kD32 + tx * 4) =
-        make_float4(acc[i][0] * scale, acc[i][1] * scale, acc[i][2] * scale, acc[i][3] * scale);
+    float* dst = dq + off + (size_t)row * kD32 + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd)
+      *reinterpret_cast<float2*>(dst + nd * 8) =
+          make_float2(acc[nd][2 * h] * scale, acc[nd][2 * h + 1] * scale);
   }
 }
 
-// dk and dv for one (head, 64-key tile)
-__global__ void __launch_bounds__(kT32, 2)
-flash_prefix_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ dout,
-                            const float* __restrict__ dvec, const float* __restrict__ lse,
-                            const int* __restrict__ kv_lens, float* __restrict__ dk,
-                            float* __restrict__ dv, int n, float scale_log2, float sm_scale) {
+// dk and dv for one (head, 128-key block)
+__global__ void __launch_bounds__(kT32, 1)
+flash_prefix_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ dvec, const float* __restrict__ lse,
+                             const int* __restrict__ kv_lens, float* __restrict__ dk,
+                             float* __restrict__ dv, int n, float scale_log2, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sKt = reinterpret_cast<float*>(smem_raw);  // [c][key]
-  float* sVt = sKt + kTile32;                       // [c][key]
-  float* sQt = sVt + kTile32;                       // [c][query], then P^T [key][query]
-  float* sDOt = sQt + kTile32;                      // [c][query], then dS^T [key][query]
-  float* sQ = sDOt + kTile32;                       // [query][c]
-  float* sDO = sQ + kTile32;                        // [query][c]
-  float* sRows = sDO + kTile32;                     // the tile's lse, then its D
+  uint32_t* sKh = reinterpret_cast<uint32_t*>(smem_raw);  // [128][68] each
+  uint32_t* sKl = sKh + kDkvRows * kLD32;
+  uint32_t* sVh = sKl + kDkvRows * kLD32;
+  uint32_t* sVl = sVh + kDkvRows * kLD32;
+  uint32_t* sQh = sVl + kDkvRows * kLD32;  // [64][68] each
+  uint32_t* sQl = sQh + kDkvTile * kLD32;
+  uint32_t* sOh = sQl + kDkvTile * kLD32;
+  uint32_t* sOl = sOh + kDkvTile * kLD32;
+  float* sLse = reinterpret_cast<float*>(sOl + kDkvTile * kLD32);  // [64]
+  float* sD = sLse + kDkvTile;                                     // [64]
   const int head = blockIdx.y;
-  const int k0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * kDkvRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
   const size_t off = (size_t)head * n * kD32;
   const int kv_len = min(kv_lens[head], n);
 
   if (k0 >= kv_len) {  // block-uniform: every key masked, zero gradients
-    for (int i = tid; i < 64 * (kD32 / 4); i += kT32) {
+    for (int i = tid; i < kDkvRows * (kD32 / 4); i += kT32) {
       const int r = k0 + (i >> 4), c = (i & 15) * 4;
       if (r < n) {
         *reinterpret_cast<float4*>(dk + off + (size_t)r * kD32 + c) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -262,83 +337,89 @@ flash_prefix_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict
     }
     return;
   }
-  load_tile_f32(sKt, nullptr, k + off, k0, n, tid);
-  load_tile_f32(sVt, nullptr, v + off, k0, n, tid);
-  bool valid[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) valid[i] = k0 + ty * 4 + i < kv_len;
-  float dk_acc[4][4], dv_acc[4][4];
-  zero44(dk_acc);
-  zero44(dv_acc);
+  {
+    float4 r[kDkvRows / 16];
+    tile_load<kDkvRows>(r, k + off, k0, n, tid);
+    tile_split<kDkvRows>(sKh, sKl, r, tid);
+    tile_load<kDkvRows>(r, v + off, k0, n, tid);
+    tile_split<kDkvRows>(sVh, sVl, r, tid);
+  }
+  const bool valid[2] = {k0 + wr + g < kv_len, k0 + wr + g + 8 < kv_len};
+  float dk_acc[8][4], dv_acc[8][4];
+  zero84(dk_acc);
+  zero84(dv_acc);
 
-  const int q_tiles = (n + 63) / 64;
+  const int q_tiles = (n + kDkvTile - 1) / kDkvTile;
   for (int it = 0; it < q_tiles; ++it) {
-    const int qb = it * 64;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_f32(sQt, sQ, q + off, qb, n, tid);
-    load_tile_f32(sDOt, sDO, dout + off, qb, n, tid);
-    if (tid < 64) {
-      const int row = qb + tid;
-      sRows[tid] = row < n ? lse[(size_t)head * n + row] : INFINITY;
-      sRows[64 + tid] = row < n ? dvec[(size_t)head * n + row] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero44(s);
-    zero44(dp);
-    mm_tt(s, sKt, sQt, ty, tx);   // S^T
-    mm_tt(dp, sVt, sDOt, ty, tx);  // dP^T
-    const float4 l4 = *reinterpret_cast<const float4*>(sRows + tx * 4);
-    const float4 d4 = *reinterpret_cast<const float4*>(sRows + 64 + tx * 4);
-    const float lq[4] = {l4.x, l4.y, l4.z, l4.w};
-    const float dd[4] = {d4.x, d4.y, d4.z, d4.w};
-    __syncthreads();  // every read of the transposed q and dO tiles is done
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = valid[i] ? exp2f(s[i][j] * scale_log2 - lq[j]) : 0.f;
-        ds[j] = p[j] * (dp[i][j] - dd[j]);
+    const int qb = it * kDkvTile;
+    {
+      float4 qr[kDkvTile / 16], orr[kDkvTile / 16];
+      tile_load<kDkvTile>(qr, q + off, qb, n, tid);
+      tile_load<kDkvTile>(orr, dout + off, qb, n, tid);
+      float lr = 0.f, dd = 0.f;
+      if (tid < kDkvTile) {
+        lr = qb + tid < n ? lse[(size_t)head * n + qb + tid] : INFINITY;
+        dd = qb + tid < n ? dvec[(size_t)head * n + qb + tid] : 0.f;
       }
-      *reinterpret_cast<float4*>(sQt + (ty * 4 + i) * kLD32 + tx * 4) =
-          make_float4(p[0], p[1], p[2], p[3]);
-      *reinterpret_cast<float4*>(sDOt + (ty * 4 + i) * kLD32 + tx * 4) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+      __syncthreads();  // the previous tile's readers (and the K, V stores) are done
+      tile_split<kDkvTile>(sQh, sQl, qr, tid);
+      tile_split<kDkvTile>(sOh, sOl, orr, tid);
+      if (tid < kDkvTile) {
+        sLse[tid] = lr;
+        sD[tid] = dd;
+      }
     }
     __syncthreads();
-    mm_sr(dv_acc, sQt, sDO, ty, tx);   // dV += P^T.dO
-    mm_sr(dk_acc, sDOt, sQ, ty, tx);   // dK += dS^T.q
+    float s[8][4], dp[8][4];
+    zero84(s);
+    zero84(dp);
+    mm_rows(s, sKh, sKl, sQh, sQl, wr, lane);   // S^T
+    mm_rows(dp, sVh, sVl, sOh, sOl, wr, lane);  // dP^T
+    // s[j][e]: key wr + g + 8 * (e >> 1), query qb + 8j + 2t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sLse + 8 * j + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(sD + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = valid[e >> 1] ? exp2f(s[j][e] * scale_log2 - ((e & 1) ? l2.y : l2.x)) : 0.f;
+        s[j][e] = p;                                     // P^T
+        dp[j][e] = p * (dp[j][e] - ((e & 1) ? d2.y : d2.x));  // dS^T
+      }
+    }
+    mm_acc(dv_acc, s, sOh, sOl, lane);   // dV += P^T.dO
+    mm_acc(dk_acc, dp, sQh, sQl, lane);  // dK += dS^T.q
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + wr + g + 8 * h;
     if (row >= n) continue;
-    *reinterpret_cast<float4*>(dk + off + (size_t)row * kD32 + tx * 4) =
-        make_float4(dk_acc[i][0] * sm_scale, dk_acc[i][1] * sm_scale, dk_acc[i][2] * sm_scale,
-                    dk_acc[i][3] * sm_scale);
-    *reinterpret_cast<float4*>(dv + off + (size_t)row * kD32 + tx * 4) =
-        make_float4(dv_acc[i][0], dv_acc[i][1], dv_acc[i][2], dv_acc[i][3]);
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) {
+      const size_t at = off + (size_t)row * kD32 + nd * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dk + at) =
+          make_float2(dk_acc[nd][2 * h] * sm_scale, dk_acc[nd][2 * h + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dv + at) = make_float2(dv_acc[nd][2 * h], dv_acc[nd][2 * h + 1]);
+    }
   }
 }
-
-constexpr int kDqF32Smem = 6 * kTile32 * (int)sizeof(float);
-constexpr int kDkvF32Smem = (6 * kTile32 + 128) * (int)sizeof(float);
 
 template <bool kOnline>
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
                           const void* dvec, const void* lse_in, const void* kv_lens, void* dq,
                           void* lse_out, int H, int n, float scale_log2, float sm_scale,
                           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_prefix_dq_f32_kernel<kOnline>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqF32Smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_prefix_dq_tf32_kernel<kOnline>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqTfSmem);
   if (err != cudaSuccess) return err;
-  flash_prefix_dq_f32_kernel<kOnline><<<dim3((n + 63) / 64, H), kT32, kDqF32Smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(dvec),
-      static_cast<const float*>(lse_in), static_cast<const int*>(kv_lens),
-      static_cast<float*>(dq), static_cast<float*>(lse_out), n, scale_log2, sm_scale);
+  flash_prefix_dq_tf32_kernel<kOnline>
+      <<<dim3((n + kDqRows - 1) / kDqRows, H), kT32, kDqTfSmem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout),
+          static_cast<const float*>(dvec), static_cast<const float*>(lse_in),
+          static_cast<const int*>(kv_lens), static_cast<float*>(dq),
+          static_cast<float*>(lse_out), n, scale_log2, sm_scale);
   return cudaGetLastError();
 }
 
@@ -381,12 +462,12 @@ extern "C" int f5_flash_prefix_f32_dkv(const void* q, const void* k, const void*
                                        int d, float scale_log2, float sm_scale, int device,
                                        void* stream) {
   if (int err = f5::check_args_f32(device, H, n, d)) return err;
-  cudaError_t err = cudaFuncSetAttribute(f5::flash_prefix_dkv_f32_kernel,
+  cudaError_t err = cudaFuncSetAttribute(f5::flash_prefix_dkv_tf32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         f5::kDkvF32Smem);
+                                         f5::kDkvTfSmem);
   if (err != cudaSuccess) return (int)err;
-  f5::flash_prefix_dkv_f32_kernel<<<dim3((n + 63) / 64, H), f5::kT32, f5::kDkvF32Smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
+  f5::flash_prefix_dkv_tf32_kernel<<<dim3((n + f5::kDkvRows - 1) / f5::kDkvRows, H), f5::kT32,
+                                      f5::kDkvTfSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(dvec),
       static_cast<const float*>(lse), static_cast<const int*>(kv_lens), static_cast<float*>(dk),

@@ -1,6 +1,8 @@
 // fp32 form of the FF half-block's two products (ff_block.cu: kernel B on
-// fp32 operands), for the offline entry points, which keep fp32 weights
-// unless told otherwise.
+// fp32 operands) and of kernels 7 and 8 (fused_linears.cu: the qkv product
+// after LN and the modulation, over up to three weight segments, and the
+// out-projection folded into the gated residual), for the offline entry
+// points, which keep fp32 weights unless told otherwise.
 //
 // Products: plain FFMA on shared-memory tiles. Hopper's tensor cores have no
 // fp32 product: a single TF32 mma keeps 10 mantissa bits and does not hold
@@ -107,18 +109,25 @@ __device__ __forceinline__ void gemm_f32_tile(float (&acc)[8][8], float* sA, flo
   }
 }
 
-// out[M, N] = act(LN(h) * (1 + sc) + sh) @ W[N, d]^T + b), all fp32
+// out[M, nseg * seg_n] = act(LN(h) * (1 + sc) + sh) @ [W0; W1; W2]^T + [b0; b1; b2]),
+// all fp32: up to three weights [seg_n, d] read as segments of the output's
+// columns (seg_n % 128 == 0, so a column tile lies in one segment)
 template <bool kGelu>
 __global__ void __launch_bounds__(kFThreads)
 ln_mod_gemm_f32_kernel(const float* __restrict__ h, const float* __restrict__ stats,
                        const float* __restrict__ sc, const float* __restrict__ sh,
-                       const float* __restrict__ w, const float* __restrict__ b,
-                       float* __restrict__ out, int M, int N, int d) {
+                       const float* __restrict__ w0, const float* __restrict__ w1,
+                       const float* __restrict__ w2, const float* __restrict__ b0,
+                       const float* __restrict__ b1, const float* __restrict__ b2,
+                       float* __restrict__ out, int M, int seg_n, int nseg, int d) {
   __shared__ __align__(16) float sA[kFK * kFLD];
   __shared__ __align__(16) float sB[kFK * kFLD];
   const int n0 = blockIdx.x * kFT, m0 = blockIdx.y * kFT;
+  const int seg = n0 / seg_n, nl = n0 - seg * seg_n, N = nseg * seg_n;
+  const float* w = seg == 0 ? w0 : (seg == 1 ? w1 : w2);
+  const float* b = seg == 0 ? b0 : (seg == 1 ? b1 : b2);
   float acc[8][8];
-  gemm_f32_tile<true>(acc, sA, sB, h, w, M, N, d, m0, n0, stats, sc, sh);
+  gemm_f32_tile<true>(acc, sA, sB, h, w, M, seg_n, d, m0, nl, stats, sc, sh);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -126,8 +135,8 @@ ln_mod_gemm_f32_kernel(const float* __restrict__ h, const float* __restrict__ st
     if (row >= M) continue;
 #pragma unroll
     for (int jh = 0; jh < 2; ++jh) {
-      const int col = n0 + jh * 64 + tx * 4;
-      const float4 bb = *reinterpret_cast<const float4*>(b + col);
+      const int col = jh * 64 + tx * 4;
+      const float4 bb = *reinterpret_cast<const float4*>(b + nl + col);
       float4 o = make_float4(acc[i][jh * 4] + bb.x, acc[i][jh * 4 + 1] + bb.y,
                              acc[i][jh * 4 + 2] + bb.z, acc[i][jh * 4 + 3] + bb.w);
       if (kGelu) {
@@ -136,7 +145,7 @@ ln_mod_gemm_f32_kernel(const float* __restrict__ h, const float* __restrict__ st
         o.z = gelu_tanh_f32(o.z);
         o.w = gelu_tanh_f32(o.w);
       }
-      *reinterpret_cast<float4*>(out + (size_t)row * N + col) = o;
+      *reinterpret_cast<float4*>(out + (size_t)row * N + n0 + col) = o;
     }
   }
 }
@@ -169,6 +178,40 @@ gated_residual_gemm_f32_kernel(const float* __restrict__ a, const float* __restr
                       hv.w + gg.w * (acc[i][jh * 4 + 3] + bb.w));
     }
   }
+}
+
+// the row statistics, then ln_mod_gemm_f32_kernel; d % 16 == 0, seg_n % 128 == 0
+template <bool kGelu>
+cudaError_t launch_ln_mod_gemm_f32(const void* h, const void* sc, const void* sh,
+                                   const void* const (&w)[3], const void* const (&b)[3],
+                                   void* stats, void* out, int M, int d, int seg_n, int nseg,
+                                   float eps, cudaStream_t stream) {
+  const int m_tiles = (M + kFT - 1) / kFT;
+  if (M <= 0 || d <= 0 || d % kFK != 0 || seg_n <= 0 || seg_n % kFT != 0 || nseg < 1 ||
+      nseg > 3 || m_tiles > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_ln_stats<float>(h, stats, M, d, eps, stream);
+  if (err != cudaSuccess) return err;
+  typedef const float* P;
+  ln_mod_gemm_f32_kernel<kGelu><<<dim3(nseg * seg_n / kFT, m_tiles), kFThreads, 0, stream>>>(
+      static_cast<P>(h), static_cast<P>(stats), static_cast<P>(sc), static_cast<P>(sh),
+      static_cast<P>(w[0]), static_cast<P>(w[1]), static_cast<P>(w[2]), static_cast<P>(b[0]),
+      static_cast<P>(b[1]), static_cast<P>(b[2]), static_cast<float*>(out), M, seg_n, nseg, d);
+  return cudaGetLastError();
+}
+
+// out = h + gate * (a @ W^T + b); K % 16 == 0, N % 128 == 0
+inline cudaError_t launch_gated_residual_gemm_f32(const void* a, const void* w, const void* b,
+                                                  const void* h, const void* gate, void* out,
+                                                  int M, int N, int K, cudaStream_t stream) {
+  const int m_tiles = (M + kFT - 1) / kFT;
+  if (M <= 0 || K <= 0 || K % kFK != 0 || N <= 0 || N % kFT != 0 || m_tiles > 65535)
+    return cudaErrorInvalidValue;
+  typedef const float* P;
+  gated_residual_gemm_f32_kernel<<<dim3(N / kFT, m_tiles), kFThreads, 0, stream>>>(
+      static_cast<P>(a), static_cast<P>(w), static_cast<P>(b), static_cast<P>(h),
+      static_cast<P>(gate), static_cast<float*>(out), M, N, K);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -83,4 +83,54 @@ __device__ __forceinline__ const bf16* b_kn_addr(const bf16* tile, int ld, int l
   return tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
 }
 
+// ---------------------------------------------------------------------------
+// TF32 (mma.sync m16n8k8 .tf32, fp32 accumulate) and the split "3xTF32"
+// product that keeps fp32 accuracy: x = hi + lo with hi = tf32(x) and
+// lo = tf32(x - hi) (x - hi is exact in fp32), and
+//   a.b ~ hi_a.hi_b + hi_a.lo_b + lo_a.hi_b,
+// dropping lo_a.lo_b (about 2^-22 of |a||b|). Fragment layouts (PTX ISA,
+// "Matrix fragments for mma.m16n8k8", .tf32), g = lane / 4, t = lane % 4:
+//   A 16x8 row-major: a0 (g, t)   a1 (g+8, t)   a2 (g, t+4)   a3 (g+8, t+4)
+//   B 8x8  "col":     b0 (k=t, n=g)             b1 (k=t+4, n=g)
+//   C 16x8 fp32:      c0,c1 (g, 2t..2t+1)       c2,c3 (g+8, 2t..2t+1)
+// A tile of 32-bit elements stored row-major with its contraction index
+// contiguous is read by ldmatrix (b16) as 8 x 4 blocks: lane l receives
+// element l % 4 of row l / 4, which is the A fragment's and, for a tile
+// stored [n][k], the B fragment's layout. A C fragment serves as the A
+// fragment of the next product over the same 8 columns when those columns
+// are taken in the order 2t, 2t + 1 for t, t + 4: a0 = c0, a1 = c2,
+// a2 = c1, a3 = c3, with the B rows read in the same order.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both tf32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a (16x8) * b (8x8)
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32_1688(d, al, bh0, bh1);
+  mma_tf32_1688(d, ah, bl0, bl1);
+  mma_tf32_1688(d, ah, bh0, bh1);
+}
+
 }  // namespace f5

@@ -1,6 +1,9 @@
 // The quantization pass of int8 attention (kernel 14's operands), for Hopper
-// (sm_90a): one kernel from q, k, v [b, h, n, 64] bf16 (views of any item,
-// head and row strides, rows contiguous) to what kernel 14 reads.
+// (sm_90a): one kernel from q, k, v [b, h, n, 64] bf16 or fp32 (views of any
+// item, head and row strides, rows contiguous) to what kernel 14 reads. On
+// fp32 inputs (the offline entry points' default weights) the amax and x *
+// (127 / a) are taken from the fp32 values as they are, never through bf16,
+// as the JAX _quant_head does on fp32 (its x.astype(f32) is then no cast).
 //
 // In the JAX package this pass is XLA (korean_f5_tts_tpu/ops/flash_prefix.py:
 // _quant_head :901-907 and flash_prefix_attention_i8 :926-944). Per folded
@@ -21,8 +24,9 @@
 //
 // What bounds it on the card: bytes. At the main shape (2 x 16 heads, n
 // 1536) it reads 3 x 6.3 MB of bf16 and writes 3 x 3.1 MB of int8: 28 MB,
-// 0.0085 ms at 3.35 TB/s. The amax must be complete before any element of
-// the head is quantized, and v8 is a transpose with a key permutation.
+// 0.0085 ms at 3.35 TB/s (fp32 inputs: 47 MB, 0.0141 ms). The amax must be
+// complete before any element of the head is quantized, and v8 is a
+// transpose with a key permutation.
 //
 // Design: a cluster of blocks per folded head, NT tensors (2: q, k; 3: q, k,
 // v) times kQSplit row ranges each (whole 128-key chunks), 512 threads a
@@ -59,7 +63,7 @@ constexpr int kQChunk = 128;   // keys a v8 chunk (kernel 14's key tile)
 constexpr int kQTileLd = kQChunk + 16;  // bytes a row of the v8 chunk tile (16-byte aligned)
 
 struct QuantHeadsArgs {
-  const __nv_bfloat16* x[3];  // q, k, v
+  const void* x[3];  // q, k, v: bf16 or fp32, all of one type
   long long sb[3], sh[3], sr[3];  // item, head and row strides of each, in elements
   int8_t* out[3];                 // q8, k8 [H, n, 64]; v8 [H, 64, n_pad]
   float* c;                       // [H]
@@ -67,6 +71,14 @@ struct QuantHeadsArgs {
   int heads, n, n_pad;
   float c_mul, sv_mul;
 };
+
+// eight fp32 (two 16-byte loads)
+__device__ __forceinline__ void load_row8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
 
 // eight bf16 (one 16-byte load) as floats
 __device__ __forceinline__ void load_row8(const __nv_bfloat16* p, float (&v)[8]) {
@@ -89,7 +101,7 @@ __device__ __forceinline__ int v8_slot(int r) {
   return (r & ~31) + (kk & 16) + 4 * ((kk >> 1) & 3) + 2 * ((kk >> 3) & 1) + (kk & 1);
 }
 
-template <int NT>
+template <int NT, typename T>
 __global__ void __launch_bounds__(kQThreads)
 quant_heads_kernel(const __grid_constant__ QuantHeadsArgs a) {
   __shared__ float red[kQThreads / 32];
@@ -102,7 +114,7 @@ quant_heads_kernel(const __grid_constant__ QuantHeadsArgs a) {
   const int head = blockIdx.x / (NT * kQSplit);
   const int item = head / a.heads, g = head - item * a.heads;
   const int tid = threadIdx.x;
-  const __nv_bfloat16* x = a.x[tensor] + item * a.sb[tensor] + g * a.sh[tensor];
+  const T* x = static_cast<const T*>(a.x[tensor]) + item * a.sb[tensor] + g * a.sh[tensor];
   const long long ld = a.sr[tensor];
   const int chunks = (a.n + kQChunk - 1) / kQChunk;
   const int c0 = part * chunks / kQSplit, c1 = (part + 1) * chunks / kQSplit;
@@ -179,7 +191,7 @@ quant_heads_kernel(const __grid_constant__ QuantHeadsArgs a) {
   }
 }
 
-template <int NT>
+template <int NT, typename T>
 cudaError_t launch_quant_heads(const QuantHeadsArgs& args, int H, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(H * NT * kQSplit);
@@ -193,14 +205,15 @@ cudaError_t launch_quant_heads(const QuantHeadsArgs& args, int H, cudaStream_t s
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, quant_heads_kernel<NT>, args);
+  return cudaLaunchKernelEx(&cfg, quant_heads_kernel<NT, T>, args);
 }
 
 }  // namespace
 }  // namespace f5
 
-// q, k, v: [b, h, n, 64] bf16 with item, head and row strides sb*, sh*, sr*
-// (elements; multiples of 8, rows contiguous, 16-byte aligned); q8, k8 [b * h,
+// q, k, v: [b, h, n, 64] bf16 (f32 == 0) or fp32 (f32 != 0) with item, head and
+// row strides sb*, sh*, sr* (elements; 16-byte multiples, rows contiguous,
+// 16-byte aligned); q8, k8 [b * h,
 // n, 64] int8; pv_i8 != 0: v8 [b * h, 64, n_pad] int8 (n_pad % 128 == 0,
 // n_pad >= n) and v quantized, else v and v8 are not read; c, sv [b * h]
 // fp32 (sv 0 without pv_i8). c_mul, sv_mul: the wrapper's fp32 constants.
@@ -208,17 +221,17 @@ extern "C" int f5_quant_heads(const void* q, const void* k, const void* v, long 
                               long long shq, long long srq, long long sbk, long long shk,
                               long long srk, long long sbv, long long shv, long long srv,
                               void* q8, void* k8, void* v8, void* c, void* sv, int b, int h,
-                              int n, int n_pad, int pv_i8, float c_mul, float sv_mul, int device,
-                              void* stream) {
+                              int n, int n_pad, int pv_i8, int f32, float c_mul, float sv_mul,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || h <= 0 || n <= 0 || (long long)b * h * 3 * f5::kQSplit > 0x7fffffffLL ||
       (pv_i8 && (n_pad < n || n_pad % f5::kQChunk != 0)))
     return (int)cudaErrorInvalidValue;
   f5::QuantHeadsArgs a{};
-  a.x[0] = static_cast<const __nv_bfloat16*>(q);
-  a.x[1] = static_cast<const __nv_bfloat16*>(k);
-  a.x[2] = static_cast<const __nv_bfloat16*>(v);
+  a.x[0] = q;
+  a.x[1] = k;
+  a.x[2] = v;
   const long long sb[3] = {sbq, sbk, sbv}, sh[3] = {shq, shk, shv}, sr[3] = {srq, srk, srv};
   for (int i = 0; i < 3; ++i) {
     a.sb[i] = sb[i];
@@ -236,6 +249,10 @@ extern "C" int f5_quant_heads(const void* q, const void* k, const void* v, long 
   a.c_mul = c_mul;
   a.sv_mul = sv_mul;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(pv_i8 ? f5::launch_quant_heads<3>(a, b * h, s)
-                     : f5::launch_quant_heads<2>(a, b * h, s));
+  typedef __nv_bfloat16 bf16;
+  if (f32)
+    return (int)(pv_i8 ? f5::launch_quant_heads<3, float>(a, b * h, s)
+                       : f5::launch_quant_heads<2, float>(a, b * h, s));
+  return (int)(pv_i8 ? f5::launch_quant_heads<3, bf16>(a, b * h, s)
+                     : f5::launch_quant_heads<2, bf16>(a, b * h, s));
 }

@@ -2,9 +2,9 @@
 korean_f5_tts_tpu/infer/cli.py): python -m korean_f5_tts_tpu_torch.infer.cli.
 
 Runs on the card unless --device cpu is given (no card raises);
---compute_dtype casts the weights (default: fp32, which the default path's
-kernels serve in their fp32 forms; bfloat16 runs the tensor-core kernels and
-is what --attn_path other than default and --attn_int8 take), --quantize
+--compute_dtype casts the weights (default: fp32, which every attention path
+and --attn_int8 serve with the fp32 forms of their kernels; bfloat16 runs the
+tensor-core kernels, much faster), --quantize
 rewrites the block linears to int8 weights (kernels 4, 5, 6, 9, which take
 fp32 or bf16 rows), --attn_path picks the attention half's kernels,
 --attn_int8 the int8 attention kernel.
@@ -81,8 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                   help="cast the weights to this dtype (default: float32 as loaded; the "
-                        "opt-in attention kernels take bfloat16 only)")
+                   help="cast the weights to this dtype (default: float32 as loaded, served "
+                        "by the kernels' fp32 forms; bfloat16 runs the tensor-core kernels)")
     p.add_argument("--quantize", action="store_true",
                    help="int8 block linears (load_model(..., quantize=True), after the dtype "
                         "cast): kernels 4, 5, 6, 9 on fp32 or bf16 rows")

@@ -44,6 +44,15 @@ KERNELS = {
     "flash_prefix_dq_lsein_f32": (flash_prefix, "launches_dq_lsein_f32"),
     "flash_prefix_dq_f32": (flash_prefix, "launches_dq_f32"),
     "flash_prefix_dkv_f32": (flash_prefix, "launches_dkv_f32"),
+    # the fp32 forms of kernels 7, 8, 18, 19, 14 and its pass (the offline entry
+    # points' fp32 weights under attn_path and attn_int8)
+    "ln_mod_matmul_f32": (fused_linears, "launches_ln_mod_f32"),
+    "proj_gated_residual_f32": (fused_linears, "launches_proj_gated_f32"),
+    "flash_prefix_rope_f32": (flash_prefix, "launches_rope_f32"),
+    "flash_prefix_qkv_f32": (flash_prefix, "launches_qkv_f32"),
+    "flash_prefix_i8_f32": (flash_prefix, "launches_i8_f32"),  # "qkpv" on the core
+    "flash_prefix_i8_qk_f32": (flash_prefix, "launches_i8_qk_f32"),  # "qk", FFMA
+    "flash_prefix_i8_quant_f32": (flash_prefix, "launches_i8_quant_f32"),
 }
 
 

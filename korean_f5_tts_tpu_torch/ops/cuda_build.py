@@ -59,11 +59,13 @@ _SIGNATURES = {
     # stream
     "f5_flash_prefix_dkv": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
     "f5_flash_prefix_f32_dkv": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
-    # q8, k8, v, c, sv, kv_lens, out, H, n, n_pad, pv_i8, device, stream
-    "f5_flash_prefix_i8_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _P),
+    # q8, k8, v, c, sv, kv_lens, out, H, n, n_pad, pv_i8, out_f32, device, stream
+    "f5_flash_prefix_i8_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P),
+    # q8, k8, v, c, kv_lens, out, H, n, device, stream
+    "f5_flash_prefix_i8_qk_f32_fwd": (_P,) * 6 + (_I, _I, _I, _P),
     # q, k, v, their item/head/row strides (q, k, v), q8, k8, v8, c, sv, b, h, n,
-    # n_pad, pv_i8, c_mul, sv_mul, device, stream
-    "f5_quant_heads": (_P,) * 3 + (_L,) * 9 + (_P,) * 5 + (_I,) * 5 + (_F, _F, _I, _P),
+    # n_pad, pv_i8, f32, c_mul, sv_mul, device, stream
+    "f5_quant_heads": (_P,) * 3 + (_L,) * 9 + (_P,) * 5 + (_I,) * 6 + (_F, _F, _I, _P),
     # h, sc, sh, gate, w1, b1, w2, b2, z, stats, out, M, d, dff, eps, device, stream
     "f5_ff_block_fwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
     "f5_ff_block_f32_fwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
@@ -91,12 +93,16 @@ _SIGNATURES = {
     "f5_ff_block_int8_widths": (_P,) * 16 + (_I, _I, _I, _F, _I, _I, _I, _I, _P),
     # h, sc, sh, w0..w2, b0..b2, stats, out, M, d, seg_n, nseg, eps, device, stream
     "f5_ln_mod_matmul_fwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _P),
+    "f5_ln_mod_matmul_f32_fwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _P),
     # a, h, gate, w, b, out, M, din, d, device, stream
     "f5_proj_gated_fwd": (_P,) * 6 + (_I, _I, _I, _I, _P),
+    "f5_proj_gated_f32_fwd": (_P,) * 6 + (_I, _I, _I, _I, _P),
     # q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
     "f5_flash_prefix_rope_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
+    "f5_flash_prefix_rope_f32_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
     # qkv, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
     "f5_flash_prefix_qkv_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),
+    "f5_flash_prefix_qkv_f32_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),
     # scripts/probe_hopper.py: x, y, out, ld, cx, cy, device, stream
     "f5_probe_slice_mma": (_P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, out, device, stream

@@ -12,8 +12,9 @@ replace _flash_prefix_folded_lse, _flash_prefix_dq_lsein, _flash_prefix_dq
 and _flash_prefix_dkv (10 runs on kernel A's TMA + wgmma attention core,
 csrc/attn_wgmma.cuh, 11 and 13 on the attention backward core,
 csrc/attn_bwd_wgmma.cuh; both need 16-byte-aligned contiguous operands,
-which the wrappers check; their fp32 forms are FFMA kernels,
-csrc/flash_prefix_train_f32.cu and kernel A's fp32 kernel); kernel 14
+which the wrappers check; their fp32 forms are kernel A's fp32 FFMA kernel
+for 10 and split 3xTF32 tensor-core products for 11-13,
+csrc/flash_prefix_train_f32.cu); kernel 14
 (csrc/flash_prefix_int8.cu, the int8 form of the attention core) replaces
 _flash_prefix_folded_i8; kernel 18 (csrc/flash_prefix_rope.cu) replaces
 _flash_prefix_rope_call, and kernel 19
@@ -21,13 +22,20 @@ _flash_prefix_rope_call, and kernel 19
 rope form of the attention core of csrc/attn_wgmma.cuh (strided 4-D maps
 over the split heads or the fused qkv rows, the rotation in shared memory).
 The sources' notes say what bounds each kernel on the card and how its
-design answers that. Kernels 18 and 19 serve only: the JAX package
-differentiates their XLA formulation, which is not ported yet, so the
-wrappers raise on an input that requires a gradient. Kernel 14 serves only
-as well (the JAX kernel has no vjp): flash_prefix_attention_i8 quantizes q,
-k (and v) per folded head with one kernel of its own (quantize_heads,
-csrc/quant_heads.cu; XLA in the JAX package) and launches kernel 14 on the
-int8 operands.
+design answers that. Kernels 18, 19 and 14 (with its pass) also take fp32
+operands (the offline entry points' default weights): their fp32 forms are
+kernel A's fp32 FFMA kernel with strided heads and the rotation in fp32
+(csrc/flash_prefix.cu), the pass reading fp32 as it is, and for 14 the
+attention core's int8 form with an fp32 output in "qkpv" (csrc/
+flash_prefix_int8.cu) and in "qk" an FFMA form (csrc/flash_prefix_int8_f32.cu)
+whose integer scores are exact in fp32 and whose p.v is fp32 p times fp32 v.
+Kernels 18 and 19 serve
+only: the JAX package differentiates their XLA formulation, which is not
+ported yet, so the wrappers raise on an input that requires a gradient.
+Kernel 14 serves only as well (the JAX kernel has no vjp):
+flash_prefix_attention_i8 quantizes q, k (and v) per folded head with one
+kernel of its own (quantize_heads, csrc/quant_heads.cu; XLA in the JAX
+package) and launches kernel 14 on the int8 operands.
 
 Layouts: q/k/v/o and their gradients are folded [H, n, d]; lse (base 2, of
 the scores pre-scaled by log2(e)/sqrt(d), the JAX convention) and
@@ -35,9 +43,9 @@ D = rowsum(dO * o) are fp32 [H, n] (the JAX arrays are [H, n, 1]). A row
 with no valid key has lse 0.
 
 Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
-kernel or raise (kernels A and 10-13 on bf16 or fp32 operands, all of one
-dtype, each form with its own launch counter; the others on bf16 only; the
-training kernels d = 64 only).
+kernel or raise (every kernel on bf16 or fp32 operands, all of one dtype, a
+mix raising TypeError, each form with its own launch counter; the training
+kernels d = 64 only).
 flash_prefix_attention takes the autograd Function (kernel 10 forward,
 kernels 11 and 13 backward, as the JAX custom_vjp _fp_fwd/_fp_bwd does at
 :1353-1402) when a gradient is being taken, and kernel A otherwise.
@@ -70,6 +78,11 @@ launches_i8 = 0        # kernel 14, flash_prefix_folded_i8
 launches_i8_quant = 0  # kernel 14's quantization pass, quantize_heads
 launches_rope = 0      # kernel 18, flash_prefix_rope_attention
 launches_qkv = 0       # kernel 19, flash_prefix_qkv_attention
+launches_i8_f32 = 0        # the fp32 forms of 14 ("qkpv"; "qk"), its pass, 18 and 19
+launches_i8_qk_f32 = 0
+launches_i8_quant_f32 = 0
+launches_rope_f32 = 0
+launches_qkv_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +285,10 @@ def _i8_attention_plain(q8, k8, v, c, sv, kv_lens, pv_i8: bool, ck: int) -> torc
             pv = torch.matmul(p8.to(pv_t), v[:, start:stop].to(pv_t)).float()
             acc = acc * alpha + pv * sv[:, None, None]
         else:
-            # Hopper has no fp32 tensor-core product: p is rounded to bf16 here
-            pb = p.to(torch.bfloat16).float()
+            # bf16 v: p is rounded to bf16 for the product, as the kernel's
+            # tensor cores take it; fp32 v: fp32 p times fp32 v, as the JAX
+            # kernel (and the FFMA form of kernel 14) multiplies them
+            pb = p if v.dtype == torch.float32 else p.to(torch.bfloat16).float()
             acc = acc * alpha + torch.matmul(pb, v[:, start:stop].float())
     inv = torch.where(l == 0.0, torch.ones_like(l), torch.ones_like(l) / l)
     return acc * inv
@@ -292,8 +307,9 @@ def flash_prefix_i8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the running max m when its chunk is visited. With ck = the JAX call's bkv
     this is the JAX kernel; with ck = 128 it is the CUDA kernel (and the JAX
     kernel at bkv = 128). pv_i8=False:
-    only q.k^T is int8, and p is rounded to bf16 for the product with the
-    unquantized v (the JAX kernel multiplies fp32 p by fp32 v there). A head
+    only q.k^T is int8; on bf16 v, p is rounded to bf16 for the product with
+    the unquantized v (the JAX kernel multiplies fp32 p by v there), on fp32
+    v it stays fp32, as in the JAX kernel. The result has v's dtype. A head
     with kv_lens 0 gives zeros.
     """
     q8, k8, vq, c, sv = _quantize_qkv(q, k, v, pv_i8)
@@ -462,11 +478,12 @@ def flash_prefix_dkv(q, k, v, do, dvec, lse, kv_lens):
 def _rope_launch_args(what: str, x: torch.Tensor, B: int, n: int, dh: int, kv_lens, cos, sin,
                       heads: int, pe_attn_head):
     """Checks shared by kernels 18 and 19; returns (lens [B] int32, cos, sin
-    as [n, 32] bf16 tables, the number of leading heads that rotate)."""
+    as [n, 32] tables of x's dtype: bf16 for the bf16 form, fp32 for the fp32
+    form, the number of leading heads that rotate)."""
     if dh != 64:
         raise ValueError(f"{what}: head dim {dh} not supported (64)")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what}: the kernel takes bf16 operands, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: the kernel takes bf16 or fp32 operands, got {x.dtype}")
     if cos.shape != sin.shape or cos.dim() != 2 or cos.shape[0] < n or cos.shape[1] != dh // 2:
         raise ValueError(f"{what}: cos and sin must be [>= {n}, {dh // 2}] tables, got "
                          f"{tuple(cos.shape)} and {tuple(sin.shape)}")
@@ -474,7 +491,7 @@ def _rope_launch_args(what: str, x: torch.Tensor, B: int, n: int, dh: int, kv_le
         raise ValueError(f"{what}: kv_lens must be [{B}] or [1], got {tuple(kv_lens.shape)}")
     lens = kv_lens.to(device=x.device, dtype=torch.int32).expand(B).contiguous()
     cos, sin = (t[:n].to(device=x.device, dtype=x.dtype).contiguous() for t in (cos, sin))
-    cuda_build.require_cuda(what, x, cos, sin, dtype=torch.bfloat16)
+    cuda_build.require_cuda(what, x, cos, sin, dtype=x.dtype)
     cuda_build.require_cuda(what, x, lens)
     n_rope = heads if pe_attn_head is None else max(0, min(int(pe_attn_head), heads))
     return lens, cos, sin, n_rope
@@ -484,14 +501,16 @@ def flash_prefix_rope_attention(q, k, v, kv_lens, cos, sin,
                                 pe_attn_head: int | None = None) -> torch.Tensor:
     """Kernel 18 wrapper: prefix attention with the half-split rotary
     embedding applied inside the kernel. q, k (PRE-rope), v: [b, h, n, 64]
-    bf16; kv_lens: [b] or [1] int; cos, sin: [>= n, 32] tables (rounded to
-    bf16 for the kernel); pe_attn_head: only the first N heads rotate.
+    all bf16 or all fp32 (a mix raises TypeError; fp32 runs the fp32 form);
+    kv_lens: [b] or [1] int; cos, sin: [>= n, 32] tables (cast to the
+    operands' dtype for the kernel); pe_attn_head: only the first N heads
+    rotate. The result has the operands' dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Forward-only: raises on an input that requires
     a gradient.
     """
-    global launches_rope
+    global launches_rope, launches_rope_f32
     cuda_build.require_no_grad("flash_prefix_rope_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_prefix_rope_reference(q, k, v, kv_lens, cos, sin, pe_attn_head)
@@ -501,30 +520,36 @@ def flash_prefix_rope_attention(q, k, v, kv_lens, cos, sin,
     b, h, n, d = q.shape
     lens, cos, sin, n_rope = _rope_launch_args("flash_prefix_rope_attention", q, b, n, d,
                                                kv_lens, cos, sin, h, pe_attn_head)
-    cuda_build.require_cuda("flash_prefix_rope_attention", q, k, v, dtype=torch.bfloat16)
+    cuda_build.require_cuda("flash_prefix_rope_attention", q, k, v, dtype=q.dtype)
     out = torch.empty_like(q)
-    err = cuda_build.library().f5_flash_prefix_rope_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), out.data_ptr(), b, h, n, n_rope, LOG2E / math.sqrt(d), q.device.index,
-        cuda_build.stream_of(q))
+    lib = cuda_build.library()
+    f32 = q.dtype == torch.float32
+    fwd = lib.f5_flash_prefix_rope_f32_fwd if f32 else lib.f5_flash_prefix_rope_fwd
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), cos.data_ptr(),
+              sin.data_ptr(), out.data_ptr(), b, h, n, n_rope, LOG2E / math.sqrt(d),
+              q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_rope_fwd")
-    launches_rope += 1
+    if f32:
+        launches_rope_f32 += 1
+    else:
+        launches_rope += 1
     return out
 
 
 def flash_prefix_qkv_attention(qkv, kv_lens, heads: int, cos, sin,
                                pe_attn_head: int | None = None) -> torch.Tensor:
     """Kernel 19 wrapper: attention straight from the fused qkv projection
-    output. qkv: [B, n, 3 * heads * 64] bf16 (q | k | v along the features,
-    heads-major inside each, q and k PRE-rope); returns [B, n, heads * 64],
-    already merged for the output projection. Other arguments as kernel 18.
+    output. qkv: [B, n, 3 * heads * 64] bf16, or fp32 for the fp32 form
+    (q | k | v along the features, heads-major inside each, q and k
+    PRE-rope); returns [B, n, heads * 64] of qkv's dtype, already merged for
+    the output projection. Other arguments as kernel 18.
     The kernel takes any B, heads (B * heads <= 65535) and n.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Forward-only: raises on an input that requires
     a gradient.
     """
-    global launches_qkv
+    global launches_qkv, launches_qkv_f32
     cuda_build.require_no_grad("flash_prefix_qkv_attention", qkv)
     if qkv.device.type == "cpu":
         return flash_prefix_qkv_reference(qkv, kv_lens, heads, cos, sin, pe_attn_head)
@@ -536,11 +561,17 @@ def flash_prefix_qkv_attention(qkv, kv_lens, heads: int, cos, sin,
     lens, cos, sin, n_rope = _rope_launch_args("flash_prefix_qkv_attention", qkv, B, n, dh,
                                                kv_lens, cos, sin, heads, pe_attn_head)
     out = torch.empty((B, n, heads * dh), dtype=qkv.dtype, device=qkv.device)
-    err = cuda_build.library().f5_flash_prefix_qkv_fwd(
-        qkv.data_ptr(), lens.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), B,
-        heads, n, n_rope, LOG2E / math.sqrt(dh), qkv.device.index, cuda_build.stream_of(qkv))
+    lib = cuda_build.library()
+    f32 = qkv.dtype == torch.float32
+    fwd = lib.f5_flash_prefix_qkv_f32_fwd if f32 else lib.f5_flash_prefix_qkv_fwd
+    err = fwd(qkv.data_ptr(), lens.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), B,
+              heads, n, n_rope, LOG2E / math.sqrt(dh), qkv.device.index,
+              cuda_build.stream_of(qkv))
     cuda_build.check(err, "flash_prefix_qkv_fwd")
-    launches_qkv += 1
+    if f32:
+        launches_qkv_f32 += 1
+    else:
+        launches_qkv += 1
     return out
 
 
@@ -552,12 +583,13 @@ def quantize_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: boo
 
     CPU tensors take the plain version (_quantize_qkv, then
     _v8_kernel_layout). CUDA tensors launch the pass (csrc/quant_heads.cu) or
-    raise: bf16, d = 64; a view whose rows are not contiguous or whose
-    strides are not 16-byte multiples is made contiguous first (the kernel
-    reads any other view in place). It is equal to the plain version to the
-    bit.
+    raise: q, k, v all bf16 or all fp32 (the fp32 form, which quantizes the
+    fp32 values as they are), d = 64; a view whose rows are not contiguous or
+    whose strides are not 16-byte multiples is made contiguous first (the
+    kernel reads any other view in place). It is equal to the plain version
+    to the bit.
     """
-    global launches_i8_quant
+    global launches_i8_quant, launches_i8_quant_f32
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("quantize_heads: q/k/v must share one [b, h, n, d] shape, got "
                          f"{[tuple(t.shape) for t in (q, k, v)]}")
@@ -565,13 +597,14 @@ def quantize_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: boo
     if q.device.type == "cpu":
         q8, k8, vq, c, sv = _quantize_qkv(q, k, v, pv_i8)
         return q8, k8, (_v8_kernel_layout(vq) if pv_i8 else vq), c, sv
-    if d != 64 or any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError("quantize_heads: the kernel takes bf16 operands with head dim 64, got "
-                        f"{[str(t.dtype) for t in (q, k, v)]} with head dim {d}")
+    if d != 64 or q.dtype not in (torch.bfloat16, torch.float32) or \
+            any(t.dtype != q.dtype for t in (k, v)):
+        raise TypeError("quantize_heads: the kernel takes q, k, v all bf16 or all fp32 with head "
+                        f"dim 64, got {[str(t.dtype) for t in (q, k, v)]} with head dim {d}")
 
     def readable(t):  # rows contiguous, 16-byte strides and base
-        ok = t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:3]) and \
-            t.data_ptr() % 16 == 0
+        ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
+            all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
         return t if ok else t.contiguous()
 
     q, k, v = (readable(t) for t in (q, k, v))
@@ -590,36 +623,48 @@ def quantize_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: boo
     err = cuda_build.library().f5_quant_heads(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, q8.data_ptr(), k8.data_ptr(),
         None if v8 is None else v8.data_ptr(), c.data_ptr(), sv.data_ptr(), b, h, n, n_pad,
-        int(pv_i8),
+        int(pv_i8), int(q.dtype == torch.float32),
         (1.0 / 127.0 ** 2) * LOG2E / math.sqrt(d), 1.0 / (127.0 * 127.0), dev.index,
         cuda_build.stream_of(q))
     cuda_build.check(err, "quant_heads")
-    launches_i8_quant += 1
+    if q.dtype == torch.float32:
+        launches_i8_quant_f32 += 1
+    else:
+        launches_i8_quant += 1
     return q8, k8, (v8 if pv_i8 else v.reshape(H, n, d).contiguous()), c, sv
 
 
 def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
                            c: torch.Tensor, sv: torch.Tensor, kv_lens: torch.Tensor,
-                           pv_i8: bool = True) -> torch.Tensor:
+                           pv_i8: bool = True,
+                           out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Kernel 14 wrapper on quantized folded heads. q8, k8: [H, n, 64] int8
     (k8 as it is: q8.k8^T wants k with d contiguous); v: with pv_i8 the int8
     [H, 64, n_pad] of _v8_kernel_layout (keys contiguous and slot-permuted),
-    else the unquantized bf16 [H, n, 64]; c, sv: [H] fp32; kv_lens: [H]
-    int32. Returns [H, n, 64] bf16. The JAX counterpart takes k8 transposed
-    instead, a Mosaic workaround.
+    else the unquantized [H, n, 64], bf16 or fp32; c, sv: [H] fp32; kv_lens:
+    [H] int32. Returns [H, n, 64] of out_dtype (None: the unquantized v's
+    dtype, bf16 under pv_i8), the JAX kernel's out_dtype: bf16 or, with
+    pv_i8, fp32 on the attention core's int8 form; fp32 without pv_i8 on the
+    FFMA form, which multiplies fp32 p by fp32 v (a bf16 v with an fp32
+    output, or the reverse, raises TypeError). The JAX counterpart takes k8
+    transposed instead, a Mosaic workaround.
 
     CPU tensors take the plain version at the kernel's key tile. CUDA
     tensors launch the kernel or raise. A head with kv_lens 0 gives zeros
     (the JAX kernel without prune gives the mean of v there; serving never
     sends 0).
     """
-    global launches_i8
+    global launches_i8, launches_i8_f32, launches_i8_qk_f32
     H, n, d = q8.shape
+    if out_dtype is None:
+        out_dtype = torch.bfloat16 if pv_i8 else v.dtype
     if q8.device.type == "cpu":
         vn = _v8_natural_layout(v, n) if pv_i8 else v
         return _i8_attention_plain(q8, k8, vn, c, sv, kv_lens, pv_i8,
-                                   I8_KEY_TILE).to(torch.bfloat16)
+                                   I8_KEY_TILE).to(out_dtype)
     what = "flash_prefix_i8"
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: the output must be bf16 or fp32, got {out_dtype}")
     if d != 64:
         raise ValueError(f"{what}: head dim {d} not supported (64)")
     if k8.shape != q8.shape or q8.dtype != torch.int8 or k8.dtype != torch.int8:
@@ -632,9 +677,9 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
                              f"_v8_kernel_layout), got {v.dtype} {tuple(v.shape)}")
     else:
         n_pad = n
-        if v.shape != q8.shape or v.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: with pv_i8=False v must be bf16 {tuple(q8.shape)}, got "
-                            f"{v.dtype} {tuple(v.shape)}")
+        if v.shape != q8.shape or v.dtype != out_dtype:
+            raise TypeError(f"{what}: with pv_i8=False v must be {out_dtype} {tuple(q8.shape)}, "
+                            f"got {v.dtype} {tuple(v.shape)}")
     if kv_lens.shape != (H,) or kv_lens.dtype != torch.int32:
         raise ValueError(f"{what}: kv_lens must be int32 [{H}], got "
                          f"{kv_lens.dtype} {tuple(kv_lens.shape)}")
@@ -645,13 +690,25 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     cuda_build.require_cuda(what, q8, c, sv, dtype=None)
     if c.dtype != torch.float32 or sv.dtype != torch.float32:
         raise TypeError(f"{what}: c and sv must be fp32, got {c.dtype}, {sv.dtype}")
-    out = torch.empty((H, n, d), dtype=torch.bfloat16, device=q8.device)
-    err = cuda_build.library().f5_flash_prefix_i8_fwd(
-        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), c.data_ptr(), sv.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), H, n, n_pad, int(pv_i8), q8.device.index,
-        cuda_build.stream_of(q8))
+    out = torch.empty((H, n, d), dtype=out_dtype, device=q8.device)
+    lib = cuda_build.library()
+    f32 = out_dtype == torch.float32
+    if f32 and not pv_i8:
+        err = lib.f5_flash_prefix_i8_qk_f32_fwd(
+            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), c.data_ptr(), kv_lens.data_ptr(),
+            out.data_ptr(), H, n, q8.device.index, cuda_build.stream_of(q8))
+        cuda_build.check(err, "flash_prefix_i8_qk_f32_fwd")
+        launches_i8_qk_f32 += 1
+        return out
+    err = lib.f5_flash_prefix_i8_fwd(q8.data_ptr(), k8.data_ptr(), v.data_ptr(), c.data_ptr(),
+                                     sv.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), H, n,
+                                     n_pad, int(pv_i8), int(f32), q8.device.index,
+                                     cuda_build.stream_of(q8))
     cuda_build.check(err, "flash_prefix_i8_fwd")
-    launches_i8 += 1
+    if f32:
+        launches_i8_f32 += 1
+    else:
+        launches_i8 += 1
     return out
 
 
@@ -669,9 +726,10 @@ def flash_prefix_attention_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors and kernels=False take the plain version at the kernel's key
     tile (I8_KEY_TILE). CUDA tensors launch the pass and the kernel (two
-    launches) or raise: bf16 operands, d = 64, any n (the ragged last tile is
-    masked); nothing falls back to kernel A. Raises on an input that requires
-    a gradient.
+    launches) or raise: q, k, v all bf16 or all fp32 (the fp32 forms of the
+    pass and of 14; the result has their dtype), d = 64, any n (the ragged
+    last tile is masked); nothing falls back to kernel A. Raises on an input
+    that requires a gradient.
     """
     cuda_build.require_no_grad("flash_prefix_attention_i8", q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -680,11 +738,14 @@ def flash_prefix_attention_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lens_h = _fold_lens(kv_lens, q.shape[0], q.shape[1], q.device)
     if not kernels or q.device.type == "cpu":
         return flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=pv_i8).reshape(q.shape)
-    if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
-        raise TypeError("flash_prefix_attention_i8: the kernel takes bf16 operands with head "
-                        f"dim 64, got {q.dtype} with head dim {q.shape[-1]}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != q.dtype for t in (k, v)) \
+            or q.shape[-1] != 64:
+        raise TypeError("flash_prefix_attention_i8: the kernels take q, k, v all bf16 or all fp32 "
+                        f"with head dim 64, got {[str(t.dtype) for t in (q, k, v)]} with head dim "
+                        f"{q.shape[-1]}")
     q8, k8, vq, c, sv = quantize_heads(q, k, v, pv_i8)
-    return flash_prefix_folded_i8(q8, k8, vq, c, sv, lens_h, pv_i8=pv_i8).reshape(q.shape)
+    return flash_prefix_folded_i8(q8, k8, vq, c, sv, lens_h, pv_i8=pv_i8,
+                                  out_dtype=q.dtype).reshape(q.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Fused attention-side linears: Hopper kernels 7 and 8 (bf16), 5 and 6 (int8)
-and their plain versions.
+"""Fused attention-side linears: Hopper kernels 7 and 8 (bf16, and their fp32
+forms), 5 and 6 (int8) and their plain versions.
 
 Counterparts of korean_f5_tts_tpu/ops/fused_linears.py:
   ln_mod_matmul             out = bf16(LN(h) * (1 + sc) + sh) @ W^T + b
@@ -8,7 +8,10 @@ Counterparts of korean_f5_tts_tpu/ops/fused_linears.py:
                             (kernel 8: out-projection folded into the gated residual)
 Their weights are linears of the port's layout ({"w": [d_out, d_in], "b"});
 the kernels (csrc/fused_linears.cu) replace the TPU's _ln_mod_matmul_kernel
-and _proj_gated_kernel. They serve only: in the JAX package their gradients
+and _proj_gated_kernel. Their operands are all bf16 (the TMA + wgmma core)
+or all fp32 (the FFMA products of csrc/gemm_f32.cuh, nothing rounded below
+fp32, as the TPU kernels compute at the input's dtype); a mix raises
+TypeError, and each form keeps its own launch counter. They serve only: in the JAX package their gradients
 differentiate the XLA formulation, which is not ported yet, so the wrappers
 raise on an input that requires a gradient.
 
@@ -42,8 +45,10 @@ from korean_f5_tts_tpu_torch.ops.qmatmul import (
     quant_rows_reference,
 )
 
-launches_ln_mod = 0            # kernel 7 launches by ln_mod_matmul
-launches_proj_gated = 0        # kernel 8 launches by proj_gated_residual
+launches_ln_mod = 0            # kernel 7 launches by ln_mod_matmul (bf16)
+launches_proj_gated = 0        # kernel 8 launches by proj_gated_residual (bf16)
+launches_ln_mod_f32 = 0        # their fp32 forms
+launches_proj_gated_f32 = 0
 launches_ln_mod_int8 = 0       # kernel 5 launches by ln_mod_matmul_int8
 launches_proj_gated_int8 = 0   # kernel 6 launches by proj_gated_residual_int8
 
@@ -89,15 +94,25 @@ def proj_gated_residual_reference(a, h, gate, p) -> torch.Tensor:
     return (h.float() + gate.float() * o).to(dt)
 
 
+def _operand_dtype(what: str, x: torch.Tensor, *others: torch.Tensor) -> torch.dtype:
+    """The dtype rule of kernels 7 and 8: every operand bf16 or every one
+    fp32, else TypeError."""
+    if x.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != x.dtype for t in others):
+        raise TypeError(f"{what}: the operands must be all bfloat16 or all float32, got "
+                        f"{sorted({str(t.dtype) for t in (x, *others)})}")
+    return x.dtype
+
+
 def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
-    """Kernel 7 wrapper: h [..., d] bf16, sc/sh [d] bf16, ps a list of one to
-    three bf16 linears of one shape ({w [n, d], b [n]}) -> [..., n * len(ps)].
+    """Kernel 7 wrapper: h [..., d], sc/sh [d], ps a list of one to three
+    linears of one shape ({w [n, d], b [n]}) -> [..., n * len(ps)], all bf16
+    or all fp32 (the fp32 form).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any number of rows; d % 32 == 0, d <= 4096,
     n % 128 == 0.
     """
-    global launches_ln_mod
+    global launches_ln_mod, launches_ln_mod_f32
     cuda_build.require_no_grad("ln_mod_matmul", h, sc, sh, *(t for p in ps for t in p.values()))
     if h.device.type == "cpu":
         return ln_mod_matmul_reference(h, sc, sh, ps, eps)
@@ -108,36 +123,42 @@ def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
     if d % 32 or n % 128 or d > GEMM_MAX_LN_DIM:
         raise ValueError(f"ln_mod_matmul: d={d} must be a multiple of 32, at most "
                          f"{GEMM_MAX_LN_DIM}, and n={n} a multiple of 128")
+    if any("b" not in p for p in ps):
+        raise ValueError("ln_mod_matmul: the linears need a bias")
+    dt = _operand_dtype("ln_mod_matmul", h, sc, sh, *(t for p in ps for t in (p["w"], p["b"])))
     for name, v in (("sc", sc), ("sh", sh)):
-        check_tensor("ln_mod_matmul", name, v, (d,), torch.bfloat16)
+        check_tensor("ln_mod_matmul", name, v, (d,))
     for p in ps:
-        if "b" not in p:
-            raise ValueError("ln_mod_matmul: the linears need a bias")
-        check_tensor("ln_mod_matmul", "w", p["w"], (n, d), torch.bfloat16)
-        check_tensor("ln_mod_matmul", "b", p["b"], (n,), torch.bfloat16)
+        check_tensor("ln_mod_matmul", "w", p["w"], (n, d))
+        check_tensor("ln_mod_matmul", "b", p["b"], (n,))
     cuda_build.require_cuda("ln_mod_matmul", h, sc, sh, *(t for p in ps for t in (p["w"], p["b"])),
-                            dtype=torch.bfloat16)
+                            dtype=dt)
     m = h.numel() // d
     out = torch.empty((*h.shape[:-1], n * len(ps)), dtype=h.dtype, device=h.device)
     seg = [ps[min(i, len(ps) - 1)] for i in range(MAX_SEGMENTS)]
     stats = ln_stats_scratch(h)
-    err = cuda_build.library().f5_ln_mod_matmul_fwd(
-        h.data_ptr(), sc.data_ptr(), sh.data_ptr(), *(p["w"].data_ptr() for p in seg),
-        *(p["b"].data_ptr() for p in seg), stats.data_ptr(), out.data_ptr(), m, d, n, len(ps),
-        eps, h.device.index, cuda_build.stream_of(h))
+    lib = cuda_build.library()
+    f32 = dt == torch.float32
+    fwd = lib.f5_ln_mod_matmul_f32_fwd if f32 else lib.f5_ln_mod_matmul_fwd
+    err = fwd(h.data_ptr(), sc.data_ptr(), sh.data_ptr(), *(p["w"].data_ptr() for p in seg),
+              *(p["b"].data_ptr() for p in seg), stats.data_ptr(), out.data_ptr(), m, d, n,
+              len(ps), eps, h.device.index, cuda_build.stream_of(h))
     cuda_build.check(err, "ln_mod_matmul_fwd")
-    launches_ln_mod += 1
+    if f32:
+        launches_ln_mod_f32 += 1
+    else:
+        launches_ln_mod += 1
     return out
 
 
 def proj_gated_residual(a, h, gate, p) -> torch.Tensor:
-    """Kernel 8 wrapper: a [..., din] bf16, h [..., d] bf16, gate [d] bf16,
-    p {w [d, din], b [d]} bf16 -> [..., d] bf16.
+    """Kernel 8 wrapper: a [..., din], h [..., d], gate [d], p {w [d, din],
+    b [d]} -> [..., d], all bf16 or all fp32 (the fp32 form).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any number of rows; din % 32 == 0, d % 128 == 0.
     """
-    global launches_proj_gated
+    global launches_proj_gated, launches_proj_gated_f32
     cuda_build.require_no_grad("proj_gated_residual", a, h, gate, *p.values())
     if a.device.type == "cpu":
         return proj_gated_residual_reference(a, h, gate, p)
@@ -150,17 +171,22 @@ def proj_gated_residual(a, h, gate, p) -> torch.Tensor:
     if din % 32 or d % 128:
         raise ValueError(f"proj_gated_residual: din={din} must be a multiple of 32 and "
                          f"d={d} of 128")
-    check_tensor("proj_gated_residual", "gate", gate, (d,), torch.bfloat16)
-    check_tensor("proj_gated_residual", "w", p["w"], (d, din), torch.bfloat16)
-    check_tensor("proj_gated_residual", "b", p["b"], (d,), torch.bfloat16)
-    cuda_build.require_cuda("proj_gated_residual", a, h, gate, p["w"], p["b"],
-                            dtype=torch.bfloat16)
+    dt = _operand_dtype("proj_gated_residual", a, h, gate, p["w"], p["b"])
+    check_tensor("proj_gated_residual", "gate", gate, (d,))
+    check_tensor("proj_gated_residual", "w", p["w"], (d, din))
+    check_tensor("proj_gated_residual", "b", p["b"], (d,))
+    cuda_build.require_cuda("proj_gated_residual", a, h, gate, p["w"], p["b"], dtype=dt)
     out = torch.empty_like(h)
-    err = cuda_build.library().f5_proj_gated_fwd(
-        a.data_ptr(), h.data_ptr(), gate.data_ptr(), p["w"].data_ptr(), p["b"].data_ptr(),
-        out.data_ptr(), a.numel() // din, din, d, a.device.index, cuda_build.stream_of(a))
+    lib = cuda_build.library()
+    f32 = dt == torch.float32
+    fwd = lib.f5_proj_gated_f32_fwd if f32 else lib.f5_proj_gated_fwd
+    err = fwd(a.data_ptr(), h.data_ptr(), gate.data_ptr(), p["w"].data_ptr(), p["b"].data_ptr(),
+              out.data_ptr(), a.numel() // din, din, d, a.device.index, cuda_build.stream_of(a))
     cuda_build.check(err, "proj_gated_fwd")
-    launches_proj_gated += 1
+    if f32:
+        launches_proj_gated_f32 += 1
+    else:
+        launches_proj_gated += 1
     return out
 
 

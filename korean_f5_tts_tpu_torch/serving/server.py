@@ -556,8 +556,8 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                        help="cast the weights to this dtype (the opt-in attn_path kernels take "
-                             "bfloat16, the int8 ones either; default: bfloat16 on cuda, float32 "
+                        help="cast the weights to this dtype (every kernel takes either: "
+                             "float32 runs their fp32 forms; default: bfloat16 on cuda, float32 "
                              "on cpu)")
     parser.add_argument("--quantize", action="store_true",
                         help="int8 block linears (load_model(..., quantize=True)): kernels 4, 5, "

@@ -958,9 +958,8 @@ def test_opt_in_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     h = _bf16((1, 64, 256), dev, gen)
     vec = _bf16((256,), dev, gen)
     p = _linear(dev, gen, 128, 256)
-    with pytest.raises(TypeError):  # bf16 operands only
-        fused_linears.ln_mod_matmul(h.float(), vec.float(), vec.float(),
-                                    [{k: t.float() for k, t in p.items()}])
+    with pytest.raises(TypeError):  # all bf16 or all fp32 operands
+        fused_linears.ln_mod_matmul(h.float(), vec, vec, [{k: t.float() for k, t in p.items()}])
     with pytest.raises(ValueError):  # output width a multiple of 128
         fused_linears.ln_mod_matmul(h, vec, vec, [_linear(dev, gen, 64, 256)])
     with pytest.raises(ValueError):  # at most three linears
@@ -975,9 +974,9 @@ def test_opt_in_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         flash_prefix.flash_prefix_rope_attention(q32, q32, q32, torch.tensor([64]), cos[:, :16],
                                                  sin[:, :16])
     q = _bf16((1, 2, 64, 64), dev, gen)
-    with pytest.raises(TypeError):  # bf16 operands only
-        flash_prefix.flash_prefix_rope_attention(q.float(), q.float(), q.float(),
-                                                 torch.tensor([64]), cos, sin)
+    with pytest.raises(TypeError):  # all bf16 or all fp32 operands
+        flash_prefix.flash_prefix_rope_attention(q.float(), q, q.float(), torch.tensor([64]), cos,
+                                                 sin)
     with pytest.raises(ValueError):  # tables shorter than n
         flash_prefix.flash_prefix_rope_attention(q, q, q, torch.tensor([64]), cos[:32], sin[:32])
     with pytest.raises(ValueError):  # kv_lens [B] or [1]
@@ -1061,8 +1060,8 @@ def test_int8_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     gen = torch.Generator(device=dev).manual_seed(12)
     q = _bf16((1, 2, 64, 64), dev, gen)
     lens = torch.tensor([64], dtype=torch.int32, device=dev)
-    with pytest.raises(TypeError, match="bf16"):
-        flash_prefix.flash_prefix_attention_i8(q.float(), q.float(), q.float(), lens)
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        flash_prefix.flash_prefix_attention_i8(q.float(), q, q.float(), lens)
     q128 = _bf16((1, 2, 64, 128), dev, gen)
     with pytest.raises(TypeError, match="head dim 64"):
         flash_prefix.flash_prefix_attention_i8(q128, q128, q128, lens)
@@ -1243,3 +1242,203 @@ def test_offline_entry_points_take_int8_weights_on_fp32_rows(dev, tmp_path):
     assert counts["ff_block_int8"] == counts["flash_prefix_f32"] == per
     assert counts["ff_block_f32"] == counts["flash_prefix"] == 0
     assert wavfile.read(tmp_path / "cli_int8.wav")[1].size > 0
+
+
+# --- the fp32 forms of 7, 8, 18, 19, 14 and its pass; 11-13 fp32 in 3xTF32 --------
+
+
+@pytest.mark.parametrize("rows", [(2, 100), (1, 1), (1, 65), (1, 3072)])
+def test_fp32_forms_of_kernels_7_and_8(dev, rows):
+    """FFMA on fp32 operands: within 1e-4 of the plain versions (a bf16 or
+    single-TF32 step would read ~1e-3), fp32 out, each on its own counter."""
+    gen = torch.Generator(device=dev).manual_seed(120)
+    h = torch.randn((*rows, 256), generator=gen, device=dev)
+    vec = torch.randn((256,), generator=gen, device=dev) * 0.3
+    ps = [{"w": torch.randn((128, 256), generator=gen, device=dev) * 256 ** -0.5,
+           "b": torch.randn((128,), generator=gen, device=dev) * 0.1} for _ in range(3)]
+    before = fused_linears.launches_ln_mod, fused_linears.launches_ln_mod_f32
+    got = fused_linears.ln_mod_matmul(h, vec, vec, ps)
+    assert (fused_linears.launches_ln_mod, fused_linears.launches_ln_mod_f32) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == torch.float32
+    with _NoTF32():
+        assert _rel(got, fused_linears.ln_mod_matmul_reference(h, vec, vec, ps)) <= 1e-4
+    a = torch.randn((*rows, 256), generator=gen, device=dev)
+    p = {"w": torch.randn((256, 256), generator=gen, device=dev) * 256 ** -0.5,
+         "b": torch.randn((256,), generator=gen, device=dev) * 0.1}
+    before = fused_linears.launches_proj_gated_f32
+    got = fused_linears.proj_gated_residual(a, h, vec, p)
+    assert fused_linears.launches_proj_gated_f32 == before + 1 and got.dtype == torch.float32
+    with _NoTF32():
+        assert _rel(got, fused_linears.proj_gated_residual_reference(a, h, vec, p)) <= 1e-4
+
+
+@pytest.mark.parametrize("B,heads,n,lens,pe,past", [
+    (1, 2, 1, [1], None, 0.0), (3, 2, 127, [0, 1, 127], 1, 1e4), (2, 2, 129, [128, 129], 1, 1e4),
+    (3, 2, 193, [193, 1, 129], None, 1e4), (2, 16, 1536, [1376, 1536], None, 0.0)])
+def test_fp32_forms_of_kernels_18_and_19(dev, B, heads, n, lens, pe, past):
+    """Kernel A's fp32 kernel with strided heads and the rotation in fp32:
+    within 1e-4 of the plain versions, 18 equal to 19 and to A's fp32 form on
+    torch-roped inputs to the bit, zeros for an item without a valid key."""
+    from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
+
+    gen = torch.Generator(device=dev).manual_seed(121 + n)
+    qkv = torch.randn((B, n, 3 * heads * 64), generator=gen, device=dev)
+    for i, length in enumerate(lens if past else ()):
+        sign = torch.randint(0, 2, (n - length, 2 * heads * 64), generator=gen, device=dev)
+        qkv[i, length:, heads * 64:] = past * (2.0 * sign - 1)
+    q, k, v = (t.contiguous() for t in flash_prefix.qkv_unpack(qkv, heads))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cos, sin = (torch.from_numpy(t).to(dev) for t in rope_cos_sin(n, 64))
+    before = flash_prefix.launches_rope_f32, flash_prefix.launches_qkv_f32
+    got18 = flash_prefix.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe)
+    got19 = flash_prefix.flash_prefix_qkv_attention(qkv, kv, heads, cos, sin, pe)
+    assert (flash_prefix.launches_rope_f32, flash_prefix.launches_qkv_f32) == \
+        (before[0] + 1, before[1] + 1)
+    assert got18.dtype == got19.dtype == torch.float32
+    merged = got18.transpose(1, 2).reshape(B, n, heads * 64)
+    assert torch.equal(merged, got19)
+    live = [i for i, length in enumerate(lens) if length > 0]
+    for i, length in enumerate(lens):
+        if length == 0:
+            assert not got18[i].any()
+    with _NoTF32():
+        want = flash_prefix.flash_prefix_rope_reference(q[live], k[live], v[live], kv[live], cos,
+                                                        sin, pe)
+    assert _rel(got18[live], want) <= 1e-4
+    via_a = flash_prefix.flash_prefix_attention(flash_prefix.rope_reference(q[live], cos, sin, pe),
+                                                flash_prefix.rope_reference(k[live], cos, sin, pe),
+                                                v[live], kv[live])
+    assert torch.equal(got18[live], via_a)
+
+
+@pytest.mark.parametrize("pv_i8", [True, False])
+@pytest.mark.parametrize("n,lens", [(200, [1, 64, 65, 200]), (256, [256, 131, 0, 2]),
+                                    (1536, [1376, 1536, 1, 700])])
+def test_fp32_form_of_kernel_14_and_its_pass(dev, n, lens, pv_i8):
+    """The pass on fp32 equals its plain version to the bit; 14's fp32 form
+    writes fp32, within 1e-4 of its plain version in "qk" (the FFMA form:
+    exact integer scores, fp32 p.v) and 2e-4 in "qkpv" (the attention core's
+    int8 form with an fp32 output: p8 ties, no bf16 step), a bound that the
+    plain output rounded through bf16 fails."""
+    gen = torch.Generator(device=dev).manual_seed(122 + n)
+    B = len(lens)
+    q, k, v = (torch.randn((B, 2, n, 64), generator=gen, device=dev) for _ in range(3))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = flash_prefix.quantize_heads(q, k, v, pv_i8)
+    q8, k8, vq, c, sv = flash_prefix._quantize_qkv(q, k, v, pv_i8)
+    want = (q8, k8, flash_prefix._v8_kernel_layout(vq) if pv_i8 else vq, c, sv)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    counter = "launches_i8_f32" if pv_i8 else "launches_i8_qk_f32"
+    before = getattr(flash_prefix, counter), flash_prefix.launches_i8_quant_f32
+    out = flash_prefix.flash_prefix_attention_i8(q, k, v, kv, pv_i8=pv_i8)
+    assert (getattr(flash_prefix, counter), flash_prefix.launches_i8_quant_f32) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    lens_h = kv.repeat_interleave(2)
+    with _NoTF32():
+        ref = flash_prefix.flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=pv_i8)
+    out = out.reshape(2 * B, n, 64)
+    live = lens_h > 0
+    assert not out[~live].any()
+    bound = 2e-4 if pv_i8 else 1e-4
+    assert _rel(out[live], ref[live]) <= bound
+    assert _rel(ref[live].bfloat16(), ref[live]) > bound
+
+
+@pytest.mark.parametrize("n,lens,past", [(129, [1, 63, 64, 65, 127, 128, 129], None),
+                                         (301, [1, 64, 129, 200, 300, 301], 1e4)])
+def test_fp32_training_products_hold_fp32_accuracy(dev, n, lens, past):
+    """11-13 fp32 on the tensor cores in 3xTF32 hold 1e-4 of the plain
+    versions with TF32 off, where the plain versions with TF32 on (one TF32
+    product) do not: the bound sees a TF32 product."""
+    q, k, v, do, kv, _, _, _ = (t.float() if t.dtype == torch.bfloat16 else t
+                                for t in _train_core_case(dev, n, lens, past))
+    with _NoTF32():
+        o, lse = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+        dvec = (do * o).sum(-1)
+        dq_p = flash_prefix.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv)
+        dk_p, dv_p = flash_prefix.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        dq_t = flash_prefix.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    dq = flash_prefix.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
+    dq12, _ = flash_prefix.flash_prefix_dq(q, k, v, do, dvec, kv)
+    dk, dv = flash_prefix.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+    for got, want in ((dq, dq_p), (dq12, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert _rel(got, want) <= 1e-4
+    assert _rel(dq_t, dq_p) > 1e-4
+
+
+@pytest.mark.parametrize("attn_path,attn_int8,quantize", [
+    ("linear_fused", None, False), ("rope_in_kernel", None, False), ("qkv_kernel", None, False),
+    ("default", "qk", False), ("linear_fused", "qkpv", False), ("default", "qk", True)])
+def test_offline_entry_point_runs_every_attn_path_in_fp32(dev, tmp_path, attn_path, attn_int8,
+                                                          quantize):
+    """F5TTS(device="cuda") with its default fp32 weights under each opt-in
+    path (full width, seeded random weights): the fp32 forms of the path's
+    kernels, the bf16 ones unmoved."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch import api
+    from korean_f5_tts_tpu_torch.models.dit import redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    ref = str(tmp_path / "ref.wav")
+    ts = np.arange(2 * 24_000) / 24_000
+    wavfile.write(ref, 24_000, (0.3 * np.sin(2 * np.pi * (150 + 400 * ts) * ts) * 32767)
+                  .astype(np.int16))
+    tts = api.F5TTS(attn_path=attn_path, attn_int8=attn_int8, quantize=quantize)
+    redraw_zero_init(tts.ema_model.params, seed=1)
+    reset_launch_counts()
+    wav, sr, _ = tts.infer(ref, "A reference.", "Say this, please.", nfe_step=2, seed=1,
+                           show_info=lambda m: None)
+    counts = launch_counts()
+    assert sr == 24_000 and np.isfinite(wav).all() and np.abs(wav).max() > 0
+    per = 2 * 22
+    attn = {"rope_in_kernel": "flash_prefix_rope_f32", "qkv_kernel": "flash_prefix_qkv_f32"}
+    i8 = {"qkpv": "flash_prefix_i8_f32", "qk": "flash_prefix_i8_qk_f32"}
+    name = attn.get(attn_path, i8.get(attn_int8, "flash_prefix_f32"))
+    assert counts[name] == per
+    if attn_int8:
+        assert counts["flash_prefix_i8_quant_f32"] == per
+    if attn_path == "linear_fused" and not quantize:
+        assert counts["ln_mod_matmul_f32"] == counts["proj_gated_residual_f32"] == per
+    assert counts["ff_block_int8" if quantize else "ff_block_f32"] == per
+    bf16 = ("flash_prefix", "flash_prefix_rope", "flash_prefix_qkv", "flash_prefix_i8",
+            "flash_prefix_i8_quant", "ln_mod_matmul", "proj_gated_residual", "ff_block",
+            "grouped_conv")
+    assert all(counts[nm] == 0 for nm in bf16)
+
+
+def test_fp32_forms_refuse_a_mix_of_dtypes(dev):
+    gen = torch.Generator(device=dev).manual_seed(123)
+    h = torch.randn((1, 64, 256), generator=gen, device=dev)
+    vec = torch.randn((256,), generator=gen, device=dev)
+    p = {"w": torch.randn((128, 256), generator=gen, device=dev), "b": vec[:128].clone()}
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        fused_linears.ln_mod_matmul(h, vec.bfloat16(), vec, [p])
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        fused_linears.proj_gated_residual(h, h.bfloat16(), vec,
+                                          {"w": torch.randn((256, 256), device=dev), "b": vec})
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        fused_linears.ln_mod_matmul(h.half(), vec.half(), vec.half(),
+                                    [{k: t.half() for k, t in p.items()}])
+    q = torch.randn((1, 2, 64, 64), generator=gen, device=dev)
+    lens = torch.tensor([64], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        flash_prefix.flash_prefix_qkv_attention(torch.randn((1, 64, 384), device=dev).half(), lens,
+                                                2, vec[:32].expand(64, 32), vec[:32].expand(64, 32))
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        flash_prefix.quantize_heads(q, q.bfloat16(), q)
+    with pytest.raises(TypeError, match="all bf16 or all fp32"):
+        flash_prefix.flash_prefix_attention_i8(q, q, q.bfloat16(), lens)
+    q8, k8, vq, c, sv = flash_prefix._quantize_qkv(q, q, q, False)
+    with pytest.raises(TypeError):  # a bf16 v with an fp32 output
+        flash_prefix.flash_prefix_folded_i8(q8, k8, vq.bfloat16(), c, sv, lens.expand(2)
+                                            .contiguous(), pv_i8=False, out_dtype=torch.float32)
