@@ -9,10 +9,13 @@ Phases (any failure raises and exits non-zero):
   2. hold each of the sixteen kernels, kernel 14's quantization pass and
      the fp32 forms of A, B, C, 7, 8, 14 and its pass, 18, 19 (what the
      offline entry points run by default, under each attn_path and
-     attn_int8) and of 10-13 (what fp32 training runs; 11-13 split 3xTF32
-     products on the tensor cores; bound of every fp32 form: its
-     fp32-accurate products at the 3xTF32 rate, 494.7 / 3 TFLOP/s, with the
-     FFMA rate's 67 TFLOP/s printed beside) (bf16: A, B,
+     attn_int8) and of 10-13 (what fp32 training runs; A, B, 7, 8, 10-13,
+     18 and 19 split 3xTF32 products on the tensor cores, each with a TF32
+     control that must fail its bound; B, 7, 8 fp32 must beat their plain
+     versions, 10 fp32 the library's fp32 forward; A fp32 beside the fp32
+     library attention on keys sliced to the common kv_len; bound of every
+     fp32 form: its fp32-accurate products at the 3xTF32 rate, 494.7 / 3
+     TFLOP/s, with the FFMA rate's 67 TFLOP/s printed beside) (bf16: A, B,
      C; int8: 9, 5, 6, 4;
      training: 10, 11, 12, 13, with PyTorch's flash attention forward and
      backward as the library yardsticks of 10 and of 11 + 13, 10 on the
@@ -21,8 +24,9 @@ Phases (any failure raises and exits non-zero):
      127-129, 200, 301; kv_len 0, 1, 63-65, 127-129, n; keys past kv_len at +-1e4),
      10 launched twice
      on the same inputs (the remat recompute: equal to the bit), a head with
-     kv_len 0 held to zero o, lse 0 and zero dk, dv; the fp32 forms of 10-13 at the same edges within 1e-5 (o,
-     lse) and 1e-4 (dq, dk, dv) with TF32 off, a control with TF32 on that
+     kv_len 0 held to zero o, lse 0 and zero dk, dv; the fp32 forms of
+     10-13 at the same edges within 1e-5 (o, lse) and 1e-4 (dq, dk, dv)
+     with TF32 off, a control with TF32 on that
      must fail those bounds, and PyTorch's memory-efficient attention on fp32
      (forward with its logsumexp, backward) as their yardstick, its error
      printed beside its time; C on TMA + wgmma at N 1, 15-17, 31, 127-129,
@@ -166,10 +170,10 @@ checkout at PARENT (for example the parent commit unpacked by `git archive`)
 and of this one under one timer, in turns parent, change, change, parent,
 with the library yardsticks in each turn (A's: SDPA on keys sliced to the
 common kv_len, under each backend; 10's and 11 + 13's: PyTorch's flash
-attention forward and backward; 11 + 13 fp32's: its efficient attention's
-backward on fp32; a form the parent lacks is printed as refused), and fails
-if A, B, C, 7, 8, 4, 5, 6, 9, 10, 11, 12, 13, 19 or the fp32 forms of A, B,
-10, 12 moved by more than 5%.
+attention forward and backward; A fp32's, 10 fp32's and 11 + 13 fp32's: its
+efficient attention on fp32, on sliced keys, forward with its logsumexp,
+backward; a form the parent lacks is printed as absent), and fails if any
+of them is more than 5% slower than the parent's.
 
 It needs a CUDA card and the repository checkout it sits in; it imports
 nothing of JAX.
@@ -288,11 +292,13 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-# kernels whose spills fail phase 1: the wgmma cores, the 3xTF32 forms of 11-13
-# and the fp32 forms of 7, 8, 14 (and its pass), 18, 19 (kernel A's fp32 kernel
-# with kRope), by a substring of their names
-SPILL_CHECKED = ("wgmma", "tf32", "gemm_f32_kernel", "flash_prefix_f32_kernel",
-                 "flash_prefix_i8_f32_kernel", "quant_heads_kernel")
+# kernels whose spills fail phase 1, by a substring of their names: the wgmma
+# cores; the split 3xTF32 kernels (the fp32 forms of A, 10, 18, 19 in
+# flash_prefix_fwd_tf32_kernel, of 11-13, of B, 7, 8 in ln_mod_gemm_tf32_kernel
+# and gated_residual_gemm_tf32_kernel, and the .tf32 probes); A's fp32 FFMA
+# kernel at d = 128; the fp32 forms of 14 and its pass
+SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "flash_prefix_i8_f32_kernel",
+                 "quant_heads_kernel")
 
 
 def ptxas_faults(log: str) -> list[str]:
@@ -647,12 +653,25 @@ def check_conv(gen, dev) -> dict:
     return out
 
 
+def faster_than_plain(name: str, r: dict) -> None:
+    """The fp32 forms of B, 7 and 8 run on the tensor cores as 3xTF32
+    products: each must beat its plain version (cuBLAS's fp32 products) in
+    the same run."""
+    print(f"  {name}: {r['ms']:.4f} ms against its plain version's {r['plain_ms']:.4f} "
+          f"({r['ms'] / r['plain_ms']:.2f}x)")
+    if r["ms"] >= r["plain_ms"]:
+        fail(f"{name} is slower than its plain version")
+
+
 def check_fp32_forms(gen, dev) -> dict[str, dict]:
     """The fp32 forms of kernels A, B and C at the main shapes and at ragged
     ones against their plain versions (which compute in fp32 whatever the
     input; the plain conv with cuDNN's TF32 off, as everywhere in this
-    script). Their products are FFMA, so the bound takes the card's fp32 rate
-    outside the tensor cores."""
+    script). A (d = 64) and B are split 3xTF32 products on the tensor cores,
+    C and A at d = 128 FFMA; the bound takes the 3xTF32 rate, the FFMA one
+    printed beside. A TF32 control for A and B (the plain version with TF32
+    on must fail F32_REL); B must beat its plain version; A beside the fp32
+    library attention on keys sliced to the common kv_len."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import ff_block as fb
@@ -663,7 +682,8 @@ def check_fp32_forms(gen, dev) -> dict[str, dict]:
         return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
 
     out = {}
-    print(f"kernel A on fp32 operands (rel bound {F32_REL:.0e}: nothing is rounded below fp32)")
+    print(f"kernel A on fp32 operands (split 3xTF32; rel bound {F32_REL:.0e}: nothing is rounded "
+          "below fp32)")
 
     def attn_case(label, H, n, d, lens):
         q, k, v = (torch.randn((H, n, d), generator=gen, device=dev) for _ in range(3))
@@ -680,24 +700,33 @@ def check_fp32_forms(gen, dev) -> dict[str, dict]:
                                                 [1376] * 32)
     attn_case("n=1000 kv=[0, 1, 700, 1000]", 4, 1000, 64, [0, 1, 700, 1000])
     attn_case("n=300 d=128 mixed", 4, 300, 128, [300, 1, 77, 129])
+    want = fp.prefix_attention_reference(q, k, v, kv)
+    tf32_control("kernel A fp32", lambda: fp.prefix_attention_reference(q, k, v, kv), want,
+                 F32_REL)
     out["flash_prefix_f32"] = {
         "max_abs_err": max_abs,
         **_timed(lambda: fp.flash_prefix_folded(q, k, v, kv),
                  lambda: fp.prefix_attention_reference(q, k, v, kv),
                  4.0 * 32 * 1536 * 1376 * 64, (q, k, v, kv, got), kind="fp32")}
     # the one PyTorch call for the same function on the same fp32 operands, as
-    # check_attention times it for the bf16 form; used nowhere in the port
+    # check_attention times it for the bf16 form (keys sliced to the common
+    # kv_len); used nowhere in the port
+    lib = efficient_f32_sliced(q, k, v, kv)
+    lib_rel = _rel(lib(), want)
+    print(f"  library (aten._scaled_dot_product_efficient_attention, fp32, keys sliced to the "
+          f"common kv_len 1376): rel {lib_rel:.3e} to the plain version (bound {F32_REL:.0e}: "
+          "the yardstick must be fp32-accurate too)")
+    if lib_rel > F32_REL:
+        fail("the fp32 library attention is not fp32-accurate: no fair yardstick")
+    out["flash_prefix_f32"]["library_ms"] = lib_ms = cuda_time_ms(lib)
     valid = (torch.arange(1536, device=dev)[None, :] < kv[:, None])[:, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_rel = _rel(sdpa(q, k, v, attn_mask=valid), fp.prefix_attention_reference(q, k, v, kv))
-    if lib_rel > 1e-2:  # the same function, whatever precision the library's product takes
-        fail(f"fp32 scaled_dot_product_attention is {lib_rel:.3e} from the plain version: it "
-             "does not compute the same function")
-    out["flash_prefix_f32"]["library_ms"] = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=valid))
-    print(f"  library (F.scaled_dot_product_attention, fp32, boolean mask; rel {lib_rel:.1e} to "
-          f"plain) {out['flash_prefix_f32']['library_ms']:.4f} ms")
+    mask_ms = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=valid))
+    print(f"  library {lib_ms:.4f} ms: kernel A fp32 takes "
+          f"{out['flash_prefix_f32']['ms'] / lib_ms:.2f}x its time; F.scaled_dot_product_"
+          f"attention with a boolean mask {mask_ms:.4f} ms (printed, not the yardstick)")
 
-    print(f"kernel B on fp32 operands (rel bound {F32_REL:.0e})")
+    print(f"kernel B on fp32 operands (split 3xTF32 on wgmma; rel bound {F32_REL:.0e})")
 
     def ff_inputs(m, d=1024, dff=2048):
         return (torch.randn((1, m, d), generator=gen, device=dev), uni((d,), 0.3), uni((d,), 0.3),
@@ -705,16 +734,23 @@ def check_fp32_forms(gen, dev) -> dict[str, dict]:
                 uni((d, dff), dff ** -0.5), uni((d,), dff ** -0.5))
 
     args = ff_inputs(3072)
-    max_abs, _ = compare("ff_block fp32 main m=3072 d=1024 dff=2048", fb.ff_block_fused(*args),
-                         fb.ff_block_reference(*args), F32_REL)
+    got, want = fb.ff_block_fused(*args), fb.ff_block_reference(*args)
+    max_abs, _ = compare("ff_block fp32 main m=3072 d=1024 dff=2048", got, want, F32_REL)
+    # the residual h dilutes a product's error in out (a TF32 product reads
+    # below F32_REL there): the gated branch out - h is held as well
+    compare("ff_block fp32 main, the gated branch out - h", got - args[0], want - args[0],
+            F32_REL)
     for m in (1000, 1):
         ragged = ff_inputs(m)
         compare(f"ff_block fp32 ragged m={m}", fb.ff_block_fused(*ragged),
                 fb.ff_block_reference(*ragged), F32_REL)
+    tf32_control("kernel B fp32", lambda: fb.ff_block_reference(*args), want, F32_REL,
+                 base=args[0])
     out["ff_block_f32"] = {
         "max_abs_err": max_abs,
         **_timed(lambda: fb.ff_block_fused(*args), lambda: fb.ff_block_reference(*args),
                  4.0 * 3072 * 1024 * 2048, (args, args[0]), kind="fp32")}
+    faster_than_plain("ff_block_f32", out["ff_block_f32"])
 
     print(f"kernel C on fp32 operands (rel bound {F32_REL:.0e})")
 
@@ -757,7 +793,7 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
     of them (as their bf16 rows)."""
     import torch
 
-    from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
+    from korean_f5_tts_tpu_torch.models.modules import apply_rope, rope_cos_sin
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
     from korean_f5_tts_tpu_torch.ops import fused_linears as fl
 
@@ -768,7 +804,7 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
         return {"w": uni((n, k), k ** -0.5), "b": uni((n,), k ** -0.5)}
 
     out = {}
-    print(f"kernels 7 and 8 on fp32 operands (FFMA; rel bound {F32_REL:.0e})")
+    print(f"kernels 7 and 8 on fp32 operands (split 3xTF32 on wgmma; rel bound {F32_REL:.0e})")
     h = torch.randn((2, 1536, 1024), generator=gen, device=dev)
     sc, sh, gate = uni((1024,), 0.3), uni((1024,), 0.3), uni((1024,), 1.0)
     ps = [linear(1024, 1024) for _ in range(3)]
@@ -782,28 +818,36 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
         compare(f"ln_mod_matmul fp32 ragged m={m}, {len(seg)} linear(s)",
                 fl.ln_mod_matmul(hr, sc, sh, seg), fl.ln_mod_matmul_reference(hr, sc, sh, seg),
                 F32_REL)
+    tf32_control("kernel 7 fp32", lambda: fl.ln_mod_matmul_reference(h, sc, sh, ps),
+                 fl.ln_mod_matmul_reference(h, sc, sh, ps), F32_REL)
     out["ln_mod_matmul_f32"] = {"max_abs_err": max_abs, **_timed(
         lambda: fl.ln_mod_matmul(h, sc, sh, ps), lambda: fl.ln_mod_matmul_reference(h, sc, sh, ps),
         2.0 * 3072 * 1024 * 3072, (h, sc, sh, ps, got), kind="fp32")}
+    faster_than_plain("ln_mod_matmul_f32", out["ln_mod_matmul_f32"])
     print("  library: none (as for the bf16 form)")
     a = torch.randn((2, 1536, 1024), generator=gen, device=dev)
     p = linear(1024, 1024)
     got = fl.proj_gated_residual(a, h, gate, p)
-    max_abs, _ = compare("proj_gated_residual fp32 main m=3072 d=1024", got,
-                         fl.proj_gated_residual_reference(a, h, gate, p), F32_REL)
+    want = fl.proj_gated_residual_reference(a, h, gate, p)
+    max_abs, _ = compare("proj_gated_residual fp32 main m=3072 d=1024", got, want, F32_REL)
+    compare("proj_gated_residual fp32 main, the gated branch out - h", got - h, want - h,
+            F32_REL)
     for m in (1000, 65, 1):
         compare(f"proj_gated_residual fp32 ragged m={m}",
                 fl.proj_gated_residual(a[:1, :m].contiguous(), h[:1, :m].contiguous(), gate, p),
                 fl.proj_gated_residual_reference(a[:1, :m], h[:1, :m], gate, p), F32_REL)
+    tf32_control("kernel 8 fp32", lambda: fl.proj_gated_residual_reference(a, h, gate, p), want,
+                 F32_REL, base=h)
     out["proj_gated_residual_f32"] = {"max_abs_err": max_abs, **_timed(
         lambda: fl.proj_gated_residual(a, h, gate, p),
         lambda: fl.proj_gated_residual_reference(a, h, gate, p), 2.0 * 3072 * 1024 * 1024,
         (a, h, gate, p, got), kind="fp32")}
+    faster_than_plain("proj_gated_residual_f32", out["proj_gated_residual_f32"])
     print("  library: none (as for the bf16 form)")
     del h, a, got
 
-    print(f"kernels 18 and 19 on fp32 operands (kernel A's fp32 kernel with strided heads and "
-          f"the rotation in fp32; rel bound {F32_REL:.0e}; 18, 19 and A's fp32 form on "
+    print(f"kernels 18 and 19 on fp32 operands (kernel A's split 3xTF32 kernel with strided "
+          f"heads and the rotation in fp32; rel bound {F32_REL:.0e}; 18, 19 and A's fp32 form on "
           "torch-roped inputs equal to the bit)")
 
     def tables(n):
@@ -849,6 +893,10 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
         rope_case(f"B={B} heads={H} n={n} kv={lens} pe_attn_head={pe}"
                   f"{f' past=+-{past:g}' if past else ''}", B, H, n, lens, pe, past)
     flop = 4.0 * 32 * 1536 * 1376 * 64  # every query row against this run's 1376 keys
+    tf32_control("kernel 18 fp32", lambda: fp.flash_prefix_rope_reference(q, k, v, kv, cos, sin),
+                 fp.flash_prefix_rope_reference(q, k, v, kv, cos, sin), F32_REL)
+    tf32_control("kernel 19 fp32", lambda: fp.flash_prefix_qkv_reference(qkv, kv, 16, cos, sin),
+                 fp.flash_prefix_qkv_reference(qkv, kv, 16, cos, sin), F32_REL)
     out["flash_prefix_rope_f32"] = {"max_abs_err": e18, **_timed(
         lambda: fp.flash_prefix_rope_attention(q, k, v, kv, cos, sin),
         lambda: fp.flash_prefix_rope_reference(q, k, v, kv, cos, sin), flop,
@@ -857,7 +905,15 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
         lambda: fp.flash_prefix_qkv_attention(qkv, kv, 16, cos, sin),
         lambda: fp.flash_prefix_qkv_reference(qkv, kv, 16, cos, sin), flop,
         (qkv, kv, cos, sin, got19), kind="fp32")}
-    print("  library: none (as for the bf16 forms)")
+    # as the bf16 rows: no one library call computes 18's or 19's function;
+    # the composition of the default path with the fp32 library attention
+    # (keys sliced to the common kv_len) is printed beside them
+    composed = cuda_time_ms(lambda: efficient_f32(
+        apply_rope(q, cos, sin).reshape(32, 1536, 64),
+        apply_rope(k, cos, sin).reshape(32, 1536, 64), v.reshape(32, 1536, 64), 1376))
+    print(f"  library: none; apply_rope x 2 + the fp32 library attention on sliced keys "
+          f"{composed:.4f} ms (18 fp32 {out['flash_prefix_rope_f32']['ms'] / composed:.2f}x, 19 "
+          f"fp32 {out['flash_prefix_qkv_f32']['ms'] / composed:.2f}x its time)")
     del qkv, q, k, v, got18, got19
 
     print("kernel 14 and its quantization pass on fp32 operands (the pass to the bit; 14 'qk' "
@@ -1350,6 +1406,52 @@ def _rel(got, want) -> float:
     return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
 
 
+def tf32_control(label: str, plain, want, rel_bound: float, base=None) -> float:
+    """The plain version with both of PyTorch's TF32 switches on (each fp32
+    matmul one TF32 product) against `want`, the same with them off: it must
+    fail `rel_bound`, or the bound would not tell a TF32 product from an fp32
+    one. base: the residual h of a gated form (B, 8), taken off both sides,
+    so the control reads the branch the products make."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = plain()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    r = _rel(got, want) if base is None else _rel(got - base, want - base)
+    whole = "" if base is None else f" (on the whole output {_rel(got, want):.3e}, not held)"
+    print(f"  control: {label}'s plain version with TF32 on reads rel {r:.3e}"
+          f"{'' if base is None else ' on the gated branch (out - h)'} (must fail "
+          f"{rel_bound:.0e}){whole}")
+    if r <= rel_bound:
+        fail(f"{label}: the TF32 control passes rel {rel_bound:.0e}, which would not tell a TF32 "
+             "product from an fp32 one")
+    return r
+
+
+def efficient_f32(q, k, v, length: int):
+    """PyTorch's memory-efficient attention (exact fp32 with TF32 off; its
+    flash and cuDNN backends take no fp32) of fp32 q [H, n, 64] over the
+    first `length` keys of k, v [H, n, 64]."""
+    import torch
+
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        q[None], k[None, :, :length], v[None, :, :length], None, False, 0.0, False,
+        scale=q.shape[-1] ** -0.5)[0][0]
+
+
+def efficient_f32_sliced(q, k, v, kv):
+    """The one PyTorch call for kernel A's function on fp32 operands when
+    every folded head has the same kv_len: efficient_f32 on the keys sliced
+    to that length, as sdpa_sliced for the bf16 form."""
+    lens = kv.tolist()
+    if len(set(lens)) != 1:
+        raise ValueError("efficient_f32_sliced: the kv_lens differ; the sliced call would "
+                         "compute another function")
+    return lambda: efficient_f32(q, k, v, lens[0])
+
+
 def check_train_attention(gen, dev) -> dict[str, dict]:
     """Kernels 10-13 at the training shape (b 8 x 16 heads = H 128, n 1280,
     d 64), at a ragged n with mixed kv_lens and at the edges of the tiles of
@@ -1477,8 +1579,8 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
 
 
 def check_train_attention_f32(gen, dev) -> dict[str, dict]:
-    """The fp32 forms of kernels 10-13 (10 FFMA; 11-13 split 3xTF32 products
-    on the tensor cores) at the training shape and at the cores' edges
+    """The fp32 forms of kernels 10-13 (split 3xTF32 products on the tensor
+    cores) at the training shape and at the cores' edges
     (TRAIN_EDGES) against their plain versions, with both of PyTorch's TF32
     switches off wherever a plain version runs: o and lse within
     F32_ATTN_REL, dq, dk, dv within F32_GRAD_REL (relative L2). A control:
@@ -1487,7 +1589,8 @@ def check_train_attention_f32(gen, dev) -> dict[str, dict]:
     gradients. Times with the bound at the 3xTF32 rate and at the FFMA rate,
     and the library yardstick: PyTorch's memory-efficient attention on fp32
     (forward with its logsumexp, and its backward), its error against the
-    fp32 plain version printed beside its time."""
+    fp32 plain version printed beside its time; 10 fp32 must beat the
+    library forward."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
@@ -1539,7 +1642,7 @@ def check_train_attention_f32(gen, dev) -> dict[str, dict]:
                 fail(f"the fp32 forms of 10-13 {label}: a head with kv_len 0 is not zero")
         return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
 
-    print(f"the fp32 forms of kernels 10-13 (10 FFMA, 11-13 3xTF32 on the tensor cores; rel bound "
+    print(f"the fp32 forms of kernels 10-13 (3xTF32 on the tensor cores; rel bound "
           f"{F32_ATTN_REL:.0e} for o and lse, {F32_GRAD_REL:.0e} for dq, dk, dv: fp32 accuracy)")
     errs, main = case("main H=128 n=1280 d=64 kv=n", 128, 1280, [1280] * 128)
     q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p = main
@@ -1606,10 +1709,13 @@ def check_train_attention_f32(gen, dev) -> dict[str, dict]:
     out["flash_prefix_dkv_f32"]["library_ms"] = cuda_time_ms(bwd)  # 11 + 13 together
     both = out["flash_prefix_dq_lsein_f32"]["ms"] + out["flash_prefix_dkv_f32"]["ms"]
     lib_bwd = out["flash_prefix_dkv_f32"]["library_ms"]
-    print(f"  library: forward {out['flash_prefix_lse_f32']['library_ms']:.4f} ms (10 fp32 "
-          f"{out['flash_prefix_lse_f32']['ms']:.4f}), backward {lib_bwd:.4f} ms (11 + 13 fp32 "
-          f"{both:.4f}: {both / lib_bwd:.2f}x the library's time)")
-    for name in ("flash_prefix_dq_lsein_f32", "flash_prefix_dkv_f32"):
+    fwd32 = out["flash_prefix_lse_f32"]
+    print(f"  library: forward {fwd32['library_ms']:.4f} ms (10 fp32 {fwd32['ms']:.4f}: "
+          f"{fwd32['ms'] / fwd32['library_ms']:.2f}x the library's time), backward "
+          f"{lib_bwd:.4f} ms (11 + 13 fp32 {both:.4f}: {both / lib_bwd:.2f}x)")
+    if fwd32["ms"] >= fwd32["library_ms"]:
+        fail("kernel 10 fp32 is slower than the library's fp32 attention forward")
+    for name in ("flash_prefix_lse_f32", "flash_prefix_dq_lsein_f32", "flash_prefix_dkv_f32"):
         r = out[name]
         print(f"  {name}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms at the 3xTF32 rate "
               f"({r['bound_ms'] / r['ms']:.3f} of the time), {r['ffma_bound_ms']:.4f} ms at the "
@@ -2114,13 +2220,22 @@ AB_KERNELS = {"flash_prefix": "A", "ff_block": "B", "grouped_conv": "C",
 AB_SDPA = {f"sdpa_{name.split('_')[0].lower()}": f"SDPA {name}" for name in SDPA_BACKENDS}
 AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
               "flash_bwd": "library flash backward (11 + 13's yardstick)",
+              "efficient_sliced_f32": "library efficient attention, fp32, sliced keys (A fp32's "
+                                      "yardstick)",
+              "efficient_fwd_f32": "library efficient forward with lse, fp32 (10 fp32's "
+                                   "yardstick)",
               "efficient_bwd_f32": "library efficient backward, fp32 (11 + 13 fp32's yardstick)"}
+# no slower than 1.05x the parent or fail: every kernel, the fp32 forms that
+# a change redesigns (faster) among them
 AB_UNMOVED = ("flash_prefix", "ff_block", "grouped_conv", "ln_mod_matmul",
               "proj_gated_residual", "ff_block_int8", "ln_mod_matmul_int8",
               "proj_gated_residual_int8", "qmatmul", "flash_prefix_lse", "flash_prefix_dq_lsein",
-              "flash_prefix_dq", "flash_prefix_dkv", "flash_prefix_qkv", "flash_prefix_i8",
-              "flash_prefix_i8_qk", "flash_prefix_f32", "ff_block_f32", "flash_prefix_lse_f32",
-              "flash_prefix_dq_f32")  # within 5% or fail
+              "flash_prefix_dq", "flash_prefix_dkv", "flash_prefix_rope", "flash_prefix_qkv",
+              "flash_prefix_i8", "flash_prefix_i8_qk", "flash_prefix_f32", "ff_block_f32",
+              "flash_prefix_lse_f32", "flash_prefix_dq_lsein_f32", "flash_prefix_dq_f32",
+              "flash_prefix_dkv_f32", "ln_mod_matmul_f32", "proj_gated_residual_f32",
+              "flash_prefix_rope_f32", "flash_prefix_qkv_f32", "flash_prefix_i8_f32",
+              "flash_prefix_i8_qk_f32")
 AB_BOUND = 1.05
 # their times when the bf16 core was built (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md section 6, kernel table)
@@ -2278,8 +2393,14 @@ def core_timings(dev, absent=()) -> dict[str, float]:
             continue
         compare(f"kernel {AB_KERNELS[name]} ({name}) main shape", fn(), plain(), rel)
         out[name] = cuda_time_ms(fn)
-    # the library backward on fp32 (11 + 13 fp32's yardstick), as
-    # check_train_attention_f32 times it
+    # the fp32 library yardsticks: A fp32's (keys sliced to the common kv_len,
+    # as check_fp32_forms), 10 fp32's forward with its logsumexp and 11 + 13
+    # fp32's backward (as check_train_attention_f32 times them)
+    out["efficient_sliced_f32"] = cuda_time_ms(efficient_f32_sliced(f["aq"], f["ak"], f["av"], kv))
+    fq4, fk4, fv4 = (t[None] for t in ftrain[:3])
+    out["efficient_fwd_f32"] = cuda_time_ms(
+        lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            fq4, fk4, fv4, None, True, 0.0, False, scale=0.125))
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     leaves = [t[None].clone().requires_grad_(True) for t in ftrain[:3]]
@@ -2342,7 +2463,13 @@ def ab_timings(parent: Path, card: str, absent: tuple[str, ...] = ()) -> None:
               f"flash backward {r['flash_bwd']:.4f}: {bwd / r['flash_bwd']:.2f}x")
         bwd32 = r["flash_prefix_dq_lsein_f32"] + r["flash_prefix_dkv_f32"]
         print(f"11 + 13 fp32 ({turn}) {bwd32:.4f} ms against the library efficient backward "
-              f"on fp32 {r['efficient_bwd_f32']:.4f}: {bwd32 / r['efficient_bwd_f32']:.2f}x")
+              f"on fp32 {r['efficient_bwd_f32']:.4f}: {bwd32 / r['efficient_bwd_f32']:.2f}x; 10 "
+              f"fp32 {r['flash_prefix_lse_f32']:.4f} against its forward "
+              f"{r['efficient_fwd_f32']:.4f}: "
+              f"{r['flash_prefix_lse_f32'] / r['efficient_fwd_f32']:.2f}x; A fp32 "
+              f"{r['flash_prefix_f32']:.4f} against it on sliced keys "
+              f"{r['efficient_sliced_f32']:.4f}: "
+              f"{r['flash_prefix_f32'] / r['efficient_sliced_f32']:.2f}x")
     moved = [AB_KERNELS[n] for n in AB_UNMOVED if ratio[n] > AB_BOUND]
     print(", ".join(AB_KERNELS[n] for n in AB_UNMOVED) + " change / parent: "
           + ", ".join(f"{ratio[n]:.3f}" for n in AB_UNMOVED)
@@ -3092,6 +3219,43 @@ def offline_fp32_paths(dev, card: str, ref_path: str) -> dict[str, int]:
     return total
 
 
+def profile_fp32_chunks(profile: Path) -> None:
+    """One fp32 utterance chunk (F5TTS(device="cuda") with its default fp32
+    weights, FP32_PATH_TEXT: one chunk) under the profiler on the default
+    attn_path, on linear_fused and on qkv_kernel: the device time of each and
+    its kernels by device time (the fp32 forms of A, B, C, 7, 8, 19), tables
+    to profile's .fp32.<attn_path> siblings. Not gated. The entry points
+    are those of any tree since fp32 models ran every attn_path, so a
+    parent's package times the same way."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch.api import F5TTS
+    from korean_f5_tts_tpu_torch.models.dit import redraw_zero_init
+
+    quiet = {"show_info": lambda m: None}
+    vocab = str(ROOT / "data/Emilia_ZH_EN_pinyin/vocab.txt")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = np.arange(int(3.0 * SR)) / SR
+        ref_path = str(Path(tmp) / "ref.wav")
+        wavfile.write(ref_path, SR, (0.3 * np.sin(2 * np.pi * (150.0 + 400.0 * t) * t)
+                                     * 32767).astype(np.int16))
+        for attn_path in ("default", "linear_fused", "qkv_kernel"):
+            tts = F5TTS(vocab_file=vocab, attn_path=attn_path)
+            redraw_zero_init(tts.ema_model.params, seed=1)
+            busy = profile_once(
+                lambda: tts.infer(ref_path, REF_TEXT, FP32_PATH_TEXT, nfe_step=STEPS, seed=3,
+                                  **quiet),
+                profile.with_suffix(f".fp32.{attn_path}.txt"),
+                f"one fp32 utterance chunk, attn_path {attn_path}")
+            print(f"phase 8: an fp32 utterance chunk on {attn_path}: {busy:.2f} ms of device time")
+            del tts
+            torch.cuda.empty_cache()
+
+
 def phase8_offline(dev, card: str) -> dict[str, int]:
     import tempfile
 
@@ -3828,18 +3992,19 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, an int8 "
                              "batch of 2 under a duration mask (kernel 9's path), one "
-                             "utterance per opt-in attn_path (with phase 7), one with int8 "
-                             "attention (with phase 9) and one training step; tables to this "
-                             "file (int8) and to its .bf16, .batch2, .<attn_path>, .attn_int8 "
-                             "and .train siblings")
+                             "utterance per opt-in attn_path (with phase 7), one fp32 "
+                             "utterance chunk on the default path, linear_fused and "
+                             "qkv_kernel (with phase 8), one with int8 attention (with phase "
+                             "9) and one training step; tables to this file (int8) and to its "
+                             ".bf16, .batch2, .<attn_path>, .fp32.<attn_path>, .attn_int8 and "
+                             ".train siblings")
     parser.add_argument("--ab", type=Path, default=None, metavar="PARENT",
                         help="instead of the phases: time kernels A, B, C, 7, 8, 4, 5, 6, 9, "
                              "10-13, 14 (and its quantization pass), 18 and 19, their fp32 "
-                             "forms, and the library yardsticks of A, 10 and 11 + 13 of the "
-                             "checkout at PARENT and of this one under one timer, in turns "
-                             "parent, change, change, parent (a process each), and fail if A, B, "
-                             "C, 7, 8, 4, 5, 6, 9, 10-13, 14 (both modes), 19 or the fp32 "
-                             "forms of A, B, 10, 12 moved by more than 5%%")
+                             "forms, and the library yardsticks of A, 10 and 11 + 13 (bf16 and "
+                             "fp32) of the checkout at PARENT and of this one under one timer, "
+                             "in turns parent, change, change, parent (a process each), and "
+                             "fail if any kernel is more than 5%% slower than the parent's")
     parser.add_argument("--ab-absent", default="", metavar="NAMES",
                         help="with --ab or --timings-of: kernels of the --ab table (by counter "
                              "name, comma-separated) that the parent tree lacks; its turns skip "
@@ -3948,6 +4113,8 @@ def main(argv=None) -> int:
     if 8 in phases:
         for name, n in phase8_offline(dev, card).items():
             counts[name] += n
+        if args.profile is not None:
+            profile_fp32_chunks(args.profile)
     if 9 in phases:
         for name, n in phase9_int8_attention(dev, card, args.profile).items():
             counts[name] += n

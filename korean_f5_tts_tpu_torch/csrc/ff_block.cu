@@ -13,8 +13,9 @@
 //
 // What bounds it on the card: at the main-path shape (M = 3072, d = 1024,
 // dff = 2048) a call is 25.8 GFLOP against ~22 MB of h/W/out in bf16, so the
-// two products bound it: 0.026 ms at the bf16 tensor-core peak, 0.385 ms at
-// the 67 TFLOP/s of fp32 outside the tensor cores. The TPU kernel keeps the
+// two products bound it: 0.026 ms at the bf16 tensor-core peak; on fp32
+// operands 0.156 ms as fp32-accurate products at the TF32 rate taken three
+// times (0.385 ms at the 67 TFLOP/s of FFMA). The TPU kernel keeps the
 // whole [rows, dff] GELU tile in VMEM; here a 64-row tile of z is
 // 64 * 2048 * 2 B = 256 KB, more than the 227 KB of shared memory a block
 // can have.
@@ -29,8 +30,9 @@
 //          in device memory;
 //   gated_residual_gemm: out = h + gate * (z @ W2^T + b2).
 // bf16: the TMA + wgmma core of gemm_bf16.cuh, whose note has the tile
-// shapes, stages and tile counts per wave. fp32: the FFMA tiles of
-// gemm_f32.cuh (its note says why not TF32).
+// shapes, stages and tile counts per wave. fp32: the split 3xTF32 core of
+// gemm_f32.cuh on the same skeleton (wgmma .tf32, the weight tile split
+// into hi and lo in shared memory, y split in registers).
 #include "gemm_f32.cuh"
 
 // z: [M, dff] bf16 and stats: [2, M] fp32, scratch the caller allocates; d, dff
@@ -56,14 +58,14 @@ extern "C" int f5_ff_block_fwd(const void* h, const void* sc, const void* sh, co
   return (int)err;
 }
 
-// the same on fp32 operands; z: [M, dff] fp32; d, dff multiples of 128
+// the same on fp32 operands; z: [M, dff] fp32; d, dff multiples of 128, d <= 4096
 extern "C" int f5_ff_block_f32_fwd(const void* h, const void* sc, const void* sh,
                                    const void* gate, const void* w1, const void* b1,
                                    const void* w2, const void* b2, void* z, void* stats, void* out,
                                    int M, int d, int dff, float eps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d % f5::kFT != 0 || dff % f5::kFT != 0) return (int)cudaErrorInvalidValue;
+  if (!f5::tf_dims_ok(M, d, dff)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* const ws[3] = {w1, w1, w1};
   const void* const bs[3] = {b1, b1, b1};

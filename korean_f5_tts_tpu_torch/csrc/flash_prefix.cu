@@ -37,49 +37,81 @@
 // FlashAttention-2.
 //
 // fp32 operands (f5_flash_prefix_f32_fwd; the offline entry points keep fp32
-// weights unless told otherwise): flash_prefix_f32_kernel below. Like the
-// TPU kernel on fp32 inputs it keeps "the exact f32 dot": scores, softmax,
-// p.v and the output are fp32 and p is not rounded. Products are plain FFMA
-// on shared-memory tiles: the tensor cores have no fp32 product, a single
-// TF32 mma keeps 10 mantissa bits and does not hold fp32 parity, and a split
-// 3xTF32 design is more machinery than this form is worth; its bound is the
-// 67 TFLOP/s of fp32 outside the tensor cores (0.26 ms at the main shape).
-// One 256-thread block per (head, 64-row query tile), 4 x 4 scores a thread;
-// q and k tiles sit transposed ([c][row]) so the inner loop reads float4; p
-// goes through shared memory between the two products; the same online
-// softmax, pruning and masking as the bf16 loop. Kernel 10's fp32 form (the
-// training forward, f5_flash_prefix_f32_fwd_lse) is this kernel's kLse
-// instantiation: it also writes each row's base-2 logsumexp lse = m +
-// log2(l) of the scaled scores (0 for a row with no valid key, whose output
-// is zero); kernel A's instantiation has no lse code. Its bound at the
-// training shape (H 128, n 1280, d 64): 53.7 GFLOP at 67 TFLOP/s, 0.80 ms.
-// The fp32 forms of kernels 18 and 19 (f5_flash_prefix_rope_f32_fwd,
+// weights unless told otherwise). Like the TPU kernel on fp32 inputs the fp32
+// forms keep "the exact f32 dot": scores, softmax, p.v and the output are
+// fp32-accurate and p is not rounded. What bounds them: the same 17.3 GFLOP
+// at the main shape, 53.7 GFLOP at the training shape (H 128, n 1280, d 64),
+// of fp32-accurate products: 0.105 and 0.326 ms at the tensor cores' TF32
+// rate taken three times (494.7 / 3 TFLOP/s), 0.26 and 0.80 ms at the 67
+// TFLOP/s of fp32 outside them.
+//
+// d = 64 (flash_prefix_fwd_tf32_kernel): split 3xTF32 products on the tensor
+// cores (attn_tf32.cuh, mma.cuh: x = hi + lo, a.b ~ hi.hi + hi.lo + lo.hi
+// in mma.sync m16n8k8 .tf32 with fp32 accumulation; a single TF32 product
+// keeps 10 mantissa bits and fails the fp32 bounds), as the backward of
+// flash_prefix_train_f32.cu: 256 threads, eight warps of 16 queries, 128
+// queries a block; q split into hi and lo tiles in shared memory once for
+// the whole sweep; each 64-key K/V tile split as it is stored, the next
+// tile's fp32 rows loaded into registers while this tile's products run;
+// S = q.K^T by mm_rows, its accumulator masked, scaled by scale_log2 and
+// turned into P = exp2(S - m) in place, which mm_acc takes as the A
+// fragment of P.V with its columns in the order 2t, 2t + 1, split once in
+// registers. Each tile's P.V goes into an accumulator of its own, zeroed per
+// tile, and o = o * alpha + that (fp32 FMA): the tensor cores' fp32
+// accumulation drops the low bits of a sum where fp32 would round them
+// (probe_hopper.cu's accumulation probe), and a chain over every key of a
+// long sweep would carry that bias into o; a tile's chain is 24 products
+// deep. The running max and denominator are fp32, as in the bf16 forms; the
+// sweep stops at ceil(kv_len / 64) tiles, keys past kv_len get P = 0, rows
+// past n are zero-filled and never stored, and a head with kv_len 0 gets
+// zeros (and lse 0). 136 KB of shared memory: one block an SM. mma.sync and
+// not wgmma .tf32: both operands of a .tf32 wgmma must be k-major in shared
+// memory, and for P.V that is V transposed; the mma.sync form is the one
+// the backward proved, at 0.40-0.47 of this bound.
+// kLse (kernel 10's fp32 form, f5_flash_prefix_f32_fwd_lse): each row's
+// base-2 logsumexp lse = m + log2(l) of the scaled scores (0 for a row with
+// no valid key); kernel A's instantiation has no lse code. kRope (the fp32
+// forms of kernels 18 and 19, f5_flash_prefix_rope_f32_fwd,
 // f5_flash_prefix_qkv_f32_fwd; the JAX kernels rotate and attend in x's
-// dtype, flash_prefix.py:1413-1424 and :1550) are its kRope instantiation:
-// the block's head is read at strides (the split-head [B, heads, n, 64]
-// tensors, or the fused qkv rows [B, n, 3 * heads * 64] with the output
-// merged as [B, n, heads * 64]), and q and k of the heads g < n_rope are
-// rotated in fp32 by the fp32 tables as their rows land in shared memory
-// (each product and the sum rounded once, ops/flash_prefix.py:rope_reference
-// on fp32 to the bit). Same bound as A's fp32 form at the same shape.
+// dtype, flash_prefix.py:1413-1424 and :1550): the block's head is read at
+// strides (the split-head [B, heads, n, 64] tensors, or the fused qkv rows
+// [B, n, 3 * heads * 64] with the output merged as [B, n, heads * 64]), and
+// q and k of the heads g < n_rope are rotated in fp32 by the fp32 tables
+// before the split (each product and the sum rounded once,
+// ops/flash_prefix.py:rope_reference on fp32 to the bit), so that 18, 19
+// and A's form on torch-roped inputs agree to the bit.
+//
+// d = 128 (flash_prefix_f32_kernel, chosen by the shape in
+// f5_flash_prefix_f32_fwd): plain FFMA on shared-memory tiles, bounded by
+// the 67 TFLOP/s of fp32 outside the tensor cores. Its hi and lo tiles would
+// not fit a block's shared memory at 128 queries (270 KB); no path of the
+// DiT runs it (its heads are 64 wide). One 256-thread block per (head,
+// 64-row query tile), 4 x 8 outputs a thread; q and k tiles transposed
+// ([c][row]) so the inner loop reads float4; p through shared memory
+// between the two products; the same online softmax, pruning and masking.
+#include "attn_tf32.cuh"
 #include "attn_wgmma.cuh"
 #include "flash_prefix.cuh"
 
 namespace f5 {
 namespace {
 
-constexpr int kF32Threads = 256;
-constexpr int kF32LD = 64 + 4;  // row stride of the [c][row] and [row][key] tiles
+// ---------------------------------------------------------------------------
+// d = 64: split 3xTF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdRows = 128;  // queries a block
+constexpr int kFwdTile = 64;   // keys a tile
+constexpr int kFwdTfSmem = (2 * kFwdRows + 4 * kFwdTile) * kLD32 * (int)sizeof(uint32_t);
 
 // Where a block's head lies: folded head blockIdx.y = item * heads + g reads
 // q, k, v at item * s_item + g * s_head + row * s_row (elements; k and v as
 // their own pointers, with q's strides) and writes out with the out_ strides;
 // item b attends keys [0, kv_lens[b]). Kernels A and 10 do not read it
-// (their heads are contiguous [H, n, D] blocks); kernels 18 and 19 pass the
+// (their heads are contiguous [H, n, 64] blocks); kernels 18 and 19 pass the
 // strides of the split-head [B, heads, n, 64] tensors or of the fused qkv
 // rows [B, n, 3 * heads * 64] (out [B, n, heads * 64]). Heads g < n_rope
-// rotate q and k by the fp32 tables cos, sin [n, 32] as their rows land in
-// shared memory.
+// rotate q and k by the fp32 tables cos, sin [n, 32].
 struct F32Heads {
   long long s_item, s_head, s_row;
   long long out_item, out_head, out_row;
@@ -88,50 +120,151 @@ struct F32Heads {
   const float* sin;
 };
 
-// rows [row0, row0 + 64) of a head whose rows are ld elements apart,
-// transposed into dst[c][row]; rows at or past n give zeros. Consecutive
-// threads take consecutive rows: the shared-memory stores are conflict-free.
-// kRot (D = 64): the half-split rotation of the row at its position r,
-//   out[c] = x[c] cos[r, c] - x[c + 32] sin[r, c],
-//   out[c + 32] = x[c + 32] cos[r, c] + x[c] sin[r, c],
-// each product and the sum rounded once, as the plain version's torch ops.
-template <int D, bool kRot>
-__device__ __forceinline__ void load_rows_t_f32(float* dst, const float* src, long long ld,
-                                                int row0, int n, int tid, const float* cos,
-                                                const float* sin) {
-  constexpr int kCols = kRot ? 32 : D;  // columns a thread's float4 starts at
-  for (int i = tid; i < 64 * (kCols / 4); i += kF32Threads) {
+// warp w owns queries q0 + 16w .. + 15; lane (g, t) holds rows 16w + g and
+// 16w + g + 8, columns 8j + 2t, 8j + 2t + 1 of S and of o
+template <bool kLse, bool kRope>
+__global__ void __launch_bounds__(kT32, 1)
+flash_prefix_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const int* __restrict__ kv_lens,
+                             float* __restrict__ out, float* __restrict__ lse, int n,
+                             float scale_log2, F32Heads hd) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* sQh = reinterpret_cast<uint32_t*>(smem_raw);  // [128][68] each
+  uint32_t* sQl = sQh + kFwdRows * kLD32;
+  uint32_t* sKh = sQl + kFwdRows * kLD32;  // [64][68] each
+  uint32_t* sKl = sKh + kFwdTile * kLD32;
+  uint32_t* sVh = sKl + kFwdTile * kLD32;
+  uint32_t* sVl = sVh + kFwdTile * kLD32;
+  // kernel A's and 10's heads are contiguous [n, 64] blocks: their offsets
+  // are compile-time
+  const int item = kRope ? blockIdx.y / hd.heads : blockIdx.y;
+  const int head = kRope ? blockIdx.y - item * hd.heads : 0;
+  const int q0 = blockIdx.x * kFwdRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const long long off =
+      kRope ? item * hd.s_item + head * hd.s_head : (long long)blockIdx.y * n * kD32;
+  const long long ld = kRope ? hd.s_row : kD32;
+  const int kv_len = min(kv_lens[item], n);
+  const bool rot = kRope && head < hd.n_rope;  // block-uniform
+  {
+    HeadRows<kFwdRows, kRope> r;
+    head_load(r, q + off, ld, q0, n, tid, rot, hd.cos, hd.sin);
+    head_split(sQh, sQl, r, tid, rot);
+  }
+  float o[8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  zero84(o);
+
+  const int n_tiles = kv_len > 0 ? (kv_len + kFwdTile - 1) / kFwdTile : 0;
+  HeadRows<kFwdTile, kRope> kr;
+  HeadRows<kFwdTile, false> vr;
+  if (n_tiles > 0) {
+    head_load(kr, k + off, ld, 0, n, tid, rot, hd.cos, hd.sin);
+    head_load(vr, v + off, ld, 0, n, tid);
+  }
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int k0 = jt * kFwdTile;
+    __syncthreads();  // the previous tile's readers (and the q stores) are done
+    head_split(sKh, sKl, kr, tid, rot);
+    head_split(sVh, sVl, vr, tid);
+    __syncthreads();
+    if (jt + 1 < n_tiles) {  // the next tile's rows load while this one's products run
+      head_load(kr, k + off, ld, k0 + kFwdTile, n, tid, rot, hd.cos, hd.sin);
+      head_load(vr, v + off, ld, k0 + kFwdTile, n, tid);
+    }
+    float s[8][4];
+    zero84(s);
+    mm_rows(s, sQh, sQl, sKh, sKl, wr, lane);
+    // online softmax of this tile; tile 0 holds key 0 < kv_len, so the
+    // running max is finite from then on
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = k0 + 8 * j + 2 * t + (e & 1) < kv_len ? s[j][e] * scale_log2 : -INFINITY;
+          mx = fmaxf(mx, s[j][e]);
+        }
+      const float m_new = fmaxf(m_run[h], quad_max(mx));
+      alpha[h] = exp2f(m_run[h] - m_new);
+      m_run[h] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = exp2f(s[j][e] - m_new);
+          rs += s[j][e];
+        }
+      l_run[h] = l_run[h] * alpha[h] + quad_sum(rs);
+    }
+    float pv[8][4];  // this tile's P.V, a chain of its own
+    zero84(pv);
+    mm_acc(pv, s, sVh, sVl, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], pv[j][e]);
+  }
+
+  float* dst = out + (kRope ? item * hd.out_item + head * hd.out_head : off);
+  const long long out_ld = kRope ? hd.out_row : kD32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    if (row >= n) continue;
+    const float inv = l_run[h] > 0.f ? 1.f / l_run[h] : 0.f;  // kv_len == 0: zeros
+    // m_run is in the base-2 domain of the scaled scores, l_run the whole row's sum
+    if (kLse && t == 0)
+      lse[(size_t)blockIdx.y * n + row] = l_run[h] > 0.f ? m_run[h] + log2f(l_run[h]) : 0.f;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd)
+      *reinterpret_cast<float2*>(dst + row * out_ld + nd * 8 + 2 * t) =
+          make_float2(o[nd][2 * h] * inv, o[nd][2 * h + 1] * inv);
+  }
+}
+
+template <bool kLse, bool kRope>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, const void* kv_lens,
+                            void* out, void* lse, int blocks_y, int n, float scale_log2,
+                            const F32Heads& hd, cudaStream_t stream) {
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err =
+      allow_smem(flash_prefix_fwd_tf32_kernel<kLse, kRope>, kFwdTfSmem, ready);
+  if (err != cudaSuccess) return err;
+  flash_prefix_fwd_tf32_kernel<kLse, kRope>
+      <<<dim3((n + kFwdRows - 1) / kFwdRows, blocks_y), kT32, kFwdTfSmem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const int*>(kv_lens),
+          static_cast<float*>(out), static_cast<float*>(lse), n, scale_log2, hd);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// d = 128: FFMA
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 256;
+constexpr int kF32D = 128;
+constexpr int kF32LD = 64 + 4;  // row stride of the [c][row] and [row][key] tiles
+
+// rows [row0, row0 + 64) of a [n, 128] head, transposed into dst[c][row];
+// rows at or past n give zeros. Consecutive threads take consecutive rows:
+// the shared-memory stores are conflict-free.
+__device__ __forceinline__ void load_rows_t_f32(float* dst, const float* src, int row0, int n,
+                                                int tid) {
+  for (int i = tid; i < 64 * (kF32D / 4); i += kF32Threads) {
     const int r = i & 63;
     const int c = (i >> 6) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f), w = v;
-    if (row0 + r < n) {
-      const float* p = src + (long long)(row0 + r) * ld + c;
-      v = *reinterpret_cast<const float4*>(p);
-      if (kRot) {
-        w = *reinterpret_cast<const float4*>(p + 32);
-        const float4 cs = *reinterpret_cast<const float4*>(cos + (size_t)(row0 + r) * 32 + c);
-        const float4 sn = *reinterpret_cast<const float4*>(sin + (size_t)(row0 + r) * 32 + c);
-        const float4 x1 = v, x2 = w;
-        v = make_float4(__fsub_rn(__fmul_rn(x1.x, cs.x), __fmul_rn(x2.x, sn.x)),
-                        __fsub_rn(__fmul_rn(x1.y, cs.y), __fmul_rn(x2.y, sn.y)),
-                        __fsub_rn(__fmul_rn(x1.z, cs.z), __fmul_rn(x2.z, sn.z)),
-                        __fsub_rn(__fmul_rn(x1.w, cs.w), __fmul_rn(x2.w, sn.w)));
-        w = make_float4(__fadd_rn(__fmul_rn(x2.x, cs.x), __fmul_rn(x1.x, sn.x)),
-                        __fadd_rn(__fmul_rn(x2.y, cs.y), __fmul_rn(x1.y, sn.y)),
-                        __fadd_rn(__fmul_rn(x2.z, cs.z), __fmul_rn(x1.z, sn.z)),
-                        __fadd_rn(__fmul_rn(x2.w, cs.w), __fmul_rn(x1.w, sn.w)));
-      }
-    }
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kF32D + c);
     dst[(c + 0) * kF32LD + r] = v.x;
     dst[(c + 1) * kF32LD + r] = v.y;
     dst[(c + 2) * kF32LD + r] = v.z;
     dst[(c + 3) * kF32LD + r] = v.w;
-    if (kRot) {
-      dst[(c + 32) * kF32LD + r] = w.x;
-      dst[(c + 33) * kF32LD + r] = w.y;
-      dst[(c + 34) * kF32LD + r] = w.z;
-      dst[(c + 35) * kF32LD + r] = w.w;
-    }
   }
 }
 
@@ -149,43 +282,29 @@ __device__ __forceinline__ float row16_max(float x) {
 }
 
 // Thread (ty, tx) of the 16 x 16 block owns query rows ty * 4 + i, score
-// columns tx * 4 + j and output columns tx * 4 + j (+ 64 for D = 128).
-// kLse: also write lse [H, n] (kernel 10's fp32 form). kRope: the fp32 forms
-// of kernels 18 and 19 (D = 64), heads at the strides of hd, q and k rotated.
-template <int D, bool kLse, bool kRope = false>
+// columns tx * 4 + j and output columns tx * 4 + j and 64 + tx * 4 + j.
 __global__ void __launch_bounds__(kF32Threads)
 flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ kv_lens,
-                        float* __restrict__ out, float* __restrict__ lse, int n,
-                        float scale_log2, F32Heads hd) {
-  static_assert(!kRope || D == 64, "the rotation is written for 64-wide heads");
-  constexpr int NO = D / 64;  // 4-wide output column groups of a thread
+                        float* __restrict__ out, int n, float scale_log2) {
+  constexpr int D = kF32D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQt = reinterpret_cast<float*>(smem_raw);  // [D][68]
   float* sKt = sQt + D * kF32LD;                    // [D][68]
   float* sV = sKt + D * kF32LD;                     // [64][D]
   float* sP = sV + 64 * D;                          // [64][68]
-  // kernel A's and 10's heads are contiguous [n, D] blocks: their offsets are
-  // compile-time (the strided form cost them 2-3% of their time)
-  const int item = kRope ? blockIdx.y / hd.heads : blockIdx.y;
-  const int g = kRope ? blockIdx.y - item * hd.heads : 0;
   const int q0 = blockIdx.x * 64;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long off = kRope ? item * hd.s_item + g * hd.s_head : (long long)blockIdx.y * n * D;
-  const long long ld = kRope ? hd.s_row : D;
-  const int kv_len = min(kv_lens[item], n);
-  const bool rot = kRope && g < hd.n_rope;  // block-uniform
+  const size_t off = (size_t)blockIdx.y * n * D;
+  const int kv_len = min(kv_lens[blockIdx.y], n);
 
-  if (rot)
-    load_rows_t_f32<D, kRope>(sQt, q + off, ld, q0, n, tid, hd.cos, hd.sin);
-  else
-    load_rows_t_f32<D, false>(sQt, q + off, ld, q0, n, tid, nullptr, nullptr);
+  load_rows_t_f32(sQt, q + off, q0, n, tid);
 
-  float o[4][NO * 4];
+  float o[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < NO * 4; ++c) o[i][c] = 0.f;
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
   float m_run[4], l_run[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -197,16 +316,12 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int k0 = jt * 64;
     __syncthreads();  // the previous tile's readers are done
-    if (rot)
-      load_rows_t_f32<D, kRope>(sKt, k + off, ld, k0, n, tid, hd.cos, hd.sin);
-    else
-      load_rows_t_f32<D, false>(sKt, k + off, ld, k0, n, tid, nullptr, nullptr);
+    load_rows_t_f32(sKt, k + off, k0, n, tid);
     for (int i = tid; i < 64 * (D / 4); i += kF32Threads) {
       const int r = i / (D / 4);
       const int c = (i % (D / 4)) * 4;
       float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < n)
-        val = *reinterpret_cast<const float4*>(v + off + (long long)(k0 + r) * ld + c);
+      if (k0 + r < n) val = *reinterpret_cast<const float4*>(v + off + (size_t)(k0 + r) * D + c);
       *reinterpret_cast<float4*>(sV + r * D + c) = val;
     }
     __syncthreads();
@@ -247,7 +362,7 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       }
       l_run[i] = l_run[i] * alpha + row16_sum(rs);
 #pragma unroll
-      for (int c = 0; c < NO * 4; ++c) o[i][c] *= alpha;
+      for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
       *reinterpret_cast<float4*>(sP + (ty * 4 + i) * kF32LD + tx * 4) =
           make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
     }
@@ -259,7 +374,7 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * kF32LD + key];
 #pragma unroll
-      for (int gg = 0; gg < NO; ++gg) {
+      for (int gg = 0; gg < 2; ++gg) {
         const float4 b = *reinterpret_cast<const float4*>(sV + key * D + gg * 64 + tx * 4);
         const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
@@ -270,47 +385,29 @@ flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
   }
 
-  float* dst = out + (kRope ? item * hd.out_item + g * hd.out_head : off);
-  const long long out_ld = kRope ? hd.out_row : D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= n) continue;
     const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;  // kv_len == 0: zeros
-    // m_run is in the base-2 domain of the scaled scores, l_run the whole row's sum
-    if (kLse && tx == 0)
-      lse[(size_t)blockIdx.y * n + row] = l_run[i] > 0.f ? m_run[i] + log2f(l_run[i]) : 0.f;
 #pragma unroll
-    for (int gg = 0; gg < NO; ++gg)
-      *reinterpret_cast<float4*>(dst + (long long)row * out_ld + gg * 64 + tx * 4) =
+    for (int gg = 0; gg < 2; ++gg)
+      *reinterpret_cast<float4*>(out + off + (size_t)row * D + gg * 64 + tx * 4) =
           make_float4(o[i][gg * 4] * inv, o[i][gg * 4 + 1] * inv, o[i][gg * 4 + 2] * inv,
                       o[i][gg * 4 + 3] * inv);
   }
 }
 
-template <int D, bool kLse, bool kRope>
-cudaError_t launch_f32_heads(const void* q, const void* k, const void* v, const void* kv_lens,
-                             void* out, void* lse, int blocks_y, int n, float scale_log2,
-                             const F32Heads& hd, cudaStream_t stream) {
-  const int smem = (2 * D * kF32LD + 64 * D + 64 * kF32LD) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefix_f32_kernel<D, kLse, kRope>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch_fwd_f32_d128(const void* q, const void* k, const void* v, const void* kv_lens,
+                                void* out, int H, int n, float scale_log2, cudaStream_t stream) {
+  constexpr int smem = (2 * kF32D * kF32LD + 64 * kF32D + 64 * kF32LD) * (int)sizeof(float);
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err = allow_smem(flash_prefix_f32_kernel, smem, ready);
   if (err != cudaSuccess) return err;
-  flash_prefix_f32_kernel<D, kLse, kRope>
-      <<<dim3((n + 63) / 64, blocks_y), kF32Threads, smem, stream>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<const int*>(kv_lens),
-          static_cast<float*>(out), static_cast<float*>(lse), n, scale_log2, hd);
+  flash_prefix_f32_kernel<<<dim3((n + 63) / 64, H), kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(kv_lens), static_cast<float*>(out), n, scale_log2);
   return cudaGetLastError();
-}
-
-// kernels A and 10: folded [H, n, D] heads, one length each
-template <int D, bool kLse = false>
-cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, const void* kv_lens,
-                           void* out, void* lse, int H, int n, float scale_log2,
-                           cudaStream_t stream) {
-  return launch_f32_heads<D, kLse, false>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
-                                          F32Heads{}, stream);
 }
 
 }  // namespace
@@ -360,9 +457,9 @@ extern "C" int f5_flash_prefix_f32_fwd(const void* q, const void* k, const void*
   if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return (int)f5::launch_fwd_f32<64>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
-  if (d == 128)
-    return (int)f5::launch_fwd_f32<128>(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, s);
+    return (int)f5::launch_fwd_tf32<false, false>(q, k, v, kv_lens, out, nullptr, H, n,
+                                                  scale_log2, f5::F32Heads{}, s);
+  if (d == 128) return (int)f5::launch_fwd_f32_d128(q, k, v, kv_lens, out, H, n, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -375,8 +472,8 @@ extern "C" int f5_flash_prefix_f32_fwd_lse(const void* q, const void* k, const v
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!attn_dims_ok(H, n) || d != 64) return (int)cudaErrorInvalidValue;
-  return (int)f5::launch_fwd_f32<64, true>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
-                                           static_cast<cudaStream_t>(stream));
+  return (int)f5::launch_fwd_tf32<true, false>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
+                                               f5::F32Heads{}, static_cast<cudaStream_t>(stream));
 }
 
 // kernel 18's fp32 form: q, k, v, out [B, heads, n, 64] fp32 (q and k before
@@ -394,9 +491,8 @@ extern "C" int f5_flash_prefix_rope_f32_fwd(const void* q, const void* k, const 
   const long long hs = (long long)n * 64, bs = heads * hs;
   const f5::F32Heads hd{bs, hs, 64, bs, hs, 64, heads, n_rope,
                         static_cast<const float*>(cos), static_cast<const float*>(sin)};
-  return (int)f5::launch_f32_heads<64, false, true>(q, k, v, kv_lens, out, nullptr, B * heads,
-                                                    n, scale_log2, hd,
-                                                    static_cast<cudaStream_t>(stream));
+  return (int)f5::launch_fwd_tf32<false, true>(q, k, v, kv_lens, out, nullptr, B * heads, n,
+                                                scale_log2, hd, static_cast<cudaStream_t>(stream));
 }
 
 // kernel 19's fp32 form: qkv [B, n, 3 * heads * 64] fp32 (q | k | v, heads-major
@@ -414,9 +510,9 @@ extern "C" int f5_flash_prefix_qkv_f32_fwd(const void* qkv, const void* kv_lens,
   const f5::F32Heads hd{n * 3 * inner, 64, 3 * inner, n * inner, 64, inner, heads, n_rope,
                         static_cast<const float*>(cos), static_cast<const float*>(sin)};
   const float* x = static_cast<const float*>(qkv);
-  return (int)f5::launch_f32_heads<64, false, true>(x, x + inner, x + 2 * inner, kv_lens, out,
-                                                    nullptr, B * heads, n, scale_log2, hd,
-                                                    static_cast<cudaStream_t>(stream));
+  return (int)f5::launch_fwd_tf32<false, true>(x, x + inner, x + 2 * inner, kv_lens, out,
+                                                nullptr, B * heads, n, scale_log2, hd,
+                                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* f5_error_string(int code) {

@@ -39,7 +39,8 @@
 //     end (dS is linear in P), finally dq *= 1/sqrt(D), and the lse it ends
 //     with is written out.
 //   - fp32 operands: flash_prefix_train_f32.cu (11, 12, 13) and kernel A's
-//     fp32 kernel with an lse output (flash_prefix.cu, 10), FFMA products.
+//     fp32 kernel with an lse output (flash_prefix.cu, 10), split 3xTF32
+//     products on the tensor cores.
 // Rows past n are zero-filled on load and never stored; a row with no valid
 // key gets lse 0 and zero gradients.
 //

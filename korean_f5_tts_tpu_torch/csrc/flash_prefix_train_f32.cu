@@ -1,7 +1,8 @@
 // Prefix-masked flash attention for training on fp32 operands, for Hopper
 // (sm_90a): the fp32 forms of kernels 11, 12 (dq) and 13 (dk, dv). Kernel
-// 10's fp32 form is kernel A's fp32 kernel with an lse output
-// (flash_prefix.cu, f5_flash_prefix_f32_fwd_lse).
+// 10's fp32 form is kernel A's split 3xTF32 kernel with an lse output
+// (flash_prefix.cu, f5_flash_prefix_f32_fwd_lse); both build on
+// attn_tf32.cuh.
 //
 // Replaces, on fp32 inputs, the TPU kernels of
 // korean_f5_tts_tpu/ops/flash_prefix.py:
@@ -22,6 +23,11 @@
 // the fp32 forms). Each tile is split once, as it lands in shared memory
 // (hi and lo tiles side by side); dS and P are split once in registers.
 // P = exp2(S * scale_log2 - lse) and dS = P * (dP - D) stay fp32 registers.
+// The dq, dK and dV accumulators chain over the whole sweep, and the tensor
+// cores' fp32 accumulation truncates where fp32 would round (probe_hopper.cu,
+// probe (15)): that bias is the ~1e-5 these forms read against their plain
+// versions; the forward (flash_prefix.cu), which sums each tile's P.V in an
+// accumulator of its own, reads ~1e-6.
 //
 // What bounds them: at the training shape (H 128, n 1280, every key valid)
 // 11 and 12 are 6 * n^2 * 64 * H = 80.5 GFLOP and 13 is 8 * n^2 * 64 * H =
@@ -64,115 +70,15 @@
 //                depend on block order.
 // 204-205 KB of shared memory a block: one block an SM.
 // A row with no valid key gets lse 0 and zero gradients.
-#include "mma.cuh"
+#include "attn_tf32.cuh"
 
 namespace f5 {
 namespace {
 
-constexpr int kT32 = 256;       // threads a block: eight warps
-constexpr int kLD32 = 68;       // row stride of every tile (words)
-constexpr int kD32 = 64;        // head dim
 constexpr int kDqRows = 128;    // queries a dq block
 constexpr int kDqTile = 64;     // keys a dq tile
 constexpr int kDkvRows = 128;   // keys a dkv block
 constexpr int kDkvTile = 64;    // queries a dkv tile
-
-// rows [row0, row0 + ROWS) of a [n, 64] fp32 head into registers (rows at or
-// past n give zeros); thread tid holds float4 it at row (tid + it * 256) / 16,
-// column ((tid + it * 256) % 16) * 4
-template <int ROWS>
-__device__ __forceinline__ void tile_load(float4 (&r)[ROWS / 16], const float* src, int row0,
-                                          int n, int tid) {
-#pragma unroll
-  for (int it = 0; it < ROWS / 16; ++it) {
-    const int i = tid + it * kT32;
-    const int row = row0 + (i >> 4);
-    r[it] = row < n ? *reinterpret_cast<const float4*>(src + (size_t)row * kD32 + (i & 15) * 4)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// the registers of tile_load, split into hi and lo tf32 tiles [ROWS][68]
-template <int ROWS>
-__device__ __forceinline__ void tile_split(uint32_t* hi, uint32_t* lo,
-                                           const float4 (&r)[ROWS / 16], int tid) {
-#pragma unroll
-  for (int it = 0; it < ROWS / 16; ++it) {
-    const int i = tid + it * kT32;
-    const int at = (i >> 4) * kLD32 + (i & 15) * 4;
-    uint4 h, l;
-    split_tf32(r[it].x, h.x, l.x);
-    split_tf32(r[it].y, h.y, l.y);
-    split_tf32(r[it].z, h.z, l.z);
-    split_tf32(r[it].w, h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + at) = h;
-    *reinterpret_cast<uint4*>(lo + at) = l;
-  }
-}
-
-// A fragment of rows [row0, row0 + 16) x columns [k0, k0 + 8) of a tile
-__device__ __forceinline__ void lda_tf32(uint32_t (&a)[4], const uint32_t* t, int row0, int k0,
-                                         int lane) {
-  const int mi = lane >> 3;
-  ldmatrix_x4(a, t + (row0 + (mi & 1) * 8 + (lane & 7)) * kLD32 + k0 + (mi >> 1) * 4);
-}
-
-// B fragments of rows [n0, n0 + 16) (two 8-row n-tiles) x columns [k0, k0 +
-// 8) of a tile stored [n][k]: {b0, b1} of n-tile 0 in b[0], b[1], of n-tile
-// 1 in b[2], b[3]
-__device__ __forceinline__ void ldb2_tf32(uint32_t (&b)[4], const uint32_t* t, int n0, int k0,
-                                          int lane) {
-  const int mi = lane >> 3;
-  ldmatrix_x4(b, t + (n0 + (mi >> 1) * 8 + (lane & 7)) * kLD32 + k0 + (mi & 1) * 4);
-}
-
-// acc[j] (16 x 64: eight n-tiles) += rows [row0, row0 + 16) of a . the 64
-// rows of b^T, contracting over the 64 columns of both (d)
-__device__ __forceinline__ void mm_rows(float (&acc)[8][4], const uint32_t* ah_t,
-                                        const uint32_t* al_t, const uint32_t* bh_t,
-                                        const uint32_t* bl_t, int row0, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < kD32 / 8; ++ks) {
-    uint32_t ah[4], al[4];
-    lda_tf32(ah, ah_t, row0, ks * 8, lane);
-    lda_tf32(al, al_t, row0, ks * 8, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bh[4], bl[4];
-      ldb2_tf32(bh, bh_t, np * 16, ks * 8, lane);
-      ldb2_tf32(bl, bl_t, np * 16, ks * 8, lane);
-      mma_3xtf32(acc[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
-      mma_3xtf32(acc[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
-    }
-  }
-}
-
-// acc[j] (16 x 64 of d) += x (16 x 64, accumulator layout) . rows of the
-// [64][68] tile b, contracting over x's columns = b's rows, taken in the
-// order 2t, 2t + 1 (mma.cuh); x is split here, once
-__device__ __forceinline__ void mm_acc(float (&acc)[8][4], const float (&x)[8][4],
-                                       const uint32_t* bh_t, const uint32_t* bl_t, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    uint32_t ah[4], al[4];
-    split_tf32(x[ks][0], ah[0], al[0]);
-    split_tf32(x[ks][2], ah[1], al[1]);
-    split_tf32(x[ks][1], ah[2], al[2]);
-    split_tf32(x[ks][3], ah[3], al[3]);
-    const int r0 = (ks * 8 + 2 * t) * kLD32 + g;
-#pragma unroll
-    for (int nd = 0; nd < kD32 / 8; ++nd) {
-      const int at = r0 + nd * 8;
-      mma_3xtf32(acc[nd], ah, al, bh_t[at], bh_t[at + kLD32], bl_t[at], bl_t[at + kLD32]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero84(float (&a)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.f;
-}
 
 constexpr int kDqTfSmem = 4 * (kDqRows + kDqTile) * kLD32 * (int)sizeof(uint32_t);
 constexpr int kDkvTfSmem =
@@ -204,11 +110,11 @@ flash_prefix_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict
   const size_t off = (size_t)head * n * kD32;
   const int kv_len = min(kv_lens[head], n);
   {
-    float4 r[kDqRows / 16];
-    tile_load<kDqRows>(r, q + off, q0, n, tid);
-    tile_split<kDqRows>(sQh, sQl, r, tid);
-    tile_load<kDqRows>(r, dout + off, q0, n, tid);
-    tile_split<kDqRows>(sOh, sOl, r, tid);
+    HeadRows<kDqRows> r;
+    head_load(r, q + off, kD32, q0, n, tid);
+    head_split(sQh, sQl, r, tid);
+    head_load(r, dout + off, kD32, q0, n, tid);
+    head_split(sOh, sOl, r, tid);
   }
   // this thread's rows: wr + g and wr + g + 8 of the block
   float dr[2], lse[2], m_run[2], l_run[2], acc[8][4];
@@ -223,20 +129,20 @@ flash_prefix_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict
   zero84(acc);
 
   const int n_tiles = kv_len > 0 ? (kv_len + kDqTile - 1) / kDqTile : 0;
-  float4 kr[kDqTile / 16], vr[kDqTile / 16];
+  HeadRows<kDqTile> kr, vr;
   if (n_tiles > 0) {
-    tile_load<kDqTile>(kr, k + off, 0, n, tid);
-    tile_load<kDqTile>(vr, v + off, 0, n, tid);
+    head_load(kr, k + off, kD32, 0, n, tid);
+    head_load(vr, v + off, kD32, 0, n, tid);
   }
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int k0 = jt * kDqTile;
     __syncthreads();  // the previous tile's readers (and the q, dO stores) are done
-    tile_split<kDqTile>(sKh, sKl, kr, tid);
-    tile_split<kDqTile>(sVh, sVl, vr, tid);
+    head_split(sKh, sKl, kr, tid);
+    head_split(sVh, sVl, vr, tid);
     __syncthreads();
     if (jt + 1 < n_tiles) {  // the next tile's rows load while this one's products run
-      tile_load<kDqTile>(kr, k + off, k0 + kDqTile, n, tid);
-      tile_load<kDqTile>(vr, v + off, k0 + kDqTile, n, tid);
+      head_load(kr, k + off, kD32, k0 + kDqTile, n, tid);
+      head_load(vr, v + off, kD32, k0 + kDqTile, n, tid);
     }
     float s[8][4], dp[8][4];
     zero84(s);
@@ -338,11 +244,11 @@ flash_prefix_dkv_tf32_kernel(const float* __restrict__ q, const float* __restric
     return;
   }
   {
-    float4 r[kDkvRows / 16];
-    tile_load<kDkvRows>(r, k + off, k0, n, tid);
-    tile_split<kDkvRows>(sKh, sKl, r, tid);
-    tile_load<kDkvRows>(r, v + off, k0, n, tid);
-    tile_split<kDkvRows>(sVh, sVl, r, tid);
+    HeadRows<kDkvRows> r;
+    head_load(r, k + off, kD32, k0, n, tid);
+    head_split(sKh, sKl, r, tid);
+    head_load(r, v + off, kD32, k0, n, tid);
+    head_split(sVh, sVl, r, tid);
   }
   const bool valid[2] = {k0 + wr + g < kv_len, k0 + wr + g + 8 < kv_len};
   float dk_acc[8][4], dv_acc[8][4];
@@ -353,17 +259,17 @@ flash_prefix_dkv_tf32_kernel(const float* __restrict__ q, const float* __restric
   for (int it = 0; it < q_tiles; ++it) {
     const int qb = it * kDkvTile;
     {
-      float4 qr[kDkvTile / 16], orr[kDkvTile / 16];
-      tile_load<kDkvTile>(qr, q + off, qb, n, tid);
-      tile_load<kDkvTile>(orr, dout + off, qb, n, tid);
+      HeadRows<kDkvTile> qr, orr;
+      head_load(qr, q + off, kD32, qb, n, tid);
+      head_load(orr, dout + off, kD32, qb, n, tid);
       float lr = 0.f, dd = 0.f;
       if (tid < kDkvTile) {
         lr = qb + tid < n ? lse[(size_t)head * n + qb + tid] : INFINITY;
         dd = qb + tid < n ? dvec[(size_t)head * n + qb + tid] : 0.f;
       }
       __syncthreads();  // the previous tile's readers (and the K, V stores) are done
-      tile_split<kDkvTile>(sQh, sQl, qr, tid);
-      tile_split<kDkvTile>(sOh, sOl, orr, tid);
+      head_split(sQh, sQl, qr, tid);
+      head_split(sOh, sOl, orr, tid);
       if (tid < kDkvTile) {
         sLse[tid] = lr;
         sD[tid] = dd;

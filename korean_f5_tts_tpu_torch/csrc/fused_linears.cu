@@ -34,15 +34,15 @@
 //
 // fp32 forms (f5_ln_mod_matmul_f32_fwd, f5_proj_gated_f32_fwd; the offline
 // entry points keep fp32 weights, and the JAX kernels compute at the
-// input's dtype, fused_linears.py:34-43 and :198-202): the FFMA products of
-// gemm_f32.cuh that kernel B's fp32 form runs. Kernel 7 forms LN(h) * (1 +
-// sc) + sh in fp32 on the way into shared memory from the row statistics,
+// input's dtype, fused_linears.py:34-43 and :198-202): the split 3xTF32
+// products of gemm_f32.cuh that kernel B's fp32 form runs (wgmma .tf32, hi
+// and lo of each operand, fp32-accurate; one TF32 pass keeps 10 mantissa
+// bits, ~1e-3, which the 1e-4 bound of the fp32 forms tells apart). Kernel 7
+// forms LN(h) * (1 + sc) + sh in fp32 in registers from the row statistics,
 // multiplies and adds b; kernel 8 multiplies, adds b, then h + gate * (.);
-// nothing is rounded below fp32 and both write fp32. No TF32 product: one
-// TF32 pass keeps 10 mantissa bits (~1e-3), which the 1e-4 bound of the fp32
-// forms tells apart. Bound at the main shape: the 67 TFLOP/s of fp32
-// outside the tensor cores (19.3 GFLOP, 0.29 ms for 7; 6.4 GFLOP, 0.096 ms
-// for 8).
+// nothing is rounded below fp32 and both write fp32. Bound at the main
+// shape: the TF32 rate taken three times (19.3 GFLOP, 0.117 ms for 7; 6.4
+// GFLOP, 0.039 ms for 8).
 #include "gemm_f32.cuh"
 
 // stats: [2, M] fp32 scratch; d % 8 == 0, d <= 4096, seg_n % 128 == 0,
@@ -81,7 +81,7 @@ extern "C" int f5_proj_gated_fwd(const void* a, const void* h, const void* gate,
 
 // kernel 7's fp32 form: h [M, d], sc, sh [d], up to three weights [seg_n, d]
 // and biases [seg_n], out [M, nseg * seg_n], stats [2, M] scratch, all fp32;
-// d % 16 == 0, seg_n % 128 == 0
+// d % 4 == 0, d <= 4096, seg_n % 128 == 0
 extern "C" int f5_ln_mod_matmul_f32_fwd(const void* h, const void* sc, const void* sh,
                                         const void* w0, const void* w1, const void* w2,
                                         const void* b0, const void* b1, const void* b2,
@@ -96,7 +96,7 @@ extern "C" int f5_ln_mod_matmul_f32_fwd(const void* h, const void* sc, const voi
 }
 
 // kernel 8's fp32 form: a [M, din], h, out [M, d], W [d, din], b, gate [d], all
-// fp32; din % 16 == 0, d % 128 == 0
+// fp32; din % 4 == 0, d % 128 == 0
 extern "C" int f5_proj_gated_f32_fwd(const void* a, const void* h, const void* gate,
                                      const void* w, const void* b, void* out, int M, int din,
                                      int d, int device, void* stream) {

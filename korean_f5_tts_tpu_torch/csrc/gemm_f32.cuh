@@ -1,24 +1,48 @@
-// fp32 form of the FF half-block's two products (ff_block.cu: kernel B on
-// fp32 operands) and of kernels 7 and 8 (fused_linears.cu: the qkv product
+// The fp32 product core: kernel B's two products on fp32 operands (ff_block.cu)
+// and kernels 7 and 8 on fp32 operands (fused_linears.cu: the qkv product
 // after LN and the modulation, over up to three weight segments, and the
 // out-projection folded into the gated residual), for the offline entry
 // points, which keep fp32 weights unless told otherwise.
 //
-// Products: plain FFMA on shared-memory tiles. Hopper's tensor cores have no
-// fp32 product: a single TF32 mma keeps 10 mantissa bits and does not hold
-// fp32 parity, and a split 3xTF32 design triples the tensor work and still
-// needs care at the low bits. FFMA is exact fp32, bounded by the card's 67
-// TFLOP/s outside the tensor cores, and simple; speed is not the point of
-// this form.
+// Products: split "3xTF32" on Hopper's tensor cores, fp32-accurate: each
+// operand x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (mma.cuh),
+// and a.b ~ lo_a.hi_b + hi_a.lo_b + hi_a.hi_b on wgmma m64n128k8 .tf32 with
+// fp32 accumulation (the dropped lo.lo is ~2^-22 relative; a single TF32
+// product keeps 10 mantissa bits, ~1e-3, and fails the 1e-4 bound of the
+// fp32 forms). What bounds it: at the main shape (M = 3072, d = 1024, dff =
+// 2048) B is 25.8 GFLOP of fp32-accurate products, 0.156 ms at the dense
+// TF32 rate taken three times (494.7 / 3 TFLOP/s), against 0.385 ms at the
+// 67 TFLOP/s of FFMA outside the tensor cores.
 //
-// Both kernels compute a 128 x 128 output tile with 256 threads, 8 x 8
-// outputs a thread (two 4-wide groups 64 apart in each direction, so every
-// shared-memory read is one conflict-free float4), k steps of 16. Tiles are
-// stored k-major ([k][row]) so that the inner loop reads rows and columns as
-// float4. ln_mod_gemm_f32_kernel forms y = LN(h) * (1 + sc) + sh on the way
-// into shared memory from the row statistics of ln_stats_kernel
-// (gemm_bf16.cuh); nothing is rounded below fp32. Rows past M are zero-filled
-// and never stored; N % 128 == 0 and K % 16 == 0.
+// Design: the skeleton of gemm_bf16.cuh (whose notes hold for what is not
+// said here). A block computes a 128 x 128 output tile with 384 threads: two
+// consumer warpgroups of 64 rows each and a producer warpgroup. A k step of
+// a stage is 32 fp32 (one 128-byte swizzle span, four wgmma k8 steps); the
+// ring has four stages of the A tile [128][32], the B tile [128][32] and a
+// B lo tile [128][32], 48 KB each. Warp 0 of the producer warpgroup keeps
+// the TMA loads of A and B in flight (one thread); its warps 1-3 wait on a
+// stage's `full` barrier, split the landed B tile in place into its hi part
+// and write the lo part beside it (element by element, so the swizzled
+// layout is kept), fence for the async proxy and arrive on the stage's
+// `split` barrier. The consumers wait on `full` and `split`, read their 16
+// rows of A by ldmatrix (32-bit words as the A fragments of .tf32), form
+// the operand in registers (kernel 7 and B's first product: y = LN(h) * (1
+// + sc) + sh in fp32 from ln_stats_kernel's statistics), split it into hi
+// and lo there, and start twelve wgmma a stage from registers, the eight
+// small terms first: lo_a.hi_b and hi_a.lo_b of the four k8 steps, then
+// hi_a.hi_b. A stage's twelve products go into an accumulator of their own
+// (zeroed by the first product's scale-d) that is added to the tile's
+// accumulator in fp32 once the group has completed: the tensor cores'
+// accumulation drops the low bits of a sum where fp32 would round them
+// (probe_hopper.cu's accumulation probe), and a chain over K = 2048 would
+// carry that bias into the output; a stage's chain is twelve products deep.
+// The epilogue goes through shared memory as in gemm_bf16.cuh: + b and
+// GELU-tanh (tanhf) in fp32, or h + gate * (. + b) in fp32; nothing is
+// rounded below fp32. wgmma from registers waits for its group before the
+// next stage's fragments are formed (ptxas serializes wgmma whose inputs
+// change in flight); the other warpgroup's products fill the tensor cores
+// meanwhile. Rows past M, columns past K read as TMA's zeros; stores are
+// masked; N % 128 == 0, K % 4 == 0 (16-byte rows).
 #pragma once
 
 #include "gemm_bf16.cuh"
@@ -26,86 +50,135 @@
 namespace f5 {
 namespace {
 
-constexpr int kFT = 128;        // tile rows and columns
-constexpr int kFK = 16;         // k step
-constexpr int kFLD = kFT + 4;   // row stride of a [k][row] tile: keeps float4 alignment
-constexpr int kFThreads = 256;
+constexpr int kTfBN = 128;                        // output columns of a tile
+constexpr int kTfStep = kRowBytes / 4;            // fp32 a stage's k step: 32
+constexpr int kTfStages = 4;
+constexpr int kTfATile = kBM * kRowBytes;         // 16 KB
+constexpr int kTfBTile = kTfBN * kRowBytes;       // 16 KB
+constexpr int kTfStageBytes = kTfATile + 2 * kTfBTile;  // A | B (hi once split) | B lo
+constexpr int kTfSplitThreads = 96;               // producer warps 1-3
+
+// dynamic shared memory: alignment slack, the ring, its three barriers a
+// stage, and (LN only) the two fp32 vectors of d_pad elements
+__host__ __device__ constexpr int tf_smem_bytes(int d_pad) {
+  return 1024 + kTfStages * (kTfStageBytes + 3 * 8) + 2 * d_pad * 4;
+}
 
 __device__ __forceinline__ float gelu_tanh_f32(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
   return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
-// rows [r0, r0 + 128) x cols [k0, k0 + 16) of a row-major [rows, ld] array,
-// transposed into dst[k][row]; rows at or past `rows` give zeros. kLnMod
-// applies (x - mu) * rstd * (1 + sc[k]) + sh[k] on the way.
-template <bool kLnMod>
-__device__ __forceinline__ void load_tile_t(float* dst, const float* __restrict__ src, int ld,
-                                            int r0, int rows, int k0, int tid,
-                                            const float* __restrict__ stats, int M,
-                                            const float* __restrict__ sc,
-                                            const float* __restrict__ sh) {
-#pragma unroll
-  for (int it = 0; it < kFT * (kFK / 4) / kFThreads; ++it) {
-    const int i = tid + it * kFThreads;
-    const int r = i / (kFK / 4);
-    const int kq = (i % (kFK / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < rows) {
-      v = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * ld + k0 + kq);
-      if (kLnMod) {
-        const float mu = stats[r0 + r], rstd = stats[M + r0 + r];
-        const float4 s = *reinterpret_cast<const float4*>(sc + k0 + kq);
-        const float4 b = *reinterpret_cast<const float4*>(sh + k0 + kq);
-        v.x = (v.x - mu) * rstd * (1.f + s.x) + b.x;
-        v.y = (v.y - mu) * rstd * (1.f + s.y) + b.y;
-        v.z = (v.z - mu) * rstd * (1.f + s.z) + b.z;
-        v.w = (v.w - mu) * rstd * (1.f + s.w) + b.w;
-      }
+struct TfRing {
+  unsigned char* smem;
+  uint64_t* full;
+  uint64_t* split;
+  uint64_t* empty;
+};
+
+__device__ __forceinline__ TfRing tf_ring(unsigned char* smem) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kTfStages * kTfStageBytes);
+  return {smem, full, full + kTfStages, full + 2 * kTfStages};
+}
+
+__device__ __forceinline__ void tf_init_ring(const TfRing& r) {
+  for (int s = 0; s < kTfStages; ++s) {
+    mbar_init(&r.full[s], 1);                 // the producer's arrive; TMA counts the bytes
+    mbar_init(&r.split[s], kTfSplitThreads);  // every splitting thread
+    mbar_init(&r.empty[s], kConsumerWarps);   // lane 0 of every consumer warp
+  }
+  mbar_init_fence();
+}
+
+// the producer warpgroup: warp 0's first thread loads, warps 1-3 split
+__device__ __forceinline__ void tf_produce(const TfRing& r, const CUtensorMap* map_a,
+                                           const CUtensorMap* map_b, int m0, int n0,
+                                           int kt_total, int ptid) {
+  if (ptid == 0) {
+    for (int kt = 0; kt < kt_total; ++kt) {
+      const int s = kt % kTfStages;
+      mbar_wait(&r.empty[s], ((kt / kTfStages) & 1) ^ 1);  // passes at once on the first round
+      unsigned char* tile = r.smem + s * kTfStageBytes;
+      mbar_arrive_expect_tx(&r.full[s], kTfATile + kTfBTile);
+      tma_load_2d(tile, map_a, &r.full[s], kt * kTfStep, m0);
+      tma_load_2d(tile + kTfATile, map_b, &r.full[s], kt * kTfStep, n0);
     }
-    dst[(kq + 0) * kFLD + r] = v.x;
-    dst[(kq + 1) * kFLD + r] = v.y;
-    dst[(kq + 2) * kFLD + r] = v.z;
-    dst[(kq + 3) * kFLD + r] = v.w;
+  } else if (ptid >= 32) {
+    const int st = ptid - 32;
+    for (int kt = 0; kt < kt_total; ++kt) {
+      const int s = kt % kTfStages;
+      mbar_wait(&r.full[s], (kt / kTfStages) & 1);
+      uint4* b = reinterpret_cast<uint4*>(r.smem + s * kTfStageBytes + kTfATile);
+      uint4* b_lo = b + kTfBTile / 16;
+      for (int i = st; i < kTfBTile / 16; i += kTfSplitThreads) {
+        const uint4 x = b[i];
+        uint4 h, l;
+        split_tf32(__uint_as_float(x.x), h.x, l.x);
+        split_tf32(__uint_as_float(x.y), h.y, l.y);
+        split_tf32(__uint_as_float(x.z), h.z, l.z);
+        split_tf32(__uint_as_float(x.w), h.w, l.w);
+        b[i] = h;
+        b_lo[i] = l;
+      }
+      fence_proxy_async();  // the split tiles are read by wgmma
+      mbar_arrive(&r.split[s]);
+    }
   }
 }
 
-// acc[i][j] += sum_k sA[k][rows of this thread] * sB[k][cols of this thread]
-__device__ __forceinline__ void ffma_step(const float* sA, const float* sB, float (&acc)[8][8],
-                                          int ty, int tx) {
-#pragma unroll
-  for (int k = 0; k < kFK; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(sA + k * kFLD + ty * 4);
-    const float4 a1 = *reinterpret_cast<const float4*>(sA + k * kFLD + 64 + ty * 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(sB + k * kFLD + tx * 4);
-    const float4 b1 = *reinterpret_cast<const float4*>(sB + k * kFLD + 64 + tx * 4);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// the product loop of both kernels: a [M, K] (through LN and the modulation
-// when kLnMod), w [N, K], this block's tile at (m0, n0)
+// The consumers' k loop: acc (this warpgroup's 64 x 128 of the tile) = A .
+// B^T, A the rows of the stage's A tile (kLnMod: (x - mu) * rstd * s_mul[c]
+// + s_add[c] of them, mu and rstd of the thread's rows r0 = 16w + g and r1 =
+// r0 + 8), B the stage's split B tiles.
 template <bool kLnMod>
-__device__ __forceinline__ void gemm_f32_tile(float (&acc)[8][8], float* sA, float* sB,
-                                              const float* a, const float* w, int M, int N, int K,
-                                              int m0, int n0, const float* stats, const float* sc,
-                                              const float* sh) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+__device__ __forceinline__ void tf_consume(float (&acc)[64], const TfRing& r, int kt_total,
+                                           int warp, int lane, float mu0, float rs0, float mu1,
+                                           float rs1, const float* s_mul, const float* s_add) {
+  const int t = lane & 3;
+  const int row_a = warp * 16;  // this warp's 16 rows of the tile
+  float part[64];               // a stage's products
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  for (int kt = 0; kt < kt_total; ++kt) {
+    const int s = kt % kTfStages;
+    mbar_wait(&r.full[s], (kt / kTfStages) & 1);
+    mbar_wait(&r.split[s], (kt / kTfStages) & 1);
+    const unsigned char* tile_a = r.smem + s * kTfStageBytes;
+    uint32_t ah[4][4], al[4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kFK) {
-    load_tile_t<kLnMod>(sA, a, K, m0, M, k0, tid, stats, M, sc, sh);
-    load_tile_t<false>(sB, w, K, n0, N, k0, tid, nullptr, 0, nullptr, nullptr);
-    __syncthreads();
-    ffma_step(sA, sB, acc, ty, tx);
-    __syncthreads();
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t x[4];  // (r0, c), (r1, c), (r0, c + 4), (r1, c + 4), c = 8 kk + t
+      ldmatrix_x4(x, swz_chunk_addr(tile_a, row_a + (lane & 15), kk * 2 + (lane >> 4)));
+      float y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[i] = __uint_as_float(x[i]);
+      if (kLnMod) {
+        const int c = kt * kTfStep + kk * 8 + t;
+        const float m_lo = s_mul[c], a_lo = s_add[c], m_hi = s_mul[c + 4], a_hi = s_add[c + 4];
+        y[0] = (y[0] - mu0) * rs0 * m_lo + a_lo;
+        y[1] = (y[1] - mu1) * rs1 * m_lo + a_lo;
+        y[2] = (y[2] - mu0) * rs0 * m_hi + a_hi;
+        y[3] = (y[3] - mu1) * rs1 * m_hi + a_hi;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(y[i], ah[kk][i], al[kk][i]);
+    }
+    const uint64_t db_hi = wgmma_desc(tile_a + kTfATile);
+    const uint64_t db_lo = wgmma_desc(tile_a + kTfATile + kTfBTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_tf32_n128(part, al[kk], db_hi + 2 * kk, kk != 0);
+      wgmma_rs_tf32_n128(part, ah[kk], db_lo + 2 * kk, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tf32_n128(part, ah[kk], db_hi + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(part);
+    if (lane == 0) mbar_arrive(&r.empty[s]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
   }
 }
 
@@ -113,104 +186,163 @@ __device__ __forceinline__ void gemm_f32_tile(float (&acc)[8][8], float* sA, flo
 // all fp32: up to three weights [seg_n, d] read as segments of the output's
 // columns (seg_n % 128 == 0, so a column tile lies in one segment)
 template <bool kGelu>
-__global__ void __launch_bounds__(kFThreads)
-ln_mod_gemm_f32_kernel(const float* __restrict__ h, const float* __restrict__ stats,
-                       const float* __restrict__ sc, const float* __restrict__ sh,
-                       const float* __restrict__ w0, const float* __restrict__ w1,
-                       const float* __restrict__ w2, const float* __restrict__ b0,
-                       const float* __restrict__ b1, const float* __restrict__ b2,
-                       float* __restrict__ out, int M, int seg_n, int nseg, int d) {
-  __shared__ __align__(16) float sA[kFK * kFLD];
-  __shared__ __align__(16) float sB[kFK * kFLD];
-  const int n0 = blockIdx.x * kFT, m0 = blockIdx.y * kFT;
-  const int seg = n0 / seg_n, nl = n0 - seg * seg_n, N = nseg * seg_n;
-  const float* w = seg == 0 ? w0 : (seg == 1 ? w1 : w2);
-  const float* b = seg == 0 ? b0 : (seg == 1 ? b1 : b2);
-  float acc[8][8];
-  gemm_f32_tile<true>(acc, sA, sB, h, w, M, seg_n, d, m0, nl, stats, sc, sh);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
-    if (row >= M) continue;
-#pragma unroll
-    for (int jh = 0; jh < 2; ++jh) {
-      const int col = jh * 64 + tx * 4;
-      const float4 bb = *reinterpret_cast<const float4*>(b + nl + col);
-      float4 o = make_float4(acc[i][jh * 4] + bb.x, acc[i][jh * 4 + 1] + bb.y,
-                             acc[i][jh * 4 + 2] + bb.z, acc[i][jh * 4 + 3] + bb.w);
-      if (kGelu) {
-        o.x = gelu_tanh_f32(o.x);
-        o.y = gelu_tanh_f32(o.y);
-        o.z = gelu_tanh_f32(o.z);
-        o.w = gelu_tanh_f32(o.w);
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ln_mod_gemm_tf32_kernel(const __grid_constant__ CUtensorMap map_h,
+                        const __grid_constant__ CUtensorMap map_w0,
+                        const __grid_constant__ CUtensorMap map_w1,
+                        const __grid_constant__ CUtensorMap map_w2,
+                        const float* __restrict__ stats, const float* __restrict__ sc,
+                        const float* __restrict__ sh, const float* __restrict__ b0,
+                        const float* __restrict__ b1, const float* __restrict__ b2,
+                        float* __restrict__ out, int M, int d, int seg_n) {
+  extern __shared__ unsigned char smem_raw[];
+  const TfRing ring = tf_ring(align_1024(smem_raw));
+  const int kt_total = (d + kTfStep - 1) / kTfStep;
+  const int d_pad = kt_total * kTfStep;
+  float* s_mul = reinterpret_cast<float*>(ring.empty + kTfStages);  // 1 + sc
+  float* s_add = s_mul + d_pad;                                     // sh
+  const int n0 = blockIdx.x * kTfBN;
+  const int m0 = blockIdx.y * kBM;
+  const int ldo = gridDim.x * kTfBN;
+  const int seg = n0 / seg_n;
+  const int nloc = n0 - seg * seg_n;  // column block within the segment
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) tf_init_ring(ring);
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const CUtensorMap* map_w = seg == 0 ? &map_w0 : (seg == 1 ? &map_w1 : &map_w2);
+    tf_produce(ring, &map_h, map_w, m0, nloc, kt_total, tid - kConsumerWarps * 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    // the modulation vectors, while the producer's first loads are in flight
+    for (int i = tid; i < d_pad; i += kConsumerWarps * 32) {
+      s_mul[i] = i < d ? 1.f + sc[i] : 0.f;
+      s_add[i] = i < d ? sh[i] : 0.f;
+    }
+    consumer_sync();
+    const int r0 = m0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+    const float mu0 = r0 < M ? stats[r0] : 0.f, rs0 = r0 < M ? stats[M + r0] : 0.f;
+    const float mu1 = r1 < M ? stats[r1] : 0.f, rs1 = r1 < M ? stats[M + r1] : 0.f;
+    float acc[64];
+    tf_consume<true>(acc, ring, kt_total, warp, lane, mu0, rs0, mu1, rs1, s_mul, s_add);
+
+    constexpr int LD = kTfBN + 8;
+    const float* stage = stage_accumulators<kTfBN>(ring.smem, acc, warp, lane);
+    const int cl = 4 * lane;  // column within the block
+    const float4 bb =
+        *reinterpret_cast<const float4*>((seg == 0 ? b0 : (seg == 1 ? b1 : b2)) + nloc + cl);
+#pragma unroll 4
+    for (int rr = 0; rr < 16; ++rr) {
+      const int row = m0 + warp * 16 + rr;
+      float4 o = *reinterpret_cast<const float4*>(stage + rr * LD + cl);
+      o = make_float4(o.x + bb.x, o.y + bb.y, o.z + bb.z, o.w + bb.w);
+      if (kGelu)
+        o = make_float4(gelu_tanh_f32(o.x), gelu_tanh_f32(o.y), gelu_tanh_f32(o.z),
+                        gelu_tanh_f32(o.w));
+      if (row < M) *reinterpret_cast<float4*>(out + (size_t)row * ldo + n0 + cl) = o;
+    }
+  }
+}
+
+// out[M, d] = h + gate * (a[M, K] @ W[d, K]^T + b), all fp32; d = gridDim.x * 128
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gated_residual_gemm_tf32_kernel(const __grid_constant__ CUtensorMap map_a,
+                                const __grid_constant__ CUtensorMap map_w,
+                                const float* __restrict__ b, const float* __restrict__ h,
+                                const float* __restrict__ gate, float* __restrict__ out, int M,
+                                int K) {
+  extern __shared__ unsigned char smem_raw[];
+  const TfRing ring = tf_ring(align_1024(smem_raw));
+  const int kt_total = (K + kTfStep - 1) / kTfStep;
+  const int n0 = blockIdx.x * kTfBN;
+  const int m0 = blockIdx.y * kBM;
+  const int d = gridDim.x * kTfBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) tf_init_ring(ring);
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    tf_produce(ring, &map_a, &map_w, m0, n0, kt_total, tid - kConsumerWarps * 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    float acc[64];
+    tf_consume<false>(acc, ring, kt_total, warp, lane, 0.f, 0.f, 0.f, 0.f, nullptr, nullptr);
+
+    constexpr int LD = kTfBN + 8;
+    const float* stage = stage_accumulators<kTfBN>(ring.smem, acc, warp, lane);
+    const int col = n0 + 4 * lane;
+    const float4 bb = *reinterpret_cast<const float4*>(b + col);
+    const float4 gg = *reinterpret_cast<const float4*>(gate + col);
+#pragma unroll 4
+    for (int rr = 0; rr < 16; ++rr) {
+      const int row = m0 + warp * 16 + rr;
+      if (row < M) {
+        const float4 v = *reinterpret_cast<const float4*>(stage + rr * LD + 4 * lane);
+        const float4 hv = *reinterpret_cast<const float4*>(h + (size_t)row * d + col);
+        *reinterpret_cast<float4*>(out + (size_t)row * d + col) =
+            make_float4(hv.x + gg.x * (v.x + bb.x), hv.y + gg.y * (v.y + bb.y),
+                        hv.z + gg.z * (v.z + bb.z), hv.w + gg.w * (v.w + bb.w));
       }
-      *reinterpret_cast<float4*>(out + (size_t)row * N + n0 + col) = o;
     }
   }
 }
 
-// out[M, N] = h + gate * (a[M, K] @ W[N, K]^T + b), all fp32
-__global__ void __launch_bounds__(kFThreads)
-gated_residual_gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
-                               const float* __restrict__ b, const float* __restrict__ h,
-                               const float* __restrict__ gate, float* __restrict__ out, int M,
-                               int N, int K) {
-  __shared__ __align__(16) float sA[kFK * kFLD];
-  __shared__ __align__(16) float sB[kFK * kFLD];
-  const int n0 = blockIdx.x * kFT, m0 = blockIdx.y * kFT;
-  float acc[8][8];
-  gemm_f32_tile<false>(acc, sA, sB, a, w, M, N, K, m0, n0, nullptr, nullptr, nullptr);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
-    if (row >= M) continue;
-#pragma unroll
-    for (int jh = 0; jh < 2; ++jh) {
-      const int col = n0 + jh * 64 + tx * 4;
-      const float4 bb = *reinterpret_cast<const float4*>(b + col);
-      const float4 gg = *reinterpret_cast<const float4*>(gate + col);
-      const float4 hv = *reinterpret_cast<const float4*>(h + (size_t)row * N + col);
-      *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
-          make_float4(hv.x + gg.x * (acc[i][jh * 4] + bb.x), hv.y + gg.y * (acc[i][jh * 4 + 1] + bb.y),
-                      hv.z + gg.z * (acc[i][jh * 4 + 2] + bb.z),
-                      hv.w + gg.w * (acc[i][jh * 4 + 3] + bb.w));
-    }
-  }
+// what a product of [M, k] fp32 rows into segments of seg_n columns must
+// satisfy before anything is launched
+inline bool tf_dims_ok(int M, int seg_n, int k) {
+  return M > 0 && (M + kBM - 1) / kBM <= 65535 && seg_n > 0 && seg_n % kTfBN == 0 && k > 0 &&
+         k % 4 == 0;
 }
 
-// the row statistics, then ln_mod_gemm_f32_kernel; d % 16 == 0, seg_n % 128 == 0
+// the row statistics, then ln_mod_gemm_tf32_kernel; d % 4 == 0, d <= 4096,
+// seg_n % 128 == 0, 1 <= nseg <= 3
 template <bool kGelu>
 cudaError_t launch_ln_mod_gemm_f32(const void* h, const void* sc, const void* sh,
                                    const void* const (&w)[3], const void* const (&b)[3],
                                    void* stats, void* out, int M, int d, int seg_n, int nseg,
                                    float eps, cudaStream_t stream) {
-  const int m_tiles = (M + kFT - 1) / kFT;
-  if (M <= 0 || d <= 0 || d % kFK != 0 || seg_n <= 0 || seg_n % kFT != 0 || nseg < 1 ||
-      nseg > 3 || m_tiles > 65535)
+  if (!tf_dims_ok(M, seg_n, d) || d > kMaxLnDim || nseg < 1 || nseg > 3)
     return cudaErrorInvalidValue;
   cudaError_t err = launch_ln_stats<float>(h, stats, M, d, eps, stream);
   if (err != cudaSuccess) return err;
+  CUtensorMap map_h, map_w[3];
+  if (!tensor_map(&map_h, h, M, d, kBM, kMapF32)) return cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i)
+    if (!tensor_map(&map_w[i], w[i], seg_n, d, kTfBN, kMapF32)) return cudaErrorInvalidValue;
+  const int d_pad = (d + kTfStep - 1) / kTfStep * kTfStep;
+  static std::atomic<bool> ready[kMaxDevices];
+  err = allow_smem(ln_mod_gemm_tf32_kernel<kGelu>, tf_smem_bytes(kMaxLnDim), ready);
+  if (err != cudaSuccess) return err;
   typedef const float* P;
-  ln_mod_gemm_f32_kernel<kGelu><<<dim3(nseg * seg_n / kFT, m_tiles), kFThreads, 0, stream>>>(
-      static_cast<P>(h), static_cast<P>(stats), static_cast<P>(sc), static_cast<P>(sh),
-      static_cast<P>(w[0]), static_cast<P>(w[1]), static_cast<P>(w[2]), static_cast<P>(b[0]),
-      static_cast<P>(b[1]), static_cast<P>(b[2]), static_cast<float*>(out), M, seg_n, nseg, d);
+  const dim3 grid(nseg * seg_n / kTfBN, (M + kBM - 1) / kBM);
+  ln_mod_gemm_tf32_kernel<kGelu><<<grid, kGemmThreads, tf_smem_bytes(d_pad), stream>>>(
+      map_h, map_w[0], map_w[1], map_w[2], static_cast<P>(stats), static_cast<P>(sc),
+      static_cast<P>(sh), static_cast<P>(b[0]), static_cast<P>(b[1]), static_cast<P>(b[2]),
+      static_cast<float*>(out), M, d, seg_n);
   return cudaGetLastError();
 }
 
-// out = h + gate * (a @ W^T + b); K % 16 == 0, N % 128 == 0
+// out = h + gate * (a @ W^T + b); a [M, K], W [N, K]; K % 4 == 0, N % 128 == 0
 inline cudaError_t launch_gated_residual_gemm_f32(const void* a, const void* w, const void* b,
                                                   const void* h, const void* gate, void* out,
                                                   int M, int N, int K, cudaStream_t stream) {
-  const int m_tiles = (M + kFT - 1) / kFT;
-  if (M <= 0 || K <= 0 || K % kFK != 0 || N <= 0 || N % kFT != 0 || m_tiles > 65535)
+  if (!tf_dims_ok(M, N, K)) return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_w;
+  if (!tensor_map(&map_a, a, M, K, kBM, kMapF32) || !tensor_map(&map_w, w, N, K, kTfBN, kMapF32))
     return cudaErrorInvalidValue;
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err = allow_smem(gated_residual_gemm_tf32_kernel, tf_smem_bytes(0), ready);
+  if (err != cudaSuccess) return err;
   typedef const float* P;
-  gated_residual_gemm_f32_kernel<<<dim3(N / kFT, m_tiles), kFThreads, 0, stream>>>(
-      static_cast<P>(a), static_cast<P>(w), static_cast<P>(b), static_cast<P>(h),
-      static_cast<P>(gate), static_cast<float*>(out), M, N, K);
+  gated_residual_gemm_tf32_kernel<<<dim3(N / kTfBN, (M + kBM - 1) / kBM), kGemmThreads,
+                                    tf_smem_bytes(0), stream>>>(
+      map_a, map_w, static_cast<P>(b), static_cast<P>(h), static_cast<P>(gate),
+      static_cast<float*>(out), M, K);
   return cudaGetLastError();
 }
 

@@ -1,21 +1,22 @@
 // Hopper (sm_90a) building blocks of the TMA-fed, wgmma product cores
-// (gemm_bf16.cuh, gemm_int8.cuh), of the attention cores (attn_wgmma.cuh,
+// (gemm_bf16.cuh, gemm_int8.cuh, gemm_f32.cuh), of the attention cores (attn_wgmma.cuh,
 // attn_bwd_wgmma.cuh) and of the probes that hold each idiom against two
 // lines of torch (probe_hopper.cu): mbarriers, TMA tile loads into 128-byte-swizzled shared
 // memory (2-D maps over [rows, cols], 3-D maps over [planes, rows, cols] whose
 // boxes stop at a plane's last row, strided 4-D maps over one head's columns
 // of a fused qkv array), wgmma with A from registers or from
-// shared memory (bf16 into fp32, s8 into s32; B k-major, or MN-major for
-// P.V), and the host side's tensor maps.
+// shared memory (bf16 into fp32, s8 into s32, tf32 into fp32; B k-major,
+// or MN-major for P.V), and the host side's tensor maps.
 //
-// Shared-memory tiles are [rows][128 bytes]: 64 bf16 or 128 int8 a row. One
+// Shared-memory tiles are [rows][128 bytes]: 64 bf16, 128 int8 or 32 fp32 a row. One
 // row is one 128-byte swizzle span, a tile starts on a 1024-byte boundary,
 // and the 16-byte chunk c of row r sits at chunk c ^ (r & 7). TMA writes that
 // layout (CU_TENSOR_MAP_SWIZZLE_128B), a wgmma descriptor of layout type B128
 // reads it, and swz_chunk_addr() addresses it for ldmatrix. The geometry is
-// the same in bytes for both element types, so one ring stage holds a k
-// depth of 64 bf16 (four wgmma k16 steps) or of 128 int8 (four k32 steps),
-// and a k step is 32 bytes along a row either way.
+// the same in bytes for every element type, so one ring stage holds a k
+// depth of 64 bf16 (four wgmma k16 steps), of 128 int8 (four k32 steps) or
+// of 32 fp32 read as tf32 (four k8 steps: the fp32 product core,
+// gemm_f32.cuh), and a k step is 32 bytes along a row each way.
 //
 // Tensor maps: cuTensorMapEncodeTiled lives in libcuda, not in the runtime
 // library the kernels link. The link line stays as it is: encode_tiled_fn()
@@ -92,8 +93,11 @@ struct MapKeyHash {
 
 constexpr CUtensorMapDataType kMapBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 constexpr CUtensorMapDataType kMapInt8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // TMA copies bytes
+constexpr CUtensorMapDataType kMapF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 
-inline uint32_t map_elem_bytes(CUtensorMapDataType type) { return type == kMapInt8 ? 1 : 2; }
+inline uint32_t map_elem_bytes(CUtensorMapDataType type) {
+  return type == kMapInt8 ? 1 : (type == kMapF32 ? 4 : 2);
+}
 
 // The tensor map of `key`: boxes whose rows are 128 bytes (box[0] elements)
 // in the swizzled layout, or, unswizzled, rows of any multiple of 16 bytes;
@@ -123,8 +127,8 @@ inline bool encode_map(CUtensorMap* out, const MapKey& key) {
   return true;
 }
 
-// a row-major [rows, cols] array of `type` (kMapBf16 or kMapInt8), boxes of
-// box_rows x 128 bytes. A row must be a multiple of 16 bytes.
+// a row-major [rows, cols] array of `type` (kMapBf16, kMapInt8 or kMapF32),
+// boxes of box_rows x 128 bytes. A row must be a multiple of 16 bytes.
 inline bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t cols,
                        uint32_t box_rows, CUtensorMapDataType type) {
   const uint32_t eb = map_elem_bytes(type);
@@ -629,6 +633,81 @@ __device__ __forceinline__ void wgmma_ss_s8_n256(int (&d)[128], uint64_t desc_a,
         "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
         "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
         "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// wgmma m64n128k8 .tf32 (fp32 accumulate): fp32 words read as tf32, both
+// operands k-major (a .tf32 wgmma takes no transpose), a k8 step 32 bytes
+// of a 128-byte row as bf16's k16 is, so the descriptors above advance by 2
+// a step. The A registers of warp w are mma.m16n8k8 .tf32's A fragment of
+// rows 16w .. 16w + 15: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); the accumulator lies as that of the bf16 forms.
+
+// d[64] (+)= A (64 x 8, registers) . B^T (B: [128][8] k-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64] (+)= A (64 x 8, k-major in shared memory) . B^T
+__device__ __forceinline__ void wgmma_ss_tf32_n128(float (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -57,6 +57,18 @@
 // shared-memory descriptors (wgmma_ss_n64, as S^T = K.Q^T over a 64-query
 // tile), and that m64n64 accumulator rounded to bf16 into A fragments for a
 // product with an MN-major 64-row tile (dV += P^T.dO) (probe (10)).
+// The fp32 product core (gemm_f32.cuh: the fp32 forms of B, 7 and 8) adds
+// wgmma m64n128k8 .tf32 over an fp32 tile that TMA lands through an fp32
+// map (probe (4) with an fp32 box: 32 fp32 a 128-byte row), with both
+// operands through descriptors and with A from registers by ldmatrix of 32-bit
+// words, which shows how .tf32 reads a raw fp32 word (its low 13 bits
+// dropped, or rounded); and the split 3xTF32 product of that core, B split
+// into a hi tile in place and a lo tile beside it by the block's threads and
+// fenced for the async proxy, A split in registers (probe (14)). Probe (15)
+// measures the tensor cores' fp32 accumulation itself: a chain of products
+// that each add three quarters of an ulp to an accumulator of 1, on
+// mma.sync m16n8k8 .tf32 (the fp32 attention kernels) and on wgmma .tf32;
+// rounded to nearest each adds an ulp, truncated none.
 #include "attn_bwd_wgmma.cuh"
 #include "flash_prefix.cuh"
 #include "gemm_int8.cuh"
@@ -144,9 +156,9 @@ __device__ __forceinline__ void probe_load(unsigned char* tile_a, const CUtensor
   mbar_wait(bar, 0);
 }
 
-// (4) a box of 64 rows x 128 bytes (64 bf16 or 128 int8) at (row, col) of x,
-// by TMA; raw: the 8 KB of shared memory as they lie (row r, 16-byte chunk c
-// at chunk c ^ (r & 7))
+// (4) a box of 64 rows x 128 bytes (64 bf16, 128 int8 or 32 fp32) at (row,
+// col) of x, by TMA; raw: the 8 KB of shared memory as they lie (row r,
+// 16-byte chunk c at chunk c ^ (r & 7))
 __global__ void __launch_bounds__(kThreads)
 probe_tma_kernel(const __grid_constant__ CUtensorMap map, unsigned char* __restrict__ raw,
                  int row, int col) {
@@ -510,6 +522,123 @@ probe_attn_i8_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// (14) out[64, 128] fp32 = A . B^T over k = 32 (four k8 steps) on wgmma
+// m64n128k8 .tf32, A = x[0:64, 0:32] and B = y[0:128, 0:32] fp32 by TMA:
+// kMode 0 both operands through descriptors as they landed, 1 A from
+// registers by ldmatrix as it landed, 2 the split 3xTF32 product of
+// gemm_f32.cuh (A split in registers, B split in shared memory, the small
+// terms first)
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+probe_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_y, float* __restrict__ out) {
+  __shared__ __align__(1024) unsigned char tile_a[64 * kRowBytes];
+  __shared__ __align__(1024) unsigned char tile_b[128 * kRowBytes];
+  __shared__ __align__(1024) unsigned char tile_bl[128 * kRowBytes];
+  __shared__ uint64_t bar;
+  probe_load(tile_a, &map_x, tile_b, &map_y, &bar, 0, 0, 0, 128);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (kMode == 2) {
+    uint4* b = reinterpret_cast<uint4*>(tile_b);
+    uint4* b_lo = reinterpret_cast<uint4*>(tile_bl);
+    for (int i = threadIdx.x; i < 128 * kRowBytes / 16; i += kThreads) {
+      const uint4 x = b[i];
+      uint4 h, l;
+      split_tf32(__uint_as_float(x.x), h.x, l.x);
+      split_tf32(__uint_as_float(x.y), h.y, l.y);
+      split_tf32(__uint_as_float(x.z), h.z, l.z);
+      split_tf32(__uint_as_float(x.w), h.w, l.w);
+      b[i] = h;
+      b_lo[i] = l;
+    }
+    fence_proxy_async();
+    __syncthreads();
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  uint32_t ah[4][4], al[4][4];
+  if (kMode != 0) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t x[4];
+      ldmatrix_x4(x, swz_chunk_addr(tile_a, warp * 16 + (lane & 15), kk * 2 + (lane >> 4)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (kMode == 2) split_tf32(__uint_as_float(x[i]), ah[kk][i], al[kk][i]);
+        else ah[kk][i] = x[i];
+      }
+    }
+  }
+  const uint64_t da = wgmma_desc(tile_a), db = wgmma_desc(tile_b), dbl = wgmma_desc(tile_bl);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kMode == 0) wgmma_ss_tf32_n128(acc, da + 2 * kk, db + 2 * kk, kk != 0);
+    if (kMode == 1) wgmma_rs_tf32_n128(acc, ah[kk], db + 2 * kk, kk != 0);
+    if (kMode == 2) {
+      wgmma_rs_tf32_n128(acc, al[kk], db + 2 * kk, kk != 0);
+      wgmma_rs_tf32_n128(acc, ah[kk], dbl + 2 * kk, 1);
+    }
+  }
+  if (kMode == 2) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tf32_n128(acc, ah[kk], db + 2 * kk, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_regs(acc);
+  const int row = warp * 16 + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * t;
+    out[row * 128 + col] = acc[4 * j];
+    out[row * 128 + col + 1] = acc[4 * j + 1];
+    out[(row + 8) * 128 + col] = acc[4 * j + 2];
+    out[(row + 8) * 128 + col + 1] = acc[4 * j + 3];
+  }
+}
+
+// (15) every element of an accumulator of 1, then kAccSteps products that
+// each add 1.5 * 2^-24 (three quarters of an ulp of 1): on mma.sync m16n8k8
+// .tf32 (warp 0; out[0]) and on wgmma m64n128k8 .tf32 from registers
+// (out[1]). A's column 0 is 1 and B's row k = 0 holds the small term, the
+// rest zeros.
+constexpr int kAccSteps = 32;
+
+__global__ void __launch_bounds__(kThreads)
+probe_tf32_accumulate_kernel(float* __restrict__ out) {
+  __shared__ __align__(1024) float tile_b[128 * 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const float small = 1.5f * 0x1p-24f;
+  for (int i = threadIdx.x; i < 128 * 32; i += kThreads) tile_b[i] = 0.f;
+  __syncthreads();
+  // element k = 0 of row n: logical chunk 0 of the row sits at chunk n & 7
+  for (int n = threadIdx.x; n < 128; n += kThreads) tile_b[n * 32 + ((n & 7) << 2)] = small;
+  fence_proxy_async();
+  __syncthreads();
+  const uint32_t one = t == 0 ? __float_as_uint(1.f) : 0u;
+  const uint32_t a[4] = {one, one, 0u, 0u};  // (g, 0), (g + 8, 0): column 0
+  if (warp == 0) {
+    float d[4] = {1.f, 1.f, 1.f, 1.f};
+    const uint32_t b0 = t == 0 ? __float_as_uint(small) : 0u;  // (k = 0, n = g)
+#pragma unroll
+    for (int i = 0; i < kAccSteps; ++i) mma_tf32_1688(d, a, b0, 0u);
+    if (lane == 0) out[0] = d[0];
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 1.f;
+  const uint64_t db = wgmma_desc(tile_b);
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < kAccSteps; ++i) wgmma_rs_tf32_n128(acc, a, db, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_regs(acc);
+  if (threadIdx.x == 0) out[1] = acc[0];
+}
+
 }  // namespace
 }  // namespace f5
 
@@ -553,19 +682,47 @@ extern "C" int f5_probe_pv(const void* p, const void* v, void* out, int device, 
   return (int)cudaGetLastError();
 }
 
-// x: [rows, cols] bf16 (int8 == 0, cols % 8 == 0) or int8 (int8 != 0, cols %
-// 16 == 0); raw: the 8 KB box of 64 rows x 128 bytes as shared memory holds
-// it; the box starts at (row, col) and may hang over either edge
+// x: [rows, cols] bf16 (type 0, cols % 8 == 0), int8 (type 1, cols % 16 ==
+// 0) or fp32 (type 2, cols % 4 == 0); raw: the 8 KB box of 64 rows x 128
+// bytes as shared memory holds it; the box starts at (row, col) and may hang
+// over either edge
 extern "C" int f5_probe_tma(const void* x, void* raw, int rows, int cols, int row, int col,
-                            int int8, int device, void* stream) {
+                            int type, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const CUtensorMapDataType types[3] = {f5::kMapBf16, f5::kMapInt8, f5::kMapF32};
   CUtensorMap map;
-  if ((cols * (int8 ? 1 : 2)) % 16 ||
-      !f5::tensor_map(&map, x, rows, cols, 64, int8 ? f5::kMapInt8 : f5::kMapBf16))
+  if (type < 0 || type > 2 || (cols * f5::map_elem_bytes(types[type])) % 16 ||
+      !f5::tensor_map(&map, x, rows, cols, 64, types[type]))
     return (int)cudaErrorInvalidValue;
   f5::probe_tma_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       map, static_cast<unsigned char*>(raw), row, col);
+  return (int)cudaGetLastError();
+}
+
+// x: [64, 32], y: [128, 32] fp32; out: [64, 128] fp32; mode: probe (14)'s kMode
+extern "C" int f5_probe_wgmma_tf32(const void* x, const void* y, void* out, int mode, int device,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_x, map_y;
+  if (mode < 0 || mode > 2 || !f5::tensor_map(&map_x, x, 64, 32, 64, f5::kMapF32) ||
+      !f5::tensor_map(&map_y, y, 128, 32, 128, f5::kMapF32))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (mode == 0) f5::probe_wgmma_tf32_kernel<0><<<1, f5::kThreads, 0, s>>>(map_x, map_y, o);
+  if (mode == 1) f5::probe_wgmma_tf32_kernel<1><<<1, f5::kThreads, 0, s>>>(map_x, map_y, o);
+  if (mode == 2) f5::probe_wgmma_tf32_kernel<2><<<1, f5::kThreads, 0, s>>>(map_x, map_y, o);
+  return (int)cudaGetLastError();
+}
+
+// out: [2] fp32, the two accumulators after probe (15)'s 32 steps
+extern "C" int f5_probe_tf32_accumulate(void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  f5::probe_tf32_accumulate_kernel<<<1, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

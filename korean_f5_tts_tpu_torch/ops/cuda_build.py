@@ -109,8 +109,12 @@ _SIGNATURES = {
     "f5_probe_pair_store": (_P, _P, _P, _I, _P),
     # x, cos, sin, out, ld, device, stream
     "f5_probe_half_swap": (_P, _P, _P, _P, _I, _I, _P),
-    # x, raw, rows, cols, row, col, int8, device, stream
+    # x, raw, rows, cols, row, col, type (0 bf16, 1 int8, 2 fp32), device, stream
     "f5_probe_tma": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, y, out, mode, device, stream
+    "f5_probe_wgmma_tf32": (_P, _P, _P, _I, _I, _P),
+    # out, device, stream
+    "f5_probe_tf32_accumulate": (_P, _I, _P),
     # x, y, out, register_a, device, stream
     "f5_probe_wgmma": (_P, _P, _P, _I, _I, _P),
     # x, y, out, n, device, stream

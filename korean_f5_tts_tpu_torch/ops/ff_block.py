@@ -61,7 +61,8 @@ def ff_block_fused(h, sc, sh, gate, w1, b1, w2, b2, eps: float = 1e-6):
     result has their dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel (the
-    wgmma core on bf16, the FFMA form on fp32) or raise; nothing falls back.
+    wgmma core on bf16, split 3xTF32 on wgmma on fp32) or raise; nothing
+    falls back.
     """
     global launches, launches_f32
     operands = (h, sc, sh, gate, w1, b1, w2, b2)

@@ -12,9 +12,9 @@ replace _flash_prefix_folded_lse, _flash_prefix_dq_lsein, _flash_prefix_dq
 and _flash_prefix_dkv (10 runs on kernel A's TMA + wgmma attention core,
 csrc/attn_wgmma.cuh, 11 and 13 on the attention backward core,
 csrc/attn_bwd_wgmma.cuh; both need 16-byte-aligned contiguous operands,
-which the wrappers check; their fp32 forms are kernel A's fp32 FFMA kernel
-for 10 and split 3xTF32 tensor-core products for 11-13,
-csrc/flash_prefix_train_f32.cu); kernel 14
+which the wrappers check; their fp32 forms are split 3xTF32 tensor-core
+products: kernel A's fp32 kernel for 10 (csrc/flash_prefix.cu) and
+csrc/flash_prefix_train_f32.cu for 11-13); kernel 14
 (csrc/flash_prefix_int8.cu, the int8 form of the attention core) replaces
 _flash_prefix_folded_i8; kernel 18 (csrc/flash_prefix_rope.cu) replaces
 _flash_prefix_rope_call, and kernel 19
@@ -24,7 +24,7 @@ over the split heads or the fused qkv rows, the rotation in shared memory).
 The sources' notes say what bounds each kernel on the card and how its
 design answers that. Kernels 18, 19 and 14 (with its pass) also take fp32
 operands (the offline entry points' default weights): their fp32 forms are
-kernel A's fp32 FFMA kernel with strided heads and the rotation in fp32
+kernel A's split 3xTF32 kernel with strided heads and the rotation in fp32
 (csrc/flash_prefix.cu), the pass reading fp32 as it is, and for 14 the
 attention core's int8 form with an fp32 output in "qkpv" (csrc/
 flash_prefix_int8.cu) and in "qk" an FFMA form (csrc/flash_prefix_int8_f32.cu)
@@ -351,7 +351,8 @@ def flash_prefix_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_lens: torch.Tensor) -> torch.Tensor:
     """Kernel A wrapper: [H, n, d] q/k/v (d 64 or 128), all bf16 or all fp32
     (a mix raises TypeError), [H] int32 kv_lens; the result has their dtype.
-    On fp32 operands nothing is rounded below fp32 (the FFMA form)."""
+    On fp32 operands nothing is rounded below fp32 (split 3xTF32 products at
+    d = 64, FFMA at d = 128)."""
     global launches, launches_f32
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_prefix: q, k, v must be all bfloat16 or all float32, got "
@@ -384,7 +385,8 @@ def _train_dtype(what: str, q, *others) -> bool:
 
 def flash_prefix_folded_lse(q, k, v, kv_lens):
     """Kernel 10 wrapper: (o [H, n, d] of q's dtype, lse [H, n] fp32); bf16
-    operands on the attention core, fp32 ones on the FFMA form."""
+    operands on the attention core, fp32 ones on kernel A's split 3xTF32
+    kernel."""
     global launches_lse, launches_lse_f32
     if q.device.type == "cpu":
         return prefix_attention_lse_reference(q, k, v, kv_lens)

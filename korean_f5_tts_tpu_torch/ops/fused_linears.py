@@ -9,11 +9,12 @@ Counterparts of korean_f5_tts_tpu/ops/fused_linears.py:
 Their weights are linears of the port's layout ({"w": [d_out, d_in], "b"});
 the kernels (csrc/fused_linears.cu) replace the TPU's _ln_mod_matmul_kernel
 and _proj_gated_kernel. Their operands are all bf16 (the TMA + wgmma core)
-or all fp32 (the FFMA products of csrc/gemm_f32.cuh, nothing rounded below
-fp32, as the TPU kernels compute at the input's dtype); a mix raises
-TypeError, and each form keeps its own launch counter. They serve only: in the JAX package their gradients
-differentiate the XLA formulation, which is not ported yet, so the wrappers
-raise on an input that requires a gradient.
+or all fp32 (the split 3xTF32 products of csrc/gemm_f32.cuh on the tensor
+cores, fp32-accurate, as the TPU kernels compute at the input's dtype); a
+mix raises TypeError, and each form keeps its own launch counter. They
+serve only: in the JAX package their gradients differentiate the XLA
+formulation, which is not ported yet, so the wrappers raise on an input
+that requires a gradient.
 
 The int8 functions:
   ln_mod_matmul_int8        out = (q(LN(h) * (1 + sc) + sh) @ W^T) * ys * ws + b

@@ -70,6 +70,23 @@ and the idioms of the attention core's int8 form (kernel 14):
               positions into those fragments, times v8 in kernel 14's slot
               permutation (_v8_kernel_layout): the product in natural key
               order, exact.
+and the idioms of the fp32 product core (csrc/gemm_f32.cuh: the fp32 forms
+of B, 7 and 8):
+  tma_swizzle_f32  an fp32 TMA box (32 fp32 a 128-byte row), inside the
+              array and over its edge, swizzled as the bf16 box is;
+  wgmma_tf32_ss, wgmma_tf32_rs  wgmma m64n128k8 .tf32 over one 32-deep
+              stage of raw fp32 words, both operands through descriptors,
+              and A from registers by ldmatrix: against the product of the
+              operands read as tf32, truncated or rounded, whichever the card
+              does (a line says which);
+  wgmma_3xtf32  the core's split product: A split into hi and lo in
+              registers, B into a hi tile in place and a lo tile beside it,
+              the small terms first, against the product in float64 at fp32
+              accuracy (a single TF32 product misses it by ~1e-3).
+and, printed beside them (a measurement, not held): the tensor cores' fp32
+accumulation (tf32_accumulate), 32 products that each add three quarters of
+an ulp to an accumulator of 1 on mma.sync m16n8k8 .tf32 and on wgmma .tf32:
+an ulp a step when they round to nearest, none when they truncate.
 Unlike the Mosaic script it raises on a failure. It needs a CUDA card.
 """
 
@@ -248,6 +265,29 @@ def _probes(dev: torch.device) -> dict:
         lhs = (2.0 * a.float() + 1.0).to(torch.bfloat16) if register_a else a
         out[label] = (prod, lhs.float() @ b.float().t(), 1e-3)
 
+    # the fp32 core: an fp32 box, and the .tf32 products on a 32-deep stage
+    xf = torch.randn((100, 200), generator=gen, device=dev)
+    for label, row, col in (("tma_swizzle_f32", 8, 32), ("tma_swizzle_f32_edge", 72, 184)):
+        raw = torch.empty((64, 32), dtype=torch.float32, device=dev)
+        cuda_build.check(lib.f5_probe_tma(xf.data_ptr(), raw.data_ptr(), 100, 200, row, col, 2,
+                                          dev.index, stream), "probe_tma")
+        out[label] = (raw, swizzled_box(xf, row, col), 0.0)
+    x, y = (torch.randn(shape, generator=gen, device=dev) for shape in ((64, 32), (128, 32)))
+    exact = x.double() @ y.double().t()
+    readings = {"truncated": (tf32_truncate(x).double() @ tf32_truncate(y).double().t()),
+                "rounded": (tf32_round(x).double() @ tf32_round(y).double().t())}
+    for label, mode in (("wgmma_tf32_ss", 0), ("wgmma_tf32_rs", 1), ("wgmma_3xtf32", 2)):
+        prod = torch.empty((64, 128), dtype=torch.float32, device=dev)
+        cuda_build.check(lib.f5_probe_wgmma_tf32(x.data_ptr(), y.data_ptr(), prod.data_ptr(),
+                                                 mode, dev.index, stream), "probe_wgmma_tf32")
+        if mode == 2:  # fp32 accuracy at |x . y| < ~30: a few 1e-6
+            out[label] = (prod, exact, 1e-4)
+            continue
+        torch.cuda.synchronize(dev)
+        how = min(readings, key=lambda r: (prod.double() - readings[r]).abs().max().item())
+        print(f"probe {label}: .tf32 reads a raw fp32 word as its {how} tf32 value")
+        out[label] = (prod, readings[how], 3e-4)
+
     a8 = rnd_i8(64, 128)
     for n in (128, 256):
         b8 = rnd_i8(n, 128)
@@ -269,10 +309,35 @@ def _probes(dev: torch.device) -> dict:
     return out
 
 
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x read as tf32 by dropping its 13 low mantissa bits."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: to 10 mantissa bits, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def accumulation(dev: torch.device) -> dict[str, float]:
+    """Probe (15): ulps added per product by the tensor cores' fp32
+    accumulation when each product adds three quarters of an ulp (1:
+    rounded to nearest; 0: truncated), for mma.sync and wgmma .tf32."""
+    lib = cuda_build.library()
+    acc = torch.empty(2, dtype=torch.float32, device=dev)
+    cuda_build.check(lib.f5_probe_tf32_accumulate(
+        acc.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream),
+        "probe_tf32_accumulate")
+    steps, ulp = 32, 2.0 ** -23
+    return {name: (v - 1.0) / ulp / steps
+            for name, v in zip(("mma.sync m16n8k8", "wgmma m64n128k8"), acc.tolist())}
+
+
 def swizzled_box(x: torch.Tensor, row: int, col: int, rows: int = 64) -> torch.Tensor:
-    """What a box of `rows` rows x 128 bytes of x at (row, col) (64 bf16 or
-    128 int8 a row) looks like in 128-byte-swizzled shared memory: zeros past
-    x's edges, and the 16-byte chunk c of box row r at chunk c ^ (r % 8)."""
+    """What a box of `rows` rows x 128 bytes of x at (row, col) (64 bf16, 128
+    int8 or 32 fp32 a row) looks like in 128-byte-swizzled shared memory:
+    zeros past x's edges, and the 16-byte chunk c of box row r at chunk c ^
+    (r % 8)."""
     width = 128 // x.element_size()
     box = torch.zeros((rows, width), dtype=x.dtype, device=x.device)
     part = x[row:row + rows, col:col + width]
@@ -301,6 +366,9 @@ def run(device="cuda") -> dict[str, float]:
             failed.append(name)
     if failed:
         raise RuntimeError(f"probe_hopper: {', '.join(failed)} failed")
+    for name, ulps in accumulation(dev).items():
+        print(f"probe tf32_accumulate ({name} .tf32): {ulps:.3f} ulp added a product of 0.75 "
+              "ulp (1: rounded to nearest, 0: truncated)")
     return errs
 
 

@@ -1,0 +1,192 @@
+"""A numpy mirror of the split 3xTF32 products of the port's fp32 kernels
+(korean_f5_tts_tpu_torch/csrc/mma.cuh, attn_tf32.cuh, gemm_f32.cuh): the
+tf32 rounding and split, mma.sync m16n8k8 .tf32 and ldmatrix on 32-bit
+words as the PTX ISA lays them out, the fragment addresses of the attention
+kernels' padded tiles, and the 128-byte swizzle of the fp32 product core's
+TMA tiles. The CPU tests hold the kernels' index arithmetic and numerics to
+it (tests/test_torch_fp32_attn_paths.py, tests/test_torch_fp32_tf32_core.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def tf32_rna(x):
+    """cvt.rna.tf32.f32: round to 10 explicit mantissa bits, ties away from
+    zero (the sign-magnitude bits plus half of the dropped range, then the
+    13 low bits cleared); finite inputs."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32(x):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(np.asarray(x, np.float32) - hi)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as the kernels compute it: hi.hi + hi.lo + lo.hi, each product
+    of tf32 values exact in fp32, summed in fp32"""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return (al @ bh) + (ah @ bl) + (ah @ bh)
+
+
+# --- the attention kernels' fragment arithmetic -----------------------------------
+
+LD = 68  # the kernels' row stride, words
+
+
+def _lanes():
+    lane = np.arange(32)
+    return lane, lane >> 2, lane & 3
+
+
+def mma_1688(a, b, c, f32=False):
+    """mma.sync.m16n8k8 .tf32 on per-lane registers: a [32, 4], b [32, 2], c
+    [32, 4] -> d [32, 4] (PTX ISA fragment layouts; exact in float64, or with
+    f32 the sum rounded to fp32 once, as fp32 accumulation would)."""
+    _, g, tt = _lanes()
+    A, B, C = np.zeros((16, 8)), np.zeros((8, 8)), np.zeros((16, 8))
+    A[g, tt], A[g + 8, tt], A[g, tt + 4], A[g + 8, tt + 4] = a.T
+    B[tt, g], B[tt + 4, g] = b.T
+    C[g, 2 * tt], C[g, 2 * tt + 1], C[g + 8, 2 * tt], C[g + 8, 2 * tt + 1] = c.T
+    D = A @ B + C
+    if f32:
+        D = D.astype(np.float32).astype(np.float64)
+    return np.stack([D[g, 2 * tt], D[g, 2 * tt + 1], D[g + 8, 2 * tt], D[g + 8, 2 * tt + 1]], 1)
+
+
+def mma_3x(ah, al, bh, bl, c, one=False):
+    """mma.cuh:mma_3xtf32, the small terms first, each product summed in
+    fp32; one: the single TF32 product hi.hi alone (the control)."""
+    if not one:
+        c = mma_1688(al, bh, c, True)
+        c = mma_1688(ah, bl, c, True)
+    return mma_1688(ah, bh, c, True)
+
+
+def ldmatrix_x4(mem, addr):
+    """ldmatrix.x4 (b16) on 32-bit words: lane l gives the row address (in
+    words) of row l % 8 of matrix l / 8 and receives word l % 4 of row l / 4
+    of each matrix."""
+    lane, _, _ = _lanes()
+    return np.stack([mem[addr[8 * i + (lane >> 2)] + (lane & 3)] for i in range(4)], 1)
+
+
+def lda_addr(row0, k0):
+    lane, _, _ = _lanes()
+    mi = lane >> 3
+    return (row0 + (mi & 1) * 8 + (lane & 7)) * LD + k0 + (mi >> 1) * 4
+
+
+def ldb2_addr(n0, k0):
+    lane, _, _ = _lanes()
+    mi = lane >> 3
+    return (n0 + (mi >> 1) * 8 + (lane & 7)) * LD + k0 + (mi & 1) * 4
+
+
+def _tile(x):
+    """[rows, 64] -> the flat [rows][68] words of a padded shared tile"""
+    out = np.zeros((x.shape[0], LD))
+    out[:, :64] = x
+    return out.reshape(-1)
+
+
+def mm_rows(a_rows, b_rows, row0):
+    """attn_tf32.cuh:mm_rows: rows [row0, row0 + 16) of a . b^T,
+    contracting over the 64 columns, in the accumulator layout [8][32, 4]"""
+    A, B = _tile(a_rows), _tile(b_rows)
+    acc = np.zeros((8, 32, 4))
+    for ks in range(8):
+        af = ldmatrix_x4(A, lda_addr(row0, ks * 8))
+        for np_ in range(4):
+            bf = ldmatrix_x4(B, ldb2_addr(np_ * 16, ks * 8))
+            acc[2 * np_] = mma_1688(af, bf[:, 0:2], acc[2 * np_])
+            acc[2 * np_ + 1] = mma_1688(af, bf[:, 2:4], acc[2 * np_ + 1])
+    return acc
+
+
+def mm_acc(x, b_rows):
+    """attn_tf32.cuh:mm_acc: x (16 x 64, accumulator layout) . the 64 rows
+    of b, columns taken in the order 2t, 2t + 1; scalar B reads"""
+    B = _tile(b_rows)
+    _, g, tt = _lanes()
+    acc = np.zeros((8, 32, 4))
+    for ks in range(8):
+        a = x[ks][:, [0, 2, 1, 3]]
+        r0 = (ks * 8 + 2 * tt) * LD + g
+        for nd in range(8):
+            at = r0 + nd * 8
+            acc[nd] = mma_1688(a, np.stack([B[at], B[at + LD]], 1), acc[nd])
+    return acc
+
+
+def mm_rows_3x(a_rows, b_rows, row0, one=False):
+    """attn_tf32.cuh:mm_rows on the hi and lo tiles of fp32 a and b (split
+    as they are stored), the three products of each fragment pair summed in
+    fp32; one: hi.hi alone"""
+    (ah, al), (bh, bl) = (tuple(_tile(t) for t in split_tf32(x)) for x in (a_rows, b_rows))
+    acc = np.zeros((8, 32, 4))
+    for ks in range(8):
+        afh = ldmatrix_x4(ah, lda_addr(row0, ks * 8))
+        afl = ldmatrix_x4(al, lda_addr(row0, ks * 8))
+        for np_ in range(4):
+            bfh = ldmatrix_x4(bh, ldb2_addr(np_ * 16, ks * 8))
+            bfl = ldmatrix_x4(bl, ldb2_addr(np_ * 16, ks * 8))
+            for j in range(2):
+                cols = slice(2 * j, 2 * j + 2)
+                acc[2 * np_ + j] = mma_3x(afh, afl, bfh[:, cols], bfl[:, cols],
+                                          acc[2 * np_ + j], one)
+    return acc
+
+
+def mm_acc_3x(x, b_rows, one=False):
+    """attn_tf32.cuh:mm_acc on the hi and lo tiles of fp32 b: x (an fp32
+    accumulator) split once in registers, its columns in the order 2t,
+    2t + 1; one: hi.hi alone"""
+    bh, bl = (_tile(t) for t in split_tf32(b_rows))
+    _, g, tt = _lanes()
+    acc = np.zeros((8, 32, 4))
+    for ks in range(8):
+        ah, al = split_tf32(x[ks][:, [0, 2, 1, 3]])
+        r0 = (ks * 8 + 2 * tt) * LD + g
+        for nd in range(8):
+            at = r0 + nd * 8
+            acc[nd] = mma_3x(ah.astype(np.float64), al.astype(np.float64),
+                             np.stack([bh[at], bh[at + LD]], 1),
+                             np.stack([bl[at], bl[at + LD]], 1), acc[nd], one)
+    return acc
+
+
+def from_acc(acc):
+    """the epilogue's stores: acc[nd][lane] holds (g, 8nd + 2t .. +1) and
+    (g + 8, ...), written as float2 at those places of a [16, 64] block"""
+    _, g, tt = _lanes()
+    out = np.full((16, 64), np.nan)
+    for nd in range(8):
+        for h in range(2):
+            out[g + 8 * h, nd * 8 + 2 * tt] = acc[nd][:, 2 * h]
+            out[g + 8 * h, nd * 8 + 2 * tt + 1] = acc[nd][:, 2 * h + 1]
+    return out
+
+
+# --- the fp32 product core's swizzled tiles (csrc/gemm_f32.cuh, hopper.cuh) --------
+
+ROW_WORDS = 32  # fp32 words of a 128-byte swizzled row
+
+
+def swz_word(row, col):
+    """The word of a 128-byte-swizzled fp32 tile that holds logical (row,
+    col), col < 32: 16-byte chunk col / 4 of the row sits at chunk (col / 4)
+    ^ (row % 8) (hopper.cuh:swz_chunk_addr)."""
+    return row * ROW_WORDS + (((col >> 2) ^ (row & 7)) << 2) + (col & 3)
+
+
+def swizzle(x):
+    """[rows, 32] fp32 -> the flat words of its swizzled tile"""
+    rows = x.shape[0]
+    out = np.zeros(rows * ROW_WORDS, dtype=x.dtype)
+    r, c = np.meshgrid(np.arange(rows), np.arange(ROW_WORDS), indexing="ij")
+    out[swz_word(r, c)] = x
+    return out

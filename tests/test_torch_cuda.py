@@ -185,8 +185,11 @@ def _close_f32(got, want):
 
 
 @pytest.mark.parametrize("n,d,lens", [(200, 64, [0, 1, 64, 65, 200]), (130, 128, [130, 7, 128, 0]),
-                                      (1, 64, [1])])
+                                      (1, 64, [1]), (129, 64, [129, 128, 127, 63]),
+                                      (257, 64, [257, 256, 129, 1])])
 def test_fp32_prefix_attention_kernel(dev, n, d, lens):
+    """d = 64 on the split 3xTF32 kernel (128 queries a block, 64-key tiles:
+    n and kv_len around both), d = 128 on the FFMA one."""
     gen = torch.Generator(device=dev).manual_seed(20)
     q, k, v = (torch.randn((len(lens), n, d), generator=gen, device=dev) for _ in range(3))
     kv = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -997,7 +1000,9 @@ def test_probe_hopper_idioms(dev):
                          "wgmma_s8_n128", "wgmma_s8_n256", "tma_3d", "tma_3d_edge",
                          "wgmma_pv", "wgmma_ss_n64", "wgmma_bwd_grad", "tma_4d_qkv",
                          "tma_4d_qkv_edge", "rope_smem", "rope_wgmma", "tma_4d_heads",
-                         "tma_4d_heads_edge", "wgmma_qk_s8", "wgmma_rs_s8", "wgmma_pv_s8"}
+                         "tma_4d_heads_edge", "wgmma_qk_s8", "wgmma_rs_s8", "wgmma_pv_s8",
+                         "tma_swizzle_f32", "tma_swizzle_f32_edge", "wgmma_tf32_ss",
+                         "wgmma_tf32_rs", "wgmma_3xtf32"}
 
 
 # --- kernel 14: int8 prefix attention --------------------------------------------
@@ -1249,8 +1254,9 @@ def test_offline_entry_points_take_int8_weights_on_fp32_rows(dev, tmp_path):
 
 @pytest.mark.parametrize("rows", [(2, 100), (1, 1), (1, 65), (1, 3072)])
 def test_fp32_forms_of_kernels_7_and_8(dev, rows):
-    """FFMA on fp32 operands: within 1e-4 of the plain versions (a bf16 or
-    single-TF32 step would read ~1e-3), fp32 out, each on its own counter."""
+    """Split 3xTF32 on fp32 operands: within 1e-4 of the plain versions (a
+    bf16 or single-TF32 step would read ~1e-3), fp32 out, each on its own
+    counter."""
     gen = torch.Generator(device=dev).manual_seed(120)
     h = torch.randn((*rows, 256), generator=gen, device=dev)
     vec = torch.randn((256,), generator=gen, device=dev) * 0.3
@@ -1273,11 +1279,53 @@ def test_fp32_forms_of_kernels_7_and_8(dev, rows):
         assert _rel(got, fused_linears.proj_gated_residual_reference(a, h, vec, p)) <= 1e-4
 
 
+@pytest.mark.parametrize("d,din,rows,segments", [(96, 96, (1, 129), 1), (256, 160, (3, 43), 2),
+                                                  (1024, 2048, (1, 127), 3)])
+def test_fp32_product_core_at_its_edges(dev, d, din, rows, segments):
+    """The split 3xTF32 core of gemm_f32.cuh at a k that is no multiple of its
+    32-deep step (TMA's zero fill: d 96 into kernel 7, din 96 and 160 into
+    kernel 8), rows around its 128-row tiles, one to three weight segments,
+    and B's two products: within 1e-4 of the plain versions (kernel 8 also
+    on its gated branch out - h, where the plain version with TF32 on is
+    not)."""
+    gen = torch.Generator(device=dev).manual_seed(122 + d)
+
+    def r(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    h, sc, sh = r((*rows, d)), r((d,), 0.3), r((d,), 0.3)
+    ps = [{"w": r((128, d), d ** -0.5), "b": r((128,), 0.1)} for _ in range(segments)]
+    got = fused_linears.ln_mod_matmul(h, sc, sh, ps)
+    with _NoTF32():
+        want = fused_linears.ln_mod_matmul_reference(h, sc, sh, ps)
+    assert _rel(got, want) <= 1e-4
+    a, res, gate = r((*rows, din)), r((*rows, 256)), r((256,), 0.3)
+    p = {"w": r((256, din), din ** -0.5), "b": r((256,), 0.1)}
+    got = fused_linears.proj_gated_residual(a, res, gate, p)
+    with _NoTF32():
+        want = fused_linears.proj_gated_residual_reference(a, res, gate, p)
+    assert _rel(got, want) <= 1e-4
+    assert _rel(got - res, want - res) <= 1e-4  # the gated branch alone
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:  # a TF32 product: the residual dilutes it in out, the branch shows it
+        tf32 = fused_linears.proj_gated_residual_reference(a, res, gate, p)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert _rel(tf32 - res, want - res) > 1e-4
+    if d % 128 == 0 and din % 128 == 0:
+        args = (h, sc, sh, r((d,), 0.3), r((din, d), d ** -0.5), r((din,), 0.1),
+                r((d, din), din ** -0.5), r((d,), 0.1))
+        got = ff_block.ff_block_fused(*args)
+        with _NoTF32():
+            assert _rel(got, ff_block.ff_block_reference(*args)) <= 1e-4
+
+
 @pytest.mark.parametrize("B,heads,n,lens,pe,past", [
     (1, 2, 1, [1], None, 0.0), (3, 2, 127, [0, 1, 127], 1, 1e4), (2, 2, 129, [128, 129], 1, 1e4),
     (3, 2, 193, [193, 1, 129], None, 1e4), (2, 16, 1536, [1376, 1536], None, 0.0)])
 def test_fp32_forms_of_kernels_18_and_19(dev, B, heads, n, lens, pe, past):
-    """Kernel A's fp32 kernel with strided heads and the rotation in fp32:
+    """Kernel A's split 3xTF32 kernel with strided heads and the rotation in fp32:
     within 1e-4 of the plain versions, 18 equal to 19 and to A's fp32 form on
     torch-roped inputs to the bit, zeros for an item without a valid key."""
     from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin

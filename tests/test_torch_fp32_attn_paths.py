@@ -28,8 +28,8 @@ them to these plain versions). Here:
   not (rel > 1e-4: the bound the card's checks hold the fp32 forms to can
   see a TF32 product);
 - a mirror of the kernels' fragment arithmetic (csrc/mma.cuh,
-  csrc/flash_prefix_train_f32.cu): mma.sync m16n8k8 .tf32 and ldmatrix on
-  32-bit words as the PTX ISA lays them out, the A and B fragment addresses
+  csrc/attn_tf32.cuh; tests/_tf32_mirror.py): mma.sync m16n8k8 .tf32 and
+  ldmatrix on 32-bit words as the PTX ISA lays them out, the A and B fragment addresses
   of lda_tf32 / ldb2_tf32, the accumulator reused as the next product's A
   fragment with its columns taken in the order 2t, 2t + 1 (mm_acc), and the
   float2 stores of the epilogue, against plain matrix products;
@@ -47,6 +47,14 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from _tf32_mirror import (
+    from_acc,
+    mm_3xtf32,
+    mm_acc,
+    mm_rows,
+    split_tf32,
+    tf32_rna,
+)
 from _torch_port_util import redraw_zero_layers, rel_err, t
 from korean_f5_tts_tpu.config import DiTConfig as JaxDiTConfig
 from korean_f5_tts_tpu.models import dit as jdit
@@ -226,27 +234,7 @@ def test_folded_i8_keeps_the_dtype_of_v():
     assert flash_prefix.flash_prefix_folded_i8(q8, k8, vk, c, sv, lens).dtype == torch.bfloat16
 
 
-# --- 3xTF32: a numpy emulation ---------------------------------------------------
-
-
-def tf32_rna(x):
-    """cvt.rna.tf32.f32: round to 10 explicit mantissa bits, ties away from
-    zero (the sign-magnitude bits plus half of the dropped range, then the
-    13 low bits cleared); finite inputs."""
-    bits = np.asarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def split_tf32(x):
-    hi = tf32_rna(x)
-    return hi, tf32_rna(np.asarray(x, np.float32) - hi)
-
-
-def mm_3xtf32(a, b):
-    """a @ b as the kernels compute it: hi.hi + hi.lo + lo.hi, each product
-    of tf32 values exact in fp32, summed in fp32"""
-    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
-    return (al @ bh) + (ah @ bl) + (ah @ bh)
+# --- 3xTF32: a numpy emulation (tests/_tf32_mirror.py) ----------------------------
 
 
 def test_tf32_rounding():
@@ -288,94 +276,7 @@ def test_3xtf32_holds_fp32_accuracy_where_one_tf32_product_does_not():
         assert one > 1e-4, (name, one)
 
 
-# --- the kernels' fragment arithmetic, mirrored ------------------------------------
-
-LD = 68  # the kernels' row stride, words
-
-
-def _lanes():
-    lane = np.arange(32)
-    return lane, lane >> 2, lane & 3
-
-
-def mma_1688(a, b, c):
-    """mma.sync.m16n8k8 .tf32 on per-lane registers: a [32, 4], b [32, 2], c
-    [32, 4] -> d [32, 4] (PTX ISA fragment layouts; exact in float64)."""
-    _, g, tt = _lanes()
-    A, B, C = np.zeros((16, 8)), np.zeros((8, 8)), np.zeros((16, 8))
-    A[g, tt], A[g + 8, tt], A[g, tt + 4], A[g + 8, tt + 4] = a.T
-    B[tt, g], B[tt + 4, g] = b.T
-    C[g, 2 * tt], C[g, 2 * tt + 1], C[g + 8, 2 * tt], C[g + 8, 2 * tt + 1] = c.T
-    D = A @ B + C
-    return np.stack([D[g, 2 * tt], D[g, 2 * tt + 1], D[g + 8, 2 * tt], D[g + 8, 2 * tt + 1]], 1)
-
-
-def ldmatrix_x4(mem, addr):
-    """ldmatrix.x4 (b16) on 32-bit words: lane l gives the row address (in
-    words) of row l % 8 of matrix l / 8 and receives word l % 4 of row l / 4
-    of each matrix."""
-    lane, _, _ = _lanes()
-    return np.stack([mem[addr[8 * i + (lane >> 2)] + (lane & 3)] for i in range(4)], 1)
-
-
-def lda_addr(row0, k0):
-    lane, _, _ = _lanes()
-    mi = lane >> 3
-    return (row0 + (mi & 1) * 8 + (lane & 7)) * LD + k0 + (mi >> 1) * 4
-
-
-def ldb2_addr(n0, k0):
-    lane, _, _ = _lanes()
-    mi = lane >> 3
-    return (n0 + (mi >> 1) * 8 + (lane & 7)) * LD + k0 + (mi & 1) * 4
-
-
-def _tile(x):
-    """[rows, 64] -> the flat [rows][68] words of a padded shared tile"""
-    out = np.zeros((x.shape[0], LD))
-    out[:, :64] = x
-    return out.reshape(-1)
-
-
-def mm_rows(a_rows, b_rows, row0):
-    """flash_prefix_train_f32.cu:mm_rows: rows [row0, row0 + 16) of a . b^T,
-    contracting over the 64 columns, in the accumulator layout [8][32, 4]"""
-    A, B = _tile(a_rows), _tile(b_rows)
-    acc = np.zeros((8, 32, 4))
-    for ks in range(8):
-        af = ldmatrix_x4(A, lda_addr(row0, ks * 8))
-        for np_ in range(4):
-            bf = ldmatrix_x4(B, ldb2_addr(np_ * 16, ks * 8))
-            acc[2 * np_] = mma_1688(af, bf[:, 0:2], acc[2 * np_])
-            acc[2 * np_ + 1] = mma_1688(af, bf[:, 2:4], acc[2 * np_ + 1])
-    return acc
-
-
-def mm_acc(x, b_rows):
-    """flash_prefix_train_f32.cu:mm_acc: x (16 x 64, accumulator layout) .
-    the 64 rows of b, columns taken in the order 2t, 2t + 1; scalar B reads"""
-    B = _tile(b_rows)
-    _, g, tt = _lanes()
-    acc = np.zeros((8, 32, 4))
-    for ks in range(8):
-        a = x[ks][:, [0, 2, 1, 3]]
-        r0 = (ks * 8 + 2 * tt) * LD + g
-        for nd in range(8):
-            at = r0 + nd * 8
-            acc[nd] = mma_1688(a, np.stack([B[at], B[at + LD]], 1), acc[nd])
-    return acc
-
-
-def from_acc(acc):
-    """the epilogue's stores: acc[nd][lane] holds (g, 8nd + 2t .. +1) and
-    (g + 8, ...), written as float2 at those places of a [16, 64] block"""
-    _, g, tt = _lanes()
-    out = np.full((16, 64), np.nan)
-    for nd in range(8):
-        for h in range(2):
-            out[g + 8 * h, nd * 8 + 2 * tt] = acc[nd][:, 2 * h]
-            out[g + 8 * h, nd * 8 + 2 * tt + 1] = acc[nd][:, 2 * h + 1]
-    return out
+# --- the kernels' fragment arithmetic, mirrored (tests/_tf32_mirror.py) -------------
 
 
 def test_fragment_arithmetic_of_the_3xtf32_kernels():
