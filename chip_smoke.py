@@ -9,11 +9,14 @@ Phases (any failure raises and exits non-zero):
   2. hold each of the sixteen kernels, kernel 14's quantization pass and
      the fp32 forms of A, B, C, 7, 8, 14 and its pass, 18, 19 (what the
      offline entry points run by default, under each attn_path and
-     attn_int8) and of 10-13 (what fp32 training runs; A, B, 7, 8, 10-13,
-     18 and 19 split 3xTF32 products on the tensor cores, each with a TF32
-     control that must fail its bound; B, 7, 8 fp32 must beat their plain
-     versions, 10 fp32 the library's fp32 forward; A fp32 beside the fp32
-     library attention on keys sliced to the common kv_len; bound of every
+     attn_int8) and of 10-13 (what fp32 training runs; A, B, C, 7, 8,
+     10-13, 18 and 19 split 3xTF32 products on the tensor cores, 14 "qk"
+     exact int8 scores and a split 3xTF32 P.V, each with a TF32 control that
+     must fail its bound; B, C, 7, 8 fp32 must beat their plain versions, 10
+     fp32 the library's fp32 forward; C fp32 at the bf16 form's edges, the
+     fp32 library composition (conv with bias, then Mish) beside it; A fp32
+     beside the fp32 library attention on keys sliced to the common kv_len;
+     bound of every
      fp32 form: its fp32-accurate products at the 3xTF32 rate, 494.7 / 3
      TFLOP/s, with the FFMA rate's 67 TFLOP/s printed beside) (bf16: A, B,
      C; int8: 9, 5, 6, 4;
@@ -164,7 +167,7 @@ last line is {"ok": true, "device": {...}}.
 
 instead times kernels A, B, C, 7, 8, 4, 5, 6, 9, 14 (both modes, each with
 its quantization pass, through flash_prefix_attention_i8), 18, 19, the fp32
-forms of A, B, 7, 8, 14 (both modes), 18, 19 and, at the training shape,
+forms of A, B, C, 7, 8, 14 (both modes), 18, 19 and, at the training shape,
 10, 11, 12 and 13 in bf16 and fp32 of the
 checkout at PARENT (for example the parent commit unpacked by `git archive`)
 and of this one under one timer, in turns parent, change, change, parent,
@@ -295,10 +298,10 @@ def fail(msg: str) -> None:
 # kernels whose spills fail phase 1, by a substring of their names: the wgmma
 # cores; the split 3xTF32 kernels (the fp32 forms of A, 10, 18, 19 in
 # flash_prefix_fwd_tf32_kernel, of 11-13, of B, 7, 8 in ln_mod_gemm_tf32_kernel
-# and gated_residual_gemm_tf32_kernel, and the .tf32 probes); A's fp32 FFMA
-# kernel at d = 128; the fp32 forms of 14 and its pass
-SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "flash_prefix_i8_f32_kernel",
-                 "quant_heads_kernel")
+# and gated_residual_gemm_tf32_kernel, of C in grouped_conv_tf32_kernel, of 14
+# "qk" in flash_prefix_i8_qk_tf32_kernel, and the .tf32 probes); A's fp32 FFMA
+# kernel at d = 128; 14's pass
+SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "quant_heads_kernel")
 
 
 def ptxas_faults(log: str) -> list[str]:
@@ -654,9 +657,9 @@ def check_conv(gen, dev) -> dict:
 
 
 def faster_than_plain(name: str, r: dict) -> None:
-    """The fp32 forms of B, 7 and 8 run on the tensor cores as 3xTF32
-    products: each must beat its plain version (cuBLAS's fp32 products) in
-    the same run."""
+    """The fp32 forms of B, C, 7 and 8 run on the tensor cores as 3xTF32
+    products: each must beat its plain version (cuBLAS's fp32 products,
+    cuDNN's fp32 convolution) in the same run."""
     print(f"  {name}: {r['ms']:.4f} ms against its plain version's {r['plain_ms']:.4f} "
           f"({r['ms'] / r['plain_ms']:.2f}x)")
     if r["ms"] >= r["plain_ms"]:
@@ -667,11 +670,14 @@ def check_fp32_forms(gen, dev) -> dict[str, dict]:
     """The fp32 forms of kernels A, B and C at the main shapes and at ragged
     ones against their plain versions (which compute in fp32 whatever the
     input; the plain conv with cuDNN's TF32 off, as everywhere in this
-    script). A (d = 64) and B are split 3xTF32 products on the tensor cores,
-    C and A at d = 128 FFMA; the bound takes the 3xTF32 rate, the FFMA one
-    printed beside. A TF32 control for A and B (the plain version with TF32
-    on must fail F32_REL); B must beat its plain version; A beside the fp32
-    library attention on keys sliced to the common kv_len."""
+    script). A (d = 64), B and C are split 3xTF32 products on the tensor
+    cores, A at d = 128 FFMA; the bound takes the 3xTF32 rate, the FFMA one
+    printed beside. A TF32 control for A, B and C (the plain version with
+    TF32 on must fail F32_REL); B and C must beat their plain versions; C at
+    the bf16 form's edges (CONV_EDGES, two weight draws, without bias,
+    without Mish); A beside the fp32 library attention on keys sliced to the
+    common kv_len, C beside the fp32 library composition (cuDNN's grouped
+    conv with its bias, TF32 off, then Mish; no one call computes C)."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import ff_block as fb
@@ -752,27 +758,62 @@ def check_fp32_forms(gen, dev) -> dict[str, dict]:
                  4.0 * 3072 * 1024 * 2048, (args, args[0]), kind="fp32")}
     faster_than_plain("ff_block_f32", out["ff_block_f32"])
 
-    print(f"kernel C on fp32 operands (rel bound {F32_REL:.0e})")
+    print(f"kernel C on fp32 operands (split 3xTF32, each tap summed apart; rel bound "
+          f"{F32_REL:.0e})")
 
     def conv_inputs(B, N, C=1024, k=31):
+        return torch.randn((B, N, C), generator=gen, device=dev), *conv_weights(C, k)
+
+    def conv_weights(C=1024, k=31):
         bound = (C // 16 * k) ** -0.5
-        return (torch.randn((B, N, C), generator=gen, device=dev), uni((k, C // 16, C), bound),
-                uni((C,), bound))
+        return uni((k, C // 16, C), bound), uni((C,), bound)
 
     x, w, b = conv_inputs(2, 1536)
-    max_abs, _ = compare("grouped_conv fp32 main B=2 N=1536 C=1024 k=31",
-                         gc.grouped_conv1d_mish(x, w, b, 16),
-                         gc.grouped_conv1d_mish_reference(x, w, b, 16), F32_REL)
+    got = gc.grouped_conv1d_mish(x, w, b, 16)
+    want = gc.grouped_conv1d_mish_reference(x, w, b, 16)
+    max_abs, _ = compare("grouped_conv fp32 main B=2 N=1536 C=1024 k=31", got, want, F32_REL)
     xr, wr, br = conv_inputs(1, 1000)
     compare("grouped_conv fp32 ragged N=1000", gc.grouped_conv1d_mish(xr, wr, br, 16),
             gc.grouped_conv1d_mish_reference(xr, wr, br, 16), F32_REL)
     compare("grouped_conv fp32 no bias, no mish", gc.grouped_conv1d_mish(xr, wr, None, 16, False),
             gc.grouped_conv1d_mish_reference(xr, wr, None, 16, False), F32_REL)
+    # the bf16 form's edges (check_conv): the 128-row block and its window, items,
+    # the two weight draws of ConvPositionEmbedding
+    for i, (wl, bl) in enumerate((conv_weights(), conv_weights())):
+        for B, N in CONV_EDGES:
+            xe = torch.randn((B, N, 1024), generator=gen, device=dev)
+            for bias, mish in ((True, True), (False, True), (True, False)):
+                be = bl if bias else None
+                compare(f"grouped_conv fp32 layer {i} B={B} N={N} bias={bias} mish={mish}",
+                        gc.grouped_conv1d_mish(xe, wl, be, 16, mish),
+                        gc.grouped_conv1d_mish_reference(xe, wl, be, 16, mish), F32_REL)
+    tf32_control("kernel C fp32", lambda: gc.grouped_conv1d_mish_reference(x, w, b, 16), want,
+                 F32_REL)
     out["grouped_conv_f32"] = {
         "max_abs_err": max_abs,
         **_timed(lambda: gc.grouped_conv1d_mish(x, w, b, 16),
                  lambda: gc.grouped_conv1d_mish_reference(x, w, b, 16),
-                 2.0 * 2 * 1536 * 1024 * (1024 // 16) * 31, (x, w, b, x), kind="fp32")}
+                 2.0 * 2 * 1536 * 1024 * (1024 // 16) * 31, (x, w, b, got), kind="fp32")}
+    faster_than_plain("grouped_conv_f32", out["grouped_conv_f32"])
+    # no one PyTorch call computes conv + bias + Mish; the fp32 composition is
+    # printed beside the kernel and kept in the kernels line
+    # (library_composition_ms), with TF32 off (fp32-accurate) and on (not)
+    wt = w.permute(2, 1, 0).contiguous()
+    composition = lambda: torch.nn.functional.mish(
+        torch.nn.functional.conv1d(x.transpose(1, 2), wt, b, padding=15, groups=16))
+    comp_rel = _rel(composition().transpose(1, 2), want)
+    comp_ms = cuda_time_ms(composition)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_rel = _rel(composition().transpose(1, 2), want)
+        tf32_ms = cuda_time_ms(composition)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    out["grouped_conv_f32"]["library_composition_ms"] = comp_ms
+    print(f"  library: none; F.conv1d(groups=16) with bias, then F.mish, fp32 (cuDNN TF32 off) "
+          f"{comp_ms:.4f} ms, rel {comp_rel:.3e} to plain (C fp32 takes "
+          f"{out['grouped_conv_f32']['ms'] / comp_ms:.2f}x its time); with cuDNN's TF32 on "
+          f"{tf32_ms:.4f} ms, rel {tf32_rel:.3e} (not fp32-accurate)")
     return out
 
 
@@ -780,8 +821,11 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
     """The fp32 forms of kernels 7, 8, 18, 19, 14 and its quantization pass
     (what the offline entry points' default fp32 weights run under attn_path
     and attn_int8) at the main shapes and at ragged and edge cases, against
-    their plain versions (which compute in fp32; TF32 off): 7, 8, 18, 19 and
-    14 "qk" within F32_REL (nothing is rounded below fp32), 18 against 19 and
+    their plain versions (which compute in fp32; TF32 off): 7, 8, 18, 19
+    within F32_REL (nothing is rounded below fp32), 14 "qk" (exact int8
+    scores, split 3xTF32 P.V) within F32_ATTN_REL, the bound of every fp32
+    attention forward (its plain output through bf16 and its plain version
+    with TF32 on must fail it), 18 against 19 and
     against kernel A's fp32 form on torch-roped inputs to the bit (one kernel
     over three layouts), 14 "qkpv" (the attention core's int8 form with an
     fp32 output) within INT8_F32_REL (p8 ties; the plain output rounded
@@ -917,7 +961,8 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
     del qkv, q, k, v, got18, got19
 
     print("kernel 14 and its quantization pass on fp32 operands (the pass to the bit; 14 'qk' "
-          f"(FFMA) within {F32_REL:.0e}: exact integer scores, fp32 p.v; 'qkpv' (the attention "
+          f"within {F32_ATTN_REL:.0e}: exact integer scores on mma.sync .s8, P.V split 3xTF32; "
+          "'qkpv' (the attention "
           f"core's int8 form, fp32 out) within {INT8_F32_REL:.0e}: p8 ties, no bf16 step; the "
           "quantization error against kernel A's fp32 form by QUANT_TAIL's count rule)")
     pass_err = []  # the pass's largest difference from its plain version, per case
@@ -952,7 +997,7 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
         rows = (torch.arange(n, device=dev)[None, :, None] < lens_h[:, None, None])[live]
         valid = int(rows.sum().item()) * 64
         errs = {}
-        for mode, pv_i8, rel_bound in (("qkpv", True, INT8_F32_REL), ("qk", False, F32_REL)):
+        for mode, pv_i8, rel_bound in (("qkpv", True, INT8_F32_REL), ("qk", False, F32_ATTN_REL)):
             got = fp.flash_prefix_attention_i8(q, k, v, kv, pv_i8=pv_i8).reshape(B * H, n, 64)
             want = fp.flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=pv_i8)
             torch.cuda.synchronize()
@@ -971,6 +1016,9 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
                 if control <= rel_bound:
                     fail(f"flash_prefix_i8 fp32 {mode} {label}: the bound does not catch a bf16 "
                          "step")
+                if mode == "qk":
+                    tf32_control(f"kernel 14 fp32 qk {label}", lambda: fp.flash_prefix_i8_reference(
+                        q, k, v, lens_h, pv_i8=False)[live], want[live], rel_bound)
             if past:
                 continue
             err = (got - via_a).abs()[live] * rows
@@ -1009,9 +1057,9 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
     # "qk": S is an int8 product, P.V an fp32-accurate one; the bound takes
     # S's half at the int8 rate, counted here in 3xTF32-rate equivalents
     ops_qk = ops / 2 * (1 + PEAK_OPS["fp32_3xtf32"] / PEAK_OPS["int8"])
-    print("  kernel 14 fp32 qk on quantized operands (FFMA; S exact, fp32 p.v; the bound's "
-          f"{ops / 2e9:.2f} GOP of S at the int8 rate, as {ops_qk / 1e9 - ops / 2e9:.2f} GFLOP of "
-          "3xTF32):")
+    print("  kernel 14 fp32 qk on quantized operands (S exact on mma.sync .s8, P.V split 3xTF32; "
+          f"the bound's {ops / 2e9:.2f} GOP of S at the int8 rate, as "
+          f"{ops_qk / 1e9 - ops / 2e9:.2f} GFLOP of 3xTF32):")
     t14qk = _timed(lambda: fp.flash_prefix_folded_i8(q8, k8, vf, c, sv, lens_h, pv_i8=False),
                    lambda: fp._i8_attention_plain(q8, k8, vf, c, sv, lens_h, False,
                                                   fp.I8_KEY_TILE),
@@ -2210,7 +2258,7 @@ AB_KERNELS = {"flash_prefix": "A", "ff_block": "B", "grouped_conv": "C",
               "flash_prefix_lse": "10", "flash_prefix_dq_lsein": "11", "flash_prefix_dq": "12",
               "flash_prefix_dkv": "13", "flash_prefix_rope": "18", "flash_prefix_qkv": "19",
               "flash_prefix_i8": "14 qkpv + its pass", "flash_prefix_i8_qk": "14 qk + its pass",
-              "flash_prefix_f32": "A fp32", "ff_block_f32": "B fp32",
+              "flash_prefix_f32": "A fp32", "ff_block_f32": "B fp32", "grouped_conv_f32": "C fp32",
               "flash_prefix_lse_f32": "10 fp32", "flash_prefix_dq_lsein_f32": "11 fp32",
               "flash_prefix_dq_f32": "12 fp32", "flash_prefix_dkv_f32": "13 fp32",
               "ln_mod_matmul_f32": "7 fp32", "proj_gated_residual_f32": "8 fp32",
@@ -2232,6 +2280,7 @@ AB_UNMOVED = ("flash_prefix", "ff_block", "grouped_conv", "ln_mod_matmul",
               "proj_gated_residual_int8", "qmatmul", "flash_prefix_lse", "flash_prefix_dq_lsein",
               "flash_prefix_dq", "flash_prefix_dkv", "flash_prefix_rope", "flash_prefix_qkv",
               "flash_prefix_i8", "flash_prefix_i8_qk", "flash_prefix_f32", "ff_block_f32",
+              "grouped_conv_f32",
               "flash_prefix_lse_f32", "flash_prefix_dq_lsein_f32", "flash_prefix_dq_f32",
               "flash_prefix_dkv_f32", "ln_mod_matmul_f32", "proj_gated_residual_f32",
               "flash_prefix_rope_f32", "flash_prefix_qkv_f32", "flash_prefix_i8_f32",
@@ -2339,6 +2388,7 @@ def core_timings(dev, absent=()) -> dict[str, float]:
                                         ("gate", gate), ("aq", aq), ("ak", ak), ("av", av),
                                         ("qkv", qkv), ("cos", cos), ("sin", sin))}
     f_ff = tuple(t.float() for t in ff)
+    f_cw, f_cb = cw.float(), cb.float()
     f_ps = [{k: t.float() for k, t in p.items()} for p in ps]
     fq, fk, fv = (t.contiguous() for t in fp.qkv_unpack(f["qkv"], 16))
     f4 = [t.reshape(2, 16, 1536, 64) for t in (f["aq"], f["ak"], f["av"])]
@@ -2356,6 +2406,9 @@ def core_timings(dev, absent=()) -> dict[str, float]:
                              F32_REL),
         "ff_block_f32": (lambda: fb.ff_block_fused(*f_ff), lambda: fb.ff_block_reference(*f_ff),
                          F32_REL),
+        "grouped_conv_f32": (lambda: gc.grouped_conv1d_mish(f["h"], f_cw, f_cb, 16),
+                             lambda: gc.grouped_conv1d_mish_reference(f["h"], f_cw, f_cb, 16),
+                             F32_REL),
         "flash_prefix_lse_f32": (lambda: fp.flash_prefix_folded_lse(*ft[:3], tkv)[0],
                                  lambda: fto, F32_ATTN_REL),
         "flash_prefix_dq_lsein_f32": (lambda: fp.flash_prefix_dq_lsein(*ft),
@@ -3222,11 +3275,12 @@ def offline_fp32_paths(dev, card: str, ref_path: str) -> dict[str, int]:
 def profile_fp32_chunks(profile: Path) -> None:
     """One fp32 utterance chunk (F5TTS(device="cuda") with its default fp32
     weights, FP32_PATH_TEXT: one chunk) under the profiler on the default
-    attn_path, on linear_fused and on qkv_kernel: the device time of each and
-    its kernels by device time (the fp32 forms of A, B, C, 7, 8, 19), tables
-    to profile's .fp32.<attn_path> siblings. Not gated. The entry points
-    are those of any tree since fp32 models ran every attn_path, so a
-    parent's package times the same way."""
+    attn_path, on linear_fused, on qkv_kernel and on the default path with
+    attn_int8 "qk": the device time of each and its kernels by device time
+    (the fp32 forms of A, B, C, 7, 8, 19, 14 "qk" and its pass), tables to
+    profile's .fp32.<attn_path> (.fp32.attn_int8_qk) siblings. Not gated.
+    The entry points are those of any tree since fp32 models ran every
+    attn_path and attn_int8, so a parent's package times the same way."""
     import tempfile
 
     import numpy as np
@@ -3243,15 +3297,17 @@ def profile_fp32_chunks(profile: Path) -> None:
         ref_path = str(Path(tmp) / "ref.wav")
         wavfile.write(ref_path, SR, (0.3 * np.sin(2 * np.pi * (150.0 + 400.0 * t) * t)
                                      * 32767).astype(np.int16))
-        for attn_path in ("default", "linear_fused", "qkv_kernel"):
-            tts = F5TTS(vocab_file=vocab, attn_path=attn_path)
+        for attn_path, attn_int8 in (("default", None), ("linear_fused", None),
+                                     ("qkv_kernel", None), ("default", "qk")):
+            tts = F5TTS(vocab_file=vocab, attn_path=attn_path, attn_int8=attn_int8)
             redraw_zero_init(tts.ema_model.params, seed=1)
+            label = f"attn_int8_{attn_int8}" if attn_int8 else attn_path
             busy = profile_once(
                 lambda: tts.infer(ref_path, REF_TEXT, FP32_PATH_TEXT, nfe_step=STEPS, seed=3,
                                   **quiet),
-                profile.with_suffix(f".fp32.{attn_path}.txt"),
-                f"one fp32 utterance chunk, attn_path {attn_path}")
-            print(f"phase 8: an fp32 utterance chunk on {attn_path}: {busy:.2f} ms of device time")
+                profile.with_suffix(f".fp32.{label}.txt"),
+                f"one fp32 utterance chunk, {label}")
+            print(f"phase 8: an fp32 utterance chunk on {label}: {busy:.2f} ms of device time")
             del tts
             torch.cuda.empty_cache()
 
@@ -3993,15 +4049,15 @@ def main(argv=None) -> int:
                         help="also profile one bench-protocol utterance per mode, an int8 "
                              "batch of 2 under a duration mask (kernel 9's path), one "
                              "utterance per opt-in attn_path (with phase 7), one fp32 "
-                             "utterance chunk on the default path, linear_fused and "
-                             "qkv_kernel (with phase 8), one with int8 attention (with phase "
-                             "9) and one training step; tables to this file (int8) and to its "
-                             ".bf16, .batch2, .<attn_path>, .fp32.<attn_path>, .attn_int8 and "
-                             ".train siblings")
+                             "utterance chunk on the default path, linear_fused, qkv_kernel "
+                             "and attn_int8 'qk' (with phase 8), one with int8 attention (with "
+                             "phase 9) and one training step; tables to this file (int8) and "
+                             "to its .bf16, .batch2, .<attn_path>, .fp32.<attn_path>, "
+                             ".fp32.attn_int8_qk, .attn_int8 and .train siblings")
     parser.add_argument("--ab", type=Path, default=None, metavar="PARENT",
                         help="instead of the phases: time kernels A, B, C, 7, 8, 4, 5, 6, 9, "
                              "10-13, 14 (and its quantization pass), 18 and 19, their fp32 "
-                             "forms, and the library yardsticks of A, 10 and 11 + 13 (bf16 and "
+                             "forms (C's among them), and the library yardsticks of A, 10 and 11 + 13 (bf16 and "
                              "fp32) of the checkout at PARENT and of this one under one timer, "
                              "in turns parent, change, change, parent (a process each), and "
                              "fail if any kernel is more than 5%% slower than the parent's")
@@ -4128,7 +4184,8 @@ def main(argv=None) -> int:
                 "ms": results[name].get("ms"), "plain_ms": results[name].get("plain_ms"),
                 "bound_ms": results[name].get("bound_ms"),
                 "bound_by": results[name].get("bound_by"),
-                "library_ms": results[name].get("library_ms")}
+                "library_ms": results[name].get("library_ms"),
+                **{k: results[name][k] for k in ("library_composition_ms",) if k in results[name]}}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,194 +6,189 @@
 // _kernel_i8 (via flash_prefix_attention_i8, whose out_dtype is v's dtype,
 // :939 and :944). Per folded head h:
 //   s   = float(q8 . k8^T) * c[h]           exact integer product, base-2 domain
-//   keys at or past kv_lens[h] masked; online max m and sum l in fp32 over
-//   128-key tiles, l adding p = exp2(s - m)
+//   keys at or past kv_lens[h] masked; online max m and sum l in fp32,
+//   l adding p = exp2(s - m)
 //   acc = acc * alpha + p . v               fp32 p times fp32 v, as the JAX
 //                                           kernel does on fp32 (:846)
 //   out = acc * (1 / l), fp32
 // The quantization pass (quant_heads.cu) reads the fp32 q, k, v as they
 // are. "qkpv" on fp32 inputs runs on the attention core's int8 form with an
 // fp32 output (flash_prefix_int8.cu, kAttnI8QkpvF32): its products are int8
-// there, and this kernel exists for the fp32 p.v the core cannot do. The key
-// tile is I8_KEY_TILE = 128, the core's, and the plain version
-// (ops/flash_prefix.py:_i8_attention_plain at ck = 128) repeats it operation
-// for operation: each product and sum of the update rounded once as torch
-// rounds them.
+// there, and this kernel exists for the fp32 p.v the core cannot do.
 //
-// Exactness: |q8 . k8| over d = 64 is at most 127^2 * 64 = 1,032,256 < 2^24,
-// so FFMA on the integer values (every partial sum an integer below 2^24)
-// gives the integer scores exactly. No TF32 product anywhere: p . v is FFMA.
+// What bounds it on the card: S, 2 * H * n * kv * 64 integer operations (8.7
+// GOP at the main shape, H 32, n 1536, 1376 valid keys: 0.0044 ms at the
+// 1,979 TOP/s of int8), and P.V, as many fp32-accurate flops (8.7 GFLOP:
+// 0.053 ms at the tensor cores' TF32 rate taken three times, 494.7 / 3
+// TFLOP/s): 0.057 ms, against 3.1 MB of q8, k8, 12.6 MB of fp32 v in and
+// 12.6 MB of fp32 out (0.0085 ms).
 //
-// What bounds it on the card: the FFMA products, 4 * H * n * kv * 64 flops
-// (17.3 GFLOP at the main shape, H 32, n 1536, 1376 valid keys: 0.26 ms at
-// the 67 TFLOP/s of fp32 outside the tensor cores), against 3.1 MB of q8,
-// k8, 12.6 MB of fp32 v in and 12.6 MB of fp32 out.
-//
-// Design: kernel A's fp32 form (flash_prefix.cu) with 128-key tiles. One
-// 256-thread block per (head, 64 query rows); thread (ty, tx) of the 16 x
-// 16 grid owns rows ty * 4 + i, keys tx * 4 + j and 64 + tx * 4 + j of the
-// tile and output columns tx * 4 + j. q8 and k8 land transposed ([c][row])
-// as floats, so the score loop reads float4; the v tile lands as [key][c];
-// p goes through shared memory, over the K tile, whose readers are done.
-// 86 KB of shared memory: two blocks an SM.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// Design: kernel A's split 3xTF32 forward (flash_prefix.cu:
+// flash_prefix_fwd_tf32_kernel, attn_tf32.cuh) with S on the int8 tensor
+// cores. 256 threads, eight warps of 16 queries, 128 queries a block,
+// 64-key tiles; grid (ceil(n / 128), H), 12 x 32 = 384 blocks at the main
+// shape.
+//   S    mma.sync m16n8k32 .s32.s8.s8 (mma.cuh): exact by construction, the
+//        function's own integer product (|q8 . k8| <= 127^2 * 64 < 2^31).
+//        A warp's q8 A fragments (16 rows x 64 bytes, two k32 steps) are
+//        read from device memory once, into registers, for the whole sweep;
+//        each K tile lands as int8 [key][80 bytes] (k8 is [key][c]: already
+//        the [n][k] B operand; the 16-byte pad puts the eight row segments
+//        of one ldmatrix phase into distinct bank groups). The s32
+//        accumulator has the .tf32 one's layout, so float(s) * c[h] is
+//        masked and turned into P = exp2(s - m) in place, as in kernel A.
+//   P.V  split 3xTF32 (attn_tf32.cuh:mm_acc): P straight from the
+//        accumulator as the A fragment with its columns in the order 2t,
+//        2t + 1, split once in registers; the V tile split into hi and lo
+//        tf32 tiles as it is stored, the next tile's K (16 bytes a thread)
+//        and V rows (16 floats) loaded into registers while this tile's
+//        products run. Each tile's P.V goes into an accumulator of its own,
+//        zeroed per tile, and o = o * alpha + that in fp32: the tensor
+//        cores' fp32 accumulation truncates (probe_hopper.cu's accumulation
+//        probe), and one chain over a 1376-key sweep would carry that bias
+//        into o; a tile's chain is 24 products deep.
+//   key tile  I8_KEY_TILE = 128 is part of the function only in "qkpv",
+//        where p8 sees the running max; here p stays fp32 and the tile
+//        changes only where the online softmax rounds, so the plain version
+//        (ops/flash_prefix.py:_i8_attention_plain at ck = 128) is held at
+//        the fp32 attention bound. 64 keys as in kernel A: one mm_acc a
+//        tile, the accumulators of S, P.V and o 96 registers a thread.
+//   edges  the sweep stops at ceil(kv_len / 64) tiles; keys past kv_len get
+//        P = 0 (so +-1e4 planted there never reaches o); K and V rows past n
+//        and q rows past n are zero-filled, and rows past n are never
+//        stored; a head with kv_len 0 gets zeros.
+// 39 KB of static shared memory (the K tile 5 KB, V hi and lo 34 KB) and
+// 198 registers a thread (ptxas): one block an SM. Two blocks an SM would
+// cap a thread at 128 registers, and the accumulators alone take 96.
+#include "attn_tf32.cuh"
 
 namespace f5 {
 namespace {
 
-constexpr int kI8F32Threads = 256;
-constexpr int kI8F32Keys = 128;           // the key tile, I8_KEY_TILE
-constexpr int kI8F32LdQ = 64 + 4;         // [c][row] q tile and [key][c] v tile
-constexpr int kI8F32LdK = kI8F32Keys + 4;  // [c][key] k tile and [row][key] p tile
-constexpr int kI8F32Smem =
-    (64 * kI8F32LdQ + 64 * kI8F32LdK + kI8F32Keys * kI8F32LdQ) * (int)sizeof(float);
+constexpr int kQkRows = 128;       // queries a block
+constexpr int kQkTile = 64;        // keys a tile
+constexpr int kQkLd8 = 64 + 16;    // bytes between the rows of the int8 K tile
 
-// rows [row0, row0 + rows) of an int8 [n, 64] head as floats, transposed into
-// dst[c][row] of row stride ld; rows at or past n give zeros
-__device__ __forceinline__ void load_i8_rows_t(float* dst, int ld, const int8_t* src, int row0,
-                                               int rows, int n, int tid) {
-  for (int i = tid; i < rows * 16; i += kI8F32Threads) {
-    const int r = i % rows, c = (i / rows) * 4;
-    char4 v = make_char4(0, 0, 0, 0);
-    if (row0 + r < n) v = *reinterpret_cast<const char4*>(src + (size_t)(row0 + r) * 64 + c);
-    dst[(c + 0) * ld + r] = (float)v.x;
-    dst[(c + 1) * ld + r] = (float)v.y;
-    dst[(c + 2) * ld + r] = (float)v.z;
-    dst[(c + 3) * ld + r] = (float)v.w;
-  }
+// the 16 bytes thread tid holds of a 64-row int8 tile: row tid / 4, bytes
+// 16 (tid % 4) ..; rows at or past n give zeros
+__device__ __forceinline__ int4 k8_load(const int8_t* k8, int row0, int n, int tid) {
+  const int row = row0 + (tid >> 2);
+  return row < n ? *reinterpret_cast<const int4*>(k8 + (size_t)row * 64 + (tid & 3) * 16)
+                 : make_int4(0, 0, 0, 0);
 }
 
-__device__ __forceinline__ float row16_sum_i8(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// one 32-bit word of a q8 A fragment: row `row` (zero at or past n), bytes
+// byte .. byte + 3
+__device__ __forceinline__ uint32_t q8_word(const int8_t* q8, int row, int byte, int n) {
+  return row < n ? *reinterpret_cast<const uint32_t*>(q8 + (size_t)row * 64 + byte) : 0u;
 }
 
-__device__ __forceinline__ float row16_max_i8(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__global__ void __launch_bounds__(kI8F32Threads, 2)
-flash_prefix_i8_f32_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                           const float* __restrict__ v, const float* __restrict__ cs,
-                           const int* __restrict__ kv_lens, float* __restrict__ out, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQt = reinterpret_cast<float*>(smem_raw);  // [64 c][68]
-  float* sKt = sQt + 64 * kI8F32LdQ;                // [64 c][132], then P [64 rows][132]
-  float* sV = sKt + 64 * kI8F32LdK;                 // [128 keys][68]
+// warp w owns queries q0 + 16w .. + 15; lane (g, t) holds rows 16w + g and
+// 16w + g + 8, columns 8j + 2t, 8j + 2t + 1 of S and of o
+__global__ void __launch_bounds__(kT32, 1)
+flash_prefix_i8_qk_tf32_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
+                               const float* __restrict__ v, const float* __restrict__ cs,
+                               const int* __restrict__ kv_lens, float* __restrict__ out, int n) {
+  __shared__ __align__(16) int8_t sK8[kQkTile * kQkLd8];
+  __shared__ __align__(16) uint32_t sVh[kQkTile * kLD32];
+  __shared__ __align__(16) uint32_t sVl[kQkTile * kLD32];
   const int head = blockIdx.y;
-  const int q0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const size_t off = (size_t)head * n * 64;
+  const int q0 = blockIdx.x * kQkRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const size_t off = (size_t)head * n * kD32;
   const int kv_len = min(kv_lens[head], n);
   const float c = cs[head];
 
-  load_i8_rows_t(sQt, kI8F32LdQ, q8 + off, q0, 64, n, tid);
-
-  float acc[4][4];
-  float m_run[4], l_run[4];
+  // this warp's q8 rows as the A fragments of the two k32 steps
+  uint32_t qa[2][4];
+  {
+    const int8_t* qh = q8 + off;
+    const int r = q0 + wr + g;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
+    for (int ks = 0; ks < 2; ++ks) {
+      qa[ks][0] = q8_word(qh, r, ks * 32 + 4 * t, n);
+      qa[ks][1] = q8_word(qh, r + 8, ks * 32 + 4 * t, n);
+      qa[ks][2] = q8_word(qh, r, ks * 32 + 16 + 4 * t, n);
+      qa[ks][3] = q8_word(qh, r + 8, ks * 32 + 16 + 4 * t, n);
+    }
   }
+  float o[8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  zero84(o);
 
-  const int n_tiles = kv_len > 0 ? (kv_len + kI8F32Keys - 1) / kI8F32Keys : 0;
+  const int n_tiles = kv_len > 0 ? (kv_len + kQkTile - 1) / kQkTile : 0;
+  int4 kr = make_int4(0, 0, 0, 0);
+  HeadRows<kQkTile, false> vr;
+  if (n_tiles > 0) {
+    kr = k8_load(k8 + off, 0, n, tid);
+    head_load(vr, v + off, kD32, 0, n, tid);
+  }
   for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * kI8F32Keys;
+    const int k0 = jt * kQkTile;
     __syncthreads();  // the previous tile's readers are done
-    load_i8_rows_t(sKt, kI8F32LdK, k8 + off, k0, kI8F32Keys, n, tid);
-    const float* vf = v + off;
-    for (int i = tid; i < kI8F32Keys * 16; i += kI8F32Threads) {
-      const int r = i >> 4, cc = (i & 15) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < n) val = *reinterpret_cast<const float4*>(vf + (size_t)(k0 + r) * 64 + cc);
-      *reinterpret_cast<float4*>(sV + r * kI8F32LdQ + cc) = val;
-    }
+    *reinterpret_cast<int4*>(sK8 + (tid >> 2) * kQkLd8 + (tid & 3) * 16) = kr;
+    head_split(sVh, sVl, vr, tid);
     __syncthreads();
-
-    // integer scores, exact in fp32
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int cc = 0; cc < 64; ++cc) {
-      const float4 a = *reinterpret_cast<const float4*>(sQt + cc * kI8F32LdQ + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(sKt + cc * kI8F32LdK + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(sKt + cc * kI8F32LdK + 64 + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+    if (jt + 1 < n_tiles) {  // the next tile's rows load while this one's products run
+      kr = k8_load(k8 + off, k0 + kQkTile, n, tid);
+      head_load(vr, v + off, kD32, k0 + kQkTile, n, tid);
     }
-    __syncthreads();  // every read of the K tile is done: P goes over it
-
-    float alpha[4];
+    // S = q8 . k8^T, exact
+    int si[8][4] = {};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, i8_b_nk_addr(sK8 + np * 16 * kQkLd8 + ks * 32, kQkLd8, lane));
+        mma_s8_16832(si[2 * np], qa[ks], b[0], b[1]);
+        mma_s8_16832(si[2 * np + 1], qa[ks], b[2], b[3]);
+      }
+    // online softmax of this tile; tile 0 holds key 0 < kv_len, so the
+    // running max is finite from then on
+    float s[8][4], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = k0 + (j >> 2) * 64 + tx * 4 + (j & 3);
-        s[i][j] = key < kv_len ? __fmul_rn(s[i][j], c) : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // tile 0 holds key 0 < kv_len: the running max is finite from then on
-      const float m_new = fmaxf(m_run[i], row16_max_i8(mx));
-      alpha[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = k0 + 8 * j + 2 * t + (e & 1) < kv_len ? __fmul_rn((float)si[j][e], c)
+                                                          : -INFINITY;
+          mx = fmaxf(mx, s[j][e]);
+        }
+      const float m_new = fmaxf(m_run[h], quad_max(mx));
+      alpha[h] = exp2f(m_run[h] - m_new);
+      m_run[h] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l_run[i] = __fadd_rn(__fmul_rn(alpha[i], l_run[i]), row16_sum_i8(rs));
-      float* prow = sKt + (ty * 4 + i) * kI8F32LdK + tx * 4;
-      *reinterpret_cast<float4*>(prow) = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-      *reinterpret_cast<float4*>(prow + 64) = make_float4(s[i][4], s[i][5], s[i][6], s[i][7]);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = exp2f(s[j][e] - m_new);
+          rs += s[j][e];
+        }
+      l_run[h] = l_run[h] * alpha[h] + quad_sum(rs);
     }
-    __syncthreads();
-
-    float pv[4][4];
+    float pv[8][4];  // this tile's P.V, a chain of its own
+    zero84(pv);
+    mm_acc(pv, s, sVh, sVl, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i][0] = pv[i][1] = pv[i][2] = pv[i][3] = 0.f;
-#pragma unroll 8
-    for (int key = 0; key < kI8F32Keys; ++key) {
-      float p[4];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sKt[(ty * 4 + i) * kI8F32LdK + key];
-      const float4 b = *reinterpret_cast<const float4*>(sV + key * kI8F32LdQ + tx * 4);
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) pv[i][j] = fmaf(p[i], bv[j], pv[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], alpha[i]), pv[i][j]);
+      for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], pv[j][e]);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
     if (row >= n) continue;
-    const float inv = l_run[i] == 0.f ? 1.f : __fdiv_rn(1.f, l_run[i]);  // kv_len 0: zeros
-    *reinterpret_cast<float4*>(out + off + (size_t)row * 64 + tx * 4) =
-        make_float4(__fmul_rn(acc[i][0], inv), __fmul_rn(acc[i][1], inv),
-                    __fmul_rn(acc[i][2], inv), __fmul_rn(acc[i][3], inv));
+    const float inv = l_run[h] > 0.f ? 1.f / l_run[h] : 0.f;  // kv_len == 0: zeros
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd)
+      *reinterpret_cast<float2*>(out + off + (size_t)row * kD32 + nd * 8 + 2 * t) =
+          make_float2(o[nd][2 * h] * inv, o[nd][2 * h + 1] * inv);
   }
 }
 
@@ -208,11 +203,8 @@ extern "C" int f5_flash_prefix_i8_qk_f32_fwd(const void* q8, const void* k8, con
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (H <= 0 || n <= 0 || H > 65535) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(f5::flash_prefix_i8_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, f5::kI8F32Smem);
-  if (err != cudaSuccess) return (int)err;
-  f5::flash_prefix_i8_f32_kernel<<<dim3((n + 63) / 64, H), f5::kI8F32Threads, f5::kI8F32Smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  f5::flash_prefix_i8_qk_tf32_kernel<<<dim3((n + f5::kQkRows - 1) / f5::kQkRows, H), f5::kT32, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
       static_cast<const float*>(v), static_cast<const float*>(c),
       static_cast<const int*>(kv_lens), static_cast<float*>(out), n);

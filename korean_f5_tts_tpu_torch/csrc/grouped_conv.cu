@@ -56,17 +56,48 @@
 // shape).
 //
 // fp32 operands (f5_grouped_conv_f32_fwd; the offline entry points keep fp32
-// weights unless told otherwise): grouped_conv_f32_kernel, the same implicit
-// GEMM with plain FFMA products in place of the tensor cores. A single TF32
-// mma keeps 10 mantissa bits and does not hold fp32 parity (cuDNN's own fp32
-// convolution runs in TF32 by default, which is why the plain PyTorch conv is
-// the less exact of the two on the card), and the kernel runs twice a step
-// against 22 launches of the attention and FF kernels, so the simple exact
-// form was taken over a split 3xTF32 one. Bound: 12.5 GFLOP at the 67 TFLOP/s
-// of fp32 outside the tensor cores, 0.19 ms. One 256-thread block per (64
-// output rows, group, batch item), 4 x 4 outputs a thread; the window
-// (64 + k - 1 rows) stays in shared memory for all taps and one tap's
-// [64 x 64] weights are staged at a time.
+// weights unless told otherwise, so this form runs twice a step of every
+// fp32 utterance on F5TTS()'s own default path): grouped_conv_tf32_kernel,
+// the same implicit GEMM as split 3xTF32 products on the tensor cores
+// (mma.cuh: x = hi + lo, a.b ~ hi.hi + hi.lo + lo.hi in mma.sync m16n8k8
+// .tf32; a single TF32 product keeps 10 mantissa bits and fails the fp32
+// bound, which is why cuDNN's default TF32 convolution is the less exact of
+// the two on the card). What bounds it: the same 12.5 GFLOP of fp32-accurate
+// products, 0.076 ms at the TF32 rate taken three times (494.7 / 3 TFLOP/s;
+// 0.19 ms at the 67 TFLOP/s of FFMA), against 25 MB of fp32 activations and
+// 8 MB of weights (0.0099 ms).
+//   block    256 threads, eight warps as 4 (32 output rows) x 2 (32 output
+//            channels of the group), 128 output rows a block; grid
+//            (ceil(N / 128), groups, B), 12 x 16 x 2 = 384 blocks at the main
+//            shape (2.9 an SM at one block an SM).
+//   window   rows n0 - k/2 .. n0 + 127 + k/2 of the group's 64 channels,
+//            split once into hi and lo tf32 tiles [160][68] (attn_tf32.cuh's
+//            row stride), zeros outside [0, N): the SAME padding.
+//   A        tap t is the window shifted by t rows: lda_tf32 (ldmatrix) at
+//            row offset t. ldmatrix takes one address a row, so the one-row
+//            shift that no wgmma descriptor can express costs nothing here.
+//   B        tap t's weights w[t, 0:64, c0:c0+64] are [in][out]: [k][n], read
+//            as scalar B fragments (rows t and t + 4 of a k8 step, column g),
+//            no transpose; the tile's row stride of 72 words puts the 32 lanes
+//            of a read into distinct banks. Tap t + 1's tile is split into
+//            hi and lo in the other of two buffers after tap t's products,
+//            from registers loaded a tap earlier (16 floats a thread), so the
+//            loads hide behind a tap's products and one barrier a tap
+//            suffices. (A .tf32 wgmma would need the weights k-major, a
+//            transposing split, for B, and the window's one-row shift as an
+//            A operand from registers: this is the simpler of the two.)
+//   products a tap is 64 deep: eight k8 steps of three TF32 products (the
+//            small terms first), 24 mma.sync a fragment, summed into an
+//            accumulator of its own, zeroed per tap, which is added to the
+//            running sum with fp32 adds. The tensor cores' fp32 accumulation
+//            truncates (probe_hopper.cu's accumulation probe): one chain over
+//            31 taps would be 744 products deep, up to 744 x 2^-24 = 4.4e-5
+//            of bias, against the fp32 bound of 1e-4.
+//   epilogue bias and Mish in fp32 (mish(), softplus in the logaddexp form),
+//            float2 stores masked at N.
+// 157 KB of dynamic shared memory (window 85 KB, two buffers of hi and lo
+// weights 72 KB) and 153 registers a thread (ptxas): one block an SM.
+#include "attn_tf32.cuh"  // lda_tf32, split4 and the 3xTF32 product
 #include "gemm_bf16.cuh"  // hopper.cuh, align_1024, allow_smem
 
 namespace f5 {
@@ -74,7 +105,6 @@ namespace {
 
 constexpr int kCG = 64;        // channels per group (the only width taken)
 constexpr int kMaxTaps = 33;   // window rows = kConvRows + k - 1
-constexpr int kThreads = 256;  // the fp32 form's block
 
 __device__ __forceinline__ float mish(float x) {
   // softplus as logaddexp(x, 0), the form jax.nn.softplus computes
@@ -218,73 +248,125 @@ grouped_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                 fuse_mish);
 }
 
-constexpr int kFM = 64;         // output rows per block of the fp32 kernel
-constexpr int kFLDX = kCG + 1;  // window row stride: rows 4 apart fall into distinct banks
+// ---------------------------------------------------------------------------
+// fp32: split 3xTF32 on mma.sync
+// ---------------------------------------------------------------------------
 
-// Thread (ty, tx) of the 16 x 16 block owns rows ty * 4 + i and output
-// channels tx * 4 + j of the group.
-__global__ void __launch_bounds__(kThreads)
-grouped_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                        const float* __restrict__ bias, float* __restrict__ out, int N, int C,
-                        int taps, int fuse_mish) {
-  __shared__ float sX[(kFM + kMaxTaps - 1) * kFLDX];
-  __shared__ __align__(16) float sW[kCG * kCG];
-  const int n0 = blockIdx.x * kFM;
-  const int c0 = blockIdx.y * kCG;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int pad = taps / 2;
-  const float* xb = x + (size_t)blockIdx.z * N * C;
+constexpr int kTfRows = 128;                        // output rows a block
+constexpr int kTfWinRows = kTfRows + kMaxTaps - 1;  // window rows, at most
+constexpr int kTfLdW = 72;                          // weight tile row stride (words)
+constexpr int kTfTile = kCG * kTfLdW;               // one hi or lo weight tile (words)
+constexpr int kTfSmem = (2 * kTfWinRows * kLD32 + 4 * kTfTile) * (int)sizeof(uint32_t);
 
-  // input window: positions [n0 - pad, n0 + kFM + pad), zero outside [0, N)
-  const int rows = kFM + taps - 1;
-  for (int i = tid; i < rows * kCG; i += kThreads) {
-    const int r = i / kCG, c = i % kCG;
-    const int pos = n0 - pad + r;
-    sX[r * kFLDX + c] = (pos >= 0 && pos < N) ? xb[(size_t)pos * C + c0 + c] : 0.f;
-  }
-
-  float acc[4][4];
+// tap t's [64 in][64 out] weights of the group at w (w[t, i, c0 + o] at
+// (t * 64 + i) * C + o): thread tid holds rows (tid + 256 it) / 16, columns
+// 4 ((tid + 256 it) % 16) .. + 3
+__device__ __forceinline__ void conv_w_load(float4 (&r)[4], const float* w, int t, int C,
+                                            int tid) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int it = 0; it < 4; ++it) {
+    const int i = tid + it * kT32;
+    r[it] = *reinterpret_cast<const float4*>(w + ((size_t)t * kCG + (i >> 4)) * C + (i & 15) * 4);
+  }
+}
+
+// those registers split into the hi tile at wt and the lo tile after it;
+// eight consecutive threads store one row's 32 words
+__device__ __forceinline__ void conv_w_split(uint32_t* wt, const float4 (&r)[4], int tid) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i = tid + it * kT32;
+    split4(wt, wt + kTfTile, (i >> 4) * kTfLdW + (i & 15) * 4, r[it]);
+  }
+}
+
+// warp w owns output rows 32 (w / 2) .. + 31 and channels 32 (w % 2) .. + 31
+// of the block; acc[mt][nt][e] is row 32 (w / 2) + 16 mt + g + 8 (e >> 1),
+// channel 32 (w % 2) + 8 nt + 2t + (e & 1)
+__global__ void __launch_bounds__(kT32, 1)
+grouped_conv_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ bias, float* __restrict__ out, int N, int C,
+                         int taps, int fuse_mish) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* win_h = reinterpret_cast<uint32_t*>(smem_raw);  // [160][68] each
+  uint32_t* win_l = win_h + kTfWinRows * kLD32;
+  uint32_t* wts = win_l + kTfWinRows * kLD32;  // two buffers of [hi, lo][64][72]
+  const int n0 = blockIdx.x * kTfRows;
+  const int c0 = blockIdx.y * kCG;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = (warp >> 1) * 32, cb = (warp & 1) * 32;
+  const float* xb = x + (size_t)blockIdx.z * N * C + c0;
+  const float* wg = w + c0;
+
+  float4 wr[4];
+  conv_w_load(wr, wg, 0, C, tid);
+  // the window: positions [n0 - taps / 2, n0 + 128 + taps / 2), zero outside [0, N)
+  const int rows = kTfRows + taps - 1;
+  for (int i = tid; i < rows * (kCG / 4); i += kT32) {
+    const int r = i >> 4, cc = (i & 15) * 4, pos = n0 - taps / 2 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (pos >= 0 && pos < N) val = *reinterpret_cast<const float4*>(xb + (size_t)pos * C + cc);
+    split4(win_h, win_l, r * kLD32 + cc, val);
+  }
+  conv_w_split(wts, wr, tid);
+  if (taps > 1) conv_w_load(wr, wg, 1, C, tid);
+  float acc[2][4][4] = {};
+  __syncthreads();
 
   for (int t = 0; t < taps; ++t) {
-    __syncthreads();  // the window is in place; the previous tap's readers are done
-    for (int i = tid; i < kCG * (kCG / 4); i += kThreads) {
-      const int r = i / (kCG / 4);
-      const int c = (i % (kCG / 4)) * 4;
-      *reinterpret_cast<float4*>(sW + r * kCG + c) =
-          *reinterpret_cast<const float4*>(w + ((size_t)t * kCG + r) * C + c0 + c);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int ci = 0; ci < kCG; ++ci) {
-      const float4 b = *reinterpret_cast<const float4*>(sW + ci * kCG + tx * 4);
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    const uint32_t* bh = wts + (t & 1) * 2 * kTfTile;
+    const uint32_t* bl = bh + kTfTile;
+    float part[2][4][4] = {};  // this tap's product, a chain of its own
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = sX[(t + ty * 4 + i) * kFLDX + ci];
+    for (int ks = 0; ks < kCG / 8; ++ks) {
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+      for (int mt = 0; mt < 2; ++mt) {
+        lda_tf32(ah[mt], win_h, r0 + 16 * mt + t, ks * 8, lane);
+        lda_tf32(al[mt], win_l, r0 + 16 * mt + t, ks * 8, lane);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int at = (ks * 8 + tq) * kTfLdW + cb + 8 * nt + g;
+        const uint32_t bh0 = bh[at], bh1 = bh[at + 4 * kTfLdW];
+        const uint32_t bl0 = bl[at], bl1 = bl[at + 4 * kTfLdW];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(part[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
       }
     }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+    if (t + 1 < taps) {  // tap t + 1 into the buffer tap t - 1 was read from
+      conv_w_split(wts + ((t + 1) & 1) * 2 * kTfTile, wr, tid);
+      if (t + 2 < taps) conv_w_load(wr, wg, t + 2, C, tid);
+    }
+    __syncthreads();
   }
 
-  float* ob = out + (size_t)blockIdx.z * N * C;
-  const int col = c0 + tx * 4;
-  float4 bb = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (bias) bb = *reinterpret_cast<const float4*>(bias + col);
+  float* ob = out + (size_t)blockIdx.z * N * C + c0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = n0 + ty * 4 + i;
-    if (row >= N) continue;
-    float4 o = make_float4(acc[i][0] + bb.x, acc[i][1] + bb.y, acc[i][2] + bb.z, acc[i][3] + bb.w);
-    if (fuse_mish) {
-      o.x = mish(o.x);
-      o.y = mish(o.y);
-      o.z = mish(o.z);
-      o.w = mish(o.w);
-    }
-    *reinterpret_cast<float4*>(ob + (size_t)row * C + col) = o;
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = cb + 8 * nt + 2 * tq;
+    const float bb0 = bias ? bias[c0 + col] : 0.f;
+    const float bb1 = bias ? bias[c0 + col + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = n0 + r0 + 16 * mt + g + 8 * h;
+        if (row >= N) continue;
+        float v0 = acc[mt][nt][2 * h] + bb0, v1 = acc[mt][nt][2 * h + 1] + bb1;
+        if (fuse_mish) {
+          v0 = mish(v0);
+          v1 = mish(v1);
+        }
+        *reinterpret_cast<float2*>(ob + (size_t)row * C + col) = make_float2(v0, v1);
+      }
   }
 }
 
@@ -303,8 +385,12 @@ extern "C" int f5_grouped_conv_f32_fwd(const void* x, const void* w, const void*
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!conv_dims_ok(B, N, C, groups, taps)) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + f5::kFM - 1) / f5::kFM, groups, B);
-  f5::grouped_conv_f32_kernel<<<grid, f5::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  static std::atomic<bool> ready[f5::kMaxDevices];
+  err = f5::allow_smem(f5::grouped_conv_tf32_kernel, f5::kTfSmem, ready);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + f5::kTfRows - 1) / f5::kTfRows, groups, B);
+  f5::grouped_conv_tf32_kernel<<<grid, f5::kT32, f5::kTfSmem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
       static_cast<float*>(out), N, C, taps, fuse_mish);
   return (int)cudaGetLastError();

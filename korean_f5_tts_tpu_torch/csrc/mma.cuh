@@ -1,7 +1,6 @@
-// Warp-level bf16 tensor-core helpers shared by the hand-written kernels.
-//
-// Everything here is mma.sync m16n8k16 (bf16 in, fp32 accumulate) fed by
-// ldmatrix from shared memory. Fragment layouts (PTX ISA, "Matrix fragments
+// Warp-level tensor-core helpers shared by the hand-written kernels: mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate), m16n8k8 .tf32 and m16n8k32 .s8 below,
+// fed by ldmatrix from shared memory. Fragment layouts (PTX ISA, "Matrix fragments
 // for mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
 //   A 16x16 row-major: a0 (g, 2t..2t+1)   a1 (g+8, 2t..)   a2 (g, 8+2t..)   a3 (g+8, 8+2t..)
 //   B 16x8  "col":     b0 (k=2t..2t+1, n=g)               b1 (k=8+2t.., n=g)
@@ -131,6 +130,35 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32_1688(d, al, bh0, bh1);
   mma_tf32_1688(d, ah, bl0, bl1);
   mma_tf32_1688(d, ah, bh0, bh1);
+}
+
+// ---------------------------------------------------------------------------
+// int8 (mma.sync m16n8k32 .s32.s8.s8, exact int32 accumulation). Fragment
+// layouts (PTX ISA, "Matrix fragments for mma.m16n8k32", 8-bit), four bytes
+// a register, g = lane / 4, t = lane % 4:
+//   A 16x32 row: a0 (g, 4t..4t+3)  a1 (g+8, 4t..)  a2 (g, 16+4t..)  a3 (g+8, 16+4t..)
+//   B 32x8 col:  b0 (k 4t..4t+3, n g)             b1 (k 16+4t.., n g)
+//   C 16x8 s32:  c0,c1 (g, 2t..2t+1)              c2,c3 (g+8, 2t..2t+1)
+// The accumulator has the .tf32 product's layout. A 16-byte row segment of
+// int8 is eight b16 pairs, so ldmatrix (b16) on a tile stored [n][k] (k
+// contiguous) gives B: i8_b_nk_addr's rows, as b_nk_addr's for bf16.
+// ---------------------------------------------------------------------------
+
+// d += a (16x32) * b (32x8)
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Address one lane passes to ldmatrix_x4 for the 32-deep int8 B fragments of
+// keys [0, 16) (two n-tiles) of a [n][k] tile of row stride `ld` bytes: {b0,
+// b1} of n-tile 0 in r[0], r[1] and of n-tile 1 in r[2], r[3]
+__device__ __forceinline__ const int8_t* i8_b_nk_addr(const int8_t* tile, int ld, int lane) {
+  return tile + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 16;
 }
 
 }  // namespace f5

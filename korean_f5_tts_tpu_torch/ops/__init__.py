@@ -51,7 +51,7 @@ KERNELS = {
     "flash_prefix_rope_f32": (flash_prefix, "launches_rope_f32"),
     "flash_prefix_qkv_f32": (flash_prefix, "launches_qkv_f32"),
     "flash_prefix_i8_f32": (flash_prefix, "launches_i8_f32"),  # "qkpv" on the core
-    "flash_prefix_i8_qk_f32": (flash_prefix, "launches_i8_qk_f32"),  # "qk", FFMA
+    "flash_prefix_i8_qk_f32": (flash_prefix, "launches_i8_qk_f32"),  # "qk": int8 S, 3xTF32 P.V
     "flash_prefix_i8_quant_f32": (flash_prefix, "launches_i8_quant_f32"),
 }
 

@@ -27,8 +27,9 @@ operands (the offline entry points' default weights): their fp32 forms are
 kernel A's split 3xTF32 kernel with strided heads and the rotation in fp32
 (csrc/flash_prefix.cu), the pass reading fp32 as it is, and for 14 the
 attention core's int8 form with an fp32 output in "qkpv" (csrc/
-flash_prefix_int8.cu) and in "qk" an FFMA form (csrc/flash_prefix_int8_f32.cu)
-whose integer scores are exact in fp32 and whose p.v is fp32 p times fp32 v.
+flash_prefix_int8.cu) and in "qk" csrc/flash_prefix_int8_f32.cu, whose
+integer scores are exact on the int8 tensor cores and whose p.v is fp32 p
+times fp32 v as a split 3xTF32 product (kernel A's fp32 P.V).
 Kernels 18 and 19 serve
 only: the JAX package differentiates their XLA formulation, which is not
 ported yet, so the wrappers raise on an input that requires a gradient.
@@ -287,7 +288,7 @@ def _i8_attention_plain(q8, k8, v, c, sv, kv_lens, pv_i8: bool, ck: int) -> torc
         else:
             # bf16 v: p is rounded to bf16 for the product, as the kernel's
             # tensor cores take it; fp32 v: fp32 p times fp32 v, as the JAX
-            # kernel (and the FFMA form of kernel 14) multiplies them
+            # kernel (and kernel 14's fp32 "qk" form) multiplies them
             pb = p if v.dtype == torch.float32 else p.to(torch.bfloat16).float()
             acc = acc * alpha + torch.matmul(pb, v[:, start:stop].float())
     inv = torch.where(l == 0.0, torch.ones_like(l), torch.ones_like(l) / l)
@@ -646,8 +647,9 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     else the unquantized [H, n, 64], bf16 or fp32; c, sv: [H] fp32; kv_lens:
     [H] int32. Returns [H, n, 64] of out_dtype (None: the unquantized v's
     dtype, bf16 under pv_i8), the JAX kernel's out_dtype: bf16 or, with
-    pv_i8, fp32 on the attention core's int8 form; fp32 without pv_i8 on the
-    FFMA form, which multiplies fp32 p by fp32 v (a bf16 v with an fp32
+    pv_i8, fp32 on the attention core's int8 form; fp32 without pv_i8 on
+    csrc/flash_prefix_int8_f32.cu, exact int8 scores on the tensor cores and
+    fp32 p times fp32 v as a split 3xTF32 product (a bf16 v with an fp32
     output, or the reverse, raises TypeError). The JAX counterpart takes k8
     transposed instead, a Mosaic workaround.
 

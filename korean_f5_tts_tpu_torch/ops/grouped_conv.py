@@ -54,8 +54,9 @@ def grouped_conv1d_mish_train(x, w, b, groups: int, fuse_mish: bool = True):
 def grouped_conv1d_mish(x, w, b, groups: int = 16, fuse_mish: bool = True):
     """Kernel C wrapper: x, w and b (if any) all bf16 or all fp32 (a mix
     raises TypeError). CPU tensors take the plain version. CUDA tensors
-    launch the kernel (tensor cores on bf16, the FFMA form on fp32) or raise;
-    nothing falls back.
+    launch the kernel (wgmma on bf16; on fp32 split 3xTF32 products on the
+    tensor cores, each tap summed apart, fp32-accurate) or raise; nothing
+    falls back.
 
     When a gradient is being taken (grad mode on and an input that requires
     one) the convolution runs as plain tensor code in x's dtype on any device

@@ -42,28 +42,64 @@ def _lanes():
     return lane, lane >> 2, lane & 3
 
 
-def mma_1688(a, b, c, f32=False):
+def trunc_f32(x):
+    """float64 -> the fp32 value next to it toward zero: the tensor cores'
+    fp32 accumulation, which truncates (probe_hopper.cu's accumulation
+    probe: products worth 0.75 ulp add nothing to an accumulator of 1)."""
+    x = np.asarray(x, np.float64)
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(f, np.float32(0)), f).astype(np.float64)
+
+
+def mma_1688(a, b, c, f32=False, trunc=False):
     """mma.sync.m16n8k8 .tf32 on per-lane registers: a [32, 4], b [32, 2], c
     [32, 4] -> d [32, 4] (PTX ISA fragment layouts; exact in float64, or with
-    f32 the sum rounded to fp32 once, as fp32 accumulation would)."""
+    f32 the sum rounded to fp32 once, as fp32 accumulation would, or with
+    trunc truncated toward zero, as the card's accumulation does)."""
     _, g, tt = _lanes()
     A, B, C = np.zeros((16, 8)), np.zeros((8, 8)), np.zeros((16, 8))
     A[g, tt], A[g + 8, tt], A[g, tt + 4], A[g + 8, tt + 4] = a.T
     B[tt, g], B[tt + 4, g] = b.T
     C[g, 2 * tt], C[g, 2 * tt + 1], C[g + 8, 2 * tt], C[g + 8, 2 * tt + 1] = c.T
     D = A @ B + C
-    if f32:
+    if trunc:
+        D = trunc_f32(D)
+    elif f32:
         D = D.astype(np.float32).astype(np.float64)
     return np.stack([D[g, 2 * tt], D[g, 2 * tt + 1], D[g + 8, 2 * tt], D[g + 8, 2 * tt + 1]], 1)
 
 
-def mma_3x(ah, al, bh, bl, c, one=False):
+def mma_3x(ah, al, bh, bl, c, one=False, trunc=False):
     """mma.cuh:mma_3xtf32, the small terms first, each product summed in
-    fp32; one: the single TF32 product hi.hi alone (the control)."""
+    fp32 (rounded, or with trunc truncated); one: the single TF32 product
+    hi.hi alone (the control)."""
     if not one:
-        c = mma_1688(al, bh, c, True)
-        c = mma_1688(ah, bl, c, True)
-    return mma_1688(ah, bh, c, True)
+        c = mma_1688(al, bh, c, True, trunc)
+        c = mma_1688(ah, bl, c, True, trunc)
+    return mma_1688(ah, bh, c, True, trunc)
+
+
+def mma_16832_s8(a, b, c):
+    """mma.sync.m16n8k32 .s32.s8.s8 on per-lane registers (mma.cuh): a [32,
+    4], b [32, 2] 32-bit words of four int8 each, the lowest byte the lowest
+    k; c [32, 4] int -> d [32, 4], exact (int64 here)."""
+    _, g, tt = _lanes()
+    A, B = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+    C = np.zeros((16, 8), np.int64)
+    ab, bb = bytes_s8(a), bytes_s8(b)  # [32, regs, 4]
+    for i in range(4):
+        A[g, 4 * tt + i], A[g + 8, 4 * tt + i] = ab[:, 0, i], ab[:, 1, i]
+        A[g, 16 + 4 * tt + i], A[g + 8, 16 + 4 * tt + i] = ab[:, 2, i], ab[:, 3, i]
+        B[4 * tt + i, g], B[16 + 4 * tt + i, g] = bb[:, 0, i], bb[:, 1, i]
+    C[g, 2 * tt], C[g, 2 * tt + 1], C[g + 8, 2 * tt], C[g + 8, 2 * tt + 1] = c.T
+    D = A @ B + C
+    return np.stack([D[g, 2 * tt], D[g, 2 * tt + 1], D[g + 8, 2 * tt], D[g + 8, 2 * tt + 1]], 1)
+
+
+def bytes_s8(words):
+    """32-bit words -> their four int8 values, lowest byte first: [..., 4]"""
+    return np.asarray(words, np.uint32).view(np.int8).reshape(*np.shape(words), 4)
 
 
 def ldmatrix_x4(mem, addr):
@@ -141,10 +177,10 @@ def mm_rows_3x(a_rows, b_rows, row0, one=False):
     return acc
 
 
-def mm_acc_3x(x, b_rows, one=False):
+def mm_acc_3x(x, b_rows, one=False, trunc=False):
     """attn_tf32.cuh:mm_acc on the hi and lo tiles of fp32 b: x (an fp32
     accumulator) split once in registers, its columns in the order 2t,
-    2t + 1; one: hi.hi alone"""
+    2t + 1; one: hi.hi alone; trunc: the card's truncating accumulation"""
     bh, bl = (_tile(t) for t in split_tf32(b_rows))
     _, g, tt = _lanes()
     acc = np.zeros((8, 32, 4))
@@ -155,7 +191,7 @@ def mm_acc_3x(x, b_rows, one=False):
             at = r0 + nd * 8
             acc[nd] = mma_3x(ah.astype(np.float64), al.astype(np.float64),
                              np.stack([bh[at], bh[at + LD]], 1),
-                             np.stack([bl[at], bl[at + LD]], 1), acc[nd], one)
+                             np.stack([bl[at], bl[at + LD]], 1), acc[nd], one, trunc)
     return acc
 
 

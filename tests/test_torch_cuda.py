@@ -220,6 +220,37 @@ def test_fp32_ff_block_kernel(dev, m):
     _close_f32(got, ff_block.ff_block_reference(*args))
 
 
+@pytest.mark.parametrize("B,N", [(1, 1), (1, 15), (2, 16), (3, 17), (1, 31), (2, 127), (1, 128),
+                                 (3, 129), (2, 1376), (1, 1536)])
+@pytest.mark.parametrize("draw", [0, 1])
+def test_fp32_grouped_conv_on_the_tensor_cores(dev, B, N, draw):
+    """Kernel C's fp32 form (split 3xTF32 on mma.sync, each tap summed apart)
+    at the bf16 form's edges (the 128-row block and its window, items), for
+    two weight draws, with and without bias and Mish: within 1e-4 of the
+    plain version (cuDNN's fp32 conv, TF32 off); the plain version with
+    cuDNN's TF32 on fails that bound."""
+    gen = torch.Generator(device=dev).manual_seed(150 + 2 * N + draw)
+    x = torch.randn((B, N, 1024), generator=gen, device=dev)
+    bound = (64 * 31) ** -0.5
+    w = (torch.rand((31, 64, 1024), generator=gen, device=dev) * 2 - 1) * bound
+    b = (torch.rand((1024,), generator=gen, device=dev) * 2 - 1) * bound
+    for bias, fuse_mish in ((True, True), (False, True), (True, False), (False, False)):
+        be = b if bias else None
+        before = grouped_conv.launches_f32, grouped_conv.launches
+        got = grouped_conv.grouped_conv1d_mish(x, w, be, groups=16, fuse_mish=fuse_mish)
+        assert (grouped_conv.launches_f32, grouped_conv.launches) == (before[0] + 1, before[1])
+        with _NoTF32():
+            want = grouped_conv.grouped_conv1d_mish_reference(x, w, be, 16, fuse_mish)
+        _close_f32(got, want)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = grouped_conv.grouped_conv1d_mish_reference(x, w, None, 16, False)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert _rel(tf32, want) > 1e-4
+
+
 @pytest.mark.parametrize("bias,fuse_mish", [(True, True), (False, True), (True, False),
                                             (False, False)])
 def test_fp32_grouped_conv_kernel(dev, bias, fuse_mish):
@@ -1365,10 +1396,11 @@ def test_fp32_forms_of_kernels_18_and_19(dev, B, heads, n, lens, pe, past):
                                     (1536, [1376, 1536, 1, 700])])
 def test_fp32_form_of_kernel_14_and_its_pass(dev, n, lens, pv_i8):
     """The pass on fp32 equals its plain version to the bit; 14's fp32 form
-    writes fp32, within 1e-4 of its plain version in "qk" (the FFMA form:
-    exact integer scores, fp32 p.v) and 2e-4 in "qkpv" (the attention core's
-    int8 form with an fp32 output: p8 ties, no bf16 step), a bound that the
-    plain output rounded through bf16 fails."""
+    writes fp32, within 1e-5 of its plain version in "qk" (exact integer
+    scores on the int8 tensor cores, P.V split 3xTF32: the fp32 attention
+    bound) and 2e-4 in "qkpv" (the attention core's int8 form with an fp32
+    output: p8 ties, no bf16 step), a bound that the plain output rounded
+    through bf16 fails."""
     gen = torch.Generator(device=dev).manual_seed(122 + n)
     B = len(lens)
     q, k, v = (torch.randn((B, 2, n, 64), generator=gen, device=dev) for _ in range(3))
@@ -1390,9 +1422,49 @@ def test_fp32_form_of_kernel_14_and_its_pass(dev, n, lens, pv_i8):
     out = out.reshape(2 * B, n, 64)
     live = lens_h > 0
     assert not out[~live].any()
-    bound = 2e-4 if pv_i8 else 1e-4
+    bound = 2e-4 if pv_i8 else 1e-5
     assert _rel(out[live], ref[live]) <= bound
     assert _rel(ref[live].bfloat16(), ref[live]) > bound
+
+
+@pytest.mark.parametrize("B,heads,n,lens,past", [
+    (1, 2, 1, [1], 0.0), (3, 2, 127, [0, 1, 127], 1e4), (3, 16, 128, [127, 128, 1], 1e4),
+    (2, 2, 129, [128, 129], 1e4), (3, 2, 191, [129, 191, 0], 1e4), (2, 16, 192, [192, 191], 1e4),
+    (3, 2, 193, [193, 1, 129], 1e4), (2, 2, 1000, [0, 1000], 1e4),
+    (2, 16, 1536, [1376, 1536], 1e4)])
+def test_fp32_int8_qk_attention_on_the_tensor_cores(dev, B, heads, n, lens, past):
+    """Kernel 14's fp32 "qk" form (S exact on mma.sync .s8, P.V split 3xTF32
+    in 64-key tiles) at the attention kernels' edges (chip_smoke.py's
+    QKV_EDGES): within 1e-5 of its plain version at the 128-key chunk, K and
+    V rows past kv_len at +-1e4 never reaching o, zeros for kv_len 0; the
+    plain version with TF32 on (one TF32 product for P.V) fails that bound."""
+    gen = torch.Generator(device=dev).manual_seed(140 + n)
+    q, k, v = (torch.randn((B, heads, n, 64), generator=gen, device=dev) for _ in range(3))
+    for i, length in enumerate(lens if past else ()):
+        for x in (k, v):
+            sign = torch.randint(0, 2, (heads, n - length, 64), generator=gen, device=dev)
+            x[i, :, length:] = past * (2.0 * sign - 1)
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    lens_h = kv.repeat_interleave(heads)
+    live = lens_h > 0
+    before = flash_prefix.launches_i8_qk_f32, flash_prefix.launches_i8_f32
+    got = flash_prefix.flash_prefix_attention_i8(q, k, v, kv, pv_i8=False)
+    assert (flash_prefix.launches_i8_qk_f32, flash_prefix.launches_i8_f32) == \
+        (before[0] + 1, before[1])
+    got = got.reshape(B * heads, n, 64)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert not got[~live].any()
+    with _NoTF32():
+        want = flash_prefix.flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=False)
+    assert _rel(got[live], want[live]) <= 1e-5
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = flash_prefix.flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    if n > 1:  # one key: p = 1 and P.V is v itself, exact in any precision
+        assert _rel(tf32[live], want[live]) > 1e-5
 
 
 @pytest.mark.parametrize("n,lens,past", [(129, [1, 63, 64, 65, 127, 128, 129], None),

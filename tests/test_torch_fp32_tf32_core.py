@@ -36,16 +36,20 @@ from _tf32_mirror import (
     LD,
     ROW_WORDS,
     _lanes,
+    _tile,
     from_acc,
+    lda_addr,
     ldmatrix_x4,
     mm_acc_3x,
+    mma_3x,
+    mma_16832_s8,
     mm_rows_3x,
     split_tf32,
     swizzle,
     swz_word,
     tf32_rna,
 )
-from korean_f5_tts_tpu_torch.ops import flash_prefix
+from korean_f5_tts_tpu_torch.ops import flash_prefix, grouped_conv
 from korean_f5_tts_tpu_torch.scripts.probe_hopper import swizzled_box
 
 F32_ATTN_REL = 1e-5  # chip_smoke.py: the fp32 forms' o and lse
@@ -254,3 +258,261 @@ def test_head_rows_store_every_column_once(rows):
                     seen[row, c + half + e] += 1
     assert (seen == 1).all()
     assert math.gcd(LD, 32) == 4  # the 68-word stride the fragment reads rely on
+
+
+# --- kernel C's fp32 form: csrc/grouped_conv.cu:grouped_conv_tf32_kernel ---------
+
+LDW = 72  # the kernel's weight tile row stride (words)
+
+
+def mish_f32(x):
+    """grouped_conv.cu:mish in fp32: softplus as logaddexp(x, 0)"""
+    x = np.asarray(x, np.float32)
+    sp = (np.maximum(x, np.float32(0)) + np.log1p(np.exp(-np.abs(x)))).astype(np.float32)
+    return (x * np.tanh(sp)).astype(np.float32)
+
+
+def conv_fp64(x, w, b, fuse_mish):
+    """kernel C's function in float64 on one group: x [N, 64], w [k, 64,
+    64] (w[t, i, o]), b [64] or None, SAME padding"""
+    N, taps = x.shape[0], w.shape[0]
+    xp = np.pad(x.astype(np.float64), ((taps // 2, taps // 2), (0, 0)))
+    y = sum(xp[t:t + N] @ w[t].astype(np.float64) for t in range(taps))
+    if b is not None:
+        y = y + b
+    return y * np.tanh(np.logaddexp(y, 0.0)) if fuse_mish else y
+
+
+def conv_tf32(x, w, b, fuse_mish, one=False, chain=False):
+    """grouped_conv_tf32_kernel on one item and one group of 64 channels, N
+    <= 128 (one block): the window [128 + k - 1][68] split once into hi and
+    lo tiles, zeros outside [0, N); tap t's weights split into [64][72] hi
+    and lo tiles; warp w's 32 rows x 32 channels (rows 32 (w / 2), channels
+    32 (w % 2)) with A by ldmatrix at row offset t and B as scalar words
+    (rows t and t + 4 of a k8 step, column g); per k8 step three TF32
+    products under the card's truncating accumulation, into the tap's own
+    accumulator, which is added to the running sum in fp32; bias and Mish in
+    fp32. one: hi.hi alone (the control); chain: every tap's products in
+    the one running accumulator, a 744-deep chain."""
+    f32 = np.float32
+    N, taps = x.shape[0], w.shape[0]
+    rows = 128 + taps - 1
+    win = np.zeros((rows, 64), f32)
+    pos = np.arange(rows) - taps // 2
+    inside = (pos >= 0) & (pos < N)
+    win[inside] = x[pos[inside]]
+    win_h, win_l = (_tile(t) for t in split_tf32(win))
+    wtiles = []
+    for t in range(taps):
+        pair = []
+        for part in split_tf32(w[t]):
+            tile = np.zeros((64, LDW))
+            tile[:, :64] = part
+            pair.append(tile.reshape(-1))
+        wtiles.append(pair)
+    _, g, tq = _lanes()
+    out = np.full((N, 64), np.nan)
+    for warp in range(8):
+        r0, cb = (warp >> 1) * 32, (warp & 1) * 32
+        if r0 >= N:
+            continue
+        acc = np.zeros((2, 4, 32, 4))
+        for t in range(taps):
+            bh_t, bl_t = wtiles[t]
+            part = acc if chain else np.zeros((2, 4, 32, 4))
+            for ks in range(8):
+                ah = [ldmatrix_x4(win_h, lda_addr(r0 + 16 * mt + t, ks * 8)) for mt in (0, 1)]
+                al = [ldmatrix_x4(win_l, lda_addr(r0 + 16 * mt + t, ks * 8)) for mt in (0, 1)]
+                for nt in range(4):
+                    at = (ks * 8 + tq) * LDW + cb + 8 * nt + g
+                    bh = np.stack([bh_t[at], bh_t[at + 4 * LDW]], 1)
+                    bl = np.stack([bl_t[at], bl_t[at + 4 * LDW]], 1)
+                    for mt in (0, 1):
+                        part[mt, nt] = mma_3x(ah[mt], al[mt], bh, bl, part[mt, nt], one,
+                                              trunc=True)
+            acc = part if chain else (acc + part).astype(f32).astype(np.float64)
+        for mt in (0, 1):
+            for nt in range(4):
+                for h in (0, 1):
+                    row = r0 + 16 * mt + g + 8 * h
+                    for e in (0, 1):
+                        col = cb + 8 * nt + 2 * tq + e
+                        keep = row < N
+                        val = acc[mt, nt][:, 2 * h + e].astype(f32)
+                        if b is not None:
+                            val = (val + b[col]).astype(f32)
+                        out[row[keep], col[keep]] = (mish_f32(val) if fuse_mish else val)[keep]
+    return out
+
+
+def _conv_inputs(rng, N, taps=31, bias=True):
+    x = rng.standard_normal((N, 64)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (taps, 64, 64)) * (64 * taps) ** -0.5).astype(np.float32)
+    b = (rng.uniform(-1, 1, 64) * (64 * taps) ** -0.5).astype(np.float32) if bias else None
+    return x, w, b
+
+
+@pytest.mark.parametrize("N,bias,fuse_mish", [(64, True, True), (37, False, False),
+                                              (1, True, False)])
+def test_conv_tap_loop_holds_fp32_accuracy(N, bias, fuse_mish):
+    """Kernel C's fp32 form at the fragment level (B 1, one group, k 31)
+    against float64 within 1e-5 (the card's bound is 1e-4), rows past N
+    never written; the port's plain version computes the same function."""
+    rng = _rng(60 + N)
+    x, w, b = _conv_inputs(rng, N, bias=bias)
+    got = conv_tf32(x, w, b, fuse_mish)
+    want = conv_fp64(x, w, b, fuse_mish)
+    assert np.isfinite(got).all()
+    assert rel_err(got, want) <= F32_ATTN_REL
+    plain = grouped_conv.grouped_conv1d_mish_reference(
+        torch.from_numpy(x)[None], torch.from_numpy(w), None if b is None else torch.from_numpy(b),
+        groups=1, fuse_mish=fuse_mish)[0]
+    assert rel_err(plain.numpy(), want) <= 1e-6
+
+
+def test_conv_one_tf32_product_or_one_chain_reads_worse():
+    """The per-tap accumulator is what keeps the 3xTF32 conv at ~1e-7 under
+    truncating accumulation: one chain over all 31 taps (744 products deep)
+    reads visibly worse, and a single TF32 product misses the fp32 bound."""
+    rng = _rng(70)
+    x, w, b = _conv_inputs(rng, 64)
+    want = conv_fp64(x, w, b, False)
+    per_tap = rel_err(conv_tf32(x, w, b, False), want)
+    chained = rel_err(conv_tf32(x, w, b, False, chain=True), want)
+    one = rel_err(conv_tf32(x, w, b, False, one=True), want)
+    assert per_tap <= F32_ATTN_REL
+    assert chained > 3 * per_tap
+    assert one > F32_REL
+
+
+# --- kernel 14's fp32 "qk" form: csrc/flash_prefix_int8_f32.cu --------------------
+
+LD8 = 80  # bytes between the rows of the kernel's int8 K tile
+
+
+def scores_i8(q8, k8, warp):
+    """flash_prefix_i8_qk_tf32_kernel's S for warp `warp` of a block: q8
+    [128, 64] int8 (the block's rows), k8 [64, 64] int8 (one key tile). The
+    A fragments are 32-bit words of q8's rows (q8_word: bytes ks * 32 + 4t
+    and + 16), the B fragments ldmatrix_x4 at i8_b_nk_addr on the [64][80
+    bytes] tile; mma.m16n8k32 .s32.s8.s8. Returns [8][32, 4] int64 in the
+    accumulator layout."""
+    lane, g, t = _lanes()
+    qw = np.ascontiguousarray(q8).view(np.uint32)  # [128, 16] words
+    r = 16 * warp + g
+    qa = [np.stack([qw[r, ks * 8 + t], qw[r + 8, ks * 8 + t], qw[r, ks * 8 + 4 + t],
+                    qw[r + 8, ks * 8 + 4 + t]], 1) for ks in (0, 1)]
+    tile = np.zeros((64, LD8), np.int8)
+    tile[:, :64] = k8
+    mem = tile.reshape(-1).view(np.uint32)
+    acc = np.zeros((8, 32, 4), np.int64)
+    for ks in (0, 1):
+        for np_ in range(4):
+            addr = ((np_ * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD8 + ks * 32
+                    + ((lane >> 3) & 1) * 16)
+            b = ldmatrix_x4(mem, addr // 4)
+            acc[2 * np_] = mma_16832_s8(qa[ks], b[:, 0:2], acc[2 * np_])
+            acc[2 * np_ + 1] = mma_16832_s8(qa[ks], b[:, 2:4], acc[2 * np_ + 1])
+    return acc
+
+
+@pytest.mark.parametrize("draw", ["+-127", "127", "uniform"])
+def test_int8_scores_are_the_integer_product(draw):
+    """S on the int8 tensor cores equals q8 . k8^T to the bit, every
+    operand at +-127 included (|s| up to 127^2 * 64), in the .tf32
+    accumulator's (g, 2t) layout that the softmax and P.V read."""
+    rng = _rng(80)
+    if draw == "uniform":
+        q8, k8 = (rng.integers(-127, 128, (r, 64)).astype(np.int8) for r in (128, 64))
+    elif draw == "127":
+        q8, k8 = np.full((128, 64), 127, np.int8), np.full((64, 64), 127, np.int8)
+    else:
+        q8, k8 = (rng.choice(np.array([-127, 127], np.int8), (r, 64)) for r in (128, 64))
+    want = q8.astype(np.int64) @ k8.astype(np.int64).T
+    for warp in range(8):
+        np.testing.assert_array_equal(from_acc(scores_i8(q8, k8, warp)),
+                                      want[16 * warp:16 * warp + 16])
+
+
+def forward_i8_qk(q8, k8, v, c, kv_len, one=False):
+    """flash_prefix_i8_qk_tf32_kernel on one block (n <= 128): S by
+    scores_i8 per 64-key tile, float(S) * c masked at kv_len, the online
+    softmax of kernel A's fp32 form, P from that accumulator fed to mm_acc
+    with its columns in the order 2t, 2t + 1, each tile's P.V under
+    truncating accumulation in an accumulator of its own. one: a single
+    TF32 product for P.V (the control)."""
+    n = q8.shape[0]
+    f32 = np.float32
+    n_tiles = -(-kv_len // 64)
+    qp = np.zeros((128, 64), np.int8)
+    qp[:n] = q8
+    kp, vp = np.zeros((64 * max(n_tiles, 1), 64), np.int8), np.zeros((64 * max(n_tiles, 1), 64), f32)
+    kp[:min(n, len(kp))], vp[:min(n, len(vp))] = k8[:len(kp)], v[:len(vp)]
+    _, g, tt = _lanes()
+    o_rows = np.zeros((128, 64))
+    for w in range(8):
+        o = np.zeros((8, 32, 4), f32)
+        m = np.full((32, 2), -np.inf, f32)
+        l = np.zeros((32, 2), f32)
+        for jt in range(n_tiles):
+            k0 = 64 * jt
+            s = (scores_i8(qp, kp[k0:k0 + 64], w).astype(f32) * f32(c)).astype(f32)
+            key = k0 + 8 * np.arange(8)[:, None, None] + 2 * tt[None, :, None] + (
+                np.arange(4) & 1)[None, None, :]
+            s = np.where(key < kv_len, s, f32(-np.inf)).astype(f32)
+            halves = s.reshape(8, 32, 2, 2)
+            m_new = np.maximum(m, _quad(halves.max(axis=(0, 3)), np.max)).astype(f32)
+            alpha = np.exp2(m - m_new).astype(f32)
+            p = np.exp2(halves - m_new[None, :, :, None]).astype(f32)
+            l = (l * alpha + _quad(p.sum(axis=(0, 3), dtype=f32), np.sum)).astype(f32)
+            m = m_new
+            pv = mm_acc_3x(p.reshape(8, 32, 4), vp[k0:k0 + 64], one, trunc=True)
+            o = (o * np.repeat(alpha, 2, axis=1)[None] + pv).astype(f32)
+        inv = np.where(l > 0, f32(1) / np.where(l > 0, l, 1), 0).astype(f32)
+        o_rows[16 * w:16 * w + 16] = from_acc(o * np.repeat(inv, 2, axis=1)[None])
+    return o_rows[:n]
+
+
+def i8_qk_fp64(q8, k8, v, c, kv_len):
+    """kernel 14's "qk" function in float64: softmax2(float(q8 . k8^T) c)
+    over keys [0, kv_len) times v; zeros for kv_len 0"""
+    if kv_len == 0:
+        return np.zeros((q8.shape[0], 64))
+    s = (q8.astype(np.float64) @ k8[:kv_len].astype(np.float64).T) * c
+    p = np.exp2(s - s.max(1, keepdims=True))
+    return (p @ v[:kv_len].astype(np.float64)) / p.sum(1, keepdims=True)
+
+
+@pytest.mark.parametrize("n,kv_len,past", [(128, 128, False), (100, 77, True), (65, 65, False),
+                                           (128, 1, True), (50, 0, False)])
+def test_int8_qk_forward_holds_fp32_accuracy(n, kv_len, past):
+    """Kernel 14's fp32 "qk" form on one block against float64 and against
+    the port's plain version (ops/flash_prefix.py:_i8_attention_plain at its
+    128-key chunk) within the fp32 attention bound 1e-5; +-1e4 in V rows
+    past kv_len never reaches o; kv_len 0 gives zeros."""
+    rng = _rng(90 + n + kv_len)
+    q8, k8 = (rng.integers(-127, 128, (n, 64)).astype(np.int8) for _ in range(2))
+    v = rng.standard_normal((n, 64)).astype(np.float32)
+    if past:
+        v[kv_len:] = 1e4 * np.sign(rng.standard_normal((n - kv_len, 64)))
+    c = np.float32(1.0 / 127.0 ** 2 * LOG2E / 8.0 * 3.5 ** 2)  # q, k amax 3.5
+    got = forward_i8_qk(q8, k8, v, c, kv_len)
+    if kv_len == 0:
+        assert not got.any()
+        return
+    assert rel_err(got, i8_qk_fp64(q8, k8, v, c, kv_len)) <= F32_ATTN_REL
+    t8 = [torch.from_numpy(a)[None] for a in (q8, k8, v)]
+    plain = flash_prefix._i8_attention_plain(
+        *t8, torch.tensor([c]), torch.zeros(1), torch.tensor([kv_len], dtype=torch.int32),
+        False, flash_prefix.I8_KEY_TILE)[0]
+    assert rel_err(got, plain.numpy()) <= F32_ATTN_REL
+
+
+def test_int8_qk_forward_with_one_tf32_pv_misses_the_bound():
+    rng = _rng(99)
+    q8, k8 = (rng.integers(-127, 128, (128, 64)).astype(np.int8) for _ in range(2))
+    v = rng.standard_normal((128, 64)).astype(np.float32)
+    c = np.float32(1.0 / 127.0 ** 2 * LOG2E / 8.0 * 3.5 ** 2)
+    want = i8_qk_fp64(q8, k8, v, c, 100)
+    assert rel_err(forward_i8_qk(q8, k8, v, c, 100), want) <= F32_ATTN_REL
+    assert rel_err(forward_i8_qk(q8, k8, v, c, 100, one=True), want) > F32_ATTN_REL
