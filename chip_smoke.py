@@ -239,7 +239,7 @@ SOURCES = {
     "qmatmul": "korean_f5_tts_tpu_torch/csrc/gemm_int8.cuh",
     "flash_prefix_lse": "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh",
     "flash_prefix_dq_lsein": "korean_f5_tts_tpu_torch/csrc/attn_bwd_wgmma.cuh",
-    "flash_prefix_dq": "korean_f5_tts_tpu_torch/csrc/flash_prefix_train.cu",
+    "flash_prefix_dq": "korean_f5_tts_tpu_torch/csrc/attn_bwd_wgmma.cuh",
     "flash_prefix_dkv": "korean_f5_tts_tpu_torch/csrc/attn_bwd_wgmma.cuh",
     **dict.fromkeys(("ln_mod_matmul", "proj_gated_residual"),
                     "korean_f5_tts_tpu_torch/csrc/fused_linears.cu"),
@@ -309,8 +309,11 @@ def ptxas_faults(log: str) -> list[str]:
     when the library came from the build cache): spills of a function whose
     name holds one of SPILL_CHECKED (ptxas prints each function's spills on
     the line after "Function properties for <name>"), and any wgmma it
-    serialized (info C7513)."""
+    serialized (info C7513); and kernel 12's mma.sync loop
+    (flash_prefix_dq_kernel), which its form on the dq core replaced."""
     faults, name = [], ""
+    if "flash_prefix_dq_kernel" in log:
+        faults.append("kernel 12's mma.sync loop (flash_prefix_dq_kernel) is still built")
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for", 1)[1].strip()
@@ -1037,7 +1040,7 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
                                      [1376, 1376], held=True)
     i8_case("ragged B=8 heads=1 n=1000", 8, 1, 1000, [1, 1000, 700, 64, 65, 999, 333, 128],
             held=True)
-    for B, H, n, lens, _, past in QKV_EDGES:
+    for B, H, n, lens, _, past in QKV_EDGES + I8_CHUNK_EDGES:
         for pst in ((past, 0.0) if past else (0.0,)):
             i8_case(f"B={B} heads={H} n={n} kv={lens}{f' past=+-{pst:g}' if pst else ''}", B, H,
                     n, lens, past=pst, held=not pst and int(QUANT_TAIL * H * 64 * sum(lens)) > 0)
@@ -1046,10 +1049,12 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
     lens_h = kv.repeat_interleave(16)
     got = fp.flash_prefix_folded_i8(q8, k8, v8k, c, sv, lens_h, out_dtype=torch.float32)
     v8 = fp._v8_natural_layout(v8k, 1536)
+    chunk_check("fp32 qkpv main", got, q8, k8, v8, c, sv, lens_h, True)
     print("  kernel 14 fp32 qkpv on quantized operands (the attention core's int8 form):")
     t14 = _timed(lambda: fp.flash_prefix_folded_i8(q8, k8, v8k, c, sv, lens_h,
                                                    out_dtype=torch.float32),
-                 lambda: fp._i8_attention_plain(q8, k8, v8, c, sv, lens_h, True, fp.I8_KEY_TILE),
+                 lambda: fp._i8_attention_plain(q8, k8, v8, c, sv, lens_h, True,
+                                                fp.I8_KEY_CHUNK),
                  ops, (q8, k8, v8k, c, sv, lens_h, got), kind="int8")
     out["flash_prefix_i8_f32"] = {"max_abs_err": max_abs, **t14}
     vf = v.reshape(32, 1536, 64)
@@ -1062,7 +1067,7 @@ def check_fp32_attn_paths(gen, dev) -> dict[str, dict]:
           f"{ops_qk / 1e9 - ops / 2e9:.2f} GFLOP of 3xTF32):")
     t14qk = _timed(lambda: fp.flash_prefix_folded_i8(q8, k8, vf, c, sv, lens_h, pv_i8=False),
                    lambda: fp._i8_attention_plain(q8, k8, vf, c, sv, lens_h, False,
-                                                  fp.I8_KEY_TILE),
+                                                  fp.I8_KEY_CHUNK),
                    ops_qk, (q8, k8, vf, c, lens_h, got), kind="fp32",
                    ffma=False)  # the equivalents above mean nothing at the FFMA rate
     out["flash_prefix_i8_qk_f32"] = {"max_abs_err": max_abs_qk, **t14qk}
@@ -1565,7 +1570,7 @@ def check_train_attention(gen, dev) -> dict[str, dict]:
     print("kernels 10-13, training attention (bf16 in, rel bound 1e-2 for o and the "
           "gradients: P and dS round to bf16 before their products in the kernels; lse "
           "fp32, rel bound 1e-5); 10 on the attention core, 11 and 13 on the attention "
-          "backward core, 12 on the mma.sync loop")
+          "backward core, 12 on it too (11's kernel recomputing the lse)")
     errs, (q, k, v, do, kv, lse, dvec) = case("main H=128 n=1280 d=64 kv=n", 128, 1280,
                                               [1280] * 128)
     mixed = torch.randint(1, 1201, (16,), generator=gen, device=dev).tolist()
@@ -1826,10 +1831,14 @@ def check_attention_int8(gen, dev) -> dict[str, dict]:
 
     The pass is held to its plain version (_quantize_qkv, _v8_kernel_layout)
     to the bit: q8, k8, v8 in the kernel's layout, c and sv. Kernel 14 is
-    held to its plain version repeated at the kernel's key tile at the
-    attention core's edges (n 1, 127-129, 191-193, 1000, 1536; kv_len 0, 1,
-    127-129, n; heads 2 and 16; B 1-3), and with K and V rows past kv_len at
-    +-1e4 (masked keys must not reach the output). Its quantization error
+    held to its plain version at its default key chunk (I8_KEY_CHUNK, 512,
+    the JAX default bkv) at the attention core's edges (n 1, 127-129,
+    191-193, 1000, 1536; kv_len 0, 1, 127-129, n; heads 2 and 16; B 1-3),
+    at the chunk's (n 640 and 1536, kv_len inside the last chunk, on a chunk
+    boundary and at n), and with K and V rows past kv_len at +-1e4 (masked
+    keys must not reach the output); at the main shape, in both modes, it is
+    closer to the plain version at the chunk than at the 128-key tile by a
+    factor 4 (chunk_check). Its quantization error
     against kernel A on the same bf16 inputs is held where the rows past
     kv_len are ordinary values: at +-1e4 the per-head amax is 1e4 by the
     function's own definition (the JAX package's too), and those cases hold
@@ -1955,9 +1964,10 @@ def check_attention_int8(gen, dev) -> dict[str, dict]:
     case("B=4 heads=1 n=300 kv=[300, 1, 77, 129]", 4, 1, 300, [300, 1, 77, 129],
          quant_held=True)
     # the attention core's edges (QKV_EDGES: n around the 128-key tiles and the
-    # 192-row blocks, kv_len 0, 1, 127-129, n, heads 2 and 16, B 1-3), with K
-    # and V past kv_len at +-1e4, and again with ordinary values there
-    for B, H, n, lens, _, past in QKV_EDGES:
+    # 192-row blocks, kv_len 0, 1, 127-129, n, heads 2 and 16, B 1-3) and the
+    # 512-key chunk's (I8_CHUNK_EDGES), with K and V past kv_len at +-1e4, and
+    # again with ordinary values there
+    for B, H, n, lens, _, past in QKV_EDGES + I8_CHUNK_EDGES:
         for p in ((past, 0.0) if past else (0.0,)):
             case(f"B={B} heads={H} n={n} kv={lens}{f' past=+-{p:g}' if p else ''}", B, H, n, lens,
                  past=p, views=B > 1,
@@ -1968,12 +1978,16 @@ def check_attention_int8(gen, dev) -> dict[str, dict]:
     _, _, vb, _, _ = fp.quantize_heads(q, k, v, False)
     lens_h = kv.repeat_interleave(16)
     out = fp.flash_prefix_folded_i8(q8, k8, v8k, c, sv, lens_h)
+    v8 = fp._v8_natural_layout(v8k, 1536)
+    print("  the chunk of kernel 14's running max at the main shape:")
+    chunk_check("qkpv main", out, q8, k8, v8, c, sv, lens_h, True)
+    chunk_check("qk main", fp.flash_prefix_folded_i8(q8, k8, vb, c, sv, lens_h, pv_i8=False),
+                q8, k8, vb, c, sv, lens_h, False)
     ms = cuda_time_ms(lambda: fp.flash_prefix_folded_i8(q8, k8, v8k, c, sv, lens_h))
     ms_qk = cuda_time_ms(lambda: fp.flash_prefix_folded_i8(q8, k8, vb, c, sv, lens_h,
                                                            pv_i8=False))
-    v8 = fp._v8_natural_layout(v8k, 1536)
     plain_ms = cuda_time_ms(lambda: fp._i8_attention_plain(q8, k8, v8, c, sv, lens_h, True,
-                                                           fp.I8_KEY_TILE))
+                                                           fp.I8_KEY_CHUNK))
     quant_ms = cuda_time_ms(lambda: fp.quantize_heads(q, k, v, True))
     quant_qk_ms = cuda_time_ms(lambda: fp.quantize_heads(q, k, v, False))
     quant_plain_ms = cuda_time_ms(lambda: fp._v8_kernel_layout(fp._quantize_qkv(q, k, v,
@@ -2112,6 +2126,31 @@ QKV_EDGES = (
     (2, 2, 1000, [0, 1000], 1, 1e4),
     (2, 16, 1536, [1376, 1536], None, 1e4),
 )
+# int8 attention's 512-key chunks (kernel 14 takes its running max per four
+# tiles): several chunks, the last partial, kv_len inside the last chunk, on
+# a chunk boundary and at n
+I8_CHUNK_EDGES = (
+    (3, 2, 640, [600, 512, 640], None, 1e4),
+    (3, 2, 1536, [1376, 1024, 1536], None, 1e4),
+)
+
+
+def chunk_check(label: str, got, q8, k8, v, c, sv, lens_h, pv_i8: bool) -> None:
+    """Kernel 14's output is the plain version at the 512-key chunk, not at
+    the 128-key tile: its distance to the first is under a quarter of its
+    distance to the second (the "qk" bound alone cannot tell them apart)."""
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    live = lens_h > 0
+    e = {ck: _rel(got[live], fp._i8_attention_plain(q8, k8, v, c, sv, lens_h, pv_i8,
+                                                    ck)[live].to(got.dtype))
+         for ck in (fp.I8_KEY_CHUNK, fp.I8_KEY_TILE)}
+    ok = e[fp.I8_KEY_CHUNK] * 4 < e[fp.I8_KEY_TILE]
+    print(f"    {label}: rel to the plain version at chunk {fp.I8_KEY_CHUNK} "
+          f"{e[fp.I8_KEY_CHUNK]:.3e}, at {fp.I8_KEY_TILE} {e[fp.I8_KEY_TILE]:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"kernel 14 {label}: not the function at the 512-key chunk")
 
 
 def check_rope_attention(gen, dev) -> dict[str, dict]:
@@ -2273,18 +2312,17 @@ AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
               "efficient_fwd_f32": "library efficient forward with lse, fp32 (10 fp32's "
                                    "yardstick)",
               "efficient_bwd_f32": "library efficient backward, fp32 (11 + 13 fp32's yardstick)"}
-# no slower than 1.05x the parent or fail: every kernel, the fp32 forms that
-# a change redesigns (faster) among them
+# no slower than 1.05x the parent or fail: every kernel this change does not
+# redesign (12 moves onto the dq core; 14's forms on the attention core take
+# their max per 512-key chunk, a second S sweep: timed, not held)
 AB_UNMOVED = ("flash_prefix", "ff_block", "grouped_conv", "ln_mod_matmul",
               "proj_gated_residual", "ff_block_int8", "ln_mod_matmul_int8",
               "proj_gated_residual_int8", "qmatmul", "flash_prefix_lse", "flash_prefix_dq_lsein",
-              "flash_prefix_dq", "flash_prefix_dkv", "flash_prefix_rope", "flash_prefix_qkv",
-              "flash_prefix_i8", "flash_prefix_i8_qk", "flash_prefix_f32", "ff_block_f32",
-              "grouped_conv_f32",
+              "flash_prefix_dkv", "flash_prefix_rope", "flash_prefix_qkv",
+              "flash_prefix_f32", "ff_block_f32", "grouped_conv_f32",
               "flash_prefix_lse_f32", "flash_prefix_dq_lsein_f32", "flash_prefix_dq_f32",
               "flash_prefix_dkv_f32", "ln_mod_matmul_f32", "proj_gated_residual_f32",
-              "flash_prefix_rope_f32", "flash_prefix_qkv_f32", "flash_prefix_i8_f32",
-              "flash_prefix_i8_qk_f32")
+              "flash_prefix_rope_f32", "flash_prefix_qkv_f32", "flash_prefix_i8_qk_f32")
 AB_BOUND = 1.05
 # their times when the bf16 core was built (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md section 6, kernel table)

@@ -133,6 +133,31 @@
 // bf16 for its product, fp32 accumulation; the scale meets S in one fmaf
 // with the lse (the TPU kernel scales q in bf16 first: one rounding the bf16
 // bounds cover) and exp2 is ex2.approx, as in kernel 13.
+//
+// Kernel 12 (dq that recomputes the lse, the TPU kernel's _flash_prefix_dq ->
+// _kernel_dq with cast=True) is the same kernel with kLseOut: no lse is
+// read; a running max m and sum l per row take its place, as in _kernel_dq:
+//   x = S * scale_log2 (keys at or past kv_len -inf), m_new = max(m, the
+//   tile's row max), alpha = exp2(m - m_new), p = exp2(x - m_new), l = alpha
+//   l + rowsum(p), dS = p (dP - D) rounded to bf16, dq = alpha dq + dS.K;
+//   at the end dq * 1/sqrt(64) / l (l = 0 read as 1) and lse = m + log2(l)
+//   (0 for a row with no valid key) written out.
+// The rescale meets the pipelining: tile i - 1's dq += dS.K is in flight
+// while tile i's S gives alpha_i, so the 32 accumulators are multiplied by
+// alpha_i only after wait_group 0 has seen that product done, and before
+// tile i's dS is packed for the next product; scaling an accumulator that a
+// wgmma is writing would be a silent race. dS of tile i - 1 was taken
+// against m_(i-1), so the product it adds must be rescaled too: it is, since
+// it lands before the multiply. The running max is per 128-key tile where
+// the TPU kernel keeps it per chunk (640 keys at n = 1280); p lies in [0, 1]
+// either way and the one rounding that sees the max, bf16(dS), is relative,
+// so the bf16 bounds hold. It replaces the first port's mma.sync loop
+// (flash_prefix_train.cu before this form: 64-query blocks of 128 threads,
+// 64-key tiles loaded synchronously with two barriers a tile), which reached
+// 0.17 of its bound. Its bound is kernel 11's (the same products and
+// exponentials, the max and sum an element more). Registers: m, l and alpha
+// beside 11's arrays spilled 16 bytes at 232 a consumer thread, so kernel
+// 12 splits the block's registers 24 (the TMA-only producer) / 240.
 #pragma once
 
 #include "attn_wgmma.cuh"  // fast_exp2, attn_pack_p, kAttnD, align_1024, allow_smem
@@ -421,7 +446,7 @@ cudaError_t launch_attn_dkv_wgmma(const void* q, const void* k, const void* v, c
 }
 
 // ---------------------------------------------------------------------------
-// kernel 11: dq from the forward's lse
+// kernels 11 and 12: dq, from the forward's lse or recomputing it
 // ---------------------------------------------------------------------------
 
 constexpr int kDqWgs = 2;                 // consumer warpgroups, 64 queries each
@@ -443,7 +468,7 @@ __device__ __forceinline__ void dq_issue_grad(float (&acc)[32],
 }
 
 // P in place of S (s[4j + e] is row g + 8 (e >> 1), key k0 + 8j + 2t + (e &
-// 1)), keys at or past kv_len masked
+// 1)), keys at or past kv_len masked (kernel 11: against the given lse)
 __device__ __forceinline__ void dq_probs(float (&s)[kDqKeys / 2], const float (&neg_lse)[2],
                                          float scale_log2, int k0, int kv_len, int t) {
   const bool mask = k0 + kDqKeys > kv_len;
@@ -456,6 +481,38 @@ __device__ __forceinline__ void dq_probs(float (&s)[kDqKeys / 2], const float (&
   }
 }
 
+// kernel 12: P in place of S against the running max, which this tile
+// updates, as the row sums l; alpha, the factor dq must be rescaled by, is
+// left for the caller to apply once the previous tile's product is done
+__device__ __forceinline__ void dq_probs_online(float (&s)[kDqKeys / 2], float (&m_run)[2],
+                                                float (&l_run)[2], float (&alpha)[2],
+                                                float scale_log2, int k0, int kv_len, int t) {
+  const bool mask = k0 + kDqKeys > kv_len;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kDqKeys / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = mask && k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len ? -INFINITY : s[i] * scale_log2;
+    mx[r] = fmaxf(mx[r], s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // every tile the sweep walks holds a key < kv_len: the max is finite
+    const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+    alpha[r] = exp2f(m_run[r] - m_new);
+    m_run[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kDqKeys / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = fast_exp2(s[i] - m_run[r]);
+    rs[r] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+}
+
 // dS = P * (dP - D) in place of dP
 __device__ __forceinline__ void dq_ds(float (&dp)[kDqKeys / 2], const float (&p)[kDqKeys / 2],
                                       const float (&dd)[2]) {
@@ -463,13 +520,17 @@ __device__ __forceinline__ void dq_ds(float (&dp)[kDqKeys / 2], const float (&p)
   for (int i = 0; i < kDqKeys / 2; ++i) dp[i] = p[i] * (dp[i] - dd[(i >> 1) & 1]);
 }
 
+// kLseOut false: kernel 11, lse read; true: kernel 12, lse recomputed and
+// written to lse_out
+template <bool kLseOut>
 __global__ void __launch_bounds__(128 * (kDqWgs + 1), 1)
 attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
                      const float* __restrict__ dvec, const int* __restrict__ kv_lens,
-                     bf16* __restrict__ dq, int n, float scale_log2, float sm_scale) {
+                     bf16* __restrict__ dq, float* __restrict__ lse_out, int n,
+                     float scale_log2, float sm_scale) {
   constexpr int kTileBytes = kDqKeys * kRowBytes;  // a K or a V tile
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -494,8 +555,13 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
 
+  // 128 x 40 + 256 x 232 = 384 x 168, the registers the block is launched
+  // with; kernel 12's running max and sum hold four registers more than 11's
+  // lse, so its producer, which only issues TMA loads, keeps 24 and its
+  // consumers get 240 (128 x 24 + 256 x 240, the same total)
   if (warp >= 4 * kDqWgs) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if constexpr (kLseOut) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    else asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     // read after setmaxnreg: a value live across it is spilled
     const int kv_len = min(kv_lens[head], n);
     const int n_tiles = kv_len > 0 ? (kv_len + kDqKeys - 1) / kDqKeys : 0;
@@ -513,7 +579,8 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if constexpr (kLseOut) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    else asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int kv_len = min(kv_lens[head], n);
     const int n_tiles = kv_len > 0 ? (kv_len + kDqKeys - 1) / kDqKeys : 0;
     const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
@@ -525,9 +592,11 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int grow = q0 + wg * 64 + row + 8 * r;
-      neg_lse[r] = grow < n ? -lse[(size_t)head * n + grow] : -INFINITY;
+      if constexpr (!kLseOut) neg_lse[r] = grow < n ? -lse[(size_t)head * n + grow] : -INFINITY;
       dd[r] = grow < n ? dvec[(size_t)head * n + grow] : 0.f;
     }
+    // kernel 12: the running max and this lane's share of the row sums
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, alpha[2];
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
@@ -544,7 +613,8 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       bwd_turn_pass(wg);
       wgmma_wait<1>();
       wgmma_fence_regs(s);
-      dq_probs(s, neg_lse, scale_log2, 0, kv_len, t);
+      if constexpr (kLseOut) dq_probs_online(s, m_run, l_run, alpha, scale_log2, 0, kv_len, t);
+      else dq_probs(s, neg_lse, scale_log2, 0, kv_len, t);
       wgmma_wait<0>();
       wgmma_fence_regs(dp);
       dq_ds(dp, s, dd);
@@ -562,13 +632,22 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         bwd_turn_pass(wg);
         wgmma_wait<2>();  // S of tile i is done; its dP and tile i - 1's product may run
         wgmma_fence_regs(s);
-        dq_probs(s, neg_lse, scale_log2, i * kDqKeys, kv_len, t);
+        if constexpr (kLseOut)
+          dq_probs_online(s, m_run, l_run, alpha, scale_log2, i * kDqKeys, kv_len, t);
+        else
+          dq_probs(s, neg_lse, scale_log2, i * kDqKeys, kv_len, t);
         wgmma_wait<1>();
         wgmma_fence_regs(dp);
         dq_ds(dp, s, dd);
         wgmma_wait<0>();
         wgmma_fence_regs(acc);
         if (lane == 0) mbar_arrive(&empty[prev]);
+        if constexpr (kLseOut) {
+          // tile i - 1's product has landed: rescale to tile i's max before
+          // tile i's dS (taken against it) is added
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[e] *= alpha[(e >> 1) & 1];
+        }
         attn_pack_p<kDqKeys>(dp, ds);
       }
       bwd_turn_wait(wg);
@@ -580,6 +659,23 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_fence_regs(acc);
     }
 
+    if constexpr (kLseOut) {
+      // kernel 12: dq / l and lse = m + log2(l); a row with no valid key has
+      // l = 0 (read as 1: its dq is zero) and lse 0
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float l = quad_sum(l_run[r]);
+        const float inv = l > 0.f ? 1.f / l : 1.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[4 * j + 2 * r] *= inv;
+          acc[4 * j + 2 * r + 1] *= inv;
+        }
+        const int grow = q0 + wg * 64 + row + 8 * r;
+        if (t == 0 && grow < n)
+          lse_out[(size_t)head * n + grow] = l > 0.f ? m_run[r] + log2f(l) : 0.f;
+      }
+    }
     // epilogue: dq through this warpgroup's Q slice (its products are done),
     // then whole rows, masked at n
     bwd_stage_rows(my_q, acc, sm_scale, row, g, t);
@@ -596,13 +692,15 @@ attn_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// kernel 11 on this core. q,
-// k, v, dout, dq: [H, n, 64] bf16, 16-byte aligned; dvec, lse: [H, n] fp32
-// (any alignment); kv_lens [H] int32.
+// kernel 11 (lse given, lse_out null) or 12 (kLseOut: lse null, lse_out
+// written) on this core. q, k, v, dout, dq: [H, n, 64] bf16, 16-byte
+// aligned; dvec, lse, lse_out: [H, n] fp32 (any alignment); kv_lens [H]
+// int32.
+template <bool kLseOut>
 cudaError_t launch_attn_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                  const void* dvec, const void* lse, const void* kv_lens,
-                                 void* dq, int H, int n, float scale_log2, float sm_scale,
-                                 cudaStream_t stream) {
+                                 void* dq, void* lse_out, int H, int n, float scale_log2,
+                                 float sm_scale, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v, map_do;
   if (!tensor_map_3d(&map_q, q, H, n, kAttnD, kDqRows, kMapBf16) ||
       !tensor_map_3d(&map_k, k, H, n, kAttnD, kDqKeys, kMapBf16) ||
@@ -610,13 +708,13 @@ cudaError_t launch_attn_dq_wgmma(const void* q, const void* k, const void* v, co
       !tensor_map_3d(&map_do, dout, H, n, kAttnD, kDqRows, kMapBf16))
     return cudaErrorInvalidValue;
   static std::atomic<bool> ready[kMaxDevices];
-    const cudaError_t err = allow_smem(attn_dq_wgmma_kernel, kDqSmemBytes, ready);
+  const cudaError_t err = allow_smem(attn_dq_wgmma_kernel<kLseOut>, kDqSmemBytes, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kDqRows - 1) / kDqRows, H);
-  attn_dq_wgmma_kernel<<<grid, 128 * (kDqWgs + 1), kDqSmemBytes, stream>>>(
+  attn_dq_wgmma_kernel<kLseOut><<<grid, 128 * (kDqWgs + 1), kDqSmemBytes, stream>>>(
       map_q, map_k, map_v, map_do, static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<const int*>(kv_lens), static_cast<bf16*>(dq),
-      n, scale_log2, sm_scale);
+      static_cast<float*>(lse_out), n, scale_log2, sm_scale);
   return cudaGetLastError();
 }
 

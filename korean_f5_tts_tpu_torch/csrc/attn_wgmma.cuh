@@ -125,15 +125,18 @@
 // with sv[h] = av / 127^2:
 //   s   = float(q8 . k8^T) * c            exact s32 sums, base-2 domain,
 //                                         keys at or past kv_len masked
-//   online max m and sum l in fp32 over the unquantized p = exp2(s - m)
+//   online max m and sum l in fp32 over the unquantized p = exp2(s - m),
+//         the max taken per chunk of 512 keys (kAttnI8Group tiles; the
+//         JAX kernel's chunks at its default bkv, _chunk_plan: 512 keys
+//         from key 0, the last chunk what is left) and one alpha a chunk
 //   qkpv  acc = acc * alpha + float(p8 . v8) * sv, p8 = rint(127 p), the
-//         product a per-tile s32 accumulator
+//         product one s32 accumulator across the chunk's tiles
 //   qk    acc = acc * alpha + bf16(p) . v (v unquantized bf16, A's P.V)
 //   out   = acc / l, rounded once to bf16 (fp32 under kAttnI8QkpvF32:
 //         nothing else in "qkpv" is below fp32)
-// p8 sees the running max of its tile, so the key tile (128) is part of the
-// arithmetic: the plain version repeats it (ops/flash_prefix.py:
-// I8_KEY_TILE), and the JAX kernel at bkv = 128 is the same chunking.
+// p8 sees the running max of the chunks visited so far, so the chunk is
+// part of the arithmetic: the plain version repeats it (ops/flash_prefix.py:
+// I8_KEY_CHUNK = 512, the JAX wrapper's default bkv).
 //   S     wgmma m64n128k32 .s32.s8.s8, both operands from shared memory.
 //         Rows of q8 and k8 are 64 bytes; their 3-D maps take A's 128-byte
 //         boxes, which TMA fills past the row's 64 bytes with zeros, so the
@@ -149,17 +152,37 @@
 //   P.V   qkpv: wgmma m64n64k32 .s32.s8.s8 with A from registers and the v8
 //         tile [64][128 keys] k-major from shared memory (the int8 GEMM
 //         core's B), four k32 steps; qk: A's bf16 P.V.
-//   s32 -> fp32  one conversion, exact (|s| < 2^24: 64 x 127^2 for S, 128 x
-//         127^2 for P.V); the integer trick of p8 (two instructions) measured
+//   s32 -> fp32  one conversion, exact (|s| < 2^24: 64 x 127^2 for S, 512 x
+//         127^2 for a chunk's P.V); the integer trick of p8 (two instructions) measured
 //         slower here than the conversion instruction.
-// The consumer does a tile at a time (S, softmax, P.V, each waited for),
-// and the three warpgroups overlap one another's products and softmax
-// without turns. At int8 rates the products are a small part of a tile's
+// The consumer walks the tiles a chunk (group of four tiles) at a time,
+// each product waited for:
+//   sweep 1  S of each tile of the group, converted, scaled and masked, for
+//            the group's row max; m_next = max(m, group max), one alpha for
+//            acc and l. The S of four tiles (64 rows x 512 keys, 256 fp32 a
+//            thread) cannot stay in registers, and S is exact in s32, so
+//            sweep 2 computes it again to the same bits.
+//   sweep 2  S again, p = exp2(s - m_next), l, p8 (or bf16 p) and P.V tile
+//            by tile; under "qkpv" the s32 P.V accumulator sums the group's
+//            tiles (|sum| <= 512 x 127^2 < 2^24: its conversion is exact)
+//            and acc = acc * alpha + float(pv) * sv once a group, the plain
+//            version's arithmetic.
+//   ring     the group's K (and V) tiles stay in shared memory across both
+//            sweeps: a stage is released after sweep 2, and the ring holds
+//            kAttnI8Stages = 6 stages (four for the group, two for the next
+//            group's first tiles), 192 KB beside the 24 KB of q.
+//   edges    the sweep stops at ceil(kv_len / 128) tiles: the tiles it skips
+//            of the last chunk are masked whole, and a masked tile leaves m,
+//            l and acc as they are (p = 0), so skipping them is exact; the
+//            last group takes the tiles that exist.
+// The three warpgroups overlap one another's products and softmax without
+// turns. At int8 rates the products are a small part of a tile's
 // time: exactness to the plain version costs ~10 instructions an element
 // (the conversion, the scale, the max, the shift, the row sum, p8's multiply,
 // round and pack, P.V's conversion and update) where A's softmax takes ~4,
 // so the int8 form is bound by instruction issue, not by its products. Trial
-// builds at the main shape, not kept: A's schedule (S(j + 1) in flight under
+// builds at the main shape, of the form before the chunked max (one sweep,
+// the max per tile), not kept: A's schedule (S(j + 1) in flight under
 // P.V(j), with or without ping-pong turns) was faster for "qk" but slower
 // for "qkpv", whose s32 P.V accumulator then lives beside S, O and P; turns
 // alone were slower for both; p8 through the float-to-int conversion instead
@@ -167,7 +190,9 @@
 // from contracting the scale, the rescale and the update into fused
 // multiply-adds, so they round as the plain version does.
 // What bounds it: at the main shape 17.3 GOP of int8 products (0.0087 ms at
-// 1,979 TOP/s) and 67.6 M exp2 (~0.018 ms on the SFUs).
+// 1,979 TOP/s) and 67.6 M exp2 (~0.018 ms on the SFUs). The second S sweep
+// adds the S product (half the int8 products) and a conversion, scale, mask
+// and max an element to the ~10 instructions an element it is bound by.
 #pragma once
 
 #include "gemm_bf16.cuh"  // align_1024, kMaxDevices, allow_smem
@@ -184,6 +209,8 @@ constexpr int kAttnWgs = 3;                            // consumer warpgroups, 6
 constexpr int kAttnRows = 64 * kAttnWgs;               // q rows a block
 constexpr int kAttnV8Bytes = kAttnD * kRowBytes;       // a v8 tile: 64 rows of 128 keys
 // the int8 forms (kI8) of the core, kernel 14's two modes
+constexpr int kAttnI8Group = 4;   // tiles a chunk of the int8 forms' running max (512 keys)
+constexpr int kAttnI8Stages = 6;  // their ring: a whole chunk resident, and two more
 constexpr int kAttnI8Qk = 1;    // int8 q.k^T, bf16 p.v
 constexpr int kAttnI8Qkpv = 2;  // int8 q.k^T and p.v
 constexpr int kAttnI8QkpvF32 = 3;  // as kAttnI8Qkpv, the output fp32 (kernel 14's fp32 form)
@@ -412,10 +439,11 @@ __device__ __forceinline__ void attn_rope_tile_staged(uint32_t tile_a, int rows,
 }
 
 // K/V ring depth: the rope form keeps a fourth stage, since a K tile waits
-// for its rotation after it lands
-template <bool kRope>
+// for its rotation after it lands; the int8 forms hold a chunk of four tiles
+// across two sweeps
+template <bool kRope, int kI8 = 0>
 __host__ __device__ constexpr int attn_stages() {
-  return kRope ? kAttnStages + 1 : kAttnStages;
+  return kRope ? kAttnStages + 1 : kI8 != 0 ? kAttnI8Stages : kAttnStages;
 }
 
 constexpr int kAttnTabBytes = kAttnBK * 32 * 2;  // a tile's rows of one rotary table
@@ -427,10 +455,11 @@ __host__ __device__ constexpr int attn_stage_bytes() {
   return 2 * kAttnKVBytes + (kRope ? 2 * kAttnTabBytes : 0);
 }
 
-template <bool kRope>
+template <bool kRope, int kI8 = 0>
 __host__ __device__ constexpr int attn_smem_bytes() {
-  return 1024 + kAttnWgs * kAttnWgBytes + attn_stages<kRope>() * attn_stage_bytes<kRope>() +
-         ((kRope ? 3 : 2) * attn_stages<kRope>() + 1) * 8;
+  return 1024 + kAttnWgs * kAttnWgBytes +
+         attn_stages<kRope, kI8>() * attn_stage_bytes<kRope>() +
+         ((kRope ? 3 : 2) * attn_stages<kRope, kI8>() + 1) * 8;
 }
 
 // the producer warpgroup's warps 1-3 rotate K tiles in the rope form
@@ -506,49 +535,50 @@ __device__ __forceinline__ void attn_issue_qk_s8(int (&s)[64], uint64_t desc_q,
   wgmma_commit();
 }
 
-// issue pv = p8.v8 for one tile (four k32 steps) as one wgmma group
+// issue pv += p8.v8 for one tile (four k32 steps) as one wgmma group: the
+// s32 accumulator sums a chunk's tiles
 __device__ __forceinline__ void attn_issue_pv_s8(int (&pv)[32], const uint32_t (&p)[4][4],
                                                  const unsigned char* tile_v8) {
   const uint64_t dv = wgmma_desc(tile_v8);
 #pragma unroll
-  for (int kk = 0; kk < kAttnBK / 32; ++kk) wgmma_rs_s8_n64(pv, p[kk], dv + 2 * kk, kk != 0);
+  for (int kk = 0; kk < kAttnBK / 32; ++kk) wgmma_rs_s8_n64(pv, p[kk], dv + 2 * kk, 1);
   wgmma_commit();
 }
 
-// One 128-key tile of the int8 form's online softmax: s = float(S) * c,
-// keys at or past kv_len masked, the running max and sum updated, p =
-// exp2(s - m) left in s, the rescale factor in alpha. The plain version's
-// rounding points: one rounding for the scale, one for the subtraction.
-__device__ __forceinline__ void attn_softmax_tile_i8(const int (&si)[64], float (&s)[64],
-                                                     float (&m_run)[2], float (&l_run)[2],
-                                                     float (&alpha)[2], int k0, int kv_len,
-                                                     float c, int t) {
+// the int8 form's scaled score of accumulator element i: float(S) * c (one
+// rounding, the plain version's), -inf at or past kv_len
+__device__ __forceinline__ float attn_score_i8(int si, int i, bool mask, int k0, int kv_len,
+                                               float c, int t) {
+  const float x = __fmul_rn(__int2float_rn(si), c);
+  return mask && k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len ? -INFINITY : x;
+}
+
+// sweep 1 of the int8 form, one 128-key tile: the rows' max of the scaled,
+// masked scores, taken into this lane's share mx of the group's max
+__device__ __forceinline__ void attn_tile_max_i8(const int (&si)[64], float (&mx)[2], int k0,
+                                                 int kv_len, float c, int t) {
+  const bool mask = k0 + kAttnBK > kv_len;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = __fmul_rn(__int2float_rn(si[i]), c);
-  if (k0 + kAttnBK > kv_len) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i)
-      if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len) s[i] = -INFINITY;
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // every tile holds a key < kv_len, so the max is finite from the first tile on
-    const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
-    alpha[r] = exp2f(__fsub_rn(m_run[r], m_new));
-    m_run[r] = m_new;
-  }
+  for (int i = 0; i < 64; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], attn_score_i8(si[i], i, mask, k0, kv_len, c, t));
+}
+
+// sweep 2 of the int8 form, one 128-key tile: p = exp2(s - m) against the
+// group's running max m, left in s, and its row sums added to l (one
+// rounding for the scale, one for the subtraction, as the plain version)
+__device__ __forceinline__ void attn_probs_i8(const int (&si)[64], float (&s)[64],
+                                              const float (&m_run)[2], float (&l_run)[2], int k0,
+                                              int kv_len, float c, int t) {
+  const bool mask = k0 + kAttnBK > kv_len;
   float rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int r = (i >> 1) & 1;
-    s[i] = fast_exp2(__fsub_rn(s[i], m_run[r]));
+    s[i] = fast_exp2(__fsub_rn(attn_score_i8(si[i], i, mask, k0, kv_len, c, t), m_run[r]));
     rs[r] += s[i];
   }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) l_run[r] = __fadd_rn(__fmul_rn(l_run[r], alpha[r]), rs[r]);
+  for (int r = 0; r < 2; ++r) l_run[r] = __fadd_rn(l_run[r], rs[r]);
 }
 
 // kLse: also write lse [H, n] fp32, the base-2 logsumexp of each row's
@@ -567,7 +597,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       bf16* __restrict__ out, float* __restrict__ lse, int n, float scale_log2,
                       const __grid_constant__ AttnRope rope, const float* __restrict__ c_scale,
                       const float* __restrict__ sv_scale) {
-  constexpr int kStagesT = attn_stages<kRope>();
+  constexpr int kStagesT = attn_stages<kRope, kI8>();
   constexpr int kStageBytes = attn_stage_bytes<kRope>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -672,43 +702,73 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
     mbar_wait(q_full, 0);
     if constexpr (kI8 != 0) {
-      // a tile at a time: S, the softmax, P.V, each waited for (header)
+      // a chunk of kAttnI8Group tiles at a time, two sweeps, each product
+      // waited for (header)
       if (n_tiles > 0) {
         const uint64_t desc_q = wgmma_desc(my_q);
         const float c = c_scale[head];
         const float sv = attn_i8_pv8(kI8) ? sv_scale[head] : 0.f;
-        for (int j = 0; j < n_tiles; ++j) {
-          const int st = j % kStagesT;
-          const unsigned char* tile = ring + st * kStageBytes;
-          mbar_wait(&full[st], (j / kStagesT) & 1);
-          int si[64];
-          wgmma_fence();
-          attn_issue_qk_s8(si, desc_q, tile);
-          wgmma_wait<0>();
-          wgmma_fence_regs(si);
-          float s[64], alpha[2];
-          attn_softmax_tile_i8(si, s, m_run, l_run, alpha, j * kAttnBK, kv_len, c, t);
+        for (int j0 = 0; j0 < n_tiles; j0 += kAttnI8Group) {
+          const int j1 = min(j0 + kAttnI8Group, n_tiles);
+          // sweep 1: the group's row max (its first tile holds a key < kv_len,
+          // so the max is finite)
+          float mx[2] = {-INFINITY, -INFINITY};
+          for (int j = j0; j < j1; ++j) {
+            const int st = j % kStagesT;
+            mbar_wait(&full[st], (j / kStagesT) & 1);
+            int si[64];
+            wgmma_fence();
+            attn_issue_qk_s8(si, desc_q, ring + st * kStageBytes);
+            wgmma_wait<0>();
+            wgmma_fence_regs(si);
+            attn_tile_max_i8(si, mx, j * kAttnBK, kv_len, c, t);
+          }
+          float alpha[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+            alpha[r] = exp2f(__fsub_rn(m_run[r], m_new));
+            m_run[r] = m_new;
+            l_run[r] = __fmul_rn(l_run[r], alpha[r]);
+          }
 #pragma unroll
           for (int i = 0; i < 32; ++i) o[i] = __fmul_rn(o[i], alpha[(i >> 1) & 1]);
-          if constexpr (attn_i8_pv8(kI8)) {
-            uint32_t p8[4][4];
-            attn_pack_p8(s, p8);
-            int pv[32];
-            wgmma_fence();
-            attn_issue_pv_s8(pv, p8, tile + kAttnKVBytes);
-            wgmma_wait<0>();
-            wgmma_fence_regs(pv);
+          // sweep 2: S again (the tiles are still resident), p, l and P.V
+          int pv[32];
 #pragma unroll
-            for (int i = 0; i < 32; ++i) o[i] = __fadd_rn(o[i], __fmul_rn(__int2float_rn(pv[i]), sv));
-          } else {
-            uint32_t p[8][4];
-            attn_pack_p<kAttnBK>(s, p);
+          for (int i = 0; i < 32; ++i) pv[i] = 0;
+          for (int j = j0; j < j1; ++j) {
+            const int st = j % kStagesT;
+            const unsigned char* tile = ring + st * kStageBytes;
+            int si[64];
             wgmma_fence();
-            attn_issue_pv(o, p, tile + kAttnKVBytes);
+            attn_issue_qk_s8(si, desc_q, tile);
             wgmma_wait<0>();
-            wgmma_fence_regs(o);
+            wgmma_fence_regs(si);
+            float s[64];
+            attn_probs_i8(si, s, m_run, l_run, j * kAttnBK, kv_len, c, t);
+            if constexpr (attn_i8_pv8(kI8)) {
+              uint32_t p8[4][4];
+              attn_pack_p8(s, p8);
+              wgmma_fence();
+              attn_issue_pv_s8(pv, p8, tile + kAttnKVBytes);
+              wgmma_wait<0>();
+              wgmma_fence_regs(pv);
+            } else {
+              uint32_t p[8][4];
+              attn_pack_p<kAttnBK>(s, p);
+              wgmma_fence();
+              attn_issue_pv(o, p, tile + kAttnKVBytes);
+              wgmma_wait<0>();
+              wgmma_fence_regs(o);
+            }
+            if (lane == 0) mbar_arrive(&empty[st]);
           }
-          if (lane == 0) mbar_arrive(&empty[st]);
+          if constexpr (attn_i8_pv8(kI8)) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              o[i] = __fadd_rn(o[i], __fmul_rn(__int2float_rn(pv[i]), sv));
+          }
         }
       }
     } else if (kRope && rope_on && n_tiles > 0) {

@@ -7,15 +7,17 @@
 // quantization pass, quant_heads.cu, in the JAX wrapper's order):
 //   s   = float(q8 . k8^T) * c[h]            exact int32 product, base-2 domain
 //   keys at or past kv_lens[h] are masked; online max m and sum l in fp32,
-//   l adds the unquantized p = exp2(s - m)
+//   l adds the unquantized p = exp2(s - m), m taken per chunk of 512 keys
+//   from key 0 (the JAX kernel's _chunk_plan at its default bkv)
 //   "qkpv": p8 = rint(127 * p) (ties to even), acc = acc*alpha + float(p8 . v8) * sv[h]
+//           once a chunk
 //   "qk":   acc = acc*alpha + bf16(p) . v     (v unquantized bf16)
 //   out = acc / l, rounded once to bf16; in "qkpv" on the quantized operands
 //   of fp32 inputs (kernel 14's fp32 form), stored as fp32 (kAttnI8QkpvF32)
-// p8 depends on the running max at the time a key tile is visited, so the key
-// tile (128) is part of the arithmetic: the plain version
-// (ops/flash_prefix.py:flash_prefix_i8_reference) repeats it with ck = 128,
-// the JAX kernel's chunking at bkv = 128.
+// p8 depends on the running max at the time a chunk is visited, so the chunk
+// (512 keys) is part of the arithmetic: the plain version
+// (ops/flash_prefix.py:flash_prefix_i8_reference) repeats it with its
+// default ck = I8_KEY_CHUNK, the JAX kernel's chunking at its default bkv.
 //
 // What bounds it on the card: at the main shape (H = 32, n = 1536, d = 64,
 // 1376 valid keys) 17.3 GOP of int8 products (0.0087 ms at the 1,979 TOP/s
@@ -26,7 +28,9 @@
 // Design: the int8 form of kernel A's TMA + wgmma attention core
 // (attn_wgmma.cuh, kI8; its header has the details): 192 query rows a
 // block on three consumer warpgroups, a TMA producer warpgroup streaming
-// 128-key tiles of k8 (and v8, or bf16 v) through a three-stage ring, S on
+// 128-key tiles of k8 (and v8, or bf16 v) through a six-stage ring that
+// keeps a chunk's four tiles resident across its two sweeps (the first for
+// the chunk's max, the second recomputing S for p and P.V), S on
 // wgmma m64n128k32 .s32.s8.s8, p8 packed in registers into the 8-bit A
 // fragment, P.V on wgmma m64n64k32 .s32.s8.s8 with A from registers (or A's
 // bf16 P.V under "qk"). The q8 and k8 rows are 64 bytes: their 3-D maps take
@@ -54,7 +58,8 @@ cudaError_t launch_attn_i8_wgmma(const void* q8, const void* k8, const void* v, 
   if (!tensor_map_3d(&map_q, q8, H, n, kAttnD, kAttnRows, kMapInt8) ||
       !tensor_map_3d(&map_k, k8, H, n, kAttnD, kAttnBK, kMapInt8) || !v_ok)
     return cudaErrorInvalidValue;
-  constexpr int smem = attn_smem_bytes<false>();
+  constexpr int smem = attn_smem_bytes<false, kI8>();
+  static_assert(smem <= 232448, "the ring must fit a block's shared memory");
   static std::atomic<bool> ready[kMaxDevices];
   const cudaError_t err = allow_smem(attn_fwd_wgmma_kernel<false, false, kI8>, smem, ready);
   if (err != cudaSuccess) return err;

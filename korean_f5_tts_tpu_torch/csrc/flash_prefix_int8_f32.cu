@@ -47,12 +47,14 @@
 //        cores' fp32 accumulation truncates (probe_hopper.cu's accumulation
 //        probe), and one chain over a 1376-key sweep would carry that bias
 //        into o; a tile's chain is 24 products deep.
-//   key tile  I8_KEY_TILE = 128 is part of the function only in "qkpv",
-//        where p8 sees the running max; here p stays fp32 and the tile
-//        changes only where the online softmax rounds, so the plain version
-//        (ops/flash_prefix.py:_i8_attention_plain at ck = 128) is held at
-//        the fp32 attention bound. 64 keys as in kernel A: one mm_acc a
-//        tile, the accumulators of S, P.V and o 96 registers a thread.
+//   key tile  the key chunk (I8_KEY_CHUNK = 512, the JAX default bkv) is
+//        part of the function only in "qkpv", where p8 sees the running
+//        max; here p stays fp32 and the chunk changes only where the online
+//        softmax rounds, so this kernel keeps its own tiles and is held to
+//        the plain version (ops/flash_prefix.py:_i8_attention_plain at its
+//        512-key chunk) at the fp32 attention bound. 64 keys as in kernel
+//        A: one mm_acc a tile, the accumulators of S, P.V and o 96
+//        registers a thread.
 //   edges  the sweep stops at ceil(kv_len / 64) tiles; keys past kv_len get
 //        P = 0 (so +-1e4 planted there never reaches o); K and V rows past n
 //        and q rows past n are zero-filled, and rows past n are never

@@ -507,7 +507,7 @@ probe_attn_i8_kernel(const __grid_constant__ CUtensorMap map_q,
       s[i] = p[(row + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + 2 * t + (i & 1)];
     attn_pack_p8(s, frag);
   }
-  int pv[32];
+  int pv[32] = {};  // attn_issue_pv_s8 adds to its accumulator (a chunk's tiles)
   wgmma_fence();
   attn_issue_pv_s8(pv, frag, tile_v);
   wgmma_wait<0>();

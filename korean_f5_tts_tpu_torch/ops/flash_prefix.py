@@ -62,7 +62,13 @@ from korean_f5_tts_tpu_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634
 MASK_VALUE = -1e37  # the JAX reference's finite mask logit
-I8_KEY_TILE = 128   # keys per tile of kernel 14: part of its arithmetic (p8 sees the running max)
+I8_KEY_TILE = 128   # keys per tile of kernel 14 (and the unit n is padded to for its v8)
+# keys per chunk of int8 attention's online softmax: the JAX wrapper's default
+# bkv (flash_prefix_attention_i8, and F5_TTS_PREFIX_BKV's default in the
+# model). It is part of the arithmetic: p8 = rint(127 p) sees the running max
+# of the chunks visited so far. Kernel 14 takes its max per group of
+# I8_KEY_CHUNK / I8_KEY_TILE tiles.
+I8_KEY_CHUNK = 512
 
 # kernel launches by the wrappers (not plain calls)
 launches = 0           # kernel A, flash_prefix_folded on bf16 operands
@@ -257,9 +263,11 @@ def _v8_natural_layout(vk: torch.Tensor, n: int) -> torch.Tensor:
     return g.permute(0, 2, 3, 5, 4, 6, 1).reshape(H, n_pad, d)[:, :n]
 
 
-def _i8_attention_plain(q8, k8, v, c, sv, kv_lens, pv_i8: bool, ck: int) -> torch.Tensor:
-    """Kernel 14's arithmetic on quantized folded heads, key chunk by key
-    chunk of ck. v: int8 [H, n, d] (pv_i8) or the unquantized [H, n, d].
+def _i8_online(q8, k8, v, c, sv, kv_lens, pv_i8: bool, ck: int):
+    """Kernel 14's online softmax on quantized folded heads, key chunk by key
+    chunk of ck from key 0 (the JAX _chunk_plan: the last chunk holds what is
+    left): (acc [H, n, d], l [H, n, 1], m [H, n, 1]) in fp32, the output
+    unnormalised. v: int8 [H, n, d] (pv_i8) or the unquantized [H, n, d].
     Integer products run in fp32 (fp64 where a chunk's sum could pass 2^24),
     where sums of integers are exact."""
     H, n, d = q8.shape
@@ -291,6 +299,13 @@ def _i8_attention_plain(q8, k8, v, c, sv, kv_lens, pv_i8: bool, ck: int) -> torc
             # kernel (and kernel 14's fp32 "qk" form) multiplies them
             pb = p if v.dtype == torch.float32 else p.to(torch.bfloat16).float()
             acc = acc * alpha + torch.matmul(pb, v[:, start:stop].float())
+    return acc, l, m
+
+
+def _i8_attention_plain(q8, k8, v, c, sv, kv_lens, pv_i8: bool, ck: int) -> torch.Tensor:
+    """Kernel 14's arithmetic on quantized folded heads (_i8_online), the
+    output divided by l; a head with no valid key gives zeros."""
+    acc, l, _ = _i8_online(q8, k8, v, c, sv, kv_lens, pv_i8, ck)
     inv = torch.where(l == 0.0, torch.ones_like(l), torch.ones_like(l) / l)
     return acc * inv
 
@@ -301,20 +316,20 @@ def flash_prefix_i8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version of kernel 14 on q/k/v of one [..., n, d] shape with H
     heads in all (folded [H, n, d], or [b, h, n, d]) and [H] int kv_lens; the
     result is folded [H, n, d]. The quantization pass, then the kernel's
-    online softmax repeated chunk by chunk of ck keys (default: the kernel's
-    tile, I8_KEY_TILE).
+    online softmax repeated chunk by chunk of ck keys (default I8_KEY_CHUNK,
+    the JAX wrapper's default bkv, which kernel 14 computes).
 
     The chunk is part of the arithmetic: p8 = rint(127 * exp2(s - m)) sees
     the running max m when its chunk is visited. With ck = the JAX call's bkv
-    this is the JAX kernel; with ck = 128 it is the CUDA kernel (and the JAX
-    kernel at bkv = 128). pv_i8=False:
+    this is the JAX kernel at that bkv (ck = 128: the JAX kernel at bkv =
+    128, one max per kernel tile). pv_i8=False:
     only q.k^T is int8; on bf16 v, p is rounded to bf16 for the product with
     the unquantized v (the JAX kernel multiplies fp32 p by v there), on fp32
     v it stays fp32, as in the JAX kernel. The result has v's dtype. A head
     with kv_lens 0 gives zeros.
     """
     q8, k8, vq, c, sv = _quantize_qkv(q, k, v, pv_i8)
-    out = _i8_attention_plain(q8, k8, vq, c, sv, kv_lens, pv_i8, ck or I8_KEY_TILE)
+    out = _i8_attention_plain(q8, k8, vq, c, sv, kv_lens, pv_i8, ck or I8_KEY_CHUNK)
     return out.to(v.dtype)
 
 
@@ -653,10 +668,10 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     output, or the reverse, raises TypeError). The JAX counterpart takes k8
     transposed instead, a Mosaic workaround.
 
-    CPU tensors take the plain version at the kernel's key tile. CUDA
-    tensors launch the kernel or raise. A head with kv_lens 0 gives zeros
-    (the JAX kernel without prune gives the mean of v there; serving never
-    sends 0).
+    CPU tensors take the plain version at the kernel's key chunk
+    (I8_KEY_CHUNK). CUDA tensors launch the kernel or raise. A head with
+    kv_lens 0 gives zeros (the JAX kernel without prune gives the mean of v
+    there; serving never sends 0).
     """
     global launches_i8, launches_i8_f32, launches_i8_qk_f32
     H, n, d = q8.shape
@@ -665,7 +680,7 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     if q8.device.type == "cpu":
         vn = _v8_natural_layout(v, n) if pv_i8 else v
         return _i8_attention_plain(q8, k8, vn, c, sv, kv_lens, pv_i8,
-                                   I8_KEY_TILE).to(out_dtype)
+                                   I8_KEY_CHUNK).to(out_dtype)
     what = "flash_prefix_i8"
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: the output must be bf16 or fp32, got {out_dtype}")
@@ -729,11 +744,11 @@ def flash_prefix_attention_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of scripts/int8_quality.py. kv_lens: [b] or [1] int.
 
     CPU tensors and kernels=False take the plain version at the kernel's key
-    tile (I8_KEY_TILE). CUDA tensors launch the pass and the kernel (two
-    launches) or raise: q, k, v all bf16 or all fp32 (the fp32 forms of the
-    pass and of 14; the result has their dtype), d = 64, any n (the ragged
-    last tile is masked); nothing falls back to kernel A. Raises on an input
-    that requires a gradient.
+    chunk (I8_KEY_CHUNK, the JAX default bkv). CUDA tensors launch the pass
+    and the kernel (two launches) or raise: q, k, v all bf16 or all fp32
+    (the fp32 forms of the pass and of 14; the result has their dtype), d =
+    64, any n (the ragged last tile is masked); nothing falls back to kernel
+    A. Raises on an input that requires a gradient.
     """
     cuda_build.require_no_grad("flash_prefix_attention_i8", q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:

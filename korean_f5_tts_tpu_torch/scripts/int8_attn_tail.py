@@ -6,7 +6,8 @@ chunks, on the CPU.
 
 For each case of chip_smoke.py's kernel 14 check that holds the error
 bounds, and for each key chunk (64, the tile of the mma.sync kernel; 128,
-the attention core's and I8_KEY_TILE; 512, the JAX wrapper's default bkv),
+the attention core's tile, I8_KEY_TILE; 512, the JAX wrapper's default bkv
+and the kernel's chunk, I8_KEY_CHUNK),
 it draws q, k, v as chip_smoke.py does (standard normal, rounded to bf16)
 under seeds 0 .. draws-1 and prints, over the valid rows, the count of
 elements past 3e-2 (mean, largest, and the share of draws past the count

@@ -18,8 +18,9 @@ the kernel to the plain version and tests/test_torch_cuda.py the quantizer.
 
 Model level: sdpa, attention, one CFG step and the sampler with attn_int8
 against the JAX functions under F5_TTS_INT8_ATTN with the kernels forced to
-interpret mode (F5_TTS_PALLAS_INTERPRET), key chunk 128 on both sides, with
-fp32 and with int8 block linears.
+interpret mode (F5_TTS_PALLAS_INTERPRET), each side at its default key chunk
+(the JAX F5_TTS_PREFIX_BKV unset: 512; the port's I8_KEY_CHUNK), with fp32
+and with int8 block linears; sdpa also at n 640, two chunks.
 """
 
 import functools
@@ -54,7 +55,6 @@ from korean_f5_tts_tpu_torch.train.checkpoint import params_from_jax
 TINY = dict(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2, text_dim=32, conv_layers=1,
             text_num_embeds=50)
 JAX_MODE = {"qk": "qk", "qkpv": "1"}
-CHUNK = 128  # the key chunk of both sides in the model-level tests
 
 
 @pytest.fixture(autouse=True)
@@ -166,29 +166,30 @@ def test_attention_i8_plain_vs_pallas(mode, prune, lens):
         assert diff.max() <= 2 * ulp, diff.max()
         assert rel_err(_valid_rows(got, full), _valid_rows(want, full)) < 2e-3
     # the wrapper on CPU tensors, and with kernels=False, is the plain version
-    # at the kernel's own key tile
-    tile = flash_prefix.flash_prefix_i8_reference(pq, pk, pv, lens_h, pv_i8=mode == "qkpv",
-                                                  ck=flash_prefix.I8_KEY_TILE).reshape(b, h, n, d)
+    # at the kernel's own key chunk
+    chunk = flash_prefix.flash_prefix_i8_reference(pq, pk, pv, lens_h, pv_i8=mode == "qkpv",
+                                                   ck=flash_prefix.I8_KEY_CHUNK)
     for kernels in (True, False):
         same = flash_prefix.flash_prefix_attention_i8(pq, pk, pv, torch.tensor(lens),
                                                       pv_i8=mode == "qkpv", kernels=kernels)
-        assert torch.equal(same, tile)
+        assert torch.equal(same, chunk.reshape(b, h, n, d))
 
 
 def test_the_key_chunk_is_part_of_the_arithmetic():
     """p8 sees the running max of the chunks visited so far: another chunk
-    size gives other p8 values, so the plain version takes ck."""
+    size gives other p8 values, so the plain version takes ck; its default
+    is the JAX default bkv, 512 (n 640: two chunks, the last partial)."""
     rng = _rng(4)
-    q, k, v = (t(rng.standard_normal((2, 256, 64)).astype(np.float32) * 1.5).to(torch.bfloat16)
+    q, k, v = (t(rng.standard_normal((2, 640, 64)).astype(np.float32) * 1.5).to(torch.bfloat16)
                for _ in range(3))
-    lens = torch.tensor([256, 200])
-    a = flash_prefix.flash_prefix_i8_reference(q, k, v, lens, ck=128).float()
-    for other in (64, 256):
+    lens = torch.tensor([640, 600])
+    a = flash_prefix.flash_prefix_i8_reference(q, k, v, lens, ck=512).float()
+    for other in (128, 256):
         b = flash_prefix.flash_prefix_i8_reference(q, k, v, lens, ck=other).float()
         assert not torch.equal(a, b)
         assert rel_err(a.numpy(), b.numpy()) < 5e-2
     default = flash_prefix.flash_prefix_i8_reference(q, k, v, lens).float()
-    assert flash_prefix.I8_KEY_TILE == 128 and torch.equal(default, a)
+    assert flash_prefix.I8_KEY_CHUNK == 512 and torch.equal(default, a)
 
 
 @pytest.mark.parametrize("mode", ["qkpv", "qk"])
@@ -270,13 +271,12 @@ def test_cfm_loss_refuses_attn_int8():
 
 @pytest.fixture
 def jax_int8(monkeypatch):
-    """Both sides on key chunks of 128: the JAX dispatch reads its switches
-    from the environment, the port's plain version the module's tile."""
+    """The JAX dispatch reads its switches from the environment; both sides
+    keep their default key chunk (no F5_TTS_PREFIX_BKV)."""
     def set_mode(mode):
         monkeypatch.setenv("F5_TTS_PALLAS_INTERPRET", "1")
-        monkeypatch.setenv("F5_TTS_PREFIX_BKV", str(CHUNK))
+        monkeypatch.delenv("F5_TTS_PREFIX_BKV", raising=False)
         monkeypatch.setenv("F5_TTS_INT8_ATTN", JAX_MODE[mode])
-        monkeypatch.setattr(flash_prefix, "I8_KEY_TILE", CHUNK)
     return set_mode
 
 
@@ -290,9 +290,20 @@ MODEL_REL = {"qkpv": 2e-3, "qk": 5e-3}
 @pytest.mark.parametrize("prefix", [None, [200, 256]])
 @pytest.mark.parametrize("mode", ["qkpv", "qk"])
 def test_sdpa_matches_jax_under_the_switch(mode, prefix, jax_int8):
+    _sdpa_against_jax(mode, prefix, 256, jax_int8)
+
+
+@pytest.mark.parametrize("mode", ["qkpv", "qk"])
+def test_sdpa_matches_jax_over_several_chunks(mode, jax_int8):
+    """n 640: two 512-key chunks on both sides, the last partial, one item's
+    prefix inside it and one on the chunk boundary."""
+    _sdpa_against_jax(mode, [600, 512], 640, jax_int8)
+
+
+def _sdpa_against_jax(mode, prefix, n, jax_int8):
     jax_int8(mode)
     rng = _rng(8)
-    b, h, n, d = 2, 2, 256, 64
+    b, h, d = 2, 2, 64
     q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(3))
     jl = None if prefix is None else jnp.asarray(prefix, jnp.int32)
     jmask = None if prefix is None else jnp.arange(n)[None, :] < jl[:, None]

@@ -684,6 +684,29 @@ DQ_CORE_CASES = TRAIN_CORE_CASES + [
 
 
 @pytest.mark.parametrize("n,lens,past", DQ_CORE_CASES)
+def test_dq_recomputing_the_lse_on_the_attention_backward_core(dev, n, lens, past):
+    """Kernel 12 (kernel 11's core with a running max and sum in place of the
+    lse) at the dq core's edges: dq within 1e-2 and its lse within 1e-5 of
+    the plain version (relative L2), zero dq and lse 0 for kv_len 0, one
+    launch a call."""
+    q, k, v, do, kv, _, lse, dvec = _train_core_case(dev, n, lens, past)
+    before = flash_prefix.launches_dq
+    dq, lse12 = flash_prefix.flash_prefix_dq(q, k, v, do, dvec, kv)
+    assert flash_prefix.launches_dq == before + 1
+    want, _ = flash_prefix.flash_prefix_dq_reference(q, k, v, do, dvec, kv)
+    live = [h for h, length in enumerate(lens) if length > 0]
+    assert lse12.dtype == torch.float32 and _rel(lse12, lse) <= 1e-5
+    _close(dq, want)
+    if n == 1:  # dS = P (dP - D) = 0 for the one key: dq is zero
+        assert dq.float().abs().max().item() <= 1e-5
+    else:
+        assert _rel(dq[live], want[live]) <= 1e-2
+    for h, length in enumerate(lens):
+        if length == 0:
+            assert not dq[h].any() and not lse12[h].any()
+
+
+@pytest.mark.parametrize("n,lens,past", DQ_CORE_CASES)
 def test_dq_on_the_attention_backward_core(dev, n, lens, past):
     q, k, v, do, kv, _, lse, dvec = _train_core_case(dev, n, lens, past)
     before = flash_prefix.launches_dq_lsein
@@ -1042,7 +1065,7 @@ def test_probe_hopper_idioms(dev):
 @pytest.mark.parametrize("pv_i8", [True, False])
 @pytest.mark.parametrize("n,lens", [(200, [1, 64, 65, 200]), (256, [256, 131, 64, 2])])
 def test_int8_attention_kernel(dev, n, lens, pv_i8):
-    """Against the plain version at the kernel's key tile: the integer
+    """Against the plain version at the kernel's key chunk: the integer
     products are exact, so only p8 ties and the last bf16 rounding differ."""
     gen = torch.Generator(device=dev).manual_seed(10)
     q, k, v = (_bf16((4, 1, n, 64), dev, gen, s) for s in (1.5, 1.2, 0.8))
@@ -1055,6 +1078,30 @@ def test_int8_attention_kernel(dev, n, lens, pv_i8):
     _close(got, want)
     rel = (got.float() - want.float()).norm() / want.float().norm()
     assert rel.item() < (2e-3 if pv_i8 else 5e-3)
+
+
+@pytest.mark.parametrize("form", ["qkpv", "qk", "fp32 qkpv"])
+@pytest.mark.parametrize("n,lens", [(640, [600, 512, 640]), (1536, [1376, 1024, 1536])])
+def test_int8_attention_takes_its_max_per_512_key_chunk(dev, n, lens, form):
+    """The three forms of the attention core's int8 form compute the plain
+    version at the JAX default chunk (512 keys, four tiles a running max),
+    not at the 128-key tile: the kernel lies at least 4x closer to the
+    first (the "qk" bound alone cannot tell the two apart)."""
+    gen = torch.Generator(device=dev).manual_seed(150 + n)
+    B, heads = len(lens), 2
+    dtype = torch.float32 if form.startswith("fp32") else torch.bfloat16
+    q, k, v = (torch.randn((B, heads, n, 64), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    pv_i8 = form.endswith("qkpv")
+    lens_h = torch.tensor(lens, dtype=torch.int32, device=dev).repeat_interleave(heads)
+    q8, k8, vq, c, sv = flash_prefix.quantize_heads(q, k, v, pv_i8)
+    got = flash_prefix.flash_prefix_folded_i8(q8, k8, vq, c, sv, lens_h, pv_i8=pv_i8,
+                                              out_dtype=dtype).float()
+    vn = flash_prefix._v8_natural_layout(vq, n) if pv_i8 else vq
+    err = {ck: _rel(got, flash_prefix._i8_attention_plain(q8, k8, vn, c, sv, lens_h, pv_i8, ck)
+                    .to(dtype).float())
+           for ck in (flash_prefix.I8_KEY_CHUNK, flash_prefix.I8_KEY_TILE)}
+    assert err[flash_prefix.I8_KEY_CHUNK] * 4 < err[flash_prefix.I8_KEY_TILE], err
 
 
 @pytest.mark.parametrize("pv_i8", [True, False])
@@ -1145,11 +1192,13 @@ def test_quantization_pass_equals_its_plain_version(dev, n, views):
     (2, 2, 129, [128, 129], True),
     (3, 2, 193, [193, 1, 129], True),
     (2, 2, 1000, [0, 1000], False),
+    (3, 2, 640, [600, 512, 640], True),  # 512-key chunks: the last partial
+    (3, 2, 1536, [1376, 1024, 1536], False),
 ])
 def test_int8_attention_on_the_attention_core(dev, B, heads, n, lens, past):
     """Kernel 14 on the attention core's int8 form, both modes, after its
     quantization pass (one launch each a call), against the plain version at
-    the kernel's key tile: the integer products are exact, so only p8 ties
+    its key chunk (512): the integer products are exact, so only p8 ties
     and the last bf16 rounding differ ("qkpv"), or the tensor core's sum of
     bf16(p).v ("qk"). K and V rows past kv_len at +-1e4 where `past` says;
     an item with kv_len 0 gives zeros."""
@@ -1431,11 +1480,13 @@ def test_fp32_form_of_kernel_14_and_its_pass(dev, n, lens, pv_i8):
     (1, 2, 1, [1], 0.0), (3, 2, 127, [0, 1, 127], 1e4), (3, 16, 128, [127, 128, 1], 1e4),
     (2, 2, 129, [128, 129], 1e4), (3, 2, 191, [129, 191, 0], 1e4), (2, 16, 192, [192, 191], 1e4),
     (3, 2, 193, [193, 1, 129], 1e4), (2, 2, 1000, [0, 1000], 1e4),
-    (2, 16, 1536, [1376, 1536], 1e4)])
+    (2, 16, 1536, [1376, 1536], 1e4), (3, 2, 640, [600, 512, 640], 1e4),
+    (3, 2, 1536, [1376, 1024, 1536], 0.0)])
 def test_fp32_int8_qk_attention_on_the_tensor_cores(dev, B, heads, n, lens, past):
     """Kernel 14's fp32 "qk" form (S exact on mma.sync .s8, P.V split 3xTF32
     in 64-key tiles) at the attention kernels' edges (chip_smoke.py's
-    QKV_EDGES): within 1e-5 of its plain version at the 128-key chunk, K and
+    QKV_EDGES and I8_CHUNK_EDGES): within 1e-5 of its plain version at its
+    512-key chunk (p stays fp32: the chunk enters through fp32 rounding), K and
     V rows past kv_len at +-1e4 never reaching o, zeros for kv_len 0; the
     plain version with TF32 on (one TF32 product for P.V) fails that bound."""
     gen = torch.Generator(device=dev).manual_seed(140 + n)

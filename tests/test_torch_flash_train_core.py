@@ -160,3 +160,97 @@ def test_kernel_11_reference_at_the_dq_core_tile_edges(n, lens, dtype):
     dq_p = fp.flash_prefix_dq_lsein(tq, tk, tv, tdo, t(dvec[:, :n]), t(lse[:, :n]), t(lens_np))
     assert dq_p.dtype == tq.dtype
     _close(dq_p.float().numpy(), np.asarray(dq_j.astype(jnp.float32))[:, :n], dtype, 1e-4)
+
+
+def kernel12_schedule(q, k, v, do, dvec, kv_lens, after_product: bool = True):
+    """Kernel 12 (attn_bwd_wgmma.cuh, attn_dq_wgmma_kernel<true>) in torch,
+    head by head: ceil(kv_len / 128) key tiles of 128 (rows past n zero, as
+    TMA fills them); per tile x = S * scale_log2 with keys at or past kv_len
+    at -inf, m_new = max(m, row max), alpha = exp2(m - m_new), p = exp2(x -
+    m_new), l = alpha l + rowsum(p), dS = p (dP - D) rounded to bf16. The
+    product dS.K of tile i - 1 is in flight while tile i's alpha is found:
+    the kernel adds it first and rescales after (after_product); the other
+    order is the race the kernel avoids. At the end dq * 1/sqrt(64) / l (l
+    = 0 read as 1), lse = m + log2(l) (0 without a valid key). fp32 [H, n,
+    64] in (values of the card's bf16 operands), (dq, lse) out."""
+    H, n, d = q.shape
+    scale_log2 = jfp.LOG2E * SCALE
+    dq, lse = torch.zeros((H, n, d)), torch.zeros((H, n))
+    for h in range(H):
+        kv_len = min(int(kv_lens[h]), n)
+        n_tiles = -(-kv_len // 128)
+        pad = (0, 0, 0, n_tiles * 128 - n) if n_tiles * 128 > n else (0, 0, 0, 0)
+        kh, vh = (torch.nn.functional.pad(x[h], pad) for x in (k, v))
+        m, l = torch.full((n,), -math.inf), torch.zeros(n)
+        acc, pending = torch.zeros((n, d)), None
+        for i in range(n_tiles):
+            kt, vt = kh[i * 128:(i + 1) * 128], vh[i * 128:(i + 1) * 128]
+            x = (q[h] @ kt.T) * scale_log2
+            x = x.masked_fill(torch.arange(i * 128, (i + 1) * 128)[None, :] >= kv_len, -math.inf)
+            m_new = torch.maximum(m, x.amax(dim=-1))  # finite: the tile holds a valid key
+            alpha = torch.exp2(m - m_new)
+            m = m_new
+            p = torch.exp2(x - m[:, None])
+            l = l * alpha + p.sum(dim=-1)
+            ds = (p * (do[h] @ vt.T - dvec[h][:, None])).to(torch.bfloat16).float()
+            if after_product:
+                acc = (acc if pending is None else acc + pending) * alpha[:, None]
+            else:
+                acc = acc * alpha[:, None] + (0 if pending is None else pending)
+            pending = ds @ kt
+        if pending is not None:
+            acc = acc + pending
+        dq[h] = acc * torch.where(l > 0, 1.0 / l, torch.ones_like(l))[:, None] * SCALE
+        lse[h] = torch.where(l > 0, m + torch.log2(l), torch.zeros_like(l))
+    return dq, lse
+
+
+# (n, kv_lens, keys past kv_len at +-1e4): n 1 (dq identically zero), kv_len
+# 0, the 128-key tiles' edges, two JAX chunks of 512 at n 640
+DQ12_CASES = [(1, [1], False), (300, [300, 0, 129, 128, 1], False), (300, [300, 200, 129], True),
+              (640, [640, 600, 512, 513], False), (640, [600, 257], True)]
+
+
+@pytest.mark.parametrize("n,lens,past", DQ12_CASES,
+                         ids=[f"n{n}-kv{'_'.join(map(str, lens))}{'-past' if p else ''}"
+                              for n, lens, p in DQ12_CASES])
+def test_kernel_12_schedule_against_the_tpu_kernel_at_its_default_chunk(n, lens, past):
+    """The recomputing dq sweep on the dq core's 128-key tiles against
+    _kernel_dq at its default chunk (512; the JAX side zero-padded to a
+    multiple of 128 rows, fp32 operands of bf16 values): dq within 1e-2 and
+    lse within 1e-5 (relative L2). The TPU kernel keeps its max per chunk,
+    the mirror per tile: p is in [0, 1] either way, and the rounding that
+    sees the max, bf16(dS), is relative. A head with kv_len 0 is held to the
+    port's convention (zero dq, lse 0; the TPU kernel, whose mask is finite,
+    averages every key there); at n 1 dq is identically zero (dS = P (dP -
+    D) = 0 for the one key) and is held to |dq| <= 1e-5, as on the card."""
+    H = len(lens)
+    rng = np.random.default_rng(7 * n + H)
+    x = [rng.standard_normal((H, n, D)).astype(np.float32) for _ in range(4)]
+    if past:  # keys past kv_len along q's mean direction: they would win every max
+        for h, length in enumerate(lens):
+            x[1][h, length:] = 1e4 * np.sign(x[0][h].mean(0))
+    q, k, v, do = (t(a).to(torch.bfloat16).float() for a in x)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    o = fp.prefix_attention_reference(q, k, v, lens_t)
+    dvec = (do * o).sum(-1)
+    dq, lse = kernel12_schedule(q, k, v, do, dvec, lens_t)
+    n_pad = -(-n // 128) * 128
+    jq, jk, jv, jdo = (jnp.asarray(np.pad(a.numpy(), ((0, 0), (0, n_pad - n), (0, 0))))
+                       for a in (q, k, v, do))
+    jd = jnp.asarray(np.pad(dvec.numpy(), ((0, 0), (0, n_pad - n)))[..., None])
+    dq_j, lse_j = jfp._flash_prefix_dq(jq, jk, jv, jdo, jd, jnp.asarray(lens), SCALE, bq=128)
+    dq_j, lse_j = np.asarray(dq_j)[:, :n], np.asarray(lse_j)[:, :n, 0]
+    live = np.asarray(lens) > 0
+    assert not dq[~live].any() and not lse[~live].any()
+    assert np.abs(lse[live].numpy() - lse_j[live]).max() <= 1e-5 * np.abs(lse_j[live]).max()
+    assert np.linalg.norm(lse[live].numpy() - lse_j[live]) <= 1e-5 * np.linalg.norm(lse_j[live])
+    if n == 1:
+        assert dq.abs().max().item() <= 1e-5
+        return
+    err = np.linalg.norm(dq[live].numpy() - dq_j[live]) / np.linalg.norm(dq_j[live])
+    assert err <= 1e-2, err
+    # the rescale before tile i - 1's product has landed misses it (0.2-0.5)
+    bad, _ = kernel12_schedule(q, k, v, do, dvec, lens_t, after_product=False)
+    err_bad = np.linalg.norm(bad[live].numpy() - dq_j[live]) / np.linalg.norm(dq_j[live])
+    assert err_bad > 1e-2, err_bad

@@ -9,16 +9,16 @@ them to these plain versions). Here:
   each attn_path and under attn_int8 "qk" and "qkpv" (alone, after
   "linear_fused", and over int8 block linears) against the JAX package with
   the matching switch (F5_TTS_ATTN_LINEAR_FUSED, F5_TTS_ROPE_IN_KERNEL,
-  F5_TTS_QKV_KERNEL, F5_TTS_INT8_ATTN with its key chunk at the port's
-  128-key tile; Pallas in interpret mode). Tolerances (relative L2 over the
+  F5_TTS_QKV_KERNEL, F5_TTS_INT8_ATTN at its default key chunk, the port's
+  I8_KEY_CHUNK; Pallas in interpret mode). Tolerances (relative L2 over the
   valid rows): 1e-4 for every fp32 path and for "qk" (fp32 throughout; sums
   in another order; 6e-7 to 3e-6 read), 2e-3 for "qkpv" (exp2 of the two
   frameworks can flip a p8 = rint(127 p) at a tie, one 1/127 step of one
   term; 4e-6 read), 4e-3 over int8 block linears (their own rounding ties,
   tests/test_torch_attn_int8.py's bound; 1.1e-4 and 1.6e-4 read);
 - kernel 14's plain version on fp32 in "qk" mode against the JAX
-  flash_prefix_attention_i8(pv_i8=False) in interpret mode at bkv = the
-  port's key tile: fp32 out, p kept fp32 before p.v on both sides. Heads
+  flash_prefix_attention_i8(pv_i8=False) in interpret mode, both at their
+  default key chunk (512; n 384 and 640): fp32 out, p kept fp32 before p.v on both sides. Heads
   whose score scale c agrees with the JAX one to the bit are held to 2e-6
   relative (fp32 sums in another order), the others to 1e-4 (a scale an ulp
   apart moves every score of the head by that ulp);
@@ -156,7 +156,7 @@ def test_fp32_cfg_step_matches_jax(attn_path, attn_int8, weights, monkeypatch):
         monkeypatch.setenv(JAX_SWITCH[attn_path], "1")
     if attn_int8 is not None:
         monkeypatch.setenv("F5_TTS_INT8_ATTN", JAX_INT8[attn_int8])
-        monkeypatch.setenv("F5_TTS_PREFIX_BKV", str(flash_prefix.I8_KEY_TILE))
+        monkeypatch.delenv("F5_TTS_PREFIX_BKV", raising=False)
     jcfg, pcfg, jp, pp = _tiny() if weights == "fp32" else _tiny_int8()
     want = _jax_step(jcfg, jp)
     got = _port_step(pcfg, pp, attn_path, attn_int8)
@@ -176,15 +176,15 @@ def test_attn_int8_on_fp32_is_the_quantized_function():
 # --- kernel 14's plain version on fp32, "qk" mode ------------------------------------
 
 
-@pytest.mark.parametrize("lens", [[384, 200], [1, 129]])
+@pytest.mark.parametrize("lens", [[384, 200], [1, 129], [640, 600]])
 def test_i8_qk_plain_on_fp32_keeps_p_fp32(lens):
     rng = _rng(21)
-    b, h, n, d = 2, 2, 384, 64
+    b, h, n, d = 2, 2, max(384, *lens), 64
     q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32) * s for s in (1.5, 1.2, 0.8))
-    tile = flash_prefix.I8_KEY_TILE
+    chunk = flash_prefix.I8_KEY_CHUNK
     want = np.asarray(jfp.flash_prefix_attention_i8(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens, jnp.int32), bq=128,
-        bkv=tile, pv_i8=False))
+        pv_i8=False))
     assert want.dtype == np.float32
     lens_h = flash_prefix._fold_lens(torch.tensor(lens), b, h, "cpu")
     got = flash_prefix.flash_prefix_i8_reference(t(q), t(k), t(v), lens_h, pv_i8=False)
@@ -207,8 +207,8 @@ def test_i8_qk_plain_on_fp32_keeps_p_fp32(lens):
     q8, k8, _, c, sv = flash_prefix._quantize_qkv(t(q), t(k), t(v), False)
     vb = t(v).to(torch.bfloat16).float().reshape(b * h, n, d)
     pb = flash_prefix._i8_attention_plain(q8, k8, vb.to(torch.bfloat16), c, sv, lens_h, False,
-                                          tile)
-    pf = flash_prefix._i8_attention_plain(q8, k8, vb, c, sv, lens_h, False, tile)
+                                          chunk)
+    pf = flash_prefix._i8_attention_plain(q8, k8, vb, c, sv, lens_h, False, chunk)
     i = int(np.argmax(lens))  # (one valid key gives p = 1, which bf16 holds exactly)
     L = lens[i]
     assert rel_err(pb.reshape(b, h, n, d).numpy()[i, :, :L],

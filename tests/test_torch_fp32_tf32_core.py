@@ -488,7 +488,7 @@ def i8_qk_fp64(q8, k8, v, c, kv_len):
 def test_int8_qk_forward_holds_fp32_accuracy(n, kv_len, past):
     """Kernel 14's fp32 "qk" form on one block against float64 and against
     the port's plain version (ops/flash_prefix.py:_i8_attention_plain at its
-    128-key chunk) within the fp32 attention bound 1e-5; +-1e4 in V rows
+    512-key chunk) within the fp32 attention bound 1e-5; +-1e4 in V rows
     past kv_len never reaches o; kv_len 0 gives zeros."""
     rng = _rng(90 + n + kv_len)
     q8, k8 = (rng.integers(-127, 128, (n, 64)).astype(np.int8) for _ in range(2))
@@ -504,7 +504,7 @@ def test_int8_qk_forward_holds_fp32_accuracy(n, kv_len, past):
     t8 = [torch.from_numpy(a)[None] for a in (q8, k8, v)]
     plain = flash_prefix._i8_attention_plain(
         *t8, torch.tensor([c]), torch.zeros(1), torch.tensor([kv_len], dtype=torch.int32),
-        False, flash_prefix.I8_KEY_TILE)[0]
+        False, flash_prefix.I8_KEY_CHUNK)[0]
     assert rel_err(got, plain.numpy()) <= F32_ATTN_REL
 
 

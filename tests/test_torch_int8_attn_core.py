@@ -16,14 +16,30 @@ phase 2, which hold them to these plain versions: the pass to the bit). Here:
   p8_bits): rint(127 p) as 127 p + 1.5 * 2^23 in fp32, read from the score
   accumulator's positions into mma.m16n8k32's 8-bit A fragments, times v8 in
   the kernel's slot order, is p8 . v in natural order;
-- the plain version at the kernel's key tile (I8_KEY_TILE = 128) against the
-  TPU kernel _kernel_i8 in interpret mode at bkv = 128, the same chunking,
-  in both modes at the new tile's edges (kv_len 1, 127-129, 255, n; n 128-384;
-  keys past kv_len at +-1e4). Tolerances, tests/test_torch_attn_int8.py's:
-  "qkpv" 1 bf16 ulp of the output's scale and relative L2 1e-4 (exp2 of the
-  two frameworks can flip a p8 at a tie); "qk" 2 ulps and 2e-3 (the port
-  rounds p to bf16 before p.v where the JAX kernel multiplies in fp32).
+- the plain version at its default key chunk (I8_KEY_CHUNK = 512) against
+  the TPU kernel _kernel_i8 in interpret mode at its default bkv (512, no
+  override), both modes, at n 640 and 1536 (several chunks, a partial last
+  one) with kv_len inside the last chunk, on a chunk boundary and at n (the
+  port's chunk was the kernel's 128-key tile before: 1.3e-2 relative off the
+  JAX function in "qkpv");
+- the plain version at ck = 128 against _kernel_i8 at bkv = 128, the same
+  chunking, in both modes at the 128-key tile's edges (kv_len 1, 127-129,
+  255, n; n 128-384; keys past kv_len at +-1e4): the arithmetic chunk by
+  chunk. Tolerances, tests/test_torch_attn_int8.py's: "qkpv" 1 bf16 ulp of
+  the output's scale and relative L2 1e-4 (exp2 of the two frameworks can
+  flip a p8 at a tie); "qk" 2 ulps and 2e-3 (the port rounds p to bf16
+  before p.v where the JAX kernel multiplies in fp32);
+- a torch mirror of kernel 14's schedule (attn_wgmma.cuh, kI8): 128-key
+  tiles in groups of four, a first sweep of S for the group's max, one
+  alpha a group, S again with p, p8 and P.V tile by tile, the s32 P.V sum of
+  the group, the partial last group and the tiles past kv_len skipped. On
+  int8 operands its running max and its "qkpv" accumulator equal the plain
+  version's at ck = 512 bit for bit (the row sum l differs in the order of
+  its fp32 sum only), and with groups of one tile at ck = 128.
 """
+
+import inspect
+import math
 
 import numpy as np
 import pytest
@@ -55,7 +71,11 @@ def _bf16(rng, shape, scale=1.0):
 
 
 def test_the_kernel_tile_is_128():
+    """The kernel's tile stays 128 keys; the chunk of the arithmetic is the
+    JAX wrapper's default bkv, four tiles."""
     assert flash_prefix.I8_KEY_TILE == TILE
+    bkv = inspect.signature(jfp.flash_prefix_attention_i8).parameters["bkv"].default
+    assert flash_prefix.I8_KEY_CHUNK == bkv == 512 == 4 * TILE
 
 
 @pytest.mark.parametrize("n", [1, 100, 128, 129, 300])
@@ -188,10 +208,15 @@ def test_plain_at_the_kernel_tile_matches_the_tpu_kernel_at_bkv_128(n, lens, pas
     want = np.asarray(jfp.flash_prefix_attention_i8(jq, jk, jv, jnp.asarray(lens, jnp.int32),
                                                     bq=128, bkv=TILE, pv_i8=pv_i8)
                       .astype(jnp.float32))
-    got = flash_prefix.flash_prefix_attention_i8(*(t(x).to(torch.bfloat16) for x in (q, k, v)),
-                                                 torch.tensor(lens), pv_i8=pv_i8)
-    assert got.dtype == torch.bfloat16 and got.shape == (b, h, n, d)
-    got = got.float().numpy()
+    lens_h = flash_prefix._fold_lens(torch.tensor(lens), b, h, "cpu")
+    got = flash_prefix.flash_prefix_i8_reference(*(t(x).to(torch.bfloat16) for x in (q, k, v)),
+                                                 lens_h, pv_i8=pv_i8, ck=TILE)
+    assert got.dtype == torch.bfloat16 and got.shape == (b * h, n, d)
+    _held_to_jax(got.reshape(b, h, n, d).float().numpy(), want, lens, pv_i8)
+
+
+def _held_to_jax(got, want, lens, pv_i8):
+    """The valid rows of [b, h, n, d] outputs within the module's bounds."""
     valid = np.concatenate([got[i, :, :L].reshape(-1) for i, L in enumerate(lens)])
     ref = np.concatenate([want[i, :, :L].reshape(-1) for i, L in enumerate(lens)])
     ulp = 2.0 ** -8 * max(1.0, np.abs(ref).max())  # one bf16 ulp at the output's scale
@@ -200,3 +225,127 @@ def test_plain_at_the_kernel_tile_matches_the_tpu_kernel_at_bkv_128(n, lens, pas
         assert diff.max() <= ulp and rel_err(valid, ref) < 1e-4
     else:
         assert diff.max() <= 2 * ulp and rel_err(valid, ref) < 2e-3
+
+
+# (n, kv_lens): chunks of 512 from key 0, the last one partial; kv_len inside
+# the last chunk, on a chunk boundary, and at n
+CHUNK_CASES = [(640, [600, 512, 640]), (1536, [1376, 1024, 1536])]
+
+
+@pytest.mark.parametrize("mode", ["qkpv", "qk"])
+@pytest.mark.parametrize("n,lens", CHUNK_CASES,
+                         ids=[f"n{n}-kv{'_'.join(map(str, lens))}" for n, lens in CHUNK_CASES])
+def test_plain_at_its_default_matches_the_tpu_kernel_at_its_default_bkv(n, lens, mode):
+    """The function the JAX model runs (no F5_TTS_PREFIX_BKV): the port's
+    default is the JAX default, through the public wrapper on CPU tensors."""
+    rng = np.random.default_rng(n)
+    b, h, d = len(lens), 2, 64
+    # the scales of the equal-chunk test above, at which "qk"'s bound for
+    # the port's bf16 p was set (unit-normal q, k flatten the softmax, and
+    # the bf16 rounding of p then reads 2.4e-3 at n 640)
+    q, k, v = (_bf16(rng, (b, h, n, d), s) for s in (1.5, 1.2, 0.8))
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    pv_i8 = mode == "qkpv"
+    want = np.asarray(jfp.flash_prefix_attention_i8(jq, jk, jv, jnp.asarray(lens, jnp.int32),
+                                                    bq=128, pv_i8=pv_i8).astype(jnp.float32))
+    got = flash_prefix.flash_prefix_attention_i8(*(t(x).to(torch.bfloat16) for x in (q, k, v)),
+                                                 torch.tensor(lens), pv_i8=pv_i8)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, n, d)
+    _held_to_jax(got.float().numpy(), want, lens, pv_i8)
+
+
+def kernel14_schedule(q8, k8, v, c, sv, kv_lens, pv_i8: bool, group: int = 4):
+    """Kernel 14's loop (attn_wgmma.cuh, kI8) in torch, head by head:
+    ceil(kv_len / 128) tiles of 128 keys (K, V rows past n zero, as TMA
+    fills them), in groups of `group` tiles; sweep 1 takes the group's row
+    max of the scaled, masked scores; one alpha a group rescales acc and l;
+    sweep 2 recomputes S, p = exp2(s - m) tile by tile, adds p's row sums to
+    l and p8 . v8 into one integer sum of the group ("qkpv", then acc +=
+    float(sum) * sv), or bf16(p) . v into acc ("qk"). Returns (acc, l, m)
+    as _i8_online does. v: int8 [H, n, d] (natural order) or bf16 / fp32."""
+    H, n, d = q8.shape
+    acc = torch.zeros((H, n, d))
+    l = torch.zeros((H, n, 1))
+    m = torch.full((H, n, 1), -math.inf)
+    for h in range(H):
+        kv_len = min(int(kv_lens[h]), n)
+        n_tiles = -(-kv_len // TILE)
+        pad = n_tiles * TILE - n
+        k8h = torch.nn.functional.pad(k8[h].float(), (0, 0, 0, max(pad, 0)))
+        vh = torch.nn.functional.pad(v[h].float(), (0, 0, 0, max(pad, 0)))
+        qh = q8[h].float()
+
+        def scores(j):
+            s = (qh @ k8h[j * TILE:(j + 1) * TILE].T) * c[h]
+            col = torch.arange(j * TILE, (j + 1) * TILE)[None, :]
+            return s.masked_fill(col >= kv_len, -math.inf)
+
+        mh, lh, acch = m[h], l[h], acc[h]
+        for j0 in range(0, n_tiles, group):
+            tiles = range(j0, min(j0 + group, n_tiles))
+            mx = torch.full((n, 1), -math.inf)
+            for j in tiles:  # sweep 1
+                mx = torch.maximum(mx, scores(j).amax(dim=-1, keepdim=True))
+            m_new = torch.maximum(mh, mx)  # finite: the group's first tile has a valid key
+            alpha = torch.exp2(mh - m_new)
+            mh, lh, acch = m_new, alpha * lh, acch * alpha
+            pv = torch.zeros((n, d), dtype=torch.int64)
+            for j in tiles:  # sweep 2
+                p = torch.exp2(scores(j) - mh)
+                lh = lh + p.sum(dim=-1, keepdim=True)
+                vt = vh[j * TILE:(j + 1) * TILE]
+                if pv_i8:
+                    pv += torch.round(p * 127.0).to(torch.int64) @ vt.to(torch.int64)
+                else:
+                    pb = p if v.dtype == torch.float32 else p.to(torch.bfloat16).float()
+                    acch = acch + pb @ vt
+            if pv_i8:
+                acch = acch + pv.float() * sv[h]
+        m[h], l[h], acc[h] = mh, lh, acch
+    return acc, l, m
+
+
+# (n, kv_lens): several chunks, a partial last one, kv_len 0, inside a chunk,
+# on tile and chunk boundaries
+SCHEDULE_CASES = [
+    (640, [0, 1, 127, 128, 129, 511, 512, 513, 600, 640]),
+    (1536, [1376, 1024, 1025, 1535, 1536, 200]),
+    (300, [300, 257, 1]),
+]
+
+
+@pytest.mark.parametrize("past", [False, True])
+@pytest.mark.parametrize("mode", ["qkpv", "qk"])
+@pytest.mark.parametrize("n,lens", SCHEDULE_CASES,
+                         ids=[f"n{n}" for n, _ in SCHEDULE_CASES])
+def test_the_kernel_schedule_equals_the_plain_version_at_its_chunk(n, lens, mode, past):
+    """Two sweeps of four tiles are the 512-key chunk: the running max and
+    the "qkpv" accumulator to the bit. With keys past kv_len set to win every
+    max (past), the masked tiles the kernel skips change nothing."""
+    rng = np.random.default_rng(n + len(lens))
+    H, d = len(lens), 64
+    q8 = torch.from_numpy(rng.integers(-127, 128, (H, n, d)).astype(np.int8))
+    k8 = torch.from_numpy(rng.integers(-127, 128, (H, n, d)).astype(np.int8))
+    if past:  # keys past kv_len along q's mean direction: the largest scores
+        for h, L in enumerate(lens):
+            k8[h, L:] = (127 * q8[h].float().mean(0).sign()).to(torch.int8)
+    pv_i8 = mode == "qkpv"
+    if pv_i8:
+        v = torch.from_numpy(rng.integers(-127, 128, (H, n, d)).astype(np.int8))
+        sv = torch.from_numpy(rng.uniform(1e-5, 1e-4, H).astype(np.float32))
+    else:
+        v = t(rng.standard_normal((H, n, d)).astype(np.float32)).to(torch.bfloat16)
+        sv = torch.zeros(H)
+    c = torch.from_numpy(rng.uniform(2e-4, 6e-4, H).astype(np.float32))
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    for group, ck in ((4, flash_prefix.I8_KEY_CHUNK), (1, TILE)):
+        acc, l, m = kernel14_schedule(q8, k8, v, c, sv, lens_t, pv_i8, group)
+        acc_p, l_p, m_p = flash_prefix._i8_online(q8, k8, v, c, sv, lens_t, pv_i8, ck)
+        assert torch.equal(m, m_p)
+        if pv_i8:
+            assert torch.equal(acc, acc_p)
+        else:  # bf16 p . v summed tile by tile against one fp32 product a chunk
+            torch.testing.assert_close(acc, acc_p, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(l, l_p, rtol=1e-6, atol=0)
+    # the 512-key chunk is another function than the 128-key tile here
+    assert not torch.equal(kernel14_schedule(q8, k8, v, c, sv, lens_t, pv_i8, 4)[0], acc)
