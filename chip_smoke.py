@@ -154,14 +154,36 @@ Phases (any failure raises and exits non-zero):
      check that they run: percentiles of 3 requests are no distribution, the
      module's own command line measures 26); (f)
      edit_speech with one edit span (the kept frames are the input mel) and
-     batch_generate of two rows.
-Serving, the training steps, bench_train and offline inference run the full
-depth of 22 blocks; only the Trainer runs of phase 6 are cut to 4 and the
-fp32 step against the CPU to 2 (nothing else was cut when phases 9 and 6's
-fp32 path were added). The line before the last is a JSON
-object with the kernels' numbers (launches: the serving runs of phases 3, 7
-and 9(a), the backward entry point, the Trainer's 4 updates and phase 8); the
-last line is {"ok": true, "device": {...}}.
+     batch_generate of two rows;
+ 10. fine-tuning a checkpoint, fp32 (run before phase 6, whose profiler slows
+     every later launch; its own profile runs after phase 6): (a) seeded
+     F5TTS_v1_Base weights as a reference-format .pt (torch.save, the
+     ema_model. prefix, q/k in the interleaved rope layout) and as a .npz:
+     load_model's tensors from the .pt equal the .npz route's and the
+     source's to the bit, the bench-protocol mel of the two routes max abs
+     0, one F5TTS(ckpt_file=.pt).infer call of one chunk (length, finite,
+     exact launches of A, B, C fp32); (b) a seeded Vocos state dict through
+     scripts/convert_vocoder.py and load_vocoder(local_path=): the decode
+     equals the source params' (max abs 0); (c) vocab_extend with 8 new
+     tokens on (a)'s .npz, then train_lora's loop on the F5TTS_Base recipe
+     arch (no remat, pe_attn_head 1) over seeded mels at the recipe's
+     9,600-frame budget, 4 updates: finite losses, base tensors equal to the
+     bit after training, every adapter's a, b and scale moved, exactly 22
+     launches a update of 10, 11, 13 fp32 and none of any other counter, the
+     peak memory; 3 more updates timed alone; the merged .npz back through
+     load_model and one bench-protocol utterance; after phase 6, one
+     update's device busy time; (d) Trainer(grad_accumulation_steps=2) at
+     depth 4, fp32, full remat: Trainer.train's loop written out (its step,
+     batches and seeds) moves the weights at mini-steps 2 and 4 only
+     (gradient_step and schedule count 2); Trainer.train for 3, a resume,
+     1 more ends within rel 1e-6 of it; exact launches.
+Serving, the training steps, bench_train, offline inference and the LoRA
+run go the full depth of 22 blocks; only the Trainer runs of phases 6 and
+10(d) are cut to 4 and the fp32 step against the CPU to 2 (nothing else was
+cut when phases 9, 10 and 6's fp32 path were added). The line before the
+last is a JSON object with the kernels' numbers (launches: the serving runs
+of phases 3, 7 and 9(a), the backward entry point, the Trainer's 4 updates,
+phase 8 and phase 10); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -4079,9 +4101,383 @@ def phase6_train(dev, card: str, profile_path: Path | None = None) -> dict[str, 
             for name, n in train_counts.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: fine-tuning a checkpoint
+# ---------------------------------------------------------------------------
+
+LORA_FRAMES = 9_600  # the recipe's batch budget (configs/F5TTS_Base_ft_Lora.yaml)
+LORA_UPDATES = 4
+LORA_TIMED = 3  # further updates, each timed alone
+ACC_K = 2
+# allophone tokens (text/korean.py), absent from the Emilia vocab
+NEW_TOKENS = ["ㄱⁱ", "ㄷⁱ", "ㅂⁱ", "ㅈⁱ", "ㄱᶜ", "ㄷᶜ", "ㅂᶜ", "ㅅʲ"]
+CKPT_TEXT = "A short sentence from the converted checkpoint."
+
+
+def _equal_trees(a, b) -> bool:
+    from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree
+
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    return fa.keys() == fb.keys() and all(fa[k].dtype == fb[k].dtype and bool((fa[k] == fb[k])
+                                                                              .all()) for k in fa)
+
+
+def phase10_checkpoint(dev, card: str, tmp: Path) -> tuple[dict[str, int], str]:
+    """(a) A reference-format .pt of seeded F5TTS_v1_Base weights (torch.save,
+    ema_model. prefix, q/k columns in the reference's interleaved rope layout)
+    loaded by load_model: every tensor equal to the .npz route's and to the
+    source, the bench-protocol mel of both routes equal; one
+    F5TTS(ckpt_file=.pt).infer call. (b) A seeded Vocos state dict through
+    convert_vocoder and load_vocoder(local_path=): its decode equals the
+    source params' decode. Returns the launches and the .npz path."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch.api import F5TTS, load_vocoder
+    from korean_f5_tts_tpu_torch.config import preset_model_config
+    from korean_f5_tts_tpu_torch.infer import utils_infer
+    from korean_f5_tts_tpu_torch.infer.model import load_model
+    from korean_f5_tts_tpu_torch.models.dit import redraw_zero_init
+    from korean_f5_tts_tpu_torch.models.vocos import Vocos, VocosConfig, init_vocos
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.scripts import convert_vocoder
+    from korean_f5_tts_tpu_torch.train.checkpoint import params_to_jax, unflatten_tree
+    from korean_f5_tts_tpu_torch.utils import torch_ckpt
+
+    vocab = str(ROOT / "data/Emilia_ZH_EN_pinyin/vocab.txt")
+    model_cfg = preset_model_config("F5TTS_v1_Base")
+    t0 = time.perf_counter()
+    src = load_model(model_cfg, vocab_file=vocab, seed=0, device=dev)  # seeded fp32 weights
+    redraw_zero_init(src.params, seed=1)
+    arch = src.arch
+    flat = params_to_jax(src.params)
+    sd = torch_ckpt.dit_state_dict(unflatten_tree(flat), arch.heads, arch.dim_head)
+    pt, npz = tmp / "model_seeded.pt", tmp / "model_seeded.npz"
+    torch.save({"ema_model_state_dict": {f"ema_model.transformer.{k}": torch.from_numpy(v)
+                                         for k, v in sd.items()}, "update": 0}, str(pt))
+    np.savez(npz, **{f"params/{k}": v for k, v in flat.items()})  # save_checkpoint's layout
+    del flat, sd
+    t1 = time.perf_counter()
+    by_pt = load_model(model_cfg, ckpt_path=str(pt), vocab_file=vocab, device=dev)
+    by_npz = load_model(model_cfg, ckpt_path=str(npz), vocab_file=vocab, device=dev)
+    t2 = time.perf_counter()
+    same = _equal_trees(by_pt.params, by_npz.params) and _equal_trees(by_pt.params, src.params)
+    print(f"phase 10(a): seeded F5TTS_v1_Base ({arch.text_num_embeds} text embeds) as a "
+          f"reference .pt ({pt.stat().st_size / 2**30:.2f} GiB, torch.save, ema_model. prefix) "
+          f"and a .npz, written in {t1 - t0:.1f} s, both loaded in {t2 - t1:.1f} s; every tensor "
+          f"of the .pt route equal to the .npz route's and to the source's: {same}")
+    if not same:
+        fail("load_model on a reference .pt disagrees with the .npz route")
+    vcfg = VocosConfig()
+    vocoder = Vocos(init_vocos(vcfg, seed=1, device=dev), vcfg)
+    inputs = tuple(x.float() if torch.is_tensor(x) and x.is_floating_point() else x
+                   for x in bench_inputs(dev))
+    with torch.inference_mode():
+        mel_pt, _ = synthesize(by_pt, vocoder, inputs)
+        mel_npz, _ = synthesize(by_npz, vocoder, inputs)
+    diff = (mel_pt - mel_npz).abs().max().item()
+    print(f"  bench-protocol mel (fp32 weights), .pt route vs .npz route: max abs {diff} "
+          f"(bound 0), |mel| max {mel_pt.abs().max().item():.3f}")
+    if diff != 0 or not torch.isfinite(mel_pt).all() or mel_pt.abs().max() == 0:
+        fail("the .pt route's mel differs from the .npz route's")
+    del by_pt, by_npz, src
+
+    # one utterance through the offline entry point on the .pt
+    t = np.arange(int(3.0 * SR)) / SR
+    ref_path = str(tmp / "ref.wav")
+    wavfile.write(ref_path, SR, (0.3 * np.sin(2 * np.pi * (150.0 + 400.0 * t) * t)
+                                 * 32767).astype(np.int16))
+    quiet = {"show_info": lambda m: None}
+    (ref_wav, sr), ref_text = utils_infer.preprocess_ref_audio_text(ref_path, REF_TEXT, **quiet)
+    ref_frames = len(ref_wav) // HOP + 1
+    max_chars = int(len(ref_text.encode()) / (len(ref_wav) / sr) * (22 - len(ref_wav) / sr))
+    chunks = utils_infer.chunk_text(CKPT_TEXT, max_chars=max_chars)
+    if len(chunks) != 1:
+        fail(f"the checkpoint's text split into {len(chunks)} chunks, expected one")
+    gen_frames = int(ref_frames / (len(ref_text.encode()) + 1) * len(chunks[0].encode()))
+    want_samples = (gen_frames - 1) * HOP
+    tts = F5TTS(ckpt_file=str(pt), vocab_file=vocab)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    wav, sr_out, _ = tts.infer(ref_path, REF_TEXT, CKPT_TEXT, nfe_step=STEPS, seed=3, **quiet)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_prefix_f32=STEPS * DEPTH, ff_block_f32=STEPS * DEPTH,
+                grouped_conv_f32=2 * STEPS)
+    rms = float(np.sqrt(np.mean(np.square(wav))))
+    print(f"  F5TTS(ckpt_file=.pt).infer: {secs:.2f} s, {wav.size} samples (expected "
+          f"{want_samples}) at {sr_out} Hz, rms {rms:.4f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    if wav.size != want_samples or sr_out != SR or not np.isfinite(wav).all() or rms <= 0:
+        fail("F5TTS(ckpt_file=.pt): wrong length, rate or silent audio")
+    if counts != want:
+        fail(f"F5TTS(ckpt_file=.pt): expected launches {want}")
+    del tts
+
+    # (b) a Vocos state dict through convert_vocoder and load_vocoder(local_path=)
+    voc_sd = torch_ckpt.vocos_state_dict(unflatten_tree(params_to_jax(vocoder.params)))
+    torch.save({k: torch.from_numpy(v) for k, v in voc_sd.items()}, str(tmp / "vocos.bin"))
+    convert_vocoder.convert(str(tmp / "vocos.bin"), str(tmp / "vocos.npz"))
+    loaded = load_vocoder(is_local=True, local_path=str(tmp / "vocos.npz"), device=dev)
+    mel = torch.randn((1, 100, 400), generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
+    got, want_wav = loaded(mel), vocoder(mel)
+    vdiff = (got - want_wav).abs().max().item()
+    print(f"phase 10(b): Vocos .bin -> convert_vocoder -> load_vocoder(local_path=): weights "
+          f"equal {_equal_trees(loaded.params, vocoder.params)}, decode of a [1, 100, 400] mel "
+          f"max abs {vdiff} against the source params' (bound 0)")
+    if vdiff != 0 or not _equal_trees(loaded.params, vocoder.params):
+        fail("the converted vocoder differs from its source")
+    return counts, str(npz)
+
+
+def phase10_lora(dev, card: str, tmp: Path, pretrained: str):
+    """(c) vocab_extend with 8 new tokens on the .npz of (a), then train_lora's
+    loop on the F5TTS_Base recipe arch in fp32 over seeded mels at the
+    recipe's 9,600-frame budget. Returns (launches, a closure that profiles
+    one more update)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from korean_f5_tts_tpu_torch.config import preset_model_config
+    from korean_f5_tts_tpu_torch.data.dataset import CustomDataset, collate_batch
+    from korean_f5_tts_tpu_torch.infer.model import load_model
+    from korean_f5_tts_tpu_torch.models.lora import DEFAULT_TARGETS, init_lora
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.text.vocab import load_vocab_file
+    from korean_f5_tts_tpu_torch.train import train_lora, vocab_extend
+    from korean_f5_tts_tpu_torch.train.checkpoint import (
+        flatten_tree,
+        load_npz_params,
+        params_to_jax,
+    )
+    from korean_f5_tts_tpu_torch.train.step import PlainAdamW
+    from korean_f5_tts_tpu_torch.utils.misc import fold_in
+
+    t0 = time.perf_counter()
+    extended, new_vocab = tmp / "extended.npz", tmp / "vocab_extended.txt"
+    n_vocab = vocab_extend.extend_checkpoint(pretrained, str(extended),
+                                             str(ROOT / "data/Emilia_ZH_EN_pinyin/vocab.txt"),
+                                             NEW_TOKENS, str(new_vocab))
+    model_cfg = preset_model_config("F5TTS_Base")
+    arch = dataclasses.replace(model_cfg.arch, text_num_embeds=n_vocab + 1)  # as train_lora
+    base = train_lora.load_base_params(str(extended), arch, dev)
+    from_file = load_npz_params(str(extended))
+    flat = flatten_tree(base)
+    kept = sorted(k for k, v in params_to_jax(base).items() if from_file[k].shape != v.shape)
+    print(f"phase 10(c): vocab_extend: {n_vocab} tokens (+{len(NEW_TOKENS)}), "
+          f"text_embed rows {from_file['text_embed/embed/w'].shape[0]} in the file; the "
+          f"F5TTS_Base recipe arch for {n_vocab} tokens has {flat['text_embed/embed/w'].shape[0]}"
+          f" (text_num_embeds = vocab + 1, one filler row): leaves kept at their seeded init by "
+          f"the shape-mismatch skip: {kept}; {time.perf_counter() - t0:.1f} s")
+    del from_file
+    adapters = init_lora(base, DEFAULT_TARGETS, seed=0)
+    optimizer = PlainAdamW(learning_rate=1e-5)  # the recipe's optim.learning_rate
+    opt_state = optimizer.init(train_lora.trainable_leaves(base, adapters))
+    frozen = {k: v.clone() for k, v in flat.items()}
+    start = {f"{p}/{k}": v.clone() for p, ad in adapters.items() for k, v in ad.items()}
+
+    vocab_map = load_vocab_file(str(new_vocab))
+    letters = [t for t in vocab_map if len(t) == 1 and t.isascii() and t.isalpha()]
+    rng = np.random.default_rng(8)
+    rows = []
+    for _ in range(LORA_UPDATES * 8):
+        f = int(rng.integers(1000, 1200))
+        text = [str(x) for x in rng.choice(letters + NEW_TOKENS + [" "], 120)]  # tokens
+        rows.append({"mel_spec": rng.standard_normal((100, f)).astype(np.float32),
+                     "text": text, "duration": f * HOP / SR})
+    dataset = CustomDataset(rows, preprocessed_mel=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_lora.train_loop(base, adapters, optimizer, opt_state, dataset, arch, vocab_map,
+                                str(tmp / "lora"), batch_size_per_gpu=LORA_FRAMES, epochs=1,
+                                max_updates=LORA_UPDATES, save_every=10**9)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"flash_prefix_lse_f32": arch.depth * LORA_UPDATES,
+                 "flash_prefix_dq_lsein_f32": arch.depth * LORA_UPDATES,
+                 "flash_prefix_dkv_f32": arch.depth * LORA_UPDATES})
+    batch_np = collate_batch([dataset[i] for i in range(8)], vocab_map)
+    print(f"  train_lora loop: {res['updates']} updates at a {LORA_FRAMES}-frame budget (8 rows "
+          f"of 1000-1200 frames, padded to {batch_np['mel'].shape[1]}), fp32, "
+          f"checkpoint_activations {arch.checkpoint_activations}, pe_attn_head "
+          f"{arch.pe_attn_head}: losses {[round(x, 5) for x in res['losses']]}; {secs:.1f} s "
+          f"with the merged .npz written; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+    print(f"  launches: { {k: v for k, v in counts.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} }, every other counter 0)")
+    if res["updates"] != LORA_UPDATES or not np.isfinite(res["losses"]).all():
+        fail("the LoRA loop did not take 4 finite updates")
+    if counts != want:
+        fail("the LoRA update did not run the fp32 forms of 10, 11, 13 once per block")
+    same_base = all(torch.equal(v, frozen[k]) for k, v in flatten_tree(base).items())
+    moved = {leaf: sum(not torch.equal(ad[leaf], start[f"{p}/{leaf}"])
+                       for p, ad in adapters.items()) for leaf in ("a", "b", "scale")}
+    print(f"  base tensors bit-identical after training: {same_base}; adapters moved (of "
+          f"{len(adapters)}): {moved}")
+    if not same_base or min(moved.values()) < len(adapters):
+        fail("LoRA training changed a base tensor or left an adapter leaf unmoved")
+    del frozen
+
+    batch = {k: torch.from_numpy(batch_np[src]).to(dev)
+             for k, src in (("mel", "mel"), ("text", "text"), ("lens", "mel_lengths"))}
+    times = []
+    for i in range(LORA_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_lora.lora_train_step(base, adapters, opt_state, batch, fold_in(7, i), arch,
+                                   optimizer)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"  ms per LoRA update (batch {tuple(batch['mel'].shape[:2])}, each timed alone): "
+          f"{', '.join(f'{x:.1f}' for x in times)} [{card}]")
+
+    # the merged checkpoint reloads through load_model and samples one utterance
+    merged = load_model(model_cfg, ckpt_path=res["path"], vocab_file=str(new_vocab),
+                        device=dev)
+    if merged.arch.text_num_embeds != arch.text_num_embeds:
+        fail("the merged checkpoint's vocab does not load back")
+    moved_w = not torch.equal(merged.params["blocks"][0]["attn"]["to_q"]["w"],
+                              base["blocks"][0]["attn"]["to_q"]["w"])
+    from korean_f5_tts_tpu_torch.models.vocos import Vocos, VocosConfig, init_vocos
+
+    vcfg = VocosConfig()
+    vocoder = Vocos(init_vocos(vcfg, seed=1, device=dev), vcfg)
+    inputs = tuple(x.float() if torch.is_tensor(x) and x.is_floating_point() else x
+                   for x in bench_inputs(dev))
+    with torch.inference_mode():
+        mel, wav = synthesize(merged, vocoder, inputs)
+    ok = bool(torch.isfinite(mel).all() and torch.isfinite(wav).all()) and mel.abs().max() > 0
+    print(f"  merged .npz through load_model (F5TTS_Base, {n_vocab}-token vocab): the adapted "
+          f"projections differ from the base: {moved_w}; one bench-protocol utterance: mel "
+          f"{tuple(mel.shape)}, wav {tuple(wav.shape)}, finite and not silent: {ok}")
+    if not (moved_w and ok):
+        fail("the merged LoRA checkpoint does not sample")
+    del merged, vocoder
+
+    def profile() -> None:
+        busy = profile_once(lambda: train_lora.lora_train_step(
+            base, adapters, opt_state, batch, 11, arch, optimizer), None,
+            f"LoRA update, F5TTS_Base fp32, batch {tuple(batch['mel'].shape[:2])}", top=6)
+        print(f"phase 10(c): a LoRA update's device busy time {busy:.2f} ms [{card}]")
+
+    return counts, profile
+
+
+def phase10_accumulation(dev, card: str, tmp: Path) -> dict[str, int]:
+    """(d) Trainer(grad_accumulation_steps=2) at depth 4, as phase 6's
+    Trainer runs (fp32, full remat). The uninterrupted run is Trainer.train's
+    loop written out (its optimizer, state, batches in epoch order and seeds
+    fold_in(666, update)), so each mini-step can be looked at: the weights
+    move at mini-steps 2 and 4 only. A Trainer run of 3 mini-steps resumed
+    for 1 more ends within rel 1e-6 of it, with 2 optimizer updates."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from korean_f5_tts_tpu_torch.data.dataset import CustomDataset
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree
+    from korean_f5_tts_tpu_torch.train.step import train_step
+    from korean_f5_tts_tpu_torch.train.trainer import Trainer
+    from korean_f5_tts_tpu_torch.utils.misc import fold_in
+
+    small = dataclasses.replace(train_arch(), depth=TRAINER_DEPTH)
+    params = redraw_zero_init(init_dit(small, seed=0, device=dev), seed=1)
+    rng = np.random.default_rng(4)
+    frames = [int(f) for f in rng.integers(TRAIN_N - 120, TRAIN_N + 1, 2 * TRAIN_B)]
+    rows = [{"mel_spec": rng.standard_normal((100, f)).astype(np.float32),
+             "text": "this is a training row", "duration": f * HOP / SR} for f in frames]
+    dataset = CustomDataset(rows, preprocessed_mel=True)
+    vocab = {c: i + 1 for i, c in enumerate(" abcdefghijklmnopqrstuvwxyz")}
+
+    def trainer(name):
+        return Trainer(params, small, epochs=10, learning_rate=1e-4, num_warmup_updates=2,
+                       checkpoint_path=str(tmp / name), batch_size_per_gpu=TRAIN_B * TRAIN_N,
+                       max_samples=TRAIN_B, last_per_updates=10**9, save_per_updates=10**9,
+                       logger=None, vocab_char_map=vocab, grad_accumulation_steps=ACC_K)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    whole = trainer("whole")
+    sampler = whole._make_batches(dataset, 666)
+    order = []
+    for epoch in range(2):  # 2 batches an epoch
+        sampler.set_epoch(epoch)
+        order += list(sampler)
+    moved = []
+    for i, idx in enumerate(order[:4]):
+        before = [v.clone() for v in flatten_tree(whole.state.params).values()]
+        whole.state, _ = train_step(whole.state, whole._place_batch(whole._load_batch(
+            dataset, idx)), fold_in(666, i), small, whole.optimizer)
+        moved.append(any(not torch.equal(a, b) for a, b in
+                         zip(before, flatten_tree(whole.state.params).values())))
+    opt = whole.state.opt_state
+    print(f"phase 10(d): Trainer(grad_accumulation_steps={ACC_K}) at depth {TRAINER_DEPTH}, "
+          f"its step over its batches: weights moved after mini-steps 1-4: {moved} (expected "
+          f"[False, True, False, True]); gradient_step {opt['gradient_step']}, schedule count "
+          f"{opt['inner']['sched_count']}, adam count {opt['inner']['count']}, mini_step "
+          f"{opt['mini_step']}")
+    if moved != [False, True, False, True] or opt["gradient_step"] != 2 \
+            or opt["inner"]["sched_count"] != 2 or opt["mini_step"] != 0:
+        fail("gradient accumulation did not update on every second mini-step")
+    first = trainer("resumed").train(dataset, resumable_with_seed=666, max_updates=3)
+    resumed = trainer("resumed")
+    res = resumed.train(dataset, resumable_with_seed=666, max_updates=1)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    a = torch.cat([v.flatten() for v in flatten_tree(resumed.state.params).values()])
+    b = torch.cat([v.flatten() for v in flatten_tree(whole.state.params).values()])
+    err = _rel(a, b)
+    state = resumed.state.opt_state
+    print(f"  Trainer.train: 3 mini-steps (losses {[round(x, 5) for x in first['losses']]}), "
+          f"checkpoint, resume, 1 more (update {res['updates']}): params rel L2 {err:.3e} "
+          f"against the uninterrupted run (bound 1e-6); gradient_step "
+          f"{state['gradient_step']}, schedule count {state['inner']['sched_count']}; "
+          f"{time.perf_counter() - t0:.1f} s with 2 checkpoints written and 1 read [{card}]")
+    if err > 1e-6 or res["updates"] != 4 or state["gradient_step"] != 2 \
+            or state["inner"]["sched_count"] != 2:
+        fail("a resumed accumulation run does not end where the uninterrupted one does")
+    want = expected_train_launches(8, TRAINER_DEPTH, f32=True)
+    print(f"  launches of the 8 mini-steps: { {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        fail(f"the accumulation runs: expected launches {want}")
+    return counts
+
+
+def phase10_finetune(dev, card: str):
+    """Phase 10: returns (launches, the deferred profile of a LoRA update)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        total, npz = phase10_checkpoint(dev, card, Path(tmp))
+        torch.cuda.empty_cache()
+        counts, profile = phase10_lora(dev, card, Path(tmp), npz)
+        total = {k: total[k] + counts[k] for k in total}
+        torch.cuda.empty_cache()
+        counts = phase10_accumulation(dev, card, Path(tmp))
+        total = {k: total[k] + counts[k] for k in total}
+    torch.cuda.empty_cache()
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s [{card}]")
+    return total, profile
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, an int8 "
@@ -4212,10 +4608,17 @@ def main(argv=None) -> int:
     if 9 in phases:
         for name, n in phase9_int8_attention(dev, card, args.profile).items():
             counts[name] += n
+    lora_profile = None
+    if 10 in phases:  # before 6: the profiler slows every launch after it
+        phase10_counts, lora_profile = phase10_finetune(dev, card)
+        for name, n in phase10_counts.items():
+            counts[name] += n
     if 6 in phases:  # last: it profiles a step, and the profiler slows every launch after it
         train_profile = None if args.profile is None else args.profile.with_suffix(".train.txt")
         for name, n in phase6_train(dev, card, train_profile).items():
             counts[name] += n
+    if lora_profile is not None:  # phase 10's profile, after every timing
+        lora_profile()
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
                 "max_abs_err": results[name].get("max_abs_err"),

@@ -57,12 +57,15 @@ class ModelConfig:
     tokenizer: str = "pinyin"
 
 
-# the DiT presets of the JAX package's model zoo (config.py:142-152)
+# the DiT presets of the JAX package's model zoo (config.py:142-157; its UNetT
+# presets E2TTS_* wait for their backbone, ROADMAP.md queue 1 item 11)
 PRESETS: dict[str, dict] = {
     "F5TTS_v1_Base": dict(dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512,
                           text_mask_padding=True, conv_layers=4, pe_attn_head=None),
     "F5TTS_Base": dict(dim=1024, depth=22, heads=16, ff_mult=2, text_dim=512,
                        text_mask_padding=False, conv_layers=4, pe_attn_head=1),
+    "F5TTS_Small": dict(dim=768, depth=18, heads=12, ff_mult=2, text_dim=512,
+                        text_mask_padding=False, conv_layers=4, pe_attn_head=1),
 }
 
 

@@ -1,14 +1,18 @@
-"""Training data: CustomDataset, frame-budget batching and collate
-(counterpart of korean_f5_tts_tpu/data/dataset.py:32-190).
+"""Training data: CustomDataset, HFDataset, frame-budget batching, collate
+and the load_dataset dispatch (counterpart of
+korean_f5_tts_tpu/data/dataset.py).
 
 numpy copies: the JAX module imports its mel ops, and so jax, at import
 (dataset.py:27). Mels of wav rows come from the port's
-ops/mel.log_mel_spectrogram. HFDataset and load_dataset are not ported
-(ROADMAP.md queue 1 item 10).
+ops/mel.log_mel_spectrogram on the host. pyarrow (the arrow files) and
+datasets (HFDataset's save_to_disk directories) are imported inside the
+calls that read them.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Sequence
 
 import numpy as np
@@ -49,9 +53,13 @@ class CustomDataset:
             wav = audio_utils.to_mono(wav)
             if sr != self.mel.target_sample_rate:
                 wav = audio_utils.resample(wav, sr, self.mel.target_sample_rate)
-            mel_spec = log_mel_spectrogram(torch.from_numpy(wav.astype(np.float32))[None],
-                                           self.mel)[0].numpy()
+            mel_spec = _host_mel(wav.astype(np.float32), self.mel)
         return {"mel_spec": mel_spec, "text": row["text"]}
+
+
+def _host_mel(wav: np.ndarray, mel: MelConfig) -> np.ndarray:
+    """[n] waveform -> [n_mels, frames] fp32 log-mel, on the CPU."""
+    return log_mel_spectrogram(torch.from_numpy(wav)[None], mel)[0].numpy()
 
 
 class DynamicBatchSampler:
@@ -145,3 +153,90 @@ def collate_batch(items: list[dict[str, Any]], vocab_char_map: dict[str, int] | 
                                         for t in toks]
     return {"mel": mel, "mel_lengths": mel_lengths, "text": text_ids,
             "text_lengths": text_lengths}
+
+
+class HFDataset:
+    """Rows of a `datasets` dataset, {audio: {array, sampling_rate}, text}
+    (dataset.py:193-237): frame length from the raw audio length, the 0.3-30 s
+    duration filter with skip-forward, host resample, lazy wav -> log-mel."""
+
+    def __init__(self, hf_dataset, mel: MelConfig = MelConfig()):
+        self.data = hf_dataset
+        self.mel = mel
+
+    def get_frame_len(self, index: int) -> float:
+        row = self.data[index]
+        audio = np.asarray(row["audio"]["array"])
+        sr = row["audio"]["sampling_rate"]
+        return (audio.shape[-1] / sr) * self.mel.target_sample_rate / self.mel.hop_length
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        while True:
+            row = self.data[index]
+            audio = np.asarray(row["audio"]["array"], dtype=np.float32)
+            sr = row["audio"]["sampling_rate"]
+            if 0.3 <= audio.shape[-1] / sr <= 30:
+                break
+            index = (index + 1) % len(self.data)
+        wav = audio_utils.to_mono(audio)
+        if sr != self.mel.target_sample_rate:
+            wav = audio_utils.resample(wav, sr, self.mel.target_sample_rate)
+        return {"mel_spec": _host_mel(np.asarray(wav, np.float32), self.mel),
+                "text": row["text"]}
+
+
+def load_dataset(dataset_name: str, tokenizer: str = "pinyin",
+                 dataset_type: str = "CustomDataset", audio_type: str = "raw",
+                 mel_spec_kwargs: dict | None = None,
+                 data_dir: str | None = None) -> CustomDataset | HFDataset:
+    """Dataset dispatch (dataset.py:239-292):
+      - CustomDataset:     {data_dir}/{name}_{tokenizer}/raw.arrow (or mel.arrow
+                           with audio_type "mel") + duration.json;
+      - CustomDatasetPath: `dataset_name` is that directory itself;
+      - HFDataset:         a `datasets` save_to_disk directory, or
+                           "<repo>_<split>" through datasets.load_dataset (from
+                           its local cache: nothing is downloaded here).
+    data_dir defaults to $F5_TTS_DATA_DIR, else "data"."""
+    mel = MelConfig(**(mel_spec_kwargs or {}))
+    if dataset_type == "HFDataset":
+        import datasets as hfds
+
+        if os.path.isdir(dataset_name):
+            ds = hfds.load_from_disk(dataset_name)
+            if isinstance(ds, hfds.DatasetDict):
+                ds = ds["train"]
+        else:
+            pre, _, post = dataset_name.partition("_")
+            ds = hfds.load_dataset(f"{pre}/{pre}", split=f"train.{post}" if post else "train",
+                                   cache_dir=os.environ.get("F5_TTS_DATA_DIR", "data"))
+        return HFDataset(ds, mel=mel)
+
+    data_dir = data_dir or os.environ.get("F5_TTS_DATA_DIR", "data")
+    base = (dataset_name if dataset_type == "CustomDatasetPath"
+            else os.path.join(data_dir, f"{dataset_name}_{tokenizer}"))
+    rows = _read_arrow_rows(os.path.join(base, "raw.arrow" if audio_type == "raw"
+                                         else "mel.arrow"))
+    durations = None
+    dur_path = os.path.join(base, "duration.json")
+    if os.path.exists(dur_path):
+        with open(dur_path, "r", encoding="utf-8") as f:
+            durations = json.load(f)["duration"]
+    return CustomDataset(rows, durations=durations, mel=mel,
+                         preprocessed_mel=audio_type != "raw")
+
+
+def _read_arrow_rows(path: str) -> list[dict]:
+    """The rows of an arrow file, in the IPC stream format (what prepare.py
+    writes) or the IPC file format."""
+    import pyarrow as pa
+
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    with pa.memory_map(path) as source:
+        head = source.read(6)
+    opener = pa.ipc.open_file if head == b"ARROW1" else pa.ipc.open_stream
+    with pa.memory_map(path) as source:
+        return opener(source).read_all().to_pylist()

@@ -13,8 +13,9 @@ Parity with reference `src/f5_tts/infer/infer_cli.py`: argparse + TOML config
 overlay (`:211-252`), multi-voice `[voice]` tag splitting (`:363-382`),
 per-voice speed, chunk saving, Korean tokenizer flags
 (`--skip_tc/--tokenizer_version/--use_n2gk_plus/--tokenizer`, `:177-205`).
-Nothing is downloaded: pass --ckpt_file (a JAX .npz), or none for seeded
-random weights.
+Nothing is downloaded: pass --ckpt_file (a JAX .npz, or a reference torch
+.pt / .safetensors, EMA or LoRA-bearing, converted on load), or none for
+seeded random weights.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--model", default=None, help=f"model name: {sorted(PRESETS)}")
     p.add_argument("--model_cfg", default=None, help="path to model config yaml")
     p.add_argument("-p", "--ckpt_file", default=None,
-                   help="model checkpoint (.npz of the JAX package)")
+                   help="model checkpoint: .npz of the JAX package | reference torch "
+                        ".pt/.safetensors")
     p.add_argument("-v", "--vocab_file", default=None, help="vocab.txt path")
     p.add_argument("-r", "--ref_audio", default=None, help="reference audio wav")
     p.add_argument("-s", "--ref_text", default=None, help="reference transcript")

@@ -1,8 +1,11 @@
 """TTSModel and load_model (counterpart of korean_f5_tts_tpu/infer/model.py).
 
 A model bundle is the DiT parameter tree on one device, its config, the mel
-config and the tokenizer settings. load_model reads a JAX .npz checkpoint
-through the converter or draws seeded random weights.
+config and the tokenizer settings. load_model reads a checkpoint (a JAX .npz,
+or a reference torch .pt / .safetensors through utils/torch_ckpt.py) through
+load_checkpoint_into_pytree and the converter, or draws seeded random weights.
+Only the DiT backbone is ported; UNetT and MMDiT checkpoints wait for theirs
+(ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -20,7 +23,13 @@ from korean_f5_tts_tpu_torch.models.modules import cast_params
 from korean_f5_tts_tpu_torch.models.quant import quantize_params
 from korean_f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded, log_mel_spectrogram
 from korean_f5_tts_tpu_torch.text.vocab import load_vocab_file
-from korean_f5_tts_tpu_torch.train.checkpoint import load_npz_params, params_from_jax
+from korean_f5_tts_tpu_torch.train.checkpoint import (
+    flatten_tree,
+    load_npz_params,
+    params_from_jax,
+    unflatten_tree,
+)
+from korean_f5_tts_tpu_torch.utils import torch_ckpt
 from korean_f5_tts_tpu_torch.utils.misc import require_device
 
 
@@ -75,6 +84,30 @@ class TTSModel:
             return log_mel_prepadded(wav_t, cfg, out_frames), int(n_frames)
 
 
+def load_checkpoint_into_pytree(ckpt_path: str, arch: DiTConfig, backbone: str = "DiT",
+                                use_ema: bool = True) -> dict:
+    """A checkpoint file -> the JAX package's parameter tree (numpy, JAX
+    layouts), as infer/model.py:94-129 does; params_from_jax carries it to
+    the port's tensors.
+
+      - .npz: the JAX package's flat dump (train/checkpoint.py), its
+        "ema_params/" subtree when asked for and present, else "params/";
+      - .pt / .safetensors: a reference checkpoint, unwrapped from
+        ema_model_state_dict / model_state_dict, EMA prefix stripped, LoRA
+        pairs merged, then converted (q/k columns already half-split).
+    """
+    if ckpt_path.endswith(".npz"):
+        return unflatten_tree(load_npz_params(ckpt_path, use_ema=use_ema))
+    if backbone != "DiT":
+        raise NotImplementedError(f"backbone {backbone!r} is not ported (DiT only; ROADMAP.md "
+                                  "queue 1 item 11)")
+    sd = torch_ckpt.strip_ema_prefix(torch_ckpt.load_torch_checkpoint(ckpt_path))
+    if any("lora_" in k for k in sd):
+        sd = torch_ckpt.merge_lora(sd)
+    return torch_ckpt.convert_dit_state_dict(sd, arch.heads, arch.dim_head, arch.depth,
+                                             arch.conv_layers)
+
+
 def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
                vocab_file: str | None = None, use_ema: bool = True,
                tokenizer: str | None = None, use_skip_tc: bool = False,
@@ -82,8 +115,9 @@ def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
                dtype: torch.dtype | None = None, seed: int = 0,
                device="cuda", quantize: bool = False) -> TTSModel:
     """Ready-to-infer TTSModel on `device` (the card unless the caller names
-    the CPU; no card raises): DiT from a JAX .npz checkpoint
-    (ckpt_path) or seeded random init. A vocab file sets
+    the CPU; no card raises): DiT from a checkpoint (ckpt_path: a JAX .npz or
+    a reference .pt / .safetensors, load_checkpoint_into_pytree) or seeded
+    random init. A vocab file sets
     text_num_embeds = vocab size + 1, as in the JAX package.
 
     quantize=True rewrites the block linears to int8 weights
@@ -97,10 +131,8 @@ def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
         vocab_char_map = load_vocab_file(vocab_file)
         arch = dataclasses.replace(arch, text_num_embeds=len(vocab_char_map) + 1)
     if ckpt_path:
-        if not ckpt_path.endswith(".npz"):
-            raise ValueError("the port loads JAX .npz checkpoints only (torch "
-                             "checkpoint conversion is not ported yet)")
-        params = params_from_jax(load_npz_params(ckpt_path, use_ema=use_ema), device=device)
+        tree = load_checkpoint_into_pytree(ckpt_path, arch, use_ema=use_ema)
+        params = params_from_jax(flatten_tree(tree), device=device)
     else:
         params = init_dit(arch, seed=seed, device=device)
     if dtype is not None:

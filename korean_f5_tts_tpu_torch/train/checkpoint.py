@@ -19,11 +19,14 @@ round-trips exactly.
 
 A training checkpoint holds "params/..." and "ema_params/..." (JAX
 layouts), "update", and "opt_leaves/NNNNN": the optax state's leaves in its
-own order (checkpoint.py:63-79), which for the optimizer of train/step.py is
-the adam count, every mu leaf, every nu leaf, the schedule count. Within mu
-and nu the leaves follow jax.tree_util's order: dict keys sorted, lists by
-index (so blocks/10 comes after blocks/9), in the JAX layout like the
-weights they belong to. Either package's Trainer resumes from the other's.
+own order (checkpoint.py:63-79), which for train/step.py's AdamW is the adam
+count, every mu leaf, every nu leaf, the schedule count; under gradient
+accumulation (step.py:MultiSteps, optax's MultiStepsState) it is mini_step,
+gradient_step, those leaves, then every acc_grads leaf. Within mu, nu and
+acc_grads the leaves follow jax.tree_util's order: dict keys sorted, lists
+by index (so blocks/10 comes after blocks/9), in the JAX layout like the
+weights they belong to. Either package's Trainer resumes from the other's,
+mid-accumulation too.
 """
 
 from __future__ import annotations
@@ -139,6 +142,11 @@ def jax_leaf_order(paths) -> list[str]:
 
 def opt_state_to_leaves(opt_state: dict) -> list[np.ndarray]:
     """train/step.py's optimizer state -> optax's leaf list (JAX layouts)."""
+    if "acc_grads" in opt_state:  # MultiSteps
+        acc = params_to_jax(opt_state["acc_grads"])
+        return ([np.asarray(opt_state["mini_step"], np.int32),
+                 np.asarray(opt_state["gradient_step"], np.int32)]
+                + opt_state_to_leaves(opt_state["inner"]) + [acc[k] for k in jax_leaf_order(acc)])
     mu, nu = params_to_jax(opt_state["mu"]), params_to_jax(opt_state["nu"])
     order = jax_leaf_order(mu)
     return ([np.asarray(opt_state["count"], np.int32)] + [mu[k] for k in order]
@@ -146,11 +154,17 @@ def opt_state_to_leaves(opt_state: dict) -> list[np.ndarray]:
 
 
 def opt_state_from_leaves(leaves: list, params, device="cuda") -> dict:
-    """optax's leaf list -> train/step.py's optimizer state for `params`'s tree."""
+    """optax's leaf list -> train/step.py's optimizer state for `params`'s
+    tree: AdamW's 2n + 2 leaves for n parameters, or MultiSteps' 3n + 4."""
     order = jax_leaf_order(flatten_tree(params))
     n = len(order)
+    if len(leaves) == 3 * n + 4:
+        return {"mini_step": int(leaves[0]), "gradient_step": int(leaves[1]),
+                "inner": opt_state_from_leaves(leaves[2:2 * n + 4], params, device=device),
+                "acc_grads": params_from_jax(dict(zip(order, leaves[2 * n + 4:])), device=device)}
     if len(leaves) != 2 * n + 2:
-        raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters: want {2 * n + 2}")
+        raise ValueError(f"{len(leaves)} optimizer leaves for {n} parameters: want {2 * n + 2} "
+                         f"(AdamW) or {3 * n + 4} (MultiSteps)")
     return {"count": int(leaves[0]),
             "mu": params_from_jax(dict(zip(order, leaves[1:n + 1])), device=device),
             "nu": params_from_jax(dict(zip(order, leaves[n + 1:2 * n + 1])), device=device),

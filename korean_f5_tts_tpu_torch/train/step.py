@@ -1,23 +1,37 @@
-"""Training step: CFM loss, gradients, global-norm clip, AdamW, EMA
-(counterpart of korean_f5_tts_tpu/train/step.py).
+"""Training step: CFM loss, gradients, global-norm clip, AdamW, EMA, and
+gradient accumulation (counterpart of korean_f5_tts_tpu/train/step.py and of
+the optax transformations the JAX package builds).
 
-The optimizer is plain tensor code that mirrors the JAX package's optax
-chain (make_optimizer, step.py:29-46) term for term, so that its state is
-optax's and checkpoints cross between the packages (train/checkpoint.py):
+The optimizers are plain tensor code that mirror optax term for term, so that
+their state is optax's and checkpoints cross between the packages
+(train/checkpoint.py):
 
-  - clip_by_global_norm: g stays as it is when its global norm is below
-    max_grad_norm, else becomes (g / norm) * max_grad_norm. (Not
-    torch.nn.utils.clip_grad_norm_, which always scales by
-    max_norm / (norm + 1e-6).)
-  - scale_by_adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, both
-    bias-corrected with the incremented count; u = mu_hat / (sqrt(nu_hat) + eps).
-  - add_decayed_weights: u += weight_decay * params.
-  - scale_by_learning_rate: u *= -schedule(count), the count taken before it
-    increments, so the first update uses schedule(0) = 1e-8.
+  - AdamW, make_optimizer's chain (step.py:29-46):
+    - clip_by_global_norm: g stays as it is when its global norm is below
+      max_grad_norm, else becomes (g / norm) * max_grad_norm. (Not
+      torch.nn.utils.clip_grad_norm_, which always scales by
+      max_norm / (norm + 1e-6).)
+    - scale_by_adam: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, both
+      bias-corrected with the incremented count; u = mu_hat / (sqrt(nu_hat) + eps).
+    - add_decayed_weights: u += weight_decay * params.
+    - scale_by_learning_rate: u *= -schedule(count), the count taken before
+      it increments, so the first update uses schedule(0) = 1e-8.
+    Its state is {"count", "mu", "nu", "sched_count"}: optax's leaves
+    [1][0].count, mu, nu and [1][2].count.
+  - PlainAdamW, a bare optax.adamw(lr) (what train_lora.py trains with): no
+    clip, a constant lr, weight decay 1e-4. State {"count", "mu", "nu"}.
+  - MultiSteps(inner, k), optax.MultiSteps(inner, k) with its defaults
+    (trainer.py:151-154; optax 0.2.6 MultiSteps.update): the gradients of k
+    mini-steps are averaged as a running mean, acc + (g - acc) / (mini_step
+    + 1); on the k-th the inner optimizer takes that mean (clip, Adam, decay
+    and schedule all see it, and only then do its counts move) and acc
+    resets; on the others the update is zero. State {"mini_step",
+    "gradient_step", "inner", "acc_grads"}, optax's MultiStepsState.
 
-The state is {"count", "mu", "nu", "sched_count"}: optax's leaves
-[1][0].count, mu, nu and [1][2].count. Unlike the JAX step, which donates
-its input state, train_step updates the state's tensors in place.
+train_step counts every call (a mini-step under MultiSteps) and moves the
+EMA on every call, as the JAX step does (step.py:105-109). Unlike the JAX
+step, which donates its input state, it updates the state's tensors in
+place.
 """
 
 from __future__ import annotations
@@ -31,6 +45,36 @@ import torch
 from korean_f5_tts_tpu_torch.config import CFMConfig, DiTConfig
 from korean_f5_tts_tpu_torch.models.cfm import cfm_loss, cfm_loss_from_draws
 from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, unflatten_tree
+
+
+def _aligned(tree, paths: list[str]) -> list[torch.Tensor]:
+    """The leaves of a tree (or flat dict) of the given paths, in their order."""
+    leaves = flatten_tree(tree)
+    return [leaves[k] for k in paths]
+
+
+def _zeros_like(tree):
+    return unflatten_tree({k: torch.zeros_like(v) for k, v in flatten_tree(tree).items()})
+
+
+def _adamw_(params: list, grads: list, mu: list, nu: list, count: int, lr: float, b1: float,
+            b2: float, eps: float, weight_decay: float) -> None:
+    """scale_by_adam (count: the incremented one), add_decayed_weights,
+    scale_by_learning_rate and apply_updates, in place."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    updates = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(updates, denom)
+    torch._foreach_add_(updates, params, alpha=weight_decay)
+    torch._foreach_mul_(updates, -lr)
+    torch._foreach_add_(params, updates)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +102,66 @@ class AdamW:
         decay = max(self.total_updates - self.warmup_updates, 1)
         return float(linear(lr, 1e-8, decay, count - self.warmup_updates))
 
+    def init(self, params) -> dict:
+        return {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params),
+                "sched_count": 0}
+
+    def update_(self, params: list, grads: list, state: dict, paths: list[str]) -> None:
+        """One update of `params` (the leaves at `paths`) in place."""
+        g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+        trigger = g_norm < self.max_grad_norm
+        grads = [torch.where(trigger, g, (g / g_norm) * self.max_grad_norm) for g in grads]
+        count = state["count"] + 1
+        _adamw_(params, grads, _aligned(state["mu"], paths), _aligned(state["nu"], paths),
+                count, self.schedule(state["sched_count"]), self.b1, self.b2, self.eps,
+                self.weight_decay)
+        state["count"] = count
+        state["sched_count"] += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class PlainAdamW:
+    """optax.adamw(learning_rate) with optax's defaults: no clip, no schedule."""
+    learning_rate: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 1e-4
+
+    def init(self, params) -> dict:
+        return {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params)}
+
+    def update_(self, params: list, grads: list, state: dict, paths: list[str]) -> None:
+        count = state["count"] + 1
+        _adamw_(params, grads, _aligned(state["mu"], paths), _aligned(state["nu"], paths),
+                count, self.learning_rate, self.b1, self.b2, self.eps, self.weight_decay)
+        state["count"] = count
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiSteps:
+    """optax.MultiSteps(inner, every_k) with use_grad_mean (its default)."""
+    inner: AdamW | PlainAdamW
+    every_k: int
+
+    def init(self, params) -> dict:
+        return {"mini_step": 0, "gradient_step": 0, "inner": self.inner.init(params),
+                "acc_grads": _zeros_like(params)}
+
+    def update_(self, params: list, grads: list, state: dict, paths: list[str]) -> None:
+        acc = _aligned(state["acc_grads"], paths)
+        # a 0-d tensor divisor: true division, as optax's (a Python number may
+        # become a reciprocal multiply on the card)
+        n = torch.tensor(state["mini_step"] + 1, dtype=torch.float32, device=acc[0].device)
+        for a, g in zip(acc, grads):
+            a.add_(torch.div(g - a, n))
+        emit = state["mini_step"] == self.every_k - 1
+        if emit:
+            self.inner.update_(params, acc, state["inner"], paths)
+            torch._foreach_zero_(acc)
+            state["gradient_step"] += 1
+        state["mini_step"] = (state["mini_step"] + 1) % self.every_k
+
 
 def make_optimizer(learning_rate: float = 7.5e-5, warmup_updates: int = 20_000,
                    total_updates: int = 1_200_000, max_grad_norm: float = 1.0) -> AdamW:
@@ -69,26 +173,20 @@ def make_optimizer(learning_rate: float = 7.5e-5, warmup_updates: int = 20_000,
 @dataclasses.dataclass
 class TrainState:
     params: Any          # fp32 master weights (the port's tree)
-    opt_state: dict      # {"count": int, "mu": tree, "nu": tree, "sched_count": int}
+    opt_state: dict      # the optimizer's state (its init)
     ema_params: Any | None
     step: int
 
 
-def _zeros_like(tree):
-    return unflatten_tree({k: torch.zeros_like(v) for k, v in flatten_tree(tree).items()})
-
-
-def init_train_state(params, optimizer: AdamW, use_ema: bool = True,
+def init_train_state(params, optimizer: AdamW | MultiSteps, use_ema: bool = True,
                      ema_decay: float = 0.999) -> TrainState:
     """A fresh state over a copy of `params` (the caller's tree is never
     updated in place); ema_decay is train_step's, as in the JAX signature."""
-    del optimizer, ema_decay
+    del ema_decay
     params = unflatten_tree({k: v.detach().clone() for k, v in flatten_tree(params).items()})
     ema = (unflatten_tree({k: v.clone() for k, v in flatten_tree(params).items()})
            if use_ema else None)
-    opt_state = {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params),
-                 "sched_count": 0}
-    return TrainState(params=params, opt_state=opt_state, ema_params=ema, step=0)
+    return TrainState(params=params, opt_state=optimizer.init(params), ema_params=ema, step=0)
 
 
 def loss_and_grads(params, batch: dict, seed: int, arch: DiTConfig,
@@ -124,51 +222,23 @@ def loss_and_grads(params, batch: dict, seed: int, arch: DiTConfig,
 
 
 @torch.no_grad()
-def apply_updates(state: TrainState, grads: list[torch.Tensor], optimizer: AdamW,
+def apply_updates(state: TrainState, grads: list[torch.Tensor], optimizer: AdamW | MultiSteps,
                   ema_decay: float = 0.999) -> TrainState:
-    """The optax chain and the EMA, in place on the state's tensors."""
-    opt = optimizer
+    """The optimizer's update and the EMA, in place on the state's tensors;
+    grads in flatten_tree(state.params) order."""
     flat = flatten_tree(state.params)
-    params = list(flat.values())
-
-    def aligned(tree):  # the leaves of a tree of the same paths, in params' order
-        leaves = flatten_tree(tree)
-        return [leaves[k] for k in flat]
-
-    mu, nu = aligned(state.opt_state["mu"]), aligned(state.opt_state["nu"])
-    # clip_by_global_norm
-    g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
-    trigger = g_norm < opt.max_grad_norm
-    grads = [torch.where(trigger, g, (g / g_norm) * opt.max_grad_norm) for g in grads]
-    # scale_by_adam
-    count = state.opt_state["count"] + 1
-    torch._foreach_mul_(mu, opt.b1)
-    torch._foreach_add_(mu, grads, alpha=1.0 - opt.b1)
-    torch._foreach_mul_(nu, opt.b2)
-    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - opt.b2)
-    bc1 = float(np.float32(1) - np.float32(opt.b1) ** np.float32(count))
-    bc2 = float(np.float32(1) - np.float32(opt.b2) ** np.float32(count))
-    denom = torch._foreach_div(nu, bc2)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, opt.eps)
-    updates = torch._foreach_div(mu, bc1)
-    torch._foreach_div_(updates, denom)
-    # add_decayed_weights, scale_by_learning_rate, apply_updates
-    torch._foreach_add_(updates, params, alpha=opt.weight_decay)
-    torch._foreach_mul_(updates, -opt.schedule(state.opt_state["sched_count"]))
-    torch._foreach_add_(params, updates)
+    paths, params = list(flat), list(flat.values())
+    optimizer.update_(params, grads, state.opt_state, paths)
     if state.ema_params is not None:
-        ema = aligned(state.ema_params)
+        ema = _aligned(state.ema_params, paths)
         torch._foreach_mul_(ema, ema_decay)
         torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
-    state.opt_state["count"] = count
-    state.opt_state["sched_count"] += 1
     state.step += 1
     return state
 
 
 def train_step(state: TrainState, batch: dict, seed: int, arch: DiTConfig,
-               optimizer: AdamW, cfm: CFMConfig = CFMConfig(), ema_decay: float = 0.999,
+               optimizer: AdamW | MultiSteps, cfm: CFMConfig = CFMConfig(), ema_decay: float = 0.999,
                compute_dtype: torch.dtype | None = None, kernels: bool = True,
                draws: dict | None = None):
     """One update on a batch {mel [b, n, d], text [b, nt], lens [b]}; the

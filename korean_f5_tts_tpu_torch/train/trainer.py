@@ -7,10 +7,14 @@ into its key (trainer.py:357), so a resumed run draws what an uninterrupted
 one does. Checkpoints are the JAX package's .npz (train/checkpoint.py) and
 cross between the packages both ways.
 
-Not ported (ROADMAP.md queue 1 item 10): a device mesh (data or tensor
-parallelism), orbax checkpoints, gradient accumulation (optax.MultiSteps) and
-the wandb logger, each of which raises NotImplementedError, and the periodic
-sample logging of the train CLI (log_samples, sample_fn).
+grad_accumulation_steps k > 1 wraps the optimizer in train/step.py:MultiSteps
+(optax.MultiSteps, trainer.py:151-154): `update` counts mini-steps, as in the
+JAX Trainer, and the weights move on every k-th.
+
+Not ported: a device mesh (data or tensor parallelism) and orbax checkpoints
+(ROADMAP.md queue 1 item 12), and the wandb logger (ROADMAP.md queue 1 item
+10), each of which raises NotImplementedError, and the periodic sample
+logging of the train CLI (log_samples, sample_fn; queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ import torch
 
 from korean_f5_tts_tpu_torch.config import CFMConfig
 from korean_f5_tts_tpu_torch.data.dataset import DynamicBatchSampler, collate_batch
+from korean_f5_tts_tpu_torch.infer.model import load_checkpoint_into_pytree
 from korean_f5_tts_tpu_torch.train import checkpoint as ckpt_lib
 from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree
 from korean_f5_tts_tpu_torch.train.step import (
+    MultiSteps,
     TrainState,
     init_train_state,
     make_optimizer,
@@ -37,6 +43,7 @@ from korean_f5_tts_tpu_torch.train.step import (
 from korean_f5_tts_tpu_torch.utils.misc import fold_in
 
 _TODO = "not ported (ROADMAP.md queue 1 item 10)"
+_TODO_PARALLEL = "not ported (ROADMAP.md queue 1 item 12)"
 
 
 class _Prefetcher:
@@ -102,11 +109,9 @@ class Trainer:
                  vocab_char_map: dict[str, int] | None = None, tokenize_fn=None,
                  compute_dtype: torch.dtype | None = None, ckpt_format: str = "npz"):
         if mesh is not None:
-            raise NotImplementedError(f"training on a device mesh is {_TODO}")
+            raise NotImplementedError(f"training on a device mesh is {_TODO_PARALLEL}")
         if ckpt_format != "npz":
-            raise NotImplementedError(f"ckpt_format={ckpt_format!r} is {_TODO}")
-        if grad_accumulation_steps > 1:
-            raise NotImplementedError(f"gradient accumulation is {_TODO}")
+            raise NotImplementedError(f"ckpt_format={ckpt_format!r} is {_TODO_PARALLEL}")
         if logger == "wandb":
             raise NotImplementedError(f"the wandb logger is {_TODO}")
         self.arch = arch
@@ -128,6 +133,8 @@ class Trainer:
                                         warmup_updates=num_warmup_updates,
                                         total_updates=total_updates,
                                         max_grad_norm=max_grad_norm)
+        if grad_accumulation_steps > 1:
+            self.optimizer = MultiSteps(self.optimizer, grad_accumulation_steps)
         self.state = init_train_state(params, self.optimizer, ema_decay=ema_decay)
         self.writer = None
         if logger == "tensorboard":
@@ -154,11 +161,23 @@ class Trainer:
         path = ckpt_lib.resolve_resume_checkpoint(self.checkpoint_path, explicit)
         if path is None:
             return 0
+        if not path.endswith(".npz"):
+            # a reference .pt / .safetensors (the pretrained_* copy finetune_cli makes): its
+            # weights at update 0 with a fresh optimizer and EMA, as the reference trainer
+            # starts from a pretrained file
+            params = ckpt_lib.params_from_jax(
+                flatten_tree(load_checkpoint_into_pytree(path, self.arch)), device=self.device)
+            self.state = init_train_state(params, self.optimizer)
+            print(f"started from the weights of {path}")
+            return 0
         data = ckpt_lib.load_checkpoint(path, device=self.device)
         opt_state = self.state.opt_state
         if "opt_leaves" in data:
             opt_state = ckpt_lib.opt_state_from_leaves(data["opt_leaves"], data["params"],
                                                        device=self.device)
+            if opt_state.keys() != self.state.opt_state.keys():
+                raise ValueError(f"{path} holds the optimizer state of another "
+                                 "grad_accumulation_steps setting than this Trainer's")
         self.state = TrainState(data["params"], opt_state, data.get("ema_params"),
                                 data["update"])
         print(f"resumed from {path} at update {data['update']}")

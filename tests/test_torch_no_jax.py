@@ -95,7 +95,13 @@ SERVING_AND_INFERENCE_MODULES = (
     "socket_server", "infer.speech_edit", "infer.batch_infer", "scripts.int8_quality",
 )
 ENTRY_POINTS = ("serving.server", "serving.grpc_server", "serving.benchmark", "socket_server",
-                "infer.speech_edit", "infer.batch_infer", "scripts.int8_quality")
+                "infer.speech_edit", "infer.batch_infer", "scripts.int8_quality", "train.train",
+                "train.finetune_cli", "train.train_lora")
+# the fine-tuning path: reference checkpoints, LoRA, the datasets, the training CLIs
+FINETUNE_MODULES = (
+    "utils.torch_ckpt", "models.lora", "train.train", "train.finetune_cli", "train.train_lora",
+    "train.vocab_extend", "train.datasets.prepare", "scripts.convert_vocoder", "data.dataset",
+)
 
 
 def test_the_walk_covers_the_serving_and_inference_modules():
@@ -123,3 +129,20 @@ def test_every_entry_point_takes_a_device_that_defaults_to_the_card():
         assert "load_from_arguments(" in text or "require_device(" in text, name
     server = (ROOT / "korean_f5_tts_tpu_torch/serving/server.py").read_text()
     assert '"--device", default="cuda"' in server and "require_device(args.device)" in server
+
+
+def test_the_walk_covers_the_finetuning_modules():
+    """The fine-tuning modules are in the walk of test_port_imports_without_jax,
+    and none of them imports an optional package (safetensors, pyarrow, yaml,
+    datasets) at import time: the card's machine may lack them."""
+    found = {m.name for m in pkgutil.walk_packages(korean_f5_tts_tpu_torch.__path__,
+                                                   "korean_f5_tts_tpu_torch.")}
+    for name in FINETUNE_MODULES:
+        assert f"korean_f5_tts_tpu_torch.{name}" in found, name
+    blocked = "".join(f'sys.modules["{m}"] = None\n'
+                      for m in ("safetensors", "pyarrow", "yaml", "datasets"))
+    code = GUARD.replace("import korean_f5_tts_tpu_torch as pkg",
+                         blocked + "import korean_f5_tts_tpu_torch as pkg")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

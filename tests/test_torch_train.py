@@ -361,8 +361,8 @@ def test_resumed_port_run_repeats_an_uninterrupted_one(tmp_path, batching):
 
 
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(ckpt_format="orbax"),
-                                    dict(grad_accumulation_steps=2), dict(logger="wandb")],
-                         ids=["mesh", "orbax", "grad_accumulation", "wandb"])
+                                    dict(logger="wandb")],
+                         ids=["mesh", "orbax", "wandb"])
 def test_trainer_options_not_ported_raise(kwargs, tmp_path):
     _, pparams = _tiny_t_params()
     kw = dict(_trainer_kw(str(tmp_path)), **kwargs)
