@@ -60,7 +60,12 @@ Phases (any failure raises and exits non-zero):
      against kernel A on the same inputs (mean and max held in every case,
      the tail where its bound was set), and its quantization pass (one
      kernel) against its plain version to the bit, each timed with its
-     bound, pass + 14 beside kernel A)
+     bound, pass + 14 beside kernel A; C in bf16 and fp32 at every other
+     group width it takes, 16, 32 and 128 channels, at the block's edges and
+     timed, and at 48 (dim 768), where the wrapper refuses the shape and
+     conv-pos takes the plain convolution, C's counters unmoved; A in bf16
+     and fp32 at n 1537 (UNetT's time token) and 1696 (MMDiT's joint
+     sequence), 10, 11, 13 in both at n 1281)
      against its plain PyTorch version at the main-path shapes, plus ragged,
      zero-row and outlier cases, and time both with CUDA events (20 runs
      after a warm-up), beside the least time the card could take for the
@@ -177,6 +182,28 @@ Phases (any failure raises and exits non-zero):
      batches and seeds) moves the weights at mini-steps 2 and 4 only
      (gradient_step and schedule count 2); Trainer.train for 3, a resume,
      1 more ends within rel 1e-6 of it; exact launches.
+ 11. the other backbones, at full width on seeded weights (AdaLN-zero layers
+     re-drawn), on the bench protocol (cond 432, total 1376, bucket 1536,
+     160 text tokens, CFG 2, sway -1, EPSS, 16 steps), each utterance with
+     exact launch counts and its mel against the plain versions (relative L2
+     over the valid rows, 5e-2), run before phase 6: (a) E2TTS_Base (UNetT)
+     through F5TTS(model="E2TTS_Base") in bf16 (A 384, C 32 an utterance),
+     its RTF and device time, and three HTTP requests through serve(); (b) a
+     reference-format UNetT .pt written by unett_state_dict and an .npz of
+     the same seeded weights through load_model(ckpt_path=): equal to the
+     bit; (c) one UNetT training step at 8 x 1280 frames in fp32 and in bf16
+     compute: loss and whole gradient with kernels against plain (1e-4,
+     5e-2), exactly one launch of 10, 11 and 13 a block (no remat); (d) an
+     MMDiT at MMDiTConfig()'s widths: bf16 sampling (A 352 on the text-first
+     joint sequence of 1696, C 32) and the training step of (c); (e)
+     F5TTS_v1_Base with qk_norm "rms_norm" on the default path, under
+     "linear_fused" and with int8 weights: A, B (or 4 and 9) as usual, 5, 6,
+     7 and 8 never; (f) F5TTS_Small and E2TTS_Small (48 channels a conv-pos
+     group): C 0, A 288 and 320, with RTFs; (g) BigVGAN at its default config
+     decoding a 1376-frame mel (finite, 1376 x 256 samples, timed) and a
+     24-frame mel against the CPU in fp32 (1e-4). The training steps and the
+     checkpoint of (b)-(d) are cut to a depth of 8 blocks: the plain fp32
+     step at 8 x 1280 materialises every block's [128, 1281, 1281] scores.
 Serving, the training steps, bench_train, offline inference and the LoRA
 run go the full depth of 22 blocks; only the Trainer runs of phases 6 and
 10(d) are cut to 4 and the fp32 step against the CPU to 2 (nothing else was
@@ -679,6 +706,113 @@ def check_conv(gen, dev) -> dict:
     print(f"  F.conv1d(groups=16) with bias, bf16: {cuda_time_ms(conv):.4f} ms; + Mish: "
           f"{cuda_time_ms(composition):.4f} ms (kernel {out['ms']:.4f} ms)")
     return out
+
+
+# kernel C's group widths past 64 channels, each at its dim (16 groups): the
+# edges of the 128-row block and window, and the main path's shape
+WIDTH_EDGES = ((1, 1), (2, 16), (1, 31), (3, 129), (2, 1376), (2, 1537))
+
+
+def check_conv_widths(gen, dev) -> None:
+    """Kernel C in bf16 and fp32 at every group width it takes besides 64
+    (16, 32 and 128 channels a group: dim 256, 512, 2048) against its plain
+    version (bf16 rel 5e-3, fp32 F32_REL with cuDNN's TF32 off), timed at
+    B 2, N 1536; and at 48 channels a group (dim 768: F5TTS_Small,
+    E2TTS_Small), where the wrapper refuses the shape and conv-pos takes the
+    plain convolution by its shape rule, kernel C's counters unmoved."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.modules import conv_position_embedding
+    from korean_f5_tts_tpu_torch.ops import grouped_conv as gc
+
+    print("kernel C at group widths 16, 32, 128 (dim 256, 512, 2048), bf16 (rel 5e-3) and fp32 "
+          f"(rel {F32_REL:.0e})")
+    for cg in (16, 32, 128):
+        C = 16 * cg
+        for dtype, rel in ((torch.bfloat16, 5e-3), (torch.float32, F32_REL)):
+            bnd = (cg * 31) ** -0.5
+            w = ((torch.rand((31, cg, C), generator=gen, device=dev) * 2 - 1) * bnd).to(dtype)
+            b = ((torch.rand((C,), generator=gen, device=dev) * 2 - 1) * bnd).to(dtype)
+            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+            for B, N in WIDTH_EDGES:
+                x = torch.randn((B, N, C), generator=gen, device=dev).to(dtype)
+                for bias, mish in ((True, True), (False, True), (True, False)):
+                    be = b if bias else None
+                    compare(f"grouped_conv {tag} cg={cg} B={B} N={N} bias={bias} mish={mish}",
+                            gc.grouped_conv1d_mish(x, w, be, 16, mish),
+                            gc.grouped_conv1d_mish_reference(x, w, be, 16, mish), rel)
+            x = torch.randn((2, 1536, C), generator=gen, device=dev).to(dtype)
+            ms = cuda_time_ms(lambda: gc.grouped_conv1d_mish(x, w, b, 16))
+            plain_ms = cuda_time_ms(lambda: gc.grouped_conv1d_mish_reference(x, w, b, 16))
+            flop = 2.0 * 2 * 1536 * C * cg * 31
+            print(f"  grouped_conv {tag} cg={cg} B=2 N=1536 C={C}: kernel {ms:.4f} ms "
+                  f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+    # 48 channels a group: no kernel, by the shape rule
+    x = torch.randn((2, 1536, 768), generator=gen, device=dev).to(torch.bfloat16)
+    bnd = (48 * 31) ** -0.5
+    conv = {f"conv{i}": {"w": ((torch.rand((31, 48, 768), generator=gen, device=dev) * 2 - 1)
+                               * bnd).to(torch.bfloat16),
+                         "b": ((torch.rand((768,), generator=gen, device=dev) * 2 - 1)
+                               * bnd).to(torch.bfloat16)} for i in (1, 2)}
+    try:
+        gc.grouped_conv1d_mish(x, conv["conv1"]["w"], conv["conv1"]["b"], 16)
+    except ValueError as e:
+        print(f"  48 channels a group: the kernel's wrapper refuses the shape ({e})")
+    else:
+        fail("kernel C took 48 channels a group")
+    before = (gc.launches, gc.launches_f32)
+    got = conv_position_embedding(conv, x)
+    plain = conv_position_embedding(conv, x, kernels=False)
+    y = gc.grouped_conv1d_mish_train(x, conv["conv1"]["w"], conv["conv1"]["b"], 16)
+    want = gc.grouped_conv1d_mish_train(y, conv["conv2"]["w"], conv["conv2"]["b"], 16)
+    moved = (gc.launches, gc.launches_f32) != before
+    same = torch.equal(got, want) and torch.equal(plain, want)
+    print(f"  conv-pos at dim 768: the plain grouped conv in bf16 with kernels and without "
+          f"({'equal' if same else 'DIFFERENT'}), kernel C's counters "
+          f"{'MOVED' if moved else 'unmoved'}")
+    if moved or not same or not torch.isfinite(got).all():
+        fail("conv-pos at 48 channels a group did not take the plain convolution by its shape")
+
+
+def check_odd_lengths(gen, dev) -> None:
+    """The sequence lengths the UNetT and MMDiT paths give the attention
+    kernels, which no DiT path does: kernel A (bf16, fp32) at n 1537 (UNetT's
+    time token on the 1536 bucket, valid prefix 1377) and n 1696 (MMDiT's 160
+    text tokens first, then the 1536 bucket: valid prefix 1536), and kernels
+    10, 11, 13 (bf16, fp32) at n 1281 (UNetT training at 1280 frames), each
+    against its plain version, a partial last query and key tile at each."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    print("kernel A at n 1537 and 1696, kernels 10, 11, 13 at n 1281 (bf16 rel 1e-2, fp32 "
+          f"{F32_ATTN_REL:.0e} / {F32_GRAD_REL:.0e})")
+    for n, lens in ((1537, (1537, 1377)), (1696, (1696, 1536))):
+        for dtype, rel in ((torch.bfloat16, 1e-2), (torch.float32, F32_ATTN_REL)):
+            q, k, v = (torch.randn((32, n, 64), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            kv = torch.as_tensor([lens[0]] * 16 + [lens[1]] * 16, dtype=torch.int32, device=dev)
+            compare(f"kernel A {dtype} H=32 n={n} kv={list(lens)}", fp.flash_prefix_folded(q, k, v, kv),
+                    fp.prefix_attention_reference(q, k, v, kv), rel)
+    n = 1281
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, grel = (1e-2, 1e-2) if dtype == torch.bfloat16 else (F32_ATTN_REL, F32_GRAD_REL)
+        q, k, v, do = (torch.randn((128, n, 64), generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+        kv = torch.as_tensor([n] * 64 + [1100] * 64, dtype=torch.int32, device=dev)
+        o, lse = fp.prefix_attention_lse_reference(q, k, v, kv)
+        dvec = (do.float() * o.float()).sum(-1)
+        o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
+        compare(f"kernel 10 o {dtype} H=128 n={n}", o10, o, rel)
+        compare(f"kernel 10 lse {dtype} H=128 n={n}", lse10, lse, F32_ATTN_REL)
+        compare(f"kernel 11 dq {dtype} H=128 n={n}", fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv),
+                fp.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv), grel)
+        dk, dv = fp.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+        dk_p, dv_p = fp.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+        compare(f"kernel 13 dk {dtype} H=128 n={n}", dk, dk_p, grel)
+        compare(f"kernel 13 dv {dtype} H=128 n={n}", dv, dv_p, grel)
+        del q, k, v, do, o, lse, dvec, o10, lse10, dk, dv, dk_p, dv_p
+        torch.cuda.empty_cache()
 
 
 def faster_than_plain(name: str, r: dict) -> None:
@@ -2681,7 +2815,13 @@ def expected_launches(mode: str, batches: int, attn_path: str = "default",
 
 
 def phase3_serve(model, vocoder, mode: str, attn_path: str = "default",
-                 attn_int8: str | None = None, warm: bool = False) -> dict[str, int]:
+                 attn_int8: str | None = None, warm: bool = False,
+                 want_per_batch: dict[str, int] | None = None,
+                 phase: int | None = None) -> dict[str, int]:
+    """Three HTTP requests (one alone, then two as one batch) through the
+    port's serve(), with exact launch counts: expected_launches' for the DiT,
+    or want_per_batch (the launches of one batch of any size) times the
+    batches for another backbone."""
     import io
     import threading
     import urllib.request
@@ -2692,7 +2832,7 @@ def phase3_serve(model, vocoder, mode: str, attn_path: str = "default",
     from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
     from korean_f5_tts_tpu_torch.serving.server import serve, warm_start
 
-    phase = 9 if attn_int8 else 3 if attn_path == "default" else 7
+    phase = phase or (9 if attn_int8 else 3 if attn_path == "default" else 7)
     print(f"phase {phase} ({mode}, attn_path {attn_path}, attn_int8 {attn_int8}): "
           f"{'warm_start(), then ' if warm else ''}serve() on localhost, 3 POST /tts requests "
           "(1 alone, then 2 at once)")
@@ -2753,7 +2893,10 @@ def phase3_serve(model, vocoder, mode: str, attn_path: str = "default",
         service.shutdown(drain=False, timeout=5.0)
         service.batcher.close()
         server_thread.join(timeout=10)
-    want = expected_launches(mode, len(sizes), attn_path, attn_int8)
+    if want_per_batch is None:
+        want = expected_launches(mode, len(sizes), attn_path, attn_int8)
+    else:
+        want = {k: v * len(sizes) for k, v in want_per_batch.items()}
     print(f"  kernel launches during serving: {counts} (expected {want})")
     if counts != want:
         fail("a kernel of the main path did not run as often as the path requires")
@@ -3956,7 +4099,7 @@ def phase6_fp32_step(dev, arch, params, batch) -> None:
 def train_arch():
     from korean_f5_tts_tpu_torch.config import PRESETS, DiTConfig
 
-    return DiTConfig(**PRESETS["F5TTS_v1_Base"], text_num_embeds=2545,
+    return DiTConfig(**PRESETS["F5TTS_v1_Base"]["arch"], text_num_embeds=2545,
                      checkpoint_activations=True)
 
 
@@ -4475,9 +4618,294 @@ def phase10_finetune(dev, card: str):
     return total, profile
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the UNetT and MMDiT backbones, qk-norm, the Small presets, BigVGAN
+# ---------------------------------------------------------------------------
+
+VOCAB = "data/Emilia_ZH_EN_pinyin/vocab.txt"
+E2_DEPTH = 24
+BACKBONE_TRAIN_DEPTH = 8  # the training steps and the checkpoint file of phase 11 (c, d, b)
+
+
+def launches_of(**counts) -> dict[str, int]:
+    from korean_f5_tts_tpu_torch.ops import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(counts)
+    return want
+
+
+def sample_and_hold(label: str, model, vocoder, want: dict[str, int], *,
+                    attn_path: str = "default", card: str = "", rtf: bool = False) -> None:
+    """One bench-protocol utterance (cond 432, total 1376, bucket 1536, 160
+    text tokens, CFG 2, sway -1, EPSS, 16 steps) with kernels, its exact
+    launch counts, its mel against the plain versions' (relative L2 over the
+    valid rows, bound 5e-2, the bf16 sampler's bound of phases 4 and 9);
+    with rtf, the RTF over 5 timed runs and one utterance's device time."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    inputs = bench_inputs(model.device)
+    total = 1376
+    synthesize(model, vocoder, inputs, attn_path=attn_path)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    mel_k, wav_k = synthesize(model, vocoder, inputs, attn_path=attn_path)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    mel_p, _ = synthesize(model, vocoder, inputs, kernels=False, attn_path=attn_path)
+    a, b = mel_k[:, :total].float(), mel_p[:, :total].float()
+    err = ((a - b).norm() / b.norm()).item()
+    print(f"  {label}: mel rel err, kernels vs plain {err:.3e} (bound 5e-2), mean |mel| "
+          f"{a.abs().mean().item():.3f}; launches {({k: v for k, v in counts.items() if v})}")
+    if not (torch.isfinite(mel_k).all() and torch.isfinite(wav_k).all()) or a.abs().max() == 0:
+        fail(f"{label}: non-finite or zero mel")
+    if err > 5e-2:
+        fail(f"{label}: the sampler with kernels disagrees with the plain versions")
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {({k: v for k, v in want.items() if v})}")
+    if rtf:
+        gen_seconds = inputs[5] * HOP / SR
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            synthesize(model, vocoder, inputs, attn_path=attn_path)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        synthesize(model, vocoder, inputs, attn_path=attn_path)
+        end.record()
+        torch.cuda.synchronize()
+        mean = sum(times) / len(times)
+        print(f"  {label}: {mean * 1e3:.2f} ms per utterance (min {min(times) * 1e3:.2f}), RTF "
+              f"{mean / gen_seconds:.5f}; one utterance {start.elapsed_time(end):.2f} ms between "
+              f"CUDA events on the device's stream [{card}]")
+
+
+def backbone_train_step(label: str, dev, arch, params, batch, card: str) -> dict[str, int]:
+    """One training step's loss and whole gradient with kernels against the
+    plain versions, in fp32 (train_step's default) and in bf16 compute, the
+    same draws on both sides (dropout off); the kernels' step then applies
+    its update (loss_and_grads + apply_updates, which is train_step). Exact
+    launches: per block kernel 10, 11 and 13 once (no remat), in the form of
+    the compute dtype; conv-pos is plain tensor code under autograd."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.cfm import draw_cfm
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.train.step import (
+        AdamW,
+        apply_updates,
+        init_train_state,
+        loss_and_grads,
+    )
+
+    total = dict.fromkeys(launch_counts(), 0)
+    for dtype, bound_ in ((None, F32_GRAD_REL), (torch.bfloat16, TRAIN_REL)):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        draws = draw_cfm(tuple(batch["mel"].shape), batch["lens"], gen,
+                         dtype=dtype or torch.float32)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss_k, grads_k = loss_and_grads(params, batch, 0, arch, compute_dtype=dtype, draws=draws)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        loss_p, grads_p = loss_and_grads(params, batch, 0, arch, compute_dtype=dtype,
+                                         kernels=False, draws=draws)
+        gk = torch.cat([g.flatten().float() for g in grads_k])
+        gp = torch.cat([g.flatten().float() for g in grads_p])
+        grel = ((gk - gp).norm() / gp.norm()).item()
+        lrel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        tag = "fp32" if dtype is None else "bf16"
+        print(f"  {label} {tag} step at {TRAIN_B} x {TRAIN_N} frames: loss {loss_k.item():.5f} "
+              f"(plain {loss_p.item():.5f}, rel {lrel:.2e}), gradient rel L2 {grel:.3e} (bound "
+              f"{bound_:.0e}), {secs:.2f} s for the step's loss and gradients [{card}]")
+        if not torch.isfinite(gk).all() or grel > bound_ or lrel > bound_:
+            fail(f"{label} {tag}: the training step with kernels disagrees with the plain one")
+        f = "_f32" if dtype is None else ""
+        want = launches_of(**{f"flash_prefix_lse{f}": arch.depth,
+                              f"flash_prefix_dq_lsein{f}": arch.depth,
+                              f"flash_prefix_dkv{f}": arch.depth})
+        print(f"    launches {({k: v for k, v in counts.items() if v})}")
+        if counts != want:
+            fail(f"{label} {tag}: launches {counts}, expected {want}")
+        total = {k: total[k] + counts[k] for k in total}
+        if dtype is None:  # train_step = loss_and_grads + apply_updates
+            opt = AdamW()
+            state = apply_updates(init_train_state(params, opt, use_ema=False), grads_k, opt)
+            print(f"    the update applied: step {state.step}")
+        del grads_k, grads_p, gk, gp
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase11_backbones(dev, card: str, tmp: Path) -> dict[str, int]:
+    """Phase 11 (a)-(g); returns the launches of its kernel runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from korean_f5_tts_tpu_torch.api import F5TTS
+    from korean_f5_tts_tpu_torch.config import MMDiTConfig, ModelConfig, preset_model_config
+    from korean_f5_tts_tpu_torch.infer.model import load_model
+    from korean_f5_tts_tpu_torch.models.bigvgan import BigVGANConfig, bigvgan_decode, init_bigvgan
+    from korean_f5_tts_tpu_torch.models.dit import count_params, redraw_zero_init
+    from korean_f5_tts_tpu_torch.models.mmdit import init_mmdit
+    from korean_f5_tts_tpu_torch.models.unett import init_unett
+    from korean_f5_tts_tpu_torch.ops import KERNELS
+    from korean_f5_tts_tpu_torch.models.vocos import Vocos, VocosConfig, init_vocos
+    from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, params_to_jax, unflatten_tree
+    from korean_f5_tts_tpu_torch.utils import torch_ckpt
+
+    t_start = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    def f5tts(name, **kw):
+        tts = F5TTS(model=name, vocab_file=str(ROOT / VOCAB), compute_dtype=torch.bfloat16,
+                    device="cuda", seed=0, **kw)
+        redraw_zero_init(tts.ema_model.params, seed=1)
+        arch = tts.ema_model.arch
+        print(f"  {name}: {type(arch).__name__} dim {arch.dim} depth {arch.depth} heads "
+              f"{arch.heads}x{arch.dim_head} ff_mult {arch.ff_mult}: "
+              f"{count_params(tts.ema_model.params) / 1e6:.1f} M params, bf16")
+        return tts
+
+    # (a) E2TTS_Base through the offline entry point's model, sampled and served
+    print("phase 11(a): E2TTS_Base (UNetT) through F5TTS(model='E2TTS_Base'), bf16")
+    tts = f5tts("E2TTS_Base")
+    want = launches_of(flash_prefix=E2_DEPTH * STEPS, grouped_conv=2 * STEPS)
+    sample_and_hold("E2TTS_Base", tts.ema_model, tts.vocoder, want, card=card, rtf=True)
+    add(want)
+    add(phase3_serve(tts.ema_model, tts.vocoder, "bf16", want_per_batch=want, phase=11))
+    del tts
+    torch.cuda.empty_cache()
+
+    # (b) a reference-format UNetT checkpoint through load_model
+    arch = dataclasses.replace(preset_model_config("E2TTS_Base").arch, depth=BACKBONE_TRAIN_DEPTH,
+                               text_num_embeds=2545)
+    flat = params_to_jax(init_unett(arch, seed=3, device=dev))
+    sd = torch_ckpt.unett_state_dict(unflatten_tree(flat), arch.heads, arch.dim_head)
+    t0 = time.perf_counter()
+    pt, npz = tmp / "e2.pt", tmp / "e2.npz"
+    torch.save({"ema_model_state_dict": {f"ema_model.transformer.{k}": torch.from_numpy(v)
+                                         for k, v in sd.items()}}, str(pt))
+    np.savez(npz, **{f"ema_params/{k}": v for k, v in flat.items()})
+    mcfg = ModelConfig(name="E2TTS_Base", backbone="UNetT", arch=arch)
+    a = flatten_tree(load_model(mcfg, ckpt_path=str(pt), device=dev).params)
+    b = flatten_tree(load_model(mcfg, ckpt_path=str(npz), device=dev).params)
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"phase 11(b): a UNetT (E2TTS_Base widths, depth {BACKBONE_TRAIN_DEPTH}) as a "
+          f"reference-format .pt ({pt.stat().st_size / 1e6:.0f} MB) and as an .npz, both through "
+          f"load_model(ckpt_path=): {len(a)} tensors {'equal to the bit' if same else 'DIFFER'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        fail("the reference-format UNetT checkpoint loads another tree than the .npz")
+    del a, b, sd, flat
+    torch.cuda.empty_cache()
+
+    # (c) UNetT training steps
+    print(f"phase 11(c): UNetT training step (E2TTS_Base widths, depth {BACKBONE_TRAIN_DEPTH}, "
+          "no remat, as the E2TTS configs set)")
+    params = init_unett(arch, seed=4, device=dev)
+    batch = train_batch(dev)
+    add(backbone_train_step("UNetT", dev, arch, params, batch, card))
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) MMDiT at MMDiTConfig()'s own widths
+    print("phase 11(d): MMDiT at MMDiTConfig()'s widths, bf16 sampling and an fp32/bf16 step")
+    march = MMDiTConfig(text_num_embeds=2545)
+    model = load_model(ModelConfig(name="MMDiT", backbone="MMDiT", arch=march),
+                       dtype=torch.bfloat16, seed=0, device=dev)
+    redraw_zero_init(model.params, seed=1)
+    print(f"  MMDiT dim {march.dim} depth {march.depth} heads {march.heads}x{march.dim_head} "
+          f"ff_mult {march.ff_mult}: {count_params(model.params) / 1e6:.1f} M params")
+    vcfg = VocosConfig()
+    vocoder = Vocos(init_vocos(vcfg, seed=1, device=dev, dtype=torch.bfloat16), vcfg)
+    want = launches_of(flash_prefix=march.depth * STEPS, grouped_conv=2 * STEPS)
+    sample_and_hold("MMDiT", model, vocoder, want, card=card, rtf=True)
+    add(want)
+    del model
+    torch.cuda.empty_cache()
+    tarch = dataclasses.replace(march, depth=BACKBONE_TRAIN_DEPTH)
+    params = redraw_zero_init(init_mmdit(tarch, seed=4, device=dev), seed=5)
+    add(backbone_train_step("MMDiT", dev, tarch, params, batch, card))
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # (e) a qk-norm DiT: the default path, linear_fused, int8 weights
+    print("phase 11(e): F5TTS_v1_Base with qk_norm='rms_norm' (5, 6, 7, 8 must not run)")
+    qk = preset_model_config("F5TTS_v1_Base", arch={"qk_norm": "rms_norm"})
+    per = DEPTH * STEPS
+    for quantize in (False, True):
+        model = load_model(qk, vocab_file=str(ROOT / VOCAB), dtype=torch.bfloat16, seed=0,
+                           device=dev, quantize=quantize)
+        redraw_zero_init(model.params, seed=1)
+        if quantize:
+            want = launches_of(flash_prefix=per, ff_block_int8=per, qmatmul=4 * per,
+                               grouped_conv=2 * STEPS)
+            sample_and_hold("qk-norm DiT, int8 weights", model, vocoder, want)
+            add(want)
+        else:
+            want = launches_of(flash_prefix=per, ff_block=per, grouped_conv=2 * STEPS)
+            for path in ("default", "linear_fused"):
+                sample_and_hold(f"qk-norm DiT, bf16, attn_path {path}", model, vocoder, want,
+                                attn_path=path)
+                add(want)
+        del model
+        torch.cuda.empty_cache()
+
+    # (f) the Small presets: conv-pos at 48 channels a group takes no kernel
+    print("phase 11(f): F5TTS_Small and E2TTS_Small (dim 768: 48 channels a conv-pos group)")
+    for name, depth, extra in (("F5TTS_Small", 18, "ff_block"), ("E2TTS_Small", 20, None)):
+        tts = f5tts(name)
+        want = launches_of(flash_prefix=depth * STEPS,
+                           **({extra: depth * STEPS} if extra else {}))
+        sample_and_hold(name, tts.ema_model, tts.vocoder, want, card=card, rtf=True)
+        add(want)
+        del tts
+        torch.cuda.empty_cache()
+
+    # (g) BigVGAN
+    print("phase 11(g): BigVGAN (bigvgan_v2 24 kHz 100-band 256x config), plain PyTorch")
+    bcfg = BigVGANConfig()
+    bp = init_bigvgan(bcfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    mel = torch.randn((1, 100, 1376), generator=gen, device=dev)
+    with torch.inference_mode():
+        bigvgan_decode(bp, mel[:, :, :64], bcfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = bigvgan_decode(bp, mel, bcfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        short = mel[:, :, :24]
+        on_card = bigvgan_decode(bp, short, bcfg)
+        cpu = bigvgan_decode(_to_device(bp, "cpu"), short.cpu(), bcfg)
+    err = _rel(on_card.cpu(), cpu)
+    print(f"  {count_params(bp) / 1e6:.1f} M params; a 1376-frame mel -> {wav.shape[-1]} samples "
+          f"(expected {1376 * 256}) in {ms:.1f} ms, fp32, finite {bool(torch.isfinite(wav).all())}"
+          f"; a 24-frame mel on the card against the CPU, fp32, TF32 off: rel {err:.3e} (bound "
+          f"1e-4) [{card}]")
+    if wav.shape != (1, 1376 * 256) or not torch.isfinite(wav).all() or err > 1e-4:
+        fail("BigVGAN: wrong length, non-finite samples or a card/CPU mismatch")
+    del bp, wav
+    torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t_start:.1f} s [{card}]")
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, an int8 "
@@ -4552,6 +4980,8 @@ def main(argv=None) -> int:
         results["flash_prefix"] = check_attention(gen, dev)
         results["ff_block"] = check_ff(gen, dev)
         results["grouped_conv"] = check_conv(gen, dev)
+        check_conv_widths(gen, dev)
+        check_odd_lengths(gen, dev)
         results["qmatmul"] = check_qmatmul(gen, dev)
         results["ln_mod_matmul_int8"] = check_ln_mod_int8(gen, dev)
         results["proj_gated_residual_int8"] = check_proj_gated_int8(gen, dev)
@@ -4608,6 +5038,13 @@ def main(argv=None) -> int:
     if 9 in phases:
         for name, n in phase9_int8_attention(dev, card, args.profile).items():
             counts[name] += n
+    if 11 in phases:  # before 6: the profiler slows every launch after it
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, n in phase11_backbones(dev, card, Path(tmp)).items():
+                counts[name] += n
+        torch.cuda.empty_cache()
     lora_profile = None
     if 10 in phases:  # before 6: the profiler slows every launch after it
         phase10_counts, lora_profile = phase10_finetune(dev, card)

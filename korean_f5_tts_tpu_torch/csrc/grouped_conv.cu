@@ -1,5 +1,33 @@
 // Grouped conv1d (SAME padding) + bias + optional Mish for Hopper (sm_90a):
-// ConvPositionEmbedding's two convolutions (k = 31, 16 groups of 64).
+// ConvPositionEmbedding's two convolutions (k = 31, 16 groups of C / 16).
+//
+// Group widths. Both forms are templates on the group width CG = C / groups
+// and take 16, 32, 64 and 128 (dim 256, 512, 1024, 2048 at 16 groups): every
+// width the TPU kernel takes (grouped_conv.py:42-50: CG divides 128) from 16
+// up. The text below describes CG = 64; the other widths change only this:
+//   bf16  a tile row is min(CG, 64) channels, 32, 64 or 128 bytes, in the
+//         swizzle of that span (TMA's 32B, 64B or 128B mode, the wgmma layout
+//         types B32, B64, B128; swz_addr, conv_desc_mn): the TMA boxes are
+//         rows x min(CG, 64) channels, the wgmma is m64nCGk16 (n16, n32,
+//         n64) with CG / 16 k16 steps a tap, a k step 16 tile rows further
+//         in the weights' descriptor. At CG = 128 (256-byte rows, past every
+//         swizzle span) the window and each tap's weights are two 64-channel
+//         tiles in the 128B swizzle: k steps 0-3 read the first window tile
+//         and 4-7 the second, and each k step runs two m64n64k16 products,
+//         one per half of the output channels, into two accumulators (one
+//         block an SM: 168 KB of shared memory).
+//   fp32  a block computes min(CG, 64) output channels (two blocks a group
+//         at CG = 128) from the group's input channels in passes of
+//         min(CG, 64) (two at CG = 128, the window reloaded between them,
+//         one accumulator across both); at CG 16 and 32 the eight warps
+//         are 16 rows each, one m16 tile by CG / 8 n8 tiles.
+// Widths below 16 (dim < 256) have no instantiation: a wgmma is at least 16
+// deep in k and a TMA box row at least 16 bytes, so a group of 8 bf16
+// channels would need the TPU kernel's block-diagonal packing of several
+// groups into one product, which no preset needs; such a launch raises.
+// Widths that do not divide 128 (48 at dim 768, F5TTS_Small and E2TTS_Small)
+// never reach the kernel: conv-pos takes the plain convolution there, as the
+// JAX package does (models/modules.py:conv_position_embedding).
 //
 // Replaces the TPU kernel korean_f5_tts_tpu/ops/grouped_conv.py:_gc_kernel
 // (via grouped_conv1d_mish). x, out: [B, N, C] bf16 channels-last;
@@ -103,23 +131,13 @@
 namespace f5 {
 namespace {
 
-constexpr int kCG = 64;        // channels per group (the only width taken)
-constexpr int kMaxTaps = 33;   // window rows = kConvRows + k - 1
+constexpr int kMaxTaps = 33;  // window rows = kConvRows + k - 1
 
 __device__ __forceinline__ float mish(float x) {
   // softplus as logaddexp(x, 0), the form jax.nn.softplus computes
   const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
   return x * tanhf(sp);
 }
-
-constexpr int kConvWgs = 2;                      // consumer warpgroups, 64 rows each
-constexpr int kConvRows = 64 * kConvWgs;         // output rows a block
-constexpr int kConvThreads = 128 * kConvWgs + 32;
-constexpr int kConvStages = 4;                   // weight ring depth
-constexpr int kConvWinBytes = (kConvRows + kMaxTaps - 1) * kRowBytes;  // 20 KB, 1024-aligned
-constexpr int kConvTapBytes = kCG * kRowBytes;   // one tap's [64][64] weights
-constexpr int kConvSmemBytes =
-    1024 + kConvWinBytes + kConvStages * kConvTapBytes + (2 * kConvStages + 1) * 8;
 
 // mish(x) = x tanh(softplus(x)) = x n / (n + 2) with n = e^x (e^x + 2): one
 // exponential and one division in place of mish()'s exp, log1p and tanh (the
@@ -131,16 +149,117 @@ __device__ __forceinline__ float mish_fast(float x) {
   return x * __fdividef(n, n + 2.f);
 }
 
-// a warp's 16 output rows of the m64n64 accumulator (acc[4j + e] is row
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma, one instantiation per group width CG
+// ---------------------------------------------------------------------------
+
+constexpr int kConvWgs = 2;                      // consumer warpgroups, 64 rows each
+constexpr int kConvRows = 64 * kConvWgs;         // output rows a block
+constexpr int kConvThreads = 128 * kConvWgs + 32;
+constexpr int kConvStages = 4;                   // weight ring depth
+constexpr int kConvWinRows = kConvRows + kMaxTaps - 1;
+
+// The geometry of one group width. A tile row is min(CG, 64) channels: 32,
+// 64 or 128 bytes, swizzled over that span (TMA's 32B, 64B or 128B swizzle,
+// the wgmma layout types B32, B64, B128). At CG = 128 (256-byte rows) the
+// window and each tap's weights are two tiles of 64 channels, both B128:
+// the K halves of the window, the N halves of the weights.
+template <int CG>
+struct ConvGeom {
+  static_assert(CG == 16 || CG == 32 || CG == 64 || CG == 128, "group width");
+  static constexpr int kSub = CG > 64 ? 2 : 1;              // tiles across the group
+  static constexpr int kSubCols = CG / kSub;                // channels a tile row
+  static constexpr int kRowB = kSubCols * 2;                // bytes a tile row
+  static constexpr int kKSteps = CG / 16;                   // wgmma k16 steps a tap
+  static constexpr int kWinTile = kConvWinRows * kRowB;     // one window tile
+  static constexpr int kTapTile = CG * kRowB;               // one weight tile (N half)
+  static constexpr int kTapBytes = kSub * kTapTile;         // one tap's weights
+  static constexpr int kSmem = 1024 + kSub * kWinTile + kConvStages * kTapBytes +
+                               (2 * kConvStages + 1) * 8;
+  static constexpr int kMinBlocks = CG > 64 ? 1 : 2;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : (kRowB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+  static constexpr uint64_t kLayout = kRowB == 128 ? 1 : (kRowB == 64 ? 2 : 3);
+  static constexpr int kAccN = kSubCols;                    // columns an accumulator
+};
+static_assert(ConvGeom<16>::kWinTile % 256 == 0 && ConvGeom<32>::kWinTile % 512 == 0 &&
+                  ConvGeom<64>::kWinTile % 1024 == 0 && ConvGeom<16>::kTapTile % 256 == 0 &&
+                  ConvGeom<32>::kTapTile % 512 == 0 && ConvGeom<64>::kTapTile % 1024 == 0,
+              "every tile starts on its swizzle's repeat");
+
+// address of 16-byte chunk `chunk` of row `row` of a tile of kRowB-byte rows
+// in the matching swizzle (CUTLASS Swizzle<B, 4, 3>: the chunk bits XOR the
+// address bits 7 and up); kRowB 128 is hopper.cuh's swz_chunk_addr
+template <int kRowB>
+__device__ __forceinline__ const unsigned char* swz_addr(const unsigned char* tile, int row,
+                                                         int chunk) {
+  const int sw = ((row * kRowB) >> 7) & (kRowB / 16 - 1);
+  return tile + row * kRowB + ((chunk ^ sw) << 4);
+}
+
+// descriptor of an MN-major operand tile of kRowB-byte rows (N contiguous in
+// a row, k down the rows): 8 rows (8 kRowB bytes) between k groups; the
+// other offset (between N atoms) is never used, N being one atom wide
+template <int CG>
+__device__ __forceinline__ uint64_t conv_desc_mn(const void* tile) {
+  constexpr uint64_t kOff = (8 * ConvGeom<CG>::kRowB) >> 4;
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) | (kOff << 16) | (kOff << 32) |
+         (ConvGeom<CG>::kLayout << 62);
+}
+
+// d[8] (+)= A (64 x 16, registers) . B (B: [16][16] MN-major, transposed)
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[16] (+)= A (64 x 16, registers) . B (B: [16][32] MN-major, transposed)
+__device__ __forceinline__ void wgmma_rs_n32_tb(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16_tb(d, a, db, 1);
+  else if constexpr (N == 32) wgmma_rs_n32_tb(d, a, db, 1);
+  else wgmma_rs_n64_tb(d, a, db, 1);
+}
+
+// a warp's 16 output rows of an m64nNA accumulator (acc[4j + e] is row
 // row0 + g + 8 (e >> 1), channel 8j + 2t + (e & 1)) plus the bias, Mish in
 // fp32 and one bf16 cast, into out (the item's [N, C] rows at column c0),
 // rows masked at N
-__device__ __forceinline__ void conv_epilogue(const float (&acc)[32], const bf16* __restrict__ bias,
+template <int NA>
+__device__ __forceinline__ void conv_epilogue(const float (&acc)[NA / 2],
+                                              const bf16* __restrict__ bias,
                                               bf16* __restrict__ out, int N, int C, int c0,
                                               int row0, int lane, int fuse_mish) {
   const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NA / 8; ++j) {
     const int col = 8 * j + 2 * tq;
     const float bb0 = bias ? __bfloat162float(bias[c0 + col]) : 0.f;
     const float bb1 = bias ? __bfloat162float(bias[c0 + col + 1]) : 0.f;
@@ -161,38 +280,55 @@ __device__ __forceinline__ void conv_epilogue(const float (&acc)[32], const bf16
 }
 
 // the register-A fragments of tap t for this warp's 16 output rows: window
-// rows row0 + t .. + 15, four k16 steps over the 64 input channels
-__device__ __forceinline__ void conv_frags(uint32_t (&a)[4][4], const unsigned char* win,
-                                           int row0, int t, int lane) {
+// rows row0 + t .. + 15, CG / 16 k16 steps over the group's input channels
+// (at CG = 128 steps 0-3 from the first window tile, 4-7 from the second)
+template <int CG>
+__device__ __forceinline__ void conv_frags(uint32_t (&a)[ConvGeom<CG>::kKSteps][4],
+                                           const unsigned char* win, int row0, int t, int lane) {
+  using G = ConvGeom<CG>;
   const int r = row0 + t + (lane & 15);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(a[kk], swz_chunk_addr(win, r, 2 * kk + (lane >> 4)));
+  for (int kk = 0; kk < G::kKSteps; ++kk) {
+    constexpr int kStepsPerTile = G::kSubCols / 16;
+    const unsigned char* tile = win + (kk / kStepsPerTile) * G::kWinTile;
+    ldmatrix_x4(a[kk], swz_addr<G::kRowB>(tile, r, 2 * (kk % kStepsPerTile) + (lane >> 4)));
+  }
 }
 
-// one tap's product, acc += A . W_t, as one wgmma group
-__device__ __forceinline__ void conv_issue(float (&acc)[32], const uint32_t (&a)[4][4],
+// one tap's product, acc += A . W_t, as one wgmma group: CG / 16 k16 steps,
+// each on every N half of the weights (a k16 step is 16 tile rows further)
+template <int CG>
+__device__ __forceinline__ void conv_issue(float (&acc)[ConvGeom<CG>::kSub][ConvGeom<CG>::kAccN / 2],
+                                           const uint32_t (&a)[ConvGeom<CG>::kKSteps][4],
                                            const unsigned char* tile_w) {
-  const uint64_t db = wgmma_desc_mn(tile_w);
+  using G = ConvGeom<CG>;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64_tb(acc, a[kk], db + 128 * kk, 1);
+  for (int h = 0; h < G::kSub; ++h) {
+    const uint64_t db = conv_desc_mn<CG>(tile_w + h * G::kTapTile);
+#pragma unroll
+    for (int kk = 0; kk < G::kKSteps; ++kk)
+      wgmma_rs_tb<G::kAccN>(acc[h], a[kk], db + kk * G::kRowB);
+  }
   wgmma_commit();
 }
 
-__global__ void __launch_bounds__(kConvThreads, 2)
+template <int CG>
+__global__ void __launch_bounds__(kConvThreads, ConvGeom<CG>::kMinBlocks)
 grouped_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                           const __grid_constant__ CUtensorMap map_w,
                           const bf16* __restrict__ bias, bf16* __restrict__ out, int N, int C,
                           int taps, int fuse_mish) {
+  using G = ConvGeom<CG>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* win = smem;
-  unsigned char* ring = smem + kConvWinBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kConvStages * kConvTapBytes);
+  unsigned char* ring = smem + G::kSub * G::kWinTile;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kConvStages * G::kTapBytes);
   uint64_t* empty = full + kConvStages;
   uint64_t* win_full = empty + kConvStages;
   const int n0 = blockIdx.x * kConvRows;
-  const int c0 = blockIdx.y * kCG;
+  const int c0 = blockIdx.y * CG;
   const int item = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
@@ -208,13 +344,17 @@ grouped_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 
   if (warp == 4 * kConvWgs) {
     if (lane == 0) {
-      mbar_arrive_expect_tx(win_full, (kConvRows + taps - 1) * kRowBytes);
-      tma_load_3d(win, &map_x, win_full, c0, n0 - taps / 2, item);
+      mbar_arrive_expect_tx(win_full, G::kSub * (kConvRows + taps - 1) * G::kRowB);
+      for (int h = 0; h < G::kSub; ++h)
+        tma_load_3d(win + h * G::kWinTile, &map_x, win_full, c0 + h * G::kSubCols,
+                    n0 - taps / 2, item);
       for (int t = 0; t < taps; ++t) {
         const int s = t % kConvStages;
         mbar_wait(&empty[s], ((t / kConvStages) & 1) ^ 1);  // passes at once on the first round
-        mbar_arrive_expect_tx(&full[s], kConvTapBytes);
-        tma_load_2d(ring + s * kConvTapBytes, &map_w, &full[s], c0, t * kCG);
+        mbar_arrive_expect_tx(&full[s], G::kTapBytes);
+        for (int h = 0; h < G::kSub; ++h)
+          tma_load_2d(ring + s * G::kTapBytes + h * G::kTapTile, &map_w, &full[s],
+                      c0 + h * G::kSubCols, t * CG);
       }
     }
     return;
@@ -222,140 +362,188 @@ grouped_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 
   const int wg = warp >> 2;
   const int row0 = wg * 64 + (warp & 3) * 16;  // this warp's first output row in the block
-  float acc[32];
+  float acc[G::kSub][G::kAccN / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  uint32_t a0[4][4], a1[4][4];
+  for (int h = 0; h < G::kSub; ++h)
+#pragma unroll
+    for (int i = 0; i < G::kAccN / 2; ++i) acc[h][i] = 0.f;
+  uint32_t a0[G::kKSteps][4], a1[G::kKSteps][4];
   mbar_wait(win_full, 0);
-  conv_frags(a0, win, row0, 0, lane);
+  conv_frags<CG>(a0, win, row0, 0, lane);
   // tap t on `cur`; then, once tap t - 1's group is done, its stage is freed
   // and tap t + 1's fragments go into `next`, the buffer that group read
-  auto step = [&](int t, const uint32_t (&cur)[4][4], uint32_t (&next)[4][4]) {
+  auto step = [&](int t, const uint32_t (&cur)[G::kKSteps][4], uint32_t (&next)[G::kKSteps][4]) {
     const int s = t % kConvStages;
     mbar_wait(&full[s], (t / kConvStages) & 1);
-    conv_issue(acc, cur, ring + s * kConvTapBytes);
+    conv_issue<CG>(acc, cur, ring + s * G::kTapBytes);
     wgmma_wait<1>();
     if (t > 0 && lane == 0) mbar_arrive(&empty[(t - 1) % kConvStages]);
-    if (t + 1 < taps) conv_frags(next, win, row0, t + 1, lane);
+    if (t + 1 < taps) conv_frags<CG>(next, win, row0, t + 1, lane);
   };
   for (int t = 0; t < taps; t += 2) {
     step(t, a0, a1);
     if (t + 1 < taps) step(t + 1, a1, a0);
   }
   wgmma_wait<0>();
-  wgmma_fence_regs(acc);
-  conv_epilogue(acc, bias, out + (size_t)item * N * C + c0, N, C, c0, n0 + row0, lane,
-                fuse_mish);
+#pragma unroll
+  for (int h = 0; h < G::kSub; ++h) {
+    wgmma_fence_regs(acc[h]);
+    conv_epilogue<G::kAccN>(acc[h], bias, out + (size_t)item * N * C + c0 + h * G::kSubCols, N,
+                            C, c0 + h * G::kSubCols, n0 + row0, lane, fuse_mish);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// fp32: split 3xTF32 on mma.sync
+// fp32: split 3xTF32 on mma.sync, one instantiation per group width CG
 // ---------------------------------------------------------------------------
 
 constexpr int kTfRows = 128;                        // output rows a block
 constexpr int kTfWinRows = kTfRows + kMaxTaps - 1;  // window rows, at most
-constexpr int kTfLdW = 72;                          // weight tile row stride (words)
-constexpr int kTfTile = kCG * kTfLdW;               // one hi or lo weight tile (words)
-constexpr int kTfSmem = (2 * kTfWinRows * kLD32 + 4 * kTfTile) * (int)sizeof(uint32_t);
 
-// tap t's [64 in][64 out] weights of the group at w (w[t, i, c0 + o] at
-// (t * 64 + i) * C + o): thread tid holds rows (tid + 256 it) / 16, columns
-// 4 ((tid + 256 it) % 16) .. + 3
-__device__ __forceinline__ void conv_w_load(float4 (&r)[4], const float* w, int t, int C,
-                                            int tid) {
+// A block computes OC = min(CG, 64) output channels of one group (grid.y runs
+// over groups x CG / OC) from the group's CG input channels, taken as passes
+// of IC = min(CG, 64) channels; eight warps as WR row groups x WC channel
+// groups, each MT m16 tiles x NT n8 tiles.
+template <int CG>
+struct TfGeom {
+  static constexpr int kOC = CG < 64 ? CG : 64;
+  static constexpr int kIC = kOC;
+  static constexpr int kPasses = CG / kIC;   // input passes
+  static constexpr int kHalves = CG / kOC;   // output-channel blocks of a group
+  static constexpr int kWC = kOC >= 64 ? 2 : 1;
+  static constexpr int kWR = 8 / kWC;
+  static constexpr int kMT = kTfRows / (kWR * 16);
+  static constexpr int kNT = kOC / kWC / 8;
+  static constexpr int kLdW = kOC + 8;   // weight tile row stride (words): 72, 40, 24
+  static constexpr int kTile = kIC * kLdW;  // one hi or lo weight tile (words)
+  static constexpr int kSmem = (2 * kTfWinRows * kLD32 + 4 * kTile) * (int)sizeof(uint32_t);
+  static constexpr int kLoads = (kIC * kOC / 4 + kT32 - 1) / kT32;  // float4 a thread a tap
+};
+
+// weights of step s = pass * taps + t: w[t, pass * IC + i, co0 + o] at
+// (t * CG + pass * IC + i) * C + co0 + o; thread tid holds float4 number
+// tid + 256 it of the [IC][OC] tile (row i / (OC / 4))
+template <int CG>
+__device__ __forceinline__ void conv_w_load(float4 (&r)[TfGeom<CG>::kLoads], const float* w,
+                                            int s, int taps, int C, int tid) {
+  using G = TfGeom<CG>;
+  const int t = s % taps, pass = s / taps;
 #pragma unroll
-  for (int it = 0; it < 4; ++it) {
+  for (int it = 0; it < G::kLoads; ++it) {
     const int i = tid + it * kT32;
-    r[it] = *reinterpret_cast<const float4*>(w + ((size_t)t * kCG + (i >> 4)) * C + (i & 15) * 4);
+    if (i < G::kIC * G::kOC / 4)
+      r[it] = *reinterpret_cast<const float4*>(
+          w + ((size_t)t * CG + pass * G::kIC + i / (G::kOC / 4)) * C + (i % (G::kOC / 4)) * 4);
   }
 }
 
-// those registers split into the hi tile at wt and the lo tile after it;
-// eight consecutive threads store one row's 32 words
-__device__ __forceinline__ void conv_w_split(uint32_t* wt, const float4 (&r)[4], int tid) {
+// those registers split into the hi tile at wt and the lo tile after it
+template <int CG>
+__device__ __forceinline__ void conv_w_split(uint32_t* wt, const float4 (&r)[TfGeom<CG>::kLoads],
+                                             int tid) {
+  using G = TfGeom<CG>;
 #pragma unroll
-  for (int it = 0; it < 4; ++it) {
+  for (int it = 0; it < G::kLoads; ++it) {
     const int i = tid + it * kT32;
-    split4(wt, wt + kTfTile, (i >> 4) * kTfLdW + (i & 15) * 4, r[it]);
+    if (i < G::kIC * G::kOC / 4)
+      split4(wt, wt + G::kTile, (i / (G::kOC / 4)) * G::kLdW + (i % (G::kOC / 4)) * 4, r[it]);
   }
 }
 
-// warp w owns output rows 32 (w / 2) .. + 31 and channels 32 (w % 2) .. + 31
-// of the block; acc[mt][nt][e] is row 32 (w / 2) + 16 mt + g + 8 (e >> 1),
-// channel 32 (w % 2) + 8 nt + 2t + (e & 1)
-__global__ void __launch_bounds__(kT32, 1)
-grouped_conv_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                         const float* __restrict__ bias, float* __restrict__ out, int N, int C,
-                         int taps, int fuse_mish) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* win_h = reinterpret_cast<uint32_t*>(smem_raw);  // [160][68] each
-  uint32_t* win_l = win_h + kTfWinRows * kLD32;
-  uint32_t* wts = win_l + kTfWinRows * kLD32;  // two buffers of [hi, lo][64][72]
-  const int n0 = blockIdx.x * kTfRows;
-  const int c0 = blockIdx.y * kCG;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int r0 = (warp >> 1) * 32, cb = (warp & 1) * 32;
-  const float* xb = x + (size_t)blockIdx.z * N * C + c0;
-  const float* wg = w + c0;
-
-  float4 wr[4];
-  conv_w_load(wr, wg, 0, C, tid);
-  // the window: positions [n0 - taps / 2, n0 + 128 + taps / 2), zero outside [0, N)
+// window rows [n0 - taps / 2, n0 + 128 + taps / 2) of input channels xb[0,
+// IC), zero outside [0, N), split into hi and lo tiles [160][68]
+template <int CG>
+__device__ __forceinline__ void conv_window(uint32_t* win_h, uint32_t* win_l, const float* xb,
+                                            int n0, int N, int C, int taps, int tid) {
+  constexpr int kQ = TfGeom<CG>::kIC / 4;  // float4 a row
   const int rows = kTfRows + taps - 1;
-  for (int i = tid; i < rows * (kCG / 4); i += kT32) {
-    const int r = i >> 4, cc = (i & 15) * 4, pos = n0 - taps / 2 + r;
+  for (int i = tid; i < rows * kQ; i += kT32) {
+    const int r = i / kQ, cc = (i % kQ) * 4, pos = n0 - taps / 2 + r;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (pos >= 0 && pos < N) val = *reinterpret_cast<const float4*>(xb + (size_t)pos * C + cc);
     split4(win_h, win_l, r * kLD32 + cc, val);
   }
-  conv_w_split(wts, wr, tid);
-  if (taps > 1) conv_w_load(wr, wg, 1, C, tid);
-  float acc[2][4][4] = {};
-  __syncthreads();
+}
 
-  for (int t = 0; t < taps; ++t) {
-    const uint32_t* bh = wts + (t & 1) * 2 * kTfTile;
-    const uint32_t* bl = bh + kTfTile;
-    float part[2][4][4] = {};  // this tap's product, a chain of its own
-#pragma unroll
-    for (int ks = 0; ks < kCG / 8; ++ks) {
-      uint32_t ah[2][4], al[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        lda_tf32(ah[mt], win_h, r0 + 16 * mt + t, ks * 8, lane);
-        lda_tf32(al[mt], win_l, r0 + 16 * mt + t, ks * 8, lane);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int at = (ks * 8 + tq) * kTfLdW + cb + 8 * nt + g;
-        const uint32_t bh0 = bh[at], bh1 = bh[at + 4 * kTfLdW];
-        const uint32_t bl0 = bl[at], bl1 = bl[at + 4 * kTfLdW];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(part[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
-    if (t + 1 < taps) {  // tap t + 1 into the buffer tap t - 1 was read from
-      conv_w_split(wts + ((t + 1) & 1) * 2 * kTfTile, wr, tid);
-      if (t + 2 < taps) conv_w_load(wr, wg, t + 2, C, tid);
+// warp w owns output rows 16 MT (w / WC) .. and channels (OC / WC) (w % WC)
+// .. of the block; acc[mt][nt][e] is row 16 MT (w / WC) + 16 mt + g + 8 (e >>
+// 1), channel (OC / WC) (w % WC) + 8 nt + 2t + (e & 1)
+template <int CG>
+__global__ void __launch_bounds__(kT32, 1)
+grouped_conv_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ bias, float* __restrict__ out, int N, int C,
+                         int taps, int fuse_mish) {
+  using G = TfGeom<CG>;
+  constexpr int MT = G::kMT, NT = G::kNT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* win_h = reinterpret_cast<uint32_t*>(smem_raw);  // [160][68] each
+  uint32_t* win_l = win_h + kTfWinRows * kLD32;
+  uint32_t* wts = win_l + kTfWinRows * kLD32;  // two buffers of [hi, lo][IC][LdW]
+  const int n0 = blockIdx.x * kTfRows;
+  const int g0 = (blockIdx.y / G::kHalves) * CG;           // the group's first channel
+  const int co0 = g0 + (blockIdx.y % G::kHalves) * G::kOC;  // this block's output channels
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = (warp / G::kWC) * 16 * MT, cb = (warp % G::kWC) * (G::kOC / G::kWC);
+  const float* xb = x + (size_t)blockIdx.z * N * C + g0;
+  const float* wg = w + co0;
+  const int steps = G::kPasses * taps;
+
+  float4 wr[G::kLoads];
+  float acc[MT][NT][4] = {};
+  for (int pass = 0; pass < G::kPasses; ++pass) {
+    if (pass == 0) conv_w_load<CG>(wr, wg, 0, taps, C, tid);
+    conv_window<CG>(win_h, win_l, xb + pass * G::kIC, n0, N, C, taps, tid);
+    if (pass == 0) {
+      conv_w_split<CG>(wts, wr, tid);
+      if (steps > 1) conv_w_load<CG>(wr, wg, 1, taps, C, tid);
     }
     __syncthreads();
+    for (int t = 0; t < taps; ++t) {
+      const int s = pass * taps + t;
+      const uint32_t* bh = wts + (s & 1) * 2 * G::kTile;
+      const uint32_t* bl = bh + G::kTile;
+      float part[MT][NT][4] = {};  // this tap's product, a chain of its own
+#pragma unroll
+      for (int ks = 0; ks < G::kIC / 8; ++ks) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          lda_tf32(ah[mt], win_h, r0 + 16 * mt + t, ks * 8, lane);
+          lda_tf32(al[mt], win_l, r0 + 16 * mt + t, ks * 8, lane);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int at = (ks * 8 + tq) * G::kLdW + cb + 8 * nt + g;
+          const uint32_t bh0 = bh[at], bh1 = bh[at + 4 * G::kLdW];
+          const uint32_t bl0 = bl[at], bl1 = bl[at + 4 * G::kLdW];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_3xtf32(part[mt][nt], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+      if (s + 1 < steps) {  // step s + 1 into the buffer step s - 1 was read from
+        conv_w_split<CG>(wts + ((s + 1) & 1) * 2 * G::kTile, wr, tid);
+        if (s + 2 < steps) conv_w_load<CG>(wr, wg, s + 2, taps, C, tid);
+      }
+      __syncthreads();
+    }
   }
 
-  float* ob = out + (size_t)blockIdx.z * N * C + c0;
+  float* ob = out + (size_t)blockIdx.z * N * C + co0;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < NT; ++nt) {
     const int col = cb + 8 * nt + 2 * tq;
-    const float bb0 = bias ? bias[c0 + col] : 0.f;
-    const float bb1 = bias ? bias[c0 + col + 1] : 0.f;
+    const float bb0 = bias ? bias[co0 + col] : 0.f;
+    const float bb1 = bias ? bias[co0 + col + 1] : 0.f;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = n0 + r0 + 16 * mt + g + 8 * h;
@@ -370,50 +558,86 @@ grouped_conv_tf32_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
 }
 
-}  // namespace
-}  // namespace f5
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
 
-static bool conv_dims_ok(int B, int N, int C, int groups, int taps) {
-  return B > 0 && N > 0 && groups > 0 && C == groups * f5::kCG && taps % 2 == 1 &&
-         taps <= f5::kMaxTaps && B <= 65535 && groups <= 65535;
-}
-
-// the same on fp32 x, w, b, out
-extern "C" int f5_grouped_conv_f32_fwd(const void* x, const void* w, const void* b, void* out,
-                                       int B, int N, int C, int groups, int taps, int fuse_mish,
-                                       int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+template <int CG>
+int launch_conv_f32(const void* x, const void* w, const void* b, void* out, int B, int N, int C,
+                    int groups, int taps, int fuse_mish, cudaStream_t stream) {
+  using G = TfGeom<CG>;
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err = allow_smem(grouped_conv_tf32_kernel<CG>, G::kSmem, ready);
   if (err != cudaSuccess) return (int)err;
-  if (!conv_dims_ok(B, N, C, groups, taps)) return (int)cudaErrorInvalidValue;
-  static std::atomic<bool> ready[f5::kMaxDevices];
-  err = f5::allow_smem(f5::grouped_conv_tf32_kernel, f5::kTfSmem, ready);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + f5::kTfRows - 1) / f5::kTfRows, groups, B);
-  f5::grouped_conv_tf32_kernel<<<grid, f5::kT32, f5::kTfSmem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid((N + kTfRows - 1) / kTfRows, groups * G::kHalves, B);
+  grouped_conv_tf32_kernel<CG><<<grid, kT32, G::kSmem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
       static_cast<float*>(out), N, C, taps, fuse_mish);
   return (int)cudaGetLastError();
 }
 
-// C / groups must be 64; taps odd and at most 33. x, w, out 16-byte aligned.
+// x [B, N, C] bf16 as boxes of (kConvRows + taps - 1) rows x min(CG, 64)
+// channels of one item; w [taps * CG, C] as boxes of CG rows x min(CG, 64)
+// channels; both in CG's swizzle
+template <int CG>
+int launch_conv_bf16(const void* x, const void* w, const void* b, void* out, int B, int N,
+                     int C, int groups, int taps, int fuse_mish, cudaStream_t stream) {
+  using G = ConvGeom<CG>;
+  CUtensorMap map_x, map_w;
+  const MapKey kx{x, 3, {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)B, 0},
+                  {(cuuint64_t)C * 2, (cuuint64_t)N * C * 2, 0},
+                  {G::kSubCols, (cuuint32_t)(kConvRows + taps - 1), 1, 0}, kMapBf16, G::kSwizzle};
+  const MapKey kw{w, 2, {(cuuint64_t)C, (cuuint64_t)taps * CG, 0, 0}, {(cuuint64_t)C * 2, 0, 0},
+                  {G::kSubCols, CG, 0, 0}, kMapBf16, G::kSwizzle};
+  if (!encode_map(&map_x, kx) || !encode_map(&map_w, kw)) return (int)cudaErrorInvalidValue;
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err = allow_smem(grouped_conv_wgmma_kernel<CG>, G::kSmem, ready);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + kConvRows - 1) / kConvRows, groups, B);
+  grouped_conv_wgmma_kernel<CG><<<grid, kConvThreads, G::kSmem, stream>>>(
+      map_x, map_w, static_cast<const bf16*>(b), static_cast<bf16*>(out), N, C, taps, fuse_mish);
+  return (int)cudaGetLastError();
+}
+
+bool conv_dims_ok(int B, int N, int C, int groups, int taps) {
+  if (B <= 0 || N <= 0 || groups <= 0 || C % groups || taps % 2 == 0 || taps > kMaxTaps ||
+      B > 65535 || groups > 32767)
+    return false;
+  const int cg = C / groups;
+  return cg == 16 || cg == 32 || cg == 64 || cg == 128;
+}
+
+}  // namespace
+}  // namespace f5
+
+// C / groups 16, 32, 64 or 128 (one instantiation each); taps odd and at most
+// 33. x, w, out 16-byte aligned.
+extern "C" int f5_grouped_conv_f32_fwd(const void* x, const void* w, const void* b, void* out,
+                                       int B, int N, int C, int groups, int taps, int fuse_mish,
+                                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!f5::conv_dims_ok(B, N, C, groups, taps)) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C / groups) {
+    case 16: return f5::launch_conv_f32<16>(x, w, b, out, B, N, C, groups, taps, fuse_mish, s);
+    case 32: return f5::launch_conv_f32<32>(x, w, b, out, B, N, C, groups, taps, fuse_mish, s);
+    case 64: return f5::launch_conv_f32<64>(x, w, b, out, B, N, C, groups, taps, fuse_mish, s);
+    default: return f5::launch_conv_f32<128>(x, w, b, out, B, N, C, groups, taps, fuse_mish, s);
+  }
+}
+
 extern "C" int f5_grouped_conv_fwd(const void* x, const void* w, const void* b, void* out, int B,
                                    int N, int C, int groups, int taps, int fuse_mish, int device,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!conv_dims_ok(B, N, C, groups, taps)) return (int)cudaErrorInvalidValue;
-  CUtensorMap map_x, map_w;
-  if (!f5::tensor_map_3d(&map_x, x, B, N, C, f5::kConvRows + taps - 1, f5::kMapBf16) ||
-      !f5::tensor_map(&map_w, w, (uint64_t)taps * f5::kCG, C, f5::kCG, f5::kMapBf16))
-    return (int)cudaErrorInvalidValue;
-  static std::atomic<bool> ready[f5::kMaxDevices];
-  err = f5::allow_smem(f5::grouped_conv_wgmma_kernel, f5::kConvSmemBytes, ready);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + f5::kConvRows - 1) / f5::kConvRows, groups, B);
-  f5::grouped_conv_wgmma_kernel<<<grid, f5::kConvThreads, f5::kConvSmemBytes,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      map_x, map_w, static_cast<const f5::bf16*>(b), static_cast<f5::bf16*>(out), N, C, taps,
-      fuse_mish);
-  return (int)cudaGetLastError();
+  if (!f5::conv_dims_ok(B, N, C, groups, taps)) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C / groups) {
+    case 16: return f5::launch_conv_bf16<16>(x, w, b, out, B, N, C, groups, taps, fuse_mish, s);
+    case 32: return f5::launch_conv_bf16<32>(x, w, b, out, B, N, C, groups, taps, fuse_mish, s);
+    case 64: return f5::launch_conv_bf16<64>(x, w, b, out, B, N, C, groups, taps, fuse_mish, s);
+    default: return f5::launch_conv_bf16<128>(x, w, b, out, B, N, C, groups, taps, fuse_mish, s);
+  }
 }

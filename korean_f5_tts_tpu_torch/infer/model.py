@@ -1,11 +1,11 @@
 """TTSModel and load_model (counterpart of korean_f5_tts_tpu/infer/model.py).
 
-A model bundle is the DiT parameter tree on one device, its config, the mel
-config and the tokenizer settings. load_model reads a checkpoint (a JAX .npz,
-or a reference torch .pt / .safetensors through utils/torch_ckpt.py) through
-load_checkpoint_into_pytree and the converter, or draws seeded random weights.
-Only the DiT backbone is ported; UNetT and MMDiT checkpoints wait for theirs
-(ROADMAP.md queue 1 item 11).
+A model bundle is the backbone's parameter tree (DiT, UNetT or MMDiT) on one
+device, its config, the mel config and the tokenizer settings. load_model
+reads a checkpoint (a JAX .npz, or a reference torch .pt / .safetensors
+through utils/torch_ckpt.py) through load_checkpoint_into_pytree and the
+converter, or draws seeded random weights through _INIT_FNS. As in the JAX
+package, an MMDiT has no torch-checkpoint converter route: its .pt raises.
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from korean_f5_tts_tpu_torch.config import DiTConfig, ModelConfig
+from korean_f5_tts_tpu_torch.config import BACKBONE_CONFIGS, ModelConfig, backbone_of
 from korean_f5_tts_tpu_torch.models.dit import init_dit
+from korean_f5_tts_tpu_torch.models.mmdit import init_mmdit
+from korean_f5_tts_tpu_torch.models.unett import init_unett
 from korean_f5_tts_tpu_torch.models.modules import cast_params
 from korean_f5_tts_tpu_torch.models.quant import quantize_params
 from korean_f5_tts_tpu_torch.ops.mel import MelConfig, log_mel_prepadded, log_mel_spectrogram
@@ -36,7 +38,7 @@ from korean_f5_tts_tpu_torch.utils.misc import require_device
 @dataclasses.dataclass
 class TTSModel:
     params: Any
-    arch: DiTConfig
+    arch: Any  # DiTConfig, UNetTConfig or MMDiTConfig
     mel: MelConfig
     vocab_char_map: dict[str, int] | None
     device: torch.device
@@ -84,7 +86,10 @@ class TTSModel:
             return log_mel_prepadded(wav_t, cfg, out_frames), int(n_frames)
 
 
-def load_checkpoint_into_pytree(ckpt_path: str, arch: DiTConfig, backbone: str = "DiT",
+_INIT_FNS = {"DiT": init_dit, "UNetT": init_unett, "MMDiT": init_mmdit}
+
+
+def load_checkpoint_into_pytree(ckpt_path: str, arch, backbone: str | None = None,
                                 use_ema: bool = True) -> dict:
     """A checkpoint file -> the JAX package's parameter tree (numpy, JAX
     layouts), as infer/model.py:94-129 does; params_from_jax carries it to
@@ -94,16 +99,21 @@ def load_checkpoint_into_pytree(ckpt_path: str, arch: DiTConfig, backbone: str =
         "ema_params/" subtree when asked for and present, else "params/";
       - .pt / .safetensors: a reference checkpoint, unwrapped from
         ema_model_state_dict / model_state_dict, EMA prefix stripped, LoRA
-        pairs merged, then converted (q/k columns already half-split).
+        pairs merged, then converted (q/k columns already half-split): DiT
+        and UNetT; an MMDiT raises ValueError, as infer/model.py:129 does.
+    backbone None takes the arch config's own.
     """
     if ckpt_path.endswith(".npz"):
         return unflatten_tree(load_npz_params(ckpt_path, use_ema=use_ema))
-    if backbone != "DiT":
-        raise NotImplementedError(f"backbone {backbone!r} is not ported (DiT only; ROADMAP.md "
-                                  "queue 1 item 11)")
+    backbone = backbone or backbone_of(arch)
+    if backbone not in ("DiT", "UNetT"):
+        raise ValueError(f"torch conversion not implemented for backbone {backbone}")
     sd = torch_ckpt.strip_ema_prefix(torch_ckpt.load_torch_checkpoint(ckpt_path))
     if any("lora_" in k for k in sd):
         sd = torch_ckpt.merge_lora(sd)
+    if backbone == "UNetT":
+        return torch_ckpt.convert_unett_state_dict(sd, arch.heads, arch.dim_head, arch.depth,
+                                                   arch.conv_layers, arch.skip_connect_type)
     return torch_ckpt.convert_dit_state_dict(sd, arch.heads, arch.dim_head, arch.depth,
                                              arch.conv_layers)
 
@@ -115,9 +125,10 @@ def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
                dtype: torch.dtype | None = None, seed: int = 0,
                device="cuda", quantize: bool = False) -> TTSModel:
     """Ready-to-infer TTSModel on `device` (the card unless the caller names
-    the CPU; no card raises): DiT from a checkpoint (ckpt_path: a JAX .npz or
-    a reference .pt / .safetensors, load_checkpoint_into_pytree) or seeded
-    random init. A vocab file sets
+    the CPU; no card raises): the config's backbone (DiT, UNetT or MMDiT)
+    from a checkpoint (ckpt_path: a JAX .npz or a reference .pt /
+    .safetensors, load_checkpoint_into_pytree) or seeded random init
+    (_INIT_FNS). A vocab file sets
     text_num_embeds = vocab size + 1, as in the JAX package.
 
     quantize=True rewrites the block linears to int8 weights
@@ -127,14 +138,18 @@ def load_model(model_cfg: ModelConfig, ckpt_path: str | None = None,
     device = require_device(device)
     vocab_char_map = None
     arch = model_cfg.arch
+    if type(arch) is not BACKBONE_CONFIGS[model_cfg.backbone]:
+        raise ValueError(f"backbone {model_cfg.backbone!r} with an arch of type "
+                         f"{type(arch).__name__}")
     if vocab_file is not None and os.path.exists(vocab_file):
         vocab_char_map = load_vocab_file(vocab_file)
         arch = dataclasses.replace(arch, text_num_embeds=len(vocab_char_map) + 1)
     if ckpt_path:
-        tree = load_checkpoint_into_pytree(ckpt_path, arch, use_ema=use_ema)
+        tree = load_checkpoint_into_pytree(ckpt_path, arch, model_cfg.backbone,
+                                           use_ema=use_ema)
         params = params_from_jax(flatten_tree(tree), device=device)
     else:
-        params = init_dit(arch, seed=seed, device=device)
+        params = _INIT_FNS[model_cfg.backbone](arch, seed=seed, device=device)
     if dtype is not None:
         params = cast_params(params, dtype)
     if quantize:

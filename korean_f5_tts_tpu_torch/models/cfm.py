@@ -1,19 +1,25 @@
 """Conditional flow matching: the training loss and the serving sampler
 (counterpart of korean_f5_tts_tpu/models/cfm.py).
 
+Every backbone (DiT, UNetT, MMDiT) runs through _backbone_fns, which picks
+its forward, CFG step and text embedding by the arch config's type
+(cfm.py:59-75).
+
 Training: cfm_loss (cfm.py:83-129), split into draw_cfm (the random draws,
 from one torch.Generator) and cfm_loss_from_draws (the loss given them), so
 that a test can hand the port the JAX package's draws.
 
 Sampling: _sample_core (text embedding once, then the Euler loop over the
 EPSS/sway schedule, with CFG packed as batch 2 or, at cfg_strength 0,
-without CFG through dit_forward), _sample_core_vocos (the sampler, the cond
+without CFG through the backbone's forward; a DiT's CFG step takes the
+precomputed modulations, the others their generic CFG step), _sample_core_vocos (the sampler, the cond
 splice and the Vocos decode as one call), _serve_core_vocos (masks, cond
 padding, seeded noise, _sample_core_vocos, RMS restore, int16) with its host
 wrapper serve_sample for the server, and cfm_sample for offline inference
 (duration floor and clamp, duration and text buckets, regrouping a mixed
 batch by bucket, edit_mask, no_ref_audio, duplicate_test, seeded noise at
-the canonical length). The JAX scan becomes a Python loop over the steps.
+the canonical length; MMDiT's text is never bucketed, its attention sees
+the text stream at its own length). The JAX scan becomes a Python loop over the steps.
 The buckets are arguments here, not environment variables; `attn_path`
 (ops/attention.py:ATTN_PATHS) picks the attention half's kernels and
 `attn_int8` (ATTN_INT8) the int8 attention kernel, for sampling only.
@@ -28,8 +34,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from korean_f5_tts_tpu_torch.config import CFMConfig, DiTConfig
+from korean_f5_tts_tpu_torch.config import CFMConfig, DiTConfig, MMDiTConfig, UNetTConfig
 from korean_f5_tts_tpu_torch.models import dit as dit_mod
+from korean_f5_tts_tpu_torch.models import mmdit as mmdit_mod
+from korean_f5_tts_tpu_torch.models import unett as unett_mod
 from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
 from korean_f5_tts_tpu_torch.utils.misc import (
     fold_in,
@@ -41,6 +49,24 @@ from korean_f5_tts_tpu_torch.utils.timesteps import make_schedule
 
 DEFAULT_DURATION_BUCKET = 128  # frames; the kernels take any n, so no TPU 512
 TEXT_BUCKET = 64  # text tokens are padded to a multiple of this
+
+
+def _mmdit_text(p, arch, text, seq_len, drop_text=False, pad_mask=None):
+    # MMDiT embeds the text at its own length, not the mel's
+    return mmdit_mod.mmdit_text_embedding(p, arch, text, drop_text=drop_text)
+
+
+def _backbone_fns(arch):
+    """(forward, forward_cfg, text_embedding) of the arch config's backbone
+    (cfm.py:59-75); a DiT's CFG step is dit_forward_cfg_premod, which
+    _sample_core calls itself."""
+    if type(arch) is UNetTConfig:
+        return unett_mod.unett_forward, unett_mod.unett_forward_cfg, dit_mod.text_embedding
+    if type(arch) is MMDiTConfig:
+        return mmdit_mod.mmdit_forward, mmdit_mod.mmdit_forward_cfg, _mmdit_text
+    if type(arch) is DiTConfig:
+        return dit_mod.dit_forward, None, dit_mod.text_embedding
+    raise TypeError(f"unsupported backbone config: {type(arch)}")
 
 
 def _leaves(tree):
@@ -95,10 +121,10 @@ def cfm_loss_from_draws(params: dict, arch: DiTConfig, mel: torch.Tensor, text: 
     phi = (1.0 - t) * x0 + t * x1
     flow = x1 - x0
     cond = torch.where(span[..., None], torch.zeros_like(x1), x1)
-    pred = dit_mod.dit_forward(params, arch, phi, cond, text, time, mask=mask,
-                               drop_audio_cond=draws["drop_audio"],
-                               drop_text=draws["drop_text"], dropout_seed=dropout_seed,
-                               kernels=kernels)
+    pred = _backbone_fns(arch)[0](params, arch, phi, cond, text, time, mask=mask,
+                                  drop_audio_cond=draws["drop_audio"],
+                                  drop_text=draws["drop_text"], dropout_seed=dropout_seed,
+                                  kernels=kernels)
     se = (pred - flow) ** 2
     denom = span.sum().clamp(min=1) * mel.shape[-1]
     loss = torch.where(span[..., None], se, torch.zeros_like(se)).sum() / denom
@@ -136,8 +162,10 @@ def _sample_core(params: dict, arch: DiTConfig,
                  attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
     """Text embedding (once) + Euler integration over the schedule
     (cfm.py:366-439). Returns the final mel [b, N, d]. With CFG every step is
-    one packed forward of 2b items with precomputed modulations; without it
-    (cfg_strength <= 1e-5) every step is dit_forward on the b items."""
+    one packed forward of 2b items: a DiT's with precomputed modulations, a
+    UNetT's or an MMDiT's through its CFG step (cfm.py:424-438); without it
+    (cfg_strength <= 1e-5) every step is the backbone's forward on the b
+    items."""
     N = step_cond.shape[1]
     dt_ = step_cond.dtype
     base = make_schedule(steps, use_epss=use_epss, sway_sampling_coef=None, t_start=t_start)
@@ -147,17 +175,25 @@ def _sample_core(params: dict, arch: DiTConfig,
         ts = ts + c * (torch.cos(math.pi / 2.0 * ts) - 1.0 + ts)
     dts = ts[1:] - ts[:-1]
     x = y0
+    forward, forward_cfg, text_embedding = _backbone_fns(arch)
+    paths = dict(kernels=kernels, attn_path=attn_path, attn_int8=attn_int8)
     if not use_cfg:
         for s in range(steps):
-            pred = dit_mod.dit_forward(params, arch, x, step_cond, text, ts[s].expand(x.shape[0]),
-                                       mask=mask, pad_mask=pad_mask, kernels=kernels,
-                                       attn_path=attn_path, attn_int8=attn_int8)
+            pred = forward(params, arch, x, step_cond, text, ts[s].expand(x.shape[0]),
+                           mask=mask, pad_mask=pad_mask, **paths)
             x = (x + dts[s] * pred).to(y0.dtype)
         return x
-    te_cond = dit_mod.text_embedding(params["text_embed"], arch, text, N,
-                                     drop_text=False, pad_mask=pad_mask)
-    te_uncond = dit_mod.text_embedding(params["text_embed"], arch, text, N,
-                                       drop_text=True, pad_mask=pad_mask)
+    te_cond = text_embedding(params["text_embed"], arch, text, N, drop_text=False,
+                             pad_mask=pad_mask)
+    te_uncond = text_embedding(params["text_embed"], arch, text, N, drop_text=True,
+                               pad_mask=pad_mask)
+    if forward_cfg is not None:
+        for s in range(steps):
+            pred = forward_cfg(params, arch, x, step_cond, te_cond, te_uncond,
+                               ts[s].expand(x.shape[0]), cfg_strength, mask=mask,
+                               pad_mask=pad_mask, **paths)
+            x = (x + dts[s] * pred).to(y0.dtype)
+        return x
     # every time-dependent modulation and the cond/text half of the input
     # projection are loop-invariant: computed once, outside the loop
     mods, mod_final, _ = dit_mod.precompute_step_modulations(params, arch, ts[:-1])
@@ -165,8 +201,7 @@ def _sample_core(params: dict, arch: DiTConfig,
     for s in range(steps):
         pred = dit_mod.dit_forward_cfg_premod(
             params, arch, x, step_cond, te_cond, te_uncond, mods[s], mod_final[s],
-            cfg_strength, mask=mask, pad_mask=pad_mask, static_inp=static_inp,
-            kernels=kernels, attn_path=attn_path, attn_int8=attn_int8)
+            cfg_strength, mask=mask, pad_mask=pad_mask, static_inp=static_inp, **paths)
         x = (x + dts[s] * pred).to(y0.dtype)
     return x
 
@@ -198,12 +233,13 @@ def _compute_dtype(params: dict, default: torch.dtype) -> torch.dtype:
             else default)
 
 
-def bucket_text(text: np.ndarray, text_bucket: int) -> np.ndarray:
+def bucket_text(text: np.ndarray, text_bucket: int, arch=None) -> np.ndarray:
     """Pad [b, nt] ids with -1 to a multiple of text_bucket tokens (0: as is).
-    Exact for the DiT: text_embedding shifts ids by +1 and pads with the same
-    filler 0 itself."""
+    Exact for DiT and UNetT: text_embedding shifts ids by +1 and pads with the
+    same filler 0 itself. An MMDiT's text stays as it is (cfm.py:328,
+    :574-578): its attention sees every text position, padding included."""
     nt = text.shape[1]
-    if text_bucket <= 0:
+    if text_bucket <= 0 or type(arch) is MMDiTConfig:
         return text
     ntb = max(text_bucket, int(np.ceil(nt / text_bucket)) * text_bucket)
     return text if ntb == nt else np.pad(text, ((0, 0), (0, ntb - nt)), constant_values=-1)
@@ -287,7 +323,7 @@ def serve_sample(params: dict, arch: DiTConfig, cond_b: torch.Tensor, text, dura
     bucket = duration_bucket or DEFAULT_DURATION_BUCKET
     N = max(min(int(np.ceil(max_dur / bucket)) * bucket, max_duration), max_dur)
     b = text_host.shape[0]
-    text_host = bucket_text(text_host, text_bucket)
+    text_host = bucket_text(text_host, text_bucket, arch)
     if seed is None:
         seeds = np.asarray([secrets.randbits(31) for _ in range(b)], np.int64)
     else:
@@ -404,7 +440,7 @@ def cfm_sample(params: dict, arch: DiTConfig,
     # pad mask whenever the bucket adds rows (cfm.py:556-570)
     mask = dur_mask if b > 1 else None
     pad_mask = torch.as_tensor(ar[None, :] < max_dur, device=dev) if N > max_dur else None
-    text_t = torch.as_tensor(bucket_text(text_host, text_bucket), device=dev)
+    text_t = torch.as_tensor(bucket_text(text_host, text_bucket, arch), device=dev)
 
     if y0 is None:
         canon = max(int(max_duration), N)

@@ -36,6 +36,7 @@ from korean_f5_tts_tpu_torch.models.modules import (
     ada_layernorm_final,
     apply_rope,
     attention,
+    attention_init,
     cast_params,
     conv1d_init,
     conv_position_embedding,
@@ -43,10 +44,12 @@ from korean_f5_tts_tpu_torch.models.modules import (
     dit_block,
     embedding,
     embedding_init,
+    feedforward_init,
     layernorm,
     layernorm_init,
     linear,
     linear_init,
+    make_generator,
     precompute_freqs_cis,
     rope_cos_sin,
     timestep_embedding,
@@ -90,16 +93,13 @@ def _convnext_v2_block_init(gen, dim: int, intermediate: int, device) -> dict:
 
 
 def _dit_block_init(gen, cfg: DiTConfig, device) -> dict:
-    inner = cfg.heads * cfg.dim_head
     ada = linear_init(gen, cfg.dim, cfg.dim * 6, device)
     return {
         # AdaLN-zero init: every block starts gated off (modules.py:626-628)
         "attn_norm": {"linear": {k: torch.zeros_like(v) for k, v in ada.items()}},
-        "attn": {name: linear_init(gen, cfg.dim, inner, device)
-                 for name in ("to_q", "to_k", "to_v")}
-        | {"to_out": linear_init(gen, inner, cfg.dim, device)},
-        "ff": {"in": linear_init(gen, cfg.dim, cfg.dim * cfg.ff_mult, device),
-               "out": linear_init(gen, cfg.dim * cfg.ff_mult, cfg.dim, device)},
+        "attn": attention_init(gen, cfg.dim, cfg.heads, cfg.dim_head, device,
+                               qk_norm=cfg.qk_norm),
+        "ff": feedforward_init(gen, cfg.dim, cfg.ff_mult, device),
     }
 
 
@@ -108,11 +108,9 @@ def init_dit(cfg: DiTConfig, seed: int = 0, device="cuda",
     """Random DiT parameters with the JAX package's tree, shapes and init
     distributions (torch layouts), drawn from a torch.Generator on `device`
     (the card unless the caller names the CPU). Floating leaves are cast to
-    `dtype`."""
-    if cfg.qk_norm is not None:
-        raise NotImplementedError("qk-norm DiTs are not ported yet")
+    `dtype`. qk_norm "rms_norm" adds the per-head q/k RMSNorm gains."""
     device = require_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = make_generator(device, seed)
     td = cfg.text_dim_
     text = {"embed": embedding_init(gen, cfg.text_num_embeds + 1, td, device)}
     if cfg.conv_layers > 0:
@@ -138,8 +136,11 @@ def init_dit(cfg: DiTConfig, seed: int = 0, device="cuda",
 
 
 def redraw_zero_init(p: dict, seed: int = 0) -> dict:
-    """Re-draw the AdaLN-zero layers (every block's attn_norm.linear,
-    norm_out.linear, proj_out) uniform in +-1/sqrt(d_in), in place.
+    """Re-draw the AdaLN-zero layers uniform in +-1/sqrt(d_in), in place:
+    a DiT's every block's attn_norm.linear, norm_out.linear and proj_out; an
+    MMDiT's every block's attn_norm_x.linear and attn_norm_c.linear,
+    norm_out.linear and proj_out (mmdit.py:66-74); a UNetT's proj_out (its
+    norms are RMSNorm gains, never zero).
 
     Freshly initialised, those layers gate every block off and make the mel
     exactly zero, so a wrong kernel would still agree with a right one; any
@@ -147,8 +148,11 @@ def redraw_zero_init(p: dict, seed: int = 0) -> dict:
     """
     ref = p["proj_out"]["w"]
     gen = torch.Generator(device=ref.device).manual_seed(seed)
-    layers = [blk["attn_norm"]["linear"] for blk in p["blocks"]]
-    layers += [p["norm_out"]["linear"], p["proj_out"]]
+    layers = [blk[name]["linear"] for blk in p.get("blocks", [])
+              for name in ("attn_norm", "attn_norm_x", "attn_norm_c") if name in blk]
+    if "linear" in p["norm_out"]:
+        layers.append(p["norm_out"]["linear"])
+    layers.append(p["proj_out"])
     for lin in layers:
         bound = 1.0 / math.sqrt(lin["w"].shape[1])
         for k in ("w", "b"):
@@ -219,7 +223,7 @@ def text_embedding(p: dict, cfg: DiTConfig, text: torch.Tensor, seq_len: int,
             h = convnext_v2_block(blk, h, valid_mask=valid)
             if cfg.text_mask_padding:
                 h = h.masked_fill(~text_mask, 0.0)
-    if cfg.text_embedding_average_upsampling:
+    if getattr(cfg, "text_embedding_average_upsampling", False):
         h = _average_upsample(h, text_mask[..., 0])
     return h
 
@@ -397,9 +401,11 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
     through the same dispatch.
 
     Per block, as the JAX dispatch (dit.py:394-520) decides it:
-      - attention: no duration mask and int8 projections -> kernels 5, A, 6,
-        whatever attn_path says; no duration mask, attn_path "linear_fused"
-        and bf16 projections with biases -> kernels 7, A, 8; otherwise norm +
+      - attention: no duration mask, no qk-norm and int8 projections ->
+        kernels 5, A, 6, whatever attn_path says; no duration mask, no
+        qk-norm, attn_path "linear_fused" and bf16 projections with biases ->
+        kernels 7, A, 8 (the fused half-blocks have no place for the q/k
+        norms, dit.py:374); otherwise norm +
         attention(), which runs kernel 18 under "rope_in_kernel", kernel 19
         under "qkv_kernel" and kernel A else (kernel 9 per int8 projection);
       - FF half-block: int8 ff/in -> kernel 4; otherwise kernel B.
@@ -416,7 +422,7 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
             mods[i].to(h.dtype).chunk(6))
         ap = blk["attn"]
-        fusable = mask is None and (
+        fusable = mask is None and cfg.qk_norm is None and (
             all("w_int8" in ap[n] for n in names)
             or (attn_path == "linear_fused" and all("w" in ap[n] and "b" in ap[n] for n in names)))
         if fusable:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from korean_f5_tts_tpu_torch.models.quant import qlinear
 from korean_f5_tts_tpu_torch.ops import grouped_conv as _gconv
+from korean_f5_tts_tpu_torch.ops.flash_prefix import MASK_VALUE
 from korean_f5_tts_tpu_torch.ops.attention import (
     check_attn_int8,
     qkv_fused_sdpa,
@@ -39,6 +40,12 @@ from korean_f5_tts_tpu_torch.ops.attention import (
 # ---------------------------------------------------------------------------
 # initialisers (torch defaults, as the JAX package mirrors them)
 # ---------------------------------------------------------------------------
+
+
+def make_generator(device: torch.device, seed: int) -> torch.Generator | None:
+    """The initialisers' generator on `device`; None on the meta device,
+    where an init builds the tree's shapes only and draws nothing."""
+    return None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
 
 
 def _uniform(gen: torch.Generator, shape, bound: float, device) -> torch.Tensor:
@@ -59,6 +66,10 @@ def embedding_init(gen, num: int, dim: int, device) -> dict:
 
 def layernorm_init(dim: int, device) -> dict:
     return {"g": torch.ones(dim, device=device), "b": torch.zeros(dim, device=device)}
+
+
+def rmsnorm_init(dim: int, device) -> dict:
+    return {"g": torch.ones(dim, device=device)}
 
 
 def conv1d_init(gen, c_in: int, c_out: int, kernel: int, device, groups: int = 1) -> dict:
@@ -102,6 +113,14 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     if "g" in p:
         y = y * p["g"].float() + p["b"].float()
     return y.to(x.dtype)
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim with fp32 statistics and the gain g
+    (modules.py:82-89)."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * p["g"].float()).to(x.dtype)
 
 
 def _depthwise_conv1d_shifts(p: dict, x: torch.Tensor, dilation: int = 1) -> torch.Tensor:
@@ -220,8 +239,25 @@ def conv_position_embedding(p: dict, x: torch.Tensor, mask: torch.Tensor | None 
     """[b, n, d] -> [b, n, d]: two masked grouped convs, each with bias and
     Mish (modules.py:282-320). Masking commutes with the fused Mish because
     mish(0) == 0, so the kernel fuses conv + bias + Mish and the mask is
-    applied around it."""
-    conv = _gconv.grouped_conv1d_mish if kernels else _gconv.grouped_conv1d_mish_reference
+    applied around it.
+
+    Which form runs is decided by the shape alone, as in the JAX package:
+    where ops/grouped_conv.py:pallas_conv_supported holds (d / groups divides
+    128: 64 channels a group at dim 1024) kernel C runs (its plain version
+    with kernels=False); elsewhere (48 channels a group at dim 768: the
+    F5TTS_Small and E2TTS_Small presets) the plain grouped conv, bias and
+    Mish run in x's dtype (grouped_conv1d_mish_train), the XLA form of
+    modules.py:313-320, with kernels True or False and on any device. That
+    choice is never made from a failed build or launch, and kernel C's
+    counter does not move on such shapes.
+    """
+    k = p["conv1"]["w"].shape[0]
+    if not _gconv.pallas_conv_supported(x.shape[-1], groups, k):
+        conv = _gconv.grouped_conv1d_mish_train
+    elif kernels:
+        conv = _gconv.grouped_conv1d_mish
+    else:
+        conv = _gconv.grouped_conv1d_mish_reference
     m = mask[..., None] if mask is not None else None
     if m is not None:
         x = x.masked_fill(~m, 0.0)
@@ -274,10 +310,11 @@ def ada_layernorm_final(p: dict, x: torch.Tensor, emb: torch.Tensor) -> torch.Te
 
 
 def feedforward(p: dict, x: torch.Tensor, dropout_rate: float = 0.0,
-                gen: torch.Generator | None = None) -> torch.Tensor:
-    """linear -> gelu_tanh -> dropout -> linear (modules.py:399-404)."""
-    h = dropout(gelu_tanh(linear(p["in"], x)), dropout_rate, gen)
-    return linear(p["out"], h)
+                gen: torch.Generator | None = None, kernels: bool = True) -> torch.Tensor:
+    """linear -> gelu_tanh -> dropout -> linear (modules.py:399-404); int8
+    linears take kernel 9 (its plain version with kernels=False)."""
+    h = dropout(gelu_tanh(linear(p["in"], x, kernels=kernels)), dropout_rate, gen)
+    return linear(p["out"], h, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +359,10 @@ def attention(p: dict, x: torch.Tensor, heads: int,
     heads (modules.py:543-551); every other case applies rope in torch and
     runs kernel A, or kernel 14 under attn_int8 (ops/attention.py:ATTN_INT8;
     it raises together with the two in-kernel-rope paths).
+    qk-norm (a "q_norm" in p, modules.py:540-542): the per-head RMSNorm of q
+    and k after the head split and before rope. As in modules.py:519 and
+    :544, "qkv_kernel" and "rope_in_kernel" then step aside: rope is applied
+    in torch and kernel A runs (kernel 14 under attn_int8).
     """
     check_attn_int8(attn_int8, attn_path)
     attn_mask = mask if (attn_mask_enabled and mask is not None) else pad_mask
@@ -331,7 +372,7 @@ def attention(p: dict, x: torch.Tensor, heads: int,
         wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]], dim=0).to(x.dtype)
         bqkv = torch.cat([p["to_q"]["b"], p["to_k"]["b"], p["to_v"]["b"]]).to(x.dtype)
         qkv = F.linear(x, wqkv, bqkv)
-        if attn_path == "qkv_kernel" and rope is not None:
+        if attn_path == "qkv_kernel" and rope is not None and "q_norm" not in p:
             out = qkv_fused_sdpa(qkv, heads, rope, pe_attn_head, prefix_lens, kernels=kernels)
         else:
             inner = p["to_q"]["w"].shape[0]
@@ -341,7 +382,9 @@ def attention(p: dict, x: torch.Tensor, heads: int,
         q, k, v = (_split_heads(linear(p[n], x, kernels=kernels), heads)
                    for n in ("to_q", "to_k", "to_v"))
     if out is None:
-        if attn_path == "rope_in_kernel" and rope is not None:
+        if "q_norm" in p:
+            q, k = rmsnorm(p["q_norm"], q), rmsnorm(p["k_norm"], k)
+        if attn_path == "rope_in_kernel" and rope is not None and "q_norm" not in p:
             # the kernel takes contiguous [b, h, n, d]: the head split is one copy
             q, k, v = (t.contiguous() for t in (q, k, v))
             core = rope_prefix_sdpa(q, k, v, prefix_lens, rope, pe_attn_head, kernels=kernels)
@@ -381,3 +424,160 @@ def dit_block(p: dict, x: torch.Tensor, t: torch.Tensor, heads: int,
     norm = layernorm({}, x, eps=1e-6) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
     ff_out = feedforward(p["ff"], norm, dropout_rate=dropout_rate, gen=gen)
     return x + gate_mlp[:, None] * ff_out
+
+
+# ---------------------------------------------------------------------------
+# UNetT and MMDiT blocks: initialisers, joint attention, the MM-DiT block
+# ---------------------------------------------------------------------------
+
+
+def timestep_embedding_init(gen, dim: int, device, freq_embed_dim: int = 256) -> dict:
+    return {"mlp1": linear_init(gen, freq_embed_dim, dim, device),
+            "mlp2": linear_init(gen, dim, dim, device)}
+
+
+def conv_position_embedding_init(gen, dim: int, device, kernel_size: int = 31,
+                                 groups: int = 16) -> dict:
+    return {"conv1": conv1d_init(gen, dim, dim, kernel_size, device, groups=groups),
+            "conv2": conv1d_init(gen, dim, dim, kernel_size, device, groups=groups)}
+
+
+def feedforward_init(gen, dim: int, mult: int, device) -> dict:
+    return {"in": linear_init(gen, dim, dim * mult, device),
+            "out": linear_init(gen, dim * mult, dim, device)}
+
+
+def attention_init(gen, dim: int, heads: int, dim_head: int, device,
+                   qk_norm: str | None = None, context_dim: int | None = None,
+                   context_pre_only: bool = False) -> dict:
+    """The attention's projections (modules.py:420-445): to_q/k/v/out, the
+    qk-norm gains with qk_norm "rms_norm", and the context stream's
+    projections (and norms) of joint attention with context_dim."""
+    inner = heads * dim_head
+    p = {n: linear_init(gen, dim, inner, device) for n in ("to_q", "to_k", "to_v")}
+    p["to_out"] = linear_init(gen, inner, dim, device)
+    if qk_norm == "rms_norm":
+        p["q_norm"] = rmsnorm_init(dim_head, device)
+        p["k_norm"] = rmsnorm_init(dim_head, device)
+    elif qk_norm is not None:
+        raise ValueError(f"qk_norm must be None or 'rms_norm', got {qk_norm!r}")
+    if context_dim is not None:
+        for n in ("to_q_c", "to_k_c", "to_v_c"):
+            p[n] = linear_init(gen, context_dim, inner, device)
+        if qk_norm == "rms_norm":
+            p["c_q_norm"] = rmsnorm_init(dim_head, device)
+            p["c_k_norm"] = rmsnorm_init(dim_head, device)
+        if not context_pre_only:
+            p["to_out_c"] = linear_init(gen, inner, context_dim, device)
+    return p
+
+
+def _masked_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                key_mask: torch.Tensor | None) -> torch.Tensor:
+    """[b, h, n, d] attention with an explicit [b, n] (or [1, n]) boolean key
+    mask, any pattern: fp32 logits and softmax, probabilities cast to v's
+    dtype (kernel A's plain formulation without the prefix)."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if key_mask is not None:
+        logits = logits.masked_fill(~key_mask[:, None, None, :], MASK_VALUE)
+    return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+
+
+def joint_attention(p: dict, x: torch.Tensor, c: torch.Tensor, heads: int,
+                    mask: torch.Tensor | None = None,
+                    rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    c_rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    context_pre_only: bool = False, kernels: bool = True,
+                    attn_int8: str | None = None):
+    """MM-DiT joint attention over the audio stream x [b, n_x, d] and the
+    text stream c [b, n_c, d] (modules.py:574-611); returns (x_out, c_out).
+
+    mask ([b, n_x] or [1, n_x]) marks the valid audio rows; every text key is
+    valid. The JAX package concatenates [x; c], so its key mask
+    pad(mask, (0, n_c), True) has holes and is no prefix mask. Rope is applied
+    to each stream before the concatenation, which leaves the key order free:
+    with kernels (or attn_int8) the text stream goes first, [c; x], the valid
+    keys are then the prefix n_c + len_x, and kernel A (kernel 14 under
+    attn_int8; kernels 10, 11, 13 under autograd) computes the same function
+    with one length per item. kernels=False keeps the JAX order with the
+    explicit boolean key mask (_masked_attention_reference).
+    """
+    check_attn_int8(attn_int8)
+    n_c = c.shape[1]
+    q, k, v = (_split_heads(linear(p[n], x, kernels=kernels), heads)
+               for n in ("to_q", "to_k", "to_v"))
+    cq, ck, cv = (_split_heads(linear(p[n], c, kernels=kernels), heads)
+                  for n in ("to_q_c", "to_k_c", "to_v_c"))
+    if "q_norm" in p:
+        q, k = rmsnorm(p["q_norm"], q), rmsnorm(p["k_norm"], k)
+    if "c_q_norm" in p:
+        cq, ck = rmsnorm(p["c_q_norm"], cq), rmsnorm(p["c_k_norm"], ck)
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    if c_rope is not None:
+        cq, ck = apply_rope(cq, *c_rope), apply_rope(ck, *c_rope)
+    if kernels or attn_int8 is not None:
+        lens = None if mask is None else n_c + mask.sum(dim=-1, dtype=torch.int32)
+        out = sdpa(torch.cat([cq, q], dim=2), torch.cat([ck, k], dim=2),
+                   torch.cat([cv, v], dim=2), prefix_lens=lens, kernels=kernels,
+                   attn_int8=attn_int8)
+        c_out, x_out = out[:, :, :n_c], out[:, :, n_c:]
+    else:
+        key_mask = None if mask is None else F.pad(mask, (0, n_c), value=True)
+        out = _masked_attention_reference(torch.cat([q, cq], dim=2), torch.cat([k, ck], dim=2),
+                                          torch.cat([v, cv], dim=2), key_mask)
+        x_out, c_out = out[:, :, :x.shape[1]], out[:, :, x.shape[1]:]
+    x_out = linear(p["to_out"], _merge_heads(x_out), kernels=kernels)
+    c_out = _merge_heads(c_out)
+    if not context_pre_only:
+        c_out = linear(p["to_out_c"], c_out, kernels=kernels)
+    if mask is not None:
+        x_out = x_out.masked_fill(~mask[..., None], 0.0)
+    return x_out, c_out
+
+
+def mmdit_block_init(gen, dim: int, heads: int, dim_head: int, device, ff_mult: int = 4,
+                     context_pre_only: bool = False, qk_norm: str | None = None) -> dict:
+    """One MM-DiT block (modules.py:653-671), its AdaLN layers zeroed
+    (AdaLN-zero, mmdit.py:66-74)."""
+    width = 2 if context_pre_only else 6
+    p = {
+        "attn_norm_x": {"linear": linear_init(gen, dim, dim * 6, device)},
+        "attn": attention_init(gen, dim, heads, dim_head, device, qk_norm=qk_norm,
+                               context_dim=dim, context_pre_only=context_pre_only),
+        "ff_x": feedforward_init(gen, dim, ff_mult, device),
+        "attn_norm_c": {"linear": linear_init(gen, dim, dim * width, device)},
+    }
+    if not context_pre_only:
+        p["ff_c"] = feedforward_init(gen, dim, ff_mult, device)
+    for name in ("attn_norm_x", "attn_norm_c"):
+        p[name]["linear"] = {k: torch.zeros_like(v) for k, v in p[name]["linear"].items()}
+    return p
+
+
+def mmdit_block(p: dict, x: torch.Tensor, c: torch.Tensor, t: torch.Tensor, heads: int,
+                context_pre_only: bool = False, mask: torch.Tensor | None = None,
+                rope=None, c_rope=None, kernels: bool = True,
+                attn_int8: str | None = None):
+    """SD3-style dual-stream block (modules.py:674-700); returns (c, x), c
+    None on the context_pre_only block. Its products are plain (no FF
+    kernel), as in the JAX block; the attention is joint_attention."""
+    if context_pre_only:
+        norm_c = ada_layernorm_final(p["attn_norm_c"], c, t)
+    else:
+        norm_c, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = ada_layernorm(
+            p["attn_norm_c"], c, t)
+    norm_x, x_gate_msa, x_shift_mlp, x_scale_mlp, x_gate_mlp = ada_layernorm(
+        p["attn_norm_x"], x, t)
+    x_attn, c_attn = joint_attention(p["attn"], norm_x, norm_c, heads, mask=mask, rope=rope,
+                                     c_rope=c_rope, context_pre_only=context_pre_only,
+                                     kernels=kernels, attn_int8=attn_int8)
+    c_out = None
+    if not context_pre_only:
+        c = c + c_gate_msa[:, None] * c_attn
+        norm_c = layernorm({}, c, eps=1e-6) * (1 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
+        c_out = c + c_gate_mlp[:, None] * feedforward(p["ff_c"], norm_c, kernels=kernels)
+    x = x + x_gate_msa[:, None] * x_attn
+    norm_x = layernorm({}, x, eps=1e-6) * (1 + x_scale_mlp[:, None]) + x_shift_mlp[:, None]
+    x = x + x_gate_mlp[:, None] * feedforward(p["ff_x"], norm_x, kernels=kernels)
+    return c_out, x

@@ -17,8 +17,25 @@ from korean_f5_tts_tpu_torch.ops import cuda_build
 
 launches = 0      # kernel C launches by grouped_conv1d_mish on bf16 operands (not plain calls)
 launches_f32 = 0  # kernel C's fp32 form, launches by grouped_conv1d_mish on fp32 operands
-KERNEL_GROUP_WIDTH = 64  # the only C / groups the kernel takes
+# the group widths C / groups kernel C takes (csrc/grouped_conv.cu, one
+# instantiation each): every width the TPU kernel takes from 16 up; below 16
+# (dim < 256 at 16 groups: no preset) a card launch raises
+KERNEL_GROUP_WIDTHS = (16, 32, 64, 128)
 KERNEL_MAX_TAPS = 33
+_LANES = 128
+
+
+def pallas_conv_supported(c: int, groups: int, kernel: int) -> bool:
+    """The shapes the TPU kernel takes (korean_f5_tts_tpu/ops/grouped_conv.py:42-50):
+    C / groups divides 128, the groups fill whole 128-lane blocks, odd SAME
+    kernel. Where it holds conv-pos runs kernel C; elsewhere the JAX package
+    and the port run the plain grouped conv (models/modules.py)."""
+    if c % groups != 0:
+        return False
+    cg = c // groups
+    if cg > _LANES or _LANES % cg != 0:
+        return False
+    return groups % (_LANES // cg) == 0 and kernel % 2 == 1
 
 
 def grouped_conv1d_mish_reference(x, w, b, groups: int, fuse_mish: bool = True):
@@ -75,8 +92,8 @@ def grouped_conv1d_mish(x, w, b, groups: int = 16, fuse_mish: bool = True):
         return grouped_conv1d_mish_reference(x, w, b, groups, fuse_mish)
     B, N, C = x.shape
     k = w.shape[0]
-    if C % groups or C // groups != KERNEL_GROUP_WIDTH:
-        raise ValueError(f"grouped_conv: C / groups must be {KERNEL_GROUP_WIDTH}, got "
+    if C % groups or C // groups not in KERNEL_GROUP_WIDTHS:
+        raise ValueError(f"grouped_conv: C / groups must be one of {KERNEL_GROUP_WIDTHS}, got "
                          f"C={C}, groups={groups}")
     if k % 2 == 0 or k > KERNEL_MAX_TAPS:
         raise ValueError(f"grouped_conv: kernel size {k} must be odd and <= {KERNEL_MAX_TAPS}")

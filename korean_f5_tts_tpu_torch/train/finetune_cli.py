@@ -19,8 +19,7 @@ import shutil
 
 from korean_f5_tts_tpu_torch.config import PRESETS, preset_model_config
 from korean_f5_tts_tpu_torch.data.dataset import load_dataset
-from korean_f5_tts_tpu_torch.infer.model import load_checkpoint_into_pytree
-from korean_f5_tts_tpu_torch.models.dit import init_dit
+from korean_f5_tts_tpu_torch.infer.model import _INIT_FNS, load_checkpoint_into_pytree
 from korean_f5_tts_tpu_torch.text.vocab import get_tokenizer
 from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, params_from_jax
 from korean_f5_tts_tpu_torch.train.trainer import Trainer
@@ -68,10 +67,10 @@ def main(argv=None):
         dst = os.path.join(ckpt_dir, "pretrained_" + os.path.basename(args.pretrain))
         if not os.path.exists(dst):
             shutil.copy2(args.pretrain, dst)
-        params = params_from_jax(flatten_tree(load_checkpoint_into_pytree(dst, arch)),
-                                 device=device)
+        tree = load_checkpoint_into_pytree(dst, arch, model_cfg.backbone)
+        params = params_from_jax(flatten_tree(tree), device=device)
     else:
-        params = init_dit(arch, seed=666, device=device)
+        params = _INIT_FNS[model_cfg.backbone](arch, seed=666, device=device)
 
     dataset = load_dataset(args.dataset_name, args.tokenizer)
     trainer = Trainer(

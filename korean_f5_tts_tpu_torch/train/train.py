@@ -22,8 +22,7 @@ import os
 
 from korean_f5_tts_tpu_torch.config import model_config_from_dict
 from korean_f5_tts_tpu_torch.data.dataset import load_dataset
-from korean_f5_tts_tpu_torch.infer.model import load_checkpoint_into_pytree
-from korean_f5_tts_tpu_torch.models.dit import init_dit
+from korean_f5_tts_tpu_torch.infer.model import _INIT_FNS, load_checkpoint_into_pytree
 from korean_f5_tts_tpu_torch.text.vocab import get_tokenizer
 from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, params_from_jax
 from korean_f5_tts_tpu_torch.train.trainer import Trainer
@@ -74,12 +73,12 @@ def main(argv=None):
         vocab_char_map, vocab_size = get_tokenizer(dataset_name, tokenizer)
     arch = dataclasses.replace(model_cfg.arch, text_num_embeds=vocab_size + 1)
 
-    params = init_dit(arch, seed=666, device=device)
+    params = _INIT_FNS[model_cfg.backbone](arch, seed=666, device=device)
     pretrained = ckpts.get("pretrained_path")
     if pretrained:
         if os.path.exists(pretrained):
-            params = params_from_jax(flatten_tree(load_checkpoint_into_pytree(pretrained, arch)),
-                                     device=device)
+            tree = load_checkpoint_into_pytree(pretrained, arch, model_cfg.backbone)
+            params = params_from_jax(flatten_tree(tree), device=device)
             print(f"loaded pretrained params from {pretrained}")
         else:
             print(f"WARNING: ckpts.pretrained_path {pretrained} not found; "

@@ -26,11 +26,10 @@ import os
 
 import torch
 
-from korean_f5_tts_tpu_torch.config import PRESETS, DiTConfig, preset_model_config
+from korean_f5_tts_tpu_torch.config import PRESETS, DiTConfig, backbone_of, preset_model_config
 from korean_f5_tts_tpu_torch.data.dataset import DynamicBatchSampler, collate_batch, load_dataset
-from korean_f5_tts_tpu_torch.infer.model import load_checkpoint_into_pytree
+from korean_f5_tts_tpu_torch.infer.model import _INIT_FNS, load_checkpoint_into_pytree
 from korean_f5_tts_tpu_torch.models.cfm import cfm_loss, cfm_loss_from_draws
-from korean_f5_tts_tpu_torch.models.dit import init_dit
 from korean_f5_tts_tpu_torch.models.lora import DEFAULT_TARGETS, apply_lora, init_lora, merge_lora
 from korean_f5_tts_tpu_torch.text.vocab import get_tokenizer
 from korean_f5_tts_tpu_torch.train.checkpoint import (
@@ -108,7 +107,7 @@ def load_base_params(pretrain: str, arch: DiTConfig, device) -> dict:
     """The pretrained params over a seeded init (seed 666): every leaf whose
     shape the checkpoint matches is the checkpoint's, the others keep the
     init (train_lora.py:143-151)."""
-    params = flatten_tree(init_dit(arch, seed=666, device=device))
+    params = flatten_tree(_INIT_FNS[backbone_of(arch)](arch, seed=666, device=device))
     loaded = params_from_jax(flatten_tree(load_checkpoint_into_pytree(pretrain, arch)),
                              device=device)
     for path, leaf in flatten_tree(loaded).items():

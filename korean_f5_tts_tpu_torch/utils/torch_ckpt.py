@@ -6,8 +6,7 @@ A copy of korean_f5_tts_tpu/utils/torch_ckpt.py (numpy only; torch and
 safetensors are imported inside load_torch_checkpoint), so the two packages
 convert a checkpoint to the same tree, leaf for leaf. The trees are in the
 JAX layouts; train/checkpoint.py:flatten_tree and params_from_jax carry them
-to the port's tensors. The UNetT and MMDiT converters wait for their
-backbones (ROADMAP.md queue 1 item 11).
+to the port's tensors.
 
 Key transforms:
   - Linear  torch [out, in]        -> {"w": [in, out]} (transpose) + "b"
@@ -17,7 +16,8 @@ Key transforms:
     (attention logits are invariant to a shared q/k permutation), so a
     converted tree is never permuted again.
 
-dit_state_dict and vocos_state_dict, the port's own, invert the converters:
+dit_state_dict, unett_state_dict and vocos_state_dict, the port's own,
+invert the converters:
 they write a tree in the reference's names and layouts, which is how a
 checkpoint is made from seeded weights where no published one may be
 downloaded.
@@ -337,11 +337,22 @@ def _unpermute_qk(p: dict, heads: int, dim_head: int) -> dict:
     return out
 
 
-def dit_state_dict(tree: dict, heads: int, dim_head: int) -> dict:
-    """Inverse of convert_dit_state_dict (without q/k-norm): a DiT tree in
-    the JAX layouts -> the reference DiT's state dict, q/k columns back in
-    the interleaved rope layout."""
-    sd: dict = {}
+def _put_attention(sd: dict, prefix: str, attn: dict, heads: int, dim_head: int) -> None:
+    """An attention's projections (and qk-norm gains) under `prefix`, q/k
+    columns and gains back in the interleaved rope layout."""
+    _put_lin(sd, f"{prefix}.to_q", _unpermute_qk(attn["to_q"], heads, dim_head))
+    _put_lin(sd, f"{prefix}.to_k", _unpermute_qk(attn["to_k"], heads, dim_head))
+    _put_lin(sd, f"{prefix}.to_v", attn["to_v"])
+    _put_lin(sd, f"{prefix}.to_out.0", attn["to_out"])
+    inv = np.argsort(_rope_perm(dim_head))
+    for name in ("q_norm", "k_norm"):
+        if name in attn:
+            sd[f"{prefix}.{name}.weight"] = np.asarray(attn[name]["g"])[inv]
+
+
+def _put_text_and_input(sd: dict, tree: dict) -> None:
+    """time_embed, text_embed (with its ConvNeXt blocks), input_embed.proj and
+    the conv position embedding: the names DiT and UNetT share."""
     _put_lin(sd, "time_embed.time_mlp.0", tree["time_embed"]["mlp1"])
     _put_lin(sd, "time_embed.time_mlp.2", tree["time_embed"]["mlp2"])
     sd["text_embed.text_embed.weight"] = np.asarray(tree["text_embed"]["embed"]["w"])
@@ -356,20 +367,44 @@ def dit_state_dict(tree: dict, heads: int, dim_head: int) -> dict:
     _put_lin(sd, "input_embed.proj", tree["input_proj"])
     _put_conv(sd, "input_embed.conv_pos_embed.conv1d.0", tree["conv_pos_embed"]["conv1"])
     _put_conv(sd, "input_embed.conv_pos_embed.conv1d.2", tree["conv_pos_embed"]["conv2"])
+
+
+def dit_state_dict(tree: dict, heads: int, dim_head: int) -> dict:
+    """Inverse of convert_dit_state_dict: a DiT tree in the JAX layouts ->
+    the reference DiT's state dict, q/k columns (and qk-norm gains) back in
+    the interleaved rope layout."""
+    sd: dict = {}
+    _put_text_and_input(sd, tree)
     for i, blk in enumerate(tree["blocks"]):
         pre = f"transformer_blocks.{i}"
         _put_lin(sd, f"{pre}.attn_norm.linear", blk["attn_norm"]["linear"])
-        attn = blk["attn"]
-        _put_lin(sd, f"{pre}.attn.to_q", _unpermute_qk(attn["to_q"], heads, dim_head))
-        _put_lin(sd, f"{pre}.attn.to_k", _unpermute_qk(attn["to_k"], heads, dim_head))
-        _put_lin(sd, f"{pre}.attn.to_v", attn["to_v"])
-        _put_lin(sd, f"{pre}.attn.to_out.0", attn["to_out"])
+        _put_attention(sd, f"{pre}.attn", blk["attn"], heads, dim_head)
         _put_lin(sd, f"{pre}.ff.ff.0.0", blk["ff"]["in"])
         _put_lin(sd, f"{pre}.ff.ff.2", blk["ff"]["out"])
     _put_lin(sd, "norm_out.linear", tree["norm_out"]["linear"])
     _put_lin(sd, "proj_out", tree["proj_out"])
     if "long_skip" in tree:
         _put_lin(sd, "long_skip_connection", tree["long_skip"])
+    return sd
+
+
+def unett_state_dict(tree: dict, heads: int, dim_head: int) -> dict:
+    """Inverse of convert_unett_state_dict: a UNetT tree in the JAX layouts
+    -> the reference UNetT's state dict (each layer's ModuleList [skip_proj,
+    attn_norm, attn, ff_norm, ff]), q/k columns (and qk-norm gains) back in
+    the interleaved rope layout."""
+    sd: dict = {}
+    _put_text_and_input(sd, tree)
+    for i, layer in enumerate(tree["layers"]):
+        if "skip_proj" in layer:
+            _put_lin(sd, f"layers.{i}.0", layer["skip_proj"])
+        sd[f"layers.{i}.1.g"] = np.asarray(layer["attn_norm"]["g"])
+        _put_attention(sd, f"layers.{i}.2", layer["attn"], heads, dim_head)
+        sd[f"layers.{i}.3.g"] = np.asarray(layer["ff_norm"]["g"])
+        _put_lin(sd, f"layers.{i}.4.ff.0.0", layer["ff"]["in"])
+        _put_lin(sd, f"layers.{i}.4.ff.2", layer["ff"]["out"])
+    sd["norm_out.g"] = np.asarray(tree["norm_out"]["g"])
+    _put_lin(sd, "proj_out", tree["proj_out"])
     return sd
 
 

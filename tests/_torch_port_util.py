@@ -15,11 +15,15 @@ import jax
 import numpy as np
 import torch
 
+from korean_f5_tts_tpu import config as jconfig
 from korean_f5_tts_tpu.config import DiTConfig as JaxDiTConfig
 from korean_f5_tts_tpu.models.dit import init_dit as jax_init_dit
+from korean_f5_tts_tpu.models.mmdit import init_mmdit
+from korean_f5_tts_tpu.models.unett import init_unett
 from korean_f5_tts_tpu.models.vocos import VocosConfig as JaxVocosConfig
 from korean_f5_tts_tpu.models.vocos import init_vocos as jax_init_vocos
 from korean_f5_tts_tpu.train.checkpoint import flatten_tree, unflatten_tree
+from korean_f5_tts_tpu_torch import config as pconfig
 from korean_f5_tts_tpu_torch.config import DiTConfig
 from korean_f5_tts_tpu_torch.models.vocos import VocosConfig
 from korean_f5_tts_tpu_torch.train.checkpoint import params_from_jax
@@ -77,3 +81,58 @@ def rel_err(got, want) -> float:
 def t(x) -> torch.Tensor:
     """numpy -> torch (copy)."""
     return torch.from_numpy(np.array(x))
+
+
+def _f32(x) -> torch.Tensor:
+    return t(np.asarray(jax.numpy.asarray(x).astype(jax.numpy.float32)))
+
+
+def jax_draws(key, shape, lens, dtype=jax.numpy.float32, cfm=None):
+    """cfm_loss's draws with its own jax.random calls (cfm.py:96-117,
+    misc.py:61), as the port's draw dict (models/cfm.py:draw_cfm's keys)."""
+    from korean_f5_tts_tpu.config import CFMConfig as JaxCFMConfig
+    from korean_f5_tts_tpu_torch.utils.misc import span_start_end
+
+    cfm = cfm or JaxCFMConfig()
+    b = shape[0]
+    k_frac, k_span, k_x0, k_time, k_drop1, k_drop2, _ = jax.random.split(key, 7)
+    frac = jax.random.uniform(k_frac, (b,), minval=cfm.frac_lengths_mask[0],
+                              maxval=cfm.frac_lengths_mask[1])
+    rand = jax.random.uniform(k_span, frac.shape, dtype=frac.dtype)
+    x0 = jax.random.normal(k_x0, shape, dtype)
+    time = jax.random.uniform(k_time, (b,), dtype=dtype)
+    drop_audio = jax.random.bernoulli(k_drop1, cfm.audio_drop_prob).astype(dtype)
+    drop_both = jax.random.bernoulli(k_drop2, cfm.cond_drop_prob)
+    tdt = torch.float32 if dtype == jax.numpy.float32 else torch.bfloat16
+    start, end = span_start_end(t(lens), _f32(frac), _f32(rand))
+    return {"frac_lengths": _f32(frac), "span_start": start, "span_end": end,
+            "x0": _f32(x0).to(tdt), "time": _f32(time).to(tdt),
+            "drop_audio": _f32(jax.numpy.where(drop_both, 1.0, drop_audio)).to(tdt),
+            "drop_text": _f32(drop_both).to(tdt)}
+
+
+# the three backbones at tiny widths (tests/test_torch_backbones_*.py)
+BACKBONE_ARCH = {
+    "DiT": dict(TINY),
+    "UNetT": dict(dim=64, depth=2, heads=4, dim_head=16, ff_mult=2, text_num_embeds=50,
+                  text_mask_padding=False),
+    "MMDiT": dict(dim=64, depth=2, heads=4, dim_head=16, ff_mult=2, text_num_embeds=50),
+}
+BACKBONE_ZERO_INIT = ("attn_norm/linear/", "attn_norm_x/linear/", "attn_norm_c/linear/",
+                      "norm_out/linear/", "proj_out/")
+
+
+def backbone_pair(backbone: str, seed: int = 0, **flags):
+    """(jax arch, port arch, jax params, port params, flat numpy params)."""
+    kw = dict(BACKBONE_ARCH[backbone], **flags)
+    jcfg = jconfig.BACKBONE_CONFIGS[backbone](**kw)
+    pcfg = pconfig.BACKBONE_CONFIGS[backbone](**kw)
+    init = {"DiT": jax_init_dit, "UNetT": init_unett, "MMDiT": init_mmdit}[backbone]
+    flat = {k: np.asarray(v) for k, v in flatten_tree(init(jax.random.PRNGKey(seed), jcfg)).items()}
+    rng = np.random.default_rng(seed + 100)
+    for k, v in flat.items():
+        if any(z in k for z in BACKBONE_ZERO_INIT):
+            d_in = flat[k[:-1] + "w"].shape[0]
+            flat[k] = rng.uniform(-1, 1, v.shape).astype(np.float32) / math.sqrt(d_in)
+    jparams = jax.tree_util.tree_map(jax.numpy.asarray, unflatten_tree(flat))
+    return jcfg, pcfg, jparams, params_from_jax(flat, device="cpu"), flat

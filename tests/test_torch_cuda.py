@@ -79,6 +79,54 @@ def test_grouped_conv_kernel(dev):
            grouped_conv.grouped_conv1d_mish_reference(x, w, b, groups=2))
 
 
+@pytest.mark.parametrize("cg", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("B,N", [(1, 1), (2, 130), (1, 1537)])
+def test_grouped_conv_at_every_group_width(dev, cg, dtype, B, N):
+    """Kernel C's instantiations: 16, 32, 64 and 128 channels a group (dim
+    256, 512, 1024, 2048 at 16 groups), bf16 on wgmma and fp32 split 3xTF32,
+    against the plain version (fp32: relative L2 1e-4 with cuDNN's TF32
+    off)."""
+    gen = torch.Generator(device=dev).manual_seed(cg + N)
+    C = 16 * cg
+    x = torch.randn((B, N, C), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((31, cg, C), generator=gen, device=dev) * (cg * 31) ** -0.5).to(dtype)
+    b = (torch.randn((C,), generator=gen, device=dev) * 0.1).to(dtype)
+    counter = "launches" if dtype == torch.bfloat16 else "launches_f32"
+    before = getattr(grouped_conv, counter)
+    got = grouped_conv.grouped_conv1d_mish(x, w, b, 16)
+    assert getattr(grouped_conv, counter) == before + 1
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = grouped_conv.grouped_conv1d_mish_reference(x, w, b, 16)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if dtype == torch.bfloat16:
+        _close(got, want)
+    else:
+        assert _rel(got, want) < 1e-4
+
+
+def test_conv_pos_takes_the_plain_convolution_at_48_channels_a_group(dev):
+    """dim 768 (F5TTS_Small, E2TTS_Small): the shape rule picks the plain
+    grouped conv, kernel C's counters stay where they were."""
+    from korean_f5_tts_tpu_torch.models.modules import conv_position_embedding
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = _bf16((2, 200, 768), dev, gen)
+    p = {f"conv{i}": {"w": _bf16((31, 48, 768), dev, gen, (48 * 31) ** -0.5),
+                      "b": _bf16((768,), dev, gen, 0.1)} for i in (1, 2)}
+    before = grouped_conv.launches, grouped_conv.launches_f32
+    got = conv_position_embedding(p, x)
+    assert (grouped_conv.launches, grouped_conv.launches_f32) == before
+    y = grouped_conv.grouped_conv1d_mish_train(x, p["conv1"]["w"], p["conv1"]["b"], 16)
+    assert torch.equal(got, grouped_conv.grouped_conv1d_mish_train(y, p["conv2"]["w"],
+                                                                    p["conv2"]["b"], 16))
+    with pytest.raises(ValueError, match="C / groups"):
+        grouped_conv.grouped_conv1d_mish(x, p["conv1"]["w"], p["conv1"]["b"], 16)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 16, 96), dtype=torch.bfloat16, device=dev)
     w = torch.zeros((31, 6, 96), dtype=torch.bfloat16, device=dev)

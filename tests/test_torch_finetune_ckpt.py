@@ -257,8 +257,10 @@ def test_npz_and_torch_files_give_one_tree(tmp_path):
         for k in flat:
             np.testing.assert_array_equal(tree[k], flat[k])
             np.testing.assert_array_equal(np.asarray(want[k]), flat[k])
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        load_checkpoint_into_pytree(pt, pcfg, backbone="UNetT")
+    # an MMDiT has no torch-checkpoint route in either package
+    for load, cfg in ((load_checkpoint_into_pytree, pcfg), (jax_load_tree, jcfg)):
+        with pytest.raises(ValueError, match="not implemented for backbone MMDiT"):
+            load(pt, cfg, "MMDiT")
 
 
 def test_f5tts_takes_a_reference_checkpoint(tmp_path):

@@ -61,7 +61,8 @@ def workdir(tmp_path, monkeypatch):
     monkeypatch.delenv("F5_TTS_DATA_DIR", raising=False)
     prepare.prepare(str(corpus), "tiny", "char", corpus_format="csv")
     for name in pconfig.PRESETS:
-        monkeypatch.setitem(pconfig.PRESETS, name, dict(pconfig.PRESETS[name], **ARCH))
+        preset = pconfig.PRESETS[name]
+        monkeypatch.setitem(pconfig.PRESETS, name, dict(preset, arch=dict(preset["arch"], **ARCH)))
     vocab = (tmp_path / "data" / "tiny_char" / "vocab.txt").read_text(encoding="utf-8")
     return tmp_path, len(vocab.splitlines())
 

@@ -146,3 +146,13 @@ def test_the_walk_covers_the_finetuning_modules():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_backbone_modules_are_walked():
+    """The modules of the UNetT and MMDiT backbones, BigVGAN and the parameter
+    counter are among those the guard above imports."""
+    names = {m.name for m in pkgutil.walk_packages(korean_f5_tts_tpu_torch.__path__,
+                                                   "korean_f5_tts_tpu_torch.")}
+    assert {"korean_f5_tts_tpu_torch.models.unett", "korean_f5_tts_tpu_torch.models.mmdit",
+            "korean_f5_tts_tpu_torch.models.bigvgan",
+            "korean_f5_tts_tpu_torch.scripts.count_params_gflops"} <= names

@@ -31,7 +31,7 @@ import torch
 from scipy.io import wavfile
 
 from _torch_port_util import TINY, redraw_zero_layers, rel_err, t
-from korean_f5_tts_tpu.config import CFMConfig as JaxCFMConfig
+from _torch_port_util import jax_draws as _jax_draws
 from korean_f5_tts_tpu.config import DiTConfig as JaxDiTConfig
 from korean_f5_tts_tpu.data import dataset as jds
 from korean_f5_tts_tpu.models import cfm as jcfm
@@ -87,26 +87,6 @@ def _batch(seed=0):
 
 def _f32(x) -> torch.Tensor:
     return t(np.asarray(jnp.asarray(x).astype(jnp.float32)))
-
-
-def _jax_draws(key, shape, lens, dtype=jnp.float32, cfm=JaxCFMConfig()):
-    """cfm_loss's draws with its own jax.random calls (cfm.py:96-117,
-    misc.py:61), as the port's draw dict."""
-    b = shape[0]
-    k_frac, k_span, k_x0, k_time, k_drop1, k_drop2, _ = jax.random.split(key, 7)
-    frac = jax.random.uniform(k_frac, (b,), minval=cfm.frac_lengths_mask[0],
-                              maxval=cfm.frac_lengths_mask[1])
-    rand = jax.random.uniform(k_span, frac.shape, dtype=frac.dtype)
-    x0 = jax.random.normal(k_x0, shape, dtype)
-    time = jax.random.uniform(k_time, (b,), dtype=dtype)
-    drop_audio = jax.random.bernoulli(k_drop1, cfm.audio_drop_prob).astype(dtype)
-    drop_both = jax.random.bernoulli(k_drop2, cfm.cond_drop_prob)
-    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
-    start, end = span_start_end(t(lens), _f32(frac), _f32(rand))
-    return {"frac_lengths": _f32(frac), "span_start": start, "span_end": end,
-            "x0": _f32(x0).to(tdt), "time": _f32(time).to(tdt),
-            "drop_audio": _f32(jnp.where(drop_both, 1.0, drop_audio)).to(tdt),
-            "drop_text": _f32(drop_both).to(tdt)}
 
 
 # --- DiT forward --------------------------------------------------------------
