@@ -204,6 +204,26 @@ Phases (any failure raises and exits non-zero):
      24-frame mel against the CPU in fp32 (1e-4). The training steps and the
      checkpoint of (b)-(d) are cut to a depth of 8 blocks: the plain fp32
      step at 8 x 1280 materialises every block's [128, 1281, 1281] scores.
+ 12. parallelism and the rest of training, F5TTS_v1_Base at full width, run
+     before phase 6: two processes of this script (--phase12-rank) form a
+     process group over gloo with CUDA tensors on the one card (NCCL refuses
+     two ranks on one device): (a) tensor parallel 2 serving on the bench
+     protocol in bf16 on the default path and on "linear_fused" and with
+     int8 weights, each rank's launches exact (A, B 352, C 32; 7, 8 352;
+     5, 6, 4, A 352), the ranks' mels equal, the mel against one process
+     (5e-2); (b) one training step at 8 x 1280 (data parallel: 2 x 4 rows;
+     tensor parallel: 8 heads and 1024 FF columns a rank), bf16 and fp32,
+     loss and whole gradient against one process (5e-2, 1e-4), 10, 11, 13
+     per rank exact; (d) the tensor-parallel train state written as a
+     sharded checkpoint and read back to the bit, its size and times; then
+     in this process (c) make_mesh(1, 1) on NCCL at world size 1, and (e)
+     training steps through 7 and 8 ("linear_fused"), 18 and 19 under
+     autograd against the plain versions, bf16 and fp32, exact launches, and
+     remat "dots" against "full" (gradient, step ms, peak GiB). Phase 12's
+     training steps and checkpoint are cut to 8 blocks. Two ranks sharing
+     one card measure correctness and launches, not a tensor-parallel speed.
+     Phase 2 also holds A, B, 4-8, 10, 11, 13 and 14 at the tp 2 and tp 4
+     shard shapes.
 Serving, the training steps, bench_train, offline inference and the LoRA
 run go the full depth of 22 blocks; only the Trainer runs of phases 6 and
 10(d) are cut to 4 and the fp32 step against the CPU to 2 (nothing else was
@@ -2944,16 +2964,19 @@ def batch2_inputs(dev, cond_len=432, totals=(1376, 1200), n_bucket=1536):
 
 
 def synthesize(model, vocoder, inputs, kernels: bool = True, params=None,
-               attn_path: str = "default", attn_int8: str | None = None, mask=None):
+               attn_path: str = "default", attn_int8: str | None = None, mask=None,
+               mesh=None):
     """One bench-protocol utterance (or a batch under the duration mask
-    `mask`): sampler, cond splice, Vocos -> (mel, wav)."""
+    `mask`): sampler, cond splice, Vocos -> (mel, wav). With a mesh, params
+    is this process's share of a tensor-parallel model (phase 12)."""
     from korean_f5_tts_tpu_torch.models.cfm import _sample_core
     from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
 
     step_cond, cond_mask, text, y0, pad_mask, _ = inputs
     mel = _sample_core(params or model.params, model.arch, step_cond, text, mask, pad_mask,
                        y0, 2.0, -1.0, steps=STEPS, use_cfg=True, use_sway=True,
-                       use_epss=True, kernels=kernels, attn_path=attn_path, attn_int8=attn_int8)
+                       use_epss=True, kernels=kernels, attn_path=attn_path, attn_int8=attn_int8,
+                       mesh=mesh)
     out = mel.where(~cond_mask, step_cond)
     wav = vocos_decode(vocoder.params, out.transpose(1, 2).to(step_cond.dtype), vocoder.vcfg)
     return mel, wav
@@ -4561,7 +4584,7 @@ def phase10_accumulation(dev, card: str, tmp: Path) -> dict[str, int]:
     moved = []
     for i, idx in enumerate(order[:4]):
         before = [v.clone() for v in flatten_tree(whole.state.params).values()]
-        whole.state, _ = train_step(whole.state, whole._place_batch(whole._load_batch(
+        whole.state, _ = train_step(whole.state, whole._place_batch(*whole._load_local_batch(
             dataset, idx)), fold_in(666, i), small, whole.optimizer)
         moved.append(any(not torch.equal(a, b) for a, b in
                          zip(before, flatten_tree(whole.state.params).values())))
@@ -4903,9 +4926,402 @@ def phase11_backbones(dev, card: str, tmp: Path) -> dict[str, int]:
     return total
 
 
+def check_tp_shards(gen, dev) -> None:
+    """Kernels A, B, 4, 5, 6, 7, 8, 10, 11, 13 and 14 (with its pass) at the
+    shapes a tensor-parallel rank gives them, tp 2 and tp 4 of F5TTS_v1_Base
+    (16 heads x 64, inner 1024, FF 2048): 16 / tp heads, q | k | v columns
+    3 x 1024 / tp, FF 2048 / tp, out-projection inputs 1024 / tp; against
+    their plain versions at the bounds of their main-shape checks."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import ff_block as fb
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+    from korean_f5_tts_tpu_torch.ops import fused_linears as fl
+
+    bf = torch.bfloat16
+    print("tensor-parallel shard shapes (tp 2, tp 4): each kernel against its plain version")
+    for tp in (2, 4):
+        heads, inner, ff = 16 // tp, 1024 // tp, 2048 // tp
+        q, k, v = (torch.randn((2 * heads, 1536, 64), generator=gen, device=dev).to(bf)
+                   for _ in range(3))
+        kv = torch.full((2 * heads,), 1376, dtype=torch.int32, device=dev)
+        compare(f"tp {tp}: kernel A H={2 * heads} n=1536", fp.flash_prefix_folded(q, k, v, kv),
+                fp.prefix_attention_reference(q, k, v, kv), 1e-2)
+        q4, k4, v4 = (t.reshape(2, heads, 1536, 64) for t in (q, k, v))
+        lens = torch.full((2,), 1376, dtype=torch.int32, device=dev)
+        for mode, rel in (("qkpv", 2e-3), ("qk", 5e-3)):
+            pv = mode == "qkpv"
+            compare(f"tp {tp}: kernel 14 {mode} + its pass, {heads} heads",
+                    fp.flash_prefix_attention_i8(q4, k4, v4, lens, pv_i8=pv),
+                    fp.flash_prefix_attention_i8(q4, k4, v4, lens, pv_i8=pv, kernels=False), rel)
+        h = torch.randn((2, 1536, 1024), generator=gen, device=dev).to(bf)
+        sc, sh, gate = _uni(gen, dev, (1024,), 0.3), _uni(gen, dev, (1024,), 0.3), \
+            _uni(gen, dev, (1024,), 1.0)
+        w1, b1 = _uni(gen, dev, (ff, 1024), 1024 ** -0.5), _uni(gen, dev, (ff,), 1024 ** -0.5)
+        w2, b2 = _uni(gen, dev, (1024, ff), ff ** -0.5), _uni(gen, dev, (1024,), ff ** -0.5)
+        args = (h, sc, sh, gate, w1, b1, w2, b2)
+        compare(f"tp {tp}: kernel B dff={ff}", fb.ff_block_fused(*args),
+                fb.ff_block_reference(*args), 5e-3)
+        qin, qout = _int8_linear(gen, dev, ff, 1024), _int8_linear(gen, dev, 1024, ff)
+        compare(f"tp {tp}: kernel 4 dff={ff}", fb.ff_block_fused_int8(h, sc, sh, gate, qin, qout),
+                fb.ff_block_int8_reference(h, sc, sh, gate, qin, qout), INT8_REL)
+        qkv8 = [_int8_linear(gen, dev, inner, 1024) for _ in range(3)]
+        compare(f"tp {tp}: kernel 5 n=3x{inner}", fl.ln_mod_matmul_int8(h, sc, sh, qkv8),
+                fl.ln_mod_matmul_int8_reference(h, sc, sh, qkv8), INT8_REL)
+        a = torch.randn((2, 1536, inner), generator=gen, device=dev).to(bf)
+        out8 = _int8_linear(gen, dev, 1024, inner)
+        compare(f"tp {tp}: kernel 6 din={inner}", fl.proj_gated_residual_int8(a, h, gate, out8),
+                fl.proj_gated_residual_int8_reference(a, h, gate, out8), INT8_REL)
+        ps = [_linear(gen, dev, inner, 1024) for _ in range(3)]
+        compare(f"tp {tp}: kernel 7 n=3x{inner}", fl.ln_mod_matmul(h, sc, sh, ps),
+                fl.ln_mod_matmul_reference(h, sc, sh, ps), 5e-3)
+        po = _linear(gen, dev, 1024, inner)
+        compare(f"tp {tp}: kernel 8 din={inner}", fl.proj_gated_residual(a, h, gate, po),
+                fl.proj_gated_residual_reference(a, h, gate, po), 5e-3)
+        H = TRAIN_B * heads
+        q, k, v, do = (torch.randn((H, TRAIN_N, 64), generator=gen, device=dev).to(bf)
+                       for _ in range(4))
+        kv = torch.randint(TRAIN_N * 3 // 4, TRAIN_N + 1, (H,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
+        o, lse = fp.prefix_attention_lse_reference(q, k, v, kv)
+        compare(f"tp {tp}: kernel 10 o H={H} n={TRAIN_N}", o10, o, 1e-2)
+        compare(f"tp {tp}: kernel 10 lse", lse10, lse, 1e-5)
+        dvec = (do.float() * o.float()).sum(dim=-1)
+        compare(f"tp {tp}: kernel 11 dq", fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv),
+                fp.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv), 1e-2)
+        dk, dv = fp.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+        dk_p, dv_p = fp.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+        compare(f"tp {tp}: kernel 13 dk", dk, dk_p, 1e-2)
+        compare(f"tp {tp}: kernel 13 dv", dv, dv_p, 1e-2)
+        del o, lse, o10, lse10, dk, dv, dk_p, dv_p
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the rest of training (kernels 7, 8, 18, 19 under autograd, "dots")
+# and parallelism (tensor-parallel serving, data- and tensor-parallel training,
+# a sharded checkpoint, NCCL at world size 1)
+# ---------------------------------------------------------------------------
+
+P12_DEPTH = 8  # phase 12's training steps and sharded checkpoint (full width, 8 blocks)
+P12_TIMEOUT = 600  # seconds the two ranks of phase 12 may take together
+
+
+def _gathered(grads, paths, mesh):
+    """The whole gradient (flatten_tree order) from a rank's share."""
+    from korean_f5_tts_tpu_torch.parallel.mesh import unshard_params
+    from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, unflatten_tree
+
+    return list(flatten_tree(unshard_params(unflatten_tree(dict(zip(paths, grads))),
+                                            mesh)).values())
+
+
+def phase12_worker(rank: int) -> None:
+    """One of phase 12's two ranks on the one card: gloo over CUDA tensors
+    (NCCL refuses two ranks on one device), a 1 x 2 or 2 x 1 mesh. Rank 0
+    also computes the one-process references and holds the ranks to them."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from korean_f5_tts_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_params
+    from korean_f5_tts_tpu_torch.train import checkpoint as ckpt
+    from korean_f5_tts_tpu_torch.train.step import AdamW, init_train_state, loss_and_grads
+
+    os.environ["F5_TTS_DIST_PROCESS_ID"] = str(rank)
+    if not maybe_initialize_distributed("cuda", backend="gloo"):
+        fail("phase 12: the two ranks did not form a process group")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tag = f"[rank {rank}]"
+
+    def both_equal(x, label):  # rank 1's tensor is rank 0's, to the bit
+        ref = x.detach().clone()
+        dist.broadcast(ref, src=0)
+        if not torch.equal(ref, x):
+            fail(f"{label}: the ranks disagree")
+
+    # (a) tensor-parallel serving, the bench protocol
+    tp_mesh = make_mesh(1, 2, device="cuda")
+    total = 1376
+    for mode in ("bf16", "int8"):
+        model, vocoder = build_model(dev, quantize=mode == "int8")
+        local = shard_params(model.params, tp_mesh)
+        inputs = bench_inputs(dev)
+        for attn_path in ("default", "linear_fused") if mode == "bf16" else ("default",):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            mel, wav = synthesize(model, vocoder, inputs, params=local, attn_path=attn_path,
+                                  mesh=tp_mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            # one utterance of batch 1: expected_launches' own batch of 2 (kernel 9) left out
+            want = {**expected_launches(mode, 1, attn_path), "qmatmul": 0}
+            print(f"  {tag} (a) {mode} {attn_path}: launches {({k: v for k, v in counts.items() if v})}")
+            if counts != want:
+                fail(f"phase 12 (a) {mode} {attn_path}: launches {counts}, expected {want}")
+            if not (torch.isfinite(mel).all() and torch.isfinite(wav).all()):
+                fail(f"phase 12 (a) {mode} {attn_path}: non-finite mel or waveform")
+            both_equal(mel, f"phase 12 (a) {mode} {attn_path} mel")
+            if rank == 0:
+                one, _ = synthesize(model, vocoder, inputs, attn_path=attn_path)
+                a, b = mel[:, :total].float(), one[:, :total].float()
+                rel = ((a - b).norm() / b.norm()).item()
+                print(f"  (a) tp 2 {mode} {attn_path}: mel rel L2 {rel:.3e} to one process "
+                      f"(bound 5e-2); {ms:.1f} ms an utterance with both ranks on one card "
+                      "(gloo through the host; a correctness run, no tensor-parallel speed)")
+                if rel > 5e-2:
+                    fail(f"phase 12 (a) {mode} {attn_path}: tp 2 disagrees with one process")
+        del model, vocoder, local
+        torch.cuda.empty_cache()
+
+    # (b) one training step at 8 x 1280, data parallel and tensor parallel
+    import dataclasses
+
+    arch = dataclasses.replace(train_arch(), depth=P12_DEPTH)
+    params = redraw_zero_init(init_dit(arch, seed=0, device=dev), seed=1)
+    paths = list(ckpt.flatten_tree(params))
+    batch = train_batch(dev)
+    meshes = {"dp 2": make_mesh(2, 1, device="cuda"), "tp 2": tp_mesh}
+    for dtype, bound_ in ((torch.bfloat16, TRAIN_REL), (None, F32_GRAD_REL)):
+        dname = "bf16" if dtype else "fp32"
+        one = None
+        if rank == 0:
+            loss1, g1 = loss_and_grads(params, batch, 5, arch, compute_dtype=dtype)
+            one = (loss1.item(), torch.cat([g.flatten().float() for g in g1]))
+            del g1
+        for name, mesh in meshes.items():
+            local = shard_params(params, mesh)
+            rows = shard_batch(batch, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(local, rows, 5, arch, compute_dtype=dtype, mesh=mesh)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = expected_train_launches(1, P12_DEPTH, f32=dtype is None)
+            print(f"  {tag} (b) {name} {dname}: rows {rows['mel'].shape[0]}, launches "
+                  f"{({k: v for k, v in counts.items() if v})}, {secs:.2f} s, peak {peak:.2f} GiB")
+            if counts != want:
+                fail(f"phase 12 (b) {name} {dname}: launches {counts}, expected {want}")
+            whole = torch.cat([g.flatten().float() for g in _gathered(grads, paths, mesh)])
+            both_equal(loss, f"phase 12 (b) {name} {dname} loss")
+            if rank == 0:
+                lrel = abs(loss.item() - one[0]) / abs(one[0])
+                grel = ((whole - one[1]).norm() / one[1].norm()).item()
+                print(f"  (b) {name} {dname} step of {P12_DEPTH} blocks at {TRAIN_B} x "
+                      f"{TRAIN_N}: loss {loss.item():.6f} (one process {one[0]:.6f}, rel "
+                      f"{lrel:.2e}), gradient rel L2 {grel:.3e} (bound {bound_:.0e})")
+                if not torch.isfinite(whole).all() or lrel > bound_ or grel > bound_:
+                    fail(f"phase 12 (b) {name} {dname}: the sharded step disagrees with one "
+                         "process")
+            del grads, whole, local
+            torch.cuda.empty_cache()
+
+    # (d) a sharded checkpoint of the tp 2 train state, written and read back
+    local = shard_params(params, tp_mesh)
+    state = init_train_state(local, AdamW())
+    tmp = Path(tempfile.mkdtemp()) if rank == 0 else None
+    box = [str(tmp / "model_orbax") if tmp else None]
+    dist.broadcast_object_list(box, src=0)
+    path = box[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint_orbax(path, state.params, state.opt_state, state.ema_params, update=3,
+                               mesh=tp_mesh)
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    zero = lambda tree: ckpt.unflatten_tree({  # noqa: E731
+        k: torch.zeros_like(v) if isinstance(v, torch.Tensor) else 0
+        for k, v in ckpt.flatten_tree(tree).items()})
+    t0 = time.perf_counter()
+    got = ckpt.load_checkpoint_orbax(path, zero(state.params), zero(state.opt_state),
+                                     zero(state.ema_params), mesh=tp_mesh)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    for name in ("params", "opt_state", "ema_params"):
+        for (k, a), b in zip(ckpt.flatten_tree(getattr(state, name)).items(),
+                             ckpt.flatten_tree(got[name]).values()):
+            if not (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b):
+                fail(f"phase 12 (d): {name}/{k} did not come back to the bit")
+    dist.barrier()
+    if rank == 0:
+        size = sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file()) / 2**30
+        print(f"  (d) sharded checkpoint of the tp 2 train state ({P12_DEPTH} blocks, params, "
+              f"Adam and EMA): {size:.2f} GiB in {len(list(Path(path).iterdir()))} files, "
+              f"written in {t_write:.2f} s, read back in {t_load:.2f} s, equal to the bit")
+        shutil.rmtree(tmp)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase12_nccl(dev, card: str) -> None:
+    """(c) make_mesh(1, 1) on NCCL at world size 1 (the init path of a card
+    per rank): the collectives of both axes, and a step of 2 blocks under
+    the mesh against the same step without one, to the bit."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.parallel.mesh import axis_group, make_mesh
+    from korean_f5_tts_tpu_torch.train.step import loss_and_grads
+
+    mesh = make_mesh(1, 1, device="cuda")
+    backend = dist.get_backend()
+    x = torch.arange(4.0, device=dev)
+    for axis in ("data", "model"):
+        dist.all_reduce(x, group=axis_group(mesh, axis))
+    torch.cuda.synchronize()
+    arch = dataclasses.replace(train_arch(), depth=2)
+    params = redraw_zero_init(init_dit(arch, seed=0, device=dev), seed=1)
+    batch = train_batch(dev)
+    loss_m, g_m = loss_and_grads(params, batch, 5, arch, compute_dtype=torch.bfloat16, mesh=mesh)
+    loss_0, g_0 = loss_and_grads(params, batch, 5, arch, compute_dtype=torch.bfloat16)
+    same = loss_m.item() == loss_0.item() and all(torch.equal(a, b) for a, b in zip(g_m, g_0))
+    print(f"  (c) make_mesh(1, 1): backend {backend}, world {dist.get_world_size()}, mesh "
+          f"{tuple(mesh.shape)}, all-reduce over both axes {x.tolist()}; a step of 2 blocks "
+          f"under the mesh equals one without it to the bit: {same} [{card}]")
+    if backend != "nccl" or x.tolist() != [0.0, 1.0, 2.0, 3.0] or not same:
+        fail("phase 12 (c): NCCL at world size 1")
+    dist.destroy_process_group()
+
+
+def phase12_train_paths(dev, card: str) -> dict[str, int]:
+    """(e) training steps through kernels 7, 8 ("linear_fused", with 10, 11,
+    13), 18 ("rope_in_kernel") and 19 ("qkv_kernel") under autograd against
+    the plain versions, bf16 and fp32, with exact launches (full remat: each
+    forward twice; 7 and 8 once per item, the attention once for the batch);
+    then "dots" against "full", bf16 and fp32: gradients, step ms and peak
+    GiB."""
+    import dataclasses
+
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.train.step import loss_and_grads
+
+    arch = dataclasses.replace(train_arch(), depth=P12_DEPTH)
+    params = redraw_zero_init(init_dit(arch, seed=0, device=dev), seed=1)
+    batch = train_batch(dev)
+    total = dict.fromkeys(launch_counts(), 0)
+    d = P12_DEPTH
+    for attn_path in ("linear_fused", "rope_in_kernel", "qkv_kernel"):
+        for dtype, bound_ in ((torch.bfloat16, TRAIN_REL), (None, F32_GRAD_REL)):
+            f = "" if dtype else "_f32"
+            want = launches_of(**{
+                "linear_fused": {f"ln_mod_matmul{f}": 2 * TRAIN_B * d,
+                                 f"proj_gated_residual{f}": 2 * TRAIN_B * d,
+                                 f"flash_prefix_lse{f}": 2 * d, f"flash_prefix_dq_lsein{f}": d,
+                                 f"flash_prefix_dkv{f}": d},
+                "rope_in_kernel": {f"flash_prefix_rope{f}": 2 * d},
+                "qkv_kernel": {f"flash_prefix_qkv{f}": 2 * d}}[attn_path])
+            reset_launch_counts()
+            loss_k, g_k = loss_and_grads(params, batch, 5, arch, compute_dtype=dtype,
+                                         attn_path=attn_path)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if counts != want:
+                fail(f"phase 12 (e) {attn_path}: launches {counts}, expected {want}")
+            loss_p, g_p = loss_and_grads(params, batch, 5, arch, compute_dtype=dtype,
+                                         attn_path=attn_path, kernels=False)
+            gk = torch.cat([g.flatten().float() for g in g_k])
+            gp = torch.cat([g.flatten().float() for g in g_p])
+            grel = ((gk - gp).norm() / gp.norm()).item()
+            lrel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+            print(f"  (e) {attn_path} {'bf16' if dtype else 'fp32'} step ({d} blocks, "
+                  f"{TRAIN_B} x {TRAIN_N}): loss rel {lrel:.2e}, gradient rel L2 {grel:.3e} "
+                  f"to plain (bound {bound_:.0e}); launches "
+                  f"{({k: v for k, v in counts.items() if v})}")
+            if not torch.isfinite(gk).all() or lrel > bound_ or grel > bound_:
+                fail(f"phase 12 (e) {attn_path}: the step disagrees with the plain versions")
+            total = {k: total[k] + counts[k] for k in total}
+            del g_k, g_p, gk, gp
+            torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, None):
+        runs = {}
+        for policy in ("full", "dots"):
+            a = dataclasses.replace(arch, remat_policy=policy)
+            loss_and_grads(params, batch, 5, a, compute_dtype=dtype)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                loss, grads = loss_and_grads(params, batch, 5, a, compute_dtype=dtype)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            runs[policy] = (loss.item(), torch.cat([g.flatten().float() for g in grads]),
+                            min(times), torch.cuda.max_memory_allocated() / 2**30,
+                            launch_counts())
+            del grads
+        (lf, gf, msf, pkf, cf), (ld, gd, msd, pkd, cd) = runs["full"], runs["dots"]
+        grel = ((gd - gf).norm() / gf.norm()).item()
+        lse = "flash_prefix_lse" + ("" if dtype else "_f32")
+        print(f"  (e) remat 'dots' against 'full', {'bf16' if dtype else 'fp32'}, {d} blocks at "
+              f"{TRAIN_B} x {TRAIN_N}: loss {ld:.6f} / {lf:.6f}, gradient rel L2 {grel:.3e}; "
+              f"step {msd:.1f} / {msf:.1f} ms (min of 3), peak {pkd:.2f} / {pkf:.2f} GiB; "
+              f"kernel 10 per step {cd[lse] // 3} / {cf[lse] // 3} [{card}]")
+        # not to the bit: the embedding's backward adds with atomics, in another order a run
+        if grel > 1e-3 or cd[lse] != 3 * d or cf[lse] != 6 * d:
+            fail("phase 12 (e): 'dots' is not 'full' with the attention output kept")
+        total = {k: total[k] + cd[k] + cf[k] for k in total}
+        del gf, gd
+    return total
+
+
+def phase12_parallel(dev, card: str) -> dict[str, int]:
+    """Phase 12: the two-rank part in two processes of this script on the one
+    card (their lines relayed), then (c) and (e) in this process."""
+    import os
+    import socket
+
+    print("phase 12: tensor-parallel serving, data- and tensor-parallel training, a sharded "
+          "checkpoint (two ranks on one card over gloo), NCCL at world size 1, training "
+          "through kernels 7, 8, 18, 19 and remat 'dots'")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "F5_TTS_DIST_COORDINATOR": f"localhost:{port}",
+           "F5_TTS_DIST_NUM_PROCESSES": "2"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase12-rank",
+                               str(r)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=P12_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for log in logs:
+        for line in log.splitlines():
+            if line.startswith("  "):
+                print(line)
+    if any(p.returncode != 0 for p in procs):
+        for log in logs:
+            print(log[-3000:])
+        fail("phase 12: a rank failed")
+    print(f"  (a), (b), (d) in {time.perf_counter() - t0:.1f} s, both processes started and "
+          f"ended [{card}]")
+    phase12_nccl(dev, card)
+    return phase12_train_paths(dev, card)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, an int8 "
@@ -4930,6 +5346,7 @@ def main(argv=None) -> int:
     parser.add_argument("--timings-of", type=Path, default=None, metavar="TREE",
                         help="one turn of --ab: the kernels of the checkout at TREE, as a JSON "
                              "line")
+    parser.add_argument("--phase12-rank", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -4949,6 +5366,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    if args.phase12_rank is not None:  # one of phase 12's two ranks, started by phase 12
+        phase12_worker(args.phase12_rank)
+        return 0
 
     card = card_line()
     print(card)  # as nvidia-smi --query-gpu=name,power.limit prints it
@@ -4995,6 +5415,7 @@ def main(argv=None) -> int:
         results.update(check_attention_int8(gen, dev))
         results.update(check_fp32_forms(gen, dev))
         results.update(check_fp32_attn_paths(gen, dev))
+        check_tp_shards(gen, dev)
         from korean_f5_tts_tpu_torch.scripts import probe_hopper
 
         probe_hopper.run(dev)
@@ -5038,6 +5459,10 @@ def main(argv=None) -> int:
     if 9 in phases:
         for name, n in phase9_int8_attention(dev, card, args.profile).items():
             counts[name] += n
+    if 12 in phases:  # before 6: the profiler slows every launch after it
+        for name, n in phase12_parallel(dev, card).items():
+            counts[name] += n
+        torch.cuda.empty_cache()
     if 11 in phases:  # before 6: the profiler slows every launch after it
         import tempfile
 

@@ -35,7 +35,7 @@ class DiTConfig:
     long_skip_connection: bool = False
     checkpoint_activations: bool = False
     # remat under checkpoint_activations: "full" recomputes each block in the
-    # backward pass ("dots" is ROADMAP.md queue 1 item 10, not ported)
+    # backward pass, "dots" only its elementwise ops (models/dit.py:dit_backbone)
     remat_policy: str = "full"
 
     @property

@@ -32,6 +32,7 @@ import secrets
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from korean_f5_tts_tpu_torch.config import CFMConfig, DiTConfig, MMDiTConfig, UNetTConfig
@@ -39,6 +40,7 @@ from korean_f5_tts_tpu_torch.models import dit as dit_mod
 from korean_f5_tts_tpu_torch.models import mmdit as mmdit_mod
 from korean_f5_tts_tpu_torch.models import unett as unett_mod
 from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
+from korean_f5_tts_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from korean_f5_tts_tpu_torch.utils.misc import (
     fold_in,
     lens_to_mask,
@@ -106,10 +108,19 @@ def draw_cfm(shape: tuple[int, int, int], lens: torch.Tensor, gen: torch.Generat
 
 def cfm_loss_from_draws(params: dict, arch: DiTConfig, mel: torch.Tensor, text: torch.Tensor,
                         lens: torch.Tensor, draws: dict, dropout_seed: int | None = None,
-                        kernels: bool = True, attn_int8: str | None = None):
+                        kernels: bool = True, attn_int8: str | None = None,
+                        attn_path: str = "default", mesh=None):
     """Masked flow-matching MSE over the random span (cfm.py:98-129) given
     draw_cfm's draws; returns (loss, cond, pred). attn_int8 raises: the int8
-    attention kernel has no gradient, training keeps the bf16 kernels."""
+    attention kernel has no gradient, training keeps the differentiable
+    attention kernels; attn_path picks them (ops/attention.py:ATTN_PATHS).
+
+    Under a mesh (a DiT only) mel, text, lens and the draws are this data
+    rank's rows and the loss is its share of JAX's global masked mean: the
+    squared error of its rows over the span count of the whole batch,
+    all-reduced over the data group, so that the shares sum to the
+    single-device loss. Zero-length rows (distributed.pad_rows) add nothing
+    to either."""
     if attn_int8 is not None:
         raise ValueError(f"attn_int8={attn_int8!r} is inference only: the loss keeps the "
                          "differentiable attention kernels")
@@ -121,27 +132,51 @@ def cfm_loss_from_draws(params: dict, arch: DiTConfig, mel: torch.Tensor, text: 
     phi = (1.0 - t) * x0 + t * x1
     flow = x1 - x0
     cond = torch.where(span[..., None], torch.zeros_like(x1), x1)
+    extra = {}
+    if mesh is not None:
+        if type(arch) is not DiTConfig:
+            raise ValueError("a mesh trains the DiT backbone only (parallel/tp_kernels.py)")
+        extra = {"attn_path": attn_path, "mesh": mesh}
+    elif attn_path != "default":
+        extra = {"attn_path": attn_path}
     pred = _backbone_fns(arch)[0](params, arch, phi, cond, text, time, mask=mask,
                                   drop_audio_cond=draws["drop_audio"],
                                   drop_text=draws["drop_text"], dropout_seed=dropout_seed,
-                                  kernels=kernels)
+                                  kernels=kernels, **extra)
     se = (pred - flow) ** 2
-    denom = span.sum().clamp(min=1) * mel.shape[-1]
+    count = span.sum()
+    if axis_size(mesh, "data") > 1:
+        count = count.to(torch.float32)  # exact: a span count is far below 2**24
+        dist.all_reduce(count, group=axis_group(mesh, "data"))
+    denom = count.clamp(min=1) * mel.shape[-1]
     loss = torch.where(span[..., None], se, torch.zeros_like(se)).sum() / denom
     return loss, cond, pred
 
 
 def cfm_loss(params: dict, arch: DiTConfig, mel: torch.Tensor, text: torch.Tensor,
              lens: torch.Tensor, seed: int, cfm: CFMConfig = CFMConfig(),
-             kernels: bool = True, attn_int8: str | None = None):
+             kernels: bool = True, attn_int8: str | None = None,
+             attn_path: str = "default", mesh=None):
     """Flow-matching loss (cfm.py:83-129); returns (loss, cond, pred). The
     draws come from a generator seeded with `seed` on mel's device, the
-    dropout masks from fold_in(seed, 1). attn_int8 raises (inference only)."""
+    dropout masks from fold_in(seed, 1). attn_int8 raises (inference only).
+    Under a mesh with data ranks the draws are made at the global batch's
+    shape and each rank takes its rows, so the sharded step draws what one
+    device draws."""
     gen = torch.Generator(device=mel.device).manual_seed(seed)
-    draws = draw_cfm(tuple(mel.shape), lens, gen, cfm, dtype=mel.dtype)
+    dp = axis_size(mesh, "data")
+    if dp == 1:
+        draws = draw_cfm(tuple(mel.shape), lens, gen, cfm, dtype=mel.dtype)
+    else:
+        b, r = mel.shape[0], axis_rank(mesh, "data")
+        rows = slice(r * b, (r + 1) * b)
+        glens = torch.zeros((b * dp,), dtype=lens.dtype, device=lens.device)
+        glens[rows] = lens
+        draws = draw_cfm((b * dp, *mel.shape[1:]), glens, gen, cfm, dtype=mel.dtype)
+        draws = {k: v[rows] if v.dim() else v for k, v in draws.items()}
     return cfm_loss_from_draws(params, arch, mel, text, lens, draws,
                                dropout_seed=fold_in(seed, 1), kernels=kernels,
-                               attn_int8=attn_int8)
+                               attn_int8=attn_int8, attn_path=attn_path, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +194,8 @@ def _sample_core(params: dict, arch: DiTConfig,
                  cfg_strength: float, sway_coef: float,
                  steps: int, use_cfg: bool, use_sway: bool, use_epss: bool,
                  t_start: float = 0.0, kernels: bool = True,
-                 attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
+                 attn_path: str = "default", attn_int8: str | None = None,
+                 mesh=None) -> torch.Tensor:
     """Text embedding (once) + Euler integration over the schedule
     (cfm.py:366-439). Returns the final mel [b, N, d]. With CFG every step is
     one packed forward of 2b items: a DiT's with precomputed modulations, a
@@ -177,6 +213,10 @@ def _sample_core(params: dict, arch: DiTConfig,
     x = y0
     forward, forward_cfg, text_embedding = _backbone_fns(arch)
     paths = dict(kernels=kernels, attn_path=attn_path, attn_int8=attn_int8)
+    if mesh is not None:
+        if type(arch) is not DiTConfig:
+            raise ValueError("a mesh runs the DiT backbone only (parallel/tp_kernels.py)")
+        paths["mesh"] = mesh
     if not use_cfg:
         for s in range(steps):
             pred = forward(params, arch, x, step_cond, text, ts[s].expand(x.shape[0]),
@@ -211,13 +251,14 @@ def _sample_core_vocos(params: dict, voc_params: dict, arch: DiTConfig, step_con
                        pad_mask, y0, cond_mask: torch.Tensor, cfg_strength: float,
                        sway_coef: float, *, vcfg, steps: int, use_cfg: bool, use_sway: bool,
                        use_epss: bool, t_start: float = 0.0, kernels: bool = True,
-                       attn_path: str = "default", attn_int8: str | None = None):
+                       attn_path: str = "default", attn_int8: str | None = None,
+                       mesh=None):
     """The sampler, the cond splice and the Vocos decode as one call
     (cfm.py:153-193); returns (mel [b, N, d], wav [b, N * hop] fp32)."""
     mel = _sample_core(params, arch, step_cond, text, mask, pad_mask, y0, cfg_strength,
                        sway_coef, steps=steps, use_cfg=use_cfg, use_sway=use_sway,
                        use_epss=use_epss, t_start=t_start, kernels=kernels, attn_path=attn_path,
-                       attn_int8=attn_int8)
+                       attn_int8=attn_int8, mesh=mesh)
     out = torch.where(cond_mask[..., None], step_cond, mel)
     # replicate one frame so duration * hop samples exist even at full-bucket
     # durations (an ISTFT over N frames yields only (N - 1) * hop)
@@ -267,7 +308,8 @@ def _serve_core_vocos(params: dict, voc_params: dict, arch: DiTConfig,
                       *, vcfg, N: int, steps: int, use_cfg: bool, use_sway: bool,
                       use_epss: bool, canon: int, single: bool,
                       y0: torch.Tensor | None = None, kernels: bool = True,
-                      attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
+                      attn_path: str = "default", attn_int8: str | None = None,
+                      mesh=None) -> torch.Tensor:
     """All request-side device work of a batch (cfm.py:203-285); returns the
     int16 waveform [b, N * hop] on the device. y0 ([b, N, d]), when
     given, replaces the seeded noise."""
@@ -294,7 +336,7 @@ def _serve_core_vocos(params: dict, voc_params: dict, arch: DiTConfig,
         params, voc_params, arch, step_cond, torch.as_tensor(text, device=dev), mask, pad_mask,
         y0, cond_mask, cfg_strength, sway_coef, vcfg=vcfg, steps=steps, use_cfg=use_cfg,
         use_sway=use_sway, use_epss=use_epss, kernels=kernels, attn_path=attn_path,
-        attn_int8=attn_int8)
+        attn_int8=attn_int8, mesh=mesh)
     wav = wav.float() * torch.as_tensor(np.asarray(wav_scale, np.float32), device=dev)[:, None]
     return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
 
@@ -305,7 +347,8 @@ def serve_sample(params: dict, arch: DiTConfig, cond_b: torch.Tensor, text, dura
                  wav_scale=None, max_duration: int = 4096, duration_bucket: int | None = None,
                  use_epss: bool = True, y0: torch.Tensor | None = None,
                  text_bucket: int = TEXT_BUCKET, kernels: bool = True,
-                 attn_path: str = "default", attn_int8: str | None = None):
+                 attn_path: str = "default", attn_int8: str | None = None,
+                 mesh=None):
     """Host wrapper of the serving path (cfm.py:288-357). Returns (int16
     waveform [b, N * hop] on the device, duration [b] host ints).
 
@@ -337,7 +380,7 @@ def serve_sample(params: dict, arch: DiTConfig, cond_b: torch.Tensor, text, dura
         vcfg=vcfg, N=int(N), steps=int(steps), use_cfg=float(cfg_strength) > 1e-5,
         use_sway=sway_sampling_coef is not None, use_epss=bool(use_epss),
         canon=max(int(max_duration), int(N)), single=b == 1, y0=y0, kernels=kernels,
-        attn_path=attn_path, attn_int8=attn_int8)
+        attn_path=attn_path, attn_int8=attn_int8, mesh=mesh)
     return wav, duration
 
 
@@ -357,7 +400,8 @@ def cfm_sample(params: dict, arch: DiTConfig,
                duplicate_test: bool = False, t_inter: float = 0.1, edit_mask=None,
                vocoder=None, vocoder_fused: tuple | None = None,
                split_by_bucket: bool = True, kernels: bool = True,
-               attn_path: str = "default", attn_int8: str | None = None):
+               attn_path: str = "default", attn_int8: str | None = None,
+               mesh=None):
     """Zero-shot sampling (cfm.py:442-652): the host wrapper of offline
     inference. Returns (out, wav): out [b, N, d] is the mel with the
     conditioning region spliced back, at the padded bucket length N (or the
@@ -410,7 +454,7 @@ def cfm_sample(params: dict, arch: DiTConfig,
                     duration_bucket=bucket, text_bucket=text_bucket, use_epss=use_epss,
                     no_ref_audio=no_ref_audio, vocoder=vocoder, vocoder_fused=vocoder_fused,
                     split_by_bucket=False, kernels=kernels, attn_path=attn_path,
-                    attn_int8=attn_int8)
+                    attn_int8=attn_int8, mesh=mesh)
                 subs.append((idx, sub_out, sub_wav))
             n1 = max(so.shape[1] for _, so, _ in subs)
             out = torch.zeros((b, n1, *subs[0][1].shape[2:]), dtype=torch.float32, device=dev)
@@ -464,7 +508,7 @@ def cfm_sample(params: dict, arch: DiTConfig,
     sampler = dict(steps=int(steps), use_cfg=float(cfg_strength) > 1e-5,
                    use_sway=sway_sampling_coef is not None, use_epss=bool(use_epss),
                    t_start=float(t_start), kernels=kernels, attn_path=attn_path,
-                   attn_int8=attn_int8)
+                   attn_int8=attn_int8, mesh=mesh)
     sway = float(sway_sampling_coef or 0.0)
     if vocoder_fused is not None:
         voc_params, vcfg = vocoder_fused

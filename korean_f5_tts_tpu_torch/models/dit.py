@@ -14,8 +14,15 @@ the int8 attention, in kernel A's place, over either kind of weights.
 
 Training: input_embedding, dit_backbone and dit_forward (dit.py:181-301),
 with the long skip, average upsampling, per-block activation checkpointing
-and dropout. Attention there runs kernels 10, 11 and 13 (ops/flash_prefix.py)
-and the FF half-block plain products, as the JAX training block does.
+("full" or "dots") and dropout. Attention there runs kernels 10, 11 and 13
+(ops/flash_prefix.py), or under autograd kernel 18 ("rope_in_kernel"), 19
+("qkv_kernel") or 7 and 8 around 10, 11, 13 ("linear_fused"), and the FF
+half-block plain products, as the JAX training block does.
+
+`mesh` (parallel/mesh.py) runs either path on this process's share of a
+tensor-parallel model (parallel/tp_kernels.py; the dispatch of dit.py:
+351-357, 405-421, 477-499): conv-pos, the text embedding and the input
+projection stay replicated, as JAX's param_partition_spec leaves them.
 """
 
 from __future__ import annotations
@@ -27,15 +34,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from korean_f5_tts_tpu_torch.config import DiTConfig
 from korean_f5_tts_tpu_torch.models.modules import (
-    _merge_heads,
-    _split_heads,
     _uniform,
     ada_layernorm_final,
-    apply_rope,
     attention,
+    attention_half_fused,
     attention_init,
     cast_params,
     conv1d_init,
@@ -44,6 +50,7 @@ from korean_f5_tts_tpu_torch.models.modules import (
     dit_block,
     embedding,
     embedding_init,
+    feedforward,
     feedforward_init,
     layernorm,
     layernorm_init,
@@ -54,22 +61,18 @@ from korean_f5_tts_tpu_torch.models.modules import (
     rope_cos_sin,
     timestep_embedding,
 )
-from korean_f5_tts_tpu_torch.ops.attention import check_attn_int8, check_attn_path, sdpa
+from korean_f5_tts_tpu_torch.ops.attention import check_attn_int8, check_attn_path
 from korean_f5_tts_tpu_torch.ops.ff_block import (
     ff_block_fused,
     ff_block_fused_int8,
     ff_block_int8_reference,
     ff_block_reference,
 )
-from korean_f5_tts_tpu_torch.ops.fused_linears import (
-    ln_mod_matmul,
-    ln_mod_matmul_int8,
-    ln_mod_matmul_int8_reference,
-    ln_mod_matmul_reference,
-    proj_gated_residual,
-    proj_gated_residual_int8,
-    proj_gated_residual_int8_reference,
-    proj_gated_residual_reference,
+from korean_f5_tts_tpu_torch.parallel.mesh import model_parallel
+from korean_f5_tts_tpu_torch.parallel.tp_kernels import (
+    attn_half_block_tp,
+    ff_block_int8_tp,
+    ff_block_tp,
 )
 from korean_f5_tts_tpu_torch.utils.misc import fold_in, require_device
 
@@ -290,10 +293,28 @@ def _rope_for(attn_path: str, h: torch.Tensor, dim_head: int):
     return _rope_table(h.shape[1], dim_head, h.device, h.dtype if in_kernel else torch.float32)
 
 
+# what the "dots" policy keeps for the backward: the products without batch
+# dims (jax.checkpoint_policies.dots_with_no_batch_dims_saveable) and the kernel
+# launches of ops/ (cuda_build.launch_op): the attention output of kernels 10,
+# 18 and 19 (JAX's "attn_out" name, saved by default) and the products of 7 and 8
+_DOTS_SAVED = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS_SAVED or op.namespace == "f5_port":
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
                  mask: torch.Tensor | None = None, dropout_seed: int | None = None,
                  pad_mask: torch.Tensor | None = None, kernels: bool = True,
-                 attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
+                 attn_path: str = "default", attn_int8: str | None = None,
+                 mesh=None) -> torch.Tensor:
     """Embedded input [b, n, dim] + time embedding [b, dim] -> flow [b, n, mel]
     (dit.py:233-283).
 
@@ -302,12 +323,17 @@ def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
     made inside the block's function: torch.utils.checkpoint restores only
     the default generators, not an explicit one, so a generator made outside
     would give the recompute another mask than the forward.
-    checkpoint_activations recomputes each block in the backward pass
-    (remat_policy "full"); "dots" is ROADMAP.md queue 1 item 10 and raises.
+    checkpoint_activations recomputes each block in the backward pass:
+    remat_policy "full" all of it, "dots" (dit.py:252-268) only the
+    elementwise ops. "dots" is torch.utils.checkpoint's selective policy
+    (_dots_policy): every product without batch dims and every kernel
+    launch that ops/ registers as an operator (the attention output of
+    kernels 10, 18, 19 and the products of 7 and 8) is kept, as JAX keeps
+    the dots and "attn_out"; a ctypes launch inside an autograd Function
+    would be invisible to the policy, hence the operators.
     """
-    if cfg.checkpoint_activations and cfg.remat_policy != "full":
-        raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is not ported "
-                                  "(ROADMAP.md queue 1 item 10); use 'full'")
+    if cfg.checkpoint_activations and cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy must be 'full' or 'dots', got {cfg.remat_policy!r}")
     rope = _rope_for(attn_path, h, cfg.dim_head)
     residual = h if cfg.long_skip_connection else None
     rate = cfg.dropout if dropout_seed is not None else 0.0
@@ -318,12 +344,16 @@ def dit_backbone(p: dict, cfg: DiTConfig, h: torch.Tensor, t_emb: torch.Tensor,
         return dit_block(blk, x, t_emb, cfg.heads, mask=mask, rope=rope,
                          pe_attn_head=cfg.pe_attn_head, attn_mask_enabled=cfg.attn_mask_enabled,
                          pad_mask=pad_mask, dropout_rate=rate, gen=gen, kernels=kernels,
-                         attn_path=attn_path, attn_int8=attn_int8)
+                         attn_path=attn_path, attn_int8=attn_int8, mesh=mesh)
 
+    remat = {}
+    if cfg.checkpoint_activations and cfg.remat_policy == "dots":
+        remat = {"context_fn": _dots_context}
     for i, blk in enumerate(p["blocks"]):
         seed = fold_in(dropout_seed, i) if dropout_seed is not None else None
         if cfg.checkpoint_activations:
-            h = torch.utils.checkpoint.checkpoint(block, blk, h, seed, use_reentrant=False)
+            h = torch.utils.checkpoint.checkpoint(block, blk, h, seed, use_reentrant=False,
+                                                  **remat)
         else:
             h = block(blk, h, seed)
     if residual is not None:
@@ -336,10 +366,12 @@ def dit_forward(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch.Tensor,
                 text: torch.Tensor, time: torch.Tensor, mask: torch.Tensor | None = None,
                 drop_audio_cond=False, drop_text=False, dropout_seed: int | None = None,
                 pad_mask: torch.Tensor | None = None, kernels: bool = True,
-                attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
+                attn_path: str = "default", attn_int8: str | None = None,
+                mesh=None) -> torch.Tensor:
     """Training-path forward (dit.py:286-301), also one step of the sampler
     without CFG: x, cond [b, n, mel], text ids [b, nt], time [b] (or a
-    scalar); the drops are bools or 0/1 tensors."""
+    scalar); the drops are bools or 0/1 tensors. Under a mesh x is this
+    data rank's rows and p this model rank's share."""
     if time.dim() == 0:
         time = time.repeat(x.shape[0])
     t_emb = timestep_embedding(p["time_embed"], time)
@@ -349,7 +381,7 @@ def dit_forward(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch.Tensor,
                         audio_mask=mask if mask is not None else pad_mask, kernels=kernels)
     return dit_backbone(p, cfg, h, t_emb, mask=mask, dropout_seed=dropout_seed,
                         pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
-                        attn_int8=attn_int8)
+                        attn_int8=attn_int8, mesh=mesh)
 
 
 def precompute_step_modulations(p: dict, cfg: DiTConfig, ts: torch.Tensor):
@@ -363,38 +395,12 @@ def precompute_step_modulations(p: dict, cfg: DiTConfig, ts: torch.Tensor):
     return mods, mod_final, t_embs
 
 
-def _attention_half_fused(ap: dict, cfg: DiTConfig, h: torch.Tensor, scale, shift, gate,
-                          rope, prefix_lens, kernels: bool,
-                          attn_int8: str | None = None) -> torch.Tensor:
-    """h + gate * attention(LN(h) * (1 + scale) + shift) with the linears
-    fused into their neighbours, as dit.py:424-467: LN, modulation and the
-    q/k/v products in one launch, rope, kernel A, the out-projection folded
-    into the gated residual. int8 projections: kernels 5 and 6 (the
-    quantization in the kernels as well); bf16 ones: kernels 7 and 8.
-    attn_int8 puts kernel 14 in kernel A's place, whatever the weights."""
-    if "w_int8" in ap["to_q"]:
-        lmm = ln_mod_matmul_int8 if kernels else ln_mod_matmul_int8_reference
-        pgr = proj_gated_residual_int8 if kernels else proj_gated_residual_int8_reference
-        inner = ap["to_q"]["w_int8"].shape[0]
-    else:
-        lmm = ln_mod_matmul if kernels else ln_mod_matmul_reference
-        pgr = proj_gated_residual if kernels else proj_gated_residual_reference
-        inner = ap["to_q"]["w"].shape[0]
-    qkv = lmm(h, scale, shift, [ap["to_q"], ap["to_k"], ap["to_v"]])
-    q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], cfg.heads) for i in range(3))
-    q = apply_rope(q, *rope, cfg.pe_attn_head)
-    k = apply_rope(k, *rope, cfg.pe_attn_head)
-    a = _merge_heads(sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels,
-                          attn_int8=attn_int8))
-    return pgr(a, h, gate, ap["to_out"])
-
-
 def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
                         mods: torch.Tensor, mod_final: torch.Tensor,
                         mask: torch.Tensor | None = None,
                         pad_mask: torch.Tensor | None = None,
                         kernels: bool = True, attn_path: str = "default",
-                        attn_int8: str | None = None) -> torch.Tensor:
+                        attn_int8: str | None = None, mesh=None) -> torch.Tensor:
     """One sampling step of the backbone with precomputed modulations
     (dit.py:323-528). mods: [depth, 6*dim] shared across the batch,
     mod_final: [2*dim]. kernels=False runs every kernel's plain version
@@ -411,12 +417,22 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
       - FF half-block: int8 ff/in -> kernel 4; otherwise kernel B.
     attn_int8 ("qk" or "qkpv") replaces kernel A by kernel 14 in every case
     above that runs kernel A; it raises with "rope_in_kernel" and "qkv_kernel".
+
+    Tensor-parallel (`mesh` with a model axis > 1, p this rank's share), as
+    dit.py:405-421 and 477-499: the fused attention half runs
+    attn_half_block_tp (5, A, 6 or 7, A, 8 on the rank's heads, then the
+    all-reduce), the FF half ff_block_tp (kernel B) or ff_block_int8_tp
+    (kernel 4); where one returns None (the JAX shape predicate) the rank
+    takes the unfused half, attention() and feedforward() on its heads and
+    columns. The data axis does not split the sampler's batch: every data
+    rank samples it whole.
     """
     check_attn_int8(attn_int8, attn_path)
     rope = _rope_for(attn_path, h, cfg.dim_head)
     prefix_lens = pad_mask.sum(dim=-1, dtype=torch.int32) if pad_mask is not None else None
     ff = ff_block_fused if kernels else ff_block_reference
     ff_int8 = ff_block_fused_int8 if kernels else ff_block_int8_reference
+    tp = model_parallel(mesh)
     names = ("to_q", "to_k", "to_v", "to_out")
     for i, blk in enumerate(p["blocks"]):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
@@ -425,19 +441,40 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
         fusable = mask is None and cfg.qk_norm is None and (
             all("w_int8" in ap[n] for n in names)
             or (attn_path == "linear_fused" and all("w" in ap[n] and "b" in ap[n] for n in names)))
-        if fusable:
-            h = _attention_half_fused(ap, cfg, h, scale_msa, shift_msa, gate_msa, rope,
-                                      prefix_lens, kernels, attn_int8)
+        out = None
+        if fusable and tp:
+            out = attn_half_block_tp(h, scale_msa, shift_msa, gate_msa, ap, cfg.heads, rope,
+                                     cfg.pe_attn_head, prefix_lens, mesh, kernels=kernels,
+                                     attn_int8=attn_int8)
+        elif fusable:
+            out = attention_half_fused(ap, h, scale_msa, shift_msa, gate_msa, cfg.heads, rope,
+                                       cfg.pe_attn_head, prefix_lens, kernels=kernels,
+                                       attn_int8=attn_int8)
+        if out is not None:
+            h = out
         else:
             norm = layernorm({}, h, eps=1e-6) * (1 + scale_msa) + shift_msa
             attn_out = attention(ap, norm, cfg.heads, mask=mask, rope=rope,
                                  pe_attn_head=cfg.pe_attn_head,
                                  attn_mask_enabled=cfg.attn_mask_enabled,
                                  pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
-                                 attn_int8=attn_int8)
+                                 attn_int8=attn_int8, mesh=mesh)
             h = h + gate_msa * attn_out
         fp = blk["ff"]
-        if "w_int8" in fp["in"]:
+        int8 = "w_int8" in fp["in"]
+        out = None
+        if tp and int8:
+            out = ff_block_int8_tp(h, scale_mlp, shift_mlp, gate_mlp, fp["in"], fp["out"], mesh,
+                                   kernels=kernels)
+        elif tp:
+            out = ff_block_tp(h, scale_mlp, shift_mlp, gate_mlp, fp["in"]["w"], fp["in"]["b"],
+                              fp["out"]["w"], fp["out"]["b"], mesh, kernels=kernels)
+        if out is not None:
+            h = out
+        elif tp:
+            norm = layernorm({}, h, eps=1e-6) * (1 + scale_mlp) + shift_mlp
+            h = h + gate_mlp * feedforward(fp, norm, kernels=kernels, mesh=mesh)
+        elif int8:
             h = ff_int8(h, scale_mlp, shift_mlp, gate_mlp, fp["in"], fp["out"])
         else:
             h = ff(h, scale_mlp, shift_mlp, gate_mlp, fp["in"]["w"].to(h.dtype),
@@ -464,7 +501,7 @@ def dit_forward_cfg_premod(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch
                            pad_mask: torch.Tensor | None = None,
                            static_inp: torch.Tensor | None = None,
                            kernels: bool = True, attn_path: str = "default",
-                           attn_int8: str | None = None) -> torch.Tensor:
+                           attn_int8: str | None = None, mesh=None) -> torch.Tensor:
     """CFG step with precomputed modulations (dit.py:539-565): the cond and
     uncond halves run packed as one batch of 2b, then
     pred + (pred - null_pred) * cfg_strength."""
@@ -477,7 +514,7 @@ def dit_forward_cfg_premod(p: dict, cfg: DiTConfig, x: torch.Tensor, cond: torch
                                kernels=kernels)
     out = dit_backbone_premod(p, cfg, h, mods, mod_final, mask=mask2,
                               pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
-                              attn_int8=attn_int8)
+                              attn_int8=attn_int8, mesh=mesh)
     pred, null_pred = out.chunk(2, dim=0)
     return pred + (pred - null_pred) * cfg_strength
 

@@ -17,6 +17,12 @@ picks the attention half's kernels (ops/attention.py:ATTN_PATHS):
 "default" (rope in torch, kernel A), "linear_fused" (kernels 7, A, 8; the
 dispatch is in models/dit.py), "rope_in_kernel" (kernel 18) and
 "qkv_kernel" (kernel 19).
+
+`mesh` (parallel/mesh.py; None: one device) runs attention and the FF on
+this process's share of a tensor-parallel model: its heads and columns, the
+products per rank, an all-reduce over the model group after the row-split
+product (parallel/tp_kernels.py), and dropout masks drawn at the global
+shape and sliced, so a sharded step equals the single-device one.
 """
 
 from __future__ import annotations
@@ -35,6 +41,13 @@ from korean_f5_tts_tpu_torch.ops.attention import (
     qkv_fused_sdpa,
     rope_prefix_sdpa,
     sdpa,
+)
+from korean_f5_tts_tpu_torch.parallel.mesh import axis_rank, axis_size, model_parallel
+from korean_f5_tts_tpu_torch.parallel.tp_kernels import (
+    copy_to_model,
+    local_pe_attn_head,
+    reduce_from_model,
+    reduce_residual,
 )
 
 # ---------------------------------------------------------------------------
@@ -167,12 +180,24 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            mesh=None) -> torch.Tensor:
     """Inverted dropout (modules.py:160-164): keep with probability 1 - rate,
-    scaled by 1 / (1 - rate); the mask comes from `gen`."""
+    scaled by 1 / (1 - rate); the mask comes from `gen`. Under a mesh x is
+    this rank's rows (data axis) and, tensor-parallel, its last-dim columns:
+    the mask is drawn at the global shape and sliced, so every element
+    keeps the draw it has on one device."""
     if gen is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    if mesh is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    else:
+        b, c = x.shape[0], x.shape[-1]
+        tp = axis_size(mesh, "model")
+        full = (b * axis_size(mesh, "data"), *x.shape[1:-1], c * tp)
+        keep = torch.rand(full, generator=gen, device=x.device) < 1.0 - rate
+        r, m = axis_rank(mesh, "data"), axis_rank(mesh, "model")
+        keep = keep[r * b:(r + 1) * b, ..., m * c:(m + 1) * c]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -309,12 +334,30 @@ def ada_layernorm_final(p: dict, x: torch.Tensor, emb: torch.Tensor) -> torch.Te
     return layernorm({}, x, eps=1e-6) * (1 + scale)[:, None, :] + shift[:, None, :]
 
 
+def row_parallel_linear(p: dict, x: torch.Tensor, mesh, kernels: bool = True) -> torch.Tensor:
+    """A row-split linear on this rank's input columns, summed over the
+    model group: the product, the all-reduce, then the bias, as XLA places
+    them (an int8 linear, whose kernel 9 adds the bias in its epilogue, adds
+    bias / tp per rank instead, the fused kernels' accounting)."""
+    if "w_int8" in p:
+        part = qlinear({**p, "b": p["b"] / axis_size(mesh, "model")}, x, kernels=kernels)
+        return reduce_from_model(part, mesh)
+    out = reduce_from_model(F.linear(x, p["w"].to(x.dtype)), mesh)
+    return out + p["b"].to(x.dtype) if "b" in p else out
+
+
 def feedforward(p: dict, x: torch.Tensor, dropout_rate: float = 0.0,
-                gen: torch.Generator | None = None, kernels: bool = True) -> torch.Tensor:
+                gen: torch.Generator | None = None, kernels: bool = True,
+                mesh=None) -> torch.Tensor:
     """linear -> gelu_tanh -> dropout -> linear (modules.py:399-404); int8
-    linears take kernel 9 (its plain version with kernels=False)."""
-    h = dropout(gelu_tanh(linear(p["in"], x, kernels=kernels)), dropout_rate, gen)
-    return linear(p["out"], h, kernels=kernels)
+    linears take kernel 9 (its plain version with kernels=False). Under a
+    tensor-parallel mesh ff/in is this rank's columns and ff/out its rows."""
+    if not model_parallel(mesh):
+        h = dropout(gelu_tanh(linear(p["in"], x, kernels=kernels)), dropout_rate, gen, mesh)
+        return linear(p["out"], h, kernels=kernels)
+    x = copy_to_model(x, mesh)
+    h = dropout(gelu_tanh(linear(p["in"], x, kernels=kernels)), dropout_rate, gen, mesh)
+    return row_parallel_linear(p["out"], h, mesh, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +382,7 @@ def attention(p: dict, x: torch.Tensor, heads: int,
               attn_mask_enabled: bool = True,
               pad_mask: torch.Tensor | None = None,
               kernels: bool = True, attn_path: str = "default",
-              attn_int8: str | None = None) -> torch.Tensor:
+              attn_int8: str | None = None, mesh=None) -> torch.Tensor:
     """Self-attention of the DiT block (modules.py:464-571).
 
     mask ([b, n]): the duration mask; it masks the logits only when
@@ -363,8 +406,20 @@ def attention(p: dict, x: torch.Tensor, heads: int,
     and k after the head split and before rope. As in modules.py:519 and
     :544, "qkv_kernel" and "rope_in_kernel" then step aside: rope is applied
     in torch and kernel A runs (kernel 14 under attn_int8).
+    Tensor-parallel (`mesh` with a model axis > 1): p holds this rank's
+    q/k/v columns and to_out rows, `heads` stays the global count; the rank
+    runs every case above on its heads (rope on those whose global index is
+    below pe_attn_head) and sums the out-projection over the model group.
     """
     check_attn_int8(attn_int8, attn_path)
+    tp_on = model_parallel(mesh)
+    if tp_on:
+        x = copy_to_model(x, mesh)
+        heads //= axis_size(mesh, "model")
+        pe_attn_head = local_pe_attn_head(pe_attn_head, mesh, heads)
+        # replicated gains applied to this rank's heads: their gradients sum over ranks
+        p = {**p, **{n: {"g": copy_to_model(p[n]["g"], mesh)}
+                     for n in ("q_norm", "k_norm") if n in p}}
     attn_mask = mask if (attn_mask_enabled and mask is not None) else pad_mask
     prefix_lens = attn_mask.sum(dim=-1, dtype=torch.int32) if attn_mask is not None else None
     out = None
@@ -396,10 +451,74 @@ def attention(p: dict, x: torch.Tensor, heads: int,
             core = sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels,
                         attn_int8=attn_int8)
         out = _merge_heads(core)
-    out = linear(p["to_out"], out, kernels=kernels)
+    if tp_on:
+        out = row_parallel_linear(p["to_out"], out, mesh, kernels=kernels)
+    else:
+        out = linear(p["to_out"], out, kernels=kernels)
     if mask is not None:
         out = out.masked_fill(~mask[..., None], 0.0)
     return out
+
+
+def attention_half_fused(ap: dict, h: torch.Tensor, scale, shift, gate, heads: int, rope,
+                         pe_attn_head: int | None, prefix_lens, kernels: bool = True,
+                         attn_int8: str | None = None, mesh=None) -> torch.Tensor:
+    """h + gate * attention(LN(h) * (1 + scale) + shift) with the linears
+    fused into their neighbours, as dit.py:424-467: LN, modulation and the
+    q/k/v products in one launch (kernel 7, or 5 with int8 weights), rope,
+    kernel A (14 under attn_int8), the out-projection folded into the gated
+    residual (kernel 8, or 6). Under autograd kernels 7 and 8 run their
+    autograd Functions and kernel A becomes 10, 11, 13.
+
+    scale, shift, gate are [d] (the sampler: one modulation for the batch)
+    or [b, d] (training: one per item; kernels 7 and 8 take one modulation a
+    launch, so each item launches its own, and the attention runs once on
+    the batch). Tensor-parallel (`mesh`), ap is
+    this rank's share: its heads, to_out's bias / tp in kernel 8's epilogue,
+    the replicated inputs through copy_to_model and the sum through
+    reduce_residual (parallel/tp_kernels.py)."""
+    from korean_f5_tts_tpu_torch.ops.fused_linears import (
+        ln_mod_matmul,
+        ln_mod_matmul_int8,
+        ln_mod_matmul_int8_reference,
+        ln_mod_matmul_reference,
+        proj_gated_residual,
+        proj_gated_residual_int8,
+        proj_gated_residual_int8_reference,
+        proj_gated_residual_reference,
+    )
+
+    if "w_int8" in ap["to_q"]:
+        lmm = ln_mod_matmul_int8 if kernels else ln_mod_matmul_int8_reference
+        pgr = proj_gated_residual_int8 if kernels else proj_gated_residual_int8_reference
+        inner = ap["to_q"]["w_int8"].shape[0]
+    else:
+        lmm = ln_mod_matmul if kernels else ln_mod_matmul_reference
+        pgr = proj_gated_residual if kernels else proj_gated_residual_reference
+        inner = ap["to_q"]["w"].shape[0]
+    po = ap["to_out"]
+    tp_on = model_parallel(mesh)
+    if tp_on:
+        tp = axis_size(mesh, "model")
+        h, scale, shift, gate = (copy_to_model(t, mesh) for t in (h, scale, shift, gate))
+        po = {**po, "b": copy_to_model(po["b"], mesh) / tp}
+        heads //= tp
+        pe_attn_head = local_pe_attn_head(pe_attn_head, mesh, heads)
+    cos, sin = rope
+    qkv_p = [ap["to_q"], ap["to_k"], ap["to_v"]]
+    if scale.dim() == 1:
+        qkv = lmm(h, scale, shift, qkv_p)
+    else:
+        qkv = torch.cat([lmm(h[i:i + 1], scale[i], shift[i], qkv_p) for i in range(h.shape[0])])
+    q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], heads) for i in range(3))
+    q = apply_rope(q, cos, sin, pe_attn_head)
+    k = apply_rope(k, cos, sin, pe_attn_head)
+    a = _merge_heads(sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels, attn_int8=attn_int8))
+    if gate.dim() == 1:
+        out = pgr(a, h, gate, po)
+    else:
+        out = torch.cat([pgr(a[i:i + 1], h[i:i + 1], gate[i], po) for i in range(h.shape[0])])
+    return reduce_residual(out, h, mesh) if tp_on else out
 
 
 def dit_block(p: dict, x: torch.Tensor, t: torch.Tensor, heads: int,
@@ -411,18 +530,47 @@ def dit_block(p: dict, x: torch.Tensor, t: torch.Tensor, heads: int,
               dropout_rate: float = 0.0,
               gen: torch.Generator | None = None,
               kernels: bool = True, attn_path: str = "default",
-              attn_int8: str | None = None) -> torch.Tensor:
+              attn_int8: str | None = None, mesh=None) -> torch.Tensor:
     """AdaLN-zero DiT block of the training forward (modules.py:632-650). The
     FF half-block is plain products here, as in the JAX block: kernel B is
-    the serving path's."""
-    norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = ada_layernorm(p["attn_norm"], x, t)
-    attn_out = attention(p["attn"], norm, heads, mask=mask, rope=rope,
-                         pe_attn_head=pe_attn_head, attn_mask_enabled=attn_mask_enabled,
-                         pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
-                         attn_int8=attn_int8)
-    x = x + gate_msa[:, None] * attn_out
+    the serving path's.
+
+    attn_path "linear_fused" with bf16/fp32 q/k/v/out linears with biases and
+    no qk-norm runs the attention half as attention_half_fused (kernels 7, A
+    and 8; 7, 10, 11, 13 and 8 under autograd), one launch of 7 and of 8 per
+    item; the rows the duration mask hides keep x, as the unfused half's
+    zeroed output leaves them. Under a tensor-parallel mesh that is
+    parallel/tp_kernels.py:attn_half_block_tp, which steps aside (None) to
+    the unfused half where the JAX shape predicate fails.
+    """
+    shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = linear(
+        p["attn_norm"]["linear"], F.silu(t)).chunk(6, dim=-1)
+    ap = p["attn"]
+    out = None
+    if attn_path == "linear_fused" and rope is not None and "q_norm" not in ap and all(
+            "w" in ap[n] and "b" in ap[n] for n in ("to_q", "to_k", "to_v", "to_out")):
+        attn_mask = mask if (attn_mask_enabled and mask is not None) else pad_mask
+        lens = attn_mask.sum(dim=-1, dtype=torch.int32) if attn_mask is not None else None
+        if model_parallel(mesh):
+            from korean_f5_tts_tpu_torch.parallel.tp_kernels import attn_half_block_tp
+
+            out = attn_half_block_tp(x, scale_msa, shift_msa, gate_msa, ap, heads, rope,
+                                     pe_attn_head, lens, mesh, kernels=kernels,
+                                     attn_int8=attn_int8)
+        else:
+            out = attention_half_fused(ap, x, scale_msa, shift_msa, gate_msa, heads, rope,
+                                       pe_attn_head, lens, kernels=kernels, attn_int8=attn_int8)
+    if out is not None:
+        x = out if mask is None else torch.where(mask[..., None], out, x)
+    else:
+        norm = layernorm({}, x, eps=1e-6) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+        attn_out = attention(ap, norm, heads, mask=mask, rope=rope,
+                             pe_attn_head=pe_attn_head, attn_mask_enabled=attn_mask_enabled,
+                             pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
+                             attn_int8=attn_int8, mesh=mesh)
+        x = x + gate_msa[:, None] * attn_out
     norm = layernorm({}, x, eps=1e-6) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-    ff_out = feedforward(p["ff"], norm, dropout_rate=dropout_rate, gen=gen)
+    ff_out = feedforward(p["ff"], norm, dropout_rate=dropout_rate, gen=gen, mesh=mesh)
     return x + gate_mlp[:, None] * ff_out
 
 

@@ -272,10 +272,26 @@ def require_cuda(what: str, *tensors, dtype=None) -> None:
 
 
 def require_no_grad(what: str, *tensors) -> None:
-    """Raise when a gradient would be taken through a forward-only kernel."""
+    """Raise when a gradient would be taken through a forward-only kernel:
+    14 and its quantization pass, 4, 5, 6 and 9 (the JAX package gives them
+    no gradient either)."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what} is forward-only: an input requires a gradient (ROADMAP.md queue 1 "
-            "item 10, 'training through kernels 7, 8, 18, 19')")
+            f"{what} is forward-only: an input requires a gradient, and the kernel has "
+            "no backward (the JAX kernel has no vjp)")
+
+
+def launch_op(name: str, schema: str, fn):
+    """Register `fn`, a kernel launch (or its plain version on CPU tensors),
+    as the PyTorch operator ``f5_port::name`` with the given schema.
+
+    The autograd Functions of kernels 7, 8, 10, 18 and 19 launch through
+    these operators, so the dispatcher sees the launch: the "dots" remat
+    policy (models/dit.py) can keep the kernel's output for the backward,
+    which a ctypes call inside a Function hides from it. Registration only:
+    nothing is built here."""
+    import torch
+
+    return torch.library.custom_op(f"f5_port::{name}", fn, mutates_args=(), schema=schema)

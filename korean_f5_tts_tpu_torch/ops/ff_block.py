@@ -126,9 +126,11 @@ def ff_block_fused_int8(h, sc, sh, gate, qp_in: dict, qp_out: dict,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any number of rows; d, dff multiples of 128
-    and at most 4096 (the row passes hold a row in registers).
+    and at most 4096 (the row passes hold a row in registers). Raises on an
+    input that requires a gradient (forward-only, as the JAX kernel).
     """
     global launches_int8
+    cuda_build.require_no_grad("ff_block_fused_int8", h, sc, sh, gate)
     if h.device.type == "cpu":
         return ff_block_int8_reference(h, sc, sh, gate, qp_in, qp_out, eps)
     d = h.shape[-1]

@@ -30,10 +30,12 @@ attention core's int8 form with an fp32 output in "qkpv" (csrc/
 flash_prefix_int8.cu) and in "qk" csrc/flash_prefix_int8_f32.cu, whose
 integer scores are exact on the int8 tensor cores and whose p.v is fp32 p
 times fp32 v as a split 3xTF32 product (kernel A's fp32 P.V).
-Kernels 18 and 19 serve
-only: the JAX package differentiates their XLA formulation, which is not
-ported yet, so the wrappers raise on an input that requires a gradient.
-Kernel 14 serves only as well (the JAX kernel has no vjp):
+Under autograd
+kernels 18 and 19 launch inside torch.autograd.Functions whose backward
+differentiates the plain rope + prefix attention (_xla_rope_prefix_reference,
+_xla_qkv_reference), as the JAX custom_vjps _fpr_bwd and _fpq_bwd do
+(:1496-1542, :1696-1745); no gradient flows to kv_lens, cos or sin.
+Kernel 14 serves only (the JAX kernel has no vjp):
 flash_prefix_attention_i8 quantizes q, k (and v) per folded head with one
 kernel of its own (quantize_heads, csrc/quant_heads.cu; XLA in the JAX
 package) and launches kernel 14 on the int8 operands.
@@ -112,7 +114,8 @@ def prefix_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """
     n, d = q.shape[-2], q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    up = torch.promote_types(q.dtype, torch.float32)  # fp32 logits (float64 stays float64)
+    logits = torch.matmul(q.to(up), k.to(up).transpose(-1, -2)) * scale
     logits = logits.masked_fill(~_valid_keys(kv_lens, n, q.device), MASK_VALUE)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs, v)
@@ -525,11 +528,18 @@ def flash_prefix_rope_attention(q, k, v, kv_lens, cos, sin,
     rotate. The result has the operands' dtype.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; nothing falls back. Forward-only: raises on an input that requires
-    a gradient.
+    raise; nothing falls back. When q, k or v requires a gradient the launch
+    runs inside RopePrefixAttention, whose backward differentiates the plain
+    rope + prefix attention.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return RopePrefixAttention.apply(q, k, v, kv_lens, cos, sin, pe_attn_head)
+    return _rope_fwd(q, k, v, kv_lens, cos, sin, pe_attn_head)
+
+
+def _rope_fwd(q, k, v, kv_lens, cos, sin, pe_attn_head: int | None) -> torch.Tensor:
+    """Kernel 18's launch (its plain version on CPU tensors)."""
     global launches_rope, launches_rope_f32
-    cuda_build.require_no_grad("flash_prefix_rope_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_prefix_rope_reference(q, k, v, kv_lens, cos, sin, pe_attn_head)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -564,11 +574,18 @@ def flash_prefix_qkv_attention(qkv, kv_lens, heads: int, cos, sin,
     The kernel takes any B, heads (B * heads <= 65535) and n.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise; nothing falls back. Forward-only: raises on an input that requires
-    a gradient.
+    raise; nothing falls back. When qkv requires a gradient the launch runs
+    inside QkvPrefixAttention, whose backward differentiates the plain split,
+    rope and prefix attention.
     """
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return QkvPrefixAttention.apply(qkv, kv_lens, heads, cos, sin, pe_attn_head)
+    return _qkv_fwd(qkv, kv_lens, heads, cos, sin, pe_attn_head)
+
+
+def _qkv_fwd(qkv, kv_lens, heads: int, cos, sin, pe_attn_head: int | None) -> torch.Tensor:
+    """Kernel 19's launch (its plain version on CPU tensors)."""
     global launches_qkv, launches_qkv_f32
-    cuda_build.require_no_grad("flash_prefix_qkv_attention", qkv)
     if qkv.device.type == "cpu":
         return flash_prefix_qkv_reference(qkv, kv_lens, heads, cos, sin, pe_attn_head)
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
@@ -811,6 +828,98 @@ def flash_prefix_attention_bwd(q, k, v, kv_lens, g, o=None, lse=None):
     return tuple(t.reshape(q.shape) for t in _folded_bwd(qf, kf, vf, lens_h, gf, of, lse))
 
 
+def _lse_launch(q, k, v, kv_lens):
+    return flash_prefix_folded_lse(q, k, v, kv_lens)
+
+
+def _rope_launch(q, k, v, kv_lens, cos, sin, pe_attn_head):
+    return _rope_fwd(q, k, v, kv_lens, cos, sin, pe_attn_head)
+
+
+def _qkv_launch(qkv, kv_lens, heads, cos, sin, pe_attn_head):
+    return _qkv_fwd(qkv, kv_lens, heads, cos, sin, pe_attn_head)
+
+
+# the launches of kernels 10, 18 and 19 as operators (cuda_build.launch_op): the
+# "dots" remat policy keeps their outputs, the attention outputs, for the backward
+_lse_op = cuda_build.launch_op(
+    "flash_prefix_folded_lse", "(Tensor q, Tensor k, Tensor v, Tensor kv_lens) -> (Tensor, Tensor)",
+    _lse_launch)
+_rope_op = cuda_build.launch_op(
+    "flash_prefix_rope_attention", "(Tensor q, Tensor k, Tensor v, Tensor kv_lens, Tensor cos, "
+    "Tensor sin, int? pe_attn_head) -> Tensor", _rope_launch)
+_qkv_op = cuda_build.launch_op(
+    "flash_prefix_qkv_attention", "(Tensor qkv, Tensor kv_lens, int heads, Tensor cos, "
+    "Tensor sin, int? pe_attn_head) -> Tensor", _qkv_launch)
+
+
+def _xla_rope_prefix(q, k, v, kv_lens, cos, sin, pe_attn_head):
+    """The JAX _xla_rope_prefix_reference (flash_prefix.py:1484-1493): rope
+    in the operands' dtype (modules.apply_rope), then the plain prefix
+    attention. [b, h, n, d] in and out."""
+    from korean_f5_tts_tpu_torch.models.modules import apply_rope
+
+    n = q.shape[2]
+    qr = apply_rope(q, cos[:n], sin[:n], pe_attn_head)
+    kr = apply_rope(k, cos[:n], sin[:n], pe_attn_head)
+    (qf, kf, vf), lens_h = _fold(qr, kr, v, kv_lens)
+    return prefix_attention_reference(qf, kf, vf, lens_h).reshape(q.shape)
+
+
+def _grad_of(fn, inputs, needs, g):
+    """Gradients of fn(*inputs) for g, for the inputs whose `needs` is true."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        grads = iter(torch.autograd.grad(fn(*xs), [x for x, n in zip(xs, needs) if n], g))
+    return [next(grads) if n else None for n in needs]
+
+
+class RopePrefixAttention(torch.autograd.Function):
+    """Kernel 18 under autograd: the forward launches it; the backward
+    differentiates _xla_rope_prefix (the JAX _fpr_bwd), with no gradient
+    for kv_lens, cos and sin. It materialises the [b, h, n, n] scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, cos, sin, pe_attn_head):
+        ctx.pe_attn_head = pe_attn_head
+        ctx.save_for_backward(q, k, v, kv_lens, cos, sin)
+        return _rope_op(q, k, v, kv_lens, cos, sin, pe_attn_head)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_lens, cos, sin = ctx.saved_tensors
+
+        def fn(q, k, v):
+            return _xla_rope_prefix(q, k, v, kv_lens, cos, sin, ctx.pe_attn_head)
+
+        return (*_grad_of(fn, (q, k, v), ctx.needs_input_grad[:3], g), None, None, None, None)
+
+
+class QkvPrefixAttention(torch.autograd.Function):
+    """Kernel 19 under autograd: the forward launches it; the backward
+    differentiates the split, _xla_rope_prefix and the head merge (the JAX
+    _fpq_bwd), with no gradient for kv_lens, cos and sin."""
+
+    @staticmethod
+    def forward(ctx, qkv, kv_lens, heads, cos, sin, pe_attn_head):
+        ctx.heads, ctx.pe_attn_head = heads, pe_attn_head
+        ctx.save_for_backward(qkv, kv_lens, cos, sin)
+        return _qkv_op(qkv, kv_lens, heads, cos, sin, pe_attn_head)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, kv_lens, cos, sin = ctx.saved_tensors
+
+        def fn(qkv):
+            out = _xla_rope_prefix(*qkv_unpack(qkv, ctx.heads), kv_lens, cos, sin,
+                                   ctx.pe_attn_head)
+            B, h, n, d = out.shape
+            return out.transpose(1, 2).reshape(B, n, h * d)
+
+        return (*_grad_of(fn, (qkv,), ctx.needs_input_grad[:1], g), None, None, None, None,
+                None)
+
+
 class FlashPrefixAttention(torch.autograd.Function):
     """Folded prefix attention with a kernel backward: the forward is kernel
     10 and keeps o and lse; the backward is D, kernel 11, kernel 13 (each in
@@ -818,7 +927,7 @@ class FlashPrefixAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens):
-        o, lse = flash_prefix_folded_lse(q, k, v, kv_lens)
+        o, lse = _lse_op(q, k, v, kv_lens)
         ctx.save_for_backward(q, k, v, kv_lens, o, lse)
         return o
 

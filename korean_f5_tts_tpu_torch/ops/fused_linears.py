@@ -11,10 +11,12 @@ the kernels (csrc/fused_linears.cu) replace the TPU's _ln_mod_matmul_kernel
 and _proj_gated_kernel. Their operands are all bf16 (the TMA + wgmma core)
 or all fp32 (the split 3xTF32 products of csrc/gemm_f32.cuh on the tensor
 cores, fp32-accurate, as the TPU kernels compute at the input's dtype); a
-mix raises TypeError, and each form keeps its own launch counter. They
-serve only: in the JAX package their gradients differentiate the XLA
-formulation, which is not ported yet, so the wrappers raise on an input
-that requires a gradient.
+mix raises TypeError, and each form keeps its own launch counter. Under
+autograd (an input requires a gradient) each launches inside a
+torch.autograd.Function whose backward differentiates the XLA formulation
+(ln_mod_matmul_xla, proj_gated_xla), as the JAX custom_vjps do
+(fused_linears.py:82-100, :237-254); the launch itself is an operator
+(cuda_build.launch_op), so the "dots" remat policy can keep its output.
 
 The int8 functions:
   ln_mod_matmul_int8        out = (q(LN(h) * (1 + sc) + sh) @ W^T) * ys * ws + b
@@ -29,12 +31,14 @@ and _proj_gated_int8_kernel; each keeps one launch counter.
 ln_mod_matmul and ln_mod_matmul_int8 take a list of linears sharing one
 input (to_q, to_k, to_v) and return their outputs side by side: this is the
 JAX package's product with the concatenated weight (dit.py:429-447),
-without building that weight.
+without building that weight. The int8 kernels serve only (they raise on
+an input that requires a gradient), as the JAX kernels have no vjp.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from korean_f5_tts_tpu_torch.ops import cuda_build
 from korean_f5_tts_tpu_torch.ops.qmatmul import (
@@ -104,6 +108,100 @@ def _operand_dtype(what: str, x: torch.Tensor, *others: torch.Tensor) -> torch.d
     return x.dtype
 
 
+def ln_mod_matmul_xla(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
+    """The JAX package's XLA formulation of kernel 7 (_ln_mod_matmul_xla,
+    fused_linears.py:71-79), which its backward differentiates: LN
+    statistics in fp32 (float64 stays float64), the normed rows rounded to
+    h's dtype, the modulation and the product in h's dtype."""
+    x = h.to(torch.promote_types(h.dtype, torch.float32))
+    xc = x - x.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = (xc * torch.rsqrt(var + eps)).to(h.dtype) * (1 + sc) + sh
+    return F.linear(y, torch.cat([p["w"] for p in ps], dim=0),
+                    torch.cat([p["b"] for p in ps]))
+
+
+def proj_gated_xla(a, h, gate, p) -> torch.Tensor:
+    """The JAX package's XLA formulation of kernel 8 (_proj_gated_xla,
+    fused_linears.py:233-234): h + gate * (a @ W^T + b)."""
+    return h + gate * F.linear(a, p["w"], p["b"])
+
+
+def _vjp(fn, inputs, needs, g):
+    """Gradients of fn(*inputs) for the output gradient g, for the inputs
+    whose `needs` is true (None for the others)."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        out = fn(*xs)
+        grads = iter(torch.autograd.grad(out, [x for x, n in zip(xs, needs) if n], g))
+    return [next(grads) if n else None for n in needs]
+
+
+def _requires_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _linears(ws, bs) -> list[dict]:
+    return [{"w": w, "b": b} for w, b in zip(ws, bs)]
+
+
+def _ln_mod_matmul_launch(h, sc, sh, ws, bs, eps):
+    return _ln_mod_matmul_fwd(h, sc, sh, _linears(ws, bs), eps)
+
+
+def _proj_gated_launch(a, h, gate, w, b):
+    return _proj_gated_fwd(a, h, gate, {"w": w, "b": b})
+
+
+_ln_mod_matmul_op = cuda_build.launch_op(
+    "ln_mod_matmul", "(Tensor h, Tensor sc, Tensor sh, Tensor[] ws, Tensor[] bs, float eps) "
+    "-> Tensor", _ln_mod_matmul_launch)
+_proj_gated_op = cuda_build.launch_op(
+    "proj_gated_residual", "(Tensor a, Tensor h, Tensor gate, Tensor w, Tensor b) -> Tensor",
+    _proj_gated_launch)
+
+
+class LnModMatmul(torch.autograd.Function):
+    """Kernel 7 under autograd: the forward launches it, the backward
+    differentiates ln_mod_matmul_xla (the JAX _lmm_bwd)."""
+
+    @staticmethod
+    def forward(ctx, h, sc, sh, eps, *wb):
+        ctx.eps = eps
+        ctx.save_for_backward(h, sc, sh, *wb)
+        k = len(wb) // 2
+        return _ln_mod_matmul_op(h, sc, sh, list(wb[:k]), list(wb[k:]), eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, sc, sh, *wb = ctx.saved_tensors
+        k = len(wb) // 2
+
+        def fn(h, sc, sh, *wb):
+            return ln_mod_matmul_xla(h, sc, sh, _linears(wb[:k], wb[k:]), ctx.eps)
+
+        needs = (*ctx.needs_input_grad[:3], *ctx.needs_input_grad[4:])
+        grads = _vjp(fn, (h, sc, sh, *wb), needs, g)
+        return (*grads[:3], None, *grads[3:])
+
+
+class ProjGatedResidual(torch.autograd.Function):
+    """Kernel 8 under autograd: the forward launches it, the backward
+    differentiates proj_gated_xla (the JAX _pgr_bwd)."""
+
+    @staticmethod
+    def forward(ctx, a, h, gate, w, b):
+        ctx.save_for_backward(a, h, gate, w, b)
+        return _proj_gated_op(a, h, gate, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        def fn(a, h, gate, w, b):
+            return proj_gated_xla(a, h, gate, {"w": w, "b": b})
+
+        return tuple(_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad, g))
+
+
 def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
     """Kernel 7 wrapper: h [..., d], sc/sh [d], ps a list of one to three
     linears of one shape ({w [n, d], b [n]}) -> [..., n * len(ps)], all bf16
@@ -111,10 +209,20 @@ def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any number of rows; d % 32 == 0, d <= 4096,
-    n % 128 == 0.
+    n % 128 == 0. When an input requires a gradient, the launch runs inside
+    LnModMatmul, whose backward differentiates ln_mod_matmul_xla.
     """
+    if any("b" not in p for p in ps):
+        raise ValueError("ln_mod_matmul: the linears need a bias")
+    ws, bs = [p["w"] for p in ps], [p["b"] for p in ps]
+    if _requires_grad(h, sc, sh, *ws, *bs):
+        return LnModMatmul.apply(h, sc, sh, eps, *ws, *bs)
+    return _ln_mod_matmul_fwd(h, sc, sh, ps, eps)
+
+
+def _ln_mod_matmul_fwd(h, sc, sh, ps, eps: float) -> torch.Tensor:
+    """Kernel 7's launch (its plain version on CPU tensors)."""
     global launches_ln_mod, launches_ln_mod_f32
-    cuda_build.require_no_grad("ln_mod_matmul", h, sc, sh, *(t for p in ps for t in p.values()))
     if h.device.type == "cpu":
         return ln_mod_matmul_reference(h, sc, sh, ps, eps)
     if not 1 <= len(ps) <= MAX_SEGMENTS:
@@ -124,8 +232,6 @@ def ln_mod_matmul(h, sc, sh, ps, eps: float = 1e-6) -> torch.Tensor:
     if d % 32 or n % 128 or d > GEMM_MAX_LN_DIM:
         raise ValueError(f"ln_mod_matmul: d={d} must be a multiple of 32, at most "
                          f"{GEMM_MAX_LN_DIM}, and n={n} a multiple of 128")
-    if any("b" not in p for p in ps):
-        raise ValueError("ln_mod_matmul: the linears need a bias")
     dt = _operand_dtype("ln_mod_matmul", h, sc, sh, *(t for p in ps for t in (p["w"], p["b"])))
     for name, v in (("sc", sc), ("sh", sh)):
         check_tensor("ln_mod_matmul", name, v, (d,))
@@ -158,17 +264,25 @@ def proj_gated_residual(a, h, gate, p) -> torch.Tensor:
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any number of rows; din % 32 == 0, d % 128 == 0.
+    When an input requires a gradient, the launch runs inside
+    ProjGatedResidual, whose backward differentiates proj_gated_xla.
     """
+    if "b" not in p:
+        raise ValueError("proj_gated_residual: the linear needs a bias")
+    if _requires_grad(a, h, gate, p["w"], p["b"]):
+        return ProjGatedResidual.apply(a, h, gate, p["w"], p["b"])
+    return _proj_gated_fwd(a, h, gate, p)
+
+
+def _proj_gated_fwd(a, h, gate, p) -> torch.Tensor:
+    """Kernel 8's launch (its plain version on CPU tensors)."""
     global launches_proj_gated, launches_proj_gated_f32
-    cuda_build.require_no_grad("proj_gated_residual", a, h, gate, *p.values())
     if a.device.type == "cpu":
         return proj_gated_residual_reference(a, h, gate, p)
     din, d = a.shape[-1], h.shape[-1]
     if a.shape[:-1] != h.shape[:-1]:
         raise ValueError(f"proj_gated_residual: a {tuple(a.shape)} and h {tuple(h.shape)} "
                          "must have the same rows")
-    if "b" not in p:
-        raise ValueError("proj_gated_residual: the linear needs a bias")
     if din % 32 or d % 128:
         raise ValueError(f"proj_gated_residual: din={din} must be a multiple of 32 and "
                          f"d={d} of 128")
@@ -222,6 +336,7 @@ def ln_mod_matmul_int8(h, sc, sh, qps, eps: float = 1e-6) -> torch.Tensor:
     (the row pass holds a row in registers), n % 128 == 0.
     """
     global launches_ln_mod_int8
+    cuda_build.require_no_grad("ln_mod_matmul_int8", h, sc, sh)
     if h.device.type == "cpu":
         return ln_mod_matmul_int8_reference(h, sc, sh, qps, eps)
     if not 1 <= len(qps) <= MAX_SEGMENTS:
@@ -264,6 +379,7 @@ def proj_gated_residual_int8(a, h, gate, qp) -> torch.Tensor:
     (the int8 core's row pass holds a row in registers), d % 128 == 0.
     """
     global launches_proj_gated_int8
+    cuda_build.require_no_grad("proj_gated_residual_int8", a, h, gate)
     if a.device.type == "cpu":
         return proj_gated_residual_int8_reference(a, h, gate, qp)
     din, d = a.shape[-1], h.shape[-1]

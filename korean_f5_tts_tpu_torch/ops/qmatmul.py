@@ -142,9 +142,11 @@ def qmatmul(x: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise; nothing falls back. Any M; K % 16 == 0 and K <= 4096 (the int8
     core's rule, the TPU kernel's domain: it keeps the whole K in VMEM),
-    N % 128 == 0.
+    N % 128 == 0. Raises on an input that requires a gradient (forward-only,
+    as the JAX kernel).
     """
     global launches
+    cuda_build.require_no_grad("qmatmul", x, *(() if bias is None else (bias,)))
     if x.device.type == "cpu":
         return qmatmul_reference(x, w_int8, w_scale, bias, activation)
     check_qmatmul(x, w_int8, w_scale, bias, activation)

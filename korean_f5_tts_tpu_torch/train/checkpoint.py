@@ -204,7 +204,97 @@ def load_checkpoint(path: str, device="cuda") -> dict:
     return out
 
 
+def _dcp_leaves(tree, mesh) -> dict:
+    """A tree's tensor leaves by path, each a DTensor over the mesh (Shard
+    along its parameter_partition_spec dim on "model", Replicate on "data")
+    or, without a mesh, the tensor itself; other leaves (counts) as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from korean_f5_tts_tpu_torch.parallel.mesh import model_parallel, shard_dim
+
+    out = {}
+    for path, leaf in flatten_tree(tree).items():
+        if mesh is None or not isinstance(leaf, torch.Tensor):
+            out[path] = leaf
+            continue
+        dim = shard_dim(path, leaf) if model_parallel(mesh) else None
+        model = Replicate() if dim is None else Shard(dim)
+        out[path] = DTensor.from_local(leaf, mesh, [Replicate(), model], run_check=False)
+    return out
+
+
+def _dcp_state(params, opt_state, ema_params, update: int, mesh) -> dict:
+    state = {"params": _dcp_leaves(params, mesh), "update": update}
+    if ema_params is not None:
+        state["ema_params"] = _dcp_leaves(ema_params, mesh)
+    if opt_state is not None:
+        state["opt_state"] = _dcp_leaves(opt_state, mesh)
+    return state
+
+
+def save_checkpoint_orbax(path: str, params, opt_state: dict | None = None, ema_params=None,
+                          update: int = 0, mesh=None) -> None:
+    """The sharded multi-process checkpoint (the JAX Trainer's "orbax"
+    format, checkpoint.py:118-133), written with torch.distributed.checkpoint
+    into the directory `path`: every process writes its own slices of the
+    split leaves (parallel/mesh.py:param_partition_spec) and one copy of the
+    replicated ones is kept, with no gather to one host. Every process of
+    the mesh calls it. The trees are the port's (torch layouts), and the
+    optimizer state keeps train/step.py's structure; a JAX orbax directory is
+    not read."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(_dcp_state(params, opt_state, ema_params, update, mesh),
+             checkpoint_id=os.path.abspath(path))
+
+
+def load_checkpoint_orbax(path: str, params, opt_state: dict | None = None, ema_params=None,
+                          mesh=None) -> dict:
+    """Read a save_checkpoint_orbax directory into copies of the given trees
+    (this process's share of each, as shaped and placed): {"update",
+    "params", "opt_state", "ema_params"}."""
+    import torch.distributed.checkpoint as dcp
+
+    copy = lambda tree: unflatten_tree({  # noqa: E731
+        k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+        for k, v in flatten_tree(tree).items()})
+    trees = {"params": copy(params)}
+    if opt_state is not None:
+        trees["opt_state"] = copy(opt_state)
+    if ema_params is not None:
+        trees["ema_params"] = copy(ema_params)
+    state = _dcp_state(trees["params"], trees.get("opt_state"), trees.get("ema_params"), 0, mesh)
+    dcp.load(state, checkpoint_id=os.path.abspath(path))
+    out = {"update": int(state["update"])}
+    for name, tree in trees.items():
+        loaded = {k: v.to_local() if hasattr(v, "to_local") else v
+                  for k, v in state[name].items()}
+        flat = flatten_tree(tree)
+        for k, v in loaded.items():
+            if isinstance(v, torch.Tensor):
+                flat[k].copy_(v)
+            else:
+                flat[k] = v
+        out[name] = unflatten_tree(flat)
+    return out
+
+
 _CKPT_RE = re.compile(r"model_(\d+)\.npz$")
+_ORBAX_RE = re.compile(r"model_(\d+)_orbax$")
+
+
+def resolve_resume_orbax(ckpt_dir: str, explicit: str | None = None) -> str | None:
+    """The "orbax" format's precedence: explicit -> model_last_orbax ->
+    highest numbered model_N_orbax."""
+    if explicit:
+        return explicit
+    if not os.path.isdir(ckpt_dir):
+        return None
+    files = os.listdir(ckpt_dir)
+    if "model_last_orbax" in files:
+        return os.path.join(ckpt_dir, "model_last_orbax")
+    numbered = sorted((int(m.group(1)), f) for f in files if (m := _ORBAX_RE.search(f)))
+    return os.path.join(ckpt_dir, numbered[-1][1]) if numbered else None
 
 
 def rotate_checkpoints(ckpt_dir: str, keep_last_n: int) -> None:

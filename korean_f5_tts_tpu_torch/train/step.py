@@ -32,6 +32,13 @@ train_step counts every call (a mini-step under MultiSteps) and moves the
 EMA on every call, as the JAX step does (step.py:105-109). Unlike the JAX
 step, which donates its input state, it updates the state's tensors in
 place.
+
+Under a mesh (parallel/mesh.py) the state holds this process's share of
+the parameters (shard_params) and the batch its data rank's rows. The
+gradients are summed over the data group (the loss is each rank's share of
+the global mean, models/cfm.py), the DDP step; the global-norm clip sums the
+squares of the split leaves over the model group and counts the replicated
+ones once, so the sharded step equals the single-device one.
 """
 
 from __future__ import annotations
@@ -41,9 +48,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from korean_f5_tts_tpu_torch.config import CFMConfig, DiTConfig
 from korean_f5_tts_tpu_torch.models.cfm import cfm_loss, cfm_loss_from_draws
+from korean_f5_tts_tpu_torch.parallel.mesh import axis_group, axis_size, model_parallel, shard_dim
 from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, unflatten_tree
 
 
@@ -51,6 +60,27 @@ def _aligned(tree, paths: list[str]) -> list[torch.Tensor]:
     """The leaves of a tree (or flat dict) of the given paths, in their order."""
     leaves = flatten_tree(tree)
     return [leaves[k] for k in paths]
+
+
+def all_reduce_coalesced(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
+    """Sum a list of tensors over a process group with one all-reduce of
+    their concatenation (the bucket DDP reduces)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def global_grad_norm(grads: list[torch.Tensor], paths: list[str], mesh=None) -> torch.Tensor:
+    """optax.global_norm of the whole model's gradient: under a
+    tensor-parallel mesh the split leaves' squares are summed over the model
+    group, the replicated ones (equal on every rank) counted once."""
+    sq = [torch.sum(g * g) for g in grads]
+    if not model_parallel(mesh):
+        return torch.sqrt(torch.stack(sq).sum())
+    split = [shard_dim(p, g) is not None for p, g in zip(paths, grads)]
+    local = torch.stack([s for s, m in zip(sq, split) if m]).sum()
+    dist.all_reduce(local, group=axis_group(mesh, "model"))
+    return torch.sqrt(local + torch.stack([s for s, m in zip(sq, split) if not m]).sum())
 
 
 def _zeros_like(tree):
@@ -106,9 +136,10 @@ class AdamW:
         return {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params),
                 "sched_count": 0}
 
-    def update_(self, params: list, grads: list, state: dict, paths: list[str]) -> None:
+    def update_(self, params: list, grads: list, state: dict, paths: list[str],
+                mesh=None) -> None:
         """One update of `params` (the leaves at `paths`) in place."""
-        g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+        g_norm = global_grad_norm(grads, paths, mesh)
         trigger = g_norm < self.max_grad_norm
         grads = [torch.where(trigger, g, (g / g_norm) * self.max_grad_norm) for g in grads]
         count = state["count"] + 1
@@ -131,7 +162,8 @@ class PlainAdamW:
     def init(self, params) -> dict:
         return {"count": 0, "mu": _zeros_like(params), "nu": _zeros_like(params)}
 
-    def update_(self, params: list, grads: list, state: dict, paths: list[str]) -> None:
+    def update_(self, params: list, grads: list, state: dict, paths: list[str],
+                mesh=None) -> None:
         count = state["count"] + 1
         _adamw_(params, grads, _aligned(state["mu"], paths), _aligned(state["nu"], paths),
                 count, self.learning_rate, self.b1, self.b2, self.eps, self.weight_decay)
@@ -148,7 +180,8 @@ class MultiSteps:
         return {"mini_step": 0, "gradient_step": 0, "inner": self.inner.init(params),
                 "acc_grads": _zeros_like(params)}
 
-    def update_(self, params: list, grads: list, state: dict, paths: list[str]) -> None:
+    def update_(self, params: list, grads: list, state: dict, paths: list[str],
+                mesh=None) -> None:
         acc = _aligned(state["acc_grads"], paths)
         # a 0-d tensor divisor: true division, as optax's (a Python number may
         # become a reciprocal multiply on the card)
@@ -157,7 +190,7 @@ class MultiSteps:
             a.add_(torch.div(g - a, n))
         emit = state["mini_step"] == self.every_k - 1
         if emit:
-            self.inner.update_(params, acc, state["inner"], paths)
+            self.inner.update_(params, acc, state["inner"], paths, mesh)
             torch._foreach_zero_(acc)
             state["gradient_step"] += 1
         state["mini_step"] = (state["mini_step"] + 1) % self.every_k
@@ -191,15 +224,19 @@ def init_train_state(params, optimizer: AdamW | MultiSteps, use_ema: bool = True
 
 def loss_and_grads(params, batch: dict, seed: int, arch: DiTConfig,
                    cfm: CFMConfig = CFMConfig(), compute_dtype: torch.dtype | None = None,
-                   kernels: bool = True,
-                   draws: dict | None = None) -> tuple[torch.Tensor, list[torch.Tensor]]:
+                   kernels: bool = True, draws: dict | None = None,
+                   attn_path: str = "default",
+                   mesh=None) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """fp32 loss and the gradient of every leaf of `params` (flatten_tree
     order) on a batch {mel [b, n, d], text [b, nt], lens [b]}.
 
     compute_dtype=torch.bfloat16 casts the fp32 leaves and the mel for the
     forward and backward (step.py:90-100); the gradients land on the fp32
     masters in fp32. `draws` (models/cfm.py:draw_cfm's dict), when given,
-    replace the loss's draws from `seed`, and dropout is off.
+    replace the loss's draws from `seed`, and dropout is off. attn_path
+    picks the attention kernels (ops/attention.py:ATTN_PATHS). Under a mesh
+    the loss returned is the global one and the gradients are summed over
+    the data group.
     """
     flat = flatten_tree(params)
     leaves = [t.detach().requires_grad_(True) for t in flat.values()]
@@ -211,24 +248,29 @@ def loss_and_grads(params, batch: dict, seed: int, arch: DiTConfig,
     tree = unflatten_tree(dict(zip(flat, run)))
     if draws is None:
         loss, _, _ = cfm_loss(tree, arch, mel, batch["text"], batch["lens"], seed, cfm=cfm,
-                              kernels=kernels)
+                              kernels=kernels, attn_path=attn_path, mesh=mesh)
     else:
         loss, _, _ = cfm_loss_from_draws(tree, arch, mel, batch["text"], batch["lens"], draws,
-                                         kernels=kernels)
+                                         kernels=kernels, attn_path=attn_path, mesh=mesh)
     loss = loss.float()
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return loss.detach(), grads
+    loss = loss.detach()
+    if axis_size(mesh, "data") > 1:
+        group = axis_group(mesh, "data")
+        grads = all_reduce_coalesced(grads, group)
+        dist.all_reduce(loss, group=group)
+    return loss, grads
 
 
 @torch.no_grad()
 def apply_updates(state: TrainState, grads: list[torch.Tensor], optimizer: AdamW | MultiSteps,
-                  ema_decay: float = 0.999) -> TrainState:
+                  ema_decay: float = 0.999, mesh=None) -> TrainState:
     """The optimizer's update and the EMA, in place on the state's tensors;
     grads in flatten_tree(state.params) order."""
     flat = flatten_tree(state.params)
     paths, params = list(flat), list(flat.values())
-    optimizer.update_(params, grads, state.opt_state, paths)
+    optimizer.update_(params, grads, state.opt_state, paths, mesh)
     if state.ema_params is not None:
         ema = _aligned(state.ema_params, paths)
         torch._foreach_mul_(ema, ema_decay)
@@ -240,10 +282,10 @@ def apply_updates(state: TrainState, grads: list[torch.Tensor], optimizer: AdamW
 def train_step(state: TrainState, batch: dict, seed: int, arch: DiTConfig,
                optimizer: AdamW | MultiSteps, cfm: CFMConfig = CFMConfig(), ema_decay: float = 0.999,
                compute_dtype: torch.dtype | None = None, kernels: bool = True,
-               draws: dict | None = None):
+               draws: dict | None = None, attn_path: str = "default", mesh=None):
     """One update on a batch {mel [b, n, d], text [b, nt], lens [b]}; the
     loss's draws come from `seed` (or are `draws`, see loss_and_grads).
     Returns (state, loss), the state updated in place."""
     loss, grads = loss_and_grads(state.params, batch, seed, arch, cfm, compute_dtype, kernels,
-                                 draws)
-    return apply_updates(state, grads, optimizer, ema_decay), loss
+                                 draws, attn_path=attn_path, mesh=mesh)
+    return apply_updates(state, grads, optimizer, ema_decay, mesh=mesh), loss

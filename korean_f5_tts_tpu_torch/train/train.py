@@ -11,7 +11,13 @@ through infer/model.py:load_checkpoint_into_pytree when the file exists, else
 a warning is printed and training starts from the seeded init;
 datasets.load_path names the dataset directory itself. The Trainer runs in
 fp32 (no compute dtype, as the JAX CLI's), on the card unless --device cpu.
-One device only: --n_model_shards > 1 raises (ROADMAP.md queue 1 item 12).
+
+Several processes (train.py:44-52, 79, 96): started with the JAX package's
+variables (F5_TTS_DIST_COORDINATOR, F5_TTS_DIST_NUM_PROCESSES,
+F5_TTS_DIST_PROCESS_ID; parallel/distributed.py), one process a device,
+they train on one (n_processes / n_model_shards, n_model_shards) data x
+model mesh, each on its share of the weights and its rows of every batch
+(NCCL on the card, gloo with --device cpu).
 """
 
 from __future__ import annotations
@@ -20,9 +26,13 @@ import argparse
 import dataclasses
 import os
 
+import torch
+
 from korean_f5_tts_tpu_torch.config import model_config_from_dict
 from korean_f5_tts_tpu_torch.data.dataset import load_dataset
 from korean_f5_tts_tpu_torch.infer.model import _INIT_FNS, load_checkpoint_into_pytree
+from korean_f5_tts_tpu_torch.parallel.distributed import maybe_initialize_distributed
+from korean_f5_tts_tpu_torch.parallel.mesh import make_mesh, shard_params
 from korean_f5_tts_tpu_torch.text.vocab import get_tokenizer
 from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, params_from_jax
 from korean_f5_tts_tpu_torch.train.trainer import Trainer
@@ -49,14 +59,17 @@ def main(argv=None):
     parser.add_argument("--config", "-c", required=True, help="training yaml")
     parser.add_argument("--max_updates", type=int, default=None)
     parser.add_argument("--n_model_shards", type=int, default=1,
-                        help="tensor-parallel degree (1: the port trains on one device)")
+                        help="tensor-parallel degree over the processes' mesh")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = parser.parse_args(argv)
-    if args.n_model_shards > 1:
-        raise NotImplementedError("tensor-parallel training (--n_model_shards > 1) is not "
-                                  "ported (ROADMAP.md queue 1 item 12)")
     device = require_device(args.device)
+    # several processes: the Accelerate-DDP equivalent (reference trainer.py:59-70)
+    mesh = None
+    if maybe_initialize_distributed(device) or args.n_model_shards > 1:
+        mesh = make_mesh(n_model=args.n_model_shards, device=device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     import yaml
 
     with open(args.config, "r", encoding="utf-8") as f:
@@ -83,6 +96,8 @@ def main(argv=None):
         else:
             print(f"WARNING: ckpts.pretrained_path {pretrained} not found; "
                   "training from scratch")
+
+    params = shard_params(params, mesh)
 
     load_path = ds_cfg.get("load_path")
     mel = model_cfg.mel
@@ -111,6 +126,7 @@ def main(argv=None):
         max_grad_norm=float(optim.get("max_grad_norm", 1.0)),
         last_per_updates=ckpts.get("last_per_updates", 5_000),
         logger=ckpts.get("logger", "tensorboard"),
+        mesh=mesh,
         vocab_char_map=vocab_char_map,
     )
     os.makedirs(save_dir, exist_ok=True)

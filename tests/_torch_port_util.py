@@ -10,6 +10,11 @@ from __future__ import annotations
 
 import functools
 import math
+import os
+import pickle
+import socket
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -136,3 +141,43 @@ def backbone_pair(backbone: str, seed: int = 0, **flags):
             flat[k] = rng.uniform(-1, 1, v.shape).astype(np.float32) / math.sqrt(d_in)
     jparams = jax.tree_util.tree_map(jax.numpy.asarray, unflatten_tree(flat))
     return jcfg, pcfg, jparams, params_from_jax(flat, device="cpu"), flat
+
+
+# --- two processes on the CPU (tests/test_torch_parallel_*.py) -------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(ROOT, "tests", "_torch_parallel_worker.py")
+
+
+def run_two_processes(tmp_dir, cases: list, timeout: float = 300.0) -> list[dict]:
+    """Run tests/_torch_parallel_worker.py in two gloo processes on `cases`
+    ([(name, case function, kwargs)], kwargs numpy and plain values, with an
+    optional "mesh_shape" (n_data, n_model), default (1, 2)) and return each
+    rank's {name: result}. The processes find the port through PYTHONPATH
+    (no install needed); both are killed past `timeout` seconds."""
+    os.makedirs(tmp_dir, exist_ok=True)
+    job = os.path.join(tmp_dir, "job.pkl")
+    out = os.path.join(tmp_dir, "result")
+    with open(job, "wb") as f:
+        pickle.dump({"cases": cases, "out": out}, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2",
+           "F5_TTS_DIST_COORDINATOR": f"localhost:{port}", "F5_TTS_DIST_NUM_PROCESSES": "2"}
+    procs = [subprocess.Popen([sys.executable, WORKER, job], cwd=ROOT, text=True,
+                              env={**env, "F5_TTS_DIST_PROCESS_ID": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    results = []
+    for r in (0, 1):
+        with open(f"{out}.{r}", "rb") as f:
+            results.append(pickle.load(f))
+    return results

@@ -271,10 +271,11 @@ def test_unknown_attn_path_raises():
         _port_step(1, "rope")
 
 
-# --- forward-only wrappers -------------------------------------------------------
+# --- wrappers under autograd -----------------------------------------------------
 
 
 def _grad_cases():
+    """(kernel call, its plain formulation, the input that takes a gradient)."""
     rng = _rng(8)
     x = t(rng.standard_normal((1, 64, 128)).astype(np.float32))
     vec = t(rng.standard_normal((128,)).astype(np.float32))
@@ -283,24 +284,45 @@ def _grad_cases():
     qkv = t(rng.standard_normal((1, 64, 3 * 2 * 64)).astype(np.float32))
     cos, sin = (t(v) for v in rope_cos_sin(64, 64))
     lens = torch.tensor([64])
-    g = lambda v: v.clone().requires_grad_(True)  # noqa: E731
+    rope_plain = flash_prefix._xla_rope_prefix
+
+    def qkv_plain(z):
+        o = rope_plain(*flash_prefix.qkv_unpack(z, 2), lens, cos, sin, None)
+        return o.transpose(1, 2).reshape(1, 64, 128)
+
     return {
-        "ln_mod_matmul": lambda: fused_linears.ln_mod_matmul(g(x), vec, vec, [lin]),
-        "ln_mod_matmul_weight": lambda: fused_linears.ln_mod_matmul(
-            x, vec, vec, [{"w": g(lin["w"]), "b": lin["b"]}]),
-        "proj_gated_residual": lambda: fused_linears.proj_gated_residual(x, g(x), vec, lin),
-        "flash_prefix_rope": lambda: flash_prefix.flash_prefix_rope_attention(
-            q, g(q), q, lens, cos, sin),
-        "flash_prefix_qkv": lambda: flash_prefix.flash_prefix_qkv_attention(
-            g(qkv), lens, 2, cos, sin),
+        "ln_mod_matmul": (lambda z: fused_linears.ln_mod_matmul(z, vec, vec, [lin]),
+                          lambda z: fused_linears.ln_mod_matmul_xla(z, vec, vec, [lin]), x),
+        "ln_mod_matmul_weight": (
+            lambda z: fused_linears.ln_mod_matmul(x, vec, vec, [{"w": z, "b": lin["b"]}]),
+            lambda z: fused_linears.ln_mod_matmul_xla(x, vec, vec, [{"w": z, "b": lin["b"]}]),
+            lin["w"]),
+        "proj_gated_residual": (lambda z: fused_linears.proj_gated_residual(x, z, vec, lin),
+                                lambda z: fused_linears.proj_gated_xla(x, z, vec, lin), x),
+        "flash_prefix_rope": (
+            lambda z: flash_prefix.flash_prefix_rope_attention(q, z, q, lens, cos, sin),
+            lambda z: rope_plain(q, z, q, lens, cos, sin, None), q),
+        "flash_prefix_qkv": (
+            lambda z: flash_prefix.flash_prefix_qkv_attention(z, lens, 2, cos, sin),
+            qkv_plain, qkv),
     }
 
 
 @pytest.mark.parametrize("name", ["ln_mod_matmul", "ln_mod_matmul_weight", "proj_gated_residual",
                                   "flash_prefix_rope", "flash_prefix_qkv"])
 def test_wrappers_raise_on_inputs_that_require_a_gradient(name):
-    call = _grad_cases()[name]
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        call()
+    """Kernels 7, 8, 18 and 19 were forward-only and raised here; they run
+    under autograd now (fused_linears.py:82-100, 237-254; flash_prefix.py:
+    1496-1542, 1696-1745). The call with a gradient gives the no-gradient
+    call's output, and the gradient of the plain formulation."""
+    call, plain, z = _grad_cases()[name]
+    zg = z.clone().requires_grad_(True)
+    out = call(zg)
     with torch.no_grad():  # no gradient is being taken: the same call serves
-        assert torch.isfinite(call()).all()
+        torch.testing.assert_close(out.detach(), call(z), rtol=0, atol=0)
+    g = t(_rng(9).standard_normal(tuple(out.shape)).astype(np.float32))
+    (got,) = torch.autograd.grad(out, zg, g)
+    zp = z.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(plain(zp), zp, g)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

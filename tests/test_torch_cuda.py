@@ -1087,9 +1087,15 @@ def test_opt_in_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # kv_lens [B] or [1]
         flash_prefix.flash_prefix_qkv_attention(_bf16((2, 64, 384), dev, gen),
                                                 torch.tensor([64, 64, 64]), 2, cos, sin)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_prefix.flash_prefix_rope_attention(q.requires_grad_(True), q, q,
-                                                 torch.tensor([64]), cos, sin)
+    # kernel 18 takes a gradient since it runs under autograd: the same forward,
+    # the backward through the plain rope + prefix attention
+    qg = q.clone().requires_grad_(True)
+    out = flash_prefix.flash_prefix_rope_attention(qg, q, q, torch.tensor([64]), cos, sin)
+    with torch.no_grad():
+        torch.testing.assert_close(out, flash_prefix.flash_prefix_rope_attention(
+            q, q, q, torch.tensor([64]), cos, sin), rtol=0, atol=0)
+    out.float().square().sum().backward()
+    assert torch.isfinite(qg.grad).all() and qg.grad.abs().max() > 0
 
 
 def test_probe_hopper_idioms(dev):

@@ -157,7 +157,7 @@ def test_fused_half_blocks_are_not_taken(int8, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the fused attention half-block ran on a qk-norm DiT")
 
-    monkeypatch.setattr(pdit, "_attention_half_fused", refuse)
+    monkeypatch.setattr(pdit, "attention_half_fused", refuse)
     got = _port_step(1, "linear_fused", int8=int8)
     want = _jax_step(1, int8=int8)
     assert rel_err(got, want) < (4e-3 if int8 else 1e-4)  # int8: a few rounding ties

@@ -19,6 +19,7 @@ Tolerances, with their reasons:
   - checkpoints and resumed runs: exact.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -115,10 +116,21 @@ def test_dit_forward_matches_jax(flags, drops):
 
 
 def test_remat_dots_policy_is_not_ported():
-    _, pcfg, _, pp = _pair(checkpoint_activations=True, remat_policy="dots")
-    h = torch.zeros((1, 8, TINY["dim"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdit.dit_backbone(pp, pcfg, h, torch.zeros((1, TINY["dim"])))
+    """The "dots" policy is ported now (dit.py:252-268): the name stays, the
+    check is that it runs and gives the gradient of "full" remat, bit for
+    bit on the CPU (it keeps products, never changes them)."""
+    grads = {}
+    for policy in ("full", "dots"):
+        _, pcfg, _, pp = _pair(checkpoint_activations=True, remat_policy=policy)
+        leaves = {k: v.requires_grad_(True) for k, v in pckpt.flatten_tree(pp).items()}
+        h = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (1, 8, TINY["dim"])).astype(np.float32))
+        out = pdit.dit_backbone(pckpt.unflatten_tree(leaves), pcfg, h,
+                                torch.ones((1, TINY["dim"])), dropout_seed=5)
+        out.square().sum().backward()
+        grads[policy] = {k: v.grad for k, v in leaves.items()}
+    for k, g in grads["full"].items():
+        torch.testing.assert_close(grads["dots"][k], g, rtol=0, atol=0)
 
 
 # --- CFM loss -----------------------------------------------------------------
@@ -340,14 +352,53 @@ def test_resumed_port_run_repeats_an_uninterrupted_one(tmp_path, batching):
                                   _tiny_t_params()[1]["input_proj"]["w"].numpy().T)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(ckpt_format="orbax"),
+def _two_updates(ckpt_dir: str, **options) -> list[float]:
+    _, pparams = _tiny_t_params()
+    return Trainer(pparams, DiTConfig(**TINY_T), **dict(_trainer_kw(ckpt_dir), **options)).train(
+        pds.CustomDataset(_mel_rows(), preprocessed_mel=True), resumable_with_seed=666,
+        max_updates=2, log_every=1)["losses"]
+
+
+@functools.lru_cache(maxsize=1)
+def _default_two_updates() -> list[float]:
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        return _two_updates(d)
+
+
+@pytest.mark.parametrize("kwargs", [dict(mesh="1 x 1"), dict(ckpt_format="orbax"),
                                     dict(logger="wandb")],
                          ids=["mesh", "orbax", "wandb"])
-def test_trainer_options_not_ported_raise(kwargs, tmp_path):
-    _, pparams = _tiny_t_params()
-    kw = dict(_trainer_kw(str(tmp_path)), **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(pparams, DiTConfig(**TINY_T), **kw)
+def test_trainer_options_not_ported_raise(kwargs, tmp_path, monkeypatch):
+    """The three Trainer options that raised before they were ported (a mesh,
+    the sharded "orbax" checkpoint, the wandb logger) each build a Trainer
+    whose two updates equal the default Trainer's; wandb stubbed (absent
+    here), the mesh one of this process alone (gloo, world size 1)."""
+    import sys
+    import types
+
+    import torch.distributed as dist
+
+    from korean_f5_tts_tpu_torch.parallel.mesh import make_mesh
+
+    logged = []
+    stub = types.ModuleType("wandb")
+    stub.init = lambda **kw: None
+    stub.log = lambda d, step: logged.append((step, sorted(d)))
+    monkeypatch.setitem(sys.modules, "wandb", stub)
+    if kwargs.get("mesh"):
+        kwargs = {"mesh": make_mesh(1, 1, device="cpu")}
+    try:
+        losses = _two_updates(str(tmp_path), **kwargs)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert losses == _default_two_updates() and len(losses) == 2
+    if "ckpt_format" in kwargs:
+        assert (tmp_path / "model_last_orbax" / ".metadata").exists()
+    if "logger" in kwargs:
+        assert logged == [(1, ["loss"]), (2, ["loss"])]
 
 
 def test_batches_and_collate_match_jax():
