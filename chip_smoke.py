@@ -224,6 +224,21 @@ Phases (any failure raises and exits non-zero):
      one card measure correctness and launches, not a tensor-parallel speed.
      Phase 2 also holds A, B, 4-8, 10, 11, 13 and 14 at the tp 2 and tp 4
      shard shapes.
+ 13. head dim 128 and 8 channels a conv-pos group, run before phase 6 (phase
+     2's check_head_dim128 holds every d = 128 form of A, 10-13, 18, 14 in
+     its four forms and its pass, bf16 and fp32, and C at 8 channels, at
+     their main shapes and edges, each timed beside its bound, plain version
+     and library call): (b) F5TTS_v1_Base's widths with 8 heads of 128,
+     depth 22, seeded weights, the bench protocol on every attn_path (19
+     steps aside: A 352), under attn_int8 "qk" and "qkpv", with int8
+     weights, and one fp32 chunk per attn_path and per attn_int8 mode, each
+     with exact launches and its mel against the plain versions (5e-2;
+     fp32 1e-4); (c) bf16 and fp32 training steps at 8 x 1280, 8 blocks,
+     full remat (10 16, 11 8, 13 8), a "dots" step, and the backward's own
+     entry point (A, 12, 13); (d) a DiT of dim 128 (1 head of 128: C at 8
+     channels a group) in bf16 and fp32; (e) a DiT of dim_head 96 on every
+     attn_path and attn_int8 mode: no attention kernel launches, sdpa equal
+     to the plain bf16 attention.
 Serving, the training steps, bench_train, offline inference and the LoRA
 run go the full depth of 22 blocks; only the Trainer runs of phases 6 and
 10(d) are cut to 4 and the fp32 step against the CPU to 2 (nothing else was
@@ -297,6 +312,16 @@ REPLACES = {
     "flash_prefix_i8_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:889",
     "flash_prefix_i8_qk_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:889",
     "flash_prefix_i8_quant_f32": "korean_f5_tts_tpu/ops/flash_prefix.py:901",
+    # the forms at head dim 128 (the JAX dispatch's d in (64, 128)) and kernel C at 8
+    # channels a group (the TPU kernel's block-diagonal packing, grouped_conv.py:53-64)
+    **{f"flash_prefix{f}_d128": "korean_f5_tts_tpu/ops/flash_prefix.py:770" for f in ("", "_f32")},
+    **{f"{base}{f}_d128": f"korean_f5_tts_tpu/ops/flash_prefix.py:{line}"
+       for base, line in (("flash_prefix_lse", 612), ("flash_prefix_dq_lsein", 1033),
+                          ("flash_prefix_dq", 978), ("flash_prefix_dkv", 1151),
+                          ("flash_prefix_rope", 1424), ("flash_prefix_i8", 889),
+                          ("flash_prefix_i8_qk", 889), ("flash_prefix_i8_quant", 901))
+       for f in ("", "_f32")},
+    **{f"grouped_conv{f}_g8": "korean_f5_tts_tpu/ops/grouped_conv.py:69" for f in ("", "_f32")},
 }
 SOURCES = {
     "flash_prefix": "korean_f5_tts_tpu_torch/csrc/flash_prefix.cu",
@@ -329,6 +354,14 @@ SOURCES = {
     "flash_prefix_i8_f32": "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh",
     "flash_prefix_i8_qk_f32": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8_f32.cu",
     "flash_prefix_i8_quant_f32": "korean_f5_tts_tpu_torch/csrc/quant_heads.cu",
+    **{f"{base}{f}_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_d128.cu"
+       for base in ("flash_prefix", "flash_prefix_lse", "flash_prefix_dq_lsein", "flash_prefix_dq",
+                    "flash_prefix_dkv", "flash_prefix_rope") for f in ("", "_f32")},
+    **{f"{base}{f}_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8_d128.cu"
+       for base in ("flash_prefix_i8", "flash_prefix_i8_qk") for f in ("", "_f32")},
+    **{f"flash_prefix_i8_quant{f}_d128": "korean_f5_tts_tpu_torch/csrc/quant_heads.cu"
+       for f in ("", "_f32")},
+    **{f"grouped_conv{f}_g8": "korean_f5_tts_tpu_torch/csrc/grouped_conv.cu" for f in ("", "_f32")},
 }
 # published peaks of the H100 SXM (dense): the roofline a kernel's time is held against
 # ("fp32": FFMA outside the tensor cores; "fp32_3xtf32": an fp32-accurate product on
@@ -369,8 +402,11 @@ def fail(msg: str) -> None:
 # flash_prefix_fwd_tf32_kernel, of 11-13, of B, 7, 8 in ln_mod_gemm_tf32_kernel
 # and gated_residual_gemm_tf32_kernel, of C in grouped_conv_tf32_kernel, of 14
 # "qk" in flash_prefix_i8_qk_tf32_kernel, and the .tf32 probes); A's fp32 FFMA
-# kernel at d = 128; 14's pass
-SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "quant_heads_kernel")
+# kernel at d = 128; 14's pass; the d = 128 forms (flash_prefix_d128.cu,
+# flash_prefix_int8_d128.cu: "d128" in their names; A, 10, 18 in bf16 the
+# mma.sync forward at D = 128)
+SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "quant_heads_kernel", "d128",
+                 "flash_prefix_fwd_kernelILi128")
 
 
 def ptxas_faults(log: str) -> list[str]:
@@ -1968,7 +2004,7 @@ def flash_library_times(q, k, v, do, kv, lse, dvec) -> tuple[float, float]:
     if len(set(kv.tolist())) != 1 or kv[0].item() != q.shape[1]:
         fail("flash_library_times: the yardstick needs every kv_len = n")
     q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
-    scale = 1.0 / 8.0  # 1 / sqrt(64)
+    scale = q.shape[-1] ** -0.5
     aten = torch.ops.aten
     fwd = lambda: aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, False, False,
                                                             scale=scale)
@@ -3990,20 +4026,21 @@ def expected_train_launches(steps: int, depth: int = DEPTH, f32: bool = False) -
     return want
 
 
-def drive_attention_bwd(dev, lens, dtype) -> dict[str, int]:
+def drive_attention_bwd(dev, lens, dtype, d: int = 64) -> dict[str, int]:
     """The attention backward's own entry point at the training shape:
     flash_prefix_attention_bwd without the forward's lse (the JAX contract,
     flash_prefix.py:1246-1297) runs kernel A for o, kernel 12 for dq and the
-    lse, and kernel 13, in the forms of `dtype` (bf16 or fp32). Counted on
-    its own; held against autograd of the plain attention (relative L2: the
-    Function's bound 2e-2 in bf16, F32_GRAD_REL in fp32)."""
+    lse, and kernel 13, in the forms of `dtype` (bf16 or fp32) and of head
+    dim d (64: 16 heads; 128: 8). Counted on its own; held against autograd
+    of the plain attention (relative L2: the Function's bound 2e-2 in bf16,
+    F32_GRAD_REL in fp32)."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    q, k, v, g = (torch.randn((TRAIN_B, 16, TRAIN_N, 64), generator=gen, device=dev)
+    q, k, v, g = (torch.randn((TRAIN_B, 1024 // d, TRAIN_N, d), generator=gen, device=dev)
                   .to(dtype) for _ in range(4))
     reset_launch_counts()
     got = fp.flash_prefix_attention_bwd(q, k, v, lens, g)
@@ -4015,14 +4052,15 @@ def drive_attention_bwd(dev, lens, dtype) -> dict[str, int]:
     errs = [_rel(a, b) for a, b in zip(got, want)]
     f32 = dtype == torch.float32
     rel_bound = F32_GRAD_REL if f32 else 2e-2
-    print(f"  flash_prefix_attention_bwd(lse=None) on {dtype}, b {TRAIN_B} x 16 heads, n "
+    print(f"  flash_prefix_attention_bwd(lse=None) on {dtype}, b {TRAIN_B} x {1024 // d} heads "
+          f"of {d}, n "
           f"{TRAIN_N}, kv {lens.tolist()}: dq/dk/dv rel_err "
           f"{', '.join(f'{e:.3e}' for e in errs)} (bound {rel_bound:.0e})")
     if not all(torch.isfinite(t).all() and t.dtype == dtype for t in got) or \
             max(errs) > rel_bound:
         fail(f"flash_prefix_attention_bwd on {dtype} disagrees with the plain backward")
     expected = dict.fromkeys(KERNELS, 0)
-    tag = "_f32" if f32 else ""
+    tag = ("_f32" if f32 else "") + ("_d128" if d == 128 else "")
     expected.update({f"flash_prefix{tag}": 1, f"flash_prefix_dq{tag}": 1,
                      f"flash_prefix_dkv{tag}": 1})
     print(f"  its launches: {counts} (expected {expected})")
@@ -4659,25 +4697,27 @@ def launches_of(**counts) -> dict[str, int]:
 
 
 def sample_and_hold(label: str, model, vocoder, want: dict[str, int], *,
-                    attn_path: str = "default", card: str = "", rtf: bool = False) -> None:
+                    attn_path: str = "default", card: str = "", rtf: bool = False,
+                    attn_int8: str | None = None) -> None:
     """One bench-protocol utterance (cond 432, total 1376, bucket 1536, 160
     text tokens, CFG 2, sway -1, EPSS, 16 steps) with kernels, its exact
     launch counts, its mel against the plain versions' (relative L2 over the
     valid rows, bound 5e-2, the bf16 sampler's bound of phases 4 and 9);
-    with rtf, the RTF over 5 timed runs and one utterance's device time."""
+    attn_int8 as the sampler's; with rtf, the RTF over 5 timed runs and one utterance's device time."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
 
     inputs = bench_inputs(model.device)
     total = 1376
-    synthesize(model, vocoder, inputs, attn_path=attn_path)  # warm-up
+    synthesize(model, vocoder, inputs, attn_path=attn_path, attn_int8=attn_int8)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
-    mel_k, wav_k = synthesize(model, vocoder, inputs, attn_path=attn_path)
+    mel_k, wav_k = synthesize(model, vocoder, inputs, attn_path=attn_path, attn_int8=attn_int8)
     torch.cuda.synchronize()
     counts = launch_counts()
-    mel_p, _ = synthesize(model, vocoder, inputs, kernels=False, attn_path=attn_path)
+    mel_p, _ = synthesize(model, vocoder, inputs, kernels=False, attn_path=attn_path,
+                          attn_int8=attn_int8)
     a, b = mel_k[:, :total].float(), mel_p[:, :total].float()
     err = ((a - b).norm() / b.norm()).item()
     print(f"  {label}: mel rel err, kernels vs plain {err:.3e} (bound 5e-2), mean |mel| "
@@ -4693,12 +4733,12 @@ def sample_and_hold(label: str, model, vocoder, want: dict[str, int], *,
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
-            synthesize(model, vocoder, inputs, attn_path=attn_path)
+            synthesize(model, vocoder, inputs, attn_path=attn_path, attn_int8=attn_int8)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        synthesize(model, vocoder, inputs, attn_path=attn_path)
+        synthesize(model, vocoder, inputs, attn_path=attn_path, attn_int8=attn_int8)
         end.record()
         torch.cuda.synchronize()
         mean = sum(times) / len(times)
@@ -5319,9 +5359,669 @@ def phase12_parallel(dev, card: str) -> dict[str, int]:
     return phase12_train_paths(dev, card)
 
 
+# ---------------------------------------------------------------------------
+# head dim 128 (and 8 channels a conv-pos group): phase 2's checks of the
+# forms and phase 13's paths
+# ---------------------------------------------------------------------------
+
+
+# the attention kernels' edges at d = 128 (64-row blocks, 64-key tiles): n 1,
+# 63-65, 127-129, 1536; kv_len 0, 1, 63-65, n; keys past kv_len at +-1e4
+D128_EDGES = (
+    (1, [1, 0], None),
+    (63, [0, 1, 63], None),
+    (64, [1, 63, 64], None),
+    (65, [0, 1, 63, 64, 65], 1e4),
+    (127, [1, 65, 127], None),
+    (128, [0, 1, 64, 127, 128], None),
+    (129, [1, 63, 64, 65, 128, 129], 1e4),
+    (1536, [0, 1, 65, 1376, 1536], 1e4),
+)
+# kernel 14 at d = 128: (B, heads, n, kv_lens, keys and values past kv_len),
+# the tiles' edges and the 512-key chunk's (several chunks, kv_len inside the
+# last one, on a chunk boundary and at n)
+I8_D128_EDGES = (
+    (1, 2, 1, [1], 0.0),
+    (2, 2, 63, [0, 63], 0.0),
+    (2, 2, 64, [1, 64], 1e4),
+    (2, 2, 65, [64, 65], 0.0),
+    (3, 2, 127, [0, 1, 127], 1e4),
+    (2, 2, 129, [128, 129], 0.0),
+    (3, 2, 640, [600, 512, 640], 1e4),
+    (2, 8, 1536, [1376, 1536], 1e4),
+)
+SERVE_D128 = (16, 1536, 1376)  # folded heads (2 items x 8), n, kv_len: the serving shape
+TRAIN_D128 = (64, 1280)        # folded heads (8 items x 8), n: the training shape
+
+
+def _d128_tag(dtype) -> tuple[str, str, float, float]:
+    """(counter suffix, label, o bound, gradient bound) of a dtype's forms."""
+    import torch
+
+    if dtype == torch.float32:
+        return "_f32", "fp32", F32_ATTN_REL, F32_GRAD_REL
+    return "", "bf16", 1e-2, 1e-2
+
+
+def check_attention_d128(gen, dev) -> dict[str, dict]:
+    """Kernels A, 10, 11, 12 and 13 at d = 128 (csrc/flash_prefix_d128.cu:
+    mma.sync in bf16, FFMA in fp32) against their plain versions, both
+    dtypes, at the serving shape (A: 16 heads, n 1536, 1376 keys), the
+    training shape (10-13: 64 heads, n 1280, every key valid), a ragged case
+    and D128_EDGES; bf16 o and gradients within 1e-2, fp32 o and lse within
+    F32_ATTN_REL and gradients within F32_GRAD_REL, with a TF32 control that
+    must fail those; a head with kv_len 0 gives zeros and lse 0. Each form
+    timed beside its bound, its plain version and the library call."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f, name, rel_o, rel_g = _d128_tag(dtype)
+
+        def inputs(H, n, lens, past=None):
+            q, k, v, do = (torch.randn((H, n, 128), generator=gen, device=dev).to(dtype)
+                           for _ in range(4))
+            if past is not None:  # keys past kv_len that win every max unless masked first
+                for h, L in enumerate(lens):
+                    k[h, L:] = past * q[h].float().mean(0).sign().to(dtype)
+            return q, k, v, do, torch.as_tensor(lens, dtype=torch.int32, device=dev)
+
+        def plain(q, k, v, do, kv):
+            o, lse = fp.prefix_attention_lse_reference(q, k, v, kv)
+            o[kv == 0] = 0  # no valid key: zeros (the kernels'), not the plain uniform mean
+            dvec = (do.float() * o.float()).sum(-1)
+            dq = fp.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv)
+            return o, lse, dvec, dq, *fp.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+
+        def case(label, H, n, lens, past=None):
+            q, k, v, do, kv = inputs(H, n, lens, past)
+            o, lse, dvec, dq_p, dk_p, dv_p = plain(q, k, v, do, kv)
+            label = f"d=128 {name} {label}"
+            oa = fp.flash_prefix_folded(q, k, v, kv)
+            err = {"flash_prefix": compare(f"kernel A {label}", oa, o, rel_o)[0]}
+            o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
+            err["flash_prefix_lse"] = compare(f"kernel 10 o {label}", o10, o, rel_o)[0]
+            compare(f"kernel 10 lse {label}", lse10, lse, F32_ATTN_REL)
+            zero = n == 1  # dq and dk are identically zero there (compare's note)
+            dq11 = fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
+            err["flash_prefix_dq_lsein"] = compare(f"kernel 11 dq {label}", dq11, dq_p, rel_g,
+                                                   zero=zero)[0]
+            dq12, lse12 = fp.flash_prefix_dq(q, k, v, do, dvec, kv)
+            err["flash_prefix_dq"] = compare(f"kernel 12 dq {label}", dq12, dq_p, rel_g,
+                                             zero=zero)[0]
+            compare(f"kernel 12 lse {label}", lse12, lse, F32_ATTN_REL)
+            dk, dv = fp.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+            err["flash_prefix_dkv"] = max(
+                compare(f"kernel 13 dk {label}", dk, dk_p, rel_g, zero=zero)[0],
+                compare(f"kernel 13 dv {label}", dv, dv_p, rel_g)[0])
+            torch.cuda.synchronize()
+            none = kv == 0
+            if none.any():
+                worst = max(t[none].abs().max().item()
+                            for t in (oa, o10, lse10, dq11, dq12, lse12, dk, dv))
+                if worst != 0:
+                    fail(f"the d = 128 forms {label}: a head with kv_len 0 is not zero")
+            return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
+
+        print(f"kernels A, 10-13 at d = 128, {name} ({'mma.sync' if not f else 'FFMA'}; rel "
+              f"bound {rel_o:.0e} for o, {F32_ATTN_REL:.0e} for lse, {rel_g:.0e} for dq, dk, dv)")
+        H, n = TRAIN_D128
+        errs, main = case(f"training main H={H} n={n} kv=n", H, n, [n] * H)
+        q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p = main
+        mixed = torch.randint(1, 1201, (8,), generator=gen, device=dev).tolist()
+        case(f"ragged H=8 n=1200 kv={mixed}", 8, 1200, mixed)
+        for n_, lens, past in D128_EDGES:
+            case(f"edge n={n_} kv={lens}{' keys past kv_len at +-1e4' if past else ''}",
+                 len(lens), n_, lens, past)
+        if f:  # the control: the same plain versions with TF32 on fail the bounds
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                o_t, _, _, dq_t, dk_t, dv_t = plain(q, k, v, do, kv)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            ctl = {"o": (_rel(o_t, o), F32_ATTN_REL), "dq": (_rel(dq_t, dq_p), F32_GRAD_REL),
+                   "dk": (_rel(dk_t, dk_p), F32_GRAD_REL), "dv": (_rel(dv_t, dv_p), F32_GRAD_REL)}
+            print("  control, the plain versions with TF32 on against TF32 off at the training "
+                  "shape: " + ", ".join(f"{nm} {r:.3e} (must fail {bd:.0e})"
+                                        for nm, (r, bd) in ctl.items()))
+            if any(r <= bd for r, bd in ctl.values()):
+                fail("the TF32 control passes the fp32 bounds at d = 128")
+
+        kind = "fp32" if f else "bf16"
+        train = (q, k, v, do, dvec, lse, kv)
+        timed = {
+            "flash_prefix_lse": (lambda: fp.flash_prefix_folded_lse(q, k, v, kv),
+                                 lambda: fp.prefix_attention_lse_reference(q, k, v, kv), 4,
+                                 (q, k, v, kv, q, lse)),
+            "flash_prefix_dq_lsein": (lambda: fp.flash_prefix_dq_lsein(*train),
+                                      lambda: fp.flash_prefix_dq_lsein_reference(*train), 6,
+                                      (*train, q)),
+            "flash_prefix_dq": (lambda: fp.flash_prefix_dq(q, k, v, do, dvec, kv),
+                                lambda: fp.flash_prefix_dq_reference(q, k, v, do, dvec, kv), 6,
+                                (q, k, v, do, dvec, kv, q, lse)),
+            "flash_prefix_dkv": (lambda: fp.flash_prefix_dkv(*train),
+                                 lambda: fp.flash_prefix_dkv_reference(*train), 8,
+                                 (*train, k, v)),
+        }
+        for base, (fn, plain_fn, products, io) in timed.items():
+            print(f"  {base}{f}_d128 at the training shape:")
+            out[f"{base}{f}_d128"] = {"max_abs_err": errs[base],
+                                      **_timed(fn, plain_fn, products * H * n * n * 128, io,
+                                               kind=kind)}
+        if f:  # PyTorch's memory-efficient attention on fp32: forward with lse, backward
+            aten = torch.ops.aten
+            q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+            fwd = lambda: aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True, 0.0, False, scale=128 ** -0.5)
+            lo = fwd()[0]
+            print(f"  library forward (efficient attention, fp32): o rel {_rel(lo[0], o):.3e}")
+            lib_fwd = cuda_time_ms(fwd)
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                                           scale=128 ** -0.5)
+            bwd = lambda: torch.autograd.grad(lib_out, leaves, do4, retain_graph=True)
+            print(f"  library backward: dq rel {_rel(bwd()[0][0], dq_p):.3e}")
+            lib_bwd = cuda_time_ms(bwd)
+            del leaves, lib_out
+        else:
+            lib_fwd, lib_bwd = flash_library_times(q, k, v, do, kv, lse, dvec)
+        out[f"flash_prefix_lse{f}_d128"]["library_ms"] = lib_fwd
+        out[f"flash_prefix_dkv{f}_d128"]["library_ms"] = lib_bwd  # 11 + 13 together
+        both = out[f"flash_prefix_dq_lsein{f}_d128"]["ms"] + out[f"flash_prefix_dkv{f}_d128"]["ms"]
+        print(f"  library: forward {lib_fwd:.4f} ms (10 {out[f'flash_prefix_lse{f}_d128']['ms']:.4f}"
+              f" ms), backward {lib_bwd:.4f} ms (11 + 13 {both:.4f} ms)")
+
+        # kernel A at the serving shape, beside the library on sliced keys
+        Hs, ns, L = SERVE_D128
+        q, k, v, _, kv = inputs(Hs, ns, [L] * Hs)
+        want = fp.prefix_attention_reference(q, k, v, kv)
+        got = fp.flash_prefix_folded(q, k, v, kv)
+        err = compare(f"kernel A d=128 {name} serving main H={Hs} n={ns} kv={L}", got, want,
+                      rel_o)[0]
+        print(f"  flash_prefix{f}_d128 at the serving shape:")
+        r = _timed(lambda: fp.flash_prefix_folded(q, k, v, kv),
+                   lambda: fp.prefix_attention_reference(q, k, v, kv),
+                   4.0 * Hs * ns * L * 128, (q, k, v, kv, got), kind=kind)
+        if f:
+            call = efficient_f32_sliced(q, k, v, kv)
+            print(f"  library: efficient attention on sliced keys, rel {_rel(call(), want):.1e}")
+            r["library_ms"] = cuda_time_ms(call)
+        else:
+            r["library_ms"] = min(ms for ms, _ in sdpa_times(q, k, v, kv, want).values())
+        print(f"  kernel A d=128 {name}: {r['ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+        out[f"flash_prefix{f}_d128"] = {"max_abs_err": err, **r}
+        del q, k, v, do, main, train, timed
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_rope_d128(gen, dev) -> dict[str, dict]:
+    """Kernel 18 at d = 128 (flash_prefix_fwd_kernel's rope form in bf16, the
+    FFMA kernel's in fp32) against its plain version (rope_reference's
+    rounding, then the prefix attention) and against kernel A on
+    rope_reference-roped inputs, to the bit (the rotation is the only
+    difference), at the serving shape ([2, 8, 1536, 128], 1376 keys) and at
+    edges (pe_attn_head, kv_len 0, keys past kv_len at +-1e4)."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    out = {}
+    cases = ((2, 8, 1536, [1376, 1376], None, None), (3, 2, 65, [0, 65, 1], 1, 1e4),
+             (2, 2, 129, [128, 129], None, 1e4), (1, 4, 1, [1], 2, None),
+             (2, 2, 1000, [1000, 63], None, None))
+    for dtype in (torch.bfloat16, torch.float32):
+        f, name, rel_o, _ = _d128_tag(dtype)
+        print(f"kernel 18 at d = 128, {name} (rel bound {rel_o:.0e}; equal to kernel A on "
+              "rope_reference-roped inputs)")
+        for B, h, n, lens, pe, past in cases:
+            q, k, v = (torch.randn((B, h, n, 128), generator=gen, device=dev) for _ in range(3))
+            for i, L in enumerate(lens if past else ()):
+                k[i, :, L:] = past
+                v[i, :, L:] = -past
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+            cos, sin = (torch.from_numpy(t).to(dev) for t in rope_cos_sin(n, 128))
+            label = f"d=128 {name} B={B} heads={h} n={n} kv={lens} pe_attn_head={pe}"
+            got = fp.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe)
+            want = fp.flash_prefix_rope_reference(q, k, v, kv, cos, sin, pe)
+            want[kv == 0] = 0
+            err = compare(f"kernel 18 {label}", got, want, rel_o)[0]
+            (qf, kf, vf), lens_h = fp._fold(fp.rope_reference(q, cos, sin, pe),
+                                            fp.rope_reference(k, cos, sin, pe), v, kv)
+            via_a = fp.flash_prefix_folded(qf, kf, vf, lens_h).reshape(q.shape)
+            torch.cuda.synchronize()
+            if not torch.equal(got, via_a):
+                fail(f"kernel 18 {label}: not kernel A on the roped inputs to the bit")
+            if (B, h, n) == (2, 8, 1536):
+                print(f"  flash_prefix_rope{f}_d128 at the serving shape:")
+                r = _timed(lambda: fp.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe),
+                           lambda: fp.flash_prefix_rope_reference(q, k, v, kv, cos, sin, pe),
+                           4.0 * B * h * n * lens[0] * 128, (q, k, v, kv, cos, sin, got),
+                           kind="fp32" if f else "bf16")
+                if f:  # the library's attention on the roped inputs
+                    r["library_ms"] = cuda_time_ms(efficient_f32_sliced(qf, kf, vf, lens_h))
+                else:
+                    r["library_ms"] = cuda_time_ms(sdpa_sliced(qf, kf, vf, lens_h))
+                out[f"flash_prefix_rope{f}_d128"] = {"max_abs_err": err, **r}
+    return out
+
+
+def check_int8_d128(gen, dev) -> dict[str, dict]:
+    """Kernel 14 at d = 128 (csrc/flash_prefix_int8_d128.cu) in its four
+    forms ("qkpv" with a bf16 and an fp32 output, "qk" on bf16 and on fp32
+    v) and its pass at d = 128 (csrc/quant_heads.cu), against their plain
+    versions at the serving shape ([2, 8, 1536, 128], 1376 keys) and at
+    I8_D128_EDGES: the pass to the bit, 14 within the d = 64 forms' bounds
+    (bf16: "qkpv" 2e-3, "qk" 5e-3; fp32: "qkpv" INT8_F32_REL, "qk"
+    F32_ATTN_REL, with a bf16 control and, for "qk", a TF32 control that
+    must fail them); at the serving shape 4x nearer the plain version at the
+    512-key chunk than at the 128-key tile (chunk_check), and its
+    quantization error against kernel A at d = 128 printed."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f, name, _, _ = _d128_tag(dtype)
+        bounds = {"qkpv": INT8_F32_REL if f else 2e-3, "qk": F32_ATTN_REL if f else 5e-3}
+        print(f"kernel 14 at d = 128 and its pass, {name} inputs (rel bounds {bounds})")
+        main = None
+        for B, H, n, lens, past in ((2, 8, 1536, [1376, 1376], 0.0),) + I8_D128_EDGES:
+            q, k, v = (torch.randn((B, H, n, 128), generator=gen, device=dev) for _ in range(3))
+            for i, L in enumerate(lens if past else ()):
+                for t in (k, v):
+                    sign = torch.randint(0, 2, (H, n - L, 128), generator=gen, device=dev)
+                    t[i, :, L:] = past * (2.0 * sign - 1)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+            label = f"d=128 {name} B={B} heads={H} n={n} kv={lens}{' past +-1e4' if past else ''}"
+            for pv_i8 in (True, False):  # the pass, to the bit
+                got = fp.quantize_heads(q, k, v, pv_i8)
+                q8, k8, vq, c, sv = fp._quantize_qkv(q, k, v, pv_i8)
+                want = (q8, k8, fp._v8_kernel_layout(vq) if pv_i8 else vq, c, sv)
+                for g, w in zip(got, want):
+                    if g.shape != w.shape or not torch.equal(g, w):
+                        fail(f"quantization pass {label}: not its plain version to the bit")
+            lens_h = kv.repeat_interleave(H)
+            live = lens_h > 0
+            errs = {}
+            for mode, pv_i8 in (("qkpv", True), ("qk", False)):
+                got = fp.flash_prefix_attention_i8(q, k, v, kv, pv_i8=pv_i8).reshape(B * H, n, 128)
+                want = fp.flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=pv_i8)
+                torch.cuda.synchronize()
+                if got.dtype != dtype or ((~live).any() and got[~live].abs().max().item() != 0):
+                    fail(f"kernel 14 {mode} {label}: wrong dtype or a head with no key not zero")
+                errs[mode] = compare(f"kernel 14 {mode} {label}", got[live], want[live],
+                                     bounds[mode])[0]
+                if main is None and f:  # the controls, at the serving shape
+                    control = _rel(want[live].bfloat16(), want[live])
+                    print(f"    control: the plain output through bf16 reads rel {control:.3e}"
+                          f" (must fail {bounds[mode]:.0e})")
+                    if control <= bounds[mode]:
+                        fail(f"kernel 14 fp32 {mode}: the bound does not catch a bf16 step")
+                    if mode == "qk":
+                        tf32_control("kernel 14 fp32 qk d=128", lambda: fp.flash_prefix_i8_reference(
+                            q, k, v, lens_h, pv_i8=False)[live], want[live], bounds[mode])
+            if main is None:
+                main = (q, k, v, kv, lens_h, errs)
+        q, k, v, kv, lens_h, errs = main
+        B, H, n, L = 2, 8, 1536, 1376
+        q8, k8, v8k, c, sv = fp.quantize_heads(q, k, v, True)
+        _, _, vq, _, _ = fp.quantize_heads(q, k, v, False)
+        v8 = fp._v8_natural_layout(v8k, n)
+        fold = [t.reshape(B * H, n, 128).contiguous() for t in (q, k, v)]
+        via_a = fp.flash_prefix_folded(*fold, lens_h)
+        rows = (torch.arange(n, device=dev)[None, :, None] < lens_h[:, None, None])
+        for mode, pv_i8, vv in (("qkpv", True, v8k), ("qk", False, vq)):
+            got = fp.flash_prefix_folded_i8(q8, k8, vv, c, sv, lens_h, pv_i8=pv_i8,
+                                            out_dtype=dtype)
+            if mode == "qkpv" or not f:  # fp32 "qk" keeps p fp32: the chunk moves no rounding
+                chunk_check(f"{mode} {name} d=128 main", got, q8, k8, v8 if pv_i8 else vq, c,
+                            sv, lens_h, pv_i8)
+            qe = ((got.float() - via_a.float()).abs() * rows)
+            print(f"    {mode} {name} vs kernel A at d = 128 on the same inputs: max "
+                  f"{qe.max().item():.3e}, mean {(qe.sum() / (rows.sum() * 128)).item():.3e} "
+                  "(printed)")
+            counter = f"flash_prefix_i8{'' if pv_i8 else '_qk'}{f}_d128"
+            # S at the int8 rate; P.V at int8 ("qkpv"), bf16 or the 3xTF32 rate (fp32):
+            # counted as that kind, the S half scaled by the rates' ratio
+            half = 2.0 * B * H * n * L * 128
+            kind = "int8" if pv_i8 else ("fp32" if f else "bf16")
+            peak = PEAK_OPS["fp32_3xtf32" if kind == "fp32" else kind]
+            ops = half + half * peak / PEAK_OPS["int8"]
+            print(f"  {counter} at the serving shape:")
+            r = _timed(lambda: fp.flash_prefix_folded_i8(q8, k8, vv, c, sv, lens_h, pv_i8=pv_i8,
+                                                         out_dtype=dtype),
+                       lambda: fp._i8_attention_plain(q8, k8, v8 if pv_i8 else vq, c, sv, lens_h,
+                                                      pv_i8, fp.I8_KEY_CHUNK),
+                       ops, (q8, k8, vv, c, sv, lens_h, got), kind=kind)
+            out[counter] = {"max_abs_err": errs[mode], **r}
+        print(f"  flash_prefix_i8_quant{f}_d128 (qkpv) at the serving shape:")
+        r = _timed(lambda: fp.quantize_heads(q, k, v, True),
+                   lambda: fp._v8_kernel_layout(fp._quantize_qkv(q, k, v, True)[2]), 0.0,
+                   (q, k, v, q8, k8, v8k, c, sv), kind="int8")
+        out[f"flash_prefix_i8_quant{f}_d128"] = {"max_abs_err": 0.0, **r}  # equal to the bit
+        del main, q, k, v, q8, k8, v8k, vq, v8, fold, via_a
+        torch.cuda.empty_cache()
+    return out
+
+
+G8_EDGES = ((1, 1), (2, 15), (3, 16), (1, 17), (2, 127), (3, 128), (1, 129), (2, 1536))
+
+
+def check_conv_g8(gen, dev) -> dict[str, dict]:
+    """Kernel C at 8 channels a group (dim 128, 16 groups, 31 taps): the
+    pairs of groups packed block-diagonally (ops/grouped_conv.py:
+    pack_group_pairs) into the 16-channel instantiation at 8 groups, one
+    launch a call on its own counter, against the plain grouped conv at N 1,
+    15-17, 127-129, 1536 and B 1-3, with and without bias and Mish (bf16
+    rel 5e-3, fp32 F32_REL with cuDNN's TF32 off), timed at [2, 1536, 128]
+    beside the library's conv1d(groups=16) + Mish."""
+    import torch
+    import torch.nn.functional as F
+
+    from korean_f5_tts_tpu_torch.ops import grouped_conv as gc
+
+    out = {}
+    C, cg = 128, 8
+    for dtype, rel in ((torch.bfloat16, 5e-3), (torch.float32, F32_REL)):
+        f = "_f32" if dtype == torch.float32 else ""
+        counter = f"launches{f}_g8"
+        bnd = (cg * 31) ** -0.5
+        w = ((torch.rand((31, cg, C), generator=gen, device=dev) * 2 - 1) * bnd).to(dtype)
+        b = ((torch.rand((C,), generator=gen, device=dev) * 2 - 1) * bnd).to(dtype)
+        tag = "fp32" if f else "bf16"
+        print(f"kernel C at 8 channels a group, {tag} (rel {rel:.0e})")
+        err = 0.0
+        for B, N in G8_EDGES:
+            x = torch.randn((B, N, C), generator=gen, device=dev).to(dtype)
+            for bias, mish in ((True, True), (False, True), (True, False), (False, False)):
+                be = b if bias else None
+                before = (getattr(gc, counter), gc.launches, gc.launches_f32)
+                got = gc.grouped_conv1d_mish(x, w, be, 16, mish)
+                if (getattr(gc, counter), gc.launches, gc.launches_f32) != (before[0] + 1,
+                                                                             *before[1:]):
+                    fail(f"kernel C g8 {tag}: not one launch on its own counter")
+                err = max(err, compare(f"grouped_conv {tag} cg=8 B={B} N={N} bias={bias} "
+                                       f"mish={mish}", got,
+                                       gc.grouped_conv1d_mish_reference(x, w, be, 16, mish),
+                                       rel)[0])
+        x = torch.randn((2, 1536, C), generator=gen, device=dev).to(dtype)
+        got = gc.grouped_conv1d_mish(x, w, b, 16)
+        flop = 2.0 * 2 * 1536 * C * cg * 31  # the function's products, not the packed zeros
+        print(f"  grouped_conv{f}_g8 at [2, 1536, 128]:")
+        r = _timed(lambda: gc.grouped_conv1d_mish(x, w, b, 16),
+                   lambda: gc.grouped_conv1d_mish_reference(x, w, b, 16), flop, (x, w, b, got),
+                   kind="fp32" if f else "bf16")
+        wt = w.permute(2, 1, 0).contiguous()
+        comp = lambda: F.mish(F.conv1d(x.transpose(1, 2), wt, b, padding=15, groups=16))
+        r["library_composition_ms"] = cuda_time_ms(comp)
+        print(f"  library composition conv1d(groups=16) + Mish: {r['library_composition_ms']:.4f}"
+              " ms (two calls: no one call computes the function)")
+        out[f"grouped_conv{f}_g8"] = {"max_abs_err": err, **r}
+    return out
+
+
+def check_head_dim128(gen, dev) -> dict[str, dict]:
+    """Phase 2's part for head dim 128 and 8 channels a conv-pos group."""
+    out = check_attention_d128(gen, dev)
+    out.update(check_rope_d128(gen, dev))
+    out.update(check_int8_d128(gen, dev))
+    out.update(check_conv_g8(gen, dev))
+    return out
+
+
+def d128_arch(**kw):
+    """F5TTS_v1_Base's widths with 8 heads of 128 (dim 1024, ff_mult 2,
+    text_dim 512), or those given."""
+    from korean_f5_tts_tpu_torch.config import PRESETS, DiTConfig
+
+    return DiTConfig(**{**PRESETS["F5TTS_v1_Base"]["arch"], "heads": 8, "dim_head": 128,
+                        "text_num_embeds": 2545, **kw})
+
+
+def d128_model(dev, arch, dtype, quantize: bool = False):
+    from korean_f5_tts_tpu_torch.config import ModelConfig
+    from korean_f5_tts_tpu_torch.infer.model import load_model
+    from korean_f5_tts_tpu_torch.models.dit import count_params, redraw_zero_init
+
+    model = load_model(ModelConfig(name="F5TTS_v1_Base", backbone="DiT", arch=arch), dtype=dtype,
+                       seed=0, device=dev, quantize=quantize)
+    redraw_zero_init(model.params, seed=1)
+    print(f"  DiT dim {arch.dim} depth {arch.depth} heads {arch.heads}x{arch.dim_head} ff_mult "
+          f"{arch.ff_mult}: {count_params(model.params) / 1e6:.1f} M params, "
+          f"{'int8 block linears, ' if quantize else ''}{str(dtype).split('.')[-1]}")
+    return model
+
+
+def renamed_d128(want: dict[str, int], attn_path: str, attn_int8: str | None) -> dict[str, int]:
+    """expected_launches' counts for the same path on a model with 128-wide
+    heads: every attention kernel's d = 128 form, kernel 19 none (the
+    unfused path runs kernel A), 14 "qk" on its own counter."""
+    out = dict(want)
+    for name in ("flash_prefix", "flash_prefix_rope", "flash_prefix_i8",
+                 "flash_prefix_i8_quant", "flash_prefix_qkv"):
+        n = out.pop(name, 0)
+        out[name] = 0
+        if not n:
+            continue
+        to = {"flash_prefix_qkv": "flash_prefix",
+              "flash_prefix_i8": "flash_prefix_i8_qk" if attn_int8 == "qk" else name}.get(name,
+                                                                                         name)
+        out[f"{to}_d128"] = out.get(f"{to}_d128", 0) + n
+    return out
+
+
+def sample_fp32_and_hold(label: str, model, vocoder, want: dict[str, int],
+                         attn_path: str = "default", attn_int8: str | None = None) -> None:
+    """One fp32 chunk of the bench protocol (the offline entry points' own
+    dtype) with kernels, exact launches, the mel against the plain
+    versions' within F32_REL over the valid rows (5e-2 under attn_int8, the
+    int8 attention's bound of phase 8)."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    inputs = tuple(t.float() if torch.is_tensor(t) and t.is_floating_point() else t
+                   for t in bench_inputs(model.device))
+    reset_launch_counts()
+    mel_k, _ = synthesize(model, vocoder, inputs, attn_path=attn_path, attn_int8=attn_int8)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    mel_p, _ = synthesize(model, vocoder, inputs, kernels=False, attn_path=attn_path,
+                          attn_int8=attn_int8)
+    err = _rel(mel_k[:, :1376], mel_p[:, :1376])
+    bound_ = 5e-2 if attn_int8 else F32_REL
+    print(f"  {label}: fp32 mel rel err, kernels vs plain {err:.3e} (bound {bound_:.0e}); "
+          f"launches {({k: v for k, v in counts.items() if v})}")
+    if not torch.isfinite(mel_k).all() or err > bound_:
+        fail(f"{label}: the fp32 sampler with kernels disagrees with the plain versions")
+    if counts != want:
+        fail(f"{label}: launches {counts}, expected {({k: v for k, v in want.items() if v})}")
+
+
+def phase13_head_dim128(dev, card: str) -> dict[str, int]:
+    """Phase 13: F5TTS_v1_Base's widths with 8 heads of 128 served (every
+    attn_path, int8 weights, attn_int8 "qk" and "qkpv"; one fp32 chunk per
+    attn_path) and trained (bf16 and fp32, full remat, and "dots"); a DiT of
+    dim 128 (conv-pos at 8 channels a group); a DiT of dim_head 96 (plain
+    attention by shape, as JAX)."""
+    import dataclasses
+
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.models.vocos import Vocos, VocosConfig, init_vocos
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+    from korean_f5_tts_tpu_torch.ops.attention import sdpa
+    from korean_f5_tts_tpu_torch.train.step import loss_and_grads
+
+    t_all = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            total[k_] += v_
+
+    def lap(tag, t0):
+        print(f"  phase 13{tag}: {time.perf_counter() - t0:.1f} s [{card}]")
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    print("phase 13(b): F5TTS_v1_Base widths with 8 heads of 128, depth 22, seeded weights, "
+          "the bench protocol")
+    vcfg = VocosConfig()
+    vocoder = Vocos(init_vocos(vcfg, seed=1, device=dev, dtype=torch.bfloat16), vcfg)
+    arch = d128_arch()
+    model = d128_model(dev, arch, torch.bfloat16)
+    for path in ("default", "linear_fused", "rope_in_kernel", "qkv_kernel"):
+        want = renamed_d128(expected_launches("bf16", 1, path), path, None)
+        sample_and_hold(f"d=128 bf16 attn_path {path}", model, vocoder, want, attn_path=path,
+                        card=card, rtf=path == "default")
+        add(want)
+    for mode in ("qk", "qkpv"):
+        want = renamed_d128(expected_launches("bf16", 1, attn_int8=mode), "default", mode)
+        sample_and_hold(f"d=128 bf16 attn_int8 {mode}", model, vocoder, want, attn_int8=mode)
+        add(want)
+    del model
+    model = d128_model(dev, arch, torch.bfloat16, quantize=True)
+    # batch 1 without a duration mask: 5 and 6 fuse the projections, kernel 9 does not run
+    want = {**renamed_d128(expected_launches("int8", 1), "default", None), "qmatmul": 0}
+    sample_and_hold("d=128 int8 weights", model, vocoder, want)
+    add(want)
+    del model
+    torch.cuda.empty_cache()
+    model = d128_model(dev, arch, torch.float32)
+    voc32 = Vocos(init_vocos(vcfg, seed=1, device=dev, dtype=torch.float32), vcfg)
+    per = DEPTH * STEPS
+    for path in ("default", "linear_fused", "rope_in_kernel", "qkv_kernel"):
+        attn = "flash_prefix_rope_f32_d128" if path == "rope_in_kernel" else "flash_prefix_f32_d128"
+        want = launches_of(**{attn: per, "ff_block_f32": per, "grouped_conv_f32": 2 * STEPS},
+                           **({"ln_mod_matmul_f32": per, "proj_gated_residual_f32": per}
+                              if path == "linear_fused" else {}))
+        sample_fp32_and_hold(f"d=128 fp32 attn_path {path}", model, voc32, want, path)
+        add(want)
+    for mode in ("qk", "qkpv"):
+        want = launches_of(**{f"flash_prefix_i8{'_qk' if mode == 'qk' else ''}_f32_d128": per,
+                              "flash_prefix_i8_quant_f32_d128": per, "ff_block_f32": per,
+                              "grouped_conv_f32": 2 * STEPS})
+        sample_fp32_and_hold(f"d=128 fp32 attn_int8 {mode}", model, voc32, want, attn_int8=mode)
+        add(want)
+    del model
+    torch.cuda.empty_cache()
+    t0 = lap("(b)", t0)
+
+    print(f"phase 13(c): training at 8 heads of 128, {BACKBONE_TRAIN_DEPTH} blocks, "
+          f"{TRAIN_B} x {TRAIN_N}, full remat, then 'dots'")
+    tarch = dataclasses.replace(arch, depth=BACKBONE_TRAIN_DEPTH, checkpoint_activations=True)
+    params = redraw_zero_init(init_dit(tarch, seed=0, device=dev), seed=1)
+    batch = train_batch(dev)
+    d = BACKBONE_TRAIN_DEPTH
+    for dtype, bound_ in ((torch.bfloat16, TRAIN_REL), (None, F32_GRAD_REL)):
+        f = "" if dtype else "_f32"
+        want = launches_of(**{f"flash_prefix_lse{f}_d128": 2 * d,
+                              f"flash_prefix_dq_lsein{f}_d128": d,
+                              f"flash_prefix_dkv{f}_d128": d})
+        reset_launch_counts()
+        loss_k, g_k = loss_and_grads(params, batch, 5, tarch, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        loss_p, g_p = loss_and_grads(params, batch, 5, tarch, compute_dtype=dtype, kernels=False)
+        gk = torch.cat([g.flatten().float() for g in g_k])
+        gp = torch.cat([g.flatten().float() for g in g_p])
+        grel, lrel = _rel(gk, gp), abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        print(f"  (c) {'bf16' if dtype else 'fp32'} step: loss {loss_k.item():.5f} (plain "
+              f"{loss_p.item():.5f}, rel {lrel:.2e}), gradient rel L2 {grel:.3e} (bound "
+              f"{bound_:.0e}); launches {({k_: v_ for k_, v_ in counts.items() if v_})}")
+        if not torch.isfinite(gk).all() or grel > bound_ or lrel > bound_:
+            fail(f"phase 13 (c) {'bf16' if dtype else 'fp32'}: the step disagrees with plain")
+        if counts != want:
+            fail(f"phase 13 (c): launches {counts}, expected {want}")
+        add(counts)
+        if dtype is not None:  # one step under "dots": the attention output is kept
+            reset_launch_counts()
+            _, g_d = loss_and_grads(params, batch, 5,
+                                    dataclasses.replace(tarch, remat_policy="dots"),
+                                    compute_dtype=dtype)
+            torch.cuda.synchronize()
+            cd = launch_counts()
+            gdr = _rel(torch.cat([g.flatten().float() for g in g_d]), gk)
+            print(f"  (c) 'dots' bf16 step: gradient rel L2 {gdr:.3e} to 'full' (bound 1e-3); "
+                  f"kernel 10 {cd['flash_prefix_lse_d128']} (one a block)")
+            if gdr > 1e-3 or cd["flash_prefix_lse_d128"] != d:
+                fail("phase 13 (c): 'dots' is not 'full' with the attention output kept")
+            add(cd)
+            del g_d
+        del g_k, g_p, gk, gp
+        torch.cuda.empty_cache()
+        # the backward's own entry point without the lse: A, 12, 13 at d = 128
+        add(drive_attention_bwd(dev, batch["lens"], dtype or torch.float32, d=128))
+    del params, batch
+    t0 = lap("(c)", t0)
+
+    print("phase 13(d): a DiT of dim 128 (1 head of 128, depth 4): conv-pos at 8 channels a "
+          "group")
+    small = d128_arch(dim=128, depth=4, heads=1, text_dim=128)
+    model = d128_model(dev, small, torch.bfloat16)
+    want = launches_of(flash_prefix_d128=small.depth * STEPS, ff_block=small.depth * STEPS,
+                       grouped_conv_g8=2 * STEPS)
+    sample_and_hold("dim 128 DiT", model, vocoder, want)
+    add(want)
+    model = d128_model(dev, small, torch.float32)
+    want = launches_of(flash_prefix_f32_d128=small.depth * STEPS,
+                       ff_block_f32=small.depth * STEPS, grouped_conv_f32_g8=2 * STEPS)
+    sample_fp32_and_hold("dim 128 DiT", model, voc32, want)
+    add(want)
+    del model, voc32
+    t0 = lap("(d)", t0)
+
+    print("phase 13(e): a DiT with dim_head 96 (8 heads, dim 768, depth 4): the plain attention "
+          "by shape, as the JAX package")
+    arch96 = d128_arch(dim=768, depth=4, heads=8, dim_head=96)
+    model = d128_model(dev, arch96, torch.bfloat16)
+    per96 = arch96.depth * STEPS
+    for path in ("default", "linear_fused", "rope_in_kernel", "qkv_kernel"):
+        want = launches_of(ff_block=per96, **({"ln_mod_matmul": per96,
+                                                "proj_gated_residual": per96}
+                                               if path == "linear_fused" else {}))
+        sample_and_hold(f"dim_head 96 attn_path {path}", model, vocoder, want, attn_path=path)
+        add(want)
+    for mode in ("qk", "qkpv"):
+        sample_and_hold(f"dim_head 96 attn_int8 {mode}", model, vocoder,
+                        launches_of(ff_block=per96), attn_int8=mode)
+        add(launches_of(ff_block=per96))
+    del model
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn((2, 8, 1536, 96), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor([1376, 1000], dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    plain = sdpa(q, k, v, lens, kernels=False)
+    same = [torch.equal(sdpa(q, k, v, lens, attn_int8=m), plain) for m in (None, "qk", "qkpv")]
+    moved = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+    print(f"  sdpa at d = 96 with kernels, attn_int8 None / 'qk' / 'qkpv': equal to the plain "
+          f"attention in bf16 {same}; launches {moved}")
+    if not all(same) or moved:
+        fail("phase 13 (e): d = 96 did not take the plain bf16 attention by shape")
+    del q, k, v, vocoder
+    torch.cuda.empty_cache()
+    lap("(e)", t0)
+    print(f"phase 13: {time.perf_counter() - t_all:.1f} s [{card}]")
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, an int8 "
@@ -5416,6 +6116,7 @@ def main(argv=None) -> int:
         results.update(check_fp32_forms(gen, dev))
         results.update(check_fp32_attn_paths(gen, dev))
         check_tp_shards(gen, dev)
+        results.update(check_head_dim128(gen, dev))
         from korean_f5_tts_tpu_torch.scripts import probe_hopper
 
         probe_hopper.run(dev)
@@ -5469,6 +6170,10 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             for name, n in phase11_backbones(dev, card, Path(tmp)).items():
                 counts[name] += n
+        torch.cuda.empty_cache()
+    if 13 in phases:  # before 6: the profiler slows every launch after it
+        for name, n in phase13_head_dim128(dev, card).items():
+            counts[name] += n
         torch.cuda.empty_cache()
     lora_profile = None
     if 10 in phases:  # before 6: the profiler slows every launch after it

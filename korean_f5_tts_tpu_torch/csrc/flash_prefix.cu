@@ -18,16 +18,17 @@
 // P.V on wgmma with P in registers, the next tile's S product overlapping
 // this tile's softmax, the warpgroups' products in turns.
 //
-// bf16 at D = 128 stays on the first port's mma.sync loop
-// (flash_prefix_fwd_kernel in flash_prefix.cuh): one
-// 128-thread block per (folded head, 64-row query tile), each warp 16 query
-// rows held as mma A fragments, 64-key K/V tiles loaded synchronously into
-// shared memory, S = q.k^T and O += P.V on mma.sync m16n8k16 with P
-// re-packed in registers; the KV loop stops at ceil(kv_len / 64) tiles (the
-// TPU kernel's `prune`), the partial last tile is masked per column, rows
-// past n are zero-filled and never stored. f5_flash_prefix_fwd_mma runs that
-// loop at D = 64 too, so that chip_smoke.py can time the two designs in one
-// process; no serving or inference path calls it.
+// At D = 128 (bf16 and fp32) every form runs in flash_prefix_d128.cu, the
+// entry points below hand the call there: bf16 on the first port's mma.sync
+// loop (flash_prefix_fwd_kernel in flash_prefix.cuh): one 128-thread block
+// per (folded head, 64-row query tile), each warp 16 query rows held as mma
+// A fragments, 64-key K/V tiles loaded synchronously into shared memory, S =
+// q.k^T and O += P.V on mma.sync m16n8k16 with P re-packed in registers; the
+// KV loop stops at ceil(kv_len / 64) tiles (the TPU kernel's `prune`), the
+// partial last tile is masked per column, rows past n are zero-filled and
+// never stored. f5_flash_prefix_fwd_mma runs that loop at D = 64 too, so
+// that chip_smoke.py can time the two designs in one process; no serving or
+// inference path calls it.
 //
 // Numerics (both bf16 designs): online-max softmax (running max and
 // denominator in fp32) with log2(e) folded into the scale, so exp is exp2.
@@ -81,17 +82,15 @@
 // ops/flash_prefix.py:rope_reference on fp32 to the bit), so that 18, 19
 // and A's form on torch-roped inputs agree to the bit.
 //
-// d = 128 (flash_prefix_f32_kernel, chosen by the shape in
-// f5_flash_prefix_f32_fwd): plain FFMA on shared-memory tiles, bounded by
-// the 67 TFLOP/s of fp32 outside the tensor cores. Its hi and lo tiles would
-// not fit a block's shared memory at 128 queries (270 KB); no path of the
-// DiT runs it (its heads are 64 wide). One 256-thread block per (head,
-// 64-row query tile), 4 x 8 outputs a thread; q and k tiles transposed
-// ([c][row]) so the inner loop reads float4; p through shared memory
-// between the two products; the same online softmax, pruning and masking.
+// d = 128 (flash_prefix_d128.cu: flash_prefix_f32_kernel, chosen by the
+// shape in f5_flash_prefix_f32_fwd and f5_flash_prefix_f32_fwd_lse): plain
+// FFMA on shared-memory tiles, bounded by the 67 TFLOP/s of fp32 outside the
+// tensor cores; its hi and lo tiles would not fit a block's shared memory at
+// 128 queries (270 KB).
 #include "attn_tf32.cuh"
 #include "attn_wgmma.cuh"
 #include "flash_prefix.cuh"
+#include "flash_prefix_d128.cuh"
 
 namespace f5 {
 namespace {
@@ -243,173 +242,6 @@ cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// d = 128: FFMA
-// ---------------------------------------------------------------------------
-
-constexpr int kF32Threads = 256;
-constexpr int kF32D = 128;
-constexpr int kF32LD = 64 + 4;  // row stride of the [c][row] and [row][key] tiles
-
-// rows [row0, row0 + 64) of a [n, 128] head, transposed into dst[c][row];
-// rows at or past n give zeros. Consecutive threads take consecutive rows:
-// the shared-memory stores are conflict-free.
-__device__ __forceinline__ void load_rows_t_f32(float* dst, const float* src, int row0, int n,
-                                                int tid) {
-  for (int i = tid; i < 64 * (kF32D / 4); i += kF32Threads) {
-    const int r = i & 63;
-    const int c = (i >> 6) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kF32D + c);
-    dst[(c + 0) * kF32LD + r] = v.x;
-    dst[(c + 1) * kF32LD + r] = v.y;
-    dst[(c + 2) * kF32LD + r] = v.z;
-    dst[(c + 3) * kF32LD + r] = v.w;
-  }
-}
-
-// sum / max over the 16 lanes that share a query row
-__device__ __forceinline__ float row16_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float row16_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// Thread (ty, tx) of the 16 x 16 block owns query rows ty * 4 + i, score
-// columns tx * 4 + j and output columns tx * 4 + j and 64 + tx * 4 + j.
-__global__ void __launch_bounds__(kF32Threads)
-flash_prefix_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const int* __restrict__ kv_lens,
-                        float* __restrict__ out, int n, float scale_log2) {
-  constexpr int D = kF32D;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQt = reinterpret_cast<float*>(smem_raw);  // [D][68]
-  float* sKt = sQt + D * kF32LD;                    // [D][68]
-  float* sV = sKt + D * kF32LD;                     // [64][D]
-  float* sP = sV + 64 * D;                          // [64][68]
-  const int q0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const size_t off = (size_t)blockIdx.y * n * D;
-  const int kv_len = min(kv_lens[blockIdx.y], n);
-
-  load_rows_t_f32(sQt, q + off, q0, n, tid);
-
-  float o[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-  }
-
-  const int n_tiles = kv_len > 0 ? (kv_len + 63) / 64 : 0;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * 64;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows_t_f32(sKt, k + off, k0, n, tid);
-    for (int i = tid; i < 64 * (D / 4); i += kF32Threads) {
-      const int r = i / (D / 4);
-      const int c = (i % (D / 4)) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < n) val = *reinterpret_cast<const float4*>(v + off + (size_t)(k0 + r) * D + c);
-      *reinterpret_cast<float4*>(sV + r * D + c) = val;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(sQt + c * kF32LD + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(sKt + c * kF32LD + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-    // online softmax of this tile; tile 0 holds key 0 < kv_len, so the
-    // running max is finite from then on
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = k0 + tx * 4 + j < kv_len ? s[i][j] * scale_log2 : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_run[i], row16_max(mx));
-      const float alpha = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l_run[i] = l_run[i] * alpha + row16_sum(rs);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
-      *reinterpret_cast<float4*>(sP + (ty * 4 + i) * kF32LD + tx * 4) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int key = 0; key < 64; ++key) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * kF32LD + key];
-#pragma unroll
-      for (int gg = 0; gg < 2; ++gg) {
-        const float4 b = *reinterpret_cast<const float4*>(sV + key * D + gg * 64 + tx * 4);
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[i][gg * 4 + j] = fmaf(p[i], bv[j], o[i][gg * 4 + j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= n) continue;
-    const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;  // kv_len == 0: zeros
-#pragma unroll
-    for (int gg = 0; gg < 2; ++gg)
-      *reinterpret_cast<float4*>(out + off + (size_t)row * D + gg * 64 + tx * 4) =
-          make_float4(o[i][gg * 4] * inv, o[i][gg * 4 + 1] * inv, o[i][gg * 4 + 2] * inv,
-                      o[i][gg * 4 + 3] * inv);
-  }
-}
-
-cudaError_t launch_fwd_f32_d128(const void* q, const void* k, const void* v, const void* kv_lens,
-                                void* out, int H, int n, float scale_log2, cudaStream_t stream) {
-  constexpr int smem = (2 * kF32D * kF32LD + 64 * kF32D + 64 * kF32LD) * (int)sizeof(float);
-  static std::atomic<bool> ready[kMaxDevices];
-  const cudaError_t err = allow_smem(flash_prefix_f32_kernel, smem, ready);
-  if (err != cudaSuccess) return err;
-  flash_prefix_f32_kernel<<<dim3((n + 63) / 64, H), kF32Threads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(kv_lens), static_cast<float*>(out), n, scale_log2);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace f5
 
@@ -432,7 +264,7 @@ extern "C" int f5_flash_prefix_fwd(const void* q, const void* k, const void* v,
     return (int)f5::launch_attn_fwd_wgmma<false>(q, k, v, kv_lens, out, nullptr, H, n,
                                                  scale_log2, s);
   if (d == 128)
-    return (int)f5::launch_fwd<128>(q, k, v, kv_lens, out, H, n, scale_log2, s);
+    return (int)f5::d128::fwd(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, false, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -459,21 +291,24 @@ extern "C" int f5_flash_prefix_f32_fwd(const void* q, const void* k, const void*
   if (d == 64)
     return (int)f5::launch_fwd_tf32<false, false>(q, k, v, kv_lens, out, nullptr, H, n,
                                                   scale_log2, f5::F32Heads{}, s);
-  if (d == 128) return (int)f5::launch_fwd_f32_d128(q, k, v, kv_lens, out, H, n, scale_log2, s);
+  if (d == 128)
+    return (int)f5::d128::fwd(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, true, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// kernel 10's fp32 form: the same with lse [H, n] fp32 (d = 64, as the
-// other training kernels)
+// kernel 10's fp32 form: the same with lse [H, n] fp32 (d 64 or 128)
 extern "C" int f5_flash_prefix_f32_fwd_lse(const void* q, const void* k, const void* v,
                                            const void* kv_lens, void* out, void* lse, int H,
                                            int n, int d, float scale_log2, int device,
                                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!attn_dims_ok(H, n) || d != 64) return (int)cudaErrorInvalidValue;
+  if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 128) return (int)f5::d128::fwd(q, k, v, kv_lens, out, lse, H, n, scale_log2, true, s);
+  if (d != 64) return (int)cudaErrorInvalidValue;
   return (int)f5::launch_fwd_tf32<true, false>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
-                                               f5::F32Heads{}, static_cast<cudaStream_t>(stream));
+                                               f5::F32Heads{}, s);
 }
 
 // kernel 18's fp32 form: q, k, v, out [B, heads, n, 64] fp32 (q and k before

@@ -1,10 +1,10 @@
 // Tiles, warp-level products, the online-softmax step and the forward loop
-// of the first port's mma.sync attention, shared by kernel A at d = 128
-// (flash_prefix.cu; d = 64 runs on attn_wgmma.cuh), the dq kernels 11 and
-// 12 (flash_prefix_train.cu; 10 and 13 run on attn_wgmma.cuh and
-// attn_bwd_wgmma.cuh), and the probes of the rope loop's idioms
-// (probe_hopper.cu: the strided and rope loaders, which kernels 18 and 19
-// ran on before they moved to attn_wgmma.cuh's rope form).
+// of the first port's mma.sync attention: kernel A at d = 128 and its lse
+// and rope forms, kernels 10 and 18 at d = 128 (flash_prefix_fwd_kernel;
+// d = 64 runs on attn_wgmma.cuh), the dq and dk/dv kernels 11, 12 and 13 at
+// d = 128 (flash_prefix_d128.cu; d = 64 runs on attn_bwd_wgmma.cuh), kernel
+// 14 at d = 128 (flash_prefix_int8_d128.cu), and the probes of the rope
+// loop's idioms (probe_hopper.cu: the strided and rope loaders at d = 64).
 //
 // A block is 128 threads over a 64-row tile; each warp owns 16 of the rows.
 // Shared tiles are [64][D + 8] bf16 (mma.cuh's padded stride); rows at or
@@ -36,39 +36,42 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-// head dim of the strided loaders below (probe_hopper.cu)
+// head dim of the strided loaders' default (probe_hopper.cu)
 constexpr int kD = 64;
 constexpr int kLD = kD + 8;
 
-// rows [row0, row0 + 64) of one head (row stride ld) into a [64][72] shared
-// tile; rows at or past n are zero-filled
+// rows [row0, row0 + 64) of one head (row stride ld) into a [64][D + 8]
+// shared tile; rows at or past n are zero-filled
+template <int D = kD>
 __device__ __forceinline__ void load_rows_strided(bf16* dst, const bf16* src, size_t ld, int row0,
                                                   int n, int tid) {
-  for (int i = tid; i < 64 * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
+  for (int i = tid; i < 64 * (D / 8); i += kThreads) {
+    const int r = i / (D / 8);
+    const int c = (i % (D / 8)) * 8;
     int4 val = make_int4(0, 0, 0, 0);
     if (row0 + r < n) val = *reinterpret_cast<const int4*>(src + (size_t)(row0 + r) * ld + c);
-    *reinterpret_cast<int4*>(dst + r * kLD + c) = val;
+    *reinterpret_cast<int4*>(dst + r * (D + 8) + c) = val;
   }
 }
 
 // the same, with the half-split rotation applied on the way: cos, sin are
-// [n, 32] bf16 tables
+// [n, D / 2] bf16 tables; the arithmetic in fp32, one rounding of each
+// result (ops/flash_prefix.py:rope_reference)
+template <int D = kD>
 __device__ __forceinline__ void load_rows_rope(bf16* dst, const bf16* src, size_t ld, int row0,
                                                int n, const bf16* __restrict__ cos,
                                                const bf16* __restrict__ sin, int tid) {
-  for (int i = tid; i < 64 * (kD / 16); i += kThreads) {
-    const int r = i / (kD / 16);
-    const int c = (i % (kD / 16)) * 8;  // 0, 8, 16, 24: the partner is at c + 32
+  for (int i = tid; i < 64 * (D / 16); i += kThreads) {
+    const int r = i / (D / 16);
+    const int c = (i % (D / 16)) * 8;  // the partner is at c + D / 2
     int4 lo = make_int4(0, 0, 0, 0), hi = make_int4(0, 0, 0, 0);
     const int row = row0 + r;
     if (row < n) {
       const bf16* p = src + (size_t)row * ld + c;
       const int4 xlo = *reinterpret_cast<const int4*>(p);
-      const int4 xhi = *reinterpret_cast<const int4*>(p + kD / 2);
-      const int4 cr = *reinterpret_cast<const int4*>(cos + (size_t)row * (kD / 2) + c);
-      const int4 sr = *reinterpret_cast<const int4*>(sin + (size_t)row * (kD / 2) + c);
+      const int4 xhi = *reinterpret_cast<const int4*>(p + D / 2);
+      const int4 cr = *reinterpret_cast<const int4*>(cos + (size_t)row * (D / 2) + c);
+      const int4 sr = *reinterpret_cast<const int4*>(sin + (size_t)row * (D / 2) + c);
       const bf16* a = reinterpret_cast<const bf16*>(&xlo);
       const bf16* b = reinterpret_cast<const bf16*>(&xhi);
       const bf16* ce = reinterpret_cast<const bf16*>(&cr);
@@ -85,12 +88,14 @@ __device__ __forceinline__ void load_rows_rope(bf16* dst, const bf16* src, size_
           cc[u] = __bfloat162float(ce[e + u]);
           ss[u] = __bfloat162float(se[e + u]);
         }
-        plo[e / 2] = pack_bf16x2(x1[0] * cc[0] - x2[0] * ss[0], x1[1] * cc[1] - x2[1] * ss[1]);
-        phi[e / 2] = pack_bf16x2(x2[0] * cc[0] + x1[0] * ss[0], x2[1] * cc[1] + x1[1] * ss[1]);
+        plo[e / 2] = pack_bf16x2(__fsub_rn(__fmul_rn(x1[0], cc[0]), __fmul_rn(x2[0], ss[0])),
+                                 __fsub_rn(__fmul_rn(x1[1], cc[1]), __fmul_rn(x2[1], ss[1])));
+        phi[e / 2] = pack_bf16x2(__fadd_rn(__fmul_rn(x2[0], cc[0]), __fmul_rn(x1[0], ss[0])),
+                                 __fadd_rn(__fmul_rn(x2[1], cc[1]), __fmul_rn(x1[1], ss[1])));
       }
     }
-    *reinterpret_cast<int4*>(dst + r * kLD + c) = lo;
-    *reinterpret_cast<int4*>(dst + r * kLD + c + kD / 2) = hi;
+    *reinterpret_cast<int4*>(dst + r * (D + 8) + c) = lo;
+    *reinterpret_cast<int4*>(dst + r * (D + 8) + c + D / 2) = hi;
   }
 }
 
@@ -120,6 +125,29 @@ __device__ __forceinline__ void mma_abt(float (&s)[kNS][4], const uint32_t (&a)[
       ldmatrix_x4(b, b_nk_addr(tile + (nt * 8) * LD + kk * 16, LD, lane));
       mma_bf16_16816(s[nt], a[kk], b[0], b[1]);
       mma_bf16_16816(s[nt + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// the same product with the A rows read from a shared [64][D + 8] tile as
+// it goes (this warp's 16 rows): the dq and dk/dv kernels keep Q, dO, K and
+// V in shared memory instead of holding their fragments in registers
+template <int D>
+__device__ __forceinline__ void mma_abt_s(float (&s)[kNS][4], const bf16* ta, const bf16* tb,
+                                          int warp, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_frag_addr(ta + (warp * 16) * LD + kk * 16, LD, lane));
+#pragma unroll
+    for (int nt = 0; nt < kNS; nt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_nk_addr(tb + (nt * 8) * LD + kk * 16, LD, lane));
+      mma_bf16_16816(s[nt], a, b[0], b[1]);
+      mma_bf16_16816(s[nt + 1], a, b[2], b[3]);
     }
   }
 }
@@ -215,13 +243,28 @@ __device__ __forceinline__ void store_output_rows(bf16* out, int ld, const float
   }
 }
 
+// Where the rope form's heads lie (kernel 18 at d = 128): the operands are
+// contiguous [B, heads, n, D], so folded head blockIdx.y = item * heads + g
+// is the block [n, D] at blockIdx.y * n * D, as for kernel A; item b
+// attends keys [0, kv_lens[b]), and heads g < n_rope rotate q and k by the
+// [n, D / 2] tables cos, sin of the operands' dtype.
+struct RopeHeads {
+  int heads, n_rope;
+  const void* cos;
+  const void* sin;
+};
+
 // Forward: one block per (folded head, 64-row query tile); a row with no
-// valid key gets output 0.
-template <int D>
+// valid key gets output 0. kLse (kernel 10 at d = 128): each row's base-2
+// logsumexp lse = m + log2(l) of the scaled scores, 0 for a row with no
+// valid key. kRope (kernel 18 at d = 128): q and k of the rotating heads
+// are rotated as they are loaded into shared memory.
+template <int D, bool kLse = false, bool kRope = false>
 __global__ void __launch_bounds__(kThreads)
 flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ kv_lens,
-                        bf16* __restrict__ out, int n, float scale_log2) {
+                        bf16* __restrict__ out, float* __restrict__ lse, int n, float scale_log2,
+                        RopeHeads rh) {
   constexpr int LD = D + 8;
   constexpr int ND = D / 8;  // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -230,15 +273,22 @@ flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sV = sK + kBKV * LD;
 
   const int head = blockIdx.y;
+  const int item = kRope ? head / rh.heads : head;
+  const bool rot = kRope && head - item * rh.heads < rh.n_rope;  // block-uniform
+  const bf16* cos = static_cast<const bf16*>(rh.cos);
+  const bf16* sin = static_cast<const bf16*>(rh.sin);
   const int q0 = blockIdx.x * kBQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int t = lane & 3;
   const size_t off = (size_t)head * n * D;
-  const int kv_len = min(kv_lens[head], n);
+  const int kv_len = min(kv_lens[item], n);
 
-  load_rows<D>(sQ, q + off, q0, n, tid);
+  if (rot)
+    load_rows_rope<D>(sQ, q + off, D, q0, n, cos, sin, tid);
+  else
+    load_rows<D>(sQ, q + off, q0, n, tid);
   __syncthreads();
   uint32_t qf[D / 16][4];
   load_a_frags<D>(qf, sQ, warp, lane);
@@ -253,7 +303,10 @@ flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBKV;
     __syncthreads();  // the previous tile's readers are done
-    load_rows<D>(sK, k + off, k0, n, tid);
+    if (rot)
+      load_rows_rope<D>(sK, k + off, D, k0, n, cos, sin, tid);
+    else
+      load_rows<D>(sK, k + off, k0, n, tid);
     load_rows<D>(sV, v + off, k0, n, tid);
     __syncthreads();
 
@@ -265,26 +318,30 @@ flash_prefix_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   float inv[2];
+  const int row0 = q0 + warp * 16 + (lane >> 2);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float l = quad_sum(l_run[r]);
     inv[r] = l > 0.f ? 1.f / l : 0.f;  // kv_len == 0: zeros, as the TPU kernel
+    if (kLse && t == 0 && row0 + 8 * r < n)
+      lse[(size_t)head * n + row0 + 8 * r] = l > 0.f ? m_run[r] + log2f(l) : 0.f;
   }
-  const int row0 = q0 + warp * 16 + (lane >> 2);
   store_output_rows<ND>(out + off, D, o, inv, row0, n, t);
 }
 
-template <int D>
+template <int D, bool kLse = false, bool kRope = false>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
-                       void* out, int H, int n, float scale_log2, cudaStream_t stream) {
+                       void* out, int H, int n, float scale_log2, cudaStream_t stream,
+                       void* lse = nullptr, RopeHeads rh = RopeHeads{1, 0, nullptr, nullptr}) {
   const int smem = 3 * 64 * (D + 8) * (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefix_fwd_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefix_fwd_kernel<D, kLse, kRope>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((n + kBQ - 1) / kBQ, H);
-  flash_prefix_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_prefix_fwd_kernel<D, kLse, kRope><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(kv_lens), static_cast<bf16*>(out), n, scale_log2);
+      static_cast<const int*>(kv_lens), static_cast<bf16*>(out), static_cast<float*>(lse), n,
+      scale_log2, rh);
   return cudaGetLastError();
 }
 

@@ -35,6 +35,9 @@
 //   - fp32 operands: flash_prefix_train_f32.cu (11, 12, 13) and kernel A's
 //     fp32 kernel with an lse output (flash_prefix.cu, 10), split 3xTF32
 //     products on the tensor cores.
+//   - D = 128 (bf16 and fp32): flash_prefix_d128.cu, on the first port's
+//     mma.sync building blocks (flash_prefix.cuh) in bf16 and FFMA in fp32;
+//     the entry points below hand a d = 128 call there.
 // Rows past n are zero-filled on load and never stored; a row with no valid
 // key gets lse 0 and zero gradients.
 //
@@ -43,15 +46,17 @@
 // and its dk/dv kernel the fp32 product (:1173), so the bf16 bounds of the
 // comparisons cover that one rounding.
 #include "attn_bwd_wgmma.cuh"
+#include "flash_prefix_d128.cuh"
 
 namespace f5 {
 namespace {
 
-// the training kernels take D = 64 (the DiT's head dim) only
+// the training kernels take D = 64 (the DiT's head dim; the wgmma cores) and
+// D = 128 (flash_prefix_d128.cu)
 int check_args(int device, int H, int n, int d) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (H <= 0 || n <= 0 || H > 65535 || d != 64) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || n <= 0 || H > 65535 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
@@ -63,6 +68,9 @@ extern "C" int f5_flash_prefix_fwd_lse(const void* q, const void* k, const void*
                                        const void* kv_lens, void* out, void* lse, int H, int n,
                                        int d, float scale_log2, int device, void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
+  if (d == 128)
+    return (int)f5::d128::fwd(q, k, v, kv_lens, out, lse, H, n, scale_log2, false,
+                              static_cast<cudaStream_t>(stream));
   return (int)f5::launch_attn_fwd_wgmma<true>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
                                               static_cast<cudaStream_t>(stream));
 }
@@ -74,6 +82,9 @@ extern "C" int f5_flash_prefix_dq_lsein(const void* q, const void* k, const void
                                         float scale_log2, float sm_scale, int device,
                                         void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
+  if (d == 128)
+    return (int)f5::d128::dq(q, k, v, dout, dvec, lse, kv_lens, dq, nullptr, H, n, scale_log2,
+                             sm_scale, false, false, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_attn_dq_wgmma<false>(q, k, v, dout, dvec, lse, kv_lens, dq, nullptr, H,
                                               n, scale_log2, sm_scale,
                                               static_cast<cudaStream_t>(stream));
@@ -85,6 +96,9 @@ extern "C" int f5_flash_prefix_dq(const void* q, const void* k, const void* v,
                                   void* dq, void* lse_out, int H, int n, int d, float scale_log2,
                                   float sm_scale, int device, void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
+  if (d == 128)
+    return (int)f5::d128::dq(q, k, v, dout, dvec, nullptr, kv_lens, dq, lse_out, H, n,
+                             scale_log2, sm_scale, true, false, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_attn_dq_wgmma<true>(q, k, v, dout, dvec, nullptr, kv_lens, dq, lse_out,
                                              H, n, scale_log2, sm_scale,
                                              static_cast<cudaStream_t>(stream));
@@ -96,6 +110,9 @@ extern "C" int f5_flash_prefix_dkv(const void* q, const void* k, const void* v,
                                    const void* kv_lens, void* dk, void* dv, int H, int n, int d,
                                    float scale_log2, float sm_scale, int device, void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
+  if (d == 128)
+    return (int)f5::d128::dkv(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n, scale_log2,
+                              sm_scale, false, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_attn_dkv_wgmma(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n,
                                         scale_log2, sm_scale, static_cast<cudaStream_t>(stream));
 }

@@ -21,10 +21,14 @@
 //         min(CG, 64) (two at CG = 128, the window reloaded between them,
 //         one accumulator across both); at CG 16 and 32 the eight warps
 //         are 16 rows each, one m16 tile by CG / 8 n8 tiles.
-// Widths below 16 (dim < 256) have no instantiation: a wgmma is at least 16
-// deep in k and a TMA box row at least 16 bytes, so a group of 8 bf16
-// channels would need the TPU kernel's block-diagonal packing of several
-// groups into one product, which no preset needs; such a launch raises.
+// Widths below 16 have no instantiation of their own: a wgmma is at least 16
+// deep in k and a TMA box row at least 16 bytes. At 8 channels a group (dim
+// 128 at 16 groups, which the TPU kernel takes: 16 groups fill its 128-lane
+// block) the wrapper packs each pair of groups into one 16-channel group
+// with block-diagonal taps, the TPU kernel's packing (grouped_conv.py:53-64)
+// two groups deep (ops/grouped_conv.py:pack_group_pairs), and launches the
+// CG = 16 instantiation at groups / 2; the zeros off the diagonal double the
+// products, not the launches.
 // Widths that do not divide 128 (48 at dim 768, F5TTS_Small and E2TTS_Small)
 // never reach the kernel: conv-pos takes the plain convolution there, as the
 // JAX package does (models/modules.py:conv_position_embedding).

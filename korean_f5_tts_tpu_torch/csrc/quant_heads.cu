@@ -1,5 +1,5 @@
 // The quantization pass of int8 attention (kernel 14's operands), for Hopper
-// (sm_90a): one kernel from q, k, v [b, h, n, 64] bf16 or fp32 (views of any
+// (sm_90a): one kernel from q, k, v [b, h, n, d] bf16 or fp32, d 64 or 128 (views of any
 // item, head and row strides, rows contiguous) to what kernel 14 reads. On
 // fp32 inputs (the offline entry points' default weights) the amax and x *
 // (127 / a) are taken from the fp32 values as they are, never through bf16,
@@ -12,10 +12,10 @@
 //   x8   = clip(rint(x * (127 / a)), -127, 127)         (127 / a an IEEE
 //                                                      division, the product
 //                                                      one fp32 rounding)
-// and per head c = (aq * ak) * (log2(e) / 127^2 / sqrt(64)), sv = av *
+// and per head c = (aq * ak) * (log2(e) / 127^2 / sqrt(d)), sv = av *
 // (1 / 127^2), in the JAX wrapper's order of multiplication (the constants
-// arrive rounded to fp32, as the wrapper's are). It writes q8, k8 [H, n, 64]
-// int8 and, under "qkpv", v8 in kernel 14's layout [H, 64, n_pad]: keys
+// arrive rounded to fp32, as the wrapper's are). It writes q8, k8 [H, n, d]
+// int8 and, under "qkpv", v8 in kernel 14's layout [H, d, n_pad]: keys
 // contiguous, zero past n up to n_pad (a multiple of 128), and in every group
 // of 32 keys key 16h + 8j + 2t + e at slot 16h + 4t + 2j + e (the order in
 // which the kernel's score accumulator holds the keys, ops/flash_prefix.py:
@@ -38,7 +38,8 @@
 // shape were read just before and are served from L2) and writes q8, k8 rows
 // as 8-byte stores; v8 goes through shared memory a 128-key chunk at a time:
 // each quantized row is scattered to its permuted slot in a [64][128] byte
-// tile, which then leaves as 16-byte stores of whole 128-key rows. It
+// tile, which then leaves as 16-byte stores of whole 128-key rows (a template
+// on d: at d = 128 a row is 16 loads of 8 values and the v8 tile 18 KB). It
 // replaces five torch launches (the cat that folds the heads, amax, the
 // scaling, the rounding and clip, the v8 transpose) that took twice kernel
 // 14's time. Measured (PERF.md section 6): a third of the bound's rate;
@@ -65,7 +66,7 @@ constexpr int kQTileLd = kQChunk + 16;  // bytes a row of the v8 chunk tile (16-
 struct QuantHeadsArgs {
   const void* x[3];  // q, k, v: bf16 or fp32, all of one type
   long long sb[3], sh[3], sr[3];  // item, head and row strides of each, in elements
-  int8_t* out[3];                 // q8, k8 [H, n, 64]; v8 [H, 64, n_pad]
+  int8_t* out[3];                 // q8, k8 [H, n, d]; v8 [H, d, n_pad]
   float* c;                       // [H]
   float* sv;                      // [H]
   int heads, n, n_pad;
@@ -101,13 +102,14 @@ __device__ __forceinline__ int v8_slot(int r) {
   return (r & ~31) + (kk & 16) + 4 * ((kk >> 1) & 3) + 2 * ((kk >> 3) & 1) + (kk & 1);
 }
 
-template <int NT, typename T>
+template <int NT, typename T, int D>
 __global__ void __launch_bounds__(kQThreads)
 quant_heads_kernel(const __grid_constant__ QuantHeadsArgs a) {
+  constexpr int kSeg = D / 8;  // eight-value segments a row
   __shared__ float red[kQThreads / 32];
   __shared__ float part_amax;
   __shared__ float amax_of[NT];
-  __shared__ __align__(16) int8_t tile[NT == 3 ? 64 * kQTileLd : 16];
+  __shared__ __align__(16) int8_t tile[NT == 3 ? D * kQTileLd : 16];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tensor = rank / kQSplit, part = rank % kQSplit;
@@ -122,9 +124,9 @@ quant_heads_kernel(const __grid_constant__ QuantHeadsArgs a) {
 
   // pass 1: the amax of this block's rows, then of the head, through the cluster
   float amax = 0.f;
-  for (int i = tid; i < (r1 - r0) * 8; i += kQThreads) {
+  for (int i = tid; i < (r1 - r0) * kSeg; i += kQThreads) {
     float v[8];
-    load_row8(x + (r0 + (i >> 3)) * ld + (i & 7) * 8, v);
+    load_row8(x + (r0 + i / kSeg) * ld + (i % kSeg) * 8, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
   }
@@ -154,22 +156,22 @@ quant_heads_kernel(const __grid_constant__ QuantHeadsArgs a) {
 
   // pass 2: quantize (the rows come from L2) and write
   if (NT == 2 || tensor < 2) {
-    int8_t* o = a.out[tensor] + (size_t)head * a.n * 64;
-    for (int i = tid; i < (r1 - r0) * 8; i += kQThreads) {
-      const int r = r0 + (i >> 3), cc = (i & 7) * 8;
+    int8_t* o = a.out[tensor] + (size_t)head * a.n * D;
+    for (int i = tid; i < (r1 - r0) * kSeg; i += kQThreads) {
+      const int r = r0 + i / kSeg, cc = (i % kSeg) * 8;
       float v[8];
       load_row8(x + r * ld + cc, v);
       uint32_t w[2] = {0u, 0u};
 #pragma unroll
       for (int e = 0; e < 8; ++e) w[e >> 2] |= (uint32_t)(quant1(v[e], scale) & 0xff) << (8 * (e & 3));
-      *reinterpret_cast<uint2*>(o + (size_t)r * 64 + cc) = make_uint2(w[0], w[1]);
+      *reinterpret_cast<uint2*>(o + (size_t)r * D + cc) = make_uint2(w[0], w[1]);
     }
     return;
   }
-  int8_t* v8 = a.out[2] + (size_t)head * 64 * a.n_pad;
+  int8_t* v8 = a.out[2] + (size_t)head * D * a.n_pad;
   for (int ch = c0; ch < c1; ++ch) {
-    for (int i = tid; i < kQChunk * 8; i += kQThreads) {
-      const int r = i >> 3, cc = (i & 7) * 8, key = ch * kQChunk + r;
+    for (int i = tid; i < kQChunk * kSeg; i += kQThreads) {
+      const int r = i / kSeg, cc = (i % kSeg) * 8, key = ch * kQChunk + r;
       float v[8];
       if (key < a.n) {
         load_row8(x + key * ld + cc, v);
@@ -182,7 +184,7 @@ quant_heads_kernel(const __grid_constant__ QuantHeadsArgs a) {
       for (int e = 0; e < 8; ++e) tile[(cc + e) * kQTileLd + slot] = (int8_t)quant1(v[e], scale);
     }
     __syncthreads();
-    for (int i = tid; i < 64 * (kQChunk / 16); i += kQThreads) {
+    for (int i = tid; i < D * (kQChunk / 16); i += kQThreads) {
       const int d = i >> 3, seg = i & 7;
       *reinterpret_cast<uint4*>(v8 + (size_t)d * a.n_pad + ch * kQChunk + seg * 16) =
           *reinterpret_cast<const uint4*>(tile + d * kQTileLd + seg * 16);
@@ -191,7 +193,7 @@ quant_heads_kernel(const __grid_constant__ QuantHeadsArgs a) {
   }
 }
 
-template <int NT, typename T>
+template <int NT, typename T, int D>
 cudaError_t launch_quant_heads(const QuantHeadsArgs& args, int H, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(H * NT * kQSplit);
@@ -205,27 +207,28 @@ cudaError_t launch_quant_heads(const QuantHeadsArgs& args, int H, cudaStream_t s
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, quant_heads_kernel<NT, T>, args);
+  return cudaLaunchKernelEx(&cfg, quant_heads_kernel<NT, T, D>, args);
 }
 
 }  // namespace
 }  // namespace f5
 
-// q, k, v: [b, h, n, 64] bf16 (f32 == 0) or fp32 (f32 != 0) with item, head and
-// row strides sb*, sh*, sr* (elements; 16-byte multiples, rows contiguous,
-// 16-byte aligned); q8, k8 [b * h,
-// n, 64] int8; pv_i8 != 0: v8 [b * h, 64, n_pad] int8 (n_pad % 128 == 0,
+// q, k, v: [b, h, n, d] bf16 (f32 == 0) or fp32 (f32 != 0), d 64 or 128, with
+// item, head and row strides sb*, sh*, sr* (elements; 16-byte multiples, rows
+// contiguous, 16-byte aligned); q8, k8 [b * h,
+// n, d] int8; pv_i8 != 0: v8 [b * h, d, n_pad] int8 (n_pad % 128 == 0,
 // n_pad >= n) and v quantized, else v and v8 are not read; c, sv [b * h]
 // fp32 (sv 0 without pv_i8). c_mul, sv_mul: the wrapper's fp32 constants.
 extern "C" int f5_quant_heads(const void* q, const void* k, const void* v, long long sbq,
                               long long shq, long long srq, long long sbk, long long shk,
                               long long srk, long long sbv, long long shv, long long srv,
                               void* q8, void* k8, void* v8, void* c, void* sv, int b, int h,
-                              int n, int n_pad, int pv_i8, int f32, float c_mul, float sv_mul,
-                              int device, void* stream) {
+                              int n, int n_pad, int d, int pv_i8, int f32, float c_mul,
+                              float sv_mul, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (b <= 0 || h <= 0 || n <= 0 || (long long)b * h * 3 * f5::kQSplit > 0x7fffffffLL ||
+  if (b <= 0 || h <= 0 || n <= 0 || (d != 64 && d != 128) ||
+      (long long)b * h * 3 * f5::kQSplit > 0x7fffffffLL ||
       (pv_i8 && (n_pad < n || n_pad % f5::kQChunk != 0)))
     return (int)cudaErrorInvalidValue;
   f5::QuantHeadsArgs a{};
@@ -250,9 +253,16 @@ extern "C" int f5_quant_heads(const void* q, const void* k, const void* v, long 
   a.sv_mul = sv_mul;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   typedef __nv_bfloat16 bf16;
+  if (d == 128) {
+    if (f32)
+      return (int)(pv_i8 ? f5::launch_quant_heads<3, float, 128>(a, b * h, s)
+                         : f5::launch_quant_heads<2, float, 128>(a, b * h, s));
+    return (int)(pv_i8 ? f5::launch_quant_heads<3, bf16, 128>(a, b * h, s)
+                       : f5::launch_quant_heads<2, bf16, 128>(a, b * h, s));
+  }
   if (f32)
-    return (int)(pv_i8 ? f5::launch_quant_heads<3, float>(a, b * h, s)
-                       : f5::launch_quant_heads<2, float>(a, b * h, s));
-  return (int)(pv_i8 ? f5::launch_quant_heads<3, bf16>(a, b * h, s)
-                     : f5::launch_quant_heads<2, bf16>(a, b * h, s));
+    return (int)(pv_i8 ? f5::launch_quant_heads<3, float, 64>(a, b * h, s)
+                       : f5::launch_quant_heads<2, float, 64>(a, b * h, s));
+  return (int)(pv_i8 ? f5::launch_quant_heads<3, bf16, 64>(a, b * h, s)
+                     : f5::launch_quant_heads<2, bf16, 64>(a, b * h, s));
 }

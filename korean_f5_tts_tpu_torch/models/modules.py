@@ -39,6 +39,7 @@ from korean_f5_tts_tpu_torch.ops.flash_prefix import MASK_VALUE
 from korean_f5_tts_tpu_torch.ops.attention import (
     check_attn_int8,
     qkv_fused_sdpa,
+    qkv_kernel_takes,
     rope_prefix_sdpa,
     sdpa,
 )
@@ -402,6 +403,11 @@ def attention(p: dict, x: torch.Tensor, heads: int,
     heads (modules.py:543-551); every other case applies rope in torch and
     runs kernel A, or kernel 14 under attn_int8 (ops/attention.py:ATTN_INT8;
     it raises together with the two in-kernel-rope paths).
+    "qkv_kernel" steps aside the same way at a head dim kernel 19 does not
+    take (ops/attention.py:qkv_kernel_takes, JAX's dh == 64), taking the
+    unfused default path; its tables arrive in the activations' dtype
+    (models/dit.py:_rope_for), the dtype JAX's apply_rope casts its fp32
+    tables to, so the rotation is JAX's.
     qk-norm (a "q_norm" in p, modules.py:540-542): the per-head RMSNorm of q
     and k after the head split and before rope. As in modules.py:519 and
     :544, "qkv_kernel" and "rope_in_kernel" then step aside: rope is applied
@@ -427,10 +433,11 @@ def attention(p: dict, x: torch.Tensor, heads: int,
         wqkv = torch.cat([p["to_q"]["w"], p["to_k"]["w"], p["to_v"]["w"]], dim=0).to(x.dtype)
         bqkv = torch.cat([p["to_q"]["b"], p["to_k"]["b"], p["to_v"]["b"]]).to(x.dtype)
         qkv = F.linear(x, wqkv, bqkv)
-        if attn_path == "qkv_kernel" and rope is not None and "q_norm" not in p:
+        inner = p["to_q"]["w"].shape[0]
+        if attn_path == "qkv_kernel" and rope is not None and "q_norm" not in p and \
+                qkv_kernel_takes(inner // heads):
             out = qkv_fused_sdpa(qkv, heads, rope, pe_attn_head, prefix_lens, kernels=kernels)
         else:
-            inner = p["to_q"]["w"].shape[0]
             q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], heads)
                        for i in range(3))
     else:

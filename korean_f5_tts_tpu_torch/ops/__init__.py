@@ -53,6 +53,25 @@ KERNELS = {
     "flash_prefix_i8_f32": (flash_prefix, "launches_i8_f32"),  # "qkpv" on the core
     "flash_prefix_i8_qk_f32": (flash_prefix, "launches_i8_qk_f32"),  # "qk": int8 S, 3xTF32 P.V
     "flash_prefix_i8_quant_f32": (flash_prefix, "launches_i8_quant_f32"),
+    # the forms at head dim 128 (mma.sync in bf16, FFMA in fp32; 14 on int8 mma.sync)
+    **{f"{base}_d128": (flash_prefix, f"{attr}_d128") for base, attr in (
+        ("flash_prefix", "launches"), ("flash_prefix_f32", "launches_f32"),
+        ("flash_prefix_lse", "launches_lse"), ("flash_prefix_lse_f32", "launches_lse_f32"),
+        ("flash_prefix_dq_lsein", "launches_dq_lsein"),
+        ("flash_prefix_dq_lsein_f32", "launches_dq_lsein_f32"),
+        ("flash_prefix_dq", "launches_dq"), ("flash_prefix_dq_f32", "launches_dq_f32"),
+        ("flash_prefix_dkv", "launches_dkv"), ("flash_prefix_dkv_f32", "launches_dkv_f32"),
+        ("flash_prefix_rope", "launches_rope"), ("flash_prefix_rope_f32", "launches_rope_f32"),
+        ("flash_prefix_i8", "launches_i8"),  # "qkpv", bf16 out
+        ("flash_prefix_i8_qk", "launches_i8_qk"),  # "qk" on bf16 v
+        ("flash_prefix_i8_f32", "launches_i8_f32"),  # "qkpv", fp32 out
+        ("flash_prefix_i8_qk_f32", "launches_i8_qk_f32"),  # "qk" on fp32 v
+        ("flash_prefix_i8_quant", "launches_i8_quant"),
+        ("flash_prefix_i8_quant_f32", "launches_i8_quant_f32"))},
+    # kernel C at 8 channels a group: pairs of groups packed block-diagonally
+    # into the 16-channel instantiation
+    "grouped_conv_g8": (grouped_conv, "launches_g8"),
+    "grouped_conv_f32_g8": (grouped_conv, "launches_f32_g8"),
 }
 
 

@@ -15,6 +15,19 @@ package only sdpa has that branch, so attn_int8 raises together with the two
 attn_paths that bypass sdpa; it serves only. There is no splash,
 legacy-flash or tensor-parallel branch, and no fallback on error: a kernel
 that cannot run raises.
+
+Head dims, by shape as in the JAX package: the kernels run at d in
+ATTENTION_KERNEL_DIMS (64, 128), JAX's `d in (64, 128)` for its rope path
+and its sdpa kernels (korean_f5_tts_tpu/ops/attention.py:260, :296); at any
+other d JAX runs XLA (:412-413) and here sdpa takes the plain attention in
+the operands' dtype (autograd differentiates it while training), its int8
+setting included, since JAX's int8 branch sits inside the same test;
+rope_prefix_sdpa applies rope and goes through sdpa, as JAX's caller does
+when its rope kernel steps aside. Kernel 19 takes dh 64 only (JAX:
+`dh == 64`, :225-227): qkv_kernel_takes says where the caller
+(models/modules.py:attention) steps aside to the unfused path. The choice is
+made here and there only; the wrappers raise on a CUDA tensor of a head dim
+they do not take.
 """
 
 from __future__ import annotations
@@ -31,6 +44,18 @@ from korean_f5_tts_tpu_torch.ops.flash_prefix import (
 )
 
 ATTN_PATHS = ("default", "linear_fused", "rope_in_kernel", "qkv_kernel")
+# the head dims the attention kernels run at, JAX's `d in (64, 128)`
+# (korean_f5_tts_tpu/ops/attention.py:260, :296)
+ATTENTION_KERNEL_DIMS = (64, 128)
+
+
+def qkv_kernel_takes(dh: int) -> bool:
+    """Whether kernel 19 runs at head dim dh: JAX's qkv_fused_sdpa returns
+    None unless dh == 64 (korean_f5_tts_tpu/ops/attention.py:225-227; its
+    kernel asserts 2 * dh == LANES, flash_prefix.py:1632). JAX also steps
+    aside at an odd head count, which kernel 19 takes (ROADMAP.md,
+    deliberate differences)."""
+    return dh == 64
 
 
 def check_attn_path(attn_path: str) -> str:
@@ -66,12 +91,15 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """[b, h, n, d] attention; prefix_lens ([b] or [1] int) marks item i's
     valid keys [0, prefix_lens[i]); None means every key is valid. attn_int8
     runs kernel 14 instead of kernel A (inference only; it raises on an input
-    that requires a gradient and on shapes the kernel does not take)."""
+    that requires a gradient and on shapes the kernel does not take). At a
+    head dim outside ATTENTION_KERNEL_DIMS the plain attention runs, in the
+    operands' dtype whatever attn_int8 says (JAX's XLA path there)."""
     lens = _full_lens(prefix_lens, q.shape[2], q.device)
-    if check_attn_int8(attn_int8) is not None:
+    if check_attn_int8(attn_int8) is not None and q.shape[-1] in ATTENTION_KERNEL_DIMS:
         return flash_prefix_attention_i8(q, k, v, lens, pv_i8=attn_int8 == "qkpv",
                                          kernels=kernels)
-    return flash_prefix_attention(q, k, v, lens, kernels=kernels)
+    return flash_prefix_attention(q, k, v, lens,
+                                  kernels=kernels and q.shape[-1] in ATTENTION_KERNEL_DIMS)
 
 
 def rope_prefix_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,7 +107,16 @@ def rope_prefix_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      rope: tuple[torch.Tensor, torch.Tensor],
                      pe_attn_head: int | None, kernels: bool = True) -> torch.Tensor:
     """[b, h, n, d] attention on PRE-rope q, k: the rotary embedding is
-    applied inside kernel 18 (attention.py:245-273)."""
+    applied inside kernel 18 (attention.py:245-273). At a head dim outside
+    ATTENTION_KERNEL_DIMS rope is applied in the operands' dtype and sdpa
+    runs, as the JAX caller does when rope_prefix_sdpa returns None
+    (modules.py:549-556)."""
+    if q.shape[-1] not in ATTENTION_KERNEL_DIMS:
+        from korean_f5_tts_tpu_torch.models.modules import apply_rope
+
+        cos, sin = rope
+        return sdpa(apply_rope(q, cos, sin, pe_attn_head), apply_rope(k, cos, sin, pe_attn_head),
+                    v, prefix_lens, kernels=kernels)
     fn = flash_prefix_rope_attention if kernels else flash_prefix_rope_reference
     return fn(q, k, v, _full_lens(prefix_lens, q.shape[2], q.device), *rope, pe_attn_head)
 

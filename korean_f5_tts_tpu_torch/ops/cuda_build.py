@@ -63,9 +63,12 @@ _SIGNATURES = {
     "f5_flash_prefix_i8_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P),
     # q8, k8, v, c, kv_lens, out, H, n, device, stream
     "f5_flash_prefix_i8_qk_f32_fwd": (_P,) * 6 + (_I, _I, _I, _P),
+    # d = 128, every form: q8, k8, v, c, sv, kv_lens, out, H, n, n_pad, pv_i8, out_f32,
+    # device, stream
+    "f5_flash_prefix_i8_d128_fwd": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P),
     # q, k, v, their item/head/row strides (q, k, v), q8, k8, v8, c, sv, b, h, n,
-    # n_pad, pv_i8, f32, c_mul, sv_mul, device, stream
-    "f5_quant_heads": (_P,) * 3 + (_L,) * 9 + (_P,) * 5 + (_I,) * 6 + (_F, _F, _I, _P),
+    # n_pad, d, pv_i8, f32, c_mul, sv_mul, device, stream
+    "f5_quant_heads": (_P,) * 3 + (_L,) * 9 + (_P,) * 5 + (_I,) * 7 + (_F, _F, _I, _P),
     # h, sc, sh, gate, w1, b1, w2, b2, z, stats, out, M, d, dff, eps, device, stream
     "f5_ff_block_fwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
     "f5_ff_block_f32_fwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
@@ -100,6 +103,8 @@ _SIGNATURES = {
     # q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
     "f5_flash_prefix_rope_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
     "f5_flash_prefix_rope_f32_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
+    # d = 128: the same, then f32, device, stream
+    "f5_flash_prefix_rope_d128_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _I, _P),
     # qkv, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
     "f5_flash_prefix_qkv_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),
     "f5_flash_prefix_qkv_f32_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),

@@ -47,8 +47,15 @@ with no valid key has lse 0.
 
 Dispatch: CPU tensors take the plain versions; CUDA tensors launch the
 kernel or raise (every kernel on bf16 or fp32 operands, all of one dtype, a
-mix raising TypeError, each form with its own launch counter; the training
-kernels d = 64 only).
+mix raising TypeError, each form with its own launch counter). Head dims:
+A, 10-14, 14's pass and 18 take d = 64 and d = 128 (KERNEL_HEAD_DIMS, the
+JAX kernels' `d in (64, 128)`); 19 takes dh = 64 only, as the JAX kernel
+(flash_prefix.py:1632, `2 * dh == LANES`). At d = 128 every form runs in
+csrc/flash_prefix_d128.cu (A, 10-13, 18: mma.sync in bf16, FFMA in fp32)
+and csrc/flash_prefix_int8_d128.cu (14), each with its own counter
+(`launches_*_d128`). Which head dims reach a kernel at all is the dispatch's
+choice (ops/attention.py:ATTENTION_KERNEL_DIMS); a wrapper given another d
+on a CUDA tensor raises.
 flash_prefix_attention takes the autograd Function (kernel 10 forward,
 kernels 11 and 13 backward, as the JAX custom_vjp _fp_fwd/_fp_bwd does at
 :1353-1402) when a gradient is being taken, and kernel A otherwise.
@@ -63,6 +70,7 @@ import torch
 from korean_f5_tts_tpu_torch.ops import cuda_build
 
 LOG2E = 1.4426950408889634
+KERNEL_HEAD_DIMS = (64, 128)  # the head dims of kernels A, 10-14, 14's pass and 18
 MASK_VALUE = -1e37  # the JAX reference's finite mask logit
 I8_KEY_TILE = 128   # keys per tile of kernel 14 (and the unit n is padded to for its v8)
 # keys per chunk of int8 attention's online softmax: the JAX wrapper's default
@@ -92,6 +100,34 @@ launches_i8_qk_f32 = 0
 launches_i8_quant_f32 = 0
 launches_rope_f32 = 0
 launches_qkv_f32 = 0
+# the d = 128 forms (csrc/flash_prefix_d128.cu, csrc/flash_prefix_int8_d128.cu,
+# csrc/quant_heads.cu at d = 128), bf16 and fp32, one counter each; 14 at d = 128
+# counts "qkpv" and "qk" on bf16 apart
+launches_d128 = 0
+launches_f32_d128 = 0
+launches_lse_d128 = 0
+launches_lse_f32_d128 = 0
+launches_dq_lsein_d128 = 0
+launches_dq_lsein_f32_d128 = 0
+launches_dq_d128 = 0
+launches_dq_f32_d128 = 0
+launches_dkv_d128 = 0
+launches_dkv_f32_d128 = 0
+launches_rope_d128 = 0
+launches_rope_f32_d128 = 0
+launches_i8_d128 = 0
+launches_i8_qk_d128 = 0
+launches_i8_f32_d128 = 0
+launches_i8_qk_f32_d128 = 0
+launches_i8_quant_d128 = 0
+launches_i8_quant_f32_d128 = 0
+
+
+def _count(base: str, f32: bool, d: int) -> None:
+    """One launch of the form `base` (a counter name above without its
+    suffixes) on fp32 or bf16 operands at head dim d."""
+    name = base + ("_f32" if f32 else "") + ("_d128" if d == 128 else "")
+    globals()[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +377,8 @@ def flash_prefix_i8_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check(what: str, q, kv_lens, others, head_dims=(64,)) -> tuple[int, int, int]:
+def _check(what: str, q, kv_lens, others,
+           head_dims=KERNEL_HEAD_DIMS) -> tuple[int, int, int]:
     """Shape and device checks of a launch (the callers check q's dtype;
     the others must have it); returns (H, n, d)."""
     if q.dim() != 3 or any(t.shape != q.shape for t in others):
@@ -372,13 +409,12 @@ def flash_prefix_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (a mix raises TypeError), [H] int32 kv_lens; the result has their dtype.
     On fp32 operands nothing is rounded below fp32 (split 3xTF32 products at
     d = 64, FFMA at d = 128)."""
-    global launches, launches_f32
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_prefix: q, k, v must be all bfloat16 or all float32, got "
                         f"{[str(t.dtype) for t in (q, k, v)]}")
     if q.device.type == "cpu":
         return prefix_attention_reference(q, k, v, kv_lens)
-    H, n, d = _check("flash_prefix", q, kv_lens, (k, v), head_dims=(64, 128))
+    H, n, d = _check("flash_prefix", q, kv_lens, (k, v))
     out = torch.empty_like(q)
     lib = cuda_build.library()
     f32 = q.dtype == torch.float32
@@ -386,10 +422,7 @@ def flash_prefix_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
               H, n, d, LOG2E / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_fwd")
-    if f32:
-        launches_f32 += 1
-    else:
-        launches += 1
+    _count("launches", f32, d)
     return out
 
 
@@ -406,7 +439,6 @@ def flash_prefix_folded_lse(q, k, v, kv_lens):
     """Kernel 10 wrapper: (o [H, n, d] of q's dtype, lse [H, n] fp32); bf16
     operands on the attention core, fp32 ones on kernel A's split 3xTF32
     kernel."""
-    global launches_lse, launches_lse_f32
     if q.device.type == "cpu":
         return prefix_attention_lse_reference(q, k, v, kv_lens)
     f32 = _train_dtype("flash_prefix_lse", q, k, v)
@@ -419,16 +451,12 @@ def flash_prefix_folded_lse(q, k, v, kv_lens):
               lse.data_ptr(), H, n, d, LOG2E / math.sqrt(d), q.device.index,
               cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_fwd_lse")
-    if f32:
-        launches_lse_f32 += 1
-    else:
-        launches_lse += 1
+    _count("launches_lse", f32, d)
     return out, lse
 
 
 def flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv_lens):
     """Kernel 11 wrapper: dq [H, n, d] from the forward's lse."""
-    global launches_dq_lsein, launches_dq_lsein_f32
     if q.device.type == "cpu":
         return flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv_lens)
     f32 = _train_dtype("flash_prefix_dq_lsein", q, k, v, do)
@@ -444,16 +472,12 @@ def flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv_lens):
     else:
         err = lib.f5_flash_prefix_dq_lsein(*args, q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_dq_lsein")
-    if f32:
-        launches_dq_lsein_f32 += 1
-    else:
-        launches_dq_lsein += 1
+    _count("launches_dq_lsein", f32, d)
     return dq
 
 
 def flash_prefix_dq(q, k, v, do, dvec, kv_lens):
     """Kernel 12 wrapper: (dq [H, n, d], lse [H, n]), the lse recomputed."""
-    global launches_dq, launches_dq_f32
     if q.device.type == "cpu":
         return flash_prefix_dq_reference(q, k, v, do, dvec, kv_lens)
     f32 = _train_dtype("flash_prefix_dq", q, k, v, do)
@@ -467,16 +491,12 @@ def flash_prefix_dq(q, k, v, do, dvec, kv_lens):
              kv_lens.data_ptr(), dq.data_ptr(), lse.data_ptr(), H, n, d, LOG2E / math.sqrt(d),
              1.0 / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_dq")
-    if f32:
-        launches_dq_f32 += 1
-    else:
-        launches_dq += 1
+    _count("launches_dq", f32, d)
     return dq, lse
 
 
 def flash_prefix_dkv(q, k, v, do, dvec, lse, kv_lens):
     """Kernel 13 wrapper: (dk, dv) [H, n, d]."""
-    global launches_dkv, launches_dkv_f32
     if q.device.type == "cpu":
         return flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv_lens)
     f32 = _train_dtype("flash_prefix_dkv", q, k, v, do)
@@ -489,20 +509,18 @@ def flash_prefix_dkv(q, k, v, do, dvec, lse, kv_lens):
              lse.data_ptr(), kv_lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), H, n, d,
              LOG2E / math.sqrt(d), 1.0 / math.sqrt(d), q.device.index, cuda_build.stream_of(q))
     cuda_build.check(err, "flash_prefix_dkv")
-    if f32:
-        launches_dkv_f32 += 1
-    else:
-        launches_dkv += 1
+    _count("launches_dkv", f32, d)
     return dk, dv
 
 
 def _rope_launch_args(what: str, x: torch.Tensor, B: int, n: int, dh: int, kv_lens, cos, sin,
-                      heads: int, pe_attn_head):
-    """Checks shared by kernels 18 and 19; returns (lens [B] int32, cos, sin
-    as [n, 32] tables of x's dtype: bf16 for the bf16 form, fp32 for the fp32
-    form, the number of leading heads that rotate)."""
-    if dh != 64:
-        raise ValueError(f"{what}: head dim {dh} not supported (64)")
+                      heads: int, pe_attn_head, head_dims=KERNEL_HEAD_DIMS):
+    """Checks shared by kernels 18 (dh 64 or 128) and 19 (dh 64); returns
+    (lens [B] int32, cos, sin as [n, dh / 2] tables of x's dtype: bf16 for
+    the bf16 form, fp32 for the fp32 form, the number of leading heads that
+    rotate)."""
+    if dh not in head_dims:
+        raise ValueError(f"{what}: head dim {dh} not supported ({head_dims})")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: the kernel takes bf16 or fp32 operands, got {x.dtype}")
     if cos.shape != sin.shape or cos.dim() != 2 or cos.shape[0] < n or cos.shape[1] != dh // 2:
@@ -521,9 +539,10 @@ def _rope_launch_args(what: str, x: torch.Tensor, B: int, n: int, dh: int, kv_le
 def flash_prefix_rope_attention(q, k, v, kv_lens, cos, sin,
                                 pe_attn_head: int | None = None) -> torch.Tensor:
     """Kernel 18 wrapper: prefix attention with the half-split rotary
-    embedding applied inside the kernel. q, k (PRE-rope), v: [b, h, n, 64]
+    embedding applied inside the kernel. q, k (PRE-rope), v: [b, h, n, d], d
+    64 (the attention core's rope form) or 128 (csrc/flash_prefix_d128.cu),
     all bf16 or all fp32 (a mix raises TypeError; fp32 runs the fp32 form);
-    kv_lens: [b] or [1] int; cos, sin: [>= n, 32] tables (cast to the
+    kv_lens: [b] or [1] int; cos, sin: [>= n, d / 2] tables (cast to the
     operands' dtype for the kernel); pe_attn_head: only the first N heads
     rotate. The result has the operands' dtype.
 
@@ -539,7 +558,6 @@ def flash_prefix_rope_attention(q, k, v, kv_lens, cos, sin,
 
 def _rope_fwd(q, k, v, kv_lens, cos, sin, pe_attn_head: int | None) -> torch.Tensor:
     """Kernel 18's launch (its plain version on CPU tensors)."""
-    global launches_rope, launches_rope_f32
     if q.device.type == "cpu":
         return flash_prefix_rope_reference(q, k, v, kv_lens, cos, sin, pe_attn_head)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -552,15 +570,16 @@ def _rope_fwd(q, k, v, kv_lens, cos, sin, pe_attn_head: int | None) -> torch.Ten
     out = torch.empty_like(q)
     lib = cuda_build.library()
     f32 = q.dtype == torch.float32
-    fwd = lib.f5_flash_prefix_rope_f32_fwd if f32 else lib.f5_flash_prefix_rope_fwd
-    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), cos.data_ptr(),
-              sin.data_ptr(), out.data_ptr(), b, h, n, n_rope, LOG2E / math.sqrt(d),
-              q.device.index, cuda_build.stream_of(q))
-    cuda_build.check(err, "flash_prefix_rope_fwd")
-    if f32:
-        launches_rope_f32 += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), out.data_ptr(), b, h, n, n_rope, LOG2E / math.sqrt(d))
+    if d == 128:
+        err = lib.f5_flash_prefix_rope_d128_fwd(*args, int(f32), q.device.index,
+                                                cuda_build.stream_of(q))
     else:
-        launches_rope += 1
+        fwd = lib.f5_flash_prefix_rope_f32_fwd if f32 else lib.f5_flash_prefix_rope_fwd
+        err = fwd(*args, q.device.index, cuda_build.stream_of(q))
+    cuda_build.check(err, "flash_prefix_rope_fwd")
+    _count("launches_rope", f32, d)
     return out
 
 
@@ -594,7 +613,8 @@ def _qkv_fwd(qkv, kv_lens, heads: int, cos, sin, pe_attn_head: int | None) -> to
     B, n, three_inner = qkv.shape
     dh = three_inner // (3 * heads)
     lens, cos, sin, n_rope = _rope_launch_args("flash_prefix_qkv_attention", qkv, B, n, dh,
-                                               kv_lens, cos, sin, heads, pe_attn_head)
+                                               kv_lens, cos, sin, heads, pe_attn_head,
+                                               head_dims=(64,))
     out = torch.empty((B, n, heads * dh), dtype=qkv.dtype, device=qkv.device)
     lib = cuda_build.library()
     f32 = qkv.dtype == torch.float32
@@ -619,12 +639,11 @@ def quantize_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: boo
     CPU tensors take the plain version (_quantize_qkv, then
     _v8_kernel_layout). CUDA tensors launch the pass (csrc/quant_heads.cu) or
     raise: q, k, v all bf16 or all fp32 (the fp32 form, which quantizes the
-    fp32 values as they are), d = 64; a view whose rows are not contiguous or
-    whose strides are not 16-byte multiples is made contiguous first (the
-    kernel reads any other view in place). It is equal to the plain version
-    to the bit.
+    fp32 values as they are), d 64 or 128; a view whose rows are not
+    contiguous or whose strides are not 16-byte multiples is made contiguous
+    first (the kernel reads any other view in place). It is equal to the
+    plain version to the bit.
     """
-    global launches_i8_quant, launches_i8_quant_f32
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("quantize_heads: q/k/v must share one [b, h, n, d] shape, got "
                          f"{[tuple(t.shape) for t in (q, k, v)]}")
@@ -632,10 +651,11 @@ def quantize_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: boo
     if q.device.type == "cpu":
         q8, k8, vq, c, sv = _quantize_qkv(q, k, v, pv_i8)
         return q8, k8, (_v8_kernel_layout(vq) if pv_i8 else vq), c, sv
-    if d != 64 or q.dtype not in (torch.bfloat16, torch.float32) or \
+    if d not in KERNEL_HEAD_DIMS or q.dtype not in (torch.bfloat16, torch.float32) or \
             any(t.dtype != q.dtype for t in (k, v)):
         raise TypeError("quantize_heads: the kernel takes q, k, v all bf16 or all fp32 with head "
-                        f"dim 64, got {[str(t.dtype) for t in (q, k, v)]} with head dim {d}")
+                        f"dim 64 or 128, got {[str(t.dtype) for t in (q, k, v)]} with head dim "
+                        f"{d}")
 
     def readable(t):  # rows contiguous, 16-byte strides and base
         ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
@@ -657,15 +677,12 @@ def quantize_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pv_i8: boo
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     err = cuda_build.library().f5_quant_heads(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, q8.data_ptr(), k8.data_ptr(),
-        None if v8 is None else v8.data_ptr(), c.data_ptr(), sv.data_ptr(), b, h, n, n_pad,
+        None if v8 is None else v8.data_ptr(), c.data_ptr(), sv.data_ptr(), b, h, n, n_pad, d,
         int(pv_i8), int(q.dtype == torch.float32),
         (1.0 / 127.0 ** 2) * LOG2E / math.sqrt(d), 1.0 / (127.0 * 127.0), dev.index,
         cuda_build.stream_of(q))
     cuda_build.check(err, "quant_heads")
-    if q.dtype == torch.float32:
-        launches_i8_quant_f32 += 1
-    else:
-        launches_i8_quant += 1
+    _count("launches_i8_quant", q.dtype == torch.float32, d)
     return q8, k8, (v8 if pv_i8 else v.reshape(H, n, d).contiguous()), c, sv
 
 
@@ -673,11 +690,13 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
                            c: torch.Tensor, sv: torch.Tensor, kv_lens: torch.Tensor,
                            pv_i8: bool = True,
                            out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Kernel 14 wrapper on quantized folded heads. q8, k8: [H, n, 64] int8
-    (k8 as it is: q8.k8^T wants k with d contiguous); v: with pv_i8 the int8
-    [H, 64, n_pad] of _v8_kernel_layout (keys contiguous and slot-permuted),
-    else the unquantized [H, n, 64], bf16 or fp32; c, sv: [H] fp32; kv_lens:
-    [H] int32. Returns [H, n, 64] of out_dtype (None: the unquantized v's
+    """Kernel 14 wrapper on quantized folded heads. q8, k8: [H, n, d] int8,
+    d 64 or 128 (k8 as it is: q8.k8^T wants k with d contiguous); v: with
+    pv_i8 the int8 [H, d, n_pad] of _v8_kernel_layout (keys contiguous and
+    slot-permuted), else the unquantized [H, n, d], bf16 or fp32; c, sv: [H]
+    fp32; kv_lens: [H] int32. At d = 128 every form runs on
+    csrc/flash_prefix_int8_d128.cu (mma.sync, S and "qkpv"'s P.V in int8,
+    the running max per I8_KEY_CHUNK). Returns [H, n, d] of out_dtype (None: the unquantized v's
     dtype, bf16 under pv_i8), the JAX kernel's out_dtype: bf16 or, with
     pv_i8, fp32 on the attention core's int8 form; fp32 without pv_i8 on
     csrc/flash_prefix_int8_f32.cu, exact int8 scores on the tensor cores and
@@ -690,7 +709,6 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     kv_lens 0 gives zeros (the JAX kernel without prune gives the mean of v
     there; serving never sends 0).
     """
-    global launches_i8, launches_i8_f32, launches_i8_qk_f32
     H, n, d = q8.shape
     if out_dtype is None:
         out_dtype = torch.bfloat16 if pv_i8 else v.dtype
@@ -701,8 +719,8 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     what = "flash_prefix_i8"
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: the output must be bf16 or fp32, got {out_dtype}")
-    if d != 64:
-        raise ValueError(f"{what}: head dim {d} not supported (64)")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not supported ({KERNEL_HEAD_DIMS})")
     if k8.shape != q8.shape or q8.dtype != torch.int8 or k8.dtype != torch.int8:
         raise ValueError(f"{what}: q8 and k8 must be int8 of one [H, n, d] shape, got "
                          f"{q8.dtype} {tuple(q8.shape)} and {k8.dtype} {tuple(k8.shape)}")
@@ -729,22 +747,27 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     out = torch.empty((H, n, d), dtype=out_dtype, device=q8.device)
     lib = cuda_build.library()
     f32 = out_dtype == torch.float32
+    if d == 128:
+        err = lib.f5_flash_prefix_i8_d128_fwd(
+            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), c.data_ptr(), sv.data_ptr(),
+            kv_lens.data_ptr(), out.data_ptr(), H, n, n_pad, int(pv_i8), int(f32),
+            q8.device.index, cuda_build.stream_of(q8))
+        cuda_build.check(err, "flash_prefix_i8_d128_fwd")
+        _count("launches_i8" if pv_i8 else "launches_i8_qk", f32, d)
+        return out
     if f32 and not pv_i8:
         err = lib.f5_flash_prefix_i8_qk_f32_fwd(
             q8.data_ptr(), k8.data_ptr(), v.data_ptr(), c.data_ptr(), kv_lens.data_ptr(),
             out.data_ptr(), H, n, q8.device.index, cuda_build.stream_of(q8))
         cuda_build.check(err, "flash_prefix_i8_qk_f32_fwd")
-        launches_i8_qk_f32 += 1
+        _count("launches_i8_qk", True, d)
         return out
     err = lib.f5_flash_prefix_i8_fwd(q8.data_ptr(), k8.data_ptr(), v.data_ptr(), c.data_ptr(),
                                      sv.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), H, n,
                                      n_pad, int(pv_i8), int(f32), q8.device.index,
                                      cuda_build.stream_of(q8))
     cuda_build.check(err, "flash_prefix_i8_fwd")
-    if f32:
-        launches_i8_f32 += 1
-    else:
-        launches_i8 += 1
+    _count("launches_i8", f32, d)
     return out
 
 
@@ -763,8 +786,8 @@ def flash_prefix_attention_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors and kernels=False take the plain version at the kernel's key
     chunk (I8_KEY_CHUNK, the JAX default bkv). CUDA tensors launch the pass
     and the kernel (two launches) or raise: q, k, v all bf16 or all fp32
-    (the fp32 forms of the pass and of 14; the result has their dtype), d =
-    64, any n (the ragged last tile is masked); nothing falls back to kernel
+    (the fp32 forms of the pass and of 14; the result has their dtype), d 64
+    or 128, any n (the ragged last tile is masked); nothing falls back to kernel
     A. Raises on an input that requires a gradient.
     """
     cuda_build.require_no_grad("flash_prefix_attention_i8", q, k, v)
@@ -775,10 +798,10 @@ def flash_prefix_attention_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not kernels or q.device.type == "cpu":
         return flash_prefix_i8_reference(q, k, v, lens_h, pv_i8=pv_i8).reshape(q.shape)
     if q.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != q.dtype for t in (k, v)) \
-            or q.shape[-1] != 64:
+            or q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise TypeError("flash_prefix_attention_i8: the kernels take q, k, v all bf16 or all fp32 "
-                        f"with head dim 64, got {[str(t.dtype) for t in (q, k, v)]} with head dim "
-                        f"{q.shape[-1]}")
+                        f"with head dim 64 or 128, got {[str(t.dtype) for t in (q, k, v)]} with "
+                        f"head dim {q.shape[-1]}")
     q8, k8, vq, c, sv = quantize_heads(q, k, v, pv_i8)
     return flash_prefix_folded_i8(q8, k8, vq, c, sv, lens_h, pv_i8=pv_i8,
                                   out_dtype=q.dtype).reshape(q.shape)

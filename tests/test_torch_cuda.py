@@ -54,9 +54,10 @@ def test_prefix_attention_kernel(dev, n, d, lens):
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (_bf16((4, n, d), dev, gen) for _ in range(3))
     kv = torch.tensor(lens, dtype=torch.int32, device=dev)
-    before = flash_prefix.launches
+    counter = "launches" if d == 64 else "launches_d128"  # d = 128 counts on its own
+    before = getattr(flash_prefix, counter)
     got = flash_prefix.flash_prefix_folded(q, k, v, kv)
-    assert flash_prefix.launches == before + 1
+    assert getattr(flash_prefix, counter) == before + 1
     _close(got, flash_prefix.prefix_attention_reference(q, k, v, kv))
 
 
@@ -241,9 +242,10 @@ def test_fp32_prefix_attention_kernel(dev, n, d, lens):
     gen = torch.Generator(device=dev).manual_seed(20)
     q, k, v = (torch.randn((len(lens), n, d), generator=gen, device=dev) for _ in range(3))
     kv = torch.tensor(lens, dtype=torch.int32, device=dev)
-    before = flash_prefix.launches_f32, flash_prefix.launches
+    counter = "launches_f32" if d == 64 else "launches_f32_d128"  # d = 128 counts on its own
+    before = getattr(flash_prefix, counter), flash_prefix.launches
     got = flash_prefix.flash_prefix_folded(q, k, v, kv)
-    assert (flash_prefix.launches_f32, flash_prefix.launches) == (before[0] + 1, before[1])
+    assert (getattr(flash_prefix, counter), flash_prefix.launches) == (before[0] + 1, before[1])
     live = [i for i, length in enumerate(lens) if length > 0]
     for i, length in enumerate(lens):
         if length == 0:  # no valid key: zeros, as the bf16 form
@@ -1667,3 +1669,90 @@ def test_fp32_forms_refuse_a_mix_of_dtypes(dev):
     with pytest.raises(TypeError):  # a bf16 v with an fp32 output
         flash_prefix.flash_prefix_folded_i8(q8, k8, vq.bfloat16(), c, sv, lens.expand(2)
                                             .contiguous(), pv_i8=False, out_dtype=torch.float32)
+
+
+# --- head dim 128 and 8 channels a conv-pos group ------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_attention_kernels_at_head_dim_128(dev, dtype):
+    """Kernels 10-13 and 18 at d = 128 (csrc/flash_prefix_d128.cu), each on
+    its own counter, against their plain versions at the tiles' edges (bf16:
+    4 bf16 ulps and rel 1e-2; fp32: rel 1e-5 for o, 1e-4 for the gradients)."""
+    gen = torch.Generator(device=dev).manual_seed(128)
+    f = "_f32" if dtype == torch.float32 else ""
+    lens = [0, 1, 64, 65, 129]
+    q, k, v, do = (torch.randn((5, 129, 128), generator=gen, device=dev).to(dtype)
+                   for _ in range(4))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    o, lse = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+    o[kv == 0] = 0
+    dvec = (do.float() * o.float()).sum(-1)
+    dq_p = flash_prefix.flash_prefix_dq_lsein_reference(q, k, v, do, dvec, lse, kv)
+    dk_p, dv_p = flash_prefix.flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv)
+    names = [f"launches_{n}{f}_d128" for n in ("lse", "dq_lsein", "dq", "dkv", "rope")]
+    before = [getattr(flash_prefix, n) for n in names]
+    o10, lse10 = flash_prefix.flash_prefix_folded_lse(q, k, v, kv)
+    dq11 = flash_prefix.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
+    dq12, lse12 = flash_prefix.flash_prefix_dq(q, k, v, do, dvec, kv)
+    dk, dv = flash_prefix.flash_prefix_dkv(q, k, v, do, dvec, lse, kv)
+    cos, sin = torch.randn((2, 129, 64), generator=gen, device=dev)
+    q4, k4, v4 = (x[1:].reshape(2, 2, 129, 128) for x in (q, k, v))
+    o18 = flash_prefix.flash_prefix_rope_attention(q4, k4, v4, kv[[1, 3]], cos, sin, 1)
+    assert [getattr(flash_prefix, n) for n in names] == [b + 1 for b in before]
+    o18_p = flash_prefix.flash_prefix_rope_reference(q4, k4, v4, kv[[1, 3]], cos, sin, 1)
+    rel_o, rel_g = (1e-5, 1e-4) if f else (1e-2, 1e-2)
+    for got, want, bound in ((o10, o, rel_o), (lse10, lse, 1e-5), (lse12, lse, 1e-5),
+                             (dq11, dq_p, rel_g), (dq12, dq_p, rel_g), (dk, dk_p, rel_g),
+                             (dv, dv_p, rel_g), (o18, o18_p, rel_o)):
+        assert torch.isfinite(got).all() and _rel(got, want) <= bound
+    for x in (o10, lse10, dq11, dq12, dk, dv):
+        assert x[0].abs().max().item() == 0  # the head with no valid key
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("pv_i8", [True, False], ids=["qkpv", "qk"])
+def test_int8_attention_at_head_dim_128(dev, dtype, pv_i8):
+    """Kernel 14 and its pass at d = 128: the pass equal to its plain version
+    to the bit, the kernel within the d = 64 forms' bounds of its plain
+    version at the 512-key chunk (bf16 2e-3 / 5e-3; fp32 2e-4 / 1e-5)."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn((2, 2, 700, 128), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    lens = torch.tensor([700, 513], dtype=torch.int32, device=dev)
+    got8 = flash_prefix.quantize_heads(q, k, v, pv_i8)
+    q8, k8, vq, c, sv = flash_prefix._quantize_qkv(q, k, v, pv_i8)
+    want8 = (q8, k8, flash_prefix._v8_kernel_layout(vq) if pv_i8 else vq, c, sv)
+    assert all(torch.equal(g, w) for g, w in zip(got8, want8))
+    got = flash_prefix.flash_prefix_attention_i8(q, k, v, lens, pv_i8=pv_i8)
+    want = flash_prefix.flash_prefix_i8_reference(q, k, v, lens.repeat_interleave(2),
+                                                  pv_i8=pv_i8).reshape(q.shape)
+    f32 = dtype == torch.float32
+    bound = {(True, False): 2e-3, (False, False): 5e-3, (True, True): 2e-4,
+             (False, True): 1e-5}[(pv_i8, f32)]
+    assert got.dtype == dtype and _rel(got, want) <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_grouped_conv_at_8_channels_a_group(dev, dtype):
+    """Kernel C at dim 128, 16 groups of 8: pairs packed into the 16-channel
+    instantiation, one launch on its own counter (bf16 4 ulps; fp32 rel
+    1e-4 with cuDNN's TF32 off)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((3, 129, 128), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((31, 8, 128), generator=gen, device=dev) * (8 * 31) ** -0.5).to(dtype)
+    b = (torch.randn((128,), generator=gen, device=dev) * 0.1).to(dtype)
+    counter = "launches_g8" if dtype == torch.bfloat16 else "launches_f32_g8"
+    before = getattr(grouped_conv, counter)
+    got = grouped_conv.grouped_conv1d_mish(x, w, b, 16)
+    assert getattr(grouped_conv, counter) == before + 1
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = grouped_conv.grouped_conv1d_mish_reference(x, w, b, 16)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if dtype == torch.bfloat16:
+        _close(got, want)
+    else:
+        assert _rel(got, want) < 1e-4

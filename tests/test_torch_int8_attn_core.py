@@ -255,53 +255,61 @@ def test_plain_at_its_default_matches_the_tpu_kernel_at_its_default_bkv(n, lens,
 
 
 def kernel14_schedule(q8, k8, v, c, sv, kv_lens, pv_i8: bool, group: int = 4):
-    """Kernel 14's loop (attn_wgmma.cuh, kI8) in torch, head by head:
+    """Kernel 14's loop (attn_wgmma.cuh, kI8) in torch: per head
     ceil(kv_len / 128) tiles of 128 keys (K, V rows past n zero, as TMA
     fills them), in groups of `group` tiles; sweep 1 takes the group's row
     max of the scaled, masked scores; one alpha a group rescales acc and l;
     sweep 2 recomputes S, p = exp2(s - m) tile by tile, adds p's row sums to
     l and p8 . v8 into one integer sum of the group ("qkpv", then acc +=
     float(sum) * sv), or bf16(p) . v into acc ("qk"). Returns (acc, l, m)
-    as _i8_online does. v: int8 [H, n, d] (natural order) or bf16 / fp32."""
+    as _i8_online does. v: int8 [H, n, d] (natural order) or bf16 / fp32.
+
+    The heads run side by side, each tile a batched product: a tile or a
+    group past a head's last valid key is all masked for that head, where
+    max(m, -inf) = m, alpha = exp2(0) = 1 and p = 0 leave its acc, l and m
+    as they were, the head-by-head loop that stops at its own last tile; a
+    head with kv_len 0 keeps m = -inf, l = 0, acc = 0 (m enters the
+    exponentials as 0 there, as _i8_online's m_safe). The integer products
+    run in float64 (exact: |p8|, |v8| <= 127 over at most 512 keys a group,
+    and |q8 . k8| <= 127^2 * d, far below 2^53)."""
     H, n, d = q8.shape
+    lens = kv_lens.clamp(max=n).to(torch.int64)[:, None, None]
+    n_tiles = -(-int(lens.max()) // TILE)
+    pad = max(n_tiles * TILE - n, 0)
+    k8p = torch.nn.functional.pad(k8.double(), (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v.double() if pv_i8 else v.float(), (0, 0, 0, pad))
+    qd = q8.double()
+    cc = c[:, None, None]
+
+    def scores(j):
+        s = (qd @ k8p[:, j * TILE:(j + 1) * TILE].transpose(1, 2)).float() * cc
+        col = torch.arange(j * TILE, (j + 1) * TILE)[None, None, :]
+        return s.masked_fill(col >= lens, -math.inf)
+
     acc = torch.zeros((H, n, d))
     l = torch.zeros((H, n, 1))
     m = torch.full((H, n, 1), -math.inf)
-    for h in range(H):
-        kv_len = min(int(kv_lens[h]), n)
-        n_tiles = -(-kv_len // TILE)
-        pad = n_tiles * TILE - n
-        k8h = torch.nn.functional.pad(k8[h].float(), (0, 0, 0, max(pad, 0)))
-        vh = torch.nn.functional.pad(v[h].float(), (0, 0, 0, max(pad, 0)))
-        qh = q8[h].float()
-
-        def scores(j):
-            s = (qh @ k8h[j * TILE:(j + 1) * TILE].T) * c[h]
-            col = torch.arange(j * TILE, (j + 1) * TILE)[None, :]
-            return s.masked_fill(col >= kv_len, -math.inf)
-
-        mh, lh, acch = m[h], l[h], acc[h]
-        for j0 in range(0, n_tiles, group):
-            tiles = range(j0, min(j0 + group, n_tiles))
-            mx = torch.full((n, 1), -math.inf)
-            for j in tiles:  # sweep 1
-                mx = torch.maximum(mx, scores(j).amax(dim=-1, keepdim=True))
-            m_new = torch.maximum(mh, mx)  # finite: the group's first tile has a valid key
-            alpha = torch.exp2(mh - m_new)
-            mh, lh, acch = m_new, alpha * lh, acch * alpha
-            pv = torch.zeros((n, d), dtype=torch.int64)
-            for j in tiles:  # sweep 2
-                p = torch.exp2(scores(j) - mh)
-                lh = lh + p.sum(dim=-1, keepdim=True)
-                vt = vh[j * TILE:(j + 1) * TILE]
-                if pv_i8:
-                    pv += torch.round(p * 127.0).to(torch.int64) @ vt.to(torch.int64)
-                else:
-                    pb = p if v.dtype == torch.float32 else p.to(torch.bfloat16).float()
-                    acch = acch + pb @ vt
+    for j0 in range(0, n_tiles, group):
+        tiles = range(j0, min(j0 + group, n_tiles))
+        mx = torch.full((H, n, 1), -math.inf)
+        for j in tiles:  # sweep 1
+            mx = torch.maximum(mx, scores(j).amax(dim=-1, keepdim=True))
+        m_new = torch.maximum(m, mx)
+        m_safe = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+        alpha = torch.exp2(m - m_safe)
+        m, l, acc = m_new, alpha * l, acc * alpha
+        pv = torch.zeros((H, n, d), dtype=torch.float64)
+        for j in tiles:  # sweep 2
+            p = torch.exp2(scores(j) - m_safe)
+            l = l + p.sum(dim=-1, keepdim=True)
+            vt = vp[:, j * TILE:(j + 1) * TILE]
             if pv_i8:
-                acch = acch + pv.float() * sv[h]
-        m[h], l[h], acc[h] = mh, lh, acch
+                pv += torch.round(p * 127.0).double() @ vt
+            else:
+                pb = p if v.dtype == torch.float32 else p.to(torch.bfloat16).float()
+                acc = acc + pb @ vt
+        if pv_i8:
+            acc = acc + pv.float() * sv[:, None, None]
     return acc, l, m
 
 
