@@ -357,6 +357,9 @@ SOURCES = {
     **{f"{base}{f}_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_d128.cu"
        for base in ("flash_prefix", "flash_prefix_lse", "flash_prefix_dq_lsein", "flash_prefix_dq",
                     "flash_prefix_dkv", "flash_prefix_rope") for f in ("", "_f32")},
+    # A and 18 at d = 128 in bf16: the attention core's d = 128 form
+    **dict.fromkeys(("flash_prefix_d128", "flash_prefix_rope_d128"),
+                    "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh"),
     **{f"{base}{f}_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8_d128.cu"
        for base in ("flash_prefix_i8", "flash_prefix_i8_qk") for f in ("", "_f32")},
     **{f"flash_prefix_i8_quant{f}_d128": "korean_f5_tts_tpu_torch/csrc/quant_heads.cu"
@@ -403,7 +406,8 @@ def fail(msg: str) -> None:
 # and gated_residual_gemm_tf32_kernel, of C in grouped_conv_tf32_kernel, of 14
 # "qk" in flash_prefix_i8_qk_tf32_kernel, and the .tf32 probes); A's fp32 FFMA
 # kernel at d = 128; 14's pass; the d = 128 forms (flash_prefix_d128.cu,
-# flash_prefix_int8_d128.cu: "d128" in their names; A, 10, 18 in bf16 the
+# flash_prefix_int8_d128.cu and the attention core's attn_fwd_d128_wgmma_kernel:
+# "d128" in their names; 10 in bf16, and A and 18 kept for timing, the
 # mma.sync forward at D = 128)
 SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "quant_heads_kernel", "d128",
                  "flash_prefix_fwd_kernelILi128")
@@ -618,8 +622,8 @@ def check_attention(gen, dev) -> dict:
         return compare(f"flash_prefix {label}", got, want, 1e-2), (q, k, v, kv, got, want)
 
     print("kernel A, prefix attention (bf16, rel bound 1e-2: p rounds to bf16 before P.V "
-          "in the kernel, after normalisation in the plain version); d = 64 on the TMA + "
-          "wgmma attention core (128-key tiles), d = 128 on the mma.sync loop")
+          "in the kernel, after normalisation in the plain version); on the TMA + wgmma "
+          "attention core, d = 64 and d = 128 (128-key tiles)")
     (max_abs, _), (q, k, v, kv, got_main, want_main) = case(
         "main H=32 n=1536 d=64 kv=1376", 32, 1536, 64, [1376] * 32)
     for n in (1, 127, 128, 129, 1000):
@@ -631,7 +635,7 @@ def check_attention(gen, dev) -> dict:
     case("H=1 n=1536 kv=1376", 1, 1536, 64, [1376])
     case("n=300 kv 1, 127, 128, 129, 255, 300, keys past kv_len at +-1e4", 6, 300, 64,
          [1, 127, 128, 129, 255, 300], past=1e4)
-    case("n=300 d=128 mixed (mma.sync loop)", 4, 300, 128, [300, 1, 77, 129])
+    case("n=300 d=128 mixed (the core's d = 128 form)", 4, 300, 128, [300, 1, 77, 129])
 
     ms = cuda_time_ms(lambda: fp.flash_prefix_folded(q, k, v, kv))
     plain_ms = cuda_time_ms(lambda: fp.prefix_attention_reference(q, k, v, kv))
@@ -5390,6 +5394,16 @@ I8_D128_EDGES = (
     (3, 2, 640, [600, 512, 640], 1e4),
     (2, 8, 1536, [1376, 1536], 1e4),
 )
+# kernels A and 18 at d = 128 in bf16 on the attention core (128 rows a
+# block, 64- or 128-key tiles): (heads, n, kv_lens, keys past kv_len), n 1,
+# 129, 1537; kv_len 0, 1, 127, 128, 129, n; 23 heads at n 1536: 276 blocks,
+# a partial wave on 132 SMs
+CORE_D128_EDGES = (
+    (2, 1, [1, 0], None),
+    (6, 129, [0, 1, 127, 128, 129, 64], 1e4),
+    (6, 1537, [0, 1, 127, 128, 129, 1537], 1e4),
+    (23, 1536, [0, 1, 127, 128, 129, 1376, 1536] * 3 + [700, 1535], 1e4),
+)
 SERVE_D128 = (16, 1536, 1376)  # folded heads (2 items x 8), n, kv_len: the serving shape
 TRAIN_D128 = (64, 1280)        # folded heads (8 items x 8), n: the training shape
 
@@ -5403,9 +5417,75 @@ def _d128_tag(dtype) -> tuple[str, str, float, float]:
     return "", "bf16", 1e-2, 1e-2
 
 
+def d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
+    """Kernel A (cos None: q, k, v [H, n, 128], kv [H]) or 18 (q, k, v [B,
+    heads, n, 128], kv [B], cos, sin [n, 64] bf16) in bf16 on the mma.sync
+    loop the attention core replaced (f5_flash_prefix_d128_fwd_mma). Not
+    counted: the counters are the wrappers'."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(q)
+    err = lib.f5_flash_prefix_d128_fwd_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+        None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+        out.data_ptr(), q.shape[0], heads, q.shape[-2], n_rope, fp.LOG2E / 128 ** 0.5,
+        dev.index, stream)
+    cuda_build.check(err, f"kernel {'A' if cos is None else '18'} d = 128 on the mma.sync loop")
+    return out
+
+
+def d128_designs_timed(label: str, ms: float, mma, r: dict) -> None:
+    """The core's time (the wrapper's, ms) beside the mma.sync loop it
+    replaced (mma()), one process, one timer (cuda_time_ms); the core must
+    take at most half the loop's time."""
+    mma_ms = cuda_time_ms(mma)
+    print(f"  {label} designs at the serving shape, one process: the attention core (the "
+          f"wrapper) {ms:.4f} ms, the mma.sync loop {mma_ms:.4f} ms ({mma_ms / ms:.2f}x the "
+          f"core's); bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / ms:.3f} of the core's time), "
+          f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+          f"({ms / r['library_ms']:.2f}x)")
+    r["mma_ms"] = mma_ms
+    if ms > 0.5 * mma_ms:
+        fail(f"{label} on the attention core takes {ms:.4f} ms, more than half of the mma.sync "
+             f"loop's {mma_ms:.4f} ms")
+
+
+def check_core_d128(gen, dev) -> None:
+    """Kernel A at d = 128 in bf16 on the attention core at its tiles' edges
+    (CORE_D128_EDGES) against the plain version within 1e-2, the mma.sync
+    loop it replaced beside; a head with kv_len 0 gives zeros."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    print("kernel A d = 128 bf16 on the attention core at its edges (rel bound 1e-2; the "
+          "mma.sync loop beside)")
+    for H, n, lens, past in CORE_D128_EDGES:
+        q, k, v = (torch.randn((H, n, 128), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        for h, L in enumerate(lens if past else ()):
+            k[h, L:] = past * q[h].float().mean(0).sign().to(torch.bfloat16)
+        kv = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        want = fp.prefix_attention_reference(q, k, v, kv)
+        want[kv == 0] = 0
+        label = f"H={H} n={n} kv={lens if H < 8 else 'mixed'}{' past +-1e4' if past else ''}"
+        got = fp.flash_prefix_folded(q, k, v, kv)
+        compare(f"kernel A d=128 core {label}", got, want, 1e-2)
+        compare(f"kernel A d=128 mma.sync {label}", d128_mma(dev, q, k, v, kv), want, 1e-2)
+        torch.cuda.synchronize()
+        if (kv == 0).any() and got[kv == 0].abs().max().item() != 0:
+            fail(f"kernel A d=128 {label}: a head with kv_len 0 is not zero")
+
+
 def check_attention_d128(gen, dev) -> dict[str, dict]:
-    """Kernels A, 10, 11, 12 and 13 at d = 128 (csrc/flash_prefix_d128.cu:
-    mma.sync in bf16, FFMA in fp32) against their plain versions, both
+    """Kernels A, 10, 11, 12 and 13 at d = 128 (bf16: A on the attention
+    core's d = 128 form, csrc/attn_wgmma.cuh, 10-13 mma.sync in
+    csrc/flash_prefix_d128.cu; fp32: FFMA there) against their plain
+    versions, both
     dtypes, at the serving shape (A: 16 heads, n 1536, 1376 keys), the
     training shape (10-13: 64 heads, n 1280, every key valid), a ragged case
     and D128_EDGES; bf16 o and gradients within 1e-2, fp32 o and lse within
@@ -5465,7 +5545,8 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
                     fail(f"the d = 128 forms {label}: a head with kv_len 0 is not zero")
             return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
 
-        print(f"kernels A, 10-13 at d = 128, {name} ({'mma.sync' if not f else 'FFMA'}; rel "
+        print(f"kernels A, 10-13 at d = 128, {name} ("
+              f"{'A on the attention core, 10-13 mma.sync' if not f else 'FFMA'}; rel "
               f"bound {rel_o:.0e} for o, {F32_ATTN_REL:.0e} for lse, {rel_g:.0e} for dq, dk, dv)")
         H, n = TRAIN_D128
         errs, main = case(f"training main H={H} n={n} kv=n", H, n, [n] * H)
@@ -5554,6 +5635,9 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
         else:
             r["library_ms"] = min(ms for ms, _ in sdpa_times(q, k, v, kv, want).values())
         print(f"  kernel A d=128 {name}: {r['ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+        if not f:
+            d128_designs_timed("kernel A d=128 bf16", r["ms"],
+                               lambda: d128_mma(dev, q, k, v, kv), r)
         out[f"flash_prefix{f}_d128"] = {"max_abs_err": err, **r}
         del q, k, v, do, main, train, timed
         torch.cuda.empty_cache()
@@ -5561,21 +5645,26 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
 
 
 def check_rope_d128(gen, dev) -> dict[str, dict]:
-    """Kernel 18 at d = 128 (flash_prefix_fwd_kernel's rope form in bf16, the
-    FFMA kernel's in fp32) against its plain version (rope_reference's
+    """Kernel 18 at d = 128 (the attention core's d = 128 rope form in bf16,
+    the FFMA kernel's in fp32) against its plain version (rope_reference's
     rounding, then the prefix attention) and against kernel A on
     rope_reference-roped inputs, to the bit (the rotation is the only
     difference), at the serving shape ([2, 8, 1536, 128], 1376 keys) and at
-    edges (pe_attn_head, kv_len 0, keys past kv_len at +-1e4)."""
+    edges (pe_attn_head; kv_len 0, 1, 127-129, n; n 1, 65, 129, 1000, 1537;
+    keys past kv_len at +-1e4; 24 heads, a partial wave); in bf16 timed
+    beside the mma.sync loop it replaced."""
     import torch
 
     from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
 
     out = {}
+    # the serving shape, the mma.sync loop's edges and the core's (n 1, 129,
+    # 1537; kv_len 0, 1, 127, 128, 129, n; 24 heads at n 1536: a partial wave)
     cases = ((2, 8, 1536, [1376, 1376], None, None), (3, 2, 65, [0, 65, 1], 1, 1e4),
              (2, 2, 129, [128, 129], None, 1e4), (1, 4, 1, [1], 2, None),
-             (2, 2, 1000, [1000, 63], None, None))
+             (2, 2, 1000, [1000, 63], None, None), (3, 2, 129, [0, 1, 127], 1, 1e4),
+             (2, 3, 1537, [1537, 129], 2, 1e4), (3, 8, 1536, [1376, 0, 700], None, None))
     for dtype in (torch.bfloat16, torch.float32):
         f, name, rel_o, _ = _d128_tag(dtype)
         print(f"kernel 18 at d = 128, {name} (rel bound {rel_o:.0e}; equal to kernel A on "
@@ -5609,6 +5698,10 @@ def check_rope_d128(gen, dev) -> dict[str, dict]:
                     r["library_ms"] = cuda_time_ms(efficient_f32_sliced(qf, kf, vf, lens_h))
                 else:
                     r["library_ms"] = cuda_time_ms(sdpa_sliced(qf, kf, vf, lens_h))
+                    tabs = [t_[:n].to(torch.bfloat16).contiguous() for t_ in (cos, sin)]
+                    d128_designs_timed("kernel 18 d=128 bf16", r["ms"],
+                                       lambda: d128_mma(dev, q, k, v, kv, *tabs, heads=h,
+                                                        n_rope=h if pe is None else pe), r)
                 out[f"flash_prefix_rope{f}_d128"] = {"max_abs_err": err, **r}
     return out
 
@@ -5773,6 +5866,7 @@ def check_conv_g8(gen, dev) -> dict[str, dict]:
 def check_head_dim128(gen, dev) -> dict[str, dict]:
     """Phase 2's part for head dim 128 and 8 channels a conv-pos group."""
     out = check_attention_d128(gen, dev)
+    check_core_d128(gen, dev)
     out.update(check_rope_d128(gen, dev))
     out.update(check_int8_d128(gen, dev))
     out.update(check_conv_g8(gen, dev))
@@ -6092,6 +6186,16 @@ def main(argv=None) -> int:
     faults = ptxas_faults(cuda_build.build_log)
     if faults:
         fail("ptxas: " + "; ".join(faults))
+    # the wall seconds of each phase that ran, since the previous mark (the
+    # script's time limit is shared by all of them)
+    walls, last = {}, [t0]
+
+    def mark(label: str) -> None:
+        now = time.perf_counter()
+        walls[label] = round(now - last[0], 1)
+        last[0] = now
+
+    mark("1")
 
     results = {name: {} for name in KERNELS}
     if 2 in phases:
@@ -6125,6 +6229,7 @@ def main(argv=None) -> int:
         print("B, 7, 8 (bf16 core) against their times in PERF.md section 6: " + ", ".join(
             f"{AB_KERNELS[n]} {results[n]['ms']:.4f} / {BF16_CORE_MS[n]} = "
             f"{results[n]['ms'] / BF16_CORE_MS[n]:.3f}" for n in BF16_CORE_MS))
+        mark("2")
 
     counts = dict.fromkeys(KERNELS, 0)
     if phases & {3, 4, 5, 7} or args.profile is not None:
@@ -6152,18 +6257,22 @@ def main(argv=None) -> int:
                     counts[name] += n
             del model, vocoder
             torch.cuda.empty_cache()
+        mark("3-5,7")
     if 8 in phases:
         for name, n in phase8_offline(dev, card).items():
             counts[name] += n
         if args.profile is not None:
             profile_fp32_chunks(args.profile)
+        mark("8")
     if 9 in phases:
         for name, n in phase9_int8_attention(dev, card, args.profile).items():
             counts[name] += n
+        mark("9")
     if 12 in phases:  # before 6: the profiler slows every launch after it
         for name, n in phase12_parallel(dev, card).items():
             counts[name] += n
         torch.cuda.empty_cache()
+        mark("12")
     if 11 in phases:  # before 6: the profiler slows every launch after it
         import tempfile
 
@@ -6171,21 +6280,27 @@ def main(argv=None) -> int:
             for name, n in phase11_backbones(dev, card, Path(tmp)).items():
                 counts[name] += n
         torch.cuda.empty_cache()
+        mark("11")
     if 13 in phases:  # before 6: the profiler slows every launch after it
         for name, n in phase13_head_dim128(dev, card).items():
             counts[name] += n
         torch.cuda.empty_cache()
+        mark("13")
     lora_profile = None
     if 10 in phases:  # before 6: the profiler slows every launch after it
         phase10_counts, lora_profile = phase10_finetune(dev, card)
         for name, n in phase10_counts.items():
             counts[name] += n
+        mark("10")
     if 6 in phases:  # last: it profiles a step, and the profiler slows every launch after it
         train_profile = None if args.profile is None else args.profile.with_suffix(".train.txt")
         for name, n in phase6_train(dev, card, train_profile).items():
             counts[name] += n
+        mark("6")
     if lora_profile is not None:  # phase 10's profile, after every timing
         lora_profile()
+    print(f"wall seconds by phase (phase 1 from its build on): {walls}, in all "
+          f"{sum(walls.values()):.1f}")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
                 "max_abs_err": results[name].get("max_abs_err"),

@@ -8,7 +8,10 @@
 // template flag kRope; A's and 10's instantiations have none of it), and
 // kernel 18 (flash_prefix_rope.cu), the same rope form over split heads; and
 // kernel 14 (flash_prefix_int8.cu), kernel A with int8 products (the
-// template flag kI8; the others' instantiations have none of it).
+// template flag kI8; the others' instantiations have none of it). Kernels A
+// and 18 at head dim 128 in bf16 run on the core's D = 128 form
+// (attn_fwd_d128_wgmma_kernel, its own note at the end of this file;
+// flash_prefix_core_d128.cu).
 //
 // The function is kernel A's (flash_prefix.cu): folded heads q, k, v, out
 // [H, n, 64] bf16, kv_lens [H] int32; head h attends keys [0, kv_lens[h])
@@ -276,15 +279,16 @@ __device__ __forceinline__ void attn_pack_p(const float (&s)[N / 2], uint32_t (&
   }
 }
 
-// ping-pong: warpgroup wg issues its products only in its turn (named
-// barrier 4 + wg, 256 threads: its own 128 waiting, the previous
+// ping-pong: warpgroup wg of kWgs issues its products only in its turn
+// (named barrier 4 + wg, 256 threads: its own 128 waiting, the previous
 // warpgroup's 128 arriving when it has issued)
 __device__ __forceinline__ void attn_turn_wait(int wg) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(4 + wg) : "memory");
 }
 
+template <int kWgs = kAttnWgs>
 __device__ __forceinline__ void attn_turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 + (wg + 1) % kAttnWgs) : "memory");
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(4 + (wg + 1) % kWgs) : "memory");
 }
 
 // issue S = q.K^T for one tile (four k16 steps) as one wgmma group
@@ -898,6 +902,439 @@ cudaError_t launch_attn_fwd_wgmma(const void* q, const void* k, const void* v,
   attn_fwd_wgmma_kernel<kLse, false><<<grid, 128 * (kAttnWgs + 1), smem, stream>>>(
       map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out),
       static_cast<float*>(lse), n, scale_log2, AttnRope{}, nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// head dim 128: kernels A and 18 in bf16 (attn_fwd_d128_wgmma_kernel)
+// ---------------------------------------------------------------------------
+//
+// The function is kernel A's at d = 128 (folded heads q, k, v, out [H, n,
+// 128] bf16, kv_lens [H]) and, in the rope form, kernel 18's (its split
+// heads [B, heads, n, 128] are contiguous, so they are the folded [B *
+// heads, n, 128] with kv_lens per item; the rotation as at d = 64, on the
+// [n, 64] tables). It replaces, in bf16, the first port's mma.sync loop
+// (flash_prefix.cuh:flash_prefix_fwd_kernel<128, ...>, which kernel 10 at
+// d = 128 still runs on): 64 query rows a block,
+// 64-key tiles loaded synchronously with two barriers a tile, mma.sync, the
+// exponentials between the products, the whole K/V prefix streamed from L2
+// by every 64-row block.
+//
+// What differs from the D = 64 core above:
+//   spans     a 128-column bf16 row is 256 bytes, two 128-byte swizzle
+//             spans; every tile (q, K, V) lies as two [rows][128 bytes]
+//             boxes, span 0 (columns 0-63) then span 1 (64-127), each TMA'd
+//             from the same 3-D map at columns 0 and 64.
+//   S         eight k16 steps: steps 0-3 on span 0 of q and K, 4-7 on span
+//             1 (the descriptors' start moves to the other span, not by +2
+//             across its edge).
+//   P.V       N = 128 over both spans of V: two m64n64k16 products a k step,
+//             one a span (wgmma_rs_n64_tb, the D = 64 core's proven MN-major
+//             B), O held as two 32-float halves. The other way, m64n128 with
+//             the MN-major descriptor's stride between spans, would need
+//             that unused field proved first; two n64 products need nothing
+//             new and issue at the same rate.
+//   registers S (64 fp32 at 128 keys), O (64) and P (32) are ~160 a thread
+//             before addresses: two consumer warpgroups of 64 rows (128 a
+//             block) at setmaxnreg 240 and a producer warpgroup at 24, 128 x
+//             24 + 256 x 240 = 384 x 168, the launch's share. The rope form
+//             has two producer warpgroups (512 threads): 256 x 40 + 256 x
+//             216 = 512 x 128. ptxas: no spill, no serialized wgmma.
+//   smem      q 2 x 16 KB; a stage of 128 keys is K and V, 2 x 32 KB; three
+//             stages and q take 224 KB of the 227 a block may have
+//             (attn_d128_smem_bytes, static_assert in the launcher). The
+//             rope form adds the tile's rows of cos and sin (2 x 16 KB a
+//             stage), so it has two stages. 64-key tiles (A six stages, 18
+//             four: 48 KB a stage) were slower for both (times in
+//             flash_prefix_core_d128.cu's note); 18 must equal A on roped
+//             inputs to the bit, so the two share one key tile.
+//   ring      a stage's K (with its tables) and its V are filled and freed
+//             apart (full_k / empty_k, full_v / empty_v): K(j) is read by
+//             S(j) one iteration before V(j) is read by P.V(j), so the
+//             producer loads K a tile ahead of V, into the slot S freed,
+//             and K(j + 2) lands (and is rotated) while tile j is still in
+//             P.V. A trial build with one full and one empty barrier a
+//             stage was slower in the rope form, and lost to A even with
+//             the rotation off: two such stages leave the next tile's load
+//             and rotation no time to hide in.
+//   rope      the partners c and c + 64 of a row are the same chunk of the
+//             same row in the two spans (w128_rope_q, w128_rope_k): + span
+//             bytes instead of ^ 64; 128-byte table rows. q by its consumer
+//             warpgroup from L2, each K tile from the tables TMA lands in the
+//             stage, as at D = 64, but by seven warps (the two producer
+//             warpgroups but the TMA warp) in 16-byte items: the rotation
+//             is the rope form's cost, and its warps are latency-bound.
+//             Trial builds, slower: three rotating warps (one producer
+//             warpgroup, the D = 64 form's) in 8-byte halves at 40
+//             registers, or in 16-byte items two or three rows at a time at
+//             56 or 72; seven warps two rows at a time at 48 (spilled).
+// Schedule and numerics as at D = 64: S(j + 1) issued before P.V(j),
+// ping-pong across the two warpgroups, fp32 running max and sum, P rounded
+// to bf16 for P.V, ex2.approx; keys at or past kv_len are -inf before the
+// max, the loop runs ceil(kv_len / 128) tiles, a head with kv_len 0 gives
+// zeros, rows past n are zero-filled by TMA and never stored; O / l through
+// the warpgroup's own q slice (both spans), then 16-byte row stores.
+// What bounds it: at the serving shape (16 folded heads, n 1536, 1376 keys)
+// 17.3 GFLOP, 0.0175 ms at 989 TFLOP/s, and 33.8 M exp2 (half D = 64's for
+// the same FLOPs). Grid: 12 x 16 = 192 blocks of 128 rows, 1.45 waves on
+// 132 SMs: the second wave runs 60 blocks, so 72 of the 264 block slots of
+// the two waves (27%) are idle tail (a persistent schedule is later work).
+// The rope form's rotation is ~12 instructions a pair of values (four
+// products and two sums, each rounded apart, the bf16 unpacking and
+// packing) on seven warps, redone by each of a head's 12 blocks.
+
+constexpr int kW128Keys = 128;                     // keys a K/V tile
+constexpr int kW128Wgs = 2;                        // consumer warpgroups, 64 q rows each
+constexpr int kW128Rows = 64 * kW128Wgs;           // q rows a block
+constexpr int kW128QSpan = kW128Rows * kRowBytes;  // one 64-column span of the q tile
+constexpr int kW128WgSpan = 64 * kRowBytes;        // a warpgroup's rows of one q span
+constexpr int kW128RopeThreads = 224;              // the rope form's warps 1-7 of its producers
+// threads a block: the consumers and one producer warpgroup, two in the rope form
+template <bool kRope>
+__host__ __device__ constexpr int w128_threads() {
+  return 128 * (kW128Wgs + (kRope ? 2 : 1));
+}
+constexpr int kBlockSmemMax = 232448;              // dynamic shared memory a block may take
+
+constexpr int kW128Span = kW128Keys * kRowBytes;   // one 64-column span of a K, V or table tile
+
+// a ring stage: K and V, two spans each, and in the rope form the tile's
+// rows of cos and sin; the ring: what fits beside q
+template <bool kRope>
+__host__ __device__ constexpr int w128_stage_bytes() {
+  return (kRope ? 6 : 4) * kW128Span;
+}
+
+template <bool kRope>
+__host__ __device__ constexpr int w128_stages() {
+  return kRope ? 2 : 3;
+}
+
+// 1024 bytes of alignment slack, q, the ring and its barriers (full and
+// empty apart for K and V, and roped in the rope form, a stage each; q_full)
+template <bool kRope>
+__host__ __device__ constexpr int attn_d128_smem_bytes() {
+  return 1024 + 2 * kW128QSpan + w128_stages<kRope>() * w128_stage_bytes<kRope>() +
+         ((kRope ? 5 : 4) * w128_stages<kRope>() + 1) * 8;
+}
+
+// issue S = q.K^T for one tile (eight k16 steps: four on each span) as one
+// wgmma group
+__device__ __forceinline__ void w128_issue_qk(float (&s)[64], uint64_t desc_q0, uint64_t desc_q1,
+                                              const unsigned char* tile_k) {
+  const uint64_t dk0 = wgmma_desc(tile_k), dk1 = wgmma_desc(tile_k + kW128Span);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_ss_n128(s, (kk < 4 ? desc_q0 : desc_q1) + 2 * (kk & 3),
+                  (kk < 4 ? dk0 : dk1) + 2 * (kk & 3), kk != 0);
+  wgmma_commit();
+}
+
+// issue O += P.V for one tile (eight k16 steps, a product on each span of
+// V) as one wgmma group; o0 holds output columns 0-63, o1 64-127
+__device__ __forceinline__ void w128_issue_pv(float (&o0)[32], float (&o1)[32],
+                                              const uint32_t (&p)[8][4],
+                                              const unsigned char* tile_v) {
+  const uint64_t dv0 = wgmma_desc_mn(tile_v), dv1 = wgmma_desc_mn(tile_v + kW128Span);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    wgmma_rs_n64_tb(o0, p[kk], dv0 + 128 * kk, 1);
+    wgmma_rs_n64_tb(o1, p[kk], dv1 + 128 * kk, 1);
+  }
+  wgmma_commit();
+}
+
+// The rotation at D = 128 on a swizzled tile held as two spans (span 1
+// span_bytes after span 0), rows row0 + r for r < rows, stopping at the
+// first row at or past lim; the arithmetic and rounding of rope_word (the
+// plain version's to the bit). Item (row r, chunk j < 8): the partners
+// c and c + 64 are chunk j ^ (r & 7) of row r in both spans; thread t of
+// nthreads takes chunk t & 7 of rows t / 8, t / 8 + nthreads / 8, ..., so
+// a quarter-warp covers one row's eight chunks (conflict-free).
+// q: the tables [n, 64] in device memory (L2-resident), 16-byte items.
+__device__ __forceinline__ void w128_rope_q(uint32_t tile_a, int span_bytes, int rows, int row0,
+                                            int lim, const bf16* __restrict__ cos,
+                                            const bf16* __restrict__ sin, int tid,
+                                            int nthreads) {
+  const int j = tid & 7;
+  for (int r = tid >> 3; r < rows && row0 + r < lim; r += nthreads >> 3) {
+    const uint32_t lo_a = tile_a + r * kRowBytes + ((j ^ (r & 7)) << 4);
+    uint4 xlo = lds128(lo_a), xhi = lds128(lo_a + span_bytes);
+    const size_t tab = (size_t)(row0 + r) * 64 + 8 * j;
+    const uint4 cr = __ldg(reinterpret_cast<const uint4*>(cos + tab));
+    const uint4 sr = __ldg(reinterpret_cast<const uint4*>(sin + tab));
+    rope_word(xlo.x, xhi.x, cr.x, sr.x);
+    rope_word(xlo.y, xhi.y, cr.y, sr.y);
+    rope_word(xlo.z, xhi.z, cr.z, sr.z);
+    rope_word(xlo.w, xhi.w, cr.w, sr.w);
+    sts128(lo_a, xlo);
+    sts128(lo_a + span_bytes, xhi);
+  }
+}
+
+// K: the tile's own rows of the tables, which TMA put in the stage (cos at
+// tab_a, sin span_bytes on, unswizzled 128-byte rows), 16-byte items
+__device__ __forceinline__ void w128_rope_k(uint32_t tile_a, int span_bytes, int rows, int row0,
+                                            int lim, uint32_t tab_a, int tid, int nthreads) {
+  const int j = tid & 7, end = min(rows, lim - row0);
+#pragma unroll 1
+  for (int r = tid >> 3; r < end; r += nthreads >> 3) {
+    const uint32_t lo_a = tile_a + r * kRowBytes + ((j ^ (r & 7)) << 4);
+    const uint32_t t_r = tab_a + r * kRowBytes + 16 * j;
+    uint4 xlo = lds128(lo_a), xhi = lds128(lo_a + span_bytes);
+    const uint4 cr = lds128(t_r), sr = lds128(t_r + span_bytes);
+    rope_word(xlo.x, xhi.x, cr.x, sr.x);
+    rope_word(xlo.y, xhi.y, cr.y, sr.y);
+    rope_word(xlo.z, xhi.z, cr.z, sr.z);
+    rope_word(xlo.w, xhi.w, cr.w, sr.w);
+    sts128(lo_a, xlo);
+    sts128(lo_a + span_bytes, xhi);
+  }
+}
+
+// kRope false: kernel A (block y = folded head, kv_lens per head); true:
+// kernel 18 (block y = item * heads + g, kv_lens per item, heads g <
+// n_rope rotate)
+template <bool kRope>
+__global__ void __launch_bounds__(w128_threads<kRope>(), 1)
+attn_fwd_d128_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const int* __restrict__ kv_lens, bf16* __restrict__ out, int n,
+                           float scale_log2, const __grid_constant__ AttnRope rope) {
+  constexpr int BK = kW128Keys, kSpan = kW128Span, kStages = w128_stages<kRope>();
+  constexpr int kStageBytes = w128_stage_bytes<kRope>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* s_q = smem;  // span 0 of the block's 128 rows, then span 1
+  unsigned char* ring = smem + 2 * kW128QSpan;
+  // a stage's K (with its tables) and its V are filled and released apart
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
+  uint64_t* q_full = empty_v + kStages;
+  uint64_t* roped = q_full + 1;  // kRope: K tile s rotated
+  const int head = blockIdx.y;
+  const int item = kRope ? head / rope.heads : head;
+  const bool rope_on = kRope && head - item * rope.heads < rope.n_rope;
+  const int q0 = blockIdx.x * kW128Rows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);  // the producer's arrive; TMA counts the bytes
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 4 * kW128Wgs);  // lane 0 of every consumer warp
+      mbar_init(&empty_v[s], 4 * kW128Wgs);
+      if (kRope) mbar_init(&roped[s], kW128RopeThreads);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // kv_len is read after each setmaxnreg: a value live across one is spilled
+  if (warp >= 4 * kW128Wgs) {
+    if constexpr (kRope) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    else asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int kv_len = min(kv_lens[item], n);
+    const int n_tiles = kv_len > 0 ? (kv_len + BK - 1) / BK : 0;
+    if (tid == 128 * kW128Wgs) {
+      mbar_arrive_expect_tx(q_full, 2 * kW128QSpan);
+      tma_load_3d(s_q, &map_q, q_full, 0, q0, head);
+      tma_load_3d(s_q + kW128QSpan, &map_q, q_full, 64, q0, head);
+      // K runs a tile ahead of V: K(j) (and its tables) as soon as S(j -
+      // kStages) has read its slot, then V(j - 1) once P.V(j - 1 - kStages)
+      // has read its own; the empty waits pass at once on the first round
+      for (int j = 0; j <= n_tiles; ++j) {
+        if (j < n_tiles) {
+          const int s = j % kStages;
+          unsigned char* tile = ring + s * kStageBytes;
+          mbar_wait(&empty_k[s], ((j / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full_k[s], (rope_on ? 4 : 2) * kSpan);
+          tma_load_3d(tile, &map_k, &full_k[s], 0, j * BK, head);
+          tma_load_3d(tile + kSpan, &map_k, &full_k[s], 64, j * BK, head);
+          if (rope_on) {
+            tma_load_2d(tile + 4 * kSpan, &rope.map_cos, &full_k[s], 0, j * BK);
+            tma_load_2d(tile + 5 * kSpan, &rope.map_sin, &full_k[s], 0, j * BK);
+          }
+        }
+        if (j > 0) {
+          const int jv = j - 1, s = jv % kStages;
+          unsigned char* tile = ring + s * kStageBytes;
+          mbar_wait(&empty_v[s], ((jv / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full_v[s], 2 * kSpan);
+          tma_load_3d(tile + 2 * kSpan, &map_v, &full_v[s], 0, jv * BK, head);
+          tma_load_3d(tile + 3 * kSpan, &map_v, &full_v[s], 64, jv * BK, head);
+        }
+      }
+    } else if (rope_on && warp > 4 * kW128Wgs) {
+      // warps 1-7 of the producers: rotate each K tile once it has landed,
+      // up to kv_len, then hand it to the consumers on roped[s]
+      const uint32_t ring_a = smem_addr(ring);
+      const uint32_t full_k_a = ring_a + kStages * kStageBytes;
+      const uint32_t roped_a = full_k_a + (4 * kStages + 1) * 8;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(full_k_a + 8 * s, (j / kStages) & 1);
+        int rt = tid - 128 * kW128Wgs - 32;
+        asm volatile("" : "+r"(rt));  // keeps the per-thread addresses out of the loop's state
+        const uint32_t tile_a = ring_a + s * kStageBytes;
+        w128_rope_k(tile_a, kSpan, BK, j * BK, kv_len, tile_a + 4 * kSpan, rt, kW128RopeThreads);
+        fence_proxy_async();
+        mbar_arrive(roped_a + 8 * s);
+      }
+    }
+  } else {
+    // 128 x 24 + 256 x 240 = 384 x 168 (rope: 256 x 40 + 256 x 216 = 512 x
+    // 128): the registers the block was launched with
+    if constexpr (kRope) asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+    else asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int kv_len = min(kv_lens[item], n);
+    const int n_tiles = kv_len > 0 ? (kv_len + BK - 1) / BK : 0;
+    const int wg = warp >> 2, g8 = lane >> 2, t = lane & 3;
+    unsigned char* my_q = s_q + wg * kW128WgSpan;  // span 0 of this warpgroup's rows
+    float o0[32], o1[32];  // output columns 0-63 and 64-127
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o0[i] = o1[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};  // rows g8 and g8 + 8 of this warp's 16
+    float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
+    mbar_wait(q_full, 0);
+    if (rope_on && n_tiles > 0) {
+      // this warpgroup's 64 q rows, rotated once, visible to its wgmma
+      w128_rope_q(smem_addr(my_q), kW128QSpan, 64, q0 + wg * 64, n, rope.cos, rope.sin,
+                  tid & 127, 128);
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+    if (n_tiles > 0) {
+      const uint64_t desc_q0 = wgmma_desc(my_q), desc_q1 = wgmma_desc(my_q + kW128QSpan);
+      float s[64];
+      uint32_t p[8][4];
+      float alpha[2];
+      if (wg == kW128Wgs - 1) attn_turn_pass<kW128Wgs>(wg);  // warpgroup 0 starts
+      mbar_wait(&full_k[0], 0);
+      if (rope_on) mbar_wait(&roped[0], 0);
+      attn_turn_wait(wg);
+      wgmma_fence();
+      w128_issue_qk(s, desc_q0, desc_q1, ring);
+      attn_turn_pass<kW128Wgs>(wg);
+      wgmma_wait<0>();
+      wgmma_fence_regs(s);
+      if (lane == 0) mbar_arrive(&empty_k[0]);
+      attn_softmax_tile(s, m_run, l_run, alpha, 0, kv_len, scale_log2, t);
+      attn_pack_p<BK>(s, p);
+      for (int j = 1; j < n_tiles; ++j) {
+        const int st = j % kStages, prev = (j - 1) % kStages;
+        mbar_wait(&full_k[st], (j / kStages) & 1);
+        if (rope_on) mbar_wait(&roped[st], (j / kStages) & 1);
+        mbar_wait(&full_v[prev], ((j - 1) / kStages) & 1);
+        attn_turn_wait(wg);
+        wgmma_fence();
+        w128_issue_qk(s, desc_q0, desc_q1, ring + st * kStageBytes);
+        w128_issue_pv(o0, o1, p, ring + prev * kStageBytes + 2 * kSpan);
+        attn_turn_pass<kW128Wgs>(wg);
+        wgmma_wait<1>();  // S of tile j is done; P.V of tile j - 1 may still run
+        wgmma_fence_regs(s);
+        if (lane == 0) mbar_arrive(&empty_k[st]);
+        attn_softmax_tile(s, m_run, l_run, alpha, j * BK, kv_len, scale_log2, t);
+        wgmma_wait<0>();
+        wgmma_fence_regs(o0);
+        wgmma_fence_regs(o1);
+        if (lane == 0) mbar_arrive(&empty_v[prev]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          o0[i] *= alpha[(i >> 1) & 1];
+          o1[i] *= alpha[(i >> 1) & 1];
+        }
+        attn_pack_p<BK>(s, p);
+      }
+      const int last = (n_tiles - 1) % kStages;
+      mbar_wait(&full_v[last], ((n_tiles - 1) / kStages) & 1);
+      attn_turn_wait(wg);
+      wgmma_fence();
+      w128_issue_pv(o0, o1, p, ring + last * kStageBytes + 2 * kSpan);
+      // the last turn: nobody waits on warpgroup 0's barrier
+      if (wg != kW128Wgs - 1) attn_turn_pass<kW128Wgs>(wg);
+      wgmma_wait<0>();
+      wgmma_fence_regs(o0);
+      wgmma_fence_regs(o1);
+      if (lane == 0) mbar_arrive(&empty_v[last]);
+    }
+
+    // epilogue: rows of bf16 through this warpgroup's q slice, both spans
+    // (its last S product is done), chunk j of row r at chunk j ^ (r & 7)
+    const int row = (warp & 3) * 16 + g8;  // and row + 8; (row + 8) & 7 == g8 too
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_run[r]);
+      inv[r] = l > 0.f ? 1.f / l : 0.f;  // kv_len == 0: zeros, as the TPU kernel
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int chunk = (j ^ g8) << 4;
+      unsigned char* a = my_q + row * kRowBytes + chunk + 4 * t;
+      unsigned char* b = a + 8 * kRowBytes;  // row + 8
+      *reinterpret_cast<uint32_t*>(a) = pack_bf16x2(o0[4 * j] * inv[0], o0[4 * j + 1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(b) =
+          pack_bf16x2(o0[4 * j + 2] * inv[1], o0[4 * j + 3] * inv[1]);
+      *reinterpret_cast<uint32_t*>(a + kW128QSpan) =
+          pack_bf16x2(o1[4 * j] * inv[0], o1[4 * j + 1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(b + kW128QSpan) =
+          pack_bf16x2(o1[4 * j + 2] * inv[1], o1[4 * j + 3] * inv[1]);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup alone
+    const int wt = tid & 127;
+    bf16* out_head = out + (size_t)head * n * 128;
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int i = wt + 128 * it, r = i >> 4, c = i & 15;  // 16 chunks of 16 bytes a row
+      const int grow = q0 + wg * 64 + r;
+      if (grow < n)
+        *reinterpret_cast<int4*>(out_head + (size_t)grow * 128 + 8 * c) =
+            *reinterpret_cast<const int4*>(my_q + (c >> 3) * kW128QSpan + r * kRowBytes +
+                                           (((c & 7) ^ (r & 7)) << 4));
+    }
+  }
+}
+
+// kernel A (kRope false: cos, sin unread, heads 1, kv_lens [H] per folded
+// head) or kernel 18 (kRope: kv_lens [H / heads] per item, cos, sin [n, 64]
+// bf16, heads g < n_rope rotate) at head dim 128 on this core. q, k, v, out:
+// [H, n, 128] bf16 (18's split heads [B, heads, n, 128] with H = B * heads),
+// 16-byte aligned.
+template <bool kRope>
+cudaError_t launch_attn_fwd_d128(const void* q, const void* k, const void* v,
+                                 const void* kv_lens, const void* cos, const void* sin,
+                                 void* out, int H, int heads, int n, int n_rope,
+                                 float scale_log2, cudaStream_t stream) {
+  constexpr int smem = attn_d128_smem_bytes<kRope>();
+  static_assert(smem <= kBlockSmemMax, "the d = 128 core's ring does not fit a block");
+  CUtensorMap map_q, map_k, map_v;
+  AttnRope rope{};
+  if (!tensor_map_3d(&map_q, q, H, n, 128, kW128Rows, kMapBf16) ||
+      !tensor_map_3d(&map_k, k, H, n, 128, kW128Keys, kMapBf16) ||
+      !tensor_map_3d(&map_v, v, H, n, 128, kW128Keys, kMapBf16))
+    return cudaErrorInvalidValue;
+  if constexpr (kRope) {
+    if (heads <= 0 || H % heads != 0 || !tensor_map_table(&rope.map_cos, cos, n, 64, kW128Keys) ||
+        !tensor_map_table(&rope.map_sin, sin, n, 64, kW128Keys))
+      return cudaErrorInvalidValue;
+    rope.cos = static_cast<const bf16*>(cos);
+    rope.sin = static_cast<const bf16*>(sin);
+    rope.heads = heads;
+    rope.n_rope = n_rope;
+  }
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err =
+      allow_smem(attn_fwd_d128_wgmma_kernel<kRope>, smem, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kW128Rows - 1) / kW128Rows, H);
+  attn_fwd_d128_wgmma_kernel<kRope><<<grid, w128_threads<kRope>(), smem, stream>>>(
+      map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out), n,
+      scale_log2, rope);
   return cudaGetLastError();
 }
 

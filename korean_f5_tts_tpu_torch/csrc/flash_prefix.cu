@@ -18,17 +18,20 @@
 // P.V on wgmma with P in registers, the next tile's S product overlapping
 // this tile's softmax, the warpgroups' products in turns.
 //
-// At D = 128 (bf16 and fp32) every form runs in flash_prefix_d128.cu, the
-// entry points below hand the call there: bf16 on the first port's mma.sync
-// loop (flash_prefix_fwd_kernel in flash_prefix.cuh): one 128-thread block
-// per (folded head, 64-row query tile), each warp 16 query rows held as mma
-// A fragments, 64-key K/V tiles loaded synchronously into shared memory, S =
-// q.k^T and O += P.V on mma.sync m16n8k16 with P re-packed in registers; the
-// KV loop stops at ceil(kv_len / 64) tiles (the TPU kernel's `prune`), the
-// partial last tile is masked per column, rows past n are zero-filled and
-// never stored. f5_flash_prefix_fwd_mma runs that loop at D = 64 too, so
-// that chip_smoke.py can time the two designs in one process; no serving or
-// inference path calls it.
+// bf16 at D = 128 runs on the same core's D = 128 form (attn_wgmma.cuh:
+// attn_fwd_d128_wgmma_kernel, through flash_prefix_core_d128.cu): 128 query
+// rows a block on two consumer warpgroups, every tile two 128-byte swizzle
+// spans wide. fp32 at D = 128 runs in flash_prefix_d128.cu. The first
+// port's mma.sync loop (flash_prefix_fwd_kernel in flash_prefix.cuh: one
+// 128-thread block per (folded head, 64-row query tile), each warp 16 query
+// rows held as mma A fragments, 64-key K/V tiles loaded synchronously into
+// shared memory, S = q.k^T and O += P.V on mma.sync m16n8k16 with P
+// re-packed in registers; the KV loop stops at ceil(kv_len / 64) tiles (the
+// TPU kernel's `prune`), the partial last tile is masked per column, rows
+// past n are zero-filled and never stored) stays for kernel 10 at D = 128;
+// f5_flash_prefix_fwd_mma runs it at D = 64 and f5_flash_prefix_d128_fwd_mma
+// (flash_prefix_d128.cu) at D = 128, so that chip_smoke.py can time the two
+// designs in one process; no serving or inference path calls either.
 //
 // Numerics (both bf16 designs): online-max softmax (running max and
 // denominator in fp32) with log2(e) folded into the scale, so exp is exp2.
@@ -251,8 +254,8 @@ bool attn_dims_ok(int H, int n) { return H > 0 && n > 0 && H <= 65535; }
 
 }  // namespace
 
-// kernel A on bf16 q, k, v, out [H, n, d]: d 64 on the attention core, d 128
-// on the mma.sync loop
+// kernel A on bf16 q, k, v, out [H, n, d]: d 64 and d 128 on the attention
+// core (attn_wgmma.cuh; d 128 through flash_prefix_core_d128.cu)
 extern "C" int f5_flash_prefix_fwd(const void* q, const void* k, const void* v,
                                    const void* kv_lens, void* out, int H, int n, int d,
                                    float scale_log2, int device, void* stream) {
@@ -264,7 +267,8 @@ extern "C" int f5_flash_prefix_fwd(const void* q, const void* k, const void* v,
     return (int)f5::launch_attn_fwd_wgmma<false>(q, k, v, kv_lens, out, nullptr, H, n,
                                                  scale_log2, s);
   if (d == 128)
-    return (int)f5::d128::fwd(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, false, s);
+    return (int)f5::d128::core(q, k, v, kv_lens, nullptr, nullptr, out, H, 1, n, 0, scale_log2,
+                               s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,12 @@
 // Tiles, warp-level products, the online-softmax step and the forward loop
-// of the first port's mma.sync attention: kernel A at d = 128 and its lse
-// and rope forms, kernels 10 and 18 at d = 128 (flash_prefix_fwd_kernel;
-// d = 64 runs on attn_wgmma.cuh), the dq and dk/dv kernels 11, 12 and 13 at
-// d = 128 (flash_prefix_d128.cu; d = 64 runs on attn_bwd_wgmma.cuh), kernel
-// 14 at d = 128 (flash_prefix_int8_d128.cu), and the probes of the rope
-// loop's idioms (probe_hopper.cu: the strided and rope loaders at d = 64).
+// of the first port's mma.sync attention: kernel 10 at d = 128
+// (flash_prefix_fwd_kernel; its forms without lse and with rope are the
+// designs that kernels A and 18 at d = 128 ran on, kept for timing; d = 64
+// and A and 18 at d = 128 run on attn_wgmma.cuh), the dq and dk/dv kernels
+// 11, 12 and 13 at d = 128 (flash_prefix_d128.cu; d = 64 runs on
+// attn_bwd_wgmma.cuh), kernel 14 at d = 128 (flash_prefix_int8_d128.cu), and
+// the probes of the rope loop's idioms (probe_hopper.cu: the strided and
+// rope loaders at d = 64).
 //
 // A block is 128 threads over a 64-row tile; each warp owns 16 of the rows.
 // Shared tiles are [64][D + 8] bf16 (mma.cuh's padded stride); rows at or

@@ -26,14 +26,19 @@
 // the fp32 FFMA forms (0.26-1.60 ms). The n x n scores stay out of device
 // memory.
 //
-// bf16: the first port's mma.sync building blocks (flash_prefix.cuh), a
-// block of 128 threads over 64 rows, each warp 16 of them, shared tiles
-// [64][136] bf16 (17 KB each, four a block):
-//   A, 10, 18  flash_prefix_fwd_kernel<128, kLse, kRope>: q held as A
-//              fragments, 64-key K/V tiles loaded synchronously, S and P.V
-//              on mma.sync m16n8k16 with P re-packed in registers; kRope
-//              rotates q and the K tiles of the rotating heads in fp32 with
-//              the bf16 tables as they land (ops/flash_prefix.py:rope_reference).
+// bf16: A and 18 run on the TMA + wgmma attention core's D = 128 form
+// (attn_wgmma.cuh, flash_prefix_core_d128.cu: d128::core); the others on the
+// first port's mma.sync building blocks (flash_prefix.cuh), a block of 128
+// threads over 64 rows, each warp 16 of them, shared tiles [64][136] bf16
+// (17 KB each, four a block):
+//   10         flash_prefix_fwd_kernel<128, kLse>: q held as A fragments,
+//              64-key K/V tiles loaded synchronously, S and P.V on mma.sync
+//              m16n8k16 with P re-packed in registers. Its instantiations
+//              without lse (A) and with kRope (18: q and the K tiles of the
+//              rotating heads rotated in fp32 with the bf16 tables as they
+//              land, ops/flash_prefix.py:rope_reference) are the designs the
+//              core replaced, kept for chip_smoke.py's timing
+//              (f5_flash_prefix_d128_fwd_mma).
 //   11, 12     flash_prefix_dq_d128_kernel<kOnline>: a block per (head, 64
 //              queries), Q and dO resident in shared memory (their fragments
 //              read per k step, which keeps the 16 x 128 fp32 dq accumulator
@@ -770,12 +775,27 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, c
   return cudaGetLastError();
 }
 
+// kernel 18 on the mma.sync loop (bf16; core() serves it) or FFMA (fp32):
+// q, k, v, out [B * heads, n, 128], kv_lens [B], cos, sin [n, 64] of the
+// operands' dtype
+cudaError_t rope_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
+                     const void* cos, const void* sin, void* out, int B, int heads, int n,
+                     int n_rope, float scale_log2, bool f32, cudaStream_t stream) {
+  const RopeHeads rh{heads, n_rope, cos, sin};
+  if (f32)
+    return launch_fwd_f32<false, true>(q, k, v, kv_lens, out, nullptr, B * heads, n, scale_log2,
+                                       rh, stream);
+  return launch_fwd<kD128, false, true>(q, k, v, kv_lens, out, B * heads, n, scale_log2, stream,
+                                        nullptr, rh);
+}
+
 }  // namespace d128
 }  // namespace f5
 
 // kernel 18 at d = 128: q, k, v, out [B, heads, n, 128] contiguous, bf16 (f32
 // == 0) or fp32, q and k before the rotation; kv_lens [B] int32; cos, sin
-// [n, 64] of the operands' dtype; heads g < n_rope rotate
+// [n, 64] of the operands' dtype; heads g < n_rope rotate. bf16 runs on the
+// attention core (flash_prefix_core_d128.cu), fp32 on the FFMA kernel.
 extern "C" int f5_flash_prefix_rope_d128_fwd(const void* q, const void* k, const void* v,
                                              const void* kv_lens, const void* cos,
                                              const void* sin, void* out, int B, int heads, int n,
@@ -785,11 +805,31 @@ extern "C" int f5_flash_prefix_rope_d128_fwd(const void* q, const void* k, const
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || heads <= 0 || n <= 0 || (long long)B * heads > 65535)
     return (int)cudaErrorInvalidValue;
-  const f5::RopeHeads rh{heads, n_rope, cos, sin};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32)
-    return (int)f5::launch_fwd_f32<false, true>(q, k, v, kv_lens, out, nullptr, B * heads, n,
-                                                scale_log2, rh, s);
-  return (int)f5::launch_fwd<f5::kD128, false, true>(q, k, v, kv_lens, out, B * heads, n,
-                                                     scale_log2, s, nullptr, rh);
+    return (int)f5::d128::rope_fwd(q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
+                                   scale_log2, true, s);
+  return (int)f5::d128::core(q, k, v, kv_lens, cos, sin, out, B * heads, heads, n, n_rope,
+                             scale_log2, s);
+}
+
+// kernels A (cos == nullptr: B folded heads of one head each, kv_lens [B]) and
+// 18 at d = 128 in bf16 on the mma.sync loop that the attention core replaced
+// (chip_smoke.py times the two designs against each other; no serving or
+// inference path calls it)
+extern "C" int f5_flash_prefix_d128_fwd_mma(const void* q, const void* k, const void* v,
+                                            const void* kv_lens, const void* cos,
+                                            const void* sin, void* out, int B, int heads, int n,
+                                            int n_rope, float scale_log2, int device,
+                                            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B <= 0 || heads <= 0 || n <= 0 || (long long)B * heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cos == nullptr)
+    return (int)f5::d128::fwd(q, k, v, kv_lens, out, nullptr, B * heads, n, scale_log2, false,
+                              s);
+  return (int)f5::d128::rope_fwd(q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
+                                 scale_log2, false, s);
 }

@@ -105,6 +105,10 @@ _SIGNATURES = {
     "f5_flash_prefix_rope_f32_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
     # d = 128: the same, then f32, device, stream
     "f5_flash_prefix_rope_d128_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _I, _P),
+    # A (cos, sin null; heads 1) or 18 at d = 128 in bf16 on the mma.sync loop the
+    # attention core replaced: q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
+    # scale_log2, device, stream
+    "f5_flash_prefix_d128_fwd_mma": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
     # qkv, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
     "f5_flash_prefix_qkv_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),
     "f5_flash_prefix_qkv_f32_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),

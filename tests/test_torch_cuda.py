@@ -665,9 +665,9 @@ def test_training_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         flash_prefix.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv.long())
     with pytest.raises(ValueError):  # lse must be fp32 [H, n]
         flash_prefix.flash_prefix_dkv(q, k, v, do, dvec, lse[:, :64], kv)
-    q128 = _bf16((4, 128, 128), dev, gen)
-    with pytest.raises(ValueError):  # the training kernels take d = 64 only
-        flash_prefix.flash_prefix_dq(q128, q128, q128, q128, dvec, kv)
+    q96 = _bf16((4, 128, 96), dev, gen)
+    with pytest.raises(ValueError):  # the training kernels take d = 64 and 128 only
+        flash_prefix.flash_prefix_dq(q96, q96, q96, q96, dvec, kv)
 
 
 # kernels 10 and 13 on the attention cores: the edges of their tiles (kernel
@@ -1201,9 +1201,9 @@ def test_int8_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     lens = torch.tensor([64], dtype=torch.int32, device=dev)
     with pytest.raises(TypeError, match="all bf16 or all fp32"):
         flash_prefix.flash_prefix_attention_i8(q.float(), q, q.float(), lens)
-    q128 = _bf16((1, 2, 64, 128), dev, gen)
-    with pytest.raises(TypeError, match="head dim 64"):
-        flash_prefix.flash_prefix_attention_i8(q128, q128, q128, lens)
+    q96 = _bf16((1, 2, 64, 96), dev, gen)
+    with pytest.raises(TypeError, match="head dim 64 or 128"):
+        flash_prefix.flash_prefix_attention_i8(q96, q96, q96, lens)
     with pytest.raises(NotImplementedError, match="forward-only"):
         flash_prefix.flash_prefix_attention_i8(q.clone().requires_grad_(True), q, q, lens)
     q2 = _bf16((2, 128, 64), dev, gen)
@@ -1708,6 +1708,120 @@ def test_attention_kernels_at_head_dim_128(dev, dtype):
         assert torch.isfinite(got).all() and _rel(got, want) <= bound
     for x in (o10, lse10, dq11, dq12, dk, dv):
         assert x[0].abs().max().item() == 0  # the head with no valid key
+
+
+def _d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
+    """Kernel A (cos None; q, k, v [H, n, 128], kv [H]) or 18 (q, k, v [B,
+    heads, n, 128], kv [B], cos, sin [n, 64] bf16) in bf16 at d = 128 on the
+    mma.sync loop the attention core replaced."""
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(q)
+    err = lib.f5_flash_prefix_d128_fwd_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+        None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+        out.data_ptr(), q.shape[0], heads, q.shape[-2], n_rope, flash_prefix.LOG2E / 128 ** 0.5,
+        dev.index, stream)
+    cuda_build.check(err, "f5_flash_prefix_d128_fwd_mma")
+    return out
+
+
+@pytest.mark.parametrize("H,n,lens,past", [
+    (8, 1000, [0, 1000, 1, 127, 128, 129, 255, 999], None),  # ragged, 0 (zeros) and n
+    (6, 129, [0, 1, 127, 128, 129, 64], 1e4),                # keys past kv_len at +-1e4
+    (3, 1537, [1537, 1, 1376], 1e4),
+    (1, 1, [1], None),
+    (23, 1536, [1376] * 23, None),                          # 276 blocks: a partial wave
+])
+def test_head_dim_128_attention_core_and_the_mma_loop_agree(dev, H, n, lens, past):
+    """Kernel A at d = 128 on the TMA + wgmma core against the mma.sync loop
+    it replaced and the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(128 + n)
+    q, k, v = (_bf16((H, n, 128), dev, gen) for _ in range(3))
+    for h, length in enumerate(lens if past else ()):
+        k[h, length:] = past * torch.sign(q[h].float().mean(0)).to(torch.bfloat16)
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = flash_prefix.launches_d128
+    got = flash_prefix.flash_prefix_folded(q, k, v, kv)
+    assert flash_prefix.launches_d128 == before + 1
+    want = _attention_want(q, k, v, kv)
+    mma = _d128_mma(dev, q, k, v, kv)
+    torch.cuda.synchronize(dev)
+    for out in (got, mma):
+        _close(out, want)
+        assert _rel(out, want) <= 1e-2
+        for h, length in enumerate(lens):
+            if length == 0:
+                assert out[h].abs().max().item() == 0
+    assert _rel(got, mma) <= 1e-2
+
+
+@pytest.mark.parametrize("B,heads,n,lens,pe", [
+    (2, 8, 1536, [1376, 1536], None),  # the serving shape
+    (1, 2, 1, [1], 1),
+    (3, 2, 129, [0, 127, 129], 1),
+    (2, 3, 1537, [1537, 128], 2),
+    (3, 8, 1536, [1376, 1, 700], None),  # 288 blocks: a partial wave
+])
+def test_rope_attention_at_head_dim_128_is_kernel_a_on_roped_inputs(dev, B, heads, n, lens, pe):
+    """Kernel 18 at d = 128 on the core's rope form: the plain version, the
+    mma.sync loop it replaced, and kernel A on the same q, k rotated by
+    rope_reference to the bit; K and V rows past kv_len hold +-1e4."""
+    from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
+
+    gen = torch.Generator(device=dev).manual_seed(180 + n)
+    q, k, v = (torch.randn((B, heads, n, 128), generator=gen, device=dev) for _ in range(3))
+    for i, length in enumerate(lens):
+        k[i, :, length:] = 1e4 * torch.sign(k[i, :, length:])
+        v[i, :, length:] = -1e4 * torch.sign(v[i, :, length:])
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cos, sin = (torch.from_numpy(x).to(dev) for x in rope_cos_sin(n, 128))
+    before = flash_prefix.launches_rope_d128
+    got = flash_prefix.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe)
+    assert flash_prefix.launches_rope_d128 == before + 1
+    qr, kr = (flash_prefix.rope_reference(x, cos, sin, pe) for x in (q, k))
+    (qf, kf, vf), lens_h = flash_prefix._fold(qr, kr, v, kv)
+    via_a = flash_prefix.flash_prefix_folded(qf, kf, vf, lens_h).reshape(q.shape)
+    torch.testing.assert_close(got, via_a, rtol=0, atol=0)
+    live = [i for i, length in enumerate(lens) if length > 0]
+    for i, length in enumerate(lens):
+        if length == 0:
+            assert got[i].abs().max().item() == 0
+    want = flash_prefix.flash_prefix_rope_reference(q[live], k[live], v[live], kv[live], cos,
+                                                    sin, pe)
+    _close(got[live], want)
+    assert _rel(got[live], want) <= 1e-2
+    tabs = [x[:n].to(torch.bfloat16).contiguous() for x in (cos, sin)]
+    mma = _d128_mma(dev, q, k, v, kv, *tabs, heads=heads, n_rope=heads if pe is None else pe)
+    assert _rel(mma[live], want) <= 1e-2
+
+
+def test_head_dim_128_core_raises_on_what_it_does_not_take(dev):
+    """The wrappers of A and 18 on CUDA tensors launch the core or raise:
+    a head dim of 96, a table of the d = 64 width, a misaligned operand, a
+    grid past 65535 heads."""
+    gen = torch.Generator(device=dev).manual_seed(96)
+    kv = torch.tensor([5, 5], dtype=torch.int32, device=dev)
+    x96 = _bf16((2, 10, 96), dev, gen)
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_prefix.flash_prefix_folded(x96, x96, x96, kv)
+    x = _bf16((2, 10, 128), dev, gen)
+    cos, sin = (torch.randn((10, 32), generator=gen, device=dev) for _ in range(2))
+    with pytest.raises(ValueError, match="tables"):
+        flash_prefix.flash_prefix_rope_attention(x[None], x[None], x[None], kv[:1], cos, sin)
+    flat = _bf16((2 * 10 * 128 + 4,), dev, gen)
+    off = flat[4:].view(2, 10, 128)  # 8 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_prefix.flash_prefix_folded(off, x, x, kv)
+    many = torch.zeros((65536, 1, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        flash_prefix.flash_prefix_folded(many, many, many,
+                                         torch.ones(65536, dtype=torch.int32, device=dev))
+    before = flash_prefix.launches_d128
+    _close(flash_prefix.flash_prefix_folded(x, x, x, kv), _attention_want(x, x, x, kv))
+    assert flash_prefix.launches_d128 == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])

@@ -125,6 +125,32 @@ def test_kernels_10_to_13_at_head_dim_128_match_the_interpret_kernels(dtype):
     assert not dk_p[1, 1:].any() and not dv_p[1, 1:].any()  # keys past kv_len
 
 
+@pytest.mark.parametrize("lens", [[0, 1, 127, 129], [256, 1], [0, 1, 127, 129, 256, 256, 1, 129]],
+                         ids=["4 heads", "2 heads", "8 heads"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_a_at_head_dim_128_matches_the_interpret_kernel(dtype, lens):
+    """Kernel A's own function at d = 128: the JAX serving forward (its
+    static-max kernel, _kernel_nomax; _kernel_nomax_hn at 8 heads, which
+    it groups 8 to a block at n 256) against the port's plain version. A
+    head with kv_len 0 gets zeros from the JAX kernel (and from the port's
+    kernels); the plain version gives it the uniform mean of v."""
+    rng = np.random.default_rng(1280)
+    H = len(lens)
+    (q, k, v), (tq, tk, tv) = _pair(
+        dtype, *(rng.standard_normal((H, 256, D)).astype(np.float32) for _ in range(3)))
+    want = np.asarray(jfp._flash_prefix_folded(q, k, v, jnp.asarray(lens, jnp.int32), SCALE,
+                                               bq=128, ck=128).astype(jnp.float32))
+    got = fp.flash_prefix_folded(tq, tk, tv, torch.tensor(lens, dtype=torch.int32))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (H, 256, D)
+    live = [h for h, length in enumerate(lens) if length > 0]
+    _close(got.float().numpy()[live], want[live], dtype, 1e-5)
+    for h, length in enumerate(lens):
+        if length == 0:
+            assert not want[h].any()
+            _close(got.float().numpy()[h], tv[h].float().mean(0).expand(256, D).numpy(),
+                   dtype, 1e-5)
+
+
 @pytest.mark.parametrize("pe", [None, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_18_at_head_dim_128_matches_the_interpret_kernel(dtype, pe):
