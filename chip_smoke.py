@@ -228,7 +228,10 @@ Phases (any failure raises and exits non-zero):
      2's check_head_dim128 holds every d = 128 form of A, 10-13, 18, 14 in
      its four forms and its pass, bf16 and fp32, and C at 8 channels, at
      their main shapes and edges, each timed beside its bound, plain version
-     and library call): (b) F5TTS_v1_Base's widths with 8 heads of 128,
+     and library call; A, 10 and 18 in bf16 on the attention core beside
+     the mma.sync loop it replaced, A and 18 in fp32 on split 3xTF32 beside
+     the FFMA kernel it replaced, in one process, and at the 3xTF32
+     kernel's tile edges): (b) F5TTS_v1_Base's widths with 8 heads of 128,
      depth 22, seeded weights, the bench protocol on every attn_path (19
      steps aside: A 352), under attn_int8 "qk" and "qkpv", with int8
      weights, and one fp32 chunk per attn_path and per attn_int8 mode, each
@@ -357,9 +360,12 @@ SOURCES = {
     **{f"{base}{f}_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_d128.cu"
        for base in ("flash_prefix", "flash_prefix_lse", "flash_prefix_dq_lsein", "flash_prefix_dq",
                     "flash_prefix_dkv", "flash_prefix_rope") for f in ("", "_f32")},
-    # A and 18 at d = 128 in bf16: the attention core's d = 128 form
-    **dict.fromkeys(("flash_prefix_d128", "flash_prefix_rope_d128"),
+    # A, 10 and 18 at d = 128 in bf16: the attention core's d = 128 form
+    **dict.fromkeys(("flash_prefix_d128", "flash_prefix_lse_d128", "flash_prefix_rope_d128"),
                     "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh"),
+    # A and 18 at d = 128 in fp32: split 3xTF32
+    **dict.fromkeys(("flash_prefix_f32_d128", "flash_prefix_rope_f32_d128"),
+                    "korean_f5_tts_tpu_torch/csrc/flash_prefix_tf32_d128.cu"),
     **{f"{base}{f}_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8_d128.cu"
        for base in ("flash_prefix_i8", "flash_prefix_i8_qk") for f in ("", "_f32")},
     **{f"flash_prefix_i8_quant{f}_d128": "korean_f5_tts_tpu_torch/csrc/quant_heads.cu"
@@ -405,10 +411,11 @@ def fail(msg: str) -> None:
 # flash_prefix_fwd_tf32_kernel, of 11-13, of B, 7, 8 in ln_mod_gemm_tf32_kernel
 # and gated_residual_gemm_tf32_kernel, of C in grouped_conv_tf32_kernel, of 14
 # "qk" in flash_prefix_i8_qk_tf32_kernel, and the .tf32 probes); A's fp32 FFMA
-# kernel at d = 128; 14's pass; the d = 128 forms (flash_prefix_d128.cu,
-# flash_prefix_int8_d128.cu and the attention core's attn_fwd_d128_wgmma_kernel:
-# "d128" in their names; 10 in bf16, and A and 18 kept for timing, the
-# mma.sync forward at D = 128)
+# kernel at d = 128 (10 fp32; A and 18 kept for timing); 14's pass; the d =
+# 128 forms (flash_prefix_d128.cu, flash_prefix_int8_d128.cu, the attention
+# core's attn_fwd_d128_wgmma_kernel (A, 10, 18 in bf16) and
+# flash_prefix_tf32_d128_kernel (A, 18 in fp32): "d128" in their names; the
+# mma.sync forward at D = 128, kept for timing A, 10 and 18)
 SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "quant_heads_kernel", "d128",
                  "flash_prefix_fwd_kernelILi128")
 
@@ -890,7 +897,7 @@ def check_fp32_forms(gen, dev) -> dict[str, dict]:
     ones against their plain versions (which compute in fp32 whatever the
     input; the plain conv with cuDNN's TF32 off, as everywhere in this
     script). A (d = 64), B and C are split 3xTF32 products on the tensor
-    cores, A at d = 128 FFMA; the bound takes the 3xTF32 rate, the FFMA one
+    cores, at d = 128 too; the bound takes the 3xTF32 rate, the FFMA one
     printed beside. A TF32 control for A, B and C (the plain version with
     TF32 on must fail F32_REL); B and C must beat their plain versions; C at
     the bf16 form's edges (CONV_EDGES, two weight draws, without bias,
@@ -5404,6 +5411,16 @@ CORE_D128_EDGES = (
     (6, 1537, [0, 1, 127, 128, 129, 1537], 1e4),
     (23, 1536, [0, 1, 127, 128, 129, 1376, 1536] * 3 + [700, 1535], 1e4),
 )
+# kernels A and 18 at d = 128 in fp32 on split 3xTF32 (128 rows a block,
+# 32-key tiles): (n, kv_lens, keys past kv_len); n 1, 127-129, 1537; kv_len
+# 0, 1, the tile's edge (31-33), n
+TF32_D128_EDGES = (
+    (1, [1, 0], None),
+    (127, [31, 32, 33, 127, 0], 1e4),
+    (128, [1, 31, 32, 33, 128], None),
+    (129, [0, 31, 32, 33, 129, 64], 1e4),
+    (1537, [1537, 33, 32, 31, 1], 1e4),
+)
 SERVE_D128 = (16, 1536, 1376)  # folded heads (2 items x 8), n, kv_len: the serving shape
 TRAIN_D128 = (64, 1280)        # folded heads (8 items x 8), n: the training shape
 
@@ -5417,11 +5434,13 @@ def _d128_tag(dtype) -> tuple[str, str, float, float]:
     return "", "bf16", 1e-2, 1e-2
 
 
-def d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
-    """Kernel A (cos None: q, k, v [H, n, 128], kv [H]) or 18 (q, k, v [B,
-    heads, n, 128], kv [B], cos, sin [n, 64] bf16) in bf16 on the mma.sync
-    loop the attention core replaced (f5_flash_prefix_d128_fwd_mma). Not
-    counted: the counters are the wrappers'."""
+def _d128_kept(entry: str, dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0,
+               lse: bool = False):
+    """Kernel A (cos None: q, k, v [H, n, 128], kv [H]), 10 (lse: A and its
+    lse [H, n]) or 18 (q, k, v [B, heads, n, 128], kv [B], cos, sin [n, 64]
+    of the operands' dtype) on a d = 128 design that no path runs any more,
+    kept for timing (entry: "mma", the bf16 mma.sync loop; "ffma", the fp32
+    FFMA kernel). Not counted: the counters are the wrappers'."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import cuda_build
@@ -5429,41 +5448,69 @@ def d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
 
     lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)
-    err = lib.f5_flash_prefix_d128_fwd_mma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
-        None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
-        out.data_ptr(), q.shape[0], heads, q.shape[-2], n_rope, fp.LOG2E / 128 ** 0.5,
-        dev.index, stream)
-    cuda_build.check(err, f"kernel {'A' if cos is None else '18'} d = 128 on the mma.sync loop")
-    return out
+    lse_t = torch.empty(q.shape[:2], dtype=torch.float32, device=dev) if lse else None
+    tabs = (None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr())
+    tail = (q.shape[0], heads, q.shape[-2], n_rope, fp.LOG2E / 128 ** 0.5, dev.index, stream)
+    if entry == "mma":
+        err = lib.f5_flash_prefix_d128_fwd_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(), *tabs, out.data_ptr(),
+            None if lse_t is None else lse_t.data_ptr(), *tail)
+    else:
+        err = lib.f5_flash_prefix_f32_d128_fwd_ffma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(), *tabs, out.data_ptr(), *tail)
+    form = "A" if cos is None else "18"
+    cuda_build.check(err, f"kernel {'10' if lse else form} d = 128 on the {entry} design")
+    return (out, lse_t) if lse else out
 
 
-def d128_designs_timed(label: str, ms: float, mma, r: dict) -> None:
-    """The core's time (the wrapper's, ms) beside the mma.sync loop it
-    replaced (mma()), one process, one timer (cuda_time_ms); the core must
-    take at most half the loop's time."""
-    mma_ms = cuda_time_ms(mma)
-    print(f"  {label} designs at the serving shape, one process: the attention core (the "
-          f"wrapper) {ms:.4f} ms, the mma.sync loop {mma_ms:.4f} ms ({mma_ms / ms:.2f}x the "
-          f"core's); bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / ms:.3f} of the core's time), "
-          f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-          f"({ms / r['library_ms']:.2f}x)")
-    r["mma_ms"] = mma_ms
-    if ms > 0.5 * mma_ms:
-        fail(f"{label} on the attention core takes {ms:.4f} ms, more than half of the mma.sync "
-             f"loop's {mma_ms:.4f} ms")
+def d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0, lse: bool = False):
+    """Kernel A, 10 (lse) or 18 in bf16 on the mma.sync loop the attention
+    core replaced (f5_flash_prefix_d128_fwd_mma; _d128_kept)."""
+    return _d128_kept("mma", dev, q, k, v, kv, cos, sin, heads, n_rope, lse)
+
+
+def d128_ffma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
+    """Kernel A or 18 in fp32 on the FFMA kernel the split 3xTF32 kernel
+    replaced (f5_flash_prefix_f32_d128_fwd_ffma; _d128_kept)."""
+    return _d128_kept("ffma", dev, q, k, v, kv, cos, sin, heads, n_rope)
+
+
+def d128_designs_timed(label: str, ms: float, old, r: dict, shape: str = "serving",
+                       old_name: str = "the mma.sync loop", new_name: str = "the attention core",
+                       most: float = 0.5) -> None:
+    """The new design's time (the wrapper's, ms) beside the design it
+    replaced (old()), one process, one timer (cuda_time_ms); the new one
+    must take at most `most` of the old one's time."""
+    old_ms = cuda_time_ms(old)
+    print(f"  {label} designs at the {shape} shape, one process: {new_name} (the wrapper) "
+          f"{ms:.4f} ms, {old_name} {old_ms:.4f} ms ({old_ms / ms:.2f}x the new one's); bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / ms:.3f} of the new one's time), plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms ({ms / r['library_ms']:.2f}x)")
+    r["old_design_ms"] = old_ms
+    if ms > most * old_ms:
+        fail(f"{label} on {new_name} takes {ms:.4f} ms, more than {most:.3g} of {old_name}'s "
+             f"{old_ms:.4f} ms")
+
+
+def d128_f32_designs_timed(label: str, ms: float, ffma, r: dict) -> None:
+    """d128_designs_timed for an fp32 form on split 3xTF32: at most two thirds
+    of the FFMA kernel's time."""
+    d128_designs_timed(label, ms, ffma, r, old_name="the FFMA kernel",
+                       new_name="split 3xTF32", most=2 / 3)
 
 
 def check_core_d128(gen, dev) -> None:
-    """Kernel A at d = 128 in bf16 on the attention core at its tiles' edges
-    (CORE_D128_EDGES) against the plain version within 1e-2, the mma.sync
-    loop it replaced beside; a head with kv_len 0 gives zeros."""
+    """Kernels A and 10 at d = 128 in bf16 on the attention core at its
+    tiles' edges (CORE_D128_EDGES) against the plain version, o within 1e-2
+    and 10's lse within F32_ATTN_REL, the mma.sync loop they replaced beside
+    (10 with its lse); 10's o is A's to the bit (one core, one key tile); a
+    head with kv_len 0 gives zeros and lse 0."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
 
-    print("kernel A d = 128 bf16 on the attention core at its edges (rel bound 1e-2; the "
-          "mma.sync loop beside)")
+    print("kernels A and 10 d = 128 bf16 on the attention core at its edges (rel bound 1e-2, "
+          f"lse {F32_ATTN_REL:.0e}; the mma.sync loop beside; 10's o equal to A's)")
     for H, n, lens, past in CORE_D128_EDGES:
         q, k, v = (torch.randn((H, n, 128), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
@@ -5476,16 +5523,27 @@ def check_core_d128(gen, dev) -> None:
         got = fp.flash_prefix_folded(q, k, v, kv)
         compare(f"kernel A d=128 core {label}", got, want, 1e-2)
         compare(f"kernel A d=128 mma.sync {label}", d128_mma(dev, q, k, v, kv), want, 1e-2)
+        lse_w = fp.prefix_attention_lse_reference(q, k, v, kv)[1]
+        o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
+        compare(f"kernel 10 d=128 core o {label}", o10, want, 1e-2)
+        compare(f"kernel 10 d=128 core lse {label}", lse10, lse_w, F32_ATTN_REL)
+        o_m, lse_m = d128_mma(dev, q, k, v, kv, lse=True)
+        compare(f"kernel 10 d=128 mma.sync o {label}", o_m, want, 1e-2)
+        compare(f"kernel 10 d=128 mma.sync lse {label}", lse_m, lse_w, F32_ATTN_REL)
         torch.cuda.synchronize()
-        if (kv == 0).any() and got[kv == 0].abs().max().item() != 0:
-            fail(f"kernel A d=128 {label}: a head with kv_len 0 is not zero")
+        if not torch.equal(o10, got):
+            fail(f"kernel 10 d=128 {label}: its o is not kernel A's to the bit")
+        if (kv == 0).any() and max(t[kv == 0].abs().max().item() for t in (got, o10, lse10)) != 0:
+            fail(f"kernels A, 10 d=128 {label}: a head with kv_len 0 is not zero")
 
 
 def check_attention_d128(gen, dev) -> dict[str, dict]:
-    """Kernels A, 10, 11, 12 and 13 at d = 128 (bf16: A on the attention
-    core's d = 128 form, csrc/attn_wgmma.cuh, 10-13 mma.sync in
-    csrc/flash_prefix_d128.cu; fp32: FFMA there) against their plain
-    versions, both
+    """Kernels A, 10, 11, 12 and 13 at d = 128 (bf16: A and 10 on the
+    attention core's d = 128 form, csrc/attn_wgmma.cuh, 11-13 mma.sync in
+    csrc/flash_prefix_d128.cu; fp32: A on split 3xTF32,
+    csrc/flash_prefix_tf32_d128.cu, 10-13 FFMA in csrc/flash_prefix_d128.cu;
+    10's o equal to A's to the bit in bf16; A fp32 also at the 3xTF32 tile's
+    edges, TF32_D128_EDGES) against their plain versions, both
     dtypes, at the serving shape (A: 16 heads, n 1536, 1376 keys), the
     training shape (10-13: 64 heads, n 1280, every key valid), a ragged case
     and D128_EDGES; bf16 o and gradients within 1e-2, fp32 o and lse within
@@ -5524,6 +5582,8 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
             err["flash_prefix_lse"] = compare(f"kernel 10 o {label}", o10, o, rel_o)[0]
             compare(f"kernel 10 lse {label}", lse10, lse, F32_ATTN_REL)
+            if not f and not torch.equal(o10, oa):  # one core, one key tile
+                fail(f"kernel 10 {label}: its o is not kernel A's to the bit")
             zero = n == 1  # dq and dk are identically zero there (compare's note)
             dq11 = fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
             err["flash_prefix_dq_lsein"] = compare(f"kernel 11 dq {label}", dq11, dq_p, rel_g,
@@ -5546,8 +5606,9 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
 
         print(f"kernels A, 10-13 at d = 128, {name} ("
-              f"{'A on the attention core, 10-13 mma.sync' if not f else 'FFMA'}; rel "
-              f"bound {rel_o:.0e} for o, {F32_ATTN_REL:.0e} for lse, {rel_g:.0e} for dq, dk, dv)")
+              f"{'A, 10 on the attention core, 11-13 mma.sync' if not f else 'A split 3xTF32, 10-13 FFMA'}"
+              f"; rel bound {rel_o:.0e} for o, {F32_ATTN_REL:.0e} for lse, {rel_g:.0e} for dq, "
+              "dk, dv)")
         H, n = TRAIN_D128
         errs, main = case(f"training main H={H} n={n} kv=n", H, n, [n] * H)
         q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p = main
@@ -5556,6 +5617,17 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
         for n_, lens, past in D128_EDGES:
             case(f"edge n={n_} kv={lens}{' keys past kv_len at +-1e4' if past else ''}",
                  len(lens), n_, lens, past)
+        for n_, lens, past in TF32_D128_EDGES if f else ():  # A on split 3xTF32, its tile's edges
+            qe, ke, ve, _, kve = inputs(len(lens), n_, lens, past)
+            want = fp.prefix_attention_reference(qe, ke, ve, kve)
+            want[kve == 0] = 0
+            label = f"d=128 fp32 3xTF32 edge n={n_} kv={lens}{' past +-1e4' if past else ''}"
+            got = fp.flash_prefix_folded(qe, ke, ve, kve)
+            compare(f"kernel A {label}", got, want, rel_o)
+            compare(f"kernel A FFMA {label}", d128_ffma(dev, qe, ke, ve, kve), want, rel_o)
+            torch.cuda.synchronize()
+            if (kve == 0).any() and got[kve == 0].abs().max().item() != 0:
+                fail(f"kernel A {label}: a head with kv_len 0 is not zero")
         if f:  # the control: the same plain versions with TF32 on fail the bounds
             torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
             try:
@@ -5613,6 +5685,10 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             lib_fwd, lib_bwd = flash_library_times(q, k, v, do, kv, lse, dvec)
         out[f"flash_prefix_lse{f}_d128"]["library_ms"] = lib_fwd
         out[f"flash_prefix_dkv{f}_d128"]["library_ms"] = lib_bwd  # 11 + 13 together
+        if not f:  # 10 on the attention core beside the mma.sync loop with its lse
+            d128_designs_timed("kernel 10 d=128 bf16", out["flash_prefix_lse_d128"]["ms"],
+                               lambda: d128_mma(dev, q, k, v, kv, lse=True),
+                               out["flash_prefix_lse_d128"], shape="training")
         both = out[f"flash_prefix_dq_lsein{f}_d128"]["ms"] + out[f"flash_prefix_dkv{f}_d128"]["ms"]
         print(f"  library: forward {lib_fwd:.4f} ms (10 {out[f'flash_prefix_lse{f}_d128']['ms']:.4f}"
               f" ms), backward {lib_bwd:.4f} ms (11 + 13 {both:.4f} ms)")
@@ -5635,7 +5711,10 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
         else:
             r["library_ms"] = min(ms for ms, _ in sdpa_times(q, k, v, kv, want).values())
         print(f"  kernel A d=128 {name}: {r['ms']:.4f} ms, library {r['library_ms']:.4f} ms")
-        if not f:
+        if f:
+            d128_f32_designs_timed("kernel A d=128 fp32", r["ms"],
+                                   lambda: d128_ffma(dev, q, k, v, kv), r)
+        else:
             d128_designs_timed("kernel A d=128 bf16", r["ms"],
                                lambda: d128_mma(dev, q, k, v, kv), r)
         out[f"flash_prefix{f}_d128"] = {"max_abs_err": err, **r}
@@ -5646,13 +5725,14 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
 
 def check_rope_d128(gen, dev) -> dict[str, dict]:
     """Kernel 18 at d = 128 (the attention core's d = 128 rope form in bf16,
-    the FFMA kernel's in fp32) against its plain version (rope_reference's
+    split 3xTF32 in fp32) against its plain version (rope_reference's
     rounding, then the prefix attention) and against kernel A on
     rope_reference-roped inputs, to the bit (the rotation is the only
     difference), at the serving shape ([2, 8, 1536, 128], 1376 keys) and at
     edges (pe_attn_head; kv_len 0, 1, 127-129, n; n 1, 65, 129, 1000, 1537;
-    keys past kv_len at +-1e4; 24 heads, a partial wave); in bf16 timed
-    beside the mma.sync loop it replaced."""
+    keys past kv_len at +-1e4; 24 heads, a partial wave; n 127, 128 and
+    kv_len 31-33, the 3xTF32 tile's edges); timed beside the design it
+    replaced (bf16: the mma.sync loop; fp32: the FFMA kernel)."""
     import torch
 
     from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
@@ -5664,7 +5744,9 @@ def check_rope_d128(gen, dev) -> dict[str, dict]:
     cases = ((2, 8, 1536, [1376, 1376], None, None), (3, 2, 65, [0, 65, 1], 1, 1e4),
              (2, 2, 129, [128, 129], None, 1e4), (1, 4, 1, [1], 2, None),
              (2, 2, 1000, [1000, 63], None, None), (3, 2, 129, [0, 1, 127], 1, 1e4),
-             (2, 3, 1537, [1537, 129], 2, 1e4), (3, 8, 1536, [1376, 0, 700], None, None))
+             (2, 3, 1537, [1537, 129], 2, 1e4), (3, 8, 1536, [1376, 0, 700], None, None),
+             (2, 2, 127, [31, 33], 1, 1e4), (3, 2, 128, [32, 0, 128], None, None),
+             (2, 3, 129, [33, 31], 2, 1e4))
     for dtype in (torch.bfloat16, torch.float32):
         f, name, rel_o, _ = _d128_tag(dtype)
         print(f"kernel 18 at d = 128, {name} (rel bound {rel_o:.0e}; equal to kernel A on "
@@ -5694,14 +5776,19 @@ def check_rope_d128(gen, dev) -> dict[str, dict]:
                            lambda: fp.flash_prefix_rope_reference(q, k, v, kv, cos, sin, pe),
                            4.0 * B * h * n * lens[0] * 128, (q, k, v, kv, cos, sin, got),
                            kind="fp32" if f else "bf16")
+                n_rope = h if pe is None else pe
                 if f:  # the library's attention on the roped inputs
                     r["library_ms"] = cuda_time_ms(efficient_f32_sliced(qf, kf, vf, lens_h))
+                    tabs = [t_[:n].float().contiguous() for t_ in (cos, sin)]
+                    d128_f32_designs_timed("kernel 18 d=128 fp32", r["ms"],
+                                           lambda: d128_ffma(dev, q, k, v, kv, *tabs, heads=h,
+                                                             n_rope=n_rope), r)
                 else:
                     r["library_ms"] = cuda_time_ms(sdpa_sliced(qf, kf, vf, lens_h))
                     tabs = [t_[:n].to(torch.bfloat16).contiguous() for t_ in (cos, sin)]
                     d128_designs_timed("kernel 18 d=128 bf16", r["ms"],
                                        lambda: d128_mma(dev, q, k, v, kv, *tabs, heads=h,
-                                                        n_rope=h if pe is None else pe), r)
+                                                        n_rope=n_rope), r)
                 out[f"flash_prefix_rope{f}_d128"] = {"max_abs_err": err, **r}
     return out
 
@@ -6180,9 +6267,12 @@ def main(argv=None) -> int:
     cuda_build.library()
     print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {cuda_build.build_seconds if cuda_build.build_seconds is not None else 'cached'} s)")
+    name = ""
     for line in cuda_build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "C7513" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "registers" in line or "spill" in line or "C7513" in line:
+            print(f"  ptxas: {name}: {line.strip()}")
     faults = ptxas_faults(cuda_build.build_log)
     if faults:
         fail("ptxas: " + "; ".join(faults))

@@ -8,8 +8,8 @@
 // template flag kRope; A's and 10's instantiations have none of it), and
 // kernel 18 (flash_prefix_rope.cu), the same rope form over split heads; and
 // kernel 14 (flash_prefix_int8.cu), kernel A with int8 products (the
-// template flag kI8; the others' instantiations have none of it). Kernels A
-// and 18 at head dim 128 in bf16 run on the core's D = 128 form
+// template flag kI8; the others' instantiations have none of it). Kernels A,
+// 10 and 18 at head dim 128 in bf16 run on the core's D = 128 form
 // (attn_fwd_d128_wgmma_kernel, its own note at the end of this file;
 // flash_prefix_core_d128.cu).
 //
@@ -913,9 +913,11 @@ cudaError_t launch_attn_fwd_wgmma(const void* q, const void* k, const void* v,
 // 128] bf16, kv_lens [H]) and, in the rope form, kernel 18's (its split
 // heads [B, heads, n, 128] are contiguous, so they are the folded [B *
 // heads, n, 128] with kv_lens per item; the rotation as at d = 64, on the
-// [n, 64] tables). It replaces, in bf16, the first port's mma.sync loop
-// (flash_prefix.cuh:flash_prefix_fwd_kernel<128, ...>, which kernel 10 at
-// d = 128 still runs on): 64 query rows a block,
+// [n, 64] tables) and, in the lse form, kernel 10's (o and lse [H, n] fp32,
+// as at D = 64). It replaces, in bf16, the first port's mma.sync loop
+// (flash_prefix.cuh:flash_prefix_fwd_kernel<128, ...>, which no path runs
+// any more: f5_flash_prefix_d128_fwd_mma keeps it for timing): 64 query rows
+// a block,
 // 64-key tiles loaded synchronously with two barriers a tile, mma.sync, the
 // exponentials between the products, the whole K/V prefix streamed from L2
 // by every 64-row block.
@@ -979,6 +981,14 @@ cudaError_t launch_attn_fwd_wgmma(const void* q, const void* k, const void* v,
 // the same FLOPs). Grid: 12 x 16 = 192 blocks of 128 rows, 1.45 waves on
 // 132 SMs: the second wave runs 60 blocks, so 72 of the 264 block slots of
 // the two waves (27%) are idle tail (a persistent schedule is later work).
+// Kernel 10 (kLse) at the training shape (H 64, n 1280, every key valid):
+// 53.7 GFLOP, 0.0543 ms at 989 TFLOP/s; grid 10 x 64 = 640 blocks, 4.85
+// waves on 132 SMs, so 20 of the 660 block slots (3%) are idle tail. The lse
+// form writes lse = m + log2(l) per row in the epilogue (thread t == 0 of
+// each row's quad, after the quad sum; 0 for a row with no valid key, with
+// zero output): two live floats in the epilogue, nothing in the loop and no
+// shared memory, so A and 18 keep instantiations without it and 10's o is
+// A's to the bit.
 // The rope form's rotation is ~12 instructions a pair of values (four
 // products and two sums, each rounded apart, the bf16 unpacking and
 // packing) on seven warps, redone by each of a head's 12 blocks.
@@ -1094,14 +1104,16 @@ __device__ __forceinline__ void w128_rope_k(uint32_t tile_a, int span_bytes, int
 
 // kRope false: kernel A (block y = folded head, kv_lens per head); true:
 // kernel 18 (block y = item * heads + g, kv_lens per item, heads g <
-// n_rope rotate)
-template <bool kRope>
+// n_rope rotate). kLse (kernel 10, kRope false): also lse [H, n] fp32.
+template <bool kLse, bool kRope>
 __global__ void __launch_bounds__(w128_threads<kRope>(), 1)
 attn_fwd_d128_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
-                           const int* __restrict__ kv_lens, bf16* __restrict__ out, int n,
-                           float scale_log2, const __grid_constant__ AttnRope rope) {
+                           const int* __restrict__ kv_lens, bf16* __restrict__ out,
+                           float* __restrict__ lse, int n, float scale_log2,
+                           const __grid_constant__ AttnRope rope) {
+  static_assert(!(kLse && kRope), "the d = 128 core's lse form is kernel 10's, without rope");
   constexpr int BK = kW128Keys, kSpan = kW128Span, kStages = w128_stages<kRope>();
   constexpr int kStageBytes = w128_stage_bytes<kRope>();
   extern __shared__ unsigned char smem_raw[];
@@ -1271,6 +1283,11 @@ attn_fwd_d128_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int r = 0; r < 2; ++r) {
       const float l = quad_sum(l_run[r]);
       inv[r] = l > 0.f ? 1.f / l : 0.f;  // kv_len == 0: zeros, as the TPU kernel
+      const int grow = q0 + wg * 64 + row + 8 * r;
+      // m_run is already in the base-2 domain of the scaled scores; a row
+      // with no valid key gets lse 0
+      if (kLse && t == 0 && grow < n)
+        lse[(size_t)head * n + grow] = l > 0.f ? m_run[r] + log2f(l) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -1301,15 +1318,17 @@ attn_fwd_d128_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // kernel A (kRope false: cos, sin unread, heads 1, kv_lens [H] per folded
-// head) or kernel 18 (kRope: kv_lens [H / heads] per item, cos, sin [n, 64]
-// bf16, heads g < n_rope rotate) at head dim 128 on this core. q, k, v, out:
-// [H, n, 128] bf16 (18's split heads [B, heads, n, 128] with H = B * heads),
-// 16-byte aligned.
-template <bool kRope>
+// head), kernel 10 (kLse: A's function and lse [H, n] fp32) or kernel 18
+// (kRope: kv_lens [H / heads] per item, cos, sin [n, 64] bf16, heads g <
+// n_rope rotate) at head dim 128 on this core. q, k, v, out: [H, n, 128]
+// bf16 (18's split heads [B, heads, n, 128] with H = B * heads), 16-byte
+// aligned.
+template <bool kLse, bool kRope>
 cudaError_t launch_attn_fwd_d128(const void* q, const void* k, const void* v,
                                  const void* kv_lens, const void* cos, const void* sin,
-                                 void* out, int H, int heads, int n, int n_rope,
+                                 void* out, void* lse, int H, int heads, int n, int n_rope,
                                  float scale_log2, cudaStream_t stream) {
+  // the lse form takes A's shared memory: its lse goes from registers to device memory
   constexpr int smem = attn_d128_smem_bytes<kRope>();
   static_assert(smem <= kBlockSmemMax, "the d = 128 core's ring does not fit a block");
   CUtensorMap map_q, map_k, map_v;
@@ -1329,12 +1348,12 @@ cudaError_t launch_attn_fwd_d128(const void* q, const void* k, const void* v,
   }
   static std::atomic<bool> ready[kMaxDevices];
   const cudaError_t err =
-      allow_smem(attn_fwd_d128_wgmma_kernel<kRope>, smem, ready);
+      allow_smem(attn_fwd_d128_wgmma_kernel<kLse, kRope>, smem, ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kW128Rows - 1) / kW128Rows, H);
-  attn_fwd_d128_wgmma_kernel<kRope><<<grid, w128_threads<kRope>(), smem, stream>>>(
-      map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out), n,
-      scale_log2, rope);
+  attn_fwd_d128_wgmma_kernel<kLse, kRope><<<grid, w128_threads<kRope>(), smem, stream>>>(
+      map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out),
+      static_cast<float*>(lse), n, scale_log2, rope);
   return cudaGetLastError();
 }
 

@@ -21,17 +21,17 @@
 // bf16 at D = 128 runs on the same core's D = 128 form (attn_wgmma.cuh:
 // attn_fwd_d128_wgmma_kernel, through flash_prefix_core_d128.cu): 128 query
 // rows a block on two consumer warpgroups, every tile two 128-byte swizzle
-// spans wide. fp32 at D = 128 runs in flash_prefix_d128.cu. The first
-// port's mma.sync loop (flash_prefix_fwd_kernel in flash_prefix.cuh: one
-// 128-thread block per (folded head, 64-row query tile), each warp 16 query
-// rows held as mma A fragments, 64-key K/V tiles loaded synchronously into
-// shared memory, S = q.k^T and O += P.V on mma.sync m16n8k16 with P
-// re-packed in registers; the KV loop stops at ceil(kv_len / 64) tiles (the
-// TPU kernel's `prune`), the partial last tile is masked per column, rows
-// past n are zero-filled and never stored) stays for kernel 10 at D = 128;
-// f5_flash_prefix_fwd_mma runs it at D = 64 and f5_flash_prefix_d128_fwd_mma
-// (flash_prefix_d128.cu) at D = 128, so that chip_smoke.py can time the two
-// designs in one process; no serving or inference path calls either.
+// spans wide. fp32 at D = 128 runs on split 3xTF32 products
+// (flash_prefix_tf32_d128.cu). The first port's mma.sync loop
+// (flash_prefix_fwd_kernel in flash_prefix.cuh: one 128-thread block per
+// (folded head, 64-row query tile), each warp 16 query rows held as mma A
+// fragments, 64-key K/V tiles loaded synchronously into shared memory, S =
+// q.k^T and O += P.V on mma.sync m16n8k16 with P re-packed in registers; the
+// KV loop stops at ceil(kv_len / 64) tiles (the TPU kernel's `prune`), the
+// partial last tile is masked per column, rows past n are zero-filled and
+// never stored) serves no path: f5_flash_prefix_fwd_mma runs it at D = 64
+// and f5_flash_prefix_d128_fwd_mma (flash_prefix_d128.cu) at D = 128 (A, 10
+// and 18), so that chip_smoke.py can time the designs in one process.
 //
 // Numerics (both bf16 designs): online-max softmax (running max and
 // denominator in fp32) with log2(e) folded into the scale, so exp is exp2.
@@ -85,11 +85,13 @@
 // ops/flash_prefix.py:rope_reference on fp32 to the bit), so that 18, 19
 // and A's form on torch-roped inputs agree to the bit.
 //
-// d = 128 (flash_prefix_d128.cu: flash_prefix_f32_kernel, chosen by the
-// shape in f5_flash_prefix_f32_fwd and f5_flash_prefix_f32_fwd_lse): plain
-// FFMA on shared-memory tiles, bounded by the 67 TFLOP/s of fp32 outside the
-// tensor cores; its hi and lo tiles would not fit a block's shared memory at
-// 128 queries (270 KB).
+// d = 128: kernels A and 18 (f5_flash_prefix_f32_fwd,
+// f5_flash_prefix_rope_d128_fwd) on this design carried to twice the width
+// (flash_prefix_tf32_d128.cu: the d = 64 layout's hi and lo tiles would
+// take 270 KB at 128 queries; its note gives the tiling that fits and the
+// one it was timed against); kernel 10 (f5_flash_prefix_f32_fwd_lse) on
+// plain FFMA (flash_prefix_d128.cu: flash_prefix_f32_kernel, bounded by the
+// 67 TFLOP/s of fp32 outside the tensor cores).
 #include "attn_tf32.cuh"
 #include "attn_wgmma.cuh"
 #include "flash_prefix.cuh"
@@ -267,8 +269,8 @@ extern "C" int f5_flash_prefix_fwd(const void* q, const void* k, const void* v,
     return (int)f5::launch_attn_fwd_wgmma<false>(q, k, v, kv_lens, out, nullptr, H, n,
                                                  scale_log2, s);
   if (d == 128)
-    return (int)f5::d128::core(q, k, v, kv_lens, nullptr, nullptr, out, H, 1, n, 0, scale_log2,
-                               s);
+    return (int)f5::d128::core(q, k, v, kv_lens, nullptr, nullptr, out, nullptr, H, 1, n, 0,
+                               scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -296,7 +298,8 @@ extern "C" int f5_flash_prefix_f32_fwd(const void* q, const void* k, const void*
     return (int)f5::launch_fwd_tf32<false, false>(q, k, v, kv_lens, out, nullptr, H, n,
                                                   scale_log2, f5::F32Heads{}, s);
   if (d == 128)
-    return (int)f5::d128::fwd(q, k, v, kv_lens, out, nullptr, H, n, scale_log2, true, s);
+    return (int)f5::d128::tf32(q, k, v, kv_lens, nullptr, nullptr, out, H, 1, n, 0, scale_log2,
+                               s);
   return (int)cudaErrorInvalidValue;
 }
 

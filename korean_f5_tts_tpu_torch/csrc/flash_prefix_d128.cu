@@ -26,18 +26,18 @@
 // the fp32 FFMA forms (0.26-1.60 ms). The n x n scores stay out of device
 // memory.
 //
-// bf16: A and 18 run on the TMA + wgmma attention core's D = 128 form
+// bf16: A, 10 and 18 run on the TMA + wgmma attention core's D = 128 form
 // (attn_wgmma.cuh, flash_prefix_core_d128.cu: d128::core); the others on the
 // first port's mma.sync building blocks (flash_prefix.cuh), a block of 128
 // threads over 64 rows, each warp 16 of them, shared tiles [64][136] bf16
 // (17 KB each, four a block):
-//   10         flash_prefix_fwd_kernel<128, kLse>: q held as A fragments,
-//              64-key K/V tiles loaded synchronously, S and P.V on mma.sync
-//              m16n8k16 with P re-packed in registers. Its instantiations
-//              without lse (A) and with kRope (18: q and the K tiles of the
-//              rotating heads rotated in fp32 with the bf16 tables as they
-//              land, ops/flash_prefix.py:rope_reference) are the designs the
-//              core replaced, kept for chip_smoke.py's timing
+//   A, 10, 18  flash_prefix_fwd_kernel<128, kLse, kRope>: q held as A
+//              fragments, 64-key K/V tiles loaded synchronously, S and P.V
+//              on mma.sync m16n8k16 with P re-packed in registers; kRope (18)
+//              rotates q and the K tiles of the rotating heads in fp32 with
+//              the bf16 tables as they land (ops/flash_prefix.py:
+//              rope_reference). The designs the core replaced, served by no
+//              path and kept for chip_smoke.py's timing
 //              (f5_flash_prefix_d128_fwd_mma).
 //   11, 12     flash_prefix_dq_d128_kernel<kOnline>: a block per (head, 64
 //              queries), Q and dO resident in shared memory (their fragments
@@ -57,16 +57,20 @@
 // P and dS are rounded to bf16 for their products (the row sums use fp32
 // P), as in the d = 64 forms.
 //
-// fp32 (FFMA, "the exact f32 dot" of the TPU kernels on fp32 inputs): a
-// 256-thread block over 64 rows, thread (ty, tx) of a 16 x 16 grid owning
-// rows 4 ty .. 4 ty + 3, score columns 4 tx .. and output columns 4 tx ..
-// and 64 + 4 tx ..; the operands of the products over d transposed into
-// [d][row] tiles (row stride 68 floats) so the inner loops read float4;
-// P, dS through shared memory between a product and the next:
-//   A, 10, 18  flash_prefix_f32_kernel<kLse, kRope>: q and each K tile
+// fp32 ("the exact f32 dot" of the TPU kernels on fp32 inputs): A and 18 run
+// on split 3xTF32 products on the tensor cores (flash_prefix_tf32_d128.cu:
+// d128::tf32); the others on plain FFMA: a 256-thread block over 64 rows,
+// thread (ty, tx) of a 16 x 16 grid owning rows 4 ty .. 4 ty + 3, score
+// columns 4 tx .. and output columns 4 tx .. and 64 + 4 tx ..; the operands
+// of the products over d transposed into [d][row] tiles (row stride 68
+// floats) so the inner loops read float4; P, dS through shared memory
+// between a product and the next:
+//   10 (A, 18) flash_prefix_f32_kernel<kLse, kRope>: q and each K tile
 //              transposed, V row-major, the online softmax per tile; kRope
 //              rotates in fp32 by the fp32 tables, each product and the sum
-//              rounded once.
+//              rounded once. Its instantiations without lse (A, and 18 with
+//              kRope) serve no path: f5_flash_prefix_f32_d128_fwd_ffma keeps
+//              them for chip_smoke.py's timing of the 3xTF32 kernel.
 //   11, 12     flash_prefix_dq_f32_d128_kernel<kOnline>: q and dO
 //              transposed and resident, each key tile transposed (K, V) and
 //              K row-major for dq += dS.K (185 KB of shared memory).
@@ -775,9 +779,6 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, c
   return cudaGetLastError();
 }
 
-// kernel 18 on the mma.sync loop (bf16; core() serves it) or FFMA (fp32):
-// q, k, v, out [B * heads, n, 128], kv_lens [B], cos, sin [n, 64] of the
-// operands' dtype
 cudaError_t rope_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
                      const void* cos, const void* sin, void* out, int B, int heads, int n,
                      int n_rope, float scale_log2, bool f32, cudaStream_t stream) {
@@ -792,10 +793,37 @@ cudaError_t rope_fwd(const void* q, const void* k, const void* v, const void* kv
 }  // namespace d128
 }  // namespace f5
 
+namespace {
+
+bool d128_dims_ok(int B, int heads, int n) {
+  return B > 0 && heads > 0 && n > 0 && (long long)B * heads <= 65535;
+}
+
+// kernels A (cos == nullptr: B folded heads of one head each, kv_lens [B]),
+// 10 (cos == nullptr, lse [B, n] fp32 written) and 18 (lse == nullptr) at d =
+// 128 on the designs that no path runs any more: bf16 on the mma.sync loop,
+// fp32 on FFMA
+int kept_fwd(const void* q, const void* k, const void* v, const void* kv_lens, const void* cos,
+             const void* sin, void* out, void* lse, int B, int heads, int n, int n_rope,
+             float scale_log2, bool f32, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!d128_dims_ok(B, heads, n) || (cos != nullptr && lse != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cos == nullptr)
+    return (int)f5::d128::fwd(q, k, v, kv_lens, out, lse, B * heads, n, scale_log2, f32, s);
+  return (int)f5::d128::rope_fwd(q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
+                                 scale_log2, f32, s);
+}
+
+}  // namespace
+
 // kernel 18 at d = 128: q, k, v, out [B, heads, n, 128] contiguous, bf16 (f32
 // == 0) or fp32, q and k before the rotation; kv_lens [B] int32; cos, sin
 // [n, 64] of the operands' dtype; heads g < n_rope rotate. bf16 runs on the
-// attention core (flash_prefix_core_d128.cu), fp32 on the FFMA kernel.
+// attention core (flash_prefix_core_d128.cu), fp32 on split 3xTF32
+// (flash_prefix_tf32_d128.cu).
 extern "C" int f5_flash_prefix_rope_d128_fwd(const void* q, const void* k, const void* v,
                                              const void* kv_lens, const void* cos,
                                              const void* sin, void* out, int B, int heads, int n,
@@ -803,33 +831,35 @@ extern "C" int f5_flash_prefix_rope_d128_fwd(const void* q, const void* k, const
                                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || heads <= 0 || n <= 0 || (long long)B * heads > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!d128_dims_ok(B, heads, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32)
-    return (int)f5::d128::rope_fwd(q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
-                                   scale_log2, true, s);
-  return (int)f5::d128::core(q, k, v, kv_lens, cos, sin, out, B * heads, heads, n, n_rope,
-                             scale_log2, s);
+    return (int)f5::d128::tf32(q, k, v, kv_lens, cos, sin, out, B * heads, heads, n, n_rope,
+                               scale_log2, s);
+  return (int)f5::d128::core(q, k, v, kv_lens, cos, sin, out, nullptr, B * heads, heads, n,
+                             n_rope, scale_log2, s);
 }
 
-// kernels A (cos == nullptr: B folded heads of one head each, kv_lens [B]) and
-// 18 at d = 128 in bf16 on the mma.sync loop that the attention core replaced
-// (chip_smoke.py times the two designs against each other; no serving or
-// inference path calls it)
+// kernels A, 10 and 18 at d = 128 in bf16 on the mma.sync loop that the
+// attention core replaced (kept_fwd; chip_smoke.py times the designs against
+// each other, no path calls it)
 extern "C" int f5_flash_prefix_d128_fwd_mma(const void* q, const void* k, const void* v,
                                             const void* kv_lens, const void* cos,
-                                            const void* sin, void* out, int B, int heads, int n,
-                                            int n_rope, float scale_log2, int device,
-                                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || heads <= 0 || n <= 0 || (long long)B * heads > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cos == nullptr)
-    return (int)f5::d128::fwd(q, k, v, kv_lens, out, nullptr, B * heads, n, scale_log2, false,
-                              s);
-  return (int)f5::d128::rope_fwd(q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
-                                 scale_log2, false, s);
+                                            const void* sin, void* out, void* lse, int B,
+                                            int heads, int n, int n_rope, float scale_log2,
+                                            int device, void* stream) {
+  return kept_fwd(q, k, v, kv_lens, cos, sin, out, lse, B, heads, n, n_rope, scale_log2, false,
+                  device, stream);
+}
+
+// kernels A and 18 at d = 128 in fp32 on the FFMA kernel that the split
+// 3xTF32 kernel replaced (kept_fwd, without lse: 10 fp32 runs there on its
+// own path; cos, sin [n, 64] fp32)
+extern "C" int f5_flash_prefix_f32_d128_fwd_ffma(const void* q, const void* k, const void* v,
+                                                 const void* kv_lens, const void* cos,
+                                                 const void* sin, void* out, int B, int heads,
+                                                 int n, int n_rope, float scale_log2, int device,
+                                                 void* stream) {
+  return kept_fwd(q, k, v, kv_lens, cos, sin, out, nullptr, B, heads, n, n_rope, scale_log2, true,
+                  device, stream);
 }

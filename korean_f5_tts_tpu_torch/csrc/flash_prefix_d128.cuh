@@ -1,5 +1,6 @@
-// The attention kernels at head dim 128 (flash_prefix_d128.cu, and A and 18
-// in bf16 on the attention core, flash_prefix_core_d128.cu), as host
+// The attention kernels at head dim 128 (flash_prefix_d128.cu; A, 10 and 18
+// in bf16 on the attention core, flash_prefix_core_d128.cu; A and 18 in fp32
+// on split 3xTF32, flash_prefix_tf32_d128.cu), as host
 // launchers that the d = 64 entry points of flash_prefix.cu,
 // flash_prefix_train.cu and flash_prefix_train_f32.cu hand a d = 128 call
 // to. Operands are folded [H, n, 128] heads, bf16 (f32 == false) or fp32;
@@ -11,18 +12,34 @@
 namespace f5 {
 namespace d128 {
 
-// kernels A (cos == nullptr: heads 1, kv_lens [H]) and 18 (kv_lens [H /
+// kernels A (cos == nullptr, lse == nullptr: heads 1, kv_lens [H]), 10 (cos
+// == nullptr, lse [H, n] fp32 written) and 18 (lse == nullptr; kv_lens [H /
 // heads] per item, cos, sin [n, 64] bf16, heads g < n_rope rotate) in bf16 on
 // the TMA + wgmma attention core (attn_wgmma.cuh, flash_prefix_core_d128.cu)
 cudaError_t core(const void* q, const void* k, const void* v, const void* kv_lens,
+                 const void* cos, const void* sin, void* out, void* lse, int H, int heads,
+                 int n, int n_rope, float scale_log2, cudaStream_t stream);
+
+// kernels A (cos == nullptr: heads 1, kv_lens [H]) and 18 (as core()'s, cos,
+// sin [n, 64] fp32) in fp32 on split 3xTF32 products (flash_prefix_tf32_d128.cu)
+cudaError_t tf32(const void* q, const void* k, const void* v, const void* kv_lens,
                  const void* cos, const void* sin, void* out, int H, int heads, int n,
                  int n_rope, float scale_log2, cudaStream_t stream);
 
-// kernels A (lse == nullptr) and 10 (lse written) on the mma.sync loop (bf16;
-// A's serving forward runs on core(), this loop is kept for 10 and for
-// timing the two designs) or FFMA (fp32)
+// kernels A (lse == nullptr) and 10 (lse written) on the mma.sync loop (bf16)
+// or FFMA (fp32). Kernel 10 in fp32 runs here; the bf16 forms and A in fp32
+// serve no path (core() and tf32() do), and are kept to time the designs
+// that replaced them (f5_flash_prefix_d128_fwd_mma,
+// f5_flash_prefix_f32_d128_fwd_ffma)
 cudaError_t fwd(const void* q, const void* k, const void* v, const void* kv_lens, void* out,
                 void* lse, int H, int n, float scale_log2, bool f32, cudaStream_t stream);
+
+// kernel 18 on the mma.sync loop (bf16) or FFMA (fp32), kept for timing: q, k,
+// v, out [B * heads, n, 128], kv_lens [B], cos, sin [n, 64] of the operands'
+// dtype
+cudaError_t rope_fwd(const void* q, const void* k, const void* v, const void* kv_lens,
+                     const void* cos, const void* sin, void* out, int B, int heads, int n,
+                     int n_rope, float scale_log2, bool f32, cudaStream_t stream);
 
 // kernels 11 (online == false: lse_in read) and 12 (online: lse_out written)
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const void* dvec,

@@ -1,0 +1,362 @@
+// Kernels A and 18 at head dim 128 on fp32 operands, for Hopper (sm_90a):
+// split 3xTF32 products on the tensor cores.
+//
+// Replaces, on fp32 inputs at d = 128, the TPU kernels
+// korean_f5_tts_tpu/ops/flash_prefix.py:_flash_prefix_folded ->
+// _kernel_nomax_hn (A) and _flash_prefix_rope_call -> _kernel_rope (18),
+// which the JAX dispatch takes at d in (64, 128) (ops/attention.py:260,
+// :296) and which keep "the exact f32 dot" on fp32 inputs. The function is
+// that of the d = 64 fp32 forms (flash_prefix.cu): folded heads q, k, v, out
+// [H, n, 128] fp32 (18: the contiguous split heads [B, heads, n, 128] as
+// [B * heads, n, 128], kv_lens per item, q and k of the heads g < n_rope
+// rotated in fp32 by the fp32 tables cos, sin [n, 64], partners c and c +
+// 64, each product and the sum rounded once: ops/flash_prefix.py:
+// rope_reference on fp32 to the bit, so that 18 equals A on roped inputs to
+// the bit); keys at or past kv_len get P = 0, the sweep stops at ceil(kv_len
+// / tile), rows past n are zero-filled and never stored, a head with kv_len
+// 0 gives zeros. Entry points: f5_flash_prefix_f32_fwd at d = 128
+// (flash_prefix.cu) and f5_flash_prefix_rope_d128_fwd with f32
+// (flash_prefix_d128.cu), through d128::tf32. Kernel 10's fp32 form stays on
+// FFMA (flash_prefix_d128.cu), and f5_flash_prefix_f32_d128_fwd_ffma runs A
+// and 18 on the FFMA kernel this one replaced, for timing.
+//
+// What bounds it: at the serving shape (16 folded heads, n 1536, 1376 keys)
+// 17.3 GFLOP of fp32-accurate products, 0.105 ms at the tensor cores' TF32
+// rate taken three times (494.7 / 3 TFLOP/s); the FFMA kernel was bounded by
+// the 67 TFLOP/s of fp32 outside them (0.258 ms).
+//
+// Design: flash_prefix_fwd_tf32_kernel (flash_prefix.cu, d = 64) carried to
+// twice the width. x = hi + lo by cvt.rna, a.b ~ hi.hi + hi.lo + lo.hi on
+// mma.sync m16n8k8 .tf32 (mma.cuh: mma_3xtf32); 256 threads, eight warps of
+// 16 queries, 128 queries a block, one block an SM; q split into hi and lo
+// tiles in shared memory once for the whole sweep; S = q.K^T contracting
+// over 128 columns (16 k8 steps), masked, scaled by scale_log2 and turned
+// into P = exp2(S - m) in place; P taken as the A fragment of P.V with its
+// columns in the order 2t, 2t + 1 (mma.cuh), split in registers; running
+// max and sum in fp32. Each tile's P.V goes into an accumulator of its own
+// and is added to o in fp32 (o = o * alpha + pv): the tensor cores' fp32
+// accumulation truncates (probe_hopper.cu's accumulation probe), and a
+// chain over every key would carry that bias into o. o is 16 x 128 a warp
+// (64 floats a thread), so P.V runs a 64-column half at a time into a
+// 32-float accumulator, folded into o before the next half.
+//
+// Shared memory: rows of 128 words at a stride of 132 (4 mod 32, as 68 is
+// at d = 64), so that the ldmatrix reads and the scalar B reads of P.V are
+// conflict-free. The d = 64 layout at D = 128 (q hi + lo at 128 rows, a
+// 64-key K and V hi + lo) would take 270,336 bytes, over the 232,448 a block
+// may have. Two layouts fit in 202,752 bytes (one block an SM):
+//   (i)   q, K, V all stored split, 32-key K/V tiles (hi + lo 33,792 B
+//         each), loaded into registers a tile ahead while this tile's
+//         products run and split as they are stored, two barriers a tile;
+//         S is 16 x 32 a warp, P.V four k8 steps a half. KEPT.
+//   (iii) q stored split, 64-key K and V tiles stored unsplit (33,792 B
+//         each) by cp.async, K(j + 1) in flight during softmax(j) and
+//         P.V(j), V(j + 1) during S(j + 1), four barriers a tile, every warp
+//         splitting each K and V fragment as it reads it: half the
+//         shared-memory reads a product of (i), twice the splits.
+// Under one timer at the serving shape (chip_smoke.py --phases 1,2 of a
+// build that had both, (iii) for A alone; NVIDIA H100 80GB HBM3, 700.00 W) A
+// took 0.4014 ms on (i) and 0.4839 on (iii), the FFMA kernel 0.7155. (iii)'s
+// rope form (each thread rotating its own copies in place from table rows
+// held in registers a tile ahead) spilled in a trial build. (iii) is not
+// kept; nor is a trial of (i) with V stored as (hi, lo) pairs read 64 bits
+// at a time, which was slower and spilled. (i) runs at 253-255 registers
+// without a spill (chip_smoke.py phase 1).
+#include <atomic>
+
+#include "attn_tf32.cuh"   // split4, mma_3xtf32, rotate_pair
+#include "gemm_bf16.cuh"   // allow_smem, kMaxDevices
+#include "flash_prefix_d128.cuh"
+
+namespace f5 {
+namespace {
+
+constexpr int kTD = 128;      // head dim
+constexpr int kTLd = 132;     // row stride of every tile (words)
+constexpr int kTRows = 128;   // queries a block: eight warps of 16
+constexpr int kTThreads = 256;
+constexpr int kTKeys = 32;    // keys a K/V tile
+constexpr int kTSmemMax = 232448;  // dynamic shared memory a block may take
+// q, K and V, each as a hi and a lo tile
+constexpr int kTSmem = (2 * kTRows + 4 * kTKeys) * kTLd * (int)sizeof(uint32_t);
+static_assert(kTSmem == 202752 && kTSmem <= kTSmemMax, "the tiles do not fit a block");
+static_assert((2 * kTRows + 4 * 64) * kTLd * (int)sizeof(uint32_t) > kTSmemMax,
+              "the d = 64 layout at D = 128 (270,336 bytes) would fit after all");
+
+// ldmatrix row addresses (mma.cuh's .tf32 fragments) at the stride kTLd: A
+// of rows [row0, row0 + 16) x columns [k0, k0 + 8); B of rows [n0, n0 + 16)
+// (two n-tiles) of a tile stored [n][k]
+__device__ __forceinline__ const uint32_t* t128_a(const uint32_t* t, int row0, int k0, int lane) {
+  const int mi = lane >> 3;
+  return t + (row0 + (mi & 1) * 8 + (lane & 7)) * kTLd + k0 + (mi >> 1) * 4;
+}
+
+__device__ __forceinline__ const uint32_t* t128_b(const uint32_t* t, int n0, int k0, int lane) {
+  const int mi = lane >> 3;
+  return t + (n0 + (mi >> 1) * 8 + (lane & 7)) * kTLd + k0 + (mi & 1) * 4;
+}
+
+// s[j] (16 x 8 NT) += rows [row0, row0 + 16) of q . rows [0, 8 NT) of K^T,
+// contracting over the 128 columns, both as hi and lo tiles
+template <int NT>
+__device__ __forceinline__ void t128_qk(float (&s)[NT][4], const uint32_t* qh, const uint32_t* ql,
+                                        const uint32_t* kh, const uint32_t* kl, int row0,
+                                        int lane) {
+#pragma unroll
+  for (int ks = 0; ks < kTD / 8; ++ks) {
+    uint32_t ah[4], al[4];
+    ldmatrix_x4(ah, t128_a(qh, row0, ks * 8, lane));
+    ldmatrix_x4(al, t128_a(ql, row0, ks * 8, lane));
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bh[4], bl[4];
+      ldmatrix_x4(bh, t128_b(kh, np * 16, ks * 8, lane));
+      ldmatrix_x4(bl, t128_b(kl, np * 16, ks * 8, lane));
+      mma_3xtf32(s[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma_3xtf32(s[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// pv[nd] (16 x 64: columns col0 + 8 nd ..) += P (16 x 8 KT keys, the S
+// accumulator) . rows [0, 8 KT) of V (hi and lo tiles); P split here, its
+// columns in the order 2t, 2t + 1 (so B's rows 2t and 2t + 1, scalar reads)
+template <int KT>
+__device__ __forceinline__ void t128_pv(float (&pv)[8][4], const float (&p)[KT][4],
+                                        const uint32_t* vh, const uint32_t* vl, int col0,
+                                        int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks) {
+    uint32_t ah[4], al[4];
+    split_tf32(p[ks][0], ah[0], al[0]);
+    split_tf32(p[ks][2], ah[1], al[1]);
+    split_tf32(p[ks][1], ah[2], al[2]);
+    split_tf32(p[ks][3], ah[3], al[3]);
+    const int r0 = (ks * 8 + 2 * t) * kTLd + col0 + g;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) {
+      const int at = r0 + nd * 8;
+      mma_3xtf32(pv[nd], ah, al, vh[at], vh[at + kTLd], vl[at], vl[at + kTLd]);
+    }
+  }
+}
+
+// Rows [row0, row0 + ROWS) of a [n, 128] head held in registers until
+// t128_split stores them: item it of thread tid is row (tid + 256 it) / 16,
+// columns c .. c + 3 and c + 64 .. c + 67 with c = 4 ((tid + 256 it) % 16),
+// the two halves of a rotation pair; rows at or past n give zeros. kRot also
+// holds the row's cos and sin at c (tables [n, 64]) when `rot`.
+template <int ROWS, bool kRot>
+struct Rows128 {
+  float4 x[ROWS / 16][2];
+  float4 cs[kRot ? ROWS / 16 : 1][2];
+};
+
+template <int ROWS, bool kRot>
+__device__ __forceinline__ void t128_load(Rows128<ROWS, kRot>& r, const float* src, int row0, int n,
+                                          int tid, bool rot, const float* cos, const float* sin) {
+#pragma unroll
+  for (int it = 0; it < ROWS / 16; ++it) {
+    const int i = tid + it * kTThreads;
+    const int row = row0 + (i >> 4), c = (i & 15) * 4;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    r.x[it][0] = r.x[it][1] = z;
+    if (kRot) r.cs[it][0] = r.cs[it][1] = z;
+    if (row < n) {
+      const float* p = src + (size_t)row * kTD + c;
+      r.x[it][0] = *reinterpret_cast<const float4*>(p);
+      r.x[it][1] = *reinterpret_cast<const float4*>(p + 64);
+      if (kRot && rot) {
+        r.cs[it][0] = *reinterpret_cast<const float4*>(cos + (size_t)row * 64 + c);
+        r.cs[it][1] = *reinterpret_cast<const float4*>(sin + (size_t)row * 64 + c);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void rotate4(float4& a, float4& b, const float4& cs, const float4& sn) {
+  rotate_pair(a.x, b.x, cs.x, sn.x);
+  rotate_pair(a.y, b.y, cs.y, sn.y);
+  rotate_pair(a.z, b.z, cs.z, sn.z);
+  rotate_pair(a.w, b.w, cs.w, sn.w);
+}
+
+// the registers of t128_load (rotated first when kRot and rot), split into
+// hi and lo tiles [ROWS][132]; eight consecutive threads store 128
+// contiguous bytes of a row, so the stores are conflict-free
+template <int ROWS, bool kRot>
+__device__ __forceinline__ void t128_split(uint32_t* hi, uint32_t* lo, const Rows128<ROWS, kRot>& r,
+                                           int tid, bool rot) {
+#pragma unroll
+  for (int it = 0; it < ROWS / 16; ++it) {
+    const int i = tid + it * kTThreads;
+    const int at = (i >> 4) * kTLd + (i & 15) * 4;
+    float4 a = r.x[it][0], b = r.x[it][1];
+    if (kRot && rot) rotate4(a, b, r.cs[it][0], r.cs[it][1]);
+    split4(hi, lo, at, a);
+    split4(hi, lo, at + 64, b);
+  }
+}
+
+// one tile's online softmax on the S accumulator (NT n-tiles of 8 keys, keys
+// k0 ..): masked, scaled, P = exp2(S - m) in place; alpha rescales o and l.
+// Tile 0 holds key 0 < kv_len, so the running max is finite from then on.
+template <int NT>
+__device__ __forceinline__ void t128_softmax(float (&s)[NT][4], float (&m_run)[2],
+                                             float (&l_run)[2], float (&alpha)[2], int k0,
+                                             int kv_len, float scale_log2, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        s[j][e] = k0 + 8 * j + 2 * t + (e & 1) < kv_len ? s[j][e] * scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[j][e]);
+      }
+    const float m_new = fmaxf(m_run[h], quad_max(mx));
+    alpha[h] = exp2f(m_run[h] - m_new);
+    m_run[h] = m_new;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        s[j][e] = exp2f(s[j][e] - m_new);
+        rs += s[j][e];
+      }
+    l_run[h] = l_run[h] * alpha[h] + quad_sum(rs);
+  }
+}
+
+// o (16 x 128) = o * alpha + P.V of this tile, a 64-column half at a time,
+// each half's product in an accumulator of its own
+template <int KT>
+__device__ __forceinline__ void t128_fold_pv(float (&o)[16][4], const float (&p)[KT][4],
+                                             const float (&alpha)[2], const uint32_t* vh,
+                                             const uint32_t* vl, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float pv[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) pv[j][0] = pv[j][1] = pv[j][2] = pv[j][3] = 0.f;
+    t128_pv<KT>(pv, p, vh, vl, 64 * half, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[8 * half + j][e] = fmaf(o[8 * half + j][e], alpha[e >> 1], pv[j][e]);
+  }
+}
+
+// warp w owns queries q0 + 16w .. + 15; lane (g, t) holds rows 16w + g and
+// 16w + g + 8, columns 8j + 2t, 8j + 2t + 1 of S and of o. kRope: block y =
+// item * heads + g, kv_lens per item, heads g < n_rope rotate.
+template <bool kRope>
+__global__ void __launch_bounds__(kTThreads, 1)
+flash_prefix_tf32_d128_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const int* __restrict__ kv_lens,
+                              float* __restrict__ out, int n, float scale_log2, int heads,
+                              int n_rope, const float* __restrict__ cos,
+                              const float* __restrict__ sin) {
+  constexpr int NT = kTKeys / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* sQh = reinterpret_cast<uint32_t*>(smem_raw);  // [128][132] each
+  uint32_t* sQl = sQh + kTRows * kTLd;
+  uint32_t* sKh = sQl + kTRows * kTLd;  // [32][132] each
+  uint32_t* sKl = sKh + kTKeys * kTLd;
+  uint32_t* sVh = sKl + kTKeys * kTLd;
+  uint32_t* sVl = sVh + kTKeys * kTLd;
+  const int head = blockIdx.y;
+  const int item = kRope ? head / heads : head;
+  const bool rot = kRope && head - item * heads < n_rope;  // block-uniform
+  const int q0 = blockIdx.x * kTRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const size_t off = (size_t)head * n * kTD;
+  const int kv_len = min(kv_lens[item], n);
+  const int n_tiles = kv_len > 0 ? (kv_len + kTKeys - 1) / kTKeys : 0;
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {  // q in two 64-row halves: 32 registers each
+    Rows128<64, kRope> r;
+    t128_load(r, q + off, q0 + 64 * half, n, tid, rot, cos, sin);
+    t128_split(sQh + 64 * half * kTLd, sQl + 64 * half * kTLd, r, tid, rot);
+  }
+  float o[16][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  Rows128<kTKeys, kRope> kr;
+  Rows128<kTKeys, false> vr;
+  if (n_tiles > 0) {
+    t128_load(kr, k + off, 0, n, tid, rot, cos, sin);
+    t128_load(vr, v + off, 0, n, tid, false, nullptr, nullptr);
+  }
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int k0 = jt * kTKeys;
+    __syncthreads();  // the previous tile's readers (and the q stores) are done
+    t128_split(sKh, sKl, kr, tid, rot);
+    t128_split(sVh, sVl, vr, tid, false);
+    __syncthreads();
+    if (jt + 1 < n_tiles) {  // the next tile's rows load while this one's products run
+      t128_load(kr, k + off, k0 + kTKeys, n, tid, rot, cos, sin);
+      t128_load(vr, v + off, k0 + kTKeys, n, tid, false, nullptr, nullptr);
+    }
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    t128_qk<NT>(s, sQh, sQl, sKh, sKl, wr, lane);
+    float alpha[2];
+    t128_softmax<NT>(s, m_run, l_run, alpha, k0, kv_len, scale_log2, t);
+    t128_fold_pv<NT>(o, s, alpha, sVh, sVl, lane);
+  }
+
+  float* dst = out + off;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    if (row >= n) continue;
+    const float inv = l_run[h] > 0.f ? 1.f / l_run[h] : 0.f;  // kv_len == 0: zeros
+#pragma unroll
+    for (int nd = 0; nd < 16; ++nd)
+      *reinterpret_cast<float2*>(dst + (size_t)row * kTD + nd * 8 + 2 * t) =
+          make_float2(o[nd][2 * h] * inv, o[nd][2 * h + 1] * inv);
+  }
+}
+
+template <bool kRope>
+cudaError_t launch_tf32_d128(const void* q, const void* k, const void* v, const void* kv_lens,
+                             const void* cos, const void* sin, void* out, int H, int heads,
+                             int n, int n_rope, float scale_log2, cudaStream_t stream) {
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err = allow_smem(flash_prefix_tf32_d128_kernel<kRope>, kTSmem, ready);
+  if (err != cudaSuccess) return err;
+  flash_prefix_tf32_d128_kernel<kRope>
+      <<<dim3((n + kTRows - 1) / kTRows, H), kTThreads, kTSmem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const int*>(kv_lens),
+          static_cast<float*>(out), n, scale_log2, heads, n_rope,
+          static_cast<const float*>(cos), static_cast<const float*>(sin));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace d128 {
+
+cudaError_t tf32(const void* q, const void* k, const void* v, const void* kv_lens,
+                 const void* cos, const void* sin, void* out, int H, int heads, int n,
+                 int n_rope, float scale_log2, cudaStream_t stream) {
+  if (cos == nullptr)
+    return launch_tf32_d128<false>(q, k, v, kv_lens, nullptr, nullptr, out, H, 1, n, 0,
+                                   scale_log2, stream);
+  if (heads <= 0 || H % heads != 0) return cudaErrorInvalidValue;
+  return launch_tf32_d128<true>(q, k, v, kv_lens, cos, sin, out, H, heads, n, n_rope, scale_log2,
+                                stream);
+}
+
+}  // namespace d128
+}  // namespace f5

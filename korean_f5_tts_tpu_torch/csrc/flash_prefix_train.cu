@@ -35,9 +35,12 @@
 //   - fp32 operands: flash_prefix_train_f32.cu (11, 12, 13) and kernel A's
 //     fp32 kernel with an lse output (flash_prefix.cu, 10), split 3xTF32
 //     products on the tensor cores.
-//   - D = 128 (bf16 and fp32): flash_prefix_d128.cu, on the first port's
-//     mma.sync building blocks (flash_prefix.cuh) in bf16 and FFMA in fp32;
-//     the entry points below hand a d = 128 call there.
+//   - D = 128: 10 in bf16 on the attention core's D = 128 form
+//     (attn_wgmma.cuh: attn_fwd_d128_wgmma_kernel<true, false>, through
+//     flash_prefix_core_d128.cu); 11, 12, 13 in bf16 and 10-13 in fp32 in
+//     flash_prefix_d128.cu, on the first port's mma.sync building blocks
+//     (flash_prefix.cuh) in bf16 and FFMA in fp32; the entry points below
+//     hand a d = 128 call there.
 // Rows past n are zero-filled on load and never stored; a row with no valid
 // key gets lse 0 and zero gradients.
 //
@@ -69,8 +72,8 @@ extern "C" int f5_flash_prefix_fwd_lse(const void* q, const void* k, const void*
                                        int d, float scale_log2, int device, void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
   if (d == 128)
-    return (int)f5::d128::fwd(q, k, v, kv_lens, out, lse, H, n, scale_log2, false,
-                              static_cast<cudaStream_t>(stream));
+    return (int)f5::d128::core(q, k, v, kv_lens, nullptr, nullptr, out, lse, H, 1, n, 0,
+                               scale_log2, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_attn_fwd_wgmma<true>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
                                               static_cast<cudaStream_t>(stream));
 }

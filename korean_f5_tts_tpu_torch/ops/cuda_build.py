@@ -105,10 +105,14 @@ _SIGNATURES = {
     "f5_flash_prefix_rope_f32_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
     # d = 128: the same, then f32, device, stream
     "f5_flash_prefix_rope_d128_fwd": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _I, _P),
-    # A (cos, sin null; heads 1) or 18 at d = 128 in bf16 on the mma.sync loop the
-    # attention core replaced: q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
+    # A (cos, sin, lse null; heads 1), 10 (cos, sin null) or 18 (lse null) at d = 128
+    # in bf16 on the mma.sync loop the attention core replaced: q, k, v, kv_lens, cos,
+    # sin, out, lse, B, heads, n, n_rope, scale_log2, device, stream
+    "f5_flash_prefix_d128_fwd_mma": (_P,) * 8 + (_I, _I, _I, _I, _F, _I, _P),
+    # A (cos, sin null; heads 1) or 18 at d = 128 in fp32 on the FFMA kernel the split
+    # 3xTF32 kernel replaced: q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
     # scale_log2, device, stream
-    "f5_flash_prefix_d128_fwd_mma": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
+    "f5_flash_prefix_f32_d128_fwd_ffma": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
     # qkv, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
     "f5_flash_prefix_qkv_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),
     "f5_flash_prefix_qkv_f32_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),

@@ -50,10 +50,11 @@ kernel or raise (every kernel on bf16 or fp32 operands, all of one dtype, a
 mix raising TypeError, each form with its own launch counter). Head dims:
 A, 10-14, 14's pass and 18 take d = 64 and d = 128 (KERNEL_HEAD_DIMS, the
 JAX kernels' `d in (64, 128)`); 19 takes dh = 64 only, as the JAX kernel
-(flash_prefix.py:1632, `2 * dh == LANES`). At d = 128 A and 18 in bf16 run
-on the attention core's d = 128 form (csrc/attn_wgmma.cuh, through
-csrc/flash_prefix_core_d128.cu), the other forms in csrc/flash_prefix_d128.cu
-(10-13: mma.sync in bf16; A, 10-13, 18: FFMA in fp32) and
+(flash_prefix.py:1632, `2 * dh == LANES`). At d = 128 A, 10 and 18 in bf16
+run on the attention core's d = 128 form (csrc/attn_wgmma.cuh, through
+csrc/flash_prefix_core_d128.cu), A and 18 in fp32 on split 3xTF32 products
+(csrc/flash_prefix_tf32_d128.cu), the other forms in
+csrc/flash_prefix_d128.cu (11-13: mma.sync in bf16; 10-13: FFMA in fp32) and
 csrc/flash_prefix_int8_d128.cu (14), each with its own counter
 (`launches_*_d128`). Which head dims reach a kernel at all is the dispatch's
 choice (ops/attention.py:ATTENTION_KERNEL_DIMS); a wrapper given another d
@@ -411,8 +412,8 @@ def flash_prefix_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel A wrapper: [H, n, d] q/k/v (d 64 or 128), all bf16 or all fp32
     (a mix raises TypeError), [H] int32 kv_lens; the result has their dtype.
     bf16 runs on the TMA + wgmma attention core at both head dims. On fp32
-    operands nothing is rounded below fp32 (split 3xTF32 products at d = 64,
-    FFMA at d = 128)."""
+    operands nothing is rounded below fp32 (split 3xTF32 products on the
+    tensor cores at both head dims)."""
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_prefix: q, k, v must be all bfloat16 or all float32, got "
                         f"{[str(t.dtype) for t in (q, k, v)]}")
@@ -441,8 +442,8 @@ def _train_dtype(what: str, q, *others) -> bool:
 
 def flash_prefix_folded_lse(q, k, v, kv_lens):
     """Kernel 10 wrapper: (o [H, n, d] of q's dtype, lse [H, n] fp32); bf16
-    operands on the attention core, fp32 ones on kernel A's split 3xTF32
-    kernel."""
+    operands on the attention core at both head dims, fp32 ones on kernel
+    A's split 3xTF32 kernel at d = 64 and on FFMA at d = 128."""
     if q.device.type == "cpu":
         return prefix_attention_lse_reference(q, k, v, kv_lens)
     f32 = _train_dtype("flash_prefix_lse", q, k, v)
@@ -544,8 +545,8 @@ def flash_prefix_rope_attention(q, k, v, kv_lens, cos, sin,
                                 pe_attn_head: int | None = None) -> torch.Tensor:
     """Kernel 18 wrapper: prefix attention with the half-split rotary
     embedding applied inside the kernel. q, k (PRE-rope), v: [b, h, n, d], d
-    64 or 128 (bf16: the attention core's rope form at either; fp32:
-    csrc/flash_prefix.cu, csrc/flash_prefix_d128.cu), all bf16 or all fp32 (a mix raises TypeError; fp32 runs the fp32 form);
+    64 or 128 (bf16: the attention core's rope form at either; fp32: split
+    3xTF32, csrc/flash_prefix.cu, csrc/flash_prefix_tf32_d128.cu), all bf16 or all fp32 (a mix raises TypeError; fp32 runs the fp32 form);
     kv_lens: [b] or [1] int; cos, sin: [>= n, d / 2] tables (cast to the
     operands' dtype for the kernel); pe_attn_head: only the first N heads
     rotate. The result has the operands' dtype.

@@ -34,7 +34,8 @@ def mm_3xtf32(a, b):
 
 # --- the attention kernels' fragment arithmetic -----------------------------------
 
-LD = 68  # the kernels' row stride, words
+LD = 68  # the kernels' row stride, words (d = 64)
+LD128 = 132  # the row stride of the d = 128 forward's tiles (flash_prefix_tf32_d128.cu)
 
 
 def _lanes():
@@ -110,22 +111,23 @@ def ldmatrix_x4(mem, addr):
     return np.stack([mem[addr[8 * i + (lane >> 2)] + (lane & 3)] for i in range(4)], 1)
 
 
-def lda_addr(row0, k0):
+def lda_addr(row0, k0, ld=LD):
     lane, _, _ = _lanes()
     mi = lane >> 3
-    return (row0 + (mi & 1) * 8 + (lane & 7)) * LD + k0 + (mi >> 1) * 4
+    return (row0 + (mi & 1) * 8 + (lane & 7)) * ld + k0 + (mi >> 1) * 4
 
 
-def ldb2_addr(n0, k0):
+def ldb2_addr(n0, k0, ld=LD):
     lane, _, _ = _lanes()
     mi = lane >> 3
-    return (n0 + (mi >> 1) * 8 + (lane & 7)) * LD + k0 + (mi & 1) * 4
+    return (n0 + (mi >> 1) * 8 + (lane & 7)) * ld + k0 + (mi & 1) * 4
 
 
-def _tile(x):
-    """[rows, 64] -> the flat [rows][68] words of a padded shared tile"""
-    out = np.zeros((x.shape[0], LD))
-    out[:, :64] = x
+def _tile(x, ld=LD):
+    """[rows, 64] (or [rows, 128] at ld LD128) -> the flat [rows][ld] words
+    of a padded shared tile"""
+    out = np.zeros((x.shape[0], ld))
+    out[:, :x.shape[1]] = x
     return out.reshape(-1)
 
 
@@ -158,18 +160,20 @@ def mm_acc(x, b_rows):
     return acc
 
 
-def mm_rows_3x(a_rows, b_rows, row0, one=False):
+def mm_rows_3x(a_rows, b_rows, row0, one=False, ld=LD):
     """attn_tf32.cuh:mm_rows on the hi and lo tiles of fp32 a and b (split
     as they are stored), the three products of each fragment pair summed in
-    fp32; one: hi.hi alone"""
-    (ah, al), (bh, bl) = (tuple(_tile(t) for t in split_tf32(x)) for x in (a_rows, b_rows))
-    acc = np.zeros((8, 32, 4))
-    for ks in range(8):
-        afh = ldmatrix_x4(ah, lda_addr(row0, ks * 8))
-        afl = ldmatrix_x4(al, lda_addr(row0, ks * 8))
-        for np_ in range(4):
-            bfh = ldmatrix_x4(bh, ldb2_addr(np_ * 16, ks * 8))
-            bfl = ldmatrix_x4(bl, ldb2_addr(np_ * 16, ks * 8))
+    fp32, contracting over the columns of a and b; one n-tile a row octet of
+    b (64 rows at d = 64); one: hi.hi alone. ld LD128: the d = 128 forward's
+    t128_qk (128 columns, a 32-key tile: four n-tiles)."""
+    (ah, al), (bh, bl) = (tuple(_tile(t, ld) for t in split_tf32(x)) for x in (a_rows, b_rows))
+    acc = np.zeros((b_rows.shape[0] // 8, 32, 4))
+    for ks in range(a_rows.shape[1] // 8):
+        afh = ldmatrix_x4(ah, lda_addr(row0, ks * 8, ld))
+        afl = ldmatrix_x4(al, lda_addr(row0, ks * 8, ld))
+        for np_ in range(b_rows.shape[0] // 16):
+            bfh = ldmatrix_x4(bh, ldb2_addr(np_ * 16, ks * 8, ld))
+            bfl = ldmatrix_x4(bl, ldb2_addr(np_ * 16, ks * 8, ld))
             for j in range(2):
                 cols = slice(2 * j, 2 * j + 2)
                 acc[2 * np_ + j] = mma_3x(afh, afl, bfh[:, cols], bfl[:, cols],
@@ -177,30 +181,33 @@ def mm_rows_3x(a_rows, b_rows, row0, one=False):
     return acc
 
 
-def mm_acc_3x(x, b_rows, one=False, trunc=False):
+def mm_acc_3x(x, b_rows, one=False, trunc=False, ld=LD, col0=0):
     """attn_tf32.cuh:mm_acc on the hi and lo tiles of fp32 b: x (an fp32
-    accumulator) split once in registers, its columns in the order 2t,
-    2t + 1; one: hi.hi alone; trunc: the card's truncating accumulation"""
-    bh, bl = (_tile(t) for t in split_tf32(b_rows))
+    accumulator, one k8 step an n-tile of it) split once in registers, its
+    columns in the order 2t, 2t + 1, against columns col0 .. col0 + 63 of
+    b; one: hi.hi alone; trunc: the card's truncating accumulation. ld
+    LD128, col0 0 or 64: one half of the d = 128 forward's t128_pv."""
+    bh, bl = (_tile(t, ld) for t in split_tf32(b_rows))
     _, g, tt = _lanes()
     acc = np.zeros((8, 32, 4))
-    for ks in range(8):
+    for ks in range(len(x)):
         ah, al = split_tf32(x[ks][:, [0, 2, 1, 3]])
-        r0 = (ks * 8 + 2 * tt) * LD + g
+        r0 = (ks * 8 + 2 * tt) * ld + col0 + g
         for nd in range(8):
             at = r0 + nd * 8
             acc[nd] = mma_3x(ah.astype(np.float64), al.astype(np.float64),
-                             np.stack([bh[at], bh[at + LD]], 1),
-                             np.stack([bl[at], bl[at + LD]], 1), acc[nd], one, trunc)
+                             np.stack([bh[at], bh[at + ld]], 1),
+                             np.stack([bl[at], bl[at + ld]], 1), acc[nd], one, trunc)
     return acc
 
 
 def from_acc(acc):
     """the epilogue's stores: acc[nd][lane] holds (g, 8nd + 2t .. +1) and
-    (g + 8, ...), written as float2 at those places of a [16, 64] block"""
+    (g + 8, ...), written as float2 at those places of a [16, 8 len(acc)]
+    block (64 columns, or 128 at d = 128)"""
     _, g, tt = _lanes()
-    out = np.full((16, 64), np.nan)
-    for nd in range(8):
+    out = np.full((16, 8 * len(acc)), np.nan)
+    for nd in range(len(acc)):
         for h in range(2):
             out[g + 8 * h, nd * 8 + 2 * tt] = acc[nd][:, 2 * h]
             out[g + 8 * h, nd * 8 + 2 * tt + 1] = acc[nd][:, 2 * h + 1]

@@ -238,7 +238,8 @@ def _close_f32(got, want):
                                       (257, 64, [257, 256, 129, 1])])
 def test_fp32_prefix_attention_kernel(dev, n, d, lens):
     """d = 64 on the split 3xTF32 kernel (128 queries a block, 64-key tiles:
-    n and kv_len around both), d = 128 on the FFMA one."""
+    n and kv_len around both), d = 128 on its D = 128 form (128 queries a
+    block, 32-key tiles)."""
     gen = torch.Generator(device=dev).manual_seed(20)
     q, k, v = (torch.randn((len(lens), n, d), generator=gen, device=dev) for _ in range(3))
     kv = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -1710,21 +1711,109 @@ def test_attention_kernels_at_head_dim_128(dev, dtype):
         assert x[0].abs().max().item() == 0  # the head with no valid key
 
 
-def _d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
-    """Kernel A (cos None; q, k, v [H, n, 128], kv [H]) or 18 (q, k, v [B,
-    heads, n, 128], kv [B], cos, sin [n, 64] bf16) in bf16 at d = 128 on the
-    mma.sync loop the attention core replaced."""
+def _d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0, lse=False):
+    """Kernel A (cos None; q, k, v [H, n, 128], kv [H]), 10 (lse: (o, lse))
+    or 18 (q, k, v [B, heads, n, 128], kv [B], cos, sin [n, 64] bf16) in
+    bf16 at d = 128 on the mma.sync loop the attention core replaced."""
     from korean_f5_tts_tpu_torch.ops import cuda_build
 
     lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)
+    lse_t = torch.empty(q.shape[:2], dtype=torch.float32, device=dev) if lse else None
     err = lib.f5_flash_prefix_d128_fwd_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+        None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+        out.data_ptr(), None if lse_t is None else lse_t.data_ptr(), q.shape[0], heads,
+        q.shape[-2], n_rope, flash_prefix.LOG2E / 128 ** 0.5, dev.index, stream)
+    cuda_build.check(err, "f5_flash_prefix_d128_fwd_mma")
+    return (out, lse_t) if lse else out
+
+
+def _d128_ffma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
+    """Kernel A (cos None; q, k, v [H, n, 128], kv [H]) or 18 (q, k, v [B,
+    heads, n, 128], kv [B], cos, sin [n, 64] fp32) in fp32 at d = 128 on the
+    FFMA kernel the split 3xTF32 kernel replaced."""
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(q)
+    err = lib.f5_flash_prefix_f32_d128_fwd_ffma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
         None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
         out.data_ptr(), q.shape[0], heads, q.shape[-2], n_rope, flash_prefix.LOG2E / 128 ** 0.5,
         dev.index, stream)
-    cuda_build.check(err, "f5_flash_prefix_d128_fwd_mma")
+    cuda_build.check(err, "f5_flash_prefix_f32_d128_fwd_ffma")
     return out
+
+
+@pytest.mark.parametrize("H,n,lens", [
+    (8, 1000, [0, 1000, 1, 127, 128, 129, 255, 999]),  # ragged, 0 (zeros, lse 0) and n
+    (6, 129, [0, 1, 127, 128, 129, 64]),
+    (2, 1, [1, 0]),
+    (64, 1280, [1280] * 64),                            # the training shape
+])
+def test_training_forward_at_head_dim_128_on_the_attention_core(dev, H, n, lens):
+    """Kernel 10 at d = 128 in bf16 on the attention core's lse form against
+    the mma.sync loop it replaced: o within 1e-2, lse within 1e-5; its o is
+    kernel A's to the bit (one core, one key tile)."""
+    gen = torch.Generator(device=dev).manual_seed(1010 + n)
+    q, k, v = (_bf16((H, n, 128), dev, gen) for _ in range(3))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = flash_prefix.launches_lse_d128
+    o, lse = flash_prefix.flash_prefix_folded_lse(q, k, v, kv)
+    assert flash_prefix.launches_lse_d128 == before + 1
+    oa = flash_prefix.flash_prefix_folded(q, k, v, kv)
+    o_m, lse_m = _d128_mma(dev, q, k, v, kv, lse=True)
+    torch.cuda.synchronize(dev)
+    assert lse.dtype == torch.float32 and lse.shape == (H, n)
+    assert _rel(o, o_m) <= 1e-2 and _rel(lse, lse_m) <= 1e-5
+    torch.testing.assert_close(o, oa, rtol=0, atol=0)
+    for h, length in enumerate(lens):
+        if length == 0:
+            assert o[h].abs().max().item() == 0 and lse[h].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("B,heads,n,lens,pe", [
+    (2, 8, 1536, [1376, 1376], None),  # the serving shape
+    (3, 2, 129, [0, 31, 33], 1),       # the 32-key tile's edges, 129 rows: two blocks
+    (2, 2, 128, [32, 128], None),
+    (1, 3, 127, [127], 2),
+    (2, 2, 1, [1, 0], None),
+])
+def test_fp32_attention_at_head_dim_128_on_split_3xtf32(dev, B, heads, n, lens, pe):
+    """Kernels A and 18 in fp32 at d = 128 on the split 3xTF32 kernel
+    against the FFMA kernel it replaced, within 1e-5; 18 equals A on
+    rope_reference-roped inputs to the bit; a head with kv_len 0 gives
+    zeros."""
+    from korean_f5_tts_tpu_torch.models.modules import rope_cos_sin
+
+    gen = torch.Generator(device=dev).manual_seed(320 + n)
+    q, k, v = (torch.randn((B, heads, n, 128), generator=gen, device=dev) for _ in range(3))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cos, sin = (torch.from_numpy(x).to(dev) for x in rope_cos_sin(n, 128))
+    n_rope = heads if pe is None else pe
+    qf, kf, vf = (x.reshape(B * heads, n, 128) for x in (q, k, v))
+    lens_h = kv.repeat_interleave(heads)
+    before = flash_prefix.launches_f32_d128, flash_prefix.launches_rope_f32_d128
+    oa = flash_prefix.flash_prefix_folded(qf, kf, vf, lens_h)
+    o18 = flash_prefix.flash_prefix_rope_attention(q, k, v, kv, cos, sin, pe)
+    assert (flash_prefix.launches_f32_d128, flash_prefix.launches_rope_f32_d128) == (
+        before[0] + 1, before[1] + 1)
+    tabs = [x[:n].float().contiguous() for x in (cos, sin)]
+    oa_ffma = _d128_ffma(dev, qf, kf, vf, lens_h)
+    o18_ffma = _d128_ffma(dev, q, k, v, kv, *tabs, heads=heads, n_rope=n_rope)
+    (qr, kr, vr), lh = flash_prefix._fold(flash_prefix.rope_reference(q, cos, sin, pe),
+                                          flash_prefix.rope_reference(k, cos, sin, pe), v, kv)
+    via_a = flash_prefix.flash_prefix_folded(qr, kr, vr, lh).reshape(q.shape)
+    torch.cuda.synchronize(dev)
+    torch.testing.assert_close(o18, via_a, rtol=0, atol=0)
+    live = [i for i, length in enumerate(lens) if length > 0]
+    oa4, oaf4 = oa.reshape(q.shape), oa_ffma.reshape(q.shape)
+    assert _rel(oa4[live], oaf4[live]) <= 1e-5
+    assert _rel(o18[live], o18_ffma[live]) <= 1e-5
+    for i, length in enumerate(lens):
+        if length == 0:
+            assert oa4[i].abs().max().item() == 0 and o18[i].abs().max().item() == 0
 
 
 @pytest.mark.parametrize("H,n,lens,past", [

@@ -11,7 +11,11 @@ tests/_tf32_mirror.py:
   2t, 2t + 1, the online max and denominator over 64-key tiles, each tile's
   P.V in an accumulator of its own, the lse = m + log2(l); against the same
   function in float64 within 1e-5 (the card's bound for o and lse), while
-  one TF32 product in place of the three misses that bound;
+  one TF32 product in place of the three misses that bound; and the same at
+  d = 128 (kernels A and 18 on fp32 operands: csrc/flash_prefix_tf32_d128.cu
+  at the tiling it keeps: hi and lo tiles of 128 columns at the stride 132,
+  32-key tiles, P.V a 64-column half at a time, each half of each tile in an
+  accumulator of its own);
 - the product core's split: y (kernel 7 and B's first product: LN and the
   modulation in fp32) split into hi and lo by cvt.rna, the weight likewise,
   a stage's twelve k8 products (the eight small terms first) summed in fp32
@@ -23,7 +27,11 @@ tests/_tf32_mirror.py:
   descriptor's 32-byte step per k8 step reads the weight's k columns
   through the address-bit swizzle, the split commutes with the swizzle, and
   the row loader of every fp32 attention kernel (attn_tf32.cuh:head_load /
-  head_split) stores every column of a row once.
+  head_split, and flash_prefix_tf32_d128.cu:t128_load / t128_split at d =
+  128) stores every column of a row once;
+- the epilogue of the bf16 attention core's D = 128 lse form (kernel 10 at
+  d = 128: attn_wgmma.cuh:attn_fwd_d128_wgmma_kernel<true, false>) writes
+  each row's lse exactly once.
 """
 
 import math
@@ -34,6 +42,7 @@ import torch
 
 from _tf32_mirror import (
     LD,
+    LD128,
     ROW_WORDS,
     _lanes,
     _tile,
@@ -67,12 +76,12 @@ def rel_err(got, want) -> float:
 
 
 def attention_fp64(q, k, v, kv_len):
-    """Kernel A's / 10's function in float64: o [n, 64] and the base-2 lse of
-    the scores scaled by 1 / sqrt(64); zeros and lse 0 for kv_len 0."""
-    n = q.shape[0]
+    """Kernel A's / 10's function in float64: o [n, d] and the base-2 lse of
+    the scores scaled by 1 / sqrt(d); zeros and lse 0 for kv_len 0."""
+    n, d = q.shape
     if kv_len == 0:
-        return np.zeros((n, 64)), np.zeros(n)
-    s = (q.astype(np.float64) @ k[:kv_len].astype(np.float64).T) / 8.0
+        return np.zeros((n, d)), np.zeros(n)
+    s = (q.astype(np.float64) @ k[:kv_len].astype(np.float64).T) / math.sqrt(d)
     m = s.max(1, keepdims=True)
     p = np.exp(s - m)
     l = p.sum(1, keepdims=True)
@@ -149,6 +158,83 @@ def test_forward_with_one_tf32_product_misses_the_bound():
     o1, _ = forward_tf32(q, k, v, 100, one=True)
     assert rel_err(o, o64) <= F32_ATTN_REL
     assert rel_err(o1, o64) > F32_ATTN_REL
+
+
+KEYS128 = 32  # keys a K/V tile of the d = 128 forward (flash_prefix_tf32_d128.cu, kept)
+
+
+def forward_tf32_d128(q, k, v, kv_len, one=False):
+    """flash_prefix_tf32_d128_kernel<32, ...> on one block of 128 queries (n
+    <= 128), d = 128: q, each 32-key K and V tile split into hi and lo tiles
+    [rows][132]; S (16 x 32 a warp) by t128_qk over 16 k8 steps, masked,
+    scaled, P = exp2(S - m) in place; P.V a 64-column half at a time (t128_pv
+    at columns 0 and 64), each half's product of each tile in an accumulator
+    of its own, folded into o as o * alpha + pv; returns o [n, 128] as the
+    kernel stores it. one: a single TF32 product in place of each split one
+    (the control)."""
+    n = q.shape[0]
+    f32 = np.float32
+    scale_log2 = f32(LOG2E / math.sqrt(128))
+    n_tiles = -(-kv_len // KEYS128)
+    rows = KEYS128 * max(n_tiles, 1)
+    qp = np.zeros((128, 128), f32)
+    qp[:n] = q
+    kp, vp = (np.zeros((rows, 128), f32) for _ in range(2))
+    m_ = min(n, rows)  # rows past n are zero-filled
+    kp[:m_], vp[:m_] = k[:m_], v[:m_]
+    _, g, tt = _lanes()
+    nt = KEYS128 // 8
+    o_rows = np.zeros((128, 128))
+    for w in range(8):
+        o = np.zeros((16, 32, 4), f32)
+        m = np.full((32, 2), -np.inf, f32)
+        l = np.zeros((32, 2), f32)
+        for jt in range(n_tiles):
+            k0 = KEYS128 * jt
+            s = mm_rows_3x(qp, kp[k0:k0 + KEYS128], 16 * w, one, ld=LD128).astype(f32)
+            key = k0 + 8 * np.arange(nt)[:, None, None] + 2 * tt[None, :, None] + (
+                np.arange(4) & 1)[None, None, :]
+            s = np.where(key < kv_len, s * scale_log2, f32(-np.inf)).astype(f32)
+            halves = s.reshape(nt, 32, 2, 2)          # [j][lane][h][e & 1]
+            m_new = np.maximum(m, _quad(halves.max(axis=(0, 3)), np.max)).astype(f32)
+            alpha = np.exp2(m - m_new).astype(f32)
+            p = np.exp2(halves - m_new[None, :, :, None]).astype(f32)
+            l = (l * alpha + _quad(p.sum(axis=(0, 3), dtype=f32), np.sum)).astype(f32)
+            m = m_new
+            for half in (0, 1):
+                pv = mm_acc_3x(p.reshape(nt, 32, 4), vp[k0:k0 + KEYS128], one, ld=LD128,
+                               col0=64 * half).astype(f32)
+                part = slice(8 * half, 8 * half + 8)
+                o[part] = (o[part] * np.repeat(alpha, 2, axis=1)[None] + pv).astype(f32)
+        inv = np.where(l > 0, f32(1) / np.where(l > 0, l, 1), 0).astype(f32)
+        o_rows[16 * w:16 * w + 16] = from_acc(o * np.repeat(inv, 2, axis=1)[None])
+    return o_rows[:n]
+
+
+# (n, kv_len): full, ragged, one key, none, and around the 32-key tile's edge
+@pytest.mark.parametrize("n,kv_len", [(128, 128), (100, 77), (65, 65), (128, 1), (50, 0),
+                                      (127, 31), (128, 32), (100, 33)])
+def test_forward_split_holds_fp32_accuracy_at_d128(n, kv_len):
+    rng = _rng(140 + n + kv_len)
+    q, k, v = (rng.standard_normal((n, 128)).astype(np.float32) for _ in range(3))
+    o = forward_tf32_d128(q, k, v, kv_len)
+    o64, _ = attention_fp64(q, k, v, kv_len)
+    if kv_len == 0:  # the kernels' convention: zeros
+        assert not o.any()
+        return
+    assert rel_err(o, o64) <= F32_ATTN_REL
+    # the port's plain version (fp32) computes the same function
+    want = flash_prefix.prefix_attention_reference(
+        *(torch.from_numpy(x)[None] for x in (q, k, v)), torch.tensor([kv_len]))[0]
+    assert rel_err(want.numpy(), o64) <= 1e-6
+
+
+def test_forward_with_one_tf32_product_misses_the_bound_at_d128():
+    rng = _rng(147)
+    q, k, v = (rng.standard_normal((128, 128)).astype(np.float32) for _ in range(3))
+    o64, _ = attention_fp64(q, k, v, 100)
+    assert rel_err(forward_tf32_d128(q, k, v, 100), o64) <= F32_ATTN_REL
+    assert rel_err(forward_tf32_d128(q, k, v, 100, one=True), o64) > F32_ATTN_REL
 
 
 def product_core(y, w, one=False):
@@ -258,6 +344,58 @@ def test_head_rows_store_every_column_once(rows):
                     seen[row, c + half + e] += 1
     assert (seen == 1).all()
     assert math.gcd(LD, 32) == 4  # the 68-word stride the fragment reads rely on
+
+
+@pytest.mark.parametrize("rows", [32, 64])
+@pytest.mark.parametrize("rot", [False, True])
+def test_head_rows_store_every_column_once_at_d128(rows, rot):
+    """flash_prefix_tf32_d128.cu:t128_load / t128_split (32-row K and V tiles,
+    q in 64-row halves): thread tid's item it is row (tid + 256 it) / 16,
+    columns c .. c + 3 and c + 64 .. c + 67 with c = 4 ((tid + 256 it) %
+    16), stored at row * 132 + c and + 64; with the rotation, each item holds
+    both partners of its pairs (c + e, c + 64 + e) and the tables' column c
+    + e < 64 of its row."""
+    seen = np.zeros((rows, 128), int)
+    for tid in range(256):
+        for it in range(rows // 16):
+            i = tid + 256 * it
+            row, c = i >> 4, (i & 15) * 4
+            at = (i >> 4) * LD128 + (i & 15) * 4
+            for e in range(4):
+                if rot:  # rotate_pair(x[c + e], x[c + 64 + e], cos[row, c + e], sin[row, c + e])
+                    assert c + e < 64 and (c + e) + 64 == c + 64 + e
+                for half in (0, 64):
+                    assert at + half + e == row * LD128 + c + half + e
+                    seen[row, c + half + e] += 1
+    assert (seen == 1).all()
+    assert math.gcd(LD128, 32) == 4  # the 132-word stride: ldmatrix and P.V reads conflict-free
+    # t128_pv's scalar B reads: lane (g, t) at (8 ks + 2 t) * 132 + col0 + g + 8 nd
+    lane = np.arange(32)
+    for col0 in (0, 64):
+        banks = ((2 * (lane & 3)) * LD128 + col0 + (lane >> 2)) % 32
+        assert len(set(banks.tolist())) == 32
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1280, 1537])
+def test_d128_core_lse_epilogue_writes_every_row_once(n):
+    """attn_wgmma.cuh:attn_fwd_d128_wgmma_kernel<true, false> (kernel 10 at d
+    = 128 in bf16): blocks of 128 rows (q0 = 128 x), the two consumer
+    warpgroups' threads 0-255 (the producer warpgroup's writes nothing):
+    warpgroup wg = warp / 4, row = 16 (warp % 4) + lane / 4, and each row r
+    of the pair writes lse[q0 + 64 wg + row + 8 r] from the quad's thread t
+    = lane % 4 == 0 when it is < n: each row in [0, n) exactly once."""
+    count = np.zeros(n, int)
+    for bx in range(-(-n // 128)):
+        q0 = 128 * bx
+        for tid in range(256):
+            warp, lane = tid >> 5, tid & 31
+            wg, g8, t = warp >> 2, lane >> 2, lane & 3
+            row = (warp & 3) * 16 + g8
+            for r in (0, 1):
+                grow = q0 + wg * 64 + row + 8 * r
+                if t == 0 and grow < n:
+                    count[grow] += 1
+    assert (count == 1).all()
 
 
 # --- kernel C's fp32 form: csrc/grouped_conv.cu:grouped_conv_tf32_kernel ---------
