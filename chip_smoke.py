@@ -366,6 +366,10 @@ SOURCES = {
     # A and 18 at d = 128 in fp32: split 3xTF32
     **dict.fromkeys(("flash_prefix_f32_d128", "flash_prefix_rope_f32_d128"),
                     "korean_f5_tts_tpu_torch/csrc/flash_prefix_tf32_d128.cu"),
+    # 11, 12 and 13 at d = 128 in fp32: split 3xTF32
+    **dict.fromkeys(("flash_prefix_dq_lsein_f32_d128", "flash_prefix_dq_f32_d128",
+                     "flash_prefix_dkv_f32_d128"),
+                    "korean_f5_tts_tpu_torch/csrc/flash_prefix_train_tf32_d128.cu"),
     **{f"{base}{f}_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8_d128.cu"
        for base in ("flash_prefix_i8", "flash_prefix_i8_qk") for f in ("", "_f32")},
     **{f"flash_prefix_i8_quant{f}_d128": "korean_f5_tts_tpu_torch/csrc/quant_heads.cu"
@@ -414,7 +418,8 @@ def fail(msg: str) -> None:
 # kernel at d = 128 (10 fp32; A and 18 kept for timing); 14's pass; the d =
 # 128 forms (flash_prefix_d128.cu, flash_prefix_int8_d128.cu, the attention
 # core's attn_fwd_d128_wgmma_kernel (A, 10, 18 in bf16) and
-# flash_prefix_tf32_d128_kernel (A, 18 in fp32): "d128" in their names; the
+# flash_prefix_tf32_d128_kernel (A, 18 in fp32) and flash_prefix_dq_tf32_d128_kernel
+# and flash_prefix_dkv_tf32_d128_kernel (11-13 in fp32): "d128" in their names; the
 # mma.sync forward at D = 128, kept for timing A, 10 and 18)
 SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "quant_heads_kernel", "d128",
                  "flash_prefix_fwd_kernelILi128")
@@ -5421,6 +5426,24 @@ TF32_D128_EDGES = (
     (129, [0, 31, 32, 33, 129, 64], 1e4),
     (1537, [1537, 33, 32, 31, 1], 1e4),
 )
+# kernels 11, 12 and 13 at d = 128 in fp32 on split 3xTF32 (dq: 128 queries a
+# block, 32-key tiles; dk, dv: 64 keys a block, 32-query tiles): (n, kv_lens,
+# keys past kv_len); n 1, 31-33, 63-65, 127-129, 1537; kv_len 0, 1, 31-33,
+# 63-65, n; 23 heads at n 1537: 299 dq and 575 dk, dv blocks, partial waves on
+# 132 SMs
+TF32_BWD_D128_EDGES = (
+    (1, [1, 0], None),
+    (31, [0, 1, 31], 1e4),
+    (32, [1, 31, 32], None),
+    (33, [0, 31, 32, 33], 1e4),
+    (63, [1, 33, 63, 0], None),
+    (64, [0, 63, 64, 32], 1e4),
+    (65, [1, 63, 64, 65, 33], 1e4),
+    (127, [127, 0, 31, 65], 1e4),
+    (128, [128, 1, 32, 64, 63], None),
+    (129, [129, 0, 1, 63, 65, 128], 1e4),
+    (1537, [1537, 33, 64, 0, 1, 65, 31, 32] * 2 + [1537] * 7, 1e4),
+)
 SERVE_D128 = (16, 1536, 1376)  # folded heads (2 items x 8), n, kv_len: the serving shape
 TRAIN_D128 = (64, 1280)        # folded heads (8 items x 8), n: the training shape
 
@@ -5482,21 +5505,46 @@ def d128_designs_timed(label: str, ms: float, old, r: dict, shape: str = "servin
     replaced (old()), one process, one timer (cuda_time_ms); the new one
     must take at most `most` of the old one's time."""
     old_ms = cuda_time_ms(old)
+    lib_ms = r.get("library_ms")
     print(f"  {label} designs at the {shape} shape, one process: {new_name} (the wrapper) "
           f"{ms:.4f} ms, {old_name} {old_ms:.4f} ms ({old_ms / ms:.2f}x the new one's); bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / ms:.3f} of the new one's time), plain "
-          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms ({ms / r['library_ms']:.2f}x)")
+          f"{r['plain_ms']:.4f} ms, library "
+          + ("none of its own" if lib_ms is None else f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"))
     r["old_design_ms"] = old_ms
     if ms > most * old_ms:
         fail(f"{label} on {new_name} takes {ms:.4f} ms, more than {most:.3g} of {old_name}'s "
              f"{old_ms:.4f} ms")
 
 
-def d128_f32_designs_timed(label: str, ms: float, ffma, r: dict) -> None:
+def d128_f32_designs_timed(label: str, ms: float, ffma, r: dict, shape: str = "serving") -> None:
     """d128_designs_timed for an fp32 form on split 3xTF32: at most two thirds
     of the FFMA kernel's time."""
-    d128_designs_timed(label, ms, ffma, r, old_name="the FFMA kernel",
+    d128_designs_timed(label, ms, ffma, r, shape=shape, old_name="the FFMA kernel",
                        new_name="split 3xTF32", most=2 / 3)
+
+
+def d128_ffma_bwd(dev, form: int, q, k, v, do, dvec, lse, kv):
+    """Kernel 11 (form 11: dq from lse), 12 (form 12: (dq, lse), lse None)
+    or 13 (form 13: (dk, dv)) in fp32 at d = 128 on the FFMA kernels the
+    split 3xTF32 kernels replaced (f5_flash_prefix_f32_d128_bwd_ffma, served
+    by no path). Not counted: the counters are the wrappers'."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+    from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
+
+    H, n = q.shape[:2]
+    out0 = torch.empty_like(q)
+    out1 = (torch.empty((H, n), dtype=torch.float32, device=dev) if form == 12
+            else torch.empty_like(v) if form == 13 else None)
+    err = cuda_build.library().f5_flash_prefix_f32_d128_bwd_ffma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
+        None if lse is None else lse.data_ptr(), kv.data_ptr(), out0.data_ptr(),
+        None if out1 is None else out1.data_ptr(), H, n, form, fp.LOG2E / 128 ** 0.5,
+        128 ** -0.5, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, f"kernel {form} d = 128 fp32 on the FFMA kernel")
+    return out0 if out1 is None else (out0, out1)
 
 
 def check_core_d128(gen, dev) -> None:
@@ -5541,9 +5589,13 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
     """Kernels A, 10, 11, 12 and 13 at d = 128 (bf16: A and 10 on the
     attention core's d = 128 form, csrc/attn_wgmma.cuh, 11-13 mma.sync in
     csrc/flash_prefix_d128.cu; fp32: A on split 3xTF32,
-    csrc/flash_prefix_tf32_d128.cu, 10-13 FFMA in csrc/flash_prefix_d128.cu;
-    10's o equal to A's to the bit in bf16; A fp32 also at the 3xTF32 tile's
-    edges, TF32_D128_EDGES) against their plain versions, both
+    csrc/flash_prefix_tf32_d128.cu, 11-13 on split 3xTF32,
+    csrc/flash_prefix_train_tf32_d128.cu, 10 FFMA in
+    csrc/flash_prefix_d128.cu; 10's o equal to A's to the bit in bf16; A
+    fp32 also at the 3xTF32 tile's edges, TF32_D128_EDGES, and 11-13 fp32 at
+    theirs, TF32_BWD_D128_EDGES, with the FFMA kernels they replaced beside,
+    the fp32 forms of A and 11-13 timed beside those at most 2/3 of their
+    time) against their plain versions, both
     dtypes, at the serving shape (A: 16 heads, n 1536, 1376 keys), the
     training shape (10-13: 64 heads, n 1280, every key valid), a ragged case
     and D128_EDGES; bf16 o and gradients within 1e-2, fp32 o and lse within
@@ -5606,7 +5658,7 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
 
         print(f"kernels A, 10-13 at d = 128, {name} ("
-              f"{'A, 10 on the attention core, 11-13 mma.sync' if not f else 'A split 3xTF32, 10-13 FFMA'}"
+              f"{'A, 10 on the attention core, 11-13 mma.sync' if not f else 'A, 11-13 split 3xTF32, 10 FFMA'}"
               f"; rel bound {rel_o:.0e} for o, {F32_ATTN_REL:.0e} for lse, {rel_g:.0e} for dq, "
               "dk, dv)")
         H, n = TRAIN_D128
@@ -5628,6 +5680,33 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             torch.cuda.synchronize()
             if (kve == 0).any() and got[kve == 0].abs().max().item() != 0:
                 fail(f"kernel A {label}: a head with kv_len 0 is not zero")
+        for n_, lens, past in TF32_BWD_D128_EDGES if f else ():  # 11-13 on split 3xTF32
+            qe, ke, ve, doe, kve = inputs(len(lens), n_, lens, past)
+            _, lse_e, dvec_e, dq_w, dk_w, dv_w = plain(qe, ke, ve, doe, kve)
+            label = (f"d=128 fp32 3xTF32 edge H={len(lens)} n={n_} "
+                     f"kv={lens if len(lens) < 8 else 'mixed'}{' past +-1e4' if past else ''}")
+            args = (qe, ke, ve, doe, dvec_e, lse_e, kve)
+            dq11 = fp.flash_prefix_dq_lsein(*args)
+            dq12, lse12 = fp.flash_prefix_dq(qe, ke, ve, doe, dvec_e, kve)
+            dk, dv = fp.flash_prefix_dkv(*args)
+            f11 = d128_ffma_bwd(dev, 11, *args)
+            f12, fl12 = d128_ffma_bwd(dev, 12, qe, ke, ve, doe, dvec_e, None, kve)
+            fdk, fdv = d128_ffma_bwd(dev, 13, *args)
+            zero = n_ == 1  # dq and dk are identically zero there (compare's note)
+            for name_, got, want, bound_, z in (
+                    ("11 dq", dq11, dq_w, rel_g, zero), ("12 dq", dq12, dq_w, rel_g, zero),
+                    ("12 lse", lse12, lse_e, F32_ATTN_REL, False), ("13 dk", dk, dk_w, rel_g, zero),
+                    ("13 dv", dv, dv_w, rel_g, False), ("11 FFMA dq", f11, dq_w, rel_g, zero),
+                    ("12 FFMA dq", f12, dq_w, rel_g, zero),
+                    ("12 FFMA lse", fl12, lse_e, F32_ATTN_REL, False),
+                    ("13 FFMA dk", fdk, dk_w, rel_g, zero),
+                    ("13 FFMA dv", fdv, dv_w, rel_g, False)):
+                compare(f"kernel {name_} {label}", got, want, bound_, zero=z)
+            torch.cuda.synchronize()
+            none = kve == 0
+            if none.any() and max(t[none].abs().max().item()
+                                  for t in (dq11, dq12, lse12, dk, dv)) != 0:
+                fail(f"kernels 11-13 {label}: a head with kv_len 0 is not zero")
         if f:  # the control: the same plain versions with TF32 on fail the bounds
             torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
             try:
@@ -5689,6 +5768,16 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             d128_designs_timed("kernel 10 d=128 bf16", out["flash_prefix_lse_d128"]["ms"],
                                lambda: d128_mma(dev, q, k, v, kv, lse=True),
                                out["flash_prefix_lse_d128"], shape="training")
+        if f:  # 11, 12 and 13 on split 3xTF32 beside the FFMA kernels they replaced
+            for base, form, old in (
+                    ("flash_prefix_dq_lsein", 11, lambda: d128_ffma_bwd(dev, 11, *train)),
+                    ("flash_prefix_dq", 12,
+                     lambda: d128_ffma_bwd(dev, 12, q, k, v, do, dvec, None, kv)),
+                    ("flash_prefix_dkv", 13, lambda: d128_ffma_bwd(dev, 13, *train))):
+                r = out[f"{base}_f32_d128"]
+                d128_f32_designs_timed(f"kernel {form} d=128 fp32"
+                                       + (" (library: 11 + 13's backward)" if form == 13 else ""),
+                                       r["ms"], old, r, shape="training")
         both = out[f"flash_prefix_dq_lsein{f}_d128"]["ms"] + out[f"flash_prefix_dkv{f}_d128"]["ms"]
         print(f"  library: forward {lib_fwd:.4f} ms (10 {out[f'flash_prefix_lse{f}_d128']['ms']:.4f}"
               f" ms), backward {lib_bwd:.4f} ms (11 + 13 {both:.4f} ms)")

@@ -59,7 +59,11 @@
 //
 // fp32 ("the exact f32 dot" of the TPU kernels on fp32 inputs): A and 18 run
 // on split 3xTF32 products on the tensor cores (flash_prefix_tf32_d128.cu:
-// d128::tf32); the others on plain FFMA: a 256-thread block over 64 rows,
+// d128::tf32), and so do 11, 12 and 13 (flash_prefix_train_tf32_d128.cu:
+// d128::tf32_dq, d128::tf32_dkv); 10 runs on plain FFMA here, and the FFMA
+// kernels of A, 18 and 11-13 are kept, served by no path, for chip_smoke.py's
+// timing of the 3xTF32 kernels (f5_flash_prefix_f32_d128_fwd_ffma,
+// f5_flash_prefix_f32_d128_bwd_ffma). FFMA: a 256-thread block over 64 rows,
 // thread (ty, tx) of a 16 x 16 grid owning rows 4 ty .. 4 ty + 3, score
 // columns 4 tx .. and output columns 4 tx .. and 64 + 4 tx ..; the operands
 // of the products over d transposed into [d][row] tiles (row stride 68
@@ -71,10 +75,10 @@
 //              rounded once. Its instantiations without lse (A, and 18 with
 //              kRope) serve no path: f5_flash_prefix_f32_d128_fwd_ffma keeps
 //              them for chip_smoke.py's timing of the 3xTF32 kernel.
-//   11, 12     flash_prefix_dq_f32_d128_kernel<kOnline>: q and dO
+//   11, 12     (kept for timing) flash_prefix_dq_f32_d128_kernel<kOnline>: q and dO
 //              transposed and resident, each key tile transposed (K, V) and
 //              K row-major for dq += dS.K (185 KB of shared memory).
-//   13         flash_prefix_dkv_f32_d128_kernel: K, V transposed and
+//   13         (kept for timing) flash_prefix_dkv_f32_d128_kernel: K, V transposed and
 //              resident, each query tile transposed (Q, dO) and row-major for
 //              dV += P^T.dO and dK += dS^T.Q, P^T and dS^T in turn through one
 //              [64][68] tile (218 KB).
@@ -862,4 +866,27 @@ extern "C" int f5_flash_prefix_f32_d128_fwd_ffma(const void* q, const void* k, c
                                                  void* stream) {
   return kept_fwd(q, k, v, kv_lens, cos, sin, out, nullptr, B, heads, n, n_rope, scale_log2, true,
                   device, stream);
+}
+
+// kernels 11 (form 11: lse read, out0 = dq), 12 (form 12: out0 = dq, out1 =
+// the lse written) and 13 (form 13: lse read, out0 = dk, out1 = dv) at d =
+// 128 in fp32 on the FFMA kernels that the split 3xTF32 kernels replaced
+// (chip_smoke.py times the designs against each other, no path calls it)
+extern "C" int f5_flash_prefix_f32_d128_bwd_ffma(const void* q, const void* k, const void* v,
+                                                 const void* dout, const void* dvec,
+                                                 const void* lse, const void* kv_lens, void* out0,
+                                                 void* out1, int H, int n, int form,
+                                                 float scale_log2, float sm_scale, int device,
+                                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (H <= 0 || n <= 0 || H > 65535 || (form != 11 && form != 12 && form != 13))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 13)
+    return (int)f5::d128::dkv(q, k, v, dout, dvec, lse, kv_lens, out0, out1, H, n, scale_log2,
+                              sm_scale, true, s);
+  return (int)f5::d128::dq(q, k, v, dout, dvec, form == 11 ? lse : nullptr, kv_lens, out0,
+                           form == 12 ? out1 : nullptr, H, n, scale_log2, sm_scale, form == 12,
+                           true, s);
 }

@@ -1,6 +1,7 @@
 // The attention kernels at head dim 128 (flash_prefix_d128.cu; A, 10 and 18
 // in bf16 on the attention core, flash_prefix_core_d128.cu; A and 18 in fp32
-// on split 3xTF32, flash_prefix_tf32_d128.cu), as host
+// on split 3xTF32, flash_prefix_tf32_d128.cu; 11-13 in fp32 on split
+// 3xTF32, flash_prefix_train_tf32_d128.cu), as host
 // launchers that the d = 64 entry points of flash_prefix.cu,
 // flash_prefix_train.cu and flash_prefix_train_f32.cu hand a d = 128 call
 // to. Operands are folded [H, n, 128] heads, bf16 (f32 == false) or fp32;
@@ -42,11 +43,25 @@ cudaError_t rope_fwd(const void* q, const void* k, const void* v, const void* kv
                      int n_rope, float scale_log2, bool f32, cudaStream_t stream);
 
 // kernels 11 (online == false: lse_in read) and 12 (online: lse_out written)
+// and 13 in fp32 on split 3xTF32 products (flash_prefix_train_tf32_d128.cu)
+cudaError_t tf32_dq(const void* q, const void* k, const void* v, const void* dout,
+                    const void* dvec, const void* lse_in, const void* kv_lens, void* dq,
+                    void* lse_out, int H, int n, float scale_log2, float sm_scale, bool online,
+                    cudaStream_t stream);
+
+cudaError_t tf32_dkv(const void* q, const void* k, const void* v, const void* dout,
+                     const void* dvec, const void* lse, const void* kv_lens, void* dk, void* dv,
+                     int H, int n, float scale_log2, float sm_scale, cudaStream_t stream);
+
+// kernels 11 (online == false: lse_in read) and 12 (online: lse_out written)
+// on mma.sync (bf16) or FFMA (fp32); the fp32 form serves no path (tf32_dq
+// does) and is kept to time the design that replaced it
+// (f5_flash_prefix_f32_d128_bwd_ffma)
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const void* dvec,
                const void* lse_in, const void* kv_lens, void* dq, void* lse_out, int H, int n,
                float scale_log2, float sm_scale, bool online, bool f32, cudaStream_t stream);
 
-// kernel 13
+// kernel 13 on mma.sync (bf16) or FFMA (fp32; kept for timing as dq's)
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const void* dvec,
                 const void* lse, const void* kv_lens, void* dk, void* dv, int H, int n,
                 float scale_log2, float sm_scale, bool f32, cudaStream_t stream);

@@ -11,8 +11,8 @@
 //   13  _flash_prefix_dkv      -> _kernel_dkv      (dk and dv)
 // The functions are those of the bf16 forms (flash_prefix_train.cu): folded
 // heads q, k, v, dO, dq, dk, dv [H, n, 64] fp32 (at d = 128 the entry
-// points below hand the call to flash_prefix_d128.cu's FFMA kernels),
-// kv_lens [H] int32, lse and
+// points below hand the call to flash_prefix_train_tf32_d128.cu's split
+// 3xTF32 kernels), kv_lens [H] int32, lse and
 // D = rowsum(dO * o) [H, n] fp32, lse in base 2 of the scores pre-scaled by
 // scale_log2 = log2(e) / sqrt(64). On fp32 inputs the TPU kernels keep "the
 // exact f32 dot": S, P, dP, dS, the accumulators and the outputs stay fp32.
@@ -332,7 +332,7 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
-// d = 64 here, d = 128 in flash_prefix_d128.cu (FFMA)
+// d = 64 here, d = 128 in flash_prefix_train_tf32_d128.cu
 int check_args_f32(int device, int H, int n, int d) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -351,8 +351,8 @@ extern "C" int f5_flash_prefix_f32_dq_lsein(const void* q, const void* k, const 
                                             void* stream) {
   if (int err = f5::check_args_f32(device, H, n, d)) return err;
   if (d == 128)
-    return (int)f5::d128::dq(q, k, v, dout, dvec, lse, kv_lens, dq, nullptr, H, n, scale_log2,
-                             sm_scale, false, true, static_cast<cudaStream_t>(stream));
+    return (int)f5::d128::tf32_dq(q, k, v, dout, dvec, lse, kv_lens, dq, nullptr, H, n,
+                                  scale_log2, sm_scale, false, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_dq_f32<false>(q, k, v, dout, dvec, lse, kv_lens, dq, nullptr, H, n,
                                        scale_log2, sm_scale, static_cast<cudaStream_t>(stream));
 }
@@ -365,8 +365,8 @@ extern "C" int f5_flash_prefix_f32_dq(const void* q, const void* k, const void* 
                                       void* stream) {
   if (int err = f5::check_args_f32(device, H, n, d)) return err;
   if (d == 128)
-    return (int)f5::d128::dq(q, k, v, dout, dvec, nullptr, kv_lens, dq, lse_out, H, n,
-                             scale_log2, sm_scale, true, true, static_cast<cudaStream_t>(stream));
+    return (int)f5::d128::tf32_dq(q, k, v, dout, dvec, nullptr, kv_lens, dq, lse_out, H, n,
+                                  scale_log2, sm_scale, true, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_dq_f32<true>(q, k, v, dout, dvec, nullptr, kv_lens, dq, lse_out, H, n,
                                       scale_log2, sm_scale, static_cast<cudaStream_t>(stream));
 }
@@ -379,8 +379,8 @@ extern "C" int f5_flash_prefix_f32_dkv(const void* q, const void* k, const void*
                                        void* stream) {
   if (int err = f5::check_args_f32(device, H, n, d)) return err;
   if (d == 128)
-    return (int)f5::d128::dkv(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n, scale_log2,
-                              sm_scale, true, static_cast<cudaStream_t>(stream));
+    return (int)f5::d128::tf32_dkv(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n, scale_log2,
+                                   sm_scale, static_cast<cudaStream_t>(stream));
   cudaError_t err = cudaFuncSetAttribute(f5::flash_prefix_dkv_tf32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          f5::kDkvTfSmem);

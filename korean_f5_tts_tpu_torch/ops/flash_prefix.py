@@ -53,8 +53,9 @@ JAX kernels' `d in (64, 128)`); 19 takes dh = 64 only, as the JAX kernel
 (flash_prefix.py:1632, `2 * dh == LANES`). At d = 128 A, 10 and 18 in bf16
 run on the attention core's d = 128 form (csrc/attn_wgmma.cuh, through
 csrc/flash_prefix_core_d128.cu), A and 18 in fp32 on split 3xTF32 products
-(csrc/flash_prefix_tf32_d128.cu), the other forms in
-csrc/flash_prefix_d128.cu (11-13: mma.sync in bf16; 10-13: FFMA in fp32) and
+(csrc/flash_prefix_tf32_d128.cu), 11-13 in fp32 on split 3xTF32 products too
+(csrc/flash_prefix_train_tf32_d128.cu), the other forms in
+csrc/flash_prefix_d128.cu (11-13: mma.sync in bf16; 10: FFMA in fp32) and
 csrc/flash_prefix_int8_d128.cu (14), each with its own counter
 (`launches_*_d128`). Which head dims reach a kernel at all is the dispatch's
 choice (ops/attention.py:ATTENTION_KERNEL_DIMS); a wrapper given another d

@@ -57,18 +57,24 @@ def mma_1688(a, b, c, f32=False, trunc=False):
     """mma.sync.m16n8k8 .tf32 on per-lane registers: a [32, 4], b [32, 2], c
     [32, 4] -> d [32, 4] (PTX ISA fragment layouts; exact in float64, or with
     f32 the sum rounded to fp32 once, as fp32 accumulation would, or with
-    trunc truncated toward zero, as the card's accumulation does)."""
+    trunc truncated toward zero, as the card's accumulation does). Leading
+    dimensions (several warps at once) broadcast: a [..., 32, 4] etc."""
     _, g, tt = _lanes()
-    A, B, C = np.zeros((16, 8)), np.zeros((8, 8)), np.zeros((16, 8))
-    A[g, tt], A[g + 8, tt], A[g, tt + 4], A[g + 8, tt + 4] = a.T
-    B[tt, g], B[tt + 4, g] = b.T
-    C[g, 2 * tt], C[g, 2 * tt + 1], C[g + 8, 2 * tt], C[g + 8, 2 * tt + 1] = c.T
+    a, b, c = (np.asarray(x) for x in (a, b, c))
+    lead = np.broadcast_shapes(a.shape[:-2], b.shape[:-2], c.shape[:-2])
+    A, B, C = np.zeros(lead + (16, 8)), np.zeros(lead + (8, 8)), np.zeros(lead + (16, 8))
+    A[..., g, tt], A[..., g + 8, tt], A[..., g, tt + 4], A[..., g + 8, tt + 4] = np.moveaxis(
+        np.broadcast_to(a, lead + (32, 4)), -1, 0)
+    B[..., tt, g], B[..., tt + 4, g] = np.moveaxis(np.broadcast_to(b, lead + (32, 2)), -1, 0)
+    (C[..., g, 2 * tt], C[..., g, 2 * tt + 1], C[..., g + 8, 2 * tt],
+     C[..., g + 8, 2 * tt + 1]) = np.moveaxis(np.broadcast_to(c, lead + (32, 4)), -1, 0)
     D = A @ B + C
     if trunc:
         D = trunc_f32(D)
     elif f32:
         D = D.astype(np.float32).astype(np.float64)
-    return np.stack([D[g, 2 * tt], D[g, 2 * tt + 1], D[g + 8, 2 * tt], D[g + 8, 2 * tt + 1]], 1)
+    return np.stack([D[..., g, 2 * tt], D[..., g, 2 * tt + 1], D[..., g + 8, 2 * tt],
+                     D[..., g + 8, 2 * tt + 1]], -1)
 
 
 def mma_3x(ah, al, bh, bl, c, one=False, trunc=False):
@@ -106,9 +112,10 @@ def bytes_s8(words):
 def ldmatrix_x4(mem, addr):
     """ldmatrix.x4 (b16) on 32-bit words: lane l gives the row address (in
     words) of row l % 8 of matrix l / 8 and receives word l % 4 of row l / 4
-    of each matrix."""
+    of each matrix. addr [..., 32]: several warps at once."""
     lane, _, _ = _lanes()
-    return np.stack([mem[addr[8 * i + (lane >> 2)] + (lane & 3)] for i in range(4)], 1)
+    addr = np.asarray(addr)
+    return np.stack([mem[addr[..., 8 * i + (lane >> 2)] + (lane & 3)] for i in range(4)], -1)
 
 
 def lda_addr(row0, k0, ld=LD):
@@ -164,40 +171,50 @@ def mm_rows_3x(a_rows, b_rows, row0, one=False, ld=LD):
     """attn_tf32.cuh:mm_rows on the hi and lo tiles of fp32 a and b (split
     as they are stored), the three products of each fragment pair summed in
     fp32, contracting over the columns of a and b; one n-tile a row octet of
-    b (64 rows at d = 64); one: hi.hi alone. ld LD128: the d = 128 forward's
-    t128_qk (128 columns, a 32-key tile: four n-tiles)."""
+    b (64 rows at d = 64); one: hi.hi alone. ld LD128: the d = 128 forms'
+    t128_qk (128 columns, a 32-row tile of b: four n-tiles). row0 an array
+    [W]: W warps at once, acc [n-tiles][W, 32, 4]. Every n-tile of a k8
+    step at once: n-tile 2 np + j is columns 2j, 2j + 1 of pair np's B."""
     (ah, al), (bh, bl) = (tuple(_tile(t, ld) for t in split_tf32(x)) for x in (a_rows, b_rows))
-    acc = np.zeros((b_rows.shape[0] // 8, 32, 4))
+    r0 = np.asarray(row0)
+    nt = b_rows.shape[0] // 8
+    acc = np.zeros((nt,) + r0.shape + (32, 4))
+    r0 = r0[..., None]
+    n0 = 16 * np.arange(nt // 2)[:, None]
+    b_shape = (nt,) + (1,) * (acc.ndim - 3) + (32, 2)
+
+    def tiles(b):  # [pairs, 32, 4] -> [n-tiles, (1,) * warp dims, 32, 2]
+        return b.reshape(nt // 2, 32, 2, 2).transpose(0, 2, 1, 3).reshape(b_shape)
+
     for ks in range(a_rows.shape[1] // 8):
-        afh = ldmatrix_x4(ah, lda_addr(row0, ks * 8, ld))
-        afl = ldmatrix_x4(al, lda_addr(row0, ks * 8, ld))
-        for np_ in range(b_rows.shape[0] // 16):
-            bfh = ldmatrix_x4(bh, ldb2_addr(np_ * 16, ks * 8, ld))
-            bfl = ldmatrix_x4(bl, ldb2_addr(np_ * 16, ks * 8, ld))
-            for j in range(2):
-                cols = slice(2 * j, 2 * j + 2)
-                acc[2 * np_ + j] = mma_3x(afh, afl, bfh[:, cols], bfl[:, cols],
-                                          acc[2 * np_ + j], one)
+        afh = ldmatrix_x4(ah, lda_addr(r0, ks * 8, ld))
+        afl = ldmatrix_x4(al, lda_addr(r0, ks * 8, ld))
+        bfh = tiles(ldmatrix_x4(bh, ldb2_addr(n0, ks * 8, ld)))
+        bfl = tiles(ldmatrix_x4(bl, ldb2_addr(n0, ks * 8, ld)))
+        acc = mma_3x(afh, afl, bfh, bfl, acc, one)
     return acc
 
 
-def mm_acc_3x(x, b_rows, one=False, trunc=False, ld=LD, col0=0):
+def mm_acc_3x(x, b_rows, one=False, trunc=False, ld=LD, col0=0, acc=None):
     """attn_tf32.cuh:mm_acc on the hi and lo tiles of fp32 b: x (an fp32
     accumulator, one k8 step an n-tile of it) split once in registers, its
     columns in the order 2t, 2t + 1, against columns col0 .. col0 + 63 of
     b; one: hi.hi alone; trunc: the card's truncating accumulation. ld
-    LD128, col0 0 or 64: one half of the d = 128 forward's t128_pv."""
+    LD128, col0 0 or 64: one half of the d = 128 forms' t128_pv. acc: the
+    accumulator the products chain into (zeros when None); x [k-steps][...,
+    32, 4]: several warps at once. The eight n-tiles of a k8 step at once."""
     bh, bl = (_tile(t, ld) for t in split_tf32(b_rows))
     _, g, tt = _lanes()
-    acc = np.zeros((8, 32, 4))
+    x = np.asarray(x)
+    acc = np.zeros((8,) + x.shape[1:]) if acc is None else np.array(acc, np.float64)
+    b_shape = (8,) + (1,) * (acc.ndim - 3) + (32, 2)
+    nd = 8 * np.arange(8)[:, None]
     for ks in range(len(x)):
-        ah, al = split_tf32(x[ks][:, [0, 2, 1, 3]])
-        r0 = (ks * 8 + 2 * tt) * ld + col0 + g
-        for nd in range(8):
-            at = r0 + nd * 8
-            acc[nd] = mma_3x(ah.astype(np.float64), al.astype(np.float64),
-                             np.stack([bh[at], bh[at + ld]], 1),
-                             np.stack([bl[at], bl[at + ld]], 1), acc[nd], one, trunc)
+        ah, al = split_tf32(x[ks][..., [0, 2, 1, 3]])
+        at = (ks * 8 + 2 * tt) * ld + col0 + g + nd
+        acc = mma_3x(ah.astype(np.float64), al.astype(np.float64),
+                     np.stack([bh[at], bh[at + ld]], -1).reshape(b_shape),
+                     np.stack([bl[at], bl[at + ld]], -1).reshape(b_shape), acc, one, trunc)
     return acc
 
 

@@ -1816,6 +1816,71 @@ def test_fp32_attention_at_head_dim_128_on_split_3xtf32(dev, B, heads, n, lens, 
             assert oa4[i].abs().max().item() == 0 and o18[i].abs().max().item() == 0
 
 
+def _d128_ffma_bwd(dev, form, q, k, v, do, dvec, lse, kv):
+    """Kernel 11 (form 11: dq), 12 (form 12: (dq, lse), lse None) or 13
+    (form 13: (dk, dv)) in fp32 at d = 128 on the FFMA kernels the split
+    3xTF32 kernels replaced."""
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+
+    H, n = q.shape[:2]
+    out0 = torch.empty_like(q)
+    out1 = (torch.empty((H, n), dtype=torch.float32, device=dev) if form == 12
+            else torch.empty_like(v) if form == 13 else None)
+    err = cuda_build.library().f5_flash_prefix_f32_d128_bwd_ffma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
+        None if lse is None else lse.data_ptr(), kv.data_ptr(), out0.data_ptr(),
+        None if out1 is None else out1.data_ptr(), H, n, form, flash_prefix.LOG2E / 128 ** 0.5,
+        128 ** -0.5, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "f5_flash_prefix_f32_d128_bwd_ffma")
+    return out0 if out1 is None else (out0, out1)
+
+
+@pytest.mark.parametrize("n,lens,past", [
+    (33, [0, 1, 31, 32, 33], 1e4),       # the 32-key tile's edges, keys past kv_len at +-1e4
+    (129, [129, 0, 63, 64, 65, 128], None),  # the 64-key dk, dv block's, two dq blocks
+    (1537, [1537, 1, 700, 1536], 1e4),
+    (1280, [1280] * 8, None),            # the training length
+])
+def test_fp32_backward_at_head_dim_128_on_split_3xtf32(dev, n, lens, past):
+    """Kernels 11, 12 and 13 in fp32 at d = 128 on the split 3xTF32 kernels
+    (csrc/flash_prefix_train_tf32_d128.cu), each on its own counter, against
+    the plain versions (dq, dk, dv within 1e-4, 12's lse within 1e-5) and
+    the FFMA kernels they replaced (f5_flash_prefix_f32_d128_bwd_ffma, the
+    same bounds); a head with kv_len 0 gives zeros and lse 0."""
+    gen = torch.Generator(device=dev).manual_seed(1280 + n)
+    H = len(lens)
+    q, k, v, do = (torch.randn((H, n, 128), generator=gen, device=dev) for _ in range(4))
+    if past is not None:
+        for h, length in enumerate(lens):
+            k[h, length:] = past * q[h].mean(0).sign()
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    o, lse = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+    o[kv == 0] = 0
+    dvec = (do * o).sum(-1)
+    args = (q, k, v, do, dvec, lse, kv)
+    dq_p = flash_prefix.flash_prefix_dq_lsein_reference(*args)
+    dk_p, dv_p = flash_prefix.flash_prefix_dkv_reference(*args)
+    names = [f"launches_{x}_f32_d128" for x in ("dq_lsein", "dq", "dkv")]
+    before = [getattr(flash_prefix, x) for x in names]
+    dq11 = flash_prefix.flash_prefix_dq_lsein(*args)
+    dq12, lse12 = flash_prefix.flash_prefix_dq(q, k, v, do, dvec, kv)
+    dk, dv = flash_prefix.flash_prefix_dkv(*args)
+    assert [getattr(flash_prefix, x) for x in names] == [b + 1 for b in before]
+    f11 = _d128_ffma_bwd(dev, 11, *args)
+    f12, fl12 = _d128_ffma_bwd(dev, 12, q, k, v, do, dvec, None, kv)
+    fdk, fdv = _d128_ffma_bwd(dev, 13, *args)
+    torch.cuda.synchronize(dev)
+    for got, want, bound in ((dq11, dq_p, 1e-4), (dq12, dq_p, 1e-4), (lse12, lse, 1e-5),
+                             (dk, dk_p, 1e-4), (dv, dv_p, 1e-4), (f11, dq11, 1e-4),
+                             (f12, dq12, 1e-4), (fl12, lse12, 1e-5), (fdk, dk, 1e-4),
+                             (fdv, dv, 1e-4)):
+        assert torch.isfinite(got).all() and _rel(got, want) <= bound
+    for h, length in enumerate(lens):
+        if length == 0:
+            for x in (dq11, dq12, lse12, dk, dv):
+                assert x[h].abs().max().item() == 0
+
+
 @pytest.mark.parametrize("H,n,lens,past", [
     (8, 1000, [0, 1000, 1, 127, 128, 129, 255, 999], None),  # ragged, 0 (zeros) and n
     (6, 129, [0, 1, 127, 128, 129, 64], 1e4),                # keys past kv_len at +-1e4

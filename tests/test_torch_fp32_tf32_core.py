@@ -237,6 +237,275 @@ def test_forward_with_one_tf32_product_misses_the_bound_at_d128():
     assert rel_err(forward_tf32_d128(q, k, v, 100, one=True), o64) > F32_ATTN_REL
 
 
+# --- kernels 11, 12 and 13 at d = 128 on fp32: csrc/flash_prefix_train_tf32_d128.cu ---
+
+F32_GRAD_REL = 1e-4  # chip_smoke.py: the fp32 forms' gradients
+DQ_KEYS128 = 32      # keys a K/V tile of the d = 128 dq kernel (kept)
+DKV_KEYS128 = 64     # keys a d = 128 dkv block
+DKV_QUERIES128 = 32  # queries a q/dO tile of the d = 128 dkv kernel
+XLD = 40             # row stride of the dkv kernel's exchange tiles (words)
+WARPS = np.arange(8)
+
+
+def grads_fp64(q, k, v, do, kv_len):
+    """Kernels 10-13's function in float64: the base-2 lse, D = rowsum(dO *
+    o), dq, dk and dv (dS = P (dP - D), dq = dS.K / sqrt(d), dk = dS^T.q /
+    sqrt(d), dv = P^T.dO); zeros, lse 0 and D 0 for kv_len 0."""
+    n, d = q.shape
+    q, k, v, do = (x.astype(np.float64) for x in (q, k, v, do))
+    lse, dvec, dq, dk, dv = np.zeros(n), np.zeros(n), np.zeros((n, d)), np.zeros((n, d)), \
+        np.zeros((n, d))
+    if kv_len == 0:
+        return lse, dvec, dq, dk, dv
+    kl, vl = k[:kv_len], v[:kv_len]
+    s = q @ kl.T / math.sqrt(d)
+    m = s.max(1, keepdims=True)
+    e = np.exp(s - m)
+    l = e.sum(1, keepdims=True)
+    p = e / l
+    dvec = (do * (p @ vl)).sum(1)
+    ds = p * (do @ vl.T - dvec[:, None])
+    dq = ds @ kl / math.sqrt(d)
+    dk[:kv_len] = ds.T @ q / math.sqrt(d)
+    dv[:kv_len] = p.T @ do
+    return (m + np.log(l))[:, 0] * LOG2E, dvec, dq, dk, dv
+
+
+def _quad_lanes(x, op):
+    """reduce over the four lanes of a quad, x [W, 32, ...] (warps, lanes)"""
+    w = x.shape[0]
+    return np.repeat(op(x.reshape(w, 8, 4, *x.shape[2:]), axis=2), 4, axis=1)
+
+
+def _pad_rows(x, rows, start, n):
+    """rows [start, start + rows) of x [n, 128] as a zero-filled fp32 tile"""
+    out = np.zeros((rows, 128), np.float32)
+    m = max(0, min(n, start + rows) - start)
+    out[:m] = x[start:start + m]
+    return out
+
+
+def dq_tf32_d128(q, k, v, do, dvec, lse, kv_len, online=False, one=False):
+    """flash_prefix_dq_tf32_d128_kernel<online> on one block of 128 queries (n
+    <= 128), d = 128, the eight warps at once: q and dO unsplit (each warp's
+    A fragments split as read: the same values as a split tile), 32-key K
+    and V tiles split; S and dP (16 x 32 a warp) by t128_qk, masked, scaled,
+    P = exp2(S - lse) and dS = P (dP - D) in fp32, dq += dS.K as t128_pv at
+    columns 0 and 64 chained over the sweep under the card's truncating
+    accumulation; online (12): the running max and sum per row, dq rescaled
+    on each max update, divided by l and the lse written. Returns dq [n,
+    128] and (online) lse [n] as the kernel stores them. one: a single TF32
+    product in place of each split one (the control)."""
+    n = q.shape[0]
+    f32 = np.float32
+    scale_log2, sm_scale = f32(LOG2E / math.sqrt(128)), f32(1 / math.sqrt(128))
+    n_tiles = -(-kv_len // DQ_KEYS128)
+    qp, op = _pad_rows(q, 128, 0, n), _pad_rows(do, 128, 0, n)
+    _, g, tt = _lanes()
+    row = (16 * WARPS[:, None] + g)[..., None] + 8 * np.arange(2)  # [W, 32, 2]
+    live = row < n
+    dr = np.where(live, np.pad(dvec, (0, 128 - n))[np.minimum(row, 127)], 0).astype(f32)
+    lse_r = np.zeros((8, 32, 2), f32)
+    if not online:
+        lse_r = np.where(live, np.pad(lse, (0, 128 - n))[np.minimum(row, 127)], 0).astype(f32)
+    m = np.full((8, 32, 2), -np.inf, f32)
+    l = np.zeros((8, 32, 2), f32)
+    acc = [np.zeros((8, 8, 32, 4)) for _ in range(2)]  # [half][nd][W, 32, 4]
+    nt = DQ_KEYS128 // 8
+    key_e = 8 * np.arange(nt)[:, None, None, None] + 2 * tt[None, None, :, None] + (
+        np.arange(4) & 1)
+    for jt in range(n_tiles):
+        k0 = DQ_KEYS128 * jt
+        kt, vt = _pad_rows(k, DQ_KEYS128, k0, n), _pad_rows(v, DQ_KEYS128, k0, n)
+        s = mm_rows_3x(qp, kt, 16 * WARPS, one, ld=LD128).astype(f32)   # [j][W, 32, 4]
+        dp = mm_rows_3x(op, vt, 16 * WARPS, one, ld=LD128).astype(f32)
+        s = np.where(k0 + key_e < kv_len, s * scale_log2, f32(-np.inf)).astype(f32)
+        if online:
+            halves = s.reshape(nt, 8, 32, 2, 2)       # [j][W][lane][h][e & 1]
+            m_new = np.maximum(m, _quad_lanes(halves.max(axis=(0, 4)), np.max)).astype(f32)
+            alpha = np.exp2(m - m_new).astype(f32)
+            m, lse_r = m_new, m_new
+            l = (l * alpha).astype(f32)
+            acc = [(a * np.repeat(alpha, 2, axis=-1)).astype(f32) for a in acc]
+        p = np.exp2(s - np.repeat(lse_r, 2, axis=-1)).astype(f32)
+        if online:
+            ps = p.reshape(nt, 8, 32, 2, 2).sum(axis=(0, 4), dtype=f32)
+            l = (l + _quad_lanes(ps, np.sum)).astype(f32)
+        ds = (p * (dp - np.repeat(dr, 2, axis=-1))).astype(f32)
+        acc = [mm_acc_3x(ds, kt, one, trunc=True, ld=LD128, col0=64 * half, acc=acc[half])
+               for half in (0, 1)]
+    if online:
+        scale = np.where(l > 0, sm_scale / np.where(l > 0, l, 1), 0).astype(f32)
+        lse_o = np.where(l > 0, m + np.log2(np.where(l > 0, l, 1)), 0).astype(f32)
+    else:
+        scale, lse_o = np.full((8, 32, 2), sm_scale, f32), np.zeros((8, 32, 2), f32)
+    full = np.concatenate(acc, axis=0)  # [16 n-tiles][W, 32, 4]: columns 0-63, then 64-127
+    dq, lse_rows = np.zeros((128, 128)), np.zeros(128)
+    for w in range(8):
+        dq[16 * w:16 * w + 16] = from_acc((full[:, w] * np.repeat(scale[w], 2, axis=-1))
+                                          .astype(f32))
+        for h in range(2):
+            lse_rows[16 * w + g + 8 * h] = lse_o[w, :, h]
+    return dq[:n], lse_rows[:n]
+
+
+def dkv_tf32_d128(q, k, v, do, dvec, lse, kv_len, one=False):
+    """flash_prefix_dkv_tf32_d128_kernel on every 64-key block of a head (n <=
+    128), d = 128: K and V split, each 32-query tile of q and dO split with
+    its lse (+inf past n) and D; the key groups' S^T (warps 0-3) and dP^T
+    (warps 4-7) by t128_qk, 16 keys x 32 queries each, P^T = exp2(S^T
+    scale_log2 - lse) for valid keys, dS^T = P^T (dP^T - D) (the exchange
+    moves fp32 words: test_dkv_exchange_tiles_at_d128 holds its indices),
+    then each warp's column half hf of dV += P^T.dO and dK += dS^T.q as
+    t128_pv at columns 64 hf, chained over the query sweep under the card's
+    truncating accumulation; dk scaled by sm_scale at the store. Returns dk,
+    dv [n, 128] as the kernel stores them."""
+    n = q.shape[0]
+    f32 = np.float32
+    scale_log2, sm_scale = f32(LOG2E / math.sqrt(128)), f32(1 / math.sqrt(128))
+    _, g, tt = _lanes()
+    kg = np.arange(4)
+    q_e = 8 * np.arange(4)[:, None, None, None] + 2 * tt[None, None, :, None] + (np.arange(4) & 1)
+    dk, dv = np.zeros((n, 128)), np.zeros((n, 128))
+    for k0 in range(0, n, DKV_KEYS128):
+        if k0 >= kv_len:  # the block writes zeros
+            continue
+        kb, vb = _pad_rows(k, DKV_KEYS128, k0, n), _pad_rows(v, DKV_KEYS128, k0, n)
+        key = k0 + (16 * kg[:, None] + g)[..., None] + 8 * (np.arange(4) >> 1)  # [4, 32, 4]
+        valid = key < kv_len
+        dk_acc = [np.zeros((8, 4, 32, 4)) for _ in range(2)]  # [hf][nd][kg, 32, 4]
+        dv_acc = [np.zeros((8, 4, 32, 4)) for _ in range(2)]
+        for qb in range(0, n, DKV_QUERIES128):
+            qt, ot = _pad_rows(q, DKV_QUERIES128, qb, n), _pad_rows(do, DKV_QUERIES128, qb, n)
+            qi = qb + q_e
+            lq = np.where(qi < n, np.pad(lse, (0, 160))[qi], np.inf).astype(f32)
+            dq_ = np.where(qi < n, np.pad(dvec, (0, 160))[qi], 0).astype(f32)
+            st = mm_rows_3x(kb, qt, 16 * kg, one, ld=LD128).astype(f32)   # [j][kg, 32, 4]
+            dpt = mm_rows_3x(vb, ot, 16 * kg, one, ld=LD128).astype(f32)
+            pt = np.where(valid, np.exp2((st * scale_log2).astype(f32) - lq), 0).astype(f32)
+            dst = (pt * (dpt - dq_)).astype(f32)
+            for hf in (0, 1):
+                dv_acc[hf] = mm_acc_3x(pt, ot, one, trunc=True, ld=LD128, col0=64 * hf,
+                                       acc=dv_acc[hf])
+                dk_acc[hf] = mm_acc_3x(dst, qt, one, trunc=True, ld=LD128, col0=64 * hf,
+                                       acc=dk_acc[hf])
+        for j in kg:
+            rows = slice(k0 + 16 * j, min(n, k0 + 16 * j + 16))
+            m = rows.stop - rows.start
+            if m <= 0:
+                continue
+            dka = np.concatenate([a[:, j] for a in dk_acc], axis=0)
+            dva = np.concatenate([a[:, j] for a in dv_acc], axis=0)
+            dk[rows] = from_acc((dka * sm_scale).astype(f32))[:m]
+            dv[rows] = from_acc(dva.astype(f32))[:m]
+    return dk, dv
+
+
+def _bwd_inputs(n, kv_len, seed):
+    rng = _rng(seed)
+    q, k, v, do = (rng.standard_normal((n, 128)).astype(np.float32) for _ in range(4))
+    lse, dvec, *want = grads_fp64(q, k, v, do, kv_len)
+    return (q, k, v, do), lse.astype(np.float32), dvec.astype(np.float32), lse, want
+
+
+def _held(got, want, bound, kv_len):
+    """rel_err within bound; with one valid key, where dq and dk are
+    identically zero (dS = P (dP - D) = 0) and both sides hold rounding
+    noise, |got| <= 1e-5 (chip_smoke.py's compare, zero=True)"""
+    if kv_len == 1:
+        return float(np.abs(got).max()) <= 1e-5
+    return rel_err(got, want) <= bound
+
+
+# (n, kv_len): full, ragged, one key, none, and around the 32-key tile's edge
+BWD128_CASES = [(128, 128), (100, 77), (65, 65), (128, 1), (50, 0), (127, 31), (128, 32),
+                (100, 33)]
+
+
+@pytest.mark.parametrize("n,kv_len", BWD128_CASES)
+def test_dq_split_holds_fp32_accuracy_at_d128(n, kv_len):
+    """Kernels 11 and 12 at d = 128 (the kept tiling) within F32_GRAD_REL of
+    float64, 12's lse within F32_ATTN_REL; the port's plain version within
+    1e-6 of float64."""
+    (q, k, v, do), lse, dvec, lse64, (dq64, _, _) = _bwd_inputs(n, kv_len, 240 + n + kv_len)
+    dq11, _ = dq_tf32_d128(q, k, v, do, dvec, lse, kv_len)
+    dq12, lse12 = dq_tf32_d128(q, k, v, do, dvec, None, kv_len, online=True)
+    if kv_len == 0:  # the kernels' convention: zeros, lse 0
+        assert not dq11.any() and not dq12.any() and not lse12.any()
+        return
+    for got in (dq11, dq12):
+        assert _held(got, dq64, F32_GRAD_REL, kv_len)
+    assert rel_err(lse12, lse64) <= F32_ATTN_REL
+    want = flash_prefix.flash_prefix_dq_lsein_reference(
+        *(torch.from_numpy(x)[None] for x in (q, k, v, do, dvec, lse)), torch.tensor([kv_len]))[0]
+    assert _held(want.numpy(), dq64, 1e-6, kv_len)
+
+
+@pytest.mark.parametrize("n,kv_len", BWD128_CASES)
+def test_dkv_split_holds_fp32_accuracy_at_d128(n, kv_len):
+    """Kernel 13 at d = 128 (the kept tiling, the pairs' split by product)
+    within F32_GRAD_REL of float64; the port's plain version within 1e-6."""
+    (q, k, v, do), lse, dvec, _, (_, dk64, dv64) = _bwd_inputs(n, kv_len, 340 + n + kv_len)
+    dk, dv = dkv_tf32_d128(q, k, v, do, dvec, lse, kv_len)
+    if kv_len == 0:  # the kernels' convention: zeros
+        assert not dk.any() and not dv.any()
+        return
+    assert _held(dk, dk64, F32_GRAD_REL, kv_len)
+    assert rel_err(dv, dv64) <= F32_GRAD_REL
+    dk_p, dv_p = flash_prefix.flash_prefix_dkv_reference(
+        *(torch.from_numpy(x)[None] for x in (q, k, v, do, dvec, lse)), torch.tensor([kv_len]))
+    assert _held(dk_p[0].numpy(), dk64, 1e-6, kv_len)
+    assert rel_err(dv_p[0].numpy(), dv64) <= 1e-6
+
+
+def test_backward_with_one_tf32_product_misses_the_bound_at_d128():
+    (q, k, v, do), lse, dvec, _, (dq64, dk64, dv64) = _bwd_inputs(128, 100, 247)
+    dq, _ = dq_tf32_d128(q, k, v, do, dvec, lse, 100, one=True)
+    dk, dv = dkv_tf32_d128(q, k, v, do, dvec, lse, 100, one=True)
+    for got, want in ((dq, dq64), (dk, dk64), (dv, dv64)):
+        assert rel_err(got, want) > F32_GRAD_REL
+
+
+def test_dkv_exchange_tiles_at_d128():
+    """flash_prefix_dkv_tf32_d128_kernel's exchange: warp w (key group kg = w
+    & 3, role hf = w >> 2) stores its 16 x 32 tile (S^T made P^T by hf 0,
+    dP^T by hf 1) as float2 at tile hf, row 16 kg + g + 8 h, column 8 j + 2
+    t; after the pair's barrier, its partner (w ^ 4) reads that tile back at
+    the same places into the same accumulator slots [j][2 h + (e & 1)],
+    which t128_pv takes as the A fragment in the order 2t, 2t + 1: every
+    element of both tiles is written once, by the pair that reads it, and
+    read once, by the other warp of the pair, as the element (key, query)
+    it holds; the float2 stores and loads are conflict-free at the stride
+    40 words."""
+    writes = np.zeros((2, 64, 32), int)
+    reads = np.zeros((2, 64, 32), int)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for w in range(8):
+        kg, hf = w & 3, w >> 2
+        for j in range(4):
+            for h in range(2):
+                word = (16 * kg + g + 8 * h) * XLD + 8 * j + 2 * t
+                key, query = word // XLD, word % XLD
+                assert (key == 16 * kg + g + 8 * h).all() and (query == 8 * j + 2 * t).all()
+                np.add.at(writes[hf], (key, query), 1)
+                np.add.at(writes[hf], (key, query + 1), 1)
+                np.add.at(reads[1 - hf], (key, query), 1)  # the partner's tile, read by w
+                np.add.at(reads[1 - hf], (key, query + 1), 1)
+                for half in (slice(0, 16), slice(16, 32)):  # a half-warp's float2 access
+                    banks = np.stack([word[half] % 32, (word[half] + 1) % 32]).ravel()
+                    assert len(set(banks.tolist())) == 32
+    assert (writes == 1).all() and (reads == 1).all()
+    # the slot [j][2h + (e & 1)] holds (key g + 8h, query 8j + 2t + (e & 1)): the
+    # accumulator layout of t128_qk, so t128_pv's a0 = [j][0], a1 = [j][2], a2 =
+    # [j][1], a3 = [j][3] are (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)
+    x = np.arange(16 * 32, dtype=np.float64).reshape(16, 32)
+    slots = np.stack([np.stack([x[g, 8 * j + 2 * t], x[g, 8 * j + 2 * t + 1],
+                                x[g + 8, 8 * j + 2 * t], x[g + 8, 8 * j + 2 * t + 1]], -1)
+                      for j in range(4)])
+    np.testing.assert_array_equal(from_acc(slots), x)
+
+
 def product_core(y, w, one=False):
     """gemm_f32.cuh:tf_consume on y [M, K] and w [N, K] fp32: hi and lo of
     both by cvt.rna; per 32-deep stage the four k8 steps' lo.hi and hi.lo
