@@ -229,9 +229,10 @@ Phases (any failure raises and exits non-zero):
      its four forms and its pass, bf16 and fp32, and C at 8 channels, at
      their main shapes and edges, each timed beside its bound, plain version
      and library call; A, 10 and 18 in bf16 on the attention core beside
-     the mma.sync loop it replaced, A and 18 in fp32 on split 3xTF32 beside
-     the FFMA kernel it replaced, in one process, and at the 3xTF32
-     kernel's tile edges): (b) F5TTS_v1_Base's widths with 8 heads of 128,
+     the mma.sync loop it replaced, 13 in bf16 on the backward core beside
+     the mma.sync kernel it replaced, A, 10, 18 and 11-13 in fp32 on split
+     3xTF32 beside the FFMA kernels they replaced, in one process, and at
+     each new kernel's tile edges): (b) F5TTS_v1_Base's widths with 8 heads of 128,
      depth 22, seeded weights, the bench protocol on every attn_path (19
      steps aside: A 352), under attn_int8 "qk" and "qkpv", with int8
      weights, and one fp32 chunk per attn_path and per attn_int8 mode, each
@@ -363,8 +364,11 @@ SOURCES = {
     # A, 10 and 18 at d = 128 in bf16: the attention core's d = 128 form
     **dict.fromkeys(("flash_prefix_d128", "flash_prefix_lse_d128", "flash_prefix_rope_d128"),
                     "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh"),
-    # A and 18 at d = 128 in fp32: split 3xTF32
-    **dict.fromkeys(("flash_prefix_f32_d128", "flash_prefix_rope_f32_d128"),
+    # 13 at d = 128 in bf16: the attention backward core's d = 128 form
+    "flash_prefix_dkv_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_bwd_core_d128.cu",
+    # A, 10 and 18 at d = 128 in fp32: split 3xTF32
+    **dict.fromkeys(("flash_prefix_f32_d128", "flash_prefix_lse_f32_d128",
+                     "flash_prefix_rope_f32_d128"),
                     "korean_f5_tts_tpu_torch/csrc/flash_prefix_tf32_d128.cu"),
     # 11, 12 and 13 at d = 128 in fp32: split 3xTF32
     **dict.fromkeys(("flash_prefix_dq_lsein_f32_d128", "flash_prefix_dq_f32_d128",
@@ -415,11 +419,12 @@ def fail(msg: str) -> None:
 # flash_prefix_fwd_tf32_kernel, of 11-13, of B, 7, 8 in ln_mod_gemm_tf32_kernel
 # and gated_residual_gemm_tf32_kernel, of C in grouped_conv_tf32_kernel, of 14
 # "qk" in flash_prefix_i8_qk_tf32_kernel, and the .tf32 probes); A's fp32 FFMA
-# kernel at d = 128 (10 fp32; A and 18 kept for timing); 14's pass; the d =
-# 128 forms (flash_prefix_d128.cu, flash_prefix_int8_d128.cu, the attention
-# core's attn_fwd_d128_wgmma_kernel (A, 10, 18 in bf16) and
-# flash_prefix_tf32_d128_kernel (A, 18 in fp32) and flash_prefix_dq_tf32_d128_kernel
-# and flash_prefix_dkv_tf32_d128_kernel (11-13 in fp32): "d128" in their names; the
+# kernel at d = 128 (kept for timing A, 10 and 18); 14's pass; the d = 128
+# forms (flash_prefix_d128.cu, flash_prefix_int8_d128.cu, the attention
+# core's attn_fwd_d128_wgmma_kernel (A, 10, 18 in bf16), the backward core's
+# attn_dkv_d128_wgmma_kernel (13 in bf16) and flash_prefix_tf32_d128_kernel (A,
+# 10, 18 in fp32) and flash_prefix_dq_tf32_d128_kernel and
+# flash_prefix_dkv_tf32_d128_kernel (11-13 in fp32): "d128" in their names; the
 # mma.sync forward at D = 128, kept for timing A, 10 and 18)
 SPILL_CHECKED = ("wgmma", "tf32", "flash_prefix_f32_kernel", "quant_heads_kernel", "d128",
                  "flash_prefix_fwd_kernelILi128")
@@ -5444,6 +5449,17 @@ TF32_BWD_D128_EDGES = (
     (129, [129, 0, 1, 63, 65, 128], 1e4),
     (1537, [1537, 33, 64, 0, 1, 65, 31, 32] * 2 + [1537] * 7, 1e4),
 )
+# kernel 13 at d = 128 in bf16 on the attention backward core (128 keys a
+# block on two warpgroups of 64, 64-query tiles): (n, kv_lens, keys past
+# kv_len); n 100 and 301 (an [H, n] row of lse and D at no 16-byte boundary),
+# kv_len 0, 1, 63-65, 127-129, n; 23 heads at n 1537: 299 blocks, a partial
+# wave on 132 SMs
+CORE_BWD_D128_EDGES = (
+    (100, [1, 63, 64, 65, 100, 0], None),
+    (301, [1, 63, 64, 65, 127, 128, 129, 301], 1e4),
+    (301, [0, 129, 200, 301], None),
+    (1537, [1537, 0, 1, 63, 64, 65, 127, 128, 129, 700, 1536] * 2 + [1537], 1e4),
+)
 SERVE_D128 = (16, 1536, 1376)  # folded heads (2 items x 8), n, kv_len: the serving shape
 TRAIN_D128 = (64, 1280)        # folded heads (8 items x 8), n: the training shape
 
@@ -5472,15 +5488,11 @@ def _d128_kept(entry: str, dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope
     lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)
     lse_t = torch.empty(q.shape[:2], dtype=torch.float32, device=dev) if lse else None
-    tabs = (None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr())
-    tail = (q.shape[0], heads, q.shape[-2], n_rope, fp.LOG2E / 128 ** 0.5, dev.index, stream)
-    if entry == "mma":
-        err = lib.f5_flash_prefix_d128_fwd_mma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(), *tabs, out.data_ptr(),
-            None if lse_t is None else lse_t.data_ptr(), *tail)
-    else:
-        err = lib.f5_flash_prefix_f32_d128_fwd_ffma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(), *tabs, out.data_ptr(), *tail)
+    fn = lib.f5_flash_prefix_d128_fwd_mma if entry == "mma" else lib.f5_flash_prefix_f32_d128_fwd_ffma
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+             None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+             out.data_ptr(), None if lse_t is None else lse_t.data_ptr(), q.shape[0], heads,
+             q.shape[-2], n_rope, fp.LOG2E / 128 ** 0.5, dev.index, stream)
     form = "A" if cos is None else "18"
     cuda_build.check(err, f"kernel {'10' if lse else form} d = 128 on the {entry} design")
     return (out, lse_t) if lse else out
@@ -5492,10 +5504,10 @@ def d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0, lse: bool 
     return _d128_kept("mma", dev, q, k, v, kv, cos, sin, heads, n_rope, lse)
 
 
-def d128_ffma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
-    """Kernel A or 18 in fp32 on the FFMA kernel the split 3xTF32 kernel
-    replaced (f5_flash_prefix_f32_d128_fwd_ffma; _d128_kept)."""
-    return _d128_kept("ffma", dev, q, k, v, kv, cos, sin, heads, n_rope)
+def d128_ffma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0, lse: bool = False):
+    """Kernel A, 10 (lse) or 18 in fp32 on the FFMA kernel the split 3xTF32
+    kernel replaced (f5_flash_prefix_f32_d128_fwd_ffma; _d128_kept)."""
+    return _d128_kept("ffma", dev, q, k, v, kv, cos, sin, heads, n_rope, lse)
 
 
 def d128_designs_timed(label: str, ms: float, old, r: dict, shape: str = "serving",
@@ -5524,27 +5536,41 @@ def d128_f32_designs_timed(label: str, ms: float, ffma, r: dict, shape: str = "s
                        new_name="split 3xTF32", most=2 / 3)
 
 
-def d128_ffma_bwd(dev, form: int, q, k, v, do, dvec, lse, kv):
+def _d128_kept_bwd(entry: str, dev, form: int, q, k, v, do, dvec, lse, kv):
     """Kernel 11 (form 11: dq from lse), 12 (form 12: (dq, lse), lse None)
-    or 13 (form 13: (dk, dv)) in fp32 at d = 128 on the FFMA kernels the
-    split 3xTF32 kernels replaced (f5_flash_prefix_f32_d128_bwd_ffma, served
-    by no path). Not counted: the counters are the wrappers'."""
+    or 13 (form 13: (dk, dv)) at d = 128 on a kept design (entry: "mma",
+    the bf16 mma.sync kernels, f5_flash_prefix_d128_bwd_mma, 13's served by
+    no path; "ffma", the fp32 FFMA kernels the split 3xTF32 kernels replaced,
+    f5_flash_prefix_f32_d128_bwd_ffma). Not counted: the counters are the
+    wrappers'."""
     import torch
 
     from korean_f5_tts_tpu_torch.ops import cuda_build
     from korean_f5_tts_tpu_torch.ops import flash_prefix as fp
 
+    lib = cuda_build.library()
+    fn = lib.f5_flash_prefix_d128_bwd_mma if entry == "mma" else lib.f5_flash_prefix_f32_d128_bwd_ffma
     H, n = q.shape[:2]
     out0 = torch.empty_like(q)
     out1 = (torch.empty((H, n), dtype=torch.float32, device=dev) if form == 12
             else torch.empty_like(v) if form == 13 else None)
-    err = cuda_build.library().f5_flash_prefix_f32_d128_bwd_ffma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
-        None if lse is None else lse.data_ptr(), kv.data_ptr(), out0.data_ptr(),
-        None if out1 is None else out1.data_ptr(), H, n, form, fp.LOG2E / 128 ** 0.5,
-        128 ** -0.5, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, f"kernel {form} d = 128 fp32 on the FFMA kernel")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
+             None if lse is None else lse.data_ptr(), kv.data_ptr(), out0.data_ptr(),
+             None if out1 is None else out1.data_ptr(), H, n, form, fp.LOG2E / 128 ** 0.5,
+             128 ** -0.5, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, f"kernel {form} d = 128 on the {entry} design")
     return out0 if out1 is None else (out0, out1)
+
+
+def d128_ffma_bwd(dev, form: int, q, k, v, do, dvec, lse, kv):
+    """_d128_kept_bwd on the fp32 FFMA kernels."""
+    return _d128_kept_bwd("ffma", dev, form, q, k, v, do, dvec, lse, kv)
+
+
+def d128_mma_bwd(dev, form: int, q, k, v, do, dvec, lse, kv):
+    """_d128_kept_bwd on the bf16 mma.sync kernels (13: the one the backward
+    core replaced)."""
+    return _d128_kept_bwd("mma", dev, form, q, k, v, do, dvec, lse, kv)
 
 
 def check_core_d128(gen, dev) -> None:
@@ -5587,15 +5613,17 @@ def check_core_d128(gen, dev) -> None:
 
 def check_attention_d128(gen, dev) -> dict[str, dict]:
     """Kernels A, 10, 11, 12 and 13 at d = 128 (bf16: A and 10 on the
-    attention core's d = 128 form, csrc/attn_wgmma.cuh, 11-13 mma.sync in
-    csrc/flash_prefix_d128.cu; fp32: A on split 3xTF32,
+    attention core's d = 128 form, csrc/attn_wgmma.cuh, 13 on the backward
+    core's, csrc/flash_prefix_bwd_core_d128.cu, 11 and 12 mma.sync in
+    csrc/flash_prefix_d128.cu; fp32: A and 10 on split 3xTF32,
     csrc/flash_prefix_tf32_d128.cu, 11-13 on split 3xTF32,
-    csrc/flash_prefix_train_tf32_d128.cu, 10 FFMA in
-    csrc/flash_prefix_d128.cu; 10's o equal to A's to the bit in bf16; A
-    fp32 also at the 3xTF32 tile's edges, TF32_D128_EDGES, and 11-13 fp32 at
-    theirs, TF32_BWD_D128_EDGES, with the FFMA kernels they replaced beside,
-    the fp32 forms of A and 11-13 timed beside those at most 2/3 of their
-    time) against their plain versions, both
+    csrc/flash_prefix_train_tf32_d128.cu; 10's o equal to A's to the bit in
+    both dtypes; A and 10 fp32 also at the 3xTF32 tile's edges,
+    TF32_D128_EDGES, 11-13 fp32 at theirs, TF32_BWD_D128_EDGES, and 13 bf16
+    at the backward core's, CORE_BWD_D128_EDGES, with the designs they
+    replaced beside, the fp32 forms of A, 10 and 11-13 timed beside the FFMA
+    kernels at most 2/3 of their time, 13 bf16 beside the mma.sync kernel)
+    against their plain versions, both
     dtypes, at the serving shape (A: 16 heads, n 1536, 1376 keys), the
     training shape (10-13: 64 heads, n 1280, every key valid), a ragged case
     and D128_EDGES; bf16 o and gradients within 1e-2, fp32 o and lse within
@@ -5634,7 +5662,7 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             o10, lse10 = fp.flash_prefix_folded_lse(q, k, v, kv)
             err["flash_prefix_lse"] = compare(f"kernel 10 o {label}", o10, o, rel_o)[0]
             compare(f"kernel 10 lse {label}", lse10, lse, F32_ATTN_REL)
-            if not f and not torch.equal(o10, oa):  # one core, one key tile
+            if not torch.equal(o10, oa):  # one kernel, one key tile, the lse only added
                 fail(f"kernel 10 {label}: its o is not kernel A's to the bit")
             zero = n == 1  # dq and dk are identically zero there (compare's note)
             dq11 = fp.flash_prefix_dq_lsein(q, k, v, do, dvec, lse, kv)
@@ -5658,7 +5686,7 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
 
         print(f"kernels A, 10-13 at d = 128, {name} ("
-              f"{'A, 10 on the attention core, 11-13 mma.sync' if not f else 'A, 11-13 split 3xTF32, 10 FFMA'}"
+              f"{'A, 10 on the attention core, 13 on the backward core, 11, 12 mma.sync' if not f else 'A, 10-13 split 3xTF32'}"
               f"; rel bound {rel_o:.0e} for o, {F32_ATTN_REL:.0e} for lse, {rel_g:.0e} for dq, "
               "dk, dv)")
         H, n = TRAIN_D128
@@ -5669,17 +5697,41 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
         for n_, lens, past in D128_EDGES:
             case(f"edge n={n_} kv={lens}{' keys past kv_len at +-1e4' if past else ''}",
                  len(lens), n_, lens, past)
-        for n_, lens, past in TF32_D128_EDGES if f else ():  # A on split 3xTF32, its tile's edges
+        for n_, lens, past in TF32_D128_EDGES if f else ():  # A, 10 on split 3xTF32, its edges
             qe, ke, ve, _, kve = inputs(len(lens), n_, lens, past)
-            want = fp.prefix_attention_reference(qe, ke, ve, kve)
+            want, lse_w = fp.prefix_attention_lse_reference(qe, ke, ve, kve)
             want[kve == 0] = 0
             label = f"d=128 fp32 3xTF32 edge n={n_} kv={lens}{' past +-1e4' if past else ''}"
             got = fp.flash_prefix_folded(qe, ke, ve, kve)
             compare(f"kernel A {label}", got, want, rel_o)
             compare(f"kernel A FFMA {label}", d128_ffma(dev, qe, ke, ve, kve), want, rel_o)
+            o10, lse10 = fp.flash_prefix_folded_lse(qe, ke, ve, kve)
+            compare(f"kernel 10 o {label}", o10, want, rel_o)
+            compare(f"kernel 10 lse {label}", lse10, lse_w, F32_ATTN_REL)
+            o_f, lse_f = d128_ffma(dev, qe, ke, ve, kve, lse=True)
+            compare(f"kernel 10 FFMA o {label}", o_f, want, rel_o)
+            compare(f"kernel 10 FFMA lse {label}", lse_f, lse_w, F32_ATTN_REL)
             torch.cuda.synchronize()
-            if (kve == 0).any() and got[kve == 0].abs().max().item() != 0:
-                fail(f"kernel A {label}: a head with kv_len 0 is not zero")
+            if not torch.equal(o10, got):
+                fail(f"kernel 10 {label}: its o is not kernel A's to the bit")
+            if (kve == 0).any() and max(t[kve == 0].abs().max().item()
+                                        for t in (got, o10, lse10)) != 0:
+                fail(f"kernels A, 10 {label}: a head with kv_len 0 is not zero")
+        for n_, lens, past in CORE_BWD_D128_EDGES if not f else ():  # 13 on the backward core
+            qe, ke, ve, doe, kve = inputs(len(lens), n_, lens, past)
+            _, lse_e, dvec_e, _, dk_w, dv_w = plain(qe, ke, ve, doe, kve)
+            label = (f"d=128 bf16 backward core edge H={len(lens)} n={n_} "
+                     f"kv={lens if len(lens) < 12 else 'mixed'}{' past +-1e4' if past else ''}")
+            args = (qe, ke, ve, doe, dvec_e, lse_e, kve)
+            dk, dv = fp.flash_prefix_dkv(*args)
+            mdk, mdv = d128_mma_bwd(dev, 13, *args)
+            for name_, got, want in (("13 dk", dk, dk_w), ("13 dv", dv, dv_w),
+                                     ("13 mma.sync dk", mdk, dk_w), ("13 mma.sync dv", mdv, dv_w)):
+                compare(f"kernel {name_} {label}", got, want, rel_g)
+            torch.cuda.synchronize()
+            none = kve == 0
+            if none.any() and max(t[none].abs().max().item() for t in (dk, dv)) != 0:
+                fail(f"kernel 13 {label}: a head with kv_len 0 is not zero")
         for n_, lens, past in TF32_BWD_D128_EDGES if f else ():  # 11-13 on split 3xTF32
             qe, ke, ve, doe, kve = inputs(len(lens), n_, lens, past)
             _, lse_e, dvec_e, dq_w, dk_w, dv_w = plain(qe, ke, ve, doe, kve)
@@ -5768,6 +5820,15 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             d128_designs_timed("kernel 10 d=128 bf16", out["flash_prefix_lse_d128"]["ms"],
                                lambda: d128_mma(dev, q, k, v, kv, lse=True),
                                out["flash_prefix_lse_d128"], shape="training")
+            # 13 on the backward core beside the mma.sync kernel it replaced
+            d128_designs_timed("kernel 13 d=128 bf16 (library: 11 + 13's backward)",
+                               out["flash_prefix_dkv_d128"]["ms"],
+                               lambda: d128_mma_bwd(dev, 13, *train), out["flash_prefix_dkv_d128"],
+                               shape="training", new_name="the backward core", most=2 / 3)
+        if f:  # 10 on split 3xTF32 beside the FFMA kernel with its lse
+            d128_f32_designs_timed("kernel 10 d=128 fp32", out["flash_prefix_lse_f32_d128"]["ms"],
+                                   lambda: d128_ffma(dev, q, k, v, kv, lse=True),
+                                   out["flash_prefix_lse_f32_d128"], shape="training")
         if f:  # 11, 12 and 13 on split 3xTF32 beside the FFMA kernels they replaced
             for base, form, old in (
                     ("flash_prefix_dq_lsein", 11, lambda: d128_ffma_bwd(dev, 11, *train)),

@@ -1,5 +1,7 @@
 // The bf16 attention backward core for Hopper: kernel 13 (dk and dv of
-// prefix attention) at head dim 64, on TMA, mbarriers and wgmma (hopper.cuh).
+// prefix attention) at head dim 64, on TMA, mbarriers and wgmma (hopper.cuh);
+// its D = 128 form, attn_dkv_d128_wgmma_kernel, is built from these pieces in
+// flash_prefix_bwd_core_d128.cu.
 //
 // The function is the TPU kernel's (korean_f5_tts_tpu/ops/flash_prefix.py:
 // _flash_prefix_dkv -> _kernel_dkv, with cast=True): folded heads q, k, v, dO,

@@ -85,13 +85,15 @@
 // ops/flash_prefix.py:rope_reference on fp32 to the bit), so that 18, 19
 // and A's form on torch-roped inputs agree to the bit.
 //
-// d = 128: kernels A and 18 (f5_flash_prefix_f32_fwd,
-// f5_flash_prefix_rope_d128_fwd) on this design carried to twice the width
-// (flash_prefix_tf32_d128.cu: the d = 64 layout's hi and lo tiles would
-// take 270 KB at 128 queries; its note gives the tiling that fits and the
-// one it was timed against); kernel 10 (f5_flash_prefix_f32_fwd_lse) on
-// plain FFMA (flash_prefix_d128.cu: flash_prefix_f32_kernel, bounded by the
-// 67 TFLOP/s of fp32 outside the tensor cores).
+// d = 128: kernels A, 10 and 18 (f5_flash_prefix_f32_fwd,
+// f5_flash_prefix_f32_fwd_lse, f5_flash_prefix_rope_d128_fwd) on this design
+// carried to twice the width (flash_prefix_tf32_d128.cu: the d = 64 layout's
+// hi and lo tiles would take 270 KB at 128 queries; its note gives the
+// tiling that fits and the one it was timed against), 10 as its kLse
+// instantiation. The FFMA kernel they replaced (flash_prefix_d128.cu:
+// flash_prefix_f32_kernel, bounded by the 67 TFLOP/s of fp32 outside the
+// tensor cores) serves no path: f5_flash_prefix_f32_d128_fwd_ffma keeps it
+// for timing.
 #include "attn_tf32.cuh"
 #include "attn_wgmma.cuh"
 #include "flash_prefix.cuh"
@@ -298,8 +300,8 @@ extern "C" int f5_flash_prefix_f32_fwd(const void* q, const void* k, const void*
     return (int)f5::launch_fwd_tf32<false, false>(q, k, v, kv_lens, out, nullptr, H, n,
                                                   scale_log2, f5::F32Heads{}, s);
   if (d == 128)
-    return (int)f5::d128::tf32(q, k, v, kv_lens, nullptr, nullptr, out, H, 1, n, 0, scale_log2,
-                               s);
+    return (int)f5::d128::tf32(q, k, v, kv_lens, nullptr, nullptr, out, nullptr, H, 1, n, 0,
+                               scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -312,7 +314,9 @@ extern "C" int f5_flash_prefix_f32_fwd_lse(const void* q, const void* k, const v
   if (err != cudaSuccess) return (int)err;
   if (!attn_dims_ok(H, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128) return (int)f5::d128::fwd(q, k, v, kv_lens, out, lse, H, n, scale_log2, true, s);
+  if (d == 128)
+    return (int)f5::d128::tf32(q, k, v, kv_lens, nullptr, nullptr, out, lse, H, 1, n, 0,
+                               scale_log2, s);
   if (d != 64) return (int)cudaErrorInvalidValue;
   return (int)f5::launch_fwd_tf32<true, false>(q, k, v, kv_lens, out, lse, H, n, scale_log2,
                                                f5::F32Heads{}, s);

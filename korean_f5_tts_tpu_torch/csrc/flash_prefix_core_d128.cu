@@ -7,10 +7,10 @@
 // dispatch takes at d in (64, 128) (ops/attention.py:260, :296). Their entry
 // points are f5_flash_prefix_fwd (flash_prefix.cu), f5_flash_prefix_fwd_lse
 // (flash_prefix_train.cu) at d = 128 and f5_flash_prefix_rope_d128_fwd
-// (flash_prefix_d128.cu) on bf16 operands; the fp32 forms of A and 18 run
-// on the split 3xTF32 kernel of flash_prefix_tf32_d128.cu, 10's and 11-13
-// stay in flash_prefix_d128.cu, and f5_flash_prefix_d128_fwd_mma runs A, 10
-// and 18 on the mma.sync loop this core replaced. A source of its own, so
+// (flash_prefix_d128.cu) on bf16 operands; the fp32 forms of A, 10 and 18
+// run on the split 3xTF32 kernel of flash_prefix_tf32_d128.cu, and
+// f5_flash_prefix_d128_fwd_mma runs A, 10 and 18 on the mma.sync loop this
+// core replaced. A source of its own, so
 // that nvcc builds the core's three instantiations beside the others.
 //
 // The key tile: 18 must equal A on roped inputs to the bit, so both run one.

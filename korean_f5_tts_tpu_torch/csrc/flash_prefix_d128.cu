@@ -27,10 +27,12 @@
 // memory.
 //
 // bf16: A, 10 and 18 run on the TMA + wgmma attention core's D = 128 form
-// (attn_wgmma.cuh, flash_prefix_core_d128.cu: d128::core); the others on the
-// first port's mma.sync building blocks (flash_prefix.cuh), a block of 128
-// threads over 64 rows, each warp 16 of them, shared tiles [64][136] bf16
-// (17 KB each, four a block):
+// (attn_wgmma.cuh, flash_prefix_core_d128.cu: d128::core), 13 on the
+// attention backward core's D = 128 form (flash_prefix_bwd_core_d128.cu:
+// d128::core_dkv, on attn_bwd_wgmma.cuh's pieces); 11 and 12 on the first
+// port's mma.sync building blocks (flash_prefix.cuh), a block of 128 threads
+// over 64 rows, each warp 16 of them, shared tiles [64][136] bf16 (17 KB
+// each, four a block), as 13 did before the core:
 //   A, 10, 18  flash_prefix_fwd_kernel<128, kLse, kRope>: q held as A
 //              fragments, 64-key K/V tiles loaded synchronously, S and P.V
 //              on mma.sync m16n8k16 with P re-packed in registers; kRope (18)
@@ -48,7 +50,8 @@
 //              denominator instead of the lse, rescales dq on each max
 //              update, divides by l at the end (dS is linear in P) and writes
 //              the lse it ends with.
-//   13         flash_prefix_dkv_d128_kernel: a block per (head, 64 keys), K
+//   13         (kept for timing: f5_flash_prefix_d128_bwd_mma)
+//              flash_prefix_dkv_d128_kernel: a block per (head, 64 keys), K
 //              and V resident, 64-query tiles of Q, dO, lse and D streamed;
 //              S^T and dP^T by mma_abt_s, dV += P^T.dO and dK += dS^T.Q by
 //              mma_pb; every query row is walked (rows past n get lse +inf:
@@ -57,24 +60,22 @@
 // P and dS are rounded to bf16 for their products (the row sums use fp32
 // P), as in the d = 64 forms.
 //
-// fp32 ("the exact f32 dot" of the TPU kernels on fp32 inputs): A and 18 run
-// on split 3xTF32 products on the tensor cores (flash_prefix_tf32_d128.cu:
+// fp32 ("the exact f32 dot" of the TPU kernels on fp32 inputs): A, 10 and 18
+// run on split 3xTF32 products on the tensor cores (flash_prefix_tf32_d128.cu:
 // d128::tf32), and so do 11, 12 and 13 (flash_prefix_train_tf32_d128.cu:
-// d128::tf32_dq, d128::tf32_dkv); 10 runs on plain FFMA here, and the FFMA
-// kernels of A, 18 and 11-13 are kept, served by no path, for chip_smoke.py's
-// timing of the 3xTF32 kernels (f5_flash_prefix_f32_d128_fwd_ffma,
-// f5_flash_prefix_f32_d128_bwd_ffma). FFMA: a 256-thread block over 64 rows,
+// d128::tf32_dq, d128::tf32_dkv); the FFMA kernels of A, 10, 18 and 11-13 are
+// kept, served by no path, for chip_smoke.py's timing of the 3xTF32 kernels
+// (f5_flash_prefix_f32_d128_fwd_ffma, f5_flash_prefix_f32_d128_bwd_ffma).
+// FFMA: a 256-thread block over 64 rows,
 // thread (ty, tx) of a 16 x 16 grid owning rows 4 ty .. 4 ty + 3, score
 // columns 4 tx .. and output columns 4 tx .. and 64 + 4 tx ..; the operands
 // of the products over d transposed into [d][row] tiles (row stride 68
 // floats) so the inner loops read float4; P, dS through shared memory
 // between a product and the next:
-//   10 (A, 18) flash_prefix_f32_kernel<kLse, kRope>: q and each K tile
-//              transposed, V row-major, the online softmax per tile; kRope
-//              rotates in fp32 by the fp32 tables, each product and the sum
-//              rounded once. Its instantiations without lse (A, and 18 with
-//              kRope) serve no path: f5_flash_prefix_f32_d128_fwd_ffma keeps
-//              them for chip_smoke.py's timing of the 3xTF32 kernel.
+//   A, 10, 18  (kept for timing) flash_prefix_f32_kernel<kLse, kRope>: q and
+//              each K tile transposed, V row-major, the online softmax per
+//              tile; kRope rotates in fp32 by the fp32 tables, each product
+//              and the sum rounded once.
 //   11, 12     (kept for timing) flash_prefix_dq_f32_d128_kernel<kOnline>: q and dO
 //              transposed and resident, each key tile transposed (K, V) and
 //              K row-major for dq += dS.K (185 KB of shared memory).
@@ -821,6 +822,25 @@ int kept_fwd(const void* q, const void* k, const void* v, const void* kv_lens, c
                                  scale_log2, f32, s);
 }
 
+// kernels 11 (form 11: lse read, out0 = dq), 12 (form 12: out0 = dq, out1 =
+// the lse written) and 13 (form 13: lse read, out0 = dk, out1 = dv) at d =
+// 128 on the mma.sync kernels (bf16) or the FFMA kernels (fp32)
+int kept_bwd(const void* q, const void* k, const void* v, const void* dout, const void* dvec,
+             const void* lse, const void* kv_lens, void* out0, void* out1, int H, int n, int form,
+             float scale_log2, float sm_scale, bool f32, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (H <= 0 || n <= 0 || H > 65535 || (form != 11 && form != 12 && form != 13))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 13)
+    return (int)f5::d128::dkv(q, k, v, dout, dvec, lse, kv_lens, out0, out1, H, n, scale_log2,
+                              sm_scale, f32, s);
+  return (int)f5::d128::dq(q, k, v, dout, dvec, form == 11 ? lse : nullptr, kv_lens, out0,
+                           form == 12 ? out1 : nullptr, H, n, scale_log2, sm_scale, form == 12,
+                           f32, s);
+}
+
 }  // namespace
 
 // kernel 18 at d = 128: q, k, v, out [B, heads, n, 128] contiguous, bf16 (f32
@@ -838,8 +858,8 @@ extern "C" int f5_flash_prefix_rope_d128_fwd(const void* q, const void* k, const
   if (!d128_dims_ok(B, heads, n)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32)
-    return (int)f5::d128::tf32(q, k, v, kv_lens, cos, sin, out, B * heads, heads, n, n_rope,
-                               scale_log2, s);
+    return (int)f5::d128::tf32(q, k, v, kv_lens, cos, sin, out, nullptr, B * heads, heads, n,
+                               n_rope, scale_log2, s);
   return (int)f5::d128::core(q, k, v, kv_lens, cos, sin, out, nullptr, B * heads, heads, n,
                              n_rope, scale_log2, s);
 }
@@ -856,16 +876,29 @@ extern "C" int f5_flash_prefix_d128_fwd_mma(const void* q, const void* k, const 
                   device, stream);
 }
 
-// kernels A and 18 at d = 128 in fp32 on the FFMA kernel that the split
-// 3xTF32 kernel replaced (kept_fwd, without lse: 10 fp32 runs there on its
-// own path; cos, sin [n, 64] fp32)
+// kernels A, 10 (lse written) and 18 at d = 128 in fp32 on the FFMA kernel
+// that the split 3xTF32 kernel replaced (kept_fwd; cos, sin [n, 64] fp32)
 extern "C" int f5_flash_prefix_f32_d128_fwd_ffma(const void* q, const void* k, const void* v,
                                                  const void* kv_lens, const void* cos,
-                                                 const void* sin, void* out, int B, int heads,
-                                                 int n, int n_rope, float scale_log2, int device,
-                                                 void* stream) {
-  return kept_fwd(q, k, v, kv_lens, cos, sin, out, nullptr, B, heads, n, n_rope, scale_log2, true,
+                                                 const void* sin, void* out, void* lse, int B,
+                                                 int heads, int n, int n_rope, float scale_log2,
+                                                 int device, void* stream) {
+  return kept_fwd(q, k, v, kv_lens, cos, sin, out, lse, B, heads, n, n_rope, scale_log2, true,
                   device, stream);
+}
+
+// kernel 13 at d = 128 in bf16 (form 13) on the mma.sync kernel that the
+// attention backward core replaced (chip_smoke.py times the designs against
+// each other, no path calls it); forms 11 and 12 run the mma.sync kernel
+// that f5_flash_prefix_dq_lsein and f5_flash_prefix_dq take at d = 128 in
+// bf16. Arguments as f5_flash_prefix_f32_d128_bwd_ffma's.
+extern "C" int f5_flash_prefix_d128_bwd_mma(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* dvec, const void* lse,
+                                            const void* kv_lens, void* out0, void* out1, int H,
+                                            int n, int form, float scale_log2, float sm_scale,
+                                            int device, void* stream) {
+  return kept_bwd(q, k, v, dout, dvec, lse, kv_lens, out0, out1, H, n, form, scale_log2,
+                  sm_scale, false, device, stream);
 }
 
 // kernels 11 (form 11: lse read, out0 = dq), 12 (form 12: out0 = dq, out1 =
@@ -878,15 +911,6 @@ extern "C" int f5_flash_prefix_f32_d128_bwd_ffma(const void* q, const void* k, c
                                                  void* out1, int H, int n, int form,
                                                  float scale_log2, float sm_scale, int device,
                                                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (H <= 0 || n <= 0 || H > 65535 || (form != 11 && form != 12 && form != 13))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (form == 13)
-    return (int)f5::d128::dkv(q, k, v, dout, dvec, lse, kv_lens, out0, out1, H, n, scale_log2,
-                              sm_scale, true, s);
-  return (int)f5::d128::dq(q, k, v, dout, dvec, form == 11 ? lse : nullptr, kv_lens, out0,
-                           form == 12 ? out1 : nullptr, H, n, scale_log2, sm_scale, form == 12,
-                           true, s);
+  return kept_bwd(q, k, v, dout, dvec, lse, kv_lens, out0, out1, H, n, form, scale_log2,
+                  sm_scale, true, device, stream);
 }

@@ -1,24 +1,33 @@
-// Kernels A and 18 at head dim 128 on fp32 operands, for Hopper (sm_90a):
-// split 3xTF32 products on the tensor cores.
+// Kernels A, 10 and 18 at head dim 128 on fp32 operands, for Hopper
+// (sm_90a): split 3xTF32 products on the tensor cores.
 //
 // Replaces, on fp32 inputs at d = 128, the TPU kernels
 // korean_f5_tts_tpu/ops/flash_prefix.py:_flash_prefix_folded ->
-// _kernel_nomax_hn (A) and _flash_prefix_rope_call -> _kernel_rope (18),
-// which the JAX dispatch takes at d in (64, 128) (ops/attention.py:260,
-// :296) and which keep "the exact f32 dot" on fp32 inputs. The function is
-// that of the d = 64 fp32 forms (flash_prefix.cu): folded heads q, k, v, out
-// [H, n, 128] fp32 (18: the contiguous split heads [B, heads, n, 128] as
-// [B * heads, n, 128], kv_lens per item, q and k of the heads g < n_rope
-// rotated in fp32 by the fp32 tables cos, sin [n, 64], partners c and c +
-// 64, each product and the sum rounded once: ops/flash_prefix.py:
-// rope_reference on fp32 to the bit, so that 18 equals A on roped inputs to
-// the bit); keys at or past kv_len get P = 0, the sweep stops at ceil(kv_len
-// / tile), rows past n are zero-filled and never stored, a head with kv_len
-// 0 gives zeros. Entry points: f5_flash_prefix_f32_fwd at d = 128
+// _kernel_nomax_hn (A), _flash_prefix_folded_lse -> _kernel_lse (10) and
+// _flash_prefix_rope_call -> _kernel_rope (18), which the JAX dispatch takes
+// at d in (64, 128) (ops/attention.py:260, :296) and which keep "the exact
+// f32 dot" on fp32 inputs. The function is that of the d = 64 fp32 forms
+// (flash_prefix.cu): folded heads q, k, v, out [H, n, 128] fp32 (18: the
+// contiguous split heads [B, heads, n, 128] as [B * heads, n, 128], kv_lens
+// per item, q and k of the heads g < n_rope rotated in fp32 by the fp32
+// tables cos, sin [n, 64], partners c and c + 64, each product and the sum
+// rounded once: ops/flash_prefix.py:rope_reference on fp32 to the bit, so
+// that 18 equals A on roped inputs to the bit); keys at or past kv_len get P
+// = 0, the sweep stops at ceil(kv_len / tile), rows past n are zero-filled
+// and never stored, a head with kv_len 0 gives zeros. Entry points:
+// f5_flash_prefix_f32_fwd and f5_flash_prefix_f32_fwd_lse at d = 128
 // (flash_prefix.cu) and f5_flash_prefix_rope_d128_fwd with f32
-// (flash_prefix_d128.cu), through d128::tf32. Kernel 10's fp32 form stays on
-// FFMA (flash_prefix_d128.cu), and f5_flash_prefix_f32_d128_fwd_ffma runs A
-// and 18 on the FFMA kernel this one replaced, for timing.
+// (flash_prefix_d128.cu), through d128::tf32. f5_flash_prefix_f32_d128_fwd_ffma
+// runs A, 10 and 18 on the FFMA kernel this one replaced, for timing.
+//
+// Kernel 10 is the kLse instantiation: after the sweep each row's base-2
+// logsumexp lse = m + log2(l) of the scores pre-scaled by scale_log2 is
+// written by lane t == 0 of the row's quad (l_run is already the quad's sum),
+// 0 for a row with no valid key (whose o is 0); a row past n is not stored.
+// It reuses m_run and l_run after the loop: nothing changes in the loop and
+// no shared memory is added, so 10's o is A's to the bit. At the training
+// shape (H 64, n 1280, every key valid) 10 is 53.7 GFLOP, 0.326 ms at the
+// 3xTF32 rate; the grid is 10 x 64 = 640 blocks, 4.85 waves on 132 SMs.
 //
 // What bounds it: at the serving shape (16 folded heads, n 1536, 1376 keys)
 // 17.3 GFLOP of fp32-accurate products, 0.105 ms at the tensor cores' TF32
@@ -133,14 +142,16 @@ __device__ __forceinline__ void t128_fold_pv(float (&o)[16][4], const float (&p)
 
 // warp w owns queries q0 + 16w .. + 15; lane (g, t) holds rows 16w + g and
 // 16w + g + 8, columns 8j + 2t, 8j + 2t + 1 of S and of o. kRope: block y =
-// item * heads + g, kv_lens per item, heads g < n_rope rotate.
-template <bool kRope>
+// item * heads + g, kv_lens per item, heads g < n_rope rotate. kLse (kernel
+// 10, without kRope): also lse [H, n] fp32.
+template <bool kRope, bool kLse>
 __global__ void __launch_bounds__(kTThreads, 1)
 flash_prefix_tf32_d128_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const int* __restrict__ kv_lens,
-                              float* __restrict__ out, int n, float scale_log2, int heads,
-                              int n_rope, const float* __restrict__ cos,
-                              const float* __restrict__ sin) {
+                              float* __restrict__ out, float* __restrict__ lse, int n,
+                              float scale_log2, int heads, int n_rope,
+                              const float* __restrict__ cos, const float* __restrict__ sin) {
+  static_assert(!(kRope && kLse), "the lse form is kernel 10's, without rope");
   constexpr int NT = kTKeys / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* sQh = reinterpret_cast<uint32_t*>(smem_raw);  // [128][132] each
@@ -200,6 +211,8 @@ flash_prefix_tf32_d128_kernel(const float* __restrict__ q, const float* __restri
     const int row = q0 + wr + g + 8 * h;
     if (row >= n) continue;
     const float inv = l_run[h] > 0.f ? 1.f / l_run[h] : 0.f;  // kv_len == 0: zeros
+    if (kLse && t == 0)  // base 2, of the scaled scores; 0 for a row with no valid key
+      lse[(size_t)head * n + row] = l_run[h] > 0.f ? m_run[h] + log2f(l_run[h]) : 0.f;
 #pragma unroll
     for (int nd = 0; nd < 16; ++nd)
       *reinterpret_cast<float2*>(dst + (size_t)row * kTD + nd * 8 + 2 * t) =
@@ -207,18 +220,20 @@ flash_prefix_tf32_d128_kernel(const float* __restrict__ q, const float* __restri
   }
 }
 
-template <bool kRope>
+template <bool kRope, bool kLse>
 cudaError_t launch_tf32_d128(const void* q, const void* k, const void* v, const void* kv_lens,
-                             const void* cos, const void* sin, void* out, int H, int heads,
-                             int n, int n_rope, float scale_log2, cudaStream_t stream) {
+                             const void* cos, const void* sin, void* out, void* lse, int H,
+                             int heads, int n, int n_rope, float scale_log2,
+                             cudaStream_t stream) {
   static std::atomic<bool> ready[kMaxDevices];
-  const cudaError_t err = allow_smem(flash_prefix_tf32_d128_kernel<kRope>, kTSmem, ready);
+  const cudaError_t err =
+      allow_smem(flash_prefix_tf32_d128_kernel<kRope, kLse>, kTSmem, ready);
   if (err != cudaSuccess) return err;
-  flash_prefix_tf32_d128_kernel<kRope>
+  flash_prefix_tf32_d128_kernel<kRope, kLse>
       <<<dim3((n + kTRows - 1) / kTRows, H), kTThreads, kTSmem, stream>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<const int*>(kv_lens),
-          static_cast<float*>(out), n, scale_log2, heads, n_rope,
+          static_cast<float*>(out), static_cast<float*>(lse), n, scale_log2, heads, n_rope,
           static_cast<const float*>(cos), static_cast<const float*>(sin));
   return cudaGetLastError();
 }
@@ -228,14 +243,16 @@ cudaError_t launch_tf32_d128(const void* q, const void* k, const void* v, const 
 namespace d128 {
 
 cudaError_t tf32(const void* q, const void* k, const void* v, const void* kv_lens,
-                 const void* cos, const void* sin, void* out, int H, int heads, int n,
-                 int n_rope, float scale_log2, cudaStream_t stream) {
+                 const void* cos, const void* sin, void* out, void* lse, int H, int heads,
+                 int n, int n_rope, float scale_log2, cudaStream_t stream) {
   if (cos == nullptr)
-    return launch_tf32_d128<false>(q, k, v, kv_lens, nullptr, nullptr, out, H, 1, n, 0,
-                                   scale_log2, stream);
-  if (heads <= 0 || H % heads != 0) return cudaErrorInvalidValue;
-  return launch_tf32_d128<true>(q, k, v, kv_lens, cos, sin, out, H, heads, n, n_rope, scale_log2,
-                                stream);
+    return lse ? launch_tf32_d128<false, true>(q, k, v, kv_lens, nullptr, nullptr, out, lse, H,
+                                               1, n, 0, scale_log2, stream)
+               : launch_tf32_d128<false, false>(q, k, v, kv_lens, nullptr, nullptr, out,
+                                                nullptr, H, 1, n, 0, scale_log2, stream);
+  if (lse != nullptr || heads <= 0 || H % heads != 0) return cudaErrorInvalidValue;
+  return launch_tf32_d128<true, false>(q, k, v, kv_lens, cos, sin, out, nullptr, H, heads, n,
+                                       n_rope, scale_log2, stream);
 }
 
 }  // namespace d128

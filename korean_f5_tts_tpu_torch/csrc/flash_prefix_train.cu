@@ -37,10 +37,14 @@
 //     products on the tensor cores.
 //   - D = 128: 10 in bf16 on the attention core's D = 128 form
 //     (attn_wgmma.cuh: attn_fwd_d128_wgmma_kernel<true, false>, through
-//     flash_prefix_core_d128.cu); 11, 12, 13 in bf16 and 10-13 in fp32 in
-//     flash_prefix_d128.cu, on the first port's mma.sync building blocks
-//     (flash_prefix.cuh) in bf16 and FFMA in fp32; the entry points below
-//     hand a d = 128 call there.
+//     flash_prefix_core_d128.cu); 13 in bf16 on the backward core's D = 128
+//     form (flash_prefix_bwd_core_d128.cu: attn_dkv_d128_wgmma_kernel, built
+//     from attn_bwd_wgmma.cuh's pieces); 11 and 12 in bf16 on the first port's
+//     mma.sync building blocks (flash_prefix.cuh, in flash_prefix_d128.cu);
+//     10-13 in fp32 on split 3xTF32 (flash_prefix_tf32_d128.cu,
+//     flash_prefix_train_tf32_d128.cu, through flash_prefix.cu and
+//     flash_prefix_train_f32.cu); the entry points below hand a d = 128
+//     call there.
 // Rows past n are zero-filled on load and never stored; a row with no valid
 // key gets lse 0 and zero gradients.
 //
@@ -114,8 +118,8 @@ extern "C" int f5_flash_prefix_dkv(const void* q, const void* k, const void* v,
                                    float scale_log2, float sm_scale, int device, void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
   if (d == 128)
-    return (int)f5::d128::dkv(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n, scale_log2,
-                              sm_scale, false, static_cast<cudaStream_t>(stream));
+    return (int)f5::d128::core_dkv(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n, scale_log2,
+                                   sm_scale, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_attn_dkv_wgmma(q, k, v, dout, dvec, lse, kv_lens, dk, dv, H, n,
                                         scale_log2, sm_scale, static_cast<cudaStream_t>(stream));
 }

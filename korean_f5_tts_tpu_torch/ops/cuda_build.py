@@ -109,14 +109,15 @@ _SIGNATURES = {
     # in bf16 on the mma.sync loop the attention core replaced: q, k, v, kv_lens, cos,
     # sin, out, lse, B, heads, n, n_rope, scale_log2, device, stream
     "f5_flash_prefix_d128_fwd_mma": (_P,) * 8 + (_I, _I, _I, _I, _F, _I, _P),
-    # A (cos, sin null; heads 1) or 18 at d = 128 in fp32 on the FFMA kernel the split
-    # 3xTF32 kernel replaced: q, k, v, kv_lens, cos, sin, out, B, heads, n, n_rope,
-    # scale_log2, device, stream
-    "f5_flash_prefix_f32_d128_fwd_ffma": (_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P),
+    # A (cos, sin, lse null; heads 1), 10 (cos, sin null) or 18 (lse null) at d = 128 in
+    # fp32 on the FFMA kernel the split 3xTF32 kernel replaced: arguments as above
+    "f5_flash_prefix_f32_d128_fwd_ffma": (_P,) * 8 + (_I, _I, _I, _I, _F, _I, _P),
     # 11 (form 11), 12 (form 12) or 13 (form 13) at d = 128 in fp32 on the FFMA kernels
     # the split 3xTF32 kernels replaced: q, k, v, dO, dvec, lse, kv_lens, out0 (dq or
     # dk), out1 (12's lse or dv), H, n, form, scale_log2, sm_scale, device, stream
     "f5_flash_prefix_f32_d128_bwd_ffma": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
+    # the same forms in bf16 on the mma.sync kernels (13's replaced by the backward core)
+    "f5_flash_prefix_d128_bwd_mma": (_P,) * 9 + (_I, _I, _I, _F, _F, _I, _P),
     # qkv, kv_lens, cos, sin, out, B, heads, n, n_rope, scale_log2, device, stream
     "f5_flash_prefix_qkv_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),
     "f5_flash_prefix_qkv_f32_fwd": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _P),

@@ -52,12 +52,13 @@ A, 10-14, 14's pass and 18 take d = 64 and d = 128 (KERNEL_HEAD_DIMS, the
 JAX kernels' `d in (64, 128)`); 19 takes dh = 64 only, as the JAX kernel
 (flash_prefix.py:1632, `2 * dh == LANES`). At d = 128 A, 10 and 18 in bf16
 run on the attention core's d = 128 form (csrc/attn_wgmma.cuh, through
-csrc/flash_prefix_core_d128.cu), A and 18 in fp32 on split 3xTF32 products
+csrc/flash_prefix_core_d128.cu), 13 in bf16 on the attention backward
+core's (csrc/flash_prefix_bwd_core_d128.cu, on csrc/attn_bwd_wgmma.cuh),
+A, 10 and 18 in fp32 on split 3xTF32 products
 (csrc/flash_prefix_tf32_d128.cu), 11-13 in fp32 on split 3xTF32 products too
-(csrc/flash_prefix_train_tf32_d128.cu), the other forms in
-csrc/flash_prefix_d128.cu (11-13: mma.sync in bf16; 10: FFMA in fp32) and
-csrc/flash_prefix_int8_d128.cu (14), each with its own counter
-(`launches_*_d128`). Which head dims reach a kernel at all is the dispatch's
+(csrc/flash_prefix_train_tf32_d128.cu), 11 and 12 in bf16 on mma.sync in
+csrc/flash_prefix_d128.cu, and 14 in csrc/flash_prefix_int8_d128.cu, each
+with its own counter (`launches_*_d128`). Which head dims reach a kernel at all is the dispatch's
 choice (ops/attention.py:ATTENTION_KERNEL_DIMS); a wrapper given another d
 on a CUDA tensor raises.
 flash_prefix_attention takes the autograd Function (kernel 10 forward,
@@ -104,8 +105,10 @@ launches_i8_qk_f32 = 0
 launches_i8_quant_f32 = 0
 launches_rope_f32 = 0
 launches_qkv_f32 = 0
-# the d = 128 forms (csrc/attn_wgmma.cuh, csrc/flash_prefix_d128.cu,
-# csrc/flash_prefix_int8_d128.cu, csrc/quant_heads.cu at d = 128), bf16 and
+# the d = 128 forms (csrc/attn_wgmma.cuh, csrc/flash_prefix_bwd_core_d128.cu,
+# csrc/flash_prefix_tf32_d128.cu, csrc/flash_prefix_train_tf32_d128.cu,
+# csrc/flash_prefix_d128.cu, csrc/flash_prefix_int8_d128.cu,
+# csrc/quant_heads.cu at d = 128), bf16 and
 # fp32, one counter each; 14 at d = 128
 # counts "qkpv" and "qk" on bf16 apart
 launches_d128 = 0
@@ -444,7 +447,7 @@ def _train_dtype(what: str, q, *others) -> bool:
 def flash_prefix_folded_lse(q, k, v, kv_lens):
     """Kernel 10 wrapper: (o [H, n, d] of q's dtype, lse [H, n] fp32); bf16
     operands on the attention core at both head dims, fp32 ones on kernel
-    A's split 3xTF32 kernel at d = 64 and on FFMA at d = 128."""
+    A's split 3xTF32 kernel at both (its lse form)."""
     if q.device.type == "cpu":
         return prefix_attention_lse_reference(q, k, v, kv_lens)
     f32 = _train_dtype("flash_prefix_lse", q, k, v)
@@ -502,7 +505,8 @@ def flash_prefix_dq(q, k, v, do, dvec, kv_lens):
 
 
 def flash_prefix_dkv(q, k, v, do, dvec, lse, kv_lens):
-    """Kernel 13 wrapper: (dk, dv) [H, n, d]."""
+    """Kernel 13 wrapper: (dk, dv) [H, n, d]; bf16 operands on the attention
+    backward core at both head dims, fp32 ones on split 3xTF32."""
     if q.device.type == "cpu":
         return flash_prefix_dkv_reference(q, k, v, do, dvec, lse, kv_lens)
     f32 = _train_dtype("flash_prefix_dkv", q, k, v, do)

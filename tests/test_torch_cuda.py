@@ -1729,21 +1729,54 @@ def _d128_mma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0, lse=False
     return (out, lse_t) if lse else out
 
 
-def _d128_ffma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0):
-    """Kernel A (cos None; q, k, v [H, n, 128], kv [H]) or 18 (q, k, v [B,
-    heads, n, 128], kv [B], cos, sin [n, 64] fp32) in fp32 at d = 128 on the
-    FFMA kernel the split 3xTF32 kernel replaced."""
+def _d128_ffma(dev, q, k, v, kv, cos=None, sin=None, heads=1, n_rope=0, lse=False):
+    """Kernel A (cos None; q, k, v [H, n, 128], kv [H]), 10 (lse: (o, lse))
+    or 18 (q, k, v [B, heads, n, 128], kv [B], cos, sin [n, 64] fp32) in
+    fp32 at d = 128 on the FFMA kernel the split 3xTF32 kernel replaced."""
     from korean_f5_tts_tpu_torch.ops import cuda_build
 
     lib, stream = cuda_build.library(), torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)
+    lse_t = torch.empty(q.shape[:2], dtype=torch.float32, device=dev) if lse else None
     err = lib.f5_flash_prefix_f32_d128_fwd_ffma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
         None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
-        out.data_ptr(), q.shape[0], heads, q.shape[-2], n_rope, flash_prefix.LOG2E / 128 ** 0.5,
-        dev.index, stream)
+        out.data_ptr(), None if lse_t is None else lse_t.data_ptr(), q.shape[0], heads,
+        q.shape[-2], n_rope, flash_prefix.LOG2E / 128 ** 0.5, dev.index, stream)
     cuda_build.check(err, "f5_flash_prefix_f32_d128_fwd_ffma")
-    return out
+    return (out, lse_t) if lse else out
+
+
+@pytest.mark.parametrize("H,n,lens,past", [
+    (5, 129, [0, 31, 32, 33, 129], 1e4),   # the 32-key tile's edges, keys past kv_len at +-1e4
+    (5, 1537, [1537, 33, 32, 31, 1], 1e4),
+    (2, 1, [1, 0], None),
+    (64, 1280, [1280] * 64, None),         # the training shape
+])
+def test_fp32_training_forward_at_head_dim_128_on_split_3xtf32(dev, H, n, lens, past):
+    """Kernel 10 in fp32 at d = 128 on the split 3xTF32 kernel's lse form:
+    o and lse within 1e-5 of the plain version and of the FFMA kernel it
+    replaced; its o is kernel A's to the bit (one kernel, the lse only
+    added); a head with kv_len 0 gives zeros and lse 0."""
+    gen = torch.Generator(device=dev).manual_seed(1011 + n)
+    q, k, v = (torch.randn((H, n, 128), generator=gen, device=dev) for _ in range(3))
+    for h, length in enumerate(lens if past else ()):
+        k[h, length:] = past * q[h].mean(0).sign()
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = flash_prefix.launches_lse_f32_d128
+    o, lse = flash_prefix.flash_prefix_folded_lse(q, k, v, kv)
+    assert flash_prefix.launches_lse_f32_d128 == before + 1
+    oa = flash_prefix.flash_prefix_folded(q, k, v, kv)
+    o_f, lse_f = _d128_ffma(dev, q, k, v, kv, lse=True)
+    o_p, lse_p = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+    torch.cuda.synchronize(dev)
+    torch.testing.assert_close(o, oa, rtol=0, atol=0)
+    live = [h for h, length in enumerate(lens) if length > 0]
+    for got, want in ((o, o_p), (lse, lse_p), (o_f, o_p), (lse_f, lse_p)):
+        assert torch.isfinite(got).all() and _rel(got[live], want[live]) <= 1e-5
+    for h, length in enumerate(lens):
+        if length == 0:
+            assert o[h].abs().max().item() == 0 and lse[h].abs().max().item() == 0
 
 
 @pytest.mark.parametrize("H,n,lens", [
@@ -1833,6 +1866,57 @@ def _d128_ffma_bwd(dev, form, q, k, v, do, dvec, lse, kv):
         128 ** -0.5, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "f5_flash_prefix_f32_d128_bwd_ffma")
     return out0 if out1 is None else (out0, out1)
+
+
+def _d128_mma_bwd(dev, q, k, v, do, dvec, lse, kv):
+    """Kernel 13 in bf16 at d = 128 on the mma.sync kernel the attention
+    backward core replaced: (dk, dv)."""
+    from korean_f5_tts_tpu_torch.ops import cuda_build
+
+    H, n = q.shape[:2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = cuda_build.library().f5_flash_prefix_d128_bwd_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(), lse.data_ptr(),
+        kv.data_ptr(), dk.data_ptr(), dv.data_ptr(), H, n, 13, flash_prefix.LOG2E / 128 ** 0.5,
+        128 ** -0.5, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "f5_flash_prefix_d128_bwd_mma")
+    return dk, dv
+
+
+@pytest.mark.parametrize("n,lens,past", [
+    (100, [1, 63, 64, 65, 100, 0], None),              # the 64-key warpgroups' edges, 0
+    (301, [1, 127, 128, 129, 301], 1e4),               # lse, D rows at no 16-byte boundary
+    (1537, [1537, 0, 1, 700, 1536] * 4 + [1537] * 3, 1e4),  # 23 heads: 299 blocks
+    (1280, [1280] * 8, None),                          # the training length
+])
+def test_dkv_at_head_dim_128_on_the_attention_backward_core(dev, n, lens, past):
+    """Kernel 13 in bf16 at d = 128 on the TMA + wgmma backward core against
+    the plain version and the mma.sync kernel it replaced (dk, dv within
+    1e-2); keys past kv_len at +-1e4 get no gradient; a head with kv_len 0
+    gives zeros."""
+    gen = torch.Generator(device=dev).manual_seed(1313 + n)
+    H = len(lens)
+    q, k, v, do = (torch.randn((H, n, 128), generator=gen, device=dev) for _ in range(4))
+    for h, length in enumerate(lens if past else ()):
+        k[h, length:] = past * q[h].mean(0).sign()
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    o, lse = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+    o[kv == 0] = 0
+    dvec = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, dvec, lse, kv)
+    dk_p, dv_p = flash_prefix.flash_prefix_dkv_reference(*args)
+    before = flash_prefix.launches_dkv_d128
+    dk, dv = flash_prefix.flash_prefix_dkv(*args)
+    assert flash_prefix.launches_dkv_d128 == before + 1
+    mdk, mdv = _d128_mma_bwd(dev, *args)
+    torch.cuda.synchronize(dev)
+    for got, want in ((dk, dk_p), (dv, dv_p), (mdk, dk_p), (mdv, dv_p)):
+        _close(got, want)
+        assert _rel(got, want) <= 1e-2
+    for h, length in enumerate(lens):
+        if length < n:  # keys at or past kv_len get no gradient
+            assert dk[h, length:].abs().max().item() == 0 == dv[h, length:].abs().max().item()
 
 
 @pytest.mark.parametrize("n,lens,past", [

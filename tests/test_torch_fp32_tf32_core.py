@@ -169,9 +169,10 @@ def forward_tf32_d128(q, k, v, kv_len, one=False):
     [rows][132]; S (16 x 32 a warp) by t128_qk over 16 k8 steps, masked,
     scaled, P = exp2(S - m) in place; P.V a 64-column half at a time (t128_pv
     at columns 0 and 64), each half's product of each tile in an accumulator
-    of its own, folded into o as o * alpha + pv; returns o [n, 128] as the
-    kernel stores it. one: a single TF32 product in place of each split one
-    (the control)."""
+    of its own, folded into o as o * alpha + pv; returns o [n, 128] and,
+    as kernel 10's kLse epilogue writes it from the same m and l, lse [n]
+    (m + log2(l), 0 for a row with no valid key). one: a single TF32
+    product in place of each split one (the control)."""
     n = q.shape[0]
     f32 = np.float32
     scale_log2 = f32(LOG2E / math.sqrt(128))
@@ -184,7 +185,7 @@ def forward_tf32_d128(q, k, v, kv_len, one=False):
     kp[:m_], vp[:m_] = k[:m_], v[:m_]
     _, g, tt = _lanes()
     nt = KEYS128 // 8
-    o_rows = np.zeros((128, 128))
+    o_rows, lse_rows = np.zeros((128, 128)), np.zeros(128)
     for w in range(8):
         o = np.zeros((16, 32, 4), f32)
         m = np.full((32, 2), -np.inf, f32)
@@ -208,7 +209,10 @@ def forward_tf32_d128(q, k, v, kv_len, one=False):
                 o[part] = (o[part] * np.repeat(alpha, 2, axis=1)[None] + pv).astype(f32)
         inv = np.where(l > 0, f32(1) / np.where(l > 0, l, 1), 0).astype(f32)
         o_rows[16 * w:16 * w + 16] = from_acc(o * np.repeat(inv, 2, axis=1)[None])
-    return o_rows[:n]
+        lse = np.where(l > 0, m + np.log2(np.where(l > 0, l, 1)), 0).astype(f32)
+        for h in range(2):
+            lse_rows[16 * w + g + 8 * h] = lse[:, h]
+    return o_rows[:n], lse_rows[:n]
 
 
 # (n, kv_len): full, ragged, one key, none, and around the 32-key tile's edge
@@ -217,7 +221,7 @@ def forward_tf32_d128(q, k, v, kv_len, one=False):
 def test_forward_split_holds_fp32_accuracy_at_d128(n, kv_len):
     rng = _rng(140 + n + kv_len)
     q, k, v = (rng.standard_normal((n, 128)).astype(np.float32) for _ in range(3))
-    o = forward_tf32_d128(q, k, v, kv_len)
+    o, _ = forward_tf32_d128(q, k, v, kv_len)
     o64, _ = attention_fp64(q, k, v, kv_len)
     if kv_len == 0:  # the kernels' convention: zeros
         assert not o.any()
@@ -233,8 +237,43 @@ def test_forward_with_one_tf32_product_misses_the_bound_at_d128():
     rng = _rng(147)
     q, k, v = (rng.standard_normal((128, 128)).astype(np.float32) for _ in range(3))
     o64, _ = attention_fp64(q, k, v, 100)
-    assert rel_err(forward_tf32_d128(q, k, v, 100), o64) <= F32_ATTN_REL
-    assert rel_err(forward_tf32_d128(q, k, v, 100, one=True), o64) > F32_ATTN_REL
+    assert rel_err(forward_tf32_d128(q, k, v, 100)[0], o64) <= F32_ATTN_REL
+    assert rel_err(forward_tf32_d128(q, k, v, 100, one=True)[0], o64) > F32_ATTN_REL
+
+
+# kernel 10's fp32 form at d = 128: the split 3xTF32 kernel's kLse epilogue
+# (flash_prefix_tf32_d128.cu) on one block, full, ragged, around the 32-key
+# tile's edge, one key and none
+@pytest.mark.parametrize("n,kv_len", [(128, 128), (100, 77), (128, 31), (128, 32), (100, 33),
+                                      (128, 1), (50, 0)])
+def test_forward_lse_epilogue_holds_fp32_accuracy_at_d128(n, kv_len):
+    rng = _rng(240 + n + kv_len)
+    q, k, v = (rng.standard_normal((n, 128)).astype(np.float32) for _ in range(3))
+    o, lse = forward_tf32_d128(q, k, v, kv_len)
+    o64, lse64 = attention_fp64(q, k, v, kv_len)
+    if kv_len == 0:  # the kernels' convention: zeros and lse 0
+        assert not o.any() and not lse.any()
+        return
+    assert rel_err(lse, lse64) <= F32_ATTN_REL and rel_err(o, o64) <= F32_ATTN_REL
+    # the port's plain version (fp32) computes the same lse
+    want = flash_prefix.prefix_attention_lse_reference(
+        *(torch.from_numpy(x)[None] for x in (q, k, v)), torch.tensor([kv_len]))[1][0]
+    assert rel_err(want.numpy(), lse64) <= 1e-6
+
+
+def test_forward_lse_form_with_one_tf32_product_misses_the_bound_at_d128():
+    """The control of the lse form: with one TF32 product in place of three
+    its o misses F32_ATTN_REL (4e-4 here). Its lse reads ~1e-5 too, about
+    300x the split's, but an lse of ~7 (log2 of 100 keys plus the max)
+    dilutes the scores' error: the o, not the lse, tells the two apart."""
+    rng = _rng(247)
+    q, k, v = (rng.standard_normal((128, 128)).astype(np.float32) for _ in range(3))
+    o64, lse64 = attention_fp64(q, k, v, 100)
+    o, lse = forward_tf32_d128(q, k, v, 100)
+    o1, lse1 = forward_tf32_d128(q, k, v, 100, one=True)
+    assert rel_err(o, o64) <= F32_ATTN_REL and rel_err(lse, lse64) <= F32_ATTN_REL
+    assert rel_err(o1, o64) > F32_ATTN_REL
+    assert rel_err(lse1, lse64) > 100 * rel_err(lse, lse64)
 
 
 # --- kernels 11, 12 and 13 at d = 128 on fp32: csrc/flash_prefix_train_tf32_d128.cu ---

@@ -125,6 +125,66 @@ def test_kernels_10_to_13_at_head_dim_128_match_the_interpret_kernels(dtype):
     assert not dk_p[1, 1:].any() and not dv_p[1, 1:].any()  # keys past kv_len
 
 
+def _padded(n, lens, dtype, seed):
+    """q, k, v, dO [H, n, 128] in `dtype` (seeded numpy, rounded once) as
+    torch tensors, and the same as JAX arrays zero-padded to a multiple of
+    128 rows (the JAX kernels' n), as tests/test_torch_flash_train_core.py
+    does at d = 64: padded keys lie past every kv_len; a padded query has dO
+    0, and gets lse 0 and D 0, so it adds nothing to dk or dv."""
+    rng = np.random.default_rng(seed)
+    x = [rng.standard_normal((len(lens), n, D)).astype(np.float32) for _ in range(4)]
+    n_pad = -(-n // 128) * 128
+    jx = [jnp.asarray(np.pad(a, ((0, 0), (0, n_pad - n), (0, 0)))).astype(dtype) for a in x]
+    tx = [t(np.asarray(a.astype(jnp.float32))[:, :n]).to(getattr(torch, dtype)) for a in jx]
+    return tx, jx, np.asarray(lens, np.int32)
+
+
+# kernel 13 at d = 128 on the backward core: 128 keys a block on two
+# warpgroups of 64, 64-query tiles; n 100 and 301 (an [H, n] fp32 row of lse
+# and D at no 16-byte boundary), kv_len 1, 63-65, 127-129 and n
+@pytest.mark.parametrize("n,lens", [(100, [1, 63, 64, 65, 100]), (301, [1, 127, 128, 129, 301])],
+                         ids=["n100", "n301"])
+def test_kernel_13_reference_at_head_dim_128_at_the_backward_core_edges(n, lens):
+    (tq, tk, tv, tdo), jx, lens_np = _padded(n, lens, "bfloat16", 1300 + n)
+    q, k, v, do = jx
+    kv = jnp.asarray(lens_np)
+    o_j, lse_j = jfp._flash_prefix_folded_lse(q, k, v, kv, SCALE, bq=128, ck=128, prune=False)
+    rows = np.arange(q.shape[1]) < n
+    dvec = np.asarray(jnp.sum(do.astype(jnp.float32) * o_j.astype(jnp.float32), axis=-1))
+    lse = np.asarray(lse_j)[..., 0]
+    dvec, lse = (np.where(rows, a, 0.0).astype(np.float32) for a in (dvec, lse))
+    dk_j, dv_j = jfp._flash_prefix_dkv(q, k, v, do, jnp.asarray(dvec[:, None, :]),
+                                       jnp.asarray(lse[:, None, :]), kv, SCALE, bkv=128, cq=128,
+                                       cast=True)
+    dk_p, dv_p = fp.flash_prefix_dkv(tq, tk, tv, tdo, t(dvec[:, :n]), t(lse[:, :n]), t(lens_np))
+    assert dk_p.dtype == dv_p.dtype == torch.bfloat16
+    _close(dk_p.float().numpy(), np.asarray(dk_j.astype(jnp.float32))[:, :n], "bfloat16", 0)
+    _close(dv_p.float().numpy(), np.asarray(dv_j.astype(jnp.float32))[:, :n], "bfloat16", 0)
+    for h, length in enumerate(lens):  # keys at or past kv_len get no gradient
+        assert not dk_p[h, length:].any() and not dv_p[h, length:].any()
+
+
+# kernel 10 in fp32 at d = 128 on split 3xTF32: 32-key tiles, 128 queries a
+# block; kv_len 31-33 and n at n 129 (two query blocks), and kv_len 0 at n
+# 128, where the JAX kernel needs no padded keys (with none valid it averages
+# v over every key it is given, padded ones included). A head with kv_len 0
+# has the port's lse 0 (the module's convention, the kernels' too); the JAX
+# kernel's is the finite mask value's, MASK_VALUE + log2(n)
+@pytest.mark.parametrize("n,lens", [(129, [31, 32, 33, 129]), (128, [0, 33, 128])],
+                         ids=["n129", "n128-kv0"])
+def test_kernel_10_fp32_reference_at_head_dim_128_at_the_3xtf32_tile_edges(n, lens):
+    (tq, tk, tv, _), (q, k, v, _), lens_np = _padded(n, lens, "float32", 1000 + n)
+    o_j, lse_j = jfp._flash_prefix_folded_lse(q, k, v, jnp.asarray(lens_np), SCALE, bq=128,
+                                              ck=128, prune=False)
+    o_p, lse_p = fp.flash_prefix_folded_lse(tq, tk, tv, t(lens_np))
+    assert o_p.dtype == lse_p.dtype == torch.float32
+    _close(o_p.numpy(), np.asarray(o_j)[:, :n], "float32", 1e-5)
+    live = lens_np > 0
+    np.testing.assert_allclose(lse_p.numpy()[live], np.asarray(lse_j)[live, :n, 0], atol=1e-5,
+                               rtol=1e-5)
+    assert not lse_p[~torch.from_numpy(live)].any()
+
+
 @pytest.mark.parametrize("lens", [[0, 1, 127, 129], [256, 1], [0, 1, 127, 129, 256, 256, 1, 129]],
                          ids=["4 heads", "2 heads", "8 heads"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
