@@ -215,13 +215,22 @@ Phases (any failure raises and exits non-zero):
      tensor parallel: 8 heads and 1024 FF columns a rank), bf16 and fp32,
      loss and whole gradient against one process (5e-2, 1e-4), 10, 11, 13
      per rank exact; (d) the tensor-parallel train state written as a
-     sharded checkpoint and read back to the bit, its size and times; then
-     in this process (c) make_mesh(1, 1) on NCCL at world size 1, and (e)
-     training steps through 7 and 8 ("linear_fused"), 18 and 19 under
-     autograd against the plain versions, bf16 and fp32, exact launches, and
-     remat "dots" against "full" (gradient, step ms, peak GiB). Phase 12's
-     training steps and checkpoint are cut to 8 blocks. Two ranks sharing
-     one card measure correctness and launches, not a tensor-parallel speed.
+     sharded checkpoint and read back to the bit, its size and times; (e)
+     tensor parallel 2 sampling of E2TTS_Base (UNetT, 24 blocks) and of an
+     MMDiT at MMDiTConfig()'s widths (22 blocks) on the bench protocol in
+     bf16, the MMDiT also under attn_int8 "qkpv", each rank's launches exact
+     (E2TTS_Base A 384, C 32; MMDiT A 352 on the text-first joint sequence,
+     C 32; 14 and its pass in A's place), the mel against one process
+     (5e-2); (f) the step of (b) for each of the two at 8 blocks, no remat
+     (10, 11, 13 8 a rank), bf16 and fp32; (g) the MMDiT's tensor-parallel
+     train state (to_q_c, to_out_c, ff_c among its leaves) as the sharded
+     checkpoint of (d); then in this process (c) make_mesh(1, 1) on NCCL at
+     world size 1, and (h) training steps through 7 and 8 ("linear_fused"),
+     18 and 19 under autograd against the plain versions, bf16 and fp32,
+     exact launches, and remat "dots" against "full" (gradient, step ms,
+     peak GiB). Phase 12's training steps and checkpoints are cut to 8
+     blocks. Two ranks sharing one card measure correctness and launches,
+     not a tensor-parallel speed.
      Phase 2 also holds A, B, 4-8, 10, 11, 13 and 14 at the tp 2 and tp 4
      shard shapes.
  13. head dim 128 and 8 channels a conv-pos group, run before phase 6 (phase
@@ -5089,7 +5098,12 @@ def phase12_worker(rank: int) -> None:
     import torch
     import torch.distributed as dist
 
+    from korean_f5_tts_tpu_torch.config import MMDiTConfig, ModelConfig, preset_model_config
+    from korean_f5_tts_tpu_torch.infer.model import load_model
     from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.models.mmdit import init_mmdit
+    from korean_f5_tts_tpu_torch.models.unett import init_unett
+    from korean_f5_tts_tpu_torch.models.vocos import Vocos, VocosConfig, init_vocos
     from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
     from korean_f5_tts_tpu_torch.parallel.distributed import maybe_initialize_distributed
     from korean_f5_tts_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_params
@@ -5146,82 +5160,167 @@ def phase12_worker(rank: int) -> None:
     # (b) one training step at 8 x 1280, data parallel and tensor parallel
     import dataclasses
 
+    meshes = {"dp 2": make_mesh(2, 1, device="cuda"), "tp 2": tp_mesh}
+
+    def sharded_steps(label: str, arch, params, want_of) -> None:
+        """One step's loss and whole gradient on each mesh against one
+        process (rank 0 computes it), bf16 and fp32; each rank's launches
+        want_of(f32)."""
+        paths = list(ckpt.flatten_tree(params))
+        batch = train_batch(dev)
+        for dtype, bound_ in ((torch.bfloat16, TRAIN_REL), (None, F32_GRAD_REL)):
+            dname = "bf16" if dtype else "fp32"
+            one = None
+            if rank == 0:
+                loss1, g1 = loss_and_grads(params, batch, 5, arch, compute_dtype=dtype)
+                one = (loss1.item(), torch.cat([g.flatten().float() for g in g1]))
+                del g1
+            for name, mesh in meshes.items():
+                local = shard_params(params, mesh)
+                rows = shard_batch(batch, mesh)
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                loss, grads = loss_and_grads(local, rows, 5, arch, compute_dtype=dtype, mesh=mesh)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                want = want_of(dtype is None)
+                print(f"  {tag} {label} {name} {dname}: rows {rows['mel'].shape[0]}, launches "
+                      f"{({k: v for k, v in counts.items() if v})}, {secs:.2f} s, peak "
+                      f"{peak:.2f} GiB")
+                if counts != want:
+                    fail(f"phase 12 {label} {name} {dname}: launches {counts}, expected {want}")
+                whole = torch.cat([g.flatten().float() for g in _gathered(grads, paths, mesh)])
+                both_equal(loss, f"phase 12 {label} {name} {dname} loss")
+                if rank == 0:
+                    lrel = abs(loss.item() - one[0]) / abs(one[0])
+                    grel = ((whole - one[1]).norm() / one[1].norm()).item()
+                    print(f"  {label} {name} {dname} step of {arch.depth} blocks at {TRAIN_B} x "
+                          f"{TRAIN_N}: loss {loss.item():.6f} (one process {one[0]:.6f}, rel "
+                          f"{lrel:.2e}), gradient rel L2 {grel:.3e} (bound {bound_:.0e})")
+                    if not torch.isfinite(whole).all() or lrel > bound_ or grel > bound_:
+                        fail(f"phase 12 {label} {name} {dname}: the sharded step disagrees with "
+                             "one process")
+                del grads, whole, local
+                torch.cuda.empty_cache()
+
+    def sharded_checkpoint(label: str, what: str, params, must_hold=()) -> None:
+        """The tp 2 train state over `params` written as a sharded checkpoint
+        and read back to the bit; its leaves must include every name of
+        must_hold."""
+        local = shard_params(params, tp_mesh)
+        state = init_train_state(local, AdamW())
+        missing = [n for n in must_hold if not any(n in k for k in ckpt.flatten_tree(local))]
+        if missing:
+            fail(f"phase 12 {label}: the train state lacks {missing}")
+        tmp = Path(tempfile.mkdtemp()) if rank == 0 else None
+        box = [str(tmp / "model_orbax") if tmp else None]
+        dist.broadcast_object_list(box, src=0)
+        path = box[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint_orbax(path, state.params, state.opt_state, state.ema_params,
+                                   update=3, mesh=tp_mesh)
+        torch.cuda.synchronize()
+        t_write = time.perf_counter() - t0
+        zero = lambda tree: ckpt.unflatten_tree({  # noqa: E731
+            k: torch.zeros_like(v) if isinstance(v, torch.Tensor) else 0
+            for k, v in ckpt.flatten_tree(tree).items()})
+        t0 = time.perf_counter()
+        got = ckpt.load_checkpoint_orbax(path, zero(state.params), zero(state.opt_state),
+                                         zero(state.ema_params), mesh=tp_mesh)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        for name in ("params", "opt_state", "ema_params"):
+            for (k, a), b in zip(ckpt.flatten_tree(getattr(state, name)).items(),
+                                 ckpt.flatten_tree(got[name]).values()):
+                if not (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b):
+                    fail(f"phase 12 {label}: {name}/{k} did not come back to the bit")
+        dist.barrier()
+        if rank == 0:
+            size = sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file()) / 2**30
+            held = f", {', '.join(must_hold)} among them" if must_hold else ""
+            print(f"  {label} sharded checkpoint of {what} ({P12_DEPTH} blocks, params, Adam and "
+                  f"EMA{held}): {size:.2f} GiB in {len(list(Path(path).iterdir()))} files, "
+                  f"written in {t_write:.2f} s, read back in {t_load:.2f} s, equal to the bit")
+            shutil.rmtree(tmp)
+        dist.barrier()
+
     arch = dataclasses.replace(train_arch(), depth=P12_DEPTH)
     params = redraw_zero_init(init_dit(arch, seed=0, device=dev), seed=1)
-    paths = list(ckpt.flatten_tree(params))
-    batch = train_batch(dev)
-    meshes = {"dp 2": make_mesh(2, 1, device="cuda"), "tp 2": tp_mesh}
-    for dtype, bound_ in ((torch.bfloat16, TRAIN_REL), (None, F32_GRAD_REL)):
-        dname = "bf16" if dtype else "fp32"
-        one = None
-        if rank == 0:
-            loss1, g1 = loss_and_grads(params, batch, 5, arch, compute_dtype=dtype)
-            one = (loss1.item(), torch.cat([g.flatten().float() for g in g1]))
-            del g1
-        for name, mesh in meshes.items():
-            local = shard_params(params, mesh)
-            rows = shard_batch(batch, mesh)
-            torch.cuda.reset_peak_memory_stats()
+    sharded_steps("(b)", arch, params,
+                  lambda f32: expected_train_launches(1, P12_DEPTH, f32=f32))
+    # (d) a sharded checkpoint of the tp 2 train state, written and read back
+    sharded_checkpoint("(d)", "the tp 2 train state", params)
+    del params
+    torch.cuda.empty_cache()
+
+    # (e) tensor-parallel sampling of E2TTS_Base (UNetT) and MMDiTConfig() at
+    # full depth, bf16, the bench protocol; the MMDiT under attn_int8 "qkpv" too
+    vcfg = VocosConfig()
+    vocoder = Vocos(init_vocos(vcfg, seed=1, device=dev, dtype=torch.bfloat16), vcfg)
+    inputs = bench_inputs(dev)
+    e2 = dataclasses.replace(preset_model_config("E2TTS_Base").arch, text_num_embeds=2545)
+    mm = MMDiTConfig(text_num_embeds=2545)
+    for label, backbone, march, modes in (("E2TTS_Base", "UNetT", e2, (None,)),
+                                          ("MMDiT", "MMDiT", mm, (None, "qkpv"))):
+        model = load_model(ModelConfig(name=label, backbone=backbone, arch=march),
+                           dtype=torch.bfloat16, seed=0, device=dev)
+        redraw_zero_init(model.params, seed=1)
+        local = shard_params(model.params, tp_mesh)
+        per = march.depth * STEPS
+        for attn_int8 in modes:
+            mode = f"bf16 attn_int8 {attn_int8}" if attn_int8 else "bf16"
+            attn = ({"flash_prefix_i8": per, "flash_prefix_i8_quant": per} if attn_int8
+                    else {"flash_prefix": per})
+            want = launches_of(**attn, grouped_conv=2 * STEPS)
             reset_launch_counts()
             t0 = time.perf_counter()
-            loss, grads = loss_and_grads(local, rows, 5, arch, compute_dtype=dtype, mesh=mesh)
+            mel, wav = synthesize(model, vocoder, inputs, params=local, attn_int8=attn_int8,
+                                  mesh=tp_mesh)
             torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
+            ms = (time.perf_counter() - t0) * 1e3
             counts = launch_counts()
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            want = expected_train_launches(1, P12_DEPTH, f32=dtype is None)
-            print(f"  {tag} (b) {name} {dname}: rows {rows['mel'].shape[0]}, launches "
-                  f"{({k: v for k, v in counts.items() if v})}, {secs:.2f} s, peak {peak:.2f} GiB")
+            print(f"  {tag} (e) {label} {mode}: launches "
+                  f"{({k: v for k, v in counts.items() if v})}")
             if counts != want:
-                fail(f"phase 12 (b) {name} {dname}: launches {counts}, expected {want}")
-            whole = torch.cat([g.flatten().float() for g in _gathered(grads, paths, mesh)])
-            both_equal(loss, f"phase 12 (b) {name} {dname} loss")
+                fail(f"phase 12 (e) {label} {mode}: launches {counts}, expected {want}")
+            if not (torch.isfinite(mel).all() and torch.isfinite(wav).all()):
+                fail(f"phase 12 (e) {label} {mode}: non-finite mel or waveform")
+            both_equal(mel, f"phase 12 (e) {label} {mode} mel")
             if rank == 0:
-                lrel = abs(loss.item() - one[0]) / abs(one[0])
-                grel = ((whole - one[1]).norm() / one[1].norm()).item()
-                print(f"  (b) {name} {dname} step of {P12_DEPTH} blocks at {TRAIN_B} x "
-                      f"{TRAIN_N}: loss {loss.item():.6f} (one process {one[0]:.6f}, rel "
-                      f"{lrel:.2e}), gradient rel L2 {grel:.3e} (bound {bound_:.0e})")
-                if not torch.isfinite(whole).all() or lrel > bound_ or grel > bound_:
-                    fail(f"phase 12 (b) {name} {dname}: the sharded step disagrees with one "
-                         "process")
-            del grads, whole, local
-            torch.cuda.empty_cache()
+                one, _ = synthesize(model, vocoder, inputs, attn_int8=attn_int8)
+                a, b = mel[:, :total].float(), one[:, :total].float()
+                rel = ((a - b).norm() / b.norm()).item()
+                print(f"  (e) tp 2 {label} ({march.depth} blocks) {mode}: mel rel L2 {rel:.3e} "
+                      f"to one process (bound 5e-2), mean |mel| {b.abs().mean().item():.3f}; "
+                      f"{ms:.1f} ms an utterance with both ranks on one card (gloo through the "
+                      "host; a correctness run, no tensor-parallel speed)")
+                if rel > 5e-2 or b.abs().max() == 0:
+                    fail(f"phase 12 (e) {label} {mode}: tp 2 disagrees with one process")
+        del model, local
+        torch.cuda.empty_cache()
+    del vocoder
 
-    # (d) a sharded checkpoint of the tp 2 train state, written and read back
-    local = shard_params(params, tp_mesh)
-    state = init_train_state(local, AdamW())
-    tmp = Path(tempfile.mkdtemp()) if rank == 0 else None
-    box = [str(tmp / "model_orbax") if tmp else None]
-    dist.broadcast_object_list(box, src=0)
-    path = box[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ckpt.save_checkpoint_orbax(path, state.params, state.opt_state, state.ema_params, update=3,
-                               mesh=tp_mesh)
-    torch.cuda.synchronize()
-    t_write = time.perf_counter() - t0
-    zero = lambda tree: ckpt.unflatten_tree({  # noqa: E731
-        k: torch.zeros_like(v) if isinstance(v, torch.Tensor) else 0
-        for k, v in ckpt.flatten_tree(tree).items()})
-    t0 = time.perf_counter()
-    got = ckpt.load_checkpoint_orbax(path, zero(state.params), zero(state.opt_state),
-                                     zero(state.ema_params), mesh=tp_mesh)
-    torch.cuda.synchronize()
-    t_load = time.perf_counter() - t0
-    for name in ("params", "opt_state", "ema_params"):
-        for (k, a), b in zip(ckpt.flatten_tree(getattr(state, name)).items(),
-                             ckpt.flatten_tree(got[name]).values()):
-            if not (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b):
-                fail(f"phase 12 (d): {name}/{k} did not come back to the bit")
-    dist.barrier()
-    if rank == 0:
-        size = sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file()) / 2**30
-        print(f"  (d) sharded checkpoint of the tp 2 train state ({P12_DEPTH} blocks, params, "
-              f"Adam and EMA): {size:.2f} GiB in {len(list(Path(path).iterdir()))} files, "
-              f"written in {t_write:.2f} s, read back in {t_load:.2f} s, equal to the bit")
-        shutil.rmtree(tmp)
-    dist.barrier()
+    # (f) a step of each backbone at 8 blocks, no remat (the E2TTS configs'
+    # and MMDiTConfig()'s): 10, 11 and 13 once a block
+    def no_remat(f32: bool) -> dict[str, int]:
+        f = "_f32" if f32 else ""
+        return launches_of(**{f"flash_prefix_lse{f}": P12_DEPTH,
+                              f"flash_prefix_dq_lsein{f}": P12_DEPTH,
+                              f"flash_prefix_dkv{f}": P12_DEPTH})
+
+    e2 = dataclasses.replace(e2, depth=P12_DEPTH)
+    sharded_steps("(f) UNetT", e2, init_unett(e2, seed=4, device=dev), no_remat)
+    torch.cuda.empty_cache()
+    mm = dataclasses.replace(mm, depth=P12_DEPTH)
+    params = redraw_zero_init(init_mmdit(mm, seed=4, device=dev), seed=5)
+    sharded_steps("(f) MMDiT", mm, params, no_remat)
+    # (g) the MMDiT's tp 2 train state as a sharded checkpoint
+    sharded_checkpoint("(g)", "the MMDiT's tp 2 train state", params,
+                       must_hold=("to_q_c", "to_out_c", "ff_c"))
     dist.destroy_process_group()
 
 
@@ -5259,7 +5358,7 @@ def phase12_nccl(dev, card: str) -> None:
 
 
 def phase12_train_paths(dev, card: str) -> dict[str, int]:
-    """(e) training steps through kernels 7, 8 ("linear_fused", with 10, 11,
+    """(h) training steps through kernels 7, 8 ("linear_fused", with 10, 11,
     13), 18 ("rope_in_kernel") and 19 ("qkv_kernel") under autograd against
     the plain versions, bf16 and fp32, with exact launches (full remat: each
     forward twice; 7 and 8 once per item, the attention once for the batch);
@@ -5294,19 +5393,19 @@ def phase12_train_paths(dev, card: str) -> dict[str, int]:
             torch.cuda.synchronize()
             counts = launch_counts()
             if counts != want:
-                fail(f"phase 12 (e) {attn_path}: launches {counts}, expected {want}")
+                fail(f"phase 12 (h) {attn_path}: launches {counts}, expected {want}")
             loss_p, g_p = loss_and_grads(params, batch, 5, arch, compute_dtype=dtype,
                                          attn_path=attn_path, kernels=False)
             gk = torch.cat([g.flatten().float() for g in g_k])
             gp = torch.cat([g.flatten().float() for g in g_p])
             grel = ((gk - gp).norm() / gp.norm()).item()
             lrel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-            print(f"  (e) {attn_path} {'bf16' if dtype else 'fp32'} step ({d} blocks, "
+            print(f"  (h) {attn_path} {'bf16' if dtype else 'fp32'} step ({d} blocks, "
                   f"{TRAIN_B} x {TRAIN_N}): loss rel {lrel:.2e}, gradient rel L2 {grel:.3e} "
                   f"to plain (bound {bound_:.0e}); launches "
                   f"{({k: v for k, v in counts.items() if v})}")
             if not torch.isfinite(gk).all() or lrel > bound_ or grel > bound_:
-                fail(f"phase 12 (e) {attn_path}: the step disagrees with the plain versions")
+                fail(f"phase 12 (h) {attn_path}: the step disagrees with the plain versions")
             total = {k: total[k] + counts[k] for k in total}
             del g_k, g_p, gk, gp
             torch.cuda.empty_cache()
@@ -5331,13 +5430,13 @@ def phase12_train_paths(dev, card: str) -> dict[str, int]:
         (lf, gf, msf, pkf, cf), (ld, gd, msd, pkd, cd) = runs["full"], runs["dots"]
         grel = ((gd - gf).norm() / gf.norm()).item()
         lse = "flash_prefix_lse" + ("" if dtype else "_f32")
-        print(f"  (e) remat 'dots' against 'full', {'bf16' if dtype else 'fp32'}, {d} blocks at "
+        print(f"  (h) remat 'dots' against 'full', {'bf16' if dtype else 'fp32'}, {d} blocks at "
               f"{TRAIN_B} x {TRAIN_N}: loss {ld:.6f} / {lf:.6f}, gradient rel L2 {grel:.3e}; "
               f"step {msd:.1f} / {msf:.1f} ms (min of 3), peak {pkd:.2f} / {pkf:.2f} GiB; "
               f"kernel 10 per step {cd[lse] // 3} / {cf[lse] // 3} [{card}]")
         # not to the bit: the embedding's backward adds with atomics, in another order a run
         if grel > 1e-3 or cd[lse] != 3 * d or cf[lse] != 6 * d:
-            fail("phase 12 (e): 'dots' is not 'full' with the attention output kept")
+            fail("phase 12 (h): 'dots' is not 'full' with the attention output kept")
         total = {k: total[k] + cd[k] + cf[k] for k in total}
         del gf, gd
     return total
@@ -5345,13 +5444,13 @@ def phase12_train_paths(dev, card: str) -> dict[str, int]:
 
 def phase12_parallel(dev, card: str) -> dict[str, int]:
     """Phase 12: the two-rank part in two processes of this script on the one
-    card (their lines relayed), then (c) and (e) in this process."""
+    card (their lines relayed), then (c) and (h) in this process."""
     import os
     import socket
 
-    print("phase 12: tensor-parallel serving, data- and tensor-parallel training, a sharded "
-          "checkpoint (two ranks on one card over gloo), NCCL at world size 1, training "
-          "through kernels 7, 8, 18, 19 and remat 'dots'")
+    print("phase 12: tensor-parallel serving, data- and tensor-parallel training, sharded "
+          "checkpoints (two ranks on one card over gloo; the DiT, then the UNetT and the MMDiT), "
+          "NCCL at world size 1, training through kernels 7, 8, 18, 19 and remat 'dots'")
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -5374,8 +5473,8 @@ def phase12_parallel(dev, card: str) -> dict[str, int]:
         for log in logs:
             print(log[-3000:])
         fail("phase 12: a rank failed")
-    print(f"  (a), (b), (d) in {time.perf_counter() - t0:.1f} s, both processes started and "
-          f"ended [{card}]")
+    print(f"  (a), (b), (d)-(g) in {time.perf_counter() - t0:.1f} s, both processes started "
+          f"and ended [{card}]")
     phase12_nccl(dev, card)
     return phase12_train_paths(dev, card)
 

@@ -115,7 +115,7 @@ def cfm_loss_from_draws(params: dict, arch: DiTConfig, mel: torch.Tensor, text: 
     attention kernel has no gradient, training keeps the differentiable
     attention kernels; attn_path picks them (ops/attention.py:ATTN_PATHS).
 
-    Under a mesh (a DiT only) mel, text, lens and the draws are this data
+    Under a mesh (any backbone) mel, text, lens and the draws are this data
     rank's rows and the loss is its share of JAX's global masked mean: the
     squared error of its rows over the span count of the whole batch,
     all-reduced over the data group, so that the shares sum to the
@@ -132,17 +132,10 @@ def cfm_loss_from_draws(params: dict, arch: DiTConfig, mel: torch.Tensor, text: 
     phi = (1.0 - t) * x0 + t * x1
     flow = x1 - x0
     cond = torch.where(span[..., None], torch.zeros_like(x1), x1)
-    extra = {}
-    if mesh is not None:
-        if type(arch) is not DiTConfig:
-            raise ValueError("a mesh trains the DiT backbone only (parallel/tp_kernels.py)")
-        extra = {"attn_path": attn_path, "mesh": mesh}
-    elif attn_path != "default":
-        extra = {"attn_path": attn_path}
     pred = _backbone_fns(arch)[0](params, arch, phi, cond, text, time, mask=mask,
                                   drop_audio_cond=draws["drop_audio"],
                                   drop_text=draws["drop_text"], dropout_seed=dropout_seed,
-                                  kernels=kernels, **extra)
+                                  kernels=kernels, attn_path=attn_path, mesh=mesh)
     se = (pred - flow) ** 2
     count = span.sum()
     if axis_size(mesh, "data") > 1:
@@ -212,11 +205,7 @@ def _sample_core(params: dict, arch: DiTConfig,
     dts = ts[1:] - ts[:-1]
     x = y0
     forward, forward_cfg, text_embedding = _backbone_fns(arch)
-    paths = dict(kernels=kernels, attn_path=attn_path, attn_int8=attn_int8)
-    if mesh is not None:
-        if type(arch) is not DiTConfig:
-            raise ValueError("a mesh runs the DiT backbone only (parallel/tp_kernels.py)")
-        paths["mesh"] = mesh
+    paths = dict(kernels=kernels, attn_path=attn_path, attn_int8=attn_int8, mesh=mesh)
     if not use_cfg:
         for s in range(steps):
             pred = forward(params, arch, x, step_cond, text, ts[s].expand(x.shape[0]),

@@ -10,6 +10,14 @@ both streams, joint attention (kernel A on the text-first prefix form, 10,
 each stream has its own rope table. The CFG step packs the two halves into
 one batch of 2b before the audio embedding, so conv-pos (kernel C) runs
 twice a step.
+
+`mesh` (parallel/mesh.py; None: one device) runs each block on this
+process's share of the weights (shard_params), as JAX's
+param_partition_spec splits them: joint attention on the rank's heads (its
+q/k/v and q_c/k_c/v_c columns, to_out and to_out_c summed over the model
+group), ff_x and ff_c on its columns. The text and audio embeddings
+(conv-pos included), the AdaLN layers, norm_out and proj_out stay
+replicated; the MMDiT has no dropout, so its data ranks need nothing more.
 """
 
 from __future__ import annotations
@@ -108,7 +116,8 @@ def _audio_embed(p: dict, x: torch.Tensor, cond: torch.Tensor, drop_audio_cond=F
 
 def mmdit_backbone(p: dict, cfg: MMDiTConfig, h: torch.Tensor, c: torch.Tensor,
                    t_emb: torch.Tensor, mask: torch.Tensor | None = None,
-                   kernels: bool = True, attn_int8: str | None = None) -> torch.Tensor:
+                   kernels: bool = True, attn_int8: str | None = None,
+                   mesh=None) -> torch.Tensor:
     """Audio [b, n, dim], text [b, nt, dim], time [b, dim] -> flow [b, n, mel]
     (mmdit.py:114-122)."""
     rope_audio = dit_mod._rope_table(h.shape[1], cfg.dim_head, h.device)
@@ -116,7 +125,7 @@ def mmdit_backbone(p: dict, cfg: MMDiTConfig, h: torch.Tensor, c: torch.Tensor,
     for i, blk in enumerate(p["blocks"]):
         c, h = mmdit_block(blk, h, c, t_emb, cfg.heads, context_pre_only=i == cfg.depth - 1,
                            mask=mask, rope=rope_audio, c_rope=rope_text, kernels=kernels,
-                           attn_int8=attn_int8)
+                           attn_int8=attn_int8, mesh=mesh)
     h = ada_layernorm_final(p["norm_out"], h, t_emb)
     return linear(p["proj_out"], h)
 
@@ -125,7 +134,8 @@ def mmdit_forward(p: dict, cfg: MMDiTConfig, x: torch.Tensor, cond: torch.Tensor
                   text: torch.Tensor, time: torch.Tensor, mask: torch.Tensor | None = None,
                   drop_audio_cond=False, drop_text=False, dropout_seed: int | None = None,
                   pad_mask: torch.Tensor | None = None, kernels: bool = True,
-                  attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
+                  attn_path: str = "default", attn_int8: str | None = None,
+                  mesh=None) -> torch.Tensor:
     """Training-path forward (mmdit.py:125-138), also a sampler step without
     CFG; the arguments as models/dit.py:dit_forward's. The MMDiT has no
     dropout (dropout_seed is taken and unused, as in the JAX forward), and
@@ -139,7 +149,7 @@ def mmdit_forward(p: dict, cfg: MMDiTConfig, x: torch.Tensor, cond: torch.Tensor
     h = _audio_embed(p, x, cond, drop_audio_cond=drop_audio_cond, pad_mask=pad_mask,
                      kernels=kernels)
     return mmdit_backbone(p, cfg, h, c, t_emb, mask=mask if mask is not None else pad_mask,
-                          kernels=kernels, attn_int8=attn_int8)
+                          kernels=kernels, attn_int8=attn_int8, mesh=mesh)
 
 
 def mmdit_forward_cfg(p: dict, cfg: MMDiTConfig, x: torch.Tensor, cond: torch.Tensor,
@@ -147,7 +157,7 @@ def mmdit_forward_cfg(p: dict, cfg: MMDiTConfig, x: torch.Tensor, cond: torch.Te
                       time: torch.Tensor, cfg_strength: float,
                       mask: torch.Tensor | None = None, pad_mask: torch.Tensor | None = None,
                       kernels: bool = True, attn_path: str = "default",
-                      attn_int8: str | None = None) -> torch.Tensor:
+                      attn_int8: str | None = None, mesh=None) -> torch.Tensor:
     """CFG step (mmdit.py:141-157): both halves as one batch of 2b, then
     pred + (pred - null_pred) * cfg_strength."""
     check_attn_int8(attn_int8, attn_path)
@@ -160,6 +170,6 @@ def mmdit_forward_cfg(p: dict, cfg: MMDiTConfig, x: torch.Tensor, cond: torch.Te
     c = torch.cat([text_emb_cond, text_emb_uncond], dim=0)
     eff_mask = dit_mod._double_mask(mask if mask is not None else pad_mask)
     out = mmdit_backbone(p, cfg, h, c, torch.cat([t_emb, t_emb], dim=0), mask=eff_mask,
-                         kernels=kernels, attn_int8=attn_int8)
+                         kernels=kernels, attn_int8=attn_int8, mesh=mesh)
     pred, null_pred = out.chunk(2, dim=0)
     return pred + (pred - null_pred) * cfg_strength

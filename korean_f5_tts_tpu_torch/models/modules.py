@@ -18,11 +18,13 @@ picks the attention half's kernels (ops/attention.py:ATTN_PATHS):
 dispatch is in models/dit.py), "rope_in_kernel" (kernel 18) and
 "qkv_kernel" (kernel 19).
 
-`mesh` (parallel/mesh.py; None: one device) runs attention and the FF on
-this process's share of a tensor-parallel model: its heads and columns, the
-products per rank, an all-reduce over the model group after the row-split
-product (parallel/tp_kernels.py), and dropout masks drawn at the global
-shape and sliced, so a sharded step equals the single-device one.
+`mesh` (parallel/mesh.py; None: one device) runs attention, joint
+attention and the FF on this process's share of a tensor-parallel model:
+its heads and columns, the products per rank, an all-reduce over the model
+group after the row-split product (parallel/tp_kernels.py), and dropout
+masks drawn at the global shape and sliced, so a sharded step equals the
+single-device one. The heads must split evenly over the model axis
+(local_heads raises otherwise).
 """
 
 from __future__ import annotations
@@ -366,6 +368,24 @@ def feedforward(p: dict, x: torch.Tensor, dropout_rate: float = 0.0,
 # ---------------------------------------------------------------------------
 
 
+def local_heads(heads: int, mesh) -> int:
+    """This model rank's head count. JAX's XLA computes the whole function
+    where the heads do not split (ops/attention.py:_tp_mesh_for); a rank here
+    holds only its columns, so such a split would cut a head apart: it
+    raises instead."""
+    tp = axis_size(mesh, "model")
+    if heads % tp:
+        raise ValueError(f"{heads} heads do not split over the model axis (tp {tp}): a rank "
+                         "would hold part of a head")
+    return heads // tp
+
+
+def _qk_norm_gains(p: dict, mesh, names: tuple[str, ...]) -> dict:
+    """p with its replicated qk-norm gains entering this rank's heads through
+    copy_to_model, so that their gradients sum over the model group."""
+    return {**p, **{n: {"g": copy_to_model(p[n]["g"], mesh)} for n in names if n in p}}
+
+
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     b, n, _ = x.shape
     return x.reshape(b, n, heads, -1).transpose(1, 2)
@@ -413,19 +433,18 @@ def attention(p: dict, x: torch.Tensor, heads: int,
     :544, "qkv_kernel" and "rope_in_kernel" then step aside: rope is applied
     in torch and kernel A runs (kernel 14 under attn_int8).
     Tensor-parallel (`mesh` with a model axis > 1): p holds this rank's
-    q/k/v columns and to_out rows, `heads` stays the global count; the rank
-    runs every case above on its heads (rope on those whose global index is
-    below pe_attn_head) and sums the out-projection over the model group.
+    q/k/v columns and to_out rows, `heads` stays the global count and must
+    split evenly over the model axis (ValueError otherwise); the rank runs
+    every case above on its heads (rope on those whose global index is below
+    pe_attn_head) and sums the out-projection over the model group.
     """
     check_attn_int8(attn_int8, attn_path)
     tp_on = model_parallel(mesh)
     if tp_on:
+        heads = local_heads(heads, mesh)
         x = copy_to_model(x, mesh)
-        heads //= axis_size(mesh, "model")
         pe_attn_head = local_pe_attn_head(pe_attn_head, mesh, heads)
-        # replicated gains applied to this rank's heads: their gradients sum over ranks
-        p = {**p, **{n: {"g": copy_to_model(p[n]["g"], mesh)}
-                     for n in ("q_norm", "k_norm") if n in p}}
+        p = _qk_norm_gains(p, mesh, ("q_norm", "k_norm"))
     attn_mask = mask if (attn_mask_enabled and mask is not None) else pad_mask
     prefix_lens = attn_mask.sum(dim=-1, dtype=torch.int32) if attn_mask is not None else None
     out = None
@@ -643,7 +662,7 @@ def joint_attention(p: dict, x: torch.Tensor, c: torch.Tensor, heads: int,
                     rope: tuple[torch.Tensor, torch.Tensor] | None = None,
                     c_rope: tuple[torch.Tensor, torch.Tensor] | None = None,
                     context_pre_only: bool = False, kernels: bool = True,
-                    attn_int8: str | None = None):
+                    attn_int8: str | None = None, mesh=None):
     """MM-DiT joint attention over the audio stream x [b, n_x, d] and the
     text stream c [b, n_c, d] (modules.py:574-611); returns (x_out, c_out).
 
@@ -656,8 +675,21 @@ def joint_attention(p: dict, x: torch.Tensor, c: torch.Tensor, heads: int,
     attn_int8; kernels 10, 11, 13 under autograd) computes the same function
     with one length per item. kernels=False keeps the JAX order with the
     explicit boolean key mask (_masked_attention_reference).
+
+    Tensor-parallel (`mesh` with a model axis > 1), as attention(): p holds
+    this rank's q/k/v and q_c/k_c/v_c columns and to_out / to_out_c rows,
+    `heads` is the global count and must split evenly; both streams enter
+    through copy_to_model, the rank attends on its heads, and to_out (then
+    to_out_c) sums over the model group. On the context_pre_only block c_out
+    is this rank's heads unprojected, which mmdit_block drops: no collective
+    is issued for it, so every rank issues the same ones in the same order.
     """
     check_attn_int8(attn_int8)
+    tp_on = model_parallel(mesh)
+    if tp_on:
+        heads = local_heads(heads, mesh)
+        x, c = copy_to_model(x, mesh), copy_to_model(c, mesh)
+        p = _qk_norm_gains(p, mesh, ("q_norm", "k_norm", "c_q_norm", "c_k_norm"))
     n_c = c.shape[1]
     q, k, v = (_split_heads(linear(p[n], x, kernels=kernels), heads)
                for n in ("to_q", "to_k", "to_v"))
@@ -682,10 +714,16 @@ def joint_attention(p: dict, x: torch.Tensor, c: torch.Tensor, heads: int,
         out = _masked_attention_reference(torch.cat([q, cq], dim=2), torch.cat([k, ck], dim=2),
                                           torch.cat([v, cv], dim=2), key_mask)
         x_out, c_out = out[:, :, :x.shape[1]], out[:, :, x.shape[1]:]
-    x_out = linear(p["to_out"], _merge_heads(x_out), kernels=kernels)
+
+    def out_proj(lp: dict, h: torch.Tensor) -> torch.Tensor:
+        if tp_on:
+            return row_parallel_linear(lp, h, mesh, kernels=kernels)
+        return linear(lp, h, kernels=kernels)
+
+    x_out = out_proj(p["to_out"], _merge_heads(x_out))
     c_out = _merge_heads(c_out)
     if not context_pre_only:
-        c_out = linear(p["to_out_c"], c_out, kernels=kernels)
+        c_out = out_proj(p["to_out_c"], c_out)
     if mask is not None:
         x_out = x_out.masked_fill(~mask[..., None], 0.0)
     return x_out, c_out
@@ -713,10 +751,12 @@ def mmdit_block_init(gen, dim: int, heads: int, dim_head: int, device, ff_mult: 
 def mmdit_block(p: dict, x: torch.Tensor, c: torch.Tensor, t: torch.Tensor, heads: int,
                 context_pre_only: bool = False, mask: torch.Tensor | None = None,
                 rope=None, c_rope=None, kernels: bool = True,
-                attn_int8: str | None = None):
+                attn_int8: str | None = None, mesh=None):
     """SD3-style dual-stream block (modules.py:674-700); returns (c, x), c
     None on the context_pre_only block. Its products are plain (no FF
-    kernel), as in the JAX block; the attention is joint_attention."""
+    kernel), as in the JAX block; the attention is joint_attention. Under a
+    tensor-parallel mesh p is this rank's share: joint attention on its
+    heads, ff_x and ff_c on its columns, the AdaLN layers replicated."""
     if context_pre_only:
         norm_c = ada_layernorm_final(p["attn_norm_c"], c, t)
     else:
@@ -726,13 +766,14 @@ def mmdit_block(p: dict, x: torch.Tensor, c: torch.Tensor, t: torch.Tensor, head
         p["attn_norm_x"], x, t)
     x_attn, c_attn = joint_attention(p["attn"], norm_x, norm_c, heads, mask=mask, rope=rope,
                                      c_rope=c_rope, context_pre_only=context_pre_only,
-                                     kernels=kernels, attn_int8=attn_int8)
+                                     kernels=kernels, attn_int8=attn_int8, mesh=mesh)
     c_out = None
     if not context_pre_only:
         c = c + c_gate_msa[:, None] * c_attn
         norm_c = layernorm({}, c, eps=1e-6) * (1 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
-        c_out = c + c_gate_mlp[:, None] * feedforward(p["ff_c"], norm_c, kernels=kernels)
+        ff_c = feedforward(p["ff_c"], norm_c, kernels=kernels, mesh=mesh)
+        c_out = c + c_gate_mlp[:, None] * ff_c
     x = x + x_gate_msa[:, None] * x_attn
     norm_x = layernorm({}, x, eps=1e-6) * (1 + x_scale_mlp[:, None]) + x_shift_mlp[:, None]
-    x = x + x_gate_mlp[:, None] * feedforward(p["ff_x"], norm_x, kernels=kernels)
+    x = x + x_gate_mlp[:, None] * feedforward(p["ff_x"], norm_x, kernels=kernels, mesh=mesh)
     return c_out, x

@@ -15,6 +15,14 @@ int8 linear). The CFG step packs the cond and uncond halves into one batch
 of 2b before the input embedding, as dit_forward_cfg does, so conv-pos
 (kernel C) runs twice a step: the same function as the JAX step, which
 embeds the halves apart.
+
+`mesh` (parallel/mesh.py; None: one device) runs each block on this
+process's share of the weights (shard_params), as JAX's
+param_partition_spec splits them: attention() on the rank's heads and
+feedforward() on its columns, each summed over the model group; the FF
+dropout mask is drawn at the global shape and sliced (modules.dropout), so
+a data- or tensor-parallel step equals one process's. The embeddings,
+skip_proj, the RMSNorms, the time token and proj_out stay replicated.
 """
 
 from __future__ import annotations
@@ -85,7 +93,8 @@ def init_unett(cfg: UNetTConfig, seed: int = 0, device="cuda",
 def unett_backbone(p: dict, cfg: UNetTConfig, h: torch.Tensor, t_emb: torch.Tensor,
                    mask: torch.Tensor | None = None, dropout_seed: int | None = None,
                    pad_mask: torch.Tensor | None = None, kernels: bool = True,
-                   attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
+                   attn_path: str = "default", attn_int8: str | None = None,
+                   mesh=None) -> torch.Tensor:
     """Embedded [b, n, dim] + time embedding [b, dim] -> flow [b, n, mel]
     (unett.py:85-116). The time token makes the sequence n + 1 long; the
     masks get a leading True, so a prefix mask stays one of length + 1.
@@ -106,9 +115,10 @@ def unett_backbone(p: dict, cfg: UNetTConfig, h: torch.Tensor, t_emb: torch.Tens
         x = attention(layer["attn"], rmsnorm(layer["attn_norm"], x), cfg.heads, mask=mask,
                       rope=rope, pe_attn_head=cfg.pe_attn_head,
                       attn_mask_enabled=cfg.attn_mask_enabled, pad_mask=pad_mask,
-                      kernels=kernels, attn_path=attn_path, attn_int8=attn_int8) + x
+                      kernels=kernels, attn_path=attn_path, attn_int8=attn_int8,
+                      mesh=mesh) + x
         return feedforward(layer["ff"], rmsnorm(layer["ff_norm"], x), dropout_rate=rate,
-                           gen=gen, kernels=kernels) + x
+                           gen=gen, kernels=kernels, mesh=mesh) + x
 
     skips = []
     for idx, layer in enumerate(p["layers"]):
@@ -133,7 +143,8 @@ def unett_forward(p: dict, cfg: UNetTConfig, x: torch.Tensor, cond: torch.Tensor
                   text: torch.Tensor, time: torch.Tensor, mask: torch.Tensor | None = None,
                   drop_audio_cond=False, drop_text=False, dropout_seed: int | None = None,
                   pad_mask: torch.Tensor | None = None, kernels: bool = True,
-                  attn_path: str = "default", attn_int8: str | None = None) -> torch.Tensor:
+                  attn_path: str = "default", attn_int8: str | None = None,
+                  mesh=None) -> torch.Tensor:
     """Training-path forward (unett.py:119-131), also a sampler step without
     CFG; the arguments as models/dit.py:dit_forward's."""
     if time.dim() == 0:
@@ -145,7 +156,7 @@ def unett_forward(p: dict, cfg: UNetTConfig, x: torch.Tensor, cond: torch.Tensor
                                 kernels=kernels)
     return unett_backbone(p, cfg, h, t_emb, mask=mask, dropout_seed=dropout_seed,
                           pad_mask=pad_mask, kernels=kernels, attn_path=attn_path,
-                          attn_int8=attn_int8)
+                          attn_int8=attn_int8, mesh=mesh)
 
 
 def unett_forward_cfg(p: dict, cfg: UNetTConfig, x: torch.Tensor, cond: torch.Tensor,
@@ -153,7 +164,7 @@ def unett_forward_cfg(p: dict, cfg: UNetTConfig, x: torch.Tensor, cond: torch.Te
                       time: torch.Tensor, cfg_strength: float,
                       mask: torch.Tensor | None = None, pad_mask: torch.Tensor | None = None,
                       kernels: bool = True, attn_path: str = "default",
-                      attn_int8: str | None = None) -> torch.Tensor:
+                      attn_int8: str | None = None, mesh=None) -> torch.Tensor:
     """CFG step (unett.py:134-151): the cond half and the uncond half (audio
     cond dropped, the uncond text embedding) as one batch of 2b, then
     pred + (pred - null_pred) * cfg_strength."""
@@ -166,6 +177,6 @@ def unett_forward_cfg(p: dict, cfg: UNetTConfig, x: torch.Tensor, cond: torch.Te
                                 kernels=kernels)
     out = unett_backbone(p, cfg, h, torch.cat([t_emb, t_emb], dim=0),
                          mask=dit_mod._double_mask(mask), pad_mask=pad_mask, kernels=kernels,
-                         attn_path=attn_path, attn_int8=attn_int8)
+                         attn_path=attn_path, attn_int8=attn_int8, mesh=mesh)
     pred, null_pred = out.chunk(2, dim=0)
     return pred + (pred - null_pred) * cfg_strength

@@ -11,11 +11,16 @@ torch.distributed.device_mesh.DeviceMesh over every process with the dims
   - tensor parallel (the reference's TRT-LLM head split): each model rank
     holds its columns of to_q/k/v and ff/in and its rows of to_out and
     ff/out (shard_params), runs the kernels on its heads and columns and
-    all-reduces over the model group (parallel/tp_kernels.py).
+    all-reduces over the model group (parallel/tp_kernels.py). The heads
+    must split evenly (models/modules.py:local_heads raises otherwise).
 
-The mesh is an explicit `mesh=` argument of the sampler, the backbone
-forwards, the loss, the training step and the Trainer; PyTorch has no
-counterpart of JAX's ambient `with mesh:`. None means one device.
+Every backbone takes both: the DiT, the UNetT (its layers' attn and ff;
+skip_proj replicated) and the MMDiT (to_q_c/k_c/v_c and ff_x/in, ff_c/in
+split like the audio stream's columns, to_out_c like to_out; the last
+block has no to_out_c and no ff_c; audio_proj and the AdaLN linears
+replicated). The mesh is an explicit `mesh=` argument of the sampler, the
+backbone forwards, the loss, the training step and the Trainer; PyTorch
+has no counterpart of JAX's ambient `with mesh:`. None means one device.
 """
 
 from __future__ import annotations

@@ -97,16 +97,22 @@ def flash(mesh, q, k, v, lens, pv_i8=None):
     return tp_kernels.flash_prefix_i8_tp(q, k, v, torch.from_numpy(lens), pv_i8, mesh).numpy()
 
 
+def _arch(backbone: str, arch: dict):
+    from korean_f5_tts_tpu_torch.config import BACKBONE_CONFIGS
+
+    return BACKBONE_CONFIGS[backbone](**arch)
+
+
 @case
-def sampler(mesh, flat, arch, inputs, dtype="fp32", attn_path="default", attn_int8=None):
-    from korean_f5_tts_tpu_torch.config import DiTConfig
+def sampler(mesh, flat, arch, inputs, dtype="fp32", attn_path="default", attn_int8=None,
+            backbone="DiT"):
     from korean_f5_tts_tpu_torch.models.cfm import _sample_core
 
     p = shard_params(_params(flat, dtype), mesh)
     td = torch.bfloat16 if dtype == "bf16" else torch.float32
     x = {k: (torch.from_numpy(v).to(td) if v.dtype == np.float32 else torch.from_numpy(v))
          if isinstance(v, np.ndarray) else v for k, v in inputs.items()}
-    mel = _sample_core(p, DiTConfig(**arch), x["step_cond"], x["text"], x["mask"],
+    mel = _sample_core(p, _arch(backbone, arch), x["step_cond"], x["text"], x["mask"],
                        x["pad_mask"], x["y0"], 2.0, -1.0, steps=x["steps"], use_cfg=True,
                        use_sway=True, use_epss=True, attn_path=attn_path, attn_int8=attn_int8,
                        mesh=mesh)
@@ -117,14 +123,14 @@ def sampler(mesh, flat, arch, inputs, dtype="fp32", attn_path="default", attn_in
 
 
 @case
-def step(mesh, flat, arch, batch, seed=0, draws=None, attn_path="default", compute_dtype=None):
+def step(mesh, flat, arch, batch, seed=0, draws=None, attn_path="default", compute_dtype=None,
+         backbone="DiT"):
     """loss_and_grads and one AdamW update on the mesh: the loss, the whole
     gradient and Adam's first moment after the update, (1 - b1) times the
     clipped gradient (both gathered over the model axis)."""
-    from korean_f5_tts_tpu_torch.config import DiTConfig
     from korean_f5_tts_tpu_torch.train import step as pstep
 
-    arch = DiTConfig(**arch)
+    arch = _arch(backbone, arch)
     params = shard_params(_params(flat), mesh)
     local = shard_batch(tensors(batch), mesh)
     if draws is not None:
@@ -169,7 +175,28 @@ def orbax_round_trip(mesh, flat, ckpt_dir):
                for a, b in zip(pckpt.flatten_tree(getattr(state, name)).values(),
                                pckpt.flatten_tree(got[name]).values()))
     return {"update": got["update"], "count": got["opt_state"]["count"], "same": same,
-            "local_shape": tuple(params["blocks"][0]["attn"]["to_q"]["w"].shape)}
+            "local_shape": tuple(params["blocks"][0]["attn"]["to_q"]["w"].shape),
+            "shapes": {k: tuple(v.shape) for k, v in pckpt.flatten_tree(params).items()}}
+
+
+@case
+def split_heads(mesh, x, c, attn, heads):
+    """attention() and joint_attention() at `heads` heads whose count the
+    model axis does not divide: the errors they raise; and attention() run
+    at heads - 1 global heads on the same shares, which is what the old
+    floor division ran (one head of the rank's whole column width a rank)."""
+    from korean_f5_tts_tpu_torch.models.modules import attention, joint_attention
+
+    p = shard_params({"attn": tensors(attn)}, mesh)["attn"]
+    x, c = torch.from_numpy(x), torch.from_numpy(c)
+    errors = {}
+    for name, fn in (("attention", lambda: attention(p, x, heads, mesh=mesh)),
+                     ("joint_attention", lambda: joint_attention(p, x, c, heads, mesh=mesh))):
+        try:
+            fn()
+        except ValueError as e:
+            errors[name] = str(e)
+    return {"errors": errors, "floor_split": attention(p, x, heads - 1, mesh=mesh).numpy()}
 
 
 @case
@@ -182,10 +209,10 @@ def equalize(mesh, batches):
 
 
 @case
-def trainer(mesh, flat, arch, items, ckpt_dir, ckpt_format="npz", max_updates=3):
+def trainer(mesh, flat, arch, items, ckpt_dir, ckpt_format="npz", max_updates=3,
+            backbone="DiT"):
     """Trainer(mesh=...) over a seeded in-memory dataset; with "orbax" a
     second Trainer resumes from the last sharded checkpoint."""
-    from korean_f5_tts_tpu_torch.config import DiTConfig
     from korean_f5_tts_tpu_torch.train.trainer import Trainer
 
     class Data:
@@ -199,7 +226,7 @@ def trainer(mesh, flat, arch, items, ckpt_dir, ckpt_format="npz", max_updates=3)
             return items[i]
 
     def make():
-        return Trainer(shard_params(_params(flat), mesh), DiTConfig(**arch), epochs=1,
+        return Trainer(shard_params(_params(flat), mesh), _arch(backbone, arch), epochs=1,
                        learning_rate=1e-3, num_warmup_updates=2, batch_size_per_gpu=96,
                        batch_size_type="frame", max_samples=4, checkpoint_path=ckpt_dir,
                        save_per_updates=1000, last_per_updates=1000, logger=None, mesh=mesh,

@@ -149,12 +149,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_parallel_worker.py")
 
 
-def run_two_processes(tmp_dir, cases: list, timeout: float = 300.0) -> list[dict]:
-    """Run tests/_torch_parallel_worker.py in two gloo processes on `cases`
+def start_two_processes(tmp_dir, cases: list, timeout: float = 300.0):
+    """Start tests/_torch_parallel_worker.py in two gloo processes on `cases`
     ([(name, case function, kwargs)], kwargs numpy and plain values, with an
-    optional "mesh_shape" (n_data, n_model), default (1, 2)) and return each
-    rank's {name: result}. The processes find the port through PYTHONPATH
-    (no install needed); both are killed past `timeout` seconds."""
+    optional "mesh_shape" (n_data, n_model), default (1, 2)) and return a
+    function that waits for both and returns each rank's {name: result}, so
+    the caller can work while they run. The processes find the port through
+    PYTHONPATH (no install needed); both are killed past `timeout` seconds of
+    waiting. Their output goes to files beside the job, never to a pipe that
+    could fill while the caller works."""
     os.makedirs(tmp_dir, exist_ok=True)
     job = os.path.join(tmp_dir, "job.pkl")
     out = os.path.join(tmp_dir, "result")
@@ -165,19 +168,33 @@ def run_two_processes(tmp_dir, cases: list, timeout: float = 300.0) -> list[dict
         port = s.getsockname()[1]
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2",
            "F5_TTS_DIST_COORDINATOR": f"localhost:{port}", "F5_TTS_DIST_NUM_PROCESSES": "2"}
-    procs = [subprocess.Popen([sys.executable, WORKER, job], cwd=ROOT, text=True,
-                              env={**env, "F5_TTS_DIST_PROCESS_ID": str(r)},
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in (0, 1)]
-    try:
-        logs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
-    results = []
+    logs = [os.path.join(tmp_dir, f"log.{r}") for r in (0, 1)]
+    procs = []
     for r in (0, 1):
-        with open(f"{out}.{r}", "rb") as f:
-            results.append(pickle.load(f))
-    return results
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, WORKER, job], cwd=ROOT, text=True,
+                                          env={**env, "F5_TTS_DIST_PROCESS_ID": str(r)},
+                                          stdout=log, stderr=subprocess.STDOUT))
+
+    def wait() -> list[dict]:
+        try:
+            for p in procs:
+                p.wait(timeout=timeout)
+        finally:
+            for p in procs:
+                p.kill()
+        for p, log in zip(procs, logs):
+            with open(log) as f:
+                assert p.returncode == 0, f.read()[-4000:]
+        results = []
+        for r in (0, 1):
+            with open(f"{out}.{r}", "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+    return wait
+
+
+def run_two_processes(tmp_dir, cases: list, timeout: float = 300.0) -> list[dict]:
+    """start_two_processes and wait for the results."""
+    return start_two_processes(tmp_dir, cases, timeout)()
