@@ -252,13 +252,37 @@ Phases (any failure raises and exits non-zero):
      channels a group) in bf16 and fp32; (e) a DiT of dim_head 96 on every
      attn_path and attn_int8 mode: no attention kernel launches, sdpa equal
      to the plain bf16 attention.
+ 14. the evaluation harness and the measuring scripts, run before phase 6:
+     (a) ECAPA-TDNN at EcapaConfig()'s widths (80 features, 512 channels,
+     192 dims) on 3 s of noisy 24 kHz audio resampled to 16 kHz: the card's
+     fp32 embedding within rel 1e-4 of the CPU's with cuDNN's process-wide
+     TF32 switch on (the encoder turns it off for its own call and restores
+     it), the TF32 control printed beside it and required to fail the
+     bound; (b) eval.evaluate_korean.evaluate_one_model on F5TTS_v1_Base
+     (bf16, a kor_grapheme vocabulary) for 2 Korean rows at nfe_step 32 with
+     an echo transcriber (CER and WER 0) and ECAPA's embed_fn (SIM), the
+     summary printed, A, B 22 x 32 and C 2 x 32 launches a chunk exactly, a
+     second call adding no row and launching nothing; (d)
+     get_inference_prompt and synthesize_bucket on 3 prompts of mixed
+     duration in one bucket, two duration groups (one of two items): each
+     item's mel against the same item run alone (5e-2), launches per group
+     exact; (c) evaluate_korean.main over kor_grapheme and kor_allophone at
+     one checkpoint each, .npz files of seeded F5TTS_Base weights at each
+     mode's vocabulary size (fp32, as main loads them: the fp32 forms of A,
+     B, C, exact); (e) bench_serving_throughput (concurrency 1 and 2, 4
+     requests, 10 s generated), bench_mixed_batch (batch 4, 2 iterations,
+     bf16 and --int8), profile_serving_request (2 repetitions) and
+     bench_grpc_live on its in-process client (n 4), each through its main
+     on the card, each printing its JSON line(s), each required to launch
+     its path's kernels.
 Serving, the training steps, bench_train, offline inference and the LoRA
 run go the full depth of 22 blocks; only the Trainer runs of phases 6 and
 10(d) are cut to 4 and the fp32 step against the CPU to 2 (nothing else was
 cut when phases 9, 10 and 6's fp32 path were added). The line before the
 last is a JSON object with the kernels' numbers (launches: the serving runs
 of phases 3, 7 and 9(a), the backward entry point, the Trainer's 4 updates,
-phase 8 and phase 10); the last line is {"ok": true, "device": {...}}.
+phase 8, phase 10 and phase 14 (b)-(d)); the last line is {"ok": true,
+"device": {...}}.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -6449,9 +6473,321 @@ def phase13_head_dim128(dev, card: str) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the evaluation harness and the measuring scripts
+# ---------------------------------------------------------------------------
+
+ECAPA_REL = 1e-4  # the card's fp32 embedding against the CPU's
+ALONE_REL = 5e-2  # a batched item against the same item run alone, bf16
+P14_NFE = 32      # the eval harness's default nfe_step
+GRID_NFE = 16     # the grid's cells (c), one utterance each per test row
+KOREAN_ROWS = ["안녕하세요, 오늘은 평가 문장을 읽어 보겠습니다.", "국물이 정말 맛있어서 같이 먹었어요!"]
+KOREAN_REFS = ["첫 번째 참조 음성의 전사입니다.", "두 번째 참조 문장이에요!", "세 번째 참조는 조금 더 길어요?"]
+GRID_MODES = ("kor_grapheme", "kor_allophone")
+
+
+def speech_like(seconds: float, seed: int, f0: float = 150.0):
+    """A chirp over a noise floor at 24 kHz (seeded)."""
+    import numpy as np
+
+    t = np.arange(int(seconds * SR)) / SR
+    noise = np.random.default_rng(seed).standard_normal(t.size)
+    return (0.3 * (np.sin(2 * np.pi * (f0 + 300.0 * t) * t) + 0.1 * noise)).astype(np.float32)
+
+
+def mode_vocab(mode: str, path: Path) -> int:
+    """The tokens of every phase-14 text under `mode` (N2gk+ normalised), as
+    a vocab file; returns its size."""
+    from korean_f5_tts_tpu_torch.train.datasets.prepare import build_vocab, tokenize_rows
+
+    vocab = build_vocab(tokenize_rows([{"text": t} for t in KOREAN_ROWS + KOREAN_REFS], mode,
+                                      use_n2gk_plus=True))
+    path.write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    return len(vocab)
+
+
+def chunks_of(ref_path: str, ref_text: str, text: str) -> int:
+    """How many chunks infer_process splits `text` into for this reference."""
+    from korean_f5_tts_tpu_torch.infer.utils_infer import chunk_text, preprocess_ref_audio_text
+
+    (wav, sr), ref_text = preprocess_ref_audio_text(ref_path, ref_text, show_info=lambda *a: None)
+    secs = len(wav) / sr
+    return len(chunk_text(text, int(len(ref_text.encode("utf-8")) / secs * (22 - secs))))
+
+
+def eval_launches(chunks: int, nfe: int, f32: bool = False) -> dict[str, int]:
+    """A, B, C per chunk of a DiT of DEPTH blocks at nfe steps (CFG as one batch)."""
+    sfx = "_f32" if f32 else ""
+    return launches_of(**{f"flash_prefix{sfx}": DEPTH * nfe * chunks,
+                          f"ff_block{sfx}": DEPTH * nfe * chunks,
+                          f"grouped_conv{sfx}": 2 * nfe * chunks})
+
+
+def phase14_ecapa(dev, card: str):
+    """(a) ECAPA-TDNN at EcapaConfig()'s widths: 3 s of noisy 24 kHz audio
+    resampled to 16 kHz, the card's embedding against the CPU's in fp32, with
+    cuDNN's process-wide TF32 switch on (PyTorch's default), which the
+    encoder turns off for its own call; the TF32 control must fail the
+    bound. Returns the card's embed_fn for run_sim."""
+    import numpy as np
+    import torch
+
+    from korean_f5_tts_tpu_torch.eval.ecapa_tdnn import (
+        EcapaConfig,
+        ecapa_embed,
+        init_ecapa,
+        make_embed_fn,
+    )
+
+    cfg = EcapaConfig()
+    params = init_ecapa(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    wav = speech_like(3.0, seed=3)
+    want = make_embed_fn(_to_device(params, torch.device("cpu")), cfg)(wav, SR)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, which the script turned off
+    try:
+        got = make_embed_fn(params, cfg)(wav, SR)
+        restored = torch.backends.cudnn.allow_tf32
+        control = make_embed_fn(params, cfg, tf32=True)(wav, SR)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    err_tf32 = float(np.linalg.norm(control - want) / np.linalg.norm(want))
+    feats = torch.randn((1, 301, cfg.feat_dim), device=dev)
+    with torch.inference_mode():
+        ms = cuda_time_ms(lambda: ecapa_embed(params, feats, cfg), runs=10)
+    print(f"phase 14 (a) ECAPA-TDNN {cfg}: embedding {got.shape} of 3 s at 24 kHz -> 16 kHz, "
+          f"card vs CPU fp32 rel {err:.3e} (bound {ECAPA_REL:.0e}), TF32 convolutions control "
+          f"rel {err_tf32:.3e} (must fail the bound); cuDNN's switch back on after the call: "
+          f"{restored}; {ms:.3f} ms a 3 s embedding on the card [{card}]")
+    if got.shape != (cfg.emb_dim,) or not np.isfinite(got).all() or err > ECAPA_REL:
+        fail("ECAPA-TDNN: the card's fp32 embedding disagrees with the CPU's")
+    if err_tf32 <= ECAPA_REL:
+        fail("ECAPA-TDNN: the TF32 control passes the bound, which would not tell TF32 apart")
+    if restored is not True:
+        fail("ECAPA-TDNN: cuDNN's TF32 switch was not restored after the call")
+    return make_embed_fn(params, cfg)
+
+
+def phase14_eval(dev, card: str) -> dict[str, int]:
+    """Phase 14: the evaluation harness (eval/) and the four measuring scripts
+    at F5TTS_v1_Base's full width on seeded weights (AdaLN-zero re-drawn)."""
+    import csv
+    import dataclasses
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from korean_f5_tts_tpu_torch.config import preset_model_config
+    from korean_f5_tts_tpu_torch.eval import eval_infer_batch, evaluate_korean
+    from korean_f5_tts_tpu_torch.infer.model import load_model
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.models.vocos import Vocos, VocosConfig, init_vocos
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.scripts import (
+        bench_grpc_live,
+        bench_mixed_batch,
+        bench_serving_throughput,
+        profile_serving_request,
+    )
+    from korean_f5_tts_tpu_torch.text.vocab import list_str_to_idx, tokenize_text
+    from korean_f5_tts_tpu_torch.train.checkpoint import params_to_jax
+    from korean_f5_tts_tpu_torch.utils.audio import save_wav
+
+    t_all = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    embed_fn = phase14_ecapa(dev, card)
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    refs = []
+    for i, secs in enumerate((2.5, 3.0, 3.5)):
+        refs.append(str(tmp / f"ref{i}.wav"))
+        save_wav(refs[i], speech_like(secs, seed=10 + i, f0=140.0 + 30 * i), SR)
+    train = [{"audio_path": refs[i], "text": t, "duration": 3.5 + i}
+             for i, t in enumerate(KOREAN_REFS)]
+    test = [{"utt": f"t{i:04d}", "text": t} for i, t in enumerate(KOREAN_ROWS)]
+    mapping = evaluate_korean.build_reference_mapping(test, train)
+    chunks = sum(chunks_of(mapping[r["utt"]]["audio_path"], mapping[r["utt"]]["text"], r["text"])
+                 for r in test)
+
+    # (b) evaluate_one_model on F5TTS_v1_Base (bf16, a kor_grapheme vocabulary)
+    vocab_size = mode_vocab("kor_grapheme", tmp / "vocab.txt")
+    model = load_model(preset_model_config("F5TTS_v1_Base"), vocab_file=str(tmp / "vocab.txt"),
+                       tokenizer="kor_grapheme", dtype=torch.bfloat16, seed=0, device=dev)
+    redraw_zero_init(model.params, seed=1)
+    if (model.arch.dim, model.arch.depth, model.arch.heads) != (1024, DEPTH, 16):
+        fail(f"phase 14: expected F5TTS_v1_Base's widths, got {model.arch}")
+    vcfg = VocosConfig()
+    vocoder = Vocos(init_vocos(vcfg, seed=1, device=dev, dtype=torch.bfloat16), vcfg)
+    texts = {r["utt"]: r["text"] for r in test}
+
+    def echo(path: str) -> str:  # an ASR that hears the ground truth
+        return texts[Path(path).stem]
+
+    out_dir = str(tmp / "cell")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = evaluate_korean.evaluate_one_model(model, vocoder, test, mapping, out_dir,
+                                                 nfe_step=P14_NFE, transcribe_fn=echo,
+                                                 embed_fn=embed_fn, seed=5)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = eval_launches(chunks, P14_NFE)
+    rows = list(csv.DictReader(open(Path(out_dir) / "details.csv", encoding="utf-8")))
+    print(f"phase 14 (b) evaluate_one_model, F5TTS_v1_Base bf16, kor_grapheme vocab of "
+          f"{vocab_size}, {len(test)} Korean rows ({chunks} chunks) at nfe_step {P14_NFE}, "
+          f"echo transcriber and ECAPA SIM: {time.perf_counter() - t0:.2f} s [{card}]")
+    print("  summary: " + json.dumps(summary, ensure_ascii=False))
+    print(f"  launches {counts} (expected {want})")
+    if summary.get("cer") != 0.0 or summary.get("wer") != 0.0 or summary.get("n") != len(test):
+        fail("evaluate_one_model: CER and WER under the echo transcriber are not 0")
+    if not -1.0 <= summary.get("sim", 2.0) <= 1.0 or len(rows) != len(test):
+        fail("evaluate_one_model: no speaker similarity, or a row is missing from details.csv")
+    if counts != want:
+        fail("evaluate_one_model: the kernels did not run as often as the chunks require")
+    for name, n in counts.items():
+        total[name] += n
+    for row in rows:
+        wav = wavfile.read(Path(out_dir) / f"{row['utt']}.wav")[1].astype(np.float64)
+        if wav.size < 50 * HOP or not np.abs(wav).max() > 0:
+            fail(f"evaluate_one_model: {row['utt']}.wav holds no audio")
+    reset_launch_counts()
+    again = evaluate_korean.evaluate_one_model(model, vocoder, test, mapping, out_dir,
+                                               nfe_step=P14_NFE, transcribe_fn=echo, seed=5)
+    rows_again = list(csv.DictReader(open(Path(out_dir) / "details.csv", encoding="utf-8")))
+    print(f"  a second call (resumed): {len(rows_again)} rows in details.csv (was {len(rows)}), "
+          f"launches {sum(launch_counts().values())}, cer {again.get('cer')}")
+    if rows_again != rows or sum(launch_counts().values()) != 0:
+        fail("evaluate_one_model: a second call synthesized again or added rows")
+
+    # (d) get_inference_prompt and synthesize_bucket: 3 prompts of mixed duration
+    # repeats chosen so that b0 and b2 share a 128-frame duration group and b1
+    # runs in a group of its own
+    meta = [(f"b{i}", KOREAN_REFS[i], refs[i], (KOREAN_ROWS[i % 2] + " ") * reps)
+            for i, reps in enumerate((3, 1, 2))]
+    prompts = eval_infer_batch.get_inference_prompt(meta, num_buckets=1, min_secs=1.0,
+                                                    max_secs=40.0)
+    bucket = prompts[0]
+    lens = np.array([model.mel_of_wav(it["ref_wav"]).shape[0] for it in bucket])
+    ids = list_str_to_idx(tokenize_text([it["ref_text"] + " " + it["gen_text"] for it in bucket],
+                                        tokenizer_type=model.tokenizer_type,
+                                        vocab=model.vocab_char_map),
+                          model.vocab_char_map)
+    dur = np.maximum(np.maximum((ids != -1).sum(-1), lens) + 1,
+                     [it["total_frames"] for it in bucket])
+    groups = len(np.unique(-(-dur // 128)))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mels = eval_infer_batch.synthesize_bucket(bucket, model, vocoder, str(tmp / "bucket"),
+                                              nfe_step=P14_NFE, seed=11)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = eval_launches(groups, P14_NFE)
+    errs = {}
+    for it in bucket:
+        alone = eval_infer_batch.synthesize_bucket([it], model, None, str(tmp / "alone"),
+                                                   nfe_step=P14_NFE, seed=11)
+        a, b = mels[it["utt"]], alone[it["utt"]]
+        errs[it["utt"]] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    print(f"phase 14 (d) synthesize_bucket: {len(bucket)} prompts in one get_inference_prompt "
+          f"bucket, durations {dur.tolist()} frames in {groups} duration groups, "
+          f"{time.perf_counter() - t0:.2f} s with the items alone [{card}]; each item vs the same "
+          f"item alone rel {json.dumps(errs)} (bound {ALONE_REL:.0e}); launches {counts} "
+          f"(expected {want})")
+    if len(prompts) != 1 or len(bucket) != 3 or groups != 2:
+        fail("synthesize_bucket: the 3 prompts should share one bucket and fall into two "
+             "duration groups, one of them of two items")
+    if max(errs.values()) > ALONE_REL or not all(np.isfinite(m).all() for m in mels.values()):
+        fail("synthesize_bucket: a batched item disagrees with the same item run alone")
+    if counts != want:
+        fail("synthesize_bucket: the kernels did not run as often as the groups require")
+    for name, n in counts.items():
+        total[name] += n
+    del model, vocoder
+    torch.cuda.empty_cache()
+
+    # (c) the tokenizer grid through evaluate_korean's main: two modes, one
+    # checkpoint each, seeded F5TTS_Base weights at each mode's vocabulary size
+    root = tmp / "ckpts"
+    sizes = {}
+    t0 = time.perf_counter()
+    for i, mode in enumerate(GRID_MODES):
+        (root / mode).mkdir(parents=True)
+        sizes[mode] = mode_vocab(mode, root / mode / "vocab.txt")
+        arch = dataclasses.replace(preset_model_config("F5TTS_Base").arch,
+                                   text_num_embeds=sizes[mode] + 1)
+        params = redraw_zero_init(init_dit(arch, seed=20 + i, device=dev), seed=21 + i)
+        np.savez(root / mode / "model_1.npz",
+                 **{f"params/{k}": v for k, v in params_to_jax(params).items()})
+        del params
+    written = time.perf_counter() - t0
+    for name, rows_ in (("test.jsonl", [{"audio_path": "", "text": r["text"]} for r in test]),
+                        ("train.jsonl", train)):
+        with open(tmp / name, "w", encoding="utf-8") as f:
+            f.writelines(json.dumps(r, ensure_ascii=False) + "\n" for r in rows_)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    grid = evaluate_korean.main([
+        "--test_metadata", str(tmp / "test.jsonl"), "--train_metadata", str(tmp / "train.jsonl"),
+        "--ckpt_root", str(root), "--modes", *GRID_MODES, "--steps", "1",
+        "--results_dir", str(tmp / "grid"), "--nfe_step", str(GRID_NFE)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = eval_launches(len(GRID_MODES) * chunks, GRID_NFE, f32=True)
+    print(f"phase 14 (c) evaluate_korean.main over {list(GRID_MODES)} at step 1 (F5TTS_Base fp32, "
+          f"vocab sizes {sizes}), nfe_step {GRID_NFE}: {time.perf_counter() - t0:.2f} s, the two "
+          f".npz written in {written:.2f} s [{card}]")
+    for r in grid:
+        print("  " + json.dumps(r, ensure_ascii=False))
+    print(f"  launches {counts} (expected {want})")
+    if [(r["mode"], r["step"], r["n"]) for r in grid] != [(m, 1, len(test)) for m in GRID_MODES]:
+        fail("run_grid: a cell of the grid is missing")
+    if len(set(sizes.values())) != len(GRID_MODES):
+        fail("run_grid: the modes should have vocabularies of their own sizes")
+    if counts != want:
+        fail("run_grid: the fp32 kernels did not run as often as the cells' chunks require")
+    for name, n in counts.items():
+        total[name] += n
+    tmp_dir.cleanup()
+    torch.cuda.empty_cache()
+
+    # (e) the four measuring scripts at small counts, each through its main
+    def script(label: str, main, argv, must: tuple[str, ...]) -> None:
+        print(f"phase 14 (e) {label} [{card}]:", flush=True)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"  {time.perf_counter() - t0:.2f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        if not all(counts[k] > 0 for k in must):
+            fail(f"{label}: the kernels {must} did not all run")
+        torch.cuda.empty_cache()
+
+    bf16 = ("flash_prefix", "ff_block", "grouped_conv")
+    int8 = ("flash_prefix", "ff_block_int8", "ln_mod_matmul_int8", "proj_gated_residual_int8",
+            "qmatmul", "grouped_conv")
+    script("bench_serving_throughput, concurrency 1 and 2, 4 requests of 10 s",
+           bench_serving_throughput.main, ["--concurrency", "1", "2", "--n_requests", "4",
+                                           "--gen_seconds", "10"], bf16)
+    script("bench_mixed_batch, batch 4, 2 iterations, bf16", bench_mixed_batch.main,
+           ["--batch", "4", "--iters", "2"], bf16)
+    script("bench_mixed_batch, batch 4, 2 iterations, int8", bench_mixed_batch.main,
+           ["--batch", "4", "--iters", "2", "--int8"], int8)
+    script("profile_serving_request, 2 repetitions", profile_serving_request.main,
+           ["--reps", "2"], bf16)
+    script("bench_grpc_live on the in-process client, n 4", bench_grpc_live.main,
+           ["--in_process", "--n", "4"], bf16)
+    print(f"phase 14: {time.perf_counter() - t_all:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, an int8 "
@@ -6625,6 +6961,11 @@ def main(argv=None) -> int:
             counts[name] += n
         torch.cuda.empty_cache()
         mark("13")
+    if 14 in phases:  # before 6: the profiler slows every launch after it
+        for name, n in phase14_eval(dev, card).items():
+            counts[name] += n
+        torch.cuda.empty_cache()
+        mark("14")
     lora_profile = None
     if 10 in phases:  # before 6: the profiler slows every launch after it
         phase10_counts, lora_profile = phase10_finetune(dev, card)

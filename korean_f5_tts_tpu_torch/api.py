@@ -24,7 +24,7 @@ import sys
 import numpy as np
 import torch
 
-from korean_f5_tts_tpu_torch.config import PRESETS, load_model_config, preset_model_config
+from korean_f5_tts_tpu_torch.config import model_config_of
 from korean_f5_tts_tpu_torch.infer.model import TTSModel, load_model
 from korean_f5_tts_tpu_torch.infer.utils_infer import (
     infer_process,
@@ -82,12 +82,7 @@ class F5TTS:
         seed: int = 0,
         quantize: bool = False,
     ):
-        if model in PRESETS:
-            model_cfg = preset_model_config(model)
-        elif os.path.exists(model):
-            model_cfg = load_model_config(model)
-        else:
-            raise ValueError(f"unknown model {model}; presets: {sorted(PRESETS)}")
+        model_cfg = model_config_of(model)
         if ode_method != "euler":
             raise ValueError("euler is the supported ODE method")
         self.mel_spec_type = model_cfg.mel.mel_spec_type

@@ -173,3 +173,14 @@ def load_model_config(path: str) -> ModelConfig:
 
     with open(path, "r", encoding="utf-8") as f:
         return model_config_from_dict(yaml.safe_load(f))
+
+
+def model_config_of(model: str) -> ModelConfig:
+    """A preset's ModelConfig by name, or a model config yaml by path."""
+    import os
+
+    if model in PRESETS:
+        return preset_model_config(model)
+    if os.path.exists(model):
+        return load_model_config(model)
+    raise ValueError(f"unknown model {model}; presets: {sorted(PRESETS)}")

@@ -1,0 +1,81 @@
+"""Seed-TTS testset WER/SIM scoring (counterpart of
+korean_f5_tts_tpu/eval/eval_seedtts_testset.py).
+
+Parity with reference `src/f5_tts/eval/eval_seedtts_testset.py` (per-GPU
+mp.Pool WER/SIM jobs writing `_wer_results.jsonl` / `_sim_results.jsonl`).
+ASR / speaker models are injected; funasr paraformer-zh / faster-whisper /
+WavLM weights are not downloaded. `main --eval_task sim --ecapa_params x.npz`
+scores SIM with eval/ecapa_tdnn.py's encoder on `--device` (the card unless
+the caller names the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from korean_f5_tts_tpu_torch.eval.utils_eval import (
+    get_seedtts_testset_metainfo,
+    run_asr_wer,
+    run_sim,
+    split_jobs,
+)
+
+
+def evaluate(
+    metalst: str, gen_wav_dir: str, eval_task: str = "wer", lang: str = "zh",
+    transcribe_fn=None, embed_fn=None, num_shards: int = 1, shard_id: int = 0,
+) -> dict:
+    meta = split_jobs(get_seedtts_testset_metainfo(metalst), num_shards, shard_id)
+    out_path = os.path.join(gen_wav_dir, f"_{eval_task}_results.jsonl")
+    if eval_task == "wer":
+        if transcribe_fn is None:
+            raise RuntimeError(
+                "WER needs an ASR backend; pass transcribe_fn (offline image has "
+                "no downloadable funasr/faster-whisper weights)"
+            )
+        results = run_asr_wer(lang, gen_wav_dir, meta, transcribe_fn)
+        key = "wer"
+    elif eval_task == "sim":
+        if embed_fn is None:
+            raise RuntimeError("SIM needs a speaker-embedding backend; pass embed_fn")
+        results = run_sim(gen_wav_dir, meta, embed_fn)
+        key = "sim"
+    else:
+        raise ValueError(eval_task)
+    with open(out_path, "w", encoding="utf-8") as f:
+        for r in results:
+            f.write(json.dumps(r, ensure_ascii=False) + "\n")
+    mean = float(np.mean([r[key] for r in results])) if results else float("nan")
+    print(f"{eval_task}: {mean:.4f} over {len(results)} utts -> {out_path}")
+    return {"task": eval_task, "mean": mean, "n": len(results), "out": out_path}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--eval_task", default="wer", choices=["wer", "sim"])
+    p.add_argument("--lang", default="zh", choices=["zh", "en"])
+    p.add_argument("--metalst", required=True)
+    p.add_argument("--gen_wav_dir", required=True)
+    p.add_argument("--num_shards", type=int, default=1)
+    p.add_argument("--shard_id", type=int, default=0)
+    p.add_argument("--ecapa_params", default=None,
+                   help="trained ECAPA-TDNN .npz (JAX layout): the SIM backend")
+    p.add_argument("--device", default="cuda",
+                   help="device of the ECAPA encoder: cuda (default; raises without a card) "
+                        "or cpu")
+    args = p.parse_args(argv)
+    embed_fn = None
+    if args.ecapa_params:
+        from korean_f5_tts_tpu_torch.eval.ecapa_tdnn import load_ecapa_embed_fn
+
+        embed_fn = load_ecapa_embed_fn(args.ecapa_params, device=args.device)
+    return evaluate(args.metalst, args.gen_wav_dir, args.eval_task, args.lang,
+                    embed_fn=embed_fn, num_shards=args.num_shards, shard_id=args.shard_id)
+
+
+if __name__ == "__main__":
+    main()

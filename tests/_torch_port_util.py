@@ -198,3 +198,42 @@ def start_two_processes(tmp_dir, cases: list, timeout: float = 300.0):
 def run_two_processes(tmp_dir, cases: list, timeout: float = 300.0) -> list[dict]:
     """start_two_processes and wait for the results."""
     return start_two_processes(tmp_dir, cases, timeout)()
+
+
+# --- the eval and measuring entry points on the CPU (tests/test_torch_eval*.py) ---
+
+EVAL_ARCH = dict(dim=32, depth=2, heads=2, dim_head=16, ff_mult=2, text_dim=16, conv_layers=1,
+                 text_num_embeds=256)
+
+
+@functools.lru_cache(maxsize=1)
+def eval_main_files() -> dict[str, str]:
+    """Small inputs of the eval mains, written once per process into a fresh
+    temporary directory: a tiny DiT's model config yaml and .npz (AdaLN-zero
+    layers re-drawn), a tiny ECAPA-TDNN .npz, a reference wav, and empty
+    metadata files (a main given those loads its model and scores nothing)."""
+    import tempfile
+
+    import yaml
+
+    from korean_f5_tts_tpu_torch.eval.ecapa_tdnn import EcapaConfig, init_ecapa
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.train.checkpoint import params_to_jax
+
+    d = tempfile.mkdtemp(prefix="eval_mains_")
+    files = {"dir": d}
+    files["yaml"] = os.path.join(d, "tiny.yaml")
+    with open(files["yaml"], "w") as f:
+        yaml.safe_dump({"model": {"name": "tiny", "backbone": "DiT", "arch": EVAL_ARCH,
+                                  "tokenizer": "custom"}}, f)
+    params = redraw_zero_init(init_dit(DiTConfig(**EVAL_ARCH), seed=0, device="cpu"), seed=1)
+    files["npz"] = os.path.join(d, "tiny.npz")
+    np.savez(files["npz"], **{f"params/{k}": v for k, v in params_to_jax(params).items()})
+    ecapa = init_ecapa(torch.Generator().manual_seed(0),
+                       EcapaConfig(feat_dim=80, channels=16, emb_dim=12, res2_scale=4,
+                                   se_bottleneck=8, attn_bottleneck=8), device="cpu")
+    files["ecapa"] = os.path.join(d, "ecapa.npz")
+    np.savez(files["ecapa"], **params_to_jax(ecapa))
+    files["empty"] = os.path.join(d, "empty.txt")
+    open(files["empty"], "w").close()
+    return files

@@ -11,6 +11,8 @@ the JAX package's outputs; the buckets that the JAX package reads from
 environment variables are arguments in the port.
 """
 
+import os
+
 import numpy as np
 import pytest
 import yaml
@@ -19,7 +21,7 @@ import jax.numpy as jnp
 import torch
 from scipy.io import wavfile
 
-from _torch_port_util import rel_err, t, tiny_configs, tiny_dit, tiny_vocos
+from _torch_port_util import eval_main_files, rel_err, t, tiny_configs, tiny_dit, tiny_vocos
 from korean_f5_tts_tpu.infer import utils_infer as jinfer
 from korean_f5_tts_tpu.infer.model import TTSModel as JaxTTSModel
 from korean_f5_tts_tpu.models import cfm as jcfm
@@ -322,6 +324,52 @@ ON_THE_CARD_BY_DEFAULT = {
         {"b": torch.zeros(2)}, **kw),
     "load_vocoder": lambda **kw: papi.load_vocoder(**kw),
 }
+
+
+def _main_on(module: str, argv):
+    """An entry point's main with the arguments argv(eval_main_files())
+    gives, and `--device` from the call's keyword (none: the main's own
+    default)."""
+    def call(**kw):
+        import importlib
+
+        main = importlib.import_module(f"korean_f5_tts_tpu_torch.{module}").main
+        return main(argv(eval_main_files()) + (["--device", kw["device"]] if kw else []))
+
+    return call
+
+
+ON_THE_CARD_BY_DEFAULT.update({
+    "evaluate_korean.main": _main_on("eval.evaluate_korean", lambda f: [
+        "--test_metadata", f["empty"], "--train_metadata", f["empty"], "--modes",
+        "--results_dir", os.path.join(f["dir"], "grid")]),
+    "validate_models.main": _main_on("eval.validate_models", lambda f: [
+        "--val_metadata", f["empty"], "--modes", "--results_dir", os.path.join(f["dir"], "val")]),
+    "evaluate_coreaspeech.main": _main_on("eval.evaluate_coreaspeech", lambda f: [
+        "--valid_metadata", f["empty"], "--train_metadata", f["empty"], "--ckpt_file", f["npz"],
+        "--model", f["yaml"], "--out_dir", os.path.join(f["dir"], "corea")]),
+    "evaluate_kub.main": _main_on("eval.evaluate_kub", lambda f: [
+        "--test_list", f["empty"], "--data_root", f["dir"], "--ckpt_file", f["npz"],
+        "--model", f["yaml"], "--out_dir", os.path.join(f["dir"], "kub")]),
+    "eval_infer_batch.main": _main_on("eval.eval_infer_batch", lambda f: [
+        "-t", "seedtts_test_zh", "--metalst", f["empty"], "--ckpt_file", f["npz"],
+        "--expname", f["yaml"], "--output_dir", os.path.join(f["dir"], "batch")]),
+    "eval_seedtts_testset.main": _main_on("eval.eval_seedtts_testset", lambda f: [
+        "--eval_task", "sim", "--metalst", f["empty"], "--gen_wav_dir", f["dir"],
+        "--ecapa_params", f["ecapa"]]),
+    "eval_librispeech_test_clean.main": _main_on("eval.eval_librispeech_test_clean", lambda f: [
+        "--eval_task", "sim", "--metalst", f["empty"], "--librispeech_test_clean_path", f["dir"],
+        "--gen_wav_dir", f["dir"], "--ecapa_params", f["ecapa"]]),
+    "bench_mixed_batch.main": _main_on("scripts.bench_mixed_batch", lambda f: [
+        "--tiny", "--batch", "1", "--iters", "1", "--steps", "1"]),
+    "profile_serving_request.main": _main_on("scripts.profile_serving_request", lambda f: [
+        "--tiny", "--reps", "0", "--nfe_step", "1"]),
+    "bench_serving_throughput.main": _main_on("scripts.bench_serving_throughput", lambda f: [
+        "--tiny", "--n_requests", "1", "--concurrency", "1", "--nfe_step", "1",
+        "--gen_seconds", "1"]),
+    "bench_grpc_live.main": _main_on("scripts.bench_grpc_live", lambda f: [
+        "--in_process", "--tiny", "--n", "1", "--warm", "0", "--nfe_step", "1"]),
+})
 
 
 @pytest.mark.parametrize("name", sorted(ON_THE_CARD_BY_DEFAULT))
