@@ -275,13 +275,37 @@ Phases (any failure raises and exits non-zero):
      bench_grpc_live on its in-process client (n 4), each through its main
      on the card, each printing its JSON line(s), each required to launch
      its path's kernels.
+ 15. the fine-tuning studio and the inference UI, run before phase 6, in a
+     temporary working directory: (a) a 29.4 s noisy 24 kHz recording with
+     four pauses sliced by FinetuneProject.slice_audio (five clips),
+     transcribed by an injected function (fixed Korean sentences),
+     prepare_arrow (kor_grapheme) and vocab_check ("You can train using
+     your language !"), calculate_train for the card's memory printed; (b)
+     start_training: a finetune_cli child on the card from a seeded
+     F5TTS_v1_Base .npz (params and EMA) for 2 updates of up to 3,000
+     frames (fp32, full depth), its JSON report held to device cuda and
+     exactly the launches of 2 updates (10, 11, 13 fp32, 22 each an update:
+     the preset trains without remat), its wall time and peak memory beside
+     calculate_train's suggestion; a second child stopped by stop_training,
+     no process of its session left; (c) the studio's Prune tab (through
+     utils/gradio_stub.py) on the child's model_last.npz: only the EMA
+     weights, equal to the source's; (d) test_model_infer on the pruned
+     file at 16 NFE, exact launches, its wav against kernels=False within
+     1e-4; (e) infer_gradio.build_app on the pruned file under the stub:
+     Basic TTS, Multi-Speech-Type with two voices (each segment equal to
+     infer_process of it alone with the seed the cherry-pick lines report)
+     and a voice-chat turn with an injected chat backend, exact launches
+     each; (f) socket_client.request_tts against the port's socket server
+     on the same model: the samples equal what the server streamed, exact
+     launches.
 Serving, the training steps, bench_train, offline inference and the LoRA
 run go the full depth of 22 blocks; only the Trainer runs of phases 6 and
 10(d) are cut to 4 and the fp32 step against the CPU to 2 (nothing else was
 cut when phases 9, 10 and 6's fp32 path were added). The line before the
 last is a JSON object with the kernels' numbers (launches: the serving runs
 of phases 3, 7 and 9(a), the backward entry point, the Trainer's 4 updates,
-phase 8, phase 10 and phase 14 (b)-(d)); the last line is {"ok": true,
+phase 8, phase 10, phase 14 (b)-(d) and phase 15, the child's reported
+launches among them); the last line is {"ok": true,
 "device": {...}}.
 
     python3 chip_smoke.py --ab PARENT
@@ -6507,12 +6531,21 @@ def mode_vocab(mode: str, path: Path) -> int:
 
 
 def chunks_of(ref_path: str, ref_text: str, text: str) -> int:
-    """How many chunks infer_process splits `text` into for this reference."""
-    from korean_f5_tts_tpu_torch.infer.utils_infer import chunk_text, preprocess_ref_audio_text
+    """How many chunks infer_process splits `text` into for this reference,
+    once preprocess_ref_audio_text has clipped it and closed its transcript."""
+    from korean_f5_tts_tpu_torch.infer.utils_infer import preprocess_ref_audio_text
 
     (wav, sr), ref_text = preprocess_ref_audio_text(ref_path, ref_text, show_info=lambda *a: None)
-    secs = len(wav) / sr
-    return len(chunk_text(text, int(len(ref_text.encode("utf-8")) / secs * (22 - secs))))
+    return chunk_count(len(wav) / sr, ref_text, text)
+
+
+def chunk_count(secs: float, ref_text: str, text: str, speed: float = 1.0) -> int:
+    """How many chunks infer_process splits `text` into for a reference of
+    `secs` seconds and this transcript (utils_infer.infer_process's
+    max_chars)."""
+    from korean_f5_tts_tpu_torch.infer.utils_infer import chunk_text
+
+    return len(chunk_text(text, int(len(ref_text.encode("utf-8")) / secs * (22 - secs) * speed)))
 
 
 def eval_launches(chunks: int, nfe: int, f32: bool = False) -> dict[str, int]:
@@ -6785,9 +6818,407 @@ def phase14_eval(dev, card: str) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the fine-tuning studio and the inference UI
+# ---------------------------------------------------------------------------
+
+STUDIO_MODE = "kor_grapheme"
+STUDIO_SENTENCES = ["안녕하세요, 오늘은 제 목소리를 녹음합니다.", "국물이 정말 맛있어서 같이 먹었어요!",
+                    "신라의 역사는 아주 길어요.", "값이 얼마인지 물어봐도 될까요?",
+                    "내일은 날씨가 맑겠습니다."]
+STUDIO_TEXTS = ["짧은 문장을 말해 볼게요.", "두 번째 목소리로 말합니다!"]
+STUDIO_FRAMES = 3_000  # the child's frame batch: all five clips of (a) in one batch
+STUDIO_UPDATES = 2
+STUDIO_NFE = 16
+STUDIO_CHILD_TIMEOUT = 420.0
+
+
+def studio_recording(seed: int = 0):
+    """About 29 s of noisy 24 kHz speech-like audio: five segments of 4.8-5.2
+    s separated by four pauses of 1.1 s at -80 dB."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1000)
+    parts = []
+    for i, secs in enumerate((5.2, 5.0, 4.8, 5.1, 4.9)):
+        if i:
+            parts.append((1e-4 * rng.standard_normal(int(1.1 * SR))).astype(np.float32))
+        parts.append(speech_like(secs, seed + i, 140.0 + 25 * i))
+    return np.concatenate(parts)
+
+
+def finetune_launches(steps: int, depth: int, remat: bool) -> dict[str, int]:
+    """The fp32 forms' launches of `steps` Trainer updates (fp32, no compute
+    dtype): per block kernel 10 in the forward (and again in the backward's
+    recompute under remat), 11 and 13 once in the backward; nothing else."""
+    return launches_of(flash_prefix_lse_f32=(2 if remat else 1) * depth * steps,
+                       flash_prefix_dq_lsein_f32=depth * steps,
+                       flash_prefix_dkv_f32=depth * steps)
+
+
+def phase15_studio(dev, card: str) -> dict[str, int]:
+    """Phase 15: the fine-tuning studio (train/finetune_gradio.py) from a
+    sliced recording to a fine-tuned F5TTS_v1_Base that speaks through the
+    inference UI (infer/infer_gradio.py) and the socket client, in a
+    temporary working directory."""
+    import dataclasses
+    import inspect
+    import os
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from korean_f5_tts_tpu_torch import socket_client, socket_server
+    from korean_f5_tts_tpu_torch.api import load_vocoder
+    from korean_f5_tts_tpu_torch.config import preset_model_config
+    from korean_f5_tts_tpu_torch.infer import infer_gradio
+    from korean_f5_tts_tpu_torch.infer.utils_infer import infer_process
+    from korean_f5_tts_tpu_torch.models.dit import init_dit, redraw_zero_init
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.text.vocab import load_vocab_file
+    from korean_f5_tts_tpu_torch.train import finetune_gradio
+    from korean_f5_tts_tpu_torch.train.checkpoint import params_to_jax
+    from korean_f5_tts_tpu_torch.utils import gradio_stub
+    from korean_f5_tts_tpu_torch.utils.audio import load_wav, save_wav, to_mono
+
+    t_all = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    cwd = os.getcwd()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    os.chdir(tmp)
+
+    def add(counts: dict[str, int]) -> None:
+        for name, n in counts.items():
+            total[name] += n
+
+    def fp32_launches(chunks: int, nfe: int = STUDIO_NFE) -> dict[str, int]:
+        return eval_launches(chunks, nfe, f32=True)
+
+    try:
+        # (a) the project: slice, transcribe, prepare, check, suggest
+        t0 = time.perf_counter()
+        rec = studio_recording()
+        save_wav(str(tmp / "recording.wav"), rec, SR)
+        proj = finetune_gradio.FinetuneProject("voice", device=dev)
+        proj.create()
+        clips = proj.slice_audio(str(tmp / "recording.wav"))
+        secs = [load_wav(c)[0].shape[-1] / SR for c in clips]
+        texts = dict(zip((os.path.basename(c) for c in clips), STUDIO_SENTENCES))
+        proj.transcribe_all(lambda path: texts[os.path.basename(path)])
+        prepared = proj.prepare_arrow(tokenizer=STUDIO_MODE)
+        vocab_path = os.path.join(prepared, "vocab.txt")
+        check = finetune_gradio.vocab_check(proj.dir, vocab_path, STUDIO_MODE)
+        mem_gb = finetune_gradio.device_memory_gb(dev)
+        suggestion = finetune_gradio.calculate_train(prepared, gpu_memory_gb=mem_gb)
+        print(f"phase 15 (a) project: {len(rec) / SR:.2f} s recording sliced into {len(clips)} "
+              f"clips of {[round(s, 2) for s in secs]} s, transcribed, prepared into {prepared} "
+              f"({STUDIO_MODE}, {len(load_vocab_file(vocab_path))} tokens); vocab check "
+              f"{check[0]!r}; {time.perf_counter() - t0:.2f} s")
+        print(f"  calculate_train for the card's {mem_gb:.2f} GiB: {json.dumps(suggestion)} "
+              f"[{card}]")
+        if len(clips) != 5 or not all(4.5 < s < 7.0 for s in secs):
+            fail("slice_audio: expected five clips of about 5-6 s at the four pauses")
+        if check != ("You can train using your language !", ""):
+            fail("vocab_check: symbols of the transcripts are missing from the prepared vocab")
+        if suggestion.get("total_samples") != 5 or suggestion.get("batch_size_per_gpu", 0) < 30_000:
+            fail("calculate_train: no frame budget from the card's memory")
+
+        # (b) the training child: finetune_cli from a seeded .npz, 2 updates
+        vocab_size = len(load_vocab_file(vocab_path))
+        arch = dataclasses.replace(preset_model_config("F5TTS_v1_Base").arch,
+                                   text_num_embeds=vocab_size + 1)
+        t0 = time.perf_counter()
+        params = redraw_zero_init(init_dit(arch, seed=30, device=dev), seed=31)
+        # params and EMA, as the Trainer writes them: from a file without
+        # "ema_params/" the Trainer (JAX's too) runs without an EMA
+        flat = params_to_jax(params)
+        np.savez(tmp / "pretrained.npz", **{f"{tree}/{k}": v for tree in ("params", "ema_params")
+                                            for k, v in flat.items()})
+        del flat
+        del params
+        torch.cuda.empty_cache()
+        written = time.perf_counter() - t0
+        # one checkpoint write, the Trainer's own at --max_updates: a 5 GiB write
+        # took ~36 s on the card, and at a save and a last period of 2 the
+        # second update writes three (model_2 and model_last twice)
+        extra = (f"--pretrain {tmp / 'pretrained.npz'} --max_updates {STUDIO_UPDATES} "
+                 f"--batch_size_per_gpu {STUDIO_FRAMES} --save_per_updates {10**9} "
+                 f"--last_per_updates {10**9} --num_warmup_updates 1 "
+                 f"--learning_rate 1e-4 --logger none")
+        t0 = time.perf_counter()
+        pid = proj.start_training(exp_name="F5TTS_v1_Base", extra_args=extra,
+                                  tokenizer=STUDIO_MODE)
+        child = proj._proc
+        try:
+            out, _ = child.communicate(timeout=STUDIO_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proj.stop_training()
+            fail(f"finetune_cli did not finish within {STUDIO_CHILD_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        lines = out.decode("utf-8", "replace").strip().splitlines()
+        try:
+            report = json.loads(lines[-1]) if lines else {}
+        except json.JSONDecodeError:
+            report = {}
+        run_dir = tmp / "ckpts" / f"F5TTS_v1_Base_{STUDIO_MODE}_voice"
+        want = finetune_launches(STUDIO_UPDATES, arch.depth, arch.checkpoint_activations)
+        print(f"phase 15 (b) the studio's training child (pid {pid}, finetune_cli, F5TTS_v1_Base "
+              f"fp32, depth {arch.depth}, {STUDIO_UPDATES} updates of up to {STUDIO_FRAMES} "
+              f"frames, from a seeded .npz written in {written:.2f} s): exit "
+              f"{child.returncode}, {wall:.2f} s of wall, the child's own "
+              f"{report.get('seconds')} s; device {report.get('device')!r}, peak allocated "
+              f"{(report.get('max_memory_allocated') or 0) / 2**30:.2f} GiB (calculate_train "
+              f"suggests {suggestion['batch_size_per_gpu']} frames) [{card}]")
+        print(f"  files: {sorted(p.name for p in run_dir.iterdir()) if run_dir.is_dir() else []}")
+        print(f"  the child's launches: { {k: v for k, v in report.get('launches', {}).items() if v} } "
+              f"(expected { {k: v for k, v in want.items() if v} })")
+        if child.returncode != 0 or not report:
+            print("\n".join(lines[-40:]))
+            fail("finetune_cli exited with an error or printed no report")
+        if torch.device(report["device"]).type != "cuda" or report["steps"] != STUDIO_UPDATES:
+            fail("finetune_cli did not take its updates on the card")
+        if report["launches"] != want:
+            fail("finetune_cli: the kernels did not run as often as the updates require")
+        add(report["launches"])
+        if proj.is_training():
+            fail("is_training after the child exited")
+        # a second run, stopped: no process of its session may be left
+        pid2 = proj.start_training(exp_name="F5TTS_v1_Base", extra_args=extra,
+                                   tokenizer=STUDIO_MODE)
+        second = proj._proc
+        time.sleep(3.0)
+        running = second.poll() is None
+        pgid = os.getpgid(second.pid)
+        proj.stop_training()
+        rc2 = second.wait(timeout=60)
+        second.stdout.close()
+        left = True
+        for _ in range(100):
+            try:
+                os.killpg(pgid, 0)
+            except ProcessLookupError:
+                left = False
+                break
+            time.sleep(0.1)
+        print(f"  a second run (pid {pid2}) stopped after 3 s: was running {running}, exit "
+              f"{rc2}, processes of its session left: {left}")
+        if not running or rc2 != -signal.SIGTERM or left or proj.is_training():
+            fail("stop_training did not end the second run's session")
+
+        # (c) prune the child's model_last.npz: its EMA weights only, equal to the source's
+        t0 = time.perf_counter()
+        last = str(run_dir / "model_last.npz")
+        pruned = last.replace(".npz", "_pruned.npz")
+        gradio_stub.install(force=True)
+        try:
+            studio = finetune_gradio.build_app(device=dev)
+            prune_btn = studio.find("Button", "Prune")
+            prune_btn.events[0].fire("voice_pinyin", last)
+            stats = studio.find("Button", "Update Stats").events[0].fire()[0]
+        finally:
+            gradio_stub.uninstall()
+        src, dst = np.load(last), np.load(pruned)
+        ema = {k[len("ema_params/"):]: k for k in src.files if k.startswith("ema_params/")}
+        kept = {k[len("params/"):] for k in dst.files if k.startswith("params/")}
+        others = [k for k in dst.files if not k.startswith("params/") and k != "update"]
+        equal = kept == set(ema) and all(np.array_equal(dst[f"params/{k}"], src[ema[k]])
+                                         for k in kept)
+        moved = equal and any(not np.array_equal(src[f"params/{k}"], src[ema[k]])
+                              for k in sorted(kept))
+        size = (Path(last).stat().st_size / 2**30, Path(pruned).stat().st_size / 2**30)
+        print(f"phase 15 (c) the studio's Prune on model_last.npz ({size[0]:.2f} GiB -> "
+              f"{size[1]:.2f} GiB): {len(kept)} EMA tensors kept, equal to the source's: "
+              f"{equal}, other keys {others}; {time.perf_counter() - t0:.2f} s")
+        print("  the studio's System Info: " + " | ".join(stats.splitlines()[:4]))
+        if not equal or others or not kept:
+            fail("the pruned checkpoint does not hold exactly the source's EMA weights")
+        if not moved:
+            fail("the EMA weights equal the trained weights: the file does not tell them apart")
+        del src, dst
+
+        # (d) the Test Model tab's core on the pruned file, kernels against plain
+        ref_clip, ref_text = clips[0], STUDIO_SENTENCES[0]
+        chunks = chunks_of(ref_clip, ref_text, STUDIO_TEXTS[0])
+        kw = dict(tokenizer=STUDIO_MODE, vocab_file=vocab_path, nfe_step=STUDIO_NFE, seed=7,
+                  device=dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sr, got = finetune_gradio.test_model_infer(pruned, ref_clip, ref_text, STUDIO_TEXTS[0],
+                                                   **kw)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        counts = launch_counts()
+        sr_p, want_wav = finetune_gradio.test_model_infer(pruned, ref_clip, ref_text,
+                                                          STUDIO_TEXTS[0], kernels=False, **kw)
+        err = float(np.linalg.norm(got - want_wav) / np.linalg.norm(want_wav))
+        print(f"phase 15 (d) test_model_infer on the pruned file, fp32, {STUDIO_NFE} NFE, "
+              f"{chunks} chunk: {got.size} samples at {sr} Hz in {t_k:.2f} s; against "
+              f"kernels=False rel {err:.3e} (bound {F32_REL:.0e}); launches "
+              f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+        if (sr != SR or sr_p != SR or got.shape != want_wav.shape or not np.isfinite(got).all()
+                or not np.abs(got).max() > 0 or err > F32_REL):
+            fail("test_model_infer with kernels disagrees with kernels=False")
+        if counts != fp32_launches(chunks):
+            fail("test_model_infer: the fp32 kernels did not run as often as the chunks require")
+        add(counts)
+
+        # (e) the inference UI on the pruned file, through the stub's events
+        gradio_stub.install(force=True)
+        try:
+            t0 = time.perf_counter()
+            app = infer_gradio.build_app("F5TTS_v1_Base", ckpt_file=pruned,
+                                         vocab_file=vocab_path, tokenizer=STUDIO_MODE,
+                                         device=dev)
+            model = infer_gradio._load_model_cached("F5TTS_v1_Base", pruned, vocab_path,
+                                                    STUDIO_MODE, dev)
+            print(f"phase 15 (e) infer_gradio.build_app on the pruned file: "
+                  f"{len(list(app.walk()))} components, {len(app.all_events)} events, "
+                  f"{time.perf_counter() - t0:.2f} s")
+            if (model.arch.dim, model.arch.depth, model.arch.heads) != (1024, DEPTH, 16):
+                fail(f"phase 15: expected F5TTS_v1_Base's widths, got {model.arch}")
+            reset_launch_counts()
+            (sr, basic), = app.find("Button", "Synthesize").events[0].fire(
+                ref_clip, ref_text, STUDIO_TEXTS[0], False, 0.15, STUDIO_NFE, 1.0)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            print(f"  Basic TTS: {basic.size} samples, rms {np.sqrt(np.mean(basic ** 2)):.4f}; "
+                  f"launches { {k: v for k, v in counts.items() if v} }")
+            if sr != SR or not np.isfinite(basic).all() or not np.abs(basic).max() > 0:
+                fail("Basic TTS gave no audio")
+            if counts != fp32_launches(chunks):
+                fail("Basic TTS: the fp32 kernels did not run as often as the chunks require")
+            add(counts)
+
+            # two speech types, each with its own reference clip, seed and speed
+            n = infer_gradio.MAX_SPEECH_TYPES
+            names, audios, refs = [None] * n, [None] * n, [None] * n
+            names[:2], audios[:2], refs[:2] = ["Regular", "Calm"], clips[1:3], \
+                STUDIO_SENTENCES[1:3]
+            script = (f'{{"name": "Regular", "seed": 11, "speed": 1.0}} {STUDIO_TEXTS[0]} '
+                      f'{{"name": "Calm", "seed": -1, "speed": 1.2}} {STUDIO_TEXTS[1]}')
+            segments = infer_gradio.parse_speechtypes_text(script)
+            voices = {nm: (to_mono(load_wav(a)[0]), r) for nm, a, r in
+                      zip(names[:2], audios[:2], refs[:2])}
+            seg_chunks = sum(chunk_count(len(voices[s["name"]][0]) / SR, voices[s["name"]][1],
+                                         s["text"], s["speed"]) for s in segments)
+            vocoder = load_vocoder("vocos", device=dev)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            (sr, multi), lines_ = app.find("Button", "Generate Multi-Style Speech").events[0].fire(
+                script, STUDIO_NFE, False, *names, *audios, *refs)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            t_multi = time.perf_counter() - t0
+            used = [json.loads(line[:line.index("}") + 1]) for line in lines_.splitlines()]
+            alone = []
+            for seg, u in zip(segments, used):
+                wav, seg_ref = voices[seg["name"]]
+                alone.append(infer_process((wav, SR), seg_ref, seg["text"], model, vocoder,
+                                           nfe_step=STUDIO_NFE, seed=u["seed"], speed=u["speed"],
+                                           show_info=lambda *a: None)[0])
+            split = np.split(multi, np.cumsum([a.size for a in alone])[:-1])
+            same = [a.shape == b.shape and float(np.abs(a - b).max()) for a, b in
+                    zip(split, alone)]
+            print(f"  Multi-Speech-Type, 2 types ({seg_chunks} chunks): {multi.size} samples in "
+                  f"{t_multi:.2f} s; cherry-pick lines {lines_.splitlines()}; each segment "
+                  f"against infer_process alone with the reported seed, max abs {same}; "
+                  f"launches { {k: v for k, v in counts.items() if v} }")
+            if [u["name"] for u in used] != ["Regular", "Calm"] or used[0]["seed"] != 11 \
+                    or not 0 <= used[1]["seed"] < 2**31 or used[1]["speed"] != 1.2:
+                fail("Multi-Speech-Type: the cherry-pick lines do not report each segment")
+            if multi.size != sum(a.size for a in alone) or any(s is False or s != 0.0
+                                                               for s in same):
+                fail("Multi-Speech-Type: a segment differs from infer_process of it alone")
+            if counts != fp32_launches(seg_chunks):
+                fail("Multi-Speech-Type: the fp32 kernels did not run as often as the chunks "
+                     "require")
+            add(counts)
+
+            # one voice-chat turn with an injected chat backend (no LLM is loaded)
+            hf_backend = infer_gradio.make_hf_chat_backend
+            infer_gradio.make_hf_chat_backend = lambda name: (lambda messages: STUDIO_TEXTS[1])
+            try:
+                session, status = app.find("Button", "Load chat model").events[0].fire(
+                    "injected", "Be brief.")
+            finally:
+                infer_gradio.make_hf_chat_backend = hf_backend
+            submit = next(e for e in app.all_events if e.trigger == "submit")
+            reset_launch_counts()
+            session, conv, (sr, reply) = submit.fire(session, None, "안녕?", ref_clip, ref_text)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            chat_chunks = chunk_count(to_mono(load_wav(ref_clip)[0]).size / SR, ref_text,
+                                      STUDIO_TEXTS[1])
+            # the tab leaves the reply's steps at generate_audio_response's default
+            chat_nfe = inspect.signature(infer_gradio.VoiceChatSession.generate_audio_response) \
+                .parameters["nfe_step"].default
+            print(f"  Voice Chat: {status}; conversation {conv}; reply {reply.size} samples "
+                  f"({chat_chunks} chunk at {chat_nfe} NFE); launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            if [m["role"] for m in conv] != ["user", "assistant"] or not np.abs(reply).max() > 0:
+                fail("Voice Chat: no reply, or no audio for it")
+            if counts != fp32_launches(chat_chunks, chat_nfe):
+                fail("Voice Chat: the fp32 kernels did not run as often as the chunks require")
+            add(counts)
+        finally:
+            gradio_stub.uninstall()
+
+        # (f) socket_client against the port's socket server on the same model
+        processor = socket_server.TTSStreamingProcessor(model, vocoder, ref_clip, ref_text,
+                                                        nfe_step=STUDIO_NFE)
+        streamed = []
+        generate = processor.generate_stream
+
+        def recorded(text):
+            for pcm in generate(text):
+                streamed.append(pcm)
+                yield pcm
+
+        processor.generate_stream = recorded
+        ready, stop, port = threading.Event(), threading.Event(), []
+        thread = threading.Thread(target=socket_server.start_server, daemon=True, kwargs=dict(
+            processor=processor, host="127.0.0.1", port=0, stop=stop,
+            ready=lambda p: (port.append(p), ready.set())))
+        thread.start()
+        try:
+            if not ready.wait(timeout=60):
+                fail("the socket server did not come up")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            pcm = socket_client.request_tts("127.0.0.1", port[0], STUDIO_TEXTS[1])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            stop.set()
+            thread.join(timeout=10)
+        sent = np.frombuffer(b"".join(streamed), np.float32)
+        sock_chunks = 1  # generate_stream hands infer_batch_process the text whole
+        print(f"phase 15 (f) socket_client.request_tts: {pcm.size} float32 samples in "
+              f"{time.perf_counter() - t0:.2f} s, {len(streamed)} packets streamed, equal to "
+              f"what the server sent: {pcm.shape == sent.shape and np.array_equal(pcm, sent)}; "
+              f"launches { {k: v for k, v in counts.items() if v} }")
+        if pcm.size < 50 * HOP or not np.array_equal(pcm, sent):
+            fail("socket_client: the samples differ from what the server streamed")
+        if counts != fp32_launches(sock_chunks):
+            fail("socket server: the fp32 kernels did not run as often as the chunks require")
+        add(counts)
+        del model, vocoder, processor
+        infer_gradio._load_model_cached.cache_clear()
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        tmp_dir.cleanup()
+    print(f"phase 15: {time.perf_counter() - t_all:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, an int8 "
@@ -6966,6 +7397,11 @@ def main(argv=None) -> int:
             counts[name] += n
         torch.cuda.empty_cache()
         mark("14")
+    if 15 in phases:  # before 6: the profiler slows every launch after it
+        for name, n in phase15_studio(dev, card).items():
+            counts[name] += n
+        torch.cuda.empty_cache()
+        mark("15")
     lora_profile = None
     if 10 in phases:  # before 6: the profiler slows every launch after it
         phase10_counts, lora_profile = phase10_finetune(dev, card)

@@ -14,12 +14,17 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import shutil
+import time
+
+import torch
 
 from korean_f5_tts_tpu_torch.config import PRESETS, preset_model_config
 from korean_f5_tts_tpu_torch.data.dataset import load_dataset
 from korean_f5_tts_tpu_torch.infer.model import _INIT_FNS, load_checkpoint_into_pytree
+from korean_f5_tts_tpu_torch.ops import launch_counts
 from korean_f5_tts_tpu_torch.text.vocab import get_tokenizer
 from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, params_from_jax
 from korean_f5_tts_tpu_torch.train.trainer import Trainer
@@ -54,6 +59,7 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = require_device(args.device)
+    t0, before = time.perf_counter(), launch_counts()
     model_cfg = preset_model_config(args.exp_name)
     if args.tokenizer == "custom":
         vocab_char_map, vocab_size = get_tokenizer(args.tokenizer_path, "custom")
@@ -92,6 +98,14 @@ def main(argv=None):
     )
     result = trainer.train(dataset, resumable_with_seed=666, max_updates=args.max_updates)
     print(f"finetune done at update {result['updates']}")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(json.dumps({
+        "device": str(device), "updates": result["updates"], "steps": len(result["losses"]),
+        "launches": {k: n - before[k] for k, n in launch_counts().items()},
+        "seconds": round(time.perf_counter() - t0, 3),
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None)}), flush=True)
 
 
 if __name__ == "__main__":

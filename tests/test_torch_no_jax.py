@@ -96,7 +96,8 @@ SERVING_AND_INFERENCE_MODULES = (
 )
 ENTRY_POINTS = ("serving.server", "serving.grpc_server", "serving.benchmark", "socket_server",
                 "infer.speech_edit", "infer.batch_infer", "scripts.int8_quality", "train.train",
-                "train.finetune_cli", "train.train_lora")
+                "train.finetune_cli", "train.train_lora", "train.finetune_gradio",
+                "infer.infer_gradio")
 # the fine-tuning path: reference checkpoints, LoRA, the datasets, the training CLIs
 FINETUNE_MODULES = (
     "utils.torch_ckpt", "models.lora", "train.train", "train.finetune_cli", "train.train_lora",
@@ -156,3 +157,28 @@ def test_the_backbone_modules_are_walked():
     assert {"korean_f5_tts_tpu_torch.models.unett", "korean_f5_tts_tpu_torch.models.mmdit",
             "korean_f5_tts_tpu_torch.models.bigvgan",
             "korean_f5_tts_tpu_torch.scripts.count_params_gflops"} <= names
+
+
+# the fine-tuning studio, the inference UI and the copies that came with them
+STUDIO_MODULES = (
+    "train.finetune_gradio", "infer.infer_gradio", "utils.gradio_stub", "utils.slicer",
+    "socket_client", "scripts.count_max_epoch", "scripts.generate_korean_vocab",
+    "scripts.analyze_ngram_dist", "scripts.analyze_dataset_stats",
+)
+
+
+def test_the_walk_covers_the_studio_modules_without_gradio_or_transformers():
+    """The studio modules, both apps and the gradio stand-in are in the walk of
+    test_port_imports_without_jax, and no module of the port imports gradio or
+    transformers when it is loaded (the apps import gradio inside build_app,
+    the chat backend transformers when asked for)."""
+    found = {m.name for m in pkgutil.walk_packages(korean_f5_tts_tpu_torch.__path__,
+                                                   "korean_f5_tts_tpu_torch.")}
+    for name in STUDIO_MODULES:
+        assert f"korean_f5_tts_tpu_torch.{name}" in found, name
+    blocked = 'sys.modules["gradio"] = None\nsys.modules["transformers"] = None\n'
+    code = GUARD.replace("import korean_f5_tts_tpu_torch as pkg",
+                         blocked + "import korean_f5_tts_tpu_torch as pkg")
+    proc = subprocess.run([sys.executable, "-c", code + NO_JAX_PACKAGE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
