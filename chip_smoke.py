@@ -431,8 +431,11 @@ SOURCES = {
     **dict.fromkeys(("flash_prefix_dq_lsein_f32_d128", "flash_prefix_dq_f32_d128",
                      "flash_prefix_dkv_f32_d128"),
                     "korean_f5_tts_tpu_torch/csrc/flash_prefix_train_tf32_d128.cu"),
-    **{f"{base}{f}_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8_d128.cu"
-       for base in ("flash_prefix_i8", "flash_prefix_i8_qk") for f in ("", "_f32")},
+    # 14 at d = 128: "qkpv" (bf16 and fp32 out) and "qk" on bf16 v on the attention
+    # core's int8 D = 128 kernel, fp32 "qk" split 3xTF32
+    **dict.fromkeys(("flash_prefix_i8_d128", "flash_prefix_i8_f32_d128",
+                     "flash_prefix_i8_qk_d128"), "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh"),
+    "flash_prefix_i8_qk_f32_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_int8_d128.cu",
     **{f"flash_prefix_i8_quant{f}_d128": "korean_f5_tts_tpu_torch/csrc/quant_heads.cu"
        for f in ("", "_f32")},
     **{f"grouped_conv{f}_g8": "korean_f5_tts_tpu_torch/csrc/grouped_conv.cu" for f in ("", "_f32")},
@@ -477,8 +480,10 @@ def fail(msg: str) -> None:
 # and gated_residual_gemm_tf32_kernel, of C in grouped_conv_tf32_kernel, of 14
 # "qk" in flash_prefix_i8_qk_tf32_kernel, and the .tf32 probes); A's fp32 FFMA
 # kernel at d = 128 (kept for timing A, 10 and 18); 14's pass; the d = 128
-# forms (flash_prefix_d128.cu, flash_prefix_int8_d128.cu, the attention
-# core's attn_fwd_d128_wgmma_kernel (A, 10, 18 in bf16), the backward core's
+# forms (flash_prefix_d128.cu, flash_prefix_int8_d128.cu's
+# flash_prefix_i8_qk_tf32_d128_kernel (14 fp32 "qk"), the attention core's
+# attn_fwd_d128_wgmma_kernel (A, 10, 18 in bf16) and attn_i8_d128_wgmma_kernel
+# (14's other forms), the backward core's
 # attn_dkv_d128_wgmma_kernel (13 in bf16) and flash_prefix_tf32_d128_kernel (A,
 # 10, 18 in fp32) and flash_prefix_dq_tf32_d128_kernel and
 # flash_prefix_dkv_tf32_d128_kernel (11-13 in fp32): "d128" in their names; the
@@ -493,10 +498,16 @@ def ptxas_faults(log: str) -> list[str]:
     name holds one of SPILL_CHECKED (ptxas prints each function's spills on
     the line after "Function properties for <name>"), and any wgmma it
     serialized (info C7513); and kernel 12's mma.sync loop
-    (flash_prefix_dq_kernel), which its form on the dq core replaced."""
+    (flash_prefix_dq_kernel), which its form on the dq core replaced, and
+    kernel 14's first loop at d = 128 (flash_prefix_i8_d128_kernel), which
+    the attention core's int8 D = 128 kernel and the split 3xTF32 kernel
+    replaced."""
     faults, name = [], ""
     if "flash_prefix_dq_kernel" in log:
         faults.append("kernel 12's mma.sync loop (flash_prefix_dq_kernel) is still built")
+    if "flash_prefix_i8_d128_kernel" in log:
+        faults.append("kernel 14's mma.sync loop at d = 128 (flash_prefix_i8_d128_kernel) is "
+                      "still built")
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for", 1)[1].strip()
@@ -2593,7 +2604,11 @@ AB_KERNELS = {"flash_prefix": "A", "ff_block": "B", "grouped_conv": "C",
               "ln_mod_matmul_f32": "7 fp32", "proj_gated_residual_f32": "8 fp32",
               "flash_prefix_rope_f32": "18 fp32", "flash_prefix_qkv_f32": "19 fp32",
               "flash_prefix_i8_f32": "14 fp32 qkpv + its pass",
-              "flash_prefix_i8_qk_f32": "14 fp32 qk + its pass"}
+              "flash_prefix_i8_qk_f32": "14 fp32 qk + its pass",
+              "flash_prefix_i8_d128": "14 d128 qkpv", "flash_prefix_i8_qk_d128": "14 d128 qk",
+              "flash_prefix_i8_f32_d128": "14 d128 fp32 qkpv",
+              "flash_prefix_i8_qk_f32_d128": "14 d128 fp32 qk",
+              "flash_prefix_i8_quant_d128": "14's pass d128"}
 AB_SDPA = {f"sdpa_{name.split('_')[0].lower()}": f"SDPA {name}" for name in SDPA_BACKENDS}
 AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
               "flash_bwd": "library flash backward (11 + 13's yardstick)",
@@ -2604,7 +2619,8 @@ AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
               "efficient_bwd_f32": "library efficient backward, fp32 (11 + 13 fp32's yardstick)"}
 # no slower than 1.05x the parent or fail: every kernel this change does not
 # redesign (12 moves onto the dq core; 14's forms on the attention core take
-# their max per 512-key chunk, a second S sweep: timed, not held)
+# their max per 512-key chunk, a second S sweep; 14's four forms at d = 128
+# leave mma.sync and FFMA: timed, not held)
 AB_UNMOVED = ("flash_prefix", "ff_block", "grouped_conv", "ln_mod_matmul",
               "proj_gated_residual", "ff_block_int8", "ln_mod_matmul_int8",
               "proj_gated_residual_int8", "qmatmul", "flash_prefix_lse", "flash_prefix_dq_lsein",
@@ -2612,7 +2628,8 @@ AB_UNMOVED = ("flash_prefix", "ff_block", "grouped_conv", "ln_mod_matmul",
               "flash_prefix_f32", "ff_block_f32", "grouped_conv_f32",
               "flash_prefix_lse_f32", "flash_prefix_dq_lsein_f32", "flash_prefix_dq_f32",
               "flash_prefix_dkv_f32", "ln_mod_matmul_f32", "proj_gated_residual_f32",
-              "flash_prefix_rope_f32", "flash_prefix_qkv_f32", "flash_prefix_i8_qk_f32")
+              "flash_prefix_rope_f32", "flash_prefix_qkv_f32", "flash_prefix_i8_qk_f32",
+              "flash_prefix_i8_quant_d128")
 AB_BOUND = 1.05
 # their times when the bf16 core was built (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md section 6, kernel table)
@@ -2622,7 +2639,9 @@ BF16_CORE_MS = {"ff_block": 0.0824, "ln_mod_matmul": 0.0566, "proj_gated_residua
 def core_timings(dev, absent=()) -> dict[str, float]:
     """ms at the main shape (m = 3072, d = 1024, dff = 2048; attention H 32
     (18, 19: B 2 x 16 heads), n 1536, kv_len 1376; training attention H 128,
-    n 1280, every key valid)
+    n 1280, every key valid; kernel 14 at d = 128 alone on its pass's
+    operands, and the pass, at the d = 128 serving shape: H 16 (B 2 x 8
+    heads), n 1536, kv_len 1376)
     of the AB_KERNELS but those named in `absent` (forms the tree lacks),
     through the public wrappers of whichever korean_f5_tts_tpu_torch is
     first on sys.path, each held against its plain version before it is
@@ -2767,6 +2786,29 @@ def core_timings(dev, absent=()) -> dict[str, float]:
         "flash_prefix_i8_qk_f32": (lambda: i8_f32(False),
                                    lambda: fp.flash_prefix_i8_reference(
                                        f["aq"], f["ak"], f["av"], kv, pv_i8=False), F32_REL),
+    })
+    # kernel 14 at d = 128 in its four forms, each alone on the operands of
+    # its pass (bf16 or fp32 inputs), and the pass (bf16, "qkpv")
+    d8 = [torch.randn((2, 8, 1536, 128), generator=gen, device=dev) for _ in range(3)]
+    kv16 = torch.full((16,), 1376, dtype=torch.int32, device=dev)
+
+    def i8_d128(dtype, pv_i8, rel):
+        q8, k8, vk, c, sv = fp.quantize_heads(*(t.to(dtype) for t in d8), pv_i8)
+        vn = fp._v8_natural_layout(vk, 1536) if pv_i8 else vk
+        return (lambda: fp.flash_prefix_folded_i8(q8, k8, vk, c, sv, kv16, pv_i8=pv_i8,
+                                                  out_dtype=dtype),
+                lambda: fp._i8_attention_plain(q8, k8, vn, c, sv, kv16, pv_i8,
+                                               fp.I8_KEY_CHUNK), rel)
+
+    b8 = [t.to(torch.bfloat16) for t in d8]
+    calls.update({
+        "flash_prefix_i8_d128": i8_d128(torch.bfloat16, True, 2e-3),
+        "flash_prefix_i8_qk_d128": i8_d128(torch.bfloat16, False, 5e-3),
+        "flash_prefix_i8_f32_d128": i8_d128(torch.float32, True, INT8_F32_REL),
+        "flash_prefix_i8_qk_f32_d128": i8_d128(torch.float32, False, F32_ATTN_REL),
+        "flash_prefix_i8_quant_d128": (
+            lambda: fp.quantize_heads(*b8, True)[2],
+            lambda: fp._v8_kernel_layout(fp._quantize_qkv(*b8, True)[2]), 0.0),
     })
     out = {}
     for name, (fn, plain, rel) in calls.items():
@@ -5555,6 +5597,7 @@ I8_D128_EDGES = (
     (2, 2, 65, [64, 65], 0.0),
     (3, 2, 127, [0, 1, 127], 1e4),
     (2, 2, 129, [128, 129], 0.0),
+    (2, 2, 513, [511, 513], 1e4),
     (3, 2, 640, [600, 512, 640], 1e4),
     (2, 8, 1536, [1376, 1536], 1e4),
 )
@@ -6091,11 +6134,12 @@ def check_rope_d128(gen, dev) -> dict[str, dict]:
 
 
 def check_int8_d128(gen, dev) -> dict[str, dict]:
-    """Kernel 14 at d = 128 (csrc/flash_prefix_int8_d128.cu) in its four
-    forms ("qkpv" with a bf16 and an fp32 output, "qk" on bf16 and on fp32
-    v) and its pass at d = 128 (csrc/quant_heads.cu), against their plain
-    versions at the serving shape ([2, 8, 1536, 128], 1376 keys) and at
-    I8_D128_EDGES: the pass to the bit, 14 within the d = 64 forms' bounds
+    """Kernel 14 at d = 128 in its four forms ("qkpv" with a bf16 and an
+    fp32 output and "qk" on bf16 v on the attention core's int8 D = 128
+    kernel, csrc/attn_wgmma.cuh; "qk" on fp32 v split 3xTF32,
+    csrc/flash_prefix_int8_d128.cu) and its pass at d = 128
+    (csrc/quant_heads.cu), against their plain versions at the serving
+    shape ([2, 8, 1536, 128], 1376 keys) and at I8_D128_EDGES: the pass to the bit, 14 within the d = 64 forms' bounds
     (bf16: "qkpv" 2e-3, "qk" 5e-3; fp32: "qkpv" INT8_F32_REL, "qk"
     F32_ATTN_REL, with a bf16 control and, for "qk", a TF32 control that
     must fail them); at the serving shape 4x nearer the plain version at the

@@ -10,8 +10,10 @@
 // kernel 14 (flash_prefix_int8.cu), kernel A with int8 products (the
 // template flag kI8; the others' instantiations have none of it). Kernels A,
 // 10 and 18 at head dim 128 in bf16 run on the core's D = 128 form
-// (attn_fwd_d128_wgmma_kernel, its own note at the end of this file;
-// flash_prefix_core_d128.cu).
+// (attn_fwd_d128_wgmma_kernel, its own note further down;
+// flash_prefix_core_d128.cu), and kernel 14 at head dim 128 on that form's
+// int8 kernel (attn_i8_d128_wgmma_kernel, its note at the end of this file;
+// flash_prefix_int8_core_d128.cu).
 //
 // The function is kernel A's (flash_prefix.cu): folded heads q, k, v, out
 // [H, n, 64] bf16, kv_lens [H] int32; head h attends keys [0, kv_lens[h])
@@ -528,13 +530,15 @@ __device__ __forceinline__ void wgmma_rs_s8_n64(int (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// issue S = q8.k8^T for one tile (two k32 steps over the rows' 64 bytes) as
-// one wgmma group
+// issue S = q8.k8^T for one tile as one wgmma group: kSteps k32 steps along
+// the swizzled 128-byte rows, two over the 64 bytes of a row at D = 64,
+// four over the whole row at D = 128
+template <int kSteps = kAttnD / 32>
 __device__ __forceinline__ void attn_issue_qk_s8(int (&s)[64], uint64_t desc_q,
                                                  const unsigned char* tile_k) {
   const uint64_t dk = wgmma_desc(tile_k);
 #pragma unroll
-  for (int kk = 0; kk < kAttnD / 32; ++kk)
+  for (int kk = 0; kk < kSteps; ++kk)
     wgmma_ss_s8_n128(s, desc_q + 2 * kk, dk + 2 * kk, kk != 0);
   wgmma_commit();
 }
@@ -1354,6 +1358,356 @@ cudaError_t launch_attn_fwd_d128(const void* q, const void* k, const void* v,
   attn_fwd_d128_wgmma_kernel<kLse, kRope><<<grid, w128_threads<kRope>(), smem, stream>>>(
       map_q, map_k, map_v, static_cast<const int*>(kv_lens), static_cast<bf16*>(out),
       static_cast<float*>(lse), n, scale_log2, rope);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// head dim 128, int8: kernel 14 (attn_i8_d128_wgmma_kernel)
+// ---------------------------------------------------------------------------
+//
+// The function is the int8 form's above at d = 128 (q8, k8 [H, n, 128]
+// int8, c[h] = aq ak / 127^2 * log2(e) / sqrt(128); "qkpv": v8 [H, 128,
+// n_pad] in the pass's layout, sv[h] = av / 127^2, the output bf16 or, under
+// kAttnI8QkpvF32, fp32; "qk": v bf16 [H, n, 128]), the running max taken
+// once per 512-key chunk from key 0. It replaces the first port's loop at d
+// = 128 (once in flash_prefix_int8_d128.cu): 64 query rows a block on four
+// warps, K, V and v8 tiles loaded synchronously with two barriers a tile,
+// the head's K chunk streamed from L2 again by each of its 24 row blocks,
+// S and P.V on mma.sync.
+//
+// What differs from the D = 64 int8 form:
+//   tiles     a q8 or k8 row of 128 bytes is one whole 128-byte swizzle span,
+//             so q8 and k8 tiles are full [rows][128 bytes] boxes (at D = 64
+//             half of each box is TMA's zero fill) and S is four k32 steps
+//             of wgmma_ss_s8_n128 instead of two.
+//   P.V       "qkpv": the v8 tile is [128 d rows][128 keys], 16 KB, k-major
+//             in the pass's unchanged layout; two register-A m64n64k32 .s8
+//             products a k32 step, one on d rows 0-63 and one on rows 64-127
+//             (the second half's descriptor 8 KB on), into two 32-int s32
+//             accumulators that sum the chunk's four tiles exactly (|sum| <=
+//             512 x 127^2 < 2^24, so float(sum) is exact). "qk": the D =
+//             128 bf16 core's P.V over V's two spans (w128_issue_pv), O as
+//             two 32-float halves.
+//   block     the D = 128 core's: two consumer warpgroups of 64 rows (128 a
+//             block) and a producer warpgroup, setmaxnreg 240 and 24 (128 x
+//             24 + 256 x 240 = 384 x 168). The D = 64 form's three consumer
+//             warpgroups at 160 registers cannot hold S (64), O (64) and the
+//             s32 P.V accumulator (64) together.
+//   rings     K tiles are read by both sweeps and V tiles only by the second,
+//             so each has a ring of its own, filled and freed apart: six K
+//             stages (a chunk resident, plus the next chunk's first two
+//             tiles) and three V stages, each ring fed by its own producer
+//             thread (warps 0 and 1 of the producer warpgroup), so a V wait
+//             never holds up a K load. A K stage is freed after sweep 2's S
+//             of its tile, a V stage after its P.V.
+//   epilogue  a bf16 output row is 256 bytes and a warpgroup's q8 slice 8 KB,
+//             half its 64 rows: the rows go out a 64-column half at a time,
+//             swizzled into the slice, then 16-byte stores of 128-byte row
+//             halves. The fp32 output stores float2 pairs from registers.
+// Schedule and numerics as at D = 64: a chunk of four 128-key tiles at a
+// time, sweep 1 S for the chunk's max, one alpha a chunk, sweep 2 S again (to
+// the same bits: it is exact), p = exp2(s - m), l, p8 = rint(127 p) (or
+// bf16 p), P.V; each product waited for; the _rn intrinsics keep nvcc from
+// contracting what the plain version rounds apart. Keys at or past kv_len
+// are masked, the sweeps stop at ceil(kv_len / 128) tiles, a head with
+// kv_len 0 gives zeros, rows past n are zero-filled by TMA and never stored.
+// What bounds it: at the serving shape (16 folded heads, n 1536, 1376 keys)
+// S is 2 x 16 x 1536 x 1376 x 128 = 8.7 GOP of int8 products and P.V as
+// many, int8 under "qkpv" (0.0087 ms at 1,979 TOP/s for both) and bf16
+// under "qk" (0.0131 ms with S at the int8 rate), against 9.4 MB of int8 in
+// and 6.3 MB of bf16 out, and 33.8 M exp2, half the D = 64 form's at the
+// same operations. The D = 64 form is bound by instruction issue (~10 an
+// element, above); at D = 128 the elements a product are half as many.
+// Grid: 12 x 16 = 192 blocks, 1.45 waves on 132 SMs. Measured against the
+// mma.sync loop under one timer (chip_smoke.py --ab): PERF.md section 6.
+
+// a q8, k8 or v8 tile is one span, kW128Span: 128 rows of 128 bytes
+constexpr int kW8KStages = 6;                  // K ring: a chunk, and the next chunk's first two
+constexpr int kW8VStages = 3;                  // V ring
+
+// a V stage: the v8 tile, or the two spans of a bf16 V tile
+template <int kI8>
+__host__ __device__ constexpr int w8_v_bytes() {
+  return attn_i8_pv8(kI8) ? kW128Span : 2 * kW128Span;
+}
+
+// 1024 bytes of alignment slack, q8, the two rings and their barriers
+// (full and empty a stage each, q_full)
+template <int kI8>
+__host__ __device__ constexpr int attn_i8_d128_smem_bytes() {
+  return 1024 + kW128Span + kW8KStages * kW128Span + kW8VStages * w8_v_bytes<kI8>() +
+         (2 * (kW8KStages + kW8VStages) + 1) * 8;
+}
+
+// issue pv += p8.v8 for one tile (four k32 steps, a product on each 64-row
+// half of the v8 tile) as one wgmma group; pv0 holds output columns 0-63,
+// pv1 64-127
+__device__ __forceinline__ void w8_issue_pv_s8(int (&pv0)[32], int (&pv1)[32],
+                                               const uint32_t (&p)[4][4],
+                                               const unsigned char* tile_v8) {
+  const uint64_t dv0 = wgmma_desc(tile_v8), dv1 = wgmma_desc(tile_v8 + 64 * kRowBytes);
+#pragma unroll
+  for (int kk = 0; kk < kAttnBK / 32; ++kk) {
+    wgmma_rs_s8_n64(pv0, p[kk], dv0 + 2 * kk, 1);
+    wgmma_rs_s8_n64(pv1, p[kk], dv1 + 2 * kk, 1);
+  }
+  wgmma_commit();
+}
+
+// The bf16 epilogue of one 64-column half o of a warpgroup's 64 rows (o[4j
+// + 2r + e]: row `row` + 8r, column 8j + 2t + e): O / l rounded to bf16 into
+// the warpgroup's 8 KB q8 slice, chunk j of row r at chunk j ^ (r & 7)
+// (conflict-free), then 16-byte stores of the 128-byte row halves to
+// out_rows (row r at out_rows + 128 r), rows r < rows only. The caller
+// syncs the warpgroup between two halves.
+__device__ __forceinline__ void w8_store_half(const float (&o)[32], const float (&inv)[2],
+                                              unsigned char* slice, bf16* out_rows, int rows,
+                                              int row, int wt, int wg) {
+  const int g8 = row & 7, t = wt & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    unsigned char* a = slice + row * kRowBytes + ((j ^ g8) << 4) + 4 * t;
+    *reinterpret_cast<uint32_t*>(a) = pack_bf16x2(o[4 * j] * inv[0], o[4 * j + 1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(a + 8 * kRowBytes) =
+        pack_bf16x2(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup alone
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i = wt + 128 * it, r = i >> 3, c = i & 7;
+    if (r < rows)
+      *reinterpret_cast<int4*>(out_rows + (size_t)r * 128 + 8 * c) =
+          *reinterpret_cast<const int4*>(slice + r * kRowBytes + ((c ^ (r & 7)) << 4));
+  }
+}
+
+// kI8: kAttnI8Qk, kAttnI8Qkpv or kAttnI8QkpvF32 (out fp32 [H, n, 128], else
+// bf16); kv_lens [H] per folded head
+template <int kI8>
+__global__ void __launch_bounds__(128 * (kW128Wgs + 1), 1)
+attn_i8_d128_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const int* __restrict__ kv_lens, void* __restrict__ out, int n,
+                          const float* __restrict__ c_scale, const float* __restrict__ sv_scale) {
+  constexpr bool kPv8 = attn_i8_pv8(kI8);
+  constexpr int BK = kW128Keys, kVBytes = w8_v_bytes<kI8>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* s_q = smem;  // the block's 128 q8 rows
+  unsigned char* ring_k = smem + kW128Span;
+  unsigned char* ring_v = ring_k + kW8KStages * kW128Span;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(ring_v + kW8VStages * kVBytes);
+  uint64_t* empty_k = full_k + kW8KStages;
+  uint64_t* full_v = empty_k + kW8KStages;
+  uint64_t* empty_v = full_v + kW8VStages;
+  uint64_t* q_full = empty_v + kW8VStages;
+  const int head = blockIdx.y;
+  const int q0 = blockIdx.x * kW128Rows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < kW8KStages; ++s) {
+      mbar_init(&full_k[s], 1);  // the producer's arrive; TMA counts the bytes
+      mbar_init(&empty_k[s], 4 * kW128Wgs);  // lane 0 of every consumer warp
+    }
+    for (int s = 0; s < kW8VStages; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], 4 * kW128Wgs);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // kv_len is read after each setmaxnreg: a value live across one is spilled
+  if (warp >= 4 * kW128Wgs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int kv_len = min(kv_lens[head], n);
+    const int n_tiles = kv_len > 0 ? (kv_len + BK - 1) / BK : 0;
+    if (tid == 128 * kW128Wgs) {
+      // warp 0: q8, then K(j) as soon as sweep 2's S of tile j - 6 has read
+      // its slot (the empty waits pass at once on the first round)
+      mbar_arrive_expect_tx(q_full, kW128Span);
+      tma_load_3d(s_q, &map_q, q_full, 0, q0, head);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kW8KStages;
+        mbar_wait(&empty_k[s], ((j / kW8KStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full_k[s], kW128Span);
+        tma_load_3d(ring_k + s * kW128Span, &map_k, &full_k[s], 0, j * BK, head);
+      }
+    } else if (tid == 128 * kW128Wgs + 32) {
+      // warp 1: V(j) as soon as P.V(j - 3) has read its slot
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kW8VStages;
+        unsigned char* tile = ring_v + s * kVBytes;
+        mbar_wait(&empty_v[s], ((j / kW8VStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full_v[s], kVBytes);
+        if constexpr (kPv8) {  // keys j * 128 .. + 127 (columns) of the head's 128 d rows
+          tma_load_3d(tile, &map_v, &full_v[s], j * BK, 0, head);
+        } else {
+          tma_load_3d(tile, &map_v, &full_v[s], 0, j * BK, head);
+          tma_load_3d(tile + kW128Span, &map_v, &full_v[s], 64, j * BK, head);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int kv_len = min(kv_lens[head], n);
+    const int n_tiles = kv_len > 0 ? (kv_len + BK - 1) / BK : 0;
+    const int wg = warp >> 2, g8 = lane >> 2, t = lane & 3;
+    unsigned char* my_q = s_q + wg * 64 * kRowBytes;  // this warpgroup's 64 q8 rows
+    float o0[32], o1[32];  // output columns 0-63 and 64-127
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o0[i] = o1[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};  // rows g8 and g8 + 8 of this warp's 16
+    float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
+    mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      const uint64_t desc_q = wgmma_desc(my_q);
+      const float c = c_scale[head];
+      const float sv = kPv8 ? sv_scale[head] : 0.f;
+      for (int j0 = 0; j0 < n_tiles; j0 += kAttnI8Group) {
+        const int j1 = min(j0 + kAttnI8Group, n_tiles);
+        // sweep 1: the chunk's row max (its first tile holds a key < kv_len,
+        // so the max is finite)
+        float mx[2] = {-INFINITY, -INFINITY};
+        for (int j = j0; j < j1; ++j) {
+          const int st = j % kW8KStages;
+          mbar_wait(&full_k[st], (j / kW8KStages) & 1);
+          int si[64];
+          wgmma_fence();
+          attn_issue_qk_s8<4>(si, desc_q, ring_k + st * kW128Span);
+          wgmma_wait<0>();
+          wgmma_fence_regs(si);
+          attn_tile_max_i8(si, mx, j * BK, kv_len, c, t);
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+          alpha[r] = exp2f(__fsub_rn(m_run[r], m_new));
+          m_run[r] = m_new;
+          l_run[r] = __fmul_rn(l_run[r], alpha[r]);
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          o0[i] = __fmul_rn(o0[i], alpha[(i >> 1) & 1]);
+          o1[i] = __fmul_rn(o1[i], alpha[(i >> 1) & 1]);
+        }
+        // sweep 2: S again (the chunk's K tiles are still resident), p, l
+        // and P.V
+        int pv0[32], pv1[32];
+        if constexpr (kPv8) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) pv0[i] = pv1[i] = 0;
+        }
+        for (int j = j0; j < j1; ++j) {
+          const int st = j % kW8KStages, vs = j % kW8VStages;
+          int si[64];
+          wgmma_fence();
+          attn_issue_qk_s8<4>(si, desc_q, ring_k + st * kW128Span);
+          wgmma_wait<0>();
+          wgmma_fence_regs(si);
+          if (lane == 0) mbar_arrive(&empty_k[st]);  // both sweeps have read K(j)
+          float s[64];
+          attn_probs_i8(si, s, m_run, l_run, j * BK, kv_len, c, t);
+          mbar_wait(&full_v[vs], (j / kW8VStages) & 1);
+          const unsigned char* tile_v = ring_v + vs * kVBytes;
+          if constexpr (kPv8) {
+            uint32_t p8[4][4];
+            attn_pack_p8(s, p8);
+            wgmma_fence();
+            w8_issue_pv_s8(pv0, pv1, p8, tile_v);
+            wgmma_wait<0>();
+            wgmma_fence_regs(pv0);
+            wgmma_fence_regs(pv1);
+          } else {
+            uint32_t p[8][4];
+            attn_pack_p<BK>(s, p);
+            wgmma_fence();
+            w128_issue_pv(o0, o1, p, tile_v);
+            wgmma_wait<0>();
+            wgmma_fence_regs(o0);
+            wgmma_fence_regs(o1);
+          }
+          if (lane == 0) mbar_arrive(&empty_v[vs]);
+        }
+        if constexpr (kPv8) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            o0[i] = __fadd_rn(o0[i], __fmul_rn(__int2float_rn(pv0[i]), sv));
+            o1[i] = __fadd_rn(o1[i], __fmul_rn(__int2float_rn(pv1[i]), sv));
+          }
+        }
+      }
+    }
+
+    // epilogue: o[4j + 2r + e] is row row + 8r, column 8j + 2t + e of its half
+    const int row = (warp & 3) * 16 + g8;  // and row + 8; (row + 8) & 7 == g8 too
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_run[r]);
+      inv[r] = l > 0.f ? 1.f / l : 0.f;  // kv_len == 0: zeros, as the TPU kernel
+    }
+    if constexpr (kI8 == kAttnI8QkpvF32) {
+      // fp32 rows from registers: a quad writes 32 contiguous bytes of a row
+      float* out_head = static_cast<float*>(out) + (size_t)head * n * 128;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int grow = q0 + wg * 64 + row + 8 * r;
+        if (grow < n) {
+          float* dst = out_head + (size_t)grow * 128 + 2 * t;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            *reinterpret_cast<float2*>(dst + 8 * j) =
+                make_float2(__fmul_rn(o0[4 * j + 2 * r], inv[r]),
+                            __fmul_rn(o0[4 * j + 2 * r + 1], inv[r]));
+            *reinterpret_cast<float2*>(dst + 64 + 8 * j) =
+                make_float2(__fmul_rn(o1[4 * j + 2 * r], inv[r]),
+                            __fmul_rn(o1[4 * j + 2 * r + 1], inv[r]));
+          }
+        }
+      }
+    } else {
+      // bf16 rows a 64-column half at a time through this warpgroup's q8
+      // slice (its last S product is done), chunk j of row r at chunk j ^ (r
+      // & 7), then 16-byte stores of the 128-byte row halves
+      bf16* out_rows = static_cast<bf16*>(out) + ((size_t)head * n + q0 + wg * 64) * 128;
+      const int rows = n - q0 - wg * 64;  // this warpgroup's rows below n
+      w8_store_half(o0, inv, my_q, out_rows, rows, row, tid & 127, wg);
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // half 0 is read
+      w8_store_half(o1, inv, my_q, out_rows + 64, rows, row, tid & 127, wg);
+    }
+  }
+}
+
+// kernel 14 at head dim 128 on this core. q8, k8: [H, n, 128] int8; v: the
+// v8 [H, 128, n_pad] int8 of the pass (n_pad % 128 == 0, zero past n) under
+// kAttnI8Qkpv and kAttnI8QkpvF32, bf16 [H, n, 128] under kAttnI8Qk; c, sv
+// [H] fp32 (sv read under "qkpv" only); kv_lens [H] int32; out [H, n, 128]
+// bf16, fp32 under kAttnI8QkpvF32. All 16-byte aligned.
+template <int kI8>
+cudaError_t launch_attn_i8_d128(const void* q8, const void* k8, const void* v, const void* c,
+                                const void* sv, const void* kv_lens, void* out, int H, int n,
+                                int n_pad, cudaStream_t stream) {
+  constexpr int smem = attn_i8_d128_smem_bytes<kI8>();
+  static_assert(smem <= kBlockSmemMax, "the int8 d = 128 rings do not fit a block");
+  CUtensorMap map_q, map_k, map_v;
+  const bool v_ok = attn_i8_pv8(kI8)
+                        ? tensor_map_3d(&map_v, v, H, 128, n_pad, 128, kMapInt8)
+                        : tensor_map_3d(&map_v, v, H, n, 128, kW128Keys, kMapBf16);
+  if (!tensor_map_3d(&map_q, q8, H, n, 128, kW128Rows, kMapInt8) ||
+      !tensor_map_3d(&map_k, k8, H, n, 128, kW128Keys, kMapInt8) || !v_ok)
+    return cudaErrorInvalidValue;
+  static std::atomic<bool> ready[kMaxDevices];
+  const cudaError_t err = allow_smem(attn_i8_d128_wgmma_kernel<kI8>, smem, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kW128Rows - 1) / kW128Rows, H);
+  attn_i8_d128_wgmma_kernel<kI8><<<grid, 128 * (kW128Wgs + 1), smem, stream>>>(
+      map_q, map_k, map_v, static_cast<const int*>(kv_lens), out, n,
+      static_cast<const float*>(c), static_cast<const float*>(sv));
   return cudaGetLastError();
 }
 

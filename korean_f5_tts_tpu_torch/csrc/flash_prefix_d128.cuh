@@ -1,5 +1,6 @@
 // The attention kernels at head dim 128 (flash_prefix_d128.cu; A, 10 and 18
-// in bf16 on the attention core, flash_prefix_core_d128.cu; 13 in bf16 on
+// in bf16 on the attention core, flash_prefix_core_d128.cu; 14 but its fp32
+// "qk" form on the core's int8 kernel, flash_prefix_int8_core_d128.cu; 13 in bf16 on
 // the attention backward core, flash_prefix_bwd_core_d128.cu; A, 10 and 18
 // in fp32 on split 3xTF32, flash_prefix_tf32_d128.cu; 11-13 in fp32 on split
 // 3xTF32, flash_prefix_train_tf32_d128.cu), as host
@@ -29,6 +30,15 @@ cudaError_t core(const void* q, const void* k, const void* v, const void* kv_len
 cudaError_t tf32(const void* q, const void* k, const void* v, const void* kv_lens,
                  const void* cos, const void* sin, void* out, void* lse, int H, int heads,
                  int n, int n_rope, float scale_log2, cudaStream_t stream);
+
+// kernel 14 in "qkpv" (pv_i8; bf16, or fp32 with out_f32) and in "qk" on
+// bf16 v (pv_i8 and out_f32 false) on the int8 kernel of the attention
+// core's D = 128 form (attn_wgmma.cuh, flash_prefix_int8_core_d128.cu): q8,
+// k8 [H, n, 128] int8, v the pass's v8 [H, 128, n_pad] or bf16 [H, n, 128],
+// c, sv [H] fp32, kv_lens [H]
+cudaError_t i8_core(const void* q8, const void* k8, const void* v, const void* c,
+                    const void* sv, const void* kv_lens, void* out, int H, int n, int n_pad,
+                    bool pv_i8, bool out_f32, cudaStream_t stream);
 
 // kernel 13 in bf16 on the D = 128 form of the TMA + wgmma attention
 // backward core (flash_prefix_bwd_core_d128.cu, on attn_bwd_wgmma.cuh)

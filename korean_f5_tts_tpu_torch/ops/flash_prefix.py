@@ -57,7 +57,9 @@ core's (csrc/flash_prefix_bwd_core_d128.cu, on csrc/attn_bwd_wgmma.cuh),
 A, 10 and 18 in fp32 on split 3xTF32 products
 (csrc/flash_prefix_tf32_d128.cu), 11-13 in fp32 on split 3xTF32 products too
 (csrc/flash_prefix_train_tf32_d128.cu), 11 and 12 in bf16 on mma.sync in
-csrc/flash_prefix_d128.cu, and 14 in csrc/flash_prefix_int8_d128.cu, each
+csrc/flash_prefix_d128.cu, and 14 on the attention core's int8 D = 128
+kernel (csrc/flash_prefix_int8_core_d128.cu) but its fp32 "qk" form, split
+3xTF32 in csrc/flash_prefix_int8_d128.cu, each
 with its own counter (`launches_*_d128`). Which head dims reach a kernel at all is the dispatch's
 choice (ops/attention.py:ATTENTION_KERNEL_DIMS); a wrapper given another d
 on a CUDA tensor raises.
@@ -107,8 +109,8 @@ launches_rope_f32 = 0
 launches_qkv_f32 = 0
 # the d = 128 forms (csrc/attn_wgmma.cuh, csrc/flash_prefix_bwd_core_d128.cu,
 # csrc/flash_prefix_tf32_d128.cu, csrc/flash_prefix_train_tf32_d128.cu,
-# csrc/flash_prefix_d128.cu, csrc/flash_prefix_int8_d128.cu,
-# csrc/quant_heads.cu at d = 128), bf16 and
+# csrc/flash_prefix_d128.cu, csrc/flash_prefix_int8_core_d128.cu,
+# csrc/flash_prefix_int8_d128.cu, csrc/quant_heads.cu at d = 128), bf16 and
 # fp32, one counter each; 14 at d = 128
 # counts "qkpv" and "qk" on bf16 apart
 launches_d128 = 0
@@ -704,9 +706,12 @@ def flash_prefix_folded_i8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
     d 64 or 128 (k8 as it is: q8.k8^T wants k with d contiguous); v: with
     pv_i8 the int8 [H, d, n_pad] of _v8_kernel_layout (keys contiguous and
     slot-permuted), else the unquantized [H, n, d], bf16 or fp32; c, sv: [H]
-    fp32; kv_lens: [H] int32. At d = 128 every form runs on
-    csrc/flash_prefix_int8_d128.cu (mma.sync, S and "qkpv"'s P.V in int8,
-    the running max per I8_KEY_CHUNK). Returns [H, n, d] of out_dtype (None: the unquantized v's
+    fp32; kv_lens: [H] int32. At d = 128 "qkpv" and "qk" on bf16 v run on
+    the attention core's int8 D = 128 kernel (csrc/attn_wgmma.cuh:
+    attn_i8_d128_wgmma_kernel: TMA rings, S and "qkpv"'s P.V on wgmma .s8,
+    "qk"'s P.V on bf16 wgmma) and fp32 "qk" on split 3xTF32
+    (csrc/flash_prefix_int8_d128.cu: S exact on mma.sync .s8), the running
+    max per I8_KEY_CHUNK. Returns [H, n, d] of out_dtype (None: the unquantized v's
     dtype, bf16 under pv_i8), the JAX kernel's out_dtype: bf16 or, with
     pv_i8, fp32 on the attention core's int8 form; fp32 without pv_i8 on
     csrc/flash_prefix_int8_f32.cu, exact int8 scores on the tensor cores and

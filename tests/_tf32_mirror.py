@@ -231,6 +231,74 @@ def from_acc(acc):
     return out
 
 
+def to_acc(x):
+    """[16 W, 8 NT] rows of a tile -> the accumulator layout [NT][W, 32, 4]
+    (warp w, lane (g, t): rows 16w + g, 16w + g + 8, columns 8j + 2t, 8j +
+    2t + 1): the inverse of from_acc for W warps at once"""
+    _, g, tt = _lanes()
+    w = x.reshape(-1, 16, x.shape[1])  # [W, 16, 8 NT]
+    return np.stack([np.stack([w[:, g + 8 * (e >> 1), 8 * j + 2 * tt + (e & 1)]
+                               for e in range(4)], -1) for j in range(x.shape[1] // 8)])
+
+
+def from_acc_rows(acc):
+    """[ND][W, 32, 4] -> [16 W, 8 ND], W warps at once (from_acc's stores)"""
+    _, g, tt = _lanes()
+    nd, w = acc.shape[0], acc.shape[1]
+    out = np.zeros((w, 16, 8 * nd))
+    for j in range(nd):
+        for e in range(4):
+            out[:, g + 8 * (e >> 1), 8 * j + 2 * tt + (e & 1)] = acc[j][..., e]
+    return out.reshape(16 * w, 8 * nd)
+
+
+I8_CHUNK = 512  # keys a chunk of kernel 14's running max (ops/flash_prefix.py:I8_KEY_CHUNK)
+
+
+def i8_qk_d128(q8, k8, v, c, kv_len, one=False):
+    """flash_prefix_int8_d128.cu:flash_prefix_i8_qk_tf32_d128_kernel on one
+    head, every row at once (q8, k8 [n, 128] int8, v [n, 128] fp32): per
+    512-key chunk from key 0, sweep 1 takes the chunk's row max of float(S)
+    * c (S exact: the int8 tensor cores' sum, tests/test_torch_int8_d128_core.py
+    holds the fragments to it) over 64-key tiles masked at kv_len; one alpha
+    a chunk rescales o and l; sweep 2 takes 32-key tiles: p = exp2(s - m)
+    (0 at or past kv_len), l += its row sums, and P.V split 3xTF32 (mm_acc_3x
+    at the stride LD128, columns 0 and 64, the card's truncating
+    accumulation), each half of each tile in an accumulator of its own,
+    added to o in fp32. K and V rows past n are zeros. Returns o / l [n,
+    128] (zeros for kv_len 0). one: a single TF32 product for P.V (the
+    control)."""
+    f32 = np.float32
+    n = q8.shape[0]
+    rows = -(-n // 16) * 16
+    q = np.zeros((rows, q8.shape[1]), np.int64)
+    q[:n] = q8
+    span = -(-max(kv_len, 1) // 64) * 64  # rows the sweeps read
+    kp, vp = np.zeros((span, k8.shape[1]), np.int64), np.zeros((span, v.shape[1]), f32)
+    kp[:min(n, span)], vp[:min(n, span)] = k8[:span], v[:span]
+    o = np.zeros((rows, v.shape[1]), f32)
+    m = np.full((rows, 1), -np.inf, f32)
+    l = np.zeros((rows, 1), f32)
+    col = np.arange(span)[None, :]
+    s_all = np.where(col < kv_len, ((q @ kp.T).astype(f32) * f32(c)).astype(f32), f32(-np.inf))
+    for c0 in range(0, kv_len, I8_CHUNK):
+        keys = min(c0 + I8_CHUNK, kv_len) - c0
+        s = s_all[:, c0:c0 + -(-keys // 64) * 64]  # sweep 1
+        m_new = np.maximum(m, s.max(1, keepdims=True)).astype(f32)
+        alpha = np.exp2(m - m_new).astype(f32)
+        m, l, o = m_new, (l * alpha).astype(f32), (o * alpha).astype(f32)
+        for k0 in range(c0, c0 + keys, 32):  # sweep 2
+            p = np.exp2(s_all[:, k0:k0 + 32] - m).astype(f32)  # masked keys: exp2(-inf) = 0
+            l = (l + p.sum(1, keepdims=True, dtype=f32)).astype(f32)
+            for half in (0, 1):
+                pv = mm_acc_3x(to_acc(p), vp[k0:k0 + 32], one, trunc=True, ld=LD128,
+                               col0=64 * half)
+                o[:, 64 * half:64 * half + 64] = (o[:, 64 * half:64 * half + 64]
+                                                  + from_acc_rows(pv).astype(f32)).astype(f32)
+    inv = np.where(l > 0, f32(1) / np.where(l > 0, l, 1), 0).astype(f32)
+    return (o * inv)[:n].astype(np.float64)
+
+
 # --- the fp32 product core's swizzled tiles (csrc/gemm_f32.cuh, hopper.cuh) --------
 
 ROW_WORDS = 32  # fp32 words of a 128-byte swizzled row

@@ -2085,6 +2085,69 @@ def test_int8_attention_at_head_dim_128(dev, dtype, pv_i8):
     assert got.dtype == dtype and _rel(got, want) <= bound
 
 
+# kernel 14 at d = 128: (B, heads, n, kv_lens, keys and values past kv_len),
+# chip_smoke.py's I8_D128_EDGES (the tiles' edges, the 512-key chunk's
+# boundary crossed at 511 / 513, several chunks) and the serving shape
+I8_D128_CASES = [
+    (1, 2, 1, [1], 0.0), (2, 2, 63, [0, 63], 0.0), (2, 2, 64, [1, 64], 1e4),
+    (2, 2, 65, [64, 65], 0.0), (3, 2, 127, [0, 1, 127], 1e4), (2, 2, 129, [128, 129], 0.0),
+    (2, 2, 513, [511, 513], 1e4), (3, 2, 640, [600, 512, 640], 1e4),
+    (2, 8, 1536, [1376, 1536], 1e4)]
+
+
+@pytest.mark.parametrize("B,heads,n,lens,past", I8_D128_CASES,
+                         ids=[f"n{c[2]}-kv{'_'.join(map(str, c[3]))}" for c in I8_D128_CASES])
+def test_int8_attention_at_head_dim_128_on_the_core_and_split_3xtf32(dev, B, heads, n, lens,
+                                                                    past):
+    """Kernel 14's four forms at d = 128 ("qkpv" bf16 and fp32 out and "qk"
+    on bf16 v on the attention core's int8 D = 128 kernel; fp32 "qk" split
+    3xTF32), one launch each on its own counter, against the plain version
+    at the 512-key chunk on the pass's operands: bf16 "qkpv" 2e-3, "qk"
+    5e-3; fp32 "qkpv" 2e-4, "qk" 1e-5. K and V rows past kv_len at +-1e4; a
+    head with kv_len 0 gives zeros. Controls: the fp32 plain outputs through
+    bf16 miss the fp32 bounds, and, at n >= 512, fp32 "qk"'s plain version
+    with TF32 on (one TF32 product for P.V) misses 1e-5 (at n 63 cuBLAS
+    took no TF32 kernel for its products: the switch changed nothing)."""
+    gen = torch.Generator(device=dev).manual_seed(128 + n)
+    q, k, v = (torch.randn((B, heads, n, 128), generator=gen, device=dev) for _ in range(3))
+    for i, length in enumerate(lens if past else ()):
+        for x in (k, v):
+            sign = torch.randint(0, 2, (heads, n - length, 128), generator=gen, device=dev)
+            x[i, :, length:] = past * (2.0 * sign - 1)
+    lens_h = torch.tensor(lens, dtype=torch.int32, device=dev).repeat_interleave(heads)
+    live = lens_h > 0
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        for pv_i8 in (True, False):
+            q8, k8, vk, c, sv = flash_prefix.quantize_heads(q.to(dtype), k.to(dtype), v.to(dtype),
+                                                            pv_i8)
+            counter = f"launches_i8{'' if pv_i8 else '_qk'}{'_f32' if f32 else ''}_d128"
+            before = getattr(flash_prefix, counter)
+            got = flash_prefix.flash_prefix_folded_i8(q8, k8, vk, c, sv, lens_h, pv_i8=pv_i8,
+                                                      out_dtype=dtype)
+            assert getattr(flash_prefix, counter) == before + 1
+            assert got.dtype == dtype and torch.isfinite(got).all()
+            assert not got[~live].any()
+            vn = flash_prefix._v8_natural_layout(vk, n) if pv_i8 else vk
+            with _NoTF32():
+                want = flash_prefix._i8_attention_plain(q8, k8, vn, c, sv, lens_h, pv_i8,
+                                                        flash_prefix.I8_KEY_CHUNK)
+            bound = {(True, False): 2e-3, (False, False): 5e-3, (True, True): 2e-4,
+                     (False, True): 1e-5}[(pv_i8, f32)]
+            assert _rel(got[live], want[live]) <= bound
+            if f32 and n > 1:  # one key: p = 1, exact in any precision
+                assert _rel(want[live].bfloat16(), want[live]) > bound
+                if not pv_i8 and n >= 512:
+                    saved = torch.backends.cuda.matmul.allow_tf32
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        tf32 = flash_prefix._i8_attention_plain(q8, k8, vn, c, sv, lens_h, False,
+                                                                flash_prefix.I8_KEY_CHUNK)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = saved
+                    assert _rel(tf32[live], want[live]) > bound
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_grouped_conv_at_8_channels_a_group(dev, dtype):
     """Kernel C at dim 128, 16 groups of 8: pairs packed into the 16-channel
