@@ -421,8 +421,9 @@ SOURCES = {
     # A, 10 and 18 at d = 128 in bf16: the attention core's d = 128 form
     **dict.fromkeys(("flash_prefix_d128", "flash_prefix_lse_d128", "flash_prefix_rope_d128"),
                     "korean_f5_tts_tpu_torch/csrc/attn_wgmma.cuh"),
-    # 13 at d = 128 in bf16: the attention backward core's d = 128 form
-    "flash_prefix_dkv_d128": "korean_f5_tts_tpu_torch/csrc/flash_prefix_bwd_core_d128.cu",
+    # 11, 12 and 13 at d = 128 in bf16: the attention backward core's d = 128 forms
+    **dict.fromkeys(("flash_prefix_dq_lsein_d128", "flash_prefix_dq_d128", "flash_prefix_dkv_d128"),
+                    "korean_f5_tts_tpu_torch/csrc/flash_prefix_bwd_core_d128.cu"),
     # A, 10 and 18 at d = 128 in fp32: split 3xTF32
     **dict.fromkeys(("flash_prefix_f32_d128", "flash_prefix_lse_f32_d128",
                      "flash_prefix_rope_f32_d128"),
@@ -484,7 +485,8 @@ def fail(msg: str) -> None:
 # flash_prefix_i8_qk_tf32_d128_kernel (14 fp32 "qk"), the attention core's
 # attn_fwd_d128_wgmma_kernel (A, 10, 18 in bf16) and attn_i8_d128_wgmma_kernel
 # (14's other forms), the backward core's
-# attn_dkv_d128_wgmma_kernel (13 in bf16) and flash_prefix_tf32_d128_kernel (A,
+# attn_dkv_d128_wgmma_kernel (13 in bf16) and attn_dq_d128_wgmma_kernel (11
+# and 12 in bf16), flash_prefix_tf32_d128_kernel (A,
 # 10, 18 in fp32) and flash_prefix_dq_tf32_d128_kernel and
 # flash_prefix_dkv_tf32_d128_kernel (11-13 in fp32): "d128" in their names; the
 # mma.sync forward at D = 128, kept for timing A, 10 and 18)
@@ -496,12 +498,16 @@ def ptxas_faults(log: str) -> list[str]:
     """What ptxas reported against the checked kernels in a build log (empty
     when the library came from the build cache): spills of a function whose
     name holds one of SPILL_CHECKED (ptxas prints each function's spills on
-    the line after "Function properties for <name>"), and any wgmma it
-    serialized (info C7513); and kernel 12's mma.sync loop
+    the line after "Function properties for <name>"; among them the D = 128
+    forms of the backward core, attn_dkv_d128_wgmma_kernel and
+    attn_dq_d128_wgmma_kernel, by "d128" and "wgmma"), and any wgmma it
+    serialized (info C7513); and kernel 12's mma.sync loop at d = 64
     (flash_prefix_dq_kernel), which its form on the dq core replaced, and
     kernel 14's first loop at d = 128 (flash_prefix_i8_d128_kernel), which
     the attention core's int8 D = 128 kernel and the split 3xTF32 kernel
-    replaced."""
+    replaced. The mma.sync dq and dk/dv kernels at d = 128
+    (flash_prefix_dq_d128_kernel, flash_prefix_dkv_d128_kernel) stay built:
+    f5_flash_prefix_d128_bwd_mma times them beside the backward core."""
     faults, name = [], ""
     if "flash_prefix_dq_kernel" in log:
         faults.append("kernel 12's mma.sync loop (flash_prefix_dq_kernel) is still built")
@@ -2608,7 +2614,8 @@ AB_KERNELS = {"flash_prefix": "A", "ff_block": "B", "grouped_conv": "C",
               "flash_prefix_i8_d128": "14 d128 qkpv", "flash_prefix_i8_qk_d128": "14 d128 qk",
               "flash_prefix_i8_f32_d128": "14 d128 fp32 qkpv",
               "flash_prefix_i8_qk_f32_d128": "14 d128 fp32 qk",
-              "flash_prefix_i8_quant_d128": "14's pass d128"}
+              "flash_prefix_i8_quant_d128": "14's pass d128",
+              "flash_prefix_dq_lsein_d128": "11 d128", "flash_prefix_dq_d128": "12 d128"}
 AB_SDPA = {f"sdpa_{name.split('_')[0].lower()}": f"SDPA {name}" for name in SDPA_BACKENDS}
 AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
               "flash_bwd": "library flash backward (11 + 13's yardstick)",
@@ -2620,7 +2627,8 @@ AB_LIBRARY = {**AB_SDPA, "flash_fwd": "library flash forward (10's yardstick)",
 # no slower than 1.05x the parent or fail: every kernel this change does not
 # redesign (12 moves onto the dq core; 14's forms on the attention core take
 # their max per 512-key chunk, a second S sweep; 14's four forms at d = 128
-# leave mma.sync and FFMA: timed, not held)
+# leave mma.sync and FFMA; 11 and 12 in bf16 at d = 128 leave mma.sync for the
+# backward core's D = 128 dq form: timed, not held)
 AB_UNMOVED = ("flash_prefix", "ff_block", "grouped_conv", "ln_mod_matmul",
               "proj_gated_residual", "ff_block_int8", "ln_mod_matmul_int8",
               "proj_gated_residual_int8", "qmatmul", "flash_prefix_lse", "flash_prefix_dq_lsein",
@@ -2641,7 +2649,8 @@ def core_timings(dev, absent=()) -> dict[str, float]:
     (18, 19: B 2 x 16 heads), n 1536, kv_len 1376; training attention H 128,
     n 1280, every key valid; kernel 14 at d = 128 alone on its pass's
     operands, and the pass, at the d = 128 serving shape: H 16 (B 2 x 8
-    heads), n 1536, kv_len 1376)
+    heads), n 1536, kv_len 1376; 11 and 12 in bf16 at the d = 128 training
+    shape, H 64, n 1280, every key valid)
     of the AB_KERNELS but those named in `absent` (forms the tree lacks),
     through the public wrappers of whichever korean_f5_tts_tpu_torch is
     first on sys.path, each held against its plain version before it is
@@ -2809,6 +2818,18 @@ def core_timings(dev, absent=()) -> dict[str, float]:
         "flash_prefix_i8_quant_d128": (
             lambda: fp.quantize_heads(*b8, True)[2],
             lambda: fp._v8_kernel_layout(fp._quantize_qkv(*b8, True)[2]), 0.0),
+    })
+    # 11 and 12 in bf16 at the d = 128 training shape
+    hq, hk, hv, hdo = (torch.randn((64, 1280, 128), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+    hkv = torch.full((64,), 1280, dtype=torch.int32, device=dev)
+    ho, hlse = fp.prefix_attention_lse_reference(hq, hk, hv, hkv)
+    htrain = (hq, hk, hv, hdo, (hdo.float() * ho.float()).sum(-1), hlse, hkv)
+    calls.update({
+        "flash_prefix_dq_lsein_d128": (lambda: fp.flash_prefix_dq_lsein(*htrain),
+                                       lambda: fp.flash_prefix_dq_lsein_reference(*htrain), 1e-2),
+        "flash_prefix_dq_d128": (lambda: fp.flash_prefix_dq(*htrain[:5], hkv)[0],
+                                 lambda: fp.flash_prefix_dq_reference(*htrain[:5], hkv)[0], 1e-2),
     })
     out = {}
     for name, (fn, plain, rel) in calls.items():
@@ -5650,6 +5671,22 @@ CORE_BWD_D128_EDGES = (
     (301, [0, 129, 200, 301], None),
     (1537, [1537, 0, 1, 63, 64, 65, 127, 128, 129, 700, 1536] * 2 + [1537], 1e4),
 )
+# kernels 11 and 12 at d = 128 in bf16 on the backward core's dq form (128
+# queries a block on two warpgroups of 64, 64-key tiles): (n, kv_lens, keys
+# past kv_len); n 1, 63-65, 127-129, 301 (an [H, n] row of lse and D at no
+# 16-byte boundary), 1537; kv_len 0, 1, 63-65, 127-129, n; 23 heads at n 1537:
+# 299 blocks, a partial wave on 132 SMs
+CORE_DQ_D128_EDGES = (
+    (1, [1, 0], None),
+    (63, [0, 1, 63], 1e4),
+    (64, [1, 63, 64], None),
+    (65, [0, 1, 63, 64, 65], 1e4),
+    (127, [1, 65, 127, 0], None),
+    (128, [0, 1, 64, 127, 128], 1e4),
+    (129, [1, 63, 64, 65, 127, 128, 129], 1e4),
+    (301, [1, 63, 64, 65, 127, 128, 129, 301, 0], 1e4),
+    (1537, [1537, 0, 1, 63, 64, 65, 127, 128, 129, 700, 1536] * 2 + [1537], 1e4),
+)
 SERVE_D128 = (16, 1536, 1376)  # folded heads (2 items x 8), n, kv_len: the serving shape
 TRAIN_D128 = (64, 1280)        # folded heads (8 items x 8), n: the training shape
 
@@ -5729,8 +5766,9 @@ def d128_f32_designs_timed(label: str, ms: float, ffma, r: dict, shape: str = "s
 def _d128_kept_bwd(entry: str, dev, form: int, q, k, v, do, dvec, lse, kv):
     """Kernel 11 (form 11: dq from lse), 12 (form 12: (dq, lse), lse None)
     or 13 (form 13: (dk, dv)) at d = 128 on a kept design (entry: "mma",
-    the bf16 mma.sync kernels, f5_flash_prefix_d128_bwd_mma, 13's served by
-    no path; "ffma", the fp32 FFMA kernels the split 3xTF32 kernels replaced,
+    the bf16 mma.sync kernels the backward core's D = 128 forms replaced,
+    f5_flash_prefix_d128_bwd_mma; "ffma", the fp32 FFMA kernels the split
+    3xTF32 kernels replaced,
     f5_flash_prefix_f32_d128_bwd_ffma). Not counted: the counters are the
     wrappers'."""
     import torch
@@ -5758,8 +5796,8 @@ def d128_ffma_bwd(dev, form: int, q, k, v, do, dvec, lse, kv):
 
 
 def d128_mma_bwd(dev, form: int, q, k, v, do, dvec, lse, kv):
-    """_d128_kept_bwd on the bf16 mma.sync kernels (13: the one the backward
-    core replaced)."""
+    """_d128_kept_bwd on the bf16 mma.sync kernels (11, 12 and 13: the ones
+    the backward core's D = 128 forms replaced)."""
     return _d128_kept_bwd("mma", dev, form, q, k, v, do, dvec, lse, kv)
 
 
@@ -5803,16 +5841,18 @@ def check_core_d128(gen, dev) -> None:
 
 def check_attention_d128(gen, dev) -> dict[str, dict]:
     """Kernels A, 10, 11, 12 and 13 at d = 128 (bf16: A and 10 on the
-    attention core's d = 128 form, csrc/attn_wgmma.cuh, 13 on the backward
-    core's, csrc/flash_prefix_bwd_core_d128.cu, 11 and 12 mma.sync in
-    csrc/flash_prefix_d128.cu; fp32: A and 10 on split 3xTF32,
+    attention core's d = 128 form, csrc/attn_wgmma.cuh, 11, 12 and 13 on the
+    backward core's D = 128 forms, csrc/flash_prefix_bwd_core_d128.cu;
+    fp32: A and 10 on split 3xTF32,
     csrc/flash_prefix_tf32_d128.cu, 11-13 on split 3xTF32,
     csrc/flash_prefix_train_tf32_d128.cu; 10's o equal to A's to the bit in
     both dtypes; A and 10 fp32 also at the 3xTF32 tile's edges,
-    TF32_D128_EDGES, 11-13 fp32 at theirs, TF32_BWD_D128_EDGES, and 13 bf16
-    at the backward core's, CORE_BWD_D128_EDGES, with the designs they
-    replaced beside, the fp32 forms of A, 10 and 11-13 timed beside the FFMA
-    kernels at most 2/3 of their time, 13 bf16 beside the mma.sync kernel)
+    TF32_D128_EDGES, 11-13 fp32 at theirs, TF32_BWD_D128_EDGES, 13 bf16
+    at the backward core's, CORE_BWD_D128_EDGES, and 11 and 12 bf16 at its
+    dq form's, CORE_DQ_D128_EDGES, with the designs they replaced beside,
+    the fp32 forms of A, 10 and 11-13 timed beside the FFMA kernels at most
+    2/3 of their time, 13 bf16 beside the mma.sync kernel at most 2/3, 11
+    and 12 bf16 beside theirs at most 1/2)
     against their plain versions, both
     dtypes, at the serving shape (A: 16 heads, n 1536, 1376 keys), the
     training shape (10-13: 64 heads, n 1280, every key valid), a ragged case
@@ -5876,7 +5916,7 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             return err, (q, k, v, do, kv, o, lse, dvec, dq_p, dk_p, dv_p)
 
         print(f"kernels A, 10-13 at d = 128, {name} ("
-              f"{'A, 10 on the attention core, 13 on the backward core, 11, 12 mma.sync' if not f else 'A, 10-13 split 3xTF32'}"
+              f"{'A, 10 on the attention core, 11-13 on the backward core' if not f else 'A, 10-13 split 3xTF32'}"
               f"; rel bound {rel_o:.0e} for o, {F32_ATTN_REL:.0e} for lse, {rel_g:.0e} for dq, "
               "dk, dv)")
         H, n = TRAIN_D128
@@ -5922,6 +5962,28 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
             none = kve == 0
             if none.any() and max(t[none].abs().max().item() for t in (dk, dv)) != 0:
                 fail(f"kernel 13 {label}: a head with kv_len 0 is not zero")
+        for n_, lens, past in CORE_DQ_D128_EDGES if not f else ():  # 11, 12 on the backward core
+            qe, ke, ve, doe, kve = inputs(len(lens), n_, lens, past)
+            _, lse_e, dvec_e, dq_w, _, _ = plain(qe, ke, ve, doe, kve)
+            label = (f"d=128 bf16 backward core dq edge H={len(lens)} n={n_} "
+                     f"kv={lens if len(lens) < 12 else 'mixed'}{' past +-1e4' if past else ''}")
+            args = (qe, ke, ve, doe, dvec_e, lse_e, kve)
+            dq11 = fp.flash_prefix_dq_lsein(*args)
+            dq12, lse12 = fp.flash_prefix_dq(qe, ke, ve, doe, dvec_e, kve)
+            m11 = d128_mma_bwd(dev, 11, *args)
+            m12, ml12 = d128_mma_bwd(dev, 12, qe, ke, ve, doe, dvec_e, None, kve)
+            zero = n_ == 1  # dq is identically zero there (compare's note)
+            for name_, got, want, bound_, z in (
+                    ("11 dq", dq11, dq_w, rel_g, zero), ("12 dq", dq12, dq_w, rel_g, zero),
+                    ("12 lse", lse12, lse_e, F32_ATTN_REL, False),
+                    ("11 mma.sync dq", m11, dq_w, rel_g, zero),
+                    ("12 mma.sync dq", m12, dq_w, rel_g, zero),
+                    ("12 mma.sync lse", ml12, lse_e, F32_ATTN_REL, False)):
+                compare(f"kernel {name_} {label}", got, want, bound_, zero=z)
+            torch.cuda.synchronize()
+            none = kve == 0
+            if none.any() and max(t[none].abs().max().item() for t in (dq11, dq12, lse12)) != 0:
+                fail(f"kernels 11, 12 {label}: a head with kv_len 0 is not zero")
         for n_, lens, past in TF32_BWD_D128_EDGES if f else ():  # 11-13 on split 3xTF32
             qe, ke, ve, doe, kve = inputs(len(lens), n_, lens, past)
             _, lse_e, dvec_e, dq_w, dk_w, dv_w = plain(qe, ke, ve, doe, kve)
@@ -6015,6 +6077,15 @@ def check_attention_d128(gen, dev) -> dict[str, dict]:
                                out["flash_prefix_dkv_d128"]["ms"],
                                lambda: d128_mma_bwd(dev, 13, *train), out["flash_prefix_dkv_d128"],
                                shape="training", new_name="the backward core", most=2 / 3)
+            # 11 and 12 on the backward core's dq form beside the mma.sync kernel
+            for base, form, old in (
+                    ("flash_prefix_dq_lsein", 11, lambda: d128_mma_bwd(dev, 11, *train)),
+                    ("flash_prefix_dq", 12,
+                     lambda: d128_mma_bwd(dev, 12, q, k, v, do, dvec, None, kv))):
+                d128_designs_timed(f"kernel {form} d=128 bf16", out[f"{base}_d128"]["ms"], old,
+                                   out[f"{base}_d128"], shape="training",
+                                   old_name="the mma.sync kernel", new_name="the backward core",
+                                   most=0.5)
         if f:  # 10 on split 3xTF32 beside the FFMA kernel with its lse
             d128_f32_designs_timed("kernel 10 d=128 fp32", out["flash_prefix_lse_f32_d128"]["ms"],
                                    lambda: d128_ffma(dev, q, k, v, kv, lse=True),

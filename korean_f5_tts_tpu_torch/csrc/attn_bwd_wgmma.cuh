@@ -1,6 +1,7 @@
 // The bf16 attention backward core for Hopper: kernel 13 (dk and dv of
 // prefix attention) at head dim 64, on TMA, mbarriers and wgmma (hopper.cuh);
-// its D = 128 form, attn_dkv_d128_wgmma_kernel, is built from these pieces in
+// its D = 128 forms, attn_dkv_d128_wgmma_kernel and attn_dq_d128_wgmma_kernel
+// (kernels 11 and 12 below at D = 128), are built from these pieces in
 // flash_prefix_bwd_core_d128.cu.
 //
 // The function is the TPU kernel's (korean_f5_tts_tpu/ops/flash_prefix.py:
@@ -470,12 +471,14 @@ __device__ __forceinline__ void dq_issue_grad(float (&acc)[32],
 }
 
 // P in place of S (s[4j + e] is row g + 8 (e >> 1), key k0 + 8j + 2t + (e &
-// 1)), keys at or past kv_len masked (kernel 11: against the given lse)
-__device__ __forceinline__ void dq_probs(float (&s)[kDqKeys / 2], const float (&neg_lse)[2],
+// 1)), keys at or past kv_len masked (kernel 11: against the given lse); BK
+// keys a tile (the D = 128 form's are 64, flash_prefix_bwd_core_d128.cu)
+template <int BK = kDqKeys>
+__device__ __forceinline__ void dq_probs(float (&s)[BK / 2], const float (&neg_lse)[2],
                                          float scale_log2, int k0, int kv_len, int t) {
-  const bool mask = k0 + kDqKeys > kv_len;
+  const bool mask = k0 + BK > kv_len;
 #pragma unroll
-  for (int i = 0; i < kDqKeys / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     const int r = (i >> 1) & 1;
     float x = fmaf(s[i], scale_log2, neg_lse[r]);
     if (mask && k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len) x = -INFINITY;
@@ -486,13 +489,14 @@ __device__ __forceinline__ void dq_probs(float (&s)[kDqKeys / 2], const float (&
 // kernel 12: P in place of S against the running max, which this tile
 // updates, as the row sums l; alpha, the factor dq must be rescaled by, is
 // left for the caller to apply once the previous tile's product is done
-__device__ __forceinline__ void dq_probs_online(float (&s)[kDqKeys / 2], float (&m_run)[2],
+template <int BK = kDqKeys>
+__device__ __forceinline__ void dq_probs_online(float (&s)[BK / 2], float (&m_run)[2],
                                                 float (&l_run)[2], float (&alpha)[2],
                                                 float scale_log2, int k0, int kv_len, int t) {
-  const bool mask = k0 + kDqKeys > kv_len;
+  const bool mask = k0 + BK > kv_len;
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < kDqKeys / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     const int r = (i >> 1) & 1;
     s[i] = mask && k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len ? -INFINITY : s[i] * scale_log2;
     mx[r] = fmaxf(mx[r], s[i]);
@@ -506,7 +510,7 @@ __device__ __forceinline__ void dq_probs_online(float (&s)[kDqKeys / 2], float (
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < kDqKeys / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     const int r = (i >> 1) & 1;
     s[i] = fast_exp2(s[i] - m_run[r]);
     rs[r] += s[i];
@@ -516,10 +520,11 @@ __device__ __forceinline__ void dq_probs_online(float (&s)[kDqKeys / 2], float (
 }
 
 // dS = P * (dP - D) in place of dP
-__device__ __forceinline__ void dq_ds(float (&dp)[kDqKeys / 2], const float (&p)[kDqKeys / 2],
+template <int BK = kDqKeys>
+__device__ __forceinline__ void dq_ds(float (&dp)[BK / 2], const float (&p)[BK / 2],
                                       const float (&dd)[2]) {
 #pragma unroll
-  for (int i = 0; i < kDqKeys / 2; ++i) dp[i] = p[i] * (dp[i] - dd[(i >> 1) & 1]);
+  for (int i = 0; i < BK / 2; ++i) dp[i] = p[i] * (dp[i] - dd[(i >> 1) & 1]);
 }
 
 // kLseOut false: kernel 11, lse read; true: kernel 12, lse recomputed and

@@ -1,10 +1,9 @@
 // Tiles, warp-level products, the online-softmax step and the forward loop
-// of the first port's mma.sync attention: kernel 10 at d = 128
-// (flash_prefix_fwd_kernel; its forms without lse and with rope are the
-// designs that kernels A and 18 at d = 128 ran on, kept for timing; d = 64
-// and A and 18 at d = 128 run on attn_wgmma.cuh), the dq and dk/dv kernels
-// 11, 12 and 13 at d = 128 (flash_prefix_d128.cu; d = 64 runs on
-// attn_bwd_wgmma.cuh), kernel 14 at d = 128 (flash_prefix_int8_d128.cu), and
+// of the first port's mma.sync attention: the forward loop
+// (flash_prefix_fwd_kernel, the design that kernels A, 10 and 18 at d = 128
+// ran on, kept for timing; they run on attn_wgmma.cuh), the dq and dk/dv
+// kernels 11, 12 and 13 at d = 128 (flash_prefix_d128.cu, kept for timing;
+// both head dims run on attn_bwd_wgmma.cuh's cores), and
 // the probes of the rope loop's idioms (probe_hopper.cu: the strided and
 // rope loaders at d = 64).
 //

@@ -27,20 +27,20 @@
 // memory.
 //
 // bf16: A, 10 and 18 run on the TMA + wgmma attention core's D = 128 form
-// (attn_wgmma.cuh, flash_prefix_core_d128.cu: d128::core), 13 on the
-// attention backward core's D = 128 form (flash_prefix_bwd_core_d128.cu:
-// d128::core_dkv, on attn_bwd_wgmma.cuh's pieces); 11 and 12 on the first
-// port's mma.sync building blocks (flash_prefix.cuh), a block of 128 threads
-// over 64 rows, each warp 16 of them, shared tiles [64][136] bf16 (17 KB
-// each, four a block), as 13 did before the core:
+// (attn_wgmma.cuh, flash_prefix_core_d128.cu: d128::core), 11, 12 and 13 on
+// the attention backward core's D = 128 forms (flash_prefix_bwd_core_d128.cu:
+// d128::core_dq, d128::core_dkv, on attn_bwd_wgmma.cuh's pieces). The first
+// port's mma.sync kernels below (flash_prefix.cuh's building blocks, a block
+// of 128 threads over 64 rows, each warp 16 of them, shared tiles [64][136]
+// bf16, 17 KB each, four a block) serve no path and are kept for
+// chip_smoke.py's timing of the designs that replaced them
+// (f5_flash_prefix_d128_fwd_mma, f5_flash_prefix_d128_bwd_mma):
 //   A, 10, 18  flash_prefix_fwd_kernel<128, kLse, kRope>: q held as A
 //              fragments, 64-key K/V tiles loaded synchronously, S and P.V
 //              on mma.sync m16n8k16 with P re-packed in registers; kRope (18)
 //              rotates q and the K tiles of the rotating heads in fp32 with
 //              the bf16 tables as they land (ops/flash_prefix.py:
-//              rope_reference). The designs the core replaced, served by no
-//              path and kept for chip_smoke.py's timing
-//              (f5_flash_prefix_d128_fwd_mma).
+//              rope_reference).
 //   11, 12     flash_prefix_dq_d128_kernel<kOnline>: a block per (head, 64
 //              queries), Q and dO resident in shared memory (their fragments
 //              read per k step, which keeps the 16 x 128 fp32 dq accumulator
@@ -50,8 +50,7 @@
 //              denominator instead of the lse, rescales dq on each max
 //              update, divides by l at the end (dS is linear in P) and writes
 //              the lse it ends with.
-//   13         (kept for timing: f5_flash_prefix_d128_bwd_mma)
-//              flash_prefix_dkv_d128_kernel: a block per (head, 64 keys), K
+//   13         flash_prefix_dkv_d128_kernel: a block per (head, 64 keys), K
 //              and V resident, 64-query tiles of Q, dO, lse and D streamed;
 //              S^T and dP^T by mma_abt_s, dV += P^T.dO and dK += dS^T.Q by
 //              mma_pb; every query row is walked (rows past n get lse +inf:
@@ -887,11 +886,10 @@ extern "C" int f5_flash_prefix_f32_d128_fwd_ffma(const void* q, const void* k, c
                   device, stream);
 }
 
-// kernel 13 at d = 128 in bf16 (form 13) on the mma.sync kernel that the
-// attention backward core replaced (chip_smoke.py times the designs against
-// each other, no path calls it); forms 11 and 12 run the mma.sync kernel
-// that f5_flash_prefix_dq_lsein and f5_flash_prefix_dq take at d = 128 in
-// bf16. Arguments as f5_flash_prefix_f32_d128_bwd_ffma's.
+// kernels 11, 12 and 13 at d = 128 in bf16 (forms 11, 12, 13) on the
+// mma.sync kernels that the attention backward core's D = 128 forms replaced
+// (chip_smoke.py times the designs against each other, no path calls it).
+// Arguments as f5_flash_prefix_f32_d128_bwd_ffma's.
 extern "C" int f5_flash_prefix_d128_bwd_mma(const void* q, const void* k, const void* v,
                                             const void* dout, const void* dvec, const void* lse,
                                             const void* kv_lens, void* out0, void* out1, int H,

@@ -1,7 +1,8 @@
-// The attention kernels at head dim 128 (flash_prefix_d128.cu; A, 10 and 18
-// in bf16 on the attention core, flash_prefix_core_d128.cu; 14 but its fp32
-// "qk" form on the core's int8 kernel, flash_prefix_int8_core_d128.cu; 13 in bf16 on
-// the attention backward core, flash_prefix_bwd_core_d128.cu; A, 10 and 18
+// The attention kernels at head dim 128 (flash_prefix_d128.cu: the designs
+// kept for timing; A, 10 and 18 in bf16 on the attention core,
+// flash_prefix_core_d128.cu; 14 but its fp32 "qk" form on the core's int8
+// kernel, flash_prefix_int8_core_d128.cu; 11, 12 and 13 in bf16 on the
+// attention backward core, flash_prefix_bwd_core_d128.cu; A, 10 and 18
 // in fp32 on split 3xTF32, flash_prefix_tf32_d128.cu; 11-13 in fp32 on split
 // 3xTF32, flash_prefix_train_tf32_d128.cu), as host
 // launchers that the d = 64 entry points of flash_prefix.cu,
@@ -46,6 +47,14 @@ cudaError_t core_dkv(const void* q, const void* k, const void* v, const void* do
                      const void* dvec, const void* lse, const void* kv_lens, void* dk, void* dv,
                      int H, int n, float scale_log2, float sm_scale, cudaStream_t stream);
 
+// kernels 11 (online == false: lse_in read) and 12 (online: lse_out written)
+// in bf16 on the D = 128 form of the backward core's dq kernel
+// (flash_prefix_bwd_core_d128.cu, on attn_bwd_wgmma.cuh)
+cudaError_t core_dq(const void* q, const void* k, const void* v, const void* dout,
+                    const void* dvec, const void* lse_in, const void* kv_lens, void* dq,
+                    void* lse_out, int H, int n, float scale_log2, float sm_scale, bool online,
+                    cudaStream_t stream);
+
 // kernels A (lse == nullptr) and 10 (lse written) on the mma.sync loop (bf16)
 // or FFMA (fp32): they serve no path (core() and tf32() do), and are kept to
 // time the designs that replaced them (f5_flash_prefix_d128_fwd_mma,
@@ -72,9 +81,9 @@ cudaError_t tf32_dkv(const void* q, const void* k, const void* v, const void* do
                      int H, int n, float scale_log2, float sm_scale, cudaStream_t stream);
 
 // kernels 11 (online == false: lse_in read) and 12 (online: lse_out written)
-// on mma.sync (bf16) or FFMA (fp32). 11 and 12 in bf16 run here; the fp32
-// form serves no path (tf32_dq does) and is kept to time the design that
-// replaced it (f5_flash_prefix_f32_d128_bwd_ffma)
+// on mma.sync (bf16) or FFMA (fp32): both serve no path (core_dq() and
+// tf32_dq() do) and are kept to time the designs that replaced them
+// (f5_flash_prefix_d128_bwd_mma, f5_flash_prefix_f32_d128_bwd_ffma)
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const void* dvec,
                const void* lse_in, const void* kv_lens, void* dq, void* lse_out, int H, int n,
                float scale_log2, float sm_scale, bool online, bool f32, cudaStream_t stream);

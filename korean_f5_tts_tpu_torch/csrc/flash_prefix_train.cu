@@ -39,8 +39,9 @@
 //     (attn_wgmma.cuh: attn_fwd_d128_wgmma_kernel<true, false>, through
 //     flash_prefix_core_d128.cu); 13 in bf16 on the backward core's D = 128
 //     form (flash_prefix_bwd_core_d128.cu: attn_dkv_d128_wgmma_kernel, built
-//     from attn_bwd_wgmma.cuh's pieces); 11 and 12 in bf16 on the first port's
-//     mma.sync building blocks (flash_prefix.cuh, in flash_prefix_d128.cu);
+//     from attn_bwd_wgmma.cuh's pieces), 11 and 12 in bf16 on its dq form
+//     (the same file: attn_dq_d128_wgmma_kernel<kLseOut>, 128 queries a
+//     block, 64-key K/V tiles, the D = 64 dq core's cross-tile overlap);
 //     10-13 in fp32 on split 3xTF32 (flash_prefix_tf32_d128.cu,
 //     flash_prefix_train_tf32_d128.cu, through flash_prefix.cu and
 //     flash_prefix_train_f32.cu); the entry points below hand a d = 128
@@ -59,7 +60,7 @@ namespace f5 {
 namespace {
 
 // the training kernels take D = 64 (the DiT's head dim; the wgmma cores) and
-// D = 128 (flash_prefix_d128.cu)
+// D = 128 (their D = 128 forms, flash_prefix_d128.cuh)
 int check_args(int device, int H, int n, int d) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -90,8 +91,8 @@ extern "C" int f5_flash_prefix_dq_lsein(const void* q, const void* k, const void
                                         void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
   if (d == 128)
-    return (int)f5::d128::dq(q, k, v, dout, dvec, lse, kv_lens, dq, nullptr, H, n, scale_log2,
-                             sm_scale, false, false, static_cast<cudaStream_t>(stream));
+    return (int)f5::d128::core_dq(q, k, v, dout, dvec, lse, kv_lens, dq, nullptr, H, n,
+                                  scale_log2, sm_scale, false, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_attn_dq_wgmma<false>(q, k, v, dout, dvec, lse, kv_lens, dq, nullptr, H,
                                               n, scale_log2, sm_scale,
                                               static_cast<cudaStream_t>(stream));
@@ -104,8 +105,8 @@ extern "C" int f5_flash_prefix_dq(const void* q, const void* k, const void* v,
                                   float sm_scale, int device, void* stream) {
   if (int err = f5::check_args(device, H, n, d)) return err;
   if (d == 128)
-    return (int)f5::d128::dq(q, k, v, dout, dvec, nullptr, kv_lens, dq, lse_out, H, n,
-                             scale_log2, sm_scale, true, false, static_cast<cudaStream_t>(stream));
+    return (int)f5::d128::core_dq(q, k, v, dout, dvec, nullptr, kv_lens, dq, lse_out, H, n,
+                                  scale_log2, sm_scale, true, static_cast<cudaStream_t>(stream));
   return (int)f5::launch_attn_dq_wgmma<true>(q, k, v, dout, dvec, nullptr, kv_lens, dq, lse_out,
                                              H, n, scale_log2, sm_scale,
                                              static_cast<cudaStream_t>(stream));

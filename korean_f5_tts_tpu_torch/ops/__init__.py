@@ -53,9 +53,9 @@ KERNELS = {
     "flash_prefix_i8_f32": (flash_prefix, "launches_i8_f32"),  # "qkpv" on the core
     "flash_prefix_i8_qk_f32": (flash_prefix, "launches_i8_qk_f32"),  # "qk": int8 S, 3xTF32 P.V
     "flash_prefix_i8_quant_f32": (flash_prefix, "launches_i8_quant_f32"),
-    # the forms at head dim 128 (A, 10, 18 bf16 on the attention core, 13 bf16 on the
-    # backward core, 11, 12 mma.sync in bf16, A, 10-13, 18 fp32 split 3xTF32; 14 on
-    # int8 mma.sync)
+    # the forms at head dim 128 (A, 10, 18 bf16 on the attention core, 11-13 bf16 on
+    # the backward core, A, 10-13, 18 fp32 split 3xTF32; 14 on the attention core's
+    # int8 kernel, its fp32 "qk" split 3xTF32)
     **{f"{base}_d128": (flash_prefix, f"{attr}_d128") for base, attr in (
         ("flash_prefix", "launches"), ("flash_prefix_f32", "launches_f32"),
         ("flash_prefix_lse", "launches_lse"), ("flash_prefix_lse_f32", "launches_lse_f32"),

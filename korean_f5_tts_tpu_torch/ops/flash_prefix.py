@@ -52,12 +52,11 @@ A, 10-14, 14's pass and 18 take d = 64 and d = 128 (KERNEL_HEAD_DIMS, the
 JAX kernels' `d in (64, 128)`); 19 takes dh = 64 only, as the JAX kernel
 (flash_prefix.py:1632, `2 * dh == LANES`). At d = 128 A, 10 and 18 in bf16
 run on the attention core's d = 128 form (csrc/attn_wgmma.cuh, through
-csrc/flash_prefix_core_d128.cu), 13 in bf16 on the attention backward
-core's (csrc/flash_prefix_bwd_core_d128.cu, on csrc/attn_bwd_wgmma.cuh),
-A, 10 and 18 in fp32 on split 3xTF32 products
+csrc/flash_prefix_core_d128.cu), 11, 12 and 13 in bf16 on the attention
+backward core's (csrc/flash_prefix_bwd_core_d128.cu, on
+csrc/attn_bwd_wgmma.cuh), A, 10 and 18 in fp32 on split 3xTF32 products
 (csrc/flash_prefix_tf32_d128.cu), 11-13 in fp32 on split 3xTF32 products too
-(csrc/flash_prefix_train_tf32_d128.cu), 11 and 12 in bf16 on mma.sync in
-csrc/flash_prefix_d128.cu, and 14 on the attention core's int8 D = 128
+(csrc/flash_prefix_train_tf32_d128.cu), and 14 on the attention core's int8 D = 128
 kernel (csrc/flash_prefix_int8_core_d128.cu) but its fp32 "qk" form, split
 3xTF32 in csrc/flash_prefix_int8_d128.cu, each
 with its own counter (`launches_*_d128`). Which head dims reach a kernel at all is the dispatch's
@@ -109,8 +108,8 @@ launches_rope_f32 = 0
 launches_qkv_f32 = 0
 # the d = 128 forms (csrc/attn_wgmma.cuh, csrc/flash_prefix_bwd_core_d128.cu,
 # csrc/flash_prefix_tf32_d128.cu, csrc/flash_prefix_train_tf32_d128.cu,
-# csrc/flash_prefix_d128.cu, csrc/flash_prefix_int8_core_d128.cu,
-# csrc/flash_prefix_int8_d128.cu, csrc/quant_heads.cu at d = 128), bf16 and
+# csrc/flash_prefix_int8_core_d128.cu, csrc/flash_prefix_int8_d128.cu,
+# csrc/quant_heads.cu at d = 128), bf16 and
 # fp32, one counter each; 14 at d = 128
 # counts "qkpv" and "qk" on bf16 apart
 launches_d128 = 0

@@ -1868,19 +1868,23 @@ def _d128_ffma_bwd(dev, form, q, k, v, do, dvec, lse, kv):
     return out0 if out1 is None else (out0, out1)
 
 
-def _d128_mma_bwd(dev, q, k, v, do, dvec, lse, kv):
-    """Kernel 13 in bf16 at d = 128 on the mma.sync kernel the attention
-    backward core replaced: (dk, dv)."""
+def _d128_mma_bwd(dev, q, k, v, do, dvec, lse, kv, form=13):
+    """Kernel 13 (form 13: (dk, dv)), 11 (form 11: dq) or 12 (form 12: (dq,
+    lse), lse not read) in bf16 at d = 128 on the mma.sync kernels the
+    attention backward core's D = 128 forms replaced."""
     from korean_f5_tts_tpu_torch.ops import cuda_build
 
     H, n = q.shape[:2]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    out0 = torch.empty_like(q)
+    out1 = (torch.empty_like(v) if form == 13
+            else torch.empty((H, n), dtype=torch.float32, device=dev) if form == 12 else None)
     err = cuda_build.library().f5_flash_prefix_d128_bwd_mma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(), lse.data_ptr(),
-        kv.data_ptr(), dk.data_ptr(), dv.data_ptr(), H, n, 13, flash_prefix.LOG2E / 128 ** 0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dvec.data_ptr(),
+        None if form == 12 else lse.data_ptr(), kv.data_ptr(), out0.data_ptr(),
+        None if out1 is None else out1.data_ptr(), H, n, form, flash_prefix.LOG2E / 128 ** 0.5,
         128 ** -0.5, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "f5_flash_prefix_d128_bwd_mma")
-    return dk, dv
+    return out0 if out1 is None else (out0, out1)
 
 
 @pytest.mark.parametrize("n,lens,past", [
@@ -1917,6 +1921,55 @@ def test_dkv_at_head_dim_128_on_the_attention_backward_core(dev, n, lens, past):
     for h, length in enumerate(lens):
         if length < n:  # keys at or past kv_len get no gradient
             assert dk[h, length:].abs().max().item() == 0 == dv[h, length:].abs().max().item()
+
+
+@pytest.mark.parametrize("n,lens,past", [
+    (1, [1, 0], None),                                       # one query, a head with kv_len 0
+    (65, [0, 1, 63, 64, 65], 1e4),                           # the 64-key tiles' edges
+    (129, [1, 127, 128, 129, 0], None),                      # two 128-query blocks
+    (301, [1, 63, 64, 65, 127, 128, 129, 301, 0], 1e4),      # lse, D rows at no 16-byte boundary
+    (1537, [1537, 0, 1, 700, 1536] * 4 + [1537] * 3, 1e4),  # 23 heads: 299 blocks
+    (1280, [1280] * 8, None),                                # the training length
+])
+def test_dq_at_head_dim_128_on_the_attention_backward_core(dev, n, lens, past):
+    """Kernels 11 and 12 in bf16 at d = 128 on the backward core's D = 128 dq
+    form (attn_dq_d128_wgmma_kernel), each on its own counter, against the
+    plain versions and beside the mma.sync kernels they replaced (dq within
+    1e-2 relative L2, 12's lse within 1e-5); a head with kv_len 0 gives zero
+    dq and lse 0; at n = 1 dq is identically zero (dS = P (dP - D) = 0 for the
+    one key) and is held to |dq| <= 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(1112 + n)
+    H = len(lens)
+    q, k, v, do = (torch.randn((H, n, 128), generator=gen, device=dev) for _ in range(4))
+    for h, length in enumerate(lens if past else ()):
+        k[h, length:] = past * q[h].mean(0).sign()
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+    o, lse = flash_prefix.prefix_attention_lse_reference(q, k, v, kv)
+    o[kv == 0] = 0
+    dvec = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, dvec, lse, kv)
+    want = flash_prefix.flash_prefix_dq_lsein_reference(*args)
+    names = ("launches_dq_lsein_d128", "launches_dq_d128")
+    before = [getattr(flash_prefix, x) for x in names]
+    dq11 = flash_prefix.flash_prefix_dq_lsein(*args)
+    dq12, lse12 = flash_prefix.flash_prefix_dq(q, k, v, do, dvec, kv)
+    assert [getattr(flash_prefix, x) for x in names] == [b + 1 for b in before]
+    m11 = _d128_mma_bwd(dev, *args, form=11)
+    m12, ml12 = _d128_mma_bwd(dev, *args, form=12)
+    torch.cuda.synchronize(dev)
+    live = [h for h, length in enumerate(lens) if length > 0]
+    for got in (lse12, ml12):
+        assert torch.isfinite(got).all() and _rel(got, lse) <= 1e-5
+    for got in (dq11, dq12, m11, m12):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+        if n == 1:
+            assert got.float().abs().max().item() <= 1e-5
+        else:
+            assert _rel(got[live], want[live]) <= 1e-2
+    for h, length in enumerate(lens):
+        if length == 0:
+            assert not dq11[h].any() and not dq12[h].any() and not lse12[h].any()
 
 
 @pytest.mark.parametrize("n,lens,past", [

@@ -162,31 +162,36 @@ def test_kernel_11_reference_at_the_dq_core_tile_edges(n, lens, dtype):
     _close(dq_p.float().numpy(), np.asarray(dq_j.astype(jnp.float32))[:, :n], dtype, 1e-4)
 
 
-def kernel12_schedule(q, k, v, do, dvec, kv_lens, after_product: bool = True):
-    """Kernel 12 (attn_bwd_wgmma.cuh, attn_dq_wgmma_kernel<true>) in torch,
-    head by head: ceil(kv_len / 128) key tiles of 128 (rows past n zero, as
-    TMA fills them); per tile x = S * scale_log2 with keys at or past kv_len
-    at -inf, m_new = max(m, row max), alpha = exp2(m - m_new), p = exp2(x -
-    m_new), l = alpha l + rowsum(p), dS = p (dP - D) rounded to bf16. The
-    product dS.K of tile i - 1 is in flight while tile i's alpha is found:
-    the kernel adds it first and rescales after (after_product); the other
-    order is the race the kernel avoids. At the end dq * 1/sqrt(64) / l (l
-    = 0 read as 1), lse = m + log2(l) (0 without a valid key). fp32 [H, n,
-    64] in (values of the card's bf16 operands), (dq, lse) out."""
-    H, n, d = q.shape
-    scale_log2 = jfp.LOG2E * SCALE
-    dq, lse = torch.zeros((H, n, d)), torch.zeros((H, n))
+def kernel12_schedule(q, k, v, do, dvec, kv_lens, after_product: bool = True,
+                      tile: int = 128):
+    """Kernel 12 (attn_bwd_wgmma.cuh, attn_dq_wgmma_kernel<true>; at d = 128
+    flash_prefix_bwd_core_d128.cu, attn_dq_d128_wgmma_kernel<true>, tile 64)
+    in torch, head by head: ceil(kv_len / tile) key tiles of `tile` (rows
+    past the keys zero, as TMA fills them); per tile x = S * scale_log2 with
+    keys at or past kv_len at -inf, m_new = max(m, row max), alpha = exp2(m -
+    m_new), p = exp2(x - m_new), l = alpha l + rowsum(p), dS = p (dP - D)
+    rounded to bf16. The product dS.K of tile i - 1 is in flight while tile
+    i's alpha is found: the kernel adds it first and rescales after
+    (after_product); the other order is the race the kernel avoids. At the
+    end dq * 1/sqrt(d) / l (l = 0 read as 1), lse = m + log2(l) (0 without a
+    valid key). fp32 q, dO [H, m, d] (any block of query rows), k, v [H, n,
+    d] (values of the card's bf16 operands), dvec [H, m]; (dq, lse) out."""
+    H, m_rows, d = q.shape
+    n = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    scale_log2 = jfp.LOG2E * scale
+    dq, lse = torch.zeros((H, m_rows, d)), torch.zeros((H, m_rows))
     for h in range(H):
         kv_len = min(int(kv_lens[h]), n)
-        n_tiles = -(-kv_len // 128)
-        pad = (0, 0, 0, n_tiles * 128 - n) if n_tiles * 128 > n else (0, 0, 0, 0)
+        n_tiles = -(-kv_len // tile)
+        pad = (0, 0, 0, n_tiles * tile - n) if n_tiles * tile > n else (0, 0, 0, 0)
         kh, vh = (torch.nn.functional.pad(x[h], pad) for x in (k, v))
-        m, l = torch.full((n,), -math.inf), torch.zeros(n)
-        acc, pending = torch.zeros((n, d)), None
+        m, l = torch.full((m_rows,), -math.inf), torch.zeros(m_rows)
+        acc, pending = torch.zeros((m_rows, d)), None
         for i in range(n_tiles):
-            kt, vt = kh[i * 128:(i + 1) * 128], vh[i * 128:(i + 1) * 128]
+            kt, vt = kh[i * tile:(i + 1) * tile], vh[i * tile:(i + 1) * tile]
             x = (q[h] @ kt.T) * scale_log2
-            x = x.masked_fill(torch.arange(i * 128, (i + 1) * 128)[None, :] >= kv_len, -math.inf)
+            x = x.masked_fill(torch.arange(i * tile, (i + 1) * tile)[None, :] >= kv_len, -math.inf)
             m_new = torch.maximum(m, x.amax(dim=-1))  # finite: the tile holds a valid key
             alpha = torch.exp2(m - m_new)
             m = m_new
@@ -200,7 +205,7 @@ def kernel12_schedule(q, k, v, do, dvec, kv_lens, after_product: bool = True):
             pending = ds @ kt
         if pending is not None:
             acc = acc + pending
-        dq[h] = acc * torch.where(l > 0, 1.0 / l, torch.ones_like(l))[:, None] * SCALE
+        dq[h] = acc * torch.where(l > 0, 1.0 / l, torch.ones_like(l))[:, None] * scale
         lse[h] = torch.where(l > 0, m + torch.log2(l), torch.zeros_like(l))
     return dq, lse
 
