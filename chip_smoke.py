@@ -298,14 +298,29 @@ Phases (any failure raises and exits non-zero):
      each; (f) socket_client.request_tts against the port's socket server
      on the same model: the samples equal what the server streamed, exact
      launches.
+ 16. the flagship parity protocol (scripts/flagship_parity.py), run before
+     phase 6, at F5TTS_Base's width and depth (dim 1024, 22 blocks, 16 x 64
+     heads, text_mask_padding False, pe_attn_head 1): (a) its modes card
+     and card_int8attn on seeded weights (AdaLN-zero re-drawn): one
+     utterance each of fp32 weights (the fp32 forms of A, B, C), bf16 (A,
+     B, C), int8 weights (5, A, 6, 4, C) and int8 weights under attn_int8
+     "qkpv" and "qk" (14 and its pass in A's place) from one noise draw at
+     n 1536, cond 432, 16 NFE, CFG 2, sway -1, EPSS; (b) trained_flagship
+     cut to 60 steps at 8 x 1280 frames (bf16 compute, remat "dots": 10, 11
+     and 13 once a block and step), its checkpoint written to a temporary
+     directory, then the same five utterances on the trained weights. Every
+     utterance's and every step's launches exact, every mel finite, each
+     fast mode within relative L2 5e-2 of fp32, the last loss below the
+     first, the gates' mean |w| above 0; the protocol's MAE and rel printed
+     beside them.
 Serving, the training steps, bench_train, offline inference and the LoRA
 run go the full depth of 22 blocks; only the Trainer runs of phases 6 and
 10(d) are cut to 4 and the fp32 step against the CPU to 2 (nothing else was
 cut when phases 9, 10 and 6's fp32 path were added). The line before the
 last is a JSON object with the kernels' numbers (launches: the serving runs
 of phases 3, 7 and 9(a), the backward entry point, the Trainer's 4 updates,
-phase 8, phase 10, phase 14 (b)-(d) and phase 15, the child's reported
-launches among them); the last line is {"ok": true,
+phase 8, phase 10, phase 14 (b)-(d), phase 15, the child's reported
+launches among them, and phase 16); the last line is {"ok": true,
 "device": {...}}.
 
     python3 chip_smoke.py --ab PARENT
@@ -7331,9 +7346,118 @@ def phase15_studio(dev, card: str) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the flagship parity protocol (scripts/flagship_parity.py)
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_STEPS = 60  # phase 16's training steps (the script's own default is 1000)
+FLAGSHIP_REL = 5e-2  # each fast mode's mel against fp32: a ceiling against a broken path
+
+
+def flagship_launches(mode: str) -> dict[str, int]:
+    """The launches of one utterance of the flagship protocol (batch 1, 22
+    blocks x 16 steps, no duration or pad mask) in a mode of
+    scripts/flagship_parity.py: fp32 weights the fp32 forms of A and B a
+    block and of C twice a step; bf16 A, B, C; int8 weights 5, A, 6 and 4 a
+    block and C; int8 attention kernel 14 and its pass in A's place."""
+    per = DEPTH * STEPS
+    if mode == "fp32":
+        return fp32_path_launches("default", None, False, per, STEPS)
+    if mode == "bf16":
+        return expected_launches("bf16", 1)
+    attn = {"flash_prefix": per}
+    if mode.startswith("int8+"):
+        attn = {"flash_prefix_i8": per, "flash_prefix_i8_quant": per}
+    return launches_of(**attn, ln_mod_matmul_int8=per, proj_gated_residual_int8=per,
+                       ff_block_int8=per, grouped_conv=2 * STEPS)
+
+
+def phase16_flagship(dev, card: str) -> dict[str, int]:
+    """Phase 16: scripts/flagship_parity.py at F5TTS_Base's full width and
+    depth: (a) its modes card and card_int8attn on seeded weights; (b)
+    trained_flagship cut to FLAGSHIP_STEPS steps (bf16 compute, remat
+    "dots", its checkpoint written to a temporary directory): the last loss
+    below the first and the gates' mean |w| above 0. Every utterance's and
+    every training step's launches exact, every mel finite (each deviation
+    and mean |mel| a finite number), each fast mode within FLAGSHIP_REL of
+    fp32 by relative L2 over the valid rows; the protocol's MAE and rel
+    printed beside it."""
+    import tempfile
+
+    from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.scripts import flagship_parity as fp
+
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts: dict[str, int]) -> None:
+        for k, n in counts.items():
+            total[k] += n
+
+    def hold(label: str, entry: dict, modes) -> None:
+        for mode, got in entry["launches"].items():
+            want = {k: n for k, n in flagship_launches(mode).items() if n}
+            if got != want:
+                fail(f"phase 16 {label} {mode}: launches {got}, expected {want}")
+            add(got)
+        pairs = [f"{m}_vs_fp32" for m in modes]
+        if "int8_vs_bf16" in entry:
+            pairs.append("int8_vs_bf16")
+        print(f"  {label} (n {entry['n']}, cond {entry['cond_len']}, {entry['nfe']} NFE): "
+              f"mean |fp32 mel| {entry['mean_abs_mel_fp32']:.6f} [{card}]")
+        for pair in pairs:
+            r = entry[pair]
+            print(f"    {pair}: mel MAE {r['mel_mae']:.6f}, rel {r['rel']:.6f} (north star "
+                  f"{fp.NORTH_STAR:.0e}), rel L2 {r['rel_l2']:.4e}"
+                  + (f" (bound {FLAGSHIP_REL:.0e})" if pair.endswith("_vs_fp32") else ""))
+            if not all(math.isfinite(x) for x in (*r.values(), entry["mean_abs_mel_fp32"])):
+                fail(f"phase 16 {label} {pair}: a mel is not finite")
+            if pair.endswith("_vs_fp32") and r["rel_l2"] > FLAGSHIP_REL:
+                fail(f"phase 16 {label} {pair}: relative L2 {r['rel_l2']:.3e} to fp32")
+
+    step_want = {k: n for k, n in launches_of(
+        flash_prefix_lse=DEPTH, flash_prefix_dq_lsein=DEPTH, flash_prefix_dkv=DEPTH).items() if n}
+
+    def hold_step(i: int, loss, got: dict[str, int]) -> None:
+        if i % 10 == 9:
+            print(f"    step {i} loss {float(loss):.4f}", flush=True)
+        if got != step_want:
+            fail(f"phase 16 (b) step {i}: launches {got}, expected {step_want} ('dots')")
+        add(got)
+
+    print(f"phase 16: the flagship parity protocol (F5TTS_Base, {fp.ARCH}) [{card}]")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card_entry = fp.run_card(dev)
+    hold("(a) card, seeded weights", card_entry["flagship_card_fast_modes"], fp.CARD_MODES)
+    attn_entry = fp.run_card_int8attn(dev)
+    hold("(a) card_int8attn, seeded weights", attn_entry["flagship_card_int8_attn"],
+         fp.INT8ATTN_MODES)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trained_entry = fp.run_trained_flagship(dev, steps_trained=FLAGSHIP_STEPS,
+                                                ckpt=Path(tmp) / "trained.npz", hold=hold_step)
+    trained = trained_entry["flagship_trained_fast_modes_vs_fp32"]
+    print(f"  (b) trained_flagship, {FLAGSHIP_STEPS} steps at 8 x 1280 (bf16, 'dots'): loss "
+          f"{trained['loss_first']:.4f} -> {trained['loss_last']:.4f}, gates' mean |w| "
+          f"{trained['adaln_attn_mod_w_mean_abs']:.4e}, {trained['s_per_step']:.4f} s a step "
+          f"after the first; launches a step {step_want} [{card}]")
+    if not trained["loss_last"] < trained["loss_first"]:
+        fail("phase 16 (b): the loss did not fall")
+    if not trained["adaln_attn_mod_w_mean_abs"] > 0.0:
+        fail("phase 16 (b): the AdaLN-zero gates did not open")
+    hold(f"(b) trained_flagship, {FLAGSHIP_STEPS} steps", trained,
+         fp.CARD_MODES + fp.INT8ATTN_MODES)
+    if launch_counts() != total:
+        fail(f"phase 16: launches {launch_counts()} besides the held ones {total}")
+    for entry in (card_entry, attn_entry, trained_entry):
+        print(json.dumps(entry))
+    print(f"  phase 16: (a) {t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                         help="comma-separated phases to run (default: all)")
     parser.add_argument("--profile", type=Path, default=None,
                         help="also profile one bench-protocol utterance per mode, an int8 "
@@ -7517,6 +7641,11 @@ def main(argv=None) -> int:
             counts[name] += n
         torch.cuda.empty_cache()
         mark("15")
+    if 16 in phases:  # before 6: the profiler slows every launch after it
+        for name, n in phase16_flagship(dev, card).items():
+            counts[name] += n
+        torch.cuda.empty_cache()
+        mark("16")
     lora_profile = None
     if 10 in phases:  # before 6: the profiler slows every launch after it
         phase10_counts, lora_profile = phase10_finetune(dev, card)

@@ -8,7 +8,12 @@ same submissions the same batches, through the C++ batcher and the Python
 one alike.
 """
 
+import contextlib
+import importlib.util
+import io
+import json
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,6 +22,7 @@ from korean_f5_tts_tpu.serving import native as jnative
 from korean_f5_tts_tpu.text import vocab as jvocab
 from korean_f5_tts_tpu.text.g2p_ko import g2p as jax_g2p
 from korean_f5_tts_tpu.text.vocab import KOREAN_TOKENIZER_NAMES
+from korean_f5_tts_tpu_torch.scripts import g2p_corpus_audit, pinyin_coverage
 from korean_f5_tts_tpu_torch.serving import native as pnative
 from korean_f5_tts_tpu_torch.text import vocab as pvocab
 from korean_f5_tts_tpu_torch.text.g2p_ko import g2p as port_g2p
@@ -128,3 +134,35 @@ def test_the_library_is_built_from_the_ports_own_source():
     path = cuda_build.build_host_library("f5_runtime.cpp", "libf5runtime")
     assert path.parent == cuda_build.BUILD_DIR and path.exists()
     assert (cuda_build.CSRC / "f5_runtime.cpp").exists()
+
+
+def _jax_script(name: str):
+    """The repository's scripts/<name>.py, loaded by path (scripts/ is no package)."""
+    path = Path(__file__).resolve().parent.parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"jax_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _printed(main):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = main()
+    return result, out.getvalue()
+
+
+def test_g2p_corpus_audit_prints_the_originals_counts():
+    want, want_out = _printed(_jax_script("g2p_corpus_audit").main)
+    got, got_out = _printed(g2p_corpus_audit.main)
+    assert got == want and got[1] >= 150
+    assert got_out == want_out  # the per-class table and every mismatch
+
+
+def test_pinyin_coverage_prints_the_originals_json():
+    jax_script = _jax_script("pinyin_coverage")
+    assert pinyin_coverage.SAMPLE == jax_script.SAMPLE
+    _, want_out = _printed(jax_script.main)
+    got, got_out = _printed(pinyin_coverage.main)
+    assert json.loads(got_out.splitlines()[-1]) == json.loads(want_out.splitlines()[-1]) == got
+    assert got["sample_hanzi_tokens"] > 800
