@@ -3026,6 +3026,31 @@ def expected_launches(mode: str, batches: int, attn_path: str = "default",
     return want
 
 
+# each bf16 counter's fp32 form: cfm_sample keeps cond's fp32 beside bf16 or
+# int8 weights (models/cfm.py:weights_at), so every kernel takes its fp32
+# form there; kernels 4, 5, 6 and 9 take fp32 rows under their own counters
+F32_FORMS = {"flash_prefix": "flash_prefix_f32", "ff_block": "ff_block_f32",
+             "grouped_conv": "grouped_conv_f32", "ln_mod_matmul": "ln_mod_matmul_f32",
+             "proj_gated_residual": "proj_gated_residual_f32",
+             "flash_prefix_rope": "flash_prefix_rope_f32",
+             "flash_prefix_qkv": "flash_prefix_qkv_f32",
+             "flash_prefix_i8_quant": "flash_prefix_i8_quant_f32",
+             "grouped_conv_g8": "grouped_conv_f32_g8"}
+
+
+def on_fp32_rows(want: dict[str, int], attn_int8: str | None = None) -> dict[str, int]:
+    """The launches `want` of a path at bf16 activations, run at fp32 ones:
+    each kernel's fp32 form (kernel 14 by attn_int8: "qkpv" on the int8
+    core with an fp32 epilogue, "qk" split 3xTF32)."""
+    forms = dict(F32_FORMS, flash_prefix_i8={"qkpv": "flash_prefix_i8_f32",
+                                             "qk": "flash_prefix_i8_qk_f32"}.get(attn_int8, ""))
+    out = dict.fromkeys(want, 0)
+    for name, n in want.items():
+        if n:
+            out[forms.get(name, name)] += n
+    return out
+
+
 def phase3_serve(model, vocoder, mode: str, attn_path: str = "default",
                  attn_int8: str | None = None, warm: bool = False,
                  want_per_batch: dict[str, int] | None = None,
@@ -3382,7 +3407,7 @@ def offline_fp32(dev, card: str, ref_path: str, chunks, want_samples: int, frame
     err = rel(specs[False], spec_plain)
     print(f"  fp32 mel, kernels vs the same path's plain versions (cuDNN TF32 off): rel "
           f"{err:.3e} (bound {F32_REL:.0e}: fp32 sums in another order, nothing rounded below "
-          f"fp32); fp32 vs the bf16 path's mel: "
+          f"fp32); fp32 vs the bf16 weights' mel: "
           f"{rel(specs[False], spec_bf16):.3e} (printed, not gated)")
     # the one cuDNN convolution of this path is Vocos's input convolution (conv-pos is
     # kernel C, the depthwise convolutions are shifted multiply-adds): the mel cannot move
@@ -3743,7 +3768,8 @@ def phase8_offline(dev, card: str) -> dict[str, int]:
     from korean_f5_tts_tpu_torch.models.dit import redraw_zero_init
     from korean_f5_tts_tpu_torch.ops import KERNELS, launch_counts, reset_launch_counts
 
-    print("phase 8: the offline entry point, F5TTS(F5TTS_v1_Base, device='cuda', bf16).infer")
+    print("phase 8: the offline entry point, F5TTS(F5TTS_v1_Base, device='cuda', bf16).infer "
+          "(fp32 reference mel: the fp32 forms on the bf16 weights)")
     total = dict.fromkeys(KERNELS, 0)
     nfe = STEPS
     with tempfile.TemporaryDirectory() as tmp:
@@ -3789,9 +3815,11 @@ def phase8_offline(dev, card: str) -> dict[str, int]:
                 attn = "flash_prefix_qkv" if path == "qkv_kernel" else "flash_prefix"
                 want = dict.fromkeys(KERNELS, 0)
                 # without CFG a step is dit_forward, whose FF half-block is plain
-                # products (as in the JAX package): kernel B does not run
+                # products (as in the JAX package): kernel B does not run. The
+                # reference mel is fp32, so the bf16 weights run the fp32 forms
                 want.update({attn: per, "grouped_conv": 2 * nfe * len(chunks),
                              "ff_block": per if cfg_strength > 0 else 0})
+                want = on_fp32_rows(want)
                 sr_file, wav_file = wavfile.read(out_path)
                 rms = float(np.sqrt(np.mean(np.square(wav))))
                 print(f"  {path}, {label}: {secs:.2f} s, {wav.size} samples (expected "
@@ -3833,6 +3861,7 @@ def phase8_offline(dev, card: str) -> dict[str, int]:
             want = dict.fromkeys(KERNELS, 0)  # two groups, each nfe steps of 22 blocks
             want.update({attn: 2 * nfe * DEPTH, "ff_block": 2 * nfe * DEPTH,
                          "grouped_conv": 2 * 2 * nfe})
+            want = on_fp32_rows(want)  # fp32 cond beside the bf16 weights
             errs = []
             for i, dur in enumerate(durations):
                 alone, _ = cfm_sample(model.params, model.arch, cond[i:i + 1], text[i:i + 1],
@@ -3852,9 +3881,48 @@ def phase8_offline(dev, card: str) -> dict[str, int]:
                 fail(f"cfm_sample ({path}): expected launches {want}")
             for name, n in counts.items():
                 total[name] += n
+        for name, n in bf16_weights_on_fp32_cond(model, nfe).items():
+            total[name] += n
     del model
     torch.cuda.empty_cache()
     return total
+
+
+def bf16_weights_on_fp32_cond(model, nfe: int) -> dict[str, int]:
+    """cfm_sample with F5TTS_v1_Base's bf16 weights on fp32 cond, one
+    utterance (cond 300, duration 1000, bucket 128: 1024 frames, CFG 2, sway
+    -1): every kernel's fp32 form, launches exact, the mel against the same
+    call's plain versions within F32_REL (fp32 activations on the weights
+    widened once: nothing rounds below fp32 but the weights and the text
+    embedding, alike on both sides)."""
+    import numpy as np
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.cfm import cfm_sample
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    gen = torch.Generator(device=model.device).manual_seed(9)
+    cond = torch.randn((1, 300, 100), generator=gen, device=model.device)
+    text = torch.randint(0, 2000, (1, 60), generator=gen, device=model.device).cpu().numpy()
+    kw = dict(steps=nfe, cfg_strength=2.0, sway_sampling_coef=-1.0, seed=5)
+    reset_launch_counts()
+    mel_k, _ = cfm_sample(model.params, model.arch, cond, text, 1000, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    mel_p, _ = cfm_sample(model.params, model.arch, cond, text, 1000, kernels=False, **kw)
+    want = launches_of(flash_prefix_f32=nfe * DEPTH, ff_block_f32=nfe * DEPTH,
+                       grouped_conv_f32=2 * nfe)
+    err = _rel(mel_k[:, :1000], mel_p[:, :1000])
+    print(f"  cfm_sample, bf16 weights on fp32 cond (cond 300, duration 1000): mel "
+          f"{str(mel_k.dtype).removeprefix('torch.')} {tuple(mel_k.shape)}, kernels vs plain rel "
+          f"{err:.3e} (bound {F32_REL:.0e}); launches {({k: v for k, v in counts.items() if v})}")
+    if mel_k.dtype != torch.float32 or not torch.isfinite(mel_k).all():
+        fail("cfm_sample on fp32 cond beside bf16 weights: not an fp32 mel, or not finite")
+    if err > F32_REL or not np.isfinite(err):
+        fail("cfm_sample on fp32 cond beside bf16 weights disagrees with its plain versions")
+    if counts != want:
+        fail(f"cfm_sample on fp32 cond beside bf16 weights: launches {counts}, expected {want}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3864,10 +3932,12 @@ def phase8_offline(dev, card: str) -> dict[str, int]:
 INT8_ATTN_MODES = ("qk", "qkpv")
 # A two-call path against the fused one on the same request, over the
 # samples more than 32 frames from either end of the generated audio: the
-# same bf16 sampler on the same seeded noise, but the reference mel is
-# computed unpadded on one side and in a padded bucket on the other, the
-# second vocoder call sees only the generated frames (the fused decode the
-# whole utterance), and the fused path rounds to int16.
+# same weights on the same seeded noise, but the two-call path's cfm_sample
+# keeps the reference mel's fp32 (fp32 rows) where the fused path runs
+# all-bf16, the reference mel is computed unpadded on one side and in a
+# padded bucket on the other, the second vocoder call sees only the
+# generated frames (the fused decode the whole utterance), and the fused
+# path rounds to int16.
 TWO_CALL_REL = 5e-2
 
 
@@ -3983,10 +4053,10 @@ def phase9_int8_attention(dev, card: str, profile: Path | None = None) -> dict[s
         sizes = two_call.stats["batch_sizes"]
         if sorted(sizes) != [1, 2]:
             fail(f"two-call service: expected one batch of 1 and one of 2, got {sizes}")
-        per = DEPTH * STEPS
         # _synthesize: cfm_sample at batch 1 (kernels 5, 14, 6, 4); the batch of
-        # 2 carries a duration mask (kernel 9 per projection, 14, 4)
-        c_want = expected_launches("int8", 2, attn_int8="qkpv")
+        # 2 carries a duration mask (kernel 9 per projection, 14, 4); fp32 rows:
+        # cfm_sample keeps the reference mel's fp32
+        c_want = on_fp32_rows(expected_launches("int8", 2, attn_int8="qkpv"), "qkpv")
         print(f"phase 9 (callable vocoder): batches {sizes}; launches {c_counts} (expected "
               f"{c_want})")
         if c_counts != c_want:
@@ -4089,14 +4159,13 @@ def phase9_int8_attention(dev, card: str, profile: Path | None = None) -> dict[s
         lo, hi = int(span[0] * SR / HOP), int(span[1] * SR / HOP)
         kept = np.concatenate([edited[:lo], edited[hi:]])
         kept_in = np.concatenate([mel_in[:lo], mel_in[hi:]])
-        # the kept frames come back through the model's bf16 activations
+        # the kept frames are cond spliced back at its own fp32: the input mel
         kept_err = float(np.abs(kept - kept_in).max())
         moved = float(np.abs(edited[lo:hi] - mel_in[lo:hi]).mean())
         print(f"phase 9 (edit_speech): mel {edited.shape} from {mel_in.shape}, span frames "
               f"[{lo}, {hi}); kept frames differ from the input mel by at most {kept_err:.3e} "
-              f"(bound 6.25e-2, one bf16 ulp at |mel| < 16), edited frames by {moved:.3f} on "
-              "average")
-        if (edited.shape != mel_in.shape or not np.isfinite(edited).all() or kept_err > 6.25e-2
+              f"(bound 1e-6: cond's fp32 spliced back), edited frames by {moved:.3f} on average")
+        if (edited.shape != mel_in.shape or not np.isfinite(edited).all() or kept_err > 1e-6
                 or moved < 0.1):
             fail("edit_speech: wrong shape, or the kept span is not the input mel")
         rows = [{"utt": "row_a", "text": "The first row of the batch."},
@@ -5447,7 +5516,88 @@ def phase12_worker(rank: int) -> None:
     # (g) the MMDiT's tp 2 train state as a sharded checkpoint
     sharded_checkpoint("(g)", "the MMDiT's tp 2 train state", params,
                        must_hold=("to_q_c", "to_out_c", "ff_c"))
+    del params
+    torch.cuda.empty_cache()
+    split_heads_case(dev, rank, tp_mesh)
     dist.destroy_process_group()
+
+
+def split_heads_case(dev, rank: int, mesh) -> None:
+    """(i) 3 heads of 64 at tp 2, which the model axis does not divide: each
+    rank gathers the group's q/k/v columns and runs kernel A on every head
+    (10, 11, 13 under autograd), fp32. attention() under a duration mask and
+    joint_attention() against one process on the card (rank 0): the outputs
+    within F32_ATTN_REL, one backward's gradients (the weights' as one
+    vector, x's, c's) within F32_GRAD_REL; each rank's launches exact."""
+    import torch
+
+    from korean_f5_tts_tpu_torch.models.modules import (
+        attention,
+        attention_init,
+        joint_attention,
+    )
+    from korean_f5_tts_tpu_torch.ops import launch_counts, reset_launch_counts
+    from korean_f5_tts_tpu_torch.parallel.mesh import shard_params, unshard_params
+    from korean_f5_tts_tpu_torch.train.checkpoint import flatten_tree, unflatten_tree
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    full = attention_init(gen, 192, 3, 64, dev, context_dim=192)
+    x = torch.randn((2, 1024, 192), generator=gen, device=dev)
+    c = torch.randn((2, 160, 192), generator=gen, device=dev)
+    gx = torch.randn(x.shape, generator=gen, device=dev)
+    gc = torch.randn(c.shape, generator=gen, device=dev)
+    mask = torch.arange(1024, device=dev)[None] < torch.tensor([1024, 900], device=dev)[:, None]
+
+    def run(fn: str, m):
+        p = {k: {n: v.detach().clone().requires_grad_() for n, v in lp.items()}
+             for k, lp in (full if m is None else shard_params(full, m)).items()}
+        xt, ct = x.clone().requires_grad_(), c.clone().requires_grad_()
+
+        def call():
+            if fn == "attention":
+                return (attention(p, xt, 3, mask=mask, mesh=m),)
+            return joint_attention(p, xt, ct, 3, mask=mask, mesh=m)
+
+        reset_launch_counts()
+        with torch.no_grad():
+            fwd = call()
+        outs = call()
+        sum(((o * g).sum() for o, g in zip(outs, (gx, gc))), torch.zeros((), device=dev)).backward()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        grads = {f"{k}/{n}": t.grad for k, lp in p.items() for n, t in lp.items()
+                 if t.grad is not None}
+        if m is not None:
+            grads = flatten_tree(unshard_params(unflatten_tree(grads), m))
+        return fwd, grads, xt.grad, ct.grad, counts
+
+    for fn in ("attention", "joint_attention"):
+        fwd, grads, gxt, gct, counts = run(fn, mesh)
+        want = launches_of(flash_prefix_f32=1, flash_prefix_lse_f32=1,
+                           flash_prefix_dq_lsein_f32=1, flash_prefix_dkv_f32=1)
+        print(f"  [rank {rank}] (i) {fn}, 3 heads of 64 at tp 2: launches "
+              f"{({k: v for k, v in counts.items() if v})}")
+        if counts != want:
+            fail(f"phase 12 (i) {fn}: launches {counts}, expected {want}")
+        if rank != 0:
+            continue
+        fwd1, grads1, gx1, gc1, _ = run(fn, None)
+        out_rel = max(_rel(a, b) for a, b in zip(fwd, fwd1))
+        if grads.keys() != grads1.keys():
+            fail(f"phase 12 (i) {fn}: gradients of {sorted(grads)}, expected {sorted(grads1)}")
+        # the whole weight gradient: to_k's bias alone has a gradient of
+        # rounding noise (a shift of every key leaves the softmax unchanged)
+        pairs = [(torch.cat([grads[k].flatten() for k in grads1]),
+                  torch.cat([grads1[k].flatten() for k in grads1])), (gxt, gx1)]
+        if fn == "joint_attention":
+            pairs.append((gct, gc1))
+        grad_rel = max(_rel(a, b) for a, b in pairs)
+        print(f"  (i) {fn}, 3 heads of 64 at tp 2 (a rank gathers the group's q/k/v columns) "
+              f"against one process, fp32 on the kernels: outputs rel L2 {out_rel:.3e} (bound "
+              f"{F32_ATTN_REL:.0e}), gradients (the weights' whole, x's, c's) at most "
+              f"{grad_rel:.3e} (bound {F32_GRAD_REL:.0e})")
+        if out_rel > F32_ATTN_REL or grad_rel > F32_GRAD_REL:
+            fail(f"phase 12 (i) {fn}: tp 2 over undivided heads disagrees with one process")
 
 
 def phase12_nccl(dev, card: str) -> None:
@@ -6797,7 +6947,7 @@ def phase14_eval(dev, card: str) -> dict[str, int]:
                                                  embed_fn=embed_fn, seed=5)
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = eval_launches(chunks, P14_NFE)
+    want = eval_launches(chunks, P14_NFE, f32=True)  # fp32 reference mels, bf16 weights
     rows = list(csv.DictReader(open(Path(out_dir) / "details.csv", encoding="utf-8")))
     print(f"phase 14 (b) evaluate_one_model, F5TTS_v1_Base bf16, kor_grapheme vocab of "
           f"{vocab_size}, {len(test)} Korean rows ({chunks} chunks) at nfe_step {P14_NFE}, "
@@ -6847,7 +6997,7 @@ def phase14_eval(dev, card: str) -> dict[str, int]:
                                               nfe_step=P14_NFE, seed=11)
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = eval_launches(groups, P14_NFE)
+    want = eval_launches(groups, P14_NFE, f32=True)
     errs = {}
     for it in bucket:
         alone = eval_infer_batch.synthesize_bucket([it], model, None, str(tmp / "alone"),
@@ -6930,18 +7080,20 @@ def phase14_eval(dev, card: str) -> dict[str, int]:
             fail(f"{label}: the kernels {must} did not all run")
         torch.cuda.empty_cache()
 
-    bf16 = ("flash_prefix", "ff_block", "grouped_conv")
-    int8 = ("flash_prefix", "ff_block_int8", "ln_mod_matmul_int8", "proj_gated_residual_int8",
-            "qmatmul", "grouped_conv")
+    bf16 = ("flash_prefix", "ff_block", "grouped_conv")  # serving: all-bf16
+    # cfm_sample on fp32 cond beside bf16 or int8 weights: the fp32 forms
+    f32 = ("flash_prefix_f32", "ff_block_f32", "grouped_conv_f32")
+    int8 = ("flash_prefix_f32", "ff_block_int8", "ln_mod_matmul_int8",
+            "proj_gated_residual_int8", "qmatmul", "grouped_conv_f32")
     script("bench_serving_throughput, concurrency 1 and 2, 4 requests of 10 s",
            bench_serving_throughput.main, ["--concurrency", "1", "2", "--n_requests", "4",
                                            "--gen_seconds", "10"], bf16)
     script("bench_mixed_batch, batch 4, 2 iterations, bf16", bench_mixed_batch.main,
-           ["--batch", "4", "--iters", "2"], bf16)
+           ["--batch", "4", "--iters", "2"], f32)
     script("bench_mixed_batch, batch 4, 2 iterations, int8", bench_mixed_batch.main,
            ["--batch", "4", "--iters", "2", "--int8"], int8)
     script("profile_serving_request, 2 repetitions", profile_serving_request.main,
-           ["--reps", "2"], bf16)
+           ["--reps", "2"], f32)
     script("bench_grpc_live on the in-process client, n 4", bench_grpc_live.main,
            ["--in_process", "--n", "4"], bf16)
     print(f"phase 14: {time.perf_counter() - t_all:.1f} s")
@@ -7357,19 +7509,16 @@ FLAGSHIP_REL = 5e-2  # each fast mode's mel against fp32: a ceiling against a br
 def flagship_launches(mode: str) -> dict[str, int]:
     """The launches of one utterance of the flagship protocol (batch 1, 22
     blocks x 16 steps, no duration or pad mask) in a mode of
-    scripts/flagship_parity.py: fp32 weights the fp32 forms of A and B a
-    block and of C twice a step; bf16 A, B, C; int8 weights 5, A, 6 and 4 a
-    block and C; int8 attention kernel 14 and its pass in A's place."""
+    scripts/flagship_parity.py, all on its fp32 cond (cfm_sample keeps
+    cond's dtype): fp32 and bf16 weights the fp32 forms of A and B a block
+    and of C twice a step; int8 weights 5, A, 6 and 4 a block on fp32 rows
+    and C's fp32 form; int8 attention the fp32 form of kernel 14 and its
+    pass in A's place."""
     per = DEPTH * STEPS
-    if mode == "fp32":
+    if mode in ("fp32", "bf16"):
         return fp32_path_launches("default", None, False, per, STEPS)
-    if mode == "bf16":
-        return expected_launches("bf16", 1)
-    attn = {"flash_prefix": per}
-    if mode.startswith("int8+"):
-        attn = {"flash_prefix_i8": per, "flash_prefix_i8_quant": per}
-    return launches_of(**attn, ln_mod_matmul_int8=per, proj_gated_residual_int8=per,
-                       ff_block_int8=per, grouped_conv=2 * STEPS)
+    attn_int8 = mode.split("+", 1)[1] if mode.startswith("int8+") else None
+    return fp32_path_launches("default", attn_int8, True, per, STEPS)
 
 
 def phase16_flagship(dev, card: str) -> dict[str, int]:

@@ -7,12 +7,16 @@ on `device`: the card by default, and a missing card raises; the CPU runs
 only when the caller names it. `attn_path` (ops/attention.py:ATTN_PATHS)
 picks the attention half's kernels, `attn_int8` (ATTN_INT8: None, "qk",
 "qkpv") the int8 attention kernel in kernel A's place, `compute_dtype` the
-dtype the weights are cast to (None keeps fp32, as the JAX class does: the
-kernels of every attn_path and attn_int8 then run their fp32 forms; bf16
-runs the tensor-core kernels, much faster), and `quantize`
-rewrites the block linears to int8 weights after that cast (the JAX class
-reaches the same through its F5_TTS_INT8 environment variable; here only the
-argument does): kernels 4, 5, 6 and 9 then run on rows of the weights' dtype.
+dtype the weights are cast to (None keeps fp32, as the JAX class does), and
+`quantize` rewrites the block linears to int8 weights after that cast (the
+JAX class reaches the same through its F5_TTS_INT8 environment variable;
+here only the argument does). infer() samples at the reference mel's fp32
+whatever the weights' dtype, as the JAX sampler keeps cond's dtype: bf16 or
+int8 weights are widened once per call (models/cfm.py:weights_at) and every
+kernel of every attn_path and attn_int8 runs its fp32 form (4, 5, 6 and 9
+on fp32 rows). bf16 weights therefore save memory only at rest: while it
+samples, a call holds their fp32 copy beside them, so its peak is above
+that of fp32 weights.
 """
 
 from __future__ import annotations

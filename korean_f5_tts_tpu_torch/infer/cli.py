@@ -2,12 +2,15 @@
 korean_f5_tts_tpu/infer/cli.py): python -m korean_f5_tts_tpu_torch.infer.cli.
 
 Runs on the card unless --device cpu is given (no card raises);
---compute_dtype casts the weights (default: fp32, which every attention path
-and --attn_int8 serve with the fp32 forms of their kernels; bfloat16 runs the
-tensor-core kernels, much faster), --quantize
-rewrites the block linears to int8 weights (kernels 4, 5, 6, 9, which take
-fp32 or bf16 rows), --attn_path picks the attention half's kernels,
---attn_int8 the int8 attention kernel.
+--compute_dtype casts the weights (default: fp32 as loaded). The sampler
+keeps the reference mel's fp32 whatever the weights' dtype, as the JAX
+sampler does, so every attention path and --attn_int8 run the fp32 forms of
+their kernels; bfloat16 rounds the weights and halves their memory at rest
+only: the sampler widens them to fp32 once per call and holds that copy
+beside them while it samples (the all-bf16 function is the servers' fast
+path). --quantize rewrites the block linears to int8 weights
+(kernels 4, 5, 6, 9, here on fp32 rows), --attn_path picks the attention
+half's kernels, --attn_int8 the int8 attention kernel.
 
 Parity with reference `src/f5_tts/infer/infer_cli.py`: argparse + TOML config
 overlay (`:211-252`), multi-voice `[voice]` tag splitting (`:363-382`),
@@ -83,8 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                   help="cast the weights to this dtype (default: float32 as loaded, served "
-                        "by the kernels' fp32 forms; bfloat16 runs the tensor-core kernels)")
+                   help="cast the weights to this dtype (default: float32 as loaded); the "
+                        "sampler keeps the reference mel's fp32 either way, as the JAX "
+                        "sampler, so the kernels' fp32 forms run; bfloat16 saves memory "
+                        "only at rest, each call holding an fp32 copy beside it")
     p.add_argument("--quantize", action="store_true",
                    help="int8 block linears (load_model(..., quantize=True), after the dtype "
                         "cast): kernels 4, 5, 6, 9 on fp32 or bf16 rows")

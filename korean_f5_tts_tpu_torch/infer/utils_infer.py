@@ -78,13 +78,14 @@ VOCODER_BUCKET = 256  # frames; _vocode_bucketed pads the mel to a multiple
 
 
 def vocoder_input(vocoder, mel: np.ndarray, device=None) -> torch.Tensor:
-    """The [b, d, n] mel as the vocoder takes it: on its parameters' device
-    in their dtype when it exposes .params (models.vocos.Vocos), else fp32 on
-    `device` (a plain callable; the model's device, or the CPU when None)."""
+    """The [b, d, n] mel as the vocoder takes it: in its own dtype (a host
+    array: fp32) on the parameters' device when the vocoder exposes .params
+    (models.vocos.Vocos), which then casts each weight to the mel's dtype, as
+    the JAX decode of utils_infer.py:76-107 does; else fp32 on `device` (a
+    plain callable; the model's device, or the CPU when None)."""
     params = getattr(vocoder, "params", None)
     if params is not None:
-        ref = params["head"]["w"]
-        return torch.as_tensor(mel, device=ref.device).to(ref.dtype)
+        return torch.as_tensor(mel, device=params["head"]["w"].device)
     return torch.as_tensor(mel, dtype=torch.float32, device=device)
 
 

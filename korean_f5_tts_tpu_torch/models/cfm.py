@@ -39,6 +39,7 @@ from korean_f5_tts_tpu_torch.config import CFMConfig, DiTConfig, MMDiTConfig, UN
 from korean_f5_tts_tpu_torch.models import dit as dit_mod
 from korean_f5_tts_tpu_torch.models import mmdit as mmdit_mod
 from korean_f5_tts_tpu_torch.models import unett as unett_mod
+from korean_f5_tts_tpu_torch.models.modules import cast_params
 from korean_f5_tts_tpu_torch.models.vocos import vocos_decode
 from korean_f5_tts_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from korean_f5_tts_tpu_torch.utils.misc import (
@@ -256,11 +257,30 @@ def _sample_core_vocos(params: dict, voc_params: dict, arch: DiTConfig, step_con
 
 
 def _compute_dtype(params: dict, default: torch.dtype) -> torch.dtype:
-    """The sampler runs at the model's compute dtype: bf16 weights -> bf16
-    everything (a kernel's operands are all of one dtype); fp32 weights keep
-    `default`."""
+    """The serving fast path's compute dtype: bf16 weights -> bf16
+    everything, cond and noise included; fp32 weights keep `default`. Only
+    _serve_core_vocos casts so (cfm.py:250-257), the served bf16 headline
+    mode; cfm_sample keeps cond's dtype, as the JAX sampler does."""
     return (torch.bfloat16 if any(t.dtype == torch.bfloat16 for t in _leaves(params))
             else default)
+
+
+def weights_at(params: dict, dtype: torch.dtype) -> dict:
+    """The tree the sampler runs at activation dtype `dtype` (cond's): each
+    floating weight narrower than `dtype` (bf16 under fp32 cond) widened to
+    it, once per sampling call, where the JAX package casts it at every use
+    (modules.py:47-55, dit.py:217-229, :440-446, :515-516): bf16 -> fp32 is
+    exact, so the values are JAX's. The text embedding keeps its table's
+    dtype, as JAX embeds from the table as it is (dit.py:132-173); the
+    backbones promote its output where JAX's arithmetic does. int8 weights
+    stay int8 (their rows then fp32, kernels 4, 5, 6, 9), and weights no
+    narrower than `dtype` are left to be cast where they are used. The tree
+    itself is returned when nothing widens."""
+    if not any(t.is_floating_point() and t.dtype != dtype
+               and torch.promote_types(t.dtype, dtype) == dtype
+               for k, v in params.items() if k != "text_embed" for t in _leaves(v)):
+        return params
+    return {k: v if k == "text_embed" else cast_params(v, dtype) for k, v in params.items()}
 
 
 def bucket_text(text: np.ndarray, text_bucket: int, arch=None) -> np.ndarray:
@@ -398,9 +418,11 @@ def cfm_sample(params: dict, arch: DiTConfig,
     fp32 waveform [b, N * hop] when vocoder_fused = (voc_params, VocosConfig)
     is given, else None. Tensors on the parameters' device.
 
-    The work runs on the parameters' device and at their compute dtype (bf16
-    weights -> bf16 activations, which the kernels need; the JAX function
-    keeps cond's dtype). split_by_bucket regroups a mixed-duration batch so
+    The work runs on the parameters' device at cond's dtype, as the JAX
+    function computes it: fp32 cond beside bf16 weights (or int8 weights
+    over bf16) runs fp32 activations on the weights widened once per call
+    (weights_at), so every kernel takes its fp32 form; serve_sample is the
+    all-bf16 path. split_by_bucket regroups a mixed-duration batch so
     that each item runs at its own duration bucket: masked rows are invisible
     to attention either way, but the dense products pay for every padded row.
     The regrouped result is fp32, zero-padded to the longest group.
@@ -413,7 +435,7 @@ def cfm_sample(params: dict, arch: DiTConfig,
     dev = _param_device(params)
     text_host = np.asarray(text.cpu() if isinstance(text, torch.Tensor) else text)
     cond = torch.as_tensor(cond, device=dev)
-    cond = cond.to(_compute_dtype(params, cond.dtype))
+    params = weights_at(params, cond.dtype)
     b, cond_seq_len, d = cond.shape
     lens = np.full((b,), cond_seq_len, np.int64) if lens is None else np.asarray(lens)
     if isinstance(duration, int):

@@ -241,14 +241,17 @@ def precompute_input_static(p: dict, cfg: DiTConfig, cond: torch.Tensor,
                             text_emb_uncond: torch.Tensor) -> torch.Tensor:
     """Loop-invariant part of the CFG input projection, computed once
     (dit.py:201-220): cond @ Wc + text @ Wt + b for the cond half, text-only
-    for the uncond half. Returns [2b, n, dim]."""
+    for the uncond half. Returns [2b, n, dim]. The weights are cast to
+    cond's dtype; the text embedding (its table's dtype) meets Wt at the
+    wider of the two, as JAX's bf16 @ fp32 promotes."""
     w = p["input_proj"]["w"]  # [dim, 2 * mel + text]
     m = cfg.mel_dim
     dt = cond.dtype
     wc, wt = w[:, m:2 * m].t().to(dt), w[:, 2 * m:].t().to(dt)
     b = p["input_proj"]["b"].to(dt)
-    top = cond @ wc + text_emb_cond @ wt + b
-    bottom = text_emb_uncond @ wt + b
+    tdt = torch.promote_types(text_emb_cond.dtype, dt)
+    top = cond @ wc + text_emb_cond.to(tdt) @ wt.to(tdt) + b
+    bottom = text_emb_uncond.to(tdt) @ wt.to(tdt) + b
     return torch.cat([top, bottom], dim=0)
 
 
@@ -418,6 +421,8 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
     attn_int8 ("qk" or "qkpv") replaces kernel A by kernel 14 in every case
     above that runs kernel A; it raises with "rope_in_kernel" and "qkv_kernel".
 
+    long_skip_connection concatenates the block stack's input to its output
+    and projects it back before the final norm (dit.py:340, :522-523).
     Tensor-parallel (`mesh` with a model axis > 1, p this rank's share), as
     dit.py:405-421 and 477-499: the fused attention half runs
     attn_half_block_tp (5, A, 6 or 7, A, 8 on the rank's heads, then the
@@ -429,6 +434,7 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
     """
     check_attn_int8(attn_int8, attn_path)
     rope = _rope_for(attn_path, h, cfg.dim_head)
+    residual = h if cfg.long_skip_connection else None
     prefix_lens = pad_mask.sum(dim=-1, dtype=torch.int32) if pad_mask is not None else None
     ff = ff_block_fused if kernels else ff_block_reference
     ff_int8 = ff_block_fused_int8 if kernels else ff_block_int8_reference
@@ -480,6 +486,8 @@ def dit_backbone_premod(p: dict, cfg: DiTConfig, h: torch.Tensor,
             h = ff(h, scale_mlp, shift_mlp, gate_mlp, fp["in"]["w"].to(h.dtype),
                    fp["in"]["b"].to(h.dtype), fp["out"]["w"].to(h.dtype),
                    fp["out"]["b"].to(h.dtype))
+    if residual is not None:
+        h = linear(p["long_skip"], torch.cat([h, residual], dim=-1))
     scale, shift = mod_final.to(h.dtype).chunk(2)
     h = layernorm({}, h, eps=1e-6) * (1 + scale) + shift
     return linear(p["proj_out"], h)

@@ -23,8 +23,8 @@ attention and the FF on this process's share of a tensor-parallel model:
 its heads and columns, the products per rank, an all-reduce over the model
 group after the row-split product (parallel/tp_kernels.py), and dropout
 masks drawn at the global shape and sliced, so a sharded step equals the
-single-device one. The heads must split evenly over the model axis
-(local_heads raises otherwise).
+single-device one. Where the model axis does not divide the heads, a rank
+gathers the group's q/k/v columns and attends on every head (heads_split).
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ from korean_f5_tts_tpu_torch.ops.attention import (
 from korean_f5_tts_tpu_torch.parallel.mesh import axis_rank, axis_size, model_parallel
 from korean_f5_tts_tpu_torch.parallel.tp_kernels import (
     copy_to_model,
+    gather_from_model,
     local_pe_attn_head,
+    model_columns,
     reduce_from_model,
     reduce_residual,
 )
@@ -368,16 +370,17 @@ def feedforward(p: dict, x: torch.Tensor, dropout_rate: float = 0.0,
 # ---------------------------------------------------------------------------
 
 
-def local_heads(heads: int, mesh) -> int:
-    """This model rank's head count. JAX's XLA computes the whole function
-    where the heads do not split (ops/attention.py:_tp_mesh_for); a rank here
-    holds only its columns, so such a split would cut a head apart: it
-    raises instead."""
-    tp = axis_size(mesh, "model")
-    if heads % tp:
-        raise ValueError(f"{heads} heads do not split over the model axis (tp {tp}): a rank "
-                         "would hold part of a head")
-    return heads // tp
+def heads_split(heads: int, mesh) -> bool:
+    """Whether a tensor-parallel rank attends on its own heads: the model
+    axis divides them. Elsewhere a rank's q/k/v columns cut a head apart,
+    and the rank gathers the group's columns and attends on every head, as
+    XLA computes the whole function where JAX's kernels step aside
+    (ops/attention.py:_tp_mesh_for, parallel/tp_kernels.py:208-209)."""
+    return heads % axis_size(mesh, "model") == 0
+
+
+def _columns(t: torch.Tensor, gather: bool, mesh) -> torch.Tensor:
+    return gather_from_model(t, mesh) if gather else t
 
 
 def _qk_norm_gains(p: dict, mesh, names: tuple[str, ...]) -> dict:
@@ -433,18 +436,23 @@ def attention(p: dict, x: torch.Tensor, heads: int,
     :544, "qkv_kernel" and "rope_in_kernel" then step aside: rope is applied
     in torch and kernel A runs (kernel 14 under attn_int8).
     Tensor-parallel (`mesh` with a model axis > 1): p holds this rank's
-    q/k/v columns and to_out rows, `heads` stays the global count and must
-    split evenly over the model axis (ValueError otherwise); the rank runs
-    every case above on its heads (rope on those whose global index is below
-    pe_attn_head) and sums the out-projection over the model group.
+    q/k/v columns and to_out rows and `heads` stays the global count. Where
+    the model axis divides the heads the rank runs every case above on its
+    heads (rope on those whose global index is below pe_attn_head); where it
+    does not (heads_split), it gathers the group's q/k/v columns
+    (gather_from_model), runs the case on every head and keeps its columns
+    of the merged output. Either way the out-projection sums over the model
+    group.
     """
     check_attn_int8(attn_int8, attn_path)
     tp_on = model_parallel(mesh)
+    gather = tp_on and not heads_split(heads, mesh)
     if tp_on:
-        heads = local_heads(heads, mesh)
         x = copy_to_model(x, mesh)
-        pe_attn_head = local_pe_attn_head(pe_attn_head, mesh, heads)
         p = _qk_norm_gains(p, mesh, ("q_norm", "k_norm"))
+    if tp_on and not gather:
+        heads //= axis_size(mesh, "model")
+        pe_attn_head = local_pe_attn_head(pe_attn_head, mesh, heads)
     attn_mask = mask if (attn_mask_enabled and mask is not None) else pad_mask
     prefix_lens = attn_mask.sum(dim=-1, dtype=torch.int32) if attn_mask is not None else None
     out = None
@@ -453,6 +461,10 @@ def attention(p: dict, x: torch.Tensor, heads: int,
         bqkv = torch.cat([p["to_q"]["b"], p["to_k"]["b"], p["to_v"]["b"]]).to(x.dtype)
         qkv = F.linear(x, wqkv, bqkv)
         inner = p["to_q"]["w"].shape[0]
+        if gather:  # every head's q | k | v, each the group's columns in rank order
+            qkv = torch.cat([gather_from_model(qkv[..., i * inner:(i + 1) * inner], mesh)
+                             for i in range(3)], dim=-1)
+            inner = qkv.shape[-1] // 3
         if attn_path == "qkv_kernel" and rope is not None and "q_norm" not in p and \
                 qkv_kernel_takes(inner // heads):
             out = qkv_fused_sdpa(qkv, heads, rope, pe_attn_head, prefix_lens, kernels=kernels)
@@ -460,7 +472,7 @@ def attention(p: dict, x: torch.Tensor, heads: int,
             q, k, v = (_split_heads(qkv[..., i * inner:(i + 1) * inner], heads)
                        for i in range(3))
     else:
-        q, k, v = (_split_heads(linear(p[n], x, kernels=kernels), heads)
+        q, k, v = (_split_heads(_columns(linear(p[n], x, kernels=kernels), gather, mesh), heads)
                    for n in ("to_q", "to_k", "to_v"))
     if out is None:
         if "q_norm" in p:
@@ -477,6 +489,8 @@ def attention(p: dict, x: torch.Tensor, heads: int,
             core = sdpa(q, k, v, prefix_lens=prefix_lens, kernels=kernels,
                         attn_int8=attn_int8)
         out = _merge_heads(core)
+    if gather:
+        out = model_columns(out, mesh)
     if tp_on:
         out = row_parallel_linear(p["to_out"], out, mesh, kernels=kernels)
     else:
@@ -678,22 +692,25 @@ def joint_attention(p: dict, x: torch.Tensor, c: torch.Tensor, heads: int,
 
     Tensor-parallel (`mesh` with a model axis > 1), as attention(): p holds
     this rank's q/k/v and q_c/k_c/v_c columns and to_out / to_out_c rows,
-    `heads` is the global count and must split evenly; both streams enter
-    through copy_to_model, the rank attends on its heads, and to_out (then
-    to_out_c) sums over the model group. On the context_pre_only block c_out
+    `heads` is the global count; both streams enter through copy_to_model,
+    the rank attends on its heads (on every head, from the group's gathered
+    columns, where the model axis does not divide them, as attention()),
+    and to_out (then to_out_c) sums over the model group. On the context_pre_only block c_out
     is this rank's heads unprojected, which mmdit_block drops: no collective
     is issued for it, so every rank issues the same ones in the same order.
     """
     check_attn_int8(attn_int8)
     tp_on = model_parallel(mesh)
+    gather = tp_on and not heads_split(heads, mesh)
     if tp_on:
-        heads = local_heads(heads, mesh)
         x, c = copy_to_model(x, mesh), copy_to_model(c, mesh)
         p = _qk_norm_gains(p, mesh, ("q_norm", "k_norm", "c_q_norm", "c_k_norm"))
+    if tp_on and not gather:
+        heads //= axis_size(mesh, "model")
     n_c = c.shape[1]
-    q, k, v = (_split_heads(linear(p[n], x, kernels=kernels), heads)
+    q, k, v = (_split_heads(_columns(linear(p[n], x, kernels=kernels), gather, mesh), heads)
                for n in ("to_q", "to_k", "to_v"))
-    cq, ck, cv = (_split_heads(linear(p[n], c, kernels=kernels), heads)
+    cq, ck, cv = (_split_heads(_columns(linear(p[n], c, kernels=kernels), gather, mesh), heads)
                   for n in ("to_q_c", "to_k_c", "to_v_c"))
     if "q_norm" in p:
         q, k = rmsnorm(p["q_norm"], q), rmsnorm(p["k_norm"], k)
@@ -720,8 +737,10 @@ def joint_attention(p: dict, x: torch.Tensor, c: torch.Tensor, heads: int,
             return row_parallel_linear(lp, h, mesh, kernels=kernels)
         return linear(lp, h, kernels=kernels)
 
-    x_out = out_proj(p["to_out"], _merge_heads(x_out))
-    c_out = _merge_heads(c_out)
+    x_out, c_out = _merge_heads(x_out), _merge_heads(c_out)
+    if gather:
+        x_out, c_out = model_columns(x_out, mesh), model_columns(c_out, mesh)
+    x_out = out_proj(p["to_out"], x_out)
     if not context_pre_only:
         c_out = out_proj(p["to_out_c"], c_out)
     if mask is not None:

@@ -11,8 +11,9 @@ torch.distributed.device_mesh.DeviceMesh over every process with the dims
   - tensor parallel (the reference's TRT-LLM head split): each model rank
     holds its columns of to_q/k/v and ff/in and its rows of to_out and
     ff/out (shard_params), runs the kernels on its heads and columns and
-    all-reduces over the model group (parallel/tp_kernels.py). The heads
-    must split evenly (models/modules.py:local_heads raises otherwise).
+    all-reduces over the model group (parallel/tp_kernels.py). Where the
+    model axis does not divide the heads, each rank gathers the group's
+    q/k/v columns and attends on every head (models/modules.py:heads_split).
 
 Every backbone takes both: the DiT, the UNetT (its layers' attn and ff;
 skip_proj replicated) and the MMDiT (to_q_c/k_c/v_c and ff_x/in, ff_c/in

@@ -25,11 +25,15 @@ is not the second: its backward all-reduces the gradient too, which would
 multiply a replicated loss's gradient by tp. reduce_residual is the fused
 form: its backward hands the residual -(tp - 1) / tp of the gradient on each
 rank, so that the copy_to_model sum over ranks gives h exactly one.
+gather_from_model puts the ranks' q/k/v columns side by side where the heads
+do not split over the model axis (models/modules.py:attention): each rank
+then attends on every head, as XLA computes the whole function there.
 
 Each function returns None where the JAX shape predicate fails (heads or
-columns that do not split, rows not a multiple of bm, a head dim or length
-the kernel does not take); the caller then takes the per-rank route of plain
-products (models/modules.py), as JAX takes its unfused one.
+columns that do not split, JAX tp_kernels.py:208-209; rows not a multiple
+of bm; a head dim or length the kernel does not take); the caller then
+takes the per-rank route of plain products (models/modules.py), as JAX
+takes its unfused one.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from korean_f5_tts_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+from korean_f5_tts_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size, gather_model
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -85,6 +89,28 @@ class _ReduceResidual(torch.autograd.Function):
         return g, g * (-(ctx.tp - 1) / ctx.tp), None, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """The model group's column slices of x side by side on every rank:
+    forward, mesh.gather_model (an all-gather; through the host under gloo);
+    backward, the gradient summed over the group (every rank's loss reads
+    every column) and this rank's columns kept. That all-reduce moves about
+    twice the bytes of a reduce-scatter, which gloo lacks; no shipped preset
+    takes this path (their heads divide by 2 and 4)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rank, ctx.tp = axis_rank(mesh, "model"), axis_size(mesh, "model")
+        ctx.group = axis_group(mesh, "model")
+        return gather_model(x, mesh, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        c = g.shape[-1] // ctx.tp
+        return g[..., ctx.rank * c:(ctx.rank + 1) * c].contiguous(), None
+
+
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     return _CopyToModel.apply(x, axis_group(mesh, "model"))
 
@@ -95,6 +121,19 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def reduce_residual(out: torch.Tensor, h: torch.Tensor, mesh) -> torch.Tensor:
     return _ReduceResidual.apply(out, h, axis_size(mesh, "model"), axis_group(mesh, "model"))
+
+
+def gather_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """[..., c] on each model rank -> [..., c * tp], the ranks' columns in
+    rank order (_GatherFromModel)."""
+    return _GatherFromModel.apply(x, mesh)
+
+
+def model_columns(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This model rank's share of the last dim of a replicated x."""
+    c = x.shape[-1] // axis_size(mesh, "model")
+    r = axis_rank(mesh, "model")
+    return x[..., r * c:(r + 1) * c]
 
 
 def local_pe_attn_head(pe_attn_head: int | None, mesh, heads_local: int) -> int | None:

@@ -165,8 +165,10 @@ def fast_mode_deviation(params: dict, cfg: DiTConfig, cond: np.ndarray, text: np
     as deviation() dicts over the whole [1, n, mel], mean|fp32 mel| and
     each sampling's kernel launches; mels the fp32 [1, n, mel] of each.
 
-    Rows [0, c) are cond spliced back at fp32 in every mode, as the JAX
-    sampler splices cond at its own dtype (the port's at the weights')."""
+    cond is fp32, so every mode samples fp32 activations, as the JAX
+    sampler keeps cond's dtype: the bf16 and int8 modes differ from fp32 by
+    their weights' rounding alone (models/cfm.py:weights_at). Rows [0, c)
+    are cond spliced back, fp32 in every mode."""
     n, c = y0.shape[1], cond.shape[1]
     y0_t = torch.as_tensor(y0, device=_device_of(params))
     bf16 = cast_params(params, torch.bfloat16)

@@ -556,9 +556,12 @@ def add_model_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                        help="cast the weights to this dtype (every kernel takes either: "
-                             "float32 runs their fp32 forms; default: bfloat16 on cuda, float32 "
-                             "on cpu)")
+                        help="cast the weights to this dtype (default: bfloat16 on cuda, "
+                             "float32 on cpu): the fused-vocoder fast path runs the whole "
+                             "graph at it (bf16: the bf16 kernels; float32: their fp32 "
+                             "forms); a callable vocoder's path keeps the reference mel's "
+                             "fp32 beside either, as the JAX sampler, and holds an fp32 "
+                             "copy of bf16 weights while it samples")
     parser.add_argument("--quantize", action="store_true",
                         help="int8 block linears (load_model(..., quantize=True)): kernels 4, 5, "
                              "6, 9 on rows of the compute dtype")

@@ -180,23 +180,37 @@ def orbax_round_trip(mesh, flat, ckpt_dir):
 
 
 @case
-def split_heads(mesh, x, c, attn, heads):
+def split_heads(mesh, x, c, attn, heads, gx, gc):
     """attention() and joint_attention() at `heads` heads whose count the
-    model axis does not divide: the errors they raise; and attention() run
-    at heads - 1 global heads on the same shares, which is what the old
-    floor division ran (one head of the rank's whole column width a rank)."""
+    model axis does not divide, each on this rank's shares: the replicated
+    outputs, then the gradients of sum(out * gx) (+ sum(c_out * gc)) as
+    whole tensors (the weights' gathered from the ranks' shares, x's and
+    c's summed by copy_to_model)."""
     from korean_f5_tts_tpu_torch.models.modules import attention, joint_attention
 
-    p = shard_params({"attn": tensors(attn)}, mesh)["attn"]
-    x, c = torch.from_numpy(x), torch.from_numpy(c)
-    errors = {}
-    for name, fn in (("attention", lambda: attention(p, x, heads, mesh=mesh)),
-                     ("joint_attention", lambda: joint_attention(p, x, c, heads, mesh=mesh))):
-        try:
-            fn()
-        except ValueError as e:
-            errors[name] = str(e)
-    return {"errors": errors, "floor_split": attention(p, x, heads - 1, mesh=mesh).numpy()}
+    out = {}
+    for name in ("attention", "joint_attention"):
+        p = shard_params({"attn": tensors(attn)}, mesh)["attn"]
+        p = {k: {n: v.detach().clone().requires_grad_() for n, v in lp.items()}
+             for k, lp in p.items()}
+        xt = torch.from_numpy(x).requires_grad_()
+        ct = torch.from_numpy(c).requires_grad_()
+        if name == "attention":
+            outs = (attention(p, xt, heads, mesh=mesh),)
+            loss = (outs[0] * torch.from_numpy(gx)).sum()
+        else:
+            outs = joint_attention(p, xt, ct, heads, mesh=mesh)
+            loss = ((outs[0] * torch.from_numpy(gx)).sum()
+                    + (outs[1] * torch.from_numpy(gc)).sum())
+        loss.backward()
+        grads = {f"{k}/{n}": v.grad for k, lp in p.items() for n, v in lp.items()
+                 if v.grad is not None}
+        whole = pckpt.flatten_tree(unshard_params(
+            {"attn": pckpt.unflatten_tree(grads)}, mesh))
+        out[name] = {"outs": [o.detach().numpy() for o in outs],
+                     "grads": {k: v.numpy() for k, v in whole.items()},
+                     "x": xt.grad.numpy(), "c": None if ct.grad is None else ct.grad.numpy()}
+    return out
 
 
 @case

@@ -7,7 +7,8 @@ Tiny models (dim 64, depth 2, 4 heads x 16) are built by the JAX package,
 their AdaLN-zero layers re-drawn, and handed over through the converter.
 
 Tolerances, with their reasons:
-  - cfm_sample in bf16, 16 steps with CFG (EPSS, sway -1): relative L2 2e-2
+  - cfm_sample in bf16 (bf16 weights and bf16 cond: the sampler keeps
+    cond's dtype), 16 steps with CFG (EPSS, sway -1): relative L2 2e-2
     on the valid rows, the bf16 bound of the port's sampler-step tests
     (tests/test_torch_attn_paths.py BF16_REL): XLA on the CPU rounds bf16 at
     other points than PyTorch (measured 5e-3 to 6e-3 here, against 7e-3
@@ -65,7 +66,8 @@ def test_cfm_sample_bf16_16_steps_matches_jax(backbone, monkeypatch):
     kw = dict(lens=lens, steps=16, cfg_strength=2.0, sway_sampling_coef=-1.0)
     want, _ = jcfm.cfm_sample(jp16, jcfg, jnp.asarray(cond, jnp.bfloat16), text, durs,
                               y0=jnp.asarray(y0, jnp.bfloat16), **kw)
-    got, _ = pcfm.cfm_sample(pp16, pcfg, cond, text, durs, y0=t(y0), duration_bucket=128, **kw)
+    got, _ = pcfm.cfm_sample(pp16, pcfg, t(cond).bfloat16(), text, durs, y0=t(y0),
+                             duration_bucket=128, **kw)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
     assert np.abs(_valid(got.float().numpy(), durs)).max() > 0.1
     assert rel_err(_valid(got.float().numpy(), durs), _valid(want, durs)) < 2e-2

@@ -13,11 +13,14 @@ Tolerances, with their reasons:
   - the corpus, the noise and the cond are equal to the bit: the same numpy
     and torch calls;
   - the fp32 mel: relative L2 1e-5 (fp32 summation order, depth 2);
-  - the bf16 and int8 mels: relative L2 5e-2, the bound of the chip check's
-    phases 4, 7 and 9 (XLA on the CPU keeps fp32 activations beside bf16
-    weights where the port computes in bf16, so the two round at other
-    points); a deviation the port reports and the same deviation of the
-    JAX mels differ by at most that bound in rel;
+  - the bf16 and int8 mels: relative L2 2e-3. Both samplers keep cond's
+    fp32 beside the narrow weights, so only the bf16 text embedding rounds
+    below fp32, and XLA on the CPU rounds its ConvNeXt chain at other points
+    than PyTorch (measured 7.1e-4 and 7.7e-4; given JAX's text embedding the
+    rest of the sampler agrees at 2e-7); a deviation the port reports and
+    the same deviation of the JAX mels differ by at most 5e-2 in rel;
+  - each fast mode's MAE against fp32: within 1.25x of the JAX sampler's
+    (measured 1.035x bf16, 1.038x int8);
   - three fp32 training steps: loss 1e-5, mu, nu and the parameters' change
     relative L2 1e-4, the fp32 bounds of tests/test_torch_train.py;
   - trained_int8: rel 1e-2 for bf16 and int8, the script's north star.
@@ -173,12 +176,22 @@ def sampled(jax_flat):
     return entry, mels, jax_mels
 
 
-@pytest.mark.parametrize("mode,bound", [("fp32", 1e-5), ("bf16", 5e-2), ("int8", 5e-2)])
+@pytest.mark.parametrize("mode,bound", [("fp32", 1e-5), ("bf16", 2e-3), ("int8", 2e-3)])
 def test_fast_mode_mels_match_the_jax_sampler(sampled, mode, bound):
     entry, mels, jax_mels = sampled
     assert mels[mode].shape == jax_mels[mode].shape == (1, N, 100)
     assert rel_err(mels[mode], jax_mels[mode]) < bound, mode
     assert entry["launches"][mode] == {}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_fast_mode_error_against_fp32_is_the_jax_samplers(sampled, mode):
+    """The deviation a fast mode reports is the JAX sampler's: the port's
+    MAE against its fp32 mel within 1.25x of JAX's against JAX's fp32."""
+    _, mels, jax_mels = sampled
+    ours = float(np.mean(np.abs(mels[mode] - mels["fp32"])))
+    theirs = float(np.mean(np.abs(jax_mels[mode] - jax_mels["fp32"])))
+    assert 0.0 < ours < 1.25 * theirs, (mode, ours, theirs)
 
 
 @pytest.mark.parametrize("pair", ["bf16_vs_fp32", "int8_vs_fp32", "int8_vs_bf16"])

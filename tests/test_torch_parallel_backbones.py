@@ -25,8 +25,11 @@ What is held, with its bound:
   - Trainer(mesh=1 x 2) on the UNetT, dropout on, against Trainer() on one
     process: losses and weights 1e-5;
   - the partition rules on whole UNetT and MMDiT trees against JAX's, an
-    orbax round trip of an MMDiT tp-2 train state to the bit, and the raise
-    where the heads do not split over the model axis.
+    orbax round trip of an MMDiT tp-2 train state to the bit;
+  - attention() and joint_attention() at 3 heads of 16 under tp 2 (the
+    model axis does not divide the heads) against one process and against
+    JAX's functions: outputs 1e-5, one backward's gradients (the weights'
+    whole, x's, c's) 1e-4.
 """
 
 import numpy as np
@@ -51,7 +54,7 @@ from korean_f5_tts_tpu.train.checkpoint import flatten_tree, unflatten_tree
 from korean_f5_tts_tpu_torch import config as pconfig
 from korean_f5_tts_tpu_torch.models import cfm as pcfm
 from korean_f5_tts_tpu_torch.models.mmdit import init_mmdit
-from korean_f5_tts_tpu_torch.models.modules import attention
+from korean_f5_tts_tpu_torch.models.modules import attention, joint_attention
 from korean_f5_tts_tpu_torch.models.unett import init_unett
 from korean_f5_tts_tpu_torch.parallel.mesh import param_partition_spec
 from korean_f5_tts_tpu_torch.train import checkpoint as pckpt
@@ -198,7 +201,7 @@ def _one_process_trainer(flat, arch, ckpt_dir) -> dict:
 
 def _split_heads_inputs() -> dict:
     """One attention's weights at 3 heads of 16, with the context stream's
-    (JAX layout), and the two streams' activations."""
+    (the port's layout), and the two streams' activations."""
     rng = np.random.default_rng(9)
     dim, inner = 32, 48
     lin = lambda d_in, d_out: {  # noqa: E731
@@ -210,7 +213,38 @@ def _split_heads_inputs() -> dict:
     port = pckpt.params_from_jax(flat, device="cpu")["attn"]
     return {"x": rng.standard_normal((2, 20, dim)).astype(np.float32),
             "c": rng.standard_normal((2, 7, dim)).astype(np.float32), "heads": 3,
-            "attn": {k: {n: v.numpy() for n, v in lp.items()} for k, lp in port.items()}}
+            "attn": {k: {n: v.numpy() for n, v in lp.items()} for k, lp in port.items()},
+            "gx": rng.standard_normal((2, 20, dim)).astype(np.float32),
+            "gc": rng.standard_normal((2, 7, dim)).astype(np.float32)}
+
+
+def _jax_split_heads(case) -> dict:
+    """JAX's attention() and joint_attention() on the same weights and
+    activations (XLA on the whole function): per function its outputs and
+    the gradients of the test's loss, the weights' in the port's layout
+    (those of the context stream too, zero under attention())."""
+    from korean_f5_tts_tpu.models import modules as jmodules
+
+    attn = pckpt.params_to_jax({"attn": {k: {n: torch.from_numpy(v) for n, v in lp.items()}
+                                          for k, lp in case["attn"].items()}})
+    attn = jax.tree_util.tree_map(jnp.asarray, unflatten_tree(attn))["attn"]
+    heads, gx, gc = case["heads"], jnp.asarray(case["gx"]), jnp.asarray(case["gc"])
+    fns = {"attention": lambda p, x, c: (jmodules.attention(p, x, heads),),
+           "joint_attention": lambda p, x, c: jmodules.joint_attention(p, x, c, heads)}
+    out = {}
+    for name, fn in fns.items():
+        def loss(p, x, c, fn=fn):
+            outs = fn(p, x, c)
+            return sum(jnp.sum(o * g) for o, g in zip(outs, (gx, gc))), outs
+
+        (_, outs), (gp, gx_, gc_) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+            attn, jnp.asarray(case["x"]), jnp.asarray(case["c"]))
+        grads = pckpt.flatten_tree(pckpt.params_from_jax(
+            {f"attn/{k}": np.asarray(v) for k, v in flatten_tree(gp).items()}, device="cpu"))
+        out[name] = {"outs": [np.asarray(o) for o in outs],
+                     "grads": {k: v.numpy() for k, v in grads.items()},
+                     "x": np.asarray(gx_), "c": np.asarray(gc_)}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -256,6 +290,7 @@ def run(tmp_path_factory):
                                                                attn_int8="qkpv")
     want["unett_trainer"] = _one_process_trainer(flats["unett"], _arch("unett"),
                                                  str(base / "one_trainer"))
+    want["split_heads_jax"] = _jax_split_heads(heads_case)
     return {"ranks": wait(), "want": want, "heads_case": heads_case}
 
 
@@ -389,15 +424,46 @@ def test_sharded_mmdit_checkpoint_round_trip_is_exact(run):
 
 
 def test_heads_that_the_model_axis_does_not_divide_raise(run):
-    """3 heads of 16 at tp 2: attention() and joint_attention() raise,
-    naming the heads and tp. What the old floor division ran instead (one
-    head of 24 columns a rank) is another function than one process's."""
-    got = run["ranks"][0]["split_heads"]
-    for fn in ("attention", "joint_attention"):
-        assert "3 heads" in got["errors"][fn] and "tp 2" in got["errors"][fn], got["errors"]
+    """3 heads of 16 at tp 2 no longer raise: a rank's 24 q/k/v columns cut
+    head 1 apart, so each rank gathers the group's columns and attends on
+    every head, as XLA computes the whole function where JAX's kernels step
+    aside. attention() and joint_attention() equal one process of the port
+    and JAX's functions on the same weights: the outputs at 1e-5, one
+    backward's gradients (the weights' as one vector, x's, c's) at 1e-4."""
     case = run["heads_case"]
-    p = {k: {n: torch.from_numpy(v) for n, v in lp.items()} for k, lp in case["attn"].items()}
-    one = attention(p, t(case["x"]), 3).numpy()
-    floor = [r["split_heads"]["floor_split"] for r in run["ranks"]]
-    np.testing.assert_array_equal(floor[0], floor[1])
-    assert rel_err(floor[0], one) > 1e-2
+    heads, gx, gc = case["heads"], t(case["gx"]), t(case["gc"])
+    for fn in ("attention", "joint_attention"):
+        p = {k: {n: torch.from_numpy(v.copy()).requires_grad_() for n, v in lp.items()}
+             for k, lp in case["attn"].items()}
+        x, c = t(case["x"]).requires_grad_(), t(case["c"]).requires_grad_()
+        if fn == "attention":
+            outs = (attention(p, x, heads),)
+            loss = (outs[0] * gx).sum()
+        else:
+            outs = joint_attention(p, x, c, heads)
+            loss = (outs[0] * gx).sum() + (outs[1] * gc).sum()
+        loss.backward()
+        want = {f"attn/{k}/{n}": v.grad.numpy() for k, lp in p.items() for n, v in lp.items()
+                if v.grad is not None}
+        for r in run["ranks"]:
+            got = r["split_heads"][fn]
+            assert len(got["outs"]) == len(outs)
+            for g, w in zip(got["outs"], outs):
+                assert rel_err(g, w.detach().numpy()) < REL, fn
+            assert got["grads"].keys() == want.keys(), fn
+            # the whole weight gradient: to_k's bias alone has a gradient of
+            # rounding noise (a shift of every key leaves the softmax unchanged)
+            whole = np.concatenate([got["grads"][k].ravel() for k in want])
+            assert rel_err(whole, np.concatenate([w.ravel() for w in want.values()])) < \
+                UPDATE_REL, fn
+            assert rel_err(got["x"], x.grad.numpy()) < UPDATE_REL, fn
+            if fn == "joint_attention":
+                assert rel_err(got["c"], c.grad.numpy()) < UPDATE_REL
+            jx = run["want"]["split_heads_jax"][fn]
+            for g, w in zip(got["outs"], jx["outs"], strict=True):
+                assert rel_err(g, w) < REL, fn
+            assert rel_err(whole, np.concatenate([jx["grads"][k].ravel() for k in want])) < \
+                UPDATE_REL, fn
+            assert rel_err(got["x"], jx["x"]) < UPDATE_REL, fn
+            if fn == "joint_attention":
+                assert rel_err(got["c"], jx["c"]) < UPDATE_REL
